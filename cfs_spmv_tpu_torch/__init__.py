@@ -1,15 +1,16 @@
 """cfs_spmv_tpu_torch — the PyTorch + CUDA port of ``cfs_spmv_tpu``.
 
-The tuned symmetric fp32 SpMV path of the JAX/Pallas package, on PyTorch
-tensors with hand-written Hopper (sm_90a) kernels for the Pallas kernels
-that path reaches (``ops/``, sources in ``csrc/spmv_kernels.cu``). The
-host planners (``formats/``, ``native/``, ``tuning/reorder.py``,
+The fp32 SpMV paths of the JAX/Pallas package — the tuned symmetric
+path with its paired stream, and the general path — on PyTorch tensors
+with hand-written Hopper (sm_90a) kernels for the Pallas kernels those
+paths reach (``ops/``, sources in ``csrc/spmv_kernels.cu``). The host
+planners (``formats/``, ``native/``, ``tuning/reorder.py``,
 ``io/mmf.py``, ``utils/``) are copies of the reference's, held
 byte-identical to it by ``tests/test_torch_formats.py``.
 
 Usage::
 
-    A = SparseMatrix.create(csr_or_coo_or_path, Format.SSS)
+    A = SparseMatrix.create(csr_or_coo_or_path, Format.SSS)  # or CSR
     y = SpDMV(A, Tuning.AGGRESSIVE, dtype=np.float32, device="cuda")(x)
 
 Nothing here imports JAX, and nothing CUDA-specific runs at import time:

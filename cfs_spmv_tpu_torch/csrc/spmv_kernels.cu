@@ -1,5 +1,6 @@
-// Hand-written Hopper (sm_90a) kernels of the tuned symmetric fp32 SpMV
-// path: the CUDA counterparts of the Pallas kernels that path reaches.
+// Hand-written Hopper (sm_90a) kernels of the fp32 SpMV paths (the tuned
+// symmetric path, its paired stream and the general path): the CUDA
+// counterparts of the Pallas kernels those paths reach.
 //
 // Plain C interface (no PyTorch headers), compiled by nvcc into a shared
 // library and loaded with ctypes by cfs_spmv_tpu_torch/ops/_cuda.py. Every
@@ -11,7 +12,7 @@
 // slot grid; lane j of chunk c holds entries of row tile
 // step_block[c / K] * BT + meta[c, 0]; x is read as (x_rows, 128) tiles.
 //
-// All three kernels move little data per operation (one multiply-add per
+// All kernels move little data per operation (one multiply-add per
 // 4-byte value plus its index bytes), so each is bound by device-memory
 // bytes, not arithmetic. Their designs keep loads coalesced along the 128
 // lanes and leave reuse of re-read bytes to the 50 MB L2; tiling through
@@ -64,6 +65,36 @@ __global__ void sdia_sym_kernel(const float* __restrict__ vals,
       const int64_t vi = ((h >> 10) * D + j) * kBlockRows + (h & (kBlockRows - 1));
       acc = fmaf(vals[vi], x[h], acc);
     }
+  }
+  y[g] += acc;
+}
+
+// ---------------------------------------------------------------------------
+// sdia_gen — replaces cfs_spmv_tpu/ops/sdia_kernel.py:sdia_gen_tiles.
+//
+// y += A_dia x over D dense diagonals with SIGNED offsets d_j (d > 0 reads
+// behind, d < 0 ahead, d = 0 the main diagonal), row side only: one thread
+// per output row g < n_rows sums v_j[g] * x[g - d_j], reading zero where
+// g - d_j falls outside x. Same value layout as sdia_sym; mirrored
+// symmetric plans carry their transpose planes host-shifted, so the kernel
+// does no mirroring. n_rows = min(y_len, R * 1024): rows of y past the
+// value blocks keep their value. Each value is read once, fully coalesced
+// along g, as are the x reads; the loop over D is the whole kernel, so it
+// runs at the memory rate with no shared memory and no atomics.
+// ---------------------------------------------------------------------------
+__global__ void sdia_gen_kernel(const float* __restrict__ vals,
+                                const int* __restrict__ offsets, int D,
+                                int64_t n_rows,
+                                const float* __restrict__ x, int64_t x_len,
+                                float* __restrict__ y) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= n_rows) return;
+  const float* vg = vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
+  float acc = 0.0f;
+  for (int j = 0; j < D; ++j) {
+    const int64_t s = g - static_cast<int64_t>(offsets[j]);
+    if (s >= 0 && s < x_len)
+      acc = fmaf(vg[static_cast<int64_t>(j) * kBlockRows], x[s], acc);
   }
   y[g] += acc;
 }
@@ -151,6 +182,91 @@ bell2_spmv_kernel(const float* __restrict__ vals,
 }
 
 // ---------------------------------------------------------------------------
+// sbell_spmv — replaces cfs_spmv_tpu/ops/bell2_kernel.py:sbell_spmv_tiles.
+//
+// y = (L + L^T) x from the paired strict-lower stream: each stored value
+// v at (r, c) drives y[r] += v x[c] and y[c] += v x[r]. Packed int32 word
+// at slot (i, j): q in bits 0-6, the window r2 in bits 7-9 (7 = empty),
+// the transpose source lane in bits 10-16. The chunk's TW (2 or 4)
+// windows are meta[c, 2 .. 2 + TW); each is an x tile for the row side
+// and a y tile of the same output block for the transpose side.
+//
+// - Row side, as bell2_spmv: slot (i, l) gathers x[meta[c, 2 + r2]][q]
+//   with r2 the field at lane q (through shared memory); a window index
+//   >= TW reads zero. The 8 sublanes sum into row tile
+//   step_block[c / K] * BT + meta[c, 0], flushed with atomicAdd when the
+//   row changes.
+// - Transpose side: at slot (i, p) with r2 < TW, the product
+//   vals[i, src] * x[row tile][src] (src = bits 10-16; the value through
+//   shared memory) lands on y[meta[c, 2 + r2]][p] by one atomicAdd per
+//   slot: the targets are other tiles of the block, written by other
+//   CTAs. Summing per window in registers before the atomic is later
+//   work.
+//
+// The TPU zeroes each block at its first grid step and relies on steps
+// running in order; here blocks are zeroed by bell2_zero_blocks_kernel in
+// a separate launch first, since another CTA's transpose atomics may land
+// before a CTA of the same launch could zero them. K-padding chunks carry
+// zero values and forward-filled meta, so they add exactly 0. Like
+// bell2_spmv the kernel is bound by stream bytes (4-byte value + 4-byte
+// word per slot, each value used twice).
+// ---------------------------------------------------------------------------
+template <int TW>
+__global__ void __launch_bounds__(kLanes)
+sbell_spmv_kernel(const float* __restrict__ vals,
+                  const int* __restrict__ packed,
+                  const int* __restrict__ meta,
+                  const int* __restrict__ step_block, int64_t C, int K,
+                  int BT, const float* __restrict__ x,
+                  float* __restrict__ y) {
+  __shared__ int r2s[kSublanes][kLanes];
+  __shared__ float vs[kSublanes][kLanes];
+  const int lane = threadIdx.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kChunksPerCta;
+  const int64_t c1 = c0 + kChunksPerCta < C ? c0 + kChunksPerCta : C;
+  int64_t row = -1;  // y tile row of the running row-side sum
+  float acc = 0.0f;
+  for (int64_t c = c0; c < c1; ++c) {
+    const int* m = meta + c * kMetaW;
+    const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
+    const int64_t slot0 = c * kSublanes * kLanes + lane;
+    int pk[kSublanes];
+    float v[kSublanes];
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      pk[i] = packed[slot0 + i * kLanes];
+      v[i] = vals[slot0 + i * kLanes];
+      r2s[i][lane] = (pk[i] >> 7) & 7;
+      vs[i][lane] = v[i];
+    }
+    __syncthreads();
+    const float* xt = x + tgt * kLanes;  // the chunk's own x tile
+    float part = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      const int q = pk[i] & 0x7F;
+      const int r2 = r2s[i][q];
+      if (r2 < TW)
+        part = fmaf(v[i], x[static_cast<int64_t>(m[2 + r2]) * kLanes + q], part);
+      const int t2 = (pk[i] >> 7) & 7;
+      if (t2 < TW) {
+        const int src = (pk[i] >> 10) & 0x7F;
+        atomicAdd(y + static_cast<int64_t>(m[2 + t2]) * kLanes + lane,
+                  vs[i][src] * xt[src]);
+      }
+    }
+    __syncthreads();
+    if (tgt != row) {
+      if (row >= 0) atomicAdd(y + row * kLanes + lane, acc);
+      row = tgt;
+      acc = 0.0f;
+    }
+    acc += part;
+  }
+  if (row >= 0) atomicAdd(y + row * kLanes + lane, acc);
+}
+
+// ---------------------------------------------------------------------------
 // unperm_gather — replaces cfs_spmv_tpu/ops/bell2_kernel.py:unperm_gather_tiles.
 //
 // Original-order y from a degree-grouped stream's compact tiles: output row
@@ -189,6 +305,35 @@ int cfs_sdia_sym(const float* vals, const int* offsets, int D,
     constexpr int kThreads = 256;
     sdia_sym_kernel<<<blocks_for(y_len, kThreads), kThreads, 0, stream>>>(
         vals, offsets, D, n_vals_rows, x, x_len, y, y_len);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cfs_sdia_gen(const float* vals, const int* offsets, int D,
+                 int64_t n_rows, const float* x, int64_t x_len, float* y,
+                 cudaStream_t stream) {
+  if (n_rows > 0 && D > 0) {
+    constexpr int kThreads = 256;
+    sdia_gen_kernel<<<blocks_for(n_rows, kThreads), kThreads, 0, stream>>>(
+        vals, offsets, D, n_rows, x, x_len, y);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
+                   const int* step_block, int64_t C, int K, int BT, int TW,
+                   const float* x, float* y, cudaStream_t stream) {
+  if (TW != 2 && TW != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (C > 0) {
+    bell2_zero_blocks_kernel<<<static_cast<unsigned int>(C / K), 256, 0,
+                               stream>>>(step_block, BT, y);
+    const unsigned int grid = blocks_for(C, kChunksPerCta);
+    if (TW == 2)
+      sbell_spmv_kernel<2><<<grid, kLanes, 0, stream>>>(
+          vals, packed, meta, step_block, C, K, BT, x, y);
+    else
+      sbell_spmv_kernel<4><<<grid, kLanes, 0, stream>>>(
+          vals, packed, meta, step_block, C, K, BT, x, y);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,8 @@ Host copy of ``cfs_spmv_tpu/formats/sbell.py``, code unchanged (its plans
 are held byte-identical to the reference's by
 ``tests/test_torch_formats.py``). The pairing cost gate's constants were
 derived from the reference's TPU kernels; the reference file keeps the
-measurements. The PyTorch port runs the one-sided and SDIA streams of
-these plans; a plan that keeps a paired stream raises there (ROADMAP A3).
+measurements (re-deriving them for the H100 is a ROADMAP item). The
+PyTorch port runs every stream of these plans: paired, far and SDIA.
 
 The reference's central idea is symmetric storage: keep the strict lower
 triangle + diagonal and fold the transpose contribution in during the

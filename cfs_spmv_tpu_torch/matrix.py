@@ -144,8 +144,9 @@ class SparseMatrix:
 
     def dense_vector_multiply(self, x):
         """y = A @ x (ref ``sparse_matrix.hpp:36``). Tunes with the
-        untuned-oracle defaults on first use if untuned (the general
-        path, which is not ported yet and raises)."""
+        untuned-oracle defaults on first use if untuned: ``Tuning.NONE``,
+        the general one-sided path on the CPU (a symmetric matrix is
+        expanded)."""
         if self._tuned is None:
             self.tune(tuning=Tuning.NONE)
         x = torch.as_tensor(x, dtype=torch.float32,

@@ -77,6 +77,10 @@ def _bind(path: str) -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     cdll.cfs_sdia_sym.argtypes = [p, p, i32, i64, p, i64, p, i64, p]
     cdll.cfs_sdia_sym.restype = i32
+    cdll.cfs_sdia_gen.argtypes = [p, p, i32, i64, p, i64, p, p]
+    cdll.cfs_sdia_gen.restype = i32
+    cdll.cfs_sbell_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, p, p, p]
+    cdll.cfs_sbell_spmv.restype = i32
     cdll.cfs_bell2_spmv.argtypes = [
         p, p, p, p, i64, i32, i32, i32, i32, p, p, p,
     ]

@@ -1,14 +1,17 @@
-"""BELL2 one-sided stream and grouped unpermute: CUDA wrappers + twins.
+"""BELL2 streams and grouped unpermute: CUDA wrappers + twins.
 
 Ports of the Pallas kernels in ``cfs_spmv_tpu/ops/bell2_kernel.py`` that
-the tuned symmetric path reaches:
+the fp32 SpMV paths reach:
 
 - ``bell2_spmv_tiles`` (kernel B2): ``y = A x`` for one stream; the
   blocks the stream visits are zeroed first, the others left unset;
 - ``bell2_spmv_tiles_accum`` (B4): the same stream added into a given
   ``y`` (sparse far residuals, which visit few blocks);
 - ``unperm_gather_tiles`` (B3): original-order rows from a
-  degree-grouped stream's compact output tiles.
+  degree-grouped stream's compact output tiles;
+- ``sbell_spmv_tiles`` (B5): ``y = (L + Lᵀ) x`` from the paired
+  symmetric stream, each stored value driving both its row and its
+  transpose.
 
 A chunk is an (8, 128) slot grid. Slot (i, j) of chunk c holds the gather
 lane ``q = pk & 0x7F``; the window index ``r2`` serving gather lane q of
@@ -39,6 +42,8 @@ __all__ = [
     "bell2_spmv_tiles_accum_plain",
     "unperm_gather_tiles",
     "unperm_gather_tiles_plain",
+    "sbell_spmv_tiles",
+    "sbell_spmv_tiles_plain",
 ]
 
 
@@ -58,7 +63,8 @@ def _device_of(*tensors) -> torch.device:
     return dev
 
 
-def _check_stream(vals, packed, meta, step_block, x2d, K):
+def _check_stream(vals, packed, meta, step_block, x2d, K,
+                  packed_dtype=torch.int16):
     C = meta.shape[0]
     if meta.ndim != 2 or meta.shape[1] != META_W or meta.dtype != torch.int32:
         raise ValueError(
@@ -67,8 +73,9 @@ def _check_stream(vals, packed, meta, step_block, x2d, K):
         )
     if tuple(vals.shape) != (C * SUBLANES, LANES) or vals.dtype != torch.float32:
         raise ValueError(f"vals must be ({C * SUBLANES}, 128) float32")
-    if tuple(packed.shape) != (C * SUBLANES, LANES) or packed.dtype != torch.int16:
-        raise ValueError(f"packed must be ({C * SUBLANES}, 128) int16")
+    if (tuple(packed.shape) != (C * SUBLANES, LANES)
+            or packed.dtype != packed_dtype):
+        raise ValueError(f"packed must be ({C * SUBLANES}, 128) {packed_dtype}")
     if C % K:
         raise ValueError(f"chunk stream not padded to K={K} (C={C})")
     if tuple(step_block.shape) != (C // K,) or step_block.dtype != torch.int32:
@@ -246,7 +253,100 @@ def unperm_gather_tiles(pk2d, rows, g_tiles):
     return out
 
 
+def sbell_spmv_tiles_plain(vals, packed, meta, step_block, x2d, *,
+                           num_row_tiles, chunks_per_step, tiles_per_block,
+                           transpose_windows, out=None):
+    """Plain PyTorch twin of :func:`sbell_spmv_tiles` (any device): the
+    paired plan decoded into what it means. Every stored strict-lower
+    entry (r, c, v) adds ``v x[c]`` to y[r] (the row side, B2's gather)
+    and ``v x[r]`` to y[c] (the transpose side, at the window its r2
+    field names); the whole output is zeroed first."""
+    C = meta.shape[0]
+    K, BT, TW = chunks_per_step, tiles_per_block, transpose_windows
+    TP = _tiles_padded(num_row_tiles, BT)
+    if out is None:
+        out = torch.empty((TP, LANES), dtype=x2d.dtype, device=x2d.device)
+    out.zero_()
+    pk = packed.reshape(C, SUBLANES, LANES).to(torch.int64)
+    v = vals.reshape(C, SUBLANES, LANES)
+    meta64 = meta.to(torch.int64)
+    win = meta64[:, 2:2 + TW]  # (C, TW) window tiles
+    tgt = step_block.to(torch.int64).repeat_interleave(K) * BT + meta64[:, 0]
+    xf = x2d.reshape(-1)
+    cidx = torch.arange(C, device=meta.device)[:, None, None]
+
+    def window_tile(r2):
+        # tile of window r2 (< TW) of each slot's chunk; r2 >= TW is masked
+        return win.reshape(-1)[cidx * TW + r2.clamp(max=TW - 1)]
+
+    # row side: y[tgt, l] += sum_i v[i, l] x[win[r2 at lane q], q]
+    q = pk & 0x7F
+    r2 = torch.gather((pk >> 7) & 7, 2, q)
+    xv = xf[window_tile(r2) * LANES + q]
+    xv = torch.where(r2 < TW, xv, torch.zeros_like(xv))
+    out.index_add_(0, tgt, (v * xv).sum(dim=1))
+    # transpose side: y[win[r2], p] += v[i, src] x[tgt, src] at slot (i, p)
+    t2 = (pk >> 7) & 7
+    src = (pk >> 10) & 0x7F
+    prod = torch.gather(v, 2, src) * xf[tgt[:, None, None] * LANES + src]
+    prod = torch.where(t2 < TW, prod, torch.zeros_like(prod))
+    lane = torch.arange(LANES, device=meta.device)
+    dst = window_tile(t2) * LANES + lane
+    out.view(-1).index_add_(0, dst.reshape(-1), prod.reshape(-1))
+    return out[:num_row_tiles]
+
+
+def sbell_spmv_tiles(vals, packed, meta, step_block, x2d, *,
+                     num_row_tiles, chunks_per_step, tiles_per_block,
+                     transpose_windows, out=None):
+    """y tiles (T, 128) = (L + Lᵀ) x from the paired strict-lower stream.
+
+    ``vals``: (C*8, 128) float32; ``packed``: (C*8, 128) int32 words
+    ``q | r2 << 7 | src << 10`` (r2 = 7: no transpose entry at that
+    slot); ``meta``: (C, 10) int32 whose windows ``meta[c, 2:2+TW]`` are
+    tiles of the chunk's own output block; ``step_block``: (C/K,) int32;
+    ``x2d``: (x_rows, 128) float32; ``transpose_windows`` (TW) is 2 or 4.
+    The output is a (ceil(T/BT)*BT, 128) buffer (``out``, or
+    ``torch.empty``) whose visited blocks are zeroed, then accumulated;
+    a paired plan visits every block (``sym_to_device`` checks it).
+    Returns its first T rows.
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
+    or raises.
+    """
+    K, BT, TW = chunks_per_step, tiles_per_block, transpose_windows
+    dev = _device_of(vals, packed, meta, step_block, x2d)
+    _check_stream(vals, packed, meta, step_block, x2d, K, torch.int32)
+    if TW not in (2, 4):
+        raise ValueError(f"transpose_windows must be 2 or 4, got {TW}")
+    TP = _tiles_padded(num_row_tiles, BT)
+    if out is None:
+        out = torch.empty((TP, LANES), dtype=x2d.dtype, device=dev)
+    elif (tuple(out.shape) != (TP, LANES) or out.dtype != x2d.dtype
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({TP}, 128) float32 "
+                         f"tensor on {dev}")
+    if dev.type == "cpu":
+        return sbell_spmv_tiles_plain(
+            vals, packed, meta, step_block, x2d,
+            num_row_tiles=num_row_tiles, chunks_per_step=K,
+            tiles_per_block=BT, transpose_windows=TW, out=out,
+        )
+    lib = _cuda.lib()
+    with torch.cuda.device(dev):
+        err = lib.cfs_sbell_spmv(
+            vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
+            step_block.data_ptr(), meta.shape[0], K, BT, TW,
+            x2d.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _cuda.check(err, "sbell_spmv_tiles")
+    sbell_spmv_tiles.launches += 1
+    return out[:num_row_tiles]
+
+
 #: launches of the CUDA kernels through these wrappers (never the twins)
 bell2_spmv_tiles.launches = 0
 bell2_spmv_tiles_accum.launches = 0
 unperm_gather_tiles.launches = 0
+sbell_spmv_tiles.launches = 0

@@ -1,15 +1,19 @@
-"""SDIA — dense-diagonal symmetric SpMV: CUDA kernel wrapper + plain twin.
+"""SDIA — dense-diagonal SpMV: CUDA kernel wrappers + plain twins.
 
-Port of ``cfs_spmv_tpu/ops/sdia_kernel.py:sdia_sym_tiles`` (kernel B1).
+Ports of ``cfs_spmv_tpu/ops/sdia_kernel.py``:
+
+- ``sdia_sym_tiles`` (kernel B1): symmetric strict-lower diagonals,
+  each value feeding both ``y[g] += v * x[g - d]`` (row side) and
+  ``y[g - d] += v * x[g]`` (transpose side);
+- ``sdia_gen_tiles`` (kernel B6): signed offsets, row side only — the
+  general path's peeled diagonals, and symmetric plans past
+  ``SDIA_SYM_ROWS_MAX`` whose diagonals are stored mirrored.
+
 Diagonals dense enough to store contiguously need no index data at all:
-per stored nonzero the stream moves 4 bytes, and each value feeds both
-``y[g] += v * x[g - d]`` (row side) and ``y[g - d] += v * x[g]``
-(transpose side).
-
-Layout: ``vals[r, j, i, l]`` holds A[g, g - d_j] for flat row
-g = 1024 r + 128 i + l (zero where absent), with strict-lower offsets
-``d_j >= 1``. The CUDA kernel (``csrc/spmv_kernels.cu:sdia_sym_kernel``)
-computes the gather form: one thread per output row, no atomics.
+per stored nonzero the stream moves 4 bytes. Layout: ``vals[r, j, i, l]``
+holds A[g, g - d_j] for flat row g = 1024 r + 128 i + l (zero where
+absent). Both CUDA kernels (``csrc/spmv_kernels.cu``) compute the gather
+form: one thread per output row, no atomics.
 """
 
 from __future__ import annotations
@@ -22,7 +26,13 @@ SUBLANES = 8
 LANES = 128
 BLOCK_ROWS = SUBLANES * LANES  # 1024 rows per value block
 
-__all__ = ["sdia_sym_tiles", "sdia_sym_tiles_plain", "BLOCK_ROWS"]
+__all__ = [
+    "sdia_sym_tiles",
+    "sdia_sym_tiles_plain",
+    "sdia_gen_tiles",
+    "sdia_gen_tiles_plain",
+    "BLOCK_ROWS",
+]
 
 
 def _blocks_per_step(R: int, D: int, itemsize: int = 4) -> int:
@@ -118,5 +128,59 @@ def sdia_sym_tiles(vals, x2d, y_tiles, offsets):
     return y_tiles
 
 
-#: launches of the CUDA kernel through this wrapper (never the twin)
+def sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets):
+    """Plain PyTorch twin of :func:`sdia_gen_tiles`: ``y_tiles += A_dia
+    x`` by one flat shifted slice per diagonal, accumulated in place;
+    returns ``y_tiles``. Runs on any device; ``offsets`` is a tensor or a
+    sequence of ints."""
+    offs = offsets.tolist() if torch.is_tensor(offsets) else list(offsets)
+    R, D = vals.shape[0], vals.shape[1]
+    L = min(y_tiles.numel(), R * BLOCK_ROWS)
+    xf = x2d.reshape(-1)
+    X = xf.shape[0]
+    vd = vals.permute(1, 0, 2, 3).reshape(D, R * BLOCK_ROWS)
+    acc = torch.zeros(L, dtype=y_tiles.dtype, device=y_tiles.device)
+    for j, d in enumerate(offs):
+        # rows g with 0 <= g - d < X read x; the others read zero
+        lo, hi = max(0, d), min(L, X + d)
+        if lo < hi:
+            acc[lo:hi] += vd[j, lo:hi] * xf[lo - d: hi - d]
+    y_tiles.view(-1)[:L] += acc
+    return y_tiles
+
+
+def sdia_gen_tiles(vals, x2d, y_tiles, offsets):
+    """``y_tiles += A_dia x`` for the signed-offset dense-diagonal stream.
+
+    ``vals``: (R, D, 8, 128) float32; ``x2d``: (x_rows, 128) float32,
+    read as zero outside it (``d > 0`` reads behind, ``d < 0`` ahead);
+    ``y_tiles``: (T, 128) float32, accumulated in place and returned;
+    ``offsets``: (D,) int32 signed offsets (``d == 0`` allowed), on the
+    same device. Contributions to rows at or past T*128 are dropped, and
+    rows past R*1024 keep their value, as in the reference.
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
+    (building it on first use) or raises.
+    """
+    _check(vals, x2d, y_tiles, offsets)
+    dev = vals.device
+    if dev.type == "cpu":
+        return sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets)
+    if dev.type != "cuda":
+        raise ValueError(f"sdia_gen_tiles: unsupported device {dev}")
+    lib = _cuda.lib()
+    with torch.cuda.device(dev):
+        err = lib.cfs_sdia_gen(
+            vals.data_ptr(), offsets.data_ptr(), vals.shape[1],
+            min(y_tiles.numel(), vals.shape[0] * BLOCK_ROWS),
+            x2d.data_ptr(), x2d.numel(), y_tiles.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _cuda.check(err, "sdia_gen_tiles")
+    sdia_gen_tiles.launches += 1
+    return y_tiles
+
+
+#: launches of the CUDA kernels through these wrappers (never the twins)
 sdia_sym_tiles.launches = 0
+sdia_gen_tiles.launches = 0

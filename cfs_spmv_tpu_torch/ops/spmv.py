@@ -1,13 +1,15 @@
 """Op-level SpMV: plan → device tensors → padded kernel calls.
 
-Port of ``cfs_spmv_tpu/ops/spmv.py`` for the tuned symmetric fp32 path:
-it owns padding/unpadding and the composition of streams (diagonal seed,
-degree-grouped or sparse far residual, dense-diagonal SDIA stream). The
-device structs are plain dataclasses of tensors on one explicit device.
+Port of ``cfs_spmv_tpu/ops/spmv.py`` for the fp32 SpMV paths: it owns
+padding/unpadding and the composition of streams — for the symmetric
+path the paired stream or the diagonal seed, the degree-grouped or sparse
+far residual and the dense-diagonal SDIA stream (``sbell_apply``); for
+the general path one one-sided stream and the signed-offset SDIA stream
+(``bell2_apply``). The device structs are plain dataclasses of tensors on
+one explicit device.
 
-Off the slice, and raising ``NotImplementedError``: the paired symmetric
-stream (kernel B5, ROADMAP A3), signed or mirrored SDIA offsets (B6),
-the general ``bell2_apply`` path (A4) and a 2-D ``x`` (SpMM, A7).
+Off the slice, and raising ``NotImplementedError``: a 2-D ``x`` (SpMM,
+ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -23,10 +25,17 @@ from .bell2_kernel import (
     bell2_spmv_tiles_accum,
     bell2_spmv_tiles_accum_plain,
     bell2_spmv_tiles_plain,
+    sbell_spmv_tiles,
+    sbell_spmv_tiles_plain,
     unperm_gather_tiles,
     unperm_gather_tiles_plain,
 )
-from .sdia_kernel import sdia_sym_tiles, sdia_sym_tiles_plain
+from .sdia_kernel import (
+    sdia_gen_tiles,
+    sdia_gen_tiles_plain,
+    sdia_sym_tiles,
+    sdia_sym_tiles_plain,
+)
 
 __all__ = [
     "Bell2Device",
@@ -56,59 +65,100 @@ def as_device(device) -> torch.device:
 
 @dataclasses.dataclass
 class Bell2Device:
-    """Device-resident one-sided BELL2 stream (the symmetric far stream)."""
+    """Device-resident one-sided BELL2 stream: the general path's matrix
+    (with its optional signed-offset SDIA stream) or the symmetric far
+    stream."""
 
     vals: torch.Tensor  # (C*8, 128) float32
     packed: torch.Tensor  # (C*8, 128) int16, q | r2 << 7
     meta: torch.Tensor  # (C, 10) int32
     step_block: torch.Tensor  # (C/K,) int32
     num_row_tiles: int
+    x_rows: int
+    nrows: int
+    ncols: int
     chunks_per_step: int
     tiles_per_block: int
     #: x row is ``meta[c, 2] + r2`` (contiguous or deep windows), else
     #: ``meta[c, 2 + (r2 & 7)]`` (listed windows)
     contig: bool
+    #: accumulating stream: blocks without chunks are never visited
+    sparse_stream: bool
+    #: False for an empty (or dia-only) stream: no kernel runs
+    has_work: bool
     #: degree-grouped row tiling (``formats/bell2.Bell2Plan.row_perm``):
     #: the compact output is unpermuted by ``unperm_gather_tiles``
     unperm_pk: torch.Tensor | None = None  # (nb*8, 128) int32
     unperm_slabs: torch.Tensor | None = None  # (nb, W) int32
+    #: signed-offset dense-diagonal stream of a general plan
+    dia_vals: torch.Tensor | None = None  # (R, D, 8, 128) float32
+    dia_offsets: torch.Tensor | None = None  # (D,) int32
 
     @property
     def grouped(self) -> bool:
         return self.unperm_pk is not None
 
+    def stream_kw(self) -> dict:
+        """The geometry arguments of this stream's kernel wrappers."""
+        return dict(num_row_tiles=self.num_row_tiles,
+                    chunks_per_step=self.chunks_per_step,
+                    tiles_per_block=self.tiles_per_block,
+                    contig=self.contig)
+
 
 @dataclasses.dataclass
 class SBellDevice:
-    """Device-resident symmetric plan: diagonal + far residual + SDIA."""
+    """Device-resident symmetric plan: the paired stream (or the diagonal
+    seed), the far residual and the SDIA stream."""
 
     diag: torch.Tensor  # (nrows,) float32
     far: Bell2Device | None
     num_row_tiles: int
     x_rows: int
     nrows: int
+    chunks_per_step: int
+    tiles_per_block: int
+    transpose_windows: int = 2
+    #: the paired stream, uploaded only when it holds entries
+    vals: torch.Tensor | None = None  # (C*8, 128) float32
+    packed: torch.Tensor | None = None  # (C*8, 128) int32
+    meta: torch.Tensor | None = None  # (C, 10) int32
+    step_block: torch.Tensor | None = None  # (C/K,) int32
     dia_vals: torch.Tensor | None = None  # (R, D, 8, 128) float32
-    dia_offsets: torch.Tensor | None = None  # (D,) int32, all >= 1
+    #: (D,) int32: all >= 1, or mirrored (signed) past SDIA_SYM_ROWS_MAX
+    dia_offsets: torch.Tensor | None = None
+    dia_mirrored: bool = False
+
+    @property
+    def has_paired(self) -> bool:
+        return self.vals is not None
 
 
 def _tensor(a, device):
     return torch.as_tensor(np.ascontiguousarray(a)).to(device)
 
 
+def _check_chunks(meta, step_block, K, BT):
+    """Checks shared by the one-sided and the paired streams."""
+    C = meta.shape[0]
+    if C % K or len(step_block) != C // K:
+        raise ValueError("stream not padded to whole K-chunk steps")
+    if C and (meta[:, 0].max() >= BT or meta[:, 0].min() < 0):
+        raise ValueError("meta sub row outside its output block")
+
+
 def _check_stream_plan(plan, contig):
     """Host-side index checks of a one-sided stream, once per upload: the
     kernels trust these ranges and read without bounds checks."""
     meta = np.asarray(plan.meta)
-    K, C = plan.chunks_per_step, meta.shape[0]
+    C = meta.shape[0]
     if plan.lane_rot != 1 or plan.max_windows != SUBLANES:
         raise NotImplementedError(
             "lane rotation and capped window stacks were pruned from the "
             "reference planner; the port takes rot=1, 8-window plans only"
         )
-    if C % K or len(plan.step_block) != C // K:
-        raise ValueError("stream not padded to whole K-chunk steps")
-    if C and (meta[:, 0].max() >= plan.tiles_per_block or meta[:, 0].min() < 0):
-        raise ValueError("meta sub row outside its output block")
+    _check_chunks(meta, plan.step_block, plan.chunks_per_step,
+                  plan.tiles_per_block)
     if C:
         hi = (meta[:, 2] + plan.window_depth - 1) if contig else meta[:, 2:]
         if int(np.max(hi)) >= plan.x_rows or int(meta[:, 2:].min()) < 0:
@@ -123,15 +173,41 @@ def _check_stream_plan(plan, contig):
             raise ValueError("a chunk run spans two sub rows")
 
 
+def _check_paired_plan(plan):
+    """Host-side index checks of a paired stream (``sbell_spmv_tiles``
+    reads and scatters without bounds checks)."""
+    meta = np.asarray(plan.meta)
+    sb = np.asarray(plan.step_block).astype(np.int64)
+    K, BT, TW = plan.chunks_per_step, plan.tiles_per_block, plan.transpose_windows
+    if TW not in (2, 4):
+        raise ValueError(f"transpose_windows must be 2 or 4, got {TW}")
+    _check_chunks(meta, sb, K, BT)
+    nblocks = -(-plan.num_row_tiles // BT)
+    if not np.array_equal(np.unique(sb), np.arange(nblocks)):
+        raise ValueError("the paired stream must visit every output block")
+    blk = np.repeat(sb, K)
+    if np.any(blk * BT + meta[:, 0] >= plan.x_rows):
+        raise ValueError("a chunk's row tile lies outside the x operand")
+    win = meta[:, 2:2 + TW].astype(np.int64)
+    if np.any(win // BT != blk[:, None]) or win.max() >= plan.x_rows:
+        raise ValueError("a transpose window outside its chunk's block")
+
+
+def _dia_fields(dia, device):
+    if dia is None:
+        return dict(dia_vals=None, dia_offsets=None)
+    return dict(
+        dia_vals=_tensor(dia.vals, device),
+        dia_offsets=torch.tensor([int(d) for d in dia.offsets],
+                                 dtype=torch.int32, device=device),
+    )
+
+
 def to_device(plan, device) -> Bell2Device:
     """Upload a one-sided ``Bell2Plan`` (the port's or the reference's:
-    the fields and dtypes are the same) to ``device``."""
+    the fields and dtypes are the same), with its signed-offset SDIA
+    stream if it has one, to ``device``."""
     device = as_device(device)
-    if getattr(plan, "dia", None) is not None:
-        raise NotImplementedError(
-            "the signed-offset dia stream of a general plan runs "
-            "sdia_gen_tiles (kernel B6), not ported yet: ROADMAP A4"
-        )
     if plan.row_perm is not None and plan.unperm_pk is None:
         raise NotImplementedError(
             "legacy grouped plans without an unpermute table are not "
@@ -154,43 +230,48 @@ def to_device(plan, device) -> Bell2Device:
         meta=t(plan.meta),
         step_block=t(plan.step_block),
         num_row_tiles=plan.num_row_tiles,
+        x_rows=plan.x_rows,
+        nrows=plan.nrows,
+        ncols=plan.ncols,
         chunks_per_step=plan.chunks_per_step,
         tiles_per_block=plan.tiles_per_block,
         contig=contig,
+        sparse_stream=plan.sparse_stream,
+        has_work=plan.nnz > 0,
         unperm_pk=t(plan.unperm_pk),
         unperm_slabs=t(plan.unperm_slabs),
+        **_dia_fields(plan.dia, device),
     )
 
 
 def sym_to_device(plan, device) -> SBellDevice:
     """Upload a symmetric ``SBellPlan`` (the port's or the reference's) to
-    ``device``. The paired stream and signed SDIA offsets raise."""
+    ``device``. The paired stream's arrays are uploaded only when it holds
+    entries, as in the reference."""
     device = as_device(device)
-    if plan.nnz_paired:
-        raise NotImplementedError(
-            "the paired symmetric stream (sbell_spmv_tiles, kernel B5) is "
-            "not ported yet: ROADMAP A3 (reachable with CFS_PAIRED=force)"
-        )
-    offsets = () if plan.dia is None else tuple(int(d) for d in plan.dia.offsets)
-    if any(d <= 0 for d in offsets):
-        raise NotImplementedError(
-            "signed or mirrored SDIA offsets run sdia_gen_tiles (kernel "
-            "B6), not ported yet: ROADMAP A4"
-        )
     far = None
     if plan.far is not None:
         if plan.far.x_rows > plan.x_rows:
             raise ValueError("far stream windows exceed the shared x")
         far = to_device(plan.far, device)
+    paired = {}
+    if plan.nnz_paired:
+        _check_paired_plan(plan)
+        paired = {k: _tensor(getattr(plan, k), device)
+                  for k in ("vals", "packed", "meta", "step_block")}
+    offsets = () if plan.dia is None else tuple(plan.dia.offsets)
     return SBellDevice(
         diag=_tensor(plan.diag, device),
         far=far,
         num_row_tiles=plan.num_row_tiles,
         x_rows=plan.x_rows,
         nrows=plan.nrows,
-        dia_vals=None if plan.dia is None else _tensor(plan.dia.vals, device),
-        dia_offsets=None if plan.dia is None
-        else torch.tensor(offsets, dtype=torch.int32, device=device),
+        chunks_per_step=plan.chunks_per_step,
+        tiles_per_block=plan.tiles_per_block,
+        transpose_windows=plan.transpose_windows,
+        dia_mirrored=any(d < 0 for d in offsets),
+        **paired,
+        **_dia_fields(plan.dia, device),
     )
 
 
@@ -208,68 +289,112 @@ def _unperm_tiles(dev: Bell2Device, tiles, unperm=unperm_gather_tiles):
     return unperm(dev.unperm_pk, dev.unperm_slabs, tiles[: dev.num_row_tiles])
 
 
-def bell2_apply(dev, x):
-    """The general one-sided path (``cfs_spmv_tpu/ops/spmv.bell2_apply``)."""
-    raise NotImplementedError(
-        "the general path bell2_apply is not ported yet: ROADMAP A4"
+def _kernels(plain: bool) -> dict:
+    """The stream functions: the CUDA kernel wrappers, or (``plain``)
+    their plain PyTorch twins on whatever device the tensors live on —
+    the baseline the kernels are timed and checked against."""
+    if plain:
+        return dict(
+            bell2=bell2_spmv_tiles_plain, bell2_acc=bell2_spmv_tiles_accum_plain,
+            unperm=unperm_gather_tiles_plain, sbell=sbell_spmv_tiles_plain,
+            sdia_sym=sdia_sym_tiles_plain, sdia_gen=sdia_gen_tiles_plain,
+        )
+    return dict(
+        bell2=bell2_spmv_tiles, bell2_acc=bell2_spmv_tiles_accum,
+        unperm=unperm_gather_tiles, sbell=sbell_spmv_tiles,
+        sdia_sym=sdia_sym_tiles, sdia_gen=sdia_gen_tiles,
     )
+
+
+def _check_vector(x):
+    if x.ndim != 1:
+        raise NotImplementedError(
+            "SpMM (2-D x, bell2_apply_mm / sbell_apply_mm) is not ported "
+            "yet: ROADMAP A7"
+        )
+
+
+def _accumulate(f, fd: Bell2Device, x2d, tiles, n_tiles):
+    """``tiles`` plus a sparse stream, over the stream's block multiple;
+    blocks it never visits keep their values. Returns n_tiles rows."""
+    BT = fd.tiles_per_block
+    TP = -(-fd.num_row_tiles // BT) * BT
+    tp = torch.nn.functional.pad(tiles, (0, 0, 0, TP - tiles.shape[0]))
+    return f["bell2_acc"](fd.vals, fd.packed, fd.meta, fd.step_block, x2d,
+                          tp, **fd.stream_kw())[:n_tiles]
+
+
+def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
+    """General y = A x for one BELL2 stream plus its signed-offset SDIA
+    stream, composed exactly as the reference's ``bell2_apply``: an empty
+    or dia-only plan starts from zero tiles; a sparse residual
+    accumulates into zeros padded to its block multiple; otherwise the
+    full stream runs, unpermuted when grouped; then ``sdia_gen_tiles``
+    adds the diagonals. Rectangular matrices take the same code (no dia
+    stream). ``plain=True`` runs every stream through its plain twin.
+    """
+    _check_vector(x)
+    f = _kernels(plain)
+    x2d = pad_x(x, dev.x_rows)
+    NT = dev.num_row_tiles
+    if not dev.has_work:
+        tiles = torch.zeros((NT, LANES), dtype=x2d.dtype, device=x2d.device)
+    elif dev.sparse_stream and not dev.grouped:
+        # post-peel residual: only tiles with chunks are visited
+        tiles = _accumulate(f, dev, x2d, x2d.new_zeros((0, LANES)), NT)
+    else:
+        tiles = f["bell2"](dev.vals, dev.packed, dev.meta, dev.step_block,
+                           x2d, **dev.stream_kw())
+    if dev.grouped:
+        ot = _unperm_tiles(dev, tiles, f["unperm"])
+        if dev.dia_vals is None:
+            return ot.reshape(-1)[: dev.nrows]
+        tiles = ot[: -(-dev.nrows // LANES)]
+    if dev.dia_vals is not None:
+        tiles = f["sdia_gen"](dev.dia_vals, x2d, tiles, dev.dia_offsets)
+    return tiles.reshape(-1)[: dev.nrows]
 
 
 def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     """Symmetric y = (D + L + Lᵀ) x, composed exactly as the reference's
-    ``sbell_apply`` without a paired stream: the accumulating streams are
-    seeded with D x, the degree-grouped far stream is unpermuted and
-    added (padded to the plan's tiles), the sparse far stream accumulates
-    into the tiles padded to its block multiple, and the SDIA stream adds
-    its banded part in place.
-
-    ``plain=True`` runs every stream through its plain PyTorch twin on
-    whatever device the tensors live on — the baseline the kernels are
-    timed and checked against.
+    ``sbell_apply``: the paired stream's tiles, or (without one) the
+    accumulating streams seeded with D x; the degree-grouped far stream
+    unpermuted and added (padded to the plan's tiles), or the sparse far
+    stream accumulated into the tiles padded to its block multiple; the
+    SDIA stream added in place (``sdia_gen_tiles`` when its offsets are
+    mirrored, else ``sdia_sym_tiles``); then D x when the paired stream
+    ran. ``plain=True`` runs every stream through its plain twin.
     """
-    if x.ndim != 1:
-        raise NotImplementedError(
-            "SpMM (2-D x, sbell_apply_mm) is not ported yet: ROADMAP A7"
-        )
-    if plain:
-        bell2, bell2_acc, unperm, sdia = (
-            bell2_spmv_tiles_plain, bell2_spmv_tiles_accum_plain,
-            unperm_gather_tiles_plain, sdia_sym_tiles_plain,
+    _check_vector(x)
+    f = _kernels(plain)
+    x2d = pad_x(x, dev.x_rows)
+    NT = dev.num_row_tiles
+    if dev.has_paired:
+        tiles = f["sbell"](
+            dev.vals, dev.packed, dev.meta, dev.step_block, x2d,
+            num_row_tiles=NT, chunks_per_step=dev.chunks_per_step,
+            tiles_per_block=dev.tiles_per_block,
+            transpose_windows=dev.transpose_windows,
         )
     else:
-        bell2, bell2_acc, unperm, sdia = (
-            bell2_spmv_tiles, bell2_spmv_tiles_accum,
-            unperm_gather_tiles, sdia_sym_tiles,
-        )
-    x2d = pad_x(x, dev.x_rows)
-    # seed the accumulating streams with D x directly (no paired stream)
-    tiles = pad_x(dev.diag * x, dev.num_row_tiles)
-    NT = dev.num_row_tiles
+        # seed the accumulating streams with D x directly
+        tiles = pad_x(dev.diag * x, NT)
     fd = dev.far
     if fd is not None:
-        kw = dict(
-            num_row_tiles=fd.num_row_tiles,
-            chunks_per_step=fd.chunks_per_step,
-            tiles_per_block=fd.tiles_per_block,
-            contig=fd.contig,
-        )
         if fd.grouped:
             # degree-grouped far stream: dense over its compact tiles;
-            # unpermute, then add into the seeded tiles
-            ftiles = bell2(fd.vals, fd.packed, fd.meta, fd.step_block, x2d,
-                           **kw)
-            ot = _unperm_tiles(fd, ftiles, unperm)
+            # unpermute, then add into the tiles so far
+            ftiles = f["bell2"](fd.vals, fd.packed, fd.meta, fd.step_block,
+                                x2d, **fd.stream_kw())
+            ot = _unperm_tiles(fd, ftiles, f["unperm"])
             if ot.shape[0] < NT:
                 ot = torch.nn.functional.pad(ot, (0, 0, 0, NT - ot.shape[0]))
             tiles = tiles[:NT] + ot[:NT]
         else:
-            # sparse far residual accumulates straight into the seeded
-            # tiles (unvisited blocks keep their values)
-            BT = fd.tiles_per_block
-            TP = -(-fd.num_row_tiles // BT) * BT
-            tp = torch.nn.functional.pad(tiles, (0, 0, 0, TP - tiles.shape[0]))
-            tiles = bell2_acc(fd.vals, fd.packed, fd.meta, fd.step_block,
-                              x2d, tp, **kw)[:NT]
+            # sparse far residual accumulates straight into the tiles
+            tiles = _accumulate(f, fd, x2d, tiles, NT)
     if dev.dia_vals is not None:
-        tiles = sdia(dev.dia_vals, x2d, tiles, dev.dia_offsets)
-    return tiles.reshape(-1)[: dev.nrows]
+        sdia = f["sdia_gen"] if dev.dia_mirrored else f["sdia_sym"]
+        tiles = sdia(dev.dia_vals, x2d, tiles[:NT], dev.dia_offsets)
+    y = tiles.reshape(-1)[: dev.nrows]
+    return y + dev.diag * x if dev.has_paired else y

@@ -1,14 +1,17 @@
 """The tuning dispatcher: CSR → device-ready tuned plan.
 
-Port of ``cfs_spmv_tpu/tuning/tune.py`` for the tuned symmetric fp32
-path: triangle split + dense-diagonal peel + far-stream layout
-(``formats/sbell.build_sbell_plan``) → device upload
-(``ops/spmv.sym_to_device``) → apply-function binding
-(``ops/spmv.sbell_apply``), with the optional RCM permutation around it.
+Port of ``cfs_spmv_tpu/tuning/tune.py`` for fp32: the tuned symmetric
+path (``Format.SSS``/``HYB`` under ``Tuning.AGGRESSIVE``: triangle split
++ dense-diagonal peel + paired/far layout, ``formats/sbell``, bound to
+``ops/spmv.sbell_apply``) and the general path (``Format.CSR``/``BELL``/
+``COO``, or ``Tuning.NONE``: symmetric input expanded, signed-offset
+diagonal peel under aggressive tuning, ``formats/bell2.build_general_plan``,
+bound to ``ops/spmv.bell2_apply``), with the optional RCM permutation
+around either. ``Format.BSR`` keeps its host block container and runs
+one of the two.
 
-Off the slice, and raising ``NotImplementedError``: the general BELL2 path
-(``Format.CSR``/``BELL``/``COO`` or ``Tuning.NONE``; ROADMAP A4), BSR
-(A5), float64 (A8), ``values="bfloat16"`` (A5) and SpMM (A7).
+Off the slice, and raising ``NotImplementedError``: float64 (ROADMAP
+A8), ``values="bfloat16"`` (A5) and SpMM (A7).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ class TunedMatrix:
     padding_ratio: float
     device: torch.device
     perm: np.ndarray | None = None  # RCM row order, if applied
+    bsr: object | None = None  # BSR host container when fmt=BSR
     #: un-permuted applier + operands when RCM is applied (the wrapped
     #: matvec pays two 1-D gathers per call — solvers work in permuted
     #: space via pure_apply + encode/decode)
@@ -62,8 +66,8 @@ class TunedMatrix:
 
     def matmat(self, x):
         raise NotImplementedError(
-            "SpMM (sbell_apply_mm and kernels B7-B11) is not ported yet: "
-            "ROADMAP A7"
+            "SpMM (bell2_apply_mm / sbell_apply_mm and kernels B7-B12) is "
+            "not ported yet: ROADMAP A7"
         )
 
     def pure_apply(self):
@@ -107,11 +111,15 @@ def tune(
     Format selection mirrors the reference factory
     (``sparse_matrix.tpp:14-24``): ``SSS``/``HYB`` require symmetric
     storage; ``NONE`` auto-picks SSS for symmetric matrices under
-    aggressive tuning, else the general path (not ported yet).
+    aggressive tuning, else the general BELL2 path. ``Tuning.NONE`` on a
+    symmetric matrix expands it and runs the one-sided stream (the
+    untuned-oracle path of the reference's differential tests,
+    ``test_spmv_mmf.cpp:85-89``).
 
-    ``reorder``: bandwidth-reducing RCM permutation. ``"auto"`` applies
-    it only when it shrinks the mean bandwidth 2x on a scattered square
-    matrix; ``True`` forces, ``False`` disables.
+    ``reorder``: bandwidth-reducing RCM permutation, under aggressive
+    tuning of a square matrix. ``"auto"`` applies it only when it shrinks
+    the mean bandwidth 2x on a scattered matrix; ``True`` forces,
+    ``False`` disables.
     """
     if kernel != Kernel.SpDMV:
         raise NotImplementedError(
@@ -124,8 +132,14 @@ def tune(
             if (csr.symmetric and tuning == Tuning.AGGRESSIVE)
             else Format.CSR
         )
+    bsr = None
     if fmt == Format.BSR:
-        raise NotImplementedError("Format.BSR is not ported yet: ROADMAP A5")
+        # BSR is a host-format contract (block detection + 1/b² index
+        # storage, formats/bsr.py); the tuned execution path is shared
+        from ..formats.bsr import BSR, detect_block_size
+
+        bsr = BSR.from_csr(csr, detect_block_size(csr))
+        fmt = Format.SSS if csr.symmetric else Format.CSR
     if fmt in (Format.SSS, Format.HYB) and not csr.symmetric:
         raise ValueError(f"format {fmt} requires a symmetric matrix")
     if np.dtype(dtype) == np.float64:
@@ -141,14 +155,9 @@ def tune(
         )
     if values != "same":
         raise ValueError(f"values must be 'same' or 'bfloat16', got {values}")
-    if not (fmt in (Format.SSS, Format.HYB) and tuning == Tuning.AGGRESSIVE):
-        raise NotImplementedError(
-            f"the general path (format {fmt}, tuning {tuning}: "
-            "build_general_plan + bell2_apply) is not ported yet: ROADMAP A4"
-        )
-
     perm = None
-    if reorder and csr.nrows == csr.ncols and csr.nnz:
+    if (reorder and tuning == Tuning.AGGRESSIVE and csr.nrows == csr.ncols
+            and csr.nnz):
         from .reorder import choose_reorder
 
         t0 = time.perf_counter()
@@ -159,15 +168,34 @@ def tune(
         if res is not None:
             perm, csr = res
 
-    plan = build_sbell_plan(csr, dtype=dtype)
-    dev = spmv_ops.sym_to_device(plan, device)
-    tuned = TunedMatrix(
-        fmt, csr.nrows, csr.ncols, plan.nnz_full, True, plan,
-        dev, spmv_ops.sbell_apply, plan.far_fraction, plan.padding_ratio,
-        device,
-    )
+    if fmt in (Format.SSS, Format.HYB) and tuning == Tuning.AGGRESSIVE:
+        plan = build_sbell_plan(csr, dtype=dtype)
+        dev = spmv_ops.sym_to_device(plan, device)
+        tuned = TunedMatrix(
+            fmt, csr.nrows, csr.ncols, plan.nnz_full, True, plan,
+            dev, spmv_ops.sbell_apply, plan.far_fraction,
+            plan.padding_ratio, device,
+        )
+    else:
+        from ..formats.bell2 import build_general_plan
+
+        gen_csr = (CSR.from_coo(csr.to_coo().expand_symmetric())
+                   if csr.symmetric else csr)
+        # aggressive tuning peels dense signed-offset diagonals into the
+        # index-free SDIA stream; Tuning.NONE stays the plain one-sided
+        # oracle path
+        plan = build_general_plan(gen_csr, dtype=dtype,
+                                  dia=tuning == Tuning.AGGRESSIVE)
+        dev = spmv_ops.to_device(plan, device)
+        tuned = TunedMatrix(
+            Format.CSR, gen_csr.nrows, gen_csr.ncols, gen_csr.nnz,
+            csr.symmetric, plan, dev, spmv_ops.bell2_apply, 0.0,
+            plan.padding_ratio, device,
+        )
     if perm is not None:
         tuned = _permuted(tuned, perm)
+    if bsr is not None:
+        tuned = dataclasses.replace(tuned, format=Format.BSR, bsr=bsr)
     if tuned.spill_fraction > config.spill_warn_fraction:
         warn(
             "tune: %.0f%% of nonzeros fell to the one-sided far stream "

@@ -57,7 +57,8 @@ class Format(enum.Enum):
     - HYB mirrors the reference's low/high-bandwidth split
       (``csr_matrix.tpp:313-401``): BELL main stream + scattered spill
       stream.
-    - BSR is a block-sparse row format (not ported yet).
+    - BSR is a block-sparse row host format; it runs the SSS or the
+      general path.
     """
 
     NONE = "none"

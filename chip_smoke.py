@@ -5,23 +5,35 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-Phases:
+Phases (each prints its wall time):
 
 1. card name and power limit (``nvidia-smi``), PyTorch and CUDA versions;
 2. build the CUDA kernels from ``cfs_spmv_tpu_torch/csrc/spmv_kernels.cu``;
-3. the main path, once, through the user entry points —
-   ``SparseMatrix.create(csr, Format.SSS)`` then
-   ``SpDMV(A, Tuning.AGGRESSIVE, dtype=np.float32, device="cuda")(x)`` —
-   on three full-size matrices (``cant_proxy()``, ``audikw_proxy()`` and
-   the 65,536-row flagship), each checked against the float64 host
-   oracle; the kernels' launch counts are zeroed just before and read
-   just after, and each matrix must launch exactly the kernels its plan
-   predicts;
+3. the main paths, once each, through the user entry points —
+   ``SparseMatrix.create(csr, fmt)`` then
+   ``SpDMV(A, tuning, dtype=np.float32, device="cuda")(x)`` — on nine
+   full-size runs (``RUNS``): the tuned symmetric path on
+   ``cant_proxy()``, ``audikw_proxy()`` and the 65,536-row flagship; the
+   general path on ``general_asym()`` and on the flagship as a general
+   matrix; the untuned oracle path (``Tuning.NONE``) on
+   ``cant_proxy()``; the paired stream on ``near_band_paired()`` with
+   ``CFS_PAIRED=force``, and the same matrix under the default
+   ``CFS_PAIRED=auto`` gate (which routes it to the one-sided stream);
+   mirrored diagonals on ``cant_proxy()`` with ``SDIA_SYM_ROWS_MAX``
+   below its size. Each result is checked against
+   the float64 host oracle. The kernels' launch counts are zeroed just
+   before each apply and read just after; each run must launch exactly
+   the kernels its plan predicts (and ``EXPECTED`` lists);
 4. each kernel against its plain PyTorch twin on the same card, on the
-   real plan arrays of those matrices;
+   real plan arrays of those runs (``sbell_spmv`` also replanned with the
+   other transpose-window count and with 8-tile output blocks,
+   ``sdia_gen`` also on a ragged ``general_asym(g=50)`` plan);
 5. times per call (CUDA events around 20 back-to-back calls, median of
    5) of each kernel and twin, and of the kernel path and the plain path
-   of every matrix.
+   of every run, with the device time of each apply and of each kernel
+   from ``torch.profiler``;
+6. the differential CLI (``cfs_spmv_tpu_torch.cli.test_spmv_mmf``) on a
+   written ``.mtx`` with ``--device cuda``; it must print ``PASSED!``.
 
 It needs one card and imports nothing of JAX. Any failure raises, and the
 exit code is then nonzero; without CUDA it exits 1 at once. The last two
@@ -31,19 +43,37 @@ lines of standard output are one JSON object per line: the kernels, then
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-#: launches each main-path matrix makes, by kernel wrapper (the plans'
-#: streams: SDIA only; degree-grouped far stream; SDIA + sparse far)
+#: kernels each main-path run launches (its plan's streams)
 EXPECTED = {
-    "cant_proxy": {"sdia_sym"},
-    "audikw_proxy": {"bell2_spmv", "unperm_gather"},
-    "flagship": {"sdia_sym", "bell2_spmv_accum"},
+    "cant_proxy": {"sdia_sym"},  # SDIA only
+    "audikw_proxy": {"bell2_spmv", "unperm_gather"},  # grouped far stream
+    "flagship": {"sdia_sym", "bell2_spmv_accum"},  # SDIA + sparse far
+    "general_asym": {"sdia_gen"},  # signed peel, no residual
+    "flagship_csr": {"sdia_gen", "bell2_spmv_accum"},  # peel + residual
+    "cant_proxy_none": {"bell2_spmv"},  # the untuned oracle stream
+    "near_band_paired": {"sbell_spmv", "bell2_spmv_accum"},  # paired + far
+    # the default gate's choice for the same matrix: grouped one-sided
+    "near_band_paired_auto": {"bell2_spmv", "unperm_gather"},
+    "cant_proxy_mirrored": {"sdia_gen"},  # mirrored diagonals
+}
+#: the Pallas kernel each CUDA kernel replaces
+REPLACES = {
+    "sdia_sym": "cfs_spmv_tpu/ops/sdia_kernel.py:157",
+    "bell2_spmv": "cfs_spmv_tpu/ops/bell2_kernel.py:812",
+    "bell2_spmv_accum": "cfs_spmv_tpu/ops/bell2_kernel.py:939",
+    "unperm_gather": "cfs_spmv_tpu/ops/bell2_kernel.py:1216",
+    "sbell_spmv": "cfs_spmv_tpu/ops/bell2_kernel.py:1385",
+    "sdia_gen": "cfs_spmv_tpu/ops/sdia_kernel.py:251",
 }
 TIMED_CALLS = 20
 
@@ -101,6 +131,41 @@ def _median_ms(torch, fn, calls=TIMED_CALLS, repeats=5):
     return float(np.median(per_call))
 
 
+def _device_ms(torch, fn, calls=TIMED_CALLS):
+    """(device busy ms per call, {kernel: ms per call}) from
+    ``torch.profiler`` over ``calls`` back-to-back calls: the summed
+    durations of the card's own events (kernels, copies, fills), so the
+    wrappers' host overhead is not in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            # "void (anonymous namespace)::sbell_spmv_kernel<4>(...)"
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1]
+            name = name.replace("void ", "").strip()[:40]
+            by_name[name] = (by_name.get(name, 0.0)
+                             + e.device_time_total / 1e3 / calls)
+    return sum(by_name.values()), by_name
+
+
+def _fmt_device(busy, by_name):
+    if not by_name:
+        return "device time not measured (the profiler saw no device events)"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return f"device {busy:.4f} ms (" + ", ".join(
+        f"{k} {v:.4f}" for k, v in top) + ")"
+
+
 def _nbytes(*tensors):
     """Bytes the tensors occupy: what a kernel must at least move."""
     return sum(t.numel() * t.element_size() for t in tensors)
@@ -122,6 +187,54 @@ def _agree(y, y_ref, scale, nnz_per_row, what):
     return float(np.abs(y - y_ref).max())
 
 
+@contextlib.contextmanager
+def _planning(paired=None, sym_rows_max=None):
+    """Planner settings of one run: ``CFS_PAIRED`` and the module-level
+    ``SDIA_SYM_ROWS_MAX``, restored afterwards."""
+    from cfs_spmv_tpu_torch.formats import sdia
+
+    old_env, old_max = os.environ.get("CFS_PAIRED"), sdia.SDIA_SYM_ROWS_MAX
+    if paired is not None:
+        os.environ["CFS_PAIRED"] = paired
+    if sym_rows_max is not None:
+        sdia.SDIA_SYM_ROWS_MAX = sym_rows_max
+    try:
+        yield
+    finally:
+        sdia.SDIA_SYM_ROWS_MAX = old_max
+        if old_env is None:
+            os.environ.pop("CFS_PAIRED", None)
+        else:
+            os.environ["CFS_PAIRED"] = old_env
+
+
+def predict(tuned) -> set:
+    """The kernels an apply of ``tuned`` launches, read off its device
+    struct (the branches of ``ops/spmv.bell2_apply`` / ``sbell_apply``)."""
+    from cfs_spmv_tpu_torch.ops.spmv import Bell2Device
+
+    dev = tuned.operands
+    dev = dev["dev"] if isinstance(dev, dict) else dev
+    out = set()
+    if isinstance(dev, Bell2Device):
+        if dev.has_work:
+            sparse = dev.sparse_stream and not dev.grouped
+            out.add("bell2_spmv_accum" if sparse else "bell2_spmv")
+        if dev.grouped:
+            out.add("unperm_gather")
+        if dev.dia_vals is not None:
+            out.add("sdia_gen")
+        return out
+    if dev.has_paired:
+        out.add("sbell_spmv")
+    if dev.far is not None:
+        out |= ({"bell2_spmv", "unperm_gather"} if dev.far.grouped
+                else {"bell2_spmv_accum"})
+    if dev.dia_vals is not None:
+        out.add("sdia_gen" if dev.dia_mirrored else "sdia_sym")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -130,19 +243,37 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from cfs_spmv_tpu_torch import Format, SparseMatrix, SpDMV, Tuning
+    from cfs_spmv_tpu_torch.cli.test_spmv_mmf import main as test_cli
+    from cfs_spmv_tpu_torch.formats.bell2 import build_general_plan
+    from cfs_spmv_tpu_torch.formats.sbell import build_sbell_plan
+    from cfs_spmv_tpu_torch.io.mmf import write_mmf
     from cfs_spmv_tpu_torch.ops import _cuda
     from cfs_spmv_tpu_torch.ops import bell2_kernel as bk
     from cfs_spmv_tpu_torch.ops import sdia_kernel as sk
     from cfs_spmv_tpu_torch.ops import spmv as ops
     from cfs_spmv_tpu_torch.utils.platform import allclose_spmv
-    from cfs_spmv_tpu_torch.utils.proxies import audikw_proxy, cant_proxy
+    from cfs_spmv_tpu_torch.utils.proxies import (
+        audikw_proxy,
+        cant_proxy,
+        general_asym,
+        near_band_paired,
+    )
 
     wrappers = {
         "sdia_sym": sk.sdia_sym_tiles,
         "bell2_spmv": bk.bell2_spmv_tiles,
         "bell2_spmv_accum": bk.bell2_spmv_tiles_accum,
         "unperm_gather": bk.unperm_gather_tiles,
+        "sbell_spmv": bk.sbell_spmv_tiles,
+        "sdia_gen": sk.sdia_gen_tiles,
     }
+    t_start = time.perf_counter()
+    phase_t = [time.perf_counter()]
+
+    def phase_done(what):
+        now = time.perf_counter()
+        print(f"phase {what}: {now - phase_t[0]:.2f} s", flush=True)
+        phase_t[0] = now
 
     # -- 1. the card ----------------------------------------------------
     card = _card()
@@ -151,38 +282,57 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
           f"x{torch.cuda.device_count()}", flush=True)
     dev = torch.device("cuda")
+    phase_done("1 card")
 
     # -- 2. build -------------------------------------------------------
-    t0 = time.perf_counter()
     _cuda.lib()
-    print(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    phase_done("2 kernel build/load")
 
     t0 = time.perf_counter()
-    mats = {
-        "cant_proxy": cant_proxy(),
-        "audikw_proxy": audikw_proxy(),
-        "flagship": flagship(n=65536, deg=32),
+    cant = cant_proxy()
+    flag = flagship(n=65536, deg=32)
+    nbp = near_band_paired()
+    #: name -> (CSR, format, tuning, CFS_PAIRED, SDIA_SYM_ROWS_MAX)
+    RUNS = {
+        "cant_proxy": (cant, Format.SSS, Tuning.AGGRESSIVE, None, None),
+        "audikw_proxy": (audikw_proxy(), Format.SSS, Tuning.AGGRESSIVE,
+                         None, None),
+        "flagship": (flag, Format.SSS, Tuning.AGGRESSIVE, None, None),
+        "general_asym": (general_asym(), Format.CSR, Tuning.AGGRESSIVE,
+                         None, None),
+        "flagship_csr": (flag, Format.CSR, Tuning.AGGRESSIVE, None, None),
+        "cant_proxy_none": (cant, Format.SSS, Tuning.NONE, None, None),
+        "near_band_paired": (nbp, Format.SSS, Tuning.AGGRESSIVE, "force",
+                             None),
+        "near_band_paired_auto": (nbp, Format.SSS, Tuning.AGGRESSIVE,
+                                  "auto", None),
+        "cant_proxy_mirrored": (cant, Format.SSS, Tuning.AGGRESSIVE, None,
+                                cant.nrows - 1),
     }
     print(f"matrices generated in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    # -- 3. the main path, once ----------------------------------------
-    for w in wrappers.values():
-        w.launches = 0
+    # -- 3. the main paths, once each -----------------------------------
+    launches = dict.fromkeys(wrappers, 0)
     runs = {}
-    for name, csr in mats.items():
-        before = {k: w.launches for k, w in wrappers.items()}
+    for name, (csr, fmt, tuning, paired, rows_max) in RUNS.items():
         t0 = time.perf_counter()
-        A = SparseMatrix.create(csr, Format.SSS)
-        op = SpDMV(A, Tuning.AGGRESSIVE, dtype=np.float32, device="cuda")
+        with _planning(paired, rows_max):
+            A = SparseMatrix.create(csr, fmt)
+            op = SpDMV(A, tuning, dtype=np.float32, device="cuda")
         t_tune = time.perf_counter() - t0
-        x = np.random.default_rng(1).uniform(1.0, 2.0, csr.nrows).astype(
+        predicted = predict(A.tuned)
+        x = np.random.default_rng(1).uniform(1.0, 2.0, csr.ncols).astype(
             np.float32
         )
+        for w in wrappers.values():
+            w.launches = 0
         y = op(x)
         torch.cuda.synchronize()
-        moved = {k for k, w in wrappers.items() if w.launches > before[k]}
+        counts = {k: w.launches for k, w in wrappers.items()}
+        moved = {k for k, c in counts.items() if c}
+        for k, c in counts.items():
+            launches[k] += c
         y_np = y.cpu().numpy()
         xd = x.astype(np.float64)
         ref = csr.spmv_host(xd)
@@ -195,28 +345,33 @@ def main() -> int:
             )
         )
         plan = A.tuned.plan
+        far = getattr(plan, "far", None)
         print(
             f"main path {name}: n={csr.nrows} nnz_full={A.tuned.nnz_full} "
-            f"tune+upload {t_tune:.2f} s reorder={A.tuned.perm is not None} "
-            f"dia={0 if plan.dia is None else len(plan.dia.offsets)} "
-            f"far_nnz={0 if plan.far is None else plan.far.nnz} "
-            f"far_chunks={0 if plan.far is None else plan.far.num_chunks} "
-            f"kernels={sorted(moved)} max_abs_err="
-            f"{float(np.abs(y_np - ref).max())} oracle_ok={ok}",
+            f"{fmt.name}/{tuning.name} tune+upload {t_tune:.2f} s "
+            f"reorder={A.tuned.perm is not None} "
+            f"dia={None if plan.dia is None else len(plan.dia.offsets)} "
+            f"paired_nnz={getattr(plan, 'nnz_paired', 0)} "
+            f"tw={getattr(plan, 'transpose_windows', None)} "
+            f"stream_nnz={getattr(plan, 'nnz', 0)} "
+            f"far_nnz={0 if far is None else far.nnz} "
+            f"predicted={sorted(predicted)} launched={counts} "
+            f"max_abs_err={float(np.abs(y_np - ref).max())} "
+            f"oracle_ok={ok}",
             flush=True,
         )
         if not ok:
             raise AssertionError(f"{name}: disagrees with the f64 oracle")
-        if moved != EXPECTED[name]:
+        if not moved == predicted == EXPECTED[name]:
             raise AssertionError(
-                f"{name}: launched {sorted(moved)}, expected "
-                f"{sorted(EXPECTED[name])}"
+                f"{name}: launched {sorted(moved)}, predicted "
+                f"{sorted(predicted)}, expected {sorted(EXPECTED[name])}"
             )
         runs[name] = (A, x)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"launch counts of the main path: {launches}", flush=True)
+    print(f"launch counts of the main paths: {launches}", flush=True)
     if not all(launches.values()):
-        raise AssertionError("a kernel of the path was never launched")
+        raise AssertionError("a kernel of the paths was never launched")
+    phase_done("3 main paths")
 
     # -- 4. each kernel against its plain twin, on the real plan arrays --
     def operands(name):
@@ -241,26 +396,25 @@ def main() -> int:
     )
     err = _agree(yk, yp, scale, 2 * d.dia_vals.shape[1], "sdia_sym")
     kern["sdia_sym"] = dict(
-        err=err,
+        err=err, on="cant_proxy",
         bytes=_nbytes(d.dia_vals, x2d) + 2 * _nbytes(y0),
-        ms=_median_ms(torch, lambda: sk.sdia_sym_tiles(
-            *args, y0.clone(), d.dia_offsets)),
-        plain_ms=_median_ms(torch, lambda: sk.sdia_sym_tiles_plain(
-            *args, y0.clone(), d.dia_offsets)),
+        fn=lambda a=args, y=y0, o=d.dia_offsets: sk.sdia_sym_tiles(
+            *a, y.clone(), o),
+        plain=lambda a=args, y=y0, o=d.dia_offsets: sk.sdia_sym_tiles_plain(
+            *a, y.clone(), o),
     )
 
     # B2 + B3 on audikw_proxy: the degree-grouped far stream
     A, d, xe = operands("audikw_proxy")
     fd = d.far
-    x2d = ops.pad_x(xe, d.x_rows)
-    kw = dict(num_row_tiles=fd.num_row_tiles,
-              chunks_per_step=fd.chunks_per_step,
-              tiles_per_block=fd.tiles_per_block, contig=fd.contig)
-    sargs = (fd.vals, fd.packed, fd.meta, fd.step_block, x2d)
-    fk = bk.bell2_spmv_tiles(*sargs, **kw)
-    fp = bk.bell2_spmv_tiles_plain(*sargs, **kw)
+    x2d_a = ops.pad_x(xe, d.x_rows)
+    kw_a = fd.stream_kw()
+    sargs_a = (fd.vals, fd.packed, fd.meta, fd.step_block, x2d_a)
+    fk = bk.bell2_spmv_tiles(*sargs_a, **kw_a)
+    fp = bk.bell2_spmv_tiles_plain(*sargs_a, **kw_a)
     fs = bk.bell2_spmv_tiles_plain(
-        fd.vals.abs(), fd.packed, fd.meta, fd.step_block, x2d.abs(), **kw
+        fd.vals.abs(), fd.packed, fd.meta, fd.step_block, x2d_a.abs(),
+        **kw_a
     )
     BT = fd.tiles_per_block
     rows = (torch.unique(fd.step_block).long()[:, None] * BT
@@ -269,11 +423,10 @@ def main() -> int:
     err = _agree(fk[rows], fp[rows], fs[rows],
                  A.tuned.plan.far.nnz / A.nrows, "bell2_spmv")
     kern["bell2_spmv"] = dict(
-        err=err,
-        bytes=_nbytes(*sargs[:4]) + _nbytes(fp),
-        ms=_median_ms(torch, lambda: bk.bell2_spmv_tiles(*sargs, **kw)),
-        plain_ms=_median_ms(
-            torch, lambda: bk.bell2_spmv_tiles_plain(*sargs, **kw)),
+        err=err, on="audikw_proxy",
+        bytes=_nbytes(*sargs_a[:4]) + _nbytes(fp),
+        fn=lambda: bk.bell2_spmv_tiles(*sargs_a, **kw_a),
+        plain=lambda: bk.bell2_spmv_tiles_plain(*sargs_a, **kw_a),
     )
     uargs = (fd.unperm_pk, fd.unperm_slabs, fp[: fd.num_row_tiles])
     uk = bk.unperm_gather_tiles(*uargs)
@@ -281,77 +434,166 @@ def main() -> int:
     if not torch.equal(uk, up):
         raise AssertionError("unperm_gather: not bit-identical to its twin")
     kern["unperm_gather"] = dict(
-        err=float((uk - up).abs().max()),
+        err=float((uk - up).abs().max()), on="audikw_proxy",
         bytes=_nbytes(fd.unperm_pk, uk) + 4 * A.nrows,
-        ms=_median_ms(torch, lambda: bk.unperm_gather_tiles(*uargs)),
-        plain_ms=_median_ms(
-            torch, lambda: bk.unperm_gather_tiles_plain(*uargs)),
+        fn=lambda: bk.unperm_gather_tiles(*uargs),
+        plain=lambda: bk.unperm_gather_tiles_plain(*uargs),
     )
 
     # B4 on the flagship: the sparse far residual, onto a nonzero y
     A, d, xe = operands("flagship")
     fd = d.far
-    x2d = ops.pad_x(xe, d.x_rows)
-    kw = dict(num_row_tiles=fd.num_row_tiles,
-              chunks_per_step=fd.chunks_per_step,
-              tiles_per_block=fd.tiles_per_block, contig=fd.contig)
-    sargs = (fd.vals, fd.packed, fd.meta, fd.step_block, x2d)
+    x2d_f = ops.pad_x(xe, d.x_rows)
+    kw_f = fd.stream_kw()
+    sargs_f = (fd.vals, fd.packed, fd.meta, fd.step_block, x2d_f)
     TP = -(-fd.num_row_tiles // fd.tiles_per_block) * fd.tiles_per_block
-    y0 = torch.rand((TP, 128), generator=g).to(dev)
-    yk = bk.bell2_spmv_tiles_accum(*sargs, y0.clone(), **kw)
-    yp = bk.bell2_spmv_tiles_accum_plain(*sargs, y0.clone(), **kw)
+    y0_f = torch.rand((TP, 128), generator=g).to(dev)
+    yk = bk.bell2_spmv_tiles_accum(*sargs_f, y0_f.clone(), **kw_f)
+    yp = bk.bell2_spmv_tiles_accum_plain(*sargs_f, y0_f.clone(), **kw_f)
     ys = bk.bell2_spmv_tiles_accum_plain(
-        fd.vals.abs(), fd.packed, fd.meta, fd.step_block, x2d.abs(),
-        y0.abs(), **kw
+        fd.vals.abs(), fd.packed, fd.meta, fd.step_block, x2d_f.abs(),
+        y0_f.abs(), **kw_f
     )
     err = _agree(yk, yp, ys, A.tuned.plan.far.nnz / A.nrows,
                  "bell2_spmv_accum")
     kern["bell2_spmv_accum"] = dict(
-        err=err,
-        bytes=_nbytes(*sargs[:4]) + 2 * _nbytes(y0),
-        ms=_median_ms(torch, lambda: bk.bell2_spmv_tiles_accum(
-            *sargs, y0.clone(), **kw)),
-        plain_ms=_median_ms(torch, lambda: bk.bell2_spmv_tiles_accum_plain(
-            *sargs, y0.clone(), **kw)),
+        err=err, on="flagship",
+        bytes=_nbytes(*sargs_f[:4]) + 2 * _nbytes(y0_f),
+        fn=lambda: bk.bell2_spmv_tiles_accum(*sargs_f, y0_f.clone(), **kw_f),
+        plain=lambda: bk.bell2_spmv_tiles_accum_plain(
+            *sargs_f, y0_f.clone(), **kw_f),
     )
-    for name, k in kern.items():
-        print(f"kernel {name}: max_abs_err vs twin {k['err']} "
-              f"kernel {k['ms']:.4f} ms twin {k['plain_ms']:.4f} ms; "
-              f"{k['bytes'] / 1e6:.2f} MB of operands -> "
-              f"{k['bytes'] / k['ms'] / 1e6:.0f} GB/s by the kernel "
-              f"({card})", flush=True)
 
-    # -- 5. end to end: kernel path against plain path ---------------------
-    for name in mats:
+    # B5 on near_band_paired: the paired stream of the main path, the
+    # same matrix planned with the other transpose-window count, and with
+    # 8-tile output blocks (the main plan has one block), each into a
+    # NaN-poisoned buffer
+    A, d, xe = operands("near_band_paired")
+    other_tw = 2 if d.transpose_windows == 4 else 4
+    with _planning("force"):
+        variants = [
+            ops.sym_to_device(build_sbell_plan(A.csr, **kw), dev)
+            for kw in (dict(transpose_windows=other_tw),
+                       dict(transpose_windows=d.transpose_windows,
+                            tiles_per_block=8))
+        ]
+    errs = []
+    for dp in variants + [d]:  # the main plan's last, for the timing
+        kw_p = dict(num_row_tiles=dp.num_row_tiles,
+                    chunks_per_step=dp.chunks_per_step,
+                    tiles_per_block=dp.tiles_per_block,
+                    transpose_windows=dp.transpose_windows)
+        pargs = (dp.vals, dp.packed, dp.meta, dp.step_block,
+                 ops.pad_x(xe, dp.x_rows))
+        TP = -(-dp.num_row_tiles // dp.tiles_per_block) * dp.tiles_per_block
+        poison = torch.full((TP, 128), float("nan"), device=dev)
+        yk = bk.sbell_spmv_tiles(*pargs, out=poison, **kw_p)
+        yp = bk.sbell_spmv_tiles_plain(*pargs, **kw_p)
+        ys = bk.sbell_spmv_tiles_plain(
+            dp.vals.abs(), *pargs[1:4], pargs[4].abs(), **kw_p)
+        what = (f"sbell_spmv TW={dp.transpose_windows} "
+                f"BT={dp.tiles_per_block}")
+        errs.append(_agree(yk, yp, ys, 2 * A.tuned.nnz_full / A.nrows, what))
+        print(f"kernel {what}: {dp.vals.shape[0] // 8} chunks in "
+              f"{TP // dp.tiles_per_block} blocks, max_abs_err vs twin "
+              f"{errs[-1]}", flush=True)
+    kern["sbell_spmv"] = dict(
+        err=max(errs), on=f"near_band_paired TW={d.transpose_windows}",
+        bytes=_nbytes(*pargs) + _nbytes(yp),
+        fn=lambda: bk.sbell_spmv_tiles(*pargs, **kw_p),
+        plain=lambda: bk.sbell_spmv_tiles_plain(*pargs, **kw_p),
+    )
+
+    # B6 on a ragged general_asym(g=50) plan (125,000 rows: fewer x and
+    # y rows than its padded value blocks hold) and on general_asym's
+    # signed-offset peel, each onto a nonzero y
+    A, d, xe = operands("general_asym")
+    ragged = ops.to_device(build_general_plan(general_asym(g=50)), dev)
+    x_r = torch.rand(ragged.ncols, generator=g).to(dev)
+    errs = []
+    for dg, xg in ((ragged, x_r), (d, xe)):  # the main plan's last
+        x2d_g = ops.pad_x(xg, dg.x_rows)
+        y0_g = torch.rand((dg.num_row_tiles, 128), generator=g).to(dev)
+        gargs = (dg.dia_vals, x2d_g)
+        yk = sk.sdia_gen_tiles(*gargs, y0_g.clone(), dg.dia_offsets)
+        yp = sk.sdia_gen_tiles_plain(*gargs, y0_g.clone(), dg.dia_offsets)
+        scale = sk.sdia_gen_tiles_plain(
+            dg.dia_vals.abs().double(), x2d_g.abs().double(),
+            y0_g.abs().double(), dg.dia_offsets,
+        )
+        what = (f"sdia_gen n={dg.nrows} rows of values "
+                f"{dg.dia_vals.shape[0] * 1024} x rows {dg.x_rows * 128}")
+        errs.append(_agree(yk, yp, scale, dg.dia_vals.shape[1], what))
+        print(f"kernel {what}: max_abs_err vs twin {errs[-1]}", flush=True)
+    kern["sdia_gen"] = dict(
+        err=max(errs), on="general_asym",
+        bytes=_nbytes(d.dia_vals, x2d_g) + 2 * _nbytes(y0_g),
+        fn=lambda o=d.dia_offsets: sk.sdia_gen_tiles(
+            *gargs, y0_g.clone(), o),
+        plain=lambda o=d.dia_offsets: sk.sdia_gen_tiles_plain(
+            *gargs, y0_g.clone(), o),
+    )
+    phase_done("4 kernels against twins")
+
+    # -- 5. times: kernels, then the kernel path against the plain path --
+    for name, k in kern.items():
+        k["ms"] = _median_ms(torch, k["fn"])
+        k["plain_ms"] = _median_ms(torch, k["plain"])
+        busy, by_name = _device_ms(torch, k["fn"])
+        print(f"kernel {name} on {k['on']}: max_abs_err vs twin {k['err']} "
+              f"kernel {k['ms']:.4f} ms twin {k['plain_ms']:.4f} ms; "
+              f"{_fmt_device(busy, by_name)}; "
+              f"{k['bytes'] / 1e6:.2f} MB of operands -> "
+              f"{k['bytes'] / k['ms'] / 1e6:.0f} GB/s by event time "
+              f"({card})", flush=True)
+    for name in RUNS:
         A, d, xe = operands(name)
-        yk = ops.sbell_apply(d, xe)
-        yp = ops.sbell_apply(d, xe, plain=True)
-        csr = mats[name]
+        apply = (ops.bell2_apply if isinstance(d, ops.Bell2Device)
+                 else ops.sbell_apply)
+        yk = apply(d, xe)
+        yp = apply(d, xe, plain=True)
         e2e_err = float((yk - yp).abs().max())
-        ms_k = _median_ms(torch, lambda: ops.sbell_apply(d, xe))
-        ms_p = _median_ms(torch, lambda: ops.sbell_apply(d, xe, plain=True))
+        ms_k = _median_ms(torch, lambda: apply(d, xe))
+        ms_p = _median_ms(torch, lambda: apply(d, xe, plain=True))
+        busy, by_name = _device_ms(torch, lambda: apply(d, xe))
         nnz = A.tuned.nnz_full
         print(
             f"end to end {name}: kernel path {ms_k:.4f} ms "
             f"({nnz / ms_k / 1e6:.2f} Gnnz/s), plain path {ms_p:.4f} ms "
             f"({nnz / ms_p / 1e6:.2f} Gnnz/s), max |kernel - plain| "
-            f"{e2e_err}, n={csr.nrows} nnz_full={nnz} ({card})",
+            f"{e2e_err}; kernel path {_fmt_device(busy, by_name)}; "
+            f"n={A.nrows} nnz_full={nnz} ({card})",
             flush=True,
         )
+    phase_done("5 times")
 
-    sources = {
-        "sdia_sym": "cfs_spmv_tpu/ops/sdia_kernel.py:157",
-        "bell2_spmv": "cfs_spmv_tpu/ops/bell2_kernel.py:812",
-        "bell2_spmv_accum": "cfs_spmv_tpu/ops/bell2_kernel.py:939",
-        "unperm_gather": "cfs_spmv_tpu/ops/bell2_kernel.py:1216",
-    }
+    # -- 6. the differential CLI on a written .mtx ----------------------
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "near_band_paired_20k.mtx")
+    coo = near_band_paired(n=20_000, seed=2).to_coo()
+    write_mmf(path, coo.nrows, coo.ncols, coo.row, coo.col, coo.val,
+              symmetric=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = test_cli([path, "1", "--device", "cuda"])
+    said = buf.getvalue().strip()
+    print(f"cli test_spmv_mmf {path} 1 --device cuda: {said!r} exit {rc}",
+          flush=True)
+    if rc != 0 or not said.endswith("PASSED!"):
+        raise AssertionError("the differential CLI did not pass")
+    phase_done("6 cli")
+    print(f"total wall time {time.perf_counter() - t_start:.2f} s",
+          flush=True)
+
     print(f"card: {card}")
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": "cfs_spmv_tpu_torch/csrc/spmv_kernels.cu",
-            "replaces": sources[name],
+            "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": kern[name]["err"],
             "ms": kern[name]["ms"],

@@ -1,6 +1,7 @@
-"""Kernels B2, B4 and B3 (one-sided BELL2 stream, its accumulating form,
-grouped unpermute): the port's plain twins against the reference's
-Pallas kernels (interpret mode) on real plan streams.
+"""Kernels B2, B4, B3 and B5 (one-sided BELL2 stream, its accumulating
+form, grouped unpermute, paired symmetric stream): the port's plain twins
+against the reference's Pallas kernels (interpret mode) on real plan
+streams.
 
 The streams cover contiguous depth-8, deep depth-16 and depth-32 window
 ranges, a listed-window (unit pipeline) plan, a degree-grouped far stream
@@ -14,8 +15,12 @@ visits hold whatever the buffer held, and the interpreter's zero fill
 would hide a sentinel bug. Visited blocks must come out finite, and after
 the unpermute absent rows must read exact 0.
 
+The B5 streams are paired plans built with pairing forced
+(``CFS_PAIRED=force``), with two and with four transpose windows; their
+output buffer is NaN-poisoned too, and every tile must come out finite.
+
 Tolerances: ``allclose_spmv`` at float32 with the backward-error scale
-(|vals| |x| through the float64 twin) for B2/B4, whose summation order
+(|vals| |x| through the float64 twin) for B2/B4/B5, whose summation order
 differs; B3 is a pure gather and must match exactly.
 """
 
@@ -29,6 +34,7 @@ from cfs_spmv_tpu.formats.bell2 import build_bell2_plan
 from cfs_spmv_tpu.formats.coo import COO as RefCOO
 from cfs_spmv_tpu.formats.csr import CSR as RefCSR
 from cfs_spmv_tpu.formats.sbell import build_sbell_plan
+from cfs_spmv_tpu.formats.sbell import build_sbell_plan as ref_sbell_plan
 from cfs_spmv_tpu.ops import bell2_kernel as ref_bk
 from cfs_spmv_tpu.ops import spmv as ref_ops
 from cfs_spmv_tpu.utils import proxies
@@ -246,6 +252,44 @@ def test_unperm_gather_plain_matches_reference_exactly():
                   == 0.0)
 
 
+@pytest.mark.parametrize("tw,bt", [(2, None), (4, None), (4, 8)])
+def test_sbell_spmv_plain_matches_reference(tw, bt, monkeypatch):
+    """Forced paired plans with two and four transpose windows, in one
+    output block and (``bt=8``) in four."""
+    monkeypatch.setenv("CFS_PAIRED", "force")
+    csr = proxies.near_band_paired(n=4000, n_diags=32, max_off=300, seed=5)
+    plan = ref_sbell_plan(csr, transpose_windows=tw, tiles_per_block=bt)
+    assert plan.nnz_paired > 0 and plan.transpose_windows == tw
+    assert len(np.unique(plan.step_block)) == (1 if bt is None else 4)
+    pd = ops.sym_to_device(plan, "cpu")
+    assert pd.has_paired
+    x = np.random.default_rng(6).uniform(10.01, 20.42, plan.nrows)
+    x2d_np = np.asarray(
+        ref_ops.pad_x(jnp.asarray(x.astype(np.float32)), plan.x_rows)
+    )
+    kw = dict(num_row_tiles=plan.num_row_tiles,
+              chunks_per_step=plan.chunks_per_step,
+              tiles_per_block=plan.tiles_per_block, transpose_windows=tw)
+    ref = np.asarray(ref_bk.sbell_spmv_tiles(
+        jnp.asarray(plan.vals), jnp.asarray(plan.packed),
+        jnp.asarray(plan.meta), jnp.asarray(plan.step_block),
+        jnp.asarray(x2d_np), interpret=True, **kw,
+    ))
+    x2d = torch.from_numpy(x2d_np.copy())
+    TP = -(-plan.num_row_tiles // plan.tiles_per_block) * plan.tiles_per_block
+    poison = torch.full((TP, 128), float("nan"))
+    got = bk.sbell_spmv_tiles(pd.vals, pd.packed, pd.meta, pd.step_block,
+                              x2d, out=poison, **kw)
+    assert got.shape == ref.shape and np.isfinite(poison.numpy()).all()
+    scale = bk.sbell_spmv_tiles_plain(
+        pd.vals.abs().double(), pd.packed, pd.meta, pd.step_block,
+        x2d.abs().double(), **kw,
+    )
+    assert allclose_spmv(got.numpy(), ref, np.float32,
+                         nnz_per_row=2 * plan.nnz_paired / plan.nrows,
+                         scale=scale.numpy())
+
+
 def test_bell2_wrappers_check_operands():
     plan = _band(300)()
     pd = ops.to_device(plan, "cpu")
@@ -263,3 +307,4 @@ def test_bell2_wrappers_check_operands():
     assert bk.bell2_spmv_tiles.launches == 0
     assert bk.bell2_spmv_tiles_accum.launches == 0
     assert bk.unperm_gather_tiles.launches == 0
+    assert bk.sbell_spmv_tiles.launches == 0

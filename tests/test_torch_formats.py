@@ -15,8 +15,16 @@ import pytest
 
 import __graft_entry__
 import chip_smoke
+from cfs_spmv_tpu.formats import bsr as ref_bsr
+from cfs_spmv_tpu.formats import sdia as ref_sdia
+from cfs_spmv_tpu.formats.bell2 import build_general_plan as ref_general
+from cfs_spmv_tpu.formats.coo import COO as RefCOO
+from cfs_spmv_tpu.formats.csr import CSR as RefCSR
 from cfs_spmv_tpu.formats.sbell import build_sbell_plan as ref_build
 from cfs_spmv_tpu.utils import proxies as ref_proxies
+from cfs_spmv_tpu_torch.formats import bsr
+from cfs_spmv_tpu_torch.formats import sdia as port_sdia
+from cfs_spmv_tpu_torch.formats.bell2 import build_general_plan
 from cfs_spmv_tpu_torch.formats.csr import CSR
 from cfs_spmv_tpu_torch.formats.sbell import build_sbell_plan
 from cfs_spmv_tpu_torch.utils import proxies
@@ -85,6 +93,81 @@ def test_plans_byte_identical(name, paired, monkeypatch):
     if paired == "auto":
         # the cost gate routes every headline shape to one-sided streams
         assert plan.nnz_paired == 0
+
+
+def _expanded(gen):
+    return lambda: RefCSR.from_coo(gen().to_coo().expand_symmetric())
+
+
+def _rect():
+    return RefCSR.from_coo(
+        RefCOO.random(700, 500, 4.0, seed=1, dtype=np.float32)
+    )
+
+
+GENERAL = {
+    "general_asym": lambda: ref_proxies.general_asym(g=12),
+    "flagship_expanded": _expanded(_flagship),
+    "audikw_expanded": _expanded(lambda: ref_proxies.audikw_proxy(nb=1000)),
+    "rectangular": _rect,
+}
+
+
+@pytest.mark.parametrize("dia", [True, False])
+@pytest.mark.parametrize("name", sorted(GENERAL))
+def test_general_plans_byte_identical(name, dia):
+    """The general path's plan (``build_general_plan``), with the
+    signed-offset diagonal peel on and off, matches the reference's."""
+    ref_csr = GENERAL[name]()
+    if name == "general_asym":
+        assert_same_plan(proxies.general_asym(g=12), port_csr(ref_csr), "csr")
+    ref_plan = ref_general(ref_csr, dtype=np.float32, dia=dia)
+    plan = build_general_plan(port_csr(ref_csr), dtype=np.float32, dia=dia)
+    assert_same_plan(plan, ref_plan)
+    if dia and name == "general_asym":
+        assert 0 in plan.dia.offsets and min(plan.dia.offsets) < 0
+
+
+@pytest.mark.parametrize("name", ["cant", "flagship"])
+def test_mirrored_sdia_plans_byte_identical(name, monkeypatch):
+    """Past ``SDIA_SYM_ROWS_MAX`` the symmetric planner mirrors the
+    diagonals into signed offsets: the same plan on both sides."""
+    monkeypatch.setattr(ref_sdia, "SDIA_SYM_ROWS_MAX", 100)
+    monkeypatch.setattr(port_sdia, "SDIA_SYM_ROWS_MAX", 100)
+    ref_csr = CASES[name][0]()
+    ref_plan = ref_build(ref_csr, dtype=np.float32)
+    plan = build_sbell_plan(port_csr(ref_csr), dtype=np.float32)
+    assert_same_plan(plan, ref_plan)
+    assert min(plan.dia.offsets) < 0
+
+
+@pytest.mark.parametrize("name,dia", [("near_band_paired", True),
+                                      ("cant", False)])
+def test_paired_plans_four_windows_byte_identical(name, dia, monkeypatch):
+    """Forced pairing with four transpose windows (the cant band without
+    its diagonal peel pairs whole)."""
+    monkeypatch.setenv("CFS_PAIRED", "force")
+    ref_csr = CASES[name][0]()
+    ref_plan = ref_build(ref_csr, dtype=np.float32, transpose_windows=4,
+                         dia=dia)
+    plan = build_sbell_plan(port_csr(ref_csr), dtype=np.float32,
+                            transpose_windows=4, dia=dia)
+    assert_same_plan(plan, ref_plan)
+    assert plan.nnz_paired > 0 and plan.transpose_windows == 4
+
+
+@pytest.mark.parametrize("name", ["audikw", "general_asym", "flagship"])
+def test_bsr_containers_byte_identical(name):
+    """``Format.BSR``'s host container: the same block size and arrays."""
+    gen = {"audikw": CASES["audikw"][0], "flagship": _flagship,
+           "general_asym": GENERAL["general_asym"]}[name]
+    ref_csr = gen()
+    csr = port_csr(ref_csr)
+    b = bsr.detect_block_size(csr)
+    assert b == ref_bsr.detect_block_size(ref_csr)
+    assert_same_plan(bsr.BSR.from_csr(csr, b),
+                     ref_bsr.BSR.from_csr(ref_csr, b), "bsr")
+    assert_same_plan(bsr.BSR.from_csr(csr, b).to_csr(), csr, "csr")
 
 
 def test_smoke_flagship_matches_reference_generator():

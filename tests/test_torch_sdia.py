@@ -1,10 +1,13 @@
-"""Kernel B1 (dense-diagonal symmetric stream): the port's plain twin
-against the reference's Pallas ``sdia_sym_tiles`` (interpret mode).
+"""Kernels B1 and B6 (dense-diagonal streams, symmetric and signed): the
+port's plain twins against the reference's Pallas ``sdia_sym_tiles`` and
+``sdia_gen_tiles`` (interpret mode).
 
 Random values on every diagonal (padding rows included), offsets that
-hit lane shift 0 and sublane shifts > 0 and cross 1024-row blocks, fewer
-output tiles than value rows, a shorter x than the value rows and a
-nonzero incoming y.
+hit lane shift 0 and sublane shifts > 0 and cross 1024-row blocks (for
+B6 also the main diagonal and super-diagonals reading ahead), fewer
+output tiles than value rows, a shorter x than the value rows, a
+nonzero incoming y, and (B6) a NaN-poisoned y tail past the value rows,
+which must keep its value.
 
 Tolerance: ``allclose_spmv`` at float32 with the backward-error scale
 (|vals|, |x|, |y| through the float64 twin), since the Pallas
@@ -16,9 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+from cfs_spmv_tpu.ops.sdia_kernel import sdia_gen_tiles as ref_sdia_gen
 from cfs_spmv_tpu.ops.sdia_kernel import sdia_sym_tiles as ref_sdia_sym
 from cfs_spmv_tpu_torch.ops.sdia_kernel import (
     _blocks_per_step,
+    sdia_gen_tiles,
+    sdia_gen_tiles_plain,
     sdia_sym_tiles,
     sdia_sym_tiles_plain,
 )
@@ -27,6 +33,7 @@ from cfs_spmv_tpu_torch.utils.platform import allclose_spmv
 torch.set_num_threads(1)
 
 OFFSETS = (1, 2, 127, 128, 129, 300, 1029)
+GEN_OFFSETS = (0, 1, -1, 127, -128, 129, -300, 1029, -1500)
 
 
 @pytest.mark.parametrize("R,T,x_rows", [(3, 20, 22), (8, 61, 40)])
@@ -57,6 +64,38 @@ def test_sdia_sym_plain_matches_reference(R, T, x_rows):
     assert not np.array_equal(y.numpy(), y0)
 
 
+@pytest.mark.parametrize("R,T,x_rows", [(3, 20, 22), (8, 61, 70), (2, 19, 16)])
+def test_sdia_gen_plain_matches_reference(R, T, x_rows):
+    D = len(GEN_OFFSETS)
+    assert R % _blocks_per_step(R, D) == 0
+    rng = np.random.default_rng(R * 100 + T + 1)
+    vals = rng.uniform(-1, 1, (R, D, 8, 128)).astype(np.float32)
+    x2d = rng.uniform(-1, 1, (x_rows, 128)).astype(np.float32)
+    y0 = rng.uniform(-1, 1, (T, 128)).astype(np.float32)
+    body = min(T, R * 8)  # rows past the value blocks keep their value
+    y0[body:] = np.nan
+
+    ref = np.asarray(ref_sdia_gen(
+        jnp.asarray(vals), jnp.asarray(x2d), jnp.asarray(y0),
+        offsets=GEN_OFFSETS, interpret=True,
+    ))
+    assert ref.shape == (body, 128)
+    offs = torch.tensor(GEN_OFFSETS, dtype=torch.int32)
+    y_in = torch.from_numpy(y0.copy())
+    y = sdia_gen_tiles(torch.from_numpy(vals), torch.from_numpy(x2d), y_in,
+                       offs)
+    assert y.data_ptr() == y_in.data_ptr() and y.shape == (T, 128)
+    scale = sdia_gen_tiles_plain(
+        torch.from_numpy(np.abs(vals)).double(),
+        torch.from_numpy(np.abs(x2d)).double(),
+        torch.from_numpy(np.abs(y0)).double(), offs,
+    )
+    assert np.isnan(y.numpy()[body:]).all()
+    assert allclose_spmv(y.numpy()[:body], ref, np.float32,
+                         nnz_per_row=D, scale=scale.numpy()[:body])
+    assert not np.array_equal(y.numpy()[:body], y0[:body])
+
+
 def test_sdia_sym_wrapper_checks_operands():
     vals = torch.zeros((1, 2, 8, 128))
     x2d = torch.zeros((8, 128))
@@ -66,4 +105,7 @@ def test_sdia_sym_wrapper_checks_operands():
     with pytest.raises(TypeError):
         sdia_sym_tiles(vals.double(), x2d, y,
                        torch.tensor([1, 2], dtype=torch.int32))
+    with pytest.raises(ValueError):  # offsets must be int32
+        sdia_gen_tiles(vals, x2d, y, torch.tensor([0, -1]))
     assert sdia_sym_tiles.launches == 0  # CPU tensors never launch
+    assert sdia_gen_tiles.launches == 0

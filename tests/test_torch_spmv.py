@@ -1,8 +1,13 @@
-"""The slice end to end: the port's ``SpDMV`` on the CPU against the
-reference's ``SpDMV`` (Pallas in interpret mode) and the float64 host
-oracle ``CSR.spmv_host``, on the flagship, the cant and audikw proxies, a
-27-point stencil and a shuffled band on which RCM reordering fires — and
-everything off the slice raising ``NotImplementedError``.
+"""The port end to end: its ``SpDMV`` on the CPU against the reference's
+``SpDMV`` (Pallas in interpret mode) and the float64 host oracle
+``CSR.spmv_host``. The tuned symmetric path runs on the flagship, the
+cant and audikw proxies, a 27-point stencil and a shuffled band on which
+RCM reordering fires; the general path on an asymmetric stencil, the
+flagship and audikw as general matrices, a rectangular matrix,
+``Tuning.NONE``, an untuned ``A @ x`` and ``Format.BSR``; the paired
+stream under ``CFS_PAIRED=force``; mirrored diagonals past
+``SDIA_SYM_ROWS_MAX``. The differential CLI runs on a written ``.mtx``,
+and everything off the slice raises ``NotImplementedError``.
 
 Tolerance: ``allclose_spmv`` at float32 with the backward-error scale
 ``|A| |x|``, since the reference, the twins and the card's atomics all
@@ -16,9 +21,13 @@ import torch
 import __graft_entry__
 import cfs_spmv_tpu as ref_cfs
 import cfs_spmv_tpu_torch as ct
+from cfs_spmv_tpu.formats import sdia as ref_sdia
+from cfs_spmv_tpu.formats.bell2 import build_general_plan as ref_general
 from cfs_spmv_tpu.formats.sbell import build_sbell_plan as ref_build
 from cfs_spmv_tpu.utils import proxies as ref_proxies
+from cfs_spmv_tpu_torch.cli.test_spmv_mmf import main as run_test_cli
 from cfs_spmv_tpu_torch.formats import sdia as port_sdia
+from cfs_spmv_tpu_torch.formats.bell2 import build_general_plan
 from cfs_spmv_tpu_torch.formats.coo import COO
 from cfs_spmv_tpu_torch.formats.csr import CSR
 from cfs_spmv_tpu_torch.formats.sbell import build_sbell_plan
@@ -68,6 +77,11 @@ MATRICES = {
 }
 
 
+WRAPPERS = (sk.sdia_sym_tiles, sk.sdia_gen_tiles, bk.bell2_spmv_tiles,
+            bk.bell2_spmv_tiles_accum, bk.unperm_gather_tiles,
+            bk.sbell_spmv_tiles)
+
+
 def _assert_close(y, y_ref, csr, x, nnz_full):
     xd = x.astype(np.float64)
     assert allclose_spmv(y, y_ref, np.float32,
@@ -106,14 +120,15 @@ def test_spdmv_matches_reference_and_oracle(name):
         assert torch.equal(A.tuned.decode(fn(dev, A.tuned.encode(xt))),
                            torch.from_numpy(y))
     # the CPU path runs the twins: no kernel was launched
-    for w in (sk.sdia_sym_tiles, bk.bell2_spmv_tiles,
-              bk.bell2_spmv_tiles_accum, bk.unperm_gather_tiles):
+    for w in WRAPPERS:
         assert w.launches == 0
 
 
-def test_port_applier_runs_reference_plan():
-    """``sym_to_device`` takes the reference's numpy plan as it is: the
-    port's applier gives bit-identical results on both plans."""
+def test_port_applier_runs_reference_plan(monkeypatch):
+    """``sym_to_device`` and ``to_device`` take the reference's numpy
+    plans as they are: the port's appliers give bit-identical results on
+    the reference's and the port's plans — a symmetric plan, a general
+    plan with its signed diagonal peel and a paired plan."""
     ref_csr = __graft_entry__._flagship()
     x = torch.from_numpy(random_x(ref_csr.nrows, np.float32))
     y_ref_plan = ops.sbell_apply(ops.sym_to_device(ref_build(ref_csr), "cpu"),
@@ -125,6 +140,131 @@ def test_port_applier_runs_reference_plan():
     # the kernel wrappers and the plain twins compose identically on CPU
     d = ops.sym_to_device(build_sbell_plan(port_csr(ref_csr)), "cpu")
     assert torch.equal(ops.sbell_apply(d, x, plain=True), y_port_plan)
+
+    gen = ref_proxies.general_asym(g=12)
+    xg = torch.from_numpy(random_x(gen.ncols, np.float32))
+    ref_plan = ref_general(gen)
+    assert ref_plan.dia is not None
+    y_ref_plan = ops.bell2_apply(ops.to_device(ref_plan, "cpu"), xg)
+    d = ops.to_device(build_general_plan(port_csr(gen)), "cpu")
+    assert torch.equal(ops.bell2_apply(d, xg), y_ref_plan)
+    assert torch.equal(ops.bell2_apply(d, xg, plain=True), y_ref_plan)
+
+    monkeypatch.setenv("CFS_PAIRED", "force")
+    pc = ref_proxies.near_band_paired(n=4000, n_diags=32, max_off=300, seed=5)
+    xp = torch.from_numpy(random_x(pc.nrows, np.float32))
+    ref_plan = ref_build(pc)
+    assert ref_plan.nnz_paired > 0
+    y_ref_plan = ops.sbell_apply(ops.sym_to_device(ref_plan, "cpu"), xp)
+    d = ops.sym_to_device(build_sbell_plan(port_csr(pc)), "cpu")
+    assert d.has_paired
+    assert torch.equal(ops.sbell_apply(d, xp), y_ref_plan)
+    assert torch.equal(ops.sbell_apply(d, xp, plain=True), y_ref_plan)
+
+
+def _patch_sym_rows_max(monkeypatch):
+    """Mirror the symmetric diagonals at test size, in both packages."""
+    monkeypatch.setattr(ref_sdia, "SDIA_SYM_ROWS_MAX", 100)
+    monkeypatch.setattr(port_sdia, "SDIA_SYM_ROWS_MAX", 100)
+
+
+def _rect():
+    return ref_cfs.CSR.from_coo(
+        ref_cfs.COO.random(700, 500, 4.0, seed=1, dtype=np.float32)
+    )
+
+
+#: name -> (reference CSR, format, tuning, untuned A @ x, CFS_PAIRED,
+#: mirrored diagonals)
+PATHS = {
+    "general_asym": (lambda: ref_proxies.general_asym(g=12), "CSR",
+                     "AGGRESSIVE", False, None, False),
+    "flagship_csr": (__graft_entry__._flagship, "CSR", "AGGRESSIVE", False,
+                     None, False),
+    "audikw_csr": (lambda: ref_proxies.audikw_proxy(nb=1000), "CSR",
+                   "AGGRESSIVE", False, None, False),
+    "rectangular": (_rect, "CSR", "AGGRESSIVE", False, None, False),
+    "tuning_none_sym": (lambda: ref_proxies.cant_proxy(n=4096), "SSS",
+                        "NONE", False, None, False),
+    "untuned_matmul": (lambda: ref_proxies.stencil27(g=12), "SSS", None,
+                       True, None, False),
+    "bsr_sym": (lambda: ref_proxies.audikw_proxy(nb=1000), "BSR",
+                "AGGRESSIVE", False, None, False),
+    "bsr_general": (lambda: ref_proxies.general_asym(g=12), "BSR",
+                    "AGGRESSIVE", False, None, False),
+    "paired_forced": (
+        lambda: ref_proxies.near_band_paired(n=8000, n_diags=48, max_off=400,
+                                             seed=3),
+        "SSS", "AGGRESSIVE", False, "force", False,
+    ),
+    "mirrored_cant": (lambda: ref_proxies.cant_proxy(n=4096), "SSS",
+                      "AGGRESSIVE", False, None, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PATHS))
+def test_general_paired_mirrored_paths_match_reference(name, monkeypatch):
+    gen, fmt, tuning, matmul, paired, mirrored = PATHS[name]
+    if paired:
+        monkeypatch.setenv("CFS_PAIRED", paired)
+    if mirrored:
+        _patch_sym_rows_max(monkeypatch)
+    ref_csr = gen()
+    csr = port_csr(ref_csr)
+    x = random_x(csr.ncols, np.float32)
+
+    A = ct.SparseMatrix.create(csr, getattr(ct.Format, fmt))
+    R = ref_cfs.SparseMatrix.create(ref_csr, getattr(ref_cfs.Format, fmt))
+    if matmul:
+        y, y_ref = A @ x, np.asarray(R @ x)
+    else:
+        y = ct.SpDMV(A, getattr(ct.Tuning, tuning), dtype=np.float32,
+                     device="cpu")(x)
+        y_ref = np.asarray(ref_cfs.SpDMV(
+            R, getattr(ref_cfs.Tuning, tuning), dtype=np.float32)(x))
+    assert y.dtype == torch.float32 and y.shape == (csr.nrows,)
+    y = y.numpy()
+    nnz_full = A.tuned.nnz_full
+    assert nnz_full == R.tuned.nnz_full
+    assert A.tuned.format == ct.Format(R.tuned.format.value)
+    _assert_close(y, csr.spmv_host(x.astype(np.float64)), csr, x, nnz_full)
+    _assert_close(y, y_ref, csr, x, nnz_full)
+
+    plan, dev = A.tuned.plan, A.tuned.operands
+    general = fmt == "CSR" or not csr.symmetric or tuning != "AGGRESSIVE"
+    assert isinstance(dev, ops.Bell2Device) == general
+    if name == "general_asym":
+        assert min(plan.dia.offsets) < 0 and 0 in plan.dia.offsets
+    if tuning != "AGGRESSIVE":  # the untuned oracle path: no peel
+        assert plan.dia is None
+    if fmt == "BSR":
+        assert A.tuned.bsr.b == R.tuned.bsr.b
+        assert (A.tuned.bsr.b > 1) == (name == "bsr_sym")  # audikw: 3x3
+    assert (A.nrows != A.ncols) == (name == "rectangular")
+    if paired:
+        assert plan.nnz_paired > 0 and dev.has_paired
+    assert getattr(dev, "dia_mirrored", False) == mirrored
+    for w in WRAPPERS:
+        assert w.launches == 0
+
+
+@pytest.mark.parametrize("fmt", ["0", "1"])
+def test_cli_test_spmv_mmf_passes(fmt, tmp_path, capsys):
+    """The differential harness on a written symmetric ``.mtx``: tuned
+    (general for code 0, SSS for 1) against the untuned CSR oracle and
+    the float64 host oracle."""
+    csr = proxies.cant_proxy(n=600, half_bw=5, dtype=np.float64)
+    coo = csr.to_coo()
+    path = tmp_path / "band.mtx"
+    write_mmf(path, coo.nrows, coo.ncols, coo.row, coo.col, coo.val,
+              symmetric=True)
+    assert run_test_cli([str(path), fmt, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.strip().endswith("PASSED!")
+    with pytest.raises(NotImplementedError, match="A8"):
+        run_test_cli([str(path), fmt, "--device", "cpu", "--dp"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            run_test_cli([str(path), fmt])  # --device defaults to cuda
 
 
 def test_spdmv_from_mtx_file(tmp_path):
@@ -146,33 +286,68 @@ def _small_sym():
 
 
 def test_paired_plan_raises(monkeypatch):
+    """The paired stream runs (against the oracle), and its upload and
+    wrapper refuse what the kernel's unchecked reads and scatters cannot
+    take: a window outside the chunk's output block, a window count
+    other than 2 or 4, int16 words."""
     monkeypatch.setenv("CFS_PAIRED", "force")
     csr = proxies.near_band_paired(n=8000, n_diags=48, max_off=400, seed=3)
-    assert build_sbell_plan(csr).nnz_paired > 0
-    with pytest.raises(NotImplementedError, match="A3"):
-        ct.SpDMV(ct.SparseMatrix.create(csr, ct.Format.SSS), device="cpu")
+    A = ct.SparseMatrix.create(csr, ct.Format.SSS)
+    x = random_x(csr.nrows, np.float32)
+    y = ct.SpDMV(A, device="cpu")(x).numpy()
+    assert A.tuned.operands.has_paired
+    _assert_close(y, csr.spmv_host(x.astype(np.float64)), csr, x,
+                  A.tuned.nnz_full)
+    plan = build_sbell_plan(csr)
+    plan.meta[0, 2] = plan.x_rows  # a window past the x operand
+    with pytest.raises(ValueError, match="window"):
+        ops.sym_to_device(plan, "cpu")
+    plan = build_sbell_plan(csr)
+    plan.transpose_windows = 3
+    with pytest.raises(ValueError, match="transpose_windows"):
+        ops.sym_to_device(plan, "cpu")
+    d = A.tuned.operands
+    with pytest.raises(ValueError, match="int32"):
+        bk.sbell_spmv_tiles(
+            d.vals, d.packed.short(), d.meta, d.step_block,
+            ops.pad_x(torch.from_numpy(x), d.x_rows),
+            num_row_tiles=d.num_row_tiles, chunks_per_step=d.chunks_per_step,
+            tiles_per_block=d.tiles_per_block, transpose_windows=2,
+        )
 
 
 def test_mirrored_sdia_raises(monkeypatch):
-    # past SDIA_SYM_ROWS_MAX the planner mirrors the diagonals into
-    # signed offsets for the one-sided blocked-y kernel (B6)
-    monkeypatch.setattr(port_sdia, "SDIA_SYM_ROWS_MAX", 100)
-    A = ct.SparseMatrix.create(proxies.cant_proxy(n=2048), ct.Format.SSS)
-    with pytest.raises(NotImplementedError, match="B6"):
-        ct.SpDMV(A, device="cpu")
+    """Past SDIA_SYM_ROWS_MAX the planner mirrors the diagonals into
+    signed offsets, which run ``sdia_gen_tiles`` (B6): the result agrees
+    with the oracle, and only SpMM (A7) still raises on that plan."""
+    _patch_sym_rows_max(monkeypatch)
+    csr = proxies.cant_proxy(n=2048)
+    A = ct.SparseMatrix.create(csr, ct.Format.SSS)
+    op = ct.SpDMV(A, device="cpu")
+    assert A.tuned.operands.dia_mirrored
+    x = random_x(csr.nrows, np.float32)
+    _assert_close(op(x).numpy(), csr.spmv_host(x.astype(np.float64)), csr,
+                  x, A.tuned.nnz_full)
+    with pytest.raises(NotImplementedError, match="A7"):
+        op(np.ones((csr.nrows, 2), np.float32))
 
 
 def test_general_path_raises():
+    """The general path runs; what it still refuses: a 2-D x (SpMM, A7)
+    and float64 (A8)."""
     coo = COO.random(500, 500, 4.0, seed=1)
     A = ct.SparseMatrix.create(coo, ct.Format.CSR)
-    with pytest.raises(NotImplementedError, match="A4"):
-        ct.SpDMV(A, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        ct.SpDMV(_small_sym(), ct.Tuning.NONE, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        A @ np.ones(500, np.float32)  # untuned: the general oracle path
-    with pytest.raises(NotImplementedError, match="A4"):
-        ops.bell2_apply(None, torch.ones(4))
+    x = np.ones(500, np.float32)
+    y = (A @ x).numpy()  # untuned: the general oracle path
+    assert isinstance(A.tuned.operands, ops.Bell2Device)
+    _assert_close(y, A.csr.spmv_host(x.astype(np.float64)), A.csr, x,
+                  A.tuned.nnz_full)
+    with pytest.raises(NotImplementedError, match="A7"):
+        A @ np.ones((500, 2), np.float32)
+    with pytest.raises(NotImplementedError, match="A7"):
+        ops.bell2_apply(A.tuned.operands, torch.ones((500, 2)))
+    with pytest.raises(NotImplementedError, match="A8"):
+        ct.SpDMV(A, dtype=np.float64, device="cpu")
 
 
 def test_float64_and_bf16_raise():

@@ -1,9 +1,9 @@
 """cfs_spmv_tpu_torch — the PyTorch + CUDA port of ``cfs_spmv_tpu``.
 
-The fp32 SpMV paths of the JAX/Pallas package — the tuned symmetric
-path with its paired stream, and the general path — on PyTorch tensors
-with hand-written Hopper (sm_90a) kernels for the Pallas kernels those
-paths reach (``ops/``, sources in ``csrc/spmv_kernels.cu``). The host
+The fp32 SpMV and SpMM paths of the JAX/Pallas package — the tuned
+symmetric path with its paired stream, and the general path — on PyTorch
+tensors with hand-written Hopper (sm_90a) kernels for the Pallas kernels
+those paths reach (``ops/``, sources in ``csrc/spmv_kernels.cu``). The host
 planners (``formats/``, ``native/``, ``tuning/reorder.py``,
 ``io/mmf.py``, ``utils/``) are copies of the reference's, held
 byte-identical to it by ``tests/test_torch_formats.py``.
@@ -12,6 +12,7 @@ Usage::
 
     A = SparseMatrix.create(csr_or_coo_or_path, Format.SSS)  # or CSR
     y = SpDMV(A, Tuning.AGGRESSIVE, dtype=np.float32, device="cuda")(x)
+    Y = SpDMM(A, Tuning.AGGRESSIVE, dtype=np.float32, device="cuda")(X)
 
 Nothing here imports JAX, and nothing CUDA-specific runs at import time:
 the kernels are built by nvcc on their first launch.
@@ -28,7 +29,7 @@ _os.environ.setdefault("NUMPY_MADVISE_HUGEPAGE", "0")
 from .formats.coo import COO  # noqa: E402
 from .formats.csr import CSR  # noqa: E402
 from .matrix import SparseMatrix  # noqa: E402
-from .models.spdmv import SpDMV  # noqa: E402
+from .models.spdmv import SpDMM, SpDMV  # noqa: E402
 from .utils.platform import Format, Tuning  # noqa: E402
 
 __version__ = "0.1.0"
@@ -38,6 +39,7 @@ __all__ = [
     "CSR",
     "SparseMatrix",
     "SpDMV",
+    "SpDMM",
     "Format",
     "Tuning",
     "__version__",

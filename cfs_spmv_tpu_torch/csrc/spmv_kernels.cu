@@ -1,6 +1,6 @@
-// Hand-written Hopper (sm_90a) kernels of the fp32 SpMV paths (the tuned
-// symmetric path, its paired stream and the general path): the CUDA
-// counterparts of the Pallas kernels those paths reach.
+// Hand-written Hopper (sm_90a) kernels of the fp32 SpMV and SpMM paths
+// (the tuned symmetric path, its paired stream and the general path): the
+// CUDA counterparts of the Pallas kernels those paths reach.
 //
 // Plain C interface (no PyTorch headers), compiled by nvcc into a shared
 // library and loaded with ctypes by cfs_spmv_tpu_torch/ops/_cuda.py. Every
@@ -17,8 +17,21 @@
 // bytes, not arithmetic. Their designs keep loads coalesced along the 128
 // lanes and leave reuse of re-read bytes to the 50 MB L2; tiling through
 // shared memory is later work.
+//
+// Right-hand-side groups (SpMM, the Pallas *_mm kernels). Each stream
+// kernel is a template on kRhs, the number of right-hand sides one pass
+// over the stream serves: a thread loads a value and its index fields
+// once and applies them to up to kRhs planes, holding one sum per plane in
+// registers. X is a stack of (x_rows, 128) planes and Y of (T, 128)
+// planes, each plane contiguous, at plane strides xs and ys (elements).
+// The Python wrapper launches once per group of at most kMaxRhs planes,
+// so the stream (values and index words) is read once per group, not once
+// per right-hand side; nr is the group's plane count, and the launch takes
+// the smallest instance of 1, 2, 4 or 8 that holds it (planes >= nr are
+// skipped). The SpMV entry points are the nr = 1 case.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -27,9 +40,17 @@ constexpr int kLanes = 128;
 constexpr int kSublanes = 8;
 constexpr int kBlockRows = kSublanes * kLanes;  // rows per SDIA value block
 constexpr int kMetaW = 2 + kSublanes;           // [sub, nwin, win0..win7]
+constexpr int kMaxRhs = 8;                      // planes per launch, at most
+
+// Plane b of a group of nr (the test folds away for kRhs = 1).
+template <int kRhs>
+__device__ __forceinline__ bool live(int b, int nr) {
+  return kRhs == 1 || b < nr;
+}
 
 // ---------------------------------------------------------------------------
-// sdia_sym — replaces cfs_spmv_tpu/ops/sdia_kernel.py:sdia_sym_tiles.
+// sdia_sym — replaces cfs_spmv_tpu/ops/sdia_kernel.py:sdia_sym_tiles
+// (kernel B1) and, over planes, sdia_sym_tiles_mm (B11).
 //
 // y += (L + L^T) x over D dense strict-lower diagonals with offsets d_j >= 1.
 // vals[r, j, i, l] = A[g, g - d_j] at g = 1024 r + 128 i + l, so the value of
@@ -39,38 +60,52 @@ constexpr int kMetaW = 2 + kSublanes;           // [sub, nwin, win0..win7]
 // v_j[g] * x[g - d_j] and the transpose side v_j[g + d_j] * x[g + d_j]. The
 // TPU kernel reads each value once and scatters its transpose product with
 // lane rolls; here each value is read twice (once by row g, once by row
-// g - d_j). Neighbouring threads read neighbouring values and x entries, so
-// both reads coalesce, and for the small offsets of banded matrices the
-// second read of a value usually hits L2. Reading each value once (a
-// shared-memory tile of 1024 + max d rows) is later work.
+// g - d_j), and each read feeds kRhs products. Neighbouring threads read
+// neighbouring values and x entries, so both reads coalesce, and for the
+// small offsets of banded matrices the second read of a value usually hits
+// L2. Reading each value once (a shared-memory tile of 1024 + max d rows)
+// is later work.
 // ---------------------------------------------------------------------------
+template <int kRhs>
 __global__ void sdia_sym_kernel(const float* __restrict__ vals,
                                 const int* __restrict__ offsets, int D,
                                 int64_t n_vals_rows,
                                 const float* __restrict__ x, int64_t x_len,
-                                float* __restrict__ y, int64_t y_len) {
+                                int64_t xs, float* __restrict__ y,
+                                int64_t y_len, int64_t ys, int nr) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (g >= y_len) return;
   const bool own = g < n_vals_rows;
-  float acc = 0.0f;
+  float acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
   for (int j = 0; j < D; ++j) {
     const int64_t d = offsets[j];
     const int64_t s = g - d;
     if (own && s >= 0 && s < x_len) {
-      const int64_t vi = ((g >> 10) * D + j) * kBlockRows + (g & (kBlockRows - 1));
-      acc = fmaf(vals[vi], x[s], acc);
+      const float v =
+          vals[((g >> 10) * D + j) * kBlockRows + (g & (kBlockRows - 1))];
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b)
+        if (live<kRhs>(b, nr)) acc[b] = fmaf(v, x[b * xs + s], acc[b]);
     }
     const int64_t h = g + d;
     if (h < n_vals_rows && h < x_len) {
-      const int64_t vi = ((h >> 10) * D + j) * kBlockRows + (h & (kBlockRows - 1));
-      acc = fmaf(vals[vi], x[h], acc);
+      const float v =
+          vals[((h >> 10) * D + j) * kBlockRows + (h & (kBlockRows - 1))];
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b)
+        if (live<kRhs>(b, nr)) acc[b] = fmaf(v, x[b * xs + h], acc[b]);
     }
   }
-  y[g] += acc;
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b)
+    if (live<kRhs>(b, nr)) y[b * ys + g] += acc[b];
 }
 
 // ---------------------------------------------------------------------------
-// sdia_gen — replaces cfs_spmv_tpu/ops/sdia_kernel.py:sdia_gen_tiles.
+// sdia_gen — replaces cfs_spmv_tpu/ops/sdia_kernel.py:sdia_gen_tiles (B6)
+// and, over planes, sdia_gen_tiles_mm (B12).
 //
 // y += A_dia x over D dense diagonals with SIGNED offsets d_j (d > 0 reads
 // behind, d < 0 ahead, d = 0 the main diagonal), row side only: one thread
@@ -78,30 +113,42 @@ __global__ void sdia_sym_kernel(const float* __restrict__ vals,
 // g - d_j falls outside x. Same value layout as sdia_sym; mirrored
 // symmetric plans carry their transpose planes host-shifted, so the kernel
 // does no mirroring. n_rows = min(y_len, R * 1024): rows of y past the
-// value blocks keep their value. Each value is read once, fully coalesced
-// along g, as are the x reads; the loop over D is the whole kernel, so it
-// runs at the memory rate with no shared memory and no atomics.
+// value blocks keep their value. Each value is read once per group of
+// planes, fully coalesced along g, as are the x reads; the loop over D is
+// the whole kernel, so it runs at the memory rate with no shared memory
+// and no atomics.
 // ---------------------------------------------------------------------------
+template <int kRhs>
 __global__ void sdia_gen_kernel(const float* __restrict__ vals,
                                 const int* __restrict__ offsets, int D,
                                 int64_t n_rows,
                                 const float* __restrict__ x, int64_t x_len,
-                                float* __restrict__ y) {
+                                int64_t xs, float* __restrict__ y,
+                                int64_t ys, int nr) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (g >= n_rows) return;
   const float* vg = vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
-  float acc = 0.0f;
+  float acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
   for (int j = 0; j < D; ++j) {
     const int64_t s = g - static_cast<int64_t>(offsets[j]);
-    if (s >= 0 && s < x_len)
-      acc = fmaf(vg[static_cast<int64_t>(j) * kBlockRows], x[s], acc);
+    if (s >= 0 && s < x_len) {
+      const float v = vg[static_cast<int64_t>(j) * kBlockRows];
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b)
+        if (live<kRhs>(b, nr)) acc[b] = fmaf(v, x[b * xs + s], acc[b]);
+    }
   }
-  y[g] += acc;
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b)
+    if (live<kRhs>(b, nr)) y[b * ys + g] += acc[b];
 }
 
 // ---------------------------------------------------------------------------
 // bell2_spmv — replaces cfs_spmv_tpu/ops/bell2_kernel.py:bell2_spmv_tiles
-// (zero_blocks = 1) and bell2_spmv_tiles_accum (zero_blocks = 0).
+// (B2, zero_blocks = 1) and bell2_spmv_tiles_accum (B4, zero_blocks = 0);
+// over planes, bell2_spmm_tiles (B7) and bell2_spmm_tiles_accum (B8).
 //
 // Slot (i, j) of chunk c holds q = pk & 0x7F in bits 0-6; the window index r2
 // serving gather lane q of sublane i sits in bits 7-11 of the packed word AT
@@ -114,42 +161,58 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // K = 128 step count (63 steps for the audikw proxy) would leave most of
 // the 132 SMs idle, so each step is split across K / 8 CTAs. The chunk's
 // r2 fields go through shared memory (a lane needs lane q's field). Each
-// thread keeps a register sum while the target row stays the same and
-// flushes it with one atomicAdd when the row changes: blocks of different
-// CTAs (and different grid steps) can target one row. Chunks are
-// tile-sorted, so flushes are rare. K-padding chunks carry zero values and
-// forward-filled meta, so they add exactly 0.
+// thread keeps one register sum per plane while the target row stays the
+// same and flushes them with one atomicAdd each when the row changes:
+// blocks of different CTAs (and different grid steps) can target one row.
+// Chunks are tile-sorted, so flushes are rare. K-padding chunks carry zero
+// values and forward-filled meta, so they add exactly 0. Over planes the
+// value, its packed word and its x row are decoded once and feed kRhs
+// gathers, one from each plane's x tile, so a group reads the 6-byte slot
+// stream once.
 // ---------------------------------------------------------------------------
 constexpr int kChunksPerCta = 8;
 
-// Zeroes each output block the stream visits, once: step_block ascends, so
-// a block starts where the step's block differs from the previous step's.
-// Unvisited blocks are left as they are (the TPU kernel leaves them unset).
+// Zeroes each output block the stream visits, once, in plane blockIdx.y:
+// step_block ascends, so a block starts where the step's block differs
+// from the previous step's. Unvisited blocks are left as they are (the TPU
+// kernel leaves them unset).
 __global__ void bell2_zero_blocks_kernel(const int* __restrict__ step_block,
-                                         int BT, float* __restrict__ y) {
+                                         int BT, float* __restrict__ y,
+                                         int64_t ys) {
   const int g = blockIdx.x;
   if (g > 0 && step_block[g] == step_block[g - 1]) return;
   float4* base = reinterpret_cast<float4*>(
-      y + static_cast<int64_t>(step_block[g]) * BT * kLanes);
+      y + blockIdx.y * ys + static_cast<int64_t>(step_block[g]) * BT * kLanes);
   const int n4 = BT * kLanes / 4;
   for (int i = threadIdx.x; i < n4; i += blockDim.x)
     base[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-template <bool kContig>
+// One atomicAdd per live plane of a thread's running row sums.
+template <int kRhs>
+__device__ __forceinline__ void flush_rows(float* y, int64_t ys, int64_t at,
+                                           const float (&acc)[kRhs], int nr) {
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b)
+    if (live<kRhs>(b, nr)) atomicAdd(y + b * ys + at, acc[b]);
+}
+
+template <bool kContig, int kRhs>
 __global__ void __launch_bounds__(kLanes)
 bell2_spmv_kernel(const float* __restrict__ vals,
                   const int16_t* __restrict__ packed,
                   const int* __restrict__ meta,
                   const int* __restrict__ step_block, int64_t C, int K,
-                  int BT, const float* __restrict__ x,
-                  float* __restrict__ y) {
+                  int BT, const float* __restrict__ x, int64_t xs,
+                  float* __restrict__ y, int64_t ys, int nr) {
   __shared__ int r2s[kSublanes][kLanes];
   const int lane = threadIdx.x;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kChunksPerCta;
   const int64_t c1 = c0 + kChunksPerCta < C ? c0 + kChunksPerCta : C;
-  int64_t row = -1;  // y tile row of the running sum
-  float acc = 0.0f;
+  int64_t row = -1;  // y tile row of the running sums
+  float acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
   for (int64_t c = c0; c < c1; ++c) {
     const int* m = meta + c * kMetaW;
     const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
@@ -161,28 +224,36 @@ bell2_spmv_kernel(const float* __restrict__ vals,
       r2s[i][lane] = (pk[i] >> 7) & 0x1F;
     }
     __syncthreads();
-    float part = 0.0f;
+    float part[kRhs];
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) part[b] = 0.0f;
 #pragma unroll
     for (int i = 0; i < kSublanes; ++i) {
       const int q = pk[i] & 0x7F;
       const int r2 = r2s[i][q];
       const int xrow = kContig ? m[2] + r2 : m[2 + (r2 & 7)];
-      part = fmaf(vals[slot0 + i * kLanes],
-                  x[static_cast<int64_t>(xrow) * kLanes + q], part);
+      const float v = vals[slot0 + i * kLanes];
+      const float* xq = x + static_cast<int64_t>(xrow) * kLanes + q;
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b)
+        if (live<kRhs>(b, nr)) part[b] = fmaf(v, xq[b * xs], part[b]);
     }
     __syncthreads();
     if (tgt != row) {
-      if (row >= 0) atomicAdd(y + row * kLanes + lane, acc);
+      if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
       row = tgt;
-      acc = 0.0f;
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
     }
-    acc += part;
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) acc[b] += part[b];
   }
-  if (row >= 0) atomicAdd(y + row * kLanes + lane, acc);
+  if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
 }
 
 // ---------------------------------------------------------------------------
-// sbell_spmv — replaces cfs_spmv_tpu/ops/bell2_kernel.py:sbell_spmv_tiles.
+// sbell_spmv — replaces cfs_spmv_tpu/ops/bell2_kernel.py:sbell_spmv_tiles
+// (B5) and, over planes, sbell_spmm_tiles (B10).
 //
 // y = (L + L^T) x from the paired strict-lower stream: each stored value
 // v at (r, c) drives y[r] += v x[c] and y[c] += v x[r]. Packed int32 word
@@ -199,9 +270,9 @@ bell2_spmv_kernel(const float* __restrict__ vals,
 // - Transpose side: at slot (i, p) with r2 < TW, the product
 //   vals[i, src] * x[row tile][src] (src = bits 10-16; the value through
 //   shared memory) lands on y[meta[c, 2 + r2]][p] by one atomicAdd per
-//   slot: the targets are other tiles of the block, written by other
-//   CTAs. Summing per window in registers before the atomic is later
-//   work.
+//   slot and plane: the targets are other tiles of the block, written by
+//   other CTAs. Summing per window in registers before the atomic is
+//   later work.
 //
 // The TPU zeroes each block at its first grid step and relies on steps
 // running in order; here blocks are zeroed by bell2_zero_blocks_kernel in
@@ -209,23 +280,28 @@ bell2_spmv_kernel(const float* __restrict__ vals,
 // before a CTA of the same launch could zero them. K-padding chunks carry
 // zero values and forward-filled meta, so they add exactly 0. Like
 // bell2_spmv the kernel is bound by stream bytes (4-byte value + 4-byte
-// word per slot, each value used twice).
+// word per slot, each value used twice), read once per group of planes;
+// over planes the transpose side also makes kRhs L2 atomics per valid
+// slot, so a wide group is bound by L2 atomic throughput as much as by
+// the stream.
 // ---------------------------------------------------------------------------
-template <int TW>
+template <int TW, int kRhs>
 __global__ void __launch_bounds__(kLanes)
 sbell_spmv_kernel(const float* __restrict__ vals,
                   const int* __restrict__ packed,
                   const int* __restrict__ meta,
                   const int* __restrict__ step_block, int64_t C, int K,
-                  int BT, const float* __restrict__ x,
-                  float* __restrict__ y) {
+                  int BT, const float* __restrict__ x, int64_t xs,
+                  float* __restrict__ y, int64_t ys, int nr) {
   __shared__ int r2s[kSublanes][kLanes];
   __shared__ float vs[kSublanes][kLanes];
   const int lane = threadIdx.x;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kChunksPerCta;
   const int64_t c1 = c0 + kChunksPerCta < C ? c0 + kChunksPerCta : C;
-  int64_t row = -1;  // y tile row of the running row-side sum
-  float acc = 0.0f;
+  int64_t row = -1;  // y tile row of the running row-side sums
+  float acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
   for (int64_t c = c0; c < c1; ++c) {
     const int* m = meta + c * kMetaW;
     const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
@@ -241,129 +317,179 @@ sbell_spmv_kernel(const float* __restrict__ vals,
     }
     __syncthreads();
     const float* xt = x + tgt * kLanes;  // the chunk's own x tile
-    float part = 0.0f;
+    float part[kRhs];
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) part[b] = 0.0f;
 #pragma unroll
     for (int i = 0; i < kSublanes; ++i) {
       const int q = pk[i] & 0x7F;
       const int r2 = r2s[i][q];
-      if (r2 < TW)
-        part = fmaf(v[i], x[static_cast<int64_t>(m[2 + r2]) * kLanes + q], part);
+      if (r2 < TW) {
+        const float* xq = x + static_cast<int64_t>(m[2 + r2]) * kLanes + q;
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr)) part[b] = fmaf(v[i], xq[b * xs], part[b]);
+      }
       const int t2 = (pk[i] >> 7) & 7;
       if (t2 < TW) {
         const int src = (pk[i] >> 10) & 0x7F;
-        atomicAdd(y + static_cast<int64_t>(m[2 + t2]) * kLanes + lane,
-                  vs[i][src] * xt[src]);
+        const float tv = vs[i][src];
+        float* yt = y + static_cast<int64_t>(m[2 + t2]) * kLanes + lane;
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr))
+            atomicAdd(yt + b * ys, tv * xt[b * xs + src]);
       }
     }
     __syncthreads();
     if (tgt != row) {
-      if (row >= 0) atomicAdd(y + row * kLanes + lane, acc);
+      if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
       row = tgt;
-      acc = 0.0f;
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
     }
-    acc += part;
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) acc[b] += part[b];
   }
-  if (row >= 0) atomicAdd(y + row * kLanes + lane, acc);
+  if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
 }
 
 // ---------------------------------------------------------------------------
-// unperm_gather — replaces cfs_spmv_tpu/ops/bell2_kernel.py:unperm_gather_tiles.
+// unperm_gather — replaces cfs_spmv_tpu/ops/bell2_kernel.py:
+// unperm_gather_tiles (B3) and, over planes, unperm_gather_tiles_mm (B9).
 //
 // Original-order y from a degree-grouped stream's compact tiles: output row
 // o reads pk = pk2d[o]; pk < 0 writes exact 0, otherwise the value
-// g[rows[o >> 10, pk >> 7], pk & 127]. One thread per output element: the
-// pk and output accesses coalesce; the gathered reads land in the few
-// tile rows each 1024-row block draws from (at most 16), which stay in L2.
+// g[rows[o >> 10, pk >> 7], pk & 127]. One thread per output element
+// decodes pk and its tile row once and copies that element of each of the
+// B planes (no sums, so no register array and no plane groups: one launch
+// serves every plane). The pk and output accesses coalesce; the gathered
+// reads land in the few tile rows each 1024-row block draws from (at most
+// 16), which stay in L2.
 // ---------------------------------------------------------------------------
 __global__ void unperm_gather_kernel(const int* __restrict__ pk,
                                      const int* __restrict__ rows, int W,
-                                     const float* __restrict__ g,
-                                     float* __restrict__ out, int64_t n_out) {
+                                     const float* __restrict__ g, int64_t gs,
+                                     float* __restrict__ out, int64_t os,
+                                     int64_t n_out, int B) {
   const int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (o >= n_out) return;
   const int p = pk[o];
-  float v = 0.0f;
-  if (p >= 0) {
-    const int64_t tile = rows[(o >> 10) * W + (p >> 7)];
-    v = g[tile * kLanes + (p & 0x7F)];
-  }
-  out[o] = v;
+  const int64_t at =
+      p < 0 ? -1
+            : static_cast<int64_t>(rows[(o >> 10) * W + (p >> 7)]) * kLanes +
+                  (p & 0x7F);
+  for (int b = 0; b < B; ++b) out[b * os + o] = at < 0 ? 0.0f : g[b * gs + at];
 }
 
 inline unsigned int blocks_for(int64_t n, int threads) {
   return static_cast<unsigned int>((n + threads - 1) / threads);
 }
 
+// Calls f(std::integral_constant<int, R>{}) for the smallest R of 1, 2, 4
+// and 8 that holds nr planes; false (nothing launched) when nr is outside
+// 1 .. kMaxRhs.
+template <class F>
+bool with_rhs(int nr, F&& f) {
+  if (nr < 1 || nr > kMaxRhs) return false;
+  if (nr == 1)
+    f(std::integral_constant<int, 1>{});
+  else if (nr == 2)
+    f(std::integral_constant<int, 2>{});
+  else if (nr <= 4)
+    f(std::integral_constant<int, 4>{});
+  else
+    f(std::integral_constant<int, 8>{});
+  return true;
+}
+
+int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
+
 }  // namespace
 
 extern "C" {
 
+// Every stream entry point ends in (x, xs, y, ys, nr, stream): x and y as
+// stacks of nr planes (nr = 1 for SpMV) at plane strides xs and ys, in
+// elements. x_len and y_len are per-plane lengths.
+
 int cfs_sdia_sym(const float* vals, const int* offsets, int D,
-                 int64_t n_vals_rows, const float* x, int64_t x_len,
-                 float* y, int64_t y_len, cudaStream_t stream) {
-  if (y_len > 0 && D > 0) {
-    constexpr int kThreads = 256;
-    sdia_sym_kernel<<<blocks_for(y_len, kThreads), kThreads, 0, stream>>>(
-        vals, offsets, D, n_vals_rows, x, x_len, y, y_len);
-  }
-  return static_cast<int>(cudaGetLastError());
+                 int64_t n_vals_rows, int64_t x_len, int64_t y_len,
+                 const float* x, int64_t xs, float* y, int64_t ys, int nr,
+                 cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (y_len > 0 && D > 0)
+      sdia_sym_kernel<R><<<blocks_for(y_len, kThreads), kThreads, 0, stream>>>(
+          vals, offsets, D, n_vals_rows, x, x_len, xs, y, y_len, ys, nr);
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
 int cfs_sdia_gen(const float* vals, const int* offsets, int D,
-                 int64_t n_rows, const float* x, int64_t x_len, float* y,
-                 cudaStream_t stream) {
-  if (n_rows > 0 && D > 0) {
-    constexpr int kThreads = 256;
-    sdia_gen_kernel<<<blocks_for(n_rows, kThreads), kThreads, 0, stream>>>(
-        vals, offsets, D, n_rows, x, x_len, y);
-  }
-  return static_cast<int>(cudaGetLastError());
+                 int64_t n_rows, int64_t x_len, const float* x, int64_t xs,
+                 float* y, int64_t ys, int nr, cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (n_rows > 0 && D > 0)
+      sdia_gen_kernel<R><<<blocks_for(n_rows, kThreads), kThreads, 0, stream>>>(
+          vals, offsets, D, n_rows, x, x_len, xs, y, ys, nr);
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
 int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT, int TW,
-                   const float* x, float* y, cudaStream_t stream) {
-  if (TW != 2 && TW != 4) return static_cast<int>(cudaErrorInvalidValue);
-  if (C > 0) {
-    bell2_zero_blocks_kernel<<<static_cast<unsigned int>(C / K), 256, 0,
-                               stream>>>(step_block, BT, y);
+                   const float* x, int64_t xs, float* y, int64_t ys, int nr,
+                   cudaStream_t stream) {
+  if (TW != 2 && TW != 4) return invalid();
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (C <= 0) return;
+    bell2_zero_blocks_kernel<<<dim3(static_cast<unsigned int>(C / K), nr),
+                               256, 0, stream>>>(step_block, BT, y, ys);
     const unsigned int grid = blocks_for(C, kChunksPerCta);
     if (TW == 2)
-      sbell_spmv_kernel<2><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, y);
+      sbell_spmv_kernel<2, R><<<grid, kLanes, 0, stream>>>(
+          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
     else
-      sbell_spmv_kernel<4><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, y);
-  }
-  return static_cast<int>(cudaGetLastError());
+      sbell_spmv_kernel<4, R><<<grid, kLanes, 0, stream>>>(
+          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
 int cfs_bell2_spmv(const float* vals, const int16_t* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT,
-                   int contig, int zero_blocks, const float* x, float* y,
-                   cudaStream_t stream) {
-  if (C > 0) {
-    const int64_t G = C / K;
+                   int contig, int zero_blocks, const float* x, int64_t xs,
+                   float* y, int64_t ys, int nr, cudaStream_t stream) {
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (C <= 0) return;
     if (zero_blocks)
-      bell2_zero_blocks_kernel<<<static_cast<unsigned int>(G), 256, 0, stream>>>(
-          step_block, BT, y);
+      bell2_zero_blocks_kernel<<<dim3(static_cast<unsigned int>(C / K), nr),
+                                 256, 0, stream>>>(step_block, BT, y, ys);
     const unsigned int grid = blocks_for(C, kChunksPerCta);
     if (contig)
-      bell2_spmv_kernel<true><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, y);
+      bell2_spmv_kernel<true, R><<<grid, kLanes, 0, stream>>>(
+          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
     else
-      bell2_spmv_kernel<false><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, y);
-  }
-  return static_cast<int>(cudaGetLastError());
+      bell2_spmv_kernel<false, R><<<grid, kLanes, 0, stream>>>(
+          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
 int cfs_unperm_gather(const int* pk, const int* rows, int W, const float* g,
-                      float* out, int64_t n_out, cudaStream_t stream) {
+                      int64_t gs, float* out, int64_t os, int64_t n_out,
+                      int B, cudaStream_t stream) {
+  if (B < 1) return invalid();
   if (n_out > 0) {
     constexpr int kThreads = 256;
     unperm_gather_kernel<<<blocks_for(n_out, kThreads), kThreads, 0, stream>>>(
-        pk, rows, W, g, out, n_out);
+        pk, rows, W, g, gs, out, os, n_out, B);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,11 @@
-"""SpDMV kernel functor — the user-facing kernel API.
+"""SpDMV / SpDMM kernel functors — the user-facing kernel API.
 
 Port of ``cfs_spmv_tpu/models/spdmv.py``: the analog of the reference's
 ``SpDMV`` functor (``include/kernel/sparse_kernel.hpp:17-27``,
 ``.tpp:8-27``): construction runs preprocessing (``tune()``) onto an
 explicit device, and the call operator checks dimensions and dispatches
-to the bound kernel path, returning y instead of writing into a caller
-buffer. SpDMM (a 2-D x) is not ported yet (ROADMAP A7) and raises.
+to the bound kernel path (SpMM for a 2-D X), returning y instead of
+writing into a caller buffer.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from ..matrix import SparseMatrix, tune_signature
 from ..utils.platform import Kernel, Tuning
 
-__all__ = ["SpDMV"]
+__all__ = ["SpDMV", "SpDMM"]
 
 
 class SpDMV:
@@ -64,3 +64,18 @@ class SpDMV:
         if x.ndim != 1:
             return self.A.tuned.matmat(x)
         return self.A.tuned.matvec(x)
+
+
+class SpDMM(SpDMV):
+    """Y = A @ X for a block of right-hand sides, X (ncols, B)."""
+
+    kernel = Kernel.SpDMM
+
+    def __call__(self, x):
+        x = torch.as_tensor(x, dtype=torch.float32,
+                            device=self.A.tuned.device)
+        if x.ndim != 2 or x.shape[0] != self.A.ncols:
+            raise ValueError(
+                f"X must be ({self.A.ncols}, B), got {tuple(x.shape)}"
+            )
+        return self.A.tuned.matmat(x)

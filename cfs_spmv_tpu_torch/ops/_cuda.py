@@ -20,7 +20,10 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["lib", "check", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["lib", "check", "check_planes", "launch_groups", "NVCC_FLAGS",
+           "RHS_GROUP"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "spmv_kernels.cu")
@@ -75,18 +78,18 @@ def _build() -> str:
 def _bind(path: str) -> ctypes.CDLL:
     cdll = ctypes.CDLL(path)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    cdll.cfs_sdia_sym.argtypes = [p, p, i32, i64, p, i64, p, i64, p]
-    cdll.cfs_sdia_sym.restype = i32
-    cdll.cfs_sdia_gen.argtypes = [p, p, i32, i64, p, i64, p, p]
-    cdll.cfs_sdia_gen.restype = i32
-    cdll.cfs_sbell_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, p, p, p]
-    cdll.cfs_sbell_spmv.restype = i32
-    cdll.cfs_bell2_spmv.argtypes = [
-        p, p, p, p, i64, i32, i32, i32, i32, p, p, p,
-    ]
-    cdll.cfs_bell2_spmv.restype = i32
-    cdll.cfs_unperm_gather.argtypes = [p, p, i32, p, p, i64, p]
-    cdll.cfs_unperm_gather.restype = i32
+    # every stream entry point ends in (x, xs, y, ys, nr, stream): a group
+    # of nr planes at plane strides xs / ys, in elements
+    planes = [p, i64, p, i64, i32, p]
+    cdll.cfs_sdia_sym.argtypes = [p, p, i32, i64, i64, i64, *planes]
+    cdll.cfs_sdia_gen.argtypes = [p, p, i32, i64, i64, *planes]
+    cdll.cfs_sbell_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, *planes]
+    cdll.cfs_bell2_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, i32,
+                                    *planes]
+    cdll.cfs_unperm_gather.argtypes = [p, p, i32, p, i64, p, i64, i64, i32, p]
+    for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_gen, cdll.cfs_sbell_spmv,
+               cdll.cfs_bell2_spmv, cdll.cfs_unperm_gather):
+        fn.restype = i32
     cdll.cfs_cuda_error_string.argtypes = [i32]
     cdll.cfs_cuda_error_string.restype = ctypes.c_char_p
     return cdll
@@ -106,3 +109,44 @@ def check(err: int, name: str) -> None:
     if err:
         msg = lib().cfs_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+#: right-hand sides one launch of a stream kernel serves (its widest
+#: instance): an SpMM wrapper reads its stream once per group of this many
+RHS_GROUP = 8
+
+
+def check_planes(t, name, device, B=None, rows=None) -> int:
+    """Check a (B, rows, 128) float32 stack of planes on ``device`` whose
+    planes are each contiguous (any plane stride, as the kernels index
+    ``plane * stride + row * 128 + lane``); return B."""
+    if t.ndim != 3 or t.shape[2] != 128 or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be (B, rows, 128) float32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the stream on {device}")
+    if t.shape[0] < 1 or (B is not None and t.shape[0] != B):
+        raise ValueError(f"{name} holds {t.shape[0]} planes, expected "
+                         f"{B if B is not None else '>= 1'}")
+    if rows is not None and t.shape[1] != rows:
+        raise ValueError(f"{name} planes must have {rows} rows, got "
+                         f"{t.shape[1]}")
+    if t.stride(2) != 1 or (t.shape[1] > 1 and t.stride(1) != 128):
+        raise ValueError(f"{name}: each (rows, 128) plane must be contiguous")
+    return t.shape[0]
+
+
+def launch_groups(name, x3d, y3d, launch) -> int:
+    """Call ``launch(x_ptr, xs, y_ptr, ys, nr, stream)`` for each group of
+    at most RHS_GROUP planes of the plane stacks ``x3d`` and ``y3d``
+    (strides in elements), on the current stream of ``y3d``'s device, and
+    raise on a refused launch; returns the number of launches."""
+    B, xs, ys = x3d.shape[0], x3d.stride(0), y3d.stride(0)
+    xb, yb = xs * x3d.element_size(), ys * y3d.element_size()
+    with torch.cuda.device(y3d.device):
+        stream = torch.cuda.current_stream(y3d.device).cuda_stream
+        for b0 in range(0, B, RHS_GROUP):
+            check(launch(x3d.data_ptr() + b0 * xb, xs,
+                         y3d.data_ptr() + b0 * yb, ys,
+                         min(RHS_GROUP, B - b0), stream), name)
+    return -(-B // RHS_GROUP)

@@ -1,7 +1,7 @@
 """BELL2 streams and grouped unpermute: CUDA wrappers + twins.
 
 Ports of the Pallas kernels in ``cfs_spmv_tpu/ops/bell2_kernel.py`` that
-the fp32 SpMV paths reach:
+the fp32 SpMV and SpMM paths reach:
 
 - ``bell2_spmv_tiles`` (kernel B2): ``y = A x`` for one stream; the
   blocks the stream visits are zeroed first, the others left unset;
@@ -11,7 +11,13 @@ the fp32 SpMV paths reach:
   degree-grouped stream's compact output tiles;
 - ``sbell_spmv_tiles`` (B5): ``y = (L + Lᵀ) x`` from the paired
   symmetric stream, each stored value driving both its row and its
-  transpose.
+  transpose;
+- their SpMM forms for B right-hand sides, X as (B, x_rows, 128) and the
+  output as (B, T, 128) planes: ``bell2_spmm_tiles`` (B7),
+  ``bell2_spmm_tiles_accum`` (B8), ``unperm_gather_tiles_mm`` (B9) and
+  ``sbell_spmm_tiles`` (B10). The stream kernels read the stream once
+  per launch for up to ``_cuda.RHS_GROUP`` planes; the gather serves
+  all B planes in one launch.
 
 A chunk is an (8, 128) slot grid. Slot (i, j) of chunk c holds the gather
 lane ``q = pk & 0x7F``; the window index ``r2`` serving gather lane q of
@@ -44,6 +50,14 @@ __all__ = [
     "unperm_gather_tiles_plain",
     "sbell_spmv_tiles",
     "sbell_spmv_tiles_plain",
+    "bell2_spmm_tiles",
+    "bell2_spmm_tiles_plain",
+    "bell2_spmm_tiles_accum",
+    "bell2_spmm_tiles_accum_plain",
+    "unperm_gather_tiles_mm",
+    "unperm_gather_tiles_mm_plain",
+    "sbell_spmm_tiles",
+    "sbell_spmm_tiles_plain",
 ]
 
 
@@ -63,7 +77,7 @@ def _device_of(*tensors) -> torch.device:
     return dev
 
 
-def _check_stream(vals, packed, meta, step_block, x2d, K,
+def _check_stream(vals, packed, meta, step_block, K,
                   packed_dtype=torch.int16):
     C = meta.shape[0]
     if meta.ndim != 2 or meta.shape[1] != META_W or meta.dtype != torch.int32:
@@ -80,8 +94,23 @@ def _check_stream(vals, packed, meta, step_block, x2d, K,
         raise ValueError(f"chunk stream not padded to K={K} (C={C})")
     if tuple(step_block.shape) != (C // K,) or step_block.dtype != torch.int32:
         raise ValueError(f"step_block must be ({C // K},) int32")
+
+
+def _check_x2d(x2d):
     if x2d.ndim != 2 or x2d.shape[1] != LANES or x2d.dtype != torch.float32:
         raise ValueError("x2d must be (x_rows, 128) float32")
+
+
+def _out_buffer(out, shape, dev):
+    """``out``, checked to be a contiguous float32 buffer of ``shape`` on
+    ``dev`` (the zero passes write it as float4), or a fresh one."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    if (tuple(out.shape) != shape or out.dtype != torch.float32
+            or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {shape} float32 "
+                         f"tensor on {dev}")
+    return out
 
 
 def _row_sums_plain(vals, packed, meta, step_block, x2d, K, BT, contig):
@@ -130,17 +159,17 @@ def bell2_spmv_tiles_accum_plain(vals, packed, meta, step_block, x2d,
     return y_tiles
 
 
-def _launch_bell2(vals, packed, meta, step_block, x2d, y, K, BT, contig,
+def _launch_bell2(vals, packed, meta, step_block, x3d, y3d, K, BT, contig,
                   zero_blocks, name):
+    """Launch the one-sided stream kernel over plane stacks; returns the
+    number of launches (one per group of planes)."""
     lib = _cuda.lib()
-    with torch.cuda.device(y.device):
-        err = lib.cfs_bell2_spmv(
+    return _cuda.launch_groups(
+        name, x3d, y3d, lambda *planes: lib.cfs_bell2_spmv(
             vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
             step_block.data_ptr(), meta.shape[0], K, BT, int(contig),
-            int(zero_blocks), x2d.data_ptr(), y.data_ptr(),
-            torch.cuda.current_stream(y.device).cuda_stream,
-        )
-    _cuda.check(err, name)
+            int(zero_blocks), *planes,
+        ))
 
 
 def bell2_spmv_tiles(vals, packed, meta, step_block, x2d, *,
@@ -161,23 +190,18 @@ def bell2_spmv_tiles(vals, packed, meta, step_block, x2d, *,
     """
     K, BT = chunks_per_step, tiles_per_block
     dev = _device_of(vals, packed, meta, step_block, x2d)
-    _check_stream(vals, packed, meta, step_block, x2d, K)
-    TP = _tiles_padded(num_row_tiles, BT)
-    if out is None:
-        out = torch.empty((TP, LANES), dtype=x2d.dtype, device=dev)
-    elif (tuple(out.shape) != (TP, LANES) or out.dtype != x2d.dtype
-          or out.device != dev or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous ({TP}, 128) float32 "
-                         f"tensor on {dev}")
+    _check_stream(vals, packed, meta, step_block, K)
+    _check_x2d(x2d)
+    out = _out_buffer(out, (_tiles_padded(num_row_tiles, BT), LANES), dev)
     if dev.type == "cpu":
         return bell2_spmv_tiles_plain(
             vals, packed, meta, step_block, x2d,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
             tiles_per_block=BT, contig=contig, out=out,
         )
-    _launch_bell2(vals, packed, meta, step_block, x2d, out, K, BT, contig,
-                  True, "bell2_spmv_tiles")
-    bell2_spmv_tiles.launches += 1
+    bell2_spmv_tiles.launches += _launch_bell2(
+        vals, packed, meta, step_block, x2d[None], out[None], K, BT, contig,
+        True, "bell2_spmv_tiles")
     return out[:num_row_tiles]
 
 
@@ -192,7 +216,8 @@ def bell2_spmv_tiles_accum(vals, packed, meta, step_block, x2d, y_tiles, *,
     """
     K, BT = chunks_per_step, tiles_per_block
     dev = _device_of(vals, packed, meta, step_block, x2d, y_tiles)
-    _check_stream(vals, packed, meta, step_block, x2d, K)
+    _check_stream(vals, packed, meta, step_block, K)
+    _check_x2d(x2d)
     TP = _tiles_padded(num_row_tiles, BT)
     if tuple(y_tiles.shape) != (TP, LANES) or y_tiles.dtype != x2d.dtype:
         raise ValueError(f"y_tiles must be ({TP}, 128) float32")
@@ -202,9 +227,9 @@ def bell2_spmv_tiles_accum(vals, packed, meta, step_block, x2d, y_tiles, *,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
             tiles_per_block=BT, contig=contig,
         )
-    _launch_bell2(vals, packed, meta, step_block, x2d, y_tiles, K, BT,
-                  contig, False, "bell2_spmv_tiles_accum")
-    bell2_spmv_tiles_accum.launches += 1
+    bell2_spmv_tiles_accum.launches += _launch_bell2(
+        vals, packed, meta, step_block, x2d[None], y_tiles[None], K, BT,
+        contig, False, "bell2_spmv_tiles_accum")
     return y_tiles
 
 
@@ -230,26 +255,59 @@ def unperm_gather_tiles(pk2d, rows, g_tiles):
     bit-exact on every device.
     """
     dev = _device_of(pk2d, rows, g_tiles)
+    _check_unperm(pk2d, rows)
+    if g_tiles.ndim != 2 or g_tiles.shape[1] != LANES or g_tiles.dtype != torch.float32:
+        raise ValueError("g_tiles must be (T, 128) float32")
+    if dev.type == "cpu":
+        return unperm_gather_tiles_plain(pk2d, rows, g_tiles)
+    out = torch.empty(pk2d.shape, dtype=torch.float32, device=dev)
+    _launch_unperm(pk2d, rows, g_tiles[None], out[None],
+                   "unperm_gather_tiles")
+    unperm_gather_tiles.launches += 1
+    return out
+
+
+def _check_unperm(pk2d, rows):
     nb = rows.shape[0]
     if tuple(pk2d.shape) != (nb * SUBLANES, LANES) or pk2d.dtype != torch.int32:
         raise ValueError(f"pk2d must be ({nb * SUBLANES}, 128) int32")
     if rows.ndim != 2 or rows.dtype != torch.int32:
         raise ValueError("rows must be (nb, W) int32")
-    if g_tiles.ndim != 2 or g_tiles.shape[1] != LANES or g_tiles.dtype != torch.float32:
-        raise ValueError("g_tiles must be (T, 128) float32")
-    if dev.type == "cpu":
-        return unperm_gather_tiles_plain(pk2d, rows, g_tiles)
-    out = torch.empty((nb * SUBLANES, LANES), dtype=g_tiles.dtype,
-                      device=dev)
-    lib = _cuda.lib()
-    with torch.cuda.device(dev):
-        err = lib.cfs_unperm_gather(
+
+
+def _launch_unperm(pk2d, rows, g3d, out3d, name):
+    """One launch gathers every plane of ``g3d`` into ``out3d``."""
+    with torch.cuda.device(out3d.device):
+        err = _cuda.lib().cfs_unperm_gather(
             pk2d.data_ptr(), rows.data_ptr(), rows.shape[1],
-            g_tiles.data_ptr(), out.data_ptr(), out.numel(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            g3d.data_ptr(), g3d.stride(0), out3d.data_ptr(),
+            out3d.stride(0), pk2d.numel(), g3d.shape[0],
+            torch.cuda.current_stream(out3d.device).cuda_stream,
         )
-    _cuda.check(err, "unperm_gather_tiles")
-    unperm_gather_tiles.launches += 1
+    _cuda.check(err, name)
+
+
+def unperm_gather_tiles_mm_plain(pk2d, rows, g_tiles):
+    """Plain PyTorch twin of :func:`unperm_gather_tiles_mm`: B3's twin
+    once per plane."""
+    return torch.stack([unperm_gather_tiles_plain(pk2d, rows, g)
+                        for g in g_tiles])
+
+
+def unperm_gather_tiles_mm(pk2d, rows, g_tiles):
+    """(B, nb*8, 128) original-order Y tiles from grouped (B, T, 128)
+    ``g_tiles`` (planes each contiguous, any plane stride); other
+    operands as :func:`unperm_gather_tiles`. One launch decodes each
+    output row's word once and gathers it from all B planes; bit-exact
+    on every device."""
+    dev = _device_of(pk2d, rows)
+    _check_unperm(pk2d, rows)
+    B = _cuda.check_planes(g_tiles, "g_tiles", dev)
+    if dev.type == "cpu":
+        return unperm_gather_tiles_mm_plain(pk2d, rows, g_tiles)
+    out = torch.empty((B, *pk2d.shape), dtype=torch.float32, device=dev)
+    _launch_unperm(pk2d, rows, g_tiles, out, "unperm_gather_tiles_mm")
+    unperm_gather_tiles_mm.launches += 1
     return out
 
 
@@ -316,37 +374,186 @@ def sbell_spmv_tiles(vals, packed, meta, step_block, x2d, *,
     """
     K, BT, TW = chunks_per_step, tiles_per_block, transpose_windows
     dev = _device_of(vals, packed, meta, step_block, x2d)
-    _check_stream(vals, packed, meta, step_block, x2d, K, torch.int32)
-    if TW not in (2, 4):
-        raise ValueError(f"transpose_windows must be 2 or 4, got {TW}")
-    TP = _tiles_padded(num_row_tiles, BT)
-    if out is None:
-        out = torch.empty((TP, LANES), dtype=x2d.dtype, device=dev)
-    elif (tuple(out.shape) != (TP, LANES) or out.dtype != x2d.dtype
-          or out.device != dev or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous ({TP}, 128) float32 "
-                         f"tensor on {dev}")
+    _check_sbell(vals, packed, meta, step_block, K, TW)
+    _check_x2d(x2d)
+    out = _out_buffer(out, (_tiles_padded(num_row_tiles, BT), LANES), dev)
     if dev.type == "cpu":
         return sbell_spmv_tiles_plain(
             vals, packed, meta, step_block, x2d,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
             tiles_per_block=BT, transpose_windows=TW, out=out,
         )
-    lib = _cuda.lib()
-    with torch.cuda.device(dev):
-        err = lib.cfs_sbell_spmv(
-            vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
-            step_block.data_ptr(), meta.shape[0], K, BT, TW,
-            x2d.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _cuda.check(err, "sbell_spmv_tiles")
-    sbell_spmv_tiles.launches += 1
+    sbell_spmv_tiles.launches += _launch_sbell(
+        vals, packed, meta, step_block, x2d[None], out[None], K, BT, TW,
+        "sbell_spmv_tiles")
     return out[:num_row_tiles]
 
 
-#: launches of the CUDA kernels through these wrappers (never the twins)
+def _check_sbell(vals, packed, meta, step_block, K, TW):
+    _check_stream(vals, packed, meta, step_block, K, torch.int32)
+    if TW not in (2, 4):
+        raise ValueError(f"transpose_windows must be 2 or 4, got {TW}")
+
+
+def _launch_sbell(vals, packed, meta, step_block, x3d, y3d, K, BT, TW, name):
+    lib = _cuda.lib()
+    return _cuda.launch_groups(
+        name, x3d, y3d, lambda *planes: lib.cfs_sbell_spmv(
+            vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
+            step_block.data_ptr(), meta.shape[0], K, BT, TW, *planes,
+        ))
+
+
+def bell2_spmm_tiles_plain(vals, packed, meta, step_block, x3d, *,
+                           num_row_tiles, chunks_per_step, tiles_per_block,
+                           contig, out=None):
+    """Plain PyTorch twin of :func:`bell2_spmm_tiles`: B2's twin once per
+    plane."""
+    if out is None:
+        out = x3d.new_empty((x3d.shape[0],
+                             _tiles_padded(num_row_tiles, tiles_per_block),
+                             LANES))
+    for b in range(x3d.shape[0]):
+        bell2_spmv_tiles_plain(vals, packed, meta, step_block, x3d[b],
+                               num_row_tiles=num_row_tiles,
+                               chunks_per_step=chunks_per_step,
+                               tiles_per_block=tiles_per_block,
+                               contig=contig, out=out[b])
+    return out[:, :num_row_tiles]
+
+
+def bell2_spmm_tiles(vals, packed, meta, step_block, x3d, *,
+                     num_row_tiles, chunks_per_step, tiles_per_block,
+                     contig, out=None):
+    """Y tiles (B, T, 128) = A @ X for one BELL2 stream and B right-hand
+    sides.
+
+    ``x3d``: (B, x_rows, 128) float32 planes, each contiguous (any plane
+    stride). The output is a contiguous (B, ceil(T/BT)*BT, 128) buffer
+    (``out``, or ``torch.empty``) of which, in every plane, the blocks
+    the stream visits are zeroed and accumulated; unvisited blocks keep
+    whatever the buffer held. Returns its first T rows of each plane.
+    Other operands as :func:`bell2_spmv_tiles`.
+
+    A CPU tensor takes the plain twin; on a CUDA tensor the kernel
+    launches once per group of up to ``_cuda.RHS_GROUP`` planes, reading
+    the stream once per group, or raises.
+    """
+    K, BT = chunks_per_step, tiles_per_block
+    dev = _device_of(vals, packed, meta, step_block)
+    _check_stream(vals, packed, meta, step_block, K)
+    B = _cuda.check_planes(x3d, "x3d", dev)
+    out = _out_buffer(out, (B, _tiles_padded(num_row_tiles, BT), LANES),
+                      dev)
+    if dev.type == "cpu":
+        return bell2_spmm_tiles_plain(
+            vals, packed, meta, step_block, x3d,
+            num_row_tiles=num_row_tiles, chunks_per_step=K,
+            tiles_per_block=BT, contig=contig, out=out,
+        )
+    bell2_spmm_tiles.launches += _launch_bell2(
+        vals, packed, meta, step_block, x3d, out, K, BT, contig, True,
+        "bell2_spmm_tiles")
+    return out[:, :num_row_tiles]
+
+
+def bell2_spmm_tiles_accum_plain(vals, packed, meta, step_block, x3d,
+                                 y_tiles, *, num_row_tiles, chunks_per_step,
+                                 tiles_per_block, contig):
+    """Plain PyTorch twin of :func:`bell2_spmm_tiles_accum`: B4's twin
+    once per plane."""
+    for b in range(x3d.shape[0]):
+        bell2_spmv_tiles_accum_plain(vals, packed, meta, step_block, x3d[b],
+                                     y_tiles[b], num_row_tiles=num_row_tiles,
+                                     chunks_per_step=chunks_per_step,
+                                     tiles_per_block=tiles_per_block,
+                                     contig=contig)
+    return y_tiles
+
+
+def bell2_spmm_tiles_accum(vals, packed, meta, step_block, x3d, y_tiles, *,
+                           num_row_tiles, chunks_per_step, tiles_per_block,
+                           contig):
+    """``Y_tiles += A @ X`` for a sparse accumulating BELL2 stream and B
+    right-hand sides.
+
+    ``y_tiles``: (B, ceil(T/BT)*BT, 128) float32 planes, each contiguous
+    (any plane stride), added into in place (blocks without chunks keep
+    their values) and returned. Other operands as
+    :func:`bell2_spmm_tiles`.
+    """
+    K, BT = chunks_per_step, tiles_per_block
+    dev = _device_of(vals, packed, meta, step_block)
+    _check_stream(vals, packed, meta, step_block, K)
+    B = _cuda.check_planes(x3d, "x3d", dev)
+    _cuda.check_planes(y_tiles, "y_tiles", dev, B=B,
+                       rows=_tiles_padded(num_row_tiles, BT))
+    if dev.type == "cpu":
+        return bell2_spmm_tiles_accum_plain(
+            vals, packed, meta, step_block, x3d, y_tiles,
+            num_row_tiles=num_row_tiles, chunks_per_step=K,
+            tiles_per_block=BT, contig=contig,
+        )
+    bell2_spmm_tiles_accum.launches += _launch_bell2(
+        vals, packed, meta, step_block, x3d, y_tiles, K, BT, contig, False,
+        "bell2_spmm_tiles_accum")
+    return y_tiles
+
+
+def sbell_spmm_tiles_plain(vals, packed, meta, step_block, x3d, *,
+                           num_row_tiles, chunks_per_step, tiles_per_block,
+                           transpose_windows, out=None):
+    """Plain PyTorch twin of :func:`sbell_spmm_tiles`: B5's twin once per
+    plane."""
+    if out is None:
+        out = x3d.new_empty((x3d.shape[0],
+                             _tiles_padded(num_row_tiles, tiles_per_block),
+                             LANES))
+    for b in range(x3d.shape[0]):
+        sbell_spmv_tiles_plain(vals, packed, meta, step_block, x3d[b],
+                               num_row_tiles=num_row_tiles,
+                               chunks_per_step=chunks_per_step,
+                               tiles_per_block=tiles_per_block,
+                               transpose_windows=transpose_windows,
+                               out=out[b])
+    return out[:, :num_row_tiles]
+
+
+def sbell_spmm_tiles(vals, packed, meta, step_block, x3d, *,
+                     num_row_tiles, chunks_per_step, tiles_per_block,
+                     transpose_windows, out=None):
+    """Y tiles (B, T, 128) = (L + Lᵀ) X from the paired strict-lower
+    stream, for B right-hand sides: ``x3d`` (B, x_rows, 128) float32
+    planes, each contiguous; the output a contiguous (B,
+    ceil(T/BT)*BT, 128) buffer whose visited blocks are zeroed in every
+    plane, then accumulated. Other operands as :func:`sbell_spmv_tiles`;
+    launches as :func:`bell2_spmm_tiles`.
+    """
+    K, BT, TW = chunks_per_step, tiles_per_block, transpose_windows
+    dev = _device_of(vals, packed, meta, step_block)
+    _check_sbell(vals, packed, meta, step_block, K, TW)
+    B = _cuda.check_planes(x3d, "x3d", dev)
+    out = _out_buffer(out, (B, _tiles_padded(num_row_tiles, BT), LANES),
+                      dev)
+    if dev.type == "cpu":
+        return sbell_spmm_tiles_plain(
+            vals, packed, meta, step_block, x3d,
+            num_row_tiles=num_row_tiles, chunks_per_step=K,
+            tiles_per_block=BT, transpose_windows=TW, out=out,
+        )
+    sbell_spmm_tiles.launches += _launch_sbell(
+        vals, packed, meta, step_block, x3d, out, K, BT, TW,
+        "sbell_spmm_tiles")
+    return out[:, :num_row_tiles]
+
+
+#: launches of the CUDA kernels through these wrappers (never the twins);
+#: an SpMM stream wrapper counts one per group of planes
 bell2_spmv_tiles.launches = 0
 bell2_spmv_tiles_accum.launches = 0
 unperm_gather_tiles.launches = 0
 sbell_spmv_tiles.launches = 0
+bell2_spmm_tiles.launches = 0
+bell2_spmm_tiles_accum.launches = 0
+unperm_gather_tiles_mm.launches = 0
+sbell_spmm_tiles.launches = 0

@@ -1,4 +1,4 @@
-"""SDIA — dense-diagonal SpMV: CUDA kernel wrappers + plain twins.
+"""SDIA — dense-diagonal SpMV and SpMM: CUDA kernel wrappers + plain twins.
 
 Ports of ``cfs_spmv_tpu/ops/sdia_kernel.py``:
 
@@ -7,7 +7,11 @@ Ports of ``cfs_spmv_tpu/ops/sdia_kernel.py``:
   ``y[g - d] += v * x[g]`` (transpose side);
 - ``sdia_gen_tiles`` (kernel B6): signed offsets, row side only — the
   general path's peeled diagonals, and symmetric plans past
-  ``SDIA_SYM_ROWS_MAX`` whose diagonals are stored mirrored.
+  ``SDIA_SYM_ROWS_MAX`` whose diagonals are stored mirrored;
+- ``sdia_sym_tiles_mm`` (B11) and ``sdia_gen_tiles_mm`` (B12): the same
+  for B right-hand sides, X as (B, x_rows, 128) and Y as (B, T, 128)
+  planes; each launch reads the values once for up to
+  ``_cuda.RHS_GROUP`` planes.
 
 Diagonals dense enough to store contiguously need no index data at all:
 per stored nonzero the stream moves 4 bytes. Layout: ``vals[r, j, i, l]``
@@ -29,8 +33,12 @@ BLOCK_ROWS = SUBLANES * LANES  # 1024 rows per value block
 __all__ = [
     "sdia_sym_tiles",
     "sdia_sym_tiles_plain",
+    "sdia_sym_tiles_mm",
+    "sdia_sym_tiles_mm_plain",
     "sdia_gen_tiles",
     "sdia_gen_tiles_plain",
+    "sdia_gen_tiles_mm",
+    "sdia_gen_tiles_mm_plain",
     "BLOCK_ROWS",
 ]
 
@@ -52,25 +60,44 @@ def _blocks_per_step(R: int, D: int, itemsize: int = 4) -> int:
     return min(cap, R)
 
 
-def _check(vals, x2d, y_tiles, offsets):
+def _check_vals(vals, offsets):
     if vals.ndim != 4 or tuple(vals.shape[2:]) != (SUBLANES, LANES):
         raise ValueError(f"vals must be (R, D, 8, 128), got {tuple(vals.shape)}")
+    if vals.dtype != torch.float32:
+        raise TypeError(f"vals must be float32, got {vals.dtype}")
+    if offsets.shape != (vals.shape[1],) or offsets.dtype != torch.int32:
+        raise ValueError("offsets must be an int32 tensor of length D")
+    for t in (vals, offsets):
+        if t.device != vals.device:
+            raise ValueError("all operands must live on one device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if vals.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {vals.device}")
+
+
+def _check(vals, x2d, y_tiles, offsets):
+    _check_vals(vals, offsets)
     if x2d.ndim != 2 or x2d.shape[1] != LANES:
         raise ValueError(f"x2d must be (x_rows, 128), got {tuple(x2d.shape)}")
     if y_tiles.ndim != 2 or y_tiles.shape[1] != LANES:
         raise ValueError(
             f"y_tiles must be (T, 128), got {tuple(y_tiles.shape)}"
         )
-    if offsets.shape != (vals.shape[1],) or offsets.dtype != torch.int32:
-        raise ValueError("offsets must be an int32 tensor of length D")
-    for name, t in (("vals", vals), ("x2d", x2d), ("y_tiles", y_tiles)):
+    for name, t in (("x2d", x2d), ("y_tiles", y_tiles)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-    for t in (vals, x2d, y_tiles, offsets):
         if t.device != vals.device:
             raise ValueError("all operands must live on one device")
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
+
+
+def _check_mm(vals, x3d, y_tiles, offsets):
+    """X (B, x_rows, 128) and Y (B, T, 128): planes each contiguous."""
+    _check_vals(vals, offsets)
+    B = _cuda.check_planes(x3d, "x3d", vals.device)
+    _cuda.check_planes(y_tiles, "y_tiles", vals.device, B=B)
 
 
 def sdia_sym_tiles_plain(vals, x2d, y_tiles, offsets):
@@ -110,21 +137,43 @@ def sdia_sym_tiles(vals, x2d, y_tiles, offsets):
     (building it on first use) or raises.
     """
     _check(vals, x2d, y_tiles, offsets)
-    dev = vals.device
-    if dev.type == "cpu":
+    if vals.device.type == "cpu":
         return sdia_sym_tiles_plain(vals, x2d, y_tiles, offsets)
-    if dev.type != "cuda":
-        raise ValueError(f"sdia_sym_tiles: unsupported device {dev}")
+    sdia_sym_tiles.launches += _launch_sym(vals, x2d[None], y_tiles[None],
+                                           offsets, "sdia_sym_tiles")
+    return y_tiles
+
+
+def _launch_sym(vals, x3d, y3d, offsets, name):
     lib = _cuda.lib()
-    with torch.cuda.device(dev):
-        err = lib.cfs_sdia_sym(
+    return _cuda.launch_groups(
+        name, x3d, y3d, lambda *planes: lib.cfs_sdia_sym(
             vals.data_ptr(), offsets.data_ptr(), vals.shape[1],
-            vals.shape[0] * BLOCK_ROWS, x2d.data_ptr(), x2d.numel(),
-            y_tiles.data_ptr(), y_tiles.numel(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _cuda.check(err, "sdia_sym_tiles")
-    sdia_sym_tiles.launches += 1
+            vals.shape[0] * BLOCK_ROWS, x3d[0].numel(), y3d[0].numel(),
+            *planes,
+        ))
+
+
+def sdia_sym_tiles_mm_plain(vals, x3d, y_tiles, offsets):
+    """Plain PyTorch twin of :func:`sdia_sym_tiles_mm`: B1's twin once
+    per plane, accumulated in place; returns ``y_tiles``."""
+    for b in range(x3d.shape[0]):
+        sdia_sym_tiles_plain(vals, x3d[b], y_tiles[b], offsets)
+    return y_tiles
+
+
+def sdia_sym_tiles_mm(vals, x3d, y_tiles, offsets):
+    """``Y_tiles += (L + Lᵀ) X`` for B right-hand sides: ``x3d`` (B,
+    x_rows, 128) and ``y_tiles`` (B, T, 128) float32 stacks whose planes
+    are each contiguous (any plane stride); ``y_tiles`` is accumulated
+    in place and returned. Otherwise as :func:`sdia_sym_tiles`, plane by
+    plane. A CUDA tensor launches once per group of up to
+    ``_cuda.RHS_GROUP`` planes; a CPU tensor takes the plain twin."""
+    _check_mm(vals, x3d, y_tiles, offsets)
+    if vals.device.type == "cpu":
+        return sdia_sym_tiles_mm_plain(vals, x3d, y_tiles, offsets)
+    sdia_sym_tiles_mm.launches += _launch_sym(vals, x3d, y_tiles, offsets,
+                                              "sdia_sym_tiles_mm")
     return y_tiles
 
 
@@ -163,24 +212,48 @@ def sdia_gen_tiles(vals, x2d, y_tiles, offsets):
     (building it on first use) or raises.
     """
     _check(vals, x2d, y_tiles, offsets)
-    dev = vals.device
-    if dev.type == "cpu":
+    if vals.device.type == "cpu":
         return sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets)
-    if dev.type != "cuda":
-        raise ValueError(f"sdia_gen_tiles: unsupported device {dev}")
+    sdia_gen_tiles.launches += _launch_gen(vals, x2d[None], y_tiles[None],
+                                           offsets, "sdia_gen_tiles")
+    return y_tiles
+
+
+def _launch_gen(vals, x3d, y3d, offsets, name):
     lib = _cuda.lib()
-    with torch.cuda.device(dev):
-        err = lib.cfs_sdia_gen(
-            vals.data_ptr(), offsets.data_ptr(), vals.shape[1],
-            min(y_tiles.numel(), vals.shape[0] * BLOCK_ROWS),
-            x2d.data_ptr(), x2d.numel(), y_tiles.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _cuda.check(err, "sdia_gen_tiles")
-    sdia_gen_tiles.launches += 1
+    n_rows = min(y3d[0].numel(), vals.shape[0] * BLOCK_ROWS)
+    return _cuda.launch_groups(
+        name, x3d, y3d, lambda *planes: lib.cfs_sdia_gen(
+            vals.data_ptr(), offsets.data_ptr(), vals.shape[1], n_rows,
+            x3d[0].numel(), *planes,
+        ))
+
+
+def sdia_gen_tiles_mm_plain(vals, x3d, y_tiles, offsets):
+    """Plain PyTorch twin of :func:`sdia_gen_tiles_mm`: B6's twin once
+    per plane, accumulated in place; returns ``y_tiles``."""
+    for b in range(x3d.shape[0]):
+        sdia_gen_tiles_plain(vals, x3d[b], y_tiles[b], offsets)
+    return y_tiles
+
+
+def sdia_gen_tiles_mm(vals, x3d, y_tiles, offsets):
+    """``Y_tiles += A_dia X`` for B right-hand sides: ``x3d`` (B, x_rows,
+    128) and ``y_tiles`` (B, T, 128) float32 stacks whose planes are each
+    contiguous (any plane stride); ``y_tiles`` is accumulated in place and
+    returned. Otherwise as :func:`sdia_gen_tiles`, plane by plane. A CUDA
+    tensor launches once per group of up to ``_cuda.RHS_GROUP`` planes; a
+    CPU tensor takes the plain twin."""
+    _check_mm(vals, x3d, y_tiles, offsets)
+    if vals.device.type == "cpu":
+        return sdia_gen_tiles_mm_plain(vals, x3d, y_tiles, offsets)
+    sdia_gen_tiles_mm.launches += _launch_gen(vals, x3d, y_tiles, offsets,
+                                              "sdia_gen_tiles_mm")
     return y_tiles
 
 
 #: launches of the CUDA kernels through these wrappers (never the twins)
 sdia_sym_tiles.launches = 0
 sdia_gen_tiles.launches = 0
+sdia_sym_tiles_mm.launches = 0
+sdia_gen_tiles_mm.launches = 0

@@ -1,15 +1,14 @@
-"""Op-level SpMV: plan → device tensors → padded kernel calls.
+"""Op-level SpMV and SpMM: plan → device tensors → padded kernel calls.
 
-Port of ``cfs_spmv_tpu/ops/spmv.py`` for the fp32 SpMV paths: it owns
-padding/unpadding and the composition of streams — for the symmetric
-path the paired stream or the diagonal seed, the degree-grouped or sparse
-far residual and the dense-diagonal SDIA stream (``sbell_apply``); for
-the general path one one-sided stream and the signed-offset SDIA stream
-(``bell2_apply``). The device structs are plain dataclasses of tensors on
-one explicit device.
-
-Off the slice, and raising ``NotImplementedError``: a 2-D ``x`` (SpMM,
-ROADMAP A7).
+Port of ``cfs_spmv_tpu/ops/spmv.py`` for fp32: it owns padding/unpadding
+and the composition of streams — for the symmetric path the paired
+stream or the diagonal seed, the degree-grouped or sparse far residual
+and the dense-diagonal SDIA stream (``sbell_apply``); for the general
+path one one-sided stream and the signed-offset SDIA stream
+(``bell2_apply``); and the same two compositions for B right-hand sides
+(``sbell_apply_mm``, ``bell2_apply_mm``), whose X and Y travel as (B,
+rows, 128) planes. The device structs are plain dataclasses of tensors
+on one explicit device.
 """
 
 from __future__ import annotations
@@ -20,22 +19,8 @@ import numpy as np
 import torch
 
 from ..formats.bell2 import LANES, SUBLANES
-from .bell2_kernel import (
-    bell2_spmv_tiles,
-    bell2_spmv_tiles_accum,
-    bell2_spmv_tiles_accum_plain,
-    bell2_spmv_tiles_plain,
-    sbell_spmv_tiles,
-    sbell_spmv_tiles_plain,
-    unperm_gather_tiles,
-    unperm_gather_tiles_plain,
-)
-from .sdia_kernel import (
-    sdia_gen_tiles,
-    sdia_gen_tiles_plain,
-    sdia_sym_tiles,
-    sdia_sym_tiles_plain,
-)
+from . import bell2_kernel as bk
+from . import sdia_kernel as sk
 
 __all__ = [
     "Bell2Device",
@@ -44,8 +29,11 @@ __all__ = [
     "to_device",
     "sym_to_device",
     "pad_x",
+    "pad_x_mm",
     "bell2_apply",
+    "bell2_apply_mm",
     "sbell_apply",
+    "sbell_apply_mm",
 ]
 
 
@@ -283,35 +271,69 @@ def pad_x(x: torch.Tensor, x_rows: int) -> torch.Tensor:
     )
 
 
-def _unperm_tiles(dev: Bell2Device, tiles, unperm=unperm_gather_tiles):
+def pad_x_mm(x: torch.Tensor, x_rows: int) -> torch.Tensor:
+    """(m, B) → contiguous (B, x_rows, 128) zero-padded planes: one
+    padded copy of Xᵀ (``pad`` would keep Xᵀ's transposed strides)."""
+    m, B = x.shape
+    x3d = x.new_zeros((B, x_rows, LANES))
+    x3d.view(B, -1)[:, :m] = x.T
+    return x3d
+
+
+def _unperm_tiles(dev: Bell2Device, tiles, unperm=bk.unperm_gather_tiles):
     """Original-row-order tiles (>= ceil(nrows/128) rows of 128) from a
     grouped stream's compact output tiles; absent rows read exact 0."""
     return unperm(dev.unperm_pk, dev.unperm_slabs, tiles[: dev.num_row_tiles])
+
+
+def _unperm_tiles_mm(dev: Bell2Device, tiles,
+                     unperm=bk.unperm_gather_tiles_mm):
+    """(B, >= ceil(nrows/128), 128) unpermuted tiles, multi-RHS."""
+    return unperm(dev.unperm_pk, dev.unperm_slabs,
+                  tiles[:, : dev.num_row_tiles])
+
+
+#: the stream functions by role: name -> (kernel wrapper, plain twin)
+_STREAMS = {
+    "bell2": (bk.bell2_spmv_tiles, bk.bell2_spmv_tiles_plain),
+    "bell2_acc": (bk.bell2_spmv_tiles_accum, bk.bell2_spmv_tiles_accum_plain),
+    "unperm": (bk.unperm_gather_tiles, bk.unperm_gather_tiles_plain),
+    "sbell": (bk.sbell_spmv_tiles, bk.sbell_spmv_tiles_plain),
+    "sdia_sym": (sk.sdia_sym_tiles, sk.sdia_sym_tiles_plain),
+    "sdia_gen": (sk.sdia_gen_tiles, sk.sdia_gen_tiles_plain),
+    "bell2_mm": (bk.bell2_spmm_tiles, bk.bell2_spmm_tiles_plain),
+    "bell2_acc_mm": (bk.bell2_spmm_tiles_accum,
+                     bk.bell2_spmm_tiles_accum_plain),
+    "unperm_mm": (bk.unperm_gather_tiles_mm, bk.unperm_gather_tiles_mm_plain),
+    "sbell_mm": (bk.sbell_spmm_tiles, bk.sbell_spmm_tiles_plain),
+    "sdia_sym_mm": (sk.sdia_sym_tiles_mm, sk.sdia_sym_tiles_mm_plain),
+    "sdia_gen_mm": (sk.sdia_gen_tiles_mm, sk.sdia_gen_tiles_mm_plain),
+}
 
 
 def _kernels(plain: bool) -> dict:
     """The stream functions: the CUDA kernel wrappers, or (``plain``)
     their plain PyTorch twins on whatever device the tensors live on —
     the baseline the kernels are timed and checked against."""
-    if plain:
-        return dict(
-            bell2=bell2_spmv_tiles_plain, bell2_acc=bell2_spmv_tiles_accum_plain,
-            unperm=unperm_gather_tiles_plain, sbell=sbell_spmv_tiles_plain,
-            sdia_sym=sdia_sym_tiles_plain, sdia_gen=sdia_gen_tiles_plain,
-        )
-    return dict(
-        bell2=bell2_spmv_tiles, bell2_acc=bell2_spmv_tiles_accum,
-        unperm=unperm_gather_tiles, sbell=sbell_spmv_tiles,
-        sdia_sym=sdia_sym_tiles, sdia_gen=sdia_gen_tiles,
-    )
+    return {k: fns[plain] for k, fns in _STREAMS.items()}
 
 
-def _check_vector(x):
+def _check_vector(x, mm: str):
     if x.ndim != 1:
-        raise NotImplementedError(
-            "SpMM (2-D x, bell2_apply_mm / sbell_apply_mm) is not ported "
-            "yet: ROADMAP A7"
+        raise ValueError(
+            f"x must be 1-D, got shape {tuple(x.shape)}; a 2-D X (SpMM) "
+            f"goes to {mm}"
         )
+
+
+def _check_matrix(x) -> int:
+    """The right-hand-side count B of a 2-D X (ncols, B), B >= 1."""
+    if x.ndim != 2:
+        raise ValueError(f"X must be 2-D (ncols, B), got shape "
+                         f"{tuple(x.shape)}")
+    if x.shape[1] < 1:
+        raise ValueError("X has no columns (B = 0)")
+    return x.shape[1]
 
 
 def _accumulate(f, fd: Bell2Device, x2d, tiles, n_tiles):
@@ -324,6 +346,15 @@ def _accumulate(f, fd: Bell2Device, x2d, tiles, n_tiles):
                           tp, **fd.stream_kw())[:n_tiles]
 
 
+def _accumulate_mm(f, fd: Bell2Device, x3d, tiles, n_tiles):
+    """:func:`_accumulate` over (B, rows, 128) planes."""
+    BT = fd.tiles_per_block
+    TP = -(-fd.num_row_tiles // BT) * BT
+    tp = torch.nn.functional.pad(tiles, (0, 0, 0, TP - tiles.shape[1]))
+    return f["bell2_acc_mm"](fd.vals, fd.packed, fd.meta, fd.step_block,
+                             x3d, tp, **fd.stream_kw())[:, :n_tiles]
+
+
 def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     """General y = A x for one BELL2 stream plus its signed-offset SDIA
     stream, composed exactly as the reference's ``bell2_apply``: an empty
@@ -333,7 +364,7 @@ def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     adds the diagonals. Rectangular matrices take the same code (no dia
     stream). ``plain=True`` runs every stream through its plain twin.
     """
-    _check_vector(x)
+    _check_vector(x, "bell2_apply_mm")
     f = _kernels(plain)
     x2d = pad_x(x, dev.x_rows)
     NT = dev.num_row_tiles
@@ -355,6 +386,33 @@ def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     return tiles.reshape(-1)[: dev.nrows]
 
 
+def bell2_apply_mm(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
+    """Y = A X for X (ncols, B): :func:`bell2_apply` branch for branch,
+    as the reference's ``bell2_apply_mm``, over (B, rows, 128) planes —
+    X padded in one pad of Xᵀ, the multi-RHS stream, unpermute and SDIA
+    kernels in place of the single-vector ones. Returns (nrows, B), a
+    transposed view of the output planes."""
+    B = _check_matrix(x)
+    f = _kernels(plain)
+    x3d = pad_x_mm(x, dev.x_rows)
+    NT = dev.num_row_tiles
+    if not dev.has_work:
+        tiles = x3d.new_zeros((B, NT, LANES))
+    elif dev.sparse_stream and not dev.grouped:
+        tiles = _accumulate_mm(f, dev, x3d, x3d.new_zeros((B, 0, LANES)), NT)
+    else:
+        tiles = f["bell2_mm"](dev.vals, dev.packed, dev.meta, dev.step_block,
+                              x3d, **dev.stream_kw())
+    if dev.grouped:
+        ot = _unperm_tiles_mm(dev, tiles, f["unperm_mm"])
+        if dev.dia_vals is None:
+            return ot.reshape(B, -1)[:, : dev.nrows].T
+        tiles = ot[:, : -(-dev.nrows // LANES)]
+    if dev.dia_vals is not None:
+        tiles = f["sdia_gen_mm"](dev.dia_vals, x3d, tiles, dev.dia_offsets)
+    return tiles.reshape(B, -1)[:, : dev.nrows].T
+
+
 def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     """Symmetric y = (D + L + Lᵀ) x, composed exactly as the reference's
     ``sbell_apply``: the paired stream's tiles, or (without one) the
@@ -365,7 +423,7 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     mirrored, else ``sdia_sym_tiles``); then D x when the paired stream
     ran. ``plain=True`` runs every stream through its plain twin.
     """
-    _check_vector(x)
+    _check_vector(x, "sbell_apply_mm")
     f = _kernels(plain)
     x2d = pad_x(x, dev.x_rows)
     NT = dev.num_row_tiles
@@ -398,3 +456,43 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
         tiles = sdia(dev.dia_vals, x2d, tiles[:NT], dev.dia_offsets)
     y = tiles.reshape(-1)[: dev.nrows]
     return y + dev.diag * x if dev.has_paired else y
+
+
+def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
+    """Symmetric Y = (D + L + Lᵀ) X for X (nrows, B): :func:`sbell_apply`
+    branch for branch, as the reference's ``sbell_apply_mm``, over (B,
+    rows, 128) planes — the ``diag[:, None] * X`` seed or the final add,
+    the grouped far stream padded along the tile axis, the sparse far
+    residual accumulated into the tiles padded to its block multiple,
+    ``sdia_gen_tiles_mm`` when the diagonals are mirrored, else
+    ``sdia_sym_tiles_mm``. Returns (nrows, B), a transposed view (or, with
+    a paired stream, a fresh sum)."""
+    B = _check_matrix(x)
+    f = _kernels(plain)
+    x3d = pad_x_mm(x, dev.x_rows)
+    NT = dev.num_row_tiles
+    if dev.has_paired:
+        tiles = f["sbell_mm"](
+            dev.vals, dev.packed, dev.meta, dev.step_block, x3d,
+            num_row_tiles=NT, chunks_per_step=dev.chunks_per_step,
+            tiles_per_block=dev.tiles_per_block,
+            transpose_windows=dev.transpose_windows,
+        )
+    else:
+        tiles = pad_x_mm(dev.diag[:, None] * x, NT)
+    fd = dev.far
+    if fd is not None:
+        if fd.grouped:
+            ftiles = f["bell2_mm"](fd.vals, fd.packed, fd.meta,
+                                   fd.step_block, x3d, **fd.stream_kw())
+            ot = _unperm_tiles_mm(fd, ftiles, f["unperm_mm"])
+            if ot.shape[1] < NT:
+                ot = torch.nn.functional.pad(ot, (0, 0, 0, NT - ot.shape[1]))
+            tiles = tiles[:, :NT] + ot[:, :NT]
+        else:
+            tiles = _accumulate_mm(f, fd, x3d, tiles, NT)
+    if dev.dia_vals is not None:
+        sdia = f["sdia_gen_mm"] if dev.dia_mirrored else f["sdia_sym_mm"]
+        tiles = sdia(dev.dia_vals, x3d, tiles[:, :NT], dev.dia_offsets)
+    Y = tiles.reshape(B, -1)[:, : dev.nrows].T
+    return Y + dev.diag[:, None] * x if dev.has_paired else Y

@@ -7,11 +7,12 @@ path (``Format.SSS``/``HYB`` under ``Tuning.AGGRESSIVE``: triangle split
 ``COO``, or ``Tuning.NONE``: symmetric input expanded, signed-offset
 diagonal peel under aggressive tuning, ``formats/bell2.build_general_plan``,
 bound to ``ops/spmv.bell2_apply``), with the optional RCM permutation
-around either. ``Format.BSR`` keeps its host block container and runs
-one of the two.
+around either. Each path binds its SpMM applier beside it
+(``sbell_apply_mm``, ``bell2_apply_mm``): one plan serves both.
+``Format.BSR`` keeps its host block container and runs one of the two.
 
 Off the slice, and raising ``NotImplementedError``: float64 (ROADMAP
-A8), ``values="bfloat16"`` (A5) and SpMM (A7).
+A8) and ``values="bfloat16"`` (A5).
 """
 
 from __future__ import annotations
@@ -35,12 +36,13 @@ __all__ = ["TunedMatrix", "tune"]
 
 @dataclasses.dataclass
 class TunedMatrix:
-    """A tuned, device-resident matrix with a bound apply function.
+    """A tuned, device-resident matrix with bound apply functions.
 
     The analog of a tuned ``CSRMatrix`` with its ``spmv_fn`` pointer bound
-    (``csr_matrix.hpp:124``). The applier is a plain function of
-    (operands, x), so solvers and timing loops can hold the operands and
-    call it directly (``pure_apply``).
+    (``csr_matrix.hpp:124``). The appliers are plain functions of
+    (operands, x) and (operands, X), so solvers and timing loops can hold
+    the operands and call them directly (``pure_apply``,
+    ``pure_apply_mm``).
     """
 
     format: Format
@@ -51,24 +53,22 @@ class TunedMatrix:
     plan: object
     operands: object  # device struct (or dict of it + permutations)
     _apply_mv: Callable  # (operands, x) -> y
+    _apply_mm: Callable  # (operands, X) -> Y, X (ncols, B)
     spill_fraction: float  # far-stream fraction for symmetric plans
     padding_ratio: float
     device: torch.device
     perm: np.ndarray | None = None  # RCM row order, if applied
     bsr: object | None = None  # BSR host container when fmt=BSR
-    #: un-permuted applier + operands when RCM is applied (the wrapped
-    #: matvec pays two 1-D gathers per call — solvers work in permuted
-    #: space via pure_apply + encode/decode)
+    #: un-permuted appliers (mv, mm) + operands when RCM is applied (the
+    #: wrapped appliers pay two row gathers per call — solvers work in
+    #: permuted space via pure_apply + encode/decode)
     _inner: tuple | None = None
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return self._apply_mv(self.operands, x)
 
-    def matmat(self, x):
-        raise NotImplementedError(
-            "SpMM (bell2_apply_mm / sbell_apply_mm and kernels B7-B12) is "
-            "not ported yet: ROADMAP A7"
-        )
+    def matmat(self, x: torch.Tensor) -> torch.Tensor:
+        return self._apply_mm(self.operands, x)
 
     def pure_apply(self):
         """(fn, operands) with fn a plain function of its arguments. When
@@ -76,11 +76,20 @@ class TunedMatrix:
         feed it ``encode(x)`` and ``decode`` the result (norms are
         permutation-invariant, so solver scalars need no translation)."""
         if self._inner is not None:
-            return self._inner
+            mv, _, ops = self._inner
+            return mv, ops
         return self._apply_mv, self.operands
 
+    def pure_apply_mm(self):
+        """:meth:`pure_apply` for the SpMM applier (rows of X permute
+        like x)."""
+        if self._inner is not None:
+            _, mm, ops = self._inner
+            return mm, ops
+        return self._apply_mm, self.operands
+
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """User space → internal (permuted) space."""
+        """User space → internal (permuted) space (rows of a 2-D X too)."""
         if self.perm is None:
             return x
         return torch.index_select(x, 0, self.operands["p"])
@@ -120,11 +129,10 @@ def tune(
     tuning of a square matrix. ``"auto"`` applies it only when it shrinks
     the mean bandwidth 2x on a scattered matrix; ``True`` forces,
     ``False`` disables.
+
+    ``kernel`` does not change the plan: both appliers are bound.
     """
-    if kernel != Kernel.SpDMV:
-        raise NotImplementedError(
-            "SpMM (Kernel.SpDMM) is not ported yet: ROADMAP A7"
-        )
+    del kernel
     device = spmv_ops.as_device(device)
     if fmt == Format.NONE:
         fmt = (
@@ -173,8 +181,8 @@ def tune(
         dev = spmv_ops.sym_to_device(plan, device)
         tuned = TunedMatrix(
             fmt, csr.nrows, csr.ncols, plan.nnz_full, True, plan,
-            dev, spmv_ops.sbell_apply, plan.far_fraction,
-            plan.padding_ratio, device,
+            dev, spmv_ops.sbell_apply, spmv_ops.sbell_apply_mm,
+            plan.far_fraction, plan.padding_ratio, device,
         )
     else:
         from ..formats.bell2 import build_general_plan
@@ -189,7 +197,8 @@ def tune(
         dev = spmv_ops.to_device(plan, device)
         tuned = TunedMatrix(
             Format.CSR, gen_csr.nrows, gen_csr.ncols, gen_csr.nnz,
-            csr.symmetric, plan, dev, spmv_ops.bell2_apply, 0.0,
+            csr.symmetric, plan, dev, spmv_ops.bell2_apply,
+            spmv_ops.bell2_apply_mm, 0.0,
             plan.padding_ratio, device,
         )
     if perm is not None:
@@ -211,8 +220,8 @@ def tune(
 
 
 def _permuted(tuned: TunedMatrix, perm: np.ndarray) -> TunedMatrix:
-    """Wrap the applier with the P A Pᵀ input/output gathers; the
-    permutation tensors travel inside the operands."""
+    """Wrap the appliers with the P A Pᵀ input/output gathers (rows of x
+    or X); the permutation tensors travel inside the operands."""
     iperm = np.empty_like(perm)
     iperm[perm] = np.arange(len(perm))
     operands = {
@@ -220,13 +229,17 @@ def _permuted(tuned: TunedMatrix, perm: np.ndarray) -> TunedMatrix:
         "p": torch.as_tensor(perm, dtype=torch.int64, device=tuned.device),
         "ip": torch.as_tensor(iperm, dtype=torch.int64, device=tuned.device),
     }
-    inner_mv = tuned._apply_mv
+    inner_mv, inner_mm = tuned._apply_mv, tuned._apply_mm
 
     def apply_mv(ops, x):
         y = inner_mv(ops["dev"], torch.index_select(x, 0, ops["p"]))
         return torch.index_select(y, 0, ops["ip"])
 
+    def apply_mm(ops, x):
+        y = inner_mm(ops["dev"], torch.index_select(x, 0, ops["p"]))
+        return torch.index_select(y, 0, ops["ip"])
+
     return dataclasses.replace(
-        tuned, operands=operands, _apply_mv=apply_mv, perm=perm,
-        _inner=(inner_mv, tuned.operands),
+        tuned, operands=operands, _apply_mv=apply_mv, _apply_mm=apply_mm,
+        perm=perm, _inner=(inner_mv, inner_mm, tuned.operands),
     )

@@ -11,7 +11,9 @@ Phases (each prints its wall time):
 2. build the CUDA kernels from ``cfs_spmv_tpu_torch/csrc/spmv_kernels.cu``;
 3. the main paths, once each, through the user entry points —
    ``SparseMatrix.create(csr, fmt)`` then
-   ``SpDMV(A, tuning, dtype=np.float32, device="cuda")(x)`` — on nine
+   ``SpDMV(A, tuning, dtype=np.float32, device="cuda")(x)`` and
+   ``SpDMM(A, tuning, dtype=np.float32, device="cuda")(X)`` with X of
+   B = 8 columns (SpMM, ROADMAP A7) — on nine
    full-size runs (``RUNS``): the tuned symmetric path on
    ``cant_proxy()``, ``audikw_proxy()`` and the 65,536-row flagship; the
    general path on ``general_asym()`` and on the flagship as a general
@@ -20,18 +22,27 @@ Phases (each prints its wall time):
    ``CFS_PAIRED=force``, and the same matrix under the default
    ``CFS_PAIRED=auto`` gate (which routes it to the one-sided stream);
    mirrored diagonals on ``cant_proxy()`` with ``SDIA_SYM_ROWS_MAX``
-   below its size. Each result is checked against
+   below its size. Each result (each column of Y) is checked against
    the float64 host oracle. The kernels' launch counts are zeroed just
-   before each apply and read just after; each run must launch exactly
-   the kernels its plan predicts (and ``EXPECTED`` lists);
+   before each apply and read just after; each SpMV apply must launch
+   exactly the kernels its plan predicts (and ``EXPECTED`` lists), each
+   SpMM apply exactly their multi-RHS forms (``EXPECTED_MM``) and no
+   SpMV kernel;
 4. each kernel against its plain PyTorch twin on the same card, on the
    real plan arrays of those runs (``sbell_spmv`` also replanned with the
    other transpose-window count and with 8-tile output blocks,
-   ``sdia_gen`` also on a ragged ``general_asym(g=50)`` plan);
+   ``sdia_gen`` also on a ragged ``general_asym(g=50)`` plan); each
+   multi-RHS kernel at B = 8 and at B = 11 (two plane groups), into
+   NaN-poisoned outputs where the kernel zeroes its own, ``sbell_spmm``
+   also on the 8-tile-block replan, ``unperm_gather_mm`` bit-identical;
 5. times per call (CUDA events around 20 back-to-back calls, median of
-   5) of each kernel and twin, and of the kernel path and the plain path
-   of every run, with the device time of each apply and of each kernel
-   from ``torch.profiler``;
+   5) of each kernel and twin (multi-RHS ones at B = 8), and of the
+   kernel path and the plain path of every run, SpMV and SpMM(8), with
+   the device time of each apply and of each kernel from
+   ``torch.profiler``; for ``bell2_spmm``, ``sbell_spmm`` and
+   ``sdia_sym_mm`` the MM(8) kernel's device time beside 8x its SpMV
+   form's on the same plan, and for every run the SpMM(8) apply beside
+   8 SpMV applies;
 6. the differential CLI (``cfs_spmv_tpu_torch.cli.test_spmv_mmf``) on a
    written ``.mtx`` with ``--device cuda``; it must print ``PASSED!``.
 
@@ -66,6 +77,28 @@ EXPECTED = {
     "near_band_paired_auto": {"bell2_spmv", "unperm_gather"},
     "cant_proxy_mirrored": {"sdia_gen"},  # mirrored diagonals
 }
+#: the multi-RHS form of each kernel: an SpMM apply runs the same
+#: branches as the SpMV apply of its plan, through these
+MM_OF = {
+    "sdia_sym": "sdia_sym_mm",
+    "bell2_spmv": "bell2_spmm",
+    "bell2_spmv_accum": "bell2_spmm_accum",
+    "unperm_gather": "unperm_gather_mm",
+    "sbell_spmv": "sbell_spmm",
+    "sdia_gen": "sdia_gen_mm",
+}
+#: kernels each main-path run's SpMM(8) apply launches (no SpMV kernel)
+EXPECTED_MM = {
+    "cant_proxy": {"sdia_sym_mm"},
+    "audikw_proxy": {"bell2_spmm", "unperm_gather_mm"},
+    "flagship": {"sdia_sym_mm", "bell2_spmm_accum"},
+    "general_asym": {"sdia_gen_mm"},
+    "flagship_csr": {"sdia_gen_mm", "bell2_spmm_accum"},
+    "cant_proxy_none": {"bell2_spmm"},
+    "near_band_paired": {"sbell_spmm", "bell2_spmm_accum"},
+    "near_band_paired_auto": {"bell2_spmm", "unperm_gather_mm"},
+    "cant_proxy_mirrored": {"sdia_gen_mm"},
+}
 #: the Pallas kernel each CUDA kernel replaces
 REPLACES = {
     "sdia_sym": "cfs_spmv_tpu/ops/sdia_kernel.py:157",
@@ -74,8 +107,16 @@ REPLACES = {
     "unperm_gather": "cfs_spmv_tpu/ops/bell2_kernel.py:1216",
     "sbell_spmv": "cfs_spmv_tpu/ops/bell2_kernel.py:1385",
     "sdia_gen": "cfs_spmv_tpu/ops/sdia_kernel.py:251",
+    "bell2_spmm": "cfs_spmv_tpu/ops/bell2_kernel.py:1084",
+    "bell2_spmm_accum": "cfs_spmv_tpu/ops/bell2_kernel.py:1562",
+    "unperm_gather_mm": "cfs_spmv_tpu/ops/bell2_kernel.py:1264",
+    "sbell_spmm": "cfs_spmv_tpu/ops/bell2_kernel.py:1468",
+    "sdia_sym_mm": "cfs_spmv_tpu/ops/sdia_kernel.py:391",
+    "sdia_gen_mm": "cfs_spmv_tpu/ops/sdia_kernel.py:326",
 }
 TIMED_CALLS = 20
+#: right-hand sides of the SpMM runs (the reference bench's SpMM(8))
+RHS = 8
 
 
 def flagship(n=1024, deg=8, dtype=np.float32, seed=0):
@@ -166,13 +207,21 @@ def _fmt_device(busy, by_name):
         f"{k} {v:.4f}" for k, v in top) + ")"
 
 
+def _ratio(num, den):
+    """num / den, or "not measured" where the profiler saw no device
+    events for either."""
+    return f"{num / den:.3f}" if num and den else "not measured"
+
+
 def _nbytes(*tensors):
     """Bytes the tensors occupy: what a kernel must at least move."""
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _agree(y, y_ref, scale, nnz_per_row, what):
-    """allclose_spmv on card results; returns max |y - y_ref|."""
+    """allclose_spmv on card results (any shape: an MM result is checked
+    element by element, each plane being one SpMV's); returns max
+    |y - y_ref|."""
     from cfs_spmv_tpu_torch.utils.platform import allclose_spmv
 
     y, y_ref = y.double().cpu().numpy(), y_ref.double().cpu().numpy()
@@ -242,7 +291,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    from cfs_spmv_tpu_torch import Format, SparseMatrix, SpDMV, Tuning
+    from cfs_spmv_tpu_torch import Format, SparseMatrix, SpDMM, SpDMV, Tuning
     from cfs_spmv_tpu_torch.cli.test_spmv_mmf import main as test_cli
     from cfs_spmv_tpu_torch.formats.bell2 import build_general_plan
     from cfs_spmv_tpu_torch.formats.sbell import build_sbell_plan
@@ -266,6 +315,12 @@ def main() -> int:
         "unperm_gather": bk.unperm_gather_tiles,
         "sbell_spmv": bk.sbell_spmv_tiles,
         "sdia_gen": sk.sdia_gen_tiles,
+        "sdia_sym_mm": sk.sdia_sym_tiles_mm,
+        "bell2_spmm": bk.bell2_spmm_tiles,
+        "bell2_spmm_accum": bk.bell2_spmm_tiles_accum,
+        "unperm_gather_mm": bk.unperm_gather_tiles_mm,
+        "sbell_spmm": bk.sbell_spmm_tiles,
+        "sdia_gen_mm": sk.sdia_gen_tiles_mm,
     }
     t_start = time.perf_counter()
     phase_t = [time.perf_counter()]
@@ -320,6 +375,7 @@ def main() -> int:
         with _planning(paired, rows_max):
             A = SparseMatrix.create(csr, fmt)
             op = SpDMV(A, tuning, dtype=np.float32, device="cuda")
+            op_mm = SpDMM(A, tuning, dtype=np.float32, device="cuda")
         t_tune = time.perf_counter() - t0
         predicted = predict(A.tuned)
         x = np.random.default_rng(1).uniform(1.0, 2.0, csr.ncols).astype(
@@ -367,6 +423,43 @@ def main() -> int:
                 f"{name}: launched {sorted(moved)}, predicted "
                 f"{sorted(predicted)}, expected {sorted(EXPECTED[name])}"
             )
+        # SpMM(8) through SpDMM on the same tuned matrix
+        X = np.random.default_rng(2).uniform(
+            1.0, 2.0, (csr.ncols, RHS)).astype(np.float32)
+        predicted_mm = {MM_OF[k] for k in predicted}
+        for w in wrappers.values():
+            w.launches = 0
+        Y = op_mm(X)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        moved = {k for k, c in counts.items() if c}
+        for k, c in counts.items():
+            launches[k] += c
+        Y_np = Y.cpu().numpy()
+        errs, ok = [], Y_np.shape == (csr.nrows, RHS)
+        for b in range(RHS):
+            xd = X[:, b].astype(np.float64)
+            ref = csr.spmv_host(xd)
+            errs.append(float(np.abs(Y_np[:, b] - ref).max()))
+            ok = ok and np.isfinite(Y_np[:, b]).all() and allclose_spmv(
+                Y_np[:, b], ref, np.float32,
+                nnz_per_row=A.tuned.nnz_full / csr.nrows,
+                scale=csr.spmv_host(xd, absolute=True),
+            )
+        print(
+            f"main path {name} SpMM({RHS}): predicted={sorted(predicted_mm)} "
+            f"launched={ {k: c for k, c in counts.items() if c} } "
+            f"max_abs_err={max(errs)} oracle_ok={ok}",
+            flush=True,
+        )
+        if not ok:
+            raise AssertionError(f"{name} SpMM: disagrees with the oracle")
+        if not moved == predicted_mm == EXPECTED_MM[name]:
+            raise AssertionError(
+                f"{name} SpMM: launched {sorted(moved)}, predicted "
+                f"{sorted(predicted_mm)}, expected "
+                f"{sorted(EXPECTED_MM[name])} (no SpMV kernel may run)"
+            )
         runs[name] = (A, x)
     print(f"launch counts of the main paths: {launches}", flush=True)
     if not all(launches.values()):
@@ -382,6 +475,42 @@ def main() -> int:
 
     g = torch.Generator(device="cpu").manual_seed(7)
     kern = {}
+
+    def planes(B, rows, extra=0):
+        """(B, rows, 128) random planes on the card; with ``extra``, a
+        column slice of wider planes (plane stride past the plane)."""
+        wide = torch.rand((B, rows + extra, 128), generator=g).to(dev)
+        return wide[:, :rows]
+
+    def mm_pair(key, make, nnz_per_row, on, rows=None, exact=False):
+        """Check the multi-RHS kernel ``key`` against its twin at B = 11
+        (two plane groups) and B = 8; keep the B = 8 closures for the
+        timing. ``make(B)`` returns (check, fn, plain, scale, bytes):
+        ``check()`` runs the kernel as the check wants it (NaN-poisoned
+        output where it zeroes its own), ``scale()`` the twin on |.|."""
+        errs = []
+        for B in (11, RHS):
+            check, fn, plain, scale, nbytes = make(B)
+            yk, yp = check(), plain()
+            torch.cuda.synchronize()
+            sel = (lambda t: t) if rows is None else (lambda t: t[:, rows])
+            if exact:
+                if not torch.equal(yk, yp):
+                    raise AssertionError(
+                        f"{key} B={B}: not bit-identical to its twin")
+                errs.append(0.0)
+            else:
+                errs.append(_agree(sel(yk), sel(yp), sel(scale()),
+                                   nnz_per_row, f"{key} B={B}"))
+            print(f"kernel {key} B={B} on {on}: max_abs_err vs twin "
+                  f"{errs[-1]}", flush=True)
+        # a kernel checked on several plans keeps its worst error
+        errs.append(kern.get(key, {}).get("err", 0.0))
+        kern[key] = dict(err=max(errs), on=f"{on}, B={RHS}", bytes=nbytes,
+                         fn=fn, plain=plain)
+
+    def poisoned(shape):
+        return torch.full(shape, float("nan"), device=dev)
 
     # B1 on cant_proxy: the SDIA stream, onto a nonzero incoming y
     A, d, xe = operands("cant_proxy")
@@ -403,6 +532,24 @@ def main() -> int:
         plain=lambda a=args, y=y0, o=d.dia_offsets: sk.sdia_sym_tiles_plain(
             *a, y.clone(), o),
     )
+
+    # B11 on cant_proxy: onto nonzero Y planes held at a plane stride
+    # past the plane
+    def make_sdia_sym_mm(B, d=d):
+        x3 = planes(B, d.x_rows)
+        y3 = planes(B, d.num_row_tiles, extra=3)
+        a = (d.dia_vals, x3)
+        o = d.dia_offsets
+        return (lambda: sk.sdia_sym_tiles_mm(*a, y3.clone(), o),
+                lambda: sk.sdia_sym_tiles_mm(*a, y3.clone(), o),
+                lambda: sk.sdia_sym_tiles_mm_plain(*a, y3.clone(), o),
+                lambda: sk.sdia_sym_tiles_mm_plain(
+                    d.dia_vals.abs().double(), x3.abs().double(),
+                    y3.abs().double(), o),
+                _nbytes(d.dia_vals, x3) + 2 * _nbytes(y3))
+
+    mm_pair("sdia_sym_mm", make_sdia_sym_mm, 2 * d.dia_vals.shape[1],
+            "cant_proxy")
 
     # B2 + B3 on audikw_proxy: the degree-grouped far stream
     A, d, xe = operands("audikw_proxy")
@@ -440,6 +587,34 @@ def main() -> int:
         plain=lambda: bk.unperm_gather_tiles_plain(*uargs),
     )
 
+    # B7 + B9 on audikw_proxy's grouped far stream: B7 into NaN-poisoned
+    # planes (checked on the visited blocks' rows), B9 bit-identical
+    TPa = -(-fd.num_row_tiles // BT) * BT
+
+    def make_bell2_mm(B, fd=fd):
+        sa = (fd.vals, fd.packed, fd.meta, fd.step_block, planes(B, fd.x_rows))
+        return (lambda: bk.bell2_spmm_tiles(
+                    *sa, out=poisoned((B, TPa, 128)), **kw_a),
+                lambda: bk.bell2_spmm_tiles(*sa, **kw_a),
+                lambda: bk.bell2_spmm_tiles_plain(*sa, **kw_a),
+                lambda: bk.bell2_spmm_tiles_plain(
+                    fd.vals.abs(), *sa[1:4], sa[4].abs(), **kw_a),
+                _nbytes(*sa) + B * _nbytes(fp))
+
+    mm_pair("bell2_spmm", make_bell2_mm, A.tuned.plan.far.nnz / A.nrows,
+            "audikw_proxy", rows=rows)
+
+    def make_unperm_mm(B, fd=fd):
+        ua = (fd.unperm_pk, fd.unperm_slabs,
+              planes(B, fd.num_row_tiles, extra=2))
+        return (lambda: bk.unperm_gather_tiles_mm(*ua),
+                lambda: bk.unperm_gather_tiles_mm(*ua),
+                lambda: bk.unperm_gather_tiles_mm_plain(*ua),
+                None, _nbytes(fd.unperm_pk) + 2 * B * _nbytes(uk))
+
+    mm_pair("unperm_gather_mm", make_unperm_mm, 0, "audikw_proxy",
+            exact=True)
+
     # B4 on the flagship: the sparse far residual, onto a nonzero y
     A, d, xe = operands("flagship")
     fd = d.far
@@ -463,6 +638,21 @@ def main() -> int:
         plain=lambda: bk.bell2_spmv_tiles_accum_plain(
             *sargs_f, y0_f.clone(), **kw_f),
     )
+
+    # B8 on the flagship's sparse far residual, onto nonzero Y planes
+    def make_bell2_acc_mm(B, fd=fd, TP=TP):
+        sa = (fd.vals, fd.packed, fd.meta, fd.step_block, planes(B, fd.x_rows))
+        y3 = planes(B, TP)
+        return (lambda: bk.bell2_spmm_tiles_accum(*sa, y3.clone(), **kw_f),
+                lambda: bk.bell2_spmm_tiles_accum(*sa, y3.clone(), **kw_f),
+                lambda: bk.bell2_spmm_tiles_accum_plain(
+                    *sa, y3.clone(), **kw_f),
+                lambda: bk.bell2_spmm_tiles_accum_plain(
+                    fd.vals.abs(), *sa[1:4], sa[4].abs(), y3.abs(), **kw_f),
+                _nbytes(*sa) + 2 * _nbytes(y3))
+
+    mm_pair("bell2_spmm_accum", make_bell2_acc_mm,
+            A.tuned.plan.far.nnz / A.nrows, "flagship")
 
     # B5 on near_band_paired: the paired stream of the main path, the
     # same matrix planned with the other transpose-window count, and with
@@ -504,6 +694,31 @@ def main() -> int:
         plain=lambda: bk.sbell_spmv_tiles_plain(*pargs, **kw_p),
     )
 
+    # B10 on the 8-tile-block replan (49 blocks), then on the main plan,
+    # into NaN-poisoned planes
+    for dp in (variants[1], d):
+        TPp = -(-dp.num_row_tiles // dp.tiles_per_block) * dp.tiles_per_block
+        kw_q = dict(num_row_tiles=dp.num_row_tiles,
+                    chunks_per_step=dp.chunks_per_step,
+                    tiles_per_block=dp.tiles_per_block,
+                    transpose_windows=dp.transpose_windows)
+
+        def make_sbell_mm(B, dp=dp, TPp=TPp, kw_q=kw_q):
+            sa = (dp.vals, dp.packed, dp.meta, dp.step_block,
+                  planes(B, dp.x_rows))
+            return (lambda: bk.sbell_spmm_tiles(
+                        *sa, out=poisoned((B, TPp, 128)), **kw_q),
+                    lambda: bk.sbell_spmm_tiles(*sa, **kw_q),
+                    lambda: bk.sbell_spmm_tiles_plain(*sa, **kw_q),
+                    lambda: bk.sbell_spmm_tiles_plain(
+                        dp.vals.abs(), *sa[1:4], sa[4].abs(), **kw_q),
+                    _nbytes(*sa) + 4 * B * TPp * 128)
+
+        mm_pair("sbell_spmm", make_sbell_mm, 2 * A.tuned.nnz_full / A.nrows,
+                f"near_band_paired TW={dp.transpose_windows} "
+                f"BT={dp.tiles_per_block} ({TPp // dp.tiles_per_block} "
+                "blocks)")
+
     # B6 on a ragged general_asym(g=50) plan (125,000 rows: fewer x and
     # y rows than its padded value blocks hold) and on general_asym's
     # signed-offset peel, each onto a nonzero y
@@ -533,23 +748,53 @@ def main() -> int:
         plain=lambda o=d.dia_offsets: sk.sdia_gen_tiles_plain(
             *gargs, y0_g.clone(), o),
     )
+
+    # B12 on the ragged plan, then on general_asym's peel, onto nonzero Y
+    # planes held at a plane stride past the plane
+    for dg, on in ((ragged, "general_asym(g=50)"), (d, "general_asym")):
+        def make_sdia_gen_mm(B, dg=dg):
+            x3 = planes(B, dg.x_rows)
+            y3 = planes(B, dg.num_row_tiles, extra=3)
+            a = (dg.dia_vals, x3)
+            o = dg.dia_offsets
+            return (lambda: sk.sdia_gen_tiles_mm(*a, y3.clone(), o),
+                    lambda: sk.sdia_gen_tiles_mm(*a, y3.clone(), o),
+                    lambda: sk.sdia_gen_tiles_mm_plain(*a, y3.clone(), o),
+                    lambda: sk.sdia_gen_tiles_mm_plain(
+                        dg.dia_vals.abs().double(), x3.abs().double(),
+                        y3.abs().double(), o),
+                    _nbytes(dg.dia_vals, x3) + 2 * _nbytes(y3))
+
+        mm_pair("sdia_gen_mm", make_sdia_gen_mm, dg.dia_vals.shape[1], on)
     phase_done("4 kernels against twins")
 
     # -- 5. times: kernels, then the kernel path against the plain path --
     for name, k in kern.items():
         k["ms"] = _median_ms(torch, k["fn"])
         k["plain_ms"] = _median_ms(torch, k["plain"])
-        busy, by_name = _device_ms(torch, k["fn"])
+        busy, k["device"] = _device_ms(torch, k["fn"])
         print(f"kernel {name} on {k['on']}: max_abs_err vs twin {k['err']} "
               f"kernel {k['ms']:.4f} ms twin {k['plain_ms']:.4f} ms; "
-              f"{_fmt_device(busy, by_name)}; "
+              f"{_fmt_device(busy, k['device'])}; "
               f"{k['bytes'] / 1e6:.2f} MB of operands -> "
               f"{k['bytes'] / k['ms'] / 1e6:.0f} GB/s by event time "
               f"({card})", flush=True)
+    # the stream read once for 8 right-hand sides against 8 reads: the
+    # MM(8) kernel's device time beside 8x its SpMV form's, same plan
+    for mm, mv, kernel in (("bell2_spmm", "bell2_spmv", "bell2_spmv_kernel"),
+                           ("sbell_spmm", "sbell_spmv", "sbell_spmv_kernel"),
+                           ("sdia_sym_mm", "sdia_sym", "sdia_sym_kernel")):
+        t_mm = kern[mm]["device"].get(kernel, 0.0)
+        t_mv = kern[mv]["device"].get(kernel, 0.0)
+        print(f"MM({RHS}) vs {RHS}x SpMV device time, {kernel} on "
+              f"{kern[mv]['on']}: MM({RHS}) {t_mm:.4f} ms, SpMV {t_mv:.4f} "
+              f"ms (0: not measured), ratio MM / ({RHS} SpMV) "
+              f"{_ratio(t_mm, RHS * t_mv)} ({card})", flush=True)
     for name in RUNS:
         A, d, xe = operands(name)
-        apply = (ops.bell2_apply if isinstance(d, ops.Bell2Device)
-                 else ops.sbell_apply)
+        general = isinstance(d, ops.Bell2Device)
+        apply = ops.bell2_apply if general else ops.sbell_apply
+        apply_mm = ops.bell2_apply_mm if general else ops.sbell_apply_mm
         yk = apply(d, xe)
         yp = apply(d, xe, plain=True)
         e2e_err = float((yk - yp).abs().max())
@@ -563,6 +808,26 @@ def main() -> int:
             f"({nnz / ms_p / 1e6:.2f} Gnnz/s), max |kernel - plain| "
             f"{e2e_err}; kernel path {_fmt_device(busy, by_name)}; "
             f"n={A.nrows} nnz_full={nnz} ({card})",
+            flush=True,
+        )
+        # SpMM(8): the MM kernel path, its plain path, and 8 SpMV applies
+        Xe = torch.rand((A.ncols, RHS), generator=g).to(dev)
+        cols = [Xe[:, b].contiguous() for b in range(RHS)]
+        Yk = apply_mm(d, Xe)
+        Yp = apply_mm(d, Xe, plain=True)
+        mm_err = float((Yk - Yp).abs().max())
+        ms_mm = _median_ms(torch, lambda: apply_mm(d, Xe))
+        ms_mm_p = _median_ms(torch, lambda: apply_mm(d, Xe, plain=True))
+        ms_8 = _median_ms(torch, lambda: [apply(d, c) for c in cols])
+        busy_mm, by_mm = _device_ms(torch, lambda: apply_mm(d, Xe))
+        busy_8, _ = _device_ms(torch, lambda: [apply(d, c) for c in cols])
+        print(
+            f"end to end {name} SpMM({RHS}): kernel path {ms_mm:.4f} ms "
+            f"({RHS * nnz / ms_mm / 1e6:.2f} Gnnz/s), plain path "
+            f"{ms_mm_p:.4f} ms, {RHS} SpMV applies {ms_8:.4f} ms; max "
+            f"|kernel - plain| {mm_err}; kernel path "
+            f"{_fmt_device(busy_mm, by_mm)}; {RHS} SpMV applies device "
+            f"{busy_8:.4f} ms, ratio {_ratio(busy_mm, busy_8)} ({card})",
             flush=True,
         )
     phase_done("5 times")

@@ -1,7 +1,8 @@
 """Kernels B2, B4, B3 and B5 (one-sided BELL2 stream, its accumulating
-form, grouped unpermute, paired symmetric stream): the port's plain twins
-against the reference's Pallas kernels (interpret mode) on real plan
-streams.
+form, grouped unpermute, paired symmetric stream) and their multi-RHS
+forms B7, B8, B9 and B10: the port's plain twins against the reference's
+Pallas kernels (interpret mode) on real plan streams, and each MM twin
+against its SpMV twin column by column.
 
 The streams cover contiguous depth-8, deep depth-16 and depth-32 window
 ranges, a listed-window (unit pipeline) plan, a degree-grouped far stream
@@ -18,6 +19,13 @@ the unpermute absent rows must read exact 0.
 The B5 streams are paired plans built with pairing forced
 (``CFS_PAIRED=force``), with two and with four transpose windows; their
 output buffer is NaN-poisoned too, and every tile must come out finite.
+
+The MM streams run on plans with 8-tile output blocks, so that they have
+several blocks (test-sized plans otherwise have one): B7 on contiguous,
+listed and deep windows into NaN-poisoned planes, B8 onto planes whose
+unvisited blocks hold NaN and must keep it, B9 bit-exact with absent rows
+(``pk < 0``) reading exact 0, B10 with two and four transpose windows in
+one and in four output blocks.
 
 Tolerances: ``allclose_spmv`` at float32 with the backward-error scale
 (|vals| |x| through the float64 twin) for B2/B4/B5, whose summation order
@@ -55,10 +63,10 @@ def _band(hb, **kw):
     )
 
 
-def _listed():
+def _listed(**kw):
     csr = proxies.cant_proxy(n=2048, half_bw=8)
     return build_bell2_plan(
-        RefCSR.from_coo(csr.to_coo().expand_symmetric())
+        RefCSR.from_coo(csr.to_coo().expand_symmetric()), **kw
     )
 
 
@@ -290,6 +298,174 @@ def test_sbell_spmv_plain_matches_reference(tw, bt, monkeypatch):
                          scale=scale.numpy())
 
 
+#: MM streams with 8-tile output blocks: name -> (plan factory, window
+#: depth, contig)
+DENSE_MM = {
+    "contig8": (_band(300, tiles_per_block=8), 8, True),
+    "listed": (lambda: _listed(tiles_per_block=8), 8, False),
+    "deep16": (_band(1000, tiles_per_block=8), 16, True),
+}
+
+
+def _x3d(n, x_rows, B, seed):
+    """(B, x_rows, 128) planes of random x of length n, padded as the
+    appliers pad."""
+    X = np.random.default_rng(seed).uniform(10.01, 20.42, (n, B))
+    x3d = np.zeros((B, x_rows * 128), np.float32)
+    x3d[:, :n] = X.T
+    return x3d.reshape(B, x_rows, 128)
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_MM))
+def test_bell2_spmm_plain_matches_reference(name):
+    """B7 into NaN-poisoned planes: every block is visited, so every
+    tile of every plane comes out finite and matches the reference."""
+    make, depth, contig = DENSE_MM[name]
+    plan = make()
+    _check_plan(plan, depth, contig, False, False)
+    rd = ref_ops.to_device(plan)
+    pd = ops.to_device(plan, "cpu")
+    assert len(np.unique(plan.step_block)) > 1
+    B = 2
+    x3d_np = _x3d(plan.ncols, plan.x_rows, B, 11)
+    ref = np.asarray(ref_bk.bell2_spmm_tiles(
+        rd.vals, rd.packed, rd.meta, rd.step_block, jnp.asarray(x3d_np),
+        segs=rd.word_segs, **_ref_kw(rd),
+    ))
+    kw = _port_kw(pd)
+    TP = -(-pd.num_row_tiles // pd.tiles_per_block) * pd.tiles_per_block
+    poison = torch.full((B, TP, 128), float("nan"))
+    x3d = torch.from_numpy(x3d_np)
+    got = bk.bell2_spmm_tiles(pd.vals, pd.packed, pd.meta, pd.step_block,
+                              x3d, out=poison, **kw)
+    assert got.shape == ref.shape == (B, pd.num_row_tiles, 128)
+    assert np.isfinite(got.numpy()).all()
+    scale = bk.bell2_spmm_tiles_plain(
+        pd.vals.abs().double(), pd.packed, pd.meta, pd.step_block,
+        x3d.abs().double(), **kw,
+    )
+    assert allclose_spmv(got.numpy(), ref, np.float32,
+                         nnz_per_row=plan.nnz / plan.nrows,
+                         scale=scale.numpy())
+    for b in range(B):  # column by column, the MM twin is B2's twin
+        yb = bk.bell2_spmv_tiles_plain(pd.vals, pd.packed, pd.meta,
+                                       pd.step_block, x3d[b], **kw)
+        assert torch.equal(yb, got[b])
+
+
+@pytest.mark.parametrize("name", sorted(SPARSE))
+def test_bell2_spmm_accum_plain_matches_reference(name):
+    """B8: Y accumulated in place; blocks the stream never visits hold
+    NaN and keep it."""
+    make, depth, contig, grouped, holes = SPARSE[name]
+    plan = make()
+    _check_plan(plan, depth, contig, grouped, True)
+    rd = ref_ops.to_device(plan)
+    pd = ops.to_device(plan, "cpu")
+    B = 2
+    x3d_np = _x3d(plan.ncols, plan.x_rows, B, 12)
+    TP = -(-pd.num_row_tiles // pd.tiles_per_block) * pd.tiles_per_block
+    y0 = np.random.default_rng(13).uniform(-1, 1, (B, TP, 128)).astype(
+        np.float32
+    )
+    rows = _visited_rows(pd)
+    untouched = np.setdiff1d(np.arange(TP), rows)
+    assert (len(untouched) > 0) == holes
+    y0[:, untouched] = np.nan
+    ref = np.asarray(ref_bk.bell2_spmm_tiles_accum(
+        rd.vals, rd.packed, rd.meta, rd.step_block, jnp.asarray(x3d_np),
+        jnp.asarray(y0), **_ref_kw(rd),
+    ))
+    kw = _port_kw(pd)
+    x3d = torch.from_numpy(x3d_np)
+    y = torch.from_numpy(y0.copy())
+    got = bk.bell2_spmm_tiles_accum(pd.vals, pd.packed, pd.meta,
+                                    pd.step_block, x3d, y, **kw)
+    assert got.data_ptr() == y.data_ptr()  # accumulated in place
+    assert np.isnan(got.numpy()[:, untouched]).all()
+    scale = bk.bell2_spmm_tiles_accum_plain(
+        pd.vals.abs().double(), pd.packed, pd.meta, pd.step_block,
+        x3d.abs().double(), torch.from_numpy(np.abs(y0)).double(), **kw,
+    )
+    got_v = got.numpy()[:, rows]
+    assert np.isfinite(got_v).all()
+    assert allclose_spmv(got_v, ref[:, rows], np.float32,
+                         nnz_per_row=plan.nnz / plan.nrows,
+                         scale=scale.numpy()[:, rows])
+    for b in range(B):
+        yb = bk.bell2_spmv_tiles_accum_plain(
+            pd.vals, pd.packed, pd.meta, pd.step_block, x3d[b],
+            torch.from_numpy(y0[b].copy()), **kw)
+        assert torch.equal(yb[rows], got[b, rows])
+
+
+def test_unperm_gather_mm_plain_matches_reference_exactly():
+    """B9 on a grouped plan with absent rows (``pk < 0``), the grouped
+    tiles given as a column slice of wider planes."""
+    plan = _grouped_empty_rows()
+    pd = ops.to_device(plan, "cpu")
+    W = plan.unperm_slabs.shape[1]
+    B, T = 2, plan.num_row_tiles
+    g = np.random.default_rng(14).uniform(-1, 1, (B, T, 128)).astype(
+        np.float32
+    )
+    ref = np.asarray(ref_bk.unperm_gather_tiles_mm(
+        jnp.asarray(plan.unperm_pk), jnp.asarray(plan.unperm_slabs),
+        jnp.asarray(g), W=W, interpret=True,
+    ))
+    wide = torch.full((B, T + 5, 128), float("nan"))
+    wide[:, :T] = torch.from_numpy(g)
+    got = bk.unperm_gather_tiles_mm(pd.unperm_pk, pd.unperm_slabs,
+                                    wide[:, :T])
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert np.array_equal(got.numpy(), ref)
+    absent = plan.unperm_pk.reshape(-1) < 0
+    assert absent.any()
+    assert np.all(got.numpy().reshape(B, -1)[:, absent] == 0.0)
+    for b in range(B):
+        assert torch.equal(got[b], bk.unperm_gather_tiles_plain(
+            pd.unperm_pk, pd.unperm_slabs, torch.from_numpy(g[b])))
+
+
+@pytest.mark.parametrize("tw,bt", [(2, None), (4, None), (4, 8)])
+def test_sbell_spmm_plain_matches_reference(tw, bt, monkeypatch):
+    """B10 on forced paired plans, TW 2 and 4, one output block and
+    (``bt=8``) four, into NaN-poisoned planes."""
+    monkeypatch.setenv("CFS_PAIRED", "force")
+    csr = proxies.near_band_paired(n=4000, n_diags=32, max_off=300, seed=5)
+    plan = ref_sbell_plan(csr, transpose_windows=tw, tiles_per_block=bt)
+    assert plan.nnz_paired > 0 and plan.transpose_windows == tw
+    assert len(np.unique(plan.step_block)) == (1 if bt is None else 4)
+    pd = ops.sym_to_device(plan, "cpu")
+    B = 2
+    x3d_np = _x3d(plan.nrows, plan.x_rows, B, 15)
+    kw = dict(num_row_tiles=plan.num_row_tiles,
+              chunks_per_step=plan.chunks_per_step,
+              tiles_per_block=plan.tiles_per_block, transpose_windows=tw)
+    ref = np.asarray(ref_bk.sbell_spmm_tiles(
+        jnp.asarray(plan.vals), jnp.asarray(plan.packed),
+        jnp.asarray(plan.meta), jnp.asarray(plan.step_block),
+        jnp.asarray(x3d_np), interpret=True, **kw,
+    ))
+    x3d = torch.from_numpy(x3d_np)
+    TP = -(-plan.num_row_tiles // plan.tiles_per_block) * plan.tiles_per_block
+    poison = torch.full((B, TP, 128), float("nan"))
+    got = bk.sbell_spmm_tiles(pd.vals, pd.packed, pd.meta, pd.step_block,
+                              x3d, out=poison, **kw)
+    assert got.shape == ref.shape and np.isfinite(poison.numpy()).all()
+    scale = bk.sbell_spmm_tiles_plain(
+        pd.vals.abs().double(), pd.packed, pd.meta, pd.step_block,
+        x3d.abs().double(), **kw,
+    )
+    assert allclose_spmv(got.numpy(), ref, np.float32,
+                         nnz_per_row=2 * plan.nnz_paired / plan.nrows,
+                         scale=scale.numpy())
+    for b in range(B):
+        yb = bk.sbell_spmv_tiles_plain(pd.vals, pd.packed, pd.meta,
+                                       pd.step_block, x3d[b], **kw)
+        assert torch.equal(yb, got[b])
+
+
 def test_bell2_wrappers_check_operands():
     plan = _band(300)()
     pd = ops.to_device(plan, "cpu")
@@ -304,7 +480,40 @@ def test_bell2_wrappers_check_operands():
     with pytest.raises(ValueError):  # chunk count not a K multiple
         bk.bell2_spmv_tiles(pd.vals[:-8], pd.packed[:-8], pd.meta[:-1],
                             pd.step_block, x2d, **kw)
-    assert bk.bell2_spmv_tiles.launches == 0
-    assert bk.bell2_spmv_tiles_accum.launches == 0
-    assert bk.unperm_gather_tiles.launches == 0
-    assert bk.sbell_spmv_tiles.launches == 0
+    # the MM wrappers: X and Y as (B, rows, 128) float32 planes, each
+    # contiguous, of one plane count; an output buffer wholly contiguous
+    args = (pd.vals, pd.packed, pd.meta, pd.step_block)
+    TP = -(-pd.num_row_tiles // pd.tiles_per_block) * pd.tiles_per_block
+    x3d = torch.zeros((2, plan.x_rows, 128))
+    y3d = torch.zeros((2, TP, 128))
+    with pytest.raises(ValueError, match="x3d"):  # a 2-D x
+        bk.bell2_spmm_tiles(*args, x2d, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        bk.bell2_spmm_tiles(*args, x3d.double(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        bk.bell2_spmm_tiles(*args, torch.zeros((2, 128, plan.x_rows))
+                            .transpose(1, 2), **kw)
+    with pytest.raises(ValueError, match="out"):  # B of out differs
+        bk.bell2_spmm_tiles(*args, x3d, out=y3d[:1].clone(), **kw)
+    with pytest.raises(ValueError, match="out"):  # strided out planes
+        bk.bell2_spmm_tiles(*args, x3d, out=torch.zeros((2, TP + 1, 128))
+                            [:, :TP], **kw)
+    with pytest.raises(ValueError, match="planes"):  # B of Y differs
+        bk.bell2_spmm_tiles_accum(*args, x3d, y3d[:1], **kw)
+    with pytest.raises(ValueError, match="rows"):  # Y not padded to BT
+        bk.bell2_spmm_tiles_accum(*args, x3d, y3d[:, :-1], **kw)
+    with pytest.raises(ValueError, match="no planes|planes"):  # B = 0
+        bk.bell2_spmm_tiles_accum(*args, x3d[:0], y3d[:0], **kw)
+    g = _audikw_far()
+    gd = ops.to_device(g, "cpu")
+    with pytest.raises(ValueError, match="g_tiles"):
+        bk.unperm_gather_tiles_mm(gd.unperm_pk, gd.unperm_slabs,
+                                  torch.zeros((g.num_row_tiles, 128)))
+    with pytest.raises(ValueError, match="int32"):
+        bk.unperm_gather_tiles_mm(gd.unperm_pk.long(), gd.unperm_slabs,
+                                  torch.zeros((1, g.num_row_tiles, 128)))
+    for w in (bk.bell2_spmv_tiles, bk.bell2_spmv_tiles_accum,
+              bk.unperm_gather_tiles, bk.sbell_spmv_tiles,
+              bk.bell2_spmm_tiles, bk.bell2_spmm_tiles_accum,
+              bk.unperm_gather_tiles_mm, bk.sbell_spmm_tiles):
+        assert w.launches == 0

@@ -6,8 +6,11 @@ RCM reordering fires; the general path on an asymmetric stencil, the
 flagship and audikw as general matrices, a rectangular matrix,
 ``Tuning.NONE``, an untuned ``A @ x`` and ``Format.BSR``; the paired
 stream under ``CFS_PAIRED=force``; mirrored diagonals past
-``SDIA_SYM_ROWS_MAX``. The differential CLI runs on a written ``.mtx``,
-and everything off the slice raises ``NotImplementedError``.
+``SDIA_SYM_ROWS_MAX``. SpMM (``SpDMM``, ``SpDMV`` with a 2-D X, ``A @
+X``) runs against the reference's SpMM and the oracle column by column
+on the same paths, B = 1 as a 2-D X included. The differential CLI runs
+on a written ``.mtx``, and everything off the slice raises
+``NotImplementedError``.
 
 Tolerance: ``allclose_spmv`` at float32 with the backward-error scale
 ``|A| |x|``, since the reference, the twins and the card's atomics all
@@ -79,7 +82,9 @@ MATRICES = {
 
 WRAPPERS = (sk.sdia_sym_tiles, sk.sdia_gen_tiles, bk.bell2_spmv_tiles,
             bk.bell2_spmv_tiles_accum, bk.unperm_gather_tiles,
-            bk.sbell_spmv_tiles)
+            bk.sbell_spmv_tiles, sk.sdia_sym_tiles_mm, sk.sdia_gen_tiles_mm,
+            bk.bell2_spmm_tiles, bk.bell2_spmm_tiles_accum,
+            bk.unperm_gather_tiles_mm, bk.sbell_spmm_tiles)
 
 
 def _assert_close(y, y_ref, csr, x, nnz_full):
@@ -87,6 +92,25 @@ def _assert_close(y, y_ref, csr, x, nnz_full):
     assert allclose_spmv(y, y_ref, np.float32,
                          nnz_per_row=nnz_full / csr.nrows,
                          scale=csr.spmv_host(xd, absolute=True))
+
+
+def _assert_close_mm(Y, Y_ref, csr, X, nnz_full):
+    """Column by column: each column is one SpMV's result."""
+    Y, Y_ref = np.asarray(Y), np.asarray(Y_ref)
+    assert Y.shape == Y_ref.shape == (csr.nrows, X.shape[1])
+    for b in range(X.shape[1]):
+        _assert_close(Y[:, b], Y_ref[:, b], csr, X[:, b], nnz_full)
+
+
+def _oracle_mm(csr, X):
+    return np.stack([csr.spmv_host(X[:, b].astype(np.float64))
+                     for b in range(X.shape[1])], axis=1)
+
+
+def random_X(n, B, seed=8):
+    return np.random.default_rng(seed).uniform(10.01, 20.42, (n, B)).astype(
+        np.float32
+    )
 
 
 @pytest.mark.parametrize("name", sorted(MATRICES))
@@ -248,6 +272,115 @@ def test_general_paired_mirrored_paths_match_reference(name, monkeypatch):
         assert w.launches == 0
 
 
+#: name -> (reference CSR, format, tuning (None: untuned A @ X), entry,
+#: B, CFS_PAIRED, mirrored diagonals)
+MM_PATHS = {
+    "flagship": (__graft_entry__._flagship, "SSS", "AGGRESSIVE", "SpDMM", 3,
+                 None, False),
+    "cant": (lambda: ref_proxies.cant_proxy(n=4096), "SSS", "AGGRESSIVE",
+             "SpDMM", 3, None, False),
+    "stencil27_spdmv_2d": (lambda: ref_proxies.stencil27(g=12), "SSS",
+                           "AGGRESSIVE", "SpDMV", 2, None, False),
+    "audikw_grouped_far": (lambda: ref_proxies.audikw_proxy(nb=1000), "SSS",
+                           "AGGRESSIVE", "SpDMM", 2, None, False),
+    "general_asym": (lambda: ref_proxies.general_asym(g=12), "CSR",
+                     "AGGRESSIVE", "SpDMM", 3, None, False),
+    "flagship_csr": (__graft_entry__._flagship, "CSR", "AGGRESSIVE", "SpDMM",
+                     2, None, False),
+    "tuning_none": (lambda: ref_proxies.cant_proxy(n=4096), "SSS", "NONE",
+                    "SpDMM", 2, None, False),
+    "rectangular": (_rect, "CSR", "AGGRESSIVE", "SpDMM", 3, None, False),
+    "paired_forced": (
+        lambda: ref_proxies.near_band_paired(n=4000, n_diags=32, max_off=300,
+                                             seed=5),
+        "SSS", "AGGRESSIVE", "SpDMM", 2, "force", False,
+    ),
+    "mirrored_cant": (lambda: ref_proxies.cant_proxy(n=4096), "SSS",
+                      "AGGRESSIVE", "SpDMM", 2, None, True),
+    "rcm": (shuffled_band, "SSS", "AGGRESSIVE", "SpDMM", 2, None, False),
+    "b1_as_2d": (__graft_entry__._flagship, "SSS", "AGGRESSIVE", "SpDMM", 1,
+                 None, False),
+    "untuned_matmul": (lambda: ref_proxies.stencil27(g=12), "SSS", None,
+                       "matmul", 3, None, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MM_PATHS))
+def test_spdmm_matches_reference_and_oracle(name, monkeypatch):
+    gen, fmt, tuning, entry, B, paired, mirrored = MM_PATHS[name]
+    if paired:
+        monkeypatch.setenv("CFS_PAIRED", paired)
+    if mirrored:
+        _patch_sym_rows_max(monkeypatch)
+    ref_csr = gen()
+    csr = port_csr(ref_csr)
+    X = random_X(csr.ncols, B)
+
+    A = ct.SparseMatrix.create(csr, getattr(ct.Format, fmt))
+    R = ref_cfs.SparseMatrix.create(ref_csr, getattr(ref_cfs.Format, fmt))
+    if entry == "matmul":
+        Y, Y_ref = A @ X, R @ X
+    else:
+        port_cls = getattr(ct, entry)
+        ref_cls = getattr(ref_cfs, entry)
+        Y = port_cls(A, getattr(ct.Tuning, tuning), dtype=np.float32,
+                     device="cpu")(X)
+        Y_ref = ref_cls(R, getattr(ref_cfs.Tuning, tuning),
+                        dtype=np.float32)(X)
+    assert isinstance(Y, torch.Tensor) and Y.dtype == torch.float32
+    assert Y.shape == (csr.nrows, B) and Y.device.type == "cpu"
+    nnz_full = A.tuned.nnz_full
+    assert nnz_full == R.tuned.nnz_full
+    _assert_close_mm(Y.numpy(), _oracle_mm(csr, X), csr, X, nnz_full)
+    _assert_close_mm(Y.numpy(), Y_ref, csr, X, nnz_full)
+
+    tuned, dev = A.tuned, A.tuned.operands
+    assert (tuned.perm is not None) == (name == "rcm")
+    if tuned.perm is not None:
+        assert np.array_equal(tuned.perm, R.tuned.perm)
+        fn, d = tuned.pure_apply_mm()
+        Xt = torch.from_numpy(X)
+        assert torch.equal(tuned.decode(fn(d, tuned.encode(Xt))), Y)
+    if name == "audikw_grouped_far":
+        assert dev.far is not None and dev.far.grouped
+    if paired:
+        assert dev.has_paired
+    assert getattr(dev, "dia_mirrored", False) == mirrored
+    # column by column, SpMM gives what SpMV gives (the twins compose
+    # identically, so the CPU results are bit-equal)
+    for b in range(B):
+        assert torch.equal(Y[:, b], tuned.matvec(torch.from_numpy(X[:, b])))
+    for w in WRAPPERS:
+        assert w.launches == 0
+
+
+def test_port_mm_applier_runs_reference_plan(monkeypatch):
+    """``sbell_apply_mm`` and ``bell2_apply_mm`` give bit-identical
+    results on the reference's plans and on the port's (a symmetric plan
+    with a sparse far stream, a general plan with its signed peel, a
+    paired plan), with the kernel wrappers and with the plain twins."""
+    cases = [(__graft_entry__._flagship(), ref_build, build_sbell_plan,
+              ops.sym_to_device, ops.sbell_apply_mm)]
+    gen = ref_proxies.general_asym(g=12)
+    cases.append((gen, ref_general, build_general_plan, ops.to_device,
+                  ops.bell2_apply_mm))
+    for ref_csr, ref_plan, port_plan, upload, apply_mm in cases:
+        Xc = torch.from_numpy(random_X(ref_csr.ncols, 3))
+        y_ref_plan = apply_mm(upload(ref_plan(ref_csr), "cpu"), Xc)
+        d = upload(port_plan(port_csr(ref_csr)), "cpu")
+        assert torch.equal(apply_mm(d, Xc), y_ref_plan)
+        assert torch.equal(apply_mm(d, Xc, plain=True), y_ref_plan)
+    monkeypatch.setenv("CFS_PAIRED", "force")
+    pc = ref_proxies.near_band_paired(n=4000, n_diags=32, max_off=300, seed=5)
+    Xp = torch.from_numpy(random_X(pc.nrows, 2))
+    ref_plan = ref_build(pc)
+    assert ref_plan.nnz_paired > 0
+    y_ref_plan = ops.sbell_apply_mm(ops.sym_to_device(ref_plan, "cpu"), Xp)
+    d = ops.sym_to_device(build_sbell_plan(port_csr(pc)), "cpu")
+    assert d.has_paired
+    assert torch.equal(ops.sbell_apply_mm(d, Xp), y_ref_plan)
+
+
 @pytest.mark.parametrize("fmt", ["0", "1"])
 def test_cli_test_spmv_mmf_passes(fmt, tmp_path, capsys):
     """The differential harness on a written symmetric ``.mtx``: tuned
@@ -318,8 +451,9 @@ def test_paired_plan_raises(monkeypatch):
 
 def test_mirrored_sdia_raises(monkeypatch):
     """Past SDIA_SYM_ROWS_MAX the planner mirrors the diagonals into
-    signed offsets, which run ``sdia_gen_tiles`` (B6): the result agrees
-    with the oracle, and only SpMM (A7) still raises on that plan."""
+    signed offsets, which run ``sdia_gen_tiles`` (B6) and, for SpMM,
+    ``sdia_gen_tiles_mm`` (B12): both agree with the oracle. What the
+    plan still refuses: a 2-D X to the 1-D applier, and B = 0."""
     _patch_sym_rows_max(monkeypatch)
     csr = proxies.cant_proxy(n=2048)
     A = ct.SparseMatrix.create(csr, ct.Format.SSS)
@@ -328,13 +462,18 @@ def test_mirrored_sdia_raises(monkeypatch):
     x = random_x(csr.nrows, np.float32)
     _assert_close(op(x).numpy(), csr.spmv_host(x.astype(np.float64)), csr,
                   x, A.tuned.nnz_full)
-    with pytest.raises(NotImplementedError, match="A7"):
-        op(np.ones((csr.nrows, 2), np.float32))
+    X = random_X(csr.nrows, 2)
+    _assert_close_mm(op(X).numpy(), _oracle_mm(csr, X), csr, X,
+                     A.tuned.nnz_full)
+    with pytest.raises(ValueError, match="sbell_apply_mm"):
+        ops.sbell_apply(A.tuned.operands, torch.from_numpy(X))
+    with pytest.raises(ValueError, match="B = 0"):
+        op(np.ones((csr.nrows, 0), np.float32))
 
 
 def test_general_path_raises():
-    """The general path runs; what it still refuses: a 2-D x (SpMM, A7)
-    and float64 (A8)."""
+    """The general path runs, SpMM included (untuned ``A @ X``); what it
+    still refuses: a 2-D X to the 1-D applier, B = 0 and float64 (A8)."""
     coo = COO.random(500, 500, 4.0, seed=1)
     A = ct.SparseMatrix.create(coo, ct.Format.CSR)
     x = np.ones(500, np.float32)
@@ -342,10 +481,15 @@ def test_general_path_raises():
     assert isinstance(A.tuned.operands, ops.Bell2Device)
     _assert_close(y, A.csr.spmv_host(x.astype(np.float64)), A.csr, x,
                   A.tuned.nnz_full)
-    with pytest.raises(NotImplementedError, match="A7"):
-        A @ np.ones((500, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="A7"):
+    X = random_X(500, 2)
+    Y = A @ X
+    assert Y.shape == (500, 2)
+    _assert_close_mm(Y.numpy(), _oracle_mm(A.csr, X), A.csr, X,
+                     A.tuned.nnz_full)
+    with pytest.raises(ValueError, match="bell2_apply_mm"):
         ops.bell2_apply(A.tuned.operands, torch.ones((500, 2)))
+    with pytest.raises(ValueError, match="B = 0"):
+        A @ np.ones((500, 0), np.float32)
     with pytest.raises(NotImplementedError, match="A8"):
         ct.SpDMV(A, dtype=np.float64, device="cpu")
 
@@ -358,13 +502,26 @@ def test_float64_and_bf16_raise():
 
 
 def test_spmm_raises():
+    """SpMM runs on the tuned symmetric path through ``SpDMM`` and
+    ``SpDMV`` with a 2-D X, and agrees with the oracle; what it still
+    refuses: float64 (A8), bfloat16 values (A5), a 2-D X to the 1-D
+    applier, a 1-D x to ``SpDMM``, and B = 0."""
     A = _small_sym()
-    op = ct.SpDMV(A, device="cpu")
-    X = np.ones((A.ncols, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="A7"):
-        op(X)
-    with pytest.raises(NotImplementedError, match="A7"):
+    X = random_X(A.ncols, 2)
+    Y = ct.SpDMM(A, device="cpu")(X)
+    _assert_close_mm(Y.numpy(), _oracle_mm(A.csr, X), A.csr, X,
+                     A.tuned.nnz_full)
+    assert torch.equal(ct.SpDMV(A, device="cpu")(X), Y)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ct.SpDMM(_small_sym(), dtype=np.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        ct.SpDMM(_small_sym(), values="bfloat16", device="cpu")
+    with pytest.raises(ValueError, match="sbell_apply_mm"):
         ops.sbell_apply(A.tuned.operands, torch.from_numpy(X))
+    with pytest.raises(ValueError, match="X must be"):
+        ct.SpDMM(A, device="cpu")(X[:, 0])
+    with pytest.raises(ValueError, match="B = 0"):
+        ct.SpDMM(A, device="cpu")(X[:, :0])
 
 
 def test_cuda_device_without_cuda_raises():
@@ -372,3 +529,5 @@ def test_cuda_device_without_cuda_raises():
         pytest.skip("this host has CUDA; the refusal needs a host without")
     with pytest.raises(RuntimeError, match="cuda"):
         ct.SpDMV(_small_sym(), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ct.SpDMM(_small_sym(), device="cuda")

@@ -12,10 +12,11 @@ result is also checked against the float64 host oracle. Prints
 Usage::
 
     python -m cfs_spmv_tpu_torch.cli.test_spmv_mmf <file.mtx> <fmt>
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--dp]
 
 ``--device`` defaults to ``cuda`` and raises where CUDA is absent;
-``--dp`` (float64) is not ported yet (ROADMAP A8).
+``--dp`` runs everything in float64 (the reference binary's pinned type,
+``test_spmv_mmf.cpp:17``) at the 1e-8 tolerance.
 """
 
 from __future__ import annotations
@@ -36,13 +37,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("mmf_file")
     ap.add_argument("format", help="0=csr 1=sss 2=hyb, or a format name")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--dp", action="store_true", help="float64 (not ported)")
+    ap.add_argument("--dp", action="store_true", help="float64")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    if args.dp:
-        raise NotImplementedError(
-            "--dp (float64, the double-float kernels B13-B16 as IEEE "
-            "fp64) is not ported yet: ROADMAP A8"
-        )
     from .. import SparseMatrix, SpDMV
     from ..utils.logging import info
     from ..utils.platform import Format, Tuning, allclose_spmv
@@ -52,27 +48,26 @@ def main(argv: list[str] | None = None) -> int:
     M, N = A.nrows, A.ncols
     info("sparsity %.4f %%", (1 - A.nnz_full / M / N) * 100)
 
-    x = np.random.default_rng(0).uniform(10.01, 20.42, N).astype(
-        np.float32
-    )
+    dtype = np.float64 if args.dp else np.float32
+    x = np.random.default_rng(0).uniform(10.01, 20.42, N).astype(dtype)
 
-    fn = SpDMV(A, Tuning.AGGRESSIVE, dtype=np.float32, device=args.device)
+    fn = SpDMV(A, Tuning.AGGRESSIVE, dtype=dtype, device=args.device)
     y = None
     for _ in range(2):  # reuse across calls, ref :82-83
         y = fn(x).cpu().numpy()
 
     # oracle: untuned CSR path on the same input (ref :85-89)
     A_test = SparseMatrix.create(args.mmf_file, Format.CSR)
-    y_test = SpDMV(A_test, Tuning.NONE, dtype=np.float32,
+    y_test = SpDMV(A_test, Tuning.NONE, dtype=dtype,
                    device=args.device)(x).cpu().numpy()
 
     xd = x.astype(np.float64)
     scale = A.csr.spmv_host(xd, absolute=True)
     nnz_per_row = A.nnz_full / max(M, 1)
     passed = allclose_spmv(
-        y, y_test, np.float32, nnz_per_row=nnz_per_row, scale=scale
+        y, y_test, dtype, nnz_per_row=nnz_per_row, scale=scale
     ) and allclose_spmv(
-        y, A.csr.spmv_host(xd), np.float32, nnz_per_row=nnz_per_row,
+        y, A.csr.spmv_host(xd), dtype, nnz_per_row=nnz_per_row,
         scale=scale,
     )
 

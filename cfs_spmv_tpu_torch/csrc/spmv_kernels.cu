@@ -1,6 +1,8 @@
-// Hand-written Hopper (sm_90a) kernels of the fp32 SpMV and SpMM paths
-// (the tuned symmetric path, its paired stream and the general path): the
-// CUDA counterparts of the Pallas kernels those paths reach.
+// Hand-written Hopper (sm_90a) kernels of the SpMV and SpMM paths: fp32
+// (the tuned symmetric path, its paired stream and the general path) and
+// IEEE fp64 (the symmetric dense-diagonal stream and the one-sided stream
+// of the float64 route): the CUDA counterparts of the Pallas kernels those
+// paths reach.
 //
 // Plain C interface (no PyTorch headers), compiled by nvcc into a shared
 // library and loaded with ctypes by cfs_spmv_tpu_torch/ops/_cuda.py. Every
@@ -12,8 +14,8 @@
 // slot grid; lane j of chunk c holds entries of row tile
 // step_block[c / K] * BT + meta[c, 0]; x is read as (x_rows, 128) tiles.
 //
-// All kernels move little data per operation (one multiply-add per
-// 4-byte value plus its index bytes), so each is bound by device-memory
+// All kernels move little data per operation (one multiply-add per 4- or
+// 8-byte value plus its index bytes), so each is bound by device-memory
 // bytes, not arithmetic. Their designs keep loads coalesced along the 128
 // lanes and leave reuse of re-read bytes to the 50 MB L2; tiling through
 // shared memory is later work.
@@ -29,6 +31,13 @@
 // per right-hand side; nr is the group's plane count, and the launch takes
 // the smallest instance of 1, 2, 4 or 8 that holds it (planes >= nr are
 // skipped). The SpMV entry points are the nr = 1 case.
+//
+// Value type. sdia_sym and bell2_spmv are also templates on the value type
+// T of the stream, x and y: float, or double for the float64 route. The
+// TPU has no 64-bit lanes, so the reference's float64 kernels (sdia_df.py,
+// bell2_df.py) carry every value, x and sum as an fp32 (hi, lo) pair with
+// error-free transforms; what they compute is y = A x in double, and the
+// double instances here compute that with fp64 FMA and atomicAdd(double*).
 
 #include <cstdint>
 #include <type_traits>
@@ -48,11 +57,24 @@ __device__ __forceinline__ bool live(int b, int nr) {
   return kRhs == 1 || b < nr;
 }
 
+// a * b + c in one rounding, in the operands' type.
+__device__ __forceinline__ float mul_add(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double mul_add(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
 // ---------------------------------------------------------------------------
 // sdia_sym — replaces cfs_spmv_tpu/ops/sdia_kernel.py:sdia_sym_tiles
-// (kernel B1) and, over planes, sdia_sym_tiles_mm (B11).
+// (kernel B1) and, over planes, sdia_sym_tiles_mm (B11); with T = double,
+// cfs_spmv_tpu/ops/sdia_df.py:sdia_sym_tiles_df (B13) and
+// sdia_sym_tiles_df_mm (B14).
 //
-// y += (L + L^T) x over D dense strict-lower diagonals with offsets d_j >= 1.
+// y += (L + L^T) x over D dense lower diagonals with offsets d_j >= 0: all
+// >= 1 on the fp32 path; the float64 route also stores the main diagonal
+// (d = 0) with its values halved, so that the row side and the transpose
+// side, which then both land on row g, sum to the full term.
 // vals[r, j, i, l] = A[g, g - d_j] at g = 1024 r + 128 i + l, so the value of
 // diagonal j at row g sits at vals[(g >> 10) * D * 1024 + j * 1024 + (g & 1023)].
 //
@@ -66,36 +88,36 @@ __device__ __forceinline__ bool live(int b, int nr) {
 // L2. Reading each value once (a shared-memory tile of 1024 + max d rows)
 // is later work.
 // ---------------------------------------------------------------------------
-template <int kRhs>
-__global__ void sdia_sym_kernel(const float* __restrict__ vals,
+template <typename T, int kRhs>
+__global__ void sdia_sym_kernel(const T* __restrict__ vals,
                                 const int* __restrict__ offsets, int D,
                                 int64_t n_vals_rows,
-                                const float* __restrict__ x, int64_t x_len,
-                                int64_t xs, float* __restrict__ y,
+                                const T* __restrict__ x, int64_t x_len,
+                                int64_t xs, T* __restrict__ y,
                                 int64_t y_len, int64_t ys, int nr) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (g >= y_len) return;
   const bool own = g < n_vals_rows;
-  float acc[kRhs];
+  T acc[kRhs];
 #pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+  for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
   for (int j = 0; j < D; ++j) {
     const int64_t d = offsets[j];
     const int64_t s = g - d;
     if (own && s >= 0 && s < x_len) {
-      const float v =
+      const T v =
           vals[((g >> 10) * D + j) * kBlockRows + (g & (kBlockRows - 1))];
 #pragma unroll
       for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) acc[b] = fmaf(v, x[b * xs + s], acc[b]);
+        if (live<kRhs>(b, nr)) acc[b] = mul_add(v, x[b * xs + s], acc[b]);
     }
     const int64_t h = g + d;
     if (h < n_vals_rows && h < x_len) {
-      const float v =
+      const T v =
           vals[((h >> 10) * D + j) * kBlockRows + (h & (kBlockRows - 1))];
 #pragma unroll
       for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) acc[b] = fmaf(v, x[b * xs + h], acc[b]);
+        if (live<kRhs>(b, nr)) acc[b] = mul_add(v, x[b * xs + h], acc[b]);
     }
   }
 #pragma unroll
@@ -148,7 +170,12 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // ---------------------------------------------------------------------------
 // bell2_spmv — replaces cfs_spmv_tpu/ops/bell2_kernel.py:bell2_spmv_tiles
 // (B2, zero_blocks = 1) and bell2_spmv_tiles_accum (B4, zero_blocks = 0);
-// over planes, bell2_spmm_tiles (B7) and bell2_spmm_tiles_accum (B8).
+// over planes, bell2_spmm_tiles (B7) and bell2_spmm_tiles_accum (B8); with
+// T = double, cfs_spmv_tpu/ops/bell2_df.py:bell2_spmv_tiles_df (B15) and
+// bell2_spmm_tiles_df (B16). The reference's double-float kernels write
+// 8x-tall sublane partials (or fold them pairwise) to keep compensated sums
+// out of the TPU's reduce tree; the double instance sums a row's 8 sublanes
+// in a double register like the float one, so there is nothing to fold.
 //
 // Slot (i, j) of chunk c holds q = pk & 0x7F in bits 0-6; the window index r2
 // serving gather lane q of sublane i sits in bits 7-11 of the packed word AT
@@ -167,8 +194,8 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // Chunks are tile-sorted, so flushes are rare. K-padding chunks carry zero
 // values and forward-filled meta, so they add exactly 0. Over planes the
 // value, its packed word and its x row are decoded once and feed kRhs
-// gathers, one from each plane's x tile, so a group reads the 6-byte slot
-// stream once.
+// gathers, one from each plane's x tile, so a group reads the slot stream
+// (6 bytes a slot in float, 10 in double) once.
 // ---------------------------------------------------------------------------
 constexpr int kChunksPerCta = 8;
 
@@ -176,43 +203,45 @@ constexpr int kChunksPerCta = 8;
 // step_block ascends, so a block starts where the step's block differs
 // from the previous step's. Unvisited blocks are left as they are (the TPU
 // kernel leaves them unset).
+template <typename T>
 __global__ void bell2_zero_blocks_kernel(const int* __restrict__ step_block,
-                                         int BT, float* __restrict__ y,
+                                         int BT, T* __restrict__ y,
                                          int64_t ys) {
   const int g = blockIdx.x;
   if (g > 0 && step_block[g] == step_block[g - 1]) return;
-  float4* base = reinterpret_cast<float4*>(
+  // 16-byte stores of zero bits, which are +0.0 in float and in double
+  uint4* base = reinterpret_cast<uint4*>(
       y + blockIdx.y * ys + static_cast<int64_t>(step_block[g]) * BT * kLanes);
-  const int n4 = BT * kLanes / 4;
-  for (int i = threadIdx.x; i < n4; i += blockDim.x)
-    base[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int n16 = BT * kLanes * static_cast<int>(sizeof(T)) / 16;
+  for (int i = threadIdx.x; i < n16; i += blockDim.x)
+    base[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
 // One atomicAdd per live plane of a thread's running row sums.
-template <int kRhs>
-__device__ __forceinline__ void flush_rows(float* y, int64_t ys, int64_t at,
-                                           const float (&acc)[kRhs], int nr) {
+template <int kRhs, typename T>
+__device__ __forceinline__ void flush_rows(T* y, int64_t ys, int64_t at,
+                                           const T (&acc)[kRhs], int nr) {
 #pragma unroll
   for (int b = 0; b < kRhs; ++b)
     if (live<kRhs>(b, nr)) atomicAdd(y + b * ys + at, acc[b]);
 }
 
-template <bool kContig, int kRhs>
+template <bool kContig, int kRhs, typename T>
 __global__ void __launch_bounds__(kLanes)
-bell2_spmv_kernel(const float* __restrict__ vals,
+bell2_spmv_kernel(const T* __restrict__ vals,
                   const int16_t* __restrict__ packed,
                   const int* __restrict__ meta,
                   const int* __restrict__ step_block, int64_t C, int K,
-                  int BT, const float* __restrict__ x, int64_t xs,
-                  float* __restrict__ y, int64_t ys, int nr) {
+                  int BT, const T* __restrict__ x, int64_t xs,
+                  T* __restrict__ y, int64_t ys, int nr) {
   __shared__ int r2s[kSublanes][kLanes];
   const int lane = threadIdx.x;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kChunksPerCta;
   const int64_t c1 = c0 + kChunksPerCta < C ? c0 + kChunksPerCta : C;
   int64_t row = -1;  // y tile row of the running sums
-  float acc[kRhs];
+  T acc[kRhs];
 #pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+  for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
   for (int64_t c = c0; c < c1; ++c) {
     const int* m = meta + c * kMetaW;
     const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
@@ -224,29 +253,45 @@ bell2_spmv_kernel(const float* __restrict__ vals,
       r2s[i][lane] = (pk[i] >> 7) & 0x1F;
     }
     __syncthreads();
-    float part[kRhs];
+    // On a new target row the sums of the last one are flushed and the
+    // running sums start again. With one plane (SpMV) the chunk's products
+    // first sum into a register of their own, so that its gathers start
+    // without waiting for that branch, and join the running sum after it:
+    // 0.0230 ms against 0.0289 for the form below on the audikw proxy's
+    // far stream (NVIDIA H100 80GB HBM3, 700 W; PERF.md). With more planes
+    // they go straight into the running sums, after the branch: a second
+    // set of kRhs sums spilled in the double kRhs = 8 instance and was no
+    // faster in float (0.0661-0.0689 ms against 0.0656-0.0661 at kRhs = 8).
+    constexpr bool kOwnSum = kRhs == 1;
+    auto new_row = [&]() {
+      if (tgt == row) return;
+      if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+      row = tgt;
 #pragma unroll
-    for (int b = 0; b < kRhs; ++b) part[b] = 0.0f;
+      for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
+    };
+    if (!kOwnSum) new_row();
+    T own = T(0);
 #pragma unroll
     for (int i = 0; i < kSublanes; ++i) {
       const int q = pk[i] & 0x7F;
       const int r2 = r2s[i][q];
       const int xrow = kContig ? m[2] + r2 : m[2 + (r2 & 7)];
-      const float v = vals[slot0 + i * kLanes];
-      const float* xq = x + static_cast<int64_t>(xrow) * kLanes + q;
+      const T v = vals[slot0 + i * kLanes];
+      const T* xq = x + static_cast<int64_t>(xrow) * kLanes + q;
+      if (kOwnSum) {
+        own = mul_add(v, xq[0], own);
+      } else {
 #pragma unroll
-      for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) part[b] = fmaf(v, xq[b * xs], part[b]);
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr)) acc[b] = mul_add(v, xq[b * xs], acc[b]);
+      }
     }
     __syncthreads();
-    if (tgt != row) {
-      if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
-      row = tgt;
-#pragma unroll
-      for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+    if (kOwnSum) {
+      new_row();
+      acc[0] += own;
     }
-#pragma unroll
-    for (int b = 0; b < kRhs; ++b) acc[b] += part[b];
   }
   if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
 }
@@ -405,6 +450,47 @@ bool with_rhs(int nr, F&& f) {
 
 int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 
+// The launchers of the two kernels that exist in float and in double; the
+// entry points below name the type.
+template <typename T>
+int launch_sdia_sym(const T* vals, const int* offsets, int D,
+                    int64_t n_vals_rows, int64_t x_len, int64_t y_len,
+                    const T* x, int64_t xs, T* y, int64_t ys, int nr,
+                    cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (y_len > 0 && D > 0)
+      sdia_sym_kernel<T, R>
+          <<<blocks_for(y_len, kThreads), kThreads, 0, stream>>>(
+              vals, offsets, D, n_vals_rows, x, x_len, xs, y, y_len, ys, nr);
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+}
+
+template <typename T>
+int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
+                      const int* step_block, int64_t C, int K, int BT,
+                      int contig, int zero_blocks, const T* x, int64_t xs,
+                      T* y, int64_t ys, int nr, cudaStream_t stream) {
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (C <= 0) return;
+    if (zero_blocks)
+      bell2_zero_blocks_kernel<T>
+          <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
+              step_block, BT, y, ys);
+    const unsigned int grid = blocks_for(C, kChunksPerCta);
+    if (contig)
+      bell2_spmv_kernel<true, R, T><<<grid, kLanes, 0, stream>>>(
+          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+    else
+      bell2_spmv_kernel<false, R, T><<<grid, kLanes, 0, stream>>>(
+          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+}
+
 }  // namespace
 
 extern "C" {
@@ -417,14 +503,16 @@ int cfs_sdia_sym(const float* vals, const int* offsets, int D,
                  int64_t n_vals_rows, int64_t x_len, int64_t y_len,
                  const float* x, int64_t xs, float* y, int64_t ys, int nr,
                  cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const bool ok = with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    if (y_len > 0 && D > 0)
-      sdia_sym_kernel<R><<<blocks_for(y_len, kThreads), kThreads, 0, stream>>>(
-          vals, offsets, D, n_vals_rows, x, x_len, xs, y, y_len, ys, nr);
-  });
-  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+  return launch_sdia_sym<float>(vals, offsets, D, n_vals_rows, x_len, y_len,
+                                x, xs, y, ys, nr, stream);
+}
+
+int cfs_sdia_sym_f64(const double* vals, const int* offsets, int D,
+                     int64_t n_vals_rows, int64_t x_len, int64_t y_len,
+                     const double* x, int64_t xs, double* y, int64_t ys,
+                     int nr, cudaStream_t stream) {
+  return launch_sdia_sym<double>(vals, offsets, D, n_vals_rows, x_len, y_len,
+                                 x, xs, y, ys, nr, stream);
 }
 
 int cfs_sdia_gen(const float* vals, const int* offsets, int D,
@@ -448,8 +536,9 @@ int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
     if (C <= 0) return;
-    bell2_zero_blocks_kernel<<<dim3(static_cast<unsigned int>(C / K), nr),
-                               256, 0, stream>>>(step_block, BT, y, ys);
+    bell2_zero_blocks_kernel<float>
+        <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
+            step_block, BT, y, ys);
     const unsigned int grid = blocks_for(C, kChunksPerCta);
     if (TW == 2)
       sbell_spmv_kernel<2, R><<<grid, kLanes, 0, stream>>>(
@@ -465,21 +554,19 @@ int cfs_bell2_spmv(const float* vals, const int16_t* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT,
                    int contig, int zero_blocks, const float* x, int64_t xs,
                    float* y, int64_t ys, int nr, cudaStream_t stream) {
-  const bool ok = with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    if (C <= 0) return;
-    if (zero_blocks)
-      bell2_zero_blocks_kernel<<<dim3(static_cast<unsigned int>(C / K), nr),
-                                 256, 0, stream>>>(step_block, BT, y, ys);
-    const unsigned int grid = blocks_for(C, kChunksPerCta);
-    if (contig)
-      bell2_spmv_kernel<true, R><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
-    else
-      bell2_spmv_kernel<false, R><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
-  });
-  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+  return launch_bell2_spmv<float>(vals, packed, meta, step_block, C, K, BT,
+                                  contig, zero_blocks, x, xs, y, ys, nr,
+                                  stream);
+}
+
+int cfs_bell2_spmv_f64(const double* vals, const int16_t* packed,
+                       const int* meta, const int* step_block, int64_t C,
+                       int K, int BT, int contig, int zero_blocks,
+                       const double* x, int64_t xs, double* y, int64_t ys,
+                       int nr, cudaStream_t stream) {
+  return launch_bell2_spmv<double>(vals, packed, meta, step_block, C, K, BT,
+                                   contig, zero_blocks, x, xs, y, ys, nr,
+                                   stream);
 }
 
 int cfs_unperm_gather(const int* pk, const int* rows, int W, const float* g,

@@ -149,7 +149,7 @@ class SparseMatrix:
         expanded)."""
         if self._tuned is None:
             self.tune(tuning=Tuning.NONE)
-        x = torch.as_tensor(x, dtype=torch.float32,
+        x = torch.as_tensor(x, dtype=self._tuned.dtype,
                             device=self._tuned.device)
         if x.ndim != 1:
             return self._tuned.matmat(x)

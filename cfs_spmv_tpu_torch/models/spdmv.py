@@ -53,9 +53,9 @@ class SpDMV:
 
     def __call__(self, x):
         """Dimension-checked apply (ref ``sparse_kernel.tpp:20-27``).
-        ``x`` (a tensor or array) is moved to the matrix's device as
-        float32, the plan's value type."""
-        x = torch.as_tensor(x, dtype=torch.float32,
+        ``x`` (a tensor or array) is moved to the matrix's device in the
+        type the matrix was tuned for (float32 or float64)."""
+        x = torch.as_tensor(x, dtype=self.A.tuned.dtype,
                             device=self.A.tuned.device)
         if x.shape[0] != self.A.ncols:
             raise ValueError(
@@ -72,7 +72,7 @@ class SpDMM(SpDMV):
     kernel = Kernel.SpDMM
 
     def __call__(self, x):
-        x = torch.as_tensor(x, dtype=torch.float32,
+        x = torch.as_tensor(x, dtype=self.A.tuned.dtype,
                             device=self.A.tuned.device)
         if x.ndim != 2 or x.shape[0] != self.A.ncols:
             raise ValueError(

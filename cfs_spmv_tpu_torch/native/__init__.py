@@ -60,15 +60,19 @@ def _build() -> str | None:
     out = os.path.join(_cache_dir(), f"libcfs_native-{tag}.so")
     if os.path.exists(out):
         return out
+    # a temporary name of this process's own: several processes (test
+    # workers) may build at once on a cold cache, and each must replace
+    # the library with a file it wrote whole
+    tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-        "-o", out + ".tmp", _SRC,
+        "-o", tmp, _SRC,
     ]
     try:
         subprocess.run(
             cmd, check=True, capture_output=True, timeout=120
         )
-        os.replace(out + ".tmp", out)
+        os.replace(tmp, out)
     except (OSError, subprocess.SubprocessError) as e:
         print(
             f"cfs_spmv_tpu_torch: native build failed ({e}); using NumPy "

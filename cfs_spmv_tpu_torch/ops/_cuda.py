@@ -22,8 +22,8 @@ import threading
 
 import torch
 
-__all__ = ["lib", "check", "check_planes", "launch_groups", "NVCC_FLAGS",
-           "RHS_GROUP"]
+__all__ = ["lib", "check", "check_dtype", "check_planes", "launch_groups",
+           "entry", "NVCC_FLAGS", "RHS_GROUP"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "spmv_kernels.cu")
@@ -81,14 +81,18 @@ def _bind(path: str) -> ctypes.CDLL:
     # every stream entry point ends in (x, xs, y, ys, nr, stream): a group
     # of nr planes at plane strides xs / ys, in elements
     planes = [p, i64, p, i64, i32, p]
-    cdll.cfs_sdia_sym.argtypes = [p, p, i32, i64, i64, i64, *planes]
+    # the float and double forms of an entry point differ in what their
+    # pointers point at, not in their argument lists
+    for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64):
+        fn.argtypes = [p, p, i32, i64, i64, i64, *planes]
     cdll.cfs_sdia_gen.argtypes = [p, p, i32, i64, i64, *planes]
     cdll.cfs_sbell_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, *planes]
-    cdll.cfs_bell2_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, i32,
-                                    *planes]
+    for fn in (cdll.cfs_bell2_spmv, cdll.cfs_bell2_spmv_f64):
+        fn.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, *planes]
     cdll.cfs_unperm_gather.argtypes = [p, p, i32, p, i64, p, i64, i64, i32, p]
-    for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_gen, cdll.cfs_sbell_spmv,
-               cdll.cfs_bell2_spmv, cdll.cfs_unperm_gather):
+    for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64, cdll.cfs_sdia_gen,
+               cdll.cfs_sbell_spmv, cdll.cfs_bell2_spmv,
+               cdll.cfs_bell2_spmv_f64, cdll.cfs_unperm_gather):
         fn.restype = i32
     cdll.cfs_cuda_error_string.argtypes = [i32]
     cdll.cfs_cuda_error_string.restype = ctypes.c_char_p
@@ -104,6 +108,14 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+def entry(name: str, dtype: torch.dtype):
+    """The C entry point ``name`` for a stream of ``dtype`` values:
+    ``cfs_<name>`` for float32, ``cfs_<name>_f64`` for float64 (only the
+    kernels of the float64 route have one)."""
+    suffix = {torch.float32: "", torch.float64: "_f64"}[dtype]
+    return getattr(lib(), f"cfs_{name}{suffix}")
+
+
 def check(err: int, name: str) -> None:
     """Raise when a launcher returned a nonzero ``cudaGetLastError()``."""
     if err:
@@ -116,13 +128,22 @@ def check(err: int, name: str) -> None:
 RHS_GROUP = 8
 
 
-def check_planes(t, name, device, B=None, rows=None) -> int:
-    """Check a (B, rows, 128) float32 stack of planes on ``device`` whose
-    planes are each contiguous (any plane stride, as the kernels index
-    ``plane * stride + row * 128 + lane``); return B."""
-    if t.ndim != 3 or t.shape[2] != 128 or t.dtype != torch.float32:
-        raise ValueError(f"{name} must be (B, rows, 128) float32, got "
-                         f"{tuple(t.shape)} {t.dtype}")
+def check_dtype(t, name, dtype) -> None:
+    """Refuse an operand whose type is not the stream's: a kernel reads x
+    and y through pointers of its values' type."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype} but the stream's values are "
+                        f"{dtype}: x, y and the values must share one type")
+
+
+def check_planes(t, name, device, dtype, B=None, rows=None) -> int:
+    """Check a (B, rows, 128) stack of planes of the stream's ``dtype`` on
+    ``device`` whose planes are each contiguous (any plane stride, as the
+    kernels index ``plane * stride + row * 128 + lane``); return B."""
+    if t.ndim != 3 or t.shape[2] != 128:
+        raise ValueError(f"{name} must be (B, rows, 128), got "
+                         f"{tuple(t.shape)}")
+    check_dtype(t, name, dtype)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the stream on {device}")
     if t.shape[0] < 1 or (B is not None and t.shape[0] != B):

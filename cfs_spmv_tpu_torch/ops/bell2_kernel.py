@@ -26,6 +26,11 @@ sublane i sits in bits 7-11 of the packed word at lane q. The x row is
 for listed ones; the 8 sublanes sum into tile row
 ``step_block[c // K] * BT + meta[c, 0]``.
 
+The float64 forms of B2 and B7 (``bell2_spmv_tiles_df``, B15, and
+``bell2_spmm_tiles_df``, B16) live in ``ops/bell2_df.py``; they share the
+checks, the launcher and the twins of this module, which work in the
+stream's type.
+
 The TPU-only stream forms (``nib_split``, ``meta_word``, the segmented
 word path) are not ported: the CUDA kernel reads the plan's int16
 ``packed`` and (C, 10) ``meta`` as they are.
@@ -78,15 +83,17 @@ def _device_of(*tensors) -> torch.device:
 
 
 def _check_stream(vals, packed, meta, step_block, K,
-                  packed_dtype=torch.int16):
+                  packed_dtype=torch.int16, dtype=torch.float32):
     C = meta.shape[0]
     if meta.ndim != 2 or meta.shape[1] != META_W or meta.dtype != torch.int32:
         raise ValueError(
             f"meta must be (C, {META_W}) int32, got {tuple(meta.shape)} "
             f"{meta.dtype}"
         )
-    if tuple(vals.shape) != (C * SUBLANES, LANES) or vals.dtype != torch.float32:
-        raise ValueError(f"vals must be ({C * SUBLANES}, 128) float32")
+    if tuple(vals.shape) != (C * SUBLANES, LANES):
+        raise ValueError(f"vals must be ({C * SUBLANES}, 128)")
+    if vals.dtype != dtype:
+        raise TypeError(f"vals must be {dtype}, got {vals.dtype}")
     if (tuple(packed.shape) != (C * SUBLANES, LANES)
             or packed.dtype != packed_dtype):
         raise ValueError(f"packed must be ({C * SUBLANES}, 128) {packed_dtype}")
@@ -96,20 +103,22 @@ def _check_stream(vals, packed, meta, step_block, K,
         raise ValueError(f"step_block must be ({C // K},) int32")
 
 
-def _check_x2d(x2d):
-    if x2d.ndim != 2 or x2d.shape[1] != LANES or x2d.dtype != torch.float32:
-        raise ValueError("x2d must be (x_rows, 128) float32")
+def _check_x2d(x2d, dtype=torch.float32):
+    if x2d.ndim != 2 or x2d.shape[1] != LANES:
+        raise ValueError("x2d must be (x_rows, 128)")
+    _cuda.check_dtype(x2d, "x2d", dtype)
 
 
-def _out_buffer(out, shape, dev):
-    """``out``, checked to be a contiguous float32 buffer of ``shape`` on
-    ``dev`` (the zero passes write it as float4), or a fresh one."""
+def _out_buffer(out, shape, dev, dtype=torch.float32):
+    """``out``, checked to be a contiguous buffer of ``shape`` and the
+    stream's ``dtype`` on ``dev`` (the zero passes write it in 16-byte
+    stores), or a fresh one."""
     if out is None:
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-    if (tuple(out.shape) != shape or out.dtype != torch.float32
-            or out.device != dev or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous {shape} float32 "
-                         f"tensor on {dev}")
+        return torch.empty(shape, dtype=dtype, device=dev)
+    if (tuple(out.shape) != shape or out.device != dev
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {shape} tensor on {dev}")
+    _cuda.check_dtype(out, "out", dtype)
     return out
 
 
@@ -163,9 +172,9 @@ def _launch_bell2(vals, packed, meta, step_block, x3d, y3d, K, BT, contig,
                   zero_blocks, name):
     """Launch the one-sided stream kernel over plane stacks; returns the
     number of launches (one per group of planes)."""
-    lib = _cuda.lib()
+    fn = _cuda.entry("bell2_spmv", vals.dtype)
     return _cuda.launch_groups(
-        name, x3d, y3d, lambda *planes: lib.cfs_bell2_spmv(
+        name, x3d, y3d, lambda *planes: fn(
             vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
             step_block.data_ptr(), meta.shape[0], K, BT, int(contig),
             int(zero_blocks), *planes,
@@ -188,20 +197,30 @@ def bell2_spmv_tiles(vals, packed, meta, step_block, x2d, *,
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     or raises.
     """
-    K, BT = chunks_per_step, tiles_per_block
+    return _spmv_tiles(bell2_spmv_tiles, torch.float32, vals, packed, meta,
+                       step_block, x2d, num_row_tiles, chunks_per_step,
+                       tiles_per_block, contig, out)
+
+
+def _spmv_tiles(wrapper, dtype, vals, packed, meta, step_block, x2d,
+                num_row_tiles, K, BT, contig, out):
+    """The body of :func:`bell2_spmv_tiles` for a stream of ``dtype``
+    values; a kernel launch counts on ``wrapper`` (the float64 form is
+    ``bell2_df.bell2_spmv_tiles_df``)."""
     dev = _device_of(vals, packed, meta, step_block, x2d)
-    _check_stream(vals, packed, meta, step_block, K)
-    _check_x2d(x2d)
-    out = _out_buffer(out, (_tiles_padded(num_row_tiles, BT), LANES), dev)
+    _check_stream(vals, packed, meta, step_block, K, dtype=dtype)
+    _check_x2d(x2d, dtype)
+    out = _out_buffer(out, (_tiles_padded(num_row_tiles, BT), LANES), dev,
+                      dtype)
     if dev.type == "cpu":
         return bell2_spmv_tiles_plain(
             vals, packed, meta, step_block, x2d,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
             tiles_per_block=BT, contig=contig, out=out,
         )
-    bell2_spmv_tiles.launches += _launch_bell2(
+    wrapper.launches += _launch_bell2(
         vals, packed, meta, step_block, x2d[None], out[None], K, BT, contig,
-        True, "bell2_spmv_tiles")
+        True, wrapper.__name__)
     return out[:num_row_tiles]
 
 
@@ -219,8 +238,9 @@ def bell2_spmv_tiles_accum(vals, packed, meta, step_block, x2d, y_tiles, *,
     _check_stream(vals, packed, meta, step_block, K)
     _check_x2d(x2d)
     TP = _tiles_padded(num_row_tiles, BT)
-    if tuple(y_tiles.shape) != (TP, LANES) or y_tiles.dtype != x2d.dtype:
-        raise ValueError(f"y_tiles must be ({TP}, 128) float32")
+    if tuple(y_tiles.shape) != (TP, LANES):
+        raise ValueError(f"y_tiles must be ({TP}, 128)")
+    _cuda.check_dtype(y_tiles, "y_tiles", torch.float32)
     if dev.type == "cpu":
         return bell2_spmv_tiles_accum_plain(
             vals, packed, meta, step_block, x2d, y_tiles,
@@ -256,8 +276,9 @@ def unperm_gather_tiles(pk2d, rows, g_tiles):
     """
     dev = _device_of(pk2d, rows, g_tiles)
     _check_unperm(pk2d, rows)
-    if g_tiles.ndim != 2 or g_tiles.shape[1] != LANES or g_tiles.dtype != torch.float32:
-        raise ValueError("g_tiles must be (T, 128) float32")
+    if g_tiles.ndim != 2 or g_tiles.shape[1] != LANES:
+        raise ValueError("g_tiles must be (T, 128)")
+    _cuda.check_dtype(g_tiles, "g_tiles", torch.float32)
     if dev.type == "cpu":
         return unperm_gather_tiles_plain(pk2d, rows, g_tiles)
     out = torch.empty(pk2d.shape, dtype=torch.float32, device=dev)
@@ -302,7 +323,7 @@ def unperm_gather_tiles_mm(pk2d, rows, g_tiles):
     on every device."""
     dev = _device_of(pk2d, rows)
     _check_unperm(pk2d, rows)
-    B = _cuda.check_planes(g_tiles, "g_tiles", dev)
+    B = _cuda.check_planes(g_tiles, "g_tiles", dev, torch.float32)
     if dev.type == "cpu":
         return unperm_gather_tiles_mm_plain(pk2d, rows, g_tiles)
     out = torch.empty((B, *pk2d.shape), dtype=torch.float32, device=dev)
@@ -439,21 +460,30 @@ def bell2_spmm_tiles(vals, packed, meta, step_block, x3d, *,
     launches once per group of up to ``_cuda.RHS_GROUP`` planes, reading
     the stream once per group, or raises.
     """
-    K, BT = chunks_per_step, tiles_per_block
+    return _spmm_tiles(bell2_spmm_tiles, torch.float32, vals, packed, meta,
+                       step_block, x3d, num_row_tiles, chunks_per_step,
+                       tiles_per_block, contig, out)
+
+
+def _spmm_tiles(wrapper, dtype, vals, packed, meta, step_block, x3d,
+                num_row_tiles, K, BT, contig, out):
+    """The body of :func:`bell2_spmm_tiles` for a stream of ``dtype``
+    values; kernel launches count on ``wrapper`` (the float64 form is
+    ``bell2_df.bell2_spmm_tiles_df``)."""
     dev = _device_of(vals, packed, meta, step_block)
-    _check_stream(vals, packed, meta, step_block, K)
-    B = _cuda.check_planes(x3d, "x3d", dev)
+    _check_stream(vals, packed, meta, step_block, K, dtype=dtype)
+    B = _cuda.check_planes(x3d, "x3d", dev, dtype)
     out = _out_buffer(out, (B, _tiles_padded(num_row_tiles, BT), LANES),
-                      dev)
+                      dev, dtype)
     if dev.type == "cpu":
         return bell2_spmm_tiles_plain(
             vals, packed, meta, step_block, x3d,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
             tiles_per_block=BT, contig=contig, out=out,
         )
-    bell2_spmm_tiles.launches += _launch_bell2(
+    wrapper.launches += _launch_bell2(
         vals, packed, meta, step_block, x3d, out, K, BT, contig, True,
-        "bell2_spmm_tiles")
+        wrapper.__name__)
     return out[:, :num_row_tiles]
 
 
@@ -485,8 +515,8 @@ def bell2_spmm_tiles_accum(vals, packed, meta, step_block, x3d, y_tiles, *,
     K, BT = chunks_per_step, tiles_per_block
     dev = _device_of(vals, packed, meta, step_block)
     _check_stream(vals, packed, meta, step_block, K)
-    B = _cuda.check_planes(x3d, "x3d", dev)
-    _cuda.check_planes(y_tiles, "y_tiles", dev, B=B,
+    B = _cuda.check_planes(x3d, "x3d", dev, torch.float32)
+    _cuda.check_planes(y_tiles, "y_tiles", dev, torch.float32, B=B,
                        rows=_tiles_padded(num_row_tiles, BT))
     if dev.type == "cpu":
         return bell2_spmm_tiles_accum_plain(
@@ -532,7 +562,7 @@ def sbell_spmm_tiles(vals, packed, meta, step_block, x3d, *,
     K, BT, TW = chunks_per_step, tiles_per_block, transpose_windows
     dev = _device_of(vals, packed, meta, step_block)
     _check_sbell(vals, packed, meta, step_block, K, TW)
-    B = _cuda.check_planes(x3d, "x3d", dev)
+    B = _cuda.check_planes(x3d, "x3d", dev, torch.float32)
     out = _out_buffer(out, (B, _tiles_padded(num_row_tiles, BT), LANES),
                       dev)
     if dev.type == "cpu":

@@ -13,11 +13,16 @@ Ports of ``cfs_spmv_tpu/ops/sdia_kernel.py``:
   planes; each launch reads the values once for up to
   ``_cuda.RHS_GROUP`` planes.
 
+The float64 forms of B1 and B11 (``sdia_sym_tiles_df``, B13, and
+``sdia_sym_tiles_df_mm``, B14) live in ``ops/sdia_df.py``; they share the
+checks, the launcher and the twins of this module, which work in the
+stream's type.
+
 Diagonals dense enough to store contiguously need no index data at all:
-per stored nonzero the stream moves 4 bytes. Layout: ``vals[r, j, i, l]``
-holds A[g, g - d_j] for flat row g = 1024 r + 128 i + l (zero where
-absent). Both CUDA kernels (``csrc/spmv_kernels.cu``) compute the gather
-form: one thread per output row, no atomics.
+per stored nonzero the stream moves 4 bytes (8 in float64). Layout:
+``vals[r, j, i, l]`` holds A[g, g - d_j] for flat row g = 1024 r + 128 i
++ l (zero where absent). Both CUDA kernels (``csrc/spmv_kernels.cu``)
+compute the gather form: one thread per output row, no atomics.
 """
 
 from __future__ import annotations
@@ -60,11 +65,11 @@ def _blocks_per_step(R: int, D: int, itemsize: int = 4) -> int:
     return min(cap, R)
 
 
-def _check_vals(vals, offsets):
+def _check_vals(vals, offsets, dtype):
     if vals.ndim != 4 or tuple(vals.shape[2:]) != (SUBLANES, LANES):
         raise ValueError(f"vals must be (R, D, 8, 128), got {tuple(vals.shape)}")
-    if vals.dtype != torch.float32:
-        raise TypeError(f"vals must be float32, got {vals.dtype}")
+    if vals.dtype != dtype:
+        raise TypeError(f"vals must be {dtype}, got {vals.dtype}")
     if offsets.shape != (vals.shape[1],) or offsets.dtype != torch.int32:
         raise ValueError("offsets must be an int32 tensor of length D")
     for t in (vals, offsets):
@@ -76,8 +81,10 @@ def _check_vals(vals, offsets):
         raise ValueError(f"unsupported device {vals.device}")
 
 
-def _check(vals, x2d, y_tiles, offsets):
-    _check_vals(vals, offsets)
+def _check(vals, x2d, y_tiles, offsets, dtype=torch.float32):
+    """Operands of one SpMV call of a stream whose values, x and y are
+    all ``dtype``; a mix raises ``TypeError``."""
+    _check_vals(vals, offsets, dtype)
     if x2d.ndim != 2 or x2d.shape[1] != LANES:
         raise ValueError(f"x2d must be (x_rows, 128), got {tuple(x2d.shape)}")
     if y_tiles.ndim != 2 or y_tiles.shape[1] != LANES:
@@ -85,26 +92,28 @@ def _check(vals, x2d, y_tiles, offsets):
             f"y_tiles must be (T, 128), got {tuple(y_tiles.shape)}"
         )
     for name, t in (("x2d", x2d), ("y_tiles", y_tiles)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        _cuda.check_dtype(t, name, dtype)
         if t.device != vals.device:
             raise ValueError("all operands must live on one device")
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
 
 
-def _check_mm(vals, x3d, y_tiles, offsets):
-    """X (B, x_rows, 128) and Y (B, T, 128): planes each contiguous."""
-    _check_vals(vals, offsets)
-    B = _cuda.check_planes(x3d, "x3d", vals.device)
-    _cuda.check_planes(y_tiles, "y_tiles", vals.device, B=B)
+def _check_mm(vals, x3d, y_tiles, offsets, dtype=torch.float32):
+    """X (B, x_rows, 128) and Y (B, T, 128): planes each contiguous, of
+    the stream's ``dtype``."""
+    _check_vals(vals, offsets, dtype)
+    B = _cuda.check_planes(x3d, "x3d", vals.device, dtype)
+    _cuda.check_planes(y_tiles, "y_tiles", vals.device, dtype, B=B)
 
 
 def sdia_sym_tiles_plain(vals, x2d, y_tiles, offsets):
     """Plain PyTorch twin: ``y_tiles += (L + Lᵀ) x`` by flat shifted
-    slices, one pair per diagonal. Accumulates in place and returns
-    ``y_tiles``. Runs on any device; ``offsets`` is a tensor or a
-    sequence of ints."""
+    slices, one pair per diagonal, in the operands' type (float32 or
+    float64). Accumulates in place and returns ``y_tiles``. Runs on any
+    device; ``offsets`` is a tensor or a sequence of ints ``>= 0`` (an
+    offset 0 adds its values twice: the float64 route stores the main
+    diagonal halved)."""
     offs = offsets.tolist() if torch.is_tensor(offsets) else list(offsets)
     R, D = vals.shape[0], vals.shape[1]
     N = R * BLOCK_ROWS
@@ -130,7 +139,9 @@ def sdia_sym_tiles(vals, x2d, y_tiles, offsets):
     ``vals``: (R, D, 8, 128) float32; ``x2d``: (x_rows, 128) float32, read
     as zero beyond its end; ``y_tiles``: (T, 128) float32, accumulated in
     place (the reference aliases it) and returned; ``offsets``: (D,) int32
-    strict-lower diagonal offsets, on the same device. Contributions to
+    lower diagonal offsets, on the same device (all ``>= 1`` in the fp32
+    plans; the kernel also takes 0, which the float64 route stores with
+    halved values, see ``ops/sdia_df.py``). Contributions to
     rows at or past T*128 are dropped, as in the reference.
 
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
@@ -145,9 +156,9 @@ def sdia_sym_tiles(vals, x2d, y_tiles, offsets):
 
 
 def _launch_sym(vals, x3d, y3d, offsets, name):
-    lib = _cuda.lib()
+    fn = _cuda.entry("sdia_sym", vals.dtype)
     return _cuda.launch_groups(
-        name, x3d, y3d, lambda *planes: lib.cfs_sdia_sym(
+        name, x3d, y3d, lambda *planes: fn(
             vals.data_ptr(), offsets.data_ptr(), vals.shape[1],
             vals.shape[0] * BLOCK_ROWS, x3d[0].numel(), y3d[0].numel(),
             *planes,

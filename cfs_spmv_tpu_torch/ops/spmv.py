@@ -1,14 +1,17 @@
 """Op-level SpMV and SpMM: plan → device tensors → padded kernel calls.
 
-Port of ``cfs_spmv_tpu/ops/spmv.py`` for fp32: it owns padding/unpadding
+Port of ``cfs_spmv_tpu/ops/spmv.py``: it owns padding/unpadding
 and the composition of streams — for the symmetric path the paired
 stream or the diagonal seed, the degree-grouped or sparse far residual
 and the dense-diagonal SDIA stream (``sbell_apply``); for the general
 path one one-sided stream and the signed-offset SDIA stream
 (``bell2_apply``); and the same two compositions for B right-hand sides
 (``sbell_apply_mm``, ``bell2_apply_mm``), whose X and Y travel as (B,
-rows, 128) planes. The device structs are plain dataclasses of tensors
-on one explicit device.
+rows, 128) planes. The float64 route (``Fp64Device``, ``fp64_apply``,
+``fp64_apply_mm``) composes the one-sided stream and the symmetric
+diagonal stream in IEEE double, as the appliers inside the reference's
+``tuning/tune._tune_fp64_df`` do with double-float pairs. The device
+structs are plain dataclasses of tensors on one explicit device.
 """
 
 from __future__ import annotations
@@ -19,21 +22,27 @@ import numpy as np
 import torch
 
 from ..formats.bell2 import LANES, SUBLANES
+from . import bell2_df as bdf
 from . import bell2_kernel as bk
+from . import sdia_df as sdf
 from . import sdia_kernel as sk
 
 __all__ = [
     "Bell2Device",
     "SBellDevice",
+    "Fp64Device",
     "as_device",
     "to_device",
     "sym_to_device",
+    "fp64_to_device",
     "pad_x",
     "pad_x_mm",
     "bell2_apply",
     "bell2_apply_mm",
     "sbell_apply",
     "sbell_apply_mm",
+    "fp64_apply",
+    "fp64_apply_mm",
 ]
 
 
@@ -113,13 +122,53 @@ class SBellDevice:
     meta: torch.Tensor | None = None  # (C, 10) int32
     step_block: torch.Tensor | None = None  # (C/K,) int32
     dia_vals: torch.Tensor | None = None  # (R, D, 8, 128) float32
-    #: (D,) int32: all >= 1, or mirrored (signed) past SDIA_SYM_ROWS_MAX
+    #: (D,) int32: all >= 1 (the main diagonal travels in ``diag``), or
+    #: mirrored (signed) past SDIA_SYM_ROWS_MAX
     dia_offsets: torch.Tensor | None = None
     dia_mirrored: bool = False
 
     @property
     def has_paired(self) -> bool:
         return self.vals is not None
+
+
+@dataclasses.dataclass
+class Fp64Device:
+    """Device-resident float64 plan: the one-sided BELL2 stream in double
+    (the whole matrix, or what the diagonal peel left) and, for a
+    symmetric matrix, the dense lower diagonals with the main one stored
+    halved."""
+
+    nrows: int
+    ncols: int
+    num_row_tiles: int
+    x_rows: int
+    chunks_per_step: int
+    tiles_per_block: int
+    contig: bool
+    #: False for an empty or dia-only stream: the stream kernel never runs
+    has_work: bool
+    vals: torch.Tensor | None = None  # (C*8, 128) float64
+    packed: torch.Tensor | None = None  # (C*8, 128) int16, q | r2 << 7
+    meta: torch.Tensor | None = None  # (C, 10) int32
+    step_block: torch.Tensor | None = None  # (C/K,) int32
+    #: degree-grouped plan: flat slot of each original row in the stream's
+    #: output, padded to whole tiles of rows; rows without entries (and the
+    #: padding) point one past the output, at a zero appended to it
+    row_perm: torch.Tensor | None = None  # (ceil(nrows/128)*128,) int64
+    dia_vals: torch.Tensor | None = None  # (R, D, 8, 128) float64
+    dia_offsets: torch.Tensor | None = None  # (D,) int32, each >= 0
+
+    @property
+    def grouped(self) -> bool:
+        return self.row_perm is not None
+
+    def stream_kw(self) -> dict:
+        """The geometry arguments of the stream's kernel wrappers."""
+        return dict(num_row_tiles=self.num_row_tiles,
+                    chunks_per_step=self.chunks_per_step,
+                    tiles_per_block=self.tiles_per_block,
+                    contig=self.contig)
 
 
 def _tensor(a, device):
@@ -263,6 +312,54 @@ def sym_to_device(plan, device) -> SBellDevice:
     )
 
 
+def fp64_to_device(plan, device) -> Fp64Device:
+    """Upload a float64 plan: a one-sided ``Bell2Plan`` whose ``dia`` (if
+    any) holds lower diagonals with offsets ``>= 0`` and the main one
+    halved, as ``tuning/tune._tune_fp64`` builds it with float64 values.
+    The reference's double-float plan of the same matrix (float32 ``vals``
+    with the low halves in ``vals2``) is accepted too: its two planes are
+    rejoined in float64. An ungrouped stream must cover every output
+    block (the kernel zeroes only the blocks it visits, and the appliers
+    read them all); a grouped one may be sparse, its rows are gathered."""
+    device = as_device(device)
+    contig = plan.windows_contig or plan.window_depth > SUBLANES
+    _check_stream_plan(plan, contig)
+    has_work = plan.nnz > 0
+    if has_work and plan.sparse_stream and plan.row_perm is None:
+        raise ValueError("an ungrouped float64 stream must visit every "
+                         "output block (build it with cover_all_tiles=True)")
+    T = plan.num_row_tiles
+    stream = {}
+    if has_work:
+        vals = np.asarray(plan.vals, np.float64)
+        if plan.vals2 is not None:
+            vals = vals + np.asarray(plan.vals2, np.float64)
+        stream = dict(vals=_tensor(vals, device),
+                      **{k: _tensor(getattr(plan, k), device)
+                         for k in ("packed", "meta", "step_block")})
+        if plan.row_perm is not None:
+            perm = np.asarray(plan.row_perm, np.int64)
+            if perm.size and (perm.min() < 0 or perm.max() > T * LANES):
+                raise ValueError("row_perm slot outside the stream's output")
+            pad = -(-plan.nrows // LANES) * LANES - plan.nrows
+            stream["row_perm"] = _tensor(
+                np.concatenate([perm, np.full(pad, T * LANES, np.int64)]),
+                device)
+    dia = {}
+    if plan.dia is not None:
+        if min(plan.dia.offsets) < 0:
+            raise ValueError("the float64 diagonal stream takes lower "
+                             "diagonals (offsets >= 0) only")
+        dia = _dia_fields(plan.dia, device)
+        dia["dia_vals"] = dia["dia_vals"].to(torch.float64)
+    return Fp64Device(
+        nrows=plan.nrows, ncols=plan.ncols, num_row_tiles=T,
+        x_rows=plan.x_rows, chunks_per_step=plan.chunks_per_step,
+        tiles_per_block=plan.tiles_per_block, contig=contig,
+        has_work=has_work, **stream, **dia,
+    )
+
+
 def pad_x(x: torch.Tensor, x_rows: int) -> torch.Tensor:
     """(m,) → (x_rows, 128) zero-padded segment-sliceable layout."""
     m = x.shape[0]
@@ -308,6 +405,11 @@ _STREAMS = {
     "sbell_mm": (bk.sbell_spmm_tiles, bk.sbell_spmm_tiles_plain),
     "sdia_sym_mm": (sk.sdia_sym_tiles_mm, sk.sdia_sym_tiles_mm_plain),
     "sdia_gen_mm": (sk.sdia_gen_tiles_mm, sk.sdia_gen_tiles_mm_plain),
+    # the float64 route: the double kernels beside the same twins
+    "bell2_df": (bdf.bell2_spmv_tiles_df, bk.bell2_spmv_tiles_plain),
+    "bell2_df_mm": (bdf.bell2_spmm_tiles_df, bk.bell2_spmm_tiles_plain),
+    "sdia_df": (sdf.sdia_sym_tiles_df, sk.sdia_sym_tiles_plain),
+    "sdia_df_mm": (sdf.sdia_sym_tiles_df_mm, sk.sdia_sym_tiles_mm_plain),
 }
 
 
@@ -496,3 +598,68 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
         tiles = sdia(dev.dia_vals, x3d, tiles[:, :NT], dev.dia_offsets)
     Y = tiles.reshape(B, -1)[:, : dev.nrows].T
     return Y + dev.diag[:, None] * x if dev.has_paired else Y
+
+
+def _check_fp64(x):
+    if x.dtype != torch.float64:
+        raise TypeError(f"x is {x.dtype} but the plan was tuned for "
+                        "torch.float64")
+
+
+def fp64_apply(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
+    """y = A x in float64: the one-sided stream (``bell2_spmv_tiles_df``)
+    if the plan has one, its rows gathered back to their order when the
+    plan is degree-grouped (a plain gather against a zero appended to the
+    stream's output, as in the reference's applier), then the symmetric
+    diagonal stream added in place (``sdia_sym_tiles_df``). x is padded
+    once, to the taller of the two streams' x operands. An empty matrix
+    gives zeros. ``plain=True`` runs both streams through their twins."""
+    _check_vector(x, "fp64_apply_mm")
+    _check_fp64(x)
+    f = _kernels(plain)
+    TD = -(-dev.nrows // LANES)  # tiles of the result
+    x2d = pad_x(x, max(dev.x_rows, TD))
+    tiles = None
+    if dev.has_work:
+        tiles = f["bell2_df"](dev.vals, dev.packed, dev.meta, dev.step_block,
+                              x2d, **dev.stream_kw())
+        if dev.grouped:
+            flat = torch.cat([tiles.reshape(-1), tiles.new_zeros(1)])
+            tiles = torch.index_select(flat, 0, dev.row_perm).view(TD, LANES)
+    if dev.dia_vals is not None:
+        if tiles is None:
+            tiles = x2d.new_zeros((TD, LANES))
+        tiles = f["sdia_df"](dev.dia_vals, x2d, tiles[:TD], dev.dia_offsets)
+    if tiles is None:
+        return x.new_zeros(dev.nrows)
+    return tiles.reshape(-1)[: dev.nrows]
+
+
+def fp64_apply_mm(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
+    """Y = A X in float64 for X (ncols, B): :func:`fp64_apply` branch for
+    branch over (B, rows, 128) planes (``bell2_spmm_tiles_df``,
+    ``sdia_sym_tiles_df_mm``); any B runs in groups of up to
+    ``_cuda.RHS_GROUP`` planes inside the wrappers. Returns (nrows, B), a
+    transposed view of the output planes."""
+    B = _check_matrix(x)
+    _check_fp64(x)
+    f = _kernels(plain)
+    TD = -(-dev.nrows // LANES)
+    x3d = pad_x_mm(x, max(dev.x_rows, TD))
+    tiles = None
+    if dev.has_work:
+        tiles = f["bell2_df_mm"](dev.vals, dev.packed, dev.meta,
+                                 dev.step_block, x3d, **dev.stream_kw())
+        if dev.grouped:
+            flat = torch.cat([tiles.reshape(B, -1), tiles.new_zeros((B, 1))],
+                             dim=1)
+            tiles = torch.index_select(flat, 1, dev.row_perm).view(
+                B, TD, LANES)
+    if dev.dia_vals is not None:
+        if tiles is None:
+            tiles = x3d.new_zeros((B, TD, LANES))
+        tiles = f["sdia_df_mm"](dev.dia_vals, x3d, tiles[:, :TD],
+                                dev.dia_offsets)
+    if tiles is None:
+        return x.new_zeros((dev.nrows, B))
+    return tiles.reshape(B, -1)[:, : dev.nrows].T

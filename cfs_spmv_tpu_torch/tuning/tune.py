@@ -1,6 +1,6 @@
 """The tuning dispatcher: CSR → device-ready tuned plan.
 
-Port of ``cfs_spmv_tpu/tuning/tune.py`` for fp32: the tuned symmetric
+Port of ``cfs_spmv_tpu/tuning/tune.py``. In float32: the tuned symmetric
 path (``Format.SSS``/``HYB`` under ``Tuning.AGGRESSIVE``: triangle split
 + dense-diagonal peel + paired/far layout, ``formats/sbell``, bound to
 ``ops/spmv.sbell_apply``) and the general path (``Format.CSR``/``BELL``/
@@ -11,8 +11,16 @@ around either. Each path binds its SpMM applier beside it
 (``sbell_apply_mm``, ``bell2_apply_mm``): one plan serves both.
 ``Format.BSR`` keeps its host block container and runs one of the two.
 
-Off the slice, and raising ``NotImplementedError``: float64 (ROADMAP
-A8) and ``values="bfloat16"`` (A5).
+In float64 (``dtype=np.float64``), as in the reference, one route serves
+every format and tuning level, with no reordering: ``_tune_fp64`` peels
+the dense lower diagonals of a symmetric matrix (the main one included,
+stored halved) into the symmetric diagonal stream and packs everything
+else, expanded, into one one-sided stream, both in IEEE double
+(``ops/spmv.fp64_apply``). ``CFS_FP64=xla`` selects the plain ELL+COO
+path instead (``_tune_fp64_xla``, ``ops/xla_ref.py``).
+
+Off the slice, and raising ``NotImplementedError``:
+``values="bfloat16"`` (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -63,6 +71,8 @@ class TunedMatrix:
     #: wrapped appliers pay two row gathers per call — solvers work in
     #: permuted space via pure_apply + encode/decode)
     _inner: tuple | None = None
+    #: the type of x, y and the stored values
+    dtype: torch.dtype = torch.float32
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return self._apply_mv(self.operands, x)
@@ -131,6 +141,11 @@ def tune(
     ``False`` disables.
 
     ``kernel`` does not change the plan: both appliers are bound.
+
+    ``dtype=np.float64`` takes the float64 route whatever ``tuning`` and
+    ``reorder`` say (the reference returns before both): the native fp64
+    kernels, or the plain ELL+COO path under ``CFS_FP64=xla``; x and y
+    are then ``torch.float64``.
     """
     del kernel
     device = spmv_ops.as_device(device)
@@ -150,19 +165,24 @@ def tune(
         fmt = Format.SSS if csr.symmetric else Format.CSR
     if fmt in (Format.SSS, Format.HYB) and not csr.symmetric:
         raise ValueError(f"format {fmt} requires a symmetric matrix")
-    if np.dtype(dtype) == np.float64:
-        raise NotImplementedError(
-            "float64 (the double-float kernels B13-B16, as IEEE fp64) is "
-            "not ported yet: ROADMAP A8"
-        )
-    if np.dtype(dtype) != np.float32:
-        raise ValueError(f"dtype must be float32, got {np.dtype(dtype)}")
     if values == "bfloat16":
         raise NotImplementedError(
             "values='bfloat16' storage is not ported yet: ROADMAP A5"
         )
     if values != "same":
         raise ValueError(f"values must be 'same' or 'bfloat16', got {values}")
+    if np.dtype(dtype) == np.float64:
+        if config.fp64_path not in ("df", "xla"):
+            raise ValueError(
+                f"CFS_FP64 must be 'df' or 'xla', got {config.fp64_path!r}"
+            )
+        if config.fp64_path == "xla":
+            return _tune_fp64_xla(csr, fmt, device)
+        return _tune_fp64(csr, fmt, device)
+    if np.dtype(dtype) != np.float32:
+        raise ValueError(
+            f"dtype must be float32 or float64, got {np.dtype(dtype)}"
+        )
     perm = None
     if (reorder and tuning == Tuning.AGGRESSIVE and csr.nrows == csr.ncols
             and csr.nnz):
@@ -242,4 +262,150 @@ def _permuted(tuned: TunedMatrix, perm: np.ndarray) -> TunedMatrix:
     return dataclasses.replace(
         tuned, operands=operands, _apply_mv=apply_mv, _apply_mm=apply_mm,
         perm=perm, _inner=(inner_mv, inner_mm, tuned.operands),
+    )
+
+
+def build_fp64_plan(csr: CSR):
+    """The float64 plan of ``csr``: the decisions of the reference's
+    ``_tune_fp64_df._build``, with float64 values in place of its fp32
+    (hi, lo) pairs (a rejoined pair keeps about 48 bits of the 53).
+
+    A symmetric square matrix under half the ``SDIA_SYM_ROWS_MAX`` ceiling
+    peels its dense lower diagonals, the main one included, into an SDIA
+    plan (``plan.dia``) whose main diagonal is halved (exact: a factor
+    of 0.5 changes the exponent only), so that the symmetric kernel's row
+    side and transpose side each add half of it; what the peel leaves is
+    expanded to both triangles. Everything else is expanded whole. The
+    entries go into one slot-packed one-sided stream."""
+    from ..formats import sdia
+    from ..formats.bell2 import build_bell2_from_arrays
+
+    nrows = csr.nrows
+    if (csr.symmetric and nrows == csr.ncols
+            and nrows <= sdia.SDIA_SYM_ROWS_MAX // 2):
+        lcoo = csr.to_coo()  # lower triangle incl. diagonal
+        row_l = np.asarray(lcoo.row)
+        col_l = np.asarray(lcoo.col)
+        val_l = np.asarray(lcoo.val, np.float64)
+        dia, resid = sdia.extract_sdia(
+            row_l, col_l, val_l, nrows, dtype=np.float64,
+            include_zero=True, min_frac=0.25,
+        )
+        if dia is not None:
+            if 0 in dia.offsets:
+                dia.vals[:, dia.offsets.index(0)] *= 0.5
+            rr, cc, vv = row_l[resid], col_l[resid], val_l[resid]
+            strict = rr != cc
+            plan = build_bell2_from_arrays(
+                nrows, nrows,
+                np.concatenate([rr, cc[strict]]).astype(np.int32),
+                np.concatenate([cc, rr[strict]]).astype(np.int32),
+                np.concatenate([vv, vv[strict]]), dtype=np.float64,
+                force_slot=True,
+            )
+            plan.dia = dia
+            return plan
+    coo = csr.to_coo().expand_symmetric() if csr.symmetric else csr.to_coo()
+    return build_bell2_from_arrays(
+        coo.nrows, coo.ncols,
+        np.asarray(coo.row, np.int32), np.asarray(coo.col, np.int32),
+        np.asarray(coo.val, np.float64), dtype=np.float64, force_slot=True,
+    )
+
+
+def _tune_fp64(csr: CSR, fmt: Format, device) -> TunedMatrix:
+    """float64 through the native fp64 kernels (the port of the
+    reference's ``_tune_fp64_df``): no reordering, no BSR container, and
+    every plan runs the kernels (the CUDA kernels read listed windows
+    too, so there is no fallback for plans that are not word-eligible).
+    An empty matrix gets an applier of zeros."""
+    plan = build_fp64_plan(csr)
+    dev = spmv_ops.fp64_to_device(plan, device)
+    nnz_full = plan.nnz
+    if csr.symmetric and plan.dia is not None:
+        ndiag = int(np.count_nonzero(
+            np.asarray(csr.indices)
+            == np.repeat(np.arange(csr.nrows), np.diff(csr.indptr))
+        ))
+        nnz_full = 2 * csr.nnz - ndiag
+    info(
+        "tune: fp64 -> native fp64 kernels, nnz=%d chunks=%d pad=%.2fx "
+        "depth=%d grouped=%s sdia=%s device=%s",
+        nnz_full, plan.num_chunks, plan.padding_ratio, plan.window_depth,
+        plan.row_perm is not None,
+        0 if plan.dia is None else len(plan.dia.offsets), device,
+    )
+    return TunedMatrix(
+        fmt, csr.nrows, csr.ncols, nnz_full, csr.symmetric, plan, dev,
+        spmv_ops.fp64_apply, spmv_ops.fp64_apply_mm, 0.0,
+        plan.padding_ratio, device, dtype=torch.float64,
+    )
+
+
+@dataclasses.dataclass
+class CooDevicePlan:
+    """Tensors backing the plain float64 ELL+COO path (``row is None``
+    when the slab holds every entry)."""
+
+    row: object
+    col: object
+    val: object
+    ecol: object = None
+    evals: object = None
+
+    def stream_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.row, self.col, self.val, self.ecol,
+                             self.evals) if t is not None)
+
+
+def _tune_fp64_xla(csr: CSR, fmt: Format, device) -> TunedMatrix:
+    """float64 through the plain-PyTorch ELL slab + COO remainder
+    (``ops/xla_ref.py``), the port of the reference's ``_tune_fp64_xla``;
+    selected only by ``CFS_FP64=xla``."""
+    from ..ops import xla_ref
+
+    coo = csr.to_coo().expand_symmetric() if csr.symmetric else csr.to_coo()
+    nrows = csr.nrows
+    ecol, evals, rrow, rcol, rval = xla_ref.build_ell_hyb(
+        coo.row, coo.col, coo.val.astype(np.float64), nrows
+    )
+    has_rem = len(rrow) > 0
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+    ops = {
+        "ecol": t(ecol),
+        "evals": t(evals),
+        "row": t(rrow.astype(np.int32)) if has_rem else None,
+        "col": t(rcol.astype(np.int32)) if has_rem else None,
+        "val": t(rval) if has_rem else None,
+    }
+
+    def apply_mv(ops, x):
+        y = xla_ref.ell_spmv(ops["ecol"], ops["evals"], x)
+        if ops["row"] is not None:
+            y = y + xla_ref.coo_spmv(ops["row"], ops["col"], ops["val"], x,
+                                     nrows=nrows)
+        return y
+
+    def apply_mm(ops, x):
+        y = xla_ref.ell_spmm(ops["ecol"], ops["evals"], x)
+        if ops["row"] is not None:
+            y = y + xla_ref.coo_spmm(ops["row"], ops["col"], ops["val"], x,
+                                     nrows=nrows)
+        return y
+
+    info(
+        "tune: fp64 -> plain ELL(%d)+COO path, nnz=%d (rem %d) device=%s",
+        ecol.shape[1], coo.nnz, len(rrow), device,
+    )
+    return TunedMatrix(
+        fmt, nrows, csr.ncols, coo.nnz, csr.symmetric,
+        CooDevicePlan(ops["row"], ops["col"], ops["val"], ops["ecol"],
+                      ops["evals"]),
+        ops, apply_mv, apply_mm, 0.0,
+        float(ecol.size + len(rrow)) / max(coo.nnz, 1), device,
+        dtype=torch.float64,
     )

@@ -39,6 +39,15 @@ class Config:
     #: layout is a bad fit (analog of the HYB threshold decision,
     #: ref csr_matrix.tpp:313-401)
     spill_warn_fraction: float = 0.3
+    #: float64 execution path (env ``CFS_FP64``): "df" (the default, the
+    #: reference's name for its double-float kernels) runs the native
+    #: IEEE-fp64 CUDA kernels (``ops/sdia_df.py``, ``ops/bell2_df.py``);
+    #: "xla" the plain-PyTorch ELL+COO path (``ops/xla_ref.py``), which
+    #: holds no kernel and runs only when asked for by this name. Any
+    #: other value makes ``tune(dtype=float64)`` raise.
+    fp64_path: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("CFS_FP64", "df")
+    )
 
     # --- runtime ---
     #: verbose [INFO] logging (runtime flag replacing compile-time

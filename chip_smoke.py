@@ -9,6 +9,8 @@ Phases (each prints its wall time):
 
 1. card name and power limit (``nvidia-smi``), PyTorch and CUDA versions;
 2. build the CUDA kernels from ``cfs_spmv_tpu_torch/csrc/spmv_kernels.cu``;
+2b. ptxas' report (``nvcc -Xptxas -v``) of registers and spills for every
+   kernel instance; any spill fails the run;
 3. the main paths, once each, through the user entry points —
    ``SparseMatrix.create(csr, fmt)`` then
    ``SpDMV(A, tuning, dtype=np.float32, device="cuda")(x)`` and
@@ -27,7 +29,15 @@ Phases (each prints its wall time):
    before each apply and read just after; each SpMV apply must launch
    exactly the kernels its plan predicts (and ``EXPECTED`` lists), each
    SpMM apply exactly their multi-RHS forms (``EXPECTED_MM``) and no
-   SpMV kernel;
+   SpMV kernel. Then the float64 route (ROADMAP A8) the same way, with
+   ``dtype=np.float64``, on four full-size runs (``cant_proxy()``: the
+   symmetric diagonal stream with the halved main diagonal only;
+   ``audikw_proxy()``: the expanded one-sided stream; the flagship:
+   both; ``general_asym()``: one-sided), each checked against the float64
+   oracle at the float64 gate (1e-8) with its scaled error printed beside
+   the float32 run's, and an fp64 apply may move no fp32 kernel's count;
+   and one apply of the plain ELL+COO path (``CFS_FP64=xla``) on the
+   flagship, which may move no kernel's count at all;
 4. each kernel against its plain PyTorch twin on the same card, on the
    real plan arrays of those runs (``sbell_spmv`` also replanned with the
    other transpose-window count and with 8-tile output blocks,
@@ -35,6 +45,10 @@ Phases (each prints its wall time):
    multi-RHS kernel at B = 8 and at B = 11 (two plane groups), into
    NaN-poisoned outputs where the kernel zeroes its own, ``sbell_spmm``
    also on the 8-tile-block replan, ``unperm_gather_mm`` bit-identical;
+   the four float64 kernels at B = 1, 8 and 11 (scaled error against the
+   float64 twin below ``F64_TWIN_TOL``), the diagonal ones onto strided Y
+   planes, the stream ones also on an 8-tile-block replan with an absent
+   row range into NaN-poisoned outputs;
 5. times per call (CUDA events around 20 back-to-back calls, median of
    5) of each kernel and twin (multi-RHS ones at B = 8), and of the
    kernel path and the plain path of every run, SpMV and SpMM(8), with
@@ -42,7 +56,14 @@ Phases (each prints its wall time):
    ``torch.profiler``; for ``bell2_spmm``, ``sbell_spmm`` and
    ``sdia_sym_mm`` the MM(8) kernel's device time beside 8x its SpMV
    form's on the same plan, and for every run the SpMM(8) apply beside
-   8 SpMV applies;
+   8 SpMV applies; beside each kernel its bound (the least time the card
+   could take: the larger of its bytes over ``HBM_BYTES_PER_S`` and its
+   operations over the card's peak rate for the type) and the time of the
+   one PyTorch call that computes the same function (a sparse CSR product
+   of the same stream or matrix, ``index_select`` for the unpermute),
+   and for every matrix ``torch.sparse_csr_tensor(A) @ x`` and ``@ X`` in
+   float32 and float64. These library calls are timed here and used
+   nowhere in the port;
 6. the differential CLI (``cfs_spmv_tpu_torch.cli.test_spmv_mmf``) on a
    written ``.mtx`` with ``--device cuda``; it must print ``PASSED!``.
 
@@ -76,6 +97,11 @@ EXPECTED = {
     # the default gate's choice for the same matrix: grouped one-sided
     "near_band_paired_auto": {"bell2_spmv", "unperm_gather"},
     "cant_proxy_mirrored": {"sdia_gen"},  # mirrored diagonals
+    # the float64 route
+    "cant_proxy_f64": {"sdia_sym_df"},  # diagonals incl. the halved main
+    "audikw_proxy_f64": {"bell2_spmv_df"},  # peel rejected: all one-sided
+    "flagship_f64": {"sdia_sym_df", "bell2_spmv_df"},  # peel + residual
+    "general_asym_f64": {"bell2_spmv_df"},  # asymmetric: all one-sided
 }
 #: the multi-RHS form of each kernel: an SpMM apply runs the same
 #: branches as the SpMV apply of its plan, through these
@@ -86,19 +112,11 @@ MM_OF = {
     "unperm_gather": "unperm_gather_mm",
     "sbell_spmv": "sbell_spmm",
     "sdia_gen": "sdia_gen_mm",
+    "sdia_sym_df": "sdia_sym_df_mm",
+    "bell2_spmv_df": "bell2_spmm_df",
 }
 #: kernels each main-path run's SpMM(8) apply launches (no SpMV kernel)
-EXPECTED_MM = {
-    "cant_proxy": {"sdia_sym_mm"},
-    "audikw_proxy": {"bell2_spmm", "unperm_gather_mm"},
-    "flagship": {"sdia_sym_mm", "bell2_spmm_accum"},
-    "general_asym": {"sdia_gen_mm"},
-    "flagship_csr": {"sdia_gen_mm", "bell2_spmm_accum"},
-    "cant_proxy_none": {"bell2_spmm"},
-    "near_band_paired": {"sbell_spmm", "bell2_spmm_accum"},
-    "near_band_paired_auto": {"bell2_spmm", "unperm_gather_mm"},
-    "cant_proxy_mirrored": {"sdia_gen_mm"},
-}
+EXPECTED_MM = {run: {MM_OF[k] for k in ks} for run, ks in EXPECTED.items()}
 #: the Pallas kernel each CUDA kernel replaces
 REPLACES = {
     "sdia_sym": "cfs_spmv_tpu/ops/sdia_kernel.py:157",
@@ -113,7 +131,20 @@ REPLACES = {
     "sbell_spmm": "cfs_spmv_tpu/ops/bell2_kernel.py:1468",
     "sdia_sym_mm": "cfs_spmv_tpu/ops/sdia_kernel.py:391",
     "sdia_gen_mm": "cfs_spmv_tpu/ops/sdia_kernel.py:326",
+    "sdia_sym_df": "cfs_spmv_tpu/ops/sdia_df.py:167",
+    "sdia_sym_df_mm": "cfs_spmv_tpu/ops/sdia_df.py:222",
+    "bell2_spmv_df": "cfs_spmv_tpu/ops/bell2_df.py:181",
+    "bell2_spmm_df": "cfs_spmv_tpu/ops/bell2_df.py:322",
 }
+#: the card's peaks for the bounds (NVIDIA H100 SXM data sheet): device
+#: memory bytes per second, and multiply-adds counted as two operations
+#: per second outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+#: scaled error |kernel - twin| / (|A| |x|) allowed between a float64
+#: kernel and its float64 twin: both round each product once and differ
+#: in summation order only (a few 1e-16 per term)
+F64_TWIN_TOL = 1e-12
 TIMED_CALLS = 20
 #: right-hand sides of the SpMM runs (the reference bench's SpMM(8))
 RHS = 8
@@ -176,27 +207,31 @@ def _device_ms(torch, fn, calls=TIMED_CALLS):
     """(device busy ms per call, {kernel: ms per call}) from
     ``torch.profiler`` over ``calls`` back-to-back calls: the summed
     durations of the card's own events (kernels, copies, fills), so the
-    wrappers' host overhead is not in it."""
+    wrappers' host overhead is not in it. (None, {}) where the profiler
+    saw no device events in three tries: that time was not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            # "void (anonymous namespace)::sbell_spmv_kernel<4>(...)"
-            name = e.name.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("<")[0].split("::")[-1]
-            name = name.replace("void ", "").strip()[:40]
-            by_name[name] = (by_name.get(name, 0.0)
-                             + e.device_time_total / 1e3 / calls)
-    return sum(by_name.values()), by_name
+    for _ in range(3):  # a window now and then comes back without events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                # "void (anonymous namespace)::sbell_spmv_kernel<4>(...)"
+                name = e.name.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("<")[0].split("::")[-1]
+                name = name.replace("void ", "").strip()[:40]
+                by_name[name] = (by_name.get(name, 0.0)
+                                 + e.device_time_total / 1e3 / calls)
+        if by_name:
+            break
+    return (sum(by_name.values()) if by_name else None), by_name
 
 
 def _fmt_device(busy, by_name):
@@ -205,6 +240,11 @@ def _fmt_device(busy, by_name):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return f"device {busy:.4f} ms (" + ", ".join(
         f"{k} {v:.4f}" for k, v in top) + ")"
+
+
+def _ms(t):
+    """A device time for a text line; None reads "not measured"."""
+    return "not measured" if t is None else f"{t:.4f}"
 
 
 def _ratio(num, den):
@@ -218,18 +258,125 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _bound(nbytes, flops, dtype):
+    """(bound ms, "bytes" | "operations"): the least time the card could
+    take for ``nbytes`` moved (each input read once, each output written
+    once) and ``flops`` operations of ``dtype`` (two per multiply-add on
+    a stored nonzero of this run's data)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ptxas_report():
+    """Compile the kernel source once more with ``-Xptxas -v`` (same flags
+    otherwise, output discarded) and return {kernel instance: (registers,
+    spill bytes)}."""
+    import re
+
+    from cfs_spmv_tpu_torch.ops import _cuda
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _cuda._nvcc()
+    res = subprocess.run(
+        [nvcc, *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         os.path.join(out_dir, "ptxas_probe.so"), _cuda._SRC],
+        capture_output=True, text=True,
+    )
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{res.stderr}")
+    text = res.stderr
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if os.path.exists(filt):
+        text = subprocess.run([filt], input=text, capture_output=True,
+                              text=True).stdout or text
+    report, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(.*)' for", line)
+        if m:
+            # "void <unnamed>::k<(bool)1, (int)8, double>(const T1 *, ...)"
+            k = re.search(r"(\w+_kernel(?:<.*?>)?)\(", m.group(1))
+            name = (k.group(1) if k else m.group(1)).replace("(bool)", "")
+            name = name.replace("(int)", "")
+            report[name] = [None, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            report[name][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name][0] = int(m.group(1))
+    if not report:
+        raise RuntimeError(f"no ptxas report in nvcc's output:\n{text}")
+    return {k: tuple(v) for k, v in report.items()}
+
+
+def stream_csr(torch, d):
+    """The one-sided BELL2 stream of device struct ``d`` as a
+    ``torch.sparse_csr_tensor`` of shape (padded tiles * 128, x rows *
+    128), for the library yardstick: its product with the flat padded x
+    is what ``bell2_spmv`` computes into its tiles. Decoded as the plain
+    twin decodes it; built once, outside any timing."""
+    C = d.meta.shape[0]
+    K, BT = d.chunks_per_step, d.tiles_per_block
+    pk = d.packed.reshape(C, 8, 128).long()
+    q = pk & 0x7F
+    r2 = torch.gather((pk >> 7) & 0x1F, 2, q)
+    meta = d.meta.long()
+    if d.contig:
+        xrow = meta[:, 2, None, None] + r2
+    else:
+        cidx = torch.arange(C, device=meta.device)[:, None, None]
+        xrow = meta[:, 2:].reshape(-1)[cidx * 8 + (r2 & 7)]
+    tgt = d.step_block.long().repeat_interleave(K) * BT + meta[:, 0]
+    lane = torch.arange(128, device=meta.device)
+    rows = (tgt[:, None, None] * 128 + lane).expand(C, 8, 128)
+    vals = d.vals.reshape(C, 8, 128)
+    live = vals != 0
+    TP = -(-d.num_row_tiles // BT) * BT
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows[live], (xrow * 128 + q)[live]]), vals[live],
+        (TP * 128, d.x_rows * 128)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def matrix_csr(torch, csr, dtype, device):
+    """The full (expanded) matrix as a ``torch.sparse_csr_tensor``."""
+    from cfs_spmv_tpu_torch import CSR
+
+    full = (CSR.from_coo(csr.to_coo().expand_symmetric())
+            if csr.symmetric else csr)
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(np.asarray(full.indptr, np.int64)),
+        torch.as_tensor(np.asarray(full.indices, np.int64)),
+        torch.as_tensor(np.asarray(full.data)).to(dtype),
+        size=(full.nrows, full.ncols)).to(device)
+
+
 def _agree(y, y_ref, scale, nnz_per_row, what):
     """allclose_spmv on card results (any shape: an MM result is checked
     element by element, each plane being one SpMV's); returns max
-    |y - y_ref|."""
+    |y - y_ref|. float64 results are held to ``F64_TWIN_TOL`` on the
+    scaled error instead."""
+    import torch
+
     from cfs_spmv_tpu_torch.utils.platform import allclose_spmv
 
+    f64 = y.dtype == torch.float64
     y, y_ref = y.double().cpu().numpy(), y_ref.double().cpu().numpy()
     scale = scale.double().cpu().numpy()
     if not (np.isfinite(y).all() and y.shape == y_ref.shape):
         raise AssertionError(f"{what}: non-finite or misshapen result")
-    if not allclose_spmv(y, y_ref, np.float32, nnz_per_row=nnz_per_row,
-                         scale=scale):
+    if f64:
+        worst = float((np.abs(y - y_ref) / np.maximum(scale, 1e-300)).max())
+        if not worst < F64_TWIN_TOL:
+            raise AssertionError(
+                f"{what}: scaled error {worst} against the float64 twin "
+                f"(bar {F64_TWIN_TOL})")
+    elif not allclose_spmv(y, y_ref, np.float32, nnz_per_row=nnz_per_row,
+                           scale=scale):
         raise AssertionError(
             f"{what}: disagrees (max abs err {np.abs(y - y_ref).max()})"
         )
@@ -259,12 +406,19 @@ def _planning(paired=None, sym_rows_max=None):
 
 def predict(tuned) -> set:
     """The kernels an apply of ``tuned`` launches, read off its device
-    struct (the branches of ``ops/spmv.bell2_apply`` / ``sbell_apply``)."""
-    from cfs_spmv_tpu_torch.ops.spmv import Bell2Device
+    struct (the branches of ``ops/spmv.bell2_apply`` / ``sbell_apply`` /
+    ``fp64_apply``)."""
+    from cfs_spmv_tpu_torch.ops.spmv import Bell2Device, Fp64Device
 
     dev = tuned.operands
     dev = dev["dev"] if isinstance(dev, dict) else dev
     out = set()
+    if isinstance(dev, Fp64Device):
+        if dev.has_work:
+            out.add("bell2_spmv_df")
+        if dev.dia_vals is not None:
+            out.add("sdia_sym_df")
+        return out
     if isinstance(dev, Bell2Device):
         if dev.has_work:
             sparse = dev.sparse_stream and not dev.grouped
@@ -296,10 +450,15 @@ def main() -> int:
     from cfs_spmv_tpu_torch.formats.bell2 import build_general_plan
     from cfs_spmv_tpu_torch.formats.sbell import build_sbell_plan
     from cfs_spmv_tpu_torch.io.mmf import write_mmf
+    from cfs_spmv_tpu_torch.formats.bell2 import build_bell2_from_arrays
     from cfs_spmv_tpu_torch.ops import _cuda
+    from cfs_spmv_tpu_torch.ops import bell2_df as bdf
     from cfs_spmv_tpu_torch.ops import bell2_kernel as bk
+    from cfs_spmv_tpu_torch.ops import sdia_df as sdf
     from cfs_spmv_tpu_torch.ops import sdia_kernel as sk
     from cfs_spmv_tpu_torch.ops import spmv as ops
+    from cfs_spmv_tpu_torch.tuning.tune import tune
+    from cfs_spmv_tpu_torch.utils.config import config
     from cfs_spmv_tpu_torch.utils.platform import allclose_spmv
     from cfs_spmv_tpu_torch.utils.proxies import (
         audikw_proxy,
@@ -321,6 +480,10 @@ def main() -> int:
         "unperm_gather_mm": bk.unperm_gather_tiles_mm,
         "sbell_spmm": bk.sbell_spmm_tiles,
         "sdia_gen_mm": sk.sdia_gen_tiles_mm,
+        "sdia_sym_df": sdf.sdia_sym_tiles_df,
+        "sdia_sym_df_mm": sdf.sdia_sym_tiles_df_mm,
+        "bell2_spmv_df": bdf.bell2_spmv_tiles_df,
+        "bell2_spmm_df": bdf.bell2_spmm_tiles_df,
     }
     t_start = time.perf_counter()
     phase_t = [time.perf_counter()]
@@ -342,19 +505,28 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------
     _cuda.lib()
     phase_done("2 kernel build/load")
+    regs = ptxas_report()
+    print(f"ptxas: {len(regs)} entry functions; registers per thread "
+          "(+ spill bytes): " + "; ".join(
+              f"{k} {v[0]}" + (f" (+{v[1]} B spilled)" if v[1] else "")
+              for k, v in sorted(regs.items())), flush=True)
+    if any(v[1] for v in regs.values()):
+        raise AssertionError("ptxas reports spills (see the line above)")
+    phase_done("2b ptxas report")
 
     t0 = time.perf_counter()
     cant = cant_proxy()
     flag = flagship(n=65536, deg=32)
     nbp = near_band_paired()
-    #: name -> (CSR, format, tuning, CFS_PAIRED, SDIA_SYM_ROWS_MAX)
+    audikw = audikw_proxy()
+    gasym = general_asym()
+    #: name -> (CSR, format, tuning, CFS_PAIRED, SDIA_SYM_ROWS_MAX); the
+    #: float64 runs (the names ending in _f64) follow their float32 runs
     RUNS = {
         "cant_proxy": (cant, Format.SSS, Tuning.AGGRESSIVE, None, None),
-        "audikw_proxy": (audikw_proxy(), Format.SSS, Tuning.AGGRESSIVE,
-                         None, None),
+        "audikw_proxy": (audikw, Format.SSS, Tuning.AGGRESSIVE, None, None),
         "flagship": (flag, Format.SSS, Tuning.AGGRESSIVE, None, None),
-        "general_asym": (general_asym(), Format.CSR, Tuning.AGGRESSIVE,
-                         None, None),
+        "general_asym": (gasym, Format.CSR, Tuning.AGGRESSIVE, None, None),
         "flagship_csr": (flag, Format.CSR, Tuning.AGGRESSIVE, None, None),
         "cant_proxy_none": (cant, Format.SSS, Tuning.NONE, None, None),
         "near_band_paired": (nbp, Format.SSS, Tuning.AGGRESSIVE, "force",
@@ -363,6 +535,12 @@ def main() -> int:
                                   "auto", None),
         "cant_proxy_mirrored": (cant, Format.SSS, Tuning.AGGRESSIVE, None,
                                 cant.nrows - 1),
+        "cant_proxy_f64": (cant, Format.SSS, Tuning.AGGRESSIVE, None, None),
+        "audikw_proxy_f64": (audikw, Format.SSS, Tuning.AGGRESSIVE, None,
+                             None),
+        "flagship_f64": (flag, Format.SSS, Tuning.AGGRESSIVE, None, None),
+        "general_asym_f64": (gasym, Format.CSR, Tuning.AGGRESSIVE, None,
+                             None),
     }
     print(f"matrices generated in {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -370,52 +548,82 @@ def main() -> int:
     # -- 3. the main paths, once each -----------------------------------
     launches = dict.fromkeys(wrappers, 0)
     runs = {}
+    scaled = {}  # run -> worst scaled error of its SpMV apply
+
+    def counted(fn):
+        """Run ``fn`` with every launch count at 0 before and read after;
+        returns (result, {kernel: launches}) and adds to the totals."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        for k, c in counts.items():
+            launches[k] += c
+        return out, counts
+
+    def oracle_ok(y_np, csr, xd, nnz_full, dtype):
+        """(agrees with the float64 host oracle at ``dtype``'s gate, max
+        abs error, max error scaled by |A| |x|)."""
+        ref = csr.spmv_host(xd)
+        scale = csr.spmv_host(xd, absolute=True)
+        ok = (y_np.shape == (csr.nrows,) and np.isfinite(y_np).all()
+              and allclose_spmv(y_np, ref, dtype,
+                                nnz_per_row=nnz_full / csr.nrows,
+                                scale=scale))
+        err = np.abs(y_np - ref)
+        return ok, float(err.max()), float(
+            (err / np.maximum(scale, 1e-300)).max())
+
     for name, (csr, fmt, tuning, paired, rows_max) in RUNS.items():
+        dtype = np.float64 if name.endswith("_f64") else np.float32
         t0 = time.perf_counter()
         with _planning(paired, rows_max):
             A = SparseMatrix.create(csr, fmt)
-            op = SpDMV(A, tuning, dtype=np.float32, device="cuda")
-            op_mm = SpDMM(A, tuning, dtype=np.float32, device="cuda")
+            op = SpDMV(A, tuning, dtype=dtype, device="cuda")
+            op_mm = SpDMM(A, tuning, dtype=dtype, device="cuda")
         t_tune = time.perf_counter() - t0
         predicted = predict(A.tuned)
         x = np.random.default_rng(1).uniform(1.0, 2.0, csr.ncols).astype(
-            np.float32
+            dtype
         )
-        for w in wrappers.values():
-            w.launches = 0
-        y = op(x)
-        torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        y, counts = counted(lambda: op(x))
         moved = {k for k, c in counts.items() if c}
-        for k, c in counts.items():
-            launches[k] += c
         y_np = y.cpu().numpy()
-        xd = x.astype(np.float64)
-        ref = csr.spmv_host(xd)
-        ok = (
-            y_np.shape == (csr.nrows,) and np.isfinite(y_np).all()
-            and allclose_spmv(
-                y_np, ref, np.float32,
-                nnz_per_row=A.tuned.nnz_full / csr.nrows,
-                scale=csr.spmv_host(xd, absolute=True),
-            )
-        )
+        if y_np.dtype != dtype:
+            raise AssertionError(f"{name}: result is {y_np.dtype}")
+        ok, err, scaled[name] = oracle_ok(
+            y_np, csr, x.astype(np.float64), A.tuned.nnz_full, dtype)
         plan = A.tuned.plan
         far = getattr(plan, "far", None)
         print(
             f"main path {name}: n={csr.nrows} nnz_full={A.tuned.nnz_full} "
-            f"{fmt.name}/{tuning.name} tune+upload {t_tune:.2f} s "
+            f"{fmt.name}/{tuning.name} {np.dtype(dtype).name} "
+            f"tune+upload {t_tune:.2f} s "
             f"reorder={A.tuned.perm is not None} "
             f"dia={None if plan.dia is None else len(plan.dia.offsets)} "
             f"paired_nnz={getattr(plan, 'nnz_paired', 0)} "
             f"tw={getattr(plan, 'transpose_windows', None)} "
             f"stream_nnz={getattr(plan, 'nnz', 0)} "
             f"far_nnz={0 if far is None else far.nnz} "
-            f"predicted={sorted(predicted)} launched={counts} "
-            f"max_abs_err={float(np.abs(y_np - ref).max())} "
+            f"predicted={sorted(predicted)} "
+            f"launched={ {k: c for k, c in counts.items() if c} } "
+            f"max_abs_err={err} max_scaled_err={scaled[name]} "
             f"oracle_ok={ok}",
             flush=True,
         )
+        if dtype == np.float64:
+            d64 = A.tuned.operands
+            mb_s = (_nbytes(d64.vals, d64.packed, d64.meta) / 1e6
+                    if d64.has_work else 0.0)
+            mb_d = (_nbytes(d64.dia_vals) / 1e6
+                    if d64.dia_vals is not None else 0.0)
+            print(
+                f"main path {name}: float64 operands on the card: stream "
+                f"{mb_s:.2f} MB (values 8 B + words 2 B a slot, "
+                f"grouped={d64.grouped}), diagonal planes {mb_d:.2f} MB; "
+                f"max scaled error float64 {scaled[name]} against float32 "
+                f"{scaled[name[:-4]]} on the same matrix", flush=True)
         if not ok:
             raise AssertionError(f"{name}: disagrees with the f64 oracle")
         if not moved == predicted == EXPECTED[name]:
@@ -425,31 +633,22 @@ def main() -> int:
             )
         # SpMM(8) through SpDMM on the same tuned matrix
         X = np.random.default_rng(2).uniform(
-            1.0, 2.0, (csr.ncols, RHS)).astype(np.float32)
+            1.0, 2.0, (csr.ncols, RHS)).astype(dtype)
         predicted_mm = {MM_OF[k] for k in predicted}
-        for w in wrappers.values():
-            w.launches = 0
-        Y = op_mm(X)
-        torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        Y, counts = counted(lambda: op_mm(X))
         moved = {k for k, c in counts.items() if c}
-        for k, c in counts.items():
-            launches[k] += c
         Y_np = Y.cpu().numpy()
-        errs, ok = [], Y_np.shape == (csr.nrows, RHS)
-        for b in range(RHS):
-            xd = X[:, b].astype(np.float64)
-            ref = csr.spmv_host(xd)
-            errs.append(float(np.abs(Y_np[:, b] - ref).max()))
-            ok = ok and np.isfinite(Y_np[:, b]).all() and allclose_spmv(
-                Y_np[:, b], ref, np.float32,
-                nnz_per_row=A.tuned.nnz_full / csr.nrows,
-                scale=csr.spmv_host(xd, absolute=True),
-            )
+        errs, ok = [], Y_np.shape == (csr.nrows, RHS) and Y_np.dtype == dtype
+        for b in range(RHS if ok else 0):
+            ok_b, err, _ = oracle_ok(Y_np[:, b], csr,
+                                     X[:, b].astype(np.float64),
+                                     A.tuned.nnz_full, dtype)
+            errs.append(err)
+            ok = ok and ok_b
         print(
             f"main path {name} SpMM({RHS}): predicted={sorted(predicted_mm)} "
             f"launched={ {k: c for k, c in counts.items() if c} } "
-            f"max_abs_err={max(errs)} oracle_ok={ok}",
+            f"max_abs_err={max(errs, default=None)} oracle_ok={ok}",
             flush=True,
         )
         if not ok:
@@ -458,12 +657,31 @@ def main() -> int:
             raise AssertionError(
                 f"{name} SpMM: launched {sorted(moved)}, predicted "
                 f"{sorted(predicted_mm)}, expected "
-                f"{sorted(EXPECTED_MM[name])} (no SpMV kernel may run)"
+                f"{sorted(EXPECTED_MM[name])} (no SpMV kernel, and in "
+                "float64 no float32 kernel, may run)"
             )
         runs[name] = (A, x)
     print(f"launch counts of the main paths: {launches}", flush=True)
     if not all(launches.values()):
         raise AssertionError("a kernel of the paths was never launched")
+    # the plain ELL+COO float64 path, asked for by name: no kernel moves
+    old_path, config.fp64_path = config.fp64_path, "xla"
+    try:
+        t_xla = tune(flag, fmt=Format.SSS, dtype=np.float64, device="cuda")
+    finally:
+        config.fp64_path = old_path
+    _, x64 = runs["flagship_f64"]
+    y, counts = counted(lambda: t_xla.matvec(torch.as_tensor(x64, device=dev)))
+    ok, err, serr = oracle_ok(y.cpu().numpy(), flag, x64, t_xla.nnz_full,
+                              np.float64)
+    rem = t_xla.operands["row"]
+    print(f"plain path CFS_FP64=xla on the flagship: ELL width "
+          f"{t_xla.operands['ecol'].shape[1]}, remainder "
+          f"{0 if rem is None else len(rem)}, max_abs_err={err} max_scaled_err={serr} oracle_ok={ok} "
+          f"launched={ {k: c for k, c in counts.items() if c} }", flush=True)
+    if not ok or any(counts.values()):
+        raise AssertionError("the CFS_FP64=xla path disagrees with the "
+                             "oracle or moved a kernel's count")
     phase_done("3 main paths")
 
     # -- 4. each kernel against its plain twin, on the real plan arrays --
@@ -476,21 +694,25 @@ def main() -> int:
     g = torch.Generator(device="cpu").manual_seed(7)
     kern = {}
 
-    def planes(B, rows, extra=0):
+    def planes(B, rows, extra=0, dtype=torch.float32):
         """(B, rows, 128) random planes on the card; with ``extra``, a
         column slice of wider planes (plane stride past the plane)."""
-        wide = torch.rand((B, rows + extra, 128), generator=g).to(dev)
+        wide = torch.rand((B, rows + extra, 128), generator=g,
+                          dtype=dtype).to(dev)
         return wide[:, :rows]
 
-    def mm_pair(key, make, nnz_per_row, on, rows=None, exact=False):
-        """Check the multi-RHS kernel ``key`` against its twin at B = 11
-        (two plane groups) and B = 8; keep the B = 8 closures for the
-        timing. ``make(B)`` returns (check, fn, plain, scale, bytes):
+    def mm_pair(key, make, nnz_per_row, on, rows=None, exact=False,
+                Bs=(11, RHS), flops=0):
+        """Check the multi-RHS kernel ``key`` against its twin at each B
+        of ``Bs`` (11 is two plane groups) and last at B = 8, whose
+        closures are kept for the timing with ``flops`` operations.
+        ``make(B)`` returns (check, fn, plain, scale, bytes, library):
         ``check()`` runs the kernel as the check wants it (NaN-poisoned
-        output where it zeroes its own), ``scale()`` the twin on |.|."""
+        output where it zeroes its own), ``scale()`` the twin on |.|,
+        ``library()`` the one PyTorch call for the same function."""
         errs = []
-        for B in (11, RHS):
-            check, fn, plain, scale, nbytes = make(B)
+        for B in Bs:
+            check, fn, plain, scale, nbytes, library = make(B)
             yk, yp = check(), plain()
             torch.cuda.synchronize()
             sel = (lambda t: t) if rows is None else (lambda t: t[:, rows])
@@ -507,10 +729,42 @@ def main() -> int:
         # a kernel checked on several plans keeps its worst error
         errs.append(kern.get(key, {}).get("err", 0.0))
         kern[key] = dict(err=max(errs), on=f"{on}, B={RHS}", bytes=nbytes,
-                         fn=fn, plain=plain)
+                         flops=flops, fn=fn, plain=plain, library=library)
 
-    def poisoned(shape):
-        return torch.full(shape, float("nan"), device=dev)
+    def poisoned(shape, dtype=torch.float32):
+        return torch.full(shape, float("nan"), device=dev, dtype=dtype)
+
+    def nnz_of(t):
+        """Stored nonzeros of this run's value tensor."""
+        return int(torch.count_nonzero(t))
+
+    def csr_mv(S, x2d):
+        """The library yardstick of a stream kernel: one sparse CSR
+        product with the flat padded x, or with (x rows, B) for planes
+        (the transposed copy is made once, outside the timed call)."""
+        n = S.shape[1]  # a far stream may read fewer x rows than given
+        if x2d.ndim == 2:
+            xf = x2d.reshape(-1)[:n]
+            return lambda: S @ xf
+        Xf = x2d.reshape(x2d.shape[0], -1)[:, :n].T.contiguous()
+        return lambda: S @ Xf
+
+    mats = {"cant_proxy": cant, "audikw_proxy": audikw, "flagship": flag,
+            "general_asym": gasym, "near_band_paired": nbp}
+    lib = {}
+
+    def lib_operands(mname, dtype=torch.float32):
+        """(M, x, X) of the library yardstick on a whole matrix: its
+        sparse CSR tensor, a vector and ``RHS`` columns, built once per
+        (matrix, dtype) for the kernel rows and the per-matrix lines."""
+        if (mname, dtype) not in lib:
+            csr = mats[mname]
+            lib[mname, dtype] = (
+                matrix_csr(torch, csr, dtype, dev),
+                torch.rand(csr.ncols, generator=g, dtype=dtype).to(dev),
+                torch.rand((csr.ncols, RHS), generator=g,
+                           dtype=dtype).to(dev))
+        return lib[mname, dtype]
 
     # B1 on cant_proxy: the SDIA stream, onto a nonzero incoming y
     A, d, xe = operands("cant_proxy")
@@ -524,9 +778,12 @@ def main() -> int:
         d.dia_offsets,
     )
     err = _agree(yk, yp, scale, 2 * d.dia_vals.shape[1], "sdia_sym")
+    M_cant, xl_cant, Xe_cant = lib_operands("cant_proxy")
+    sym_flops = 4 * nnz_of(d.dia_vals)  # a row and a transpose product each
     kern["sdia_sym"] = dict(
         err=err, on="cant_proxy",
-        bytes=_nbytes(d.dia_vals, x2d) + 2 * _nbytes(y0),
+        bytes=_nbytes(d.dia_vals, x2d) + 2 * _nbytes(y0), flops=sym_flops,
+        library=lambda: M_cant @ xl_cant,
         fn=lambda a=args, y=y0, o=d.dia_offsets: sk.sdia_sym_tiles(
             *a, y.clone(), o),
         plain=lambda a=args, y=y0, o=d.dia_offsets: sk.sdia_sym_tiles_plain(
@@ -546,10 +803,11 @@ def main() -> int:
                 lambda: sk.sdia_sym_tiles_mm_plain(
                     d.dia_vals.abs().double(), x3.abs().double(),
                     y3.abs().double(), o),
-                _nbytes(d.dia_vals, x3) + 2 * _nbytes(y3))
+                _nbytes(d.dia_vals, x3) + 2 * _nbytes(y3),
+                lambda: M_cant @ Xe_cant)
 
     mm_pair("sdia_sym_mm", make_sdia_sym_mm, 2 * d.dia_vals.shape[1],
-            "cant_proxy")
+            "cant_proxy", flops=RHS * sym_flops)
 
     # B2 + B3 on audikw_proxy: the degree-grouped far stream
     A, d, xe = operands("audikw_proxy")
@@ -569,9 +827,11 @@ def main() -> int:
     rows = rows[rows < fd.num_row_tiles]  # the visited blocks' rows
     err = _agree(fk[rows], fp[rows], fs[rows],
                  A.tuned.plan.far.nnz / A.nrows, "bell2_spmv")
+    S_far = stream_csr(torch, fd)
     kern["bell2_spmv"] = dict(
         err=err, on="audikw_proxy",
-        bytes=_nbytes(*sargs_a[:4]) + _nbytes(fp),
+        bytes=_nbytes(*sargs_a) + _nbytes(fp), flops=2 * nnz_of(fd.vals),
+        library=csr_mv(S_far, x2d_a),
         fn=lambda: bk.bell2_spmv_tiles(*sargs_a, **kw_a),
         plain=lambda: bk.bell2_spmv_tiles_plain(*sargs_a, **kw_a),
     )
@@ -580,9 +840,15 @@ def main() -> int:
     up = bk.unperm_gather_tiles_plain(*uargs)
     if not torch.equal(uk, up):
         raise AssertionError("unperm_gather: not bit-identical to its twin")
+    # the library form of the unpermute: index_select by the plan's
+    # row_perm against the tiles with a zero appended
+    perm_t = torch.as_tensor(np.asarray(A.tuned.plan.far.row_perm, np.int64),
+                             device=dev)
+    g_ext = torch.cat([uargs[2].reshape(-1), uargs[2].new_zeros(1)])
     kern["unperm_gather"] = dict(
         err=float((uk - up).abs().max()), on="audikw_proxy",
-        bytes=_nbytes(fd.unperm_pk, uk) + 4 * A.nrows,
+        bytes=_nbytes(fd.unperm_pk, uk) + 4 * A.nrows, flops=0,
+        library=lambda: torch.index_select(g_ext, 0, perm_t),
         fn=lambda: bk.unperm_gather_tiles(*uargs),
         plain=lambda: bk.unperm_gather_tiles_plain(*uargs),
     )
@@ -599,18 +865,20 @@ def main() -> int:
                 lambda: bk.bell2_spmm_tiles_plain(*sa, **kw_a),
                 lambda: bk.bell2_spmm_tiles_plain(
                     fd.vals.abs(), *sa[1:4], sa[4].abs(), **kw_a),
-                _nbytes(*sa) + B * _nbytes(fp))
+                _nbytes(*sa) + B * _nbytes(fp), csr_mv(S_far, sa[4]))
 
     mm_pair("bell2_spmm", make_bell2_mm, A.tuned.plan.far.nnz / A.nrows,
-            "audikw_proxy", rows=rows)
+            "audikw_proxy", rows=rows, flops=RHS * 2 * nnz_of(fd.vals))
 
     def make_unperm_mm(B, fd=fd):
         ua = (fd.unperm_pk, fd.unperm_slabs,
               planes(B, fd.num_row_tiles, extra=2))
+        ext = torch.cat([ua[2].reshape(B, -1), ua[2].new_zeros((B, 1))], 1)
         return (lambda: bk.unperm_gather_tiles_mm(*ua),
                 lambda: bk.unperm_gather_tiles_mm(*ua),
                 lambda: bk.unperm_gather_tiles_mm_plain(*ua),
-                None, _nbytes(fd.unperm_pk) + 2 * B * _nbytes(uk))
+                None, _nbytes(fd.unperm_pk) + 2 * B * _nbytes(uk),
+                lambda: torch.index_select(ext, 1, perm_t))
 
     mm_pair("unperm_gather_mm", make_unperm_mm, 0, "audikw_proxy",
             exact=True)
@@ -631,9 +899,11 @@ def main() -> int:
     )
     err = _agree(yk, yp, ys, A.tuned.plan.far.nnz / A.nrows,
                  "bell2_spmv_accum")
+    S_res = stream_csr(torch, fd)  # its product, without the add into y
     kern["bell2_spmv_accum"] = dict(
         err=err, on="flagship",
-        bytes=_nbytes(*sargs_f[:4]) + 2 * _nbytes(y0_f),
+        bytes=_nbytes(*sargs_f) + 2 * _nbytes(y0_f),
+        flops=2 * nnz_of(fd.vals), library=csr_mv(S_res, x2d_f),
         fn=lambda: bk.bell2_spmv_tiles_accum(*sargs_f, y0_f.clone(), **kw_f),
         plain=lambda: bk.bell2_spmv_tiles_accum_plain(
             *sargs_f, y0_f.clone(), **kw_f),
@@ -649,10 +919,11 @@ def main() -> int:
                     *sa, y3.clone(), **kw_f),
                 lambda: bk.bell2_spmm_tiles_accum_plain(
                     fd.vals.abs(), *sa[1:4], sa[4].abs(), y3.abs(), **kw_f),
-                _nbytes(*sa) + 2 * _nbytes(y3))
+                _nbytes(*sa) + 2 * _nbytes(y3), csr_mv(S_res, sa[4]))
 
     mm_pair("bell2_spmm_accum", make_bell2_acc_mm,
-            A.tuned.plan.far.nnz / A.nrows, "flagship")
+            A.tuned.plan.far.nnz / A.nrows, "flagship",
+            flops=RHS * 2 * nnz_of(fd.vals))
 
     # B5 on near_band_paired: the paired stream of the main path, the
     # same matrix planned with the other transpose-window count, and with
@@ -687,9 +958,14 @@ def main() -> int:
         print(f"kernel {what}: {dp.vals.shape[0] // 8} chunks in "
               f"{TP // dp.tiles_per_block} blocks, max_abs_err vs twin "
               f"{errs[-1]}", flush=True)
+    # the paired stream is most of this matrix (the rest is its sparse
+    # far stream and the main diagonal): the whole matrix's product is the
+    # nearest library call
+    M_nbp, xl_nbp, Xe_nbp = lib_operands("near_band_paired")
     kern["sbell_spmv"] = dict(
         err=max(errs), on=f"near_band_paired TW={d.transpose_windows}",
-        bytes=_nbytes(*pargs) + _nbytes(yp),
+        bytes=_nbytes(*pargs) + _nbytes(yp), flops=4 * nnz_of(d.vals),
+        library=lambda: M_nbp @ xl_nbp,
         fn=lambda: bk.sbell_spmv_tiles(*pargs, **kw_p),
         plain=lambda: bk.sbell_spmv_tiles_plain(*pargs, **kw_p),
     )
@@ -712,12 +988,13 @@ def main() -> int:
                     lambda: bk.sbell_spmm_tiles_plain(*sa, **kw_q),
                     lambda: bk.sbell_spmm_tiles_plain(
                         dp.vals.abs(), *sa[1:4], sa[4].abs(), **kw_q),
-                    _nbytes(*sa) + 4 * B * TPp * 128)
+                    _nbytes(*sa) + 4 * B * TPp * 128,
+                    lambda: M_nbp @ Xe_nbp)
 
         mm_pair("sbell_spmm", make_sbell_mm, 2 * A.tuned.nnz_full / A.nrows,
                 f"near_band_paired TW={dp.transpose_windows} "
                 f"BT={dp.tiles_per_block} ({TPp // dp.tiles_per_block} "
-                "blocks)")
+                "blocks)", flops=RHS * 4 * nnz_of(dp.vals))
 
     # B6 on a ragged general_asym(g=50) plan (125,000 rows: fewer x and
     # y rows than its padded value blocks hold) and on general_asym's
@@ -740,9 +1017,11 @@ def main() -> int:
                 f"{dg.dia_vals.shape[0] * 1024} x rows {dg.x_rows * 128}")
         errs.append(_agree(yk, yp, scale, dg.dia_vals.shape[1], what))
         print(f"kernel {what}: max_abs_err vs twin {errs[-1]}", flush=True)
+    M_gasym, xl_gasym, Xe_gasym = lib_operands("general_asym")
     kern["sdia_gen"] = dict(
         err=max(errs), on="general_asym",
         bytes=_nbytes(d.dia_vals, x2d_g) + 2 * _nbytes(y0_g),
+        flops=2 * nnz_of(d.dia_vals), library=lambda: M_gasym @ xl_gasym,
         fn=lambda o=d.dia_offsets: sk.sdia_gen_tiles(
             *gargs, y0_g.clone(), o),
         plain=lambda o=d.dia_offsets: sk.sdia_gen_tiles_plain(
@@ -763,38 +1042,194 @@ def main() -> int:
                     lambda: sk.sdia_gen_tiles_mm_plain(
                         dg.dia_vals.abs().double(), x3.abs().double(),
                         y3.abs().double(), o),
-                    _nbytes(dg.dia_vals, x3) + 2 * _nbytes(y3))
+                    _nbytes(dg.dia_vals, x3) + 2 * _nbytes(y3),
+                    lambda: M_gasym @ Xe_gasym)
 
-        mm_pair("sdia_gen_mm", make_sdia_gen_mm, dg.dia_vals.shape[1], on)
+        mm_pair("sdia_gen_mm", make_sdia_gen_mm, dg.dia_vals.shape[1], on,
+                flops=RHS * 2 * nnz_of(dg.dia_vals))
+
+    # B13 + B14 on cant_proxy's float64 plan: the diagonal stream with the
+    # halved main diagonal (offset 0), onto nonzero y; B14 at B = 1, 11
+    # and 8 onto Y planes at a plane stride past the plane
+    A, d, xe = operands("cant_proxy_f64")
+    f64 = torch.float64
+    if 0 not in d.dia_offsets.tolist():
+        raise AssertionError("cant_proxy_f64 stores no main diagonal")
+    TD = -(-d.nrows // 128)
+    x2d = ops.pad_x(xe, max(d.x_rows, TD))
+    y0 = torch.rand((TD, 128), generator=g, dtype=f64).to(dev)
+    args = (d.dia_vals, x2d)
+    yk = sdf.sdia_sym_tiles_df(*args, y0.clone(), d.dia_offsets)
+    yp = sk.sdia_sym_tiles_plain(*args, y0.clone(), d.dia_offsets)
+    scale = sk.sdia_sym_tiles_plain(d.dia_vals.abs(), x2d.abs(), y0.abs(),
+                                    d.dia_offsets)
+    err = _agree(yk, yp, scale, 2 * d.dia_vals.shape[1], "sdia_sym_df")
+    M_cant64, xl_cant64, Xe_cant64 = lib_operands("cant_proxy", f64)
+    sym_flops = 4 * nnz_of(d.dia_vals)
+    kern["sdia_sym_df"] = dict(
+        err=err, on="cant_proxy float64",
+        bytes=_nbytes(d.dia_vals, x2d) + 2 * _nbytes(y0), flops=sym_flops,
+        fn=lambda a=args, y=y0, o=d.dia_offsets: sdf.sdia_sym_tiles_df(
+            *a, y.clone(), o),
+        plain=lambda a=args, y=y0, o=d.dia_offsets: sk.sdia_sym_tiles_plain(
+            *a, y.clone(), o),
+        library=lambda: M_cant64 @ xl_cant64,
+    )
+
+    def make_sdia_df_mm(B, d=d, rows=x2d.shape[0], TD=TD):
+        x3 = planes(B, rows, dtype=f64)
+        y3 = planes(B, TD, extra=3, dtype=f64)
+        a = (d.dia_vals, x3)
+        o = d.dia_offsets
+        return (lambda: sdf.sdia_sym_tiles_df_mm(*a, y3.clone(), o),
+                lambda: sdf.sdia_sym_tiles_df_mm(*a, y3.clone(), o),
+                lambda: sk.sdia_sym_tiles_mm_plain(*a, y3.clone(), o),
+                lambda: sk.sdia_sym_tiles_mm_plain(
+                    d.dia_vals.abs(), x3.abs(), y3.abs(), o),
+                _nbytes(d.dia_vals, x3) + 2 * _nbytes(y3),
+                lambda: M_cant64 @ Xe_cant64)
+
+    mm_pair("sdia_sym_df_mm", make_sdia_df_mm, 2 * d.dia_vals.shape[1],
+            "cant_proxy float64", Bs=(1, 11, RHS), flops=RHS * sym_flops)
+
+    # B15 + B16: first on an 8-tile-block replan of general_asym(g=50)
+    # whose rows 20,000-59,999 are absent and get no covering chunks (so
+    # whole output blocks are never visited), then on audikw_proxy's
+    # float64 stream (the whole matrix, expanded); every output
+    # NaN-poisoned, compared on the visited blocks' rows, and unvisited
+    # blocks must keep their NaN
+    coo = general_asym(g=50).to_coo()
+    keep = (coo.row < 20_000) | (coo.row >= 60_000)
+    hp = build_bell2_from_arrays(
+        coo.nrows, coo.ncols, np.asarray(coo.row[keep], np.int32),
+        np.asarray(coo.col[keep], np.int32),
+        np.asarray(coo.val[keep], np.float64), dtype=np.float64,
+        force_slot=True, tiles_per_block=8, cover_all_tiles=False)
+    # the appliers read every block of an ungrouped stream's output, so
+    # the upload refuses this plan; its arrays go to the kernel wrappers
+    # only, in a struct built by hand after the same index checks
+    try:
+        ops.fp64_to_device(hp, dev)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("fp64_to_device took a plan with unvisited "
+                             "blocks")
+    hp_contig = hp.windows_contig or hp.window_depth > 8
+    ops._check_stream_plan(hp, hp_contig)
+    holes = ops.Fp64Device(
+        nrows=hp.nrows, ncols=hp.ncols, num_row_tiles=hp.num_row_tiles,
+        x_rows=hp.x_rows, chunks_per_step=hp.chunks_per_step,
+        tiles_per_block=hp.tiles_per_block, contig=hp_contig, has_work=True,
+        **{k: ops._tensor(getattr(hp, k), dev)
+           for k in ("vals", "packed", "meta", "step_block")})
+    A, d, xe = operands("audikw_proxy_f64")
+    x_h = torch.rand(holes.ncols, generator=g, dtype=f64).to(dev)
+    for ds, xs_, on in ((holes, x_h, "general_asym(g=50) with absent rows, "
+                         "8-tile blocks"), (d, xe, "audikw_proxy float64")):
+        BTs = ds.tiles_per_block
+        TPs = -(-ds.num_row_tiles // BTs) * BTs
+        visited = torch.unique(ds.step_block).long()
+        rows = (visited[:, None] * BTs
+                + torch.arange(BTs, device=dev)[None, :]).reshape(-1)
+        rest = torch.ones(TPs, dtype=torch.bool, device=dev)
+        rest[rows] = False
+        rows = rows[rows < ds.num_row_tiles]
+        if ds is holes and not (rest.any() and len(visited) > 8):
+            raise AssertionError("the replan has no unvisited block")
+        kw_s = ds.stream_kw()
+        x2d_s = ops.pad_x(xs_, ds.x_rows)
+        sargs = (ds.vals, ds.packed, ds.meta, ds.step_block, x2d_s)
+        out = poisoned((TPs, 128), f64)
+        fk = bdf.bell2_spmv_tiles_df(*sargs, out=out, **kw_s)
+        fp = bk.bell2_spmv_tiles_plain(*sargs, **kw_s)
+        fs = bk.bell2_spmv_tiles_plain(ds.vals.abs(), *sargs[1:4],
+                                       x2d_s.abs(), **kw_s)
+        nnz_s = nnz_of(ds.vals)
+        err = _agree(fk[rows], fp[rows], fs[rows], nnz_s / ds.nrows,
+                     f"bell2_spmv_df on {on}")
+        if not torch.isnan(out[rest]).all():
+            raise AssertionError(f"bell2_spmv_df on {on}: an unvisited "
+                                 "block was written")
+        print(f"kernel bell2_spmv_df on {on}: {ds.meta.shape[0]} chunks, "
+              f"{len(visited)} of {TPs // BTs} blocks visited, contig="
+              f"{ds.contig}, max_abs_err vs twin {err}", flush=True)
+        S_df = stream_csr(torch, ds)
+        kern["bell2_spmv_df"] = dict(
+            err=max(err, kern.get("bell2_spmv_df", {}).get("err", 0.0)),
+            on=on, bytes=_nbytes(*sargs) + _nbytes(fp), flops=2 * nnz_s,
+            fn=lambda: bdf.bell2_spmv_tiles_df(*sargs, **kw_s),
+            plain=lambda: bk.bell2_spmv_tiles_plain(*sargs, **kw_s),
+            library=csr_mv(S_df, x2d_s),
+        )
+
+        def make_bell2_df_mm(B, ds=ds, TPs=TPs, kw_s=kw_s, rest=rest,
+                             S_df=S_df, on=on, fp=fp):
+            sa = (ds.vals, ds.packed, ds.meta, ds.step_block,
+                  planes(B, ds.x_rows, extra=2, dtype=f64))
+
+            def check():
+                out = poisoned((B, TPs, 128), f64)
+                got = bdf.bell2_spmm_tiles_df(*sa, out=out, **kw_s)
+                if not torch.isnan(out[:, rest]).all():
+                    raise AssertionError(f"bell2_spmm_df on {on}: an "
+                                         "unvisited block was written")
+                return got
+
+            return (check,
+                    lambda: bdf.bell2_spmm_tiles_df(*sa, **kw_s),
+                    lambda: bk.bell2_spmm_tiles_plain(*sa, **kw_s),
+                    lambda: bk.bell2_spmm_tiles_plain(
+                        ds.vals.abs(), *sa[1:4], sa[4].abs(), **kw_s),
+                    _nbytes(*sa[:4]) + B * (_nbytes(sa[4][0]) + _nbytes(fp)),
+                    csr_mv(S_df, sa[4]))
+
+        mm_pair("bell2_spmm_df", make_bell2_df_mm, nnz_s / ds.nrows, on,
+                rows=rows, Bs=(1, 11, RHS), flops=RHS * 2 * nnz_s)
     phase_done("4 kernels against twins")
 
     # -- 5. times: kernels, then the kernel path against the plain path --
     for name, k in kern.items():
+        f64 = "_df" in name  # the four float64 kernels
         k["ms"] = _median_ms(torch, k["fn"])
         k["plain_ms"] = _median_ms(torch, k["plain"])
-        busy, k["device"] = _device_ms(torch, k["fn"])
+        k["library_ms"] = _median_ms(torch, k["library"])
+        k["device_ms"], k["device"] = _device_ms(torch, k["fn"])
+        k["library_device_ms"], _ = _device_ms(torch, k["library"])
+        k["bound_ms"], k["bound_by"] = _bound(
+            k["bytes"], k["flops"], "float64" if f64 else "float32")
         print(f"kernel {name} on {k['on']}: max_abs_err vs twin {k['err']} "
-              f"kernel {k['ms']:.4f} ms twin {k['plain_ms']:.4f} ms; "
-              f"{_fmt_device(busy, k['device'])}; "
-              f"{k['bytes'] / 1e6:.2f} MB of operands -> "
-              f"{k['bytes'] / k['ms'] / 1e6:.0f} GB/s by event time "
-              f"({card})", flush=True)
+              f"kernel {k['ms']:.4f} ms twin {k['plain_ms']:.4f} ms "
+              f"library call {k['library_ms']:.4f} ms (device "
+              f"{_ms(k['library_device_ms'])}); "
+              f"{_fmt_device(k['device_ms'], k['device'])}; "
+              f"{k['bytes'] / 1e6:.2f} MB of operands and "
+              f"{k['flops'] / 1e6:.2f} Mflop -> bound {k['bound_ms']:.4f} "
+              f"ms by {k['bound_by']} (HBM rate; operands under 50 MB "
+              f"can sit in L2), {k['bytes'] / k['ms'] / 1e6:.0f} GB/s by "
+              f"event time ({card})", flush=True)
     # the stream read once for 8 right-hand sides against 8 reads: the
     # MM(8) kernel's device time beside 8x its SpMV form's, same plan
     for mm, mv, kernel in (("bell2_spmm", "bell2_spmv", "bell2_spmv_kernel"),
                            ("sbell_spmm", "sbell_spmv", "sbell_spmv_kernel"),
-                           ("sdia_sym_mm", "sdia_sym", "sdia_sym_kernel")):
-        t_mm = kern[mm]["device"].get(kernel, 0.0)
-        t_mv = kern[mv]["device"].get(kernel, 0.0)
+                           ("sdia_sym_mm", "sdia_sym", "sdia_sym_kernel"),
+                           ("bell2_spmm_df", "bell2_spmv_df",
+                            "bell2_spmv_kernel"),
+                           ("sdia_sym_df_mm", "sdia_sym_df",
+                            "sdia_sym_kernel")):
+        t_mm = kern[mm]["device"].get(kernel)
+        t_mv = kern[mv]["device"].get(kernel)
         print(f"MM({RHS}) vs {RHS}x SpMV device time, {kernel} on "
-              f"{kern[mv]['on']}: MM({RHS}) {t_mm:.4f} ms, SpMV {t_mv:.4f} "
-              f"ms (0: not measured), ratio MM / ({RHS} SpMV) "
-              f"{_ratio(t_mm, RHS * t_mv)} ({card})", flush=True)
+              f"{kern[mv]['on']}: MM({RHS}) {_ms(t_mm)} ms, SpMV {_ms(t_mv)} "
+              f"ms, ratio MM / ({RHS} SpMV) "
+              f"{_ratio(t_mm, t_mv and RHS * t_mv)} ({card})", flush=True)
     for name in RUNS:
         A, d, xe = operands(name)
-        general = isinstance(d, ops.Bell2Device)
-        apply = ops.bell2_apply if general else ops.sbell_apply
-        apply_mm = ops.bell2_apply_mm if general else ops.sbell_apply_mm
+        apply, apply_mm = {
+            ops.Bell2Device: (ops.bell2_apply, ops.bell2_apply_mm),
+            ops.SBellDevice: (ops.sbell_apply, ops.sbell_apply_mm),
+            ops.Fp64Device: (ops.fp64_apply, ops.fp64_apply_mm),
+        }[type(d)]
         yk = apply(d, xe)
         yp = apply(d, xe, plain=True)
         e2e_err = float((yk - yp).abs().max())
@@ -811,7 +1246,7 @@ def main() -> int:
             flush=True,
         )
         # SpMM(8): the MM kernel path, its plain path, and 8 SpMV applies
-        Xe = torch.rand((A.ncols, RHS), generator=g).to(dev)
+        Xe = torch.rand((A.ncols, RHS), generator=g, dtype=xe.dtype).to(dev)
         cols = [Xe[:, b].contiguous() for b in range(RHS)]
         Yk = apply_mm(d, Xe)
         Yp = apply_mm(d, Xe, plain=True)
@@ -827,9 +1262,40 @@ def main() -> int:
             f"{ms_mm_p:.4f} ms, {RHS} SpMV applies {ms_8:.4f} ms; max "
             f"|kernel - plain| {mm_err}; kernel path "
             f"{_fmt_device(busy_mm, by_mm)}; {RHS} SpMV applies device "
-            f"{busy_8:.4f} ms, ratio {_ratio(busy_mm, busy_8)} ({card})",
+            f"{_ms(busy_8)} ms, ratio {_ratio(busy_mm, busy_8)} ({card})",
             flush=True,
         )
+    # one kernel, one stream, other addresses: cant_proxy() NONE's stream
+    # kernel on fresh copies of its operands, each made after a further
+    # allocation that stays held, to tell what a reading owes to where
+    # the operands lie from what it owes to the code
+    A, d, xe = operands("cant_proxy_none")
+    held, reads = [], []
+    for mb in (0, 2, 6, 14, 30, 62):
+        held.append(torch.empty(mb << 20, dtype=torch.uint8, device=dev))
+        copy = [t.clone() for t in (d.vals, d.packed, d.meta, d.step_block,
+                                    ops.pad_x(xe, d.x_rows))]
+        _, by = _device_ms(
+            torch, lambda: bk.bell2_spmv_tiles(*copy, **d.stream_kw()))
+        reads.append(_ms(by.get("bell2_spmv_kernel")))
+        held.append(copy)  # the next copies land elsewhere
+    print(f"placement cant_proxy_none: bell2_spmv_kernel device ms on six "
+          f"copies of one stream: {', '.join(reads)} ({card})", flush=True)
+    del held, copy
+    # the library call for each whole matrix: one sparse CSR product
+    for mname, csr in mats.items():
+        said = []
+        for dt in (torch.float32, torch.float64):
+            M, xv, Xv = lib_operands(mname, dt)
+            for what, fn in (("SpMV", lambda: M @ xv),
+                             (f"SpMM({RHS})", lambda: M @ Xv)):
+                ms = _median_ms(torch, fn)
+                busy, _ = _device_ms(torch, fn)
+                said.append(f"{str(dt)[6:]} {what} {ms:.4f} ms (device "
+                            f"{_ms(busy)})")
+        print(f"library torch.sparse_csr_tensor(A) @ x on {mname} "
+              f"(n={csr.nrows}): " + ", ".join(said) + f" ({card})",
+              flush=True)
     phase_done("5 times")
 
     # -- 6. the differential CLI on a written .mtx ----------------------
@@ -863,6 +1329,15 @@ def main() -> int:
             "max_abs_err": kern[name]["err"],
             "ms": kern[name]["ms"],
             "plain_ms": kern[name]["plain_ms"],
+            "bound_ms": kern[name]["bound_ms"],
+            "bound_by": kern[name]["bound_by"],
+            "library_ms": kern[name]["library_ms"],
+            # beyond the event times above (wrapper overhead included):
+            # the card's own time from the profiler (an accumulated y's
+            # clone included), null if it saw no device events
+            "device_ms": kern[name]["device_ms"],
+            "library_device_ms": kern[name]["library_device_ms"],
+            "on": kern[name]["on"],
         }
         for name in wrappers
     ]}))

@@ -488,8 +488,8 @@ def test_bell2_wrappers_check_operands():
     y3d = torch.zeros((2, TP, 128))
     with pytest.raises(ValueError, match="x3d"):  # a 2-D x
         bk.bell2_spmm_tiles(*args, x2d, **kw)
-    with pytest.raises(ValueError, match="float32"):
-        bk.bell2_spmm_tiles(*args, x3d.double(), **kw)
+    with pytest.raises(TypeError, match="float64.*float32"):
+        bk.bell2_spmm_tiles(*args, x3d.double(), **kw)  # names both types
     with pytest.raises(ValueError, match="contiguous"):
         bk.bell2_spmm_tiles(*args, torch.zeros((2, 128, plan.x_rows))
                             .transpose(1, 2), **kw)

@@ -21,12 +21,16 @@ from cfs_spmv_tpu.formats.bell2 import build_general_plan as ref_general
 from cfs_spmv_tpu.formats.coo import COO as RefCOO
 from cfs_spmv_tpu.formats.csr import CSR as RefCSR
 from cfs_spmv_tpu.formats.sbell import build_sbell_plan as ref_build
+from cfs_spmv_tpu.tuning.tune import _tune_fp64_df as ref_tune_fp64
 from cfs_spmv_tpu.utils import proxies as ref_proxies
+from cfs_spmv_tpu.utils.platform import Format as RefFormat
 from cfs_spmv_tpu_torch.formats import bsr
 from cfs_spmv_tpu_torch.formats import sdia as port_sdia
 from cfs_spmv_tpu_torch.formats.bell2 import build_general_plan
 from cfs_spmv_tpu_torch.formats.csr import CSR
 from cfs_spmv_tpu_torch.formats.sbell import build_sbell_plan
+from cfs_spmv_tpu_torch.ops.bell2_df import split_df
+from cfs_spmv_tpu_torch.tuning.tune import build_fp64_plan
 from cfs_spmv_tpu_torch.utils import proxies
 
 
@@ -176,3 +180,89 @@ def test_smoke_flagship_matches_reference_generator():
     for kw in ({}, dict(n=2048, deg=32, seed=3)):
         assert_same_plan(chip_smoke.flagship(**kw),
                          port_csr(__graft_entry__._flagship(**kw)), "csr")
+
+
+def _fp64_band_plus_tail():
+    """A symmetric band plus a scattered strict-lower tail."""
+    rng = np.random.default_rng(14)
+    n = 4096
+    band = RefCOO.random(n, n, 10.0, symmetric=True, bandwidth=8, seed=15,
+                         dtype=np.float64)
+    r = rng.integers(1, n, 2000)
+    c = (r - rng.integers(1, 900, 2000)).clip(0)
+    keep = r != c
+    return RefCSR.from_coo(RefCOO(
+        n, n, np.concatenate([band.row, r[keep]]),
+        np.concatenate([band.col, c[keep]]),
+        np.concatenate([band.val, rng.uniform(-1, 1, keep.sum())]),
+        symmetric=True).canonicalize())
+
+
+def _fp64_scattered():
+    """One dense row among short ones: the planner groups rows by degree."""
+    rng = np.random.default_rng(4)
+    n = 4096
+    row = np.concatenate([np.repeat(np.arange(n, dtype=np.int64), 3),
+                          np.full(600, 17, np.int64)])
+    col = rng.integers(0, n, len(row))
+    return RefCSR.from_coo(RefCOO(
+        n, n, row, col, rng.uniform(-1, 1, len(row))).canonicalize())
+
+
+#: name -> (matrix, format, diagonals peeled, residual stream, grouped)
+FP64 = {
+    "banded_symmetric": (lambda: RefCSR.from_coo(RefCOO.random(
+        5000, 5000, 14.0, symmetric=True, bandwidth=16, seed=12,
+        dtype=np.float64)), "SSS", True, False, False),
+    "band_plus_tail": (_fp64_band_plus_tail, "SSS", True, True, True),
+    "scattered_grouped": (lambda: RefCSR.from_coo(RefCOO.random(
+        3000, 3000, 6.0, bandwidth=100, seed=1, dtype=np.float64)),
+        "CSR", False, True, True),
+    "scattered_deep": (_fp64_scattered, "CSR", False, True, False),
+    "rectangular": (lambda: RefCSR.from_coo(RefCOO.random(
+        900, 1400, 4.0, bandwidth=200, seed=10, dtype=np.float64)),
+        "CSR", False, True, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FP64))
+def test_fp64_plans_match_reference(name):
+    """The float64 plan carried across: every index field and geometry
+    scalar of the port's plan equals the plan inside the reference's
+    ``_tune_fp64_df`` byte for byte, the diagonal planes (both float64,
+    the main diagonal halved) byte for byte, and the port's float64 stream
+    values split into (hi, lo) are exactly the reference's two float32
+    planes."""
+    make, fmt, peeled, resid, grouped = FP64[name]
+    ref_csr = make()
+    ref_plan = ref_tune_fp64(ref_csr, RefFormat[fmt]).plan
+    plan = build_fp64_plan(port_csr(ref_csr))
+    assert plan.vals.dtype == np.float64 and plan.vals2 is None
+    assert ref_plan.vals.dtype == np.float32
+    for f in dataclasses.fields(plan):
+        a, b = getattr(plan, f.name), getattr(ref_plan, f.name)
+        if f.name in ("vals", "vals2", "dia"):
+            continue
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and a.shape == b.shape, f.name
+            assert a.tobytes() == b.tobytes(), f.name
+        else:
+            assert a == b and (type(a) is type(b) or a is None), f.name
+    hi, lo = split_df(plan.vals)
+    assert hi.tobytes() == ref_plan.vals.tobytes()
+    if resid:
+        assert lo.tobytes() == ref_plan.vals2.tobytes()
+    else:  # an empty stream has no second plane
+        assert ref_plan.vals2 is None and not plan.vals.any()
+    assert (plan.dia is not None) == peeled
+    assert (plan.nnz > 0) == resid
+    assert (plan.row_perm is not None) == grouped
+    if peeled:
+        assert_same_plan(plan.dia, ref_plan.dia, "dia")
+        assert plan.dia.vals.dtype == np.float64
+        assert plan.dia.offsets[0] == 0 and min(plan.dia.offsets) == 0
+        j = plan.dia.offsets.index(0)
+        n = ref_csr.nrows
+        main = ref_csr.data[ref_csr.indptr[1:] - 1]  # last of each row
+        assert np.array_equal(plan.dia.vals[:, j].reshape(-1)[:n],
+                              0.5 * main)

@@ -21,7 +21,9 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "cfs_spmv_tpu"))
 print(len(names), bad)
-assert len(names) >= 20, names
+assert len(names) >= 23, names
+for new in ("ops.sdia_df", "ops.bell2_df", "ops.xla_ref"):
+    assert "cfs_spmv_tpu_torch." + new in names, new
 assert not bad, bad
 """
 

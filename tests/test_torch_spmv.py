@@ -9,8 +9,11 @@ stream under ``CFS_PAIRED=force``; mirrored diagonals past
 ``SDIA_SYM_ROWS_MAX``. SpMM (``SpDMM``, ``SpDMV`` with a 2-D X, ``A @
 X``) runs against the reference's SpMM and the oracle column by column
 on the same paths, B = 1 as a 2-D X included. The differential CLI runs
-on a written ``.mtx``, and everything off the slice raises
-``NotImplementedError``.
+on a written ``.mtx`` (in float32 and, with ``--dp``, in float64), and
+what is still off the slice (bfloat16 values) raises
+``NotImplementedError``. The float64 route has its own file,
+``tests/test_torch_fp64.py``; here the tests that once held its refusal
+run it against the oracle.
 
 Tolerance: ``allclose_spmv`` at float32 with the backward-error scale
 ``|A| |x|``, since the reference, the twins and the card's atomics all
@@ -393,8 +396,9 @@ def test_cli_test_spmv_mmf_passes(fmt, tmp_path, capsys):
               symmetric=True)
     assert run_test_cli([str(path), fmt, "--device", "cpu"]) == 0
     assert capsys.readouterr().out.strip().endswith("PASSED!")
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_test_cli([str(path), fmt, "--device", "cpu", "--dp"])
+    # --dp: the same harness in float64, at the 1e-8 gate
+    assert run_test_cli([str(path), fmt, "--device", "cpu", "--dp"]) == 0
+    assert capsys.readouterr().out.strip().endswith("PASSED!")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             run_test_cli([str(path), fmt])  # --device defaults to cuda
@@ -472,8 +476,9 @@ def test_mirrored_sdia_raises(monkeypatch):
 
 
 def test_general_path_raises():
-    """The general path runs, SpMM included (untuned ``A @ X``); what it
-    still refuses: a 2-D X to the 1-D applier, B = 0 and float64 (A8)."""
+    """The general path runs, SpMM included (untuned ``A @ X``), and in
+    float64 too; what it still refuses: a 2-D X to the 1-D applier and
+    B = 0."""
     coo = COO.random(500, 500, 4.0, seed=1)
     A = ct.SparseMatrix.create(coo, ct.Format.CSR)
     x = np.ones(500, np.float32)
@@ -490,30 +495,57 @@ def test_general_path_raises():
         ops.bell2_apply(A.tuned.operands, torch.ones((500, 2)))
     with pytest.raises(ValueError, match="B = 0"):
         A @ np.ones((500, 0), np.float32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ct.SpDMV(A, dtype=np.float64, device="cpu")
+    y64 = ct.SpDMV(A, dtype=np.float64, device="cpu")(x)
+    assert y64.dtype == torch.float64
+    _assert_close_f64(y64.numpy(), A.csr, x.astype(np.float64),
+                      A.tuned.nnz_full)
+
+
+def _assert_close_f64(y, csr, x, nnz_full):
+    """The float64 gate: ``allclose_spmv`` at 1e-8 with the scale."""
+    assert allclose_spmv(y, csr.spmv_host(x), np.float64,
+                         nnz_per_row=nnz_full / csr.nrows,
+                         scale=csr.spmv_host(x, absolute=True))
 
 
 def test_float64_and_bf16_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
-        ct.SpDMV(_small_sym(), dtype=np.float64, device="cpu")
+    """float64 runs (the symmetric route with its halved main diagonal)
+    and agrees with the oracle at the float64 gate; bfloat16 values still
+    raise, in float64 too."""
+    A = _small_sym()
+    x = random_x(A.ncols, np.float64)
+    y = ct.SpDMV(A, dtype=np.float64, device="cpu")(x)
+    assert y.dtype == torch.float64
+    assert isinstance(A.tuned.operands, ops.Fp64Device)
+    assert 0 in A.tuned.plan.dia.offsets
+    _assert_close_f64(y.numpy(), A.csr, x, A.tuned.nnz_full)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         ct.SpDMV(_small_sym(), values="bfloat16", device="cpu")
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        ct.SpDMV(_small_sym(), dtype=np.float64, values="bfloat16",
+                 device="cpu")
 
 
 def test_spmm_raises():
     """SpMM runs on the tuned symmetric path through ``SpDMM`` and
-    ``SpDMV`` with a 2-D X, and agrees with the oracle; what it still
-    refuses: float64 (A8), bfloat16 values (A5), a 2-D X to the 1-D
-    applier, a 1-D x to ``SpDMM``, and B = 0."""
+    ``SpDMV`` with a 2-D X, in float32 and in float64, and agrees with
+    the oracle; what it still refuses: bfloat16 values (A5), a 2-D X to
+    the 1-D applier, a 1-D x to ``SpDMM``, and B = 0."""
     A = _small_sym()
     X = random_X(A.ncols, 2)
     Y = ct.SpDMM(A, device="cpu")(X)
     _assert_close_mm(Y.numpy(), _oracle_mm(A.csr, X), A.csr, X,
                      A.tuned.nnz_full)
     assert torch.equal(ct.SpDMV(A, device="cpu")(X), Y)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ct.SpDMM(_small_sym(), dtype=np.float64, device="cpu")
+    A64 = _small_sym()
+    X64 = X.astype(np.float64)
+    Y64 = ct.SpDMM(A64, dtype=np.float64, device="cpu")(X64)
+    assert Y64.dtype == torch.float64 and Y64.shape == Y.shape
+    for b in range(X.shape[1]):
+        _assert_close_f64(Y64[:, b].numpy(), A64.csr, X64[:, b],
+                          A64.tuned.nnz_full)
+    with pytest.raises(ValueError, match="B = 0"):
+        ct.SpDMM(A64, dtype=np.float64, device="cpu")(X64[:, :0])
     with pytest.raises(NotImplementedError, match="bfloat16"):
         ct.SpDMM(_small_sym(), values="bfloat16", device="cpu")
     with pytest.raises(ValueError, match="sbell_apply_mm"):

@@ -11,8 +11,11 @@ byte-identical to it by ``tests/test_torch_formats.py``.
 Usage::
 
     A = SparseMatrix.create(csr_or_coo_or_path, Format.SSS)  # or CSR
-    y = SpDMV(A, Tuning.AGGRESSIVE, dtype=np.float32, device="cuda")(x)
-    Y = SpDMM(A, Tuning.AGGRESSIVE, dtype=np.float32, device="cuda")(X)
+    y = SpDMV(A, Tuning.AGGRESSIVE, dtype=np.float32)(x)
+    Y = SpDMM(A, Tuning.AGGRESSIVE, dtype=np.float32)(X)
+
+``device`` defaults to ``"cuda"``; ``device="cpu"`` runs the kernels'
+plain PyTorch twins.
 
 Nothing here imports JAX, and nothing CUDA-specific runs at import time:
 the kernels are built by nvcc on their first launch.

@@ -169,10 +169,11 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 
 // ---------------------------------------------------------------------------
 // bell2_spmv — replaces cfs_spmv_tpu/ops/bell2_kernel.py:bell2_spmv_tiles
-// (B2, zero_blocks = 1) and bell2_spmv_tiles_accum (B4, zero_blocks = 0);
-// over planes, bell2_spmm_tiles (B7) and bell2_spmm_tiles_accum (B8); with
-// T = double, cfs_spmv_tpu/ops/bell2_df.py:bell2_spmv_tiles_df (B15) and
-// bell2_spmm_tiles_df (B16). The reference's double-float kernels write
+// (B2) and, over planes, bell2_spmm_tiles (B7); with T = double,
+// cfs_spmv_tpu/ops/bell2_df.py:bell2_spmv_tiles_df (B15) and
+// bell2_spmm_tiles_df (B16). Every launch follows the zero pass below:
+// y = A x over the blocks the stream visits. The accumulating forms (B4,
+// B8) run bell2_entries instead. The reference's double-float kernels write
 // 8x-tall sublane partials (or fold them pairwise) to keep compensated sums
 // out of the TPU's reduce tree; the double instance sums a row's 8 sublanes
 // in a double register like the float one, so there is nothing to fold.
@@ -294,6 +295,76 @@ bell2_spmv_kernel(const T* __restrict__ vals,
     }
   }
   if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+}
+
+// ---------------------------------------------------------------------------
+// bell2_entries — replaces cfs_spmv_tpu/ops/bell2_kernel.py:
+// bell2_spmv_tiles_accum (B4) and, over planes, bell2_spmm_tiles_accum (B8).
+//
+// y += R x for the sparse residual R that the peels leave behind. The TPU
+// kernel streams R in the (8, 128) chunk grid, which its scalar memory and
+// DMA need; a residual fills under 1% of those slots (65,380 live entries in
+// 7.86 million slots on the 65,536-row flagship, 120x padding), and walking
+// the grid reads 6 bytes and gathers one x for every empty slot. Here the
+// upload compacts the grid once into a row-sorted entry list (rows, cols:
+// flat int32 indices into the y and x planes; vals), 12 bytes a live entry,
+// and nothing else of the stream reaches the card.
+//
+// One thread per entry: three coalesced 4-byte loads, one x gather per plane,
+// no shared memory, no zero pass. Entries are row-sorted, so the entries of
+// one row are neighbouring lanes: a warp segmented sum (shuffle-down over
+// runs of equal row) leaves each run's total in its first lane, which issues
+// one atomicAdd per plane; a run that crosses a warp boundary costs one more
+// atomic, and rows no entry names are never touched. Bound by bytes: 12 B an
+// entry plus one 32-byte sector per x gather and per touched y row; at the
+// flagship's 0.8 MB that is far under a microsecond, so in practice the
+// kernel takes its launch plus one chain of dependent loads (col, then
+// x[col], then the atomic), like the pure gather of unperm_gather.
+// ---------------------------------------------------------------------------
+constexpr int kEntryThreads = 256;
+
+template <int kRhs>
+__global__ void __launch_bounds__(kEntryThreads)
+bell2_entries_kernel(const int* __restrict__ rows,
+                     const int* __restrict__ cols,
+                     const float* __restrict__ vals, int64_t E,
+                     const float* __restrict__ x, int64_t xs,
+                     float* __restrict__ y, int64_t ys, int nr) {
+  const int64_t e =
+      static_cast<int64_t>(blockIdx.x) * kEntryThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // lanes past the end stay for the shuffles, in a run of their own
+  const bool valid = e < E;
+  const int row = valid ? rows[e] : -1;
+  float acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+  if (valid) {
+    const float v = vals[e];
+    const float* xc = x + cols[e];
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b)
+      if (live<kRhs>(b, nr)) acc[b] = v * xc[b * xs];
+  }
+  // before the step at distance d a lane holds the sum of its run's entries
+  // in [lane, lane + d); rows ascend, so an equal row d lanes on means the
+  // lanes between belong to the run too
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int other = __shfl_down_sync(0xffffffffu, row, d);
+    const bool same = lane + d < 32 && other == row;
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) {
+      const float add = __shfl_down_sync(0xffffffffu, acc[b], d);
+      if (same) acc[b] += add;
+    }
+  }
+  const int before = __shfl_up_sync(0xffffffffu, row, 1);
+  if (valid && (lane == 0 || before != row)) {
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b)
+      if (live<kRhs>(b, nr)) atomicAdd(y + b * ys + row, acc[b]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -471,15 +542,14 @@ int launch_sdia_sym(const T* vals, const int* offsets, int D,
 template <typename T>
 int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
                       const int* step_block, int64_t C, int K, int BT,
-                      int contig, int zero_blocks, const T* x, int64_t xs,
-                      T* y, int64_t ys, int nr, cudaStream_t stream) {
+                      int contig, const T* x, int64_t xs, T* y, int64_t ys,
+                      int nr, cudaStream_t stream) {
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
     if (C <= 0) return;
-    if (zero_blocks)
-      bell2_zero_blocks_kernel<T>
-          <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
-              step_block, BT, y, ys);
+    bell2_zero_blocks_kernel<T>
+        <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
+            step_block, BT, y, ys);
     const unsigned int grid = blocks_for(C, kChunksPerCta);
     if (contig)
       bell2_spmv_kernel<true, R, T><<<grid, kLanes, 0, stream>>>(
@@ -552,21 +622,31 @@ int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
 
 int cfs_bell2_spmv(const float* vals, const int16_t* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT,
-                   int contig, int zero_blocks, const float* x, int64_t xs,
-                   float* y, int64_t ys, int nr, cudaStream_t stream) {
+                   int contig, const float* x, int64_t xs, float* y,
+                   int64_t ys, int nr, cudaStream_t stream) {
   return launch_bell2_spmv<float>(vals, packed, meta, step_block, C, K, BT,
-                                  contig, zero_blocks, x, xs, y, ys, nr,
-                                  stream);
+                                  contig, x, xs, y, ys, nr, stream);
 }
 
 int cfs_bell2_spmv_f64(const double* vals, const int16_t* packed,
                        const int* meta, const int* step_block, int64_t C,
-                       int K, int BT, int contig, int zero_blocks,
-                       const double* x, int64_t xs, double* y, int64_t ys,
-                       int nr, cudaStream_t stream) {
+                       int K, int BT, int contig, const double* x, int64_t xs,
+                       double* y, int64_t ys, int nr, cudaStream_t stream) {
   return launch_bell2_spmv<double>(vals, packed, meta, step_block, C, K, BT,
-                                   contig, zero_blocks, x, xs, y, ys, nr,
-                                   stream);
+                                   contig, x, xs, y, ys, nr, stream);
+}
+
+int cfs_bell2_entries(const int* rows, const int* cols, const float* vals,
+                      int64_t E, const float* x, int64_t xs, float* y,
+                      int64_t ys, int nr, cudaStream_t stream) {
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (E > 0)
+      bell2_entries_kernel<R>
+          <<<blocks_for(E, kEntryThreads), kEntryThreads, 0, stream>>>(
+              rows, cols, vals, E, x, xs, y, ys, nr);
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
 int cfs_unperm_gather(const int* pk, const int* rows, int W, const float* g,

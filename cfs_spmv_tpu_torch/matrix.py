@@ -127,10 +127,11 @@ class SparseMatrix:
         tuning: Tuning = Tuning.AGGRESSIVE,
         *,
         dtype=np.float32,
-        device="cpu",
+        device="cuda",
         **kwargs,
     ) -> "SparseMatrix":
-        """Preprocess into the tuned layout on ``device``
+        """Preprocess into the tuned layout on ``device``: the card by
+        default, which raises ``RuntimeError`` where CUDA is absent
         (ref ``CSRMatrix::tune``, ``csr_matrix.tpp:230-310``). Extra
         kwargs (``reorder``, ``values``) pass through to
         :func:`cfs_spmv_tpu_torch.tuning.tune.tune`."""
@@ -145,10 +146,11 @@ class SparseMatrix:
     def dense_vector_multiply(self, x):
         """y = A @ x (ref ``sparse_matrix.hpp:36``). Tunes with the
         untuned-oracle defaults on first use if untuned: ``Tuning.NONE``,
-        the general one-sided path on the CPU (a symmetric matrix is
-        expanded)."""
+        the general one-sided path (a symmetric matrix is expanded), on
+        x's device when x is a tensor and on the card otherwise."""
         if self._tuned is None:
-            self.tune(tuning=Tuning.NONE)
+            device = x.device if isinstance(x, torch.Tensor) else "cuda"
+            self.tune(tuning=Tuning.NONE, device=device)
         x = torch.as_tensor(x, dtype=self._tuned.dtype,
                             device=self._tuned.device)
         if x.ndim != 1:

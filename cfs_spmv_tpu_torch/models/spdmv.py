@@ -2,10 +2,11 @@
 
 Port of ``cfs_spmv_tpu/models/spdmv.py``: the analog of the reference's
 ``SpDMV`` functor (``include/kernel/sparse_kernel.hpp:17-27``,
-``.tpp:8-27``): construction runs preprocessing (``tune()``) onto an
-explicit device, and the call operator checks dimensions and dispatches
-to the bound kernel path (SpMM for a 2-D X), returning y instead of
-writing into a caller buffer.
+``.tpp:8-27``): construction runs preprocessing (``tune()``) onto
+``device`` (the card unless the caller names another; without CUDA that
+raises), and the call operator checks dimensions and dispatches to the
+bound kernel path (SpMM for a 2-D X), returning y instead of writing
+into a caller buffer.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ class SpDMV:
         tuning: Tuning = Tuning.AGGRESSIVE,
         *,
         dtype=np.float32,
-        device="cpu",
+        device="cuda",
         **kwargs,
     ):
         self.A = A

@@ -5,8 +5,11 @@ the fp32 SpMV and SpMM paths reach:
 
 - ``bell2_spmv_tiles`` (kernel B2): ``y = A x`` for one stream; the
   blocks the stream visits are zeroed first, the others left unset;
-- ``bell2_spmv_tiles_accum`` (B4): the same stream added into a given
-  ``y`` (sparse far residuals, which visit few blocks);
+- ``bell2_spmv_tiles_accum`` (B4): a sparse residual added into a given
+  ``y``. The reference walks the residual's chunk grid, which is almost
+  all padding; here :func:`compact_stream` turns that grid, once per
+  upload, into a row-sorted list of its live entries (``EntryStream``),
+  and the kernel runs one thread per entry;
 - ``unperm_gather_tiles`` (B3): original-order rows from a
   degree-grouped stream's compact output tiles;
 - ``sbell_spmv_tiles`` (B5): ``y = (L + Lᵀ) x`` from the paired
@@ -38,6 +41,9 @@ word path) are not ported: the CUDA kernel reads the plan's int16
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from . import _cuda
@@ -47,6 +53,8 @@ LANES = 128
 META_W = 2 + SUBLANES
 
 __all__ = [
+    "EntryStream",
+    "compact_stream",
     "bell2_spmv_tiles",
     "bell2_spmv_tiles_accum",
     "bell2_spmv_tiles_plain",
@@ -158,26 +166,98 @@ def bell2_spmv_tiles_plain(vals, packed, meta, step_block, x2d, *,
     return out[:num_row_tiles]
 
 
-def bell2_spmv_tiles_accum_plain(vals, packed, meta, step_block, x2d,
-                                 y_tiles, *, num_row_tiles, chunks_per_step,
-                                 tiles_per_block, contig):
-    """Plain PyTorch twin of :func:`bell2_spmv_tiles_accum` (any device)."""
-    tgt, rows = _row_sums_plain(vals, packed, meta, step_block, x2d,
-                                chunks_per_step, tiles_per_block, contig)
-    y_tiles.index_add_(0, tgt, rows)
+@dataclasses.dataclass
+class EntryStream:
+    """The live entries of a sparse accumulating stream, sorted by row:
+    what ``bell2_spmv_tiles_accum`` and ``bell2_spmm_tiles_accum`` read
+    in place of the chunk grid (12 bytes an entry in float32)."""
+
+    rows: torch.Tensor  # (E,) int32 flat index into the (T, 128) y tiles
+    cols: torch.Tensor  # (E,) int32 flat index into the (x_rows, 128) x
+    vals: torch.Tensor  # (E,) in the stream's type
+    #: the tiles y and the rows x must at least hold (largest index + 1,
+    #: in tiles of 128): the kernel reads and adds without bounds checks
+    min_tiles: int
+    min_x_rows: int
+
+    @property
+    def count(self) -> int:
+        return self.rows.shape[0]
+
+    def to(self, device) -> "EntryStream":
+        return dataclasses.replace(self, rows=self.rows.to(device),
+                                   cols=self.cols.to(device),
+                                   vals=self.vals.to(device))
+
+
+def compact_stream(vals, packed, meta, step_block, *, chunks_per_step,
+                   tiles_per_block, contig, num_row_tiles,
+                   x_rows) -> EntryStream:
+    """The nonzero slots of a one-sided chunk stream (host numpy arrays,
+    as a ``Bell2Plan`` holds them) as an :class:`EntryStream` on the CPU.
+
+    Decodes as :func:`_row_sums_plain` does: slot (i, l) of chunk c holds
+    the gather lane ``q = pk & 0x7F``; its window index r2 is bits 7-11
+    of the word at lane q of the same sublane; the x row is
+    ``meta[c, 2] + r2`` when ``contig``, else ``meta[c, 2 + (r2 & 7)]``;
+    the slot adds into row ``(step_block[c // K] * BT + meta[c, 0]) * 128
+    + l``. Slots whose value is 0 (padding, and stored explicit zeros)
+    drop out. The entries are sorted by row, stably, so within a row they
+    keep the stream's order. Raises ``ValueError`` when a row lies past
+    ``num_row_tiles`` tiles, a column past ``x_rows`` rows of x, or
+    either does not fit int32.
+    """
+    K, BT = chunks_per_step, tiles_per_block
+    meta = np.asarray(meta).astype(np.int64)
+    C = meta.shape[0]
+    vals = np.asarray(vals).reshape(C, SUBLANES, LANES)
+    pk = np.asarray(packed).reshape(C, SUBLANES, LANES)
+    c, i, lane = np.nonzero(vals)  # only live slots are decoded
+    q = pk[c, i, lane].astype(np.int64) & 0x7F
+    r2 = (pk[c, i, q].astype(np.int64) >> 7) & 0x1F
+    xrow = meta[c, 2] + r2 if contig else meta[c, 2 + (r2 & 7)]
+    tile = np.asarray(step_block).astype(np.int64)[c // K] * BT + meta[c, 0]
+    rows, cols = tile * LANES + lane, xrow * LANES + q
+    if rows.size:
+        limit = np.iinfo(np.int32).max
+        if rows.min() < 0 or rows.max() >= min(num_row_tiles * LANES, limit):
+            raise ValueError(
+                f"an entry's row lies outside the {num_row_tiles} output "
+                "tiles (or past int32)")
+        if cols.min() < 0 or cols.max() >= min(x_rows * LANES, limit):
+            raise ValueError(
+                f"an entry's column lies outside the {x_rows} rows of x "
+                "(or past int32)")
+    order = np.argsort(rows, kind="stable")
+    rows, cols = rows[order], cols[order]
+    return EntryStream(
+        rows=torch.from_numpy(rows.astype(np.int32)),
+        cols=torch.from_numpy(cols.astype(np.int32)),
+        vals=torch.from_numpy(np.ascontiguousarray(vals[c, i, lane][order])),
+        min_tiles=int(rows[-1]) // LANES + 1 if rows.size else 0,
+        min_x_rows=int(cols.max()) // LANES + 1 if rows.size else 0,
+    )
+
+
+def bell2_spmv_tiles_accum_plain(entries, x2d, y_tiles):
+    """Plain PyTorch twin of :func:`bell2_spmv_tiles_accum` (any device):
+    one gather, one product and one ``index_add_`` over the entries, in
+    the type of ``entries.vals``."""
+    prod = entries.vals * x2d.reshape(-1).index_select(0, entries.cols)
+    y_tiles.view(-1).index_add_(0, entries.rows, prod)
     return y_tiles
 
 
 def _launch_bell2(vals, packed, meta, step_block, x3d, y3d, K, BT, contig,
-                  zero_blocks, name):
-    """Launch the one-sided stream kernel over plane stacks; returns the
-    number of launches (one per group of planes)."""
+                  name):
+    """Launch the one-sided stream kernel (after its zero pass) over plane
+    stacks; returns the number of launches (one per group of planes)."""
     fn = _cuda.entry("bell2_spmv", vals.dtype)
     return _cuda.launch_groups(
         name, x3d, y3d, lambda *planes: fn(
             vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
             step_block.data_ptr(), meta.shape[0], K, BT, int(contig),
-            int(zero_blocks), *planes,
+            *planes,
         ))
 
 
@@ -220,36 +300,70 @@ def _spmv_tiles(wrapper, dtype, vals, packed, meta, step_block, x2d,
         )
     wrapper.launches += _launch_bell2(
         vals, packed, meta, step_block, x2d[None], out[None], K, BT, contig,
-        True, wrapper.__name__)
+        wrapper.__name__)
     return out[:num_row_tiles]
 
 
-def bell2_spmv_tiles_accum(vals, packed, meta, step_block, x2d, y_tiles, *,
-                           num_row_tiles, chunks_per_step, tiles_per_block,
-                           contig):
-    """``y_tiles += A @ x`` for a sparse accumulating BELL2 stream.
+def _check_entries(entries, x_rows, tiles):
+    """Shared by B4 and B8: the entry arrays' types, and that x and y
+    hold every index the entries name."""
+    if (entries.rows.dtype != torch.int32 or entries.cols.dtype != torch.int32
+            or entries.rows.ndim != 1
+            or not entries.rows.shape == entries.cols.shape
+            == entries.vals.shape):
+        raise ValueError("entries must hold (E,) int32 rows and cols and "
+                         "(E,) vals")
+    if x_rows < entries.min_x_rows:
+        raise ValueError(f"x must hold at least {entries.min_x_rows} rows "
+                         f"of 128, got {x_rows}")
+    if tiles < entries.min_tiles:
+        raise ValueError(f"y_tiles must hold at least {entries.min_tiles} "
+                         f"rows of 128 (the largest entry row), got {tiles}")
 
-    ``y_tiles``: (ceil(T/BT)*BT, 128) float32, added into in place (the
-    reference aliases it; blocks without chunks keep their values) and
-    returned. Other operands as :func:`bell2_spmv_tiles`.
+
+def _launch_entries(entries, x3d, y3d, name):
+    """Launch the entry kernel over plane stacks; returns the number of
+    launches (one per group of planes)."""
+    fn = _cuda.lib().cfs_bell2_entries
+    return _cuda.launch_groups(
+        name, x3d, y3d, lambda *planes: fn(
+            entries.rows.data_ptr(), entries.cols.data_ptr(),
+            entries.vals.data_ptr(), entries.count, *planes,
+        ))
+
+
+def bell2_spmv_tiles_accum(entries, x2d, y_tiles):
+    """``y_tiles += R @ x`` for a sparse accumulating stream R, given as
+    its :class:`EntryStream` (``compact_stream`` of the plan's chunk
+    grid).
+
+    ``x2d``: (x_rows, 128) float32; ``y_tiles``: (T, 128) float32 with at
+    least ``entries.min_tiles`` tiles, added into in place (the reference
+    aliases it) and returned. Rows no entry names keep their values bit
+    for bit.
+
+    Padded slots and stored zeros are not among the entries. For finite x
+    that changes no result. For a non-finite x it does: the reference's
+    chunk form multiplies the x at every padded slot's gather address by
+    0 and so spreads NaN into rows the matrix does not couple to it; the
+    entry form does not. That spread is a property of the chunk layout,
+    not a contract.
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
+    or raises.
     """
-    K, BT = chunks_per_step, tiles_per_block
-    dev = _device_of(vals, packed, meta, step_block, x2d, y_tiles)
-    _check_stream(vals, packed, meta, step_block, K)
+    dev = _device_of(entries.rows, entries.cols, entries.vals, x2d, y_tiles)
     _check_x2d(x2d)
-    TP = _tiles_padded(num_row_tiles, BT)
-    if tuple(y_tiles.shape) != (TP, LANES):
-        raise ValueError(f"y_tiles must be ({TP}, 128)")
+    if y_tiles.ndim != 2 or y_tiles.shape[1] != LANES:
+        raise ValueError("y_tiles must be (T, 128)")
+    _cuda.check_dtype(entries.vals, "entries.vals", torch.float32)
     _cuda.check_dtype(y_tiles, "y_tiles", torch.float32)
+    _check_entries(entries, x2d.shape[0], y_tiles.shape[0])
     if dev.type == "cpu":
-        return bell2_spmv_tiles_accum_plain(
-            vals, packed, meta, step_block, x2d, y_tiles,
-            num_row_tiles=num_row_tiles, chunks_per_step=K,
-            tiles_per_block=BT, contig=contig,
-        )
-    bell2_spmv_tiles_accum.launches += _launch_bell2(
-        vals, packed, meta, step_block, x2d[None], y_tiles[None], K, BT,
-        contig, False, "bell2_spmv_tiles_accum")
+        return bell2_spmv_tiles_accum_plain(entries, x2d, y_tiles)
+    if entries.count:
+        bell2_spmv_tiles_accum.launches += _launch_entries(
+            entries, x2d[None], y_tiles[None], "bell2_spmv_tiles_accum")
     return y_tiles
 
 
@@ -482,51 +596,39 @@ def _spmm_tiles(wrapper, dtype, vals, packed, meta, step_block, x3d,
             tiles_per_block=BT, contig=contig, out=out,
         )
     wrapper.launches += _launch_bell2(
-        vals, packed, meta, step_block, x3d, out, K, BT, contig, True,
+        vals, packed, meta, step_block, x3d, out, K, BT, contig,
         wrapper.__name__)
     return out[:, :num_row_tiles]
 
 
-def bell2_spmm_tiles_accum_plain(vals, packed, meta, step_block, x3d,
-                                 y_tiles, *, num_row_tiles, chunks_per_step,
-                                 tiles_per_block, contig):
+def bell2_spmm_tiles_accum_plain(entries, x3d, y_tiles):
     """Plain PyTorch twin of :func:`bell2_spmm_tiles_accum`: B4's twin
     once per plane."""
     for b in range(x3d.shape[0]):
-        bell2_spmv_tiles_accum_plain(vals, packed, meta, step_block, x3d[b],
-                                     y_tiles[b], num_row_tiles=num_row_tiles,
-                                     chunks_per_step=chunks_per_step,
-                                     tiles_per_block=tiles_per_block,
-                                     contig=contig)
+        bell2_spmv_tiles_accum_plain(entries, x3d[b], y_tiles[b])
     return y_tiles
 
 
-def bell2_spmm_tiles_accum(vals, packed, meta, step_block, x3d, y_tiles, *,
-                           num_row_tiles, chunks_per_step, tiles_per_block,
-                           contig):
-    """``Y_tiles += A @ X`` for a sparse accumulating BELL2 stream and B
+def bell2_spmm_tiles_accum(entries, x3d, y_tiles):
+    """``Y_tiles += R @ X`` for a sparse accumulating stream and B
     right-hand sides.
 
-    ``y_tiles``: (B, ceil(T/BT)*BT, 128) float32 planes, each contiguous
-    (any plane stride), added into in place (blocks without chunks keep
-    their values) and returned. Other operands as
-    :func:`bell2_spmm_tiles`.
+    ``x3d``: (B, x_rows, 128) and ``y_tiles``: (B, T, 128) float32 planes,
+    each contiguous (any plane stride), T at least ``entries.min_tiles``;
+    ``y_tiles`` is added into in place and returned. Other operands and
+    the note on non-finite x as :func:`bell2_spmv_tiles_accum`; the entry
+    list is read once per group of up to ``_cuda.RHS_GROUP`` planes.
     """
-    K, BT = chunks_per_step, tiles_per_block
-    dev = _device_of(vals, packed, meta, step_block)
-    _check_stream(vals, packed, meta, step_block, K)
+    dev = _device_of(entries.rows, entries.cols, entries.vals)
+    _cuda.check_dtype(entries.vals, "entries.vals", torch.float32)
     B = _cuda.check_planes(x3d, "x3d", dev, torch.float32)
-    _cuda.check_planes(y_tiles, "y_tiles", dev, torch.float32, B=B,
-                       rows=_tiles_padded(num_row_tiles, BT))
+    _cuda.check_planes(y_tiles, "y_tiles", dev, torch.float32, B=B)
+    _check_entries(entries, x3d.shape[1], y_tiles.shape[1])
     if dev.type == "cpu":
-        return bell2_spmm_tiles_accum_plain(
-            vals, packed, meta, step_block, x3d, y_tiles,
-            num_row_tiles=num_row_tiles, chunks_per_step=K,
-            tiles_per_block=BT, contig=contig,
-        )
-    bell2_spmm_tiles_accum.launches += _launch_bell2(
-        vals, packed, meta, step_block, x3d, y_tiles, K, BT, contig, False,
-        "bell2_spmm_tiles_accum")
+        return bell2_spmm_tiles_accum_plain(entries, x3d, y_tiles)
+    if entries.count:
+        bell2_spmm_tiles_accum.launches += _launch_entries(
+            entries, x3d, y_tiles, "bell2_spmm_tiles_accum")
     return y_tiles
 
 

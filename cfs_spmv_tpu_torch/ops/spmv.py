@@ -66,10 +66,12 @@ class Bell2Device:
     (with its optional signed-offset SDIA stream) or the symmetric far
     stream."""
 
-    vals: torch.Tensor  # (C*8, 128) float32
-    packed: torch.Tensor  # (C*8, 128) int16, q | r2 << 7
-    meta: torch.Tensor  # (C, 10) int32
-    step_block: torch.Tensor  # (C/K,) int32
+    #: the chunk grid; None for an accumulating stream, which travels as
+    #: ``entries`` instead
+    vals: torch.Tensor | None  # (C*8, 128) float32
+    packed: torch.Tensor | None  # (C*8, 128) int16, q | r2 << 7
+    meta: torch.Tensor | None  # (C, 10) int32
+    step_block: torch.Tensor | None  # (C/K,) int32
     num_row_tiles: int
     x_rows: int
     nrows: int
@@ -79,7 +81,8 @@ class Bell2Device:
     #: x row is ``meta[c, 2] + r2`` (contiguous or deep windows), else
     #: ``meta[c, 2 + (r2 & 7)]`` (listed windows)
     contig: bool
-    #: accumulating stream: blocks without chunks are never visited
+    #: accumulating stream (a post-peel residual): added into given tiles,
+    #: rows without entries never touched
     sparse_stream: bool
     #: False for an empty (or dia-only) stream: no kernel runs
     has_work: bool
@@ -90,6 +93,9 @@ class Bell2Device:
     #: signed-offset dense-diagonal stream of a general plan
     dia_vals: torch.Tensor | None = None  # (R, D, 8, 128) float32
     dia_offsets: torch.Tensor | None = None  # (D,) int32
+    #: the live entries of an ungrouped sparse stream with work, compacted
+    #: from the chunk grid at upload (``bell2_kernel.compact_stream``)
+    entries: bk.EntryStream | None = None
 
     @property
     def grouped(self) -> bool:
@@ -243,7 +249,10 @@ def _dia_fields(dia, device):
 def to_device(plan, device) -> Bell2Device:
     """Upload a one-sided ``Bell2Plan`` (the port's or the reference's:
     the fields and dtypes are the same), with its signed-offset SDIA
-    stream if it has one, to ``device``."""
+    stream if it has one, to ``device``. An ungrouped sparse stream (an
+    accumulating residual, nearly all padding in the chunk grid) is
+    uploaded as its live entries only; grouped and covering streams as
+    their chunk grid."""
     device = as_device(device)
     if plan.row_perm is not None and plan.unperm_pk is None:
         raise NotImplementedError(
@@ -261,11 +270,19 @@ def to_device(plan, device) -> Bell2Device:
         if pk.size and (pk >> 7).max() >= slabs.shape[1]:
             raise ValueError("unperm window index past the slab list")
     t = lambda a: None if a is None else _tensor(a, device)  # noqa: E731
+    grid = {k: getattr(plan, k)
+            for k in ("vals", "packed", "meta", "step_block")}
+    entries = None
+    if plan.sparse_stream and plan.row_perm is None and plan.nnz > 0:
+        entries = bk.compact_stream(
+            **grid, chunks_per_step=plan.chunks_per_step,
+            tiles_per_block=plan.tiles_per_block, contig=contig,
+            num_row_tiles=plan.num_row_tiles, x_rows=plan.x_rows,
+        ).to(device)
+        grid = dict.fromkeys(grid)
     return Bell2Device(
-        vals=t(plan.vals),
-        packed=t(plan.packed),
-        meta=t(plan.meta),
-        step_block=t(plan.step_block),
+        **{k: t(a) for k, a in grid.items()},
+        entries=entries,
         num_row_tiles=plan.num_row_tiles,
         x_rows=plan.x_rows,
         nrows=plan.nrows,
@@ -291,6 +308,9 @@ def sym_to_device(plan, device) -> SBellDevice:
         if plan.far.x_rows > plan.x_rows:
             raise ValueError("far stream windows exceed the shared x")
         far = to_device(plan.far, device)
+        if (far.entries is not None
+                and far.entries.min_tiles > plan.num_row_tiles):
+            raise ValueError("far stream rows exceed the plan's tiles")
     paired = {}
     if plan.nnz_paired:
         _check_paired_plan(plan)
@@ -438,30 +458,11 @@ def _check_matrix(x) -> int:
     return x.shape[1]
 
 
-def _accumulate(f, fd: Bell2Device, x2d, tiles, n_tiles):
-    """``tiles`` plus a sparse stream, over the stream's block multiple;
-    blocks it never visits keep their values. Returns n_tiles rows."""
-    BT = fd.tiles_per_block
-    TP = -(-fd.num_row_tiles // BT) * BT
-    tp = torch.nn.functional.pad(tiles, (0, 0, 0, TP - tiles.shape[0]))
-    return f["bell2_acc"](fd.vals, fd.packed, fd.meta, fd.step_block, x2d,
-                          tp, **fd.stream_kw())[:n_tiles]
-
-
-def _accumulate_mm(f, fd: Bell2Device, x3d, tiles, n_tiles):
-    """:func:`_accumulate` over (B, rows, 128) planes."""
-    BT = fd.tiles_per_block
-    TP = -(-fd.num_row_tiles // BT) * BT
-    tp = torch.nn.functional.pad(tiles, (0, 0, 0, TP - tiles.shape[1]))
-    return f["bell2_acc_mm"](fd.vals, fd.packed, fd.meta, fd.step_block,
-                             x3d, tp, **fd.stream_kw())[:, :n_tiles]
-
-
 def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     """General y = A x for one BELL2 stream plus its signed-offset SDIA
     stream, composed exactly as the reference's ``bell2_apply``: an empty
     or dia-only plan starts from zero tiles; a sparse residual
-    accumulates into zeros padded to its block multiple; otherwise the
+    accumulates its entries into zero tiles; otherwise the
     full stream runs, unpermuted when grouped; then ``sdia_gen_tiles``
     adds the diagonals. Rectangular matrices take the same code (no dia
     stream). ``plain=True`` runs every stream through its plain twin.
@@ -473,8 +474,8 @@ def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     if not dev.has_work:
         tiles = torch.zeros((NT, LANES), dtype=x2d.dtype, device=x2d.device)
     elif dev.sparse_stream and not dev.grouped:
-        # post-peel residual: only tiles with chunks are visited
-        tiles = _accumulate(f, dev, x2d, x2d.new_zeros((0, LANES)), NT)
+        # post-peel residual: only rows with entries are touched
+        tiles = f["bell2_acc"](dev.entries, x2d, x2d.new_zeros((NT, LANES)))
     else:
         tiles = f["bell2"](dev.vals, dev.packed, dev.meta, dev.step_block,
                            x2d, **dev.stream_kw())
@@ -501,7 +502,8 @@ def bell2_apply_mm(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     if not dev.has_work:
         tiles = x3d.new_zeros((B, NT, LANES))
     elif dev.sparse_stream and not dev.grouped:
-        tiles = _accumulate_mm(f, dev, x3d, x3d.new_zeros((B, 0, LANES)), NT)
+        tiles = f["bell2_acc_mm"](dev.entries, x3d,
+                                  x3d.new_zeros((B, NT, LANES)))
     else:
         tiles = f["bell2_mm"](dev.vals, dev.packed, dev.meta, dev.step_block,
                               x3d, **dev.stream_kw())
@@ -520,7 +522,7 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     ``sbell_apply``: the paired stream's tiles, or (without one) the
     accumulating streams seeded with D x; the degree-grouped far stream
     unpermuted and added (padded to the plan's tiles), or the sparse far
-    stream accumulated into the tiles padded to its block multiple; the
+    stream's entries accumulated straight into the tiles; the
     SDIA stream added in place (``sdia_gen_tiles`` when its offsets are
     mirrored, else ``sdia_sym_tiles``); then D x when the paired stream
     ran. ``plain=True`` runs every stream through its plain twin.
@@ -552,7 +554,7 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
             tiles = tiles[:NT] + ot[:NT]
         else:
             # sparse far residual accumulates straight into the tiles
-            tiles = _accumulate(f, fd, x2d, tiles, NT)
+            tiles = f["bell2_acc"](fd.entries, x2d, tiles)
     if dev.dia_vals is not None:
         sdia = f["sdia_gen"] if dev.dia_mirrored else f["sdia_sym"]
         tiles = sdia(dev.dia_vals, x2d, tiles[:NT], dev.dia_offsets)
@@ -565,7 +567,7 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     branch for branch, as the reference's ``sbell_apply_mm``, over (B,
     rows, 128) planes — the ``diag[:, None] * X`` seed or the final add,
     the grouped far stream padded along the tile axis, the sparse far
-    residual accumulated into the tiles padded to its block multiple,
+    residual's entries accumulated straight into the tiles,
     ``sdia_gen_tiles_mm`` when the diagonals are mirrored, else
     ``sdia_sym_tiles_mm``. Returns (nrows, B), a transposed view (or, with
     a paired stream, a fresh sum)."""
@@ -592,7 +594,7 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
                 ot = torch.nn.functional.pad(ot, (0, 0, 0, NT - ot.shape[1]))
             tiles = tiles[:, :NT] + ot[:, :NT]
         else:
-            tiles = _accumulate_mm(f, fd, x3d, tiles, NT)
+            tiles = f["bell2_acc_mm"](fd.entries, x3d, tiles)
     if dev.dia_vals is not None:
         sdia = f["sdia_gen_mm"] if dev.dia_mirrored else f["sdia_sym_mm"]
         tiles = sdia(dev.dia_vals, x3d, tiles[:, :NT], dev.dia_offsets)

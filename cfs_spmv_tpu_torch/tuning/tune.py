@@ -123,9 +123,11 @@ def tune(
     dtype=np.float32,
     reorder: bool | str = "auto",
     values: str = "same",
-    device="cpu",
+    device="cuda",
 ) -> TunedMatrix:
-    """Select a layout and build the tuned matrix on ``device``.
+    """Select a layout and build the tuned matrix on ``device`` (the card
+    by default; ``RuntimeError`` where CUDA is absent, never the CPU
+    instead).
 
     Format selection mirrors the reference factory
     (``sparse_matrix.tpp:14-24``): ``SSS``/``HYB`` require symmetric

@@ -13,9 +13,9 @@ Phases (each prints its wall time):
    kernel instance; any spill fails the run;
 3. the main paths, once each, through the user entry points —
    ``SparseMatrix.create(csr, fmt)`` then
-   ``SpDMV(A, tuning, dtype=np.float32, device="cuda")(x)`` and
-   ``SpDMM(A, tuning, dtype=np.float32, device="cuda")(X)`` with X of
-   B = 8 columns (SpMM, ROADMAP A7) — on nine
+   ``SpDMV(A, tuning, dtype=np.float32)(x)`` and
+   ``SpDMM(A, tuning, dtype=np.float32)(X)`` with X of B = 8 columns
+   (SpMM, ROADMAP A7), on the default device, which is the card — on nine
    full-size runs (``RUNS``): the tuned symmetric path on
    ``cant_proxy()``, ``audikw_proxy()`` and the 65,536-row flagship; the
    general path on ``general_asym()`` and on the flagship as a general
@@ -37,7 +37,11 @@ Phases (each prints its wall time):
    oracle at the float64 gate (1e-8) with its scaled error printed beside
    the float32 run's, and an fp64 apply may move no fp32 kernel's count;
    and one apply of the plain ELL+COO path (``CFS_FP64=xla``) on the
-   flagship, which may move no kernel's count at all;
+   flagship, which may move no kernel's count at all; for each
+   accumulating stream (the sparse residuals of the flagship, the
+   flagship as a general matrix and forced pairing) the chunk grid's
+   padded bytes beside the bytes of the entry list that is uploaded in
+   its place, and the fill;
 4. each kernel against its plain PyTorch twin on the same card, on the
    real plan arrays of those runs (``sbell_spmv`` also replanned with the
    other transpose-window count and with 8-tile output blocks,
@@ -48,7 +52,15 @@ Phases (each prints its wall time):
    the four float64 kernels at B = 1, 8 and 11 (scaled error against the
    float64 twin below ``F64_TWIN_TOL``), the diagonal ones onto strided Y
    planes, the stream ones also on an 8-tile-block replan with an absent
-   row range into NaN-poisoned outputs;
+   row range into NaN-poisoned outputs; the accumulating kernels
+   (``bell2_spmv_accum``, ``bell2_spmm_accum``) on the flagship's entry
+   list and on a hand-built one with an absent row range and rows of 70
+   and 200 entries, at B = 1, 8 and 11 onto Y planes at a plane stride
+   past the plane whose rows no entry names hold NaN and must keep it bit
+   for bit, and against the chunk-grid twin on the same plan's padded
+   arrays; and the warp-segmented form that ships beside a per-entry
+   atomics form of the same kernel (``ENTRIES_ALT_SRC``, built for this
+   comparison only), both against the twin and in device time;
 5. times per call (CUDA events around 20 back-to-back calls, median of
    5) of each kernel and twin (multi-RHS ones at B = 8), and of the
    kernel path and the plain path of every run, SpMV and SpMM(8), with
@@ -65,7 +77,9 @@ Phases (each prints its wall time):
    float32 and float64. These library calls are timed here and used
    nowhere in the port;
 6. the differential CLI (``cfs_spmv_tpu_torch.cli.test_spmv_mmf``) on a
-   written ``.mtx`` with ``--device cuda``; it must print ``PASSED!``.
+   written ``.mtx`` on its default device; it must print ``PASSED!``;
+   and an untuned ``A @ x`` with a numpy x, ``A.tune()`` and ``tune(csr)``
+   with no device named, which must all land on the card.
 
 It needs one card and imports nothing of JAX. Any failure raises, and the
 exit code is then nonzero; without CUDA it exits 1 at once. The last two
@@ -76,6 +90,7 @@ lines of standard output are one JSON object per line: the kernels, then
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -148,6 +163,45 @@ F64_TWIN_TOL = 1e-12
 TIMED_CALLS = 20
 #: right-hand sides of the SpMM runs (the reference bench's SpMM(8))
 RHS = 8
+#: the other form of ``bell2_entries_kernel``, for the comparison in phase
+#: 4 only (the port builds and launches the warp-segmented form in
+#: ``csrc/spmv_kernels.cu``): one ``atomicAdd`` per entry and plane, no
+#: shuffles. Same arguments as ``cfs_bell2_entries``, for 1 to 8 planes.
+ENTRIES_ALT_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+template <int kRhs>
+__global__ void __launch_bounds__(256)
+entries_atomic_kernel(const int* __restrict__ rows,
+                      const int* __restrict__ cols,
+                      const float* __restrict__ vals, int64_t E,
+                      const float* __restrict__ x, int64_t xs,
+                      float* __restrict__ y, int64_t ys, int nr) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (e >= E) return;
+  const float v = vals[e];
+  const float* xc = x + cols[e];
+  float* yr = y + rows[e];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b)
+    if (kRhs == 1 || b < nr) atomicAdd(yr + b * ys, v * xc[b * xs]);
+}
+extern "C" int cfs_entries_atomic(const int* rows, const int* cols,
+                                  const float* vals, int64_t E,
+                                  const float* x, int64_t xs, float* y,
+                                  int64_t ys, int nr, cudaStream_t stream) {
+  if (nr < 1 || nr > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int grid = static_cast<unsigned int>((E + 255) / 256);
+  if (E <= 0) return 0;
+  if (nr == 1)
+    entries_atomic_kernel<1><<<grid, 256, 0, stream>>>(rows, cols, vals, E, x,
+                                                       xs, y, ys, nr);
+  else
+    entries_atomic_kernel<8><<<grid, 256, 0, stream>>>(rows, cols, vals, E, x,
+                                                       xs, y, ys, nr);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
 def flagship(n=1024, deg=8, dtype=np.float32, seed=0):
@@ -313,8 +367,35 @@ def ptxas_report():
     return {k: tuple(v) for k, v in report.items()}
 
 
+def build_entries_alt():
+    """Compile ``ENTRIES_ALT_SRC`` with the port's nvcc flags into
+    ``build/smoke`` and return its one entry point, bound like
+    ``cfs_bell2_entries``."""
+    import ctypes
+
+    from cfs_spmv_tpu_torch.ops import _cuda
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "entries_alt.cu")
+    with open(src, "w") as f:
+        f.write(ENTRIES_ALT_SRC)
+    lib = os.path.join(out_dir, "entries_alt.so")
+    res = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on ENTRIES_ALT_SRC:\n{res.stderr}")
+    fn = ctypes.CDLL(lib).cfs_entries_atomic
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [p, p, p, i64, p, i64, p, i64, i32, p]
+    fn.restype = i32
+    return fn
+
+
 def stream_csr(torch, d):
-    """The one-sided BELL2 stream of device struct ``d`` as a
+    """The one-sided BELL2 stream of ``d`` (a device struct, or
+    :func:`grid_on` of a host plan) as a
     ``torch.sparse_csr_tensor`` of shape (padded tiles * 128, x rows *
     128), for the library yardstick: its product with the flat padded x
     is what ``bell2_spmv`` computes into its tiles. Decoded as the plain
@@ -340,6 +421,21 @@ def stream_csr(torch, d):
         torch.stack([rows[live], (xrow * 128 + q)[live]]), vals[live],
         (TP * 128, d.x_rows * 128)).coalesce()
     return coo.to_sparse_csr()
+
+
+def grid_on(torch, plan, device):
+    """The chunk grid of a host ``Bell2Plan`` on ``device``, with the
+    geometry fields :func:`stream_csr` and the chunk-grid twins read (an
+    accumulating stream's device struct holds its entries only)."""
+    import types
+
+    return types.SimpleNamespace(
+        **{k: torch.as_tensor(np.ascontiguousarray(getattr(plan, k))).to(
+            device) for k in ("vals", "packed", "meta", "step_block")},
+        chunks_per_step=plan.chunks_per_step,
+        tiles_per_block=plan.tiles_per_block,
+        num_row_tiles=plan.num_row_tiles, x_rows=plan.x_rows,
+        contig=plan.windows_contig or plan.window_depth > 8)
 
 
 def matrix_csr(torch, csr, dtype, device):
@@ -445,7 +541,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    from cfs_spmv_tpu_torch import Format, SparseMatrix, SpDMM, SpDMV, Tuning
+    from cfs_spmv_tpu_torch import (CSR, Format, SparseMatrix, SpDMM, SpDMV,
+                                    Tuning)
     from cfs_spmv_tpu_torch.cli.test_spmv_mmf import main as test_cli
     from cfs_spmv_tpu_torch.formats.bell2 import build_general_plan
     from cfs_spmv_tpu_torch.formats.sbell import build_sbell_plan
@@ -580,8 +677,8 @@ def main() -> int:
         t0 = time.perf_counter()
         with _planning(paired, rows_max):
             A = SparseMatrix.create(csr, fmt)
-            op = SpDMV(A, tuning, dtype=dtype, device="cuda")
-            op_mm = SpDMM(A, tuning, dtype=dtype, device="cuda")
+            op = SpDMV(A, tuning, dtype=dtype)  # the default device
+            op_mm = SpDMM(A, tuning, dtype=dtype)
         t_tune = time.perf_counter() - t0
         predicted = predict(A.tuned)
         x = np.random.default_rng(1).uniform(1.0, 2.0, csr.ncols).astype(
@@ -624,6 +721,23 @@ def main() -> int:
                 f"grouped={d64.grouped}), diagonal planes {mb_d:.2f} MB; "
                 f"max scaled error float64 {scaled[name]} against float32 "
                 f"{scaled[name[:-4]]} on the same matrix", flush=True)
+        if "bell2_spmv_accum" in predicted:
+            acc = far if far is not None else plan  # the host chunk grid
+            dacc = A.tuned.operands
+            dacc = dacc["dev"] if isinstance(dacc, dict) else dacc
+            es = getattr(dacc, "far", None) or dacc
+            es = es.entries
+            if es is None or es.vals.device.type != "cuda":
+                raise AssertionError(f"{name}: no entry list on the card")
+            slots = acc.vals.size
+            grid_b = acc.vals.nbytes + acc.packed.nbytes
+            print(
+                f"main path {name}: accumulating stream {acc.meta.shape[0]} "
+                f"chunks, {slots} slots, {es.count} live entries, fill "
+                f"{es.count / slots:.4%}; chunk grid {grid_b / 1e6:.2f} MB "
+                f"(not uploaded) against {12 * es.count / 1e6:.3f} MB of "
+                f"entries at 12 B, {grid_b / (12 * es.count):.1f}x",
+                flush=True)
         if not ok:
             raise AssertionError(f"{name}: disagrees with the f64 oracle")
         if not moved == predicted == EXPECTED[name]:
@@ -667,7 +781,7 @@ def main() -> int:
     # the plain ELL+COO float64 path, asked for by name: no kernel moves
     old_path, config.fp64_path = config.fp64_path, "xla"
     try:
-        t_xla = tune(flag, fmt=Format.SSS, dtype=np.float64, device="cuda")
+        t_xla = tune(flag, fmt=Format.SSS, dtype=np.float64)
     finally:
         config.fp64_path = old_path
     _, x64 = runs["flagship_f64"]
@@ -883,47 +997,181 @@ def main() -> int:
     mm_pair("unperm_gather_mm", make_unperm_mm, 0, "audikw_proxy",
             exact=True)
 
-    # B4 on the flagship: the sparse far residual, onto a nonzero y
+    # B4 + B8 on the flagship's sparse far residual, which travels as its
+    # live entries: against the twin onto a nonzero y, and against the
+    # chunk-grid twin on the host plan's padded arrays
     A, d, xe = operands("flagship")
-    fd = d.far
+    es = d.far.entries
+    far_nnz_row = A.tuned.plan.far.nnz / A.nrows
     x2d_f = ops.pad_x(xe, d.x_rows)
-    kw_f = fd.stream_kw()
-    sargs_f = (fd.vals, fd.packed, fd.meta, fd.step_block, x2d_f)
-    TP = -(-fd.num_row_tiles // fd.tiles_per_block) * fd.tiles_per_block
-    y0_f = torch.rand((TP, 128), generator=g).to(dev)
-    yk = bk.bell2_spmv_tiles_accum(*sargs_f, y0_f.clone(), **kw_f)
-    yp = bk.bell2_spmv_tiles_accum_plain(*sargs_f, y0_f.clone(), **kw_f)
-    ys = bk.bell2_spmv_tiles_accum_plain(
-        fd.vals.abs(), fd.packed, fd.meta, fd.step_block, x2d_f.abs(),
-        y0_f.abs(), **kw_f
-    )
-    err = _agree(yk, yp, ys, A.tuned.plan.far.nnz / A.nrows,
-                 "bell2_spmv_accum")
-    S_res = stream_csr(torch, fd)  # its product, without the add into y
+    NT_f = d.num_row_tiles
+    y0_f = torch.rand((NT_f, 128), generator=g).to(dev)
+    es_abs = dataclasses.replace(es, vals=es.vals.abs().double())
+    yk = bk.bell2_spmv_tiles_accum(es, x2d_f, y0_f.clone())
+    yp = bk.bell2_spmv_tiles_accum_plain(es, x2d_f, y0_f.clone())
+    ys = bk.bell2_spmv_tiles_accum_plain(es_abs, x2d_f.abs().double(),
+                                         y0_f.abs().double())
+    err = _agree(yk, yp, ys, far_nnz_row, "bell2_spmv_accum")
+    grid_f = grid_on(torch, A.tuned.plan.far, dev)
+    kw_g = dict(num_row_tiles=grid_f.num_row_tiles,
+                chunks_per_step=grid_f.chunks_per_step,
+                tiles_per_block=grid_f.tiles_per_block, contig=grid_f.contig)
+    TPg = -(-grid_f.num_row_tiles // grid_f.tiles_per_block) \
+        * grid_f.tiles_per_block
+    yg = bk.bell2_spmv_tiles_plain(
+        grid_f.vals, grid_f.packed, grid_f.meta, grid_f.step_block,
+        x2d_f[: grid_f.x_rows], out=torch.zeros((TPg, 128), device=dev),
+        **kw_g)
+    Tg = min(NT_f, yg.shape[0])
+    if yg[Tg:].abs().sum() != 0:
+        raise AssertionError("the chunk grid names rows past the tiles")
+    err_g = _agree(yk[:Tg], y0_f[:Tg] + yg[:Tg], ys[:Tg], far_nnz_row,
+                   "bell2_spmv_accum against the chunk-grid twin")
+    print(f"kernel bell2_spmv_accum on the flagship: {es.count} entries, "
+          f"max_abs_err vs twin {err}, vs the chunk-grid twin "
+          f"(bell2_spmv_tiles_plain on {grid_f.meta.shape[0]} chunks) "
+          f"{err_g}", flush=True)
+    S_res = stream_csr(torch, grid_f)  # its product, without the add into y
+    del grid_f, yg  # 47 MB that the port itself never uploads
+    touched_f = int(torch.unique(es.rows).numel())
+
+    def entry_bytes(es, x, touched, B=1):
+        """What the entry kernel must move: the entries at 12 B, x once,
+        and the y rows the entries name read and written, per plane."""
+        return 12 * es.count + _nbytes(x) + 2 * 4 * touched * B
+
     kern["bell2_spmv_accum"] = dict(
-        err=err, on="flagship",
-        bytes=_nbytes(*sargs_f) + 2 * _nbytes(y0_f),
-        flops=2 * nnz_of(fd.vals), library=csr_mv(S_res, x2d_f),
-        fn=lambda: bk.bell2_spmv_tiles_accum(*sargs_f, y0_f.clone(), **kw_f),
+        err=max(err, err_g), on="flagship",
+        bytes=entry_bytes(es, x2d_f, touched_f), flops=2 * es.count,
+        library=csr_mv(S_res, x2d_f),
+        fn=lambda: bk.bell2_spmv_tiles_accum(es, x2d_f, y0_f.clone()),
         plain=lambda: bk.bell2_spmv_tiles_accum_plain(
-            *sargs_f, y0_f.clone(), **kw_f),
+            es, x2d_f, y0_f.clone()),
     )
 
-    # B8 on the flagship's sparse far residual, onto nonzero Y planes
-    def make_bell2_acc_mm(B, fd=fd, TP=TP):
-        sa = (fd.vals, fd.packed, fd.meta, fd.step_block, planes(B, fd.x_rows))
-        y3 = planes(B, TP)
-        return (lambda: bk.bell2_spmm_tiles_accum(*sa, y3.clone(), **kw_f),
-                lambda: bk.bell2_spmm_tiles_accum(*sa, y3.clone(), **kw_f),
+    def make_bell2_acc_mm(B, es=es, es_abs=es_abs):
+        x3 = planes(B, d.x_rows)
+        y3 = planes(B, NT_f, extra=3)
+        return (lambda: bk.bell2_spmm_tiles_accum(es, x3, y3.clone()),
+                lambda: bk.bell2_spmm_tiles_accum(es, x3, y3.clone()),
+                lambda: bk.bell2_spmm_tiles_accum_plain(es, x3, y3.clone()),
                 lambda: bk.bell2_spmm_tiles_accum_plain(
-                    *sa, y3.clone(), **kw_f),
-                lambda: bk.bell2_spmm_tiles_accum_plain(
-                    fd.vals.abs(), *sa[1:4], sa[4].abs(), y3.abs(), **kw_f),
-                _nbytes(*sa) + 2 * _nbytes(y3), csr_mv(S_res, sa[4]))
+                    es_abs, x3.abs().double(), y3.abs().double()),
+                entry_bytes(es, x3, touched_f, B), csr_mv(S_res, x3))
 
-    mm_pair("bell2_spmm_accum", make_bell2_acc_mm,
-            A.tuned.plan.far.nnz / A.nrows, "flagship",
-            flops=RHS * 2 * nnz_of(fd.vals))
+    mm_pair("bell2_spmm_accum", make_bell2_acc_mm, far_nnz_row, "flagship",
+            flops=RHS * 2 * es.count)
+
+    # a hand-built accumulating stream over 8-tile blocks: rows
+    # 8,192-24,575 absent, one row of 70 and one of 200 entries
+    rng = np.random.default_rng(5)
+    n_h = 40_960
+    r_h = np.arange(n_h)
+    r_h = r_h[(r_h < 8192) | (r_h >= 24_576)]
+    c_h = rng.integers(0, n_h, len(r_h))
+    r_h = np.concatenate([r_h, np.full(200, 30_000), np.full(70, 5)])
+    c_h = np.concatenate([c_h, rng.choice(n_h, 200, replace=False),
+                          rng.choice(n_h, 70, replace=False)])
+    key = np.unique(r_h.astype(np.int64) * n_h + c_h)
+    hp_acc = build_bell2_from_arrays(
+        n_h, n_h, (key // n_h).astype(np.int32), (key % n_h).astype(np.int32),
+        rng.uniform(-1, 1, len(key)).astype(np.float32), dtype=np.float32,
+        tiles_per_block=8, cover_all_tiles=False)
+    d_h = ops.to_device(hp_acc, dev)
+    es_h = d_h.entries
+    longest = int(torch.bincount(es_h.rows.long()).max())
+    if d_h.vals is not None or es_h is None or longest < 64:
+        raise AssertionError("the hand-built stream is not an entry list "
+                             "with a row of 64 entries or more")
+
+    # B4 and B8 on both entry lists at B = 1, 8 and 11, onto Y planes at a
+    # plane stride past the plane; every row no entry names holds NaN and
+    # must come back NaN bit for bit
+    def poisoned_entries_check(es, x_rows, on, nnz_per_row, launch=None):
+        """Max abs error against the twin over B4 (B = 1) and B8 (B = 1,
+        8, 11); ``launch(es, x3, y3)`` stands in for the wrappers when the
+        other form of the kernel is checked."""
+        T = es.min_tiles
+        named = torch.zeros(T * 128, dtype=torch.bool, device=dev)
+        named[es.rows.long()] = True
+        es_abs = dataclasses.replace(es, vals=es.vals.abs().double())
+        worst = 0.0
+        for B, mv in ((1, True), (1, False), (RHS, False), (11, False)):
+            x3 = planes(B, x_rows)
+            y0 = torch.rand((B, T * 128), generator=g).to(dev)
+            y0[:, ~named] = float("nan")
+            wide = poisoned((B, T + 3, 128))
+            wide[:, :T] = y0.view(B, T, 128)
+            y3 = wide[:, :T]
+            if launch is not None:
+                launch(es, x3, y3)
+            elif mv:
+                bk.bell2_spmv_tiles_accum(es, x3[0], y3[0])
+            else:
+                bk.bell2_spmm_tiles_accum(es, x3, y3)
+            torch.cuda.synchronize()
+            yk = y3.reshape(B, -1)
+            what = (f"{'bell2_spmv_accum' if mv else 'bell2_spmm_accum'} "
+                    f"B={B} on {on}")
+            if not torch.equal(yk[:, ~named].view(torch.int32),
+                               y0[:, ~named].view(torch.int32)):
+                raise AssertionError(f"{what}: a row no entry names moved")
+            if not torch.isnan(wide[:, T:]).all():
+                raise AssertionError(f"{what}: wrote past a plane")
+            y1 = torch.nan_to_num(y0, nan=0.0).view(B, T, 128)
+            yp = bk.bell2_spmm_tiles_accum_plain(es, x3, y1.clone())
+            ys = bk.bell2_spmm_tiles_accum_plain(
+                es_abs, x3.abs().double(), y1.abs().double())
+            sel = lambda t: t.reshape(B, -1)[:, named]  # noqa: E731
+            worst = max(worst, _agree(sel(yk), sel(yp), sel(ys),
+                                      nnz_per_row, what))
+        return worst
+
+    for es_c, xr, on, npr in (
+            (es, d.x_rows, "the flagship", far_nnz_row),
+            (es_h, d_h.x_rows, "the hand-built stream", hp_acc.nnz / n_h)):
+        worst = poisoned_entries_check(es_c, xr, on, npr)
+        for key_ in ("bell2_spmv_accum", "bell2_spmm_accum"):
+            kern[key_]["err"] = max(kern[key_]["err"], worst)
+        print(f"kernels bell2_spmv_accum / bell2_spmm_accum on {on}: "
+              f"{es_c.count} entries in {es_c.min_tiles} tiles, longest row "
+              f"{int(torch.bincount(es_c.rows.long()).max())}, B = 1, {RHS}, "
+              f"11 onto strided NaN-poisoned planes: unnamed rows kept bit "
+              f"for bit, max_abs_err vs twin {worst}", flush=True)
+
+    # the two forms of the entry kernel: the warp-segmented sum that ships
+    # and one atomicAdd per entry, each against the twin, then in device
+    # time in turns (ships, other, other, ships)
+    entries_alt = build_entries_alt()
+
+    def launch_alt(es, x3, y3):
+        _cuda.launch_groups(
+            "entries_atomic", x3, y3, lambda *pl: entries_alt(
+                es.rows.data_ptr(), es.cols.data_ptr(), es.vals.data_ptr(),
+                es.count, *pl))
+        return y3
+
+    for es_c, xr, on, npr in (
+            (es, d.x_rows, "the flagship", far_nnz_row),
+            (es_h, d_h.x_rows, "the hand-built stream", hp_acc.nnz / n_h)):
+        worst = poisoned_entries_check(es_c, xr, on, npr, launch=launch_alt)
+        said = [f"per-entry atomics max_abs_err vs twin {worst}"]
+        for B in (1, RHS):
+            x3 = planes(B, xr)
+            y3 = planes(B, es_c.min_tiles)
+            forms = {
+                "bell2_entries_kernel":
+                    lambda: bk.bell2_spmm_tiles_accum(es_c, x3, y3),
+                "entries_atomic_kernel": lambda: launch_alt(es_c, x3, y3),
+            }
+            t = [_device_ms(torch, forms[k])[1].get(k) for k in (
+                "bell2_entries_kernel", "entries_atomic_kernel",
+                "entries_atomic_kernel", "bell2_entries_kernel")]
+            said.append(f"B={B}: warp segmented sum {_ms(t[0])} and "
+                        f"{_ms(t[3])} ms, per-entry atomics {_ms(t[1])} and "
+                        f"{_ms(t[2])} ms")
+        print(f"entry kernel forms on {on} ({es_c.count} entries), device "
+              f"ms: " + "; ".join(said) + f" ({card})", flush=True)
 
     # B5 on near_band_paired: the paired stream of the main path, the
     # same matrix planned with the other transpose-window count, and with
@@ -1213,6 +1461,8 @@ def main() -> int:
     for mm, mv, kernel in (("bell2_spmm", "bell2_spmv", "bell2_spmv_kernel"),
                            ("sbell_spmm", "sbell_spmv", "sbell_spmv_kernel"),
                            ("sdia_sym_mm", "sdia_sym", "sdia_sym_kernel"),
+                           ("bell2_spmm_accum", "bell2_spmv_accum",
+                            "bell2_entries_kernel"),
                            ("bell2_spmm_df", "bell2_spmv_df",
                             "bell2_spmv_kernel"),
                            ("sdia_sym_df_mm", "sdia_sym_df",
@@ -1308,13 +1558,27 @@ def main() -> int:
               symmetric=True)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = test_cli([path, "1", "--device", "cuda"])
+        rc = test_cli([path, "1"])  # --device defaults to cuda
     said = buf.getvalue().strip()
-    print(f"cli test_spmv_mmf {path} 1 --device cuda: {said!r} exit {rc}",
-          flush=True)
+    print(f"cli test_spmv_mmf {path} 1: {said!r} exit {rc}", flush=True)
     if rc != 0 or not said.endswith("PASSED!"):
         raise AssertionError("the differential CLI did not pass")
-    phase_done("6 cli")
+    # the entry points with no device named land on the card
+    small = CSR.from_coo(coo)
+    xs = np.random.default_rng(3).uniform(1.0, 2.0, small.ncols).astype(
+        np.float32)
+    A = SparseMatrix.create(small, Format.SSS)
+    y = A @ xs  # untuned, a numpy x
+    where = [y.device.type, A.tuned.device.type,
+             A.tune().tuned.device.type, tune(small).device.type]
+    ok, err, _ = oracle_ok(y.cpu().numpy(), small, xs.astype(np.float64),
+                           A.tuned.nnz_full, np.float32)
+    print(f"default device: untuned A @ numpy x, its tuned matrix, "
+          f"A.tune() and tune(csr) on {where}; A @ x max_abs_err={err} "
+          f"oracle_ok={ok}", flush=True)
+    if where != ["cuda"] * 4 or not ok:
+        raise AssertionError("an entry point's default is not the card")
+    phase_done("6 cli and default device")
     print(f"total wall time {time.perf_counter() - t_start:.2f} s",
           flush=True)
 

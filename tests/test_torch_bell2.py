@@ -11,6 +11,14 @@ port's ``to_device`` as it is (the fields are the same), and the
 reference kernels run with exactly the arguments its ``bell2_apply``
 passes (word/nibble forms included).
 
+B4 and B8 read the accumulating stream as its live entries
+(``compact_stream`` of the reference plan's chunk grid, built by
+``to_device``): the entry list is held against an independent decoding of
+the grid and against the matrix the plan was built from, the twins against
+the reference's kernels on the same plan and against the chunk-grid twin,
+and every row no entry names must keep the incoming y bit for bit, NaN
+included.
+
 The B2 output buffer is NaN-poisoned: on the card, blocks a stream never
 visits hold whatever the buffer held, and the interpreter's zero fill
 would hide a sentinel bug. Visited blocks must come out finite, and after
@@ -32,9 +40,12 @@ Tolerances: ``allclose_spmv`` at float32 with the backward-error scale
 differs; B3 is a pure gather and must match exactly.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import __graft_entry__
@@ -96,14 +107,18 @@ def _flagship_far():
     return build_sbell_plan(__graft_entry__._flagship()).far
 
 
+def _holes_csr():
+    coo = proxies.random_band(n=4000, per_row=10, half_bw=1000).to_coo()
+    keep = (coo.row < 1024) | (coo.row >= 3072)
+    return RefCSR.from_coo(RefCOO(coo.nrows, coo.ncols, coo.row[keep],
+                                  coo.col[keep], coo.val[keep]))
+
+
 def _band_with_holes():
     """Depth-16 sparse stream over 8-tile blocks whose rows 1024-3071
     are empty, so two of its four output blocks are never visited."""
-    coo = proxies.random_band(n=4000, per_row=10, half_bw=1000).to_coo()
-    keep = (coo.row < 1024) | (coo.row >= 3072)
-    csr = RefCSR.from_coo(RefCOO(coo.nrows, coo.ncols, coo.row[keep],
-                                 coo.col[keep], coo.val[keep]))
-    return build_bell2_plan(csr, tiles_per_block=8, cover_all_tiles=False)
+    return build_bell2_plan(_holes_csr(), tiles_per_block=8,
+                            cover_all_tiles=False)
 
 
 #: name -> (plan factory, window depth, contig, grouped, the case must
@@ -145,7 +160,7 @@ def _port_kw(pd):
 
 def _visited_rows(pd):
     BT = pd.tiles_per_block
-    blocks = np.unique(pd.step_block.numpy())
+    blocks = np.unique(np.asarray(pd.step_block))
     rows = (blocks[:, None] * BT + np.arange(BT)[None, :]).ravel()
     return rows[rows < pd.num_row_tiles]
 
@@ -205,6 +220,123 @@ def test_bell2_spmv_plain_matches_reference(name):
                              scale=ys.numpy()[: plan.nrows])
 
 
+def _grid(plan):
+    """The plan's chunk grid as CPU tensors, for the chunk-grid twins."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(getattr(plan, k)))
+                 for k in ("vals", "packed", "meta", "step_block"))
+
+
+def _decode_grid(plan):
+    """(rows, cols, vals) of every nonzero slot of the plan's chunk grid,
+    in grid order, decoded slot by slot from the format's definition
+    (independent of ``compact_stream``)."""
+    C = plan.meta.shape[0]
+    K, BT = plan.chunks_per_step, plan.tiles_per_block
+    contig = plan.windows_contig or plan.window_depth > 8
+    vals = np.asarray(plan.vals).reshape(C, 8, 128)
+    pk = np.asarray(plan.packed).reshape(C, 8, 128).astype(np.int64)
+    out = []
+    for c, i, lane in zip(*np.nonzero(vals)):
+        q = pk[c, i, lane] & 0x7F
+        r2 = (pk[c, i, q] >> 7) & 0x1F
+        xrow = (plan.meta[c, 2] + r2 if contig
+                else plan.meta[c, 2 + (r2 & 7)])
+        tile = int(plan.step_block[c // K]) * BT + plan.meta[c, 0]
+        out.append((tile * 128 + lane, xrow * 128 + q, vals[c, i, lane]))
+    r, c, v = (np.array(a) for a in zip(*out))
+    return r.astype(np.int64), c.astype(np.int64), v
+
+
+def _expanded_cant():
+    csr = proxies.cant_proxy(n=2048, half_bw=8)
+    return RefCSR.from_coo(csr.to_coo().expand_symmetric())
+
+
+#: name -> (source CSR factory or None, plan factory, contig, the stream
+#: must leave whole output blocks unvisited)
+COMPACT = {
+    "contig8": (lambda: proxies.random_band(n=4000, per_row=10, half_bw=300),
+                lambda csr: build_bell2_plan(csr), True, False),
+    "deep16_bt8": (
+        lambda: proxies.random_band(n=4000, per_row=10, half_bw=1000),
+        lambda csr: build_bell2_plan(csr, tiles_per_block=8), True, False),
+    "listed_bt8": (_expanded_cant,
+                   lambda csr: build_bell2_plan(csr, tiles_per_block=8),
+                   False, False),
+    "deep16_holes": (_holes_csr,
+                     lambda csr: build_bell2_plan(csr, tiles_per_block=8,
+                                                  cover_all_tiles=False),
+                     True, True),
+    "flagship_far": (None, lambda csr: _flagship_far(), True, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMPACT))
+def test_compact_stream_matches_grid_and_matrix(name):
+    """The entry list of contiguous, deep and listed windows, 8-tile
+    blocks, K-padding chunks and an absent row range: as many entries as
+    the grid has nonzero slots, rows ascending, and as a matrix equal to
+    the slot-by-slot decoding and to the CSR the plan was built from."""
+    make_csr, make_plan, contig, holes = COMPACT[name]
+    csr = make_csr() if make_csr else None
+    plan = make_plan(csr)
+    assert (plan.windows_contig or plan.window_depth > 8) == contig
+    kw = dict(chunks_per_step=plan.chunks_per_step,
+              tiles_per_block=plan.tiles_per_block, contig=contig,
+              num_row_tiles=plan.num_row_tiles, x_rows=plan.x_rows)
+    es = bk.compact_stream(plan.vals, plan.packed, plan.meta,
+                           plan.step_block, **kw)
+    assert es.count == np.count_nonzero(plan.vals) == plan.nnz
+    assert es.rows.dtype == es.cols.dtype == torch.int32
+    assert es.vals.dtype == torch.float32
+    rows, cols = es.rows.numpy().astype(np.int64), es.cols.numpy()
+    assert np.all(np.diff(rows) >= 0)
+    assert es.min_tiles == rows[-1] // 128 + 1 <= plan.num_row_tiles
+    assert es.min_x_rows == cols.max() // 128 + 1 <= plan.x_rows
+    # the grid holds padding: whole K-padding chunks, and empty slots
+    C = plan.meta.shape[0]
+    live_chunks = np.unique(np.nonzero(
+        np.asarray(plan.vals).reshape(C, -1))[0])
+    if name in ("flagship_far", "deep16_holes"):
+        assert len(live_chunks) < C
+    assert es.count < plan.vals.size
+    shape = (plan.num_row_tiles * 128, plan.x_rows * 128)
+    got = sp.coo_matrix((es.vals.numpy(), (rows, cols)), shape=shape).tocsr()
+    dr, dc, dv = _decode_grid(plan)
+    # stable sort: within a row the grid's order is kept
+    order = np.argsort(dr, kind="stable")
+    assert np.array_equal(rows, dr[order])
+    assert np.array_equal(cols, dc[order])
+    assert np.array_equal(es.vals.numpy(), dv[order])
+    if csr is not None:
+        want = sp.csr_matrix(
+            (csr.data.astype(np.float32), csr.indices, csr.indptr),
+            shape=(csr.nrows, csr.ncols))
+        want.resize(shape)
+        assert (got != want).nnz == 0
+        untouched = np.setdiff1d(np.arange(shape[0]), rows)
+        assert (len(untouched) >= 2048) == holes
+    # the kernel reads without bounds checks: indices outside y or x raise
+    with pytest.raises(ValueError, match="row"):
+        bk.compact_stream(plan.vals, plan.packed, plan.meta, plan.step_block,
+                          **{**kw, "num_row_tiles": es.min_tiles - 1})
+    with pytest.raises(ValueError, match="column"):
+        bk.compact_stream(plan.vals, plan.packed, plan.meta, plan.step_block,
+                          **{**kw, "x_rows": es.min_x_rows - 1})
+
+
+def _abs64(es):
+    """The entries with |vals| in float64, for the error scale."""
+    return dataclasses.replace(es, vals=es.vals.abs().double())
+
+
+def _untouched_mask(es, tiles):
+    """Flat mask over (tiles, 128) of the rows no entry names."""
+    mask = np.ones(tiles * 128, bool)
+    mask[es.rows.numpy()] = False
+    return mask
+
+
 @pytest.mark.parametrize("name", sorted(SPARSE))
 def test_bell2_spmv_accum_plain_matches_reference(name):
     make, depth, contig, grouped, holes = SPARSE[name]
@@ -212,6 +344,9 @@ def test_bell2_spmv_accum_plain_matches_reference(name):
     _check_plan(plan, depth, contig, grouped, True)
     rd = ref_ops.to_device(plan)
     pd = ops.to_device(plan, "cpu")
+    es = pd.entries
+    assert pd.vals is None and pd.packed is None  # the grid is not uploaded
+    assert es.count == plan.nnz
     x = _x2d(plan, 2)
     x2d_np = np.asarray(ref_ops.pad_x(jnp.asarray(x), plan.x_rows))
     TP = -(-pd.num_row_tiles // pd.tiles_per_block) * pd.tiles_per_block
@@ -222,23 +357,67 @@ def test_bell2_spmv_accum_plain_matches_reference(name):
         rd.vals, rd.packed, rd.meta, rd.step_block, jnp.asarray(x2d_np),
         jnp.asarray(y0), **_ref_kw(rd),
     ))
-    kw = _port_kw(pd)
     x2d = torch.from_numpy(x2d_np.copy())
     y = torch.from_numpy(y0.copy())
-    got = bk.bell2_spmv_tiles_accum(pd.vals, pd.packed, pd.meta,
-                                    pd.step_block, x2d, y, **kw)
+    got = bk.bell2_spmv_tiles_accum(es, x2d, y)
     assert got.data_ptr() == y.data_ptr()  # accumulated in place
     scale = bk.bell2_spmv_tiles_accum_plain(
-        pd.vals.abs().double(), pd.packed, pd.meta, pd.step_block,
-        x2d.abs().double(), torch.from_numpy(np.abs(y0)).double(), **kw,
+        _abs64(es), x2d.abs().double(),
+        torch.from_numpy(np.abs(y0)).double(),
     )
     assert allclose_spmv(got.numpy(), ref, np.float32,
                          nnz_per_row=plan.nnz / plan.nrows,
                          scale=scale.numpy())
+    # the entry form against the chunk-grid twin on the same plan
+    grid = bk.bell2_spmv_tiles_plain(
+        *_grid(plan), x2d, out=torch.zeros((TP, 128)), **_port_kw(pd))
+    assert allclose_spmv(got.numpy()[: pd.num_row_tiles],
+                         y0[: pd.num_row_tiles] + grid.numpy(), np.float32,
+                         nnz_per_row=plan.nnz / plan.nrows,
+                         scale=scale.numpy()[: pd.num_row_tiles])
     # blocks without chunks keep the incoming values exactly
-    untouched = np.setdiff1d(np.arange(TP), _visited_rows(pd))
+    untouched = np.setdiff1d(np.arange(TP), _visited_rows(plan))
     assert (len(untouched) > 0) == holes
     assert np.array_equal(got.numpy()[untouched], y0[untouched])
+    # y needs only the tiles the entries name, and every row no entry
+    # names keeps the incoming y bit for bit, NaN included
+    mask = _untouched_mask(es, es.min_tiles)
+    y1 = y0[: es.min_tiles].copy()
+    y1.reshape(-1)[mask] = np.nan
+    got1 = bk.bell2_spmv_tiles_accum(es, x2d, torch.from_numpy(y1.copy()))
+    assert np.array_equal(got1.numpy().view(np.int32).reshape(-1)[mask],
+                          y1.view(np.int32).reshape(-1)[mask])
+    assert np.array_equal(got1.numpy().reshape(-1)[~mask],
+                          got.numpy()[: es.min_tiles].reshape(-1)[~mask])
+
+
+def test_entry_form_does_not_spread_nonfinite_x():
+    """The documented difference: a NaN in x at an address that only
+    padded slots of the chunk grid gather reaches rows of the chunk form
+    (0 * NaN) and no row of the entry form."""
+    plan = _flagship_far()
+    pd = ops.to_device(plan, "cpu")
+    es = pd.entries
+    vals, packed, meta, step_block = _grid(plan)
+    C = meta.shape[0]
+    pk = packed.reshape(C, 8, 128).long()
+    q = pk & 0x7F
+    r2 = torch.gather((pk >> 7) & 0x1F, 2, q)
+    addr = (meta[:, 2, None, None].long() + r2) * 128 + q  # contig windows
+    padded = addr[vals.reshape(C, 8, 128) == 0].unique()
+    live = es.cols.long().unique()
+    only_padded = padded[~torch.isin(padded, live)]
+    assert len(only_padded) > 0
+    x2d = torch.ones((plan.x_rows, 128))
+    x2d.view(-1)[only_padded[0]] = float("nan")
+    TP = -(-pd.num_row_tiles // pd.tiles_per_block) * pd.tiles_per_block
+    chunk = bk.bell2_spmv_tiles_plain(vals, packed, meta, step_block, x2d,
+                                      out=torch.zeros((TP, 128)),
+                                      **_port_kw(pd))
+    entry = bk.bell2_spmv_tiles_accum(
+        es, x2d, torch.zeros((pd.num_row_tiles, 128)))
+    assert torch.isnan(chunk).any()
+    assert torch.isfinite(entry).all()
 
 
 def test_unperm_gather_plain_matches_reference_exactly():
@@ -362,13 +541,14 @@ def test_bell2_spmm_accum_plain_matches_reference(name):
     _check_plan(plan, depth, contig, grouped, True)
     rd = ref_ops.to_device(plan)
     pd = ops.to_device(plan, "cpu")
+    es = pd.entries
     B = 2
     x3d_np = _x3d(plan.ncols, plan.x_rows, B, 12)
     TP = -(-pd.num_row_tiles // pd.tiles_per_block) * pd.tiles_per_block
     y0 = np.random.default_rng(13).uniform(-1, 1, (B, TP, 128)).astype(
         np.float32
     )
-    rows = _visited_rows(pd)
+    rows = _visited_rows(plan)
     untouched = np.setdiff1d(np.arange(TP), rows)
     assert (len(untouched) > 0) == holes
     y0[:, untouched] = np.nan
@@ -376,16 +556,14 @@ def test_bell2_spmm_accum_plain_matches_reference(name):
         rd.vals, rd.packed, rd.meta, rd.step_block, jnp.asarray(x3d_np),
         jnp.asarray(y0), **_ref_kw(rd),
     ))
-    kw = _port_kw(pd)
     x3d = torch.from_numpy(x3d_np)
     y = torch.from_numpy(y0.copy())
-    got = bk.bell2_spmm_tiles_accum(pd.vals, pd.packed, pd.meta,
-                                    pd.step_block, x3d, y, **kw)
+    got = bk.bell2_spmm_tiles_accum(es, x3d, y)
     assert got.data_ptr() == y.data_ptr()  # accumulated in place
     assert np.isnan(got.numpy()[:, untouched]).all()
     scale = bk.bell2_spmm_tiles_accum_plain(
-        pd.vals.abs().double(), pd.packed, pd.meta, pd.step_block,
-        x3d.abs().double(), torch.from_numpy(np.abs(y0)).double(), **kw,
+        _abs64(es), x3d.abs().double(),
+        torch.from_numpy(np.abs(y0)).double(),
     )
     got_v = got.numpy()[:, rows]
     assert np.isfinite(got_v).all()
@@ -394,9 +572,55 @@ def test_bell2_spmm_accum_plain_matches_reference(name):
                          scale=scale.numpy()[:, rows])
     for b in range(B):
         yb = bk.bell2_spmv_tiles_accum_plain(
-            pd.vals, pd.packed, pd.meta, pd.step_block, x3d[b],
-            torch.from_numpy(y0[b].copy()), **kw)
+            es, x3d[b], torch.from_numpy(y0[b].copy()))
         assert torch.equal(yb[rows], got[b, rows])
+
+
+@pytest.mark.parametrize("B", [1, 8, 11])
+@pytest.mark.parametrize("name", sorted(SPARSE))
+def test_bell2_spmm_accum_planes_match_reference(name, B):
+    """B8 at one plane, one full group and two groups, onto Y planes held
+    at a plane stride past the plane, NaN in every row no entry names:
+    against the reference on the rows the entries name, bit for bit on the
+    others, and per column B4's twin."""
+    plan = SPARSE[name][0]()
+    rd = ref_ops.to_device(plan)
+    pd = ops.to_device(plan, "cpu")
+    es = pd.entries
+    x3d_np = _x3d(plan.ncols, plan.x_rows, B, 21)
+    TP = -(-pd.num_row_tiles // pd.tiles_per_block) * pd.tiles_per_block
+    T = es.min_tiles
+    y0 = np.random.default_rng(22).uniform(-1, 1, (B, TP, 128)).astype(
+        np.float32
+    )
+    ref = np.asarray(ref_bk.bell2_spmm_tiles_accum(
+        rd.vals, rd.packed, rd.meta, rd.step_block, jnp.asarray(x3d_np),
+        jnp.asarray(y0), **_ref_kw(rd),
+    ))[:, :T].reshape(B, -1)
+    mask = _untouched_mask(es, T)
+    y1 = y0[:, :T].copy().reshape(B, -1)
+    y1[:, mask] = np.nan
+    wide = torch.full((B, T + 3, 128), float("inf"))
+    wide[:, :T] = torch.from_numpy(y1.reshape(B, T, 128))
+    x3d = torch.from_numpy(x3d_np)
+    got = bk.bell2_spmm_tiles_accum(es, x3d, wide[:, :T])
+    assert got.data_ptr() == wide.data_ptr()
+    assert torch.isinf(wide[:, T:]).all()  # nothing past the planes moved
+    got = got.numpy().reshape(B, -1)
+    assert np.array_equal(got.view(np.int32)[:, mask],
+                          y1.view(np.int32)[:, mask])
+    scale = bk.bell2_spmm_tiles_accum_plain(
+        _abs64(es), x3d.abs().double(),
+        torch.from_numpy(np.abs(y0[:, :T])).double(),
+    ).numpy().reshape(B, -1)
+    assert np.isfinite(got[:, ~mask]).all()
+    assert allclose_spmv(got[:, ~mask], ref[:, ~mask], np.float32,
+                         nnz_per_row=plan.nnz / plan.nrows,
+                         scale=scale[:, ~mask])
+    for b in range(B):
+        yb = bk.bell2_spmv_tiles_accum_plain(
+            es, x3d[b], torch.from_numpy(y1[b].reshape(T, 128).copy()))
+        assert np.array_equal(yb.numpy().reshape(-1)[~mask], got[b, ~mask])
 
 
 def test_unperm_gather_mm_plain_matches_reference_exactly():
@@ -498,12 +722,27 @@ def test_bell2_wrappers_check_operands():
     with pytest.raises(ValueError, match="out"):  # strided out planes
         bk.bell2_spmm_tiles(*args, x3d, out=torch.zeros((2, TP + 1, 128))
                             [:, :TP], **kw)
+    # B4/B8 take the stream's entries
+    es = bk.compact_stream(plan.vals, plan.packed, plan.meta,
+                           plan.step_block, x_rows=plan.x_rows, **kw)
     with pytest.raises(ValueError, match="planes"):  # B of Y differs
-        bk.bell2_spmm_tiles_accum(*args, x3d, y3d[:1], **kw)
-    with pytest.raises(ValueError, match="rows"):  # Y not padded to BT
-        bk.bell2_spmm_tiles_accum(*args, x3d, y3d[:, :-1], **kw)
+        bk.bell2_spmm_tiles_accum(es, x3d, y3d[:1])
+    with pytest.raises(ValueError, match="rows"):  # Y short of a row
+        bk.bell2_spmm_tiles_accum(es, x3d, y3d[:, : es.min_tiles - 1])
+    with pytest.raises(ValueError, match="rows"):  # x short of a column
+        bk.bell2_spmm_tiles_accum(es, x3d[:, : es.min_x_rows - 1], y3d)
     with pytest.raises(ValueError, match="no planes|planes"):  # B = 0
-        bk.bell2_spmm_tiles_accum(*args, x3d[:0], y3d[:0], **kw)
+        bk.bell2_spmm_tiles_accum(es, x3d[:0], y3d[:0])
+    with pytest.raises(ValueError, match="rows"):
+        bk.bell2_spmv_tiles_accum(es, x2d, y3d[0, : es.min_tiles - 1])
+    with pytest.raises(TypeError, match="float64.*float32"):
+        bk.bell2_spmv_tiles_accum(es, x2d.double(), y3d[0])
+    with pytest.raises(TypeError, match="float64.*float32"):
+        bk.bell2_spmm_tiles_accum(es, x3d, y3d.double())
+    with pytest.raises(ValueError, match="int32"):
+        bk.bell2_spmv_tiles_accum(
+            bk.EntryStream(es.rows.long(), es.cols, es.vals, es.min_tiles,
+                           es.min_x_rows), x2d, y3d[0])
     g = _audikw_far()
     gd = ops.to_device(g, "cpu")
     with pytest.raises(ValueError, match="g_tiles"):

@@ -41,6 +41,7 @@ from cfs_spmv_tpu_torch.io.mmf import write_mmf
 from cfs_spmv_tpu_torch.ops import bell2_kernel as bk
 from cfs_spmv_tpu_torch.ops import sdia_kernel as sk
 from cfs_spmv_tpu_torch.ops import spmv as ops
+from cfs_spmv_tpu_torch.tuning.tune import tune
 from cfs_spmv_tpu_torch.utils import proxies
 from cfs_spmv_tpu_torch.utils.platform import allclose_spmv
 
@@ -243,7 +244,7 @@ def test_general_paired_mirrored_paths_match_reference(name, monkeypatch):
     A = ct.SparseMatrix.create(csr, getattr(ct.Format, fmt))
     R = ref_cfs.SparseMatrix.create(ref_csr, getattr(ref_cfs.Format, fmt))
     if matmul:
-        y, y_ref = A @ x, np.asarray(R @ x)
+        y, y_ref = A @ torch.from_numpy(x), np.asarray(R @ x)
     else:
         y = ct.SpDMV(A, getattr(ct.Tuning, tuning), dtype=np.float32,
                      device="cpu")(x)
@@ -322,7 +323,7 @@ def test_spdmm_matches_reference_and_oracle(name, monkeypatch):
     A = ct.SparseMatrix.create(csr, getattr(ct.Format, fmt))
     R = ref_cfs.SparseMatrix.create(ref_csr, getattr(ref_cfs.Format, fmt))
     if entry == "matmul":
-        Y, Y_ref = A @ X, R @ X
+        Y, Y_ref = A @ torch.from_numpy(X), R @ X
     else:
         port_cls = getattr(ct, entry)
         ref_cls = getattr(ref_cfs, entry)
@@ -482,7 +483,8 @@ def test_general_path_raises():
     coo = COO.random(500, 500, 4.0, seed=1)
     A = ct.SparseMatrix.create(coo, ct.Format.CSR)
     x = np.ones(500, np.float32)
-    y = (A @ x).numpy()  # untuned: the general oracle path
+    # untuned: the general oracle path, on the tensor's device
+    y = (A @ torch.from_numpy(x)).numpy()
     assert isinstance(A.tuned.operands, ops.Bell2Device)
     _assert_close(y, A.csr.spmv_host(x.astype(np.float64)), A.csr, x,
                   A.tuned.nnz_full)
@@ -563,3 +565,44 @@ def test_cuda_device_without_cuda_raises():
         ct.SpDMV(_small_sym(), device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         ct.SpDMM(_small_sym(), device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["SpDMV", "SpDMM", "tune_method",
+                                   "tune_function", "matmul_numpy",
+                                   "matmul_list"])
+def test_default_device_is_the_card(entry):
+    """Every entry point runs on the card unless the caller asks for the
+    CPU: without CUDA the default raises, naming the device, and nothing
+    is tuned onto the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the refusal needs a host without")
+    A = _small_sym()
+    x = np.ones(A.ncols, np.float32)
+    call = {
+        "SpDMV": lambda: ct.SpDMV(A),
+        "SpDMM": lambda: ct.SpDMM(A),
+        "tune_method": lambda: A.tune(),
+        "tune_function": lambda: tune(A.csr),
+        "matmul_numpy": lambda: A @ x,
+        "matmul_list": lambda: A.dense_vector_multiply(x.tolist()),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device cuda"):
+        call()
+    assert A.tuned is None
+
+
+def test_untuned_matmul_tunes_onto_the_tensors_device():
+    """An untuned ``A @ x`` with a CPU tensor runs on the CPU, SpMV and
+    SpMM; once tuned, numpy operands go to the matrix's device."""
+    A = _small_sym()
+    x = random_x(A.ncols, np.float32)
+    y = A @ torch.from_numpy(x)
+    assert y.device.type == "cpu" and A.tuned.device.type == "cpu"
+    _assert_close(y.numpy(), A.csr.spmv_host(x.astype(np.float64)), A.csr, x,
+                  A.tuned.nnz_full)
+    assert torch.equal(A @ x, y)
+    A2 = _small_sym()
+    X = random_X(A2.ncols, 2)
+    Y = A2 @ torch.from_numpy(X)
+    assert Y.device.type == "cpu" and Y.shape == (A2.nrows, 2)
+    assert torch.equal(Y[:, 0], A2 @ X[:, 0])

@@ -1,9 +1,10 @@
 """cfs_spmv_tpu_torch — the PyTorch + CUDA port of ``cfs_spmv_tpu``.
 
-The fp32 SpMV and SpMM paths of the JAX/Pallas package — the tuned
-symmetric path with its paired stream, and the general path — on PyTorch
-tensors with hand-written Hopper (sm_90a) kernels for the Pallas kernels
-those paths reach (``ops/``, sources in ``csrc/spmv_kernels.cu``). The host
+The SpMV and SpMM paths of the JAX/Pallas package — the tuned symmetric
+path with its paired stream and the general path in float32, and the
+float64 route in native IEEE double — on PyTorch tensors with
+hand-written Hopper (sm_90a) kernels for the Pallas kernels those paths
+reach (``ops/``, sources in ``csrc/spmv_kernels.cu``). The host
 planners (``formats/``, ``native/``, ``tuning/reorder.py``,
 ``io/mmf.py``, ``utils/``) are copies of the reference's, held
 byte-identical to it by ``tests/test_torch_formats.py``.
@@ -33,7 +34,13 @@ from .formats.coo import COO  # noqa: E402
 from .formats.csr import CSR  # noqa: E402
 from .matrix import SparseMatrix  # noqa: E402
 from .models.spdmv import SpDMM, SpDMV  # noqa: E402
-from .utils.platform import Format, Tuning  # noqa: E402
+from .utils.platform import (  # noqa: E402
+    Format,
+    Kernel,
+    Platform,
+    Tuning,
+    is_equal,
+)
 
 __version__ = "0.1.0"
 
@@ -44,6 +51,9 @@ __all__ = [
     "SpDMV",
     "SpDMM",
     "Format",
+    "Kernel",
+    "Platform",
     "Tuning",
+    "is_equal",
     "__version__",
 ]

@@ -17,8 +17,9 @@
 // All kernels move little data per operation (one multiply-add per 4- or
 // 8-byte value plus its index bytes), so each is bound by device-memory
 // bytes, not arithmetic. Their designs keep loads coalesced along the 128
-// lanes and leave reuse of re-read bytes to the 50 MB L2; tiling through
-// shared memory is later work.
+// lanes and leave reuse of re-read bytes to the 50 MB L2; sbell_spmv also
+// stages the x tiles of a chunk in shared memory, for the others that is
+// later work.
 //
 // Right-hand-side groups (SpMM, the Pallas *_mm kernels). Each stream
 // kernel is a template on kRhs, the number of right-hand sides one pass
@@ -378,48 +379,117 @@ bell2_entries_kernel(const int* __restrict__ rows,
 // windows are meta[c, 2 .. 2 + TW); each is an x tile for the row side
 // and a y tile of the same output block for the transpose side.
 //
-// - Row side, as bell2_spmv: slot (i, l) gathers x[meta[c, 2 + r2]][q]
-//   with r2 the field at lane q (through shared memory); a window index
-//   >= TW reads zero. The 8 sublanes sum into row tile
-//   step_block[c / K] * BT + meta[c, 0], flushed with atomicAdd when the
-//   row changes.
+// - Row side: slot (i, l) gathers x[meta[c, 2 + r2]][q] with r2 the field
+//   at lane q; a window index >= TW reads nothing. The 8 sublanes sum
+//   into row tile step_block[c / K] * BT + meta[c, 0].
 // - Transpose side: at slot (i, p) with r2 < TW, the product
-//   vals[i, src] * x[row tile][src] (src = bits 10-16; the value through
-//   shared memory) lands on y[meta[c, 2 + r2]][p] by one atomicAdd per
-//   slot and plane: the targets are other tiles of the block, written by
-//   other CTAs. Summing per window in registers before the atomic is
-//   later work.
+//   vals[i, src] * x[row tile][src] (src = bits 10-16) lands on
+//   y[meta[c, 2 + r2]][p].
+//
+// What bounds it on this card. Past the 50 MB L2 the stream's bytes do (8
+// a slot, each value used twice). A stream that fits the L2 is bound by
+// the chain of dependent loads of one chunk: the TPU kernel walks its
+// chunks in grid order on one core and hides that chain in its pipeline;
+// here nothing hides it but other CTAs, so a walk of many chunks a CTA
+// leaves the SMs waiting. Over planes the transpose side's atomicAdds
+// count as well: one per valid slot and plane, in partly filled 32-byte
+// sectors.
+//
+// What the design does about it.
+// - Short walks, one wave. A CTA of 128 threads (one per lane) walks cpc
+//   consecutive chunks, a launch argument: the fewest that let every CTA
+//   be resident at once, and at most kMaxWalk (chunks_per_cta below).
+// - No global load behind the barrier. A chunk's windows are TW + 1 tiles
+//   of x: its own (the transpose side's x[row tile]) and TW for the row
+//   side. Their tile numbers are read once a chunk from meta, and the
+//   tiles are staged in shared memory next to the chunk's r2 fields and
+//   values, so after the one barrier every gather reads shared memory. That
+//   is (TW + 1) coalesced loads a thread and plane in place of 16 gathers.
+// - Transpose sums without atomics inside the CTA. Thread p is the only
+//   writer of lane p of every window tile, so the sums per window slot
+//   are private to it: in registers for one or two planes, and for four
+//   or eight (where TW x kRhs registers more would halve the resident
+//   CTAs) in a shared tile of which a thread touches its own lane only.
+//   A slot's sums are handed over when the slot's target changes (the
+//   planner keeps a target in its slot from chunk to chunk) and at the end
+//   of the walk: into the running row sums when the target is the row's
+//   own tile, else by one atomicAdd per plane, lanes holding 0 skipped.
+// - The row sums are flushed the same way on a change of row tile, so a
+//   walk may start and end between any two chunks.
 //
 // The TPU zeroes each block at its first grid step and relies on steps
-// running in order; here blocks are zeroed by bell2_zero_blocks_kernel in
-// a separate launch first, since another CTA's transpose atomics may land
-// before a CTA of the same launch could zero them. K-padding chunks carry
-// zero values and forward-filled meta, so they add exactly 0. Like
-// bell2_spmv the kernel is bound by stream bytes (4-byte value + 4-byte
-// word per slot, each value used twice), read once per group of planes;
-// over planes the transpose side also makes kRhs L2 atomics per valid
-// slot, so a wide group is bound by L2 atomic throughput as much as by
-// the stream.
+// running in order; here the whole output is zeroed first in a launch of
+// its own (cudaMemset2DAsync over the group's planes: a paired plan
+// visits every output block), since another CTA's transpose atomics may
+// land before a CTA of the same launch could zero them. K-padding chunks
+// carry zero values and forward-filled meta, so they add exactly 0.
 // ---------------------------------------------------------------------------
+constexpr int kMaxWalk = 4;
+
+// One atomicAdd per live plane whose sum is not 0.
+template <int kRhs>
+__device__ __forceinline__ void flush_sums(float* y, int64_t ys, int64_t at,
+                                           const float (&s)[kRhs], int nr) {
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b)
+    if (live<kRhs>(b, nr) && s[b] != 0.0f) atomicAdd(y + b * ys + at, s[b]);
+}
+
+// The sums s of a window slot whose target was tile wt leave the slot:
+// they join the running row sums when wt is the row's tile, else go to y.
+template <int kRhs>
+__device__ __forceinline__ void hand_over(float* y, int64_t ys, int lane,
+                                          int wt, int64_t row,
+                                          const float (&s)[kRhs],
+                                          float (&acc)[kRhs], int nr) {
+  if (wt == row) {
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) acc[b] += s[b];
+  } else if (wt >= 0) {
+    flush_sums<kRhs>(y, ys, static_cast<int64_t>(wt) * kLanes + lane, s, nr);
+  }
+}
+
 template <int TW, int kRhs>
 __global__ void __launch_bounds__(kLanes)
 sbell_spmv_kernel(const float* __restrict__ vals,
                   const int* __restrict__ packed,
                   const int* __restrict__ meta,
                   const int* __restrict__ step_block, int64_t C, int K,
-                  int BT, const float* __restrict__ x, int64_t xs,
+                  int BT, int cpc, const float* __restrict__ x, int64_t xs,
                   float* __restrict__ y, int64_t ys, int nr) {
+  constexpr bool kRegSums = kRhs <= 2;
   __shared__ int r2s[kSublanes][kLanes];
   __shared__ float vs[kSublanes][kLanes];
+  __shared__ float xo[kRhs][kLanes];      // the chunk's own x tile
+  __shared__ float xw[kRhs][TW][kLanes];  // its window tiles
+  // transpose sums per window slot, where registers do not hold them
+  __shared__ float tsm[kRegSums ? 1 : kRhs][kRegSums ? 1 : TW][kLanes];
   const int lane = threadIdx.x;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kChunksPerCta;
-  const int64_t c1 = c0 + kChunksPerCta < C ? c0 + kChunksPerCta : C;
-  int64_t row = -1;  // y tile row of the running row-side sums
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * cpc;
+  const int64_t c1 = c0 + cpc < C ? c0 + cpc : C;
+  int64_t row = -1;  // y tile of the running row-side sums
   float acc[kRhs];
+  int wt[TW];  // y tile of each window slot's running transpose sums
+  float ts[kRegSums ? TW : 1][kRhs];
 #pragma unroll
   for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < TW; ++t) {
+    wt[t] = -1;
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) {
+      if constexpr (kRegSums)
+        ts[t][b] = 0.0f;
+      else
+        tsm[b][t][lane] = 0.0f;
+    }
+  }
   for (int64_t c = c0; c < c1; ++c) {
     const int* m = meta + c * kMetaW;
+    int w[TW];
+#pragma unroll
+    for (int t = 0; t < TW; ++t) w[t] = m[2 + t];
     const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
     const int64_t slot0 = c * kSublanes * kLanes + lane;
     int pk[kSublanes];
@@ -431,43 +501,81 @@ sbell_spmv_kernel(const float* __restrict__ vals,
       r2s[i][lane] = (pk[i] >> 7) & 7;
       vs[i][lane] = v[i];
     }
-    __syncthreads();
-    const float* xt = x + tgt * kLanes;  // the chunk's own x tile
-    float part[kRhs];
 #pragma unroll
-    for (int b = 0; b < kRhs; ++b) part[b] = 0.0f;
+    for (int b = 0; b < kRhs; ++b)
+      if (live<kRhs>(b, nr)) {
+        const float* xb = x + b * xs + lane;
+        xo[b][lane] = xb[tgt * kLanes];
 #pragma unroll
-    for (int i = 0; i < kSublanes; ++i) {
-      const int q = pk[i] & 0x7F;
-      const int r2 = r2s[i][q];
-      if (r2 < TW) {
-        const float* xq = x + static_cast<int64_t>(m[2 + r2]) * kLanes + q;
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr)) part[b] = fmaf(v[i], xq[b * xs], part[b]);
+        for (int t = 0; t < TW; ++t)
+          xw[b][t][lane] = xb[static_cast<int64_t>(w[t]) * kLanes];
       }
-      const int t2 = (pk[i] >> 7) & 7;
-      if (t2 < TW) {
-        const int src = (pk[i] >> 10) & 0x7F;
-        const float tv = vs[i][src];
-        float* yt = y + static_cast<int64_t>(m[2 + t2]) * kLanes + lane;
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr))
-            atomicAdd(yt + b * ys, tv * xt[b * xs + src]);
-      }
-    }
     __syncthreads();
+#pragma unroll
+    for (int t = 0; t < TW; ++t)
+      if (w[t] != wt[t]) {
+        float s[kRhs];
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b) {
+          if constexpr (kRegSums) {
+            s[b] = ts[t][b];
+            ts[t][b] = 0.0f;
+          } else {
+            s[b] = tsm[b][t][lane];
+            tsm[b][t][lane] = 0.0f;
+          }
+        }
+        hand_over<kRhs>(y, ys, lane, wt[t], row, s, acc, nr);
+        wt[t] = w[t];
+      }
     if (tgt != row) {
-      if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+      if (row >= 0) flush_sums<kRhs>(y, ys, row * kLanes + lane, acc, nr);
       row = tgt;
 #pragma unroll
       for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
     }
 #pragma unroll
-    for (int b = 0; b < kRhs; ++b) acc[b] += part[b];
+    for (int i = 0; i < kSublanes; ++i) {
+      const int q = pk[i] & 0x7F;
+      const int r2 = r2s[i][q];
+      if (r2 < TW) {
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr)) acc[b] = fmaf(v[i], xw[b][r2][q], acc[b]);
+      }
+      const int t2 = (pk[i] >> 7) & 7;
+      if (t2 < TW) {
+        const int src = (pk[i] >> 10) & 0x7F;
+        const float tv = vs[i][src];
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr)) {
+            const float p = tv * xo[b][src];
+            if constexpr (kRegSums) {
+#pragma unroll
+              for (int t = 0; t < TW; ++t)
+                if (t2 == t) ts[t][b] += p;
+            } else {
+              tsm[b][t2][lane] += p;
+            }
+          }
+      }
+    }
+    __syncthreads();  // the next chunk overwrites the staged tiles
   }
-  if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+#pragma unroll
+  for (int t = 0; t < TW; ++t) {
+    float s[kRhs];
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) {
+      if constexpr (kRegSums)
+        s[b] = ts[t][b];
+      else
+        s[b] = tsm[b][t][lane];
+    }
+    hand_over<kRhs>(y, ys, lane, wt[t], row, s, acc, nr);
+  }
+  if (row >= 0) flush_sums<kRhs>(y, ys, row * kLanes + lane, acc, nr);
 }
 
 // ---------------------------------------------------------------------------
@@ -561,6 +669,32 @@ int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
+// Chunks a CTA of sbell_spmv_kernel<TW, R> walks on a stream of C chunks:
+// the fewest that make every CTA resident at once (one wave, no tail),
+// and at most kMaxWalk, past which a longer walk only lengthens each
+// CTA's chain of dependent loads.
+template <int TW, int R>
+int chunks_per_cta(int64_t C) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sbell_spmv_kernel<TW, R>, kLanes, 0);
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  if (resident <= 0 || C > resident * kMaxWalk) return kMaxWalk;
+  return C <= resident ? 1 : static_cast<int>((C + resident - 1) / resident);
+}
+
+template <int TW, int R>
+void launch_sbell(const float* vals, const int* packed, const int* meta,
+                  const int* step_block, int64_t C, int K, int BT,
+                  const float* x, int64_t xs, float* y, int64_t ys, int nr,
+                  cudaStream_t stream) {
+  const int cpc = chunks_per_cta<TW, R>(C);
+  sbell_spmv_kernel<TW, R><<<blocks_for(C, cpc), kLanes, 0, stream>>>(
+      vals, packed, meta, step_block, C, K, BT, cpc, x, xs, y, ys, nr);
+}
+
 }  // namespace
 
 extern "C" {
@@ -598,25 +732,37 @@ int cfs_sdia_gen(const float* vals, const int* offsets, int D,
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
+int cfs_sbell_chunks_per_cta(int64_t C, int TW, int nr) {
+  int cpc = 0;
+  with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    cpc = TW == 2 ? chunks_per_cta<2, R>(C) : chunks_per_cta<4, R>(C);
+  });
+  return cpc;
+}
+
+// tiles: the rows of 128 of each output plane, all zeroed first.
 int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT, int TW,
-                   const float* x, int64_t xs, float* y, int64_t ys, int nr,
-                   cudaStream_t stream) {
+                   int64_t tiles, const float* x, int64_t xs, float* y,
+                   int64_t ys, int nr, cudaStream_t stream) {
   if (TW != 2 && TW != 4) return invalid();
+  cudaError_t zeroed = cudaSuccess;
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
     if (C <= 0) return;
-    bell2_zero_blocks_kernel<float>
-        <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
-            step_block, BT, y, ys);
-    const unsigned int grid = blocks_for(C, kChunksPerCta);
+    const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(float);
+    zeroed = cudaMemset2DAsync(y, nr == 1 ? width : ys * sizeof(float), 0,
+                               width, nr, stream);
+    if (zeroed != cudaSuccess) return;
     if (TW == 2)
-      sbell_spmv_kernel<2, R><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+      launch_sbell<2, R>(vals, packed, meta, step_block, C, K, BT, x, xs, y,
+                         ys, nr, stream);
     else
-      sbell_spmv_kernel<4, R><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+      launch_sbell<4, R>(vals, packed, meta, step_block, C, K, BT, x, xs, y,
+                         ys, nr, stream);
   });
+  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 

@@ -109,6 +109,23 @@ class SparseMatrix:
     def csr(self) -> CSR:
         return self._csr
 
+    def diagonal(self) -> np.ndarray:
+        """Main diagonal as a dense vector (e.g. the Jacobi
+        preconditioner of a conjugate-gradient solve)."""
+        if self._csr.symmetric:
+            _, diag, _ = self._csr.split_triangle()
+            return diag
+        n = min(self.nrows, self.ncols)
+        diag = np.zeros(n, self._csr.data.dtype)
+        indptr, indices, data = (
+            self._csr.indptr, self._csr.indices, self._csr.data,
+        )
+        rowlen = np.diff(indptr[: n + 1])
+        rows = np.repeat(np.arange(n, dtype=np.int64), rowlen)
+        mask = indices[: indptr[n]] == rows
+        diag[rows[mask]] = data[: indptr[n]][mask]
+        return diag
+
     @property
     def tuned(self) -> TunedMatrix | None:
         return self._tuned
@@ -147,10 +164,16 @@ class SparseMatrix:
         """y = A @ x (ref ``sparse_matrix.hpp:36``). Tunes with the
         untuned-oracle defaults on first use if untuned: ``Tuning.NONE``,
         the general one-sided path (a symmetric matrix is expanded), on
-        x's device when x is a tensor and on the card otherwise."""
+        x's device when x is a tensor and on the card otherwise, in
+        float64 for a float64 x (a numpy array or a tensor) and in
+        float32 for any other x."""
         if self._tuned is None:
-            device = x.device if isinstance(x, torch.Tensor) else "cuda"
-            self.tune(tuning=Tuning.NONE, device=device)
+            if isinstance(x, torch.Tensor):
+                device, f64 = x.device, x.dtype == torch.float64
+            else:
+                device, f64 = "cuda", np.asarray(x).dtype == np.float64
+            self.tune(tuning=Tuning.NONE, device=device,
+                      dtype=np.float64 if f64 else np.float32)
         x = torch.as_tensor(x, dtype=self._tuned.dtype,
                             device=self._tuned.device)
         if x.ndim != 1:

@@ -86,13 +86,16 @@ def _bind(path: str) -> ctypes.CDLL:
     for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64):
         fn.argtypes = [p, p, i32, i64, i64, i64, *planes]
     cdll.cfs_sdia_gen.argtypes = [p, p, i32, i64, i64, *planes]
-    cdll.cfs_sbell_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, *planes]
+    cdll.cfs_sbell_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, i64,
+                                    *planes]
+    cdll.cfs_sbell_chunks_per_cta.argtypes = [i64, i32, i32]
     for fn in (cdll.cfs_bell2_spmv, cdll.cfs_bell2_spmv_f64):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i32, *planes]
     cdll.cfs_bell2_entries.argtypes = [p, p, p, i64, *planes]
     cdll.cfs_unperm_gather.argtypes = [p, p, i32, p, i64, p, i64, i64, i32, p]
     for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64, cdll.cfs_sdia_gen,
-               cdll.cfs_sbell_spmv, cdll.cfs_bell2_spmv,
+               cdll.cfs_sbell_spmv, cdll.cfs_sbell_chunks_per_cta,
+               cdll.cfs_bell2_spmv,
                cdll.cfs_bell2_spmv_f64, cdll.cfs_bell2_entries,
                cdll.cfs_unperm_gather):
         fn.restype = i32

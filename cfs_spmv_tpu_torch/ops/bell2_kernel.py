@@ -500,9 +500,9 @@ def sbell_spmv_tiles(vals, packed, meta, step_block, x2d, *,
     tiles of the chunk's own output block; ``step_block``: (C/K,) int32;
     ``x2d``: (x_rows, 128) float32; ``transpose_windows`` (TW) is 2 or 4.
     The output is a (ceil(T/BT)*BT, 128) buffer (``out``, or
-    ``torch.empty``) whose visited blocks are zeroed, then accumulated;
-    a paired plan visits every block (``sym_to_device`` checks it).
-    Returns its first T rows.
+    ``torch.empty``) that is zeroed whole, then accumulated: a paired
+    plan visits every block (``sym_to_device`` checks it). Returns its
+    first T rows.
 
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     or raises.
@@ -531,11 +531,15 @@ def _check_sbell(vals, packed, meta, step_block, K, TW):
 
 
 def _launch_sbell(vals, packed, meta, step_block, x3d, y3d, K, BT, TW, name):
+    """Launch the paired-stream kernel over plane stacks, each group after
+    a zero pass over the whole of its planes of ``y3d``; returns the
+    number of launches (one per group of planes)."""
     lib = _cuda.lib()
     return _cuda.launch_groups(
         name, x3d, y3d, lambda *planes: lib.cfs_sbell_spmv(
             vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
-            step_block.data_ptr(), meta.shape[0], K, BT, TW, *planes,
+            step_block.data_ptr(), meta.shape[0], K, BT, TW, y3d.shape[1],
+            *planes,
         ))
 
 
@@ -657,8 +661,8 @@ def sbell_spmm_tiles(vals, packed, meta, step_block, x3d, *,
     """Y tiles (B, T, 128) = (L + Lᵀ) X from the paired strict-lower
     stream, for B right-hand sides: ``x3d`` (B, x_rows, 128) float32
     planes, each contiguous; the output a contiguous (B,
-    ceil(T/BT)*BT, 128) buffer whose visited blocks are zeroed in every
-    plane, then accumulated. Other operands as :func:`sbell_spmv_tiles`;
+    ceil(T/BT)*BT, 128) buffer, zeroed whole in every plane, then
+    accumulated. Other operands as :func:`sbell_spmv_tiles`;
     launches as :func:`bell2_spmm_tiles`.
     """
     K, BT, TW = chunks_per_step, tiles_per_block, transpose_windows

@@ -5,8 +5,8 @@ reference's platform substrate (``include/utils/platform.hpp:20-37`` in
 cfs-spmv) with ``Kernel{SpDMV}``, ``Tuning{None,Aggressive}`` and
 ``Format{none,csr,sss,hyb}`` enums plus a relative-epsilon float
 comparator ``isEqual`` (rel-eps 1e-4 float / 1e-8 double,
-``platform.hpp:27-37``). The device is named by a ``torch.device`` where
-the port needs one, so the reference's ``Platform`` enum is not carried.
+``platform.hpp:27-37``). ``Platform`` names the two places a tuned matrix
+can live in the port, by the string its ``device=`` arguments take.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import enum
 import numpy as np
 
 __all__ = [
+    "Platform",
     "Kernel",
     "Tuning",
     "Format",
@@ -25,6 +26,15 @@ __all__ = [
     "iceildiv",
     "round_up",
 ]
+
+
+class Platform(enum.Enum):
+    """Execution platform for a tuned matrix (ref ``platform.hpp:20``):
+    the value is the ``device=`` string of ``SpDMV``, ``SpDMM`` and
+    ``tune``."""
+
+    CUDA = "cuda"  # the card: the hand-written kernels, the default
+    CPU = "cpu"  # the kernels' plain PyTorch twins, as the tests run
 
 
 class Kernel(enum.Enum):
@@ -83,7 +93,9 @@ def rel_tolerance(dtype) -> float:
     dt = np.dtype(dtype)
     if dt in _REL_EPS:
         return _REL_EPS[dt]
-    if dt == np.dtype("bfloat16") or dt.itemsize <= 2:
+    # by size, not by name: numpy knows "bfloat16" only once ml_dtypes
+    # is imported, which nothing in this package does
+    if dt.itemsize <= 2:
         return 5e-2
     raise ValueError(f"no tolerance defined for dtype {dt}")
 

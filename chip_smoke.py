@@ -8,15 +8,17 @@ Run from the repository root with no arguments::
 Phases (each prints its wall time):
 
 1. card name and power limit (``nvidia-smi``), PyTorch and CUDA versions;
-2. build the CUDA kernels from ``cfs_spmv_tpu_torch/csrc/spmv_kernels.cu``;
+2. build the CUDA kernels from ``cfs_spmv_tpu_torch/csrc/spmv_kernels.cu``,
+   and beside that build (one ``nvcc`` per source, all started together)
+   ptxas' report and the two comparison sources of phase 4;
 2b. ptxas' report (``nvcc -Xptxas -v``) of registers and spills for every
    kernel instance; any spill fails the run;
 3. the main paths, once each, through the user entry points —
    ``SparseMatrix.create(csr, fmt)`` then
    ``SpDMV(A, tuning, dtype=np.float32)(x)`` and
    ``SpDMM(A, tuning, dtype=np.float32)(X)`` with X of B = 8 columns
-   (SpMM, ROADMAP A7), on the default device, which is the card — on nine
-   full-size runs (``RUNS``): the tuned symmetric path on
+   (SpMM, ROADMAP A7), on the default device, which is the card — on
+   eleven full-size runs (``RUNS``): the tuned symmetric path on
    ``cant_proxy()``, ``audikw_proxy()`` and the 65,536-row flagship; the
    general path on ``general_asym()`` and on the flagship as a general
    matrix; the untuned oracle path (``Tuning.NONE``) on
@@ -24,7 +26,9 @@ Phases (each prints its wall time):
    ``CFS_PAIRED=force``, and the same matrix under the default
    ``CFS_PAIRED=auto`` gate (which routes it to the one-sided stream);
    mirrored diagonals on ``cant_proxy()`` with ``SDIA_SYM_ROWS_MAX``
-   below its size. Each result (each column of Y) is checked against
+   below its size; ``near_band_paired(n=400_000)``, the same structure at
+   8x (a paired stream past the 50 MB L2, in several output blocks), with
+   ``CFS_PAIRED=force`` and under the default gate. Each result (each column of Y) is checked against
    the float64 host oracle. The kernels' launch counts are zeroed just
    before each apply and read just after; each SpMV apply must launch
    exactly the kernels its plan predicts (and ``EXPECTED`` lists), each
@@ -44,11 +48,18 @@ Phases (each prints its wall time):
    its place, and the fill;
 4. each kernel against its plain PyTorch twin on the same card, on the
    real plan arrays of those runs (``sbell_spmv`` also replanned with the
-   other transpose-window count and with 8-tile output blocks,
+   other transpose-window count and with 8-tile output blocks, and on the
+   400,000-row plan; on each plan also with a zero x into NaN-poisoned
+   planes at a plane stride past the plane, which must come back all zero
+   where the plan covers them and untouched past them; a paired plan that
+   leaves an output block unvisited must be refused at upload;
    ``sdia_gen`` also on a ragged ``general_asym(g=50)`` plan); each
    multi-RHS kernel at B = 8 and at B = 11 (two plane groups), into
    NaN-poisoned outputs where the kernel zeroes its own, ``sbell_spmm``
-   also on the 8-tile-block replan, ``unperm_gather_mm`` bit-identical;
+   also with the other transpose-window count and on the 8-tile-block
+   replan (both also at B = 2, the two-plane instance) and on the
+   400,000-row plan, from x planes at a plane stride past the plane,
+   ``unperm_gather_mm`` bit-identical;
    the four float64 kernels at B = 1, 8 and 11 (scaled error against the
    float64 twin below ``F64_TWIN_TOL``), the diagonal ones onto strided Y
    planes, the stream ones also on an 8-tile-block replan with an absent
@@ -60,10 +71,16 @@ Phases (each prints its wall time):
    for bit, and against the chunk-grid twin on the same plan's padded
    arrays; and the warp-segmented form that ships beside a per-entry
    atomics form of the same kernel (``ENTRIES_ALT_SRC``, built for this
-   comparison only), both against the twin and in device time;
+   comparison only), both against the twin and in device time; the
+   paired kernel that ships beside the form before its redesign and the
+   redesign's steps (``SBELL_ALT_SRC``, built for this comparison only),
+   each against the twin, then in device time over walks of 1 to 8
+   chunks a CTA on the main plan and on the 400,000-row plan at B = 1
+   and 8, and the three zero passes alone;
 5. times per call (CUDA events around 20 back-to-back calls, median of
    5) of each kernel and twin (multi-RHS ones at B = 8), and of the
-   kernel path and the plain path of every run, SpMV and SpMM(8), with
+   kernel path and the plain path of every run, SpMV and SpMM(8) (the
+   paired kernels also on the 400,000-row plan), with
    the device time of each apply and of each kernel from
    ``torch.profiler``; for ``bell2_spmm``, ``sbell_spmm`` and
    ``sdia_sym_mm`` the MM(8) kernel's device time beside 8x its SpMV
@@ -91,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -112,6 +130,10 @@ EXPECTED = {
     # the default gate's choice for the same matrix: grouped one-sided
     "near_band_paired_auto": {"bell2_spmv", "unperm_gather"},
     "cant_proxy_mirrored": {"sdia_gen"},  # mirrored diagonals
+    # the paired stream past the L2 (400,000 rows, several output blocks),
+    # and the default gate's choice there: one accumulating entry list
+    "near_band_paired_400k": {"sbell_spmv", "bell2_spmv_accum"},
+    "near_band_paired_400k_auto": {"bell2_spmv_accum"},
     # the float64 route
     "cant_proxy_f64": {"sdia_sym_df"},  # diagonals incl. the halved main
     "audikw_proxy_f64": {"bell2_spmv_df"},  # peel rejected: all one-sided
@@ -199,6 +221,400 @@ extern "C" int cfs_entries_atomic(const int* rows, const int* cols,
   else
     entries_atomic_kernel<8><<<grid, 256, 0, stream>>>(rows, cols, vals, E, x,
                                                        xs, y, ys, nr);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+#: the other forms of the paired-stream kernel, for the comparison in phase
+#: 4 only (the port builds and launches ``sbell_spmv_kernel`` of
+#: ``csrc/spmv_kernels.cu``), for plans with 4 transpose windows and for 1
+#: plane or up to 8 (the kRhs = 8 instance). ``form`` -1 is the kernel as
+#: it stood before its redesign: 8 chunks a CTA whatever the stream's size,
+#: the window tile read from ``meta`` in global memory at every slot, one
+#: ``atomicAdd`` per valid transpose slot and plane. Forms 0-7 and 10 are
+#: the steps of the redesign, each on its own bit, on a walk of ``cpc``
+#: chunks a CTA with the chunk's windows in registers: 1 = transpose sums
+#: in registers per window slot, handed over on a change of the slot's
+#: target (the chunk's own tile joins the row sum); 2 = the chunk's own x
+#: tile and its window tiles staged in shared memory before the barrier, so
+#: that every gather reads shared memory; 4 = the next chunk's words and
+#: values loaded into a second set of registers before this chunk's
+#: gathers; 8 = the transpose sums in a shared tile of which a thread
+#: touches its own lane only (10 = 8 + 2). What ships is form 3 for one or
+#: two planes and form 10 for four or eight. Form -2 runs the zero pass
+#: alone. ``zero``: 0 no zero pass, 1 one CTA per output block (as before
+#: the redesign), 2 a grid-stride kernel over the whole planes, 3
+#: ``cudaMemset2DAsync`` (what ships).
+SBELL_ALT_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace {
+constexpr int kLanes = 128;
+constexpr int kSublanes = 8;
+constexpr int kMetaW = 10;
+constexpr int kNoStream = -2;  // form: the zero pass alone
+
+template <int kRhs>
+__device__ __forceinline__ bool live(int b, int nr) {
+  return kRhs == 1 || b < nr;
+}
+
+__global__ void zero_blocks_kernel(const int* __restrict__ step_block, int BT,
+                                   float* __restrict__ y, int64_t ys) {
+  const int g = blockIdx.x;
+  if (g > 0 && step_block[g] == step_block[g - 1]) return;
+  uint4* base = reinterpret_cast<uint4*>(
+      y + blockIdx.y * ys + static_cast<int64_t>(step_block[g]) * BT * kLanes);
+  const int n16 = BT * kLanes * 4 / 16;
+  for (int i = threadIdx.x; i < n16; i += blockDim.x)
+    base[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+__global__ void zero_planes_kernel(float* __restrict__ y, int64_t ys,
+                                   int64_t n16) {
+  uint4* base = reinterpret_cast<uint4*>(y + blockIdx.y * ys);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n16; i += step)
+    base[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <int kRhs>
+__device__ __forceinline__ void flush_all(float* y, int64_t ys, int64_t at,
+                                          const float (&acc)[kRhs], int nr) {
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b)
+    if (live<kRhs>(b, nr)) atomicAdd(y + b * ys + at, acc[b]);
+}
+
+// form -1: the kernel before its redesign
+template <int TW, int kRhs>
+__global__ void __launch_bounds__(kLanes)
+sbell_before_kernel(const float* __restrict__ vals,
+                    const int* __restrict__ packed,
+                    const int* __restrict__ meta,
+                    const int* __restrict__ step_block, int64_t C, int K,
+                    int BT, const float* __restrict__ x, int64_t xs,
+                    float* __restrict__ y, int64_t ys, int nr) {
+  constexpr int kChunksPerCta = 8;
+  __shared__ int r2s[kSublanes][kLanes];
+  __shared__ float vs[kSublanes][kLanes];
+  const int lane = threadIdx.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kChunksPerCta;
+  const int64_t c1 = c0 + kChunksPerCta < C ? c0 + kChunksPerCta : C;
+  int64_t row = -1;
+  float acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+  for (int64_t c = c0; c < c1; ++c) {
+    const int* m = meta + c * kMetaW;
+    const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
+    const int64_t slot0 = c * kSublanes * kLanes + lane;
+    int pk[kSublanes];
+    float v[kSublanes];
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      pk[i] = packed[slot0 + i * kLanes];
+      v[i] = vals[slot0 + i * kLanes];
+      r2s[i][lane] = (pk[i] >> 7) & 7;
+      vs[i][lane] = v[i];
+    }
+    __syncthreads();
+    const float* xt = x + tgt * kLanes;
+    float part[kRhs];
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) part[b] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      const int q = pk[i] & 0x7F;
+      const int r2 = r2s[i][q];
+      if (r2 < TW) {
+        const float* xq = x + static_cast<int64_t>(m[2 + r2]) * kLanes + q;
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr)) part[b] = fmaf(v[i], xq[b * xs], part[b]);
+      }
+      const int t2 = (pk[i] >> 7) & 7;
+      if (t2 < TW) {
+        const int src = (pk[i] >> 10) & 0x7F;
+        const float tv = vs[i][src];
+        float* yt = y + static_cast<int64_t>(m[2 + t2]) * kLanes + lane;
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr))
+            atomicAdd(yt + b * ys, tv * xt[b * xs + src]);
+      }
+    }
+    __syncthreads();
+    if (tgt != row) {
+      if (row >= 0) flush_all<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+      row = tgt;
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+    }
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) acc[b] += part[b];
+  }
+  if (row >= 0) flush_all<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+}
+
+template <int TW>
+__device__ __forceinline__ int pick(const int (&w)[TW], int r) {
+  int o = w[0];
+#pragma unroll
+  for (int t = 1; t < TW; ++t) o = r == t ? w[t] : o;
+  return o;
+}
+
+// one atomicAdd per live plane whose sum is not zero
+template <int kRhs>
+__device__ __forceinline__ void flush_sums(float* y, int64_t ys, int64_t at,
+                                           const float (&s)[kRhs], int nr) {
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b)
+    if (live<kRhs>(b, nr) && s[b] != 0.0f) atomicAdd(y + b * ys + at, s[b]);
+}
+
+__device__ __forceinline__ void load_chunk(const float* __restrict__ vals,
+                                           const int* __restrict__ packed,
+                                           int64_t c, int lane,
+                                           int (&pk)[kSublanes],
+                                           float (&v)[kSublanes]) {
+  const int64_t slot0 = c * kSublanes * kLanes + lane;
+#pragma unroll
+  for (int i = 0; i < kSublanes; ++i) {
+    pk[i] = packed[slot0 + i * kLanes];
+    v[i] = vals[slot0 + i * kLanes];
+  }
+}
+
+// forms 0-7 and 10: the steps of the redesign, one bit each
+template <int TW, int kRhs, bool kRegT, bool kStage, bool kPrefetch,
+          bool kShT>
+__global__ void __launch_bounds__(kLanes)
+sbell_forms_kernel(const float* __restrict__ vals,
+                   const int* __restrict__ packed,
+                   const int* __restrict__ meta,
+                   const int* __restrict__ step_block, int64_t C, int K,
+                   int BT, int cpc, const float* __restrict__ x, int64_t xs,
+                   float* __restrict__ y, int64_t ys, int nr) {
+  __shared__ int r2s[kSublanes][kLanes];
+  __shared__ float vs[kSublanes][kLanes];
+  __shared__ float xo[kStage ? kRhs : 1][kLanes];
+  __shared__ float xw[kStage ? kRhs : 1][TW][kLanes];
+  // the transpose sums of bit 8: a thread reads and writes its own lane
+  __shared__ float tsm[kShT ? kRhs : 1][kShT ? TW : 1][kLanes];
+  const int lane = threadIdx.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * cpc;
+  const int64_t c1 = c0 + cpc < C ? c0 + cpc : C;
+  int64_t row = -1;  // y tile of the running row-side sums
+  float acc[kRhs];
+  int wt[TW];  // y tile of each window slot's running transpose sums
+  float ts[TW][kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < TW; ++t) {
+    wt[t] = -1;
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) {
+      ts[t][b] = 0.0f;
+      if (kShT) tsm[b][t][lane] = 0.0f;
+    }
+  }
+  int pk[kSublanes], npk[kSublanes];
+  float v[kSublanes], nv[kSublanes];
+  if (kPrefetch) load_chunk(vals, packed, c0, lane, npk, nv);
+  for (int64_t c = c0; c < c1; ++c) {
+    const int* m = meta + c * kMetaW;
+    int w[TW];
+#pragma unroll
+    for (int t = 0; t < TW; ++t) w[t] = m[2 + t];
+    const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
+    if (kPrefetch) {
+#pragma unroll
+      for (int i = 0; i < kSublanes; ++i) {
+        pk[i] = npk[i];
+        v[i] = nv[i];
+      }
+    } else {
+      load_chunk(vals, packed, c, lane, pk, v);
+    }
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      r2s[i][lane] = (pk[i] >> 7) & 7;
+      vs[i][lane] = v[i];
+    }
+    if (kStage) {
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b)
+        if (live<kRhs>(b, nr)) {
+          const float* xb = x + b * xs + lane;
+          xo[b][lane] = xb[tgt * kLanes];
+#pragma unroll
+          for (int t = 0; t < TW; ++t)
+            xw[b][t][lane] = xb[static_cast<int64_t>(w[t]) * kLanes];
+        }
+    }
+    if (kPrefetch && c + 1 < c1)
+      load_chunk(vals, packed, c + 1, lane, npk, nv);
+    __syncthreads();
+    if (kRegT || kShT) {
+      // a slot whose target changed hands its sums over: to the row sums
+      // when the old target is their tile, else to y
+#pragma unroll
+      for (int t = 0; t < TW; ++t)
+        if (w[t] != wt[t]) {
+          if (kShT) {
+#pragma unroll
+            for (int b = 0; b < kRhs; ++b) {
+              ts[t][b] = tsm[b][t][lane];
+              tsm[b][t][lane] = 0.0f;
+            }
+          }
+          if (wt[t] == row) {
+#pragma unroll
+            for (int b = 0; b < kRhs; ++b) acc[b] += ts[t][b];
+          } else if (wt[t] >= 0) {
+            flush_sums<kRhs>(y, ys, static_cast<int64_t>(wt[t]) * kLanes + lane,
+                             ts[t], nr);
+          }
+          wt[t] = w[t];
+#pragma unroll
+          for (int b = 0; b < kRhs; ++b) ts[t][b] = 0.0f;
+        }
+    }
+    if (tgt != row) {
+      if (row >= 0) flush_sums<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+      row = tgt;
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      const int q = pk[i] & 0x7F;
+      const int r2 = r2s[i][q];
+      if (r2 < TW) {
+        if (kStage) {
+#pragma unroll
+          for (int b = 0; b < kRhs; ++b)
+            if (live<kRhs>(b, nr)) acc[b] = fmaf(v[i], xw[b][r2][q], acc[b]);
+        } else {
+          const float* xq =
+              x + static_cast<int64_t>(pick<TW>(w, r2)) * kLanes + q;
+#pragma unroll
+          for (int b = 0; b < kRhs; ++b)
+            if (live<kRhs>(b, nr)) acc[b] = fmaf(v[i], xq[b * xs], acc[b]);
+        }
+      }
+      const int t2 = (pk[i] >> 7) & 7;
+      if (t2 < TW) {
+        const int src = (pk[i] >> 10) & 0x7F;
+        const float tv = vs[i][src];
+        const int64_t yt =
+            static_cast<int64_t>(pick<TW>(w, t2)) * kLanes + lane;
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr)) {
+            const float p =
+                tv * (kStage ? xo[b][src] : x[b * xs + tgt * kLanes + src]);
+            if (kShT) {
+              tsm[b][t2][lane] += p;
+            } else if (kRegT) {
+#pragma unroll
+              for (int t = 0; t < TW; ++t)
+                if (t2 == t) ts[t][b] += p;
+            } else {
+              atomicAdd(y + b * ys + yt, p);
+            }
+          }
+      }
+    }
+    __syncthreads();
+  }
+  if (kRegT || kShT) {
+#pragma unroll
+    for (int t = 0; t < TW; ++t) {
+      if (kShT) {
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b) ts[t][b] = tsm[b][t][lane];
+      }
+      if (wt[t] == row) {
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b) acc[b] += ts[t][b];
+      } else if (wt[t] >= 0) {
+        flush_sums<kRhs>(y, ys, static_cast<int64_t>(wt[t]) * kLanes + lane,
+                         ts[t], nr);
+      }
+    }
+  }
+  if (row >= 0) flush_sums<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+}
+
+template <int R, int F = 0>
+void launch_form(int form, unsigned int grid, cudaStream_t stream,
+                 const float* vals, const int* packed, const int* meta,
+                 const int* step_block, int64_t C, int K, int BT, int cpc,
+                 const float* x, int64_t xs, float* y, int64_t ys, int nr) {
+  if constexpr (F <= 10) {
+    if constexpr (F < 8 || F == 10) {
+      if (form == F) {
+        sbell_forms_kernel<4, R, (F & 1) != 0, (F & 2) != 0, (F & 4) != 0,
+                           (F & 8) != 0>
+            <<<grid, kLanes, 0, stream>>>(vals, packed, meta, step_block, C,
+                                          K, BT, cpc, x, xs, y, ys, nr);
+        return;
+      }
+    }
+    launch_form<R, F + 1>(form, grid, stream, vals, packed, meta, step_block,
+                          C, K, BT, cpc, x, xs, y, ys, nr);
+  }
+}
+
+template <int R>
+void launch_alt(int form, cudaStream_t stream, const float* vals,
+                const int* packed, const int* meta, const int* step_block,
+                int64_t C, int K, int BT, int cpc, const float* x, int64_t xs,
+                float* y, int64_t ys, int nr) {
+  if (form < 0)
+    sbell_before_kernel<4, R>
+        <<<static_cast<unsigned int>((C + 7) / 8), kLanes, 0, stream>>>(
+            vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+  else
+    launch_form<R>(form, static_cast<unsigned int>((C + cpc - 1) / cpc),
+                   stream, vals, packed, meta, step_block, C, K, BT, cpc, x,
+                   xs, y, ys, nr);
+}
+}  // namespace
+
+extern "C" int cfs_sbell_alt(const float* vals, const int* packed,
+                             const int* meta, const int* step_block, int64_t C,
+                             int K, int BT, int tiles, int form, int cpc,
+                             int zero, const float* x, int64_t xs, float* y,
+                             int64_t ys, int nr, cudaStream_t stream) {
+  if (nr < 1 || nr > 8 || form < kNoStream || form > 10 || form == 8 ||
+      form == 9 || cpc < 1 || C <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t plane = static_cast<int64_t>(tiles) * kLanes;  // floats
+  if (zero == 1) {
+    zero_blocks_kernel<<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0,
+                         stream>>>(step_block, BT, y, ys);
+  } else if (zero == 2) {
+    const int64_t n16 = plane / 4;
+    const int64_t want = (n16 + 255) / 256;
+    zero_planes_kernel<<<dim3(static_cast<unsigned int>(want < 1056 ? want
+                                                                    : 1056),
+                              nr), 256, 0, stream>>>(y, ys, n16);
+  } else if (zero == 3) {
+    cudaMemset2DAsync(y, (nr == 1 ? plane : ys) * 4, 0, plane * 4, nr,
+                      stream);
+  }
+  if (form == kNoStream) return static_cast<int>(cudaGetLastError());
+  if (nr == 1)
+    launch_alt<1>(form, stream, vals, packed, meta, step_block, C, K, BT, cpc,
+                  x, xs, y, ys, nr);
+  else
+    launch_alt<8>(form, stream, vals, packed, meta, step_block, C, K, BT, cpc,
+                  x, xs, y, ys, nr);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -322,27 +738,58 @@ def _bound(nbytes, flops, dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def ptxas_report():
+#: the nvcc processes started; one still running at exit is killed
+_STARTED = []
+
+
+def _smoke_dir():
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    return out_dir
+
+
+def _nvcc_start(out, src, *more):
+    """Start nvcc with the port's flags on ``src`` (the side builds run
+    beside the port's own build and the planning of phase 3)."""
+    from cfs_spmv_tpu_torch.ops import _cuda
+
+    with open(out + ".log", "w") as log:  # ptxas' report outgrows a pipe
+        proc = subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *more, "-o", out, src],
+            stdout=log, stderr=subprocess.STDOUT)
+    proc.log = out + ".log"
+    _STARTED.append(proc)
+    return proc
+
+
+def _nvcc_wait(proc, what):
+    """What nvcc said, once it has ended; raises when it failed."""
+    proc.wait()
+    with open(proc.log) as f:
+        said = f.read()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what}:\n{said}")
+    return said
+
+
+def ptxas_start():
     """Compile the kernel source once more with ``-Xptxas -v`` (same flags
-    otherwise, output discarded) and return {kernel instance: (registers,
-    spill bytes)}."""
+    otherwise, output discarded)."""
+    from cfs_spmv_tpu_torch.ops import _cuda
+
+    return _nvcc_start(os.path.join(_smoke_dir(), "ptxas_probe.so"),
+                       _cuda._SRC, "-Xptxas", "-v")
+
+
+def ptxas_report(text):
+    """{kernel instance: (registers, spill bytes)} from the text of
+    ``nvcc -Xptxas -v``."""
     import re
 
     from cfs_spmv_tpu_torch.ops import _cuda
 
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "smoke")
-    os.makedirs(out_dir, exist_ok=True)
-    nvcc = _cuda._nvcc()
-    res = subprocess.run(
-        [nvcc, *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         os.path.join(out_dir, "ptxas_probe.so"), _cuda._SRC],
-        capture_output=True, text=True,
-    )
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{res.stderr}")
-    text = res.stderr
-    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    filt = os.path.join(os.path.dirname(_cuda._nvcc()), "cu++filt")
     if os.path.exists(filt):
         text = subprocess.run([filt], input=text, capture_output=True,
                               text=True).stdout or text
@@ -367,30 +814,33 @@ def ptxas_report():
     return {k: tuple(v) for k, v in report.items()}
 
 
-def build_entries_alt():
-    """Compile ``ENTRIES_ALT_SRC`` with the port's nvcc flags into
-    ``build/smoke`` and return its one entry point, bound like
-    ``cfs_bell2_entries``."""
+def _regs_line(regs):
+    return "; ".join(
+        f"{k} {v[0]}" + (f" (+{v[1]} B spilled)" if v[1] else "")
+        for k, v in sorted(regs.items()))
+
+
+def alt_start(stem, source):
+    """Write ``source`` into ``build/smoke`` and start its build (with
+    ptxas' report, for the forms' register counts)."""
+    src = os.path.join(_smoke_dir(), f"{stem}.cu")
+    with open(src, "w") as f:
+        f.write(source)
+    return _nvcc_start(os.path.join(_smoke_dir(), f"{stem}.so"), src,
+                       "-Xptxas", "-v")
+
+
+def alt_bind(stem, proc, symbol, argtypes):
+    """(entry point ``symbol`` of the finished build bound with
+    ``argtypes``, ptxas' text)."""
     import ctypes
 
-    from cfs_spmv_tpu_torch.ops import _cuda
-
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "smoke")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(out_dir, "entries_alt.cu")
-    with open(src, "w") as f:
-        f.write(ENTRIES_ALT_SRC)
-    lib = os.path.join(out_dir, "entries_alt.so")
-    res = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on ENTRIES_ALT_SRC:\n{res.stderr}")
-    fn = ctypes.CDLL(lib).cfs_entries_atomic
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [p, p, p, i64, p, i64, p, i64, i32, p]
-    fn.restype = i32
-    return fn
+    text = _nvcc_wait(proc, f"{stem}.cu")
+    fn = getattr(ctypes.CDLL(os.path.join(_smoke_dir(), f"{stem}.so")),
+                 symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn, text
 
 
 def stream_csr(torch, d):
@@ -600,13 +1050,20 @@ def main() -> int:
     phase_done("1 card")
 
     # -- 2. build -------------------------------------------------------
+    # one nvcc per source, all started together: ptxas' report and the two
+    # comparison forms build beside the port's own library
+    import ctypes
+
+    p_, i32_, i64_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    side = {"ptxas": ptxas_start(),
+            "entries_alt": alt_start("entries_alt", ENTRIES_ALT_SRC),
+            "sbell_alt": alt_start("sbell_alt", SBELL_ALT_SRC)}
     _cuda.lib()
     phase_done("2 kernel build/load")
-    regs = ptxas_report()
+    regs = ptxas_report(_nvcc_wait(side.pop("ptxas"),
+                                   "the kernel source with -Xptxas -v"))
     print(f"ptxas: {len(regs)} entry functions; registers per thread "
-          "(+ spill bytes): " + "; ".join(
-              f"{k} {v[0]}" + (f" (+{v[1]} B spilled)" if v[1] else "")
-              for k, v in sorted(regs.items())), flush=True)
+          f"(+ spill bytes): {_regs_line(regs)}", flush=True)
     if any(v[1] for v in regs.values()):
         raise AssertionError("ptxas reports spills (see the line above)")
     phase_done("2b ptxas report")
@@ -615,6 +1072,7 @@ def main() -> int:
     cant = cant_proxy()
     flag = flagship(n=65536, deg=32)
     nbp = near_band_paired()
+    nbp400 = near_band_paired(n=400_000)
     audikw = audikw_proxy()
     gasym = general_asym()
     #: name -> (CSR, format, tuning, CFS_PAIRED, SDIA_SYM_ROWS_MAX); the
@@ -632,6 +1090,10 @@ def main() -> int:
                                   "auto", None),
         "cant_proxy_mirrored": (cant, Format.SSS, Tuning.AGGRESSIVE, None,
                                 cant.nrows - 1),
+        "near_band_paired_400k": (nbp400, Format.SSS, Tuning.AGGRESSIVE,
+                                  "force", None),
+        "near_band_paired_400k_auto": (nbp400, Format.SSS,
+                                       Tuning.AGGRESSIVE, "auto", None),
         "cant_proxy_f64": (cant, Format.SSS, Tuning.AGGRESSIVE, None, None),
         "audikw_proxy_f64": (audikw, Format.SSS, Tuning.AGGRESSIVE, None,
                              None),
@@ -659,11 +1121,16 @@ def main() -> int:
             launches[k] += c
         return out, counts
 
+    oracle = {}  # (matrix, x) -> (A x, |A| |x|): runs share matrices
+
     def oracle_ok(y_np, csr, xd, nnz_full, dtype):
         """(agrees with the float64 host oracle at ``dtype``'s gate, max
         abs error, max error scaled by |A| |x|)."""
-        ref = csr.spmv_host(xd)
-        scale = csr.spmv_host(xd, absolute=True)
+        key = (id(csr), hashlib.sha1(xd).digest())
+        if key not in oracle:
+            oracle[key] = (csr.spmv_host(xd),
+                           csr.spmv_host(xd, absolute=True))
+        ref, scale = oracle[key]
         ok = (y_np.shape == (csr.nrows,) and np.isfinite(y_np).all()
               and allclose_spmv(y_np, ref, dtype,
                                 nnz_per_row=nnz_full / csr.nrows,
@@ -864,7 +1331,8 @@ def main() -> int:
         return lambda: S @ Xf
 
     mats = {"cant_proxy": cant, "audikw_proxy": audikw, "flagship": flag,
-            "general_asym": gasym, "near_band_paired": nbp}
+            "general_asym": gasym, "near_band_paired": nbp,
+            "near_band_paired_400k": nbp400}
     lib = {}
 
     def lib_operands(mname, dtype=torch.float32):
@@ -1142,7 +1610,9 @@ def main() -> int:
     # the two forms of the entry kernel: the warp-segmented sum that ships
     # and one atomicAdd per entry, each against the twin, then in device
     # time in turns (ships, other, other, ships)
-    entries_alt = build_entries_alt()
+    entries_alt, _ = alt_bind(
+        "entries_alt", side.pop("entries_alt"), "cfs_entries_atomic",
+        [p_, p_, p_, i64_, p_, i64_, p_, i64_, i32_, p_])
 
     def launch_alt(es, x3, y3):
         _cuda.launch_groups(
@@ -1174,38 +1644,93 @@ def main() -> int:
               f"ms: " + "; ".join(said) + f" ({card})", flush=True)
 
     # B5 on near_band_paired: the paired stream of the main path, the
-    # same matrix planned with the other transpose-window count, and with
-    # 8-tile output blocks (the main plan has one block), each into a
+    # same matrix planned with the other transpose-window count and with
+    # 8-tile output blocks (the main plan has one block), and the
+    # 400,000-row plan (several blocks, a stream past the L2), each into a
     # NaN-poisoned buffer
     A, d, xe = operands("near_band_paired")
+    A4, d4, xe4 = operands("near_band_paired_400k")
     other_tw = 2 if d.transpose_windows == 4 else 4
     with _planning("force"):
-        variants = [
-            ops.sym_to_device(build_sbell_plan(A.csr, **kw), dev)
-            for kw in (dict(transpose_windows=other_tw),
-                       dict(transpose_windows=d.transpose_windows,
-                            tiles_per_block=8))
-        ]
-    errs = []
-    for dp in variants + [d]:  # the main plan's last, for the timing
-        kw_p = dict(num_row_tiles=dp.num_row_tiles,
-                    chunks_per_step=dp.chunks_per_step,
-                    tiles_per_block=dp.tiles_per_block,
-                    transpose_windows=dp.transpose_windows)
-        pargs = (dp.vals, dp.packed, dp.meta, dp.step_block,
-                 ops.pad_x(xe, dp.x_rows))
+        hp_bt8 = build_sbell_plan(A.csr,
+                                  transpose_windows=d.transpose_windows,
+                                  tiles_per_block=8)
+        d_tw = ops.sym_to_device(
+            build_sbell_plan(A.csr, transpose_windows=other_tw), dev)
+    d_bt8 = ops.sym_to_device(hp_bt8, dev)
+
+    def paired_geometry(dp):
+        """(padded tiles of a plane, the wrappers' keywords)."""
         TP = -(-dp.num_row_tiles // dp.tiles_per_block) * dp.tiles_per_block
-        poison = torch.full((TP, 128), float("nan"), device=dev)
-        yk = bk.sbell_spmv_tiles(*pargs, out=poison, **kw_p)
+        return TP, dict(num_row_tiles=dp.num_row_tiles,
+                        chunks_per_step=dp.chunks_per_step,
+                        tiles_per_block=dp.tiles_per_block,
+                        transpose_windows=dp.transpose_windows)
+
+    def paired_stream(dp):
+        return (dp.vals, dp.packed, dp.meta, dp.step_block)
+
+    def walk(dp, planes_):
+        """Chunks a CTA walks on ``dp``'s stream for a group of
+        ``planes_`` planes, as the launcher chooses it."""
+        return _cuda.lib().cfs_sbell_chunks_per_cta(
+            dp.meta.shape[0], dp.transpose_windows, planes_)
+
+    def paired_zero_check(dp, on):
+        """The whole of every output plane is zeroed, and nothing past it
+        is written: a zero x into NaN-poisoned planes at a plane stride
+        past the plane, for one group of planes and for two."""
+        TP, _ = paired_geometry(dp)
+        for B in (1, 11):
+            x3 = torch.zeros((B, dp.x_rows, 128), device=dev)
+            wide = poisoned((B, TP + 3, 128))
+            bk._launch_sbell(*paired_stream(dp), x3, wide[:, :TP],
+                             dp.chunks_per_step, dp.tiles_per_block,
+                             dp.transpose_windows, "sbell zero check")
+            torch.cuda.synchronize()
+            if wide[:, :TP].ne(0).any():
+                raise AssertionError(f"sbell_spmv on {on} B={B}: a covered "
+                                     "output tile was not zeroed")
+            if not torch.isnan(wide[:, TP:]).all():
+                raise AssertionError(f"sbell_spmv on {on} B={B}: wrote past "
+                                     "a plane")
+
+    errs = []
+    for dp, Ap, xp, on in (
+            (d_tw, A, xe, "near_band_paired"),
+            (d_bt8, A, xe, "near_band_paired"),
+            (d4, A4, xe4, "near_band_paired_400k"),
+            (d, A, xe, "near_band_paired")):  # the main plan's last
+        TP, kw_p = paired_geometry(dp)
+        pargs = (*paired_stream(dp), ops.pad_x(xp, dp.x_rows))
+        yk = bk.sbell_spmv_tiles(*pargs, out=poisoned((TP, 128)), **kw_p)
         yp = bk.sbell_spmv_tiles_plain(*pargs, **kw_p)
         ys = bk.sbell_spmv_tiles_plain(
             dp.vals.abs(), *pargs[1:4], pargs[4].abs(), **kw_p)
-        what = (f"sbell_spmv TW={dp.transpose_windows} "
+        what = (f"sbell_spmv on {on} TW={dp.transpose_windows} "
                 f"BT={dp.tiles_per_block}")
-        errs.append(_agree(yk, yp, ys, 2 * A.tuned.nnz_full / A.nrows, what))
-        print(f"kernel {what}: {dp.vals.shape[0] // 8} chunks in "
-              f"{TP // dp.tiles_per_block} blocks, max_abs_err vs twin "
-              f"{errs[-1]}", flush=True)
+        errs.append(_agree(yk, yp, ys, 2 * Ap.tuned.nnz_full / Ap.nrows,
+                           what))
+        paired_zero_check(dp, on)
+        print(f"kernel {what}: {dp.meta.shape[0]} chunks in "
+              f"{TP // dp.tiles_per_block} blocks, {walk(dp, 1)} chunks a "
+              f"CTA for one plane and {walk(dp, RHS)} for {RHS}, "
+              f"max_abs_err vs twin {errs[-1]}; zero x into NaN-poisoned "
+              f"strided planes (B = 1, 11): every covered tile zeroed, "
+              f"nothing past a plane written", flush=True)
+        if dp is d4:
+            M_400, xl_400, Xe_400 = lib_operands("near_band_paired_400k")
+            big = {"sbell_spmv": dict(
+                err=errs[-1], on=f"{on} TW={dp.transpose_windows}",
+                bytes=_nbytes(*pargs) + _nbytes(yp),
+                flops=4 * nnz_of(dp.vals),
+                library=lambda: M_400 @ xl_400,
+                fn=lambda a=pargs, k=kw_p: bk.sbell_spmv_tiles(*a, **k),
+                plain=lambda a=pargs, k=kw_p: bk.sbell_spmv_tiles_plain(
+                    *a, **k))}
+    if TP // d.tiles_per_block != 1 or len(torch.unique(d4.step_block)) < 2:
+        raise AssertionError("the main paired plan should have one output "
+                             "block and the 400,000-row plan several")
     # the paired stream is most of this matrix (the rest is its sparse
     # far stream and the main diagonal): the whole matrix's product is the
     # nearest library call
@@ -1214,22 +1739,43 @@ def main() -> int:
         err=max(errs), on=f"near_band_paired TW={d.transpose_windows}",
         bytes=_nbytes(*pargs) + _nbytes(yp), flops=4 * nnz_of(d.vals),
         library=lambda: M_nbp @ xl_nbp,
-        fn=lambda: bk.sbell_spmv_tiles(*pargs, **kw_p),
-        plain=lambda: bk.sbell_spmv_tiles_plain(*pargs, **kw_p),
+        fn=lambda a=pargs, k=kw_p: bk.sbell_spmv_tiles(*a, **k),
+        plain=lambda a=pargs, k=kw_p: bk.sbell_spmv_tiles_plain(*a, **k),
     )
+    # a plan that leaves an output block unvisited is refused at upload:
+    # the 49-block replan without the steps of its middle block
+    sb_h = np.asarray(hp_bt8.step_block)
+    keep = sb_h != sb_h[len(sb_h) // 2]
+    keep_c = np.repeat(keep, hp_bt8.chunks_per_step)
+    holed = dataclasses.replace(
+        hp_bt8, step_block=sb_h[keep], meta=hp_bt8.meta[keep_c],
+        vals=hp_bt8.vals[np.repeat(keep_c, 8)],
+        packed=hp_bt8.packed[np.repeat(keep_c, 8)])
+    try:
+        ops.sym_to_device(holed, dev)
+    except ValueError as e:
+        print(f"upload of a paired plan without block {sb_h[len(sb_h) // 2]} "
+              f"of {len(np.unique(sb_h))}: refused ({e})", flush=True)
+        if "every output block" not in str(e):
+            raise
+    else:
+        raise AssertionError("sym_to_device took a paired plan that leaves "
+                             "an output block unvisited")
 
-    # B10 on the 8-tile-block replan (49 blocks), then on the main plan,
-    # into NaN-poisoned planes
-    for dp in (variants[1], d):
-        TPp = -(-dp.num_row_tiles // dp.tiles_per_block) * dp.tiles_per_block
-        kw_q = dict(num_row_tiles=dp.num_row_tiles,
-                    chunks_per_step=dp.chunks_per_step,
-                    tiles_per_block=dp.tiles_per_block,
-                    transpose_windows=dp.transpose_windows)
+    # B10 on the other transpose-window count and on the 8-tile-block
+    # replan (49 blocks), both also at B = 2 (the two-plane instance; 11
+    # is a group of 8 and one of 3, the four-plane instance), on the
+    # 400,000-row plan, then on the main plan: x planes at a plane stride
+    # past the plane, NaN-poisoned output planes
+    for dp, Ap, on, M_X, Bs in (
+            (d_tw, A, "near_band_paired", (M_nbp, Xe_nbp), (2, 11, RHS)),
+            (d_bt8, A, "near_band_paired", (M_nbp, Xe_nbp), (2, 11, RHS)),
+            (d4, A4, "near_band_paired_400k", (M_400, Xe_400), (11, RHS)),
+            (d, A, "near_band_paired", (M_nbp, Xe_nbp), (11, RHS))):
+        TPp, kw_q = paired_geometry(dp)
 
-        def make_sbell_mm(B, dp=dp, TPp=TPp, kw_q=kw_q):
-            sa = (dp.vals, dp.packed, dp.meta, dp.step_block,
-                  planes(B, dp.x_rows))
+        def make_sbell_mm(B, dp=dp, TPp=TPp, kw_q=kw_q, M_X=M_X):
+            sa = (*paired_stream(dp), planes(B, dp.x_rows, extra=2))
             return (lambda: bk.sbell_spmm_tiles(
                         *sa, out=poisoned((B, TPp, 128)), **kw_q),
                     lambda: bk.sbell_spmm_tiles(*sa, **kw_q),
@@ -1237,12 +1783,101 @@ def main() -> int:
                     lambda: bk.sbell_spmm_tiles_plain(
                         dp.vals.abs(), *sa[1:4], sa[4].abs(), **kw_q),
                     _nbytes(*sa) + 4 * B * TPp * 128,
-                    lambda: M_nbp @ Xe_nbp)
+                    lambda: M_X[0] @ M_X[1])
 
-        mm_pair("sbell_spmm", make_sbell_mm, 2 * A.tuned.nnz_full / A.nrows,
-                f"near_band_paired TW={dp.transpose_windows} "
-                f"BT={dp.tiles_per_block} ({TPp // dp.tiles_per_block} "
-                "blocks)", flops=RHS * 4 * nnz_of(dp.vals))
+        mm_pair("sbell_spmm", make_sbell_mm,
+                2 * Ap.tuned.nnz_full / Ap.nrows,
+                f"{on} TW={dp.transpose_windows} BT={dp.tiles_per_block} "
+                f"({TPp // dp.tiles_per_block} blocks)", Bs=Bs,
+                flops=RHS * 4 * nnz_of(dp.vals))
+        if dp is d4:
+            big["sbell_spmm"] = dict(kern["sbell_spmm"])
+
+    # the forms of the paired kernel: the one before the redesign and the
+    # redesign's steps (``SBELL_ALT_SRC``), each against the twin, then in
+    # device time beside what ships
+    if d.transpose_windows != 4 or d4.transpose_windows != 4:
+        raise AssertionError("the forms are built for 4 transpose windows")
+    sbell_alt, said = alt_bind(
+        "sbell_alt", side.pop("sbell_alt"), "cfs_sbell_alt",
+        [p_, p_, p_, p_, i64_, i32_, i32_, i32_, i32_, i32_, i32_,
+         p_, i64_, p_, i64_, i32_, p_])
+    print(f"ptxas, the paired kernel's forms (template arguments: windows, "
+          f"planes, then the bits 1, 2, 4, 8 of the form): "
+          f"{_regs_line(ptxas_report(said))}", flush=True)
+
+    def run_form(dp, x3, y3, form, cpc, zero):
+        TP, _ = paired_geometry(dp)
+        _cuda.launch_groups(
+            "sbell_alt", x3, y3, lambda *pl: sbell_alt(
+                *(t.data_ptr() for t in paired_stream(dp)), dp.meta.shape[0],
+                dp.chunks_per_step, dp.tiles_per_block, TP, form, cpc, zero,
+                *pl))
+        return y3
+
+    FORMS = (-1, 0, 1, 2, 3, 4, 5, 6, 7, 10)
+    for dp, Ap, on, Bs, cpcs in (
+            (d_bt8, A, "near_band_paired BT=8", (1, 11), (1, 3)),
+            (d, A, "near_band_paired", (1, 11), (1, 3)),
+            (d4, A4, "near_band_paired_400k", (1, RHS), (3,))):
+        TP, kw_p = paired_geometry(dp)
+        worst = dict.fromkeys(FORMS, 0.0)
+        for B in Bs:
+            x3 = planes(B, dp.x_rows, extra=2)
+            yp = bk.sbell_spmm_tiles_plain(*paired_stream(dp), x3, **kw_p)
+            ys = bk.sbell_spmm_tiles_plain(
+                dp.vals.abs(), *paired_stream(dp)[1:], x3.abs(), **kw_p)
+            for form in FORMS:
+                for cpc in ((8,) if form < 0 else cpcs):
+                    wide = poisoned((B, TP + 3, 128))
+                    run_form(dp, x3, wide[:, :TP], form, cpc, 3)
+                    torch.cuda.synchronize()
+                    what = f"sbell form {form} cpc={cpc} B={B} on {on}"
+                    if not torch.isnan(wide[:, TP:]).all():
+                        raise AssertionError(f"{what}: wrote past a plane")
+                    worst[form] = max(worst[form], _agree(
+                        wide[:, :dp.num_row_tiles], yp, ys,
+                        2 * Ap.tuned.nnz_full / Ap.nrows, what))
+        print(f"sbell forms on {on}, B = {Bs}, chunks a CTA {cpcs} (form -1: "
+              f"8): max_abs_err vs twin by form {worst}", flush=True)
+
+    # in turns, two rounds: the form before (its walk of 8), the forms that
+    # ship (3 and 10) and the walk alone (0) over five walks, what ships
+    # through its wrapper; in the first round also each other step over
+    # two walks. Then the zero passes alone
+    for dp, on in ((d, "near_band_paired"), (d4, "near_band_paired_400k")):
+        TP, kw_p = paired_geometry(dp)
+        for B in (1, RHS):
+            x3 = planes(B, dp.x_rows)
+            y3 = torch.empty((B, TP, 128), device=dev)
+
+            def t_form(form, cpc, zero=0, key=None):
+                busy, by = _device_ms(
+                    torch, lambda: run_form(dp, x3, y3, form, cpc, zero))
+                return _ms(busy if key is None else by.get(key))
+
+            head = (f"sbell forms on {on} ({dp.meta.shape[0]} chunks) "
+                    f"B={B}")
+            for rnd in range(2):
+                said = [f"before (form -1, 8 chunks a CTA) {t_form(-1, 8)}"]
+                for form in (0, 3, 10) + ((1, 2, 4, 5, 6, 7) if rnd == 0
+                                          else ()):
+                    cpcs = (1, 2, 3, 4, 8) if form in (0, 3, 10) else (1, 4)
+                    said.append(f"form {form}: " + ", ".join(
+                        f"cpc={c} {t_form(form, c)}" for c in cpcs))
+                busy, by = _device_ms(
+                    torch, lambda: bk.sbell_spmm_tiles(
+                        *paired_stream(dp), x3, out=y3, **kw_p))
+                said.append(
+                    f"ships (cpc={walk(dp, B)}) kernel "
+                    f"{_ms(by.get('sbell_spmv_kernel'))} + zero pass "
+                    f"{_ms(by.get('Memset'))}")
+                print(f"{head} round {rnd}, device ms: " + "; ".join(said)
+                      + f" ({card})", flush=True)
+            print(f"{head} zero pass alone, device ms: one CTA per output "
+                  f"block (before) {t_form(-2, 1, 1)}, grid-stride kernel "
+                  f"{t_form(-2, 1, 2)}, cudaMemset2DAsync (ships) "
+                  f"{t_form(-2, 1, 3)} ({card})", flush=True)
 
     # B6 on a ragged general_asym(g=50) plan (125,000 rows: fewer x and
     # y rows than its padded value blocks hold) and on general_asym's
@@ -1437,7 +2072,7 @@ def main() -> int:
     phase_done("4 kernels against twins")
 
     # -- 5. times: kernels, then the kernel path against the plain path --
-    for name, k in kern.items():
+    def time_kernel(name, k):
         f64 = "_df" in name  # the four float64 kernels
         k["ms"] = _median_ms(torch, k["fn"])
         k["plain_ms"] = _median_ms(torch, k["plain"])
@@ -1456,21 +2091,26 @@ def main() -> int:
               f"ms by {k['bound_by']} (HBM rate; operands under 50 MB "
               f"can sit in L2), {k['bytes'] / k['ms'] / 1e6:.0f} GB/s by "
               f"event time ({card})", flush=True)
+
+    for name, k in kern.items():
+        time_kernel(name, k)
+    for name, k in big.items():  # the paired kernels past the L2
+        time_kernel(name, k)
     # the stream read once for 8 right-hand sides against 8 reads: the
     # MM(8) kernel's device time beside 8x its SpMV form's, same plan
-    for mm, mv, kernel in (("bell2_spmm", "bell2_spmv", "bell2_spmv_kernel"),
-                           ("sbell_spmm", "sbell_spmv", "sbell_spmv_kernel"),
-                           ("sdia_sym_mm", "sdia_sym", "sdia_sym_kernel"),
-                           ("bell2_spmm_accum", "bell2_spmv_accum",
-                            "bell2_entries_kernel"),
-                           ("bell2_spmm_df", "bell2_spmv_df",
-                            "bell2_spmv_kernel"),
-                           ("sdia_sym_df_mm", "sdia_sym_df",
-                            "sdia_sym_kernel")):
-        t_mm = kern[mm]["device"].get(kernel)
-        t_mv = kern[mv]["device"].get(kernel)
+    for ks, mm, mv, kernel in (
+            (kern, "bell2_spmm", "bell2_spmv", "bell2_spmv_kernel"),
+            (kern, "sbell_spmm", "sbell_spmv", "sbell_spmv_kernel"),
+            (big, "sbell_spmm", "sbell_spmv", "sbell_spmv_kernel"),
+            (kern, "sdia_sym_mm", "sdia_sym", "sdia_sym_kernel"),
+            (kern, "bell2_spmm_accum", "bell2_spmv_accum",
+             "bell2_entries_kernel"),
+            (kern, "bell2_spmm_df", "bell2_spmv_df", "bell2_spmv_kernel"),
+            (kern, "sdia_sym_df_mm", "sdia_sym_df", "sdia_sym_kernel")):
+        t_mm = ks[mm]["device"].get(kernel)
+        t_mv = ks[mv]["device"].get(kernel)
         print(f"MM({RHS}) vs {RHS}x SpMV device time, {kernel} on "
-              f"{kern[mv]['on']}: MM({RHS}) {_ms(t_mm)} ms, SpMV {_ms(t_mv)} "
+              f"{ks[mv]['on']}: MM({RHS}) {_ms(t_mm)} ms, SpMV {_ms(t_mv)} "
               f"ms, ratio MM / ({RHS} SpMV) "
               f"{_ratio(t_mm, t_mv and RHS * t_mv)} ({card})", flush=True)
     for name in RUNS:
@@ -1614,4 +2254,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for started in _STARTED:
+            if started.poll() is None:
+                started.kill()

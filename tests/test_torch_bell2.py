@@ -756,3 +756,134 @@ def test_bell2_wrappers_check_operands():
               bk.bell2_spmm_tiles, bk.bell2_spmm_tiles_accum,
               bk.unperm_gather_tiles_mm, bk.sbell_spmm_tiles):
         assert w.launches == 0
+
+
+# -- the paired kernel's walk (B5/B10 on the card), modelled on the CPU -----
+#
+# The CUDA kernel gives each CTA ``cpc`` consecutive chunks. It keeps the
+# row sums and one sum per transpose-window slot while their targets stay
+# the same, hands a slot's sums over when its target changes (into the row
+# sums when the target is the row's own tile, else into y) and flushes
+# everything at the end of its walk. The model below is that walk in numpy,
+# CTA by CTA, in float64: it must give the twin's result for every split of
+# the chunks over CTAs, and every chunk must lie in exactly one CTA's range.
+
+def _paired_holes_csr():
+    """``near_band_paired`` without rows and columns 1100-2999."""
+    coo = proxies.near_band_paired(n=4000, n_diags=32, max_off=300,
+                                   seed=5).to_coo()
+    keep = (((coo.row < 1100) | (coo.row >= 3000))
+            & ((coo.col < 1100) | (coo.col >= 3000)))
+    return RefCSR.from_coo(RefCOO(coo.nrows, coo.ncols, coo.row[keep],
+                                  coo.col[keep], coo.val[keep],
+                                  symmetric=True))
+
+
+#: name -> (matrix factory, TW, tiles per block, output blocks)
+PAIRED_WALKS = {
+    "tw2": (lambda: proxies.near_band_paired(n=4000, n_diags=32,
+                                             max_off=300, seed=5), 2, None, 1),
+    "tw4": (lambda: proxies.near_band_paired(n=4000, n_diags=32,
+                                             max_off=300, seed=5), 4, None, 1),
+    "tw4_bt8_holes": (_paired_holes_csr, 4, 8, 4),
+}
+
+
+def _sbell_walk(plan, x2d, cpc):
+    """(y tiles, times each chunk was walked, adds into y) of the paired
+    kernel's walk with ``cpc`` chunks a CTA."""
+    K, BT, TW = (plan.chunks_per_step, plan.tiles_per_block,
+                 plan.transpose_windows)
+    meta, sb = np.asarray(plan.meta), np.asarray(plan.step_block)
+    C = meta.shape[0]
+    pk_all = np.asarray(plan.packed).reshape(C, 8, 128).astype(np.int64)
+    v_all = np.asarray(plan.vals, np.float64).reshape(C, 8, 128)
+    TP = -(-plan.num_row_tiles // BT) * BT
+    y = np.zeros((TP, 128))
+    seen = np.zeros(C, np.int64)
+    adds = 0
+    for c0 in range(0, C, cpc):  # one CTA
+        row, acc = -1, np.zeros(128)
+        wt, ts = [-1] * TW, np.zeros((TW, 128))
+        for c in range(c0, min(c0 + cpc, C)):
+            seen[c] += 1
+            w = meta[c, 2:2 + TW]
+            tgt = int(sb[c // K]) * BT + int(meta[c, 0])
+            pk, v = pk_all[c], v_all[c]
+            xo, xw = x2d[tgt], x2d[w]  # the tiles the kernel stages
+            for t in range(TW):
+                if w[t] != wt[t]:
+                    if wt[t] == row:
+                        acc = acc + ts[t]
+                    elif wt[t] >= 0:
+                        y[wt[t]] += ts[t]
+                        adds += 1
+                    wt[t], ts[t] = int(w[t]), 0.0
+            if tgt != row:
+                if row >= 0:
+                    y[row] += acc
+                    adds += 1
+                row, acc = tgt, np.zeros(128)
+            q = pk & 0x7F
+            r2 = np.take_along_axis((pk >> 7) & 7, q, axis=1)
+            got = xw[np.minimum(r2, TW - 1), q]
+            acc = acc + np.where(r2 < TW, v * got, 0.0).sum(axis=0)
+            t2, src = (pk >> 7) & 7, (pk >> 10) & 0x7F
+            p = np.take_along_axis(v, src, axis=1) * xo[src]
+            for t in range(TW):
+                ts[t] += np.where(t2 == t, p, 0.0).sum(axis=0)
+        for t in range(TW):
+            if wt[t] == row:
+                acc = acc + ts[t]
+            elif wt[t] >= 0:
+                y[wt[t]] += ts[t]
+                adds += 1
+        if row >= 0:
+            y[row] += acc
+            adds += 1
+    return y, seen, adds
+
+
+@pytest.mark.parametrize("cpc", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", sorted(PAIRED_WALKS))
+def test_sbell_walk_model_matches_twin(name, cpc, monkeypatch):
+    """The walk of the CUDA kernel, modelled in numpy, against the twin in
+    float64 (same products, another order: 1e-12 of |L| |x|), on TW = 2
+    and 4, and on an 8-tile-block replan with an absent row range, whose
+    plan has K-padding chunks, covering chunks of empty blocks and windows
+    that are the chunk's own tile."""
+    monkeypatch.setenv("CFS_PAIRED", "force")
+    make, tw, bt, blocks = PAIRED_WALKS[name]
+    plan = ref_sbell_plan(make(), transpose_windows=tw, tiles_per_block=bt)
+    assert plan.nnz_paired > 0 and plan.transpose_windows == tw
+    assert len(np.unique(plan.step_block)) == blocks
+    pd = ops.sym_to_device(plan, "cpu")  # the upload's index checks pass
+    K, BT = plan.chunks_per_step, plan.tiles_per_block
+    meta = np.asarray(plan.meta)
+    C = meta.shape[0]
+    tgt = np.repeat(np.asarray(plan.step_block, np.int64), K) * BT + meta[:, 0]
+    own = (meta[:, 2:2 + tw] == tgt[:, None]).any(axis=1)
+    empty = np.abs(np.asarray(plan.vals)).reshape(C, -1).sum(axis=1) == 0
+    assert own.any() and not own.all()
+    if name == "tw4_bt8_holes":
+        assert empty.sum() >= K  # padding and covering chunks
+    x = np.random.default_rng(6).uniform(10.01, 20.42, plan.nrows)
+    x2d = np.zeros((plan.x_rows, 128))
+    x2d.reshape(-1)[: plan.nrows] = x
+    y, seen, adds = _sbell_walk(plan, x2d, cpc)
+    assert np.array_equal(seen, np.ones(C, np.int64))
+    kw = dict(num_row_tiles=plan.num_row_tiles, chunks_per_step=K,
+              tiles_per_block=BT, transpose_windows=tw)
+    args = (pd.packed, pd.meta, pd.step_block)
+    x2d_t = torch.from_numpy(x2d)
+    want = bk.sbell_spmv_tiles_plain(pd.vals.double(), *args, x2d_t, **kw)
+    scale = bk.sbell_spmv_tiles_plain(pd.vals.abs().double(), *args,
+                                      x2d_t.abs(), **kw)
+    err = np.abs(y[: plan.num_row_tiles] - want.numpy())
+    assert (err <= 1e-12 * np.maximum(scale.numpy(), 1e-300)).all()
+    assert not y[plan.num_row_tiles:].any()
+    # a longer walk carries more sums: fewer adds into y than one chunk a
+    # CTA, which itself makes at most 1 + TW adds a chunk
+    _, _, adds1 = _sbell_walk(plan, x2d, 1)
+    assert adds1 <= (1 + tw) * C
+    assert adds <= adds1 and (cpc == 1 or adds < adds1)

@@ -680,6 +680,37 @@ def test_spdmv_spdmm_matmul_float64(fmt):
     assert A.size() == A.tuned.plan.stream_bytes() > 0
 
 
+@pytest.mark.parametrize("as_tensor", [False, True])
+@pytest.mark.parametrize("xtype", ["float64", "float32"])
+def test_untuned_matmul_tunes_in_the_type_of_x(xtype, as_tensor, monkeypatch):
+    """An untuned ``A @ x`` tunes in float64 for a float64 x (a numpy
+    array or a tensor) and in float32 for any other, as the reference
+    does; the float64 product passes the float64 gate (1e-8)."""
+    import cfs_spmv_tpu_torch.matrix as matrix_mod
+
+    ref_csr = MATRICES["sdia_peel_with_residual"][0]()
+    A = ct.SparseMatrix.create(port_csr(ref_csr), ct.Format.SSS)
+    x = np.random.default_rng(3).uniform(10.01, 20.42, A.ncols).astype(xtype)
+    assert A.tuned is None
+    if as_tensor:
+        y = A @ torch.from_numpy(x)
+    else:
+        # a numpy x tunes onto the card: here the tuner is handed the CPU
+        real = matrix_mod.tune
+        monkeypatch.setattr(
+            matrix_mod, "tune",
+            lambda *a, **kw: real(*a, **{**kw, "device": "cpu"}))
+        y = A @ x
+    want = torch.float64 if xtype == "float64" else torch.float32
+    assert A.tuned.dtype == want and y.dtype == want
+    x64 = x.astype(np.float64)
+    assert allclose_spmv(y.numpy(), ref_csr.spmv_host(x64), np.dtype(xtype),
+                         nnz_per_row=A.tuned.nnz_full / A.nrows,
+                         scale=ref_csr.spmv_host(x64, absolute=True))
+    if xtype == "float64":
+        _assert_oracle(y.numpy(), ref_csr, x64, A.tuned.nnz_full)
+
+
 def test_spdmv_retunes_when_dtype_changes():
     csr = port_csr(MATRICES["symmetric_expands"][0]())
     A = ct.SparseMatrix.create(csr, ct.Format.SSS)

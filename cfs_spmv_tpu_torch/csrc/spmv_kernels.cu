@@ -33,12 +33,13 @@
 // the smallest instance of 1, 2, 4 or 8 that holds it (planes >= nr are
 // skipped). The SpMV entry points are the nr = 1 case.
 //
-// Value type. sdia_sym and bell2_spmv are also templates on the value type
-// T of the stream, x and y: float, or double for the float64 route. The
-// TPU has no 64-bit lanes, so the reference's float64 kernels (sdia_df.py,
-// bell2_df.py) carry every value, x and sum as an fp32 (hi, lo) pair with
-// error-free transforms; what they compute is y = A x in double, and the
-// double instances here compute that with fp64 FMA and atomicAdd(double*).
+// Value type. sdia_sym, bell2_spmv and bell2_entries are also templates on
+// the value type T of the stream, x and y: float, or double for the float64
+// route. The TPU has no 64-bit lanes, so the reference's float64 kernels
+// (sdia_df.py, bell2_df.py) carry every value, x and sum as an fp32 (hi, lo)
+// pair with error-free transforms; what they compute is y = A x in double,
+// and the double instances here compute that with fp64 FMA and
+// atomicAdd(double*).
 
 #include <cstdint>
 #include <type_traits>
@@ -172,9 +173,10 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // bell2_spmv — replaces cfs_spmv_tpu/ops/bell2_kernel.py:bell2_spmv_tiles
 // (B2) and, over planes, bell2_spmm_tiles (B7); with T = double,
 // cfs_spmv_tpu/ops/bell2_df.py:bell2_spmv_tiles_df (B15) and
-// bell2_spmm_tiles_df (B16). Every launch follows the zero pass below:
-// y = A x over the blocks the stream visits. The accumulating forms (B4,
-// B8) run bell2_entries instead. The reference's double-float kernels write
+// bell2_spmm_tiles_df (B16). Every launch follows a zero pass: y = A x over
+// the blocks the stream visits. The accumulating forms (B4, B8), and B15/B16
+// on a float64 peel residual or sparse stream, run bell2_entries instead.
+// The reference's double-float kernels write
 // 8x-tall sublane partials (or fold them pairwise) to keep compensated sums
 // out of the TPU's reduce tree; the double instance sums a row's 8 sublanes
 // in a double register like the float one, so there is nothing to fold.
@@ -185,21 +187,35 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // meta[c, 2 + (r2 & 7)] for listed windows. The 8 sublanes sum into row
 // meta[c, 0] of block step_block[c / K].
 //
-// One CTA of 128 threads (one per lane) walks kChunksPerCta consecutive
-// chunks: the TPU walks a K-chunk grid step in order on one core, but a
-// K = 128 step count (63 steps for the audikw proxy) would leave most of
-// the 132 SMs idle, so each step is split across K / 8 CTAs. The chunk's
-// r2 fields go through shared memory (a lane needs lane q's field). Each
-// thread keeps one register sum per plane while the target row stays the
-// same and flushes them with one atomicAdd each when the row changes:
-// blocks of different CTAs (and different grid steps) can target one row.
-// Chunks are tile-sorted, so flushes are rare. K-padding chunks carry zero
-// values and forward-filled meta, so they add exactly 0. Over planes the
-// value, its packed word and its x row are decoded once and feed kRhs
-// gathers, one from each plane's x tile, so a group reads the slot stream
-// (6 bytes a slot in float, 10 in double) once.
+// One CTA of 128 threads (one per lane) walks kWalk consecutive chunks, a
+// template argument: the TPU walks a K-chunk grid step in order on one
+// core, but a K = 128 step count (63 steps for the audikw proxy) would
+// leave most of the 132 SMs idle, so each step is split across K / kWalk
+// CTAs. The float instances walk kChunksPerCta; the double ones
+// kDoubleWalk, one chunk a CTA: a walk of 8 left 3.9 CTAs an SM on the
+// 4,096 chunks of general_asym() in float64, and one chunk a CTA beat walks
+// of 2, 4, 8 and the fewest that keep every CTA resident at once (walk_for
+// below) on that stream and on audikw_proxy()'s 8,192 chunks, at 1 and 8
+// planes (PERF.md §6). A walk given at run time made the float
+// instance 7% slower on audikw_proxy(), hence the template argument. The
+// chunk's r2 fields go through
+// shared memory (a lane needs lane q's field). Each thread keeps one
+// register sum per plane while the target row stays the same and flushes
+// them with one atomicAdd each when the row changes and at the walk's end,
+// so a walk may start and end between any two chunks: blocks of different
+// CTAs (and different grid steps) can target one row. Chunks are
+// tile-sorted, so flushes are rare. K-padding chunks carry zero values and
+// forward-filled meta, so they add exactly 0. Over planes the value, its
+// packed word and its x row are decoded once and feed kRhs gathers, one
+// from each plane's x tile, so a group reads the slot stream (6 bytes a
+// slot in float, 10 in double) once.
+//
+// The zero pass runs first, in a launch of its own: the zero kernel below
+// (one CTA per visited block), or, for a double stream that visits every
+// block of its output, cudaMemset2DAsync over the group's whole planes.
 // ---------------------------------------------------------------------------
 constexpr int kChunksPerCta = 8;
+constexpr int kDoubleWalk = 1;
 
 // Zeroes each output block the stream visits, once, in plane blockIdx.y:
 // step_block ascends, so a block starts where the step's block differs
@@ -228,7 +244,7 @@ __device__ __forceinline__ void flush_rows(T* y, int64_t ys, int64_t at,
     if (live<kRhs>(b, nr)) atomicAdd(y + b * ys + at, acc[b]);
 }
 
-template <bool kContig, int kRhs, typename T>
+template <bool kContig, int kRhs, typename T, int kWalk>
 __global__ void __launch_bounds__(kLanes)
 bell2_spmv_kernel(const T* __restrict__ vals,
                   const int16_t* __restrict__ packed,
@@ -238,8 +254,8 @@ bell2_spmv_kernel(const T* __restrict__ vals,
                   T* __restrict__ y, int64_t ys, int nr) {
   __shared__ int r2s[kSublanes][kLanes];
   const int lane = threadIdx.x;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kChunksPerCta;
-  const int64_t c1 = c0 + kChunksPerCta < C ? c0 + kChunksPerCta : C;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kWalk;
+  const int64_t c1 = c0 + kWalk < C ? c0 + kWalk : C;
   int64_t row = -1;  // y tile row of the running sums
   T acc[kRhs];
 #pragma unroll
@@ -300,19 +316,21 @@ bell2_spmv_kernel(const T* __restrict__ vals,
 
 // ---------------------------------------------------------------------------
 // bell2_entries — replaces cfs_spmv_tpu/ops/bell2_kernel.py:
-// bell2_spmv_tiles_accum (B4) and, over planes, bell2_spmm_tiles_accum (B8).
+// bell2_spmv_tiles_accum (B4) and, over planes, bell2_spmm_tiles_accum (B8);
+// with T = double, cfs_spmv_tpu/ops/bell2_df.py:bell2_spmv_tiles_df (B15)
+// and bell2_spmm_tiles_df (B16) on a float64 peel residual or sparse stream.
 //
 // y += R x for the sparse residual R that the peels leave behind. The TPU
 // kernel streams R in the (8, 128) chunk grid, which its scalar memory and
 // DMA need; a residual fills under 1% of those slots (65,380 live entries in
 // 7.86 million slots on the 65,536-row flagship, 120x padding), and walking
-// the grid reads 6 bytes and gathers one x for every empty slot. Here the
-// upload compacts the grid once into a row-sorted entry list (rows, cols:
-// flat int32 indices into the y and x planes; vals), 12 bytes a live entry,
-// and nothing else of the stream reaches the card.
+// the grid reads 6 bytes (10 in double) and gathers one x for every empty
+// slot. Here the upload compacts the grid once into a row-sorted entry list
+// (rows, cols: flat int32 indices into the y and x planes; vals), 12 bytes a
+// live entry (16 in double), and nothing else of the stream reaches the card.
 //
-// One thread per entry: three coalesced 4-byte loads, one x gather per plane,
-// no shared memory, no zero pass. Entries are row-sorted, so the entries of
+// One thread per entry: three coalesced loads, one x gather per plane, no
+// shared memory, no zero pass. Entries are row-sorted, so the entries of
 // one row are neighbouring lanes: a warp segmented sum (shuffle-down over
 // runs of equal row) leaves each run's total in its first lane, which issues
 // one atomicAdd per plane; a run that crosses a warp boundary costs one more
@@ -320,29 +338,31 @@ bell2_spmv_kernel(const T* __restrict__ vals,
 // entry plus one 32-byte sector per x gather and per touched y row; at the
 // flagship's 0.8 MB that is far under a microsecond, so in practice the
 // kernel takes its launch plus one chain of dependent loads (col, then
-// x[col], then the atomic), like the pure gather of unperm_gather.
+// x[col], then the atomic), like the pure gather of unperm_gather. The
+// double instance shuffles 64-bit sums and adds them with the native
+// atomicAdd(double*); nothing else differs.
 // ---------------------------------------------------------------------------
 constexpr int kEntryThreads = 256;
 
-template <int kRhs>
+template <int kRhs, typename T>
 __global__ void __launch_bounds__(kEntryThreads)
 bell2_entries_kernel(const int* __restrict__ rows,
                      const int* __restrict__ cols,
-                     const float* __restrict__ vals, int64_t E,
-                     const float* __restrict__ x, int64_t xs,
-                     float* __restrict__ y, int64_t ys, int nr) {
+                     const T* __restrict__ vals, int64_t E,
+                     const T* __restrict__ x, int64_t xs,
+                     T* __restrict__ y, int64_t ys, int nr) {
   const int64_t e =
       static_cast<int64_t>(blockIdx.x) * kEntryThreads + threadIdx.x;
   const int lane = threadIdx.x & 31;
   // lanes past the end stay for the shuffles, in a run of their own
   const bool valid = e < E;
   const int row = valid ? rows[e] : -1;
-  float acc[kRhs];
+  T acc[kRhs];
 #pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+  for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
   if (valid) {
-    const float v = vals[e];
-    const float* xc = x + cols[e];
+    const T v = vals[e];
+    const T* xc = x + cols[e];
 #pragma unroll
     for (int b = 0; b < kRhs; ++b)
       if (live<kRhs>(b, nr)) acc[b] = v * xc[b * xs];
@@ -356,7 +376,7 @@ bell2_entries_kernel(const int* __restrict__ rows,
     const bool same = lane + d < 32 && other == row;
 #pragma unroll
     for (int b = 0; b < kRhs; ++b) {
-      const float add = __shfl_down_sync(0xffffffffu, acc[b], d);
+      const T add = __shfl_down_sync(0xffffffffu, acc[b], d);
       if (same) acc[b] += add;
     }
   }
@@ -647,42 +667,74 @@ int launch_sdia_sym(const T* vals, const int* offsets, int D,
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
-template <typename T>
+// Chunks a CTA of 128 threads of ``kernel`` walks on a stream of C chunks:
+// the fewest that make every CTA resident at once (one wave, no tail), and
+// at most max_walk, past which a longer walk only lengthens each CTA's
+// chain of dependent loads.
+template <class Kernel>
+int walk_for(Kernel kernel, int64_t C, int max_walk) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kLanes, 0);
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  if (resident <= 0 || C > resident * max_walk) return max_walk;
+  return C <= resident ? 1 : static_cast<int>((C + resident - 1) / resident);
+}
+
+// kWalk: chunks a CTA. tiles: the rows of 128 of each output plane to zero
+// with cudaMemset2DAsync (a stream that visits every block); 0 runs the
+// zero kernel, which leaves unvisited blocks as they are.
+template <typename T, int kWalk>
 int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
                       const int* step_block, int64_t C, int K, int BT,
-                      int contig, const T* x, int64_t xs, T* y, int64_t ys,
-                      int nr, cudaStream_t stream) {
+                      int contig, int64_t tiles, const T* x, int64_t xs,
+                      T* y, int64_t ys, int nr, cudaStream_t stream) {
+  if (tiles < 0) return invalid();
+  cudaError_t zeroed = cudaSuccess;
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
     if (C <= 0) return;
-    bell2_zero_blocks_kernel<T>
-        <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
-            step_block, BT, y, ys);
-    const unsigned int grid = blocks_for(C, kChunksPerCta);
+    if (tiles > 0) {
+      const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(T);
+      zeroed = cudaMemset2DAsync(y, nr == 1 ? width : ys * sizeof(T), 0,
+                                 width, nr, stream);
+      if (zeroed != cudaSuccess) return;
+    } else {
+      bell2_zero_blocks_kernel<T>
+          <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
+              step_block, BT, y, ys);
+    }
+    const unsigned int grid = blocks_for(C, kWalk);
     if (contig)
-      bell2_spmv_kernel<true, R, T><<<grid, kLanes, 0, stream>>>(
+      bell2_spmv_kernel<true, R, T, kWalk><<<grid, kLanes, 0, stream>>>(
           vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
     else
-      bell2_spmv_kernel<false, R, T><<<grid, kLanes, 0, stream>>>(
+      bell2_spmv_kernel<false, R, T, kWalk><<<grid, kLanes, 0, stream>>>(
           vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+  });
+  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+}
+
+template <typename T>
+int launch_bell2_entries(const int* rows, const int* cols, const T* vals,
+                         int64_t E, const T* x, int64_t xs, T* y, int64_t ys,
+                         int nr, cudaStream_t stream) {
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (E > 0)
+      bell2_entries_kernel<R, T>
+          <<<blocks_for(E, kEntryThreads), kEntryThreads, 0, stream>>>(
+              rows, cols, vals, E, x, xs, y, ys, nr);
   });
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
-// Chunks a CTA of sbell_spmv_kernel<TW, R> walks on a stream of C chunks:
-// the fewest that make every CTA resident at once (one wave, no tail),
-// and at most kMaxWalk, past which a longer walk only lengthens each
-// CTA's chain of dependent loads.
+// Chunks a CTA of sbell_spmv_kernel<TW, R> walks on a stream of C chunks.
 template <int TW, int R>
 int chunks_per_cta(int64_t C) {
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sbell_spmv_kernel<TW, R>, kLanes, 0);
-  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
-  if (resident <= 0 || C > resident * kMaxWalk) return kMaxWalk;
-  return C <= resident ? 1 : static_cast<int>((C + resident - 1) / resident);
+  return walk_for(sbell_spmv_kernel<TW, R>, C, kMaxWalk);
 }
 
 template <int TW, int R>
@@ -766,33 +818,43 @@ int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
+// The float stream walks kChunksPerCta chunks a CTA after the zero kernel.
 int cfs_bell2_spmv(const float* vals, const int16_t* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT,
                    int contig, const float* x, int64_t xs, float* y,
                    int64_t ys, int nr, cudaStream_t stream) {
-  return launch_bell2_spmv<float>(vals, packed, meta, step_block, C, K, BT,
-                                  contig, x, xs, y, ys, nr, stream);
+  return launch_bell2_spmv<float, kChunksPerCta>(
+      vals, packed, meta, step_block, C, K, BT, contig, 0, x, xs, y, ys, nr,
+      stream);
 }
 
+// The double stream walks kDoubleWalk chunks a CTA. tiles > 0 (the rows of
+// 128 of each output plane): the stream visits every block, and the whole
+// planes are zeroed by cudaMemset2DAsync; 0: the zero kernel, visited
+// blocks only.
 int cfs_bell2_spmv_f64(const double* vals, const int16_t* packed,
                        const int* meta, const int* step_block, int64_t C,
-                       int K, int BT, int contig, const double* x, int64_t xs,
-                       double* y, int64_t ys, int nr, cudaStream_t stream) {
-  return launch_bell2_spmv<double>(vals, packed, meta, step_block, C, K, BT,
-                                   contig, x, xs, y, ys, nr, stream);
+                       int K, int BT, int contig, int64_t tiles,
+                       const double* x, int64_t xs, double* y, int64_t ys,
+                       int nr, cudaStream_t stream) {
+  return launch_bell2_spmv<double, kDoubleWalk>(
+      vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y, ys,
+      nr, stream);
 }
 
 int cfs_bell2_entries(const int* rows, const int* cols, const float* vals,
                       int64_t E, const float* x, int64_t xs, float* y,
                       int64_t ys, int nr, cudaStream_t stream) {
-  const bool ok = with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    if (E > 0)
-      bell2_entries_kernel<R>
-          <<<blocks_for(E, kEntryThreads), kEntryThreads, 0, stream>>>(
-              rows, cols, vals, E, x, xs, y, ys, nr);
-  });
-  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+  return launch_bell2_entries<float>(rows, cols, vals, E, x, xs, y, ys, nr,
+                                     stream);
+}
+
+int cfs_bell2_entries_f64(const int* rows, const int* cols,
+                          const double* vals, int64_t E, const double* x,
+                          int64_t xs, double* y, int64_t ys, int nr,
+                          cudaStream_t stream) {
+  return launch_bell2_entries<double>(rows, cols, vals, E, x, xs, y, ys, nr,
+                                      stream);
 }
 
 int cfs_unperm_gather(const int* pk, const int* rows, int W, const float* g,

@@ -82,21 +82,24 @@ def _bind(path: str) -> ctypes.CDLL:
     # of nr planes at plane strides xs / ys, in elements
     planes = [p, i64, p, i64, i32, p]
     # the float and double forms of an entry point differ in what their
-    # pointers point at, not in their argument lists
+    # pointers point at, not in their argument lists, bar bell2_spmv's
     for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64):
         fn.argtypes = [p, p, i32, i64, i64, i64, *planes]
     cdll.cfs_sdia_gen.argtypes = [p, p, i32, i64, i64, *planes]
     cdll.cfs_sbell_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, i64,
                                     *planes]
     cdll.cfs_sbell_chunks_per_cta.argtypes = [i64, i32, i32]
-    for fn in (cdll.cfs_bell2_spmv, cdll.cfs_bell2_spmv_f64):
-        fn.argtypes = [p, p, p, p, i64, i32, i32, i32, *planes]
-    cdll.cfs_bell2_entries.argtypes = [p, p, p, i64, *planes]
+    cdll.cfs_bell2_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, *planes]
+    # ... and the tile count of the planes to zero whole (0: visited blocks)
+    cdll.cfs_bell2_spmv_f64.argtypes = [p, p, p, p, i64, i32, i32, i32, i64,
+                                        *planes]
+    for fn in (cdll.cfs_bell2_entries, cdll.cfs_bell2_entries_f64):
+        fn.argtypes = [p, p, p, i64, *planes]
     cdll.cfs_unperm_gather.argtypes = [p, p, i32, p, i64, p, i64, i64, i32, p]
     for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64, cdll.cfs_sdia_gen,
                cdll.cfs_sbell_spmv, cdll.cfs_sbell_chunks_per_cta,
-               cdll.cfs_bell2_spmv,
-               cdll.cfs_bell2_spmv_f64, cdll.cfs_bell2_entries,
+               cdll.cfs_bell2_spmv, cdll.cfs_bell2_spmv_f64,
+               cdll.cfs_bell2_entries, cdll.cfs_bell2_entries_f64,
                cdll.cfs_unperm_gather):
         fn.restype = i32
     cdll.cfs_cuda_error_string.argtypes = [i32]
@@ -116,7 +119,8 @@ def lib() -> ctypes.CDLL:
 def entry(name: str, dtype: torch.dtype):
     """The C entry point ``name`` for a stream of ``dtype`` values:
     ``cfs_<name>`` for float32, ``cfs_<name>_f64`` for float64 (only the
-    kernels of the float64 route have one)."""
+    kernels of the float64 route have one: sdia_sym, bell2_spmv and
+    bell2_entries)."""
     suffix = {torch.float32: "", torch.float64: "_f64"}[dtype]
     return getattr(lib(), f"cfs_{name}{suffix}")
 

@@ -30,9 +30,10 @@ for listed ones; the 8 sublanes sum into tile row
 ``step_block[c // K] * BT + meta[c, 0]``.
 
 The float64 forms of B2 and B7 (``bell2_spmv_tiles_df``, B15, and
-``bell2_spmm_tiles_df``, B16) live in ``ops/bell2_df.py``; they share the
-checks, the launcher and the twins of this module, which work in the
-stream's type.
+``bell2_spmm_tiles_df``, B16) and of B4 and B8 (``bell2_spmv_tiles_accum_df``
+and ``bell2_spmm_tiles_accum_df``, B15/B16 on a float64 peel residual) live
+in ``ops/bell2_df.py``; they share the checks, the launchers and the twins
+of this module, which work in the stream's type.
 
 The TPU-only stream forms (``nib_split``, ``meta_word``, the segmented
 word path) are not ported: the CUDA kernel reads the plan's int16
@@ -152,14 +153,19 @@ def _row_sums_plain(vals, packed, meta, step_block, x2d, K, BT, contig):
 
 def bell2_spmv_tiles_plain(vals, packed, meta, step_block, x2d, *,
                            num_row_tiles, chunks_per_step, tiles_per_block,
-                           contig, out=None):
+                           contig, out=None, covers=False):
     """Plain PyTorch twin of :func:`bell2_spmv_tiles` (any device):
-    vectorised gather over all chunks, sum over sublanes, ``index_add_``."""
+    vectorised gather over all chunks, sum over sublanes, ``index_add_``.
+    ``covers``: the whole output is zeroed, as the float64 kernel does for
+    a stream that visits every block (``bell2_df.bell2_spmv_tiles_df``)."""
     K, BT = chunks_per_step, tiles_per_block
     TP = _tiles_padded(num_row_tiles, BT)
     if out is None:
         out = torch.empty((TP, LANES), dtype=x2d.dtype, device=x2d.device)
-    out.view(-1, BT, LANES)[torch.unique(step_block).long()] = 0
+    if covers:
+        out.zero_()
+    else:
+        out.view(-1, BT, LANES)[torch.unique(step_block).long()] = 0
     tgt, rows = _row_sums_plain(vals, packed, meta, step_block, x2d, K, BT,
                                 contig)
     out.index_add_(0, tgt, rows)
@@ -169,8 +175,9 @@ def bell2_spmv_tiles_plain(vals, packed, meta, step_block, x2d, *,
 @dataclasses.dataclass
 class EntryStream:
     """The live entries of a sparse accumulating stream, sorted by row:
-    what ``bell2_spmv_tiles_accum`` and ``bell2_spmm_tiles_accum`` read
-    in place of the chunk grid (12 bytes an entry in float32)."""
+    what ``bell2_spmv_tiles_accum`` and ``bell2_spmm_tiles_accum`` (and
+    their float64 forms) read in place of the chunk grid (12 bytes an entry
+    in float32, 16 in float64)."""
 
     rows: torch.Tensor  # (E,) int32 flat index into the (T, 128) y tiles
     cols: torch.Tensor  # (E,) int32 flat index into the (x_rows, 128) x
@@ -249,15 +256,19 @@ def bell2_spmv_tiles_accum_plain(entries, x2d, y_tiles):
 
 
 def _launch_bell2(vals, packed, meta, step_block, x3d, y3d, K, BT, contig,
-                  name):
+                  name, covers=False):
     """Launch the one-sided stream kernel (after its zero pass) over plane
-    stacks; returns the number of launches (one per group of planes)."""
+    stacks; returns the number of launches (one per group of planes). The
+    double launcher also takes the planes' tile count, which zeroes them
+    whole when the stream ``covers`` every block (0: visited blocks)."""
     fn = _cuda.entry("bell2_spmv", vals.dtype)
+    tiles = ((y3d.shape[1] if covers else 0,)
+             if vals.dtype == torch.float64 else ())
     return _cuda.launch_groups(
         name, x3d, y3d, lambda *planes: fn(
             vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
             step_block.data_ptr(), meta.shape[0], K, BT, int(contig),
-            *planes,
+            *tiles, *planes,
         ))
 
 
@@ -283,10 +294,10 @@ def bell2_spmv_tiles(vals, packed, meta, step_block, x2d, *,
 
 
 def _spmv_tiles(wrapper, dtype, vals, packed, meta, step_block, x2d,
-                num_row_tiles, K, BT, contig, out):
+                num_row_tiles, K, BT, contig, out, covers=False):
     """The body of :func:`bell2_spmv_tiles` for a stream of ``dtype``
     values; a kernel launch counts on ``wrapper`` (the float64 form is
-    ``bell2_df.bell2_spmv_tiles_df``)."""
+    ``bell2_df.bell2_spmv_tiles_df``, which alone passes ``covers``)."""
     dev = _device_of(vals, packed, meta, step_block, x2d)
     _check_stream(vals, packed, meta, step_block, K, dtype=dtype)
     _check_x2d(x2d, dtype)
@@ -296,11 +307,11 @@ def _spmv_tiles(wrapper, dtype, vals, packed, meta, step_block, x2d,
         return bell2_spmv_tiles_plain(
             vals, packed, meta, step_block, x2d,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
-            tiles_per_block=BT, contig=contig, out=out,
+            tiles_per_block=BT, contig=contig, out=out, covers=covers,
         )
     wrapper.launches += _launch_bell2(
         vals, packed, meta, step_block, x2d[None], out[None], K, BT, contig,
-        wrapper.__name__)
+        wrapper.__name__, covers)
     return out[:num_row_tiles]
 
 
@@ -322,9 +333,9 @@ def _check_entries(entries, x_rows, tiles):
 
 
 def _launch_entries(entries, x3d, y3d, name):
-    """Launch the entry kernel over plane stacks; returns the number of
-    launches (one per group of planes)."""
-    fn = _cuda.lib().cfs_bell2_entries
+    """Launch the entry kernel in the type of ``entries.vals`` over plane
+    stacks; returns the number of launches (one per group of planes)."""
+    fn = _cuda.entry("bell2_entries", entries.vals.dtype)
     return _cuda.launch_groups(
         name, x3d, y3d, lambda *planes: fn(
             entries.rows.data_ptr(), entries.cols.data_ptr(),
@@ -352,18 +363,26 @@ def bell2_spmv_tiles_accum(entries, x2d, y_tiles):
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     or raises.
     """
+    return _spmv_accum(bell2_spmv_tiles_accum, torch.float32, entries, x2d,
+                       y_tiles)
+
+
+def _spmv_accum(wrapper, dtype, entries, x2d, y_tiles):
+    """The body of :func:`bell2_spmv_tiles_accum` for entries of ``dtype``
+    values; a kernel launch counts on ``wrapper`` (the float64 form is
+    ``bell2_df.bell2_spmv_tiles_accum_df``)."""
     dev = _device_of(entries.rows, entries.cols, entries.vals, x2d, y_tiles)
-    _check_x2d(x2d)
+    _check_x2d(x2d, dtype)
     if y_tiles.ndim != 2 or y_tiles.shape[1] != LANES:
         raise ValueError("y_tiles must be (T, 128)")
-    _cuda.check_dtype(entries.vals, "entries.vals", torch.float32)
-    _cuda.check_dtype(y_tiles, "y_tiles", torch.float32)
+    _cuda.check_dtype(entries.vals, "entries.vals", dtype)
+    _cuda.check_dtype(y_tiles, "y_tiles", dtype)
     _check_entries(entries, x2d.shape[0], y_tiles.shape[0])
     if dev.type == "cpu":
         return bell2_spmv_tiles_accum_plain(entries, x2d, y_tiles)
     if entries.count:
-        bell2_spmv_tiles_accum.launches += _launch_entries(
-            entries, x2d[None], y_tiles[None], "bell2_spmv_tiles_accum")
+        wrapper.launches += _launch_entries(
+            entries, x2d[None], y_tiles[None], wrapper.__name__)
     return y_tiles
 
 
@@ -545,7 +564,7 @@ def _launch_sbell(vals, packed, meta, step_block, x3d, y3d, K, BT, TW, name):
 
 def bell2_spmm_tiles_plain(vals, packed, meta, step_block, x3d, *,
                            num_row_tiles, chunks_per_step, tiles_per_block,
-                           contig, out=None):
+                           contig, out=None, covers=False):
     """Plain PyTorch twin of :func:`bell2_spmm_tiles`: B2's twin once per
     plane."""
     if out is None:
@@ -557,7 +576,7 @@ def bell2_spmm_tiles_plain(vals, packed, meta, step_block, x3d, *,
                                num_row_tiles=num_row_tiles,
                                chunks_per_step=chunks_per_step,
                                tiles_per_block=tiles_per_block,
-                               contig=contig, out=out[b])
+                               contig=contig, out=out[b], covers=covers)
     return out[:, :num_row_tiles]
 
 
@@ -584,10 +603,10 @@ def bell2_spmm_tiles(vals, packed, meta, step_block, x3d, *,
 
 
 def _spmm_tiles(wrapper, dtype, vals, packed, meta, step_block, x3d,
-                num_row_tiles, K, BT, contig, out):
+                num_row_tiles, K, BT, contig, out, covers=False):
     """The body of :func:`bell2_spmm_tiles` for a stream of ``dtype``
     values; kernel launches count on ``wrapper`` (the float64 form is
-    ``bell2_df.bell2_spmm_tiles_df``)."""
+    ``bell2_df.bell2_spmm_tiles_df``, which alone passes ``covers``)."""
     dev = _device_of(vals, packed, meta, step_block)
     _check_stream(vals, packed, meta, step_block, K, dtype=dtype)
     B = _cuda.check_planes(x3d, "x3d", dev, dtype)
@@ -597,11 +616,11 @@ def _spmm_tiles(wrapper, dtype, vals, packed, meta, step_block, x3d,
         return bell2_spmm_tiles_plain(
             vals, packed, meta, step_block, x3d,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
-            tiles_per_block=BT, contig=contig, out=out,
+            tiles_per_block=BT, contig=contig, out=out, covers=covers,
         )
     wrapper.launches += _launch_bell2(
         vals, packed, meta, step_block, x3d, out, K, BT, contig,
-        wrapper.__name__)
+        wrapper.__name__, covers)
     return out[:, :num_row_tiles]
 
 
@@ -623,16 +642,24 @@ def bell2_spmm_tiles_accum(entries, x3d, y_tiles):
     the note on non-finite x as :func:`bell2_spmv_tiles_accum`; the entry
     list is read once per group of up to ``_cuda.RHS_GROUP`` planes.
     """
+    return _spmm_accum(bell2_spmm_tiles_accum, torch.float32, entries, x3d,
+                       y_tiles)
+
+
+def _spmm_accum(wrapper, dtype, entries, x3d, y_tiles):
+    """The body of :func:`bell2_spmm_tiles_accum` for entries of ``dtype``
+    values; kernel launches count on ``wrapper`` (the float64 form is
+    ``bell2_df.bell2_spmm_tiles_accum_df``)."""
     dev = _device_of(entries.rows, entries.cols, entries.vals)
-    _cuda.check_dtype(entries.vals, "entries.vals", torch.float32)
-    B = _cuda.check_planes(x3d, "x3d", dev, torch.float32)
-    _cuda.check_planes(y_tiles, "y_tiles", dev, torch.float32, B=B)
+    _cuda.check_dtype(entries.vals, "entries.vals", dtype)
+    B = _cuda.check_planes(x3d, "x3d", dev, dtype)
+    _cuda.check_planes(y_tiles, "y_tiles", dev, dtype, B=B)
     _check_entries(entries, x3d.shape[1], y_tiles.shape[1])
     if dev.type == "cpu":
         return bell2_spmm_tiles_accum_plain(entries, x3d, y_tiles)
     if entries.count:
-        bell2_spmm_tiles_accum.launches += _launch_entries(
-            entries, x3d, y_tiles, "bell2_spmm_tiles_accum")
+        wrapper.launches += _launch_entries(entries, x3d, y_tiles,
+                                            wrapper.__name__)
     return y_tiles
 
 

@@ -8,8 +8,9 @@ path one one-sided stream and the signed-offset SDIA stream
 (``bell2_apply``); and the same two compositions for B right-hand sides
 (``sbell_apply_mm``, ``bell2_apply_mm``), whose X and Y travel as (B,
 rows, 128) planes. The float64 route (``Fp64Device``, ``fp64_apply``,
-``fp64_apply_mm``) composes the one-sided stream and the symmetric
-diagonal stream in IEEE double, as the appliers inside the reference's
+``fp64_apply_mm``) composes the one-sided stream (or, for a peel residual
+or sparse stream, its entry list) and the symmetric diagonal stream in
+IEEE double, as the appliers inside the reference's
 ``tuning/tune._tune_fp64_df`` do with double-float pairs. The device
 structs are plain dataclasses of tensors on one explicit device.
 """
@@ -143,7 +144,8 @@ class Fp64Device:
     """Device-resident float64 plan: the one-sided BELL2 stream in double
     (the whole matrix, or what the diagonal peel left) and, for a
     symmetric matrix, the dense lower diagonals with the main one stored
-    halved."""
+    halved. An ungrouped peel residual or sparse stream travels as its
+    live ``entries``, without the chunk grid."""
 
     nrows: int
     ncols: int
@@ -154,6 +156,7 @@ class Fp64Device:
     contig: bool
     #: False for an empty or dia-only stream: the stream kernel never runs
     has_work: bool
+    #: the chunk grid; None where the stream travels as ``entries``
     vals: torch.Tensor | None = None  # (C*8, 128) float64
     packed: torch.Tensor | None = None  # (C*8, 128) int16, q | r2 << 7
     meta: torch.Tensor | None = None  # (C, 10) int32
@@ -164,13 +167,19 @@ class Fp64Device:
     row_perm: torch.Tensor | None = None  # (ceil(nrows/128)*128,) int64
     dia_vals: torch.Tensor | None = None  # (R, D, 8, 128) float64
     dia_offsets: torch.Tensor | None = None  # (D,) int32, each >= 0
+    #: the live entries of an ungrouped peel residual or sparse stream,
+    #: compacted from the chunk grid at upload
+    entries: bk.EntryStream | None = None
+    #: the chunk grid visits every block of its output: the kernel zeroes
+    #: the whole output in one pass
+    covers: bool = False
 
     @property
     def grouped(self) -> bool:
         return self.row_perm is not None
 
     def stream_kw(self) -> dict:
-        """The geometry arguments of the stream's kernel wrappers."""
+        """The geometry arguments of the chunk grid's kernel wrappers."""
         return dict(num_row_tiles=self.num_row_tiles,
                     chunks_per_step=self.chunks_per_step,
                     tiles_per_block=self.tiles_per_block,
@@ -216,6 +225,13 @@ def _check_stream_plan(plan, contig):
             raise ValueError("a chunk run spans two sub rows")
 
 
+def _visits_every_block(step_block, num_row_tiles, BT) -> bool:
+    """Whether a stream's steps visit every output block of its
+    ceil(T/BT)-block output."""
+    return np.array_equal(np.unique(np.asarray(step_block)),
+                          np.arange(-(-num_row_tiles // BT)))
+
+
 def _check_paired_plan(plan):
     """Host-side index checks of a paired stream (``sbell_spmv_tiles``
     reads and scatters without bounds checks)."""
@@ -225,8 +241,7 @@ def _check_paired_plan(plan):
     if TW not in (2, 4):
         raise ValueError(f"transpose_windows must be 2 or 4, got {TW}")
     _check_chunks(meta, sb, K, BT)
-    nblocks = -(-plan.num_row_tiles // BT)
-    if not np.array_equal(np.unique(sb), np.arange(nblocks)):
+    if not _visits_every_block(sb, plan.num_row_tiles, BT):
         raise ValueError("the paired stream must visit every output block")
     blk = np.repeat(sb, K)
     if np.any(blk * BT + meta[:, 0] >= plan.x_rows):
@@ -338,25 +353,38 @@ def fp64_to_device(plan, device) -> Fp64Device:
     halved, as ``tuning/tune._tune_fp64`` builds it with float64 values.
     The reference's double-float plan of the same matrix (float32 ``vals``
     with the low halves in ``vals2``) is accepted too: its two planes are
-    rejoined in float64. An ungrouped stream must cover every output
-    block (the kernel zeroes only the blocks it visits, and the appliers
-    read them all); a grouped one may be sparse, its rows are gathered."""
+    rejoined in float64.
+
+    An ungrouped stream that is a peel's residual or sparse (built
+    without covering chunks) is uploaded as its live entries only
+    (``bell2_kernel.compact_stream`` of the unchanged plan): the appliers
+    add them into zero tiles. Grouped streams and a whole-matrix stream
+    keep the chunk grid; a grouped one may be sparse, its rows are
+    gathered. ``covers`` records whether the grid visits every block."""
     device = as_device(device)
     contig = plan.windows_contig or plan.window_depth > SUBLANES
     _check_stream_plan(plan, contig)
     has_work = plan.nnz > 0
-    if has_work and plan.sparse_stream and plan.row_perm is None:
-        raise ValueError("an ungrouped float64 stream must visit every "
-                         "output block (build it with cover_all_tiles=True)")
     T = plan.num_row_tiles
     stream = {}
+    accumulates = plan.row_perm is None and (plan.dia is not None
+                                             or plan.sparse_stream)
     if has_work:
         vals = np.asarray(plan.vals, np.float64)
         if plan.vals2 is not None:
             vals = vals + np.asarray(plan.vals2, np.float64)
-        stream = dict(vals=_tensor(vals, device),
-                      **{k: _tensor(getattr(plan, k), device)
-                         for k in ("packed", "meta", "step_block")})
+        grid = dict(vals=vals, packed=plan.packed, meta=plan.meta,
+                    step_block=plan.step_block)
+    if has_work and accumulates:
+        stream["entries"] = bk.compact_stream(
+            **grid, chunks_per_step=plan.chunks_per_step,
+            tiles_per_block=plan.tiles_per_block, contig=contig,
+            num_row_tiles=T, x_rows=plan.x_rows,
+        ).to(device)
+    elif has_work:
+        stream = {k: _tensor(a, device) for k, a in grid.items()}
+        stream["covers"] = _visits_every_block(
+            plan.step_block, T, plan.tiles_per_block)
         if plan.row_perm is not None:
             perm = np.asarray(plan.row_perm, np.int64)
             if perm.size and (perm.min() < 0 or perm.max() > T * LANES):
@@ -428,6 +456,10 @@ _STREAMS = {
     # the float64 route: the double kernels beside the same twins
     "bell2_df": (bdf.bell2_spmv_tiles_df, bk.bell2_spmv_tiles_plain),
     "bell2_df_mm": (bdf.bell2_spmm_tiles_df, bk.bell2_spmm_tiles_plain),
+    "bell2_acc_df": (bdf.bell2_spmv_tiles_accum_df,
+                     bk.bell2_spmv_tiles_accum_plain),
+    "bell2_acc_df_mm": (bdf.bell2_spmm_tiles_accum_df,
+                        bk.bell2_spmm_tiles_accum_plain),
     "sdia_df": (sdf.sdia_sym_tiles_df, sk.sdia_sym_tiles_plain),
     "sdia_df_mm": (sdf.sdia_sym_tiles_df_mm, sk.sdia_sym_tiles_mm_plain),
 }
@@ -609,59 +641,63 @@ def _check_fp64(x):
 
 
 def fp64_apply(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
-    """y = A x in float64: the one-sided stream (``bell2_spmv_tiles_df``)
-    if the plan has one, its rows gathered back to their order when the
-    plan is degree-grouped (a plain gather against a zero appended to the
-    stream's output, as in the reference's applier), then the symmetric
-    diagonal stream added in place (``sdia_sym_tiles_df``). x is padded
-    once, to the taller of the two streams' x operands. An empty matrix
-    gives zeros. ``plain=True`` runs both streams through their twins."""
+    """y = A x in float64. A plan whose stream travels as entries (a peel
+    residual or sparse stream) starts from zero tiles of the result's
+    height and adds the entries into them (``bell2_spmv_tiles_accum_df``);
+    otherwise the one-sided stream writes its tiles
+    (``bell2_spmv_tiles_df``), its rows gathered back to their order when
+    the plan is degree-grouped (a plain gather against a zero appended to
+    the stream's output, as in the reference's applier). Then the
+    symmetric diagonal stream adds in place (``sdia_sym_tiles_df``), as
+    ``sbell_apply`` seeds its accumulating streams. x is padded once, to
+    the taller of the two streams' x operands. An empty matrix gives
+    zeros. ``plain=True`` runs every stream through its twin."""
     _check_vector(x, "fp64_apply_mm")
     _check_fp64(x)
     f = _kernels(plain)
     TD = -(-dev.nrows // LANES)  # tiles of the result
     x2d = pad_x(x, max(dev.x_rows, TD))
-    tiles = None
-    if dev.has_work:
+    if dev.entries is not None:
+        tiles = f["bell2_acc_df"](dev.entries, x2d, x2d.new_zeros((TD, LANES)))
+    elif dev.has_work:
         tiles = f["bell2_df"](dev.vals, dev.packed, dev.meta, dev.step_block,
-                              x2d, **dev.stream_kw())
+                              x2d, covers=dev.covers, **dev.stream_kw())
         if dev.grouped:
             flat = torch.cat([tiles.reshape(-1), tiles.new_zeros(1)])
             tiles = torch.index_select(flat, 0, dev.row_perm).view(TD, LANES)
+    else:
+        tiles = x2d.new_zeros((TD, LANES))
     if dev.dia_vals is not None:
-        if tiles is None:
-            tiles = x2d.new_zeros((TD, LANES))
         tiles = f["sdia_df"](dev.dia_vals, x2d, tiles[:TD], dev.dia_offsets)
-    if tiles is None:
-        return x.new_zeros(dev.nrows)
     return tiles.reshape(-1)[: dev.nrows]
 
 
 def fp64_apply_mm(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
     """Y = A X in float64 for X (ncols, B): :func:`fp64_apply` branch for
-    branch over (B, rows, 128) planes (``bell2_spmm_tiles_df``,
-    ``sdia_sym_tiles_df_mm``); any B runs in groups of up to
-    ``_cuda.RHS_GROUP`` planes inside the wrappers. Returns (nrows, B), a
-    transposed view of the output planes."""
+    branch over (B, rows, 128) planes (``bell2_spmm_tiles_accum_df``,
+    ``bell2_spmm_tiles_df``, ``sdia_sym_tiles_df_mm``); any B runs in
+    groups of up to ``_cuda.RHS_GROUP`` planes inside the wrappers.
+    Returns (nrows, B), a transposed view of the output planes."""
     B = _check_matrix(x)
     _check_fp64(x)
     f = _kernels(plain)
     TD = -(-dev.nrows // LANES)
     x3d = pad_x_mm(x, max(dev.x_rows, TD))
-    tiles = None
-    if dev.has_work:
+    if dev.entries is not None:
+        tiles = f["bell2_acc_df_mm"](dev.entries, x3d,
+                                     x3d.new_zeros((B, TD, LANES)))
+    elif dev.has_work:
         tiles = f["bell2_df_mm"](dev.vals, dev.packed, dev.meta,
-                                 dev.step_block, x3d, **dev.stream_kw())
+                                 dev.step_block, x3d, covers=dev.covers,
+                                 **dev.stream_kw())
         if dev.grouped:
             flat = torch.cat([tiles.reshape(B, -1), tiles.new_zeros((B, 1))],
                              dim=1)
             tiles = torch.index_select(flat, 1, dev.row_perm).view(
                 B, TD, LANES)
+    else:
+        tiles = x3d.new_zeros((B, TD, LANES))
     if dev.dia_vals is not None:
-        if tiles is None:
-            tiles = x3d.new_zeros((B, TD, LANES))
         tiles = f["sdia_df_mm"](dev.dia_vals, x3d, tiles[:, :TD],
                                 dev.dia_offsets)
-    if tiles is None:
-        return x.new_zeros((dev.nrows, B))
     return tiles.reshape(B, -1)[:, : dev.nrows].T

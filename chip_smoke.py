@@ -10,7 +10,7 @@ Phases (each prints its wall time):
 1. card name and power limit (``nvidia-smi``), PyTorch and CUDA versions;
 2. build the CUDA kernels from ``cfs_spmv_tpu_torch/csrc/spmv_kernels.cu``,
    and beside that build (one ``nvcc`` per source, all started together)
-   ptxas' report and the two comparison sources of phase 4;
+   ptxas' report and the three comparison sources of phase 4;
 2b. ptxas' report (``nvcc -Xptxas -v``) of registers and spills for every
    kernel instance; any spill fails the run;
 3. the main paths, once each, through the user entry points —
@@ -37,15 +37,16 @@ Phases (each prints its wall time):
    ``dtype=np.float64``, on four full-size runs (``cant_proxy()``: the
    symmetric diagonal stream with the halved main diagonal only;
    ``audikw_proxy()``: the expanded one-sided stream; the flagship:
-   both; ``general_asym()``: one-sided), each checked against the float64
+   both, the peel residual as a double entry list; ``general_asym()``:
+   one-sided), each checked against the float64
    oracle at the float64 gate (1e-8) with its scaled error printed beside
    the float32 run's, and an fp64 apply may move no fp32 kernel's count;
    and one apply of the plain ELL+COO path (``CFS_FP64=xla``) on the
    flagship, which may move no kernel's count at all; for each
    accumulating stream (the sparse residuals of the flagship, the
-   flagship as a general matrix and forced pairing) the chunk grid's
-   padded bytes beside the bytes of the entry list that is uploaded in
-   its place, and the fill;
+   flagship as a general matrix and forced pairing, and the float64
+   flagship's peel residual) the chunk grid's padded bytes beside the
+   bytes of the entry list that is uploaded in its place, and the fill;
 4. each kernel against its plain PyTorch twin on the same card, on the
    real plan arrays of those runs (``sbell_spmv`` also replanned with the
    other transpose-window count and with 8-tile output blocks, and on the
@@ -60,10 +61,20 @@ Phases (each prints its wall time):
    replan (both also at B = 2, the two-plane instance) and on the
    400,000-row plan, from x planes at a plane stride past the plane,
    ``unperm_gather_mm`` bit-identical;
-   the four float64 kernels at B = 1, 8 and 11 (scaled error against the
+   the float64 kernels at B = 1, 8 and 11 (scaled error against the
    float64 twin below ``F64_TWIN_TOL``), the diagonal ones onto strided Y
-   planes, the stream ones also on an 8-tile-block replan with an absent
-   row range into NaN-poisoned outputs; the accumulating kernels
+   planes, the grid ones on ``general_asym()`` and ``audikw_proxy()`` in
+   float64 and on an 8-tile-block replan with an absent row range into
+   NaN-poisoned outputs; the double entry kernel
+   (``bell2_spmv_accum_df``, ``bell2_spmm_accum_df``) on the float64
+   flagship's peel residual and on that replan's entry list (the upload
+   takes it as entries), onto strided NaN-poisoned planes seeded finite
+   on the named rows, against the chunk-grid twin; the double grid
+   kernel's walk (1, 2, 4, 8 chunks a CTA) and zero pass (the zero kernel
+   against ``cudaMemset2DAsync``) through its launcher's own arguments
+   (``GRID_F64_FORMS_SRC``, built for this comparison only) on
+   ``general_asym()`` and ``audikw_proxy()`` in float64 at B = 1 and 8,
+   each against the twin and in device time; the accumulating kernels
    (``bell2_spmv_accum``, ``bell2_spmm_accum``) on the flagship's entry
    list and on a hand-built one with an absent row range and rows of 70
    and 200 entries, at B = 1, 8 and 11 onto Y planes at a plane stride
@@ -80,7 +91,10 @@ Phases (each prints its wall time):
 5. times per call (CUDA events around 20 back-to-back calls, median of
    5) of each kernel and twin (multi-RHS ones at B = 8), and of the
    kernel path and the plain path of every run, SpMV and SpMM(8) (the
-   paired kernels also on the 400,000-row plan), with
+   paired kernels also on the 400,000-row plan; the float64 grid
+   kernels also on ``general_asym()``, so that B15 and B16 each have a
+   time on the float64 flagship's residual as entries, on
+   ``general_asym()`` and on ``audikw_proxy()``), with
    the device time of each apply and of each kernel from
    ``torch.profiler``; for ``bell2_spmm``, ``sbell_spmm`` and
    ``sdia_sym_mm`` the MM(8) kernel's device time beside 8x its SpMV
@@ -137,7 +151,8 @@ EXPECTED = {
     # the float64 route
     "cant_proxy_f64": {"sdia_sym_df"},  # diagonals incl. the halved main
     "audikw_proxy_f64": {"bell2_spmv_df"},  # peel rejected: all one-sided
-    "flagship_f64": {"sdia_sym_df", "bell2_spmv_df"},  # peel + residual
+    # peel + its residual as a double entry list
+    "flagship_f64": {"sdia_sym_df", "bell2_spmv_accum_df"},
     "general_asym_f64": {"bell2_spmv_df"},  # asymmetric: all one-sided
 }
 #: the multi-RHS form of each kernel: an SpMM apply runs the same
@@ -151,6 +166,7 @@ MM_OF = {
     "sdia_gen": "sdia_gen_mm",
     "sdia_sym_df": "sdia_sym_df_mm",
     "bell2_spmv_df": "bell2_spmm_df",
+    "bell2_spmv_accum_df": "bell2_spmm_accum_df",
 }
 #: kernels each main-path run's SpMM(8) apply launches (no SpMV kernel)
 EXPECTED_MM = {run: {MM_OF[k] for k in ks} for run, ks in EXPECTED.items()}
@@ -172,6 +188,9 @@ REPLACES = {
     "sdia_sym_df_mm": "cfs_spmv_tpu/ops/sdia_df.py:222",
     "bell2_spmv_df": "cfs_spmv_tpu/ops/bell2_df.py:181",
     "bell2_spmm_df": "cfs_spmv_tpu/ops/bell2_df.py:322",
+    # the same two TPU kernels on a float64 peel residual, as entries
+    "bell2_spmv_accum_df": "cfs_spmv_tpu/ops/bell2_df.py:181",
+    "bell2_spmm_accum_df": "cfs_spmv_tpu/ops/bell2_df.py:322",
 }
 #: the card's peaks for the bounds (NVIDIA H100 SXM data sheet): device
 #: memory bytes per second, and multiply-adds counted as two operations
@@ -620,6 +639,48 @@ extern "C" int cfs_sbell_alt(const float* vals, const int* packed,
 """
 
 
+#: the double grid kernel under its launcher's own arguments, for the
+#: comparison in phase 4 only: the port's kernel source included whole
+#: (``{src}``), and two entry points more. ``cfs_bell2_f64_form`` launches
+#: ``bell2_spmv_kernel<contig, R, double, cpc>`` (a walk of ``cpc`` = 1, 2,
+#: 4 or 8 chunks a CTA) after the zero pass ``tiles`` names (> 0:
+#: ``cudaMemset2DAsync`` over whole planes of that many rows of 128; 0: the
+#: zero kernel over the visited blocks). What ships is a walk of 1 after
+#: the memset; before, it was a walk of 8 after the zero kernel.
+#: ``cfs_bell2_f64_walk`` gives the walk of the occupancy rule the paired
+#: kernel uses (the fewest chunks that keep every CTA resident, at most 8).
+GRID_F64_FORMS_SRC = r"""
+#include "{src}"
+extern "C" int cfs_bell2_f64_form(const double* vals, const int16_t* packed,
+                                  const int* meta, const int* step_block,
+                                  int64_t C, int K, int BT, int contig,
+                                  int cpc, int64_t tiles, const double* x,
+                                  int64_t xs, double* y, int64_t ys, int nr,
+                                  cudaStream_t stream) {
+  switch (cpc) {
+#define FORM(W)                                                            \
+  case W:                                                                  \
+    return launch_bell2_spmv<double, W>(vals, packed, meta, step_block, C, \
+                                        K, BT, contig, tiles, x, xs, y, ys, \
+                                        nr, stream);
+    FORM(1) FORM(2) FORM(4) FORM(8)
+#undef FORM
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+extern "C" int cfs_bell2_f64_walk(int64_t C, int contig, int nr) {
+  int walk = 0;
+  with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    walk = contig ? walk_for(bell2_spmv_kernel<true, R, double, 1>, C, 8)
+                  : walk_for(bell2_spmv_kernel<false, R, double, 1>, C, 8);
+  });
+  return walk;
+}
+"""
+
+
 def flagship(n=1024, deg=8, dtype=np.float32, seed=0):
     """Banded symmetric matrix dense enough that tuning engages the SDIA
     stream, plus a scattered residual for the far path (the repository's
@@ -960,7 +1021,9 @@ def predict(tuned) -> set:
     dev = dev["dev"] if isinstance(dev, dict) else dev
     out = set()
     if isinstance(dev, Fp64Device):
-        if dev.has_work:
+        if dev.entries is not None:
+            out.add("bell2_spmv_accum_df")
+        elif dev.has_work:
             out.add("bell2_spmv_df")
         if dev.dia_vals is not None:
             out.add("sdia_sym_df")
@@ -1031,6 +1094,8 @@ def main() -> int:
         "sdia_sym_df_mm": sdf.sdia_sym_tiles_df_mm,
         "bell2_spmv_df": bdf.bell2_spmv_tiles_df,
         "bell2_spmm_df": bdf.bell2_spmm_tiles_df,
+        "bell2_spmv_accum_df": bdf.bell2_spmv_tiles_accum_df,
+        "bell2_spmm_accum_df": bdf.bell2_spmm_tiles_accum_df,
     }
     t_start = time.perf_counter()
     phase_t = [time.perf_counter()]
@@ -1057,7 +1122,9 @@ def main() -> int:
     p_, i32_, i64_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     side = {"ptxas": ptxas_start(),
             "entries_alt": alt_start("entries_alt", ENTRIES_ALT_SRC),
-            "sbell_alt": alt_start("sbell_alt", SBELL_ALT_SRC)}
+            "sbell_alt": alt_start("sbell_alt", SBELL_ALT_SRC),
+            "grid_f64": alt_start("grid_f64", GRID_F64_FORMS_SRC.replace(
+                "{src}", _cuda._SRC))}
     _cuda.lib()
     phase_done("2 kernel build/load")
     regs = ptxas_report(_nvcc_wait(side.pop("ptxas"),
@@ -1178,17 +1245,23 @@ def main() -> int:
         )
         if dtype == np.float64:
             d64 = A.tuned.operands
-            mb_s = (_nbytes(d64.vals, d64.packed, d64.meta) / 1e6
-                    if d64.has_work else 0.0)
+            if d64.entries is not None:
+                e64 = d64.entries
+                mb_e = _nbytes(e64.rows, e64.cols, e64.vals) / 1e6
+                stream = f"{mb_e:.2f} MB of entries (16 B each, no grid)"
+            else:
+                mb_s = (_nbytes(d64.vals, d64.packed, d64.meta) / 1e6
+                        if d64.has_work else 0.0)
+                stream = (f"{mb_s:.2f} MB (values 8 B + words 2 B a slot, "
+                          f"grouped={d64.grouped}, covers={d64.covers})")
             mb_d = (_nbytes(d64.dia_vals) / 1e6
                     if d64.dia_vals is not None else 0.0)
             print(
                 f"main path {name}: float64 operands on the card: stream "
-                f"{mb_s:.2f} MB (values 8 B + words 2 B a slot, "
-                f"grouped={d64.grouped}), diagonal planes {mb_d:.2f} MB; "
+                f"{stream}, diagonal planes {mb_d:.2f} MB; "
                 f"max scaled error float64 {scaled[name]} against float32 "
                 f"{scaled[name[:-4]]} on the same matrix", flush=True)
-        if "bell2_spmv_accum" in predicted:
+        if predicted & {"bell2_spmv_accum", "bell2_spmv_accum_df"}:
             acc = far if far is not None else plan  # the host chunk grid
             dacc = A.tuned.operands
             dacc = dacc["dev"] if isinstance(dacc, dict) else dacc
@@ -1198,12 +1271,13 @@ def main() -> int:
                 raise AssertionError(f"{name}: no entry list on the card")
             slots = acc.vals.size
             grid_b = acc.vals.nbytes + acc.packed.nbytes
+            per = _nbytes(es.rows, es.cols, es.vals) // es.count
             print(
                 f"main path {name}: accumulating stream {acc.meta.shape[0]} "
                 f"chunks, {slots} slots, {es.count} live entries, fill "
                 f"{es.count / slots:.4%}; chunk grid {grid_b / 1e6:.2f} MB "
-                f"(not uploaded) against {12 * es.count / 1e6:.3f} MB of "
-                f"entries at 12 B, {grid_b / (12 * es.count):.1f}x",
+                f"(not uploaded) against {per * es.count / 1e6:.3f} MB of "
+                f"entries at {per} B, {grid_b / (per * es.count):.1f}x",
                 flush=True)
         if not ok:
             raise AssertionError(f"{name}: disagrees with the f64 oracle")
@@ -1504,9 +1578,11 @@ def main() -> int:
     touched_f = int(torch.unique(es.rows).numel())
 
     def entry_bytes(es, x, touched, B=1):
-        """What the entry kernel must move: the entries at 12 B, x once,
-        and the y rows the entries name read and written, per plane."""
-        return 12 * es.count + _nbytes(x) + 2 * 4 * touched * B
+        """What the entry kernel must move: the entries (12 B each in
+        float32, 16 in float64), x once, and the y rows the entries name
+        read and written, per plane."""
+        return (_nbytes(es.rows, es.cols, es.vals) + _nbytes(x)
+                + 2 * es.vals.element_size() * touched * B)
 
     kern["bell2_spmv_accum"] = dict(
         err=max(err, err_g), on="flagship",
@@ -1557,32 +1633,39 @@ def main() -> int:
     # must come back NaN bit for bit
     def poisoned_entries_check(es, x_rows, on, nnz_per_row, launch=None):
         """Max abs error against the twin over B4 (B = 1) and B8 (B = 1,
-        8, 11); ``launch(es, x3, y3)`` stands in for the wrappers when the
-        other form of the kernel is checked."""
+        8, 11), or their float64 forms for a float64 entry list;
+        ``launch(es, x3, y3)`` stands in for the wrappers when the other
+        form of the kernel is checked."""
         T = es.min_tiles
+        dt = es.vals.dtype
+        df = "_df" if dt == torch.float64 else ""
+        mv_fn, mm_fn = ((bdf.bell2_spmv_tiles_accum_df,
+                         bdf.bell2_spmm_tiles_accum_df) if df else
+                        (bk.bell2_spmv_tiles_accum, bk.bell2_spmm_tiles_accum))
+        bits = torch.int64 if df else torch.int32
         named = torch.zeros(T * 128, dtype=torch.bool, device=dev)
         named[es.rows.long()] = True
         es_abs = dataclasses.replace(es, vals=es.vals.abs().double())
         worst = 0.0
         for B, mv in ((1, True), (1, False), (RHS, False), (11, False)):
-            x3 = planes(B, x_rows)
-            y0 = torch.rand((B, T * 128), generator=g).to(dev)
+            x3 = planes(B, x_rows, dtype=dt)
+            y0 = torch.rand((B, T * 128), generator=g, dtype=dt).to(dev)
             y0[:, ~named] = float("nan")
-            wide = poisoned((B, T + 3, 128))
+            wide = poisoned((B, T + 3, 128), dt)
             wide[:, :T] = y0.view(B, T, 128)
             y3 = wide[:, :T]
             if launch is not None:
                 launch(es, x3, y3)
             elif mv:
-                bk.bell2_spmv_tiles_accum(es, x3[0], y3[0])
+                mv_fn(es, x3[0], y3[0])
             else:
-                bk.bell2_spmm_tiles_accum(es, x3, y3)
+                mm_fn(es, x3, y3)
             torch.cuda.synchronize()
             yk = y3.reshape(B, -1)
-            what = (f"{'bell2_spmv_accum' if mv else 'bell2_spmm_accum'} "
+            what = (f"{'bell2_spmv_accum' if mv else 'bell2_spmm_accum'}{df} "
                     f"B={B} on {on}")
-            if not torch.equal(yk[:, ~named].view(torch.int32),
-                               y0[:, ~named].view(torch.int32)):
+            if not torch.equal(yk[:, ~named].view(bits),
+                               y0[:, ~named].view(bits)):
                 raise AssertionError(f"{what}: a row no entry names moved")
             if not torch.isnan(wide[:, T:]).all():
                 raise AssertionError(f"{what}: wrote past a plane")
@@ -1975,12 +2058,13 @@ def main() -> int:
     mm_pair("sdia_sym_df_mm", make_sdia_df_mm, 2 * d.dia_vals.shape[1],
             "cant_proxy float64", Bs=(1, 11, RHS), flops=RHS * sym_flops)
 
-    # B15 + B16: first on an 8-tile-block replan of general_asym(g=50)
-    # whose rows 20,000-59,999 are absent and get no covering chunks (so
-    # whole output blocks are never visited), then on audikw_proxy's
-    # float64 stream (the whole matrix, expanded); every output
-    # NaN-poisoned, compared on the visited blocks' rows, and unvisited
-    # blocks must keep their NaN
+    # B15 + B16 on the chunk grid: first on an 8-tile-block replan of
+    # general_asym(g=50) whose rows 20,000-59,999 are absent and get no
+    # covering chunks (so whole output blocks are never visited), then on
+    # general_asym's and audikw_proxy's float64 streams (the whole matrix,
+    # audikw's expanded; both visit every block, so the kernel zeroes whole
+    # planes); every output NaN-poisoned, compared on the visited blocks'
+    # rows, and unvisited blocks must keep their NaN
     coo = general_asym(g=50).to_coo()
     keep = (coo.row < 20_000) | (coo.row >= 60_000)
     hp = build_bell2_from_arrays(
@@ -1988,16 +2072,13 @@ def main() -> int:
         np.asarray(coo.col[keep], np.int32),
         np.asarray(coo.val[keep], np.float64), dtype=np.float64,
         force_slot=True, tiles_per_block=8, cover_all_tiles=False)
-    # the appliers read every block of an ungrouped stream's output, so
-    # the upload refuses this plan; its arrays go to the kernel wrappers
-    # only, in a struct built by hand after the same index checks
-    try:
-        ops.fp64_to_device(hp, dev)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("fp64_to_device took a plan with unvisited "
-                             "blocks")
+    # the upload takes this sparse plan as its entry list (checked below);
+    # its chunk grid goes to the grid kernel's wrappers in a struct built
+    # by hand after the same index checks
+    d_hp = ops.fp64_to_device(hp, dev)
+    if d_hp.entries is None or d_hp.vals is not None:
+        raise AssertionError("fp64_to_device kept the chunk grid of a "
+                             "sparse stream")
     hp_contig = hp.windows_contig or hp.window_depth > 8
     ops._check_stream_plan(hp, hp_contig)
     holes = ops.Fp64Device(
@@ -2006,10 +2087,17 @@ def main() -> int:
         tiles_per_block=hp.tiles_per_block, contig=hp_contig, has_work=True,
         **{k: ops._tensor(getattr(hp, k), dev)
            for k in ("vals", "packed", "meta", "step_block")})
+    _, d_ga, xe_ga = operands("general_asym_f64")
     A, d, xe = operands("audikw_proxy_f64")
+    if not (d_ga.covers and d.covers):
+        raise AssertionError("the general_asym and audikw float64 streams "
+                             "should visit every output block")
     x_h = torch.rand(holes.ncols, generator=g, dtype=f64).to(dev)
+    dense = {}  # the grid kernels on general_asym float64, timed in phase 5
     for ds, xs_, on in ((holes, x_h, "general_asym(g=50) with absent rows, "
-                         "8-tile blocks"), (d, xe, "audikw_proxy float64")):
+                         "8-tile blocks"),
+                        (d_ga, xe_ga, "general_asym float64"),
+                        (d, xe, "audikw_proxy float64")):
         BTs = ds.tiles_per_block
         TPs = -(-ds.num_row_tiles // BTs) * BTs
         visited = torch.unique(ds.step_block).long()
@@ -2020,7 +2108,7 @@ def main() -> int:
         rows = rows[rows < ds.num_row_tiles]
         if ds is holes and not (rest.any() and len(visited) > 8):
             raise AssertionError("the replan has no unvisited block")
-        kw_s = ds.stream_kw()
+        kw_s = dict(ds.stream_kw(), covers=ds.covers)
         x2d_s = ops.pad_x(xs_, ds.x_rows)
         sargs = (ds.vals, ds.packed, ds.meta, ds.step_block, x2d_s)
         out = poisoned((TPs, 128), f64)
@@ -2034,15 +2122,21 @@ def main() -> int:
         if not torch.isnan(out[rest]).all():
             raise AssertionError(f"bell2_spmv_df on {on}: an unvisited "
                                  "block was written")
+        if ds.covers and not torch.isfinite(out).all():
+            raise AssertionError(f"bell2_spmv_df on {on}: the covering "
+                                 "stream's planes were not zeroed whole")
         print(f"kernel bell2_spmv_df on {on}: {ds.meta.shape[0]} chunks, "
               f"{len(visited)} of {TPs // BTs} blocks visited, contig="
-              f"{ds.contig}, max_abs_err vs twin {err}", flush=True)
+              f"{ds.contig}, covers={ds.covers}, max_abs_err vs twin {err}",
+              flush=True)
         S_df = stream_csr(torch, ds)
         kern["bell2_spmv_df"] = dict(
             err=max(err, kern.get("bell2_spmv_df", {}).get("err", 0.0)),
             on=on, bytes=_nbytes(*sargs) + _nbytes(fp), flops=2 * nnz_s,
-            fn=lambda: bdf.bell2_spmv_tiles_df(*sargs, **kw_s),
-            plain=lambda: bk.bell2_spmv_tiles_plain(*sargs, **kw_s),
+            fn=lambda sargs=sargs, kw_s=kw_s: bdf.bell2_spmv_tiles_df(
+                *sargs, **kw_s),
+            plain=lambda sargs=sargs, kw_s=kw_s: bk.bell2_spmv_tiles_plain(
+                *sargs, **kw_s),
             library=csr_mv(S_df, x2d_s),
         )
 
@@ -2069,6 +2163,172 @@ def main() -> int:
 
         mm_pair("bell2_spmm_df", make_bell2_df_mm, nnz_s / ds.nrows, on,
                 rows=rows, Bs=(1, 11, RHS), flops=RHS * 2 * nnz_s)
+        if ds is d_ga:
+            dense = {k: dict(kern[k])
+                     for k in ("bell2_spmv_df", "bell2_spmm_df")}
+
+    # B15 + B16 on entries: the float64 flagship's peel residual and the
+    # g=50 replan's entry list (absent rows, unvisited blocks), each onto a
+    # nonzero y against the twin and against the chunk-grid twin of the
+    # same plan (every block zeroed, then added to the seed), then at B =
+    # 1, 8 and 11 onto strided NaN-poisoned planes seeded finite on the
+    # named rows
+    A_r, d_r, xe_r = operands("flagship_f64")
+    es_r = d_r.entries
+    grid_r = grid_on(torch, A_r.tuned.plan, dev)
+
+    def entries_vs_grid(es, gd, xs_, nrows, npr, on):
+        """(max abs error against the twin and against the chunk-grid
+        twin, x2d, y0) of the double entry kernel onto a nonzero y."""
+        TDe = -(-nrows // 128)
+        x2d_e = ops.pad_x(xs_, max(gd.x_rows, TDe))
+        y0 = torch.rand((TDe, 128), generator=g, dtype=f64).to(dev)
+        es_abs = dataclasses.replace(es, vals=es.vals.abs())
+        yk = bdf.bell2_spmv_tiles_accum_df(es, x2d_e, y0.clone())
+        yp = bk.bell2_spmv_tiles_accum_plain(es, x2d_e, y0.clone())
+        ys = bk.bell2_spmv_tiles_accum_plain(es_abs, x2d_e.abs(), y0.abs())
+        err = _agree(yk, yp, ys, npr, f"bell2_spmv_accum_df on {on}")
+        BTg = gd.tiles_per_block
+        TPg = -(-gd.num_row_tiles // BTg) * BTg
+        yg = bk.bell2_spmv_tiles_plain(
+            gd.vals, gd.packed, gd.meta, gd.step_block, x2d_e[: gd.x_rows],
+            out=torch.zeros((TPg, 128), dtype=f64, device=dev),
+            num_row_tiles=gd.num_row_tiles, chunks_per_step=gd.chunks_per_step,
+            tiles_per_block=BTg, contig=gd.contig)
+        Tg = min(TDe, yg.shape[0])
+        if yg[Tg:].abs().sum() != 0:
+            raise AssertionError(f"{on}: the chunk grid names rows past "
+                                 "the result")
+        err_g = _agree(yk[:Tg], y0[:Tg] + yg[:Tg], ys[:Tg], npr,
+                       f"bell2_spmv_accum_df on {on} against the chunk-grid "
+                       "twin")
+        print(f"kernel bell2_spmv_accum_df on {on}: {es.count} entries "
+              f"({_nbytes(es.rows, es.cols, es.vals) / 1e6:.3f} MB) in place "
+              f"of {gd.meta.shape[0]} chunks ({_nbytes(gd.vals, gd.packed) / 1e6:.2f} MB), "
+              f"max_abs_err vs twin {err}, vs the chunk-grid twin {err_g}",
+              flush=True)
+        return max(err, err_g), x2d_e, y0
+
+    res_npr = A_r.tuned.plan.nnz / A_r.nrows
+    err_r, x2d_r, y0_r = entries_vs_grid(
+        es_r, grid_r, xe_r, A_r.nrows, res_npr, "the float64 flagship's residual")
+    err_h, _, _ = entries_vs_grid(
+        d_hp.entries, holes, x_h, hp.nrows, hp.nnz / hp.nrows,
+        "general_asym(g=50) with absent rows")
+    S_res64 = stream_csr(torch, grid_r)  # the residual's live entries
+    del grid_r  # 79 MB that the port itself never uploads
+    touched_r = int(torch.unique(es_r.rows).numel())
+    kern["bell2_spmv_accum_df"] = dict(
+        err=max(err_r, err_h), on="flagship float64 residual",
+        bytes=entry_bytes(es_r, x2d_r, touched_r), flops=2 * es_r.count,
+        library=csr_mv(S_res64, x2d_r),
+        fn=lambda: bdf.bell2_spmv_tiles_accum_df(es_r, x2d_r, y0_r.clone()),
+        plain=lambda: bk.bell2_spmv_tiles_accum_plain(es_r, x2d_r,
+                                                      y0_r.clone()),
+    )
+
+    def make_acc_df_mm(B):
+        x3 = planes(B, x2d_r.shape[0], dtype=f64)
+        y3 = planes(B, y0_r.shape[0], extra=3, dtype=f64)
+        es_abs = dataclasses.replace(es_r, vals=es_r.vals.abs())
+        return (lambda: bdf.bell2_spmm_tiles_accum_df(es_r, x3, y3.clone()),
+                lambda: bdf.bell2_spmm_tiles_accum_df(es_r, x3, y3.clone()),
+                lambda: bk.bell2_spmm_tiles_accum_plain(es_r, x3, y3.clone()),
+                lambda: bk.bell2_spmm_tiles_accum_plain(
+                    es_abs, x3.abs(), y3.abs()),
+                entry_bytes(es_r, x3, touched_r, B), csr_mv(S_res64, x3))
+
+    mm_pair("bell2_spmm_accum_df", make_acc_df_mm, res_npr,
+            "flagship float64 residual", flops=RHS * 2 * es_r.count)
+    for es_c, xr, on, npr in (
+            (es_r, x2d_r.shape[0], "the float64 flagship's residual",
+             res_npr),
+            (d_hp.entries, max(hp.x_rows, -(-hp.nrows // 128)),
+             "general_asym(g=50) with absent rows", hp.nnz / hp.nrows)):
+        worst = poisoned_entries_check(es_c, xr, on, npr)
+        for key_ in ("bell2_spmv_accum_df", "bell2_spmm_accum_df"):
+            kern[key_]["err"] = max(kern[key_]["err"], worst)
+        print(f"kernels bell2_spmv_accum_df / bell2_spmm_accum_df on {on}: "
+              f"{es_c.count} entries in {es_c.min_tiles} tiles, B = 1, "
+              f"{RHS}, 11 onto strided NaN-poisoned planes: unnamed rows "
+              f"kept bit for bit, max_abs_err vs twin {worst}", flush=True)
+
+    # the double grid kernel's walk and zero pass through its launcher's
+    # own arguments (GRID_F64_FORMS_SRC): each form against the twin, then
+    # in device time in turns, two rounds, beside what ships
+    grid_form, _ = alt_bind(
+        "grid_f64", side.pop("grid_f64"), "cfs_bell2_f64_form",
+        [p_, p_, p_, p_, i64_, i32_, i32_, i32_, i32_, i64_, p_, i64_, p_,
+         i64_, i32_, p_])
+    walk_of = ctypes.CDLL(os.path.join(_smoke_dir(), "grid_f64.so"))
+    walk_of = walk_of.cfs_bell2_f64_walk
+    walk_of.argtypes, walk_of.restype = [i64_, i32_, i32_], i32_
+
+    def run_grid_form(ds, x3, y3, cpc, tiles):
+        _cuda.launch_groups(
+            "bell2_f64_form", x3, y3, lambda *pl: grid_form(
+                ds.vals.data_ptr(), ds.packed.data_ptr(), ds.meta.data_ptr(),
+                ds.step_block.data_ptr(), ds.meta.shape[0],
+                ds.chunks_per_step, ds.tiles_per_block, int(ds.contig), cpc,
+                tiles, *pl))
+        return y3
+
+    def stream_of(ds):
+        return (ds.vals, ds.packed, ds.meta, ds.step_block)
+
+    WALKS = (8, 1, 2, 4)  # 8 before this form of the launcher, 1 ships
+    for ds, on in ((d_ga, "general_asym float64"),
+                   (d, "audikw_proxy float64")):
+        BTs = ds.tiles_per_block
+        TPs = -(-ds.num_row_tiles // BTs) * BTs
+        C = ds.meta.shape[0]
+        npr = nnz_of(ds.vals) / ds.nrows
+        for B in (1, RHS):
+            x3 = planes(B, ds.x_rows, dtype=f64)
+            kw_s = dict(ds.stream_kw(), covers=ds.covers)
+            yp = bk.bell2_spmm_tiles_plain(*stream_of(ds), x3, **kw_s)
+            ysc = bk.bell2_spmm_tiles_plain(ds.vals.abs(),
+                                            *stream_of(ds)[1:],
+                                            x3.abs(), **kw_s)
+            worst = 0.0
+            for cpc in WALKS:
+                for tiles in (0, TPs):
+                    wide = poisoned((B, TPs + 3, 128), f64)
+                    run_grid_form(ds, x3, wide[:, :TPs], cpc, tiles)
+                    torch.cuda.synchronize()
+                    what = (f"bell2_spmv_df form walk={cpc} zero="
+                            f"{'memset' if tiles else 'kernel'} B={B} on {on}")
+                    if not torch.isnan(wide[:, TPs:]).all():
+                        raise AssertionError(f"{what}: wrote past a plane")
+                    worst = max(worst, _agree(
+                        wide[:, :ds.num_row_tiles], yp, ysc, npr, what))
+            y3 = torch.empty((B, TPs, 128), dtype=f64, device=dev)
+            head = (f"bell2_spmv_df forms on {on} ({C} chunks) B={B}: "
+                    f"max_abs_err vs twin {worst} over walks {WALKS} (the "
+                    f"occupancy rule's: {walk_of(C, int(ds.contig), B)}), "
+                    f"each after either zero pass; device ms")
+            for rnd in range(2):
+                said = []
+                for cpc in WALKS:
+                    _, by = _device_ms(
+                        torch, lambda: run_grid_form(ds, x3, y3, cpc, 0))
+                    said.append(
+                        f"walk {cpc} {_ms(by.get('bell2_spmv_kernel'))} "
+                        f"(zero kernel "
+                        f"{_ms(by.get('bell2_zero_blocks_kernel'))})")
+                _, by = _device_ms(
+                    torch, lambda: run_grid_form(ds, x3, y3, 8, TPs))
+                said.append(f"walk 8 after cudaMemset2DAsync: kernel "
+                            f"{_ms(by.get('bell2_spmv_kernel'))} + memset "
+                            f"{_ms(by.get('Memset'))}")
+                _, by = _device_ms(torch, lambda: bdf.bell2_spmm_tiles_df(
+                    *stream_of(ds), x3, out=y3, **kw_s))
+                zero = by.get("Memset", by.get("bell2_zero_blocks_kernel"))
+                said.append(f"ships (walk 1, covers={ds.covers}): kernel "
+                            f"{_ms(by.get('bell2_spmv_kernel'))} + zero "
+                            f"{_ms(zero)}")
+                print(f"{head} round {rnd}: " + "; ".join(said) + f" ({card})",
+                      flush=True)
     phase_done("4 kernels against twins")
 
     # -- 5. times: kernels, then the kernel path against the plain path --
@@ -2096,6 +2356,8 @@ def main() -> int:
         time_kernel(name, k)
     for name, k in big.items():  # the paired kernels past the L2
         time_kernel(name, k)
+    for name, k in dense.items():  # the grid kernels on general_asym f64
+        time_kernel(name, k)
     # the stream read once for 8 right-hand sides against 8 reads: the
     # MM(8) kernel's device time beside 8x its SpMV form's, same plan
     for ks, mm, mv, kernel in (
@@ -2106,6 +2368,9 @@ def main() -> int:
             (kern, "bell2_spmm_accum", "bell2_spmv_accum",
              "bell2_entries_kernel"),
             (kern, "bell2_spmm_df", "bell2_spmv_df", "bell2_spmv_kernel"),
+            (dense, "bell2_spmm_df", "bell2_spmv_df", "bell2_spmv_kernel"),
+            (kern, "bell2_spmm_accum_df", "bell2_spmv_accum_df",
+             "bell2_entries_kernel"),
             (kern, "sdia_sym_df_mm", "sdia_sym_df", "sdia_sym_kernel")):
         t_mm = ks[mm]["device"].get(kernel)
         t_mv = ks[mv]["device"].get(kernel)

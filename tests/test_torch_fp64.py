@@ -40,6 +40,7 @@ from cfs_spmv_tpu.ops.bell2_kernel import meta_word
 from cfs_spmv_tpu.tuning import tune as ref_tune
 from cfs_spmv_tpu.utils import proxies as ref_proxies
 from cfs_spmv_tpu.utils.platform import Format as RefFormat
+from __graft_entry__ import _flagship
 from cfs_spmv_tpu_torch import native as port_native
 from cfs_spmv_tpu_torch.cli.test_spmv_mmf import main as run_test_cli
 from cfs_spmv_tpu_torch.formats.bell2 import build_bell2_from_arrays
@@ -122,14 +123,32 @@ MATRICES = {
     "sdia_peel_banded": (lambda: _random(5000, 5000, 14.0, symmetric=True,
                                          bandwidth=16, seed=12), "SSS", 13),
     "sdia_peel_with_residual": (_band_plus_tail, "SSS", 16),
+    # the repository's flagship at test size: 9 diagonals peeled, and an
+    # ungrouped residual of 4,164 entries, which travels as an entry list
+    "flagship": (lambda: _flagship(n=4096, deg=16, dtype=np.float64), "SSS",
+                 19),
 }
-#: the reference's two SpMM cases
+#: the reference's two SpMM cases, and the flagship's entry list
 MM_MATRICES = {
     "matmat": (lambda: _random(1500, 1500, 5.0, symmetric=False,
                                bandwidth=80, seed=8), "CSR", 9),
     "sdia_matmat": (lambda: _random(3000, 3000, 12.0, symmetric=True,
                                     bandwidth=12, seed=17), "SSS", 18),
+    "flagship": MATRICES["flagship"],
 }
+
+
+def _assert_entry_route(tuned, name):
+    """The flagship's residual travels as entries, with no chunk grid on
+    the device; every other case of these tables keeps its grid."""
+    d = tuned.operands
+    if name == "flagship":
+        assert tuned.plan.row_perm is None and tuned.plan.dia is not None
+        assert d.entries is not None and d.vals is None and d.packed is None
+        assert d.entries.count == tuned.plan.nnz == 4164
+        assert d.entries.vals.dtype == torch.float64
+    else:
+        assert d.entries is None
 
 
 def _tune_both(ref_csr, fmt):
@@ -156,6 +175,7 @@ def test_fp64_spmv_matches_oracle_and_reference(name):
     assert _rel_err(y, y_ref, scale) < DF_RTOL
     assert tuned.nnz_full == ref.nnz_full
     assert tuned.perm is None and tuned.bsr is None  # no RCM, no container
+    _assert_entry_route(tuned, name)
     plan = tuned.plan
     if name == "sdia_peel_banded":
         assert plan.dia is not None and 0 in plan.dia.offsets
@@ -177,11 +197,13 @@ def test_fp64_spmm_matches_oracle_and_reference(name, B):
     X = np.random.default_rng(seed).uniform(1.0, 2.0, (ref_csr.ncols, B))
     Y = tuned.matmat(torch.from_numpy(X))
     assert Y.dtype == torch.float64 and Y.shape == (ref_csr.nrows, B)
+    _assert_entry_route(tuned, name)
     Y = Y.numpy()
     # the reference's diagonal kernel is slow in the interpreter: its
-    # SpMM joins at B = 3, and at B = 11 on the one-sided stream only
-    Y_ref = (np.asarray(ref.matmat(X)) if B == 3 or name == "matmat"
-             else None)
+    # SpMM joins at B = 3, and at B = 11 on the one-sided stream and on
+    # the flagship (nine diagonals), whose entry list is the case's point
+    Y_ref = (np.asarray(ref.matmat(X))
+             if B == 3 or name in ("matmat", "flagship") else None)
     for b in range(B):
         scale = ref_csr.spmv_host(X[:, b], absolute=True)
         assert _rel_err(Y[:, b], ref_csr.spmv_host(X[:, b]),
@@ -468,14 +490,14 @@ def _stream_kw(plan, contig):
 
 
 def _stream_to_device(plan):
-    """The stream's arrays as the kernel wrappers take them. An ungrouped
-    plan that leaves blocks unvisited is for the wrappers only: the
-    appliers would read what the kernel never wrote, so the upload refuses
-    it, and its struct is built by hand from the rejoined values."""
+    """The stream's chunk grid as the grid kernel's wrappers take them. An
+    ungrouped sparse plan (one that leaves blocks unvisited) is uploaded
+    as its entry list, without the grid, so its grid struct is built by
+    hand from the rejoined values."""
     if not (plan.sparse_stream and plan.row_perm is None):
         return ops.fp64_to_device(plan, "cpu")
-    with pytest.raises(ValueError, match="every output block"):
-        ops.fp64_to_device(plan, "cpu")
+    up = ops.fp64_to_device(plan, "cpu")
+    assert up.entries is not None and up.vals is None and not up.covers
     vals = plan.vals.astype(np.float64) + plan.vals2.astype(np.float64)
     return ops.Fp64Device(
         nrows=plan.nrows, ncols=plan.ncols, num_row_tiles=plan.num_row_tiles,
@@ -594,6 +616,154 @@ def test_bell2_df_mm_plain_matches_reference(name, B):
         rest = np.setdiff1d(np.arange(TP), rows)
         assert torch.isnan(poison[:, rest]).all()
     assert bdf.bell2_spmm_tiles_df.launches == 0
+
+
+def _accum_plan(name):
+    """(the reference's double-float plan, its float64 upload): the
+    flagship's peel residual (covering, one output block) or ``holes``
+    (8-tile blocks, two of four never visited); both upload as entries."""
+    if name == "flagship":
+        make, fmt, _ = MATRICES["flagship"]
+        plan = ref_tune._tune_fp64_df(make(), RefFormat[fmt]).plan
+    else:
+        plan = DF_STREAMS["holes"][0]()
+    d = ops.fp64_to_device(plan, "cpu")
+    assert d.entries is not None and d.vals is None
+    assert d.entries.vals.dtype == torch.float64
+    return plan, d
+
+
+def _grid_f64(plan):
+    """The plan's chunk grid, values rejoined in float64, and the grid
+    twin's keywords (every block zeroed: the accumulated product)."""
+    vals = plan.vals.astype(np.float64) + plan.vals2.astype(np.float64)
+    grid = (torch.from_numpy(vals), *(
+        torch.from_numpy(np.ascontiguousarray(getattr(plan, k)))
+        for k in ("packed", "meta", "step_block")))
+    kw = _stream_kw(plan, plan.windows_contig or plan.window_depth > 8)
+    return grid, dict(kw, covers=True)
+
+
+def _seeded_tiles(d, B, seed):
+    """(B, T, 128) float64 tiles over the entries' rows: finite on every
+    row an entry names and on half the others, NaN on the rest; and the
+    mask of named rows."""
+    T = d.entries.min_tiles
+    named = torch.zeros(T * 128, dtype=torch.bool)
+    named[d.entries.rows.long()] = True
+    rng = np.random.default_rng(seed)
+    y0 = torch.from_numpy(rng.uniform(-1, 1, (B, T * 128)))
+    unnamed = torch.nonzero(~named).ravel()
+    y0[:, unnamed[::2]] = float("nan")
+    assert named.any() and unnamed.numel() > 1
+    return y0.view(B, T, 128), named
+
+
+def _ref_df_tiles(plan, x3d):
+    """The reference's double-float grid kernel on (B, rows, 128) planes,
+    folded in float64: (B, T, 128)."""
+    xh, xl = ref_bdf.split_df(np.ascontiguousarray(x3d))
+    common = (jnp.asarray(plan.vals), jnp.asarray(plan.vals2),
+              jnp.asarray(plan.packed), jnp.asarray(meta_word(plan.meta)),
+              jnp.asarray(plan.step_block))
+    kw = dict(num_row_tiles=plan.num_row_tiles,
+              chunks_per_step=plan.chunks_per_step,
+              tiles_per_block=plan.tiles_per_block, depth=plan.window_depth,
+              interpret=True)
+    if x3d.shape[0] == 1:
+        yh, yl = ref_bdf.bell2_spmv_tiles_df(
+            *common, jnp.asarray(xh[0]), jnp.asarray(xl[0]), **kw)
+        return np.asarray(ref_bdf.fold_df_tiles(yh, yl,
+                                                plan.num_row_tiles))[None]
+    yh, yl = ref_bdf.bell2_spmm_tiles_df(*common, jnp.asarray(xh),
+                                         jnp.asarray(xl), **kw)
+    return np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
+
+
+@pytest.mark.parametrize("mm", [False, True])
+@pytest.mark.parametrize("name", ["flagship", "holes"])
+def test_bell2_accum_df_matches_grid_and_reference(name, mm):
+    """B15/B16 on an entry list: the float64 accumulating wrappers (their
+    twins here) add the compacted stream into NaN-poisoned tiles seeded
+    finite on some rows. Rows no entry names keep their bits; named rows
+    get the grid twin's product (``bell2_spmv_tiles_plain`` on the same
+    plan's chunk grid) and the reference's double-float kernel's (folded
+    in float64), each added to the seed. The SpMM form reads X planes at a
+    plane stride past the plane, B = 3."""
+    plan, d = _accum_plan(name)
+    es = d.entries
+    B = 3 if mm else 1
+    wide = np.random.default_rng(7).uniform(1.0, 2.0,
+                                            (B, plan.x_rows + 2, 128))
+    wide[:, : plan.x_rows].reshape(B, -1)[:, plan.ncols:] = 0.0
+    x3d = torch.from_numpy(wide)[:, : plan.x_rows]
+    assert x3d.stride(0) == (plan.x_rows + 2) * 128
+    y0, named = _seeded_tiles(d, B, seed=8)
+    y = y0.clone()
+    if mm:
+        got = bdf.bell2_spmm_tiles_accum_df(es, x3d, y)
+    else:
+        got = bdf.bell2_spmv_tiles_accum_df(es, x3d[0], y[0])[None]
+    assert got.data_ptr() == y.data_ptr()  # added into in place
+    flat, before = y.reshape(B, -1), y0.reshape(B, -1)
+    assert torch.equal(flat[:, ~named].view(torch.int64),
+                       before[:, ~named].view(torch.int64))
+    grid, kw = _grid_f64(plan)
+    T = es.min_tiles
+    ref = _ref_df_tiles(plan, x3d.numpy())
+    for b in range(B):
+        xb = x3d[b].contiguous()
+        want = bk.bell2_spmv_tiles_plain(*grid, xb, **kw)[:T].reshape(-1)
+        scale = bk.bell2_spmv_tiles_plain(grid[0].abs(), *grid[1:], xb.abs(),
+                                          **kw)[:T].reshape(-1)
+        scale = (scale + before[b].abs())[named].numpy()
+        sums = flat[b][named].numpy()
+        assert np.isfinite(sums).all()
+        assert _rel_err(sums, (before[b] + want)[named].numpy(),
+                        scale) < NATIVE_RTOL
+        assert _rel_err(sums, before[b][named].numpy()
+                        + ref[b].reshape(-1)[: T * 128][named.numpy()],
+                        scale) < DF_RTOL
+        # the grid names no row past the entries' tiles
+        assert not bk.bell2_spmv_tiles_plain(*grid, xb, **kw)[T:].any()
+    assert bdf.bell2_spmv_tiles_accum_df.launches == 0
+    assert bdf.bell2_spmm_tiles_accum_df.launches == 0
+
+
+def test_fp64_upload_keeps_the_grid_where_it_must():
+    """Only an ungrouped peel residual or sparse stream becomes entries: a
+    grouped residual (``sdia_peel_with_residual``) and a covering stream
+    without a peel (``contig8``) keep the chunk grid. ``covers`` is true
+    where the grid visits every block, and the grid twin then zeroes the
+    whole output, which is the same product."""
+    make, fmt, _ = MATRICES["sdia_peel_with_residual"]
+    grouped = port_tune.build_fp64_plan(port_csr(make()))
+    assert grouped.dia is not None and grouped.row_perm is not None
+    d = ops.fp64_to_device(grouped, "cpu")
+    assert d.entries is None and d.vals is not None and d.grouped
+    contig8 = DF_STREAMS["contig8"][0]()
+    assert contig8.dia is None and not contig8.sparse_stream
+    d = ops.fp64_to_device(contig8, "cpu")
+    assert d.entries is None and d.vals is not None and d.covers
+    d_gh = ops.fp64_to_device(DF_STREAMS["grouped_holes"][0](), "cpu")
+    assert d_gh.vals is not None and not d_gh.covers  # unvisited blocks
+    holes = DF_STREAMS["holes"][0]()
+    assert not ops._visits_every_block(holes.step_block, holes.num_row_tiles,
+                                       holes.tiles_per_block)
+    assert ops.fp64_to_device(holes, "cpu").entries is not None
+    # covering: zeroing the whole buffer and zeroing the visited blocks
+    # give the same tiles from a NaN-poisoned buffer
+    x2d = torch.from_numpy(np.random.default_rng(3).uniform(
+        1.0, 2.0, (contig8.x_rows, 128)))
+    TP = -(-contig8.num_row_tiles // 8) * 8
+    outs = []
+    for covers in (False, True):
+        poison = torch.full((TP, 128), float("nan"), dtype=torch.float64)
+        outs.append(bdf.bell2_spmv_tiles_df(
+            d.vals, d.packed, d.meta, d.step_block, x2d, out=poison,
+            covers=covers, **d.stream_kw()))
+        assert torch.isfinite(poison).all()
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("name", ["sdia_peel_with_residual",

@@ -17,9 +17,10 @@
 // All kernels move little data per operation (one multiply-add per 4- or
 // 8-byte value plus its index bytes), so each is bound by device-memory
 // bytes, not arithmetic. Their designs keep loads coalesced along the 128
-// lanes and leave reuse of re-read bytes to the 50 MB L2; sbell_spmv also
-// stages the x tiles of a chunk in shared memory, for the others that is
-// later work.
+// lanes and leave reuse of re-read bytes to the 50 MB L2; sbell_spmv
+// stages the x tiles of a chunk in shared memory, sdia_sym over planes the
+// x rows of a CTA, and the float multi-RHS bell2_spmv reads an interleaved
+// X, one 32-byte sector a slot for 8 planes.
 //
 // Right-hand-side groups (SpMM, the Pallas *_mm kernels). Each stream
 // kernel is a template on kRhs, the number of right-hand sides one pass
@@ -80,51 +81,123 @@ __device__ __forceinline__ double mul_add(double a, double b, double c) {
 // vals[r, j, i, l] = A[g, g - d_j] at g = 1024 r + 128 i + l, so the value of
 // diagonal j at row g sits at vals[(g >> 10) * D * 1024 + j * 1024 + (g & 1023)].
 //
-// Gather form, no atomics: one thread per output row g sums the row side
-// v_j[g] * x[g - d_j] and the transpose side v_j[g + d_j] * x[g + d_j]. The
-// TPU kernel reads each value once and scatters its transpose product with
-// lane rolls; here each value is read twice (once by row g, once by row
-// g - d_j), and each read feeds kRhs products. Neighbouring threads read
-// neighbouring values and x entries, so both reads coalesce, and for the
-// small offsets of banded matrices the second read of a value usually hits
-// L2. Reading each value once (a shared-memory tile of 1024 + max d rows)
-// is later work.
+// What bounds it on this card. The stream moves 4 bytes (8 in double) a
+// stored value and no index, and cant-sized planes (8-17 MB) stay in the
+// 50 MB L2 across calls, so the time follows the chains of dependent loads
+// (offset, then value and x) and how many of them the card keeps in flight,
+// and over planes the count of x loads (2 D kRhs a row), not bytes. The
+// form before this one ran one thread per output row in CTAs of 256: on
+// cant_proxy() (62,464 rows, 32 diagonals) 244 CTAs, under a quarter of the
+// card's thread slots, each thread walking all D diagonals one L2 round
+// trip after another.
+//
+// What the design does about it. A CTA of kSdiaRows * kSdiaSlices threads
+// takes kSdiaRows consecutive rows h (one value block); thread (r, s) takes
+// row h = r0 + r and the diagonals j = s, s + kSdiaSlices, ... of its
+// slice, kUnroll of them a step with their loads issued together: twice
+// the threads of the form before, each with half a row's chain of loads.
+// Warps run along rows, so every value and x load coalesces. Each row sums
+// its row side v_j[h] x[h - d_j] and gathers its transpose side v_j[h +
+// d_j] x[h + d_j], reading that value a second time; the slices' sums meet
+// in shared memory and the CTA adds each output row once, no atomics.
+// Over planes, where at least half the offsets are within kSdiaHalo (cant,
+// the flagship), the CTA first stages the x rows within kSdiaHalo of its own
+// for every plane in shared memory, and those offsets read x there; offsets
+// past it (stencil27's 1,559-1,641) read x from global memory. Measured
+// beside it and slower (SDIA_SYM_ALT_SRC of chip_smoke.py, PERF.md §6): 1,
+// 4 and 8 slices; scattering the transpose products of offsets up to
+// kSdiaHalo into a shared y tile with its halo, which reads each value once
+// but adds kRhs shared atomics a value; staging x at one plane, and at 8
+// planes where most offsets are far.
 // ---------------------------------------------------------------------------
+constexpr int kSdiaRows = 128, kSdiaSlices = 2;
+constexpr int kSdiaHalo = 64;
+
 template <typename T, int kRhs>
 __global__ void sdia_sym_kernel(const T* __restrict__ vals,
                                 const int* __restrict__ offsets, int D,
                                 int64_t n_vals_rows,
                                 const T* __restrict__ x, int64_t x_len,
-                                int64_t xs, T* __restrict__ y,
-                                int64_t y_len, int64_t ys, int nr) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= y_len) return;
-  const bool own = g < n_vals_rows;
+                                int64_t xs, T* __restrict__ y, int64_t y_len,
+                                int64_t ys, int nr) {
+  constexpr int kThreads = kSdiaRows * kSdiaSlices;
+  constexpr int kUnroll = kRhs == 1 ? 4 : 2;
+  constexpr bool kMayStage = kRhs > 1;
+  constexpr int kXSpan = kMayStage ? kSdiaRows + 2 * kSdiaHalo : 1;
+  __shared__ T sums[kSdiaSlices][kRhs][kSdiaRows];
+  // x[r0 - kSdiaHalo, r0 + kSdiaRows + kSdiaHalo) of each plane
+  __shared__ T xsh[kMayStage ? kRhs : 1][kXSpan];
+  __shared__ int n_near;  // offsets within kSdiaHalo
+  const int tid = threadIdx.x;
+  const int r = tid % kSdiaRows, s = tid / kSdiaRows;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kSdiaRows;
+  const int64_t h = r0 + r;
+  const bool hv = h < n_vals_rows;
+  const T* vh = vals + (h >> 10) * D * kBlockRows + (h & (kBlockRows - 1));
+  bool stage = false;
+  if constexpr (kMayStage) {
+    if (tid == 0) n_near = 0;
+    __syncthreads();
+    for (int j = tid; j < D; j += kThreads)
+      if (offsets[j] <= kSdiaHalo) atomicAdd(&n_near, 1);
+    __syncthreads();
+    stage = 2 * n_near >= D;
+    if (stage) {
+      for (int i = tid; i < kRhs * kXSpan; i += kThreads) {
+        const int b = i / kXSpan, k = i % kXSpan;
+        const int64_t gx = r0 - kSdiaHalo + k;
+        xsh[b][k] = live<kRhs>(b, nr) && gx >= 0 && gx < x_len
+                        ? x[b * xs + gx] : T(0);
+      }
+      __syncthreads();
+    }
+  }
   T acc[kRhs];
 #pragma unroll
   for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
-  for (int j = 0; j < D; ++j) {
-    const int64_t d = offsets[j];
-    const int64_t s = g - d;
-    if (own && s >= 0 && s < x_len) {
-      const T v =
-          vals[((g >> 10) * D + j) * kBlockRows + (g & (kBlockRows - 1))];
+  for (int j0 = s; j0 < D; j0 += kSdiaSlices * kUnroll) {
 #pragma unroll
-      for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) acc[b] = mul_add(v, x[b * xs + s], acc[b]);
-    }
-    const int64_t h = g + d;
-    if (h < n_vals_rows && h < x_len) {
-      const T v =
-          vals[((h >> 10) * D + j) * kBlockRows + (h & (kBlockRows - 1))];
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kSdiaSlices;
+      if (j >= D) break;
+      const int64_t d = offsets[j];
+      const bool staged = stage && d <= kSdiaHalo;
+      const T v = hv ? vh[static_cast<int64_t>(j) * kBlockRows] : T(0);
+      if (staged) {  // xsh holds zeros outside [0, x_len)
 #pragma unroll
-      for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) acc[b] = mul_add(v, x[b * xs + h], acc[b]);
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr))
+            acc[b] = mul_add(v, xsh[b][kSdiaHalo + r - d], acc[b]);
+      } else if (hv && h - d >= 0 && h - d < x_len) {
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr))
+            acc[b] = mul_add(v, x[b * xs + h - d], acc[b]);
+      }
+      const int64_t t = h + d;
+      if (t < n_vals_rows && t < x_len) {
+        const T w =
+            vals[((t >> 10) * D + j) * kBlockRows + (t & (kBlockRows - 1))];
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr))
+            acc[b] = mul_add(
+                w, staged ? xsh[b][kSdiaHalo + r + d] : x[b * xs + t], acc[b]);
+      }
     }
   }
 #pragma unroll
-  for (int b = 0; b < kRhs; ++b)
-    if (live<kRhs>(b, nr)) y[b * ys + g] += acc[b];
+  for (int b = 0; b < kRhs; ++b) sums[s][b][r] = acc[b];
+  __syncthreads();
+  for (int i = tid; i < kRhs * kSdiaRows; i += kThreads) {
+    const int b = i / kSdiaRows, k = i % kSdiaRows;
+    const int64_t g = r0 + k;
+    if (!live<kRhs>(b, nr) || g >= y_len) continue;
+    T sum = sums[0][b][k];
+#pragma unroll
+    for (int t = 1; t < kSdiaSlices; ++t) sum += sums[t][b][k];
+    y[b * ys + g] += sum;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -191,7 +264,10 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // template argument: the TPU walks a K-chunk grid step in order on one
 // core, but a K = 128 step count (63 steps for the audikw proxy) would
 // leave most of the 132 SMs idle, so each step is split across K / kWalk
-// CTAs. The float instances walk kChunksPerCta; the double ones
+// CTAs. The float SpMV instance walks kChunksPerCta, the float multi-RHS
+// ones kFloatMmWalk over planes and kInterleavedWalk over an interleaved X
+// (of walks 1, 2, 4 and 8 the fastest over audikw_proxy() and
+// cant_proxy() NONE together at 8 planes, PERF.md §6); the double ones
 // kDoubleWalk, one chunk a CTA: a walk of 8 left 3.9 CTAs an SM on the
 // 4,096 chunks of general_asym() in float64, and one chunk a CTA beat walks
 // of 2, 4, 8 and the fewest that keep every CTA resident at once (walk_for
@@ -199,7 +275,15 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // planes (PERF.md §6). A walk given at run time made the float
 // instance 7% slower on audikw_proxy(), hence the template argument. The
 // chunk's r2 fields go through
-// shared memory (a lane needs lane q's field). Each thread keeps one
+// shared memory (a lane needs lane q's field). Over planes a slot reads x
+// as kRhs gathers from the planes, each of which may cost a 32-byte sector
+// for 4 or 8 bytes, or (kInterleaved, the float multi-RHS instances) from
+// an interleaved X that holds each element's group of 8 planes in one
+// 32-byte sector, with two 16-byte loads: x then points at the group's
+// (x_rows * 128, 8) block. At 8 planes on audikw_proxy() that took 0.0369
+// ms against 0.0646 for the gathers from the planes, and staging the
+// chunk's window rows of x in shared memory 0.0812 (NVIDIA H100 80GB HBM3,
+// 700 W, PERF.md §6). Each thread keeps one
 // register sum per plane while the target row stays the same and flushes
 // them with one atomicAdd each when the row changes and at the walk's end,
 // so a walk may start and end between any two chunks: blocks of different
@@ -211,11 +295,32 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // slot in float, 10 in double) once.
 //
 // The zero pass runs first, in a launch of its own: the zero kernel below
-// (one CTA per visited block), or, for a double stream that visits every
-// block of its output, cudaMemset2DAsync over the group's whole planes.
+// (one CTA per visited block), or, for a stream that visits every block of
+// its output (the upload's ``covers``), cudaMemset2DAsync over the group's
+// whole planes.
 // ---------------------------------------------------------------------------
 constexpr int kChunksPerCta = 8;
+constexpr int kFloatMmWalk = 1;
+constexpr int kInterleavedWalk = 2;
 constexpr int kDoubleWalk = 1;
+
+// The kRhs planes of one interleaved x element (8 floats, 32-byte
+// aligned): 16-byte loads.
+template <int kRhs>
+__device__ __forceinline__ void load_group(const float* p, float (&v)[kRhs]) {
+  static_assert(kRhs == 2 || kRhs == 4 || kRhs == 8, "a group of planes");
+  if constexpr (kRhs == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x, v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRhs / 4; ++k) {
+      const float4 a = reinterpret_cast<const float4*>(p)[k];
+      v[4 * k] = a.x, v[4 * k + 1] = a.y, v[4 * k + 2] = a.z;
+      v[4 * k + 3] = a.w;
+    }
+  }
+}
 
 // Zeroes each output block the stream visits, once, in plane blockIdx.y:
 // step_block ascends, so a block starts where the step's block differs
@@ -244,7 +349,7 @@ __device__ __forceinline__ void flush_rows(T* y, int64_t ys, int64_t at,
     if (live<kRhs>(b, nr)) atomicAdd(y + b * ys + at, acc[b]);
 }
 
-template <bool kContig, int kRhs, typename T, int kWalk>
+template <bool kContig, int kRhs, typename T, int kWalk, bool kInterleaved>
 __global__ void __launch_bounds__(kLanes)
 bell2_spmv_kernel(const T* __restrict__ vals,
                   const int16_t* __restrict__ packed,
@@ -252,6 +357,8 @@ bell2_spmv_kernel(const T* __restrict__ vals,
                   const int* __restrict__ step_block, int64_t C, int K,
                   int BT, const T* __restrict__ x, int64_t xs,
                   T* __restrict__ y, int64_t ys, int nr) {
+  static_assert(!kInterleaved || (std::is_same_v<T, float> && kRhs > 1),
+                "interleaved X: float, two planes or more");
   __shared__ int r2s[kSublanes][kLanes];
   const int lane = threadIdx.x;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kWalk;
@@ -297,7 +404,14 @@ bell2_spmv_kernel(const T* __restrict__ vals,
       const int xrow = kContig ? m[2] + r2 : m[2 + (r2 & 7)];
       const T v = vals[slot0 + i * kLanes];
       const T* xq = x + static_cast<int64_t>(xrow) * kLanes + q;
-      if (kOwnSum) {
+      if constexpr (kInterleaved) {
+        T xv[kRhs];
+        load_group<kRhs>(x + (static_cast<int64_t>(xrow) * kLanes + q) * kMaxRhs,
+                         xv);
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr)) acc[b] = mul_add(v, xv[b], acc[b]);
+      } else if (kOwnSum) {
         own = mul_add(v, xq[0], own);
       } else {
 #pragma unroll
@@ -656,13 +770,15 @@ int launch_sdia_sym(const T* vals, const int* offsets, int D,
                     int64_t n_vals_rows, int64_t x_len, int64_t y_len,
                     const T* x, int64_t xs, T* y, int64_t ys, int nr,
                     cudaStream_t stream) {
-  constexpr int kThreads = 256;
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
-    if (y_len > 0 && D > 0)
+    // rows past the value rows get nothing
+    const int64_t rows = y_len < n_vals_rows ? y_len : n_vals_rows;
+    if (rows > 0 && D > 0)
       sdia_sym_kernel<T, R>
-          <<<blocks_for(y_len, kThreads), kThreads, 0, stream>>>(
-              vals, offsets, D, n_vals_rows, x, x_len, xs, y, y_len, ys, nr);
+          <<<blocks_for(rows, kSdiaRows), kSdiaRows * kSdiaSlices, 0,
+             stream>>>(vals, offsets, D, n_vals_rows, x, x_len, xs, y, y_len,
+                       ys, nr);
   });
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
@@ -682,10 +798,13 @@ int walk_for(Kernel kernel, int64_t C, int max_walk) {
   return C <= resident ? 1 : static_cast<int>((C + resident - 1) / resident);
 }
 
-// kWalk: chunks a CTA. tiles: the rows of 128 of each output plane to zero
-// with cudaMemset2DAsync (a stream that visits every block); 0 runs the
-// zero kernel, which leaves unvisited blocks as they are.
-template <typename T, int kWalk>
+// kWalk: chunks a CTA of the one-plane instance, kWalkMm of the
+// multi-plane ones; kInterleaved: x is an interleaved group (which takes
+// the two-plane instance for one plane too). tiles: the rows of 128 of
+// each output plane to zero with cudaMemset2DAsync (a stream that visits
+// every block); 0 runs the zero kernel, which leaves unvisited blocks as
+// they are.
+template <typename T, int kWalk, int kWalkMm, bool kInterleaved>
 int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
                       const int* step_block, int64_t C, int K, int BT,
                       int contig, int64_t tiles, const T* x, int64_t xs,
@@ -693,7 +812,10 @@ int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
   if (tiles < 0) return invalid();
   cudaError_t zeroed = cudaSuccess;
   const bool ok = with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
+    constexpr int R0 = decltype(r)::value;
+    constexpr int R = R0 == 1 && kInterleaved ? 2 : R0;
+    constexpr int W = R == 1 ? kWalk : kWalkMm;
+    constexpr bool X = R > 1 && kInterleaved;
     if (C <= 0) return;
     if (tiles > 0) {
       const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(T);
@@ -705,12 +827,12 @@ int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
           <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
               step_block, BT, y, ys);
     }
-    const unsigned int grid = blocks_for(C, kWalk);
+    const unsigned int grid = blocks_for(C, W);
     if (contig)
-      bell2_spmv_kernel<true, R, T, kWalk><<<grid, kLanes, 0, stream>>>(
+      bell2_spmv_kernel<true, R, T, W, X><<<grid, kLanes, 0, stream>>>(
           vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
     else
-      bell2_spmv_kernel<false, R, T, kWalk><<<grid, kLanes, 0, stream>>>(
+      bell2_spmv_kernel<false, R, T, W, X><<<grid, kLanes, 0, stream>>>(
           vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
   });
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
@@ -818,26 +940,38 @@ int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
-// The float stream walks kChunksPerCta chunks a CTA after the zero kernel.
+// tiles > 0 (the rows of 128 of each output plane): the stream visits
+// every block, and the whole planes are zeroed by cudaMemset2DAsync; 0:
+// the zero kernel, visited blocks only. The float stream walks
+// kChunksPerCta chunks a CTA for one plane and kFloatMmWalk for more; the
+// double one walks kDoubleWalk. x: planes at plane stride xs.
 int cfs_bell2_spmv(const float* vals, const int16_t* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT,
-                   int contig, const float* x, int64_t xs, float* y,
-                   int64_t ys, int nr, cudaStream_t stream) {
-  return launch_bell2_spmv<float, kChunksPerCta>(
-      vals, packed, meta, step_block, C, K, BT, contig, 0, x, xs, y, ys, nr,
-      stream);
+                   int contig, int64_t tiles, const float* x, int64_t xs,
+                   float* y, int64_t ys, int nr, cudaStream_t stream) {
+  return launch_bell2_spmv<float, kChunksPerCta, kFloatMmWalk, false>(
+      vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y, ys,
+      nr, stream);
 }
 
-// The double stream walks kDoubleWalk chunks a CTA. tiles > 0 (the rows of
-// 128 of each output plane): the stream visits every block, and the whole
-// planes are zeroed by cudaMemset2DAsync; 0: the zero kernel, visited
-// blocks only.
+// The same over an interleaved X: x is the group's (x_rows * 128, 8) block
+// of nr planes (xs is not read).
+int cfs_bell2_spmm_il(const float* vals, const int16_t* packed,
+                      const int* meta, const int* step_block, int64_t C,
+                      int K, int BT, int contig, int64_t tiles,
+                      const float* x, int64_t xs, float* y, int64_t ys,
+                      int nr, cudaStream_t stream) {
+  return launch_bell2_spmv<float, kChunksPerCta, kInterleavedWalk, true>(
+      vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y, ys,
+      nr, stream);
+}
+
 int cfs_bell2_spmv_f64(const double* vals, const int16_t* packed,
                        const int* meta, const int* step_block, int64_t C,
                        int K, int BT, int contig, int64_t tiles,
                        const double* x, int64_t xs, double* y, int64_t ys,
                        int nr, cudaStream_t stream) {
-  return launch_bell2_spmv<double, kDoubleWalk>(
+  return launch_bell2_spmv<double, kDoubleWalk, kDoubleWalk, false>(
       vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y, ys,
       nr, stream);
 }

@@ -24,9 +24,9 @@ on float64 values, x and y: sums in double registers, flushed with
 ``atomicAdd(double*)``, so there are no pairs and nothing to fold. The
 grid kernel reads the plan's int16 ``packed`` and (C, 10) ``meta`` as they
 are, listed windows included, so no plan is turned away as not
-word-eligible; it walks one chunk a CTA (eight for the float instance),
-and zeroes the whole planes in one ``cudaMemset2DAsync`` when told that
-the stream visits every block (``covers``). The plain twins are B2's and
+word-eligible; it walks one chunk a CTA, and zeroes the whole planes in
+one ``cudaMemset2DAsync`` when told that the stream visits every block
+(``covers``), as the float instances do. The plain twins are B2's and
 B4's (``bell2_kernel.bell2_spmv_tiles_plain``,
 ``bell2_spmv_tiles_accum_plain``), which compute in the operands' type.
 

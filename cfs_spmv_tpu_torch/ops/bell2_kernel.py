@@ -156,8 +156,8 @@ def bell2_spmv_tiles_plain(vals, packed, meta, step_block, x2d, *,
                            contig, out=None, covers=False):
     """Plain PyTorch twin of :func:`bell2_spmv_tiles` (any device):
     vectorised gather over all chunks, sum over sublanes, ``index_add_``.
-    ``covers``: the whole output is zeroed, as the float64 kernel does for
-    a stream that visits every block (``bell2_df.bell2_spmv_tiles_df``)."""
+    ``covers``: the whole output is zeroed, as the kernels do for a stream
+    that visits every block."""
     K, BT = chunks_per_step, tiles_per_block
     TP = _tiles_padded(num_row_tiles, BT)
     if out is None:
@@ -256,25 +256,26 @@ def bell2_spmv_tiles_accum_plain(entries, x2d, y_tiles):
 
 
 def _launch_bell2(vals, packed, meta, step_block, x3d, y3d, K, BT, contig,
-                  name, covers=False):
+                  name, covers=False, interleaved=False):
     """Launch the one-sided stream kernel (after its zero pass) over plane
-    stacks; returns the number of launches (one per group of planes). The
-    double launcher also takes the planes' tile count, which zeroes them
-    whole when the stream ``covers`` every block (0: visited blocks)."""
-    fn = _cuda.entry("bell2_spmv", vals.dtype)
-    tiles = ((y3d.shape[1] if covers else 0,)
-             if vals.dtype == torch.float64 else ())
+    stacks, or over an interleaved X; returns the number of launches (one
+    per group of planes). The launcher takes the planes' tile count, which
+    zeroes them whole when the stream ``covers`` every block (0: the zero
+    kernel, visited blocks)."""
+    fn = (_cuda.lib().cfs_bell2_spmm_il if interleaved
+          else _cuda.entry("bell2_spmv", vals.dtype))
+    tiles = y3d.shape[1] if covers else 0
     return _cuda.launch_groups(
         name, x3d, y3d, lambda *planes: fn(
             vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
             step_block.data_ptr(), meta.shape[0], K, BT, int(contig),
-            *tiles, *planes,
-        ))
+            tiles, *planes,
+        ), interleaved)
 
 
 def bell2_spmv_tiles(vals, packed, meta, step_block, x2d, *,
                      num_row_tiles, chunks_per_step, tiles_per_block,
-                     contig, out=None):
+                     contig, out=None, covers=False):
     """y tiles (T, 128) = A @ x for one BELL2 stream.
 
     ``vals``/``packed``: (C*8, 128) float32/int16; ``meta``: (C, 10)
@@ -283,21 +284,23 @@ def bell2_spmv_tiles(vals, packed, meta, step_block, x2d, *,
     over listed ones. The output is a (ceil(T/BT)*BT, 128) buffer
     (``out``, or ``torch.empty``) of which the blocks the stream visits
     are zeroed and accumulated; unvisited blocks keep whatever the buffer
-    held. Returns its first T rows.
+    held. ``covers=True`` says the stream visits every block (the upload's
+    ``Bell2Device.covers``): the whole buffer is zeroed in one pass, which
+    is the same result. Returns its first T rows.
 
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     or raises.
     """
     return _spmv_tiles(bell2_spmv_tiles, torch.float32, vals, packed, meta,
                        step_block, x2d, num_row_tiles, chunks_per_step,
-                       tiles_per_block, contig, out)
+                       tiles_per_block, contig, out, covers)
 
 
 def _spmv_tiles(wrapper, dtype, vals, packed, meta, step_block, x2d,
                 num_row_tiles, K, BT, contig, out, covers=False):
     """The body of :func:`bell2_spmv_tiles` for a stream of ``dtype``
     values; a kernel launch counts on ``wrapper`` (the float64 form is
-    ``bell2_df.bell2_spmv_tiles_df``, which alone passes ``covers``)."""
+    ``bell2_df.bell2_spmv_tiles_df``)."""
     dev = _device_of(vals, packed, meta, step_block, x2d)
     _check_stream(vals, packed, meta, step_block, K, dtype=dtype)
     _check_x2d(x2d, dtype)
@@ -562,11 +565,22 @@ def _launch_sbell(vals, packed, meta, step_block, x3d, y3d, K, BT, TW, name):
         ))
 
 
+def planes_of_interleaved(x_il, planes):
+    """The (B, x_rows, 128) planes of an interleaved X ``x_il`` (G,
+    x_rows * 128, 8) that holds ``planes`` = B of them
+    (``ops/spmv.pad_x_mm_il``)."""
+    G, n, W = x_il.shape
+    return x_il.permute(0, 2, 1).reshape(G * W, n)[:planes].reshape(
+        planes, n // LANES, LANES)
+
+
 def bell2_spmm_tiles_plain(vals, packed, meta, step_block, x3d, *,
                            num_row_tiles, chunks_per_step, tiles_per_block,
-                           contig, out=None, covers=False):
+                           contig, out=None, covers=False, planes=None):
     """Plain PyTorch twin of :func:`bell2_spmm_tiles`: B2's twin once per
-    plane."""
+    plane (of the interleaved X's planes, given ``planes``)."""
+    if planes is not None:
+        x3d = planes_of_interleaved(x3d, planes)
     if out is None:
         out = x3d.new_empty((x3d.shape[0],
                              _tiles_padded(num_row_tiles, tiles_per_block),
@@ -582,16 +596,21 @@ def bell2_spmm_tiles_plain(vals, packed, meta, step_block, x3d, *,
 
 def bell2_spmm_tiles(vals, packed, meta, step_block, x3d, *,
                      num_row_tiles, chunks_per_step, tiles_per_block,
-                     contig, out=None):
+                     contig, out=None, covers=False, planes=None):
     """Y tiles (B, T, 128) = A @ X for one BELL2 stream and B right-hand
     sides.
 
     ``x3d``: (B, x_rows, 128) float32 planes, each contiguous (any plane
-    stride). The output is a contiguous (B, ceil(T/BT)*BT, 128) buffer
+    stride); or, given ``planes`` = B, an interleaved X (ceil(B/8), x_rows
+    * 128, 8) from ``ops/spmv.pad_x_mm_il``, which the kernel reads a
+    group's 8 planes of an element at a time, one 32-byte sector. The
+    output is a contiguous (B, ceil(T/BT)*BT, 128) buffer
     (``out``, or ``torch.empty``) of which, in every plane, the blocks
     the stream visits are zeroed and accumulated; unvisited blocks keep
-    whatever the buffer held. Returns its first T rows of each plane.
-    Other operands as :func:`bell2_spmv_tiles`.
+    whatever the buffer held (with ``covers=True``, as
+    :func:`bell2_spmv_tiles`, the whole planes are zeroed). Returns its
+    first T rows of each plane. Other operands as
+    :func:`bell2_spmv_tiles`.
 
     A CPU tensor takes the plain twin; on a CUDA tensor the kernel
     launches once per group of up to ``_cuda.RHS_GROUP`` planes, reading
@@ -599,17 +618,33 @@ def bell2_spmm_tiles(vals, packed, meta, step_block, x3d, *,
     """
     return _spmm_tiles(bell2_spmm_tiles, torch.float32, vals, packed, meta,
                        step_block, x3d, num_row_tiles, chunks_per_step,
-                       tiles_per_block, contig, out)
+                       tiles_per_block, contig, out, covers, planes)
+
+
+def _check_interleaved(x_il, dev, planes):
+    """An interleaved X of ``planes`` float32 planes on ``dev``."""
+    G = -(-planes // _cuda.RHS_GROUP) if planes >= 1 else 0
+    if (x_il.ndim != 3 or x_il.shape[0] != G
+            or x_il.shape[2] != _cuda.RHS_GROUP or x_il.shape[1] % LANES):
+        raise ValueError(f"an interleaved X of {planes} planes must be "
+                         f"({G}, x_rows * 128, {_cuda.RHS_GROUP}), got "
+                         f"{tuple(x_il.shape)}")
+    _cuda.check_dtype(x_il, "x3d", torch.float32)
+    if x_il.device != dev or not x_il.is_contiguous():
+        raise ValueError(f"an interleaved X must be contiguous on {dev}")
+    return planes
 
 
 def _spmm_tiles(wrapper, dtype, vals, packed, meta, step_block, x3d,
-                num_row_tiles, K, BT, contig, out, covers=False):
+                num_row_tiles, K, BT, contig, out, covers=False,
+                planes=None):
     """The body of :func:`bell2_spmm_tiles` for a stream of ``dtype``
     values; kernel launches count on ``wrapper`` (the float64 form is
-    ``bell2_df.bell2_spmm_tiles_df``, which alone passes ``covers``)."""
+    ``bell2_df.bell2_spmm_tiles_df``, which takes planes only)."""
     dev = _device_of(vals, packed, meta, step_block)
     _check_stream(vals, packed, meta, step_block, K, dtype=dtype)
-    B = _cuda.check_planes(x3d, "x3d", dev, dtype)
+    B = (_cuda.check_planes(x3d, "x3d", dev, dtype) if planes is None
+         else _check_interleaved(x3d, dev, planes))
     out = _out_buffer(out, (B, _tiles_padded(num_row_tiles, BT), LANES),
                       dev, dtype)
     if dev.type == "cpu":
@@ -617,10 +652,11 @@ def _spmm_tiles(wrapper, dtype, vals, packed, meta, step_block, x3d,
             vals, packed, meta, step_block, x3d,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
             tiles_per_block=BT, contig=contig, out=out, covers=covers,
+            planes=planes,
         )
     wrapper.launches += _launch_bell2(
         vals, packed, meta, step_block, x3d, out, K, BT, contig,
-        wrapper.__name__, covers)
+        wrapper.__name__, covers, planes is not None)
     return out[:, :num_row_tiles]
 
 

@@ -21,8 +21,12 @@ stream's type.
 Diagonals dense enough to store contiguously need no index data at all:
 per stored nonzero the stream moves 4 bytes (8 in float64). Layout:
 ``vals[r, j, i, l]`` holds A[g, g - d_j] for flat row g = 1024 r + 128 i
-+ l (zero where absent). Both CUDA kernels (``csrc/spmv_kernels.cu``)
-compute the gather form: one thread per output row, no atomics.
++ l (zero where absent). The signed kernel (``csrc/spmv_kernels.cu``)
+runs one thread per output row, no atomics. The symmetric one splits
+each row's diagonals between two threads of a CTA, which gathers both
+sides of its rows, and over planes first stages the x rows near its own
+in shared memory where most offsets are small; no atomics either. What
+it sums is the twin's terms in another order.
 """
 
 from __future__ import annotations

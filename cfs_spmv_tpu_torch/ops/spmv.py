@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..formats.bell2 import LANES, SUBLANES
+from . import _cuda
 from . import bell2_df as bdf
 from . import bell2_kernel as bk
 from . import sdia_df as sdf
@@ -38,6 +39,7 @@ __all__ = [
     "fp64_to_device",
     "pad_x",
     "pad_x_mm",
+    "pad_x_mm_il",
     "bell2_apply",
     "bell2_apply_mm",
     "sbell_apply",
@@ -97,6 +99,9 @@ class Bell2Device:
     #: the live entries of an ungrouped sparse stream with work, compacted
     #: from the chunk grid at upload (``bell2_kernel.compact_stream``)
     entries: bk.EntryStream | None = None
+    #: the chunk grid visits every block of its output: the kernel zeroes
+    #: the whole output in one pass
+    covers: bool = False
 
     @property
     def grouped(self) -> bool:
@@ -267,7 +272,8 @@ def to_device(plan, device) -> Bell2Device:
     stream if it has one, to ``device``. An ungrouped sparse stream (an
     accumulating residual, nearly all padding in the chunk grid) is
     uploaded as its live entries only; grouped and covering streams as
-    their chunk grid."""
+    their chunk grid, with ``covers`` recording whether it visits every
+    output block (then the kernel zeroes whole planes)."""
     device = as_device(device)
     if plan.row_perm is not None and plan.unperm_pk is None:
         raise NotImplementedError(
@@ -287,7 +293,7 @@ def to_device(plan, device) -> Bell2Device:
     t = lambda a: None if a is None else _tensor(a, device)  # noqa: E731
     grid = {k: getattr(plan, k)
             for k in ("vals", "packed", "meta", "step_block")}
-    entries = None
+    entries, covers = None, False
     if plan.sparse_stream and plan.row_perm is None and plan.nnz > 0:
         entries = bk.compact_stream(
             **grid, chunks_per_step=plan.chunks_per_step,
@@ -295,9 +301,13 @@ def to_device(plan, device) -> Bell2Device:
             num_row_tiles=plan.num_row_tiles, x_rows=plan.x_rows,
         ).to(device)
         grid = dict.fromkeys(grid)
+    elif plan.nnz > 0:
+        covers = _visits_every_block(plan.step_block, plan.num_row_tiles,
+                                     plan.tiles_per_block)
     return Bell2Device(
         **{k: t(a) for k, a in grid.items()},
         entries=entries,
+        covers=covers,
         num_row_tiles=plan.num_row_tiles,
         x_rows=plan.x_rows,
         nrows=plan.nrows,
@@ -425,6 +435,20 @@ def pad_x_mm(x: torch.Tensor, x_rows: int) -> torch.Tensor:
     return x3d
 
 
+def pad_x_mm_il(x: torch.Tensor, x_rows: int) -> torch.Tensor:
+    """(m, B) → contiguous (ceil(B/8), x_rows * 128, 8) zero-padded
+    interleaved X: group g holds planes 8g .. 8g + 7 with an element's 8
+    planes side by side (32 bytes in float32), which the float multi-RHS
+    stream kernel reads in one sector (``bell2_kernel.bell2_spmm_tiles``
+    with ``planes=B``). One padded copy, as :func:`pad_x_mm`."""
+    m, B = x.shape
+    G = -(-B // _cuda.RHS_GROUP)
+    x_il = x.new_zeros((x_rows * LANES, G * _cuda.RHS_GROUP))
+    x_il[:m, :B] = x
+    return x_il.view(x_rows * LANES, G, _cuda.RHS_GROUP).permute(
+        1, 0, 2).contiguous()
+
+
 def _unperm_tiles(dev: Bell2Device, tiles, unperm=bk.unperm_gather_tiles):
     """Original-row-order tiles (>= ceil(nrows/128) rows of 128) from a
     grouped stream's compact output tiles; absent rows read exact 0."""
@@ -510,7 +534,7 @@ def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
         tiles = f["bell2_acc"](dev.entries, x2d, x2d.new_zeros((NT, LANES)))
     else:
         tiles = f["bell2"](dev.vals, dev.packed, dev.meta, dev.step_block,
-                           x2d, **dev.stream_kw())
+                           x2d, covers=dev.covers, **dev.stream_kw())
     if dev.grouped:
         ot = _unperm_tiles(dev, tiles, f["unperm"])
         if dev.dia_vals is None:
@@ -524,21 +548,26 @@ def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
 def bell2_apply_mm(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     """Y = A X for X (ncols, B): :func:`bell2_apply` branch for branch,
     as the reference's ``bell2_apply_mm``, over (B, rows, 128) planes —
-    X padded in one pad of Xᵀ, the multi-RHS stream, unpermute and SDIA
-    kernels in place of the single-vector ones. Returns (nrows, B), a
-    transposed view of the output planes."""
+    X padded in one pad of Xᵀ (interleaved, :func:`pad_x_mm_il`, where
+    the full stream is its only reader), the multi-RHS stream, unpermute
+    and SDIA kernels in place of the single-vector ones. Returns (nrows,
+    B), a transposed view of the output planes."""
     B = _check_matrix(x)
     f = _kernels(plain)
-    x3d = pad_x_mm(x, dev.x_rows)
     NT = dev.num_row_tiles
+    full = dev.has_work and not (dev.sparse_stream and not dev.grouped)
+    # the full stream alone reads X: X interleaved, as it reads it fastest
+    il = full and dev.dia_vals is None
+    x3d = pad_x_mm_il(x, dev.x_rows) if il else pad_x_mm(x, dev.x_rows)
     if not dev.has_work:
-        tiles = x3d.new_zeros((B, NT, LANES))
-    elif dev.sparse_stream and not dev.grouped:
+        tiles = x.new_zeros((B, NT, LANES))
+    elif not full:
         tiles = f["bell2_acc_mm"](dev.entries, x3d,
                                   x3d.new_zeros((B, NT, LANES)))
     else:
         tiles = f["bell2_mm"](dev.vals, dev.packed, dev.meta, dev.step_block,
-                              x3d, **dev.stream_kw())
+                              x3d, covers=dev.covers,
+                              planes=B if il else None, **dev.stream_kw())
     if dev.grouped:
         ot = _unperm_tiles_mm(dev, tiles, f["unperm_mm"])
         if dev.dia_vals is None:
@@ -579,7 +608,7 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
             # degree-grouped far stream: dense over its compact tiles;
             # unpermute, then add into the tiles so far
             ftiles = f["bell2"](fd.vals, fd.packed, fd.meta, fd.step_block,
-                                x2d, **fd.stream_kw())
+                                x2d, covers=fd.covers, **fd.stream_kw())
             ot = _unperm_tiles(fd, ftiles, f["unperm"])
             if ot.shape[0] < NT:
                 ot = torch.nn.functional.pad(ot, (0, 0, 0, NT - ot.shape[0]))
@@ -597,7 +626,9 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
 def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     """Symmetric Y = (D + L + Lᵀ) X for X (nrows, B): :func:`sbell_apply`
     branch for branch, as the reference's ``sbell_apply_mm``, over (B,
-    rows, 128) planes — the ``diag[:, None] * X`` seed or the final add,
+    rows, 128) planes (X interleaved, :func:`pad_x_mm_il`, where the
+    grouped far stream is its only reader) — the ``diag[:, None] * X``
+    seed or the final add,
     the grouped far stream padded along the tile axis, the sparse far
     residual's entries accumulated straight into the tiles,
     ``sdia_gen_tiles_mm`` when the diagonals are mirrored, else
@@ -605,7 +636,12 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     a paired stream, a fresh sum)."""
     B = _check_matrix(x)
     f = _kernels(plain)
-    x3d = pad_x_mm(x, dev.x_rows)
+    fd = dev.far
+    # the grouped far stream alone reads X: X interleaved, as it reads it
+    # fastest
+    il = (fd is not None and fd.grouped and not dev.has_paired
+          and dev.dia_vals is None)
+    x3d = pad_x_mm_il(x, dev.x_rows) if il else pad_x_mm(x, dev.x_rows)
     NT = dev.num_row_tiles
     if dev.has_paired:
         tiles = f["sbell_mm"](
@@ -616,11 +652,12 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
         )
     else:
         tiles = pad_x_mm(dev.diag[:, None] * x, NT)
-    fd = dev.far
     if fd is not None:
         if fd.grouped:
             ftiles = f["bell2_mm"](fd.vals, fd.packed, fd.meta,
-                                   fd.step_block, x3d, **fd.stream_kw())
+                                   fd.step_block, x3d, covers=fd.covers,
+                                   planes=B if il else None,
+                                   **fd.stream_kw())
             ot = _unperm_tiles_mm(fd, ftiles, f["unperm_mm"])
             if ot.shape[1] < NT:
                 ot = torch.nn.functional.pad(ot, (0, 0, 0, NT - ot.shape[1]))

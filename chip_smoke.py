@@ -10,7 +10,7 @@ Phases (each prints its wall time):
 1. card name and power limit (``nvidia-smi``), PyTorch and CUDA versions;
 2. build the CUDA kernels from ``cfs_spmv_tpu_torch/csrc/spmv_kernels.cu``,
    and beside that build (one ``nvcc`` per source, all started together)
-   ptxas' report and the three comparison sources of phase 4;
+   ptxas' report and the four comparison sources of phase 4;
 2b. ptxas' report (``nvcc -Xptxas -v``) of registers and spills for every
    kernel instance; any spill fails the run;
 3. the main paths, once each, through the user entry points —
@@ -18,8 +18,9 @@ Phases (each prints its wall time):
    ``SpDMV(A, tuning, dtype=np.float32)(x)`` and
    ``SpDMM(A, tuning, dtype=np.float32)(X)`` with X of B = 8 columns
    (SpMM, ROADMAP A7), on the default device, which is the card — on
-   eleven full-size runs (``RUNS``): the tuned symmetric path on
-   ``cant_proxy()``, ``audikw_proxy()`` and the 65,536-row flagship; the
+   twelve full-size runs (``RUNS``): the tuned symmetric path on
+   ``cant_proxy()``, ``audikw_proxy()``, the 65,536-row flagship and
+   ``stencil27()`` (64,000 rows, offsets past a value block); the
    general path on ``general_asym()`` and on the flagship as a general
    matrix; the untuned oracle path (``Tuning.NONE``) on
    ``cant_proxy()``; the paired stream on ``near_band_paired()`` with
@@ -34,8 +35,9 @@ Phases (each prints its wall time):
    exactly the kernels its plan predicts (and ``EXPECTED`` lists), each
    SpMM apply exactly their multi-RHS forms (``EXPECTED_MM``) and no
    SpMV kernel. Then the float64 route (ROADMAP A8) the same way, with
-   ``dtype=np.float64``, on four full-size runs (``cant_proxy()``: the
-   symmetric diagonal stream with the halved main diagonal only;
+   ``dtype=np.float64``, on five full-size runs (``cant_proxy()`` and
+   ``stencil27()``: the symmetric diagonal stream with the halved main
+   diagonal only;
    ``audikw_proxy()``: the expanded one-sided stream; the flagship:
    both, the peel residual as a double entry list; ``general_asym()``:
    one-sided), each checked against the float64
@@ -54,16 +56,23 @@ Phases (each prints its wall time):
    planes at a plane stride past the plane, which must come back all zero
    where the plan covers them and untouched past them; a paired plan that
    leaves an output block unvisited must be refused at upload;
-   ``sdia_gen`` also on a ragged ``general_asym(g=50)`` plan); each
+   ``sdia_gen`` also on a ragged ``general_asym(g=50)`` plan; ``sdia_sym``
+   on ``stencil27()`` and ``cant_proxy()``, onto a nonzero y); each
    multi-RHS kernel at B = 8 and at B = 11 (two plane groups), into
-   NaN-poisoned outputs where the kernel zeroes its own, ``sbell_spmm``
+   NaN-poisoned outputs where the kernel zeroes its own (``bell2_spmm`` on
+   an 8-tile-block replan with an absent row range, whose unvisited
+   blocks must keep their NaN, on ``cant_proxy()``'s untuned stream and
+   on ``audikw_proxy()``'s far stream, the two that visit every block
+   zeroed whole), ``sdia_sym_mm`` onto nonzero Y planes at a plane stride
+   past the plane, which nothing may write past, ``sbell_spmm``
    also with the other transpose-window count and on the 8-tile-block
    replan (both also at B = 2, the two-plane instance) and on the
    400,000-row plan, from x planes at a plane stride past the plane,
    ``unperm_gather_mm`` bit-identical;
    the float64 kernels at B = 1, 8 and 11 (scaled error against the
-   float64 twin below ``F64_TWIN_TOL``), the diagonal ones onto strided Y
-   planes, the grid ones on ``general_asym()`` and ``audikw_proxy()`` in
+   float64 twin below ``F64_TWIN_TOL``), the diagonal ones on
+   ``stencil27()`` and ``cant_proxy()`` onto strided Y planes, the grid
+   ones on ``general_asym()`` and ``audikw_proxy()`` in
    float64 and on an 8-tile-block replan with an absent row range into
    NaN-poisoned outputs; the double entry kernel
    (``bell2_spmv_accum_df``, ``bell2_spmm_accum_df``) on the float64
@@ -72,9 +81,19 @@ Phases (each prints its wall time):
    on the named rows, against the chunk-grid twin; the double grid
    kernel's walk (1, 2, 4, 8 chunks a CTA) and zero pass (the zero kernel
    against ``cudaMemset2DAsync``) through its launcher's own arguments
-   (``GRID_F64_FORMS_SRC``, built for this comparison only) on
+   (``GRID_FORMS_SRC``, built for this comparison only) on
    ``general_asym()`` and ``audikw_proxy()`` in float64 at B = 1 and 8,
-   each against the twin and in device time; the accumulating kernels
+   each against the twin and in device time; the float grid kernel's
+   multi-plane forms the same way (walks of 8, 1, 2 and 4, x gathered
+   from the planes, each chunk's x windows staged in shared memory, or x
+   read interleaved, ``GRID_FORMS_SRC``) on the three plans of
+   ``bell2_spmm`` at B = 8 and 11, timed at B = 8 on
+   ``audikw_proxy()`` and ``cant_proxy()`` NONE, and ``bell2_spmv``'s two
+   zero passes in turns; the symmetric diagonal kernel as it stood before
+   its redesign and each step of the redesign (``SDIA_SYM_ALT_SRC``, built
+   for this comparison only) on ``cant_proxy()`` and ``stencil27()`` in
+   float32 and float64 at B = 1 and 11 onto strided planes against the
+   twin, then in device time at B = 1 and 8; the accumulating kernels
    (``bell2_spmv_accum``, ``bell2_spmm_accum``) on the flagship's entry
    list and on a hand-built one with an absent row range and rows of 70
    and 200 entries, at B = 1, 8 and 11 onto Y planes at a plane stride
@@ -144,6 +163,9 @@ EXPECTED = {
     # the default gate's choice for the same matrix: grouped one-sided
     "near_band_paired_auto": {"bell2_spmv", "unperm_gather"},
     "cant_proxy_mirrored": {"sdia_gen"},  # mirrored diagonals
+    # 13 lower diagonals, the largest offsets (1,559-1,641) past a value
+    # block of 1,024 rows
+    "stencil27": {"sdia_sym"},
     # the paired stream past the L2 (400,000 rows, several output blocks),
     # and the default gate's choice there: one accumulating entry list
     "near_band_paired_400k": {"sbell_spmv", "bell2_spmv_accum"},
@@ -154,6 +176,8 @@ EXPECTED = {
     # peel + its residual as a double entry list
     "flagship_f64": {"sdia_sym_df", "bell2_spmv_accum_df"},
     "general_asym_f64": {"bell2_spmv_df"},  # asymmetric: all one-sided
+    # 14 diagonals incl. the halved main one, nothing left for the stream
+    "stencil27_f64": {"sdia_sym_df"},
 }
 #: the multi-RHS form of each kernel: an SpMM apply runs the same
 #: branches as the SpMV apply of its plan, through these
@@ -639,9 +663,9 @@ extern "C" int cfs_sbell_alt(const float* vals, const int* packed,
 """
 
 
-#: the double grid kernel under its launcher's own arguments, for the
-#: comparison in phase 4 only: the port's kernel source included whole
-#: (``{src}``), and two entry points more. ``cfs_bell2_f64_form`` launches
+#: the grid kernel under its launcher's own arguments, for the comparisons
+#: in phase 4 only: the port's kernel source included whole (``{src}``),
+#: and three entry points more. ``cfs_bell2_f64_form`` launches
 #: ``bell2_spmv_kernel<contig, R, double, cpc>`` (a walk of ``cpc`` = 1, 2,
 #: 4 or 8 chunks a CTA) after the zero pass ``tiles`` names (> 0:
 #: ``cudaMemset2DAsync`` over whole planes of that many rows of 128; 0: the
@@ -649,7 +673,14 @@ extern "C" int cfs_sbell_alt(const float* vals, const int* packed,
 #: the memset; before, it was a walk of 8 after the zero kernel.
 #: ``cfs_bell2_f64_walk`` gives the walk of the occupancy rule the paired
 #: kernel uses (the fewest chunks that keep every CTA resident, at most 8).
-GRID_F64_FORMS_SRC = r"""
+#: ``cfs_bell2_f32_form`` does the same for the float multi-plane
+#: instances (B7; one plane takes the SpMV instance, a walk of 8 as it
+#: ships), reading x as ``xform`` says: 0 gathers from the planes (before
+#: their redesign, at a walk of 8 after the zero kernel), 1 stages each
+#: chunk's 8 window rows of x in shared memory for every plane first, 2
+#: reads an interleaved X (a group's 8 planes of an element in one 32-byte
+#: sector; x is the group's block, ``ops/spmv.pad_x_mm_il``).
+GRID_FORMS_SRC = r"""
 #include "{src}"
 extern "C" int cfs_bell2_f64_form(const double* vals, const int16_t* packed,
                                   const int* meta, const int* step_block,
@@ -658,11 +689,11 @@ extern "C" int cfs_bell2_f64_form(const double* vals, const int16_t* packed,
                                   int64_t xs, double* y, int64_t ys, int nr,
                                   cudaStream_t stream) {
   switch (cpc) {
-#define FORM(W)                                                            \
-  case W:                                                                  \
-    return launch_bell2_spmv<double, W>(vals, packed, meta, step_block, C, \
-                                        K, BT, contig, tiles, x, xs, y, ys, \
-                                        nr, stream);
+#define FORM(W)                                                              \
+  case W:                                                                    \
+    return launch_bell2_spmv<double, W, W, false>(                           \
+        vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y,   \
+        ys, nr, stream);
     FORM(1) FORM(2) FORM(4) FORM(8)
 #undef FORM
     default:
@@ -673,11 +704,384 @@ extern "C" int cfs_bell2_f64_walk(int64_t C, int contig, int nr) {
   int walk = 0;
   with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
-    walk = contig ? walk_for(bell2_spmv_kernel<true, R, double, 1>, C, 8)
-                  : walk_for(bell2_spmv_kernel<false, R, double, 1>, C, 8);
+    walk = contig
+               ? walk_for(bell2_spmv_kernel<true, R, double, 1, false>, C, 8)
+               : walk_for(bell2_spmv_kernel<false, R, double, 1, false>, C, 8);
   });
   return walk;
 }
+namespace {
+// xform 1: the chunk's 8 window rows of x staged in shared memory for
+// every live plane before the chunk's barrier (a deep window's rows past
+// the 8th still gathered); otherwise the multi-plane body of
+// bell2_spmv_kernel
+template <bool kContig, int kRhs, int kWalk>
+__global__ void __launch_bounds__(kLanes)
+bell2_staged_kernel(const float* __restrict__ vals,
+                    const int16_t* __restrict__ packed,
+                    const int* __restrict__ meta,
+                    const int* __restrict__ step_block, int64_t C, int K,
+                    int BT, const float* __restrict__ x, int64_t xs,
+                    float* __restrict__ y, int64_t ys, int nr) {
+  __shared__ int r2s[kSublanes][kLanes];
+  __shared__ float xw[kRhs][kSublanes][kLanes];
+  const int lane = threadIdx.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kWalk;
+  const int64_t c1 = c0 + kWalk < C ? c0 + kWalk : C;
+  int64_t row = -1;
+  float acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+  for (int64_t c = c0; c < c1; ++c) {
+    const int* m = meta + c * kMetaW;
+    const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
+    const int64_t slot0 = c * kSublanes * kLanes + lane;
+    int pk[kSublanes];
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      pk[i] = packed[slot0 + i * kLanes];
+      r2s[i][lane] = (pk[i] >> 7) & 0x1F;
+    }
+#pragma unroll
+    for (int k = 0; k < kSublanes; ++k) {
+      const int64_t xr = (kContig ? m[2] + k : m[2 + k]) * int64_t{kLanes};
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b)
+        if (live<kRhs>(b, nr)) xw[b][k][lane] = x[b * xs + xr + lane];
+    }
+    __syncthreads();
+    if (tgt != row) {
+      if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+      row = tgt;
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      const int q = pk[i] & 0x7F;
+      const int r2 = r2s[i][q];
+      const float v = vals[slot0 + i * kLanes];
+      if (!kContig || r2 < kSublanes) {
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr))
+            acc[b] = fmaf(v, xw[b][r2 & (kSublanes - 1)][q], acc[b]);
+      } else {
+        const float* xq = x + static_cast<int64_t>(m[2] + r2) * kLanes + q;
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr)) acc[b] = fmaf(v, xq[b * xs], acc[b]);
+      }
+    }
+    __syncthreads();
+  }
+  if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+}
+
+template <int W>
+int launch_staged(const float* vals, const int16_t* packed, const int* meta,
+                  const int* step_block, int64_t C, int K, int BT,
+                  int contig, int64_t tiles, const float* x, int64_t xs,
+                  float* y, int64_t ys, int nr, cudaStream_t stream) {
+  with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (tiles > 0) {
+      const size_t width = static_cast<size_t>(tiles) * kLanes * 4;
+      cudaMemset2DAsync(y, nr == 1 ? width : ys * 4, 0, width, nr, stream);
+    } else {
+      bell2_zero_blocks_kernel<float>
+          <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
+              step_block, BT, y, ys);
+    }
+    const unsigned int grid = blocks_for(C, W);
+    if (contig)
+      bell2_staged_kernel<true, R, W><<<grid, kLanes, 0, stream>>>(
+          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+    else
+      bell2_staged_kernel<false, R, W><<<grid, kLanes, 0, stream>>>(
+          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+}  // namespace
+
+extern "C" int cfs_bell2_f32_form(const float* vals, const int16_t* packed,
+                                  const int* meta, const int* step_block,
+                                  int64_t C, int K, int BT, int contig,
+                                  int cpc, int xform, int64_t tiles,
+                                  const float* x, int64_t xs, float* y,
+                                  int64_t ys, int nr, cudaStream_t stream) {
+  if (nr < 1 || nr > 8 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (cpc * 4 + xform) {
+#define FORM(W, X)                                                           \
+  case W * 4 + X:                                                            \
+    return launch_bell2_spmv<float, kChunksPerCta, W, X == 2>(               \
+        vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y,   \
+        ys, nr, stream);
+#define STAGED(W)                                                            \
+  case W * 4 + 1:                                                            \
+    return launch_staged<W>(vals, packed, meta, step_block, C, K, BT,        \
+                            contig, tiles, x, xs, y, ys, nr, stream);
+    FORM(1, 0) FORM(2, 0) FORM(4, 0) FORM(8, 0)
+    STAGED(1) STAGED(2) STAGED(4) STAGED(8)
+    FORM(1, 2) FORM(2, 2) FORM(4, 2) FORM(8, 2)
+#undef STAGED
+#undef FORM
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+"""
+
+
+#: the forms of the symmetric diagonal kernel, for the comparison in phase
+#: 4 only: the port's kernel source included whole (``{src}``), the kernel
+#: as it stood before its redesign, and one entry point a value type,
+#: ``cfs_sdia_sym_form(_f64)``, which launches ``form`` over a group of 1
+#: (the kRhs = 1 instance) or up to 8 planes (kRhs = 8). Form -1 is the
+#: kernel before: one thread per output row in CTAs of 256, every diagonal
+#: in turn, the transpose side gathered (each value read twice). Forms 0-3
+#: are step 1 of the redesign (``SDIA_FORMS``: rows a CTA x slices of a
+#: row's diagonals, the loads of several diagonals issued together, the
+#: transpose side gathered); forms 4-8 add step 2, the transpose products
+#: of offsets up to 64 scattered into a shared y tile with its halo, each
+#: such value read once; forms 9-12 add step 3: the CTA's x rows within 64
+#: of its own staged in shared memory for every plane, where offsets up to
+#: 64 read them. The forms' kernel is a copy of the family the redesign was
+#: measured in; the port's ``sdia_sym_kernel`` is form 1 (128 rows x 2
+#: slices, gather), which over planes stages x as form 11 does where at
+#: least half the offsets are within 64 (``ships`` in the timings).
+SDIA_FORMS = ((256, 1, False, False), (128, 2, False, False),
+              (64, 4, False, False), (32, 8, False, False),
+              (256, 1, True, False), (128, 2, True, False),
+              (64, 4, True, False), (128, 4, True, False),
+              (256, 2, True, False), (64, 4, False, True),
+              (32, 8, False, True), (128, 2, False, True),
+              (128, 4, True, True))
+SDIA_SYM_ALT_SRC = r"""
+#include "{src}"
+namespace {
+template <typename T, int kRhs>
+__global__ void sdia_sym_before_kernel(const T* __restrict__ vals,
+                                       const int* __restrict__ offsets, int D,
+                                       int64_t n_vals_rows,
+                                       const T* __restrict__ x, int64_t x_len,
+                                       int64_t xs, T* __restrict__ y,
+                                       int64_t y_len, int64_t ys, int nr) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= y_len) return;
+  const bool own = g < n_vals_rows;
+  T acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
+  for (int j = 0; j < D; ++j) {
+    const int64_t d = offsets[j];
+    const int64_t s = g - d;
+    if (own && s >= 0 && s < x_len) {
+      const T v =
+          vals[((g >> 10) * D + j) * kBlockRows + (g & (kBlockRows - 1))];
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b)
+        if (live<kRhs>(b, nr)) acc[b] = mul_add(v, x[b * xs + s], acc[b]);
+    }
+    const int64_t h = g + d;
+    if (h < n_vals_rows && h < x_len) {
+      const T v =
+          vals[((h >> 10) * D + j) * kBlockRows + (h & (kBlockRows - 1))];
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b)
+        if (live<kRhs>(b, nr)) acc[b] = mul_add(v, x[b * xs + h], acc[b]);
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b)
+    if (live<kRhs>(b, nr)) y[b * ys + g] += acc[b];
+}
+
+// steps 1-3: rows a CTA x slices; the transpose side of offsets up to
+// kSdiaHalo scattered into a shared y tile with its halo (kScatter); x
+// rows within kSdiaHalo staged in shared memory (kStageX)
+template <typename T, int kRhs, int kRows, int kSlices, bool kScatter,
+          bool kStageX>
+__global__ void sdia_forms_kernel(const T* __restrict__ vals, const int* __restrict__ offsets,
+                int D, int64_t n_vals_rows, const T* __restrict__ x,
+                int64_t x_len, int64_t xs, T* __restrict__ y, int64_t y_len,
+                int64_t ys, int nr) {
+  static_assert(kBlockRows % kRows == 0 && (!kScatter || kSdiaHalo <= kRows),
+                "a CTA in one value block, its halo in the previous CTA");
+  constexpr int kThreads = kRows * kSlices;
+  constexpr int kUnroll = kRhs == 1 ? 4 : 2;  // 4 spilled at kRhs = 2
+  constexpr int kHalo = kScatter ? kSdiaHalo : 0;
+  constexpr int kSpan = kHalo + kRows;  // rows of the shared y tile
+  // x[r0 - kSdiaHalo, r0 + kRows + kSdiaHalo) of each plane (kStageX)
+  constexpr int kXSpan = kStageX ? kRows + 2 * kSdiaHalo : 1;
+  // scatter: the y tile; gather: each slice's row sums
+  __shared__ T sh[kScatter ? 1 : kSlices][kRhs][kSpan];
+  __shared__ T xsh[kStageX ? kRhs : 1][kXSpan];
+  __shared__ int hmax;  // the largest scattered offset
+  const int tid = threadIdx.x;
+  const int r = tid % kRows, s = tid / kRows;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRows;
+  const int64_t h = r0 + r;
+  const bool hv = h < n_vals_rows;
+  const T* vh = vals + (h >> 10) * D * kBlockRows + (h & (kBlockRows - 1));
+  if constexpr (kScatter) {
+    if (tid == 0) hmax = 0;
+    for (int i = tid; i < kRhs * kSpan; i += kThreads)
+      sh[0][i / kSpan][i % kSpan] = T(0);
+  }
+  if constexpr (kStageX) {
+    for (int i = tid; i < kRhs * kXSpan; i += kThreads) {
+      const int b = i / kXSpan, k = i % kXSpan;
+      const int64_t gx = r0 - kSdiaHalo + k;
+      xsh[b][k] = live<kRhs>(b, nr) && gx >= 0 && gx < x_len
+                      ? x[b * xs + gx] : T(0);
+    }
+  }
+  if constexpr (kScatter || kStageX) __syncthreads();
+  // x at row h + e of plane b, |e| <= kSdiaHalo for a staged read; zero
+  // outside [0, x_len)
+  auto x_at = [&](int b, int64_t e) -> T {
+    if constexpr (kStageX) return xsh[b][kSdiaHalo + r + e];
+    const int64_t i = h + e;
+    return i >= 0 && i < x_len ? x[b * xs + i] : T(0);
+  };
+  T xh[kScatter ? kRhs : 1];  // x[h] of each plane, for the scatter
+  if constexpr (kScatter) {
+    for (int j = tid; j < D; j += kThreads) {
+      const int d = offsets[j];
+      if (d <= kHalo) atomicMax(&hmax, d);
+    }
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b)
+      xh[b] = live<kRhs>(b, nr) ? x_at(b, 0) : T(0);
+  }
+  T acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
+  for (int j0 = s; j0 < D; j0 += kSlices * kUnroll) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kSlices;
+      if (j >= D) break;
+      const int64_t d = offsets[j];
+      const bool near = d <= kSdiaHalo;  // x staged, or scattered
+      const T v = hv ? vh[static_cast<int64_t>(j) * kBlockRows] : T(0);
+      if (kStageX && near) {
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr)) acc[b] = mul_add(v, x_at(b, -d), acc[b]);
+      } else if (hv && h - d >= 0 && h - d < x_len) {
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr))
+            acc[b] = mul_add(v, x[b * xs + h - d], acc[b]);
+      }
+      if (kScatter && near) {
+        if (hv && h < x_len) {
+#pragma unroll
+          for (int b = 0; b < kRhs; ++b)
+            if (live<kRhs>(b, nr)) atomicAdd(&sh[0][b][kHalo + r - d], v * xh[b]);
+        }
+      } else {
+        const int64_t t = h + d;
+        if (t < n_vals_rows && t < x_len) {
+          const T w =
+              vals[((t >> 10) * D + j) * kBlockRows + (t & (kBlockRows - 1))];
+#pragma unroll
+          for (int b = 0; b < kRhs; ++b)
+            if (live<kRhs>(b, nr))
+              acc[b] = mul_add(w, kStageX && near ? x_at(b, d) : x[b * xs + t],
+                               acc[b]);
+        }
+      }
+    }
+  }
+  if constexpr (kScatter) {
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b)
+      if (live<kRhs>(b, nr)) atomicAdd(&sh[0][b][kHalo + r], acc[b]);
+  } else {
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) sh[s][b][r] = acc[b];
+  }
+  __syncthreads();
+  for (int i = tid; i < kRhs * kSpan; i += kThreads) {
+    const int b = i / kSpan, k = i % kSpan;
+    const int64_t g = r0 - kHalo + k;
+    if (!live<kRhs>(b, nr) || g < 0 || g >= y_len) continue;
+    T sum = sh[0][b][k];
+    if constexpr (!kScatter) {
+#pragma unroll
+      for (int t = 1; t < kSlices; ++t) sum += sh[t][b][k];
+      y[b * ys + g] += sum;
+    } else if (g < r0 || g >= r0 + kRows - hmax) {
+      if (sum != T(0)) atomicAdd(y + b * ys + g, sum);
+    } else {
+      y[b * ys + g] += sum;
+    }
+  }
+}
+
+template <typename T, int R, int kRows, int kSlices, bool kScatter,
+          bool kStageX>
+void launch_sdia_form(const T* vals, const int* offsets, int D,
+                      int64_t n_vals_rows, int64_t x_len, int64_t y_len,
+                      const T* x, int64_t xs, T* y, int64_t ys, int nr,
+                      cudaStream_t stream) {
+  const int64_t reach = y_len + (kScatter ? kSdiaHalo : 0);
+  const int64_t rows = reach < n_vals_rows ? reach : n_vals_rows;
+  if (rows > 0 && y_len > 0 && D > 0)
+    sdia_forms_kernel<T, R, kRows, kSlices, kScatter, kStageX>
+        <<<blocks_for(rows, kRows), kRows * kSlices, 0, stream>>>(
+            vals, offsets, D, n_vals_rows, x, x_len, xs, y, y_len, ys, nr);
+}
+
+template <typename T, int R>
+int sdia_form(int form, const T* vals, const int* offsets, int D,
+              int64_t n_vals_rows, int64_t x_len, int64_t y_len, const T* x,
+              int64_t xs, T* y, int64_t ys, int nr, cudaStream_t stream) {
+  switch (form) {
+    case -1:
+      if (y_len > 0 && D > 0)
+        sdia_sym_before_kernel<T, R><<<blocks_for(y_len, 256), 256, 0,
+                                       stream>>>(vals, offsets, D, n_vals_rows,
+                                                 x, x_len, xs, y, y_len, ys,
+                                                 nr);
+      break;
+#define FORM(F, ROWS, SLICES, SCATTER, STAGE)                                \
+  case F:                                                                    \
+    launch_sdia_form<T, R, ROWS, SLICES, SCATTER, STAGE>(                    \
+        vals, offsets, D, n_vals_rows, x_len, y_len, x, xs, y, ys, nr,       \
+        stream);                                                             \
+    break;
+    FORM(0, 256, 1, false, false) FORM(1, 128, 2, false, false)
+    FORM(2, 64, 4, false, false) FORM(3, 32, 8, false, false)
+    FORM(4, 256, 1, true, false) FORM(5, 128, 2, true, false)
+    FORM(6, 64, 4, true, false) FORM(7, 128, 4, true, false)
+    FORM(8, 256, 2, true, false) FORM(9, 64, 4, false, true)
+    FORM(10, 32, 8, false, true) FORM(11, 128, 2, false, true)
+    FORM(12, 128, 4, true, true)
+#undef FORM
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+}  // namespace
+#define ENTRY(NAME, T)                                                       \
+  extern "C" int NAME(int form, const T* vals, const int* offsets, int D,    \
+                      int64_t n_vals_rows, int64_t x_len, int64_t y_len,     \
+                      const T* x, int64_t xs, T* y, int64_t ys, int nr,      \
+                      cudaStream_t stream) {                                 \
+    if (nr < 1 || nr > 8) return static_cast<int>(cudaErrorInvalidValue);    \
+    return nr == 1 ? sdia_form<T, 1>(form, vals, offsets, D, n_vals_rows,    \
+                                     x_len, y_len, x, xs, y, ys, nr, stream) \
+                   : sdia_form<T, 8>(form, vals, offsets, D, n_vals_rows,    \
+                                     x_len, y_len, x, xs, y, ys, nr, stream);\
+  }
+ENTRY(cfs_sdia_sym_form, float)
+ENTRY(cfs_sdia_sym_form_f64, double)
 """
 
 
@@ -1075,6 +1479,7 @@ def main() -> int:
         cant_proxy,
         general_asym,
         near_band_paired,
+        stencil27,
     )
 
     wrappers = {
@@ -1123,7 +1528,9 @@ def main() -> int:
     side = {"ptxas": ptxas_start(),
             "entries_alt": alt_start("entries_alt", ENTRIES_ALT_SRC),
             "sbell_alt": alt_start("sbell_alt", SBELL_ALT_SRC),
-            "grid_f64": alt_start("grid_f64", GRID_F64_FORMS_SRC.replace(
+            "grid": alt_start("grid", GRID_FORMS_SRC.replace(
+                "{src}", _cuda._SRC)),
+            "sdia_alt": alt_start("sdia_alt", SDIA_SYM_ALT_SRC.replace(
                 "{src}", _cuda._SRC))}
     _cuda.lib()
     phase_done("2 kernel build/load")
@@ -1142,6 +1549,7 @@ def main() -> int:
     nbp400 = near_band_paired(n=400_000)
     audikw = audikw_proxy()
     gasym = general_asym()
+    st27 = stencil27()
     #: name -> (CSR, format, tuning, CFS_PAIRED, SDIA_SYM_ROWS_MAX); the
     #: float64 runs (the names ending in _f64) follow their float32 runs
     RUNS = {
@@ -1161,12 +1569,14 @@ def main() -> int:
                                   "force", None),
         "near_band_paired_400k_auto": (nbp400, Format.SSS,
                                        Tuning.AGGRESSIVE, "auto", None),
+        "stencil27": (st27, Format.SSS, Tuning.AGGRESSIVE, None, None),
         "cant_proxy_f64": (cant, Format.SSS, Tuning.AGGRESSIVE, None, None),
         "audikw_proxy_f64": (audikw, Format.SSS, Tuning.AGGRESSIVE, None,
                              None),
         "flagship_f64": (flag, Format.SSS, Tuning.AGGRESSIVE, None, None),
         "general_asym_f64": (gasym, Format.CSR, Tuning.AGGRESSIVE, None,
                              None),
+        "stencil27_f64": (st27, Format.SSS, Tuning.AGGRESSIVE, None, None),
     }
     print(f"matrices generated in {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -1406,7 +1816,7 @@ def main() -> int:
 
     mats = {"cant_proxy": cant, "audikw_proxy": audikw, "flagship": flag,
             "general_asym": gasym, "near_band_paired": nbp,
-            "near_band_paired_400k": nbp400}
+            "near_band_paired_400k": nbp400, "stencil27": st27}
     lib = {}
 
     def lib_operands(mname, dtype=torch.float32):
@@ -1422,22 +1832,61 @@ def main() -> int:
                            dtype=dtype).to(dev))
         return lib[mname, dtype]
 
-    # B1 on cant_proxy: the SDIA stream, onto a nonzero incoming y
-    A, d, xe = operands("cant_proxy")
-    x2d = ops.pad_x(xe, d.x_rows)
-    y0 = torch.rand((d.num_row_tiles, 128), generator=g).to(dev)
-    args = (d.dia_vals, x2d)
-    yk = sk.sdia_sym_tiles(*args, y0.clone(), d.dia_offsets)
-    yp = sk.sdia_sym_tiles_plain(*args, y0.clone(), d.dia_offsets)
-    scale = sk.sdia_sym_tiles_plain(
-        d.dia_vals.abs().double(), x2d.abs().double(), y0.abs().double(),
-        d.dia_offsets,
-    )
-    err = _agree(yk, yp, scale, 2 * d.dia_vals.shape[1], "sdia_sym")
-    M_cant, xl_cant, Xe_cant = lib_operands("cant_proxy")
-    sym_flops = 4 * nnz_of(d.dia_vals)  # a row and a transpose product each
+    def strided(y3, launch):
+        """``launch(y)`` on a copy of the planes ``y3`` held at a plane
+        stride past the plane, NaN beyond each plane; raises when anything
+        past a plane moved; returns the planes."""
+        B, T = y3.shape[0], y3.shape[1]
+        wide = poisoned((B, T + 3, 128), y3.dtype)
+        wide[:, :T] = y3
+        out = launch(wide[:, :T])
+        torch.cuda.synchronize()
+        if not torch.isnan(wide[:, T:]).all():
+            raise AssertionError("a kernel wrote past a plane")
+        return out
+
+    # B1 + B11 on stencil27 (offsets past a value block) and on cant_proxy,
+    # the kernel row's plan: B1 onto a nonzero incoming y, B11 onto nonzero
+    # Y planes held at a plane stride past the plane
+    errs = []
+    for run_name in ("stencil27", "cant_proxy"):
+        A, d, xe = operands(run_name)
+        x2d = ops.pad_x(xe, d.x_rows)
+        y0 = torch.rand((d.num_row_tiles, 128), generator=g).to(dev)
+        args = (d.dia_vals, x2d)
+        yk = sk.sdia_sym_tiles(*args, y0.clone(), d.dia_offsets)
+        yp = sk.sdia_sym_tiles_plain(*args, y0.clone(), d.dia_offsets)
+        scale = sk.sdia_sym_tiles_plain(
+            d.dia_vals.abs().double(), x2d.abs().double(), y0.abs().double(),
+            d.dia_offsets,
+        )
+        errs.append(_agree(yk, yp, scale, 2 * d.dia_vals.shape[1],
+                           f"sdia_sym on {run_name}"))
+        print(f"kernel sdia_sym on {run_name}: offsets "
+              f"{d.dia_offsets.tolist()}, max_abs_err vs twin {errs[-1]}",
+              flush=True)
+        M_cant, xl_cant, Xe_cant = lib_operands(run_name)
+
+        def make_sdia_sym_mm(B, d=d, M=M_cant, Xe=Xe_cant):
+            x3 = planes(B, d.x_rows)
+            y3 = planes(B, d.num_row_tiles, extra=3)
+            a = (d.dia_vals, x3)
+            o = d.dia_offsets
+            return (lambda: strided(
+                        y3, lambda y: sk.sdia_sym_tiles_mm(*a, y, o)),
+                    lambda: sk.sdia_sym_tiles_mm(*a, y3.clone(), o),
+                    lambda: sk.sdia_sym_tiles_mm_plain(*a, y3.clone(), o),
+                    lambda: sk.sdia_sym_tiles_mm_plain(
+                        d.dia_vals.abs().double(), x3.abs().double(),
+                        y3.abs().double(), o),
+                    _nbytes(d.dia_vals, x3) + 2 * _nbytes(y3),
+                    lambda: M @ Xe)
+
+        sym_flops = 4 * nnz_of(d.dia_vals)  # a row and a transpose product
+        mm_pair("sdia_sym_mm", make_sdia_sym_mm, 2 * d.dia_vals.shape[1],
+                run_name, flops=RHS * sym_flops)
     kern["sdia_sym"] = dict(
-        err=err, on="cant_proxy",
+        err=max(errs), on="cant_proxy",
         bytes=_nbytes(d.dia_vals, x2d) + 2 * _nbytes(y0), flops=sym_flops,
         library=lambda: M_cant @ xl_cant,
         fn=lambda a=args, y=y0, o=d.dia_offsets: sk.sdia_sym_tiles(
@@ -1446,32 +1895,23 @@ def main() -> int:
             *a, y.clone(), o),
     )
 
-    # B11 on cant_proxy: onto nonzero Y planes held at a plane stride
-    # past the plane
-    def make_sdia_sym_mm(B, d=d):
-        x3 = planes(B, d.x_rows)
-        y3 = planes(B, d.num_row_tiles, extra=3)
-        a = (d.dia_vals, x3)
-        o = d.dia_offsets
-        return (lambda: sk.sdia_sym_tiles_mm(*a, y3.clone(), o),
-                lambda: sk.sdia_sym_tiles_mm(*a, y3.clone(), o),
-                lambda: sk.sdia_sym_tiles_mm_plain(*a, y3.clone(), o),
-                lambda: sk.sdia_sym_tiles_mm_plain(
-                    d.dia_vals.abs().double(), x3.abs().double(),
-                    y3.abs().double(), o),
-                _nbytes(d.dia_vals, x3) + 2 * _nbytes(y3),
-                lambda: M_cant @ Xe_cant)
-
-    mm_pair("sdia_sym_mm", make_sdia_sym_mm, 2 * d.dia_vals.shape[1],
-            "cant_proxy", flops=RHS * sym_flops)
-
-    # B2 + B3 on audikw_proxy: the degree-grouped far stream
+    # B2 + B3 on audikw_proxy: the degree-grouped far stream, which visits
+    # every output block (its planes are zeroed whole), B2 into a
+    # NaN-poisoned buffer
     A, d, xe = operands("audikw_proxy")
     fd = d.far
+    if not fd.covers:
+        raise AssertionError("audikw_proxy's far stream should visit every "
+                             "output block")
     x2d_a = ops.pad_x(xe, d.x_rows)
-    kw_a = fd.stream_kw()
+    kw_a = dict(fd.stream_kw(), covers=fd.covers)
     sargs_a = (fd.vals, fd.packed, fd.meta, fd.step_block, x2d_a)
-    fk = bk.bell2_spmv_tiles(*sargs_a, **kw_a)
+    fk = bk.bell2_spmv_tiles(*sargs_a, out=poisoned(
+        (-(-fd.num_row_tiles // fd.tiles_per_block) * fd.tiles_per_block,
+         128)), **kw_a)
+    if not torch.isfinite(fk).all():
+        raise AssertionError("bell2_spmv on audikw_proxy: the covering "
+                             "stream's output was not zeroed whole")
     fp = bk.bell2_spmv_tiles_plain(*sargs_a, **kw_a)
     fs = bk.bell2_spmv_tiles_plain(
         fd.vals.abs(), fd.packed, fd.meta, fd.step_block, x2d_a.abs(),
@@ -1509,22 +1949,96 @@ def main() -> int:
         plain=lambda: bk.unperm_gather_tiles_plain(*uargs),
     )
 
-    # B7 + B9 on audikw_proxy's grouped far stream: B7 into NaN-poisoned
-    # planes (checked on the visited blocks' rows), B9 bit-identical
-    TPa = -(-fd.num_row_tiles // BT) * BT
+    # B7 on an 8-tile-block replan of general_asym(g=50) whose rows
+    # 20,000-59,999 are absent and get no covering chunks (so whole output
+    # blocks are never visited, and they must keep their NaN), on
+    # cant_proxy()'s untuned stream and on audikw_proxy's grouped far
+    # stream (the kernel row's), each into NaN-poisoned planes and checked
+    # on the visited blocks' rows; the covering two must come out finite
+    # whole. B9 bit-identical
+    coo = general_asym(g=50).to_coo()
+    keep = (coo.row < 20_000) | (coo.row >= 60_000)
+    hp_f = build_bell2_from_arrays(
+        coo.nrows, coo.ncols, np.asarray(coo.row[keep], np.int32),
+        np.asarray(coo.col[keep], np.int32),
+        np.asarray(coo.val[keep], np.float32), dtype=np.float32,
+        force_slot=True, tiles_per_block=8, cover_all_tiles=False)
+    hp_f_contig = hp_f.windows_contig or hp_f.window_depth > 8
+    ops._check_stream_plan(hp_f, hp_f_contig)
+    holes_f = ops.Bell2Device(
+        nrows=hp_f.nrows, ncols=hp_f.ncols, num_row_tiles=hp_f.num_row_tiles,
+        x_rows=hp_f.x_rows, chunks_per_step=hp_f.chunks_per_step,
+        tiles_per_block=hp_f.tiles_per_block, contig=hp_f_contig,
+        sparse_stream=True, has_work=True,
+        **{k: ops._tensor(getattr(hp_f, k), dev)
+           for k in ("vals", "packed", "meta", "step_block")})
+    _, d_none, _ = operands("cant_proxy_none")
+    if not d_none.covers:
+        raise AssertionError("cant_proxy's untuned stream should visit "
+                             "every output block")
 
-    def make_bell2_mm(B, fd=fd):
-        sa = (fd.vals, fd.packed, fd.meta, fd.step_block, planes(B, fd.x_rows))
-        return (lambda: bk.bell2_spmm_tiles(
-                    *sa, out=poisoned((B, TPa, 128)), **kw_a),
-                lambda: bk.bell2_spmm_tiles(*sa, **kw_a),
-                lambda: bk.bell2_spmm_tiles_plain(*sa, **kw_a),
-                lambda: bk.bell2_spmm_tiles_plain(
-                    fd.vals.abs(), *sa[1:4], sa[4].abs(), **kw_a),
-                _nbytes(*sa) + B * _nbytes(fp), csr_mv(S_far, sa[4]))
+    def visited_rows(ds):
+        """(rows of the visited blocks under num_row_tiles, mask of the
+        padded planes' rows of unvisited blocks)."""
+        BTs = ds.tiles_per_block
+        TPs = -(-ds.num_row_tiles // BTs) * BTs
+        visited = torch.unique(ds.step_block).long()
+        rows_ = (visited[:, None] * BTs
+                 + torch.arange(BTs, device=dev)[None, :]).reshape(-1)
+        rest = torch.ones(TPs, dtype=torch.bool, device=dev)
+        rest[rows_] = False
+        return rows_[rows_ < ds.num_row_tiles], rest
 
-    mm_pair("bell2_spmm", make_bell2_mm, A.tuned.plan.far.nnz / A.nrows,
-            "audikw_proxy", rows=rows, flops=RHS * 2 * nnz_of(fd.vals))
+    f32_grids = {}  # name -> (device struct, visited rows, unvisited mask)
+    for ds, on in ((holes_f, "general_asym(g=50) with absent rows, 8-tile "
+                    "blocks"),
+                   (d_none, "cant_proxy NONE"), (fd, "audikw_proxy")):
+        vrows, rest = visited_rows(ds)
+        if ds is holes_f and not rest.any():
+            raise AssertionError("the float replan has no unvisited block")
+        f32_grids[on] = (ds, vrows, rest)
+        TPs = rest.shape[0]
+        kw_s = dict(ds.stream_kw(), covers=ds.covers)
+        S_s = S_far if ds is fd else stream_csr(torch, ds)
+        nnz_s = nnz_of(ds.vals)
+
+        def make_bell2_mm(B, ds=ds, kw_s=kw_s, TPs=TPs, rest=rest, S_s=S_s,
+                          on=on):
+            sa = (ds.vals, ds.packed, ds.meta, ds.step_block,
+                  planes(B, ds.x_rows, extra=2))
+            # the kernel reads X interleaved, as the appliers pass it
+            x_il = ops.pad_x_mm_il(sa[4].reshape(B, -1).T, ds.x_rows)
+            il = (*sa[:4], x_il)
+
+            def check():
+                out = poisoned((B, TPs, 128))
+                got = bk.bell2_spmm_tiles(*il, out=out, planes=B, **kw_s)
+                torch.cuda.synchronize()
+                if not torch.isnan(out[:, rest]).all():
+                    raise AssertionError(f"bell2_spmm on {on}: an unvisited "
+                                         "block was written")
+                if ds.covers and not torch.isfinite(out).all():
+                    raise AssertionError(f"bell2_spmm on {on}: the covering "
+                                         "stream's planes were not zeroed "
+                                         "whole")
+                return got
+
+            return (check,
+                    lambda: bk.bell2_spmm_tiles(*il, planes=B, **kw_s),
+                    lambda: bk.bell2_spmm_tiles_plain(*sa, **kw_s),
+                    lambda: bk.bell2_spmm_tiles_plain(
+                        ds.vals.abs(), *sa[1:4], sa[4].abs(), **kw_s),
+                    _nbytes(*sa[:4]) + B * (_nbytes(sa[4][0])
+                                            + 4 * ds.num_row_tiles * 128),
+                    csr_mv(S_s, sa[4]))
+
+        mm_pair("bell2_spmm", make_bell2_mm, nnz_s / ds.nrows, on,
+                rows=vrows, flops=RHS * 2 * nnz_s)
+        print(f"kernel bell2_spmm on {on}: {ds.meta.shape[0]} chunks, "
+              f"window depth {'> 8 or contiguous' if ds.contig else 'listed'}"
+              f", {len(torch.unique(ds.step_block))} of "
+              f"{TPs // ds.tiles_per_block} blocks visited, covers="
+              f"{ds.covers}", flush=True)
 
     def make_unperm_mm(B, fd=fd):
         ua = (fd.unperm_pk, fd.unperm_slabs,
@@ -2014,26 +2528,52 @@ def main() -> int:
         mm_pair("sdia_gen_mm", make_sdia_gen_mm, dg.dia_vals.shape[1], on,
                 flops=RHS * 2 * nnz_of(dg.dia_vals))
 
-    # B13 + B14 on cant_proxy's float64 plan: the diagonal stream with the
-    # halved main diagonal (offset 0), onto nonzero y; B14 at B = 1, 11
-    # and 8 onto Y planes at a plane stride past the plane
-    A, d, xe = operands("cant_proxy_f64")
+    # B13 + B14 on stencil27's and cant_proxy's float64 plans (the kernel
+    # row's): the diagonal stream with the halved main diagonal (offset
+    # 0), onto nonzero y; B14 at B = 1, 11 and 8 onto Y planes at a plane
+    # stride past the plane
     f64 = torch.float64
-    if 0 not in d.dia_offsets.tolist():
-        raise AssertionError("cant_proxy_f64 stores no main diagonal")
-    TD = -(-d.nrows // 128)
-    x2d = ops.pad_x(xe, max(d.x_rows, TD))
-    y0 = torch.rand((TD, 128), generator=g, dtype=f64).to(dev)
-    args = (d.dia_vals, x2d)
-    yk = sdf.sdia_sym_tiles_df(*args, y0.clone(), d.dia_offsets)
-    yp = sk.sdia_sym_tiles_plain(*args, y0.clone(), d.dia_offsets)
-    scale = sk.sdia_sym_tiles_plain(d.dia_vals.abs(), x2d.abs(), y0.abs(),
-                                    d.dia_offsets)
-    err = _agree(yk, yp, scale, 2 * d.dia_vals.shape[1], "sdia_sym_df")
-    M_cant64, xl_cant64, Xe_cant64 = lib_operands("cant_proxy", f64)
-    sym_flops = 4 * nnz_of(d.dia_vals)
+    errs = []
+    for run_name in ("stencil27_f64", "cant_proxy_f64"):
+        A, d, xe = operands(run_name)
+        if 0 not in d.dia_offsets.tolist():
+            raise AssertionError(f"{run_name} stores no main diagonal")
+        TD = -(-d.nrows // 128)
+        x2d = ops.pad_x(xe, max(d.x_rows, TD))
+        y0 = torch.rand((TD, 128), generator=g, dtype=f64).to(dev)
+        args = (d.dia_vals, x2d)
+        yk = sdf.sdia_sym_tiles_df(*args, y0.clone(), d.dia_offsets)
+        yp = sk.sdia_sym_tiles_plain(*args, y0.clone(), d.dia_offsets)
+        scale = sk.sdia_sym_tiles_plain(d.dia_vals.abs(), x2d.abs(),
+                                        y0.abs(), d.dia_offsets)
+        errs.append(_agree(yk, yp, scale, 2 * d.dia_vals.shape[1],
+                           f"sdia_sym_df on {run_name}"))
+        print(f"kernel sdia_sym_df on {run_name}: offsets "
+              f"{d.dia_offsets.tolist()}, max_abs_err vs twin {errs[-1]}",
+              flush=True)
+        M_cant64, xl_cant64, Xe_cant64 = lib_operands(run_name[:-4], f64)
+
+        def make_sdia_df_mm(B, d=d, rows=x2d.shape[0], TD=TD, M=M_cant64,
+                            Xe=Xe_cant64):
+            x3 = planes(B, rows, extra=2, dtype=f64)
+            y3 = planes(B, TD, extra=3, dtype=f64)
+            a = (d.dia_vals, x3)
+            o = d.dia_offsets
+            return (lambda: strided(
+                        y3, lambda y: sdf.sdia_sym_tiles_df_mm(*a, y, o)),
+                    lambda: sdf.sdia_sym_tiles_df_mm(*a, y3.clone(), o),
+                    lambda: sk.sdia_sym_tiles_mm_plain(*a, y3.clone(), o),
+                    lambda: sk.sdia_sym_tiles_mm_plain(
+                        d.dia_vals.abs(), x3.abs(), y3.abs(), o),
+                    _nbytes(d.dia_vals, x3) + 2 * _nbytes(y3),
+                    lambda: M @ Xe)
+
+        sym_flops = 4 * nnz_of(d.dia_vals)
+        mm_pair("sdia_sym_df_mm", make_sdia_df_mm, 2 * d.dia_vals.shape[1],
+                run_name.replace("_f64", " float64"), Bs=(1, 11, RHS),
+                flops=RHS * sym_flops)
     kern["sdia_sym_df"] = dict(
-        err=err, on="cant_proxy float64",
+        err=max(errs), on="cant_proxy float64",
         bytes=_nbytes(d.dia_vals, x2d) + 2 * _nbytes(y0), flops=sym_flops,
         fn=lambda a=args, y=y0, o=d.dia_offsets: sdf.sdia_sym_tiles_df(
             *a, y.clone(), o),
@@ -2042,21 +2582,89 @@ def main() -> int:
         library=lambda: M_cant64 @ xl_cant64,
     )
 
-    def make_sdia_df_mm(B, d=d, rows=x2d.shape[0], TD=TD):
-        x3 = planes(B, rows, dtype=f64)
-        y3 = planes(B, TD, extra=3, dtype=f64)
-        a = (d.dia_vals, x3)
-        o = d.dia_offsets
-        return (lambda: sdf.sdia_sym_tiles_df_mm(*a, y3.clone(), o),
-                lambda: sdf.sdia_sym_tiles_df_mm(*a, y3.clone(), o),
-                lambda: sk.sdia_sym_tiles_mm_plain(*a, y3.clone(), o),
-                lambda: sk.sdia_sym_tiles_mm_plain(
-                    d.dia_vals.abs(), x3.abs(), y3.abs(), o),
-                _nbytes(d.dia_vals, x3) + 2 * _nbytes(y3),
-                lambda: M_cant64 @ Xe_cant64)
+    # the forms of the symmetric diagonal kernel (SDIA_SYM_ALT_SRC): the
+    # kernel before its redesign and each step, against the twin on
+    # cant_proxy and stencil27 in float and in double at B = 1 and 11 onto
+    # nonzero Y planes at a plane stride past the plane; then in device
+    # time in turns beside what ships, at B = 1 and 8 (cant_proxy: two
+    # rounds, stencil27: one)
+    sdia_argtypes = [i32_, p_, p_, i32_, i64_, i64_, i64_, p_, i64_, p_,
+                     i64_, i32_, p_]
+    sdia_forms = {}
+    sdia_forms[torch.float32], said = alt_bind(
+        "sdia_alt", side.pop("sdia_alt"), "cfs_sdia_sym_form", sdia_argtypes)
+    print(f"ptxas, the symmetric diagonal kernel's forms (template "
+          f"arguments: type, planes, rows a CTA, slices, scatter, x "
+          f"staged): "
+          f"{_regs_line(ptxas_report(said))}", flush=True)
+    sdia_forms[f64] = ctypes.CDLL(os.path.join(
+        _smoke_dir(), "sdia_alt.so")).cfs_sdia_sym_form_f64
+    sdia_forms[f64].argtypes, sdia_forms[f64].restype = sdia_argtypes, i32_
+    FORMS_SDIA = (-1,) + tuple(range(len(SDIA_FORMS)))
 
-    mm_pair("sdia_sym_df_mm", make_sdia_df_mm, 2 * d.dia_vals.shape[1],
-            "cant_proxy float64", Bs=(1, 11, RHS), flops=RHS * sym_flops)
+    def sdia_form_name(form):
+        if form < 0:
+            return "before"
+        rows_, slices, scatter, stage = SDIA_FORMS[form]
+        return (f"{form} ({rows_}x{slices} "
+                f"{'scatter' if scatter else 'gather'}"
+                f"{' x staged' if stage else ''})")
+
+    def run_sdia_form(form, d, x3, y3):
+        fn = sdia_forms[d.dia_vals.dtype]
+        _cuda.launch_groups("sdia_form", x3, y3, lambda *pl: fn(
+            form, d.dia_vals.data_ptr(), d.dia_offsets.data_ptr(),
+            d.dia_vals.shape[1], d.dia_vals.shape[0] * 1024, x3[0].numel(),
+            y3[0].numel(), *pl))
+        return y3
+
+    def sdia_shape(d):
+        """(x rows, y tiles) of a symmetric diagonal plan's operands."""
+        if d.dia_vals.dtype == f64:
+            TD = -(-d.nrows // 128)
+            return max(d.x_rows, TD), TD
+        return d.x_rows, d.num_row_tiles
+
+    sdia_runs = ("cant_proxy", "stencil27", "cant_proxy_f64", "stencil27_f64")
+    for run_name in sdia_runs:
+        _, d, _ = operands(run_name)
+        xr, T = sdia_shape(d)
+        dt, o = d.dia_vals.dtype, d.dia_offsets
+        worst = dict.fromkeys(FORMS_SDIA, 0.0)
+        for B in (1, 11):
+            x3 = planes(B, xr, extra=2, dtype=dt)
+            y0 = planes(B, T, extra=3, dtype=dt)
+            yp = sk.sdia_sym_tiles_mm_plain(d.dia_vals, x3, y0.clone(), o)
+            ys = sk.sdia_sym_tiles_mm_plain(d.dia_vals.abs().double(),
+                                            x3.abs().double(),
+                                            y0.abs().double(), o)
+            for form in FORMS_SDIA:
+                got = strided(y0, lambda y: run_sdia_form(form, d, x3, y))
+                worst[form] = max(worst[form], _agree(
+                    got, yp, ys, 2 * d.dia_vals.shape[1],
+                    f"sdia_sym form {form} B={B} on {run_name}"))
+        print(f"sdia_sym forms on {run_name} ({d.dia_vals.shape[1]} "
+              f"diagonals, {dt}), B = 1 and 11 onto strided planes: "
+              f"max_abs_err vs twin by form {worst}", flush=True)
+    for run_name in sdia_runs:
+        _, d, _ = operands(run_name)
+        xr, T = sdia_shape(d)
+        dt, o = d.dia_vals.dtype, d.dia_offsets
+        ships = sdf.sdia_sym_tiles_df_mm if dt == f64 else sk.sdia_sym_tiles_mm
+        for B in (1, RHS):
+            x3 = planes(B, xr, dtype=dt)
+            y3 = planes(B, T, dtype=dt)
+            for rnd in range(1 if run_name.startswith("stencil27") else 2):
+                said = []
+                for form in FORMS_SDIA:
+                    busy, _ = _device_ms(
+                        torch, lambda: run_sdia_form(form, d, x3, y3))
+                    said.append(f"{sdia_form_name(form)} {_ms(busy)}")
+                _, by = _device_ms(torch, lambda: ships(d.dia_vals, x3, y3, o))
+                said.append(f"ships {_ms(by.get('sdia_sym_kernel'))}")
+                print(f"sdia_sym forms on {run_name} B={B} round {rnd}, "
+                      f"device ms: " + "; ".join(said) + f" ({card})",
+                      flush=True)
 
     # B15 + B16 on the chunk grid: first on an 8-tile-block replan of
     # general_asym(g=50) whose rows 20,000-59,999 are absent and get no
@@ -2254,14 +2862,17 @@ def main() -> int:
               f"kept bit for bit, max_abs_err vs twin {worst}", flush=True)
 
     # the double grid kernel's walk and zero pass through its launcher's
-    # own arguments (GRID_F64_FORMS_SRC): each form against the twin, then
-    # in device time in turns, two rounds, beside what ships
-    grid_form, _ = alt_bind(
-        "grid_f64", side.pop("grid_f64"), "cfs_bell2_f64_form",
+    # own arguments (GRID_FORMS_SRC): each form against the twin, then in
+    # device time in turns, two rounds, beside what ships
+    grid_form, said = alt_bind(
+        "grid", side.pop("grid"), "cfs_bell2_f64_form",
         [p_, p_, p_, p_, i64_, i32_, i32_, i32_, i32_, i64_, p_, i64_, p_,
          i64_, i32_, p_])
-    walk_of = ctypes.CDLL(os.path.join(_smoke_dir(), "grid_f64.so"))
-    walk_of = walk_of.cfs_bell2_f64_walk
+    print(f"ptxas, the grid kernel's forms (template arguments: contiguous, "
+          f"planes, type, walk, staged): {_regs_line(ptxas_report(said))}",
+          flush=True)
+    grid_lib = ctypes.CDLL(os.path.join(_smoke_dir(), "grid.so"))
+    walk_of = grid_lib.cfs_bell2_f64_walk
     walk_of.argtypes, walk_of.restype = [i64_, i32_, i32_], i32_
 
     def run_grid_form(ds, x3, y3, cpc, tiles):
@@ -2329,6 +2940,108 @@ def main() -> int:
                             f"{_ms(zero)}")
                 print(f"{head} round {rnd}: " + "; ".join(said) + f" ({card})",
                       flush=True)
+    # the float grid kernel's multi-plane forms (B7) through its launcher's
+    # own arguments (GRID_FORMS_SRC): walks of 8 (before), 1, 2 and 4
+    # chunks a CTA, x gathered from the planes, staged in shared memory or
+    # read interleaved, after either zero pass; each against the twin at B
+    # = 11 and 8 into NaN-poisoned planes on the three plans of B7 above,
+    # then in device time in turns, two rounds, on audikw_proxy and
+    # cant_proxy NONE at B = 8 beside what ships; and B2's zero pass, the
+    # zero kernel against cudaMemset2DAsync, through its wrapper in turns
+    grid_form32 = grid_lib.cfs_bell2_f32_form
+    grid_form32.argtypes = [p_, p_, p_, p_, i64_, i32_, i32_, i32_, i32_,
+                            i32_, i64_, p_, i64_, p_, i64_, i32_, p_]
+    grid_form32.restype = i32_
+    XFORMS = ("planes", "staged", "interleaved")
+
+    def run_grid_form32(ds, x3, y3, cpc, xform, tiles):
+        """``x3``: planes, or for ``xform`` 2 an interleaved X."""
+        _cuda.launch_groups(
+            "bell2_f32_form", x3, y3, lambda *pl: grid_form32(
+                ds.vals.data_ptr(), ds.packed.data_ptr(), ds.meta.data_ptr(),
+                ds.step_block.data_ptr(), ds.meta.shape[0],
+                ds.chunks_per_step, ds.tiles_per_block, int(ds.contig), cpc,
+                xform, tiles, *pl), xform == 2)
+        return y3
+
+    F32_FORMS = tuple((w, xf) for xf in range(3) for w in (8, 1, 2, 4))
+    for on, (ds, vrows, rest) in f32_grids.items():
+        TPs = rest.shape[0]
+        npr = nnz_of(ds.vals) / ds.nrows
+        kw_s = dict(ds.stream_kw(), covers=ds.covers)
+        worst = 0.0
+        for B in (11, RHS):
+            x3 = planes(B, ds.x_rows, extra=2)
+            x_il = ops.pad_x_mm_il(x3.reshape(B, -1).T, ds.x_rows)
+            yp = bk.bell2_spmm_tiles_plain(*stream_of(ds), x3, **kw_s)
+            ysc = bk.bell2_spmm_tiles_plain(ds.vals.abs(), *stream_of(ds)[1:],
+                                            x3.abs(), **kw_s)
+            for cpc, xform in F32_FORMS:
+                for tiles in ((0, TPs) if ds.covers else (0,)):
+                    wide = poisoned((B, TPs + 3, 128))
+                    run_grid_form32(ds, x_il if xform == 2 else x3,
+                                    wide[:, :TPs], cpc, xform, tiles)
+                    torch.cuda.synchronize()
+                    what = (f"bell2_spmm form walk={cpc} x {XFORMS[xform]} "
+                            f"zero={'memset' if tiles else 'kernel'} B={B} "
+                            f"on {on}")
+                    if not torch.isnan(wide[:, TPs:]).all():
+                        raise AssertionError(f"{what}: wrote past a plane")
+                    if not torch.isnan(wide[:, :TPs][:, rest]).all():
+                        raise AssertionError(f"{what}: an unvisited block "
+                                             "was written")
+                    if tiles and not torch.isfinite(wide[:, :TPs]).all():
+                        raise AssertionError(f"{what}: planes not zeroed "
+                                             "whole")
+                    worst = max(worst, _agree(
+                        wide[:, vrows], yp[:, vrows], ysc[:, vrows], npr,
+                        what))
+        print(f"bell2_spmm forms on {on} ({ds.meta.shape[0]} chunks, "
+              f"covers={ds.covers}): walks 8, 1, 2, 4, x from the planes, "
+              f"staged or interleaved, after "
+              f"{'either zero pass' if ds.covers else 'the zero kernel'}, "
+              f"B = 11 and {RHS} into NaN-poisoned planes: max_abs_err vs "
+              f"twin {worst}", flush=True)
+    for on in ("audikw_proxy", "cant_proxy NONE"):
+        ds, vrows, rest = f32_grids[on]
+        TPs = rest.shape[0]
+        kw_s = dict(ds.stream_kw(), covers=ds.covers)
+        x3 = planes(RHS, ds.x_rows)
+        x_il = ops.pad_x_mm_il(x3.reshape(RHS, -1).T, ds.x_rows)
+        y3 = torch.empty((RHS, TPs, 128), device=dev)
+        x1 = planes(1, ds.x_rows)[0]
+        y1 = torch.empty((TPs, 128), device=dev)
+        head = f"bell2_spmm forms on {on} ({ds.meta.shape[0]} chunks) B={RHS}"
+        for rnd in range(2):
+            said = []
+            for cpc, xform in F32_FORMS:
+                _, by = _device_ms(torch, lambda: run_grid_form32(
+                    ds, x_il if xform == 2 else x3, y3, cpc, xform, 0))
+                kernel = by.get("bell2_spmv_kernel",
+                                by.get("bell2_staged_kernel"))
+                said.append(f"walk {cpc} {XFORMS[xform]} {_ms(kernel)}")
+            said.append(f"zero kernel "
+                        f"{_ms(by.get('bell2_zero_blocks_kernel'))}")
+            _, by = _device_ms(torch, lambda: run_grid_form32(
+                ds, x3, y3, 8, 0, TPs))
+            said.append(f"cudaMemset2DAsync {_ms(by.get('Memset'))}")
+            _, by = _device_ms(torch, lambda: bk.bell2_spmm_tiles(
+                *stream_of(ds), x_il, out=y3, planes=RHS, **kw_s))
+            zero = by.get("Memset", by.get("bell2_zero_blocks_kernel"))
+            said.append(f"ships: kernel {_ms(by.get('bell2_spmv_kernel'))} "
+                        f"+ zero {_ms(zero)}")
+            print(f"{head} round {rnd}, device ms: " + "; ".join(said)
+                  + f" ({card})", flush=True)
+        said = []
+        for covers in (False, True, True, False):
+            _, by = _device_ms(torch, lambda: bk.bell2_spmv_tiles(
+                *stream_of(ds), x1, out=y1, covers=covers, **ds.stream_kw()))
+            zero = by.get("Memset", by.get("bell2_zero_blocks_kernel"))
+            said.append(f"{'cudaMemset2DAsync' if covers else 'zero kernel'}"
+                        f" {_ms(zero)} + kernel "
+                        f"{_ms(by.get('bell2_spmv_kernel'))}")
+        print(f"bell2_spmv (B2) zero passes on {on} in turns, device ms: "
+              + "; ".join(said) + f" ({card})", flush=True)
     phase_done("4 kernels against twins")
 
     # -- 5. times: kernels, then the kernel path against the plain path --

@@ -690,6 +690,118 @@ def test_sbell_spmm_plain_matches_reference(tw, bt, monkeypatch):
         assert torch.equal(yb, got[b])
 
 
+def _none_stream():
+    """The whole-matrix stream the untuned path (``Tuning.NONE``) uploads,
+    at test size."""
+    import cfs_spmv_tpu_torch as ct
+    from cfs_spmv_tpu_torch.utils import proxies as port_proxies
+
+    A = ct.SparseMatrix.create(port_proxies.cant_proxy(n=4096),
+                               ct.Format.SSS)
+    ct.SpDMV(A, ct.Tuning.NONE, device="cpu")
+    return A.tuned.operands
+
+
+@pytest.mark.parametrize("name,covers", [
+    ("grouped", True), ("tuning_none", True), ("deep16_holes", False),
+    ("flagship_far", False)])
+def test_bell2_device_covers(name, covers):
+    """``Bell2Device.covers``: True for streams whose chunk grid visits
+    every output block (audikw's grouped far stream, the untuned whole
+    stream), so that the kernel zeroes whole planes; False for the
+    8-tile-block replan whose absent rows leave blocks unvisited and for a
+    sparse residual (both travel as entries)."""
+    if name == "tuning_none":
+        d = _none_stream()
+        assert isinstance(d, ops.Bell2Device) and d.vals is not None
+    else:
+        plan = {**DENSE, **SPARSE}[name][0]()
+        d = ops.to_device(plan, "cpu")
+        assert ops._visits_every_block(
+            plan.step_block, plan.num_row_tiles,
+            plan.tiles_per_block) == (name != "deep16_holes")
+    assert d.covers == covers
+
+
+@pytest.mark.parametrize("B", [1, 8, 11])
+@pytest.mark.parametrize("name", ["contig8", "deep16_holes"])
+def test_bell2_covers_zeroes_whole_planes(name, B):
+    """The twins with ``covers``: on a stream that visits every block the
+    whole NaN-poisoned planes come out finite and equal to the result
+    without ``covers`` (the visited blocks zeroed one by one); on the
+    replan whose blocks are not all visited, uncovered blocks keep their
+    NaN. B = 1 runs B2's wrapper, 8 and 11 B7's."""
+    plan = (DENSE_MM[name][0] if name in DENSE_MM else SPARSE[name][0])()
+    covers = ops._visits_every_block(plan.step_block, plan.num_row_tiles,
+                                     plan.tiles_per_block)
+    assert covers == (name == "contig8")
+    kw = dict(num_row_tiles=plan.num_row_tiles,
+              chunks_per_step=plan.chunks_per_step,
+              tiles_per_block=plan.tiles_per_block,
+              contig=plan.windows_contig or plan.window_depth > 8)
+    TP = -(-plan.num_row_tiles // plan.tiles_per_block) \
+        * plan.tiles_per_block
+    x3d = torch.from_numpy(_x3d(plan.ncols, plan.x_rows, B, 31))
+
+    def run(cov):
+        out = torch.full((B, TP, 128), float("nan"))
+        if B == 1:
+            bk.bell2_spmv_tiles(*_grid(plan), x3d[0], out=out[0], covers=cov,
+                                **kw)
+        else:
+            bk.bell2_spmm_tiles(*_grid(plan), x3d, out=out, covers=cov, **kw)
+        return out
+
+    parent, got = run(False), run(covers)
+    rows = _visited_rows(plan)
+    rest = np.setdiff1d(np.arange(TP), rows)
+    assert (len(rest) > 0) == (not covers)
+    assert torch.equal(got[:, rows], parent[:, rows])
+    assert torch.isfinite(got[:, rows]).all()
+    if covers:
+        assert torch.isfinite(got).all()
+    else:
+        assert torch.isnan(got[:, rest]).all()
+    assert bk.bell2_spmv_tiles.launches == bk.bell2_spmm_tiles.launches == 0
+
+
+@pytest.mark.parametrize("B", [1, 8, 11])
+@pytest.mark.parametrize("name", sorted(DENSE_MM))
+def test_bell2_spmm_interleaved_x_matches_planes(name, B):
+    """B7 over an interleaved X (``pad_x_mm_il``: an element's group of 8
+    planes side by side, zero past the last plane): the helper holds the
+    planes of ``pad_x_mm``, and the twin that reads it gives the planes
+    twin's result bit for bit; the wrapper refuses a misshapen one."""
+    plan = DENSE_MM[name][0]()
+    pd = ops.to_device(plan, "cpu")
+    X = torch.from_numpy(np.random.default_rng(B).uniform(
+        -1, 1, (plan.ncols, B)).astype(np.float32))
+    x3d = ops.pad_x_mm(X, plan.x_rows)
+    x_il = ops.pad_x_mm_il(X, plan.x_rows)
+    G = -(-B // 8)
+    assert x_il.shape == (G, plan.x_rows * 128, 8) and x_il.is_contiguous()
+    flat = x3d.reshape(B, -1)
+    for b in range(B):
+        assert torch.equal(x_il[b // 8, :, b % 8], flat[b])
+    assert (x_il[-1, :, B - 8 * (G - 1):] == 0).all()
+    assert torch.equal(bk.planes_of_interleaved(x_il, B), x3d)
+    kw = dict(_port_kw(pd), covers=pd.covers)
+    TP = -(-pd.num_row_tiles // pd.tiles_per_block) * pd.tiles_per_block
+    grid = (pd.vals, pd.packed, pd.meta, pd.step_block)
+    want = bk.bell2_spmm_tiles(*grid, x3d,
+                               out=torch.full((B, TP, 128), float("nan")),
+                               **kw)
+    got = bk.bell2_spmm_tiles(*grid, x_il, planes=B,
+                              out=torch.full((B, TP, 128), float("nan")),
+                              **kw)
+    assert torch.equal(got, want) and torch.isfinite(got).all()
+    for bad in (x_il[..., :4].contiguous(), x_il.double(),
+                torch.cat([x_il, x_il])):
+        with pytest.raises((ValueError, TypeError)):
+            bk.bell2_spmm_tiles(*grid, bad, planes=B, **kw)
+    assert bk.bell2_spmm_tiles.launches == 0
+
+
 def test_bell2_wrappers_check_operands():
     plan = _band(300)()
     pd = ops.to_device(plan, "cpu")

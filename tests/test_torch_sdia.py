@@ -2,7 +2,13 @@
 their multi-RHS forms B11 and B12: the port's plain twins against the
 reference's Pallas ``sdia_sym_tiles``, ``sdia_gen_tiles``,
 ``sdia_sym_tiles_mm`` and ``sdia_gen_tiles_mm`` (interpret mode), and
-each MM twin against its SpMV twin column by column.
+each MM twin against its SpMV twin column by column. A numpy model of the
+symmetric CUDA kernel's work split (``_sym_model``: CTAs of rows, slices
+of a row's diagonals, the shared y tile with its halo, the gather form of
+large offsets) runs every form the kernel was measured in
+(``chip_smoke.SDIA_FORMS``; the port's kernel is the 128 x 2 gather form,
+with x staged over planes), in float32 and float64 (B1, B11, B13, B14),
+against the twin and the reference.
 
 Random values on every diagonal (padding rows included), offsets that
 hit lane shift 0 and sublane shifts > 0 and cross 1024-row blocks (for
@@ -12,16 +18,22 @@ nonzero incoming y, and (B6) a NaN-poisoned y tail past the value rows,
 which must keep its value. The MM cases add a Y whose planes sit at a
 plane stride larger than a plane (a column slice of a wider buffer).
 
-Tolerance: ``allclose_spmv`` at float32 with the backward-error scale
-(|vals|, |x|, |y| through the float64 twin), since the Pallas
-interpreter and the twin sum in different orders.
+Tolerance: ``allclose_spmv`` at float32 (float64 for the float64 model
+cases) with the backward-error scale (|vals|, |x|, |y| through the
+float64 twin), since the Pallas interpreter, the twin and the model sum
+in different orders.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import SDIA_FORMS
+from cfs_spmv_tpu.ops import bell2_df as ref_bdf
+from cfs_spmv_tpu.ops import sdia_df as ref_sdf
 from cfs_spmv_tpu.ops.sdia_kernel import sdia_gen_tiles as ref_sdia_gen
 from cfs_spmv_tpu.ops.sdia_kernel import sdia_gen_tiles_mm as ref_sdia_gen_mm
 from cfs_spmv_tpu.ops.sdia_kernel import sdia_sym_tiles as ref_sdia_sym
@@ -211,3 +223,149 @@ def test_sdia_sym_wrapper_checks_operands():
     for w in (sdia_sym_tiles, sdia_gen_tiles, sdia_sym_tiles_mm,
               sdia_gen_tiles_mm):
         assert w.launches == 0  # CPU tensors never launch
+
+
+# -- the symmetric CUDA kernel's work split, as a numpy model ---------------
+
+#: ``kSdiaHalo`` of ``csrc/spmv_kernels.cu``: offsets up to it scatter
+SDIA_HALO = 64
+#: ``utils/proxies.stencil27(g=40)``'s lower diagonals: past a value block
+STENCIL27_OFFSETS = (1, 39, 40, 41, 1559, 1560, 1561, 1599, 1600, 1601,
+                     1639, 1640, 1641)
+
+
+def _sym_model(vals, x3d, y3d, offsets, rows, slices, scatter, stage_x):
+    """``y3d + (L + Lᵀ) x3d`` as ``sdia_sym_kernel<T, kRhs, rows, slices,
+    scatter, stage_x>`` splits the work, in the values' type (``stage_x``
+    moves where x is read from, not what is summed): a CTA takes ``rows``
+    value rows h (a grid over the value rows up to y's end, and with the
+    scatter form ``SDIA_HALO`` rows past it); slice s of each row takes
+    diagonals s, s + slices, ...; the row side gathers x[h - d]; the
+    transpose side of an offset up to the halo (scatter form) adds
+    v[h] x[h] into the CTA's y tile at row h - d, its rows below the CTA
+    being the halo, and any other offset gathers v[h + d] x[h + d] into row
+    h. The tile goes to y: rows another CTA may also write by atomicAdd
+    (the halo, and the top rows as deep as the largest scattered offset),
+    the others by a plain add. Raises when a row that one CTA adds plainly
+    is written by another CTA at all (a race on the card)."""
+    R, D = vals.shape[:2]
+    NV = R * 1024
+    vd = vals.transpose(1, 0, 2, 3).reshape(D, NV)
+    B = x3d.shape[0]
+    xf = x3d.reshape(B, -1)
+    XL = xf.shape[1]
+    y = y3d.reshape(B, -1).copy()
+    YL = y.shape[1]
+    halo = SDIA_HALO if scatter else 0
+    hmax = max((d for d in offsets if d <= halo), default=0)
+    plain_by = np.full(YL, -1)
+    atomics = np.zeros(YL, np.int64)
+
+    def x_at(i):
+        return np.where((i >= 0) & (i < XL), xf[:, np.clip(i, 0, XL - 1)], 0)
+
+    def v_at(j, i):
+        return np.where(i < NV, vd[j, np.minimum(i, NV - 1)], 0)
+
+    for cta, r0 in enumerate(range(0, min(NV, YL + halo), rows)):
+        h = r0 + np.arange(rows)
+        tile = np.zeros((B, halo + rows), vals.dtype)
+        sums = np.zeros((slices, B, rows), vals.dtype)
+        for s in range(slices):
+            for j in range(s, D, slices):
+                d = offsets[j]
+                v = v_at(j, h)
+                sums[s] += v * x_at(h - d)
+                if scatter and d <= halo:
+                    tile[:, halo - d: halo - d + rows] += v * x_at(h)
+                else:
+                    sums[s] += v_at(j, h + d) * x_at(h + d)
+        tile[:, halo:] += sums.sum(0)
+        g = r0 - halo + np.arange(halo + rows)
+        ok = (g >= 0) & (g < YL)
+        shared = (g < r0) | (g >= r0 + rows - hmax)
+        touched = ok & (~shared | (tile != 0).any(0))
+        for gi in g[touched & shared]:
+            assert plain_by[gi] == -1, f"row {gi}: atomics onto a plain add"
+            atomics[gi] += 1
+        for gi in g[touched & ~shared]:
+            assert plain_by[gi] == -1 and atomics[gi] == 0, f"row {gi}: race"
+            plain_by[gi] = cta
+        y[:, g[ok]] += tile[:, ok]
+    return y.reshape(y3d.shape)
+
+
+#: name -> (type, offsets, value blocks R, y tiles T, x rows, planes B):
+#: tile-edge and mid-tile row counts (T * 128 against 32-256-row CTAs),
+#: x shorter than the value rows (float32: the reference's double-float
+#: kernel gives the rows of x only), the halved main diagonal at offset 0
+#: in float64, and stencil27's offsets past a value block
+MODEL_CASES = {
+    "f32_offsets": (np.float32, OFFSETS, 3, 20, 22, 1),
+    "f32_offsets_mm": (np.float32, OFFSETS, 3, 23, 16, 3),
+    "f32_stencil27_mm": (np.float32, STENCIL27_OFFSETS, 3, 24, 21, 3),
+    "f64_offsets": (np.float64, (0,) + OFFSETS, 3, 23, 24, 1),
+    "f64_stencil27": (np.float64, (0,) + STENCIL27_OFFSETS, 3, 20, 24, 1),
+    "f64_stencil27_mm": (np.float64, (0,) + STENCIL27_OFFSETS, 3, 17, 24, 2),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _model_operands(case):
+    """(vals, x3d, y0, the reference's result) of a model case: float32
+    through the reference's ``sdia_sym_tiles(_mm)``, float64 through its
+    double-float ``sdia_sym_tiles_df(_mm)`` (from zero tiles, folded in
+    float64, plus y0), both in interpret mode."""
+    dtype, offs, R, T, x_rows, B = MODEL_CASES[case]
+    assert R % _blocks_per_step(R, len(offs)) == 0
+    rng = np.random.default_rng(sum(map(ord, case)))
+    vals = rng.uniform(-1, 1, (R, len(offs), 8, 128)).astype(dtype)
+    x3d = rng.uniform(-1, 1, (B, x_rows, 128)).astype(dtype)
+    y0 = rng.uniform(-1, 1, (B, T, 128)).astype(dtype)
+    if dtype == np.float32:
+        if B == 1:
+            ref = np.asarray(ref_sdia_sym(
+                jnp.asarray(vals), jnp.asarray(x3d[0]), jnp.asarray(y0[0]),
+                offsets=offs, interpret=True))[None]
+        else:
+            ref = np.asarray(ref_sdia_sym_mm(
+                jnp.asarray(vals), jnp.asarray(x3d), jnp.asarray(y0),
+                offsets=offs, interpret=True))
+    else:
+        kernel = (ref_sdf.sdia_sym_tiles_df if B == 1
+                  else ref_sdf.sdia_sym_tiles_df_mm)
+        yh, yl = kernel(*(jnp.asarray(a) for a in (
+            *ref_bdf.split_df(vals),
+            *ref_bdf.split_df(x3d[0] if B == 1 else x3d))),
+            offsets=offs, interpret=True)
+        ref = (np.asarray(yh, np.float64) + np.asarray(yl, np.float64))
+        ref = ref.reshape(B, -1)[:, : T * 128].reshape(B, T, 128) + y0
+    return vals, x3d, y0, ref
+
+
+@pytest.mark.parametrize("form", SDIA_FORMS,
+                         ids=lambda f: f"{f[0]}x{f[1]}-"
+                         f"{'scatter' if f[2] else 'gather'}"
+                         f"{'-staged' if f[3] else ''}")
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_sdia_sym_work_split_matches_twin_and_reference(case, form):
+    """Every form of the symmetric kernel (the one that ships and the ones
+    built beside it for comparison) as the numpy model: against the plain
+    twin and the reference, race-free."""
+    dtype = MODEL_CASES[case][0]
+    offs = MODEL_CASES[case][1]
+    vals, x3d, y0, ref = _model_operands(case)
+    got = _sym_model(vals, x3d, y0, offs, *form)
+    t_offs = torch.tensor(offs, dtype=torch.int32)
+    tv, tx = torch.from_numpy(vals), torch.from_numpy(x3d)
+    plain = sdia_sym_tiles_mm_plain(tv, tx, torch.from_numpy(y0.copy()),
+                                    t_offs).numpy()
+    scale = sdia_sym_tiles_mm_plain(
+        tv.abs().double(), tx.abs().double(),
+        torch.from_numpy(np.abs(y0)).double(), t_offs).numpy()
+    D = len(offs)
+    assert got.dtype == dtype and np.isfinite(got).all()
+    for want in (plain, ref):
+        assert allclose_spmv(got, want, dtype, nnz_per_row=2 * D,
+                             scale=scale)
+    assert not np.array_equal(got, y0)

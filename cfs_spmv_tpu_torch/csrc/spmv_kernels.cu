@@ -100,8 +100,9 @@ __device__ __forceinline__ double mul_add(double a, double b, double c) {
 // its row side v_j[h] x[h - d_j] and gathers its transpose side v_j[h +
 // d_j] x[h + d_j], reading that value a second time; the slices' sums meet
 // in shared memory and the CTA adds each output row once, no atomics.
-// Over planes, where at least half the offsets are within kSdiaHalo (cant,
-// the flagship), the CTA first stages the x rows within kSdiaHalo of its own
+// Over planes, given stage (the upload's ``dia_stage_x``: at least half the
+// offsets within kSdiaHalo, as on cant and the flagship, decided once from
+// the offsets), the CTA first stages the x rows within kSdiaHalo of its own
 // for every plane in shared memory, and those offsets read x there; offsets
 // past it (stencil27's 1,559-1,641) read x from global memory. Measured
 // beside it and slower (SDIA_SYM_ALT_SRC of chip_smoke.py, PERF.md §6): 1,
@@ -119,7 +120,7 @@ __global__ void sdia_sym_kernel(const T* __restrict__ vals,
                                 int64_t n_vals_rows,
                                 const T* __restrict__ x, int64_t x_len,
                                 int64_t xs, T* __restrict__ y, int64_t y_len,
-                                int64_t ys, int nr) {
+                                int64_t ys, int nr, bool stage) {
   constexpr int kThreads = kSdiaRows * kSdiaSlices;
   constexpr int kUnroll = kRhs == 1 ? 4 : 2;
   constexpr bool kMayStage = kRhs > 1;
@@ -127,21 +128,14 @@ __global__ void sdia_sym_kernel(const T* __restrict__ vals,
   __shared__ T sums[kSdiaSlices][kRhs][kSdiaRows];
   // x[r0 - kSdiaHalo, r0 + kSdiaRows + kSdiaHalo) of each plane
   __shared__ T xsh[kMayStage ? kRhs : 1][kXSpan];
-  __shared__ int n_near;  // offsets within kSdiaHalo
   const int tid = threadIdx.x;
   const int r = tid % kSdiaRows, s = tid / kSdiaRows;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kSdiaRows;
   const int64_t h = r0 + r;
   const bool hv = h < n_vals_rows;
   const T* vh = vals + (h >> 10) * D * kBlockRows + (h & (kBlockRows - 1));
-  bool stage = false;
+  stage = kMayStage && stage;
   if constexpr (kMayStage) {
-    if (tid == 0) n_near = 0;
-    __syncthreads();
-    for (int j = tid; j < D; j += kThreads)
-      if (offsets[j] <= kSdiaHalo) atomicAdd(&n_near, 1);
-    __syncthreads();
-    stage = 2 * n_near >= D;
     if (stage) {
       for (int i = tid; i < kRhs * kXSpan; i += kThreads) {
         const int b = i / kXSpan, k = i % kXSpan;
@@ -265,9 +259,9 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // core, but a K = 128 step count (63 steps for the audikw proxy) would
 // leave most of the 132 SMs idle, so each step is split across K / kWalk
 // CTAs. The float SpMV instance walks kChunksPerCta, the float multi-RHS
-// ones kFloatMmWalk over planes and kInterleavedWalk over an interleaved X
-// (of walks 1, 2, 4 and 8 the fastest over audikw_proxy() and
-// cant_proxy() NONE together at 8 planes, PERF.md §6); the double ones
+// ones kInterleavedWalk (of walks 1, 2, 4 and 8 the fastest over
+// audikw_proxy() and cant_proxy() NONE together at 8 planes, PERF.md §6);
+// the double ones
 // kDoubleWalk, one chunk a CTA: a walk of 8 left 3.9 CTAs an SM on the
 // 4,096 chunks of general_asym() in float64, and one chunk a CTA beat walks
 // of 2, 4, 8 and the fewest that keep every CTA resident at once (walk_for
@@ -275,15 +269,16 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // planes (PERF.md §6). A walk given at run time made the float
 // instance 7% slower on audikw_proxy(), hence the template argument. The
 // chunk's r2 fields go through
-// shared memory (a lane needs lane q's field). Over planes a slot reads x
-// as kRhs gathers from the planes, each of which may cost a 32-byte sector
-// for 4 or 8 bytes, or (kInterleaved, the float multi-RHS instances) from
-// an interleaved X that holds each element's group of 8 planes in one
-// 32-byte sector, with two 16-byte loads: x then points at the group's
-// (x_rows * 128, 8) block. At 8 planes on audikw_proxy() that took 0.0369
-// ms against 0.0646 for the gathers from the planes, and staging the
-// chunk's window rows of x in shared memory 0.0812 (NVIDIA H100 80GB HBM3,
-// 700 W, PERF.md §6). Each thread keeps one
+// shared memory (a lane needs lane q's field). Over planes the double
+// instances read x as kRhs gathers from the planes, each of which may cost
+// a 32-byte sector for 8 bytes. The float multi-RHS instances (kInterleaved)
+// read an interleaved X instead, which holds an element's kRhs planes side
+// by side (8, 16 or 32 bytes, one sector), in one 8- or 16-byte load or
+// two: x then points at the group's (x_rows * 128, kRhs) block. At 8 planes
+// on audikw_proxy() that took 0.0369 ms against 0.0646 for the gathers from
+// the planes, and staging the chunk's window rows of x in shared memory
+// 0.0812 (NVIDIA H100 80GB HBM3, 700 W, PERF.md §6). One plane is a plain
+// plane and takes the SpMV instance. Each thread keeps one
 // register sum per plane while the target row stays the same and flushes
 // them with one atomicAdd each when the row changes and at the walk's end,
 // so a walk may start and end between any two chunks: blocks of different
@@ -300,12 +295,11 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 // whole planes.
 // ---------------------------------------------------------------------------
 constexpr int kChunksPerCta = 8;
-constexpr int kFloatMmWalk = 1;
 constexpr int kInterleavedWalk = 2;
 constexpr int kDoubleWalk = 1;
 
-// The kRhs planes of one interleaved x element (8 floats, 32-byte
-// aligned): 16-byte loads.
+// The kRhs planes of one interleaved x element (kRhs floats, aligned to
+// their size): 8- or 16-byte loads.
 template <int kRhs>
 __device__ __forceinline__ void load_group(const float* p, float (&v)[kRhs]) {
   static_assert(kRhs == 2 || kRhs == 4 || kRhs == 8, "a group of planes");
@@ -406,7 +400,7 @@ bell2_spmv_kernel(const T* __restrict__ vals,
       const T* xq = x + static_cast<int64_t>(xrow) * kLanes + q;
       if constexpr (kInterleaved) {
         T xv[kRhs];
-        load_group<kRhs>(x + (static_cast<int64_t>(xrow) * kLanes + q) * kMaxRhs,
+        load_group<kRhs>(x + (static_cast<int64_t>(xrow) * kLanes + q) * kRhs,
                          xv);
 #pragma unroll
         for (int b = 0; b < kRhs; ++b)
@@ -765,11 +759,13 @@ int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 
 // The launchers of the two kernels that exist in float and in double; the
 // entry points below name the type.
+// stage_x: over planes, stage the x rows within kSdiaHalo of a CTA's own
+// (any value gives the same sums; one plane never stages).
 template <typename T>
 int launch_sdia_sym(const T* vals, const int* offsets, int D,
                     int64_t n_vals_rows, int64_t x_len, int64_t y_len,
-                    const T* x, int64_t xs, T* y, int64_t ys, int nr,
-                    cudaStream_t stream) {
+                    int stage_x, const T* x, int64_t xs, T* y, int64_t ys,
+                    int nr, cudaStream_t stream) {
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
     // rows past the value rows get nothing
@@ -778,7 +774,7 @@ int launch_sdia_sym(const T* vals, const int* offsets, int D,
       sdia_sym_kernel<T, R>
           <<<blocks_for(rows, kSdiaRows), kSdiaRows * kSdiaSlices, 0,
              stream>>>(vals, offsets, D, n_vals_rows, x, x_len, xs, y, y_len,
-                       ys, nr);
+                       ys, nr, stage_x != 0);
   });
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
@@ -799,11 +795,11 @@ int walk_for(Kernel kernel, int64_t C, int max_walk) {
 }
 
 // kWalk: chunks a CTA of the one-plane instance, kWalkMm of the
-// multi-plane ones; kInterleaved: x is an interleaved group (which takes
-// the two-plane instance for one plane too). tiles: the rows of 128 of
-// each output plane to zero with cudaMemset2DAsync (a stream that visits
-// every block); 0 runs the zero kernel, which leaves unvisited blocks as
-// they are.
+// multi-plane ones; kInterleaved: a group of R > 1 planes is an
+// interleaved block of R planes an element (one plane is a plane). tiles:
+// the rows of 128 of each output plane to zero with cudaMemset2DAsync (a
+// stream that visits every block); 0 runs the zero kernel, which leaves
+// unvisited blocks as they are.
 template <typename T, int kWalk, int kWalkMm, bool kInterleaved>
 int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
                       const int* step_block, int64_t C, int K, int BT,
@@ -812,8 +808,7 @@ int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
   if (tiles < 0) return invalid();
   cudaError_t zeroed = cudaSuccess;
   const bool ok = with_rhs(nr, [&](auto r) {
-    constexpr int R0 = decltype(r)::value;
-    constexpr int R = R0 == 1 && kInterleaved ? 2 : R0;
+    constexpr int R = decltype(r)::value;
     constexpr int W = R == 1 ? kWalk : kWalkMm;
     constexpr bool X = R > 1 && kInterleaved;
     if (C <= 0) return;
@@ -879,18 +874,18 @@ extern "C" {
 
 int cfs_sdia_sym(const float* vals, const int* offsets, int D,
                  int64_t n_vals_rows, int64_t x_len, int64_t y_len,
-                 const float* x, int64_t xs, float* y, int64_t ys, int nr,
-                 cudaStream_t stream) {
+                 int stage_x, const float* x, int64_t xs, float* y,
+                 int64_t ys, int nr, cudaStream_t stream) {
   return launch_sdia_sym<float>(vals, offsets, D, n_vals_rows, x_len, y_len,
-                                x, xs, y, ys, nr, stream);
+                                stage_x, x, xs, y, ys, nr, stream);
 }
 
 int cfs_sdia_sym_f64(const double* vals, const int* offsets, int D,
                      int64_t n_vals_rows, int64_t x_len, int64_t y_len,
-                     const double* x, int64_t xs, double* y, int64_t ys,
-                     int nr, cudaStream_t stream) {
+                     int stage_x, const double* x, int64_t xs, double* y,
+                     int64_t ys, int nr, cudaStream_t stream) {
   return launch_sdia_sym<double>(vals, offsets, D, n_vals_rows, x_len, y_len,
-                                 x, xs, y, ys, nr, stream);
+                                 stage_x, x, xs, y, ys, nr, stream);
 }
 
 int cfs_sdia_gen(const float* vals, const int* offsets, int D,
@@ -943,24 +938,15 @@ int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
 // tiles > 0 (the rows of 128 of each output plane): the stream visits
 // every block, and the whole planes are zeroed by cudaMemset2DAsync; 0:
 // the zero kernel, visited blocks only. The float stream walks
-// kChunksPerCta chunks a CTA for one plane and kFloatMmWalk for more; the
-// double one walks kDoubleWalk. x: planes at plane stride xs.
+// kChunksPerCta chunks a CTA for one plane and kInterleavedWalk for more,
+// and x is the plane (nr = 1) or the group's interleaved (x_rows * 128, R)
+// block, R the instance's width: 2 for nr = 2, 4 for 3-4, 8 for 5-8 (xs is
+// not read). The double one walks kDoubleWalk; x: planes at plane stride
+// xs.
 int cfs_bell2_spmv(const float* vals, const int16_t* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT,
                    int contig, int64_t tiles, const float* x, int64_t xs,
                    float* y, int64_t ys, int nr, cudaStream_t stream) {
-  return launch_bell2_spmv<float, kChunksPerCta, kFloatMmWalk, false>(
-      vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y, ys,
-      nr, stream);
-}
-
-// The same over an interleaved X: x is the group's (x_rows * 128, 8) block
-// of nr planes (xs is not read).
-int cfs_bell2_spmm_il(const float* vals, const int16_t* packed,
-                      const int* meta, const int* step_block, int64_t C,
-                      int K, int BT, int contig, int64_t tiles,
-                      const float* x, int64_t xs, float* y, int64_t ys,
-                      int nr, cudaStream_t stream) {
   return launch_bell2_spmv<float, kChunksPerCta, kInterleavedWalk, true>(
       vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y, ys,
       nr, stream);

@@ -83,17 +83,17 @@ def _bind(path: str) -> ctypes.CDLL:
     planes = [p, i64, p, i64, i32, p]
     # the float and double forms of an entry point differ in what their
     # pointers point at, not in their argument lists
+    # (sdia_sym: the i32 before the planes stages x over planes)
     for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64):
-        fn.argtypes = [p, p, i32, i64, i64, i64, *planes]
+        fn.argtypes = [p, p, i32, i64, i64, i64, i32, *planes]
     cdll.cfs_sdia_gen.argtypes = [p, p, i32, i64, i64, *planes]
     cdll.cfs_sbell_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, i64,
                                     *planes]
     cdll.cfs_sbell_chunks_per_cta.argtypes = [i64, i32, i32]
     # ... the i64 before the planes: the tile count of the planes to zero
-    # whole (0: the visited blocks only)
-    # (cfs_bell2_spmm_il: x is an interleaved group, see launch_groups)
-    for fn in (cdll.cfs_bell2_spmv, cdll.cfs_bell2_spmv_f64,
-               cdll.cfs_bell2_spmm_il):
+    # whole (0: the visited blocks only); the float one reads a group of
+    # planes interleaved (``bell2_kernel.interleave_x``)
+    for fn in (cdll.cfs_bell2_spmv, cdll.cfs_bell2_spmv_f64):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i32, i64, *planes]
     for fn in (cdll.cfs_bell2_entries, cdll.cfs_bell2_entries_f64):
         fn.argtypes = [p, p, p, i64, *planes]
@@ -101,7 +101,6 @@ def _bind(path: str) -> ctypes.CDLL:
     for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64, cdll.cfs_sdia_gen,
                cdll.cfs_sbell_spmv, cdll.cfs_sbell_chunks_per_cta,
                cdll.cfs_bell2_spmv, cdll.cfs_bell2_spmv_f64,
-               cdll.cfs_bell2_spmm_il,
                cdll.cfs_bell2_entries, cdll.cfs_bell2_entries_f64,
                cdll.cfs_unperm_gather):
         fn.restype = i32
@@ -169,20 +168,20 @@ def check_planes(t, name, device, dtype, B=None, rows=None) -> int:
     return t.shape[0]
 
 
-def launch_groups(name, x3d, y3d, launch, interleaved=False) -> int:
+def launch_groups(name, x3d, y3d, launch) -> int:
     """Call ``launch(x_ptr, xs, y_ptr, ys, nr, stream)`` for each group of
     at most RHS_GROUP planes of the plane stacks ``x3d`` and ``y3d``
     (strides in elements), on the current stream of ``y3d``'s device, and
-    raise on a refused launch; returns the number of launches. With
-    ``interleaved``, ``x3d`` holds one (rows, RHS_GROUP) block a group
-    (``ops/spmv.pad_x_mm_il``), and x_ptr points at the group's block."""
+    raise on a refused launch; returns the number of launches. For the
+    group whose first plane is ``b0``, x_ptr points at plane ``b0``, or at
+    row ``b0`` of an interleaved X (``bell2_kernel.interleave_x``), where
+    the group's block starts."""
     B, xs, ys = y3d.shape[0], x3d.stride(0), y3d.stride(0)
     xb, yb = xs * x3d.element_size(), ys * y3d.element_size()
     with torch.cuda.device(y3d.device):
         stream = torch.cuda.current_stream(y3d.device).cuda_stream
         for b0 in range(0, B, RHS_GROUP):
-            xg = b0 // RHS_GROUP if interleaved else b0
-            check(launch(x3d.data_ptr() + xg * xb, xs,
+            check(launch(x3d.data_ptr() + b0 * xb, xs,
                          y3d.data_ptr() + b0 * yb, ys,
                          min(RHS_GROUP, B - b0), stream), name)
     return -(-B // RHS_GROUP)

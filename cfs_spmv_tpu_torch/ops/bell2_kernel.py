@@ -20,7 +20,9 @@ the fp32 SpMV and SpMM paths reach:
   ``bell2_spmm_tiles_accum`` (B8), ``unperm_gather_tiles_mm`` (B9) and
   ``sbell_spmm_tiles`` (B10). The stream kernels read the stream once
   per launch for up to ``_cuda.RHS_GROUP`` planes; the gather serves
-  all B planes in one launch.
+  all B planes in one launch. B7's kernel reads X interleaved
+  (:func:`interleave_x`: a group's planes of one element side by side,
+  one 32-byte sector for 8 planes); its wrapper takes planes or that.
 
 A chunk is an (8, 128) slot grid. Slot (i, j) of chunk c holds the gather
 lane ``q = pk & 0x7F``; the window index ``r2`` serving gather lane q of
@@ -66,6 +68,8 @@ __all__ = [
     "sbell_spmv_tiles_plain",
     "bell2_spmm_tiles",
     "bell2_spmm_tiles_plain",
+    "interleave_x",
+    "planes_of_interleaved",
     "bell2_spmm_tiles_accum",
     "bell2_spmm_tiles_accum_plain",
     "unperm_gather_tiles_mm",
@@ -256,21 +260,21 @@ def bell2_spmv_tiles_accum_plain(entries, x2d, y_tiles):
 
 
 def _launch_bell2(vals, packed, meta, step_block, x3d, y3d, K, BT, contig,
-                  name, covers=False, interleaved=False):
-    """Launch the one-sided stream kernel (after its zero pass) over plane
-    stacks, or over an interleaved X; returns the number of launches (one
-    per group of planes). The launcher takes the planes' tile count, which
-    zeroes them whole when the stream ``covers`` every block (0: the zero
-    kernel, visited blocks)."""
-    fn = (_cuda.lib().cfs_bell2_spmm_il if interleaved
-          else _cuda.entry("bell2_spmv", vals.dtype))
+                  name, covers=False):
+    """Launch the one-sided stream kernel (after its zero pass) over the
+    output planes ``y3d``; returns the number of launches (one per group
+    of planes). ``x3d``: for float64 values planes, for float32 one plane
+    or an interleaved X (:func:`interleave_x`). The launcher takes the
+    planes' tile count, which zeroes them whole when the stream
+    ``covers`` every block (0: the zero kernel, visited blocks)."""
+    fn = _cuda.entry("bell2_spmv", vals.dtype)
     tiles = y3d.shape[1] if covers else 0
     return _cuda.launch_groups(
         name, x3d, y3d, lambda *planes: fn(
             vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
             step_block.data_ptr(), meta.shape[0], K, BT, int(contig),
             tiles, *planes,
-        ), interleaved)
+        ))
 
 
 def bell2_spmv_tiles(vals, packed, meta, step_block, x2d, *,
@@ -565,13 +569,47 @@ def _launch_sbell(vals, packed, meta, step_block, x3d, y3d, K, BT, TW, name):
         ))
 
 
+def group_widths(B: int) -> list[int]:
+    """Rows of an interleaved X of B planes, group by group: a group of
+    ``_cuda.RHS_GROUP`` planes takes 8, the last group of r planes the
+    width of the kernel instance that serves it (1, 2, 4 or 8)."""
+    G = _cuda.RHS_GROUP
+    r = B % G
+    return [G] * (B // G) + ([1 if r == 1 else 2 if r == 2 else
+                              4 if r <= 4 else G] if r else [])
+
+
+def interleave_x(x, x_rows):
+    """(m, B) X → the interleaved X that B7's kernel reads: a contiguous
+    zero-padded (W, x_rows * 128) tensor, W = ``sum(group_widths(B))``,
+    in which the group of planes b0 .. b0 + w - 1 (b0 a multiple of 8, w
+    its width) fills rows b0 .. b0 + w - 1 element by element: element e
+    of plane b0 + k sits at flat index b0 * x_rows * 128 + e * w + k. An
+    element's planes of a group are one 8-, 16- or 32-byte load, and each
+    group starts where plane b0 would, 32-byte aligned. One plane is that
+    plane. One zeroed buffer and one copy a group."""
+    m, B = x.shape
+    n = x_rows * LANES
+    out = x.new_zeros((sum(group_widths(B)), n))
+    flat = out.view(-1)
+    for g, w in enumerate(group_widths(B)):
+        b0 = g * _cuda.RHS_GROUP
+        nr = min(_cuda.RHS_GROUP, B - b0)
+        flat[b0 * n:(b0 + w) * n].view(n, w)[:m, :nr] = x[:, b0:b0 + nr]
+    return out
+
+
 def planes_of_interleaved(x_il, planes):
-    """The (B, x_rows, 128) planes of an interleaved X ``x_il`` (G,
-    x_rows * 128, 8) that holds ``planes`` = B of them
-    (``ops/spmv.pad_x_mm_il``)."""
-    G, n, W = x_il.shape
-    return x_il.permute(0, 2, 1).reshape(G * W, n)[:planes].reshape(
-        planes, n // LANES, LANES)
+    """The (B, x_rows, 128) planes of an interleaved X ``x_il`` of
+    ``planes`` = B of them (:func:`interleave_x`)."""
+    n = x_il.shape[1]
+    flat = x_il.reshape(-1)
+    groups = []
+    for g, w in enumerate(group_widths(planes)):
+        b0 = g * _cuda.RHS_GROUP
+        nr = min(_cuda.RHS_GROUP, planes - b0)
+        groups.append(flat[b0 * n:(b0 + w) * n].view(n, w).T[:nr])
+    return torch.cat(groups).reshape(planes, n // LANES, LANES)
 
 
 def bell2_spmm_tiles_plain(vals, packed, meta, step_block, x3d, *,
@@ -601,14 +639,13 @@ def bell2_spmm_tiles(vals, packed, meta, step_block, x3d, *,
     sides.
 
     ``x3d``: (B, x_rows, 128) float32 planes, each contiguous (any plane
-    stride); or, given ``planes`` = B, an interleaved X (ceil(B/8), x_rows
-    * 128, 8) from ``ops/spmv.pad_x_mm_il``, which the kernel reads a
-    group's 8 planes of an element at a time, one 32-byte sector. The
-    output is a contiguous (B, ceil(T/BT)*BT, 128) buffer
-    (``out``, or ``torch.empty``) of which, in every plane, the blocks
-    the stream visits are zeroed and accumulated; unvisited blocks keep
-    whatever the buffer held (with ``covers=True``, as
-    :func:`bell2_spmv_tiles`, the whole planes are zeroed). Returns its
+    stride), which the wrapper interleaves for the kernel (one copy); or,
+    given ``planes`` = B, X already interleaved (:func:`interleave_x`, as
+    the appliers pass it). The output is a contiguous (B,
+    ceil(T/BT)*BT, 128) buffer (``out``, or ``torch.empty``) of which, in
+    every plane, the blocks the stream visits are zeroed and accumulated;
+    unvisited blocks keep whatever the buffer held (with ``covers=True``,
+    as :func:`bell2_spmv_tiles`, the whole planes are zeroed). Returns its
     first T rows of each plane. Other operands as
     :func:`bell2_spmv_tiles`.
 
@@ -622,16 +659,18 @@ def bell2_spmm_tiles(vals, packed, meta, step_block, x3d, *,
 
 
 def _check_interleaved(x_il, dev, planes):
-    """An interleaved X of ``planes`` float32 planes on ``dev``."""
-    G = -(-planes // _cuda.RHS_GROUP) if planes >= 1 else 0
-    if (x_il.ndim != 3 or x_il.shape[0] != G
-            or x_il.shape[2] != _cuda.RHS_GROUP or x_il.shape[1] % LANES):
+    """An interleaved X of ``planes`` float32 planes on ``dev``, aligned
+    for the kernel's vector loads; returns ``planes``."""
+    W = sum(group_widths(planes)) if planes >= 1 else 0
+    if (W == 0 or x_il.ndim != 2 or x_il.shape[0] != W
+            or x_il.shape[1] % LANES):
         raise ValueError(f"an interleaved X of {planes} planes must be "
-                         f"({G}, x_rows * 128, {_cuda.RHS_GROUP}), got "
-                         f"{tuple(x_il.shape)}")
+                         f"({W}, x_rows * 128), got {tuple(x_il.shape)}")
     _cuda.check_dtype(x_il, "x3d", torch.float32)
     if x_il.device != dev or not x_il.is_contiguous():
         raise ValueError(f"an interleaved X must be contiguous on {dev}")
+    if x_il.data_ptr() % 32:
+        raise ValueError("an interleaved X must start 32-byte aligned")
     return planes
 
 
@@ -654,9 +693,11 @@ def _spmm_tiles(wrapper, dtype, vals, packed, meta, step_block, x3d,
             tiles_per_block=BT, contig=contig, out=out, covers=covers,
             planes=planes,
         )
+    if dtype == torch.float32 and planes is None and B > 1:
+        x3d = interleave_x(x3d.reshape(B, -1).T, x3d.shape[1])
     wrapper.launches += _launch_bell2(
         vals, packed, meta, step_block, x3d, out, K, BT, contig,
-        wrapper.__name__, covers, planes is not None)
+        wrapper.__name__, covers)
     return out[:, :num_row_tiles]
 
 

@@ -54,17 +54,18 @@ def sdia_sym_tiles_df(vals, x2d, y_tiles, offsets):
     return y_tiles
 
 
-def sdia_sym_tiles_df_mm(vals, x3d, y_tiles, offsets):
+def sdia_sym_tiles_df_mm(vals, x3d, y_tiles, offsets, stage_x=False):
     """``Y_tiles += (L + D + Lᵀ) X`` in float64 for B right-hand sides:
     ``x3d`` (B, x_rows, 128) and ``y_tiles`` (B, T, 128) float64 stacks
-    whose planes are each contiguous (any plane stride). Otherwise as
+    whose planes are each contiguous (any plane stride); ``stage_x`` as
+    in ``sdia_kernel.sdia_sym_tiles_mm``. Otherwise as
     :func:`sdia_sym_tiles_df`, plane by plane; a CUDA tensor launches
     once per group of up to ``_cuda.RHS_GROUP`` planes."""
     sk._check_mm(vals, x3d, y_tiles, offsets, torch.float64)
     if vals.device.type == "cpu":
         return sk.sdia_sym_tiles_mm_plain(vals, x3d, y_tiles, offsets)
     sdia_sym_tiles_df_mm.launches += sk._launch_sym(
-        vals, x3d, y_tiles, offsets, "sdia_sym_tiles_df_mm")
+        vals, x3d, y_tiles, offsets, "sdia_sym_tiles_df_mm", stage_x)
     return y_tiles
 
 

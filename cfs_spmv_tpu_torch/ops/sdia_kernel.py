@@ -24,9 +24,10 @@ per stored nonzero the stream moves 4 bytes (8 in float64). Layout:
 + l (zero where absent). The signed kernel (``csrc/spmv_kernels.cu``)
 runs one thread per output row, no atomics. The symmetric one splits
 each row's diagonals between two threads of a CTA, which gathers both
-sides of its rows, and over planes first stages the x rows near its own
-in shared memory where most offsets are small; no atomics either. What
-it sums is the twin's terms in another order.
+sides of its rows, and over planes, given ``stage_x`` (the upload's
+:func:`stages_x`: most offsets small), first stages the x rows near its
+own in shared memory; no atomics either. What it sums is the twin's terms
+in another order, whatever ``stage_x`` says.
 """
 
 from __future__ import annotations
@@ -49,7 +50,22 @@ __all__ = [
     "sdia_gen_tiles_mm",
     "sdia_gen_tiles_mm_plain",
     "BLOCK_ROWS",
+    "SDIA_HALO",
+    "stages_x",
 ]
+
+#: ``kSdiaHalo`` of ``csrc/spmv_kernels.cu``: over planes the symmetric
+#: kernel may stage the x rows this close to a CTA's own rows
+SDIA_HALO = 64
+
+
+def stages_x(offsets) -> bool:
+    """Whether the symmetric kernel stages x over planes for these lower
+    ``offsets``: where at least half lie within :data:`SDIA_HALO` (cant,
+    the flagship; not stencil27, 4 of whose 13 do). Decided once a plan,
+    at upload."""
+    offs = [int(d) for d in offsets]
+    return bool(offs) and 2 * sum(d <= SDIA_HALO for d in offs) >= len(offs)
 
 
 def _blocks_per_step(R: int, D: int, itemsize: int = 4) -> int:
@@ -159,36 +175,40 @@ def sdia_sym_tiles(vals, x2d, y_tiles, offsets):
     return y_tiles
 
 
-def _launch_sym(vals, x3d, y3d, offsets, name):
+def _launch_sym(vals, x3d, y3d, offsets, name, stage_x=False):
     fn = _cuda.entry("sdia_sym", vals.dtype)
     return _cuda.launch_groups(
         name, x3d, y3d, lambda *planes: fn(
             vals.data_ptr(), offsets.data_ptr(), vals.shape[1],
             vals.shape[0] * BLOCK_ROWS, x3d[0].numel(), y3d[0].numel(),
-            *planes,
+            int(stage_x), *planes,
         ))
 
 
-def sdia_sym_tiles_mm_plain(vals, x3d, y_tiles, offsets):
+def sdia_sym_tiles_mm_plain(vals, x3d, y_tiles, offsets, stage_x=False):
     """Plain PyTorch twin of :func:`sdia_sym_tiles_mm`: B1's twin once
-    per plane, accumulated in place; returns ``y_tiles``."""
+    per plane, accumulated in place; returns ``y_tiles``. ``stage_x``
+    changes nothing here."""
     for b in range(x3d.shape[0]):
         sdia_sym_tiles_plain(vals, x3d[b], y_tiles[b], offsets)
     return y_tiles
 
 
-def sdia_sym_tiles_mm(vals, x3d, y_tiles, offsets):
+def sdia_sym_tiles_mm(vals, x3d, y_tiles, offsets, stage_x=False):
     """``Y_tiles += (L + Lᵀ) X`` for B right-hand sides: ``x3d`` (B,
     x_rows, 128) and ``y_tiles`` (B, T, 128) float32 stacks whose planes
     are each contiguous (any plane stride); ``y_tiles`` is accumulated
     in place and returned. Otherwise as :func:`sdia_sym_tiles`, plane by
-    plane. A CUDA tensor launches once per group of up to
-    ``_cuda.RHS_GROUP`` planes; a CPU tensor takes the plain twin."""
+    plane. ``stage_x`` (the upload's ``dia_stage_x``) has a group of two
+    planes or more stage its CTA's x rows within :data:`SDIA_HALO` in
+    shared memory; the result is the same either way. A CUDA tensor
+    launches once per group of up to ``_cuda.RHS_GROUP`` planes; a CPU
+    tensor takes the plain twin."""
     _check_mm(vals, x3d, y_tiles, offsets)
     if vals.device.type == "cpu":
         return sdia_sym_tiles_mm_plain(vals, x3d, y_tiles, offsets)
     sdia_sym_tiles_mm.launches += _launch_sym(vals, x3d, y_tiles, offsets,
-                                              "sdia_sym_tiles_mm")
+                                              "sdia_sym_tiles_mm", stage_x)
     return y_tiles
 
 

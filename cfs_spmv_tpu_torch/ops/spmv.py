@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from ..formats.bell2 import LANES, SUBLANES
-from . import _cuda
 from . import bell2_df as bdf
 from . import bell2_kernel as bk
 from . import sdia_df as sdf
@@ -39,7 +38,6 @@ __all__ = [
     "fp64_to_device",
     "pad_x",
     "pad_x_mm",
-    "pad_x_mm_il",
     "bell2_apply",
     "bell2_apply_mm",
     "sbell_apply",
@@ -138,6 +136,9 @@ class SBellDevice:
     #: mirrored (signed) past SDIA_SYM_ROWS_MAX
     dia_offsets: torch.Tensor | None = None
     dia_mirrored: bool = False
+    #: over planes the symmetric diagonal kernel stages x near each CTA's
+    #: rows (``sdia_kernel.stages_x`` of the offsets)
+    dia_stage_x: bool = False
 
     @property
     def has_paired(self) -> bool:
@@ -172,6 +173,8 @@ class Fp64Device:
     row_perm: torch.Tensor | None = None  # (ceil(nrows/128)*128,) int64
     dia_vals: torch.Tensor | None = None  # (R, D, 8, 128) float64
     dia_offsets: torch.Tensor | None = None  # (D,) int32, each >= 0
+    #: as ``SBellDevice.dia_stage_x``
+    dia_stage_x: bool = False
     #: the live entries of an ungrouped peel residual or sparse stream,
     #: compacted from the chunk grid at upload
     entries: bk.EntryStream | None = None
@@ -352,6 +355,7 @@ def sym_to_device(plan, device) -> SBellDevice:
         tiles_per_block=plan.tiles_per_block,
         transpose_windows=plan.transpose_windows,
         dia_mirrored=any(d < 0 for d in offsets),
+        dia_stage_x=sk.stages_x(offsets),
         **paired,
         **_dia_fields(plan.dia, device),
     )
@@ -410,6 +414,7 @@ def fp64_to_device(plan, device) -> Fp64Device:
                              "diagonals (offsets >= 0) only")
         dia = _dia_fields(plan.dia, device)
         dia["dia_vals"] = dia["dia_vals"].to(torch.float64)
+        dia["dia_stage_x"] = sk.stages_x(plan.dia.offsets)
     return Fp64Device(
         nrows=plan.nrows, ncols=plan.ncols, num_row_tiles=T,
         x_rows=plan.x_rows, chunks_per_step=plan.chunks_per_step,
@@ -433,20 +438,6 @@ def pad_x_mm(x: torch.Tensor, x_rows: int) -> torch.Tensor:
     x3d = x.new_zeros((B, x_rows, LANES))
     x3d.view(B, -1)[:, :m] = x.T
     return x3d
-
-
-def pad_x_mm_il(x: torch.Tensor, x_rows: int) -> torch.Tensor:
-    """(m, B) → contiguous (ceil(B/8), x_rows * 128, 8) zero-padded
-    interleaved X: group g holds planes 8g .. 8g + 7 with an element's 8
-    planes side by side (32 bytes in float32), which the float multi-RHS
-    stream kernel reads in one sector (``bell2_kernel.bell2_spmm_tiles``
-    with ``planes=B``). One padded copy, as :func:`pad_x_mm`."""
-    m, B = x.shape
-    G = -(-B // _cuda.RHS_GROUP)
-    x_il = x.new_zeros((x_rows * LANES, G * _cuda.RHS_GROUP))
-    x_il[:m, :B] = x
-    return x_il.view(x_rows * LANES, G, _cuda.RHS_GROUP).permute(
-        1, 0, 2).contiguous()
 
 
 def _unperm_tiles(dev: Bell2Device, tiles, unperm=bk.unperm_gather_tiles):
@@ -548,26 +539,25 @@ def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
 def bell2_apply_mm(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     """Y = A X for X (ncols, B): :func:`bell2_apply` branch for branch,
     as the reference's ``bell2_apply_mm``, over (B, rows, 128) planes —
-    X padded in one pad of Xᵀ (interleaved, :func:`pad_x_mm_il`, where
-    the full stream is its only reader), the multi-RHS stream, unpermute
-    and SDIA kernels in place of the single-vector ones. Returns (nrows,
-    B), a transposed view of the output planes."""
+    X padded in one pad of Xᵀ, the multi-RHS stream, unpermute and SDIA
+    kernels in place of the single-vector ones; the full stream reads X
+    interleaved (``bell2_kernel.interleave_x``), also one padded copy.
+    Returns (nrows, B), a transposed view of the output planes."""
     B = _check_matrix(x)
     f = _kernels(plain)
     NT = dev.num_row_tiles
     full = dev.has_work and not (dev.sparse_stream and not dev.grouped)
-    # the full stream alone reads X: X interleaved, as it reads it fastest
-    il = full and dev.dia_vals is None
-    x3d = pad_x_mm_il(x, dev.x_rows) if il else pad_x_mm(x, dev.x_rows)
+    if (dev.has_work and not full) or dev.dia_vals is not None:
+        x3d = pad_x_mm(x, dev.x_rows)
     if not dev.has_work:
         tiles = x.new_zeros((B, NT, LANES))
     elif not full:
         tiles = f["bell2_acc_mm"](dev.entries, x3d,
-                                  x3d.new_zeros((B, NT, LANES)))
+                                  x.new_zeros((B, NT, LANES)))
     else:
         tiles = f["bell2_mm"](dev.vals, dev.packed, dev.meta, dev.step_block,
-                              x3d, covers=dev.covers,
-                              planes=B if il else None, **dev.stream_kw())
+                              bk.interleave_x(x, dev.x_rows), planes=B,
+                              covers=dev.covers, **dev.stream_kw())
     if dev.grouped:
         ot = _unperm_tiles_mm(dev, tiles, f["unperm_mm"])
         if dev.dia_vals is None:
@@ -626,22 +616,19 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
 def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     """Symmetric Y = (D + L + Lᵀ) X for X (nrows, B): :func:`sbell_apply`
     branch for branch, as the reference's ``sbell_apply_mm``, over (B,
-    rows, 128) planes (X interleaved, :func:`pad_x_mm_il`, where the
-    grouped far stream is its only reader) — the ``diag[:, None] * X``
-    seed or the final add,
-    the grouped far stream padded along the tile axis, the sparse far
-    residual's entries accumulated straight into the tiles,
+    rows, 128) planes — the ``diag[:, None] * X`` seed or the final add,
+    the grouped far stream (which reads X interleaved,
+    ``bell2_kernel.interleave_x``) padded along the tile axis, the sparse
+    far residual's entries accumulated straight into the tiles,
     ``sdia_gen_tiles_mm`` when the diagonals are mirrored, else
     ``sdia_sym_tiles_mm``. Returns (nrows, B), a transposed view (or, with
     a paired stream, a fresh sum)."""
     B = _check_matrix(x)
     f = _kernels(plain)
     fd = dev.far
-    # the grouped far stream alone reads X: X interleaved, as it reads it
-    # fastest
-    il = (fd is not None and fd.grouped and not dev.has_paired
-          and dev.dia_vals is None)
-    x3d = pad_x_mm_il(x, dev.x_rows) if il else pad_x_mm(x, dev.x_rows)
+    if (dev.has_paired or dev.dia_vals is not None
+            or (fd is not None and not fd.grouped)):
+        x3d = pad_x_mm(x, dev.x_rows)
     NT = dev.num_row_tiles
     if dev.has_paired:
         tiles = f["sbell_mm"](
@@ -655,18 +642,21 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     if fd is not None:
         if fd.grouped:
             ftiles = f["bell2_mm"](fd.vals, fd.packed, fd.meta,
-                                   fd.step_block, x3d, covers=fd.covers,
-                                   planes=B if il else None,
-                                   **fd.stream_kw())
+                                   fd.step_block,
+                                   bk.interleave_x(x, dev.x_rows), planes=B,
+                                   covers=fd.covers, **fd.stream_kw())
             ot = _unperm_tiles_mm(fd, ftiles, f["unperm_mm"])
             if ot.shape[1] < NT:
                 ot = torch.nn.functional.pad(ot, (0, 0, 0, NT - ot.shape[1]))
             tiles = tiles[:, :NT] + ot[:, :NT]
         else:
             tiles = f["bell2_acc_mm"](fd.entries, x3d, tiles)
-    if dev.dia_vals is not None:
-        sdia = f["sdia_gen_mm"] if dev.dia_mirrored else f["sdia_sym_mm"]
-        tiles = sdia(dev.dia_vals, x3d, tiles[:, :NT], dev.dia_offsets)
+    if dev.dia_vals is not None and dev.dia_mirrored:
+        tiles = f["sdia_gen_mm"](dev.dia_vals, x3d, tiles[:, :NT],
+                                 dev.dia_offsets)
+    elif dev.dia_vals is not None:
+        tiles = f["sdia_sym_mm"](dev.dia_vals, x3d, tiles[:, :NT],
+                                 dev.dia_offsets, stage_x=dev.dia_stage_x)
     Y = tiles.reshape(B, -1)[:, : dev.nrows].T
     return Y + dev.diag[:, None] * x if dev.has_paired else Y
 
@@ -736,5 +726,5 @@ def fp64_apply_mm(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
         tiles = x3d.new_zeros((B, TD, LANES))
     if dev.dia_vals is not None:
         tiles = f["sdia_df_mm"](dev.dia_vals, x3d, tiles[:, :TD],
-                                dev.dia_offsets)
+                                dev.dia_offsets, stage_x=dev.dia_stage_x)
     return tiles.reshape(B, -1)[:, : dev.nrows].T

@@ -57,7 +57,8 @@ Phases (each prints its wall time):
    where the plan covers them and untouched past them; a paired plan that
    leaves an output block unvisited must be refused at upload;
    ``sdia_gen`` also on a ragged ``general_asym(g=50)`` plan; ``sdia_sym``
-   on ``stencil27()`` and ``cant_proxy()``, onto a nonzero y); each
+   on ``stencil27()`` and ``cant_proxy()``, onto a nonzero y, and over
+   planes with x staged as the plan says and both ways); each
    multi-RHS kernel at B = 8 and at B = 11 (two plane groups), into
    NaN-poisoned outputs where the kernel zeroes its own (``bell2_spmm`` on
    an 8-tile-block replan with an absent row range, whose unvisited
@@ -88,8 +89,9 @@ Phases (each prints its wall time):
    from the planes, each chunk's x windows staged in shared memory, or x
    read interleaved, ``GRID_FORMS_SRC``) on the three plans of
    ``bell2_spmm`` at B = 8 and 11, timed at B = 8 on
-   ``audikw_proxy()`` and ``cant_proxy()`` NONE, and ``bell2_spmv``'s two
-   zero passes in turns; the symmetric diagonal kernel as it stood before
+   ``audikw_proxy()`` and ``cant_proxy()`` NONE, there also the planes
+   form against the interleaved X at B = 1, 2 and 4, and ``bell2_spmv``'s
+   two zero passes in turns; the symmetric diagonal kernel as it stood before
    its redesign and each step of the redesign (``SDIA_SYM_ALT_SRC``, built
    for this comparison only) on ``cant_proxy()`` and ``stencil27()`` in
    float32 and float64 at B = 1 and 11 onto strided planes against the
@@ -678,8 +680,9 @@ extern "C" int cfs_sbell_alt(const float* vals, const int* packed,
 #: ships), reading x as ``xform`` says: 0 gathers from the planes (before
 #: their redesign, at a walk of 8 after the zero kernel), 1 stages each
 #: chunk's 8 window rows of x in shared memory for every plane first, 2
-#: reads an interleaved X (a group's 8 planes of an element in one 32-byte
-#: sector; x is the group's block, ``ops/spmv.pad_x_mm_il``).
+#: reads an interleaved X as it ships (an element's planes of a group side
+#: by side at the group's width, 8 of them in one 32-byte sector; x is the
+#: group's block, ``bell2_kernel.interleave_x``).
 GRID_FORMS_SRC = r"""
 #include "{src}"
 extern "C" int cfs_bell2_f64_form(const double* vals, const int16_t* packed,
@@ -849,8 +852,8 @@ extern "C" int cfs_bell2_f32_form(const float* vals, const int16_t* packed,
 #: of its own staged in shared memory for every plane, where offsets up to
 #: 64 read them. The forms' kernel is a copy of the family the redesign was
 #: measured in; the port's ``sdia_sym_kernel`` is form 1 (128 rows x 2
-#: slices, gather), which over planes stages x as form 11 does where at
-#: least half the offsets are within 64 (``ships`` in the timings).
+#: slices, gather), which over planes stages x as form 11 does where the
+#: upload's ``dia_stage_x`` says so (``ships`` in the timings).
 SDIA_FORMS = ((256, 1, False, False), (128, 2, False, False),
               (64, 4, False, False), (32, 8, False, False),
               (256, 1, True, False), (128, 2, True, False),
@@ -1845,9 +1848,32 @@ def main() -> int:
             raise AssertionError("a kernel wrote past a plane")
         return out
 
+    def either_stage(wrapper, d, x_rows, T, on):
+        """The symmetric diagonal kernel over planes with x staged and not
+        (the plan takes ``d.dia_stage_x``) at B = 11, onto nonzero strided
+        Y planes, against the twin."""
+        dt, o = d.dia_vals.dtype, d.dia_offsets
+        x3, y3 = planes(11, x_rows, dtype=dt), planes(11, T, extra=3,
+                                                      dtype=dt)
+        yp = sk.sdia_sym_tiles_mm_plain(d.dia_vals, x3, y3.clone(), o)
+        ys = sk.sdia_sym_tiles_mm_plain(d.dia_vals.abs().double(),
+                                        x3.abs().double(),
+                                        y3.abs().double(), o)
+        said = []
+        for stage in (False, True):
+            got = strided(y3, lambda y: wrapper(d.dia_vals, x3, y, o,
+                                                stage_x=stage))
+            what = f"{wrapper.__name__} stage_x={stage} B=11 on {on}"
+            said.append(f"stage_x={stage} "
+                        f"{_agree(got, yp, ys, 2 * len(o), what)}")
+        print(f"kernel {wrapper.__name__} on {on} (the plan stages x: "
+              f"{d.dia_stage_x}), B=11 either way: max_abs_err vs twin "
+              + ", ".join(said), flush=True)
+
     # B1 + B11 on stencil27 (offsets past a value block) and on cant_proxy,
     # the kernel row's plan: B1 onto a nonzero incoming y, B11 onto nonzero
-    # Y planes held at a plane stride past the plane
+    # Y planes held at a plane stride past the plane, as the plan stages x
+    # and both ways
     errs = []
     for run_name in ("stencil27", "cant_proxy"):
         A, d, xe = operands(run_name)
@@ -1871,10 +1897,11 @@ def main() -> int:
             x3 = planes(B, d.x_rows)
             y3 = planes(B, d.num_row_tiles, extra=3)
             a = (d.dia_vals, x3)
-            o = d.dia_offsets
-            return (lambda: strided(
-                        y3, lambda y: sk.sdia_sym_tiles_mm(*a, y, o)),
-                    lambda: sk.sdia_sym_tiles_mm(*a, y3.clone(), o),
+            o, st = d.dia_offsets, d.dia_stage_x
+            return (lambda: strided(y3, lambda y: sk.sdia_sym_tiles_mm(
+                        *a, y, o, stage_x=st)),
+                    lambda: sk.sdia_sym_tiles_mm(*a, y3.clone(), o,
+                                                 stage_x=st),
                     lambda: sk.sdia_sym_tiles_mm_plain(*a, y3.clone(), o),
                     lambda: sk.sdia_sym_tiles_mm_plain(
                         d.dia_vals.abs().double(), x3.abs().double(),
@@ -1885,6 +1912,8 @@ def main() -> int:
         sym_flops = 4 * nnz_of(d.dia_vals)  # a row and a transpose product
         mm_pair("sdia_sym_mm", make_sdia_sym_mm, 2 * d.dia_vals.shape[1],
                 run_name, flops=RHS * sym_flops)
+        either_stage(sk.sdia_sym_tiles_mm, d, d.x_rows, d.num_row_tiles,
+                     run_name)
     kern["sdia_sym"] = dict(
         err=max(errs), on="cant_proxy",
         bytes=_nbytes(d.dia_vals, x2d) + 2 * _nbytes(y0), flops=sym_flops,
@@ -2007,7 +2036,7 @@ def main() -> int:
             sa = (ds.vals, ds.packed, ds.meta, ds.step_block,
                   planes(B, ds.x_rows, extra=2))
             # the kernel reads X interleaved, as the appliers pass it
-            x_il = ops.pad_x_mm_il(sa[4].reshape(B, -1).T, ds.x_rows)
+            x_il = bk.interleave_x(sa[4].reshape(B, -1).T, ds.x_rows)
             il = (*sa[:4], x_il)
 
             def check():
@@ -2558,10 +2587,11 @@ def main() -> int:
             x3 = planes(B, rows, extra=2, dtype=f64)
             y3 = planes(B, TD, extra=3, dtype=f64)
             a = (d.dia_vals, x3)
-            o = d.dia_offsets
-            return (lambda: strided(
-                        y3, lambda y: sdf.sdia_sym_tiles_df_mm(*a, y, o)),
-                    lambda: sdf.sdia_sym_tiles_df_mm(*a, y3.clone(), o),
+            o, st = d.dia_offsets, d.dia_stage_x
+            return (lambda: strided(y3, lambda y: sdf.sdia_sym_tiles_df_mm(
+                        *a, y, o, stage_x=st)),
+                    lambda: sdf.sdia_sym_tiles_df_mm(*a, y3.clone(), o,
+                                                     stage_x=st),
                     lambda: sk.sdia_sym_tiles_mm_plain(*a, y3.clone(), o),
                     lambda: sk.sdia_sym_tiles_mm_plain(
                         d.dia_vals.abs(), x3.abs(), y3.abs(), o),
@@ -2572,6 +2602,8 @@ def main() -> int:
         mm_pair("sdia_sym_df_mm", make_sdia_df_mm, 2 * d.dia_vals.shape[1],
                 run_name.replace("_f64", " float64"), Bs=(1, 11, RHS),
                 flops=RHS * sym_flops)
+        either_stage(sdf.sdia_sym_tiles_df_mm, d, x2d.shape[0], TD,
+                     run_name)
     kern["sdia_sym_df"] = dict(
         err=max(errs), on="cant_proxy float64",
         bytes=_nbytes(d.dia_vals, x2d) + 2 * _nbytes(y0), flops=sym_flops,
@@ -2660,7 +2692,8 @@ def main() -> int:
                     busy, _ = _device_ms(
                         torch, lambda: run_sdia_form(form, d, x3, y3))
                     said.append(f"{sdia_form_name(form)} {_ms(busy)}")
-                _, by = _device_ms(torch, lambda: ships(d.dia_vals, x3, y3, o))
+                _, by = _device_ms(torch, lambda: ships(
+                    d.dia_vals, x3, y3, o, stage_x=d.dia_stage_x))
                 said.append(f"ships {_ms(by.get('sdia_sym_kernel'))}")
                 print(f"sdia_sym forms on {run_name} B={B} round {rnd}, "
                       f"device ms: " + "; ".join(said) + f" ({card})",
@@ -2961,7 +2994,7 @@ def main() -> int:
                 ds.vals.data_ptr(), ds.packed.data_ptr(), ds.meta.data_ptr(),
                 ds.step_block.data_ptr(), ds.meta.shape[0],
                 ds.chunks_per_step, ds.tiles_per_block, int(ds.contig), cpc,
-                xform, tiles, *pl), xform == 2)
+                xform, tiles, *pl))
         return y3
 
     F32_FORMS = tuple((w, xf) for xf in range(3) for w in (8, 1, 2, 4))
@@ -2972,7 +3005,7 @@ def main() -> int:
         worst = 0.0
         for B in (11, RHS):
             x3 = planes(B, ds.x_rows, extra=2)
-            x_il = ops.pad_x_mm_il(x3.reshape(B, -1).T, ds.x_rows)
+            x_il = bk.interleave_x(x3.reshape(B, -1).T, ds.x_rows)
             yp = bk.bell2_spmm_tiles_plain(*stream_of(ds), x3, **kw_s)
             ysc = bk.bell2_spmm_tiles_plain(ds.vals.abs(), *stream_of(ds)[1:],
                                             x3.abs(), **kw_s)
@@ -3007,7 +3040,7 @@ def main() -> int:
         TPs = rest.shape[0]
         kw_s = dict(ds.stream_kw(), covers=ds.covers)
         x3 = planes(RHS, ds.x_rows)
-        x_il = ops.pad_x_mm_il(x3.reshape(RHS, -1).T, ds.x_rows)
+        x_il = bk.interleave_x(x3.reshape(RHS, -1).T, ds.x_rows)
         y3 = torch.empty((RHS, TPs, 128), device=dev)
         x1 = planes(1, ds.x_rows)[0]
         y1 = torch.empty((TPs, 128), device=dev)
@@ -3032,6 +3065,25 @@ def main() -> int:
                         f"+ zero {_ms(zero)}")
             print(f"{head} round {rnd}, device ms: " + "; ".join(said)
                   + f" ({card})", flush=True)
+        # narrower groups: the planes form at walks 1 and 2 against the
+        # interleaved X at the group's own width (2 or 4 planes an element,
+        # a walk of 2, as it ships); one plane is its own interleaved X and
+        # takes the SpMV instance either way
+        said = []
+        for B in (1, 2, 4):
+            xb = planes(B, ds.x_rows)
+            xb_il = bk.interleave_x(xb.reshape(B, -1).T, ds.x_rows)
+            yb = torch.empty((B, TPs, 128), device=dev)
+            for cpc, xform in ((2, 2),) if B == 1 else ((1, 0), (2, 0),
+                                                         (2, 2)):
+                _, by = _device_ms(torch, lambda: run_grid_form32(
+                    ds, xb_il if xform == 2 else xb, yb, cpc, xform, 0))
+                said.append(f"B={B} walk {cpc} "
+                            f"{'SpMV instance' if B == 1 else XFORMS[xform]}"
+                            f" {_ms(by.get('bell2_spmv_kernel'))}")
+        print(f"bell2_spmm forms on {on} at B = 1, 2 and 4, device ms "
+              f"(kernel, after the zero kernel): " + "; ".join(said)
+              + f" ({card})", flush=True)
         said = []
         for covers in (False, True, True, False):
             _, by = _device_ms(torch, lambda: bk.bell2_spmv_tiles(

@@ -765,25 +765,35 @@ def test_bell2_covers_zeroes_whole_planes(name, B):
     assert bk.bell2_spmv_tiles.launches == bk.bell2_spmm_tiles.launches == 0
 
 
-@pytest.mark.parametrize("B", [1, 8, 11])
+@pytest.mark.parametrize("B", [1, 2, 3, 8, 9, 11])
 @pytest.mark.parametrize("name", sorted(DENSE_MM))
 def test_bell2_spmm_interleaved_x_matches_planes(name, B):
-    """B7 over an interleaved X (``pad_x_mm_il``: an element's group of 8
-    planes side by side, zero past the last plane): the helper holds the
+    """B7 over an interleaved X (``interleave_x``: a group's planes of an
+    element side by side, 8 for a whole group and the instance width 1, 2,
+    4 or 8 for the last, zero past the last plane): the helper holds the
     planes of ``pad_x_mm``, and the twin that reads it gives the planes
-    twin's result bit for bit; the wrapper refuses a misshapen one."""
+    twin's result bit for bit; the wrapper refuses a misshapen, mistyped
+    or misaligned one."""
     plan = DENSE_MM[name][0]()
     pd = ops.to_device(plan, "cpu")
     X = torch.from_numpy(np.random.default_rng(B).uniform(
         -1, 1, (plan.ncols, B)).astype(np.float32))
     x3d = ops.pad_x_mm(X, plan.x_rows)
-    x_il = ops.pad_x_mm_il(X, plan.x_rows)
-    G = -(-B // 8)
-    assert x_il.shape == (G, plan.x_rows * 128, 8) and x_il.is_contiguous()
+    x_il = bk.interleave_x(X, plan.x_rows)
+    n = plan.x_rows * 128
+    widths = {1: [1], 2: [2], 3: [4], 8: [8], 9: [8, 1], 11: [8, 4]}[B]
+    assert bk.group_widths(B) == widths
+    assert x_il.shape == (sum(widths), n) and x_il.is_contiguous()
     flat = x3d.reshape(B, -1)
     for b in range(B):
-        assert torch.equal(x_il[b // 8, :, b % 8], flat[b])
-    assert (x_il[-1, :, B - 8 * (G - 1):] == 0).all()
+        b0, w = b - b % 8, widths[b // 8]
+        block = x_il.reshape(-1)[b0 * n:(b0 + w) * n].view(n, w)
+        assert torch.equal(block[:, b % 8], flat[b])
+    last0, last_w = 8 * (len(widths) - 1), widths[-1]
+    tail = x_il.reshape(-1)[last0 * n:].view(n, last_w)[:, B - last0:]
+    assert (tail == 0).all()
+    if B == 1:  # one plane is the plane
+        assert torch.equal(x_il.view(-1), flat[0])
     assert torch.equal(bk.planes_of_interleaved(x_il, B), x3d)
     kw = dict(_port_kw(pd), covers=pd.covers)
     TP = -(-pd.num_row_tiles // pd.tiles_per_block) * pd.tiles_per_block
@@ -795,9 +805,14 @@ def test_bell2_spmm_interleaved_x_matches_planes(name, B):
                               out=torch.full((B, TP, 128), float("nan")),
                               **kw)
     assert torch.equal(got, want) and torch.isfinite(got).all()
-    for bad in (x_il[..., :4].contiguous(), x_il.double(),
-                torch.cat([x_il, x_il])):
-        with pytest.raises((ValueError, TypeError)):
+    # a contiguous view 4 bytes into an aligned buffer
+    shifted = torch.zeros(x_il.numel() + 8)[1:1 + x_il.numel()].view(
+        x_il.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 32
+    for bad, match in ((x_il[:, :-1].contiguous(), None), (x_il.double(), "float64"),
+                       (torch.cat([x_il, x_il]), None),
+                       (x_il.T.contiguous(), None), (shifted, "aligned")):
+        with pytest.raises((ValueError, TypeError), match=match):
             bk.bell2_spmm_tiles(*grid, bad, planes=B, **kw)
     assert bk.bell2_spmm_tiles.launches == 0
 

@@ -3,12 +3,11 @@ their multi-RHS forms B11 and B12: the port's plain twins against the
 reference's Pallas ``sdia_sym_tiles``, ``sdia_gen_tiles``,
 ``sdia_sym_tiles_mm`` and ``sdia_gen_tiles_mm`` (interpret mode), and
 each MM twin against its SpMV twin column by column. A numpy model of the
-symmetric CUDA kernel's work split (``_sym_model``: CTAs of rows, slices
-of a row's diagonals, the shared y tile with its halo, the gather form of
-large offsets) runs every form the kernel was measured in
-(``chip_smoke.SDIA_FORMS``; the port's kernel is the 128 x 2 gather form,
-with x staged over planes), in float32 and float64 (B1, B11, B13, B14),
-against the twin and the reference.
+symmetric CUDA kernel as it ships (``_sym_model``: CTAs of 128 rows, two
+slices of a row's diagonals, both sides gathered, and over planes, given
+``stage_x``, the CTA's 256-row x window staged with zeros outside x) runs
+in float32 and float64 (B1, B11, B13, B14) against the twin and the
+reference, with the staging rule the upload applies (``stages_x``).
 
 Random values on every diagonal (padding rows included), offsets that
 hit lane shift 0 and sublane shifts > 0 and cross 1024-row blocks (for
@@ -31,13 +30,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import SDIA_FORMS
 from cfs_spmv_tpu.ops import bell2_df as ref_bdf
 from cfs_spmv_tpu.ops import sdia_df as ref_sdf
 from cfs_spmv_tpu.ops.sdia_kernel import sdia_gen_tiles as ref_sdia_gen
 from cfs_spmv_tpu.ops.sdia_kernel import sdia_gen_tiles_mm as ref_sdia_gen_mm
 from cfs_spmv_tpu.ops.sdia_kernel import sdia_sym_tiles as ref_sdia_sym
 from cfs_spmv_tpu.ops.sdia_kernel import sdia_sym_tiles_mm as ref_sdia_sym_mm
+from cfs_spmv_tpu_torch.ops import sdia_kernel as sk
 from cfs_spmv_tpu_torch.ops.sdia_kernel import (
     _blocks_per_step,
     sdia_gen_tiles,
@@ -225,29 +224,30 @@ def test_sdia_sym_wrapper_checks_operands():
         assert w.launches == 0  # CPU tensors never launch
 
 
-# -- the symmetric CUDA kernel's work split, as a numpy model ---------------
+# -- the symmetric CUDA kernel as it ships, as a numpy model ---------------
 
-#: ``kSdiaHalo`` of ``csrc/spmv_kernels.cu``: offsets up to it scatter
-SDIA_HALO = 64
+#: ``kSdiaRows`` and ``kSdiaSlices`` of ``csrc/spmv_kernels.cu``
+SDIA_ROWS, SDIA_SLICES = 128, 2
 #: ``utils/proxies.stencil27(g=40)``'s lower diagonals: past a value block
 STENCIL27_OFFSETS = (1, 39, 40, 41, 1559, 1560, 1561, 1599, 1600, 1601,
                      1639, 1640, 1641)
+#: mostly within the halo, as on cant: 64 the last staged offset, 65 the
+#: first gathered one
+NEAR_OFFSETS = (1, 2, 3, 17, 63, 64, 65, 700)
 
 
-def _sym_model(vals, x3d, y3d, offsets, rows, slices, scatter, stage_x):
-    """``y3d + (L + Lᵀ) x3d`` as ``sdia_sym_kernel<T, kRhs, rows, slices,
-    scatter, stage_x>`` splits the work, in the values' type (``stage_x``
-    moves where x is read from, not what is summed): a CTA takes ``rows``
-    value rows h (a grid over the value rows up to y's end, and with the
-    scatter form ``SDIA_HALO`` rows past it); slice s of each row takes
-    diagonals s, s + slices, ...; the row side gathers x[h - d]; the
-    transpose side of an offset up to the halo (scatter form) adds
-    v[h] x[h] into the CTA's y tile at row h - d, its rows below the CTA
-    being the halo, and any other offset gathers v[h + d] x[h + d] into row
-    h. The tile goes to y: rows another CTA may also write by atomicAdd
-    (the halo, and the top rows as deep as the largest scattered offset),
-    the others by a plain add. Raises when a row that one CTA adds plainly
-    is written by another CTA at all (a race on the card)."""
+def _sym_model(vals, x3d, y3d, offsets, stage_x):
+    """``y3d + (L + Lᵀ) x3d`` as ``sdia_sym_kernel`` computes it, in the
+    values' type, one group of up to 8 planes at a time (the instance of
+    1, 2, 4 or 8 planes that holds it). A CTA takes 128 value rows h up to
+    y's end; slice s of each row takes diagonals s, s + 2, ... A group of
+    two planes or more, given ``stage_x``, first stages the CTA's x window
+    x[r0 - 64, r0 + 192) (zero outside [0, x_len)), and an offset d <= 64
+    reads x[h - d] and x[h + d] there, at 64 + r - d and 64 + r + d; other
+    offsets, and one plane, read x itself, zero outside it. The row side
+    is v[h] x[h - d]; the transpose side gathers v[h + d] x[h + d] where h
+    + d lies below both the value rows and x's end. The slices' sums join
+    per row and are added to the rows of y."""
     R, D = vals.shape[:2]
     NV = R * 1024
     vd = vals.transpose(1, 0, 2, 3).reshape(D, NV)
@@ -256,55 +256,59 @@ def _sym_model(vals, x3d, y3d, offsets, rows, slices, scatter, stage_x):
     XL = xf.shape[1]
     y = y3d.reshape(B, -1).copy()
     YL = y.shape[1]
-    halo = SDIA_HALO if scatter else 0
-    hmax = max((d for d in offsets if d <= halo), default=0)
-    plain_by = np.full(YL, -1)
-    atomics = np.zeros(YL, np.int64)
+    r = np.arange(SDIA_ROWS)
+    halo = sk.SDIA_HALO
 
-    def x_at(i):
-        return np.where((i >= 0) & (i < XL), xf[:, np.clip(i, 0, XL - 1)], 0)
+    def x_at(planes, i):
+        return np.where((i >= 0) & (i < XL),
+                        xf[planes][:, np.clip(i, 0, XL - 1)], 0)
 
-    def v_at(j, i):
-        return np.where(i < NV, vd[j, np.minimum(i, NV - 1)], 0)
+    def v_at(j, i, ok):
+        return np.where(ok, vd[j, np.clip(i, 0, NV - 1)], 0)
 
-    for cta, r0 in enumerate(range(0, min(NV, YL + halo), rows)):
-        h = r0 + np.arange(rows)
-        tile = np.zeros((B, halo + rows), vals.dtype)
-        sums = np.zeros((slices, B, rows), vals.dtype)
-        for s in range(slices):
-            for j in range(s, D, slices):
-                d = offsets[j]
-                v = v_at(j, h)
-                sums[s] += v * x_at(h - d)
-                if scatter and d <= halo:
-                    tile[:, halo - d: halo - d + rows] += v * x_at(h)
-                else:
-                    sums[s] += v_at(j, h + d) * x_at(h + d)
-        tile[:, halo:] += sums.sum(0)
-        g = r0 - halo + np.arange(halo + rows)
-        ok = (g >= 0) & (g < YL)
-        shared = (g < r0) | (g >= r0 + rows - hmax)
-        touched = ok & (~shared | (tile != 0).any(0))
-        for gi in g[touched & shared]:
-            assert plain_by[gi] == -1, f"row {gi}: atomics onto a plain add"
-            atomics[gi] += 1
-        for gi in g[touched & ~shared]:
-            assert plain_by[gi] == -1 and atomics[gi] == 0, f"row {gi}: race"
-            plain_by[gi] = cta
-        y[:, g[ok]] += tile[:, ok]
+    for g0 in range(0, B, 8):
+        planes = slice(g0, min(B, g0 + 8))
+        staged = stage_x and min(B, g0 + 8) - g0 > 1
+        for r0 in range(0, min(NV, YL), SDIA_ROWS):
+            h = r0 + r
+            if staged:
+                window = x_at(planes, r0 - halo + np.arange(
+                    SDIA_ROWS + 2 * halo))
+            sums = np.zeros((SDIA_SLICES,) + y[planes, :SDIA_ROWS].shape,
+                            vals.dtype)
+            for s in range(SDIA_SLICES):
+                for j in range(s, D, SDIA_SLICES):
+                    d = offsets[j]
+                    v = v_at(j, h, h < NV)
+                    t = h + d
+                    w = v_at(j, t, (t < NV) & (t < XL))
+                    if staged and d <= halo:
+                        below, above = halo + r - d, halo + r + d
+                        assert below.min() >= 0 and above.max() < window.shape[1]
+                        sums[s] += v * window[:, below] + w * window[:, above]
+                    else:
+                        sums[s] += v * x_at(planes, h - d) + w * x_at(planes, t)
+            rows = h < YL
+            y[planes, h[rows]] += sums.sum(0)[:, rows]
     return y.reshape(y3d.shape)
 
 
 #: name -> (type, offsets, value blocks R, y tiles T, x rows, planes B):
-#: tile-edge and mid-tile row counts (T * 128 against 32-256-row CTAs),
-#: x shorter than the value rows (float32: the reference's double-float
-#: kernel gives the rows of x only), the halved main diagonal at offset 0
-#: in float64, and stencil27's offsets past a value block
+#: fewer y rows than value rows, x shorter than the value rows and ending
+#: inside a CTA's staged window (float64: the reference's double-float
+#: kernel gives the rows of x only, so x reaches y's end), the halved main
+#: diagonal at offset 0 in float64, offsets on both sides of the staging
+#: rule (``NEAR_OFFSETS`` stage, ``OFFSETS`` and stencil27's do not), and
+#: groups of 8 + 3 and 8 + 1 planes (a group of one never stages)
 MODEL_CASES = {
     "f32_offsets": (np.float32, OFFSETS, 3, 20, 22, 1),
     "f32_offsets_mm": (np.float32, OFFSETS, 3, 23, 16, 3),
+    "f32_near_mm": (np.float32, NEAR_OFFSETS, 3, 24, 21, 3),
+    "f32_near_mm11": (np.float32, NEAR_OFFSETS, 1, 7, 6, 11),
     "f32_stencil27_mm": (np.float32, STENCIL27_OFFSETS, 3, 24, 21, 3),
     "f64_offsets": (np.float64, (0,) + OFFSETS, 3, 23, 24, 1),
+    "f64_near_mm": (np.float64, (0,) + NEAR_OFFSETS, 3, 20, 22, 2),
+    "f64_near_mm9": (np.float64, (0,) + NEAR_OFFSETS, 1, 7, 7, 9),
     "f64_stencil27": (np.float64, (0,) + STENCIL27_OFFSETS, 3, 20, 24, 1),
     "f64_stencil27_mm": (np.float64, (0,) + STENCIL27_OFFSETS, 3, 17, 24, 2),
 }
@@ -343,23 +347,22 @@ def _model_operands(case):
     return vals, x3d, y0, ref
 
 
-@pytest.mark.parametrize("form", SDIA_FORMS,
-                         ids=lambda f: f"{f[0]}x{f[1]}-"
-                         f"{'scatter' if f[2] else 'gather'}"
-                         f"{'-staged' if f[3] else ''}")
+@pytest.mark.parametrize("stage_x", ["rule", False, True])
 @pytest.mark.parametrize("case", sorted(MODEL_CASES))
-def test_sdia_sym_work_split_matches_twin_and_reference(case, form):
-    """Every form of the symmetric kernel (the one that ships and the ones
-    built beside it for comparison) as the numpy model: against the plain
-    twin and the reference, race-free."""
-    dtype = MODEL_CASES[case][0]
-    offs = MODEL_CASES[case][1]
+def test_sdia_sym_kernel_model_matches_twin_and_reference(case, stage_x):
+    """The shipped kernel as the numpy model, x staged as the upload's
+    rule says (``rule``) and either way (any value gives the same sums):
+    against the plain twin and the reference."""
+    dtype, offs = MODEL_CASES[case][:2]
+    if stage_x == "rule":
+        stage_x = sk.stages_x(offs)
+        assert stage_x == ("near" in case)
     vals, x3d, y0, ref = _model_operands(case)
-    got = _sym_model(vals, x3d, y0, offs, *form)
+    got = _sym_model(vals, x3d, y0, offs, stage_x)
     t_offs = torch.tensor(offs, dtype=torch.int32)
     tv, tx = torch.from_numpy(vals), torch.from_numpy(x3d)
     plain = sdia_sym_tiles_mm_plain(tv, tx, torch.from_numpy(y0.copy()),
-                                    t_offs).numpy()
+                                    t_offs, stage_x=stage_x).numpy()
     scale = sdia_sym_tiles_mm_plain(
         tv.abs().double(), tx.abs().double(),
         torch.from_numpy(np.abs(y0)).double(), t_offs).numpy()
@@ -369,3 +372,36 @@ def test_sdia_sym_work_split_matches_twin_and_reference(case, form):
         assert allclose_spmv(got, want, dtype, nnz_per_row=2 * D,
                              scale=scale)
     assert not np.array_equal(got, y0)
+
+
+@pytest.mark.parametrize("offsets,stages", [
+    (OFFSETS, False), (STENCIL27_OFFSETS, False), (NEAR_OFFSETS, True),
+    ((0,) + OFFSETS, False), ((1, 64, 65, 1029), True), ((65,), False),
+    ((0,), True), ((), False)])
+def test_sdia_sym_stages_x_rule(offsets, stages):
+    """Staging over planes where at least half the offsets lie within
+    the 64-row halo (exactly half counts; 64 is in, 65 out)."""
+    assert sk.stages_x(offsets) is stages
+
+
+@pytest.mark.parametrize("proxy,dtype,stages", [
+    ("cant", np.float32, True), ("stencil27", np.float32, False),
+    ("cant", np.float64, True), ("stencil27", np.float64, False)])
+def test_upload_sets_dia_stage_x(proxy, dtype, stages):
+    """The upload decides the staging once from the plan's offsets
+    (cant's 1-32 stage; stencil27's, 4 of 13 within 64, do not), and the
+    SpMM applier's result does not depend on it."""
+    import cfs_spmv_tpu_torch as ct
+    from cfs_spmv_tpu_torch.utils import proxies as pp
+
+    csr = pp.cant_proxy(n=4096) if proxy == "cant" else pp.stencil27(g=12)
+    A = ct.SparseMatrix.create(csr, ct.Format.SSS)
+    mm = ct.SpDMM(A, ct.Tuning.AGGRESSIVE, dtype=dtype, device="cpu")
+    d = A.tuned.operands
+    assert d.dia_offsets is not None
+    assert d.dia_stage_x is stages
+    assert d.dia_stage_x == sk.stages_x(d.dia_offsets.tolist())
+    X = np.random.default_rng(3).uniform(-1, 1, (A.ncols, 3)).astype(dtype)
+    Y = np.asarray(mm(torch.from_numpy(X)))
+    d.dia_stage_x = not stages
+    assert np.array_equal(np.asarray(mm(torch.from_numpy(X))), Y)

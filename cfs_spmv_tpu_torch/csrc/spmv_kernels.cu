@@ -19,14 +19,15 @@
 // bytes, not arithmetic. Their designs keep loads coalesced along the 128
 // lanes and leave reuse of re-read bytes to the 50 MB L2; sbell_spmv
 // stages the x tiles of a chunk in shared memory, sdia_sym over planes the
-// x rows of a CTA, and the float multi-RHS bell2_spmv reads an interleaved
-// X, one 32-byte sector a slot for 8 planes.
+// x rows of a CTA, and the float multi-RHS bell2_spmv and sdia_gen read an
+// interleaved X, one 32-byte sector an element for 8 planes.
 //
 // Right-hand-side groups (SpMM, the Pallas *_mm kernels). Each stream
 // kernel is a template on kRhs, the number of right-hand sides one pass
 // over the stream serves: a thread loads a value and its index fields
 // once and applies them to up to kRhs planes, holding one sum per plane in
-// registers. X is a stack of (x_rows, 128) planes and Y of (T, 128)
+// registers. X is a stack of (x_rows, 128) planes (for the float
+// multi-RHS bell2_spmv and sdia_gen an interleaved X) and Y of (T, 128)
 // planes, each plane contiguous, at plane strides xs and ys (elements).
 // The Python wrapper launches once per group of at most kMaxRhs planes,
 // so the stream (values and index words) is read once per group, not once
@@ -66,6 +67,24 @@ __device__ __forceinline__ float mul_add(float a, float b, float c) {
 }
 __device__ __forceinline__ double mul_add(double a, double b, double c) {
   return fma(a, b, c);
+}
+
+// The kRhs planes of one interleaved x element (kRhs floats, aligned to
+// their size): 8- or 16-byte loads.
+template <int kRhs>
+__device__ __forceinline__ void load_group(const float* p, float (&v)[kRhs]) {
+  static_assert(kRhs == 2 || kRhs == 4 || kRhs == 8, "a group of planes");
+  if constexpr (kRhs == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x, v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRhs / 4; ++k) {
+      const float4 a = reinterpret_cast<const float4*>(p)[k];
+      v[4 * k] = a.x, v[4 * k + 1] = a.y, v[4 * k + 2] = a.z;
+      v[4 * k + 3] = a.w;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -199,41 +218,110 @@ __global__ void sdia_sym_kernel(const T* __restrict__ vals,
 // and, over planes, sdia_gen_tiles_mm (B12).
 //
 // y += A_dia x over D dense diagonals with SIGNED offsets d_j (d > 0 reads
-// behind, d < 0 ahead, d = 0 the main diagonal), row side only: one thread
-// per output row g < n_rows sums v_j[g] * x[g - d_j], reading zero where
-// g - d_j falls outside x. Same value layout as sdia_sym; mirrored
-// symmetric plans carry their transpose planes host-shifted, so the kernel
-// does no mirroring. n_rows = min(y_len, R * 1024): rows of y past the
-// value blocks keep their value. Each value is read once per group of
-// planes, fully coalesced along g, as are the x reads; the loop over D is
-// the whole kernel, so it runs at the memory rate with no shared memory
-// and no atomics.
+// behind, d < 0 ahead, d = 0 the main diagonal), row side only: row g sums
+// v_j[g] * x[g - d_j], reading zero where g - d_j falls outside x. Same
+// value layout as sdia_sym; mirrored symmetric plans carry their transpose
+// planes host-shifted, so the kernel does no mirroring. Rows of y below
+// nv_rows = R * 1024 get the sum; rows past it keep their value, as in the
+// reference. The store form (kStore, for an applier that would otherwise
+// pass zeroed tiles) writes y instead of adding to it, and writes exact 0
+// into the rows past nv_rows, so no zero pass runs and y is not read.
+//
+// What bounds it on this card. Each value is read once per group of
+// planes, coalesced along g, so at one plane the kernel runs at the memory
+// rate (B6 on general_asym(), 0.0060 ms against a bound of 0.0061). Over
+// planes the form before this one gathered x from each plane: kRhs 4-byte
+// loads a diagonal and row, each its own sector, so the count of x loads
+// and sectors bounded it (B12 at 8 planes 0.0399 ms against 0.0190 on
+// general_asym()), as it bounded sdia_sym and bell2_spmv over planes. On
+// the narrow plans (62-65k rows: cant_proxy() mirrored, 64 diagonals; the
+// flagship as CSR, 33) one thread per row also left most of the card's
+// thread slots empty, each thread walking all D diagonals.
+//
+// What the design does about it.
+// - Over planes x is read interleaved, as bell2_spmv reads it: a group's
+//   2, 4 or 8 planes of an element side by side (bell2_kernel.interleave_x;
+//   one plane is the plane), so a diagonal costs one or two vector loads a
+//   row, one 32-byte sector for 8 planes. A contiguous (m, B) X with B of
+//   1, 2, 4 or 8 is that layout already, and the wrappers pass it in place
+//   with x_len = m: the bound check reads the zeros past m that the planes
+//   copy used to write.
+// - kSlices threads share a row, each taking every kSlices-th diagonal;
+//   their sums meet in shared memory and one thread adds each output
+//   element, no atomics. The wrapper picks the count from the rows and D
+//   (sdia_kernel.gen_slices): 2 where two threads a row still fit the
+//   card's thread slots at once (the narrow plans), else 1
+//   (general_asym()). A CTA is kGenThreads threads, 256 / kSlices rows.
+// The one-plane, one-slice instance is B6's code as it was. At 8 planes on
+// general_asym() the kernel takes 0.0204 ms storing and 0.0272 adding
+// (bounds 0.0141 and 0.0190); on mirrored cant_proxy() 2 slices take
+// 0.0127 where 1 took 0.0167 and 4 0.0133 (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md §6). Measured beside it and not faster (SDIA_GEN_ALT_SRC of
+// chip_smoke.py): 4 slices, and issuing the loads of two diagonals
+// together.
 // ---------------------------------------------------------------------------
-template <int kRhs>
+constexpr int kGenThreads = 256;
+
+template <int kRhs, int kSlices, bool kStore>
 __global__ void sdia_gen_kernel(const float* __restrict__ vals,
                                 const int* __restrict__ offsets, int D,
-                                int64_t n_rows,
+                                int64_t nv_rows, int64_t n_rows,
                                 const float* __restrict__ x, int64_t x_len,
-                                int64_t xs, float* __restrict__ y,
-                                int64_t ys, int nr) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= n_rows) return;
+                                float* __restrict__ y, int64_t ys, int nr) {
+  constexpr int kRows = kGenThreads / kSlices;
+  // the slices' sums of a CTA's rows (kSlices > 1)
+  __shared__ float sums[kSlices > 1 ? kSlices : 1][kSlices > 1 ? kRhs : 1]
+                       [kSlices > 1 ? kRows : 1];
+  const int r = threadIdx.x % kRows, s = threadIdx.x / kRows;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kRows + r;
+  if (kSlices == 1 && g >= n_rows) return;
   const float* vg = vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
   float acc[kRhs];
 #pragma unroll
   for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
-  for (int j = 0; j < D; ++j) {
-    const int64_t s = g - static_cast<int64_t>(offsets[j]);
-    if (s >= 0 && s < x_len) {
-      const float v = vg[static_cast<int64_t>(j) * kBlockRows];
+  if (g < nv_rows && g < n_rows) {
+    for (int j = s; j < D; j += kSlices) {
+      const int64_t src = g - static_cast<int64_t>(offsets[j]);
+      if (src >= 0 && src < x_len) {
+        const float v = vg[static_cast<int64_t>(j) * kBlockRows];
+        if constexpr (kRhs == 1) {
+          acc[0] = fmaf(v, x[src], acc[0]);
+        } else {
+          float xv[kRhs];
+          load_group<kRhs>(x + src * kRhs, xv);
 #pragma unroll
-      for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) acc[b] = fmaf(v, x[b * xs + s], acc[b]);
+          for (int b = 0; b < kRhs; ++b)
+            if (live<kRhs>(b, nr)) acc[b] = fmaf(v, xv[b], acc[b]);
+        }
+      }
     }
   }
+  if constexpr (kSlices == 1) {
 #pragma unroll
-  for (int b = 0; b < kRhs; ++b)
-    if (live<kRhs>(b, nr)) y[b * ys + g] += acc[b];
+    for (int b = 0; b < kRhs; ++b)
+      if (live<kRhs>(b, nr)) {
+        if constexpr (kStore)
+          y[b * ys + g] = acc[b];
+        else
+          y[b * ys + g] += acc[b];
+      }
+  } else {
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) sums[s][b][r] = acc[b];
+    __syncthreads();
+    for (int i = threadIdx.x; i < kRhs * kRows; i += kGenThreads) {
+      const int b = i / kRows, k = i % kRows;
+      const int64_t row = static_cast<int64_t>(blockIdx.x) * kRows + k;
+      if (!live<kRhs>(b, nr) || row >= n_rows) continue;
+      float sum = sums[0][b][k];
+#pragma unroll
+      for (int t = 1; t < kSlices; ++t) sum += sums[t][b][k];
+      if constexpr (kStore)
+        y[b * ys + row] = sum;
+      else
+        y[b * ys + row] += sum;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -297,24 +385,6 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
 constexpr int kChunksPerCta = 8;
 constexpr int kInterleavedWalk = 2;
 constexpr int kDoubleWalk = 1;
-
-// The kRhs planes of one interleaved x element (kRhs floats, aligned to
-// their size): 8- or 16-byte loads.
-template <int kRhs>
-__device__ __forceinline__ void load_group(const float* p, float (&v)[kRhs]) {
-  static_assert(kRhs == 2 || kRhs == 4 || kRhs == 8, "a group of planes");
-  if constexpr (kRhs == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    v[0] = a.x, v[1] = a.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < kRhs / 4; ++k) {
-      const float4 a = reinterpret_cast<const float4*>(p)[k];
-      v[4 * k] = a.x, v[4 * k + 1] = a.y, v[4 * k + 2] = a.z;
-      v[4 * k + 3] = a.w;
-    }
-  }
-}
 
 // Zeroes each output block the stream visits, once, in plane blockIdx.y:
 // step_block ascends, so a block starts where the step's block differs
@@ -711,27 +781,64 @@ sbell_spmv_kernel(const float* __restrict__ vals,
 // unperm_gather_tiles (B3) and, over planes, unperm_gather_tiles_mm (B9).
 //
 // Original-order y from a degree-grouped stream's compact tiles: output row
-// o reads pk = pk2d[o]; pk < 0 writes exact 0, otherwise the value
-// g[rows[o >> 10, pk >> 7], pk & 127]. One thread per output element
-// decodes pk and its tile row once and copies that element of each of the
-// B planes (no sums, so no register array and no plane groups: one launch
-// serves every plane). The pk and output accesses coalesce; the gathered
-// reads land in the few tile rows each 1024-row block draws from (at most
-// 16), which stay in L2.
+// o < n_gather reads pk = pk2d[o]; pk < 0 gives exact 0, otherwise the value
+// g[rows[o >> 10, pk >> 7], pk & 127]; rows o >= n_gather gather 0. One
+// thread per output element decodes pk and its tile row once and serves
+// each of the B planes (no sums, so no register array and no plane groups:
+// one launch serves every plane). The pk and output accesses coalesce; the
+// gathered reads land in the few tile rows each 1024-row block draws from
+// (at most 16), which stay in L2.
+//
+// What bounds it on this card. About 1 MB on audikw_proxy(), which the card
+// moves in a launch's fixed cost (0.0017 ms against a bound of 0.0003):
+// the gather alone cannot get nearer, but the elementwise passes around it
+// in the symmetric appliers were launches of their own. So the launch does
+// their work too (kMode):
+// - kGather: out = P g (bell2_apply, bell2_apply_mm);
+// - kSeed: out[o] = diag[o] * x[o] + (P g)[o] over n_out rows, the seed
+//   D x read in place (x at o * x_row + b * x_col, so an (m, B) X at its
+//   own strides), 0 for the seed at o >= n_seed: what sbell_apply built
+//   from the seed's pad, the pad of P g and an add;
+// - kInto: out[o] += (P g)[o] over n_out rows, onto the paired stream's
+//   tiles.
+// Each fused form rounds as the composed ops do, product then sum
+// (__fmul_rn, __fadd_rn: no contraction into an FMA), so it equals them
+// bit for bit.
 // ---------------------------------------------------------------------------
+enum UnpermMode { kGather = 0, kSeed = 1, kInto = 2 };
+
+template <int kMode>
 __global__ void unperm_gather_kernel(const int* __restrict__ pk,
                                      const int* __restrict__ rows, int W,
                                      const float* __restrict__ g, int64_t gs,
                                      float* __restrict__ out, int64_t os,
-                                     int64_t n_out, int B) {
+                                     int64_t n_gather, int64_t n_out,
+                                     const float* __restrict__ diag,
+                                     const float* __restrict__ x,
+                                     int64_t x_row, int64_t x_col,
+                                     int64_t n_seed, int B) {
   const int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (o >= n_out) return;
-  const int p = pk[o];
-  const int64_t at =
-      p < 0 ? -1
-            : static_cast<int64_t>(rows[(o >> 10) * W + (p >> 7)]) * kLanes +
-                  (p & 0x7F);
-  for (int b = 0; b < B; ++b) out[b * os + o] = at < 0 ? 0.0f : g[b * gs + at];
+  int64_t at = -1;
+  if (o < n_gather) {
+    const int p = pk[o];
+    if (p >= 0)
+      at = static_cast<int64_t>(rows[(o >> 10) * W + (p >> 7)]) * kLanes +
+           (p & 0x7F);
+  }
+  const bool seeded = kMode == kSeed && o < n_seed;
+  const float d = seeded ? diag[o] : 0.0f;
+  for (int b = 0; b < B; ++b) {
+    const float v = at < 0 ? 0.0f : g[b * gs + at];
+    float* dst = out + b * os + o;
+    if constexpr (kMode == kGather)
+      *dst = v;
+    else if constexpr (kMode == kSeed)
+      *dst = __fadd_rn(seeded ? __fmul_rn(d, x[o * x_row + b * x_col]) : 0.0f,
+                       v);
+    else
+      *dst = __fadd_rn(*dst, v);
+  }
 }
 
 inline unsigned int blocks_for(int64_t n, int threads) {
@@ -777,6 +884,27 @@ int launch_sdia_sym(const T* vals, const int* offsets, int D,
                        ys, nr, stage_x != 0);
   });
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+}
+
+// The arguments of sdia_gen_kernel past its template ones.
+struct GenArgs {
+  const float* vals;
+  const int* offsets;
+  int D;
+  int64_t nv_rows, n_rows;
+  const float* x;
+  int64_t x_len;
+  float* y;
+  int64_t ys;
+  int nr;
+};
+
+template <int R, int kSlices, bool kStore>
+void launch_sdia_gen(const GenArgs& a, cudaStream_t stream) {
+  sdia_gen_kernel<R, kSlices, kStore>
+      <<<blocks_for(a.n_rows, kGenThreads / kSlices), kGenThreads, 0,
+         stream>>>(a.vals, a.offsets, a.D, a.nv_rows, a.n_rows, a.x, a.x_len,
+                   a.y, a.ys, a.nr);
 }
 
 // Chunks a CTA of 128 threads of ``kernel`` walks on a stream of C chunks:
@@ -888,15 +1016,26 @@ int cfs_sdia_sym_f64(const double* vals, const int* offsets, int D,
                                  stage_x, x, xs, y, ys, nr, stream);
 }
 
-int cfs_sdia_gen(const float* vals, const int* offsets, int D,
-                 int64_t n_rows, int64_t x_len, const float* x, int64_t xs,
-                 float* y, int64_t ys, int nr, cudaStream_t stream) {
-  constexpr int kThreads = 256;
+// slices: 1 or 2 threads a row (sdia_kernel.gen_slices); store: write
+// the y_len rows of each plane (0 past nv_rows) instead of adding into the
+// rows below nv_rows. x: the plane (nr = 1) or the group's interleaved (x_len,
+// R) block, R the instance's width (xs is not read).
+int cfs_sdia_gen(const float* vals, const int* offsets, int D, int64_t nv_rows,
+                 int64_t y_len, int64_t x_len, int slices, int store,
+                 const float* x, int64_t xs, float* y, int64_t ys, int nr,
+                 cudaStream_t stream) {
+  if (slices != 1 && slices != 2) return invalid();
+  const int64_t n_rows = store || y_len < nv_rows ? y_len : nv_rows;
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
-    if (n_rows > 0 && D > 0)
-      sdia_gen_kernel<R><<<blocks_for(n_rows, kThreads), kThreads, 0, stream>>>(
-          vals, offsets, D, n_rows, x, x_len, xs, y, ys, nr);
+    if (n_rows <= 0 || (D <= 0 && !store)) return;
+    const GenArgs a{vals, offsets, D, nv_rows, n_rows, x, x_len, y, ys, nr};
+    if (store)
+      slices == 1 ? launch_sdia_gen<R, 1, true>(a, stream)
+                  : launch_sdia_gen<R, 2, true>(a, stream);
+    else
+      slices == 1 ? launch_sdia_gen<R, 1, false>(a, stream)
+                  : launch_sdia_gen<R, 2, false>(a, stream);
   });
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
@@ -977,14 +1116,30 @@ int cfs_bell2_entries_f64(const int* rows, const int* cols,
                                       stream);
 }
 
+// mode 0: out = P g over n_gather rows; 1: out = diag x + P g over n_out
+// rows (the seed at x[o * x_row + b * x_col] for o < n_seed); 2: out +=
+// P g over n_out rows. Planes at strides gs and os.
 int cfs_unperm_gather(const int* pk, const int* rows, int W, const float* g,
-                      int64_t gs, float* out, int64_t os, int64_t n_out,
+                      int64_t gs, float* out, int64_t os, int64_t n_gather,
+                      int64_t n_out, const float* diag, const float* x,
+                      int64_t x_row, int64_t x_col, int64_t n_seed, int mode,
                       int B, cudaStream_t stream) {
-  if (B < 1) return invalid();
+  if (B < 1 || mode < kGather || mode > kInto) return invalid();
   if (n_out > 0) {
     constexpr int kThreads = 256;
-    unperm_gather_kernel<<<blocks_for(n_out, kThreads), kThreads, 0, stream>>>(
-        pk, rows, W, g, gs, out, os, n_out, B);
+    const unsigned int grid = blocks_for(n_out, kThreads);
+    if (mode == kGather)
+      unperm_gather_kernel<kGather><<<grid, kThreads, 0, stream>>>(
+          pk, rows, W, g, gs, out, os, n_gather, n_out, diag, x, x_row, x_col,
+          n_seed, B);
+    else if (mode == kSeed)
+      unperm_gather_kernel<kSeed><<<grid, kThreads, 0, stream>>>(
+          pk, rows, W, g, gs, out, os, n_gather, n_out, diag, x, x_row, x_col,
+          n_seed, B);
+    else
+      unperm_gather_kernel<kInto><<<grid, kThreads, 0, stream>>>(
+          pk, rows, W, g, gs, out, os, n_gather, n_out, diag, x, x_row, x_col,
+          n_seed, B);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -86,7 +86,9 @@ def _bind(path: str) -> ctypes.CDLL:
     # (sdia_sym: the i32 before the planes stages x over planes)
     for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64):
         fn.argtypes = [p, p, i32, i64, i64, i64, i32, *planes]
-    cdll.cfs_sdia_gen.argtypes = [p, p, i32, i64, i64, *planes]
+    # sdia_gen: (..., nv_rows, y_len, x_len, slices, store, planes)
+    cdll.cfs_sdia_gen.argtypes = [p, p, i32, i64, i64, i64, i32, i32,
+                                  *planes]
     cdll.cfs_sbell_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, i64,
                                     *planes]
     cdll.cfs_sbell_chunks_per_cta.argtypes = [i64, i32, i32]
@@ -97,7 +99,10 @@ def _bind(path: str) -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, i64, i32, i32, i32, i64, *planes]
     for fn in (cdll.cfs_bell2_entries, cdll.cfs_bell2_entries_f64):
         fn.argtypes = [p, p, p, i64, *planes]
-    cdll.cfs_unperm_gather.argtypes = [p, p, i32, p, i64, p, i64, i64, i32, p]
+    # unperm_gather: (pk, rows, W, g, gs, out, os, n_gather, n_out, diag, x,
+    # x_row, x_col, n_seed, mode, B, stream)
+    cdll.cfs_unperm_gather.argtypes = [p, p, i32, p, i64, p, i64, i64, i64,
+                                       p, p, i64, i64, i64, i32, i32, p]
     for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64, cdll.cfs_sdia_gen,
                cdll.cfs_sbell_spmv, cdll.cfs_sbell_chunks_per_cta,
                cdll.cfs_bell2_spmv, cdll.cfs_bell2_spmv_f64,

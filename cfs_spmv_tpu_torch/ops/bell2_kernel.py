@@ -11,7 +11,8 @@ the fp32 SpMV and SpMM paths reach:
   upload, into a row-sorted list of its live entries (``EntryStream``),
   and the kernel runs one thread per entry;
 - ``unperm_gather_tiles`` (B3): original-order rows from a
-  degree-grouped stream's compact output tiles;
+  degree-grouped stream's compact output tiles, in the symmetric applier
+  fused with the seed ``D x`` or added into the paired stream's tiles;
 - ``sbell_spmv_tiles`` (B5): ``y = (L + Lᵀ) x`` from the paired
   symmetric stream, each stored value driving both its row and its
   transpose;
@@ -70,6 +71,8 @@ __all__ = [
     "bell2_spmm_tiles_plain",
     "interleave_x",
     "planes_of_interleaved",
+    "flat_planes",
+    "check_interleaved",
     "bell2_spmm_tiles_accum",
     "bell2_spmm_tiles_accum_plain",
     "unperm_gather_tiles_mm",
@@ -393,9 +396,9 @@ def _spmv_accum(wrapper, dtype, entries, x2d, y_tiles):
     return y_tiles
 
 
-def unperm_gather_tiles_plain(pk2d, rows, g_tiles):
-    """Plain PyTorch twin of :func:`unperm_gather_tiles` (any device):
-    one flat gather plus ``where``; rows with ``pk < 0`` read exact 0."""
+def _gathered(pk2d, rows, g_tiles):
+    """P g: one flat gather plus ``where``; rows with ``pk < 0`` read
+    exact 0."""
     pk = pk2d.reshape(-1).to(torch.int64)
     W = rows.shape[1]
     blk = torch.arange(pk.shape[0], device=pk.device) >> 10
@@ -406,26 +409,81 @@ def unperm_gather_tiles_plain(pk2d, rows, g_tiles):
     return out.reshape(pk2d.shape)
 
 
-def unperm_gather_tiles(pk2d, rows, g_tiles):
+def _composed(ot, seed, into, tiles):
+    """The fused unpermute forms written as the ops they replace, over
+    (B, nb*8, 128) gathered planes ``ot``: with ``seed`` = (diag, X), the
+    pad of (diag · X)ᵀ to ``tiles`` tiles plus ``ot`` padded or cut to
+    them; with ``into`` (B, T, 128), ``into += ot`` over its T tiles."""
+    if seed is None and into is None:
+        return ot
+    base = into
+    if seed is not None:
+        diag, x = seed
+        base = ot.new_zeros((ot.shape[0], tiles * LANES))
+        base[:, :diag.shape[0]] = (diag[:, None] * x).T
+        base = base.view(ot.shape[0], tiles, LANES)
+    NT = base.shape[1]
+    if ot.shape[1] < NT:
+        ot = torch.nn.functional.pad(ot, (0, 0, 0, NT - ot.shape[1]))
+    if into is not None:
+        into += ot[:, :NT]
+        return into
+    return base + ot[:, :NT]
+
+
+def unperm_gather_tiles_plain(pk2d, rows, g_tiles, *, seed=None, into=None,
+                              tiles=None):
+    """Plain PyTorch twin of :func:`unperm_gather_tiles` (any device):
+    one flat gather plus ``where``, and the fused forms as the composed
+    ops (the pad of the seed ``diag * x``, the pad of the gather, the
+    add)."""
+    ot = _gathered(pk2d, rows, g_tiles)
+    if seed is not None:  # x as one column of an (m, 1) X
+        seed = (seed[0], seed[1][:, None])
+    return _composed(ot[None], seed, None if into is None else into[None],
+                     tiles)[0]
+
+
+def unperm_gather_tiles(pk2d, rows, g_tiles, *, seed=None, into=None,
+                        tiles=None):
     """(nb*8, 128) original-order y tiles from grouped output tiles.
 
     ``pk2d``: (nb*8, 128) int32 words ``q | w << 7`` (-1: exact 0);
     ``rows``: (nb, W) int32 tile rows of ``g_tiles`` each 1024-row block
     reads; ``g_tiles``: (T, 128) float32. A pure gather, so the result is
     bit-exact on every device.
+
+    The fused forms of the symmetric applier, in the same launch:
+
+    - ``seed`` = (diag, x), two (m,) float32 vectors (x at any stride), and
+      ``tiles``: returns (tiles, 128) tiles holding ``diag * x`` (0 past
+      m) plus the gather (0 past its nb*8 tiles);
+    - ``into``, (T, 128) contiguous float32 tiles: ``into += P g`` over its
+      T tiles (0 added past the gather), returned.
+
+    Each equals the composed ops bit for bit: the product and the sum
+    round once each, as ``pad_x(diag * x, tiles) + pad(P g)`` does.
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
+    or raises.
     """
     dev = _device_of(pk2d, rows, g_tiles)
     _check_unperm(pk2d, rows)
     if g_tiles.ndim != 2 or g_tiles.shape[1] != LANES:
         raise ValueError("g_tiles must be (T, 128)")
     _cuda.check_dtype(g_tiles, "g_tiles", torch.float32)
+    seed_mm = None
+    if seed is not None:  # x as one column of an (m, 1) X
+        seed_mm = (seed[0], _check_seed_x(seed, 1, dev, vector=True))
+    into3d = None if into is None else into[None]
+    _check_fused(seed, into3d, tiles, dev, 1)
     if dev.type == "cpu":
-        return unperm_gather_tiles_plain(pk2d, rows, g_tiles)
-    out = torch.empty(pk2d.shape, dtype=torch.float32, device=dev)
-    _launch_unperm(pk2d, rows, g_tiles[None], out[None],
-                   "unperm_gather_tiles")
+        return unperm_gather_tiles_plain(pk2d, rows, g_tiles, seed=seed,
+                                         into=into, tiles=tiles)
+    out = _launch_unperm(pk2d, rows, g_tiles[None], seed_mm, into3d, tiles,
+                         "unperm_gather_tiles")
     unperm_gather_tiles.launches += 1
-    return out
+    return out[0]
 
 
 def _check_unperm(pk2d, rows):
@@ -436,38 +494,97 @@ def _check_unperm(pk2d, rows):
         raise ValueError("rows must be (nb, W) int32")
 
 
-def _launch_unperm(pk2d, rows, g3d, out3d, name):
-    """One launch gathers every plane of ``g3d`` into ``out3d``."""
-    with torch.cuda.device(out3d.device):
+def _check_seed_x(seed, B, dev, vector=False):
+    """The seed's x as (m, B), checked against its diag (m,) float32
+    contiguous on ``dev``; a vector x (``vector``) is one column."""
+    diag, x = seed
+    if diag.ndim != 1 or not diag.is_contiguous():
+        raise ValueError("the seed's diag must be a contiguous (m,) vector")
+    want = (diag.shape[0],) if vector else (diag.shape[0], B)
+    if tuple(x.shape) != want:
+        raise ValueError(f"the seed's x must be {want}, got "
+                         f"{tuple(x.shape)}")
+    for name, t in (("diag", diag), ("x", x)):
+        _cuda.check_dtype(t, f"the seed's {name}", torch.float32)
+        if t.device != dev:
+            raise ValueError("all operands must live on one device")
+    return x[:, None] if vector else x
+
+
+def _check_fused(seed, into3d, tiles, dev, B):
+    """At most one fused form; the seed's tile count holds its rows; the
+    ``into`` planes (B, T, 128) float32 on ``dev``, each contiguous."""
+    if seed is not None and into3d is not None:
+        raise ValueError("give the seed or the tiles to add into, not both")
+    if seed is not None and (tiles is None
+                             or tiles * LANES < seed[0].shape[0]):
+        raise ValueError("the seed needs the output's tile count, at least "
+                         "its rows / 128")
+    if seed is None and tiles is not None:
+        raise ValueError("tiles is the seed form's output height")
+    if into3d is not None:
+        _cuda.check_planes(into3d, "into", dev, torch.float32, B=B)
+
+
+def _launch_unperm(pk2d, rows, g3d, seed, into3d, tiles, name):
+    """One launch gathers every plane of ``g3d``; returns the (B, rows,
+    128) output planes: fresh ones of nb*8 tiles (the gather) or of
+    ``tiles`` tiles (the seed), or ``into3d``."""
+    B, n_gather = g3d.shape[0], pk2d.numel()
+    diag = x = None
+    x_row = x_col = n_seed = 0
+    if into3d is not None:
+        out, mode = into3d, 2
+    elif seed is not None:
+        diag, x = seed
+        out = torch.empty((B, tiles, LANES), dtype=torch.float32,
+                          device=g3d.device)
+        x_row, x_col, n_seed, mode = x.stride(0), x.stride(1), x.shape[0], 1
+    else:
+        out, mode = torch.empty((B, *pk2d.shape), dtype=torch.float32,
+                                device=g3d.device), 0
+    with torch.cuda.device(out.device):
         err = _cuda.lib().cfs_unperm_gather(
             pk2d.data_ptr(), rows.data_ptr(), rows.shape[1],
-            g3d.data_ptr(), g3d.stride(0), out3d.data_ptr(),
-            out3d.stride(0), pk2d.numel(), g3d.shape[0],
-            torch.cuda.current_stream(out3d.device).cuda_stream,
+            g3d.data_ptr(), g3d.stride(0), out.data_ptr(), out.stride(0),
+            n_gather, out[0].numel(),
+            None if diag is None else diag.data_ptr(),
+            None if x is None else x.data_ptr(), x_row, x_col, n_seed, mode,
+            B, torch.cuda.current_stream(out.device).cuda_stream,
         )
     _cuda.check(err, name)
+    return out
 
 
-def unperm_gather_tiles_mm_plain(pk2d, rows, g_tiles):
-    """Plain PyTorch twin of :func:`unperm_gather_tiles_mm`: B3's twin
-    once per plane."""
-    return torch.stack([unperm_gather_tiles_plain(pk2d, rows, g)
-                        for g in g_tiles])
+def unperm_gather_tiles_mm_plain(pk2d, rows, g_tiles, *, seed=None,
+                                 into=None, tiles=None):
+    """Plain PyTorch twin of :func:`unperm_gather_tiles_mm`: B3's gather
+    once per plane, then the fused forms as the composed ops."""
+    ot = torch.stack([_gathered(pk2d, rows, g) for g in g_tiles])
+    return _composed(ot, seed, into, tiles)
 
 
-def unperm_gather_tiles_mm(pk2d, rows, g_tiles):
+def unperm_gather_tiles_mm(pk2d, rows, g_tiles, *, seed=None, into=None,
+                           tiles=None):
     """(B, nb*8, 128) original-order Y tiles from grouped (B, T, 128)
     ``g_tiles`` (planes each contiguous, any plane stride); other
     operands as :func:`unperm_gather_tiles`. One launch decodes each
     output row's word once and gathers it from all B planes; bit-exact
-    on every device."""
+    on every device. The fused forms as :func:`unperm_gather_tiles`, over
+    planes: ``seed`` = (diag, X) with X (m, B) read in place at its
+    strides, giving (B, tiles, 128); ``into`` (B, T, 128) planes, each
+    contiguous."""
     dev = _device_of(pk2d, rows)
     _check_unperm(pk2d, rows)
     B = _cuda.check_planes(g_tiles, "g_tiles", dev, torch.float32)
+    if seed is not None:
+        _check_seed_x(seed, B, dev)
+    _check_fused(seed, into, tiles, dev, B)
     if dev.type == "cpu":
-        return unperm_gather_tiles_mm_plain(pk2d, rows, g_tiles)
-    out = torch.empty((B, *pk2d.shape), dtype=torch.float32, device=dev)
-    _launch_unperm(pk2d, rows, g_tiles, out, "unperm_gather_tiles_mm")
+        return unperm_gather_tiles_mm_plain(pk2d, rows, g_tiles, seed=seed,
+                                            into=into, tiles=tiles)
+    out = _launch_unperm(pk2d, rows, g_tiles, seed, into, tiles,
+                         "unperm_gather_tiles_mm")
     unperm_gather_tiles_mm.launches += 1
     return out
 
@@ -599,9 +716,10 @@ def interleave_x(x, x_rows):
     return out
 
 
-def planes_of_interleaved(x_il, planes):
-    """The (B, x_rows, 128) planes of an interleaved X ``x_il`` of
-    ``planes`` = B of them (:func:`interleave_x`)."""
+def flat_planes(x_il, planes):
+    """The (B, n) planes, each flat, of an interleaved X ``x_il`` (W, n) of
+    ``planes`` = B of them (:func:`interleave_x`, or an (m, B) X viewed
+    as (B, m): any n)."""
     n = x_il.shape[1]
     flat = x_il.reshape(-1)
     groups = []
@@ -609,7 +727,13 @@ def planes_of_interleaved(x_il, planes):
         b0 = g * _cuda.RHS_GROUP
         nr = min(_cuda.RHS_GROUP, planes - b0)
         groups.append(flat[b0 * n:(b0 + w) * n].view(n, w).T[:nr])
-    return torch.cat(groups).reshape(planes, n // LANES, LANES)
+    return torch.cat(groups)
+
+
+def planes_of_interleaved(x_il, planes):
+    """The (B, x_rows, 128) planes of an interleaved X ``x_il`` of
+    ``planes`` = B of them (:func:`interleave_x`)."""
+    return flat_planes(x_il, planes).reshape(planes, -1, LANES)
 
 
 def bell2_spmm_tiles_plain(vals, packed, meta, step_block, x3d, *,
@@ -658,12 +782,14 @@ def bell2_spmm_tiles(vals, packed, meta, step_block, x3d, *,
                        tiles_per_block, contig, out, covers, planes)
 
 
-def _check_interleaved(x_il, dev, planes):
+def check_interleaved(x_il, dev, planes, padded=True):
     """An interleaved X of ``planes`` float32 planes on ``dev``, aligned
-    for the kernel's vector loads; returns ``planes``."""
+    for the kernels' vector loads; returns ``planes``. ``padded``: its rows
+    are whole tiles of 128 (B7 reads without bounds checks; B12 takes any
+    length and reads zero past it)."""
     W = sum(group_widths(planes)) if planes >= 1 else 0
     if (W == 0 or x_il.ndim != 2 or x_il.shape[0] != W
-            or x_il.shape[1] % LANES):
+            or (padded and x_il.shape[1] % LANES)):
         raise ValueError(f"an interleaved X of {planes} planes must be "
                          f"({W}, x_rows * 128), got {tuple(x_il.shape)}")
     _cuda.check_dtype(x_il, "x3d", torch.float32)
@@ -683,7 +809,7 @@ def _spmm_tiles(wrapper, dtype, vals, packed, meta, step_block, x3d,
     dev = _device_of(vals, packed, meta, step_block)
     _check_stream(vals, packed, meta, step_block, K, dtype=dtype)
     B = (_cuda.check_planes(x3d, "x3d", dev, dtype) if planes is None
-         else _check_interleaved(x3d, dev, planes))
+         else check_interleaved(x3d, dev, planes))
     out = _out_buffer(out, (B, _tiles_padded(num_row_tiles, BT), LANES),
                       dev, dtype)
     if dev.type == "cpu":

@@ -9,9 +9,10 @@ Ports of ``cfs_spmv_tpu/ops/sdia_kernel.py``:
   general path's peeled diagonals, and symmetric plans past
   ``SDIA_SYM_ROWS_MAX`` whose diagonals are stored mirrored;
 - ``sdia_sym_tiles_mm`` (B11) and ``sdia_gen_tiles_mm`` (B12): the same
-  for B right-hand sides, X as (B, x_rows, 128) and Y as (B, T, 128)
-  planes; each launch reads the values once for up to
-  ``_cuda.RHS_GROUP`` planes.
+  for B right-hand sides, X as (B, x_rows, 128) planes (B12's kernel
+  reads it interleaved, as B7's does: ``bell2_kernel.interleave_x``, or
+  an (m, B) X in place, :func:`gen_x`) and Y as (B, T, 128) planes; each
+  launch reads the values once for up to ``_cuda.RHS_GROUP`` planes.
 
 The float64 forms of B1 and B11 (``sdia_sym_tiles_df``, B13, and
 ``sdia_sym_tiles_df_mm``, B14) live in ``ops/sdia_df.py``; they share the
@@ -22,7 +23,9 @@ Diagonals dense enough to store contiguously need no index data at all:
 per stored nonzero the stream moves 4 bytes (8 in float64). Layout:
 ``vals[r, j, i, l]`` holds A[g, g - d_j] for flat row g = 1024 r + 128 i
 + l (zero where absent). The signed kernel (``csrc/spmv_kernels.cu``)
-runs one thread per output row, no atomics. The symmetric one splits
+runs 1 or 2 threads a row (:func:`gen_slices`, from the rows and D),
+no atomics, and has a store form that writes y instead of adding to it
+(for an applier that would pass zeroed tiles). The symmetric one splits
 each row's diagonals between two threads of a CTA, which gathers both
 sides of its rows, and over planes, given ``stage_x`` (the upload's
 :func:`stages_x`: most offsets small), first stages the x rows near its
@@ -35,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from . import bell2_kernel as bk
 
 SUBLANES = 8
 LANES = 128
@@ -49,10 +53,16 @@ __all__ = [
     "sdia_gen_tiles_plain",
     "sdia_gen_tiles_mm",
     "sdia_gen_tiles_mm_plain",
+    "gen_slices",
+    "gen_x",
     "BLOCK_ROWS",
     "SDIA_HALO",
     "stages_x",
 ]
+
+#: threads one NVIDIA H100 SXM keeps resident (132 SMs x 2048): the
+#: default of :func:`gen_slices` (the launcher asks the device)
+H100_THREAD_SLOTS = 132 * 2048
 
 #: ``kSdiaHalo`` of ``csrc/spmv_kernels.cu``: over planes the symmetric
 #: kernel may stage the x rows this close to a CTA's own rows
@@ -101,11 +111,13 @@ def _check_vals(vals, offsets, dtype):
         raise ValueError(f"unsupported device {vals.device}")
 
 
-def _check(vals, x2d, y_tiles, offsets, dtype=torch.float32):
+def _check(vals, x2d, y_tiles, offsets, dtype=torch.float32, flat_x=False):
     """Operands of one SpMV call of a stream whose values, x and y are
-    all ``dtype``; a mix raises ``TypeError``."""
+    all ``dtype``; a mix raises ``TypeError``. ``flat_x``: x may also be
+    an (m,) vector, read as zero past m."""
     _check_vals(vals, offsets, dtype)
-    if x2d.ndim != 2 or x2d.shape[1] != LANES:
+    if not (flat_x and x2d.ndim == 1) and (x2d.ndim != 2
+                                           or x2d.shape[1] != LANES):
         raise ValueError(f"x2d must be (x_rows, 128), got {tuple(x2d.shape)}")
     if y_tiles.ndim != 2 or y_tiles.shape[1] != LANES:
         raise ValueError(
@@ -212,11 +224,12 @@ def sdia_sym_tiles_mm(vals, x3d, y_tiles, offsets, stage_x=False):
     return y_tiles
 
 
-def sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets):
+def sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store=False):
     """Plain PyTorch twin of :func:`sdia_gen_tiles`: ``y_tiles += A_dia
-    x`` by one flat shifted slice per diagonal, accumulated in place;
-    returns ``y_tiles``. Runs on any device; ``offsets`` is a tensor or a
-    sequence of ints."""
+    x`` by one flat shifted slice per diagonal, accumulated in place (with
+    ``store``, into zeroed tiles); returns ``y_tiles``. Runs on any device;
+    ``x2d`` is read flat (any shape), ``offsets`` is a tensor or a sequence
+    of ints."""
     offs = offsets.tolist() if torch.is_tensor(offsets) else list(offsets)
     R, D = vals.shape[0], vals.shape[1]
     L = min(y_tiles.numel(), R * BLOCK_ROWS)
@@ -229,61 +242,123 @@ def sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets):
         lo, hi = max(0, d), min(L, X + d)
         if lo < hi:
             acc[lo:hi] += vd[j, lo:hi] * xf[lo - d: hi - d]
+    if store:
+        y_tiles.zero_()
     y_tiles.view(-1)[:L] += acc
     return y_tiles
 
 
-def sdia_gen_tiles(vals, x2d, y_tiles, offsets):
+def sdia_gen_tiles(vals, x2d, y_tiles, offsets, store=False):
     """``y_tiles += A_dia x`` for the signed-offset dense-diagonal stream.
 
     ``vals``: (R, D, 8, 128) float32; ``x2d``: (x_rows, 128) float32,
-    read as zero outside it (``d > 0`` reads behind, ``d < 0`` ahead);
+    or x itself as an (m,) vector, read as zero outside it (``d > 0``
+    reads behind, ``d < 0`` ahead);
     ``y_tiles``: (T, 128) float32, accumulated in place and returned;
     ``offsets``: (D,) int32 signed offsets (``d == 0`` allowed), on the
     same device. Contributions to rows at or past T*128 are dropped, and
-    rows past R*1024 keep their value, as in the reference.
+    rows past R*1024 keep their value, as in the reference. ``store``
+    (for an applier that would pass zeroed tiles): ``y_tiles`` is written,
+    not read, and its rows past R*1024 come out exact 0.
 
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     (building it on first use) or raises.
     """
-    _check(vals, x2d, y_tiles, offsets)
+    _check(vals, x2d, y_tiles, offsets, flat_x=True)
     if vals.device.type == "cpu":
-        return sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets)
-    sdia_gen_tiles.launches += _launch_gen(vals, x2d[None], y_tiles[None],
-                                           offsets, "sdia_gen_tiles")
+        return sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store)
+    sdia_gen_tiles.launches += _launch_gen(
+        vals, x2d.reshape(1, -1), y_tiles[None], offsets, "sdia_gen_tiles",
+        store)
     return y_tiles
 
 
-def _launch_gen(vals, x3d, y3d, offsets, name):
+def gen_slices(rows: int, D: int, slots: int = H100_THREAD_SLOTS) -> int:
+    """Threads of the signed diagonal kernel a row (each takes every
+    other diagonal): 2 where ``rows * 2`` threads fit the card's ``slots``
+    (threads resident at once) and there are two diagonals to share, as
+    on the 62-65k-row plans; else 1, as on ``general_asym()``'s 512,000
+    rows, which fill the card alone."""
+    return 2 if rows * 2 <= slots and D >= 2 else 1
+
+
+def _thread_slots(device) -> int:
+    """Threads ``device`` keeps resident at once (SMs x threads an SM)."""
+    p = torch.cuda.get_device_properties(device)
+    return p.multi_processor_count * getattr(
+        p, "max_threads_per_multi_processor", 2048)
+
+
+def _launch_gen(vals, x_il, y3d, offsets, name, store=False, slices=None):
+    """Launch the signed diagonal kernel over the planes ``y3d``, once a
+    group of planes; returns the launches. ``x_il`` is an interleaved X
+    (``bell2_kernel.interleave_x``: a plane, or a group's planes side by
+    side, group after group), each plane read as zero past its
+    ``x_il.shape[1]`` elements; ``slices`` (default :func:`gen_slices` of the rows
+    and D on this device) as the launcher takes it."""
+    nv_rows, y_len = vals.shape[0] * BLOCK_ROWS, y3d[0].numel()
+    if slices is None:
+        rows = y_len if store else min(y_len, nv_rows)
+        slices = gen_slices(rows, vals.shape[1], _thread_slots(vals.device))
     lib = _cuda.lib()
-    n_rows = min(y3d[0].numel(), vals.shape[0] * BLOCK_ROWS)
     return _cuda.launch_groups(
-        name, x3d, y3d, lambda *planes: lib.cfs_sdia_gen(
-            vals.data_ptr(), offsets.data_ptr(), vals.shape[1], n_rows,
-            x3d[0].numel(), *planes,
+        name, x_il, y3d, lambda *planes: lib.cfs_sdia_gen(
+            vals.data_ptr(), offsets.data_ptr(), vals.shape[1], nv_rows,
+            y_len, x_il.shape[1], slices, int(store), *planes,
         ))
 
 
-def sdia_gen_tiles_mm_plain(vals, x3d, y_tiles, offsets):
+def gen_x(x, x_rows):
+    """The X :func:`sdia_gen_tiles_mm` reads (with ``planes`` = B) for
+    the (m, B) float32 X of an SpMM apply: X itself, as a (B, m) view, where
+    it is an interleaved X of one group already (B of 1, 2, 4 or 8,
+    contiguous, 32-byte aligned), read in place with x_len = m; else
+    ``bell2_kernel.interleave_x``'s copy, x_rows * 128 rows long."""
+    m, B = x.shape
+    if (B in (1, 2, 4, 8) and x.dtype == torch.float32
+            and x.is_contiguous() and x.data_ptr() % 32 == 0):
+        return x.view(B, m)
+    return bk.interleave_x(x, x_rows)
+
+
+def sdia_gen_tiles_mm_plain(vals, x3d, y_tiles, offsets, *, planes=None,
+                            store=False):
     """Plain PyTorch twin of :func:`sdia_gen_tiles_mm`: B6's twin once
-    per plane, accumulated in place; returns ``y_tiles``."""
+    per plane (of the interleaved X's planes, given ``planes``),
+    accumulated in place; returns ``y_tiles``."""
+    if planes is not None:
+        x3d = bk.flat_planes(x3d, planes)
     for b in range(x3d.shape[0]):
-        sdia_gen_tiles_plain(vals, x3d[b], y_tiles[b], offsets)
+        sdia_gen_tiles_plain(vals, x3d[b], y_tiles[b], offsets, store)
     return y_tiles
 
 
-def sdia_gen_tiles_mm(vals, x3d, y_tiles, offsets):
+def sdia_gen_tiles_mm(vals, x3d, y_tiles, offsets, *, planes=None,
+                      store=False):
     """``Y_tiles += A_dia X`` for B right-hand sides: ``x3d`` (B, x_rows,
-    128) and ``y_tiles`` (B, T, 128) float32 stacks whose planes are each
-    contiguous (any plane stride); ``y_tiles`` is accumulated in place and
-    returned. Otherwise as :func:`sdia_gen_tiles`, plane by plane. A CUDA
-    tensor launches once per group of up to ``_cuda.RHS_GROUP`` planes; a
-    CPU tensor takes the plain twin."""
-    _check_mm(vals, x3d, y_tiles, offsets)
+    128) float32 planes, each contiguous (any plane stride), which the
+    wrapper interleaves for the kernel (one copy); or, given ``planes`` =
+    B, X already interleaved: :func:`bell2_kernel.interleave_x`'s copy, or
+    :func:`gen_x`'s view of an (m, B) X read in place (any row count; x is
+    zero past it). ``y_tiles`` (B, T, 128), planes each contiguous, is
+    accumulated in place (written, with ``store``) and returned. Otherwise
+    as :func:`sdia_gen_tiles`, plane by plane. A CUDA tensor launches
+    once per group of up to ``_cuda.RHS_GROUP`` planes; a CPU tensor takes
+    the plain twin."""
+    _check_vals(vals, offsets, torch.float32)
+    if planes is None:
+        B = _cuda.check_planes(x3d, "x3d", vals.device, torch.float32)
+    else:
+        B = bk.check_interleaved(x3d, vals.device, planes, padded=False)
+    _cuda.check_planes(y_tiles, "y_tiles", vals.device, torch.float32, B=B)
     if vals.device.type == "cpu":
-        return sdia_gen_tiles_mm_plain(vals, x3d, y_tiles, offsets)
-    sdia_gen_tiles_mm.launches += _launch_gen(vals, x3d, y_tiles, offsets,
-                                              "sdia_gen_tiles_mm")
+        return sdia_gen_tiles_mm_plain(vals, x3d, y_tiles, offsets,
+                                       planes=planes, store=store)
+    if planes is None:
+        x3d = (x3d[0].reshape(1, -1) if B == 1 else
+               bk.interleave_x(x3d.reshape(B, -1).T, x3d.shape[1]))
+    sdia_gen_tiles_mm.launches += _launch_gen(
+        vals, x3d, y_tiles, offsets, "sdia_gen_tiles_mm", store)
     return y_tiles
 
 

@@ -440,17 +440,20 @@ def pad_x_mm(x: torch.Tensor, x_rows: int) -> torch.Tensor:
     return x3d
 
 
-def _unperm_tiles(dev: Bell2Device, tiles, unperm=bk.unperm_gather_tiles):
+def _unperm_tiles(dev: Bell2Device, g_tiles, unperm=bk.unperm_gather_tiles,
+                  **fused):
     """Original-row-order tiles (>= ceil(nrows/128) rows of 128) from a
-    grouped stream's compact output tiles; absent rows read exact 0."""
-    return unperm(dev.unperm_pk, dev.unperm_slabs, tiles[: dev.num_row_tiles])
+    grouped stream's compact output tiles; absent rows read exact 0.
+    ``fused``: the gather's ``seed`` or ``into`` form."""
+    return unperm(dev.unperm_pk, dev.unperm_slabs,
+                  g_tiles[: dev.num_row_tiles], **fused)
 
 
-def _unperm_tiles_mm(dev: Bell2Device, tiles,
-                     unperm=bk.unperm_gather_tiles_mm):
+def _unperm_tiles_mm(dev: Bell2Device, g_tiles,
+                     unperm=bk.unperm_gather_tiles_mm, **fused):
     """(B, >= ceil(nrows/128), 128) unpermuted tiles, multi-RHS."""
     return unperm(dev.unperm_pk, dev.unperm_slabs,
-                  tiles[:, : dev.num_row_tiles])
+                  g_tiles[:, : dev.num_row_tiles], **fused)
 
 
 #: the stream functions by role: name -> (kernel wrapper, plain twin)
@@ -507,19 +510,26 @@ def _check_matrix(x) -> int:
 
 def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     """General y = A x for one BELL2 stream plus its signed-offset SDIA
-    stream, composed exactly as the reference's ``bell2_apply``: an empty
-    or dia-only plan starts from zero tiles; a sparse residual
-    accumulates its entries into zero tiles; otherwise the
-    full stream runs, unpermuted when grouped; then ``sdia_gen_tiles``
-    adds the diagonals. Rectangular matrices take the same code (no dia
-    stream). ``plain=True`` runs every stream through its plain twin.
+    stream, composed as the reference's ``bell2_apply``: an empty plan
+    gives zero tiles, and a dia-only one has ``sdia_gen_tiles`` write its
+    tiles from x itself (the store form, for the reference's zero tiles
+    plus the add, and no padded copy of x); a
+    sparse residual accumulates its entries into zero tiles; otherwise
+    the full stream runs, unpermuted when grouped; then
+    ``sdia_gen_tiles`` adds the diagonals. Rectangular matrices take the
+    same code (no dia stream). ``plain=True`` runs every stream through
+    its plain twin.
     """
     _check_vector(x, "bell2_apply_mm")
     f = _kernels(plain)
-    x2d = pad_x(x, dev.x_rows)
+    # the stream reads x padded to its tiles; the diagonals alone read x
+    x2d = pad_x(x, dev.x_rows) if dev.has_work else x.contiguous()
     NT = dev.num_row_tiles
-    if not dev.has_work:
-        tiles = torch.zeros((NT, LANES), dtype=x2d.dtype, device=x2d.device)
+    store = not dev.has_work and dev.dia_vals is not None
+    if store:
+        tiles = x.new_empty((NT, LANES))
+    elif not dev.has_work:
+        tiles = x.new_zeros((NT, LANES))
     elif dev.sparse_stream and not dev.grouped:
         # post-peel residual: only rows with entries are touched
         tiles = f["bell2_acc"](dev.entries, x2d, x2d.new_zeros((NT, LANES)))
@@ -532,56 +542,67 @@ def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
             return ot.reshape(-1)[: dev.nrows]
         tiles = ot[: -(-dev.nrows // LANES)]
     if dev.dia_vals is not None:
-        tiles = f["sdia_gen"](dev.dia_vals, x2d, tiles, dev.dia_offsets)
+        tiles = f["sdia_gen"](dev.dia_vals, x2d, tiles, dev.dia_offsets,
+                              store)
     return tiles.reshape(-1)[: dev.nrows]
 
 
 def bell2_apply_mm(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     """Y = A X for X (ncols, B): :func:`bell2_apply` branch for branch,
     as the reference's ``bell2_apply_mm``, over (B, rows, 128) planes —
-    X padded in one pad of Xᵀ, the multi-RHS stream, unpermute and SDIA
-    kernels in place of the single-vector ones; the full stream reads X
-    interleaved (``bell2_kernel.interleave_x``), also one padded copy.
-    Returns (nrows, B), a transposed view of the output planes."""
+    the multi-RHS stream, unpermute and SDIA kernels in place of the
+    single-vector ones. The full stream reads X interleaved
+    (``bell2_kernel.interleave_x``, one padded copy), and the SDIA stream
+    reads that copy where there is one, else X in place where it can
+    (``sdia_kernel.gen_x``); only the sparse residual's entries read X as
+    padded planes (``pad_x_mm``). Returns (nrows, B), a transposed view
+    of the output planes."""
     B = _check_matrix(x)
     f = _kernels(plain)
     NT = dev.num_row_tiles
     full = dev.has_work and not (dev.sparse_stream and not dev.grouped)
-    if (dev.has_work and not full) or dev.dia_vals is not None:
-        x3d = pad_x_mm(x, dev.x_rows)
-    if not dev.has_work:
+    x_il = bk.interleave_x(x, dev.x_rows) if full else None
+    store = not dev.has_work and dev.dia_vals is not None
+    if store:
+        tiles = x.new_empty((B, NT, LANES))
+    elif not dev.has_work:
         tiles = x.new_zeros((B, NT, LANES))
     elif not full:
-        tiles = f["bell2_acc_mm"](dev.entries, x3d,
+        tiles = f["bell2_acc_mm"](dev.entries, pad_x_mm(x, dev.x_rows),
                                   x.new_zeros((B, NT, LANES)))
     else:
         tiles = f["bell2_mm"](dev.vals, dev.packed, dev.meta, dev.step_block,
-                              bk.interleave_x(x, dev.x_rows), planes=B,
-                              covers=dev.covers, **dev.stream_kw())
+                              x_il, planes=B, covers=dev.covers,
+                              **dev.stream_kw())
     if dev.grouped:
         ot = _unperm_tiles_mm(dev, tiles, f["unperm_mm"])
         if dev.dia_vals is None:
             return ot.reshape(B, -1)[:, : dev.nrows].T
         tiles = ot[:, : -(-dev.nrows // LANES)]
     if dev.dia_vals is not None:
-        tiles = f["sdia_gen_mm"](dev.dia_vals, x3d, tiles, dev.dia_offsets)
+        xg = x_il if x_il is not None else sk.gen_x(x, dev.x_rows)
+        tiles = f["sdia_gen_mm"](dev.dia_vals, xg, tiles, dev.dia_offsets,
+                                 planes=B, store=store)
     return tiles.reshape(B, -1)[:, : dev.nrows].T
 
 
 def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
-    """Symmetric y = (D + L + Lᵀ) x, composed exactly as the reference's
+    """Symmetric y = (D + L + Lᵀ) x, composed as the reference's
     ``sbell_apply``: the paired stream's tiles, or (without one) the
     accumulating streams seeded with D x; the degree-grouped far stream
-    unpermuted and added (padded to the plan's tiles), or the sparse far
-    stream's entries accumulated straight into the tiles; the
-    SDIA stream added in place (``sdia_gen_tiles`` when its offsets are
-    mirrored, else ``sdia_sym_tiles``); then D x when the paired stream
-    ran. ``plain=True`` runs every stream through its plain twin.
+    unpermuted and added (padded to the plan's tiles) — in one launch of
+    the unpermute, which takes the seed D x (``seed``) or adds into the
+    paired stream's tiles (``into``) — or the sparse far stream's entries
+    accumulated straight into the tiles; the SDIA stream added in place
+    (``sdia_gen_tiles`` when its offsets are mirrored, else
+    ``sdia_sym_tiles``); then D x when the paired stream ran.
+    ``plain=True`` runs every stream through its plain twin.
     """
     _check_vector(x, "sbell_apply_mm")
     f = _kernels(plain)
     x2d = pad_x(x, dev.x_rows)
     NT = dev.num_row_tiles
+    tiles = None
     if dev.has_paired:
         tiles = f["sbell"](
             dev.vals, dev.packed, dev.meta, dev.step_block, x2d,
@@ -589,21 +610,19 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
             tiles_per_block=dev.tiles_per_block,
             transpose_windows=dev.transpose_windows,
         )
-    else:
-        # seed the accumulating streams with D x directly
-        tiles = pad_x(dev.diag * x, NT)
     fd = dev.far
-    if fd is not None:
-        if fd.grouped:
-            # degree-grouped far stream: dense over its compact tiles;
-            # unpermute, then add into the tiles so far
-            ftiles = f["bell2"](fd.vals, fd.packed, fd.meta, fd.step_block,
-                                x2d, covers=fd.covers, **fd.stream_kw())
-            ot = _unperm_tiles(fd, ftiles, f["unperm"])
-            if ot.shape[0] < NT:
-                ot = torch.nn.functional.pad(ot, (0, 0, 0, NT - ot.shape[0]))
-            tiles = tiles[:NT] + ot[:NT]
-        else:
+    if fd is not None and fd.grouped:
+        # degree-grouped far stream: dense over its compact tiles, then
+        # unpermuted onto the seed or into the paired stream's tiles
+        ftiles = f["bell2"](fd.vals, fd.packed, fd.meta, fd.step_block,
+                            x2d, covers=fd.covers, **fd.stream_kw())
+        fused = (dict(seed=(dev.diag, x), tiles=NT) if tiles is None
+                 else dict(into=tiles))
+        tiles = _unperm_tiles(fd, ftiles, f["unperm"], **fused)
+    else:
+        if tiles is None:  # seed the accumulating streams with D x
+            tiles = pad_x(dev.diag * x, NT)
+        if fd is not None:
             # sparse far residual accumulates straight into the tiles
             tiles = f["bell2_acc"](fd.entries, x2d, tiles)
     if dev.dia_vals is not None:
@@ -616,20 +635,27 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
 def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     """Symmetric Y = (D + L + Lᵀ) X for X (nrows, B): :func:`sbell_apply`
     branch for branch, as the reference's ``sbell_apply_mm``, over (B,
-    rows, 128) planes — the ``diag[:, None] * X`` seed or the final add,
-    the grouped far stream (which reads X interleaved,
-    ``bell2_kernel.interleave_x``) padded along the tile axis, the sparse
-    far residual's entries accumulated straight into the tiles,
-    ``sdia_gen_tiles_mm`` when the diagonals are mirrored, else
-    ``sdia_sym_tiles_mm``. Returns (nrows, B), a transposed view (or, with
-    a paired stream, a fresh sum)."""
+    rows, 128) planes — the ``diag[:, None] * X`` seed (taken by the
+    unpermute, which reads X in place, where the far stream is grouped) or
+    the final add, the grouped far stream (which reads X interleaved,
+    ``bell2_kernel.interleave_x``) unpermuted onto the seed or into the
+    paired stream's planes, the sparse far residual's entries accumulated
+    straight into the tiles, ``sdia_gen_tiles_mm`` when the diagonals are
+    mirrored (X interleaved: the far stream's copy, or X in place,
+    ``sdia_kernel.gen_x``), else ``sdia_sym_tiles_mm``. X travels as
+    padded planes (``pad_x_mm``) only to the paired stream, the sparse
+    residual and ``sdia_sym_tiles_mm``. Returns (nrows, B), a transposed
+    view (or, with a paired stream, a fresh sum)."""
     B = _check_matrix(x)
     f = _kernels(plain)
     fd = dev.far
-    if (dev.has_paired or dev.dia_vals is not None
-            or (fd is not None and not fd.grouped)):
+    grouped = fd is not None and fd.grouped
+    sym_dia = dev.dia_vals is not None and not dev.dia_mirrored
+    if dev.has_paired or sym_dia or (fd is not None and not grouped):
         x3d = pad_x_mm(x, dev.x_rows)
+    x_il = bk.interleave_x(x, dev.x_rows) if grouped else None
     NT = dev.num_row_tiles
+    tiles = None
     if dev.has_paired:
         tiles = f["sbell_mm"](
             dev.vals, dev.packed, dev.meta, dev.step_block, x3d,
@@ -637,23 +663,22 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
             tiles_per_block=dev.tiles_per_block,
             transpose_windows=dev.transpose_windows,
         )
+    if grouped:
+        ftiles = f["bell2_mm"](fd.vals, fd.packed, fd.meta, fd.step_block,
+                               x_il, planes=B, covers=fd.covers,
+                               **fd.stream_kw())
+        fused = (dict(seed=(dev.diag, x), tiles=NT) if tiles is None
+                 else dict(into=tiles))
+        tiles = _unperm_tiles_mm(fd, ftiles, f["unperm_mm"], **fused)
     else:
-        tiles = pad_x_mm(dev.diag[:, None] * x, NT)
-    if fd is not None:
-        if fd.grouped:
-            ftiles = f["bell2_mm"](fd.vals, fd.packed, fd.meta,
-                                   fd.step_block,
-                                   bk.interleave_x(x, dev.x_rows), planes=B,
-                                   covers=fd.covers, **fd.stream_kw())
-            ot = _unperm_tiles_mm(fd, ftiles, f["unperm_mm"])
-            if ot.shape[1] < NT:
-                ot = torch.nn.functional.pad(ot, (0, 0, 0, NT - ot.shape[1]))
-            tiles = tiles[:, :NT] + ot[:, :NT]
-        else:
+        if tiles is None:
+            tiles = pad_x_mm(dev.diag[:, None] * x, NT)
+        if fd is not None:
             tiles = f["bell2_acc_mm"](fd.entries, x3d, tiles)
     if dev.dia_vals is not None and dev.dia_mirrored:
-        tiles = f["sdia_gen_mm"](dev.dia_vals, x3d, tiles[:, :NT],
-                                 dev.dia_offsets)
+        xg = x_il if x_il is not None else sk.gen_x(x, dev.x_rows)
+        tiles = f["sdia_gen_mm"](dev.dia_vals, xg, tiles[:, :NT],
+                                 dev.dia_offsets, planes=B)
     elif dev.dia_vals is not None:
         tiles = f["sdia_sym_mm"](dev.dia_vals, x3d, tiles[:, :NT],
                                  dev.dia_offsets, stage_x=dev.dia_stage_x)

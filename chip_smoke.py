@@ -10,7 +10,7 @@ Phases (each prints its wall time):
 1. card name and power limit (``nvidia-smi``), PyTorch and CUDA versions;
 2. build the CUDA kernels from ``cfs_spmv_tpu_torch/csrc/spmv_kernels.cu``,
    and beside that build (one ``nvcc`` per source, all started together)
-   ptxas' report and the four comparison sources of phase 4;
+   ptxas' report and the five comparison sources of phase 4;
 2b. ptxas' report (``nvcc -Xptxas -v``) of registers and spills for every
    kernel instance; any spill fails the run;
 3. the main paths, once each, through the user entry points —
@@ -56,7 +56,9 @@ Phases (each prints its wall time):
    planes at a plane stride past the plane, which must come back all zero
    where the plan covers them and untouched past them; a paired plan that
    leaves an output block unvisited must be refused at upload;
-   ``sdia_gen`` also on a ragged ``general_asym(g=50)`` plan; ``sdia_sym``
+   ``sdia_gen`` on a ragged ``general_asym(g=50)`` plan, ``general_asym()``,
+   the flagship as CSR and mirrored ``cant_proxy()``, adding from padded x
+   and storing from x itself into NaN-poisoned tiles; ``sdia_sym``
    on ``stencil27()`` and ``cant_proxy()``, onto a nonzero y, and over
    planes with x staged as the plan says and both ways); each
    multi-RHS kernel at B = 8 and at B = 11 (two plane groups), into
@@ -69,7 +71,17 @@ Phases (each prints its wall time):
    also with the other transpose-window count and on the 8-tile-block
    replan (both also at B = 2, the two-plane instance) and on the
    400,000-row plan, from x planes at a plane stride past the plane,
-   ``unperm_gather_mm`` bit-identical;
+   ``sdia_gen_mm`` on the four plans of ``sdia_gen`` at B = 1, 2, 4, 8
+   and 11 from X in place and from its interleaved copy, adding onto
+   nonzero and storing into NaN-poisoned strided planes (the store form's
+   rows past the value blocks must read +0); the unpermute's gather, seed
+   and into forms, SpMV and at B = 1, 2, 4, 8, 11, on ``audikw_proxy()``'s
+   far stream and on a degree-grouped replan over 8-tile blocks with an
+   absent row range, out of NaN-poisoned allocations, bit-identical to the
+   composed twins, then the seed form against the parent's composition in
+   device time and launches; the signed diagonal kernel as it stood before
+   its redesign and its other forms (``SDIA_GEN_ALT_SRC``, built for this
+   comparison only) against the twin and in device time beside what ships;
    the float64 kernels at B = 1, 8 and 11 (scaled error against the
    float64 twin below ``F64_TWIN_TOL``), the diagonal ones on
    ``stencil27()`` and ``cant_proxy()`` onto strided Y planes, the grid
@@ -126,8 +138,12 @@ Phases (each prints its wall time):
    one PyTorch call that computes the same function (a sparse CSR product
    of the same stream or matrix, ``index_select`` for the unpermute),
    and for every matrix ``torch.sparse_csr_tensor(A) @ x`` and ``@ X`` in
-   float32 and float64. These library calls are timed here and used
-   nowhere in the port;
+   float32 and float64, and the rows PERF.md §6 holds for other plans
+   (``stencil27()``'s diagonal kernels, B7 on ``cant_proxy()`` NONE, B6
+   and B12 on the flagship as CSR and mirrored cant); for every float32 run
+   the device launches of each apply beside the parent tree's composition
+   of its applier (held to the same result), with both device times.
+   These library calls are timed here and used nowhere in the port;
 6. the differential CLI (``cfs_spmv_tpu_torch.cli.test_spmv_mmf``) on a
    written ``.mtx`` on its default device; it must print ``PASSED!``;
    and an untuned ``A @ x`` with a numpy x, ``A.tune()`` and ``tune(csr)``
@@ -1088,6 +1104,200 @@ ENTRY(cfs_sdia_sym_form_f64, double)
 """
 
 
+#: the forms of the signed diagonal kernel, for the comparison in phase 4
+#: only: the port's kernel source included whole (``{src}``) and one entry
+#: point, ``cfs_sdia_gen_form``, which launches ``form`` over a group of 1
+#: to 8 planes. Form -1 is B12 as it stood before its redesign: one
+#: thread per row in CTAs of 256, every diagonal in turn, x gathered from
+#: each of the group's planes (at plane stride xs), added into y. Forms 0
+#: and 1 are the shipped kernel (``sdia_gen_kernel``, x interleaved: one
+#: plane, or a group's planes side by side) at 4 slices a row, adding and
+#: storing. Forms 2-5 are a variant whose threads issue the loads of two
+#: diagonals together (1 and 2 slices, adding and storing). What ships,
+#: 1 or 2 slices by ``sdia_kernel.gen_slices``, is timed through its
+#: wrapper's launcher beside them.
+SDIA_GEN_ALT_SRC = r"""
+#include "{src}"
+namespace {
+template <int kRhs>
+__global__ void sdia_gen_before_kernel(const float* __restrict__ vals,
+                                       const int* __restrict__ offsets, int D,
+                                       int64_t n_rows,
+                                       const float* __restrict__ x,
+                                       int64_t x_len, int64_t xs,
+                                       float* __restrict__ y, int64_t ys,
+                                       int nr) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= n_rows) return;
+  const float* vg = vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
+  float acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+  for (int j = 0; j < D; ++j) {
+    const int64_t s = g - static_cast<int64_t>(offsets[j]);
+    if (s >= 0 && s < x_len) {
+      const float v = vg[static_cast<int64_t>(j) * kBlockRows];
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b)
+        if (live<kRhs>(b, nr)) acc[b] = fmaf(v, x[b * xs + s], acc[b]);
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b)
+    if (live<kRhs>(b, nr)) y[b * ys + g] += acc[b];
+}
+
+// the shipped kernel's loop with the loads of two diagonals issued
+// together (zero where x is out of range)
+template <int kRhs, int kSlices, bool kStore>
+__global__ void sdia_gen_pair_kernel(const float* __restrict__ vals,
+                                     const int* __restrict__ offsets, int D,
+                                     int64_t nv_rows, int64_t n_rows,
+                                     const float* __restrict__ x,
+                                     int64_t x_len, float* __restrict__ y,
+                                     int64_t ys, int nr) {
+  constexpr int kRows = kGenThreads / kSlices;
+  __shared__ float sums[kSlices][kRhs][kRows];
+  const int r = threadIdx.x % kRows, s = threadIdx.x / kRows;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kRows + r;
+  if (kSlices == 1 && g >= n_rows) return;
+  const float* vg = vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
+  float acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+  if (g < nv_rows && g < n_rows) {
+    for (int j0 = s; j0 < D; j0 += 2 * kSlices) {
+      float v[2], xv[2][kRhs];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = j0 + u * kSlices;
+        const int64_t src = j < D ? g - static_cast<int64_t>(offsets[j]) : -1;
+        const bool ok = src >= 0 && src < x_len;
+        v[u] = ok ? vg[static_cast<int64_t>(j) * kBlockRows] : 0.0f;
+        if constexpr (kRhs == 1) {
+          xv[u][0] = ok ? x[src] : 0.0f;
+        } else if (ok) {
+          load_group<kRhs>(x + src * kRhs, xv[u]);
+        } else {
+#pragma unroll
+          for (int b = 0; b < kRhs; ++b) xv[u][b] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int b = 0; b < kRhs; ++b)
+          if (live<kRhs>(b, nr)) acc[b] = fmaf(v[u], xv[u][b], acc[b]);
+    }
+  }
+  if constexpr (kSlices == 1) {
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b)
+      if (live<kRhs>(b, nr)) {
+        if constexpr (kStore)
+          y[b * ys + g] = acc[b];
+        else
+          y[b * ys + g] += acc[b];
+      }
+  } else {
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) sums[s][b][r] = acc[b];
+    __syncthreads();
+    for (int i = threadIdx.x; i < kRhs * kRows; i += kGenThreads) {
+      const int b = i / kRows, k = i % kRows;
+      const int64_t row = static_cast<int64_t>(blockIdx.x) * kRows + k;
+      if (!live<kRhs>(b, nr) || row >= n_rows) continue;
+      float sum = sums[0][b][k];
+#pragma unroll
+      for (int t = 1; t < kSlices; ++t) sum += sums[t][b][k];
+      if constexpr (kStore)
+        y[b * ys + row] = sum;
+      else
+        y[b * ys + row] += sum;
+    }
+  }
+}
+
+template <int R>
+int gen_form(int form, const float* vals, const int* offsets, int D,
+             int64_t nv_rows, int64_t y_len, int64_t x_len, const float* x,
+             int64_t xs, float* y, int64_t ys, int nr, cudaStream_t stream) {
+  const bool store = form == 1 || form == 3 || form == 5;
+  const int64_t n_rows = store || y_len < nv_rows ? y_len : nv_rows;
+  if (n_rows <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
+  const unsigned int g1 = blocks_for(n_rows, kGenThreads);
+#define ARGS vals, offsets, D, nv_rows, n_rows, x, x_len, y, ys, nr
+  switch (form) {
+    case -1:
+      sdia_gen_before_kernel<R><<<g1, kGenThreads, 0, stream>>>(
+          vals, offsets, D, n_rows, x, x_len, xs, y, ys, nr);
+      break;
+    case 0:
+      sdia_gen_kernel<R, 4, false><<<blocks_for(n_rows, kGenThreads / 4),
+                                     kGenThreads, 0, stream>>>(ARGS);
+      break;
+    case 1:
+      sdia_gen_kernel<R, 4, true><<<blocks_for(n_rows, kGenThreads / 4),
+                                    kGenThreads, 0, stream>>>(ARGS);
+      break;
+    case 2:
+      sdia_gen_pair_kernel<R, 1, false><<<g1, kGenThreads, 0, stream>>>(ARGS);
+      break;
+    case 3:
+      sdia_gen_pair_kernel<R, 1, true><<<g1, kGenThreads, 0, stream>>>(ARGS);
+      break;
+    case 4:
+      sdia_gen_pair_kernel<R, 2, false><<<blocks_for(n_rows, kGenThreads / 2),
+                                          kGenThreads, 0, stream>>>(ARGS);
+      break;
+    case 5:
+      sdia_gen_pair_kernel<R, 2, true><<<blocks_for(n_rows, kGenThreads / 2),
+                                         kGenThreads, 0, stream>>>(ARGS);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+}  // namespace
+// x: for form -1 the group's planes at plane stride xs, else an
+// interleaved X of x_len elements (the plane for one plane)
+extern "C" int cfs_sdia_gen_form(int form, const float* vals,
+                                 const int* offsets, int D, int64_t nv_rows,
+                                 int64_t y_len, int64_t x_len, const float* x,
+                                 int64_t xs, float* y, int64_t ys, int nr,
+                                 cudaStream_t stream) {
+  switch (nr) {
+    case 1:
+      return gen_form<1>(form, vals, offsets, D, nv_rows, y_len, x_len, x, xs,
+                         y, ys, nr, stream);
+    case 2:
+      return gen_form<2>(form, vals, offsets, D, nv_rows, y_len, x_len, x, xs,
+                         y, ys, nr, stream);
+    case 3:
+    case 4:
+      return gen_form<4>(form, vals, offsets, D, nv_rows, y_len, x_len, x, xs,
+                         y, ys, nr, stream);
+    case 5:
+    case 6:
+    case 7:
+    case 8:
+      return gen_form<8>(form, vals, offsets, D, nv_rows, y_len, x_len, x, xs,
+                         y, ys, nr, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+"""
+
+#: what each form of ``SDIA_GEN_ALT_SRC`` is
+GEN_FORMS = {-1: "before (planes, 1 slice, add)", 0: "4 slices add",
+             1: "4 slices store", 2: "paired loads 1 slice add",
+             3: "paired loads 1 slice store", 4: "paired loads 2 slices add",
+             5: "paired loads 2 slices store"}
+
+
 def flagship(n=1024, deg=8, dtype=np.float32, seed=0):
     """Banded symmetric matrix dense enough that tuning engages the SDIA
     stream, plus a scattered residual for the far path (the repository's
@@ -1170,6 +1380,29 @@ def _device_ms(torch, fn, calls=TIMED_CALLS):
         if by_name:
             break
     return (sum(by_name.values()) if by_name else None), by_name
+
+
+def _device_launches(torch, fn, calls=5):
+    """Device launches (kernels, memsets, copies) per call of ``fn``, as
+    ``torch.profiler`` counts the card's events over ``calls`` calls, the
+    most of three windows, rounded (a window now and then misses the
+    event at its start: 14 events for 5 calls of 3); "not measured" where
+    it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    most = 0  # a window may lose events, never gain them
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(e.device_type == DeviceType.CUDA
+                             for e in prof.events()))
+    return str(round(most / calls)) if most else "not measured"
 
 
 def _fmt_device(busy, by_name):
@@ -1467,7 +1700,9 @@ def main() -> int:
     from cfs_spmv_tpu_torch.formats.bell2 import build_general_plan
     from cfs_spmv_tpu_torch.formats.sbell import build_sbell_plan
     from cfs_spmv_tpu_torch.io.mmf import write_mmf
-    from cfs_spmv_tpu_torch.formats.bell2 import build_bell2_from_arrays
+    from cfs_spmv_tpu_torch.formats.bell2 import (build_bell2_from_arrays,
+                                                  build_bell2_plan)
+    from cfs_spmv_tpu_torch.formats.coo import COO
     from cfs_spmv_tpu_torch.ops import _cuda
     from cfs_spmv_tpu_torch.ops import bell2_df as bdf
     from cfs_spmv_tpu_torch.ops import bell2_kernel as bk
@@ -1534,6 +1769,8 @@ def main() -> int:
             "grid": alt_start("grid", GRID_FORMS_SRC.replace(
                 "{src}", _cuda._SRC)),
             "sdia_alt": alt_start("sdia_alt", SDIA_SYM_ALT_SRC.replace(
+                "{src}", _cuda._SRC)),
+            "gen_alt": alt_start("gen_alt", SDIA_GEN_ALT_SRC.replace(
                 "{src}", _cuda._SRC))}
     _cuda.lib()
     phase_done("2 kernel build/load")
@@ -1761,6 +1998,7 @@ def main() -> int:
 
     g = torch.Generator(device="cpu").manual_seed(7)
     kern = {}
+    extra = {}  # further kernel rows (other plans), timed in phase 5
 
     def planes(B, rows, extra=0, dtype=torch.float32):
         """(B, rows, 128) random planes on the card; with ``extra``, a
@@ -1912,6 +2150,16 @@ def main() -> int:
         sym_flops = 4 * nnz_of(d.dia_vals)  # a row and a transpose product
         mm_pair("sdia_sym_mm", make_sdia_sym_mm, 2 * d.dia_vals.shape[1],
                 run_name, flops=RHS * sym_flops)
+        if run_name == "stencil27":
+            extra["sdia_sym on stencil27"] = dict(
+                err=errs[-1], on="stencil27",
+                bytes=_nbytes(d.dia_vals, x2d) + 2 * _nbytes(y0),
+                flops=sym_flops, library=lambda M=M_cant, v=xl_cant: M @ v,
+                fn=lambda a=args, y=y0, o=d.dia_offsets: sk.sdia_sym_tiles(
+                    *a, y.clone(), o),
+                plain=lambda a=args, y=y0, o=d.dia_offsets:
+                    sk.sdia_sym_tiles_plain(*a, y.clone(), o))
+            extra["sdia_sym_mm on stencil27"] = dict(kern["sdia_sym_mm"])
         either_stage(sk.sdia_sym_tiles_mm, d, d.x_rows, d.num_row_tiles,
                      run_name)
     kern["sdia_sym"] = dict(
@@ -1960,23 +2208,164 @@ def main() -> int:
         fn=lambda: bk.bell2_spmv_tiles(*sargs_a, **kw_a),
         plain=lambda: bk.bell2_spmv_tiles_plain(*sargs_a, **kw_a),
     )
+    # B3 + B9 on audikw_proxy's grouped far stream (the main path's) and
+    # on a degree-grouped replan over 8-tile blocks whose rows
+    # 20,000-39,999 are absent (pk < 0): the gather, the seed form (D x
+    # plus the gather, x read in place at its strides) and the into form
+    # (the gather added into given tiles), SpMV and over B = 1, 2, 4, 8,
+    # 11 planes, each bit-identical to its twin (the composed ops), out of
+    # a NaN-poisoned allocation; absent rows must read exactly the seed, or
+    # the tiles they were added into
+    rng_u = np.random.default_rng(9)
+    n_u = 90_000
+    deg_u = np.zeros(n_u, np.int64)
+    live_u = rng_u.choice(n_u, n_u // 2, replace=False)
+    live_u = live_u[(live_u < 20_000) | (live_u >= 40_000)]
+    deg_u[live_u] = rng_u.integers(1, 6, len(live_u))
+    deg_u[live_u[:64]] = 300
+    r_u = np.repeat(np.arange(n_u, dtype=np.int64), deg_u)
+    holes_g = ops.to_device(build_bell2_plan(CSR.from_coo(COO(
+        n_u, n_u, r_u, rng_u.integers(0, n_u, len(r_u)),
+        rng_u.uniform(-1, 1, len(r_u)).astype(np.float32)).canonicalize()),
+        tiles_per_block=8), dev)
+    if not (holes_g.grouped and holes_g.tiles_per_block == 8
+            and bool((holes_g.unperm_pk < 0).any())):
+        raise AssertionError("the replan is not degree-grouped over 8-tile "
+                             "blocks with absent rows")
+
+    def poisoned_pool(fn, nbytes):
+        """``fn()`` right after a NaN-filled block of ``nbytes`` is freed,
+        which the caching allocator hands to the next allocation of its
+        size: the output of a wrapper that allocates its own."""
+        t = torch.full((nbytes // 4 + 1,), float("nan"), device=dev)
+        del t
+        return fn()
+
+    def unperm_forms(gd, diag, NTu, on):
+        """The three forms against their twins (see above); returns the
+        worst |kernel - twin| (0: bit-identical, or it raised)."""
+        a = (gd.unperm_pk, gd.unperm_slabs)
+        n = diag.shape[0]
+        pk = gd.unperm_pk.reshape(-1)
+        absent = torch.nonzero(pk[:n] < 0).reshape(-1)
+        for B in (None, 1, 2, 4, 8, 11):  # None: the SpMV wrapper
+            Bp = B or 1
+            g3 = planes(Bp, gd.num_row_tiles, extra=2)
+            X = torch.rand((n, Bp + 3), generator=g).to(dev)[:, :Bp]
+            into0 = planes(Bp, NTu, extra=1)
+            if B is None:
+                kfn, pfn, gt = (bk.unperm_gather_tiles,
+                                bk.unperm_gather_tiles_plain, g3[0])
+                sx, into_of = X[:, 0], (lambda: into0[0].clone())
+            else:
+                kfn, pfn, gt = (bk.unperm_gather_tiles_mm,
+                                bk.unperm_gather_tiles_mm_plain, g3)
+                sx, into_of = X, (lambda: into0.clone())
+            for form in ("gather", "seed", "into"):
+                def call(fn):
+                    if form == "gather":
+                        return fn(*a, gt)
+                    if form == "seed":
+                        return fn(*a, gt, seed=(diag, sx), tiles=NTu)
+                    return fn(*a, gt, into=into_of())
+                yk = poisoned_pool(lambda: call(kfn), 4 * Bp * NTu * 128)
+                yp = call(pfn)
+                torch.cuda.synchronize()
+                what = f"unperm_gather {form} B={B or 'SpMV'} on {on}"
+                if not (torch.equal(yk, yp) and torch.isfinite(yk).all()):
+                    raise AssertionError(f"{what}: not bit-identical to its "
+                                         "composed twin, or not finite")
+                yk = yk.reshape(Bp, -1)
+                if form == "seed":
+                    want = (diag[:, None] * X).T[:, absent]
+                elif form == "into":
+                    want = into0.reshape(Bp, -1)[:, absent]
+                else:
+                    want = torch.zeros_like(yk[:, absent])
+                if not torch.equal(yk[:, absent], want):
+                    raise AssertionError(f"{what}: an absent row is not "
+                                         "exactly its seed or its tiles")
+        print(f"kernels unperm_gather / unperm_gather_mm on {on}: "
+              f"{len(absent)} absent rows of {n}, gather, seed and into "
+              f"forms, SpMV and B = 1, 2, 4, 8, 11, out of NaN-poisoned "
+              f"allocations: bit-identical to the composed twins",
+              flush=True)
+        return 0.0
+
+    unperm_forms(holes_g, torch.rand(n_u, generator=g).to(dev),
+                 -(-n_u // 128) + 3, "a grouped replan over 8-tile blocks "
+                 "with rows 20,000-39,999 absent")
+    NT_a = d.num_row_tiles
+    unperm_forms(fd, d.diag, NT_a, "audikw_proxy")
+    # the kernel rows: the seed form, as audikw's applies run it; the
+    # library call is the gather alone (index_select by the plan's
+    # row_perm against the tiles with a zero appended), the nearest one
+    # PyTorch call
     uargs = (fd.unperm_pk, fd.unperm_slabs, fp[: fd.num_row_tiles])
-    uk = bk.unperm_gather_tiles(*uargs)
-    up = bk.unperm_gather_tiles_plain(*uargs)
+    useed = dict(seed=(d.diag, xe), tiles=NT_a)
+    uk = bk.unperm_gather_tiles(*uargs, **useed)
+    up = bk.unperm_gather_tiles_plain(*uargs, **useed)
     if not torch.equal(uk, up):
         raise AssertionError("unperm_gather: not bit-identical to its twin")
-    # the library form of the unpermute: index_select by the plan's
-    # row_perm against the tiles with a zero appended
     perm_t = torch.as_tensor(np.asarray(A.tuned.plan.far.row_perm, np.int64),
                              device=dev)
     g_ext = torch.cat([uargs[2].reshape(-1), uargs[2].new_zeros(1)])
+    live_g = int((fd.unperm_pk >= 0).sum())  # gathered values a plane
     kern["unperm_gather"] = dict(
-        err=float((uk - up).abs().max()), on="audikw_proxy",
-        bytes=_nbytes(fd.unperm_pk, uk) + 4 * A.nrows, flops=0,
+        err=0.0, on="audikw_proxy (seed form)",
+        bytes=_nbytes(fd.unperm_pk, d.diag, xe, uk) + 4 * live_g, flops=0,
         library=lambda: torch.index_select(g_ext, 0, perm_t),
-        fn=lambda: bk.unperm_gather_tiles(*uargs),
-        plain=lambda: bk.unperm_gather_tiles_plain(*uargs),
+        fn=lambda: bk.unperm_gather_tiles(*uargs, **useed),
+        plain=lambda: bk.unperm_gather_tiles_plain(*uargs, **useed),
     )
+
+    def make_unperm_mm(B, fd=fd):
+        ua = (fd.unperm_pk, fd.unperm_slabs,
+              planes(B, fd.num_row_tiles, extra=2))
+        Xs = torch.rand((d.nrows, B), generator=g).to(dev)
+        kw = dict(seed=(d.diag, Xs), tiles=NT_a)
+        ext = torch.cat([ua[2].reshape(B, -1), ua[2].new_zeros((B, 1))], 1)
+        return (lambda: bk.unperm_gather_tiles_mm(*ua, **kw),
+                lambda: bk.unperm_gather_tiles_mm(*ua, **kw),
+                lambda: bk.unperm_gather_tiles_mm_plain(*ua, **kw),
+                None,
+                _nbytes(fd.unperm_pk, d.diag, Xs) + 4 * B * (
+                    live_g + NT_a * 128),
+                lambda: torch.index_select(ext, 1, perm_t))
+
+    mm_pair("unperm_gather_mm", make_unperm_mm, 0, "audikw_proxy (seed form)",
+            exact=True)
+
+    # the forms of the unpermute in turns, device ms and device launches
+    # per call: the seed form that ships against the parent's composition
+    # (the gather, then the seed's product and pad, the gather's pad and
+    # the add), at one plane and at 8
+    for B in (1, RHS):
+        ua = uargs if B == 1 else (*uargs[:2], planes(B, fd.num_row_tiles))
+        Xs = xe if B == 1 else torch.rand((d.nrows, B), generator=g).to(dev)
+        fused = ((lambda: bk.unperm_gather_tiles(*ua, seed=(d.diag, Xs),
+                                                 tiles=NT_a)) if B == 1 else
+                 (lambda: bk.unperm_gather_tiles_mm(*ua, seed=(d.diag, Xs),
+                                                    tiles=NT_a)))
+
+        def composed(ua=ua, Xs=Xs, B=B):
+            if B == 1:
+                ot = bk.unperm_gather_tiles(*ua)[None]
+                return bk._composed(ot, (d.diag, Xs[:, None]), None, NT_a)
+            ot = bk.unperm_gather_tiles_mm(*ua)
+            return bk._composed(ot, (d.diag, Xs), None, NT_a)
+
+        if not torch.equal(fused().reshape(B, -1), composed().reshape(B, -1)):
+            raise AssertionError("unperm_gather: the fused seed form differs "
+                                 "from the composed one")
+        said = []
+        for what, fn in (("fused", fused), ("composed", composed),
+                         ("composed", composed), ("fused", fused)):
+            busy, _ = _device_ms(torch, fn)
+            said.append(f"{what} {_ms(busy)} ms in "
+                        f"{_device_launches(torch, fn)} launches")
+        print(f"unperm forms on audikw_proxy B={B} in turns, device: "
+              + "; ".join(said) + f" ({card})", flush=True)
 
     # B7 on an 8-tile-block replan of general_asym(g=50) whose rows
     # 20,000-59,999 are absent and get no covering chunks (so whole output
@@ -2063,24 +2452,13 @@ def main() -> int:
 
         mm_pair("bell2_spmm", make_bell2_mm, nnz_s / ds.nrows, on,
                 rows=vrows, flops=RHS * 2 * nnz_s)
+        if ds is d_none:
+            extra["bell2_spmm on cant_proxy NONE"] = dict(kern["bell2_spmm"])
         print(f"kernel bell2_spmm on {on}: {ds.meta.shape[0]} chunks, "
               f"window depth {'> 8 or contiguous' if ds.contig else 'listed'}"
               f", {len(torch.unique(ds.step_block))} of "
               f"{TPs // ds.tiles_per_block} blocks visited, covers="
               f"{ds.covers}", flush=True)
-
-    def make_unperm_mm(B, fd=fd):
-        ua = (fd.unperm_pk, fd.unperm_slabs,
-              planes(B, fd.num_row_tiles, extra=2))
-        ext = torch.cat([ua[2].reshape(B, -1), ua[2].new_zeros((B, 1))], 1)
-        return (lambda: bk.unperm_gather_tiles_mm(*ua),
-                lambda: bk.unperm_gather_tiles_mm(*ua),
-                lambda: bk.unperm_gather_tiles_mm_plain(*ua),
-                None, _nbytes(fd.unperm_pk) + 2 * B * _nbytes(uk),
-                lambda: torch.index_select(ext, 1, perm_t))
-
-    mm_pair("unperm_gather_mm", make_unperm_mm, 0, "audikw_proxy",
-            exact=True)
 
     # B4 + B8 on the flagship's sparse far residual, which travels as its
     # live entries: against the twin onto a nonzero y, and against the
@@ -2505,57 +2883,216 @@ def main() -> int:
                   f"{t_form(-2, 1, 2)}, cudaMemset2DAsync (ships) "
                   f"{t_form(-2, 1, 3)} ({card})", flush=True)
 
-    # B6 on a ragged general_asym(g=50) plan (125,000 rows: fewer x and
-    # y rows than its padded value blocks hold) and on general_asym's
-    # signed-offset peel, each onto a nonzero y
-    A, d, xe = operands("general_asym")
-    ragged = ops.to_device(build_general_plan(general_asym(g=50)), dev)
-    x_r = torch.rand(ragged.ncols, generator=g).to(dev)
-    errs = []
-    for dg, xg in ((ragged, x_r), (d, xe)):  # the main plan's last
-        x2d_g = ops.pad_x(xg, dg.x_rows)
-        y0_g = torch.rand((dg.num_row_tiles, 128), generator=g).to(dev)
-        gargs = (dg.dia_vals, x2d_g)
-        yk = sk.sdia_gen_tiles(*gargs, y0_g.clone(), dg.dia_offsets)
-        yp = sk.sdia_gen_tiles_plain(*gargs, y0_g.clone(), dg.dia_offsets)
-        scale = sk.sdia_gen_tiles_plain(
-            dg.dia_vals.abs().double(), x2d_g.abs().double(),
-            y0_g.abs().double(), dg.dia_offsets,
-        )
-        what = (f"sdia_gen n={dg.nrows} rows of values "
-                f"{dg.dia_vals.shape[0] * 1024} x rows {dg.x_rows * 128}")
-        errs.append(_agree(yk, yp, scale, dg.dia_vals.shape[1], what))
-        print(f"kernel {what}: max_abs_err vs twin {errs[-1]}", flush=True)
+    # B6 + B12 on a ragged general_asym(g=50) plan (125,000 rows: fewer x
+    # and y rows than its padded value blocks hold), on the flagship as a
+    # general matrix (33 diagonals), on cant_proxy() mirrored (64) and on
+    # general_asym's signed-offset peel (the kernel rows'): B6 onto a
+    # nonzero y from padded x, and in the store form from x itself into a
+    # NaN-poisoned y whose rows past the value blocks must read +0; B12 at
+    # B = 1, 2, 4, 8, 11 from X in place where it is one interleaved group
+    # (``sdia_kernel.gen_x``: B of 1, 2, 4, 8) and from ``interleave_x``'s
+    # copy, adding onto nonzero Y planes and storing into NaN-poisoned
+    # ones, each at a plane stride past the plane (nothing past a plane
+    # may be written; the store form's rows past the value blocks +0)
+    gen_plans = {"general_asym(g=50)": ops.to_device(
+        build_general_plan(general_asym(g=50)), dev)}
+    for run_name in ("flagship_csr", "cant_proxy_mirrored", "general_asym"):
+        gen_plans[run_name] = operands(run_name)[1]
+
+    def plus_zero_tail(y, nv, what):
+        """The store form's rows past the nv value rows read +0."""
+        tail = y.reshape(y.shape[0], -1)[:, nv:]
+        if not ((tail == 0).all() and not torch.signbit(tail).any()):
+            raise AssertionError(f"{what}: a row past the value blocks is "
+                                 "not +0")
+
+    gen_err = {"sdia_gen": 0.0, "sdia_gen_mm": 0.0}
+    gen_ops = {}  # plan -> the operands of its kernel rows
+    for on, dg in gen_plans.items():
+        m = getattr(dg, "ncols", dg.nrows)
+        vals, offs, T = dg.dia_vals, dg.dia_offsets, dg.num_row_tiles
+        nv, D = vals.shape[0] * 1024, vals.shape[1]
+        av = vals.abs().double()
+        x = torch.rand(m, generator=g).to(dev)
+        x2d = ops.pad_x(x, dg.x_rows)
+        y0 = torch.rand((T, 128), generator=g).to(dev)
+        yk = sk.sdia_gen_tiles(vals, x2d, y0.clone(), offs)
+        yp = sk.sdia_gen_tiles_plain(vals, x2d, y0.clone(), offs)
+        ys = sk.sdia_gen_tiles_plain(av, x2d.abs().double(),
+                                     y0.abs().double(), offs)
+        errs = [_agree(yk, yp, ys, D, f"sdia_gen add on {on}")]
+        zk = sk.sdia_gen_tiles(vals, x, poisoned((T, 128)), offs, store=True)
+        torch.cuda.synchronize()
+        plus_zero_tail(zk[None], nv, f"sdia_gen store on {on}")
+        zp = sk.sdia_gen_tiles_plain(vals, x, y0.clone(), offs, store=True)
+        zs = sk.sdia_gen_tiles_plain(av, x.abs().double(), y0.clone().double(),
+                                     offs, store=True)
+        errs.append(_agree(zk, zp, zs, D, f"sdia_gen store on {on}"))
+        gen_err["sdia_gen"] = max(gen_err["sdia_gen"], *errs)
+        said = []
+        for B in (1, 2, 4, 8, 11):
+            X = torch.rand((m, B), generator=g).to(dev)
+            x3 = ops.pad_x_mm(X, dg.x_rows)
+            y3 = planes(B, T, extra=3)
+            yp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs)
+            ys = sk.sdia_gen_tiles_mm_plain(av, x3.abs().double(),
+                                            y3.abs().double(), offs)
+            zp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs,
+                                            store=True)
+            zs = sk.sdia_gen_tiles_mm_plain(av, x3.abs().double(),
+                                            y3.abs().double(), offs,
+                                            store=True)
+            forms = {"copied": bk.interleave_x(X, dg.x_rows)}
+            xg = sk.gen_x(X, dg.x_rows)
+            if xg.data_ptr() == X.data_ptr():
+                forms["in place"] = xg
+            elif B in (1, 2, 4, 8):
+                raise AssertionError(f"sdia_gen_mm on {on}: a contiguous "
+                                     f"aligned X of B={B} was copied")
+            worst = 0.0
+            for xn, xil in forms.items():
+                what = f"sdia_gen_mm B={B} X {xn} on {on}"
+                add = strided(y3, lambda y: sk.sdia_gen_tiles_mm(
+                    vals, xil, y, offs, planes=B))
+                st = strided(poisoned((B, T, 128)), lambda y: (
+                    sk.sdia_gen_tiles_mm(vals, xil, y, offs, planes=B,
+                                         store=True)))
+                plus_zero_tail(st, nv, what)
+                worst = max(worst, _agree(add, yp, ys, D, f"{what} add"),
+                            _agree(st, zp, zs, D, f"{what} store"))
+            said.append(f"B={B} ({', '.join(forms)}) {worst}")
+            gen_err["sdia_gen_mm"] = max(gen_err["sdia_gen_mm"], worst)
+        print(f"kernels sdia_gen / sdia_gen_mm on {on}: {D} diagonals, "
+              f"{nv} value rows, {T * 128} y rows, x {m}; "
+              f"{sk.gen_slices(min(T * 128, nv), D, sk._thread_slots(dev))} "
+              f"slices a row adding and "
+              f"{sk.gen_slices(T * 128, D, sk._thread_slots(dev))} storing; "
+              f"max_abs_err vs twin: B6 add {errs[0]}, store from x "
+              f"{errs[1]}; B12 adding and storing, by X: " + "; ".join(said),
+              flush=True)
+        gen_ops[on] = (dg, x, x2d, y0, vals, offs, T, m)
+
+    # the kernel rows: on general_asym the store forms its applies run (x
+    # itself; X in place at B = 8); on the flagship as CSR and mirrored
+    # cant the adding forms theirs run, onto nonzero y
     M_gasym, xl_gasym, Xe_gasym = lib_operands("general_asym")
-    kern["sdia_gen"] = dict(
-        err=max(errs), on="general_asym",
-        bytes=_nbytes(d.dia_vals, x2d_g) + 2 * _nbytes(y0_g),
-        flops=2 * nnz_of(d.dia_vals), library=lambda: M_gasym @ xl_gasym,
-        fn=lambda o=d.dia_offsets: sk.sdia_gen_tiles(
-            *gargs, y0_g.clone(), o),
-        plain=lambda o=d.dia_offsets: sk.sdia_gen_tiles_plain(
-            *gargs, y0_g.clone(), o),
-    )
+    for on, mname in (("general_asym", "general_asym"),
+                      ("flagship_csr", "flagship"),
+                      ("cant_proxy_mirrored", "cant_proxy")):
+        dg, x, x2d, y0, vals, offs, T, m = gen_ops[on]
+        M_, xl_, Xe_ = lib_operands(mname)
+        X8 = torch.rand((m, RHS), generator=g).to(dev)
+        Y8 = torch.rand((RHS, T, 128), generator=g).to(dev)
+        xg8 = sk.gen_x(X8, dg.x_rows)
+        store = on == "general_asym"
+        row = dict(
+            err=gen_err["sdia_gen"], on=f"{on} ({'store' if store else 'add'})",
+            flops=2 * nnz_of(vals), library=lambda M_=M_, xl_=xl_: M_ @ xl_)
+        row_mm = dict(
+            err=gen_err["sdia_gen_mm"],
+            on=f"{on} ({'store' if store else 'add'}, X in place), B={RHS}",
+            flops=RHS * 2 * nnz_of(vals),
+            library=lambda M_=M_, Xe_=Xe_: M_ @ Xe_)
+        if store:
+            yo = torch.empty((T, 128), device=dev)
+            row.update(
+                bytes=_nbytes(vals, x, yo),
+                fn=lambda a=(vals, x, yo, offs): sk.sdia_gen_tiles(
+                    *a, store=True),
+                plain=lambda a=(vals, x, yo, offs): sk.sdia_gen_tiles_plain(
+                    *a, store=True))
+            row_mm.update(
+                bytes=_nbytes(vals, X8, Y8),
+                fn=lambda a=(vals, xg8, Y8, offs): sk.sdia_gen_tiles_mm(
+                    *a, planes=RHS, store=True),
+                plain=lambda a=(vals, xg8, Y8, offs):
+                    sk.sdia_gen_tiles_mm_plain(*a, planes=RHS, store=True))
+        else:
+            row.update(
+                bytes=_nbytes(vals, x2d) + 2 * _nbytes(y0),
+                fn=lambda a=(vals, x2d), y=y0, o=offs: sk.sdia_gen_tiles(
+                    *a, y.clone(), o),
+                plain=lambda a=(vals, x2d), y=y0, o=offs:
+                    sk.sdia_gen_tiles_plain(*a, y.clone(), o))
+            row_mm.update(
+                bytes=_nbytes(vals, X8) + 2 * _nbytes(Y8),
+                fn=lambda a=(vals, xg8), y=Y8, o=offs: sk.sdia_gen_tiles_mm(
+                    *a, y.clone(), o, planes=RHS),
+                plain=lambda a=(vals, xg8), y=Y8, o=offs:
+                    sk.sdia_gen_tiles_mm_plain(*a, y.clone(), o, planes=RHS))
+        if store:
+            kern["sdia_gen"], kern["sdia_gen_mm"] = row, row_mm
+        else:
+            extra[f"sdia_gen on {on}"] = row
+            extra[f"sdia_gen_mm on {on}"] = row_mm
 
-    # B12 on the ragged plan, then on general_asym's peel, onto nonzero Y
-    # planes held at a plane stride past the plane
-    for dg, on in ((ragged, "general_asym(g=50)"), (d, "general_asym")):
-        def make_sdia_gen_mm(B, dg=dg):
-            x3 = planes(B, dg.x_rows)
-            y3 = planes(B, dg.num_row_tiles, extra=3)
-            a = (dg.dia_vals, x3)
-            o = dg.dia_offsets
-            return (lambda: sk.sdia_gen_tiles_mm(*a, y3.clone(), o),
-                    lambda: sk.sdia_gen_tiles_mm(*a, y3.clone(), o),
-                    lambda: sk.sdia_gen_tiles_mm_plain(*a, y3.clone(), o),
-                    lambda: sk.sdia_gen_tiles_mm_plain(
-                        dg.dia_vals.abs().double(), x3.abs().double(),
-                        y3.abs().double(), o),
-                    _nbytes(dg.dia_vals, x3) + 2 * _nbytes(y3),
-                    lambda: M_gasym @ Xe_gasym)
+    # the forms of the signed diagonal kernel (SDIA_GEN_ALT_SRC): the kernel
+    # before its redesign (x gathered from the planes) and the shipped
+    # kernel's other forms, against the twin at B = 1 and 11 onto strided
+    # planes, then in device time in turns beside what ships (1 and 2
+    # slices, adding and storing, through its wrapper's launcher) at B = 1
+    # and 8 (general_asym: two rounds)
+    gen_alt, said = alt_bind(
+        "gen_alt", side.pop("gen_alt"), "cfs_sdia_gen_form",
+        [i32_, p_, p_, i32_, i64_, i64_, i64_, p_, i64_, p_, i64_, i32_, p_])
+    print(f"ptxas, the signed diagonal kernel's forms: "
+          f"{_regs_line(ptxas_report(said))}", flush=True)
 
-        mm_pair("sdia_gen_mm", make_sdia_gen_mm, dg.dia_vals.shape[1], on,
-                flops=RHS * 2 * nnz_of(dg.dia_vals))
+    def run_gen_form(form, dg, x, y):
+        """Form ``form`` over the planes ``y``; x: planes for form -1, else
+        an interleaved X."""
+        _cuda.launch_groups("sdia_gen_form", x, y, lambda *pl: gen_alt(
+            form, dg.dia_vals.data_ptr(), dg.dia_offsets.data_ptr(),
+            dg.dia_vals.shape[1], dg.dia_vals.shape[0] * 1024, y[0].numel(),
+            x[0].numel() if form < 0 else x.shape[1], *pl))
+        return y
+
+    for on in ("flagship_csr", "cant_proxy_mirrored", "general_asym"):
+        dg, _, _, _, vals, offs, T, m = gen_ops[on]
+        worst = dict.fromkeys(GEN_FORMS, 0.0)
+        for B in (1, 11):
+            X = torch.rand((m, B), generator=g).to(dev)
+            x3 = ops.pad_x_mm(X, dg.x_rows)
+            xil = bk.interleave_x(X, dg.x_rows)
+            y3 = planes(B, T, extra=3)
+            yp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs)
+            zp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs,
+                                            store=True)
+            ys = sk.sdia_gen_tiles_mm_plain(
+                vals.abs().double(), x3.abs().double(), y3.abs().double(),
+                offs)
+            for form in GEN_FORMS:
+                got = strided(y3, lambda y: run_gen_form(
+                    form, dg, x3 if form < 0 else xil, y))
+                worst[form] = max(worst[form], _agree(
+                    got, zp if form in (1, 3, 5) else yp, ys,
+                    vals.shape[1], f"sdia_gen form {form} B={B} on {on}"))
+        print(f"sdia_gen forms on {on}, B = 1 and 11 onto strided planes: "
+              f"max_abs_err vs twin by form {worst}", flush=True)
+        for B in (1, RHS):
+            X = torch.rand((m, B), generator=g).to(dev)
+            x3 = ops.pad_x_mm(X, dg.x_rows)
+            xil = sk.gen_x(X, dg.x_rows)
+            y3 = planes(B, T)
+            for rnd in range(2 if on == "general_asym" else 1):
+                said = []
+                for form, what in GEN_FORMS.items():
+                    busy, _ = _device_ms(torch, lambda: run_gen_form(
+                        form, dg, x3 if form < 0 else xil, y3))
+                    said.append(f"{what} {_ms(busy)}")
+                for slices in (1, 2):
+                    for store in (False, True):
+                        _, by = _device_ms(torch, lambda: sk._launch_gen(
+                            vals, xil, y3, offs, "sdia_gen_tiles_mm", store,
+                            slices))
+                        said.append(f"{slices} slice{'s' * (slices > 1)} "
+                                    f"{'store' if store else 'add'} "
+                                    f"{_ms(by.get('sdia_gen_kernel'))}")
+                print(f"sdia_gen forms on {on} B={B} round {rnd}, device ms "
+                      f"(the shipped kernel takes "
+                      f"{sk.gen_slices(T * 128, vals.shape[1], sk._thread_slots(dev))}"
+                      f" slices here): " + "; ".join(said) + f" ({card})",
+                      flush=True)
 
     # B13 + B14 on stencil27's and cant_proxy's float64 plans (the kernel
     # row's): the diagonal stream with the halved main diagonal (offset
@@ -2602,6 +3139,18 @@ def main() -> int:
         mm_pair("sdia_sym_df_mm", make_sdia_df_mm, 2 * d.dia_vals.shape[1],
                 run_name.replace("_f64", " float64"), Bs=(1, 11, RHS),
                 flops=RHS * sym_flops)
+        if run_name == "stencil27_f64":
+            extra["sdia_sym_df on stencil27 float64"] = dict(
+                err=errs[-1], on="stencil27 float64",
+                bytes=_nbytes(d.dia_vals, x2d) + 2 * _nbytes(y0),
+                flops=sym_flops,
+                library=lambda M=M_cant64, v=xl_cant64: M @ v,
+                fn=lambda a=args, y=y0, o=d.dia_offsets:
+                    sdf.sdia_sym_tiles_df(*a, y.clone(), o),
+                plain=lambda a=args, y=y0, o=d.dia_offsets:
+                    sk.sdia_sym_tiles_plain(*a, y.clone(), o))
+            extra["sdia_sym_df_mm on stencil27 float64"] = dict(
+                kern["sdia_sym_df_mm"])
         either_stage(sdf.sdia_sym_tiles_df_mm, d, x2d.shape[0], TD,
                      run_name)
     kern["sdia_sym_df"] = dict(
@@ -3106,7 +3655,8 @@ def main() -> int:
         k["library_device_ms"], _ = _device_ms(torch, k["library"])
         k["bound_ms"], k["bound_by"] = _bound(
             k["bytes"], k["flops"], "float64" if f64 else "float32")
-        print(f"kernel {name} on {k['on']}: max_abs_err vs twin {k['err']} "
+        print(f"kernel {name.split(' on ')[0]} on {k['on']}: max_abs_err "
+              f"vs twin {k['err']} "
               f"kernel {k['ms']:.4f} ms twin {k['plain_ms']:.4f} ms "
               f"library call {k['library_ms']:.4f} ms (device "
               f"{_ms(k['library_device_ms'])}); "
@@ -3122,6 +3672,8 @@ def main() -> int:
     for name, k in big.items():  # the paired kernels past the L2
         time_kernel(name, k)
     for name, k in dense.items():  # the grid kernels on general_asym f64
+        time_kernel(name, k)
+    for name, k in extra.items():  # the other plans' rows of PERF.md
         time_kernel(name, k)
     # the stream read once for 8 right-hand sides against 8 reads: the
     # MM(8) kernel's device time beside 8x its SpMV form's, same plan
@@ -3143,6 +3695,134 @@ def main() -> int:
               f"{ks[mv]['on']}: MM({RHS}) {_ms(t_mm)} ms, SpMV {_ms(t_mv)} "
               f"ms, ratio MM / ({RHS} SpMV) "
               f"{_ratio(t_mm, t_mv and RHS * t_mv)} ({card})", flush=True)
+    # the float32 appliers as the parent tree composed them, for the
+    # device launches and times beside this tree's: the general path from
+    # zero tiles, B6 adding from padded x and B12 over padded planes (its
+    # kernel before the redesign, SDIA_GEN_ALT_SRC form -1); the symmetric
+    # path with the seed D x as a padded copy and the grouped far stream's
+    # gather padded and added to it (or to the paired stream's tiles)
+    F = torch.nn.functional
+
+    def parent_gen(dv, x2d, tiles):
+        sk._launch_gen(dv.dia_vals, x2d.reshape(1, -1), tiles[None],
+                       dv.dia_offsets, "sdia_gen_tiles", slices=1)
+        return tiles
+
+    def parent_bell2_apply(dv, x):
+        x2d = ops.pad_x(x, dv.x_rows)
+        NT = dv.num_row_tiles
+        if not dv.has_work:
+            tiles = x2d.new_zeros((NT, 128))
+        elif dv.sparse_stream and not dv.grouped:
+            tiles = bk.bell2_spmv_tiles_accum(dv.entries, x2d,
+                                              x2d.new_zeros((NT, 128)))
+        else:
+            tiles = bk.bell2_spmv_tiles(dv.vals, dv.packed, dv.meta,
+                                        dv.step_block, x2d, covers=dv.covers,
+                                        **dv.stream_kw())
+        if dv.grouped:
+            ot = bk.unperm_gather_tiles(dv.unperm_pk, dv.unperm_slabs,
+                                        tiles[:dv.num_row_tiles])
+            if dv.dia_vals is None:
+                return ot.reshape(-1)[:dv.nrows]
+            tiles = ot[:-(-dv.nrows // 128)]
+        if dv.dia_vals is not None:
+            tiles = parent_gen(dv, x2d, tiles)
+        return tiles.reshape(-1)[:dv.nrows]
+
+    def parent_bell2_apply_mm(dv, x):
+        B, NT = x.shape[1], dv.num_row_tiles
+        full = dv.has_work and not (dv.sparse_stream and not dv.grouped)
+        if (dv.has_work and not full) or dv.dia_vals is not None:
+            x3d = ops.pad_x_mm(x, dv.x_rows)
+        if not dv.has_work:
+            tiles = x.new_zeros((B, NT, 128))
+        elif not full:
+            tiles = bk.bell2_spmm_tiles_accum(dv.entries, x3d,
+                                              x.new_zeros((B, NT, 128)))
+        else:
+            tiles = bk.bell2_spmm_tiles(
+                dv.vals, dv.packed, dv.meta, dv.step_block,
+                bk.interleave_x(x, dv.x_rows), planes=B, covers=dv.covers,
+                **dv.stream_kw())
+        if dv.grouped:
+            ot = bk.unperm_gather_tiles_mm(dv.unperm_pk, dv.unperm_slabs,
+                                           tiles[:, :dv.num_row_tiles])
+            if dv.dia_vals is None:
+                return ot.reshape(B, -1)[:, :dv.nrows].T
+            tiles = ot[:, :-(-dv.nrows // 128)]
+        if dv.dia_vals is not None:
+            tiles = run_gen_form(-1, dv, x3d, tiles)
+        return tiles.reshape(B, -1)[:, :dv.nrows].T
+
+    def parent_sbell_apply(dv, x):
+        x2d = ops.pad_x(x, dv.x_rows)
+        NT, fd_ = dv.num_row_tiles, dv.far
+        if dv.has_paired:
+            tiles = bk.sbell_spmv_tiles(
+                dv.vals, dv.packed, dv.meta, dv.step_block, x2d,
+                num_row_tiles=NT, chunks_per_step=dv.chunks_per_step,
+                tiles_per_block=dv.tiles_per_block,
+                transpose_windows=dv.transpose_windows)
+        else:
+            tiles = ops.pad_x(dv.diag * x, NT)
+        if fd_ is not None and fd_.grouped:
+            ftiles = bk.bell2_spmv_tiles(fd_.vals, fd_.packed, fd_.meta,
+                                         fd_.step_block, x2d,
+                                         covers=fd_.covers, **fd_.stream_kw())
+            ot = bk.unperm_gather_tiles(fd_.unperm_pk, fd_.unperm_slabs,
+                                        ftiles[:fd_.num_row_tiles])
+            if ot.shape[0] < NT:
+                ot = F.pad(ot, (0, 0, 0, NT - ot.shape[0]))
+            tiles = tiles[:NT] + ot[:NT]
+        elif fd_ is not None:
+            tiles = bk.bell2_spmv_tiles_accum(fd_.entries, x2d, tiles)
+        if dv.dia_vals is not None and dv.dia_mirrored:
+            tiles = parent_gen(dv, x2d, tiles[:NT])
+        elif dv.dia_vals is not None:
+            tiles = sk.sdia_sym_tiles(dv.dia_vals, x2d, tiles[:NT],
+                                      dv.dia_offsets)
+        y = tiles.reshape(-1)[:dv.nrows]
+        return y + dv.diag * x if dv.has_paired else y
+
+    def parent_sbell_apply_mm(dv, x):
+        B, NT, fd_ = x.shape[1], dv.num_row_tiles, dv.far
+        if (dv.has_paired or dv.dia_vals is not None
+                or (fd_ is not None and not fd_.grouped)):
+            x3d = ops.pad_x_mm(x, dv.x_rows)
+        if dv.has_paired:
+            tiles = bk.sbell_spmm_tiles(
+                dv.vals, dv.packed, dv.meta, dv.step_block, x3d,
+                num_row_tiles=NT, chunks_per_step=dv.chunks_per_step,
+                tiles_per_block=dv.tiles_per_block,
+                transpose_windows=dv.transpose_windows)
+        else:
+            tiles = ops.pad_x_mm(dv.diag[:, None] * x, NT)
+        if fd_ is not None and fd_.grouped:
+            ftiles = bk.bell2_spmm_tiles(
+                fd_.vals, fd_.packed, fd_.meta, fd_.step_block,
+                bk.interleave_x(x, dv.x_rows), planes=B, covers=fd_.covers,
+                **fd_.stream_kw())
+            ot = bk.unperm_gather_tiles_mm(fd_.unperm_pk, fd_.unperm_slabs,
+                                           ftiles[:, :fd_.num_row_tiles])
+            if ot.shape[1] < NT:
+                ot = F.pad(ot, (0, 0, 0, NT - ot.shape[1]))
+            tiles = tiles[:, :NT] + ot[:, :NT]
+        elif fd_ is not None:
+            tiles = bk.bell2_spmm_tiles_accum(fd_.entries, x3d, tiles)
+        if dv.dia_vals is not None and dv.dia_mirrored:
+            tiles = run_gen_form(-1, dv, x3d, tiles[:, :NT])
+        elif dv.dia_vals is not None:
+            tiles = sk.sdia_sym_tiles_mm(dv.dia_vals, x3d, tiles[:, :NT],
+                                         dv.dia_offsets,
+                                         stage_x=dv.dia_stage_x)
+        Y = tiles.reshape(B, -1)[:, :dv.nrows].T
+        return Y + dv.diag[:, None] * x if dv.has_paired else Y
+
+    parent_forms = {
+        ops.Bell2Device: (parent_bell2_apply, parent_bell2_apply_mm),
+        ops.SBellDevice: (parent_sbell_apply, parent_sbell_apply_mm),
+    }
     for name in RUNS:
         A, d, xe = operands(name)
         apply, apply_mm = {
@@ -3185,6 +3865,32 @@ def main() -> int:
             f"{_ms(busy_8)} ms, ratio {_ratio(busy_mm, busy_8)} ({card})",
             flush=True,
         )
+        # device launches per apply, beside the parent's composition (the
+        # float64 appliers did not change); the parent's form is held to
+        # this tree's result first
+        said = []
+        for what, fn, x_ in (("SpMV", apply, xe), (f"SpMM({RHS})", apply_mm,
+                                                    Xe)):
+            line = (f"{what} {_device_launches(torch, lambda: fn(d, x_))} "
+                    f"launches")
+            if type(d) in parent_forms:
+                pfn = parent_forms[type(d)][what != "SpMV"]
+                # the same function, summed in another order: within
+                # 1e-4 of the result's largest entry (float32 rounding
+                # over at most 64 terms a row is under 1e-5 of it)
+                y_n, y_p = fn(d, x_), pfn(d, x_)
+                if not (y_n - y_p).abs().max() <= 1e-4 * y_n.abs().max():
+                    raise AssertionError(f"the parent's {what} composition "
+                                         f"on {name} disagrees")
+                busy_p, _ = _device_ms(torch, lambda: pfn(d, x_))
+                busy_n, _ = _device_ms(torch, lambda: fn(d, x_))
+                line += (f" (the parent's composition "
+                         f"{_device_launches(torch, lambda: pfn(d, x_))}); "
+                         f"device {_ms(busy_n)} ms, parent's "
+                         f"{_ms(busy_p)} ms")
+            said.append(line)
+        print(f"launches {name} per apply (profiler): " + "; ".join(said)
+              + f" ({card})", flush=True)
     # one kernel, one stream, other addresses: cant_proxy() NONE's stream
     # kernel on fresh copies of its operands, each made after a further
     # allocation that stays held, to tell what a reading owes to where

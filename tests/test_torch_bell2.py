@@ -35,6 +35,12 @@ unvisited blocks hold NaN and must keep it, B9 bit-exact with absent rows
 (``pk < 0``) reading exact 0, B10 with two and four transpose windows in
 one and in four output blocks.
 
+B3/B9's fused forms (``seed``: the pad of ``diag * x`` plus the padded
+gather; ``into``: the padded gather added into given tiles) must equal the
+reference's gather followed by those ops bit for bit (``torch.equal``),
+on the audikw far stream and a degree-grouped plan over 8-tile blocks with
+an absent row range, SpMV and at B = 1, 3, 8, X at strides of its own.
+
 Tolerances: ``allclose_spmv`` at float32 with the backward-error scale
 (|vals| |x| through the float64 twin) for B2/B4/B5, whose summation order
 differs; B3 is a pure gather and must match exactly.
@@ -1014,3 +1020,122 @@ def test_sbell_walk_model_matches_twin(name, cpc, monkeypatch):
     _, _, adds1 = _sbell_walk(plan, x2d, 1)
     assert adds1 <= (1 + tw) * C
     assert adds <= adds1 and (cpc == 1 or adds < adds1)
+
+
+# -- the fused unpermute forms of the symmetric applier (B3/B9) -------------
+
+
+def _grouped_holes():
+    """A degree-grouped plan over 8-tile output blocks whose rows
+    1000-2199 have no entries: they are absent from the unpermute (pk <
+    0), as are the other empty rows."""
+    rng = np.random.default_rng(2)
+    n = 3000
+    deg = np.zeros(n, np.int64)
+    live = rng.choice(n, n // 2, replace=False)
+    live = live[(live < 1000) | (live >= 2200)]
+    deg[live] = rng.integers(1, 6, len(live))
+    deg[live[:4]] = 300
+    row = np.repeat(np.arange(n, dtype=np.int64), deg)
+    col = rng.integers(0, n, len(row)).astype(np.int64)
+    val = rng.uniform(-1, 1, len(row))
+    return build_bell2_plan(
+        RefCSR.from_coo(RefCOO(n, n, row, col, val).canonicalize()),
+        tiles_per_block=8)
+
+
+UNPERM_PLANS = {"audikw_far": _audikw_far, "grouped_holes": _grouped_holes}
+
+
+@pytest.mark.parametrize("form", ["seed", "into"])
+@pytest.mark.parametrize("B", [None, 1, 3, 8])
+@pytest.mark.parametrize("name", sorted(UNPERM_PLANS))
+def test_unperm_gather_fused_forms_match_reference_composed(name, B, form):
+    """B3/B9's fused forms, bit for bit (``torch.equal``) the reference's
+    ``unperm_gather_tiles(_mm)`` (interpret mode) followed by the ops
+    ``sbell_apply`` composed: ``seed`` = (diag, x) gives the pad of
+    ``diag * x`` to the output's tiles plus the gather padded to them (a
+    few tiles past the gather's, and rows past x's end); ``into`` adds
+    the padded gather into given tiles. X (B planes, ``None`` the SpMV
+    wrapper) sits at strides of its own; rows the gather leaves absent
+    read exactly the seed, or the tiles they were added into."""
+    plan = UNPERM_PLANS[name]()
+    pd = ops.to_device(plan, "cpu")
+    assert pd.grouped and (name != "grouped_holes"
+                           or plan.tiles_per_block == 8)
+    W = plan.unperm_slabs.shape[1]
+    Bp = B or 1
+    n, T = plan.nrows, plan.num_row_tiles
+    NT = -(-n // 128) + 3  # the output a few tiles past the gather's
+    rng = np.random.default_rng(hash((name, Bp, form)) % 2**32)
+    g = rng.uniform(-1, 1, (Bp, T, 128)).astype(np.float32)
+    diag = rng.uniform(-2, 2, n).astype(np.float32)
+    X = rng.uniform(10.01, 20.42, (Bp, n)).astype(np.float32)  # X.T: strided
+    into0 = rng.uniform(-1, 1, (Bp, NT, 128)).astype(np.float32)
+    ref = np.asarray(ref_bk.unperm_gather_tiles_mm(
+        jnp.asarray(plan.unperm_pk), jnp.asarray(plan.unperm_slabs),
+        jnp.asarray(g), W=W, interpret=True)).reshape(Bp, -1)
+    pad = np.zeros((Bp, NT * 128), np.float32)
+    pad[:, :ref.shape[1]] = ref[:, :NT * 128]
+    if form == "seed":
+        base = np.zeros((Bp, NT * 128), np.float32)
+        base[:, :n] = diag[None, :] * X  # float32 products, rounded once
+    else:
+        base = into0.reshape(Bp, -1)
+    want = (base + pad).reshape(Bp, NT, 128)
+
+    Xt = torch.from_numpy(X).T  # (n, B) at strides (1, n)
+    gt = torch.from_numpy(g)
+    a = (pd.unperm_pk, pd.unperm_slabs)
+    if B is None:
+        kw = (dict(seed=(torch.from_numpy(diag), Xt[:, 0]), tiles=NT)
+              if form == "seed" else dict(into=torch.from_numpy(into0[0])))
+        got = bk.unperm_gather_tiles(*a, gt[0], **kw)[None]
+    else:
+        kw = (dict(seed=(torch.from_numpy(diag), Xt), tiles=NT)
+              if form == "seed" else dict(into=torch.from_numpy(into0)))
+        got = bk.unperm_gather_tiles_mm(*a, gt, **kw)
+    if form == "into":  # added in place, and returned
+        assert got.data_ptr() == kw["into"].data_ptr()
+    assert got.shape == (Bp, NT, 128) and got.dtype == torch.float32
+    assert torch.equal(got, torch.from_numpy(want))
+    absent = np.nonzero(plan.unperm_pk.reshape(-1)[:n] < 0)[0]
+    assert (len(absent) > 0) == (name == "grouped_holes")
+    flat = got.numpy().reshape(Bp, -1)
+    assert np.array_equal(flat[:, absent], base[:, absent])
+    assert np.array_equal(flat[:, n:], base[:, n:] + pad[:, n:])
+    assert bk.unperm_gather_tiles.launches == 0
+    assert bk.unperm_gather_tiles_mm.launches == 0
+
+
+def test_unperm_gather_fused_forms_check_operands():
+    """The fused forms refuse what their kernel cannot take."""
+    plan = _audikw_far()
+    pd = ops.to_device(plan, "cpu")
+    a = (pd.unperm_pk, pd.unperm_slabs)
+    n, T = plan.nrows, plan.num_row_tiles
+    NT = -(-n // 128)
+    g1, g2 = torch.zeros((T, 128)), torch.zeros((2, T, 128))
+    diag, x, X = torch.ones(n), torch.ones(n), torch.ones((n, 2))
+    with pytest.raises(ValueError, match="tile count"):  # no tiles
+        bk.unperm_gather_tiles(*a, g1, seed=(diag, x))
+    with pytest.raises(ValueError, match="tile count"):  # too few
+        bk.unperm_gather_tiles(*a, g1, seed=(diag, x), tiles=NT - 1)
+    with pytest.raises(ValueError, match="not both"):
+        bk.unperm_gather_tiles(*a, g1, seed=(diag, x), tiles=NT,
+                               into=torch.zeros((NT, 128)))
+    with pytest.raises(ValueError, match="height"):  # tiles, no seed
+        bk.unperm_gather_tiles(*a, g1, tiles=NT)
+    with pytest.raises(ValueError, match="seed's x"):  # x's length
+        bk.unperm_gather_tiles(*a, g1, seed=(diag, x[:-1]), tiles=NT)
+    with pytest.raises(ValueError, match="seed's x"):  # X's plane count
+        bk.unperm_gather_tiles_mm(*a, g2, seed=(diag, X[:, :1]), tiles=NT)
+    with pytest.raises(TypeError, match="float64"):
+        bk.unperm_gather_tiles_mm(*a, g2, seed=(diag.double(), X), tiles=NT)
+    with pytest.raises(ValueError, match="into"):  # strided into planes
+        bk.unperm_gather_tiles_mm(
+            *a, g2, into=torch.zeros((2, NT, 130))[:, :, :128])
+    with pytest.raises(ValueError, match="planes"):  # B of into differs
+        bk.unperm_gather_tiles_mm(*a, g2, into=torch.zeros((1, NT, 128)))
+    assert bk.unperm_gather_tiles.launches == 0
+    assert bk.unperm_gather_tiles_mm.launches == 0

@@ -9,6 +9,18 @@ slices of a row's diagonals, both sides gathered, and over planes, given
 in float32 and float64 (B1, B11, B13, B14) against the twin and the
 reference, with the staging rule the upload applies (``stages_x``).
 
+B12's kernel reads X interleaved: its twin is held against the
+reference's ``sdia_gen_tiles_mm`` with X given in place as (m, B) (B of 2
+and 8; ``gen_x`` must return a view of it), through ``interleave_x`` (B
+of 3 and 11), and as a misaligned or strided (m, B) X that ``gen_x`` must
+copy. The store form (a dia-only plan's, B6 from x itself and B12) is
+held against the reference from zero tiles, written into NaN-poisoned
+tiles whose rows past R * 1024 must read +0. A numpy model of the signed
+kernel's split of a row's diagonals over 1, 2 or 4 threads
+(``_gen_model``), adding and storing, runs against the twin and the
+reference, and ``gen_slices`` picks 2 threads a row on the narrow plans
+only.
+
 Random values on every diagonal (padding rows included), offsets that
 hit lane shift 0 and sublane shifts > 0 and cross 1024-row blocks (for
 B6 also the main diagonal and super-diagonals reading ahead), fewer
@@ -405,3 +417,207 @@ def test_upload_sets_dia_stage_x(proxy, dtype, stages):
     Y = np.asarray(mm(torch.from_numpy(X)))
     d.dia_stage_x = not stages
     assert np.array_equal(np.asarray(mm(torch.from_numpy(X))), Y)
+
+
+# -- B12 over an interleaved X, its store form and its slices --------------
+
+
+def _gen_case(R, T, x_rows, B, seed, short=37):
+    """(vals, X (m, B) with m = x_rows * 128 - short, y0 (B, T, 128)) in
+    float32: x ends inside a tile, so reading it in place leans on the
+    kernel's bound check for the zeros the planes copy used to hold."""
+    rng = np.random.default_rng(seed)
+    vals = rng.uniform(-1, 1, (R, len(GEN_OFFSETS), 8, 128)).astype(np.float32)
+    X = rng.uniform(-1, 1, (x_rows * 128 - short, B)).astype(np.float32)
+    y0 = rng.uniform(-1, 1, (B, T, 128)).astype(np.float32)
+    return vals, X, y0
+
+
+def _planes_of(X, x_rows):
+    """The (B, x_rows, 128) zero-padded planes of an (m, B) X, in numpy."""
+    m, B = X.shape
+    x3d = np.zeros((B, x_rows * 128), np.float32)
+    x3d[:, :m] = X.T
+    return x3d.reshape(B, x_rows, 128)
+
+
+def _ref_gen_mm(vals, x3d, y0):
+    return np.asarray(ref_sdia_gen_mm(
+        jnp.asarray(vals), jnp.asarray(x3d), jnp.asarray(y0),
+        offsets=GEN_OFFSETS, interpret=True))
+
+
+@pytest.mark.parametrize("how,B", [
+    ("in_place", 2), ("in_place", 8), ("interleave_x", 3),
+    ("interleave_x", 11), ("misaligned", 8), ("strided", 8)])
+def test_sdia_gen_mm_interleaved_x_matches_reference(how, B):
+    """B12's twin over the X its kernel reads: an (m, B) X in place (B of
+    2 or 8, contiguous, 32-byte aligned: ``gen_x`` returns a view of it,
+    x_len = m), ``interleave_x``'s copy at B = 3 and 11 (a group of 8
+    and one of 4 planes, the fourth zero), and a misaligned or a strided
+    (m, B) X, which ``gen_x`` must copy. Against the reference's
+    ``sdia_gen_tiles_mm`` in interpret mode on the zero-padded planes, a
+    NaN tail past the value blocks kept, and bit for bit against the
+    wrapper given the planes."""
+    R, T, x_rows = 3, 26, 22
+    vals, X, y0 = _gen_case(R, T, x_rows, B, seed=B + len(how))
+    body = R * 8
+    y0[:, body:] = np.nan
+    x3d = _planes_of(X, x_rows)
+    ref = _ref_gen_mm(vals, x3d, y0)
+    Xt = torch.from_numpy(X).clone()  # torch's allocator aligns to 64 B
+    if how == "misaligned":  # a contiguous view 4 bytes into a buffer
+        Xt = torch.zeros(X.size + 8)[1:1 + X.size].view(X.shape)
+        Xt.copy_(torch.from_numpy(X))
+        assert Xt.is_contiguous() and Xt.data_ptr() % 32
+    elif how == "strided":
+        Xt = torch.zeros((X.shape[0], B + 5))[:, :B]
+        Xt.copy_(torch.from_numpy(X))
+        assert not Xt.is_contiguous()
+    xg = sk.gen_x(Xt, x_rows)
+    if how == "in_place":
+        assert xg.data_ptr() == Xt.data_ptr() and xg.shape == (B, X.shape[0])
+    else:
+        widths = {3: 4, 8: 8, 11: 12}[B]
+        assert xg.data_ptr() != Xt.data_ptr()
+        assert xg.shape == (widths, x_rows * 128) and xg.is_contiguous()
+    offs = torch.tensor(GEN_OFFSETS, dtype=torch.int32)
+    tv = torch.from_numpy(vals)
+    y_in = _strided_planes(y0)
+    y = sdia_gen_tiles_mm(tv, xg, y_in, offs, planes=B)
+    assert y.data_ptr() == y_in.data_ptr() and y.shape == (B, T, 128)
+    scale = sdia_gen_tiles_mm_plain(
+        tv.abs().double(), torch.from_numpy(np.abs(x3d)).double(),
+        torch.from_numpy(np.abs(y0)).double(), offs)
+    assert np.isnan(y.numpy()[:, body:]).all()
+    assert allclose_spmv(y.numpy()[:, :body], ref, np.float32,
+                         nnz_per_row=len(GEN_OFFSETS),
+                         scale=scale.numpy()[:, :body])
+    by_planes = sdia_gen_tiles_mm(tv, torch.from_numpy(x3d),
+                                  _strided_planes(y0), offs)
+    assert torch.equal(y[:, :body], by_planes[:, :body])
+    assert sdia_gen_tiles_mm.launches == 0
+
+
+@pytest.mark.parametrize("B", [None, 1, 3, 8])
+def test_sdia_gen_store_form_zeroes_the_tail(B):
+    """The store form (a dia-only plan's applier passes no zeroed tiles):
+    into a NaN-poisoned Y (strided planes for B12, a flat x for B6), the
+    rows below R * 1024 hold the reference's A_dia x from zero tiles and
+    every row past them reads exact +0."""
+    R, T, x_rows = 2, 21, 19  # 16 tiles of values, 5 past them
+    Bp = B or 1
+    vals, X, _ = _gen_case(R, T, x_rows, Bp, seed=30 + Bp)
+    x3d = _planes_of(X, x_rows)
+    zeros = np.zeros((Bp, T, 128), np.float32)
+    ref = _ref_gen_mm(vals, x3d, zeros)
+    offs = torch.tensor(GEN_OFFSETS, dtype=torch.int32)
+    tv = torch.from_numpy(vals)
+    poison = np.full((Bp, T, 128), np.nan, np.float32)
+    if B is None:
+        y = sdia_gen_tiles(tv, torch.from_numpy(X[:, 0].copy()),
+                           torch.from_numpy(poison[0].copy()), offs,
+                           store=True)[None]
+    else:
+        y = sdia_gen_tiles_mm(tv, sk.gen_x(torch.from_numpy(X).clone(),
+                                           x_rows),
+                              _strided_planes(poison), offs, planes=B,
+                              store=True)
+    y = y.numpy()
+    body = R * 8
+    tail = y[:, body:]
+    assert (tail == 0).all() and not np.signbit(tail).any()
+    scale = sdia_gen_tiles_mm_plain(
+        tv.abs().double(), torch.from_numpy(np.abs(x3d)).double(),
+        torch.from_numpy(zeros).double(), offs).numpy()
+    assert allclose_spmv(y[:, :body], ref, np.float32,
+                         nnz_per_row=len(GEN_OFFSETS), scale=scale[:, :body])
+
+
+#: ``kGenThreads`` of ``csrc/spmv_kernels.cu``: a CTA of the signed kernel
+GEN_THREADS = 256
+
+
+def _gen_model(vals, x_flat, y, offsets, slices, store):
+    """``y (+)= A_dia x`` as ``sdia_gen_kernel`` computes it, in float32,
+    for (B, x_len) planes ``x_flat`` (the interleaved X's planes) and
+    (B, y_len) planes ``y``. A CTA takes 256 / slices rows g; thread (r,
+    s) sums diagonals s, s + slices, ... of its row, reading x zero
+    outside [0, x_len) and values only below nv = R * 1024; the slices'
+    sums join in slice order. Adding, rows g < min(y_len, nv) get the
+    sum; storing, every row below y_len is written (0 past nv)."""
+    R, D = vals.shape[:2]
+    nv = R * 1024
+    vd = vals.transpose(1, 0, 2, 3).reshape(D, nv)
+    B, XL = x_flat.shape
+    YL = y.shape[1]
+    out = y.copy()
+    n_rows = YL if store else min(YL, nv)
+    rows = GEN_THREADS // slices
+    seen = np.zeros((D, n_rows), np.int64)  # each (diagonal, row) once
+    for r0 in range(0, n_rows, rows):
+        g = r0 + np.arange(rows)
+        g = g[g < n_rows]
+        sums = np.zeros((slices, B, len(g)), np.float32)
+        for s in range(slices):
+            for j in range(s, D, slices):
+                src = g - offsets[j]
+                ok = (src >= 0) & (src < XL) & (g < nv)
+                v = np.where(ok, vd[j, np.clip(g, 0, nv - 1)], 0)
+                xv = np.where(ok, x_flat[:, np.clip(src, 0, XL - 1)], 0)
+                sums[s] += v * xv
+                seen[j, g] += 1
+        total = sums[0]
+        for s in range(1, slices):
+            total = total + sums[s]
+        out[:, g] = total if store else out[:, g] + total
+    assert (seen == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("store", [False, True])
+@pytest.mark.parametrize("slices", [1, 2, 4])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_sdia_gen_kernel_model_matches_twin_and_reference(B, slices, store):
+    """The kernel's split of a row's diagonals over 1, 2 (both ship, by
+    ``gen_slices``) or 4 threads (timed in the smoke only), adding and
+    storing, as the numpy model: against the plain twin and the
+    reference, x read in place with fewer rows than the values hold and
+    y taller than them."""
+    R, T, x_rows = 2, 21, 14
+    vals, X, y0 = _gen_case(R, T, x_rows, B, seed=50 + B)
+    x3d = _planes_of(X, x_rows)
+    x_flat = X.T.copy()  # the in-place X's planes, x_len = m
+    got = _gen_model(vals, x_flat, y0.reshape(B, -1), GEN_OFFSETS, slices,
+                     store).reshape(B, T, 128)
+    offs = torch.tensor(GEN_OFFSETS, dtype=torch.int32)
+    tv = torch.from_numpy(vals)
+    plain = sdia_gen_tiles_mm_plain(tv, torch.from_numpy(x3d),
+                                    torch.from_numpy(y0.copy()), offs,
+                                    store=store).numpy()
+    y_ref0 = np.zeros_like(y0) if store else y0
+    ref = _ref_gen_mm(vals, x3d, y_ref0)
+    body = R * 8
+    scale = sdia_gen_tiles_mm_plain(
+        tv.abs().double(), torch.from_numpy(np.abs(x3d)).double(),
+        torch.from_numpy(np.abs(y_ref0)).double(), offs).numpy()
+    D = len(GEN_OFFSETS)
+    assert allclose_spmv(got, plain, np.float32, nnz_per_row=D, scale=scale)
+    assert allclose_spmv(got[:, :body], ref, np.float32, nnz_per_row=D,
+                         scale=scale[:, :body])
+    if store:
+        assert (got[:, body:] == 0).all()
+    else:
+        assert np.array_equal(got[:, body:], y0[:, body:])
+
+
+@pytest.mark.parametrize("rows,D,slices", [
+    (512_000, 7, 1), (62_464, 64, 2), (65_536, 33, 2), (125_056, 7, 2),
+    (135_168, 7, 2), (135_169, 7, 1), (4096, 1, 1)])
+def test_sdia_gen_slices_rule(rows, D, slices):
+    """Two threads a row where two a row fit the card's thread slots
+    (132 x 2048 on an H100) and there are two diagonals to share: the
+    62-65k-row plans; one where the rows alone fill the card
+    (``general_asym()``'s 512,000)."""
+    assert sk.gen_slices(rows, D) == slices
+    assert sk.gen_slices(rows, D, slots=2 * rows) == (2 if D >= 2 else 1)

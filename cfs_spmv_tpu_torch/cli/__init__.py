@@ -3,6 +3,9 @@
 ``python -m cfs_spmv_tpu_torch.cli.test_spmv_mmf <file.mtx> <fmt>`` — the
 differential correctness check (ref ``test/test_spmv_mmf.cpp``).
 
+``python -m cfs_spmv_tpu_torch.cli.bench_spmv_mmf <file.mtx> <fmt> <iters>``
+— the throughput benchmark (ref ``bench/bench_spmv_mmf.cpp``).
+
 ``fmt`` accepts the reference's integer codes (0=CSR, 1=SSS, 2=HYB) or
 the format names.
 """

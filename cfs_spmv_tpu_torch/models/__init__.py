@@ -1,1 +1,2 @@
-from .spdmv import SpDMV  # noqa: F401
+from .solvers import cg, power_iteration  # noqa: F401
+from .spdmv import SpDMM, SpDMV  # noqa: F401

@@ -142,17 +142,42 @@ Phases (each prints its wall time):
    (``stencil27()``'s diagonal kernels, B7 on ``cant_proxy()`` NONE, B6
    and B12 on the flagship as CSR and mirrored cant); for every float32 run
    the device launches of each apply beside the parent tree's composition
-   of its applier (held to the same result), with both device times.
+   of its applier (held to the same result), with both device times; and
+   for every run the SpMV apply as ``utils/timing.time_matvec`` times it
+   (``GRAPH_ITERS`` applies captured into one CUDA graph, replayed
+   between CUDA events) beside the eager apply's wall and device time,
+   with both idle shares.
    These library calls are timed here and used nowhere in the port;
 6. the differential CLI (``cfs_spmv_tpu_torch.cli.test_spmv_mmf``) on a
    written ``.mtx`` on its default device; it must print ``PASSED!``;
    and an untuned ``A @ x`` with a numpy x, ``A.tune()`` and ``tune(csr)``
-   with no device named, which must all land on the card.
+   with no device named, which must all land on the card;
+7. the solvers (``models/solvers.py``) at full width, each through its
+   public entry point (its loop replayed as a CUDA graph under
+   ``set_sync_debug_mode("error")``), then eagerly with the kernels and
+   eagerly through the appliers' plain twins: S1 ``cg`` in float32 on
+   the 2-D Laplacian of ``examples/cg_poisson_torch.py`` at
+   g = ``SOLVER_GRID`` (4,194,304 rows), 1,000 iterations, plain and
+   with ``diag_precond``; S2 the same in float64; S3 ``bicgstab`` on
+   ``general_asym()``, 200 iterations, float32 and float64; S4
+   ``gmres(restart=32, outer=4)`` there in float32; S5 ``jacobi``
+   (omega 0.8) and ``chebyshev`` (the Laplacian's analytic spectral
+   bounds) on the same Laplacian, 200 iterations each; S6
+   ``lanczos(iters=64)`` and ``power_iteration(iters=200)`` on
+   ``cant_proxy()``. Each solve launches only its path's kernels (counts
+   zeroed before its graphed run and read after), replays its graph once
+   an iteration, agrees with its eager runs (``SOLVE_TOL``; printed: bit
+   for bit with the eager kernel run or not) and shows its residual's
+   fall (``SOLVES``); per iteration it prints the graphed and eager wall
+   (CUDA events around the loop), the device busy time (profiler) and
+   both idle shares. Then ``examples/cg_poisson_torch.py`` at its
+   default (g = 256) must pass.
 
 It needs one card and imports nothing of JAX. Any failure raises, and the
 exit code is then nonzero; without CUDA it exits 1 at once. The last two
-lines of standard output are one JSON object per line: the kernels, then
-``{"ok": true, "device": {...}}``.
+lines of standard output are one JSON object per line: the kernels (their
+``launches`` summed over the main paths of phase 3 and the graphed solves
+of phase 7), then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -244,6 +269,8 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: in summation order only (a few 1e-16 per term)
 F64_TWIN_TOL = 1e-12
 TIMED_CALLS = 20
+#: applies ``utils/timing.time_matvec`` captures into one CUDA graph
+GRAPH_ITERS = 200
 #: right-hand sides of the SpMM runs (the reference bench's SpMM(8))
 RHS = 8
 #: the other form of ``bell2_entries_kernel``, for the comparison in phase
@@ -1687,6 +1714,231 @@ def predict(tuned) -> set:
     return out
 
 
+#: iterations a solve of the solver phase runs (``gmres``: restarts)
+#: and the fall of its residual it must show: the last history entry
+#: over the first at most this (``chebyshev``: its 200 steps at this
+#: condition number are promised no fall, so its residual must stay under
+#: 1.5x the first; S6 keeps no residual)
+SOLVES = {
+    "S1 cg float32": (1000, 1e-4),
+    "S1 cg float32 diag_precond": (1000, 1e-4),
+    "S2 cg float64": (1000, 1e-5),
+    "S2 cg float64 diag_precond": (1000, 1e-5),
+    "S3 bicgstab float32": (200, 1e-4),
+    "S3 bicgstab float64": (200, 1e-10),
+    "S4 gmres(32) float32": (4, 1e-4),
+    "S5 jacobi float32": (200, 1e-3),
+    "S5 chebyshev float32": (200, 1.5),
+    "S6 lanczos float32": (64, None),
+    "S6 power_iteration float32": (200, None),
+}
+#: the side of the 2-D Laplacian of S1, S2 and S5 (4,194,304 rows)
+SOLVER_GRID = 2048
+#: relative agreement of a graphed solve with the same solve run eagerly
+#: (kernels or plain twins): residual histories over their entries above
+#: 1e-4 of the first, and S6's estimates
+SOLVE_TOL = {"float32": 1e-3, "float64": 1e-9}
+
+
+def _loop_ms(solvers):
+    """Milliseconds per iteration of the last solver loop on the card,
+    from the CUDA events the loop recorded around itself."""
+    start, end, iters = solvers._iterate.loop
+    end.synchronize()
+    return start.elapsed_time(end) / max(iters, 1)
+
+
+def _busy_per_iter(trace, run, iters):
+    """Device busy ms per iteration of ``run(mode, iters)`` in the graphed
+    and the eager mode: the profiler's busy time of a solve of
+    min(iters, 100) iterations less that of a 1-iteration solve, over the
+    difference (set-up, capture warm-up and the final residual cancel).
+    None where the profiler saw no device time in the difference."""
+    n = min(iters, 100)
+    out = {}
+    for mode in ("graph", "eager"):
+        t_n = trace.device_busy_s(lambda: run(mode, n), calls=1)
+        t_1 = trace.device_busy_s(lambda: run(mode, 1), calls=1)
+        d = None if t_n is None or t_1 is None else (t_n - t_1) / (n - 1)
+        out[mode] = d * 1e3 if d and d > 0 else None
+    return out
+
+
+def _share(v):
+    """A share for a text line; None reads "not measured"."""
+    return "not measured" if v is None else f"{v:.3f}"
+
+
+def _rel_agree(a, b):
+    """Largest relative difference of ``b`` from ``a`` over the entries
+    of ``a`` above 1e-4 of its first."""
+    a = a.double().cpu().reshape(-1)
+    b = b.double().cpu().reshape(-1)
+    live = a.abs() > 1e-4 * a[0].abs()
+    if not bool(live.any()):
+        return 0.0
+    return float(((b[live] - a[live]) / a[live]).abs().max())
+
+
+def _check_sync_debug(torch, solvers):
+    """The sync debug mode the solvers' replays run under does raise on
+    a host sync."""
+    with solvers._sync_forbidden():
+        try:
+            torch.ones(1, device="cuda").item()
+        except RuntimeError:
+            return
+    raise AssertionError("set_sync_debug_mode('error') let a host sync "
+                         "through")
+
+
+def solver_phase(torch, card, wrappers, launches, lap, gasym, cant):
+    """Phase 7: the solvers at full width on the card, each graphed (the
+    public entry point), eagerly with the kernels, and eagerly through the
+    appliers' plain twins. ``lap``: {dtype name: (tuned Laplacian, its
+    diagonal, b)}; ``gasym``: {dtype name: (tuned general_asym(), b)};
+    ``cant``: the tuned ``cant_proxy()``."""
+    from cfs_spmv_tpu_torch.models import solvers
+    from cfs_spmv_tpu_torch.utils import trace
+
+    g = SOLVER_GRID
+    lam_min = 8 * np.sin(np.pi / (2 * (g + 1))) ** 2
+    lam_max = 8 * np.cos(np.pi / (2 * (g + 1))) ** 2
+    t32, d32, b32 = lap["float32"]
+    t64, d64, b64 = lap["float64"]
+    n_cant = cant.nrows
+
+    def top_ritz(ab):
+        a, b = (t.double().cpu().numpy() for t in ab)
+        T = np.diag(a) + np.diag(b[:-1], 1) + np.diag(b[:-1], -1)
+        return torch.tensor(np.linalg.eigvalsh(T)[[0, -1]])
+
+    #: name -> (run(mode, iters), expected kernels, dtype name, history
+    #: of the output, the estimate S6 compares)
+    solves = {
+        "S1 cg float32": (lambda m, k: solvers.cg(t32, b32, iters=k, _mode=m),
+                          {"sdia_sym"}, "float32"),
+        "S1 cg float32 diag_precond": (
+            lambda m, k: solvers.cg(t32, b32, iters=k, diag_precond=d32,
+                                    _mode=m), {"sdia_sym"}, "float32"),
+        "S2 cg float64": (lambda m, k: solvers.cg(t64, b64, iters=k, _mode=m),
+                          {"sdia_sym_df"}, "float64"),
+        "S2 cg float64 diag_precond": (
+            lambda m, k: solvers.cg(t64, b64, iters=k, diag_precond=d64,
+                                    _mode=m), {"sdia_sym_df"}, "float64"),
+        "S3 bicgstab float32": (
+            lambda m, k: solvers.bicgstab(gasym["float32"][0],
+                                          gasym["float32"][1], iters=k,
+                                          _mode=m), {"sdia_gen"}, "float32"),
+        "S3 bicgstab float64": (
+            lambda m, k: solvers.bicgstab(gasym["float64"][0],
+                                          gasym["float64"][1], iters=k,
+                                          _mode=m), {"bell2_spmv_df"},
+            "float64"),
+        "S4 gmres(32) float32": (
+            lambda m, k: solvers.gmres(gasym["float32"][0],
+                                       gasym["float32"][1], restart=32,
+                                       outer=k, _mode=m), {"sdia_gen"},
+            "float32"),
+        "S5 jacobi float32": (
+            lambda m, k: solvers.jacobi(t32, d32, b32, iters=k, omega=0.8,
+                                        _mode=m), {"sdia_sym"}, "float32"),
+        "S5 chebyshev float32": (
+            lambda m, k: solvers.chebyshev(t32, b32, lam_min, lam_max,
+                                           iters=k, _mode=m), {"sdia_sym"},
+            "float32"),
+        "S6 lanczos float32": (
+            lambda m, k: solvers.lanczos(cant, n_cant, iters=k, _mode=m),
+            {"sdia_sym"}, "float32"),
+        "S6 power_iteration float32": (
+            lambda m, k: solvers.power_iteration(cant, n_cant, iters=k,
+                                                 _mode=m),
+            {"sdia_sym"}, "float32"),
+    }
+    _check_sync_debug(torch, solvers)
+    said = {}
+    estimates = {}
+    for name, (run, kernels, dt) in solves.items():
+        iters, fall = SOLVES[name]
+        for w in wrappers.values():
+            w.launches = 0
+        replays0 = solvers._iterate.replays
+        out_g = run("graph", iters)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        replays = solvers._iterate.replays - replays0
+        wall_g = _loop_ms(solvers)
+        for k, c in counts.items():
+            launches[k] += c
+        out_e = run("eager", iters)
+        wall_e = _loop_ms(solvers)
+        out_p = run("plain", iters)
+        torch.cuda.synchronize()
+        identical = all(torch.equal(a, b) for a, b in zip(out_g, out_e))
+        if name.startswith("S6 lanczos"):
+            est = [top_ritz(o) for o in (out_g, out_e, out_p)]
+            estimates["lanczos"] = est[0]
+            hist = None
+        elif name.startswith("S6 power"):
+            est = [o[1].reshape(1) for o in (out_g, out_e, out_p)]
+            estimates["power"] = est[0]
+            hist = None
+        else:
+            hist = [o[2] if len(o) == 3 else o[1] for o in (out_g, out_e,
+                                                            out_p)]
+            est = hist
+        tol = SOLVE_TOL[dt]
+        dev_e = _rel_agree(est[0], est[1])
+        dev_p = _rel_agree(est[0], est[2])
+        # x: the largest difference over the largest entry
+        x_p = (float((out_p[0] - out_g[0]).abs().max()
+                     / out_g[0].abs().max()) if hist is not None else 0.0)
+        finite = all(bool(torch.isfinite(t).all()) for t in out_g)
+        drop = float(hist[0][-1] / hist[0][0]) if hist is not None else None
+        busy = _busy_per_iter(trace, run, iters)
+        idle = {m: (None if busy[m] is None else 1 - busy[m] / w)
+                for m, w in (("graph", wall_g), ("eager", wall_e))}
+        said[name] = dict(wall_g=wall_g, wall_e=wall_e, busy=busy, idle=idle,
+                          replays=replays)
+        print(
+            f"solver {name}: {iters} iterations, {replays} graph replays; "
+            f"wall per iteration graphed {wall_g:.4f} ms, eager "
+            f"{wall_e:.4f} ms; device busy per iteration graphed "
+            f"{_ms(busy['graph'])} ms, eager {_ms(busy['eager'])} ms; idle "
+            f"share graphed {_share(idle['graph'])}, eager "
+            f"{_share(idle['eager'])}; "
+            f"graphed bit-identical to eager: {identical}; max relative "
+            f"difference graphed vs eager {dev_e:.3g}, vs plain twins "
+            f"{dev_p:.3g} (x {x_p:.3g}), tolerance {tol}; "
+            + (f"residual {float(hist[0][0]):.4g} -> {float(hist[0][-1]):.4g} "
+               f"(fall {drop:.3g}, must be <= {fall}); "
+               if hist is not None else
+               f"estimate {est[0].tolist()}; ")
+            + f"launched {counts} ({card})", flush=True)
+        if not finite:
+            raise AssertionError(f"{name}: the graphed solve is not finite")
+        if set(counts) != kernels:
+            raise AssertionError(f"{name}: launched {sorted(counts)}, "
+                                 f"expected {sorted(kernels)}")
+        if replays != iters:
+            raise AssertionError(f"{name}: {replays} graph replays for "
+                                 f"{iters} iterations")
+        if max(dev_e, dev_p, x_p) > tol:
+            raise AssertionError(f"{name}: the graphed solve disagrees with "
+                                 "its eager runs")
+        if drop is not None and not drop <= fall:
+            raise AssertionError(f"{name}: the residual fell by {drop:.3g}, "
+                                 f"not to {fall}")
+    top = float(estimates["lanczos"][1])
+    lam = float(estimates["power"][0])
+    print(f"solver S6: power estimate {lam:.6g} against the top Ritz value "
+          f"{top:.6g}, relative difference {abs(lam / top - 1):.3g} "
+          f"(within {SOLVE_TOL['float32']})", flush=True)
+    if abs(lam / top - 1) > SOLVE_TOL["float32"]:
+        raise AssertionError("S6: power iteration and Lanczos disagree")
+    return said
+
+
 def main() -> int:
     import torch
 
@@ -1712,6 +1964,8 @@ def main() -> int:
     from cfs_spmv_tpu_torch.tuning.tune import tune
     from cfs_spmv_tpu_torch.utils.config import config
     from cfs_spmv_tpu_torch.utils.platform import allclose_spmv
+    from cfs_spmv_tpu_torch.utils import trace
+    from cfs_spmv_tpu_torch.utils.timing import capture, time_matvec
     from cfs_spmv_tpu_torch.utils.proxies import (
         audikw_proxy,
         cant_proxy,
@@ -3823,6 +4077,7 @@ def main() -> int:
         ops.Bell2Device: (parent_bell2_apply, parent_bell2_apply_mm),
         ops.SBellDevice: (parent_sbell_apply, parent_sbell_apply_mm),
     }
+    graphed = {}  # run -> (eager ms, graphed ms, device ms) per apply
     for name in RUNS:
         A, d, xe = operands(name)
         apply, apply_mm = {
@@ -3836,12 +4091,27 @@ def main() -> int:
         ms_k = _median_ms(torch, lambda: apply(d, xe))
         ms_p = _median_ms(torch, lambda: apply(d, xe, plain=True))
         busy, by_name = _device_ms(torch, lambda: apply(d, xe))
+        # the same apply as utils/timing.time_matvec times it: GRAPH_ITERS
+        # applies captured into one CUDA graph, replayed between events
+        ms_g = time_matvec(A.tuned, torch.as_tensor(runs[name][1],
+                                                    device=dev),
+                           iters=GRAPH_ITERS) * 1e3
+        # the card's busy time in such a graph's replays, per apply
+        g_apply = capture(lambda: apply(d, xe), GRAPH_ITERS)
+        busy_g = trace.device_busy_s(g_apply.replay, calls=2)
+        busy_g = None if busy_g is None else busy_g * 1e3 / GRAPH_ITERS
+        del g_apply
+        graphed[name] = (ms_k, busy, ms_g, busy_g)
         nnz = A.tuned.nnz_full
         print(
             f"end to end {name}: kernel path {ms_k:.4f} ms "
             f"({nnz / ms_k / 1e6:.2f} Gnnz/s), plain path {ms_p:.4f} ms "
             f"({nnz / ms_p / 1e6:.2f} Gnnz/s), max |kernel - plain| "
             f"{e2e_err}; kernel path {_fmt_device(busy, by_name)}; "
+            f"graphed (time_matvec) {ms_g:.4f} ms per apply "
+            f"({nnz / ms_g / 1e6:.2f} Gnnz/s), device {_ms(busy_g)} ms; "
+            f"idle share eager {_share(busy and 1 - busy / ms_k)}, "
+            f"graphed {_share(busy_g and 1 - busy_g / ms_g)}; "
             f"n={A.nrows} nnz_full={nnz} ({card})",
             flush=True,
         )
@@ -3922,6 +4192,12 @@ def main() -> int:
         print(f"library torch.sparse_csr_tensor(A) @ x on {mname} "
               f"(n={csr.nrows}): " + ", ".join(said) + f" ({card})",
               flush=True)
+    print("graphed applies (ms per SpMV apply: eager wall / its device "
+          "time; utils/timing.time_matvec's graphed wall / its device "
+          "time): " + ", ".join(
+              f"{k} {e:.4f} / {_ms(be)}; {g_:.4f} / {_ms(bg)}"
+              for k, (e, be, g_, bg) in graphed.items()) + f" ({card})",
+          flush=True)
     phase_done("5 times")
 
     # -- 6. the differential CLI on a written .mtx ----------------------
@@ -3955,6 +4231,43 @@ def main() -> int:
     if where != ["cuda"] * 4 or not ok:
         raise AssertionError("an entry point's default is not the card")
     phase_done("6 cli and default device")
+
+    # -- 7. the solvers at full width, graphed against eager ------------
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "examples"))
+    from cg_poisson_torch import laplacian_2d
+
+    t0 = time.perf_counter()
+    lap = {}
+    for dt in (np.float32, np.float64):
+        A = SparseMatrix.create(laplacian_2d(SOLVER_GRID), Format.SSS)
+        op = SpDMV(A, Tuning.AGGRESSIVE, dtype=dt)
+        x_true = np.random.default_rng(0).standard_normal(A.nrows).astype(dt)
+        lap[np.dtype(dt).name] = (A.tuned, A.diagonal().astype(dt),
+                                  op(x_true))
+    gasym_b = {}
+    for dname, run in (("float32", "general_asym"),
+                       ("float64", "general_asym_f64")):
+        A, _ = runs[run]
+        x_true = np.random.default_rng(0).uniform(-1.0, 1.0, A.ncols)
+        gasym_b[dname] = (A.tuned, A.tuned.matvec(torch.as_tensor(
+            x_true, dtype=A.tuned.dtype, device=dev)))
+    A32 = lap["float32"][0]
+    print(f"solver matrices: the {SOLVER_GRID}x{SOLVER_GRID} Laplacian, "
+          f"n={A32.nrows} nnz_full={A32.nnz_full}, float32 and float64, "
+          f"planned and uploaded in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    solver_phase(torch, card, wrappers, launches, lap, gasym_b,
+                 runs["cant_proxy"][0].tuned)
+    example = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "cg_poisson_torch.py")
+    res = subprocess.run([sys.executable, example], capture_output=True,
+                         text=True, timeout=600)
+    print(f"example {os.path.basename(example)} (g = 256): "
+          f"{res.stdout.strip()!r} exit {res.returncode}", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"the CG example failed: {res.stderr[-2000:]}")
+    phase_done("7 solvers")
     print(f"total wall time {time.perf_counter() - t_start:.2f} s",
           flush=True)
 

@@ -28,8 +28,10 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "cfs_spmv_tpu"))
 print(len(names), bad)
-assert len(names) >= 23, names
-for new in ("ops.sdia_df", "ops.bell2_df", "ops.xla_ref"):
+assert len(names) >= 28, names
+for new in ("ops.sdia_df", "ops.bell2_df", "ops.xla_ref", "models.solvers",
+            "utils.timing", "utils.roofline", "utils.trace",
+            "cli.bench_spmv_mmf"):
     assert "cfs_spmv_tpu_torch." + new in names, new
 assert not bad, bad
 """
@@ -72,13 +74,11 @@ def test_two_byte_tolerance_without_ml_dtypes():
 
 
 #: modules of the reference (paths under its package) with no counterpart
-#: in the port yet: the measurement layer, the solvers, the plan cache,
-#: the distributed layer and its partitioners, two command-line tools
+#: in the port yet: the plan cache, the distributed layer and its
+#: partitioners, and its command-line tool
 ABSENT_MODULES = {
     "cli/bench_dist.py",
-    "cli/bench_spmv_mmf.py",
     "io/plancache.py",
-    "models/solvers.py",
     "parallel/__init__.py",
     "parallel/dist.py",
     "parallel/mesh.py",
@@ -86,9 +86,6 @@ ABSENT_MODULES = {
     "parallel/scaling.py",
     "tuning/cluster.py",
     "tuning/partition.py",
-    "utils/roofline.py",
-    "utils/timing.py",
-    "utils/trace.py",
 }
 
 

@@ -35,9 +35,20 @@
 // the smallest instance of 1, 2, 4 or 8 that holds it (planes >= nr are
 // skipped). The SpMV entry points are the nr = 1 case.
 //
-// Value type. sdia_sym, bell2_spmv and bell2_entries are also templates on
-// the value type T of the stream, x and y: float, or double for the float64
-// route. The TPU has no 64-bit lanes, so the reference's float64 kernels
+// Sum type and value type. sdia_sym, bell2_spmv and bell2_entries are also
+// templates on the type T of x, y and the sums: float, or double for the
+// float64 route. All five stream kernels are templates on the storage type
+// V of the stream's values as well, V = T by default: with T = float, V may
+// be __nv_bfloat16 (``values="bfloat16"``, the reference's
+// tuning/tune.py:_cast_values), which halves the value bytes. A value is
+// widened to T as it is loaded (exactly: every bf16 is a float) and the
+// products and sums run in T as before, which is what the reference
+// computes (a bf16 value times an f32 x, promoted to f32, summed in f32).
+// The bf16 entry points end in _bf16; x and y stay float. Half the value
+// bytes shortens what bytes bound (the one-sided grid stream of B2/B7, the
+// signed diagonals over planes of B12) and leaves what chains of
+// dependent loads or a launch's fixed cost bound (B1, B4, B5, and B6 at one
+// plane, whose load count is the same): PERF.md §6 has the times. The TPU has no 64-bit lanes, so the reference's float64 kernels
 // (sdia_df.py, bell2_df.py) carry every value, x and sum as an fp32 (hi, lo)
 // pair with error-free transforms; what they compute is y = A x in double,
 // and the double instances here compute that with fp64 FMA and
@@ -45,6 +56,7 @@
 
 #include <cstdint>
 #include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -60,6 +72,14 @@ template <int kRhs>
 __device__ __forceinline__ bool live(int b, int nr) {
   return kRhs == 1 || b < nr;
 }
+
+// A stored value in the sum type: bf16 widens exactly, float and double
+// are themselves.
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
 
 // a * b + c in one rounding, in the operands' type.
 __device__ __forceinline__ float mul_add(float a, float b, float c) {
@@ -133,8 +153,8 @@ __device__ __forceinline__ void load_group(const float* p, float (&v)[kRhs]) {
 constexpr int kSdiaRows = 128, kSdiaSlices = 2;
 constexpr int kSdiaHalo = 64;
 
-template <typename T, int kRhs>
-__global__ void sdia_sym_kernel(const T* __restrict__ vals,
+template <typename T, int kRhs, typename V = T>
+__global__ void sdia_sym_kernel(const V* __restrict__ vals,
                                 const int* __restrict__ offsets, int D,
                                 int64_t n_vals_rows,
                                 const T* __restrict__ x, int64_t x_len,
@@ -152,7 +172,7 @@ __global__ void sdia_sym_kernel(const T* __restrict__ vals,
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kSdiaRows;
   const int64_t h = r0 + r;
   const bool hv = h < n_vals_rows;
-  const T* vh = vals + (h >> 10) * D * kBlockRows + (h & (kBlockRows - 1));
+  const V* vh = vals + (h >> 10) * D * kBlockRows + (h & (kBlockRows - 1));
   stage = kMayStage && stage;
   if constexpr (kMayStage) {
     if (stage) {
@@ -175,7 +195,7 @@ __global__ void sdia_sym_kernel(const T* __restrict__ vals,
       if (j >= D) break;
       const int64_t d = offsets[j];
       const bool staged = stage && d <= kSdiaHalo;
-      const T v = hv ? vh[static_cast<int64_t>(j) * kBlockRows] : T(0);
+      const T v = hv ? widen(vh[static_cast<int64_t>(j) * kBlockRows]) : T(0);
       if (staged) {  // xsh holds zeros outside [0, x_len)
 #pragma unroll
         for (int b = 0; b < kRhs; ++b)
@@ -189,8 +209,8 @@ __global__ void sdia_sym_kernel(const T* __restrict__ vals,
       }
       const int64_t t = h + d;
       if (t < n_vals_rows && t < x_len) {
-        const T w =
-            vals[((t >> 10) * D + j) * kBlockRows + (t & (kBlockRows - 1))];
+        const T w = widen(
+            vals[((t >> 10) * D + j) * kBlockRows + (t & (kBlockRows - 1))]);
 #pragma unroll
         for (int b = 0; b < kRhs; ++b)
           if (live<kRhs>(b, nr))
@@ -262,8 +282,8 @@ __global__ void sdia_sym_kernel(const T* __restrict__ vals,
 // ---------------------------------------------------------------------------
 constexpr int kGenThreads = 256;
 
-template <int kRhs, int kSlices, bool kStore>
-__global__ void sdia_gen_kernel(const float* __restrict__ vals,
+template <int kRhs, int kSlices, bool kStore, typename V = float>
+__global__ void sdia_gen_kernel(const V* __restrict__ vals,
                                 const int* __restrict__ offsets, int D,
                                 int64_t nv_rows, int64_t n_rows,
                                 const float* __restrict__ x, int64_t x_len,
@@ -275,7 +295,7 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
   const int r = threadIdx.x % kRows, s = threadIdx.x / kRows;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kRows + r;
   if (kSlices == 1 && g >= n_rows) return;
-  const float* vg = vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
+  const V* vg = vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
   float acc[kRhs];
 #pragma unroll
   for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
@@ -283,7 +303,7 @@ __global__ void sdia_gen_kernel(const float* __restrict__ vals,
     for (int j = s; j < D; j += kSlices) {
       const int64_t src = g - static_cast<int64_t>(offsets[j]);
       if (src >= 0 && src < x_len) {
-        const float v = vg[static_cast<int64_t>(j) * kBlockRows];
+        const float v = widen(vg[static_cast<int64_t>(j) * kBlockRows]);
         if constexpr (kRhs == 1) {
           acc[0] = fmaf(v, x[src], acc[0]);
         } else {
@@ -413,9 +433,10 @@ __device__ __forceinline__ void flush_rows(T* y, int64_t ys, int64_t at,
     if (live<kRhs>(b, nr)) atomicAdd(y + b * ys + at, acc[b]);
 }
 
-template <bool kContig, int kRhs, typename T, int kWalk, bool kInterleaved>
+template <bool kContig, int kRhs, typename T, int kWalk, bool kInterleaved,
+          typename V = T>
 __global__ void __launch_bounds__(kLanes)
-bell2_spmv_kernel(const T* __restrict__ vals,
+bell2_spmv_kernel(const V* __restrict__ vals,
                   const int16_t* __restrict__ packed,
                   const int* __restrict__ meta,
                   const int* __restrict__ step_block, int64_t C, int K,
@@ -466,7 +487,7 @@ bell2_spmv_kernel(const T* __restrict__ vals,
       const int q = pk[i] & 0x7F;
       const int r2 = r2s[i][q];
       const int xrow = kContig ? m[2] + r2 : m[2 + (r2 & 7)];
-      const T v = vals[slot0 + i * kLanes];
+      const T v = widen(vals[slot0 + i * kLanes]);
       const T* xq = x + static_cast<int64_t>(xrow) * kLanes + q;
       if constexpr (kInterleaved) {
         T xv[kRhs];
@@ -522,11 +543,11 @@ bell2_spmv_kernel(const T* __restrict__ vals,
 // ---------------------------------------------------------------------------
 constexpr int kEntryThreads = 256;
 
-template <int kRhs, typename T>
+template <int kRhs, typename T, typename V = T>
 __global__ void __launch_bounds__(kEntryThreads)
 bell2_entries_kernel(const int* __restrict__ rows,
                      const int* __restrict__ cols,
-                     const T* __restrict__ vals, int64_t E,
+                     const V* __restrict__ vals, int64_t E,
                      const T* __restrict__ x, int64_t xs,
                      T* __restrict__ y, int64_t ys, int nr) {
   const int64_t e =
@@ -539,7 +560,7 @@ bell2_entries_kernel(const int* __restrict__ rows,
 #pragma unroll
   for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
   if (valid) {
-    const T v = vals[e];
+    const T v = widen(vals[e]);
     const T* xc = x + cols[e];
 #pragma unroll
     for (int b = 0; b < kRhs; ++b)
@@ -648,9 +669,9 @@ __device__ __forceinline__ void hand_over(float* y, int64_t ys, int lane,
   }
 }
 
-template <int TW, int kRhs>
+template <int TW, int kRhs, typename V = float>
 __global__ void __launch_bounds__(kLanes)
-sbell_spmv_kernel(const float* __restrict__ vals,
+sbell_spmv_kernel(const V* __restrict__ vals,
                   const int* __restrict__ packed,
                   const int* __restrict__ meta,
                   const int* __restrict__ step_block, int64_t C, int K,
@@ -695,7 +716,7 @@ sbell_spmv_kernel(const float* __restrict__ vals,
 #pragma unroll
     for (int i = 0; i < kSublanes; ++i) {
       pk[i] = packed[slot0 + i * kLanes];
-      v[i] = vals[slot0 + i * kLanes];
+      v[i] = widen(vals[slot0 + i * kLanes]);
       r2s[i][lane] = (pk[i] >> 7) & 7;
       vs[i][lane] = v[i];
     }
@@ -864,12 +885,12 @@ bool with_rhs(int nr, F&& f) {
 
 int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 
-// The launchers of the two kernels that exist in float and in double; the
-// entry points below name the type.
+// The launchers of the kernels that exist in more than one type; the entry
+// points below name the type (V: the values' storage type).
 // stage_x: over planes, stage the x rows within kSdiaHalo of a CTA's own
 // (any value gives the same sums; one plane never stages).
-template <typename T>
-int launch_sdia_sym(const T* vals, const int* offsets, int D,
+template <typename T, typename V = T>
+int launch_sdia_sym(const V* vals, const int* offsets, int D,
                     int64_t n_vals_rows, int64_t x_len, int64_t y_len,
                     int stage_x, const T* x, int64_t xs, T* y, int64_t ys,
                     int nr, cudaStream_t stream) {
@@ -878,7 +899,7 @@ int launch_sdia_sym(const T* vals, const int* offsets, int D,
     // rows past the value rows get nothing
     const int64_t rows = y_len < n_vals_rows ? y_len : n_vals_rows;
     if (rows > 0 && D > 0)
-      sdia_sym_kernel<T, R>
+      sdia_sym_kernel<T, R, V>
           <<<blocks_for(rows, kSdiaRows), kSdiaRows * kSdiaSlices, 0,
              stream>>>(vals, offsets, D, n_vals_rows, x, x_len, xs, y, y_len,
                        ys, nr, stage_x != 0);
@@ -887,8 +908,9 @@ int launch_sdia_sym(const T* vals, const int* offsets, int D,
 }
 
 // The arguments of sdia_gen_kernel past its template ones.
+template <typename V>
 struct GenArgs {
-  const float* vals;
+  const V* vals;
   const int* offsets;
   int D;
   int64_t nv_rows, n_rows;
@@ -899,12 +921,37 @@ struct GenArgs {
   int nr;
 };
 
-template <int R, int kSlices, bool kStore>
-void launch_sdia_gen(const GenArgs& a, cudaStream_t stream) {
-  sdia_gen_kernel<R, kSlices, kStore>
+template <int R, int kSlices, bool kStore, typename V>
+void launch_sdia_gen(const GenArgs<V>& a, cudaStream_t stream) {
+  sdia_gen_kernel<R, kSlices, kStore, V>
       <<<blocks_for(a.n_rows, kGenThreads / kSlices), kGenThreads, 0,
          stream>>>(a.vals, a.offsets, a.D, a.nv_rows, a.n_rows, a.x, a.x_len,
                    a.y, a.ys, a.nr);
+}
+
+// slices: 1 or 2 threads a row (sdia_kernel.gen_slices); store: write
+// the y_len rows of each plane (0 past nv_rows) instead of adding into the
+// rows below nv_rows. x: the plane (nr = 1) or the group's interleaved (x_len,
+// R) block, R the instance's width (xs is not read).
+template <typename V>
+int run_sdia_gen(const V* vals, const int* offsets, int D, int64_t nv_rows,
+                 int64_t y_len, int64_t x_len, int slices, int store,
+                 const float* x, float* y, int64_t ys, int nr,
+                 cudaStream_t stream) {
+  if (slices != 1 && slices != 2) return invalid();
+  const int64_t n_rows = store || y_len < nv_rows ? y_len : nv_rows;
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (n_rows <= 0 || (D <= 0 && !store)) return;
+    const GenArgs<V> a{vals, offsets, D, nv_rows, n_rows, x, x_len, y, ys, nr};
+    if (store)
+      slices == 1 ? launch_sdia_gen<R, 1, true>(a, stream)
+                  : launch_sdia_gen<R, 2, true>(a, stream);
+    else
+      slices == 1 ? launch_sdia_gen<R, 1, false>(a, stream)
+                  : launch_sdia_gen<R, 2, false>(a, stream);
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
 // Chunks a CTA of 128 threads of ``kernel`` walks on a stream of C chunks:
@@ -928,8 +975,9 @@ int walk_for(Kernel kernel, int64_t C, int max_walk) {
 // the rows of 128 of each output plane to zero with cudaMemset2DAsync (a
 // stream that visits every block); 0 runs the zero kernel, which leaves
 // unvisited blocks as they are.
-template <typename T, int kWalk, int kWalkMm, bool kInterleaved>
-int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
+template <typename T, int kWalk, int kWalkMm, bool kInterleaved,
+          typename V = T>
+int launch_bell2_spmv(const V* vals, const int16_t* packed, const int* meta,
                       const int* step_block, int64_t C, int K, int BT,
                       int contig, int64_t tiles, const T* x, int64_t xs,
                       T* y, int64_t ys, int nr, cudaStream_t stream) {
@@ -952,44 +1000,71 @@ int launch_bell2_spmv(const T* vals, const int16_t* packed, const int* meta,
     }
     const unsigned int grid = blocks_for(C, W);
     if (contig)
-      bell2_spmv_kernel<true, R, T, W, X><<<grid, kLanes, 0, stream>>>(
+      bell2_spmv_kernel<true, R, T, W, X, V><<<grid, kLanes, 0, stream>>>(
           vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
     else
-      bell2_spmv_kernel<false, R, T, W, X><<<grid, kLanes, 0, stream>>>(
+      bell2_spmv_kernel<false, R, T, W, X, V><<<grid, kLanes, 0, stream>>>(
           vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
   });
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
-template <typename T>
-int launch_bell2_entries(const int* rows, const int* cols, const T* vals,
+template <typename T, typename V = T>
+int launch_bell2_entries(const int* rows, const int* cols, const V* vals,
                          int64_t E, const T* x, int64_t xs, T* y, int64_t ys,
                          int nr, cudaStream_t stream) {
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
     if (E > 0)
-      bell2_entries_kernel<R, T>
+      bell2_entries_kernel<R, T, V>
           <<<blocks_for(E, kEntryThreads), kEntryThreads, 0, stream>>>(
               rows, cols, vals, E, x, xs, y, ys, nr);
   });
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
-// Chunks a CTA of sbell_spmv_kernel<TW, R> walks on a stream of C chunks.
-template <int TW, int R>
+// Chunks a CTA of sbell_spmv_kernel<TW, R, V> walks on a stream of C
+// chunks.
+template <int TW, int R, typename V = float>
 int chunks_per_cta(int64_t C) {
-  return walk_for(sbell_spmv_kernel<TW, R>, C, kMaxWalk);
+  return walk_for(sbell_spmv_kernel<TW, R, V>, C, kMaxWalk);
 }
 
-template <int TW, int R>
-void launch_sbell(const float* vals, const int* packed, const int* meta,
+template <int TW, int R, typename V>
+void launch_sbell(const V* vals, const int* packed, const int* meta,
                   const int* step_block, int64_t C, int K, int BT,
                   const float* x, int64_t xs, float* y, int64_t ys, int nr,
                   cudaStream_t stream) {
-  const int cpc = chunks_per_cta<TW, R>(C);
-  sbell_spmv_kernel<TW, R><<<blocks_for(C, cpc), kLanes, 0, stream>>>(
+  const int cpc = chunks_per_cta<TW, R, V>(C);
+  sbell_spmv_kernel<TW, R, V><<<blocks_for(C, cpc), kLanes, 0, stream>>>(
       vals, packed, meta, step_block, C, K, BT, cpc, x, xs, y, ys, nr);
+}
+
+// tiles: the rows of 128 of each output plane, all zeroed first.
+template <typename V>
+int run_sbell(const V* vals, const int* packed, const int* meta,
+              const int* step_block, int64_t C, int K, int BT, int TW,
+              int64_t tiles, const float* x, int64_t xs, float* y,
+              int64_t ys, int nr, cudaStream_t stream) {
+  if (TW != 2 && TW != 4) return invalid();
+  cudaError_t zeroed = cudaSuccess;
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (C <= 0) return;
+    const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(float);
+    zeroed = cudaMemset2DAsync(y, nr == 1 ? width : ys * sizeof(float), 0,
+                               width, nr, stream);
+    if (zeroed != cudaSuccess) return;
+    if (TW == 2)
+      launch_sbell<2, R>(vals, packed, meta, step_block, C, K, BT, x, xs, y,
+                         ys, nr, stream);
+    else
+      launch_sbell<4, R>(vals, packed, meta, step_block, C, K, BT, x, xs, y,
+                         ys, nr, stream);
+  });
+  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
 }  // namespace
@@ -1016,28 +1091,48 @@ int cfs_sdia_sym_f64(const double* vals, const int* offsets, int D,
                                  stage_x, x, xs, y, ys, nr, stream);
 }
 
-// slices: 1 or 2 threads a row (sdia_kernel.gen_slices); store: write
-// the y_len rows of each plane (0 past nv_rows) instead of adding into the
-// rows below nv_rows. x: the plane (nr = 1) or the group's interleaved (x_len,
-// R) block, R the instance's width (xs is not read).
+int cfs_sdia_sym_bf16(const __nv_bfloat16* vals, const int* offsets, int D,
+                      int64_t n_vals_rows, int64_t x_len, int64_t y_len,
+                      int stage_x, const float* x, int64_t xs, float* y,
+                      int64_t ys, int nr, cudaStream_t stream) {
+  return launch_sdia_sym<float>(vals, offsets, D, n_vals_rows, x_len, y_len,
+                                stage_x, x, xs, y, ys, nr, stream);
+}
+
+// The signed diagonal kernel (run_sdia_gen above) over float or bf16
+// values; xs is not read.
 int cfs_sdia_gen(const float* vals, const int* offsets, int D, int64_t nv_rows,
                  int64_t y_len, int64_t x_len, int slices, int store,
                  const float* x, int64_t xs, float* y, int64_t ys, int nr,
                  cudaStream_t stream) {
-  if (slices != 1 && slices != 2) return invalid();
-  const int64_t n_rows = store || y_len < nv_rows ? y_len : nv_rows;
-  const bool ok = with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    if (n_rows <= 0 || (D <= 0 && !store)) return;
-    const GenArgs a{vals, offsets, D, nv_rows, n_rows, x, x_len, y, ys, nr};
-    if (store)
-      slices == 1 ? launch_sdia_gen<R, 1, true>(a, stream)
-                  : launch_sdia_gen<R, 2, true>(a, stream);
-    else
-      slices == 1 ? launch_sdia_gen<R, 1, false>(a, stream)
-                  : launch_sdia_gen<R, 2, false>(a, stream);
-  });
-  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+  return run_sdia_gen(vals, offsets, D, nv_rows, y_len, x_len, slices, store,
+                      x, y, ys, nr, stream);
+}
+
+int cfs_sdia_gen_bf16(const __nv_bfloat16* vals, const int* offsets, int D,
+                      int64_t nv_rows, int64_t y_len, int64_t x_len,
+                      int slices, int store, const float* x, int64_t xs,
+                      float* y, int64_t ys, int nr, cudaStream_t stream) {
+  return run_sdia_gen(vals, offsets, D, nv_rows, y_len, x_len, slices, store,
+                      x, y, ys, nr, stream);
+}
+
+// The paired stream (run_sbell above) over float or bf16 values.
+int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
+                   const int* step_block, int64_t C, int K, int BT, int TW,
+                   int64_t tiles, const float* x, int64_t xs, float* y,
+                   int64_t ys, int nr, cudaStream_t stream) {
+  return run_sbell(vals, packed, meta, step_block, C, K, BT, TW, tiles, x, xs,
+                   y, ys, nr, stream);
+}
+
+int cfs_sbell_spmv_bf16(const __nv_bfloat16* vals, const int* packed,
+                        const int* meta, const int* step_block, int64_t C,
+                        int K, int BT, int TW, int64_t tiles, const float* x,
+                        int64_t xs, float* y, int64_t ys, int nr,
+                        cudaStream_t stream) {
+  return run_sbell(vals, packed, meta, step_block, C, K, BT, TW, tiles, x, xs,
+                   y, ys, nr, stream);
 }
 
 int cfs_sbell_chunks_per_cta(int64_t C, int TW, int nr) {
@@ -1047,31 +1142,6 @@ int cfs_sbell_chunks_per_cta(int64_t C, int TW, int nr) {
     cpc = TW == 2 ? chunks_per_cta<2, R>(C) : chunks_per_cta<4, R>(C);
   });
   return cpc;
-}
-
-// tiles: the rows of 128 of each output plane, all zeroed first.
-int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
-                   const int* step_block, int64_t C, int K, int BT, int TW,
-                   int64_t tiles, const float* x, int64_t xs, float* y,
-                   int64_t ys, int nr, cudaStream_t stream) {
-  if (TW != 2 && TW != 4) return invalid();
-  cudaError_t zeroed = cudaSuccess;
-  const bool ok = with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    if (C <= 0) return;
-    const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(float);
-    zeroed = cudaMemset2DAsync(y, nr == 1 ? width : ys * sizeof(float), 0,
-                               width, nr, stream);
-    if (zeroed != cudaSuccess) return;
-    if (TW == 2)
-      launch_sbell<2, R>(vals, packed, meta, step_block, C, K, BT, x, xs, y,
-                         ys, nr, stream);
-    else
-      launch_sbell<4, R>(vals, packed, meta, step_block, C, K, BT, x, xs, y,
-                         ys, nr, stream);
-  });
-  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
 // tiles > 0 (the rows of 128 of each output plane): the stream visits
@@ -1101,6 +1171,16 @@ int cfs_bell2_spmv_f64(const double* vals, const int16_t* packed,
       nr, stream);
 }
 
+int cfs_bell2_spmv_bf16(const __nv_bfloat16* vals, const int16_t* packed,
+                        const int* meta, const int* step_block, int64_t C,
+                        int K, int BT, int contig, int64_t tiles,
+                        const float* x, int64_t xs, float* y, int64_t ys,
+                        int nr, cudaStream_t stream) {
+  return launch_bell2_spmv<float, kChunksPerCta, kInterleavedWalk, true>(
+      vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y, ys,
+      nr, stream);
+}
+
 int cfs_bell2_entries(const int* rows, const int* cols, const float* vals,
                       int64_t E, const float* x, int64_t xs, float* y,
                       int64_t ys, int nr, cudaStream_t stream) {
@@ -1114,6 +1194,14 @@ int cfs_bell2_entries_f64(const int* rows, const int* cols,
                           cudaStream_t stream) {
   return launch_bell2_entries<double>(rows, cols, vals, E, x, xs, y, ys, nr,
                                       stream);
+}
+
+int cfs_bell2_entries_bf16(const int* rows, const int* cols,
+                           const __nv_bfloat16* vals, int64_t E,
+                           const float* x, int64_t xs, float* y, int64_t ys,
+                           int nr, cudaStream_t stream) {
+  return launch_bell2_entries<float>(rows, cols, vals, E, x, xs, y, ys, nr,
+                                     stream);
 }
 
 // mode 0: out = P g over n_gather rows; 1: out = diag x + P g over n_out

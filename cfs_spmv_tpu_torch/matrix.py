@@ -150,7 +150,7 @@ class SparseMatrix:
         """Preprocess into the tuned layout on ``device``: the card by
         default, which raises ``RuntimeError`` where CUDA is absent
         (ref ``CSRMatrix::tune``, ``csr_matrix.tpp:230-310``). Extra
-        kwargs (``reorder``, ``values``) pass through to
+        kwargs (``reorder``, ``values``, ``cache_dir``) pass through to
         :func:`cfs_spmv_tpu_torch.tuning.tune.tune`."""
         self._tuned = tune(
             self._csr, fmt=self._fmt, kernel=kernel, tuning=tuning,
@@ -188,7 +188,8 @@ def tune_signature(tuning, dtype, device, **kwargs) -> tuple:
 
     ``SpDMV`` retunes an already-tuned matrix when this differs from the
     stored signature (a plan tuned onto another device or with other
-    options must not be reused silently)."""
+    options must not be reused silently). ``cache_dir`` is left out, as in
+    the reference: it changes no result."""
     return (
         tuning,
         np.dtype(dtype).name,

@@ -22,8 +22,8 @@ import threading
 
 import torch
 
-__all__ = ["lib", "check", "check_dtype", "check_planes", "launch_groups",
-           "entry", "NVCC_FLAGS", "RHS_GROUP"]
+__all__ = ["lib", "check", "check_dtype", "check_values", "check_planes",
+           "launch_groups", "count", "entry", "NVCC_FLAGS", "RHS_GROUP"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "spmv_kernels.cu")
@@ -81,37 +81,51 @@ def _bind(path: str) -> ctypes.CDLL:
     # every stream entry point ends in (x, xs, y, ys, nr, stream): a group
     # of nr planes at plane strides xs / ys, in elements
     planes = [p, i64, p, i64, i32, p]
-    # the float and double forms of an entry point differ in what their
-    # pointers point at, not in their argument lists
+    # the float, double and bf16 forms of an entry point differ in what
+    # their pointers point at, not in their argument lists
     # (sdia_sym: the i32 before the planes stages x over planes)
-    for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64):
+    for fn in _forms(cdll, "sdia_sym"):
         fn.argtypes = [p, p, i32, i64, i64, i64, i32, *planes]
     # sdia_gen: (..., nv_rows, y_len, x_len, slices, store, planes)
-    cdll.cfs_sdia_gen.argtypes = [p, p, i32, i64, i64, i64, i32, i32,
-                                  *planes]
-    cdll.cfs_sbell_spmv.argtypes = [p, p, p, p, i64, i32, i32, i32, i64,
-                                    *planes]
+    for fn in _forms(cdll, "sdia_gen"):
+        fn.argtypes = [p, p, i32, i64, i64, i64, i32, i32, *planes]
+    for fn in _forms(cdll, "sbell_spmv"):
+        fn.argtypes = [p, p, p, p, i64, i32, i32, i32, i64, *planes]
     cdll.cfs_sbell_chunks_per_cta.argtypes = [i64, i32, i32]
     # ... the i64 before the planes: the tile count of the planes to zero
-    # whole (0: the visited blocks only); the float one reads a group of
-    # planes interleaved (``bell2_kernel.interleave_x``)
-    for fn in (cdll.cfs_bell2_spmv, cdll.cfs_bell2_spmv_f64):
+    # whole (0: the visited blocks only); the float and bf16 ones read a
+    # group of planes interleaved (``bell2_kernel.interleave_x``)
+    for fn in _forms(cdll, "bell2_spmv"):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i32, i64, *planes]
-    for fn in (cdll.cfs_bell2_entries, cdll.cfs_bell2_entries_f64):
+    for fn in _forms(cdll, "bell2_entries"):
         fn.argtypes = [p, p, p, i64, *planes]
     # unperm_gather: (pk, rows, W, g, gs, out, os, n_gather, n_out, diag, x,
     # x_row, x_col, n_seed, mode, B, stream)
     cdll.cfs_unperm_gather.argtypes = [p, p, i32, p, i64, p, i64, i64, i64,
                                        p, p, i64, i64, i64, i32, i32, p]
-    for fn in (cdll.cfs_sdia_sym, cdll.cfs_sdia_sym_f64, cdll.cfs_sdia_gen,
-               cdll.cfs_sbell_spmv, cdll.cfs_sbell_chunks_per_cta,
-               cdll.cfs_bell2_spmv, cdll.cfs_bell2_spmv_f64,
-               cdll.cfs_bell2_entries, cdll.cfs_bell2_entries_f64,
-               cdll.cfs_unperm_gather):
+    for fn in (*(f for name in _FORMS for f in _forms(cdll, name)),
+               cdll.cfs_sbell_chunks_per_cta, cdll.cfs_unperm_gather):
         fn.restype = i32
     cdll.cfs_cuda_error_string.argtypes = [i32]
     cdll.cfs_cuda_error_string.restype = ctypes.c_char_p
     return cdll
+
+
+#: the value types of each stream entry point: float32 for every one, the
+#: bf16 values of ``values="bfloat16"`` for every one, and float64 for the
+#: kernels of the float64 route
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float64: "_f64"}
+_FORMS = {
+    "sdia_sym": (torch.float32, torch.bfloat16, torch.float64),
+    "sdia_gen": (torch.float32, torch.bfloat16),
+    "sbell_spmv": (torch.float32, torch.bfloat16),
+    "bell2_spmv": (torch.float32, torch.bfloat16, torch.float64),
+    "bell2_entries": (torch.float32, torch.bfloat16, torch.float64),
+}
+
+
+def _forms(cdll, name):
+    return [getattr(cdll, f"cfs_{name}{_SUFFIX[t]}") for t in _FORMS[name]]
 
 
 def lib() -> ctypes.CDLL:
@@ -125,11 +139,12 @@ def lib() -> ctypes.CDLL:
 
 def entry(name: str, dtype: torch.dtype):
     """The C entry point ``name`` for a stream of ``dtype`` values:
-    ``cfs_<name>`` for float32, ``cfs_<name>_f64`` for float64 (only the
-    kernels of the float64 route have one: sdia_sym, bell2_spmv and
-    bell2_entries)."""
-    suffix = {torch.float32: "", torch.float64: "_f64"}[dtype]
-    return getattr(lib(), f"cfs_{name}{suffix}")
+    ``cfs_<name>`` for float32, ``cfs_<name>_bf16`` for bfloat16 (x and y
+    float32), ``cfs_<name>_f64`` for float64 (only the kernels of the
+    float64 route have one: sdia_sym, bell2_spmv and bell2_entries)."""
+    if dtype not in _FORMS[name]:
+        raise TypeError(f"no {name} kernel takes {dtype} values")
+    return getattr(lib(), f"cfs_{name}{_SUFFIX[dtype]}")
 
 
 def check(err: int, name: str) -> None:
@@ -145,11 +160,32 @@ RHS_GROUP = 8
 
 
 def check_dtype(t, name, dtype) -> None:
-    """Refuse an operand whose type is not the stream's: a kernel reads x
-    and y through pointers of its values' type."""
+    """Refuse an x or y operand whose type is not ``dtype``, the type a
+    stream's kernel reads x and y in: its values' type, float32 for
+    bfloat16 values."""
     if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype} but the stream's values are "
-                        f"{dtype}: x, y and the values must share one type")
+        raise TypeError(f"{name} is {t.dtype} but the stream's x and y are "
+                        f"{dtype}: values are x's type, or bfloat16 when x "
+                        "is float32")
+
+
+def check_values(vals, name, dtype) -> None:
+    """Refuse stream values that x and y of ``dtype`` cannot take: the
+    values are ``dtype``, or bfloat16 when ``dtype`` is float32."""
+    if vals.dtype != dtype and not (dtype == torch.float32
+                                    and vals.dtype == torch.bfloat16):
+        raise TypeError(f"{name} are {vals.dtype} but x and y are {dtype}: "
+                        "values are x's type, or bfloat16 when x is float32")
+
+
+def count(wrapper, vals_dtype, n: int) -> None:
+    """Add ``n`` kernel launches to ``wrapper``'s count for its values'
+    type: ``launches`` (float32 or float64 values) or ``launches_bf16``
+    (bfloat16 values, the instances of ``values="bfloat16"``)."""
+    if vals_dtype == torch.bfloat16:
+        wrapper.launches_bf16 += n
+    else:
+        wrapper.launches += n
 
 
 def check_planes(t, name, device, dtype, B=None, rows=None) -> int:

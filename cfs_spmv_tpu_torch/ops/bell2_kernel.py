@@ -38,6 +38,12 @@ and ``bell2_spmm_tiles_accum_df``, B15/B16 on a float64 peel residual) live
 in ``ops/bell2_df.py``; they share the checks, the launchers and the twins
 of this module, which work in the stream's type.
 
+Every stream wrapper also takes bfloat16 values (``values="bfloat16"``)
+beside float32 x and y: its kernel's bf16 instance widens each value as it
+loads it and sums in float32, the twins compute on ``vals.float()``, and
+a launch counts on the wrapper's ``launches_bf16`` instead of its
+``launches``.
+
 The TPU-only stream forms (``nib_split``, ``meta_word``, the segmented
 word path) are not ported: the CUDA kernel reads the plan's int16
 ``packed`` and (C, 10) ``meta`` as they are.
@@ -108,8 +114,7 @@ def _check_stream(vals, packed, meta, step_block, K,
         )
     if tuple(vals.shape) != (C * SUBLANES, LANES):
         raise ValueError(f"vals must be ({C * SUBLANES}, 128)")
-    if vals.dtype != dtype:
-        raise TypeError(f"vals must be {dtype}, got {vals.dtype}")
+    _cuda.check_values(vals, "vals", dtype)
     if (tuple(packed.shape) != (C * SUBLANES, LANES)
             or packed.dtype != packed_dtype):
         raise ValueError(f"packed must be ({C * SUBLANES}, 128) {packed_dtype}")
@@ -151,7 +156,7 @@ def _row_sums_plain(vals, packed, meta, step_block, x2d, K, BT, contig):
         cidx = torch.arange(C, device=meta.device)[:, None, None]
         xrow = meta64[:, 2:].reshape(-1)[cidx * SUBLANES + (r2 & 7)]
     xv = x2d.reshape(-1)[xrow * LANES + q]
-    rows = (vals.reshape(C, SUBLANES, LANES) * xv).sum(dim=1)
+    rows = (vals.to(x2d.dtype).reshape(C, SUBLANES, LANES) * xv).sum(dim=1)
     tgt = (
         step_block.to(torch.int64).repeat_interleave(K) * BT + meta64[:, 0]
     )
@@ -184,11 +189,11 @@ class EntryStream:
     """The live entries of a sparse accumulating stream, sorted by row:
     what ``bell2_spmv_tiles_accum`` and ``bell2_spmm_tiles_accum`` (and
     their float64 forms) read in place of the chunk grid (12 bytes an entry
-    in float32, 16 in float64)."""
+    in float32, 10 with bfloat16 values, 16 in float64)."""
 
     rows: torch.Tensor  # (E,) int32 flat index into the (T, 128) y tiles
     cols: torch.Tensor  # (E,) int32 flat index into the (x_rows, 128) x
-    vals: torch.Tensor  # (E,) in the stream's type
+    vals: torch.Tensor  # (E,) in the stream's type (bfloat16 for float32)
     #: the tiles y and the rows x must at least hold (largest index + 1,
     #: in tiles of 128): the kernel reads and adds without bounds checks
     min_tiles: int
@@ -198,10 +203,12 @@ class EntryStream:
     def count(self) -> int:
         return self.rows.shape[0]
 
-    def to(self, device) -> "EntryStream":
-        return dataclasses.replace(self, rows=self.rows.to(device),
-                                   cols=self.cols.to(device),
-                                   vals=self.vals.to(device))
+    def to(self, device, vals_dtype=None) -> "EntryStream":
+        """The entries on ``device``, their values cast to ``vals_dtype``
+        (default: kept)."""
+        return dataclasses.replace(
+            self, rows=self.rows.to(device), cols=self.cols.to(device),
+            vals=self.vals.to(device, vals_dtype or self.vals.dtype))
 
 
 def compact_stream(vals, packed, meta, step_block, *, chunks_per_step,
@@ -256,8 +263,9 @@ def compact_stream(vals, packed, meta, step_block, *, chunks_per_step,
 def bell2_spmv_tiles_accum_plain(entries, x2d, y_tiles):
     """Plain PyTorch twin of :func:`bell2_spmv_tiles_accum` (any device):
     one gather, one product and one ``index_add_`` over the entries, in
-    the type of ``entries.vals``."""
-    prod = entries.vals * x2d.reshape(-1).index_select(0, entries.cols)
+    the type of x (bfloat16 values widened first)."""
+    prod = (entries.vals.to(x2d.dtype)
+            * x2d.reshape(-1).index_select(0, entries.cols))
     y_tiles.view(-1).index_add_(0, entries.rows, prod)
     return y_tiles
 
@@ -319,9 +327,9 @@ def _spmv_tiles(wrapper, dtype, vals, packed, meta, step_block, x2d,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
             tiles_per_block=BT, contig=contig, out=out, covers=covers,
         )
-    wrapper.launches += _launch_bell2(
+    _cuda.count(wrapper, vals.dtype, _launch_bell2(
         vals, packed, meta, step_block, x2d[None], out[None], K, BT, contig,
-        wrapper.__name__, covers)
+        wrapper.__name__, covers))
     return out[:num_row_tiles]
 
 
@@ -359,7 +367,8 @@ def bell2_spmv_tiles_accum(entries, x2d, y_tiles):
     grid).
 
     ``x2d``: (x_rows, 128) float32; ``y_tiles``: (T, 128) float32 with at
-    least ``entries.min_tiles`` tiles, added into in place (the reference
+    least ``entries.min_tiles`` tiles (the entries' values float32 or
+    bfloat16), added into in place (the reference
     aliases it) and returned. Rows no entry names keep their values bit
     for bit.
 
@@ -385,14 +394,14 @@ def _spmv_accum(wrapper, dtype, entries, x2d, y_tiles):
     _check_x2d(x2d, dtype)
     if y_tiles.ndim != 2 or y_tiles.shape[1] != LANES:
         raise ValueError("y_tiles must be (T, 128)")
-    _cuda.check_dtype(entries.vals, "entries.vals", dtype)
+    _cuda.check_values(entries.vals, "entries.vals", dtype)
     _cuda.check_dtype(y_tiles, "y_tiles", dtype)
     _check_entries(entries, x2d.shape[0], y_tiles.shape[0])
     if dev.type == "cpu":
         return bell2_spmv_tiles_accum_plain(entries, x2d, y_tiles)
     if entries.count:
-        wrapper.launches += _launch_entries(
-            entries, x2d[None], y_tiles[None], wrapper.__name__)
+        _cuda.count(wrapper, entries.vals.dtype, _launch_entries(
+            entries, x2d[None], y_tiles[None], wrapper.__name__))
     return y_tiles
 
 
@@ -604,7 +613,7 @@ def sbell_spmv_tiles_plain(vals, packed, meta, step_block, x2d, *,
         out = torch.empty((TP, LANES), dtype=x2d.dtype, device=x2d.device)
     out.zero_()
     pk = packed.reshape(C, SUBLANES, LANES).to(torch.int64)
-    v = vals.reshape(C, SUBLANES, LANES)
+    v = vals.to(x2d.dtype).reshape(C, SUBLANES, LANES)
     meta64 = meta.to(torch.int64)
     win = meta64[:, 2:2 + TW]  # (C, TW) window tiles
     tgt = step_block.to(torch.int64).repeat_interleave(K) * BT + meta64[:, 0]
@@ -637,7 +646,8 @@ def sbell_spmv_tiles(vals, packed, meta, step_block, x2d, *,
                      transpose_windows, out=None):
     """y tiles (T, 128) = (L + Lᵀ) x from the paired strict-lower stream.
 
-    ``vals``: (C*8, 128) float32; ``packed``: (C*8, 128) int32 words
+    ``vals``: (C*8, 128) float32 or bfloat16; ``packed``: (C*8, 128)
+    int32 words
     ``q | r2 << 7 | src << 10`` (r2 = 7: no transpose entry at that
     slot); ``meta``: (C, 10) int32 whose windows ``meta[c, 2:2+TW]`` are
     tiles of the chunk's own output block; ``step_block``: (C/K,) int32;
@@ -661,9 +671,9 @@ def sbell_spmv_tiles(vals, packed, meta, step_block, x2d, *,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
             tiles_per_block=BT, transpose_windows=TW, out=out,
         )
-    sbell_spmv_tiles.launches += _launch_sbell(
+    _cuda.count(sbell_spmv_tiles, vals.dtype, _launch_sbell(
         vals, packed, meta, step_block, x2d[None], out[None], K, BT, TW,
-        "sbell_spmv_tiles")
+        "sbell_spmv_tiles"))
     return out[:num_row_tiles]
 
 
@@ -677,9 +687,9 @@ def _launch_sbell(vals, packed, meta, step_block, x3d, y3d, K, BT, TW, name):
     """Launch the paired-stream kernel over plane stacks, each group after
     a zero pass over the whole of its planes of ``y3d``; returns the
     number of launches (one per group of planes)."""
-    lib = _cuda.lib()
+    fn = _cuda.entry("sbell_spmv", vals.dtype)
     return _cuda.launch_groups(
-        name, x3d, y3d, lambda *planes: lib.cfs_sbell_spmv(
+        name, x3d, y3d, lambda *planes: fn(
             vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
             step_block.data_ptr(), meta.shape[0], K, BT, TW, y3d.shape[1],
             *planes,
@@ -821,9 +831,9 @@ def _spmm_tiles(wrapper, dtype, vals, packed, meta, step_block, x3d,
         )
     if dtype == torch.float32 and planes is None and B > 1:
         x3d = interleave_x(x3d.reshape(B, -1).T, x3d.shape[1])
-    wrapper.launches += _launch_bell2(
+    _cuda.count(wrapper, vals.dtype, _launch_bell2(
         vals, packed, meta, step_block, x3d, out, K, BT, contig,
-        wrapper.__name__, covers)
+        wrapper.__name__, covers))
     return out[:, :num_row_tiles]
 
 
@@ -854,15 +864,15 @@ def _spmm_accum(wrapper, dtype, entries, x3d, y_tiles):
     values; kernel launches count on ``wrapper`` (the float64 form is
     ``bell2_df.bell2_spmm_tiles_accum_df``)."""
     dev = _device_of(entries.rows, entries.cols, entries.vals)
-    _cuda.check_dtype(entries.vals, "entries.vals", dtype)
+    _cuda.check_values(entries.vals, "entries.vals", dtype)
     B = _cuda.check_planes(x3d, "x3d", dev, dtype)
     _cuda.check_planes(y_tiles, "y_tiles", dev, dtype, B=B)
     _check_entries(entries, x3d.shape[1], y_tiles.shape[1])
     if dev.type == "cpu":
         return bell2_spmm_tiles_accum_plain(entries, x3d, y_tiles)
     if entries.count:
-        wrapper.launches += _launch_entries(entries, x3d, y_tiles,
-                                            wrapper.__name__)
+        _cuda.count(wrapper, entries.vals.dtype, _launch_entries(
+            entries, x3d, y_tiles, wrapper.__name__))
     return y_tiles
 
 
@@ -907,19 +917,18 @@ def sbell_spmm_tiles(vals, packed, meta, step_block, x3d, *,
             num_row_tiles=num_row_tiles, chunks_per_step=K,
             tiles_per_block=BT, transpose_windows=TW, out=out,
         )
-    sbell_spmm_tiles.launches += _launch_sbell(
+    _cuda.count(sbell_spmm_tiles, vals.dtype, _launch_sbell(
         vals, packed, meta, step_block, x3d, out, K, BT, TW,
-        "sbell_spmm_tiles")
+        "sbell_spmm_tiles"))
     return out[:, :num_row_tiles]
 
 
 #: launches of the CUDA kernels through these wrappers (never the twins);
-#: an SpMM stream wrapper counts one per group of planes
-bell2_spmv_tiles.launches = 0
-bell2_spmv_tiles_accum.launches = 0
+#: an SpMM stream wrapper counts one per group of planes; a stream wrapper
+#: counts the launches of its bf16 instances apart, in ``launches_bf16``
 unperm_gather_tiles.launches = 0
-sbell_spmv_tiles.launches = 0
-bell2_spmm_tiles.launches = 0
-bell2_spmm_tiles_accum.launches = 0
 unperm_gather_tiles_mm.launches = 0
-sbell_spmm_tiles.launches = 0
+for _w in (bell2_spmv_tiles, bell2_spmv_tiles_accum, sbell_spmv_tiles,
+           bell2_spmm_tiles, bell2_spmm_tiles_accum, sbell_spmm_tiles):
+    _w.launches = _w.launches_bf16 = 0
+del _w

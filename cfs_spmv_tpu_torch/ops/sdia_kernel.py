@@ -20,7 +20,10 @@ checks, the launcher and the twins of this module, which work in the
 stream's type.
 
 Diagonals dense enough to store contiguously need no index data at all:
-per stored nonzero the stream moves 4 bytes (8 in float64). Layout:
+per stored nonzero the stream moves 4 bytes (8 in float64, 2 for the
+bfloat16 values of ``values="bfloat16"``, which the wrappers take beside
+float32 x and y: the kernels widen each value as they load it, the twins
+compute on ``vals.float()``). Layout:
 ``vals[r, j, i, l]`` holds A[g, g - d_j] for flat row g = 1024 r + 128 i
 + l (zero where absent). The signed kernel (``csrc/spmv_kernels.cu``)
 runs 1 or 2 threads a row (:func:`gen_slices`, from the rows and D),
@@ -96,10 +99,11 @@ def _blocks_per_step(R: int, D: int, itemsize: int = 4) -> int:
 
 
 def _check_vals(vals, offsets, dtype):
+    """The values and offsets of a stream whose x and y are ``dtype``
+    (bfloat16 values with float32 x and y)."""
     if vals.ndim != 4 or tuple(vals.shape[2:]) != (SUBLANES, LANES):
         raise ValueError(f"vals must be (R, D, 8, 128), got {tuple(vals.shape)}")
-    if vals.dtype != dtype:
-        raise TypeError(f"vals must be {dtype}, got {vals.dtype}")
+    _cuda.check_values(vals, "vals", dtype)
     if offsets.shape != (vals.shape[1],) or offsets.dtype != torch.int32:
         raise ValueError("offsets must be an int32 tensor of length D")
     for t in (vals, offsets):
@@ -112,9 +116,10 @@ def _check_vals(vals, offsets, dtype):
 
 
 def _check(vals, x2d, y_tiles, offsets, dtype=torch.float32, flat_x=False):
-    """Operands of one SpMV call of a stream whose values, x and y are
-    all ``dtype``; a mix raises ``TypeError``. ``flat_x``: x may also be
-    an (m,) vector, read as zero past m."""
+    """Operands of one SpMV call of a stream whose x and y are ``dtype``
+    and whose values are too (or bfloat16, for float32); another mix
+    raises ``TypeError``. ``flat_x``: x may also be an (m,) vector, read
+    as zero past m."""
     _check_vals(vals, offsets, dtype)
     if not (flat_x and x2d.ndim == 1) and (x2d.ndim != 2
                                            or x2d.shape[1] != LANES):
@@ -141,12 +146,13 @@ def _check_mm(vals, x3d, y_tiles, offsets, dtype=torch.float32):
 
 def sdia_sym_tiles_plain(vals, x2d, y_tiles, offsets):
     """Plain PyTorch twin: ``y_tiles += (L + Lᵀ) x`` by flat shifted
-    slices, one pair per diagonal, in the operands' type (float32 or
-    float64). Accumulates in place and returns ``y_tiles``. Runs on any
-    device; ``offsets`` is a tensor or a sequence of ints ``>= 0`` (an
-    offset 0 adds its values twice: the float64 route stores the main
-    diagonal halved)."""
+    slices, one pair per diagonal, in the type of y (float32 or float64;
+    bfloat16 values are widened first). Accumulates in place and returns
+    ``y_tiles``. Runs on any device; ``offsets`` is a tensor or a
+    sequence of ints ``>= 0`` (an offset 0 adds its values twice: the
+    float64 route stores the main diagonal halved)."""
     offs = offsets.tolist() if torch.is_tensor(offsets) else list(offsets)
+    vals = vals.to(y_tiles.dtype)
     R, D = vals.shape[0], vals.shape[1]
     N = R * BLOCK_ROWS
     xf = x2d.reshape(-1)[:N]
@@ -168,13 +174,14 @@ def sdia_sym_tiles_plain(vals, x2d, y_tiles, offsets):
 def sdia_sym_tiles(vals, x2d, y_tiles, offsets):
     """``y_tiles += (L + Lᵀ) x`` for the dense-diagonal symmetric stream.
 
-    ``vals``: (R, D, 8, 128) float32; ``x2d``: (x_rows, 128) float32, read
-    as zero beyond its end; ``y_tiles``: (T, 128) float32, accumulated in
-    place (the reference aliases it) and returned; ``offsets``: (D,) int32
-    lower diagonal offsets, on the same device (all ``>= 1`` in the fp32
-    plans; the kernel also takes 0, which the float64 route stores with
-    halved values, see ``ops/sdia_df.py``). Contributions to
-    rows at or past T*128 are dropped, as in the reference.
+    ``vals``: (R, D, 8, 128) float32 or bfloat16; ``x2d``: (x_rows, 128)
+    float32, read as zero beyond its end; ``y_tiles``: (T, 128) float32,
+    accumulated in place (the reference aliases it) and returned;
+    ``offsets``: (D,) int32 lower diagonal offsets, on the same device
+    (all ``>= 1`` in the fp32 plans; the kernel also takes 0, which the
+    float64 route stores with halved values, see ``ops/sdia_df.py``).
+    Contributions to rows at or past T*128 are dropped, as in the
+    reference.
 
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     (building it on first use) or raises.
@@ -182,8 +189,8 @@ def sdia_sym_tiles(vals, x2d, y_tiles, offsets):
     _check(vals, x2d, y_tiles, offsets)
     if vals.device.type == "cpu":
         return sdia_sym_tiles_plain(vals, x2d, y_tiles, offsets)
-    sdia_sym_tiles.launches += _launch_sym(vals, x2d[None], y_tiles[None],
-                                           offsets, "sdia_sym_tiles")
+    _cuda.count(sdia_sym_tiles, vals.dtype, _launch_sym(
+        vals, x2d[None], y_tiles[None], offsets, "sdia_sym_tiles"))
     return y_tiles
 
 
@@ -219,8 +226,8 @@ def sdia_sym_tiles_mm(vals, x3d, y_tiles, offsets, stage_x=False):
     _check_mm(vals, x3d, y_tiles, offsets)
     if vals.device.type == "cpu":
         return sdia_sym_tiles_mm_plain(vals, x3d, y_tiles, offsets)
-    sdia_sym_tiles_mm.launches += _launch_sym(vals, x3d, y_tiles, offsets,
-                                              "sdia_sym_tiles_mm", stage_x)
+    _cuda.count(sdia_sym_tiles_mm, vals.dtype, _launch_sym(
+        vals, x3d, y_tiles, offsets, "sdia_sym_tiles_mm", stage_x))
     return y_tiles
 
 
@@ -231,6 +238,7 @@ def sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store=False):
     ``x2d`` is read flat (any shape), ``offsets`` is a tensor or a sequence
     of ints."""
     offs = offsets.tolist() if torch.is_tensor(offsets) else list(offsets)
+    vals = vals.to(y_tiles.dtype)
     R, D = vals.shape[0], vals.shape[1]
     L = min(y_tiles.numel(), R * BLOCK_ROWS)
     xf = x2d.reshape(-1)
@@ -251,8 +259,8 @@ def sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store=False):
 def sdia_gen_tiles(vals, x2d, y_tiles, offsets, store=False):
     """``y_tiles += A_dia x`` for the signed-offset dense-diagonal stream.
 
-    ``vals``: (R, D, 8, 128) float32; ``x2d``: (x_rows, 128) float32,
-    or x itself as an (m,) vector, read as zero outside it (``d > 0``
+    ``vals``: (R, D, 8, 128) float32 or bfloat16; ``x2d``: (x_rows, 128)
+    float32, or x itself as an (m,) vector, read as zero outside it (``d > 0``
     reads behind, ``d < 0`` ahead);
     ``y_tiles``: (T, 128) float32, accumulated in place and returned;
     ``offsets``: (D,) int32 signed offsets (``d == 0`` allowed), on the
@@ -267,9 +275,9 @@ def sdia_gen_tiles(vals, x2d, y_tiles, offsets, store=False):
     _check(vals, x2d, y_tiles, offsets, flat_x=True)
     if vals.device.type == "cpu":
         return sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store)
-    sdia_gen_tiles.launches += _launch_gen(
+    _cuda.count(sdia_gen_tiles, vals.dtype, _launch_gen(
         vals, x2d.reshape(1, -1), y_tiles[None], offsets, "sdia_gen_tiles",
-        store)
+        store))
     return y_tiles
 
 
@@ -300,9 +308,9 @@ def _launch_gen(vals, x_il, y3d, offsets, name, store=False, slices=None):
     if slices is None:
         rows = y_len if store else min(y_len, nv_rows)
         slices = gen_slices(rows, vals.shape[1], _thread_slots(vals.device))
-    lib = _cuda.lib()
+    fn = _cuda.entry("sdia_gen", vals.dtype)
     return _cuda.launch_groups(
-        name, x_il, y3d, lambda *planes: lib.cfs_sdia_gen(
+        name, x_il, y3d, lambda *planes: fn(
             vals.data_ptr(), offsets.data_ptr(), vals.shape[1], nv_rows,
             y_len, x_il.shape[1], slices, int(store), *planes,
         ))
@@ -357,13 +365,14 @@ def sdia_gen_tiles_mm(vals, x3d, y_tiles, offsets, *, planes=None,
     if planes is None:
         x3d = (x3d[0].reshape(1, -1) if B == 1 else
                bk.interleave_x(x3d.reshape(B, -1).T, x3d.shape[1]))
-    sdia_gen_tiles_mm.launches += _launch_gen(
-        vals, x3d, y_tiles, offsets, "sdia_gen_tiles_mm", store)
+    _cuda.count(sdia_gen_tiles_mm, vals.dtype, _launch_gen(
+        vals, x3d, y_tiles, offsets, "sdia_gen_tiles_mm", store))
     return y_tiles
 
 
-#: launches of the CUDA kernels through these wrappers (never the twins)
-sdia_sym_tiles.launches = 0
-sdia_gen_tiles.launches = 0
-sdia_sym_tiles_mm.launches = 0
-sdia_gen_tiles_mm.launches = 0
+#: launches of the CUDA kernels through these wrappers (never the twins):
+#: ``launches`` of the float32 instances, ``launches_bf16`` of the bf16 ones
+for _w in (sdia_sym_tiles, sdia_gen_tiles, sdia_sym_tiles_mm,
+           sdia_gen_tiles_mm):
+    _w.launches = _w.launches_bf16 = 0
+del _w

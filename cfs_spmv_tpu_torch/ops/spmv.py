@@ -13,6 +13,15 @@ or sparse stream, its entry list) and the symmetric diagonal stream in
 IEEE double, as the appliers inside the reference's
 ``tuning/tune._tune_fp64_df`` do with double-float pairs. The device
 structs are plain dataclasses of tensors on one explicit device.
+
+bfloat16 values (``values="bfloat16"``): numpy has no bfloat16 type
+without ``ml_dtypes``, which the port does not import, so a host plan
+holds such a value array as its uint16 bits (``io/plancache.BF16_BITS``,
+:func:`bf16_bits`), 2 bytes a value as in the reference's plan. The
+uploads view those bits as ``torch.bfloat16`` tensors (the paired and
+one-sided chunk grids, the diagonal planes, an entry list's values), and
+the appliers pass them to the kernel wrappers as they are; ``diag``, x,
+y and every sum stay float32.
 """
 
 from __future__ import annotations
@@ -23,12 +32,16 @@ import numpy as np
 import torch
 
 from ..formats.bell2 import LANES, SUBLANES
+from ..io.plancache import BF16_BITS
 from . import bell2_df as bdf
 from . import bell2_kernel as bk
 from . import sdia_df as sdf
 from . import sdia_kernel as sk
 
 __all__ = [
+    "BF16_BITS",
+    "bf16_bits",
+    "bf16_widen",
     "Bell2Device",
     "SBellDevice",
     "Fp64Device",
@@ -195,7 +208,28 @@ class Fp64Device:
 
 
 def _tensor(a, device):
-    return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+    """A plan's array on ``device``, in its own type; bfloat16 bits
+    (``BF16_BITS``) as a ``torch.bfloat16`` tensor."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == BF16_BITS:
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(a).to(device)
+
+
+def bf16_bits(a) -> np.ndarray:
+    """The bits of ``a`` (float32) rounded to bfloat16, to nearest even,
+    as ``astype(jnp.bfloat16)`` rounds: a ``BF16_BITS`` array of ``a``'s
+    shape."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(BF16_BITS)
+
+
+def bf16_widen(bits) -> np.ndarray:
+    """The float32 values of bfloat16 ``bits`` (exact: a bfloat16 is the
+    upper half of a float32)."""
+    wide = np.asarray(bits, BF16_BITS).astype(np.uint32) << 16
+    return wide.view(np.float32)
 
 
 def _check_chunks(meta, step_block, K, BT):
@@ -276,7 +310,11 @@ def to_device(plan, device) -> Bell2Device:
     accumulating residual, nearly all padding in the chunk grid) is
     uploaded as its live entries only; grouped and covering streams as
     their chunk grid, with ``covers`` recording whether it visits every
-    output block (then the kernel zeroes whole planes)."""
+    output block (then the kernel zeroes whole planes). bfloat16 values
+    (``BF16_BITS``) upload as ``torch.bfloat16``; an entry list is
+    compacted from their exact float32 widening and its values cast back
+    (exact), so a freshly cast plan and the same plan loaded from a plan
+    cache give one list."""
     device = as_device(device)
     if plan.row_perm is not None and plan.unperm_pk is None:
         raise NotImplementedError(
@@ -298,11 +336,14 @@ def to_device(plan, device) -> Bell2Device:
             for k in ("vals", "packed", "meta", "step_block")}
     entries, covers = None, False
     if plan.sparse_stream and plan.row_perm is None and plan.nnz > 0:
+        vals = np.asarray(plan.vals)
+        bf16 = vals.dtype == BF16_BITS
         entries = bk.compact_stream(
-            **grid, chunks_per_step=plan.chunks_per_step,
+            bf16_widen(vals) if bf16 else vals, plan.packed, plan.meta,
+            plan.step_block, chunks_per_step=plan.chunks_per_step,
             tiles_per_block=plan.tiles_per_block, contig=contig,
             num_row_tiles=plan.num_row_tiles, x_rows=plan.x_rows,
-        ).to(device)
+        ).to(device, torch.bfloat16 if bf16 else None)
         grid = dict.fromkeys(grid)
     elif plan.nnz > 0:
         covers = _visits_every_block(plan.step_block, plan.num_row_tiles,

@@ -19,8 +19,18 @@ else, expanded, into one one-sided stream, both in IEEE double
 (``ops/spmv.fp64_apply``). ``CFS_FP64=xla`` selects the plain ELL+COO
 path instead (``_tune_fp64_xla``, ``ops/xla_ref.py``).
 
-Off the slice, and raising ``NotImplementedError``:
-``values="bfloat16"`` (ROADMAP A5).
+``values="bfloat16"`` stores the float32 plans' stream values in
+bfloat16 (``_cast_values``, as the reference's): the paired or one-sided
+stream's, the far stream's and the diagonal planes', rounded to nearest
+even and held on the host as their bits (``io/plancache.BF16_BITS``); x, y,
+``diag``, every sum and ``TunedMatrix.dtype`` stay float32. The float64
+route ignores ``values``, as the reference's returns before the cast.
+
+``cache_dir`` (default ``config.plan_cache_dir``, ``CFS_PLAN_CACHE``)
+caches each plan with ``io/plancache.cached_build`` under the reference's
+key for the float32 plans, so the two packages can share one directory;
+the float64 plan (native double, not the reference's double-float pairs)
+has a key of its own.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import torch
 
 from ..formats.csr import CSR
 from ..formats.sbell import build_sbell_plan
+from ..io.plancache import cached_build
 from ..ops import spmv as spmv_ops
 from ..utils.config import config
 from ..utils.logging import info, warn
@@ -121,6 +132,7 @@ def tune(
     kernel: Kernel = Kernel.SpDMV,
     tuning: Tuning = Tuning.AGGRESSIVE,
     dtype=np.float32,
+    cache_dir: str | None = None,
     reorder: bool | str = "auto",
     values: str = "same",
     device="cuda",
@@ -144,13 +156,22 @@ def tune(
 
     ``kernel`` does not change the plan: both appliers are bound.
 
-    ``dtype=np.float64`` takes the float64 route whatever ``tuning`` and
-    ``reorder`` say (the reference returns before both): the native fp64
-    kernels, or the plain ELL+COO path under ``CFS_FP64=xla``; x and y
-    are then ``torch.float64``.
+    ``dtype=np.float64`` takes the float64 route whatever ``tuning``,
+    ``reorder`` and ``values`` say (the reference returns before all
+    three): the native fp64 kernels, or the plain ELL+COO path under
+    ``CFS_FP64=xla``; x and y are then ``torch.float64``.
+
+    ``values="bfloat16"`` (float32 only) stores the stream values in
+    bfloat16, half the bytes; x, y, the sums and ``dtype`` stay float32,
+    and results carry a 2-byte type's tolerance. ``cache_dir`` (default
+    ``config.plan_cache_dir``; empty: no cache) loads the plan from there
+    when it holds one for this matrix and these parameters, else saves
+    the one built.
     """
     del kernel
     device = spmv_ops.as_device(device)
+    if cache_dir is None:
+        cache_dir = config.plan_cache_dir
     if fmt == Format.NONE:
         fmt = (
             Format.SSS
@@ -167,11 +188,7 @@ def tune(
         fmt = Format.SSS if csr.symmetric else Format.CSR
     if fmt in (Format.SSS, Format.HYB) and not csr.symmetric:
         raise ValueError(f"format {fmt} requires a symmetric matrix")
-    if values == "bfloat16":
-        raise NotImplementedError(
-            "values='bfloat16' storage is not ported yet: ROADMAP A5"
-        )
-    if values != "same":
+    if values not in ("same", "bfloat16"):
         raise ValueError(f"values must be 'same' or 'bfloat16', got {values}")
     if np.dtype(dtype) == np.float64:
         if config.fp64_path not in ("df", "xla"):
@@ -180,7 +197,7 @@ def tune(
             )
         if config.fp64_path == "xla":
             return _tune_fp64_xla(csr, fmt, device)
-        return _tune_fp64(csr, fmt, device)
+        return _tune_fp64(csr, fmt, device, cache_dir)
     if np.dtype(dtype) != np.float32:
         raise ValueError(
             f"dtype must be float32 or float64, got {np.dtype(dtype)}"
@@ -199,7 +216,10 @@ def tune(
             perm, csr = res
 
     if fmt in (Format.SSS, Format.HYB) and tuning == Tuning.AGGRESSIVE:
-        plan = build_sbell_plan(csr, dtype=dtype)
+        plan = cached_build(
+            lambda: _cast_values(build_sbell_plan(csr, dtype=dtype), values),
+            csr, dtype, cache_dir, fmt="sbell", values=values,
+        )
         dev = spmv_ops.sym_to_device(plan, device)
         tuned = TunedMatrix(
             fmt, csr.nrows, csr.ncols, plan.nnz_full, True, plan,
@@ -214,8 +234,12 @@ def tune(
         # aggressive tuning peels dense signed-offset diagonals into the
         # index-free SDIA stream; Tuning.NONE stays the plain one-sided
         # oracle path
-        plan = build_general_plan(gen_csr, dtype=dtype,
-                                  dia=tuning == Tuning.AGGRESSIVE)
+        peel = tuning == Tuning.AGGRESSIVE
+        plan = cached_build(
+            lambda: _cast_values(
+                build_general_plan(gen_csr, dtype=dtype, dia=peel), values),
+            gen_csr, dtype, cache_dir, fmt="bell2", values=values, dia=peel,
+        )
         dev = spmv_ops.to_device(plan, device)
         tuned = TunedMatrix(
             Format.CSR, gen_csr.nrows, gen_csr.ncols, gen_csr.nnz,
@@ -234,11 +258,29 @@ def tune(
             100 * tuned.spill_fraction,
         )
     info(
-        "tune: fmt=%s nnz=%d pad=%.2fx far=%.4f reorder=%s device=%s",
-        tuned.format, tuned.nnz_full, tuned.padding_ratio,
-        tuned.spill_fraction, perm is not None, device,
+        "tune: fmt=%s nnz=%d pad=%.2fx far=%.4f reorder=%s values=%s "
+        "device=%s", tuned.format, tuned.nnz_full, tuned.padding_ratio,
+        tuned.spill_fraction, perm is not None, values, device,
     )
     return tuned
+
+
+def _cast_values(plan, values: str):
+    """The port of the reference's ``_cast_values``: with ``"bfloat16"``,
+    the stream value arrays (``plan.vals``, ``plan.far.vals``,
+    ``plan.dia.vals``) rounded to bfloat16, to nearest even, and held as
+    their bits (``ops/spmv.bf16_bits``); indices, metadata and ``diag``
+    are untouched. ``"same"`` returns the plan as it is."""
+    if values == "same":
+        return plan
+    if values != "bfloat16":
+        raise ValueError(f"values must be 'same' or 'bfloat16', got {values}")
+    plan.vals = spmv_ops.bf16_bits(plan.vals)
+    if getattr(plan, "far", None) is not None:
+        plan.far.vals = spmv_ops.bf16_bits(plan.far.vals)
+    if getattr(plan, "dia", None) is not None:
+        plan.dia.vals = spmv_ops.bf16_bits(plan.dia.vals)
+    return plan
 
 
 def _permuted(tuned: TunedMatrix, perm: np.ndarray) -> TunedMatrix:
@@ -315,13 +357,18 @@ def build_fp64_plan(csr: CSR):
     )
 
 
-def _tune_fp64(csr: CSR, fmt: Format, device) -> TunedMatrix:
+def _tune_fp64(csr: CSR, fmt: Format, device,
+               cache_dir: str | None = None) -> TunedMatrix:
     """float64 through the native fp64 kernels (the port of the
     reference's ``_tune_fp64_df``): no reordering, no BSR container, and
     every plan runs the kernels (the CUDA kernels read listed windows
     too, so there is no fallback for plans that are not word-eligible).
-    An empty matrix gets an applier of zeros."""
-    plan = build_fp64_plan(csr)
+    An empty matrix gets an applier of zeros. The plan is cached as
+    ``fmt="bell2_f64"``: it holds float64 values, where the reference's
+    ``"bell2_df"`` plan of the same matrix holds fp32 (hi, lo) pairs, so
+    the two must never share a key."""
+    plan = cached_build(lambda: build_fp64_plan(csr), csr, np.float64,
+                        cache_dir, fmt="bell2_f64")
     dev = spmv_ops.fp64_to_device(plan, device)
     nnz_full = plan.nnz
     if csr.symmetric and plan.dia is not None:

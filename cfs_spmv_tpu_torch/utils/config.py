@@ -48,6 +48,12 @@ class Config:
     fp64_path: str = dataclasses.field(
         default_factory=lambda: os.environ.get("CFS_FP64", "df")
     )
+    #: plan cache directory ("" disables): ``tune`` saves each plan it
+    #: builds there and loads it again for the same matrix and parameters
+    #: (``io/plancache.py``; the reference's files, which it can share)
+    plan_cache_dir: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("CFS_PLAN_CACHE", "")
+    )
 
     # --- runtime ---
     #: verbose [INFO] logging (runtime flag replacing compile-time

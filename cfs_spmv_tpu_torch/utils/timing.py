@@ -84,9 +84,11 @@ def time_matvec(matvec, x, iters: int = 500, repeats: int = 5) -> float:
     an eager loop timed with ``time.perf_counter``.
     """
     fn, ops, encode, _ = as_pure(matvec, x)
-    if not torch.is_tensor(x):
-        dtype, device = operator_space(matvec)
-        x = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    # a tensor of another type or device than the operator's moves too,
+    # as SpDMV.__call__ and the solvers move it
+    dtype, device = operator_space(matvec, x)
+    x = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                        dtype=dtype, device=device)
     x = encode(x).contiguous()  # once, outside the timed loop
     if x.device.type != "cuda":
         fn(ops, x)  # warm-up

@@ -49,6 +49,15 @@ Phases (each prints its wall time):
    flagship as a general matrix and forced pairing, and the float64
    flagship's peel residual) the chunk grid's padded bytes beside the
    bytes of the entry list that is uploaded in its place, and the fill;
+   then the bfloat16 values (``values="bfloat16"``, ROADMAP A5) the same
+   way on seven runs (``BF16_RUNS``: ``cant_proxy()``, ``audikw_proxy()``
+   without reordering, the flagship, ``stencil27()``, ``general_asym()``,
+   the flagship as CSR and ``near_band_paired()`` with
+   ``CFS_PAIRED=force``), each apply held to the oracle at a 2-byte
+   type's gate (5e-2) with its largest scaled difference from the
+   float32 apply of the same matrix and x printed, and required to launch
+   exactly the bf16 instances its plan predicts and no float32 one (the
+   unpermute reads no values and runs as it is);
 4. each kernel against its plain PyTorch twin on the same card, on the
    real plan arrays of those runs (``sbell_spmv`` also replanned with the
    other transpose-window count and with 8-tile output blocks, and on the
@@ -120,7 +129,11 @@ Phases (each prints its wall time):
    redesign's steps (``SBELL_ALT_SRC``, built for this comparison only),
    each against the twin, then in device time over walks of 1 to 8
    chunks a CTA on the main plan and on the 400,000-row plan at B = 1
-   and 8, and the three zero passes alone;
+   and 8, and the three zero passes alone; then each bf16 instance
+   against its twin (which computes on the values widened to float32) on
+   the bf16 runs' plan arrays and on the replans over 8-tile blocks with
+   absent rows cast to bf16, at B = 11 and 8 over planes, into
+   NaN-poisoned or strided outputs as above;
 5. times per call (CUDA events around 20 back-to-back calls, median of
    5) of each kernel and twin (multi-RHS ones at B = 8), and of the
    kernel path and the plain path of every run, SpMV and SpMM(8) (the
@@ -146,7 +159,13 @@ Phases (each prints its wall time):
    for every run the SpMV apply as ``utils/timing.time_matvec`` times it
    (``GRAPH_ITERS`` applies captured into one CUDA graph, replayed
    between CUDA events) beside the eager apply's wall and device time,
-   with both idle shares.
+   with both idle shares; each bf16 run's SpMV apply (eager, graphed and
+   device time) and SpMM(8) device time beside the float32 apply of the
+   same matrix, with both plans' ``stream_bytes()`` (a bf16 kernel row's
+   library call is the CSR product with the values rounded to bf16 and
+   stored in float32); and the plan cache on the card: ``cant_proxy()``
+   tuned in bf16 twice into one directory, the second a load whose apply
+   is bit-identical to the first's.
    These library calls are timed here and used nowhere in the port;
 6. the differential CLI (``cfs_spmv_tpu_torch.cli.test_spmv_mmf``) on a
    written ``.mtx`` on its default device; it must print ``PASSED!``;
@@ -170,14 +189,17 @@ Phases (each prints its wall time):
    for bit with the eager kernel run or not) and shows its residual's
    fall (``SOLVES``); per iteration it prints the graphed and eager wall
    (CUDA events around the loop), the device busy time (profiler) and
-   both idle shares. Then ``examples/cg_poisson_torch.py`` at its
-   default (g = 256) must pass.
+   both idle shares. Then S1 with bfloat16 values, graphed, beside the
+   float32 S1 (bit for bit expected: the Laplacian's values are exact in
+   bf16; the first difference is printed), and
+   ``examples/cg_poisson_torch.py`` at its default (g = 256) must pass.
 
 It needs one card and imports nothing of JAX. Any failure raises, and the
 exit code is then nonzero; without CUDA it exits 1 at once. The last two
 lines of standard output are one JSON object per line: the kernels (their
 ``launches`` summed over the main paths of phase 3 and the graphed solves
-of phase 7), then ``{"ok": true, "device": {...}}``.
+of phase 7; the bf16 instances as ``<name>_bf16``), then ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -188,6 +210,7 @@ import hashlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -221,6 +244,34 @@ EXPECTED = {
     "general_asym_f64": {"bell2_spmv_df"},  # asymmetric: all one-sided
     # 14 diagonals incl. the halved main one, nothing left for the stream
     "stencil27_f64": {"sdia_sym_df"},
+    # bfloat16 values (``values="bfloat16"``): the bf16 instances of the
+    # same plans' kernels; the unpermute reads no values and runs as it is
+    "cant_proxy_bf16": {"sdia_sym_bf16"},
+    "audikw_proxy_bf16": {"bell2_spmv_bf16", "unperm_gather"},
+    "flagship_bf16": {"sdia_sym_bf16", "bell2_spmv_accum_bf16"},
+    "stencil27_bf16": {"sdia_sym_bf16"},
+    "general_asym_bf16": {"sdia_gen_bf16"},
+    "flagship_csr_bf16": {"sdia_gen_bf16", "bell2_spmv_accum_bf16"},
+    "near_band_paired_bf16": {"sbell_spmv_bf16", "bell2_spmv_accum_bf16"},
+}
+#: the kernels that read the stream's values: each has a bf16 instance,
+#: whose launches its wrapper counts apart (``launches_bf16``) and which
+#: the ``kernels`` line lists as ``<name>_bf16``
+BF16_KERNELS = ("sdia_sym", "bell2_spmv", "bell2_spmv_accum", "sbell_spmv",
+                "sdia_gen", "sdia_sym_mm", "bell2_spmm", "bell2_spmm_accum",
+                "sbell_spmm", "sdia_gen_mm")
+#: the bf16 main paths: name -> (the float32 run of the same plan, or None
+#: where phase 3 has none, and reorder); the matrix, format and planning
+#: are those of the run the name less "_bf16" names in ``RUNS``
+BF16_RUNS = {
+    "cant_proxy_bf16": ("cant_proxy", "auto"),
+    # the reference bench's audikw_scattered_bf16: no reordering
+    "audikw_proxy_bf16": (None, False),
+    "flagship_bf16": ("flagship", "auto"),
+    "stencil27_bf16": ("stencil27", "auto"),
+    "general_asym_bf16": ("general_asym", "auto"),
+    "flagship_csr_bf16": ("flagship_csr", "auto"),
+    "near_band_paired_bf16": ("near_band_paired", "auto"),
 }
 #: the multi-RHS form of each kernel: an SpMM apply runs the same
 #: branches as the SpMV apply of its plan, through these
@@ -234,6 +285,10 @@ MM_OF = {
     "sdia_sym_df": "sdia_sym_df_mm",
     "bell2_spmv_df": "bell2_spmm_df",
     "bell2_spmv_accum_df": "bell2_spmm_accum_df",
+    **{f"{k}_bf16": f"{mm}_bf16" for k, mm in (
+        ("sdia_sym", "sdia_sym_mm"), ("bell2_spmv", "bell2_spmm"),
+        ("bell2_spmv_accum", "bell2_spmm_accum"),
+        ("sbell_spmv", "sbell_spmm"), ("sdia_gen", "sdia_gen_mm"))},
 }
 #: kernels each main-path run's SpMM(8) apply launches (no SpMV kernel)
 EXPECTED_MM = {run: {MM_OF[k] for k in ks} for run, ks in EXPECTED.items()}
@@ -259,6 +314,25 @@ REPLACES = {
     "bell2_spmv_accum_df": "cfs_spmv_tpu/ops/bell2_df.py:181",
     "bell2_spmm_accum_df": "cfs_spmv_tpu/ops/bell2_df.py:322",
 }
+REPLACES.update({f"{k}_bf16": REPLACES[k] for k in BF16_KERNELS})
+
+
+class _Bf16Count:
+    """The count of a wrapper's bf16 instances (its ``launches_bf16``),
+    read and set as ``launches``, as the phases read and zero every
+    wrapper's count."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+        self.__name__ = f"{wrapper.__name__} (bf16)"
+
+    @property
+    def launches(self):
+        return self.wrapper.launches_bf16
+
+    @launches.setter
+    def launches(self, n):
+        self.wrapper.launches_bf16 = n
 #: the card's peaks for the bounds (NVIDIA H100 SXM data sheet): device
 #: memory bytes per second, and multiply-adds counted as two operations
 #: per second outside the tensor cores
@@ -1994,6 +2068,8 @@ def main() -> int:
         "bell2_spmv_accum_df": bdf.bell2_spmv_tiles_accum_df,
         "bell2_spmm_accum_df": bdf.bell2_spmm_tiles_accum_df,
     }
+    wrappers.update({f"{k}_bf16": _Bf16Count(wrappers[k])
+                     for k in BF16_KERNELS})
     t_start = time.perf_counter()
     phase_t = [time.perf_counter()]
 
@@ -2220,6 +2296,91 @@ def main() -> int:
                 "float64 no float32 kernel, may run)"
             )
         runs[name] = (A, x)
+    # the bf16 main paths: the same entry points with values="bfloat16",
+    # each SpMV and SpMM(8) apply held to the oracle at a 2-byte type's
+    # gate and beside the float32 apply of the same matrix and x
+    bruns = {}  # name -> (A, x, the float32 SparseMatrix beside it)
+    for name, (f32run, reorder) in BF16_RUNS.items():
+        csr, fmt, tuning, paired, rows_max = RUNS[name[:-5]]
+        t0 = time.perf_counter()
+        with _planning(paired, rows_max):
+            A = SparseMatrix.create(csr, fmt)
+            op = SpDMV(A, tuning, values="bfloat16", reorder=reorder)
+            op_mm = SpDMM(A, tuning, values="bfloat16", reorder=reorder)
+            t_tune = time.perf_counter() - t0
+            if f32run is None:
+                A32 = SparseMatrix.create(csr, fmt)
+                SpDMV(A32, tuning, reorder=reorder)
+            else:
+                A32 = runs[f32run][0]
+        if A.tuned.dtype != torch.float32:
+            raise AssertionError(f"{name}: the tuned matrix is "
+                                 f"{A.tuned.dtype}, not float32")
+        predicted = {f"{k}_bf16" if k in BF16_KERNELS else k
+                     for k in predict(A.tuned)}
+        x = np.random.default_rng(1).uniform(1.0, 2.0, csr.ncols).astype(
+            np.float32)
+        xd = x.astype(np.float64)
+        y, counts = counted(lambda: op(x))
+        moved = {k for k, c in counts.items() if c}
+        y_np = y.cpu().numpy()
+        ok, err, serr = oracle_ok(y_np, csr, xd, A.tuned.nnz_full,
+                                  np.float16)
+        scale = oracle[id(csr), hashlib.sha1(xd).digest()][1]
+        y32 = A32.tuned.matvec(torch.as_tensor(x, device=dev)).cpu().numpy()
+        d32 = float((np.abs(y_np - y32) / np.maximum(scale, 1e-300)).max())
+        print(
+            f"main path {name}: n={csr.nrows} nnz_full={A.tuned.nnz_full} "
+            f"{fmt.name}/{tuning.name} float32 x and y, bfloat16 values, "
+            f"tune+upload {t_tune:.2f} s reorder={A.tuned.perm is not None} "
+            f"stream_bytes bf16 {A.tuned.stream_bytes()} float32 "
+            f"{A32.tuned.stream_bytes()} "
+            f"({A.tuned.stream_bytes() / A32.tuned.stream_bytes():.3f}x) "
+            f"predicted={sorted(predicted)} "
+            f"launched={ {k: c for k, c in counts.items() if c} } "
+            f"max_abs_err={err} max_scaled_err={serr} oracle_ok (2-byte "
+            f"gate) {ok}; max scaled difference from the float32 apply "
+            f"{d32}", flush=True)
+        if not ok or y_np.dtype != np.float32:
+            raise AssertionError(f"{name}: disagrees with the f64 oracle")
+        if not moved == predicted == EXPECTED[name]:
+            raise AssertionError(
+                f"{name}: launched {sorted(moved)}, predicted "
+                f"{sorted(predicted)}, expected {sorted(EXPECTED[name])} "
+                "(a bf16 apply runs the bf16 instances, no float32 one)")
+        X = np.random.default_rng(2).uniform(
+            1.0, 2.0, (csr.ncols, RHS)).astype(np.float32)
+        predicted_mm = {MM_OF[k] for k in predicted}
+        Y, counts = counted(lambda: op_mm(X))
+        moved = {k for k, c in counts.items() if c}
+        Y_np = Y.cpu().numpy()
+        Y32 = A32.tuned.matmat(torch.as_tensor(X, device=dev)).cpu().numpy()
+        errs, d32s = [], []
+        ok = Y_np.shape == (csr.nrows, RHS) and Y_np.dtype == np.float32
+        for b in range(RHS if ok else 0):
+            xb = X[:, b].astype(np.float64)
+            ok_b, e_b, _ = oracle_ok(Y_np[:, b], csr, xb, A.tuned.nnz_full,
+                                     np.float16)
+            sc_b = oracle[id(csr), hashlib.sha1(xb).digest()][1]
+            errs.append(e_b)
+            d32s.append(float((np.abs(Y_np[:, b] - Y32[:, b])
+                               / np.maximum(sc_b, 1e-300)).max()))
+            ok = ok and ok_b
+        print(
+            f"main path {name} SpMM({RHS}): "
+            f"predicted={sorted(predicted_mm)} "
+            f"launched={ {k: c for k, c in counts.items() if c} } "
+            f"max_abs_err={max(errs, default=None)} oracle_ok (2-byte gate) "
+            f"{ok}; max scaled difference from the float32 apply "
+            f"{max(d32s, default=None)}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} SpMM: disagrees with the oracle")
+        if not moved == predicted_mm == EXPECTED_MM[name]:
+            raise AssertionError(
+                f"{name} SpMM: launched {sorted(moved)}, predicted "
+                f"{sorted(predicted_mm)}, expected "
+                f"{sorted(EXPECTED_MM[name])}")
+        bruns[name] = (A, x, A32)
     print(f"launch counts of the main paths: {launches}", flush=True)
     if not all(launches.values()):
         raise AssertionError("a kernel of the paths was never launched")
@@ -3897,6 +4058,412 @@ def main() -> int:
                         f"{_ms(by.get('bell2_spmv_kernel'))}")
         print(f"bell2_spmv (B2) zero passes on {on} in turns, device ms: "
               + "; ".join(said) + f" ({card})", flush=True)
+    # -- 4b. the bf16 instances against their twins, on the bf16 runs' plan
+    # arrays and on replans over 8-tile blocks with absent rows, at B = 11
+    # and 8 over planes, into NaN-poisoned outputs where a kernel writes
+    # its own; each twin computes on the values widened to float32
+    def bf_operands(name):
+        A_, x_, _ = bruns[name]
+        _, d_ = A_.tuned.pure_apply()
+        return A_, d_, A_.tuned.encode(torch.as_tensor(x_, device=dev))
+
+    def lib_bf16(mname):
+        """The library yardstick of a bf16 row: the whole matrix's CSR
+        product with its values rounded to bfloat16 and stored in float32
+        (PyTorch multiplies no bf16 values by a float32 x), on the float32
+        rows' x and X."""
+        if (mname, "bf16") not in lib:
+            M_, xv_, Xv_ = lib_operands(mname)
+            lib[mname, "bf16"] = (torch.sparse_csr_tensor(
+                M_.crow_indices(), M_.col_indices(),
+                M_.values().to(torch.bfloat16).float(), M_.shape), xv_, Xv_)
+        return lib[mname, "bf16"]
+
+    def is_bf16(*ts):
+        if any(t.dtype != torch.bfloat16 for t in ts):
+            raise AssertionError("a bf16 plan uploaded values in "
+                                 f"{[t.dtype for t in ts]}")
+
+    # B1 + B11 on stencil27 and cant_proxy (the kernel row's)
+    errs = []
+    for run_name, mname in (("stencil27_bf16", "stencil27"),
+                            ("cant_proxy_bf16", "cant_proxy")):
+        A, d, xe = bf_operands(run_name)
+        dv, o = d.dia_vals, d.dia_offsets
+        is_bf16(dv)
+        x2d = ops.pad_x(xe, d.x_rows)
+        y0 = torch.rand((d.num_row_tiles, 128), generator=g).to(dev)
+        yk = sk.sdia_sym_tiles(dv, x2d, y0.clone(), o)
+        yp = sk.sdia_sym_tiles_plain(dv, x2d, y0.clone(), o)
+        ys = sk.sdia_sym_tiles_plain(dv.abs().double(), x2d.abs().double(),
+                                     y0.abs().double(), o)
+        errs.append(_agree(yk, yp, ys, 2 * dv.shape[1],
+                           f"sdia_sym bf16 on {run_name}"))
+        M_b, xl_b, Xe_b = lib_bf16(mname)
+
+        def make_sym_bf16(B, d=d, M=M_b, Xe=Xe_b):
+            x3 = planes(B, d.x_rows)
+            y3 = planes(B, d.num_row_tiles, extra=3)
+            a = (d.dia_vals, x3)
+            o, st = d.dia_offsets, d.dia_stage_x
+            return (lambda: strided(y3, lambda y: sk.sdia_sym_tiles_mm(
+                        *a, y, o, stage_x=st)),
+                    lambda: sk.sdia_sym_tiles_mm(*a, y3.clone(), o,
+                                                 stage_x=st),
+                    lambda: sk.sdia_sym_tiles_mm_plain(*a, y3.clone(), o),
+                    lambda: sk.sdia_sym_tiles_mm_plain(
+                        d.dia_vals.abs().double(), x3.abs().double(),
+                        y3.abs().double(), o),
+                    _nbytes(d.dia_vals, x3) + 2 * _nbytes(y3),
+                    lambda: M @ Xe)
+
+        sym_flops = 4 * nnz_of(dv)
+        mm_pair("sdia_sym_mm_bf16", make_sym_bf16, 2 * dv.shape[1],
+                f"{run_name}", flops=RHS * sym_flops)
+        # x staged and not, whatever the plan says
+        x3 = planes(11, d.x_rows)
+        y3 = planes(11, d.num_row_tiles, extra=3)
+        yp3 = sk.sdia_sym_tiles_mm_plain(dv, x3, y3.clone(), o)
+        ys3 = sk.sdia_sym_tiles_mm_plain(dv.abs().double(), x3.abs().double(),
+                                         y3.abs().double(), o)
+        said = [f"stage_x={st} " + str(_agree(
+            strided(y3, lambda y: sk.sdia_sym_tiles_mm(dv, x3, y, o,
+                                                       stage_x=st)),
+            yp3, ys3, 2 * dv.shape[1], f"sdia_sym_mm bf16 stage_x={st}"))
+            for st in (False, True)]
+        print(f"kernel sdia_sym bf16 on {run_name}: max_abs_err vs twin "
+              f"{errs[-1]}; sdia_sym_mm bf16 B=11 either way: "
+              + ", ".join(said), flush=True)
+    kern["sdia_sym_bf16"] = dict(
+        err=max(errs), on="cant_proxy bf16",
+        bytes=_nbytes(dv, x2d) + 2 * _nbytes(y0), flops=sym_flops,
+        library=lambda M=M_b, v=xl_b: M @ v,
+        fn=lambda a=(dv, x2d), y=y0, o=o: sk.sdia_sym_tiles(*a, y.clone(),
+                                                            o),
+        plain=lambda a=(dv, x2d), y=y0, o=o: sk.sdia_sym_tiles_plain(
+            *a, y.clone(), o))
+
+    # B2 + B7 on audikw_proxy's far stream without reordering (the kernel
+    # rows') and on the 8-tile-block replan of general_asym(g=50) with
+    # absent rows and unvisited blocks, cast to bf16
+    A, d, xe = bf_operands("audikw_proxy_bf16")
+    holes_b = dataclasses.replace(holes_f,
+                                  vals=holes_f.vals.to(torch.bfloat16))
+    for ds, on in ((holes_b, "general_asym(g=50) with absent rows, 8-tile "
+                    "blocks, bf16"), (d.far, "audikw_proxy bf16")):
+        is_bf16(ds.vals)
+        vrows, rest = visited_rows(ds)
+        TPs = rest.shape[0]
+        kw_s = dict(ds.stream_kw(), covers=ds.covers)
+        x2 = (ops.pad_x(xe, ds.x_rows) if ds is d.far
+              else planes(1, ds.x_rows)[0])
+        sa = (ds.vals, ds.packed, ds.meta, ds.step_block, x2)
+        out = poisoned((TPs, 128))
+        yk = bk.bell2_spmv_tiles(*sa, out=out, **kw_s)
+        torch.cuda.synchronize()
+        if not torch.isnan(out[rest]).all() or (
+                ds.covers and not torch.isfinite(out).all()):
+            raise AssertionError(f"bell2_spmv bf16 on {on}: an unvisited "
+                                 "block written, or a covering stream's "
+                                 "output not zeroed whole")
+        yp = bk.bell2_spmv_tiles_plain(*sa, **kw_s)
+        ys = bk.bell2_spmv_tiles_plain(ds.vals.abs(), *sa[1:4], x2.abs(),
+                                       **kw_s)
+        nnz_s = nnz_of(ds.vals)
+        err = _agree(yk[vrows], yp[vrows], ys[vrows], nnz_s / ds.nrows,
+                     f"bell2_spmv bf16 on {on}")
+        S_s = stream_csr(torch, dataclasses.replace(ds, vals=ds.vals.float()))
+        mm_pair("bell2_spmm_bf16", lambda B, ds=ds, kw_s=kw_s, TPs=TPs,
+                rest=rest, S_s=S_s, on=on: make_bell2_mm(
+                    B, ds=ds, kw_s=kw_s, TPs=TPs, rest=rest, S_s=S_s, on=on),
+                nnz_s / ds.nrows, on, rows=vrows, flops=RHS * 2 * nnz_s)
+        print(f"kernel bell2_spmv bf16 on {on}: {ds.meta.shape[0]} chunks, "
+              f"{len(torch.unique(ds.step_block))} of "
+              f"{TPs // ds.tiles_per_block} blocks visited, covers="
+              f"{ds.covers}, max_abs_err vs twin {err}", flush=True)
+        errs = [err] if ds is holes_b else errs + [err]
+    kern["bell2_spmv_bf16"] = dict(
+        err=max(errs), on="audikw_proxy bf16 (no reordering)",
+        bytes=_nbytes(*sa) + _nbytes(yp), flops=2 * nnz_s,
+        library=csr_mv(S_s, x2),
+        fn=lambda a=sa, k=kw_s: bk.bell2_spmv_tiles(*a, **k),
+        plain=lambda a=sa, k=kw_s: bk.bell2_spmv_tiles_plain(*a, **k))
+
+    def grid_rows(ds, on, x2):
+        """(SpMV row, SpMM(8) row) of a one-sided grid stream, each
+        checked against its twin on the visited blocks' rows."""
+        kw_s = dict(ds.stream_kw(), covers=ds.covers)
+        sa = (ds.vals, ds.packed, ds.meta, ds.step_block, x2)
+        vrows, rest = visited_rows(ds)
+        S_s = stream_csr(torch, dataclasses.replace(ds, vals=ds.vals.float()))
+        nnz_s = nnz_of(ds.vals)
+        yp = bk.bell2_spmv_tiles_plain(*sa, **kw_s)
+        ys = bk.bell2_spmv_tiles_plain(ds.vals.abs(), *sa[1:4], x2.abs(),
+                                       **kw_s)
+        err = _agree(bk.bell2_spmv_tiles(*sa, **kw_s)[vrows], yp[vrows],
+                     ys[vrows], nnz_s / ds.nrows, f"bell2_spmv on {on}")
+        check, fn, plain, scale, nbytes, library = make_bell2_mm(
+            RHS, ds=ds, kw_s=kw_s, TPs=rest.shape[0], rest=rest, S_s=S_s,
+            on=on)
+        err_mm = _agree(check()[:, vrows], plain()[:, vrows],
+                        scale()[:, vrows], nnz_s / ds.nrows,
+                        f"bell2_spmm on {on}")
+        return (dict(err=err, on=on, bytes=_nbytes(*sa) + _nbytes(yp),
+                     flops=2 * nnz_s, library=csr_mv(S_s, x2),
+                     fn=lambda: bk.bell2_spmv_tiles(*sa, **kw_s),
+                     plain=lambda: bk.bell2_spmv_tiles_plain(*sa, **kw_s)),
+                dict(err=err_mm, on=f"{on}, B={RHS}", bytes=nbytes,
+                     flops=RHS * 2 * nnz_s, library=library, fn=fn,
+                     plain=plain))
+
+    # B2 and B7 in bf16 on the float32 rows' plan (audikw reordered, its
+    # values cast to bf16 on the card), and in float32 on the bf16 rows'
+    # plan (audikw without reordering): each kernel in both types on one
+    # plan
+    _, d_r, xe_r = operands("audikw_proxy")
+    (extra["bell2_spmv_bf16 on audikw_proxy reordered"],
+     extra["bell2_spmm_bf16 on audikw_proxy reordered"]) = grid_rows(
+        dataclasses.replace(d_r.far, vals=d_r.far.vals.to(torch.bfloat16)),
+        "audikw_proxy reordered, values cast to bf16 (the float32 rows' "
+        "plan)", ops.pad_x(xe_r, d_r.far.x_rows))
+    A_n = bruns["audikw_proxy_bf16"][2].tuned
+    _, d_n = A_n.pure_apply()
+    xe_n = A_n.encode(torch.as_tensor(bruns["audikw_proxy_bf16"][1],
+                                      device=dev))
+    (extra["bell2_spmv on audikw_proxy without reordering"],
+     extra["bell2_spmm on audikw_proxy without reordering"]) = grid_rows(
+        d_n.far, "audikw_proxy without reordering, float32 (the bf16 rows' "
+        "plan)", ops.pad_x(xe_n, d_n.far.x_rows))
+
+    # B4 + B8 on the flagship's bf16 entry list (the kernel rows') and on
+    # the hand-built one over 8-tile blocks with absent rows, cast to bf16:
+    # onto Y planes at a plane stride past the plane whose rows no entry
+    # names hold NaN and must keep it
+    def entries_csr(es, T, x_rows):
+        """An entry list as a float32 CSR tensor (its product with the
+        flat padded x is what the entry kernel adds into its tiles)."""
+        return torch.sparse_coo_tensor(
+            torch.stack([es.rows.long(), es.cols.long()]), es.vals.float(),
+            (T * 128, x_rows * 128)).coalesce().to_sparse_csr()
+
+    def bf16_entries_check(es, x_rows, on, nnz_row):
+        T = es.min_tiles
+        named = torch.zeros(T * 128, dtype=torch.bool, device=dev)
+        named[es.rows.long()] = True
+        es_abs = dataclasses.replace(es, vals=es.vals.abs().double())
+        worst = 0.0
+        for B, mv in ((1, True), (1, False), (RHS, False), (11, False)):
+            x3 = planes(B, x_rows)
+            y0 = torch.rand((B, T * 128), generator=g).to(dev)
+            y0[:, ~named] = float("nan")
+            wide = poisoned((B, T + 3, 128))
+            wide[:, :T] = y0.view(B, T, 128)
+            if mv:
+                bk.bell2_spmv_tiles_accum(es, x3[0], wide[0, :T])
+            else:
+                bk.bell2_spmm_tiles_accum(es, x3, wide[:, :T])
+            torch.cuda.synchronize()
+            got = wide[:, :T].reshape(B, -1)
+            if (not torch.isnan(wide[:, T:]).all()
+                    or not torch.isnan(got[:, ~named]).all()):
+                raise AssertionError(f"bell2_spmm_accum bf16 on {on} B={B}: "
+                                     "wrote a row no entry names, or past "
+                                     "a plane")
+            yp = bk.bell2_spmm_tiles_accum_plain(
+                es, x3, y0.view(B, T, 128).clone()).reshape(B, -1)
+            ys = bk.bell2_spmm_tiles_accum_plain(
+                es_abs, x3.abs().double(),
+                y0.view(B, T, 128).abs().double()).reshape(B, -1)
+            worst = max(worst, _agree(got[:, named], yp[:, named],
+                                      ys[:, named], nnz_row,
+                                      f"entries bf16 on {on} B={B}"))
+        print(f"kernels bell2_spmv_accum / bell2_spmm_accum bf16 on {on}: "
+              f"{es.count} entries, B = 1, 1, 8, 11 onto strided planes "
+              f"whose unnamed rows keep their NaN: max_abs_err vs twin "
+              f"{worst}", flush=True)
+        return worst
+
+    es_hb = dataclasses.replace(es_h, vals=es_h.vals.to(torch.bfloat16))
+    err_h = bf16_entries_check(es_hb, d_h.x_rows, "the hand-built list over "
+                               "8-tile blocks with absent rows", 1.0)
+    A, d, xe = bf_operands("flagship_bf16")
+    esb = d.far.entries
+    is_bf16(esb.vals)
+    far_row = A.tuned.plan.far.nnz / A.nrows
+    err = max(err_h, bf16_entries_check(esb, d.x_rows, "flagship bf16",
+                                        far_row))
+    x2d_fb = ops.pad_x(xe, d.x_rows)
+    y0_fb = torch.rand((d.num_row_tiles, 128), generator=g).to(dev)
+    S_eb = entries_csr(esb, d.num_row_tiles, d.x_rows)
+    touched_b = int(torch.unique(esb.rows).numel())
+    kern["bell2_spmv_accum_bf16"] = dict(
+        err=err, on="flagship bf16",
+        bytes=_nbytes(esb.rows, esb.cols, esb.vals, x2d_fb) + 8 * touched_b,
+        flops=2 * esb.count, library=csr_mv(S_eb, x2d_fb),
+        fn=lambda: bk.bell2_spmv_tiles_accum(esb, x2d_fb, y0_fb.clone()),
+        plain=lambda: bk.bell2_spmv_tiles_accum_plain(esb, x2d_fb,
+                                                      y0_fb.clone()))
+
+    def make_acc_bf16(B, es=esb, T=d.num_row_tiles, x_rows=d.x_rows,
+                      S=S_eb):
+        x3 = planes(B, x_rows)
+        y3 = planes(B, T, extra=3)
+        es_abs = dataclasses.replace(es, vals=es.vals.abs().double())
+        return (lambda: bk.bell2_spmm_tiles_accum(es, x3, y3.clone()),
+                lambda: bk.bell2_spmm_tiles_accum(es, x3, y3.clone()),
+                lambda: bk.bell2_spmm_tiles_accum_plain(es, x3, y3.clone()),
+                lambda: bk.bell2_spmm_tiles_accum_plain(
+                    es_abs, x3.abs().double(), y3.abs().double()),
+                _nbytes(es.rows, es.cols, es.vals, x3) + 8 * touched_b * B,
+                csr_mv(S, x3))
+
+    mm_pair("bell2_spmm_accum_bf16", make_acc_bf16, far_row, "flagship bf16",
+            flops=RHS * 2 * esb.count)
+
+    # B5 + B10 on near_band_paired's bf16 paired stream (the kernel rows')
+    # and on the 49-block replan over 8-tile blocks cast to bf16: into
+    # NaN-poisoned planes, and a zero x, which must give exact 0 in every
+    # covered tile
+    A, d, xe = bf_operands("near_band_paired_bf16")
+    M_nb, xl_nb, Xe_nb = lib_bf16("near_band_paired")
+    bt8_b = dataclasses.replace(d_bt8, vals=d_bt8.vals.to(torch.bfloat16))
+    errs = []
+    for dp, on, Bs in ((bt8_b, "near_band_paired, 8-tile blocks, bf16",
+                        (2, 11, RHS)), (d, "near_band_paired bf16",
+                                        (11, RHS))):
+        is_bf16(dp.vals)
+        TP, kw_p = paired_geometry(dp)
+        pargs = (*paired_stream(dp), ops.pad_x(xe, dp.x_rows))
+        yk = bk.sbell_spmv_tiles(*pargs, out=poisoned((TP, 128)), **kw_p)
+        yp = bk.sbell_spmv_tiles_plain(*pargs, **kw_p)
+        ys = bk.sbell_spmv_tiles_plain(dp.vals.abs(), *pargs[1:4],
+                                       pargs[4].abs(), **kw_p)
+        errs.append(_agree(yk, yp, ys, 2 * A.tuned.nnz_full / A.nrows,
+                           f"sbell_spmv bf16 on {on}"))
+        for B in (1, 11):
+            zero = torch.zeros((B, dp.x_rows, 128), device=dev)
+            got = bk.sbell_spmm_tiles(*paired_stream(dp), zero,
+                                      out=poisoned((B, TP, 128)), **kw_p)
+            torch.cuda.synchronize()
+            if not torch.equal(got, torch.zeros_like(got)):
+                raise AssertionError(f"sbell_spmm bf16 on {on}: a zero x "
+                                     "did not give exact 0 everywhere")
+
+        def make_sbell_bf16(B, dp=dp, TP=TP, kw_p=kw_p):
+            sa = (*paired_stream(dp), planes(B, dp.x_rows, extra=2))
+            return (lambda: bk.sbell_spmm_tiles(
+                        *sa, out=poisoned((B, TP, 128)), **kw_p),
+                    lambda: bk.sbell_spmm_tiles(*sa, **kw_p),
+                    lambda: bk.sbell_spmm_tiles_plain(*sa, **kw_p),
+                    lambda: bk.sbell_spmm_tiles_plain(
+                        dp.vals.abs(), *sa[1:4], sa[4].abs(), **kw_p),
+                    _nbytes(*sa) + 4 * B * TP * 128,
+                    lambda: M_nb @ Xe_nb)
+
+        mm_pair("sbell_spmm_bf16", make_sbell_bf16,
+                2 * A.tuned.nnz_full / A.nrows, on, Bs=Bs,
+                flops=RHS * 4 * nnz_of(dp.vals))
+        print(f"kernel sbell_spmv bf16 on {on}: {dp.meta.shape[0]} chunks in "
+              f"{TP // dp.tiles_per_block} blocks, max_abs_err vs twin "
+              f"{errs[-1]}; a zero x at B = 1, 11 into NaN-poisoned planes "
+              f"gives exact 0", flush=True)
+    kern["sbell_spmv_bf16"] = dict(
+        err=max(errs), on=f"near_band_paired bf16 TW={d.transpose_windows}",
+        bytes=_nbytes(*pargs) + _nbytes(yp), flops=4 * nnz_of(d.vals),
+        library=lambda: M_nb @ xl_nb,
+        fn=lambda a=pargs, k=kw_p: bk.sbell_spmv_tiles(*a, **k),
+        plain=lambda a=pargs, k=kw_p: bk.sbell_spmv_tiles_plain(*a, **k))
+
+    # B6 + B12 on the ragged general_asym(g=50) plan cast to bf16, the
+    # flagship as CSR and general_asym's bf16 peels (the kernel rows'): B6
+    # adding onto nonzero y and storing from x itself into NaN-poisoned
+    # tiles whose rows past the value blocks must read +0; B12 at B = 1,
+    # 2, 4, 8, 11, X in place where it can be and copied, adding and
+    # storing into strided planes
+    bgen = {"general_asym(g=50) bf16": dataclasses.replace(
+        gen_plans["general_asym(g=50)"],
+        dia_vals=gen_plans["general_asym(g=50)"].dia_vals.to(torch.bfloat16))}
+    for run_name in ("flagship_csr_bf16", "general_asym_bf16"):
+        bgen[run_name] = bf_operands(run_name)[1]
+    gerr = [0.0, 0.0]
+    for on, dg in bgen.items():
+        vals, offs, T = dg.dia_vals, dg.dia_offsets, dg.num_row_tiles
+        is_bf16(vals)
+        m = dg.ncols
+        nv, D = vals.shape[0] * 1024, vals.shape[1]
+        av = vals.abs().double()
+        x = torch.rand(m, generator=g).to(dev)
+        x2d = ops.pad_x(x, dg.x_rows)
+        y0 = torch.rand((T, 128), generator=g).to(dev)
+        e_add = _agree(sk.sdia_gen_tiles(vals, x2d, y0.clone(), offs),
+                       sk.sdia_gen_tiles_plain(vals, x2d, y0.clone(), offs),
+                       sk.sdia_gen_tiles_plain(av, x2d.abs().double(),
+                                               y0.abs().double(), offs),
+                       D, f"sdia_gen bf16 add on {on}")
+        zk = sk.sdia_gen_tiles(vals, x, poisoned((T, 128)), offs, store=True)
+        torch.cuda.synchronize()
+        plus_zero_tail(zk[None], nv, f"sdia_gen bf16 store on {on}")
+        e_st = _agree(zk, sk.sdia_gen_tiles_plain(vals, x, y0.clone(), offs,
+                                                  store=True),
+                      sk.sdia_gen_tiles_plain(av, x.abs().double(),
+                                              y0.clone().double(), offs,
+                                              store=True),
+                      D, f"sdia_gen bf16 store on {on}")
+        gerr[0] = max(gerr[0], e_add, e_st)
+        said = []
+        for B in (1, 2, 4, 8, 11):
+            X = torch.rand((m, B), generator=g).to(dev)
+            x3 = ops.pad_x_mm(X, dg.x_rows)
+            y3 = planes(B, T, extra=3)
+            yp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs)
+            ys = sk.sdia_gen_tiles_mm_plain(av, x3.abs().double(),
+                                            y3.abs().double(), offs)
+            zp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs,
+                                            store=True)
+            zs = sk.sdia_gen_tiles_mm_plain(av, x3.abs().double(),
+                                            y3.abs().double(), offs,
+                                            store=True)
+            worst = 0.0
+            for xn, xil in (("copied", bk.interleave_x(X, dg.x_rows)),
+                            ("gen_x", sk.gen_x(X, dg.x_rows))):
+                what = f"sdia_gen_mm bf16 B={B} X {xn} on {on}"
+                add = strided(y3, lambda y: sk.sdia_gen_tiles_mm(
+                    vals, xil, y, offs, planes=B))
+                st = strided(poisoned((B, T, 128)), lambda y: (
+                    sk.sdia_gen_tiles_mm(vals, xil, y, offs, planes=B,
+                                         store=True)))
+                plus_zero_tail(st, nv, what)
+                worst = max(worst, _agree(add, yp, ys, D, f"{what} add"),
+                            _agree(st, zp, zs, D, f"{what} store"))
+            said.append(f"B={B} {worst}")
+            gerr[1] = max(gerr[1], worst)
+        print(f"kernels sdia_gen / sdia_gen_mm bf16 on {on}: {D} diagonals, "
+              f"max_abs_err vs twin B6 add {e_add}, store {e_st}; B12 "
+              f"adding and storing, X in place and copied: "
+              + "; ".join(said), flush=True)
+    # the kernel rows: general_asym's store forms, as its applies run them
+    dg = bgen["general_asym_bf16"]
+    vals, offs, T, m = dg.dia_vals, dg.dia_offsets, dg.num_row_tiles, dg.ncols
+    M_gb, xl_gb, Xe_gb = lib_bf16("general_asym")
+    xg = torch.rand(m, generator=g).to(dev)
+    yo = torch.empty((T, 128), device=dev)
+    X8 = torch.rand((m, RHS), generator=g).to(dev)
+    Y8 = torch.empty((RHS, T, 128), device=dev)
+    xg8 = sk.gen_x(X8, dg.x_rows)
+    kern["sdia_gen_bf16"] = dict(
+        err=gerr[0], on="general_asym bf16 (store)", flops=2 * nnz_of(vals),
+        library=lambda: M_gb @ xl_gb, bytes=_nbytes(vals, xg, yo),
+        fn=lambda: sk.sdia_gen_tiles(vals, xg, yo, offs, store=True),
+        plain=lambda: sk.sdia_gen_tiles_plain(vals, xg, yo, offs,
+                                              store=True))
+    kern["sdia_gen_mm_bf16"] = dict(
+        err=gerr[1], on=f"general_asym bf16 (store, X in place), B={RHS}",
+        flops=RHS * 2 * nnz_of(vals), library=lambda: M_gb @ Xe_gb,
+        bytes=_nbytes(vals, X8, Y8),
+        fn=lambda: sk.sdia_gen_tiles_mm(vals, xg8, Y8, offs, planes=RHS,
+                                        store=True),
+        plain=lambda: sk.sdia_gen_tiles_mm_plain(vals, xg8, Y8, offs,
+                                                 planes=RHS, store=True))
     phase_done("4 kernels against twins")
 
     # -- 5. times: kernels, then the kernel path against the plain path --
@@ -4198,6 +4765,69 @@ def main() -> int:
               f"{k} {e:.4f} / {_ms(be)}; {g_:.4f} / {_ms(bg)}"
               for k, (e, be, g_, bg) in graphed.items()) + f" ({card})",
           flush=True)
+    # the bf16 applies beside the float32 ones of the same matrix and x:
+    # eager wall (CUDA events, 20 calls), graphed (time_matvec) and device
+    # time per SpMV apply, the SpMM(8) apply's device time, and the bytes
+    # each plan streams
+    bf16_e2e = {}
+    for name, (A, x, A32) in bruns.items():
+        said = {}
+        for label, tm in (("float32", A32.tuned), ("bf16", A.tuned)):
+            fn, dv_ = tm.pure_apply()
+            xe = tm.encode(torch.as_tensor(x, device=dev))
+            fnm, dvm = tm.pure_apply_mm()
+            Xe = tm.encode(torch.rand((A.ncols, RHS), generator=g).to(dev))
+            ms_e = _median_ms(torch, lambda: fn(dv_, xe))
+            busy, by = _device_ms(torch, lambda: fn(dv_, xe))
+            ms_g = time_matvec(tm, torch.as_tensor(x, device=dev),
+                               iters=GRAPH_ITERS) * 1e3
+            busy_mm, _ = _device_ms(torch, lambda: fnm(dvm, Xe))
+            said[label] = (ms_e, busy, ms_g, busy_mm, tm.stream_bytes(), by)
+        bf16_e2e[name] = said
+        f, b = said["float32"], said["bf16"]
+        print(f"end to end {name} against float32 (ms per apply: eager "
+              f"wall, device, graphed wall; SpMM({RHS}) device): float32 "
+              f"{f[0]:.4f}, {_ms(f[1])}, {f[2]:.4f}; {_ms(f[3])}; bf16 "
+              f"{b[0]:.4f}, {_ms(b[1])}, {b[2]:.4f}; {_ms(b[3])}; device "
+              f"ratio bf16 / float32 SpMV {_ratio(b[1], f[1])}, SpMM "
+              f"{_ratio(b[3], f[3])}; stream_bytes {f[4]} -> {b[4]} "
+              f"({b[4] / f[4]:.3f}x); bf16 {_fmt_device(b[1], b[5])} "
+              f"({card})", flush=True)
+    # the plan cache on the card: cant_proxy() tuned in bf16 twice into
+    # one directory; the second tune loads the first's file, and its
+    # apply equals the first's bit for bit (B1 adds without atomics)
+    from cfs_spmv_tpu_torch.io import plancache
+
+    cache_dir = os.path.join(_smoke_dir(), "plancache")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    loads, load_plan = [], plancache.load_plan
+    plancache.load_plan = lambda p: (loads.append(p), load_plan(p))[1]
+    try:
+        t0 = time.perf_counter()
+        tc1 = tune(cant, fmt=Format.SSS, values="bfloat16",
+                   cache_dir=cache_dir)
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tc2 = tune(cant, fmt=Format.SSS, values="bfloat16",
+                   cache_dir=cache_dir)
+        t_second = time.perf_counter() - t0
+    finally:
+        plancache.load_plan = load_plan
+    files = os.listdir(cache_dir)
+    xc = torch.as_tensor(runs["cant_proxy"][1], device=dev)
+    same = torch.equal(tc1.matvec(xc), tc2.matvec(xc))
+    print(f"plan cache on the card: cant_proxy() bf16 tuned twice into one "
+          f"directory: {len(files)} file(s) of "
+          f"{sum(os.path.getsize(os.path.join(cache_dir, f)) for f in files)}"
+          f" bytes, {len(loads)} load(s); tune+upload {t_first:.2f} s built, "
+          f"{t_second:.2f} s loaded; the loaded plan's SpMV bit-identical to "
+          f"the built one's: {same}; values on the card "
+          f"{tc2.operands.dia_vals.dtype}", flush=True)
+    if (len(files) != 1 or len(loads) != 1 or not same
+            or tc2.operands.dia_vals.dtype != torch.bfloat16):
+        raise AssertionError("the plan cache missed, or its plan gave "
+                             "another result")
+    shutil.rmtree(cache_dir)
     phase_done("5 times")
 
     # -- 6. the differential CLI on a written .mtx ----------------------
@@ -4259,6 +4889,52 @@ def main() -> int:
           flush=True)
     solver_phase(torch, card, wrappers, launches, lap, gasym_b,
                  runs["cant_proxy"][0].tuned)
+    # S1 with bfloat16 values: the Laplacian's values (4 on the diagonal,
+    # which stays float32, and -1) are exact in bf16, so the graphed solve
+    # should equal the float32 one bit for bit, iteration for iteration
+    from cfs_spmv_tpu_torch.models import solvers
+
+    t32_, _, b32_ = lap["float32"]
+    t0 = time.perf_counter()
+    A_bf = SparseMatrix.create(laplacian_2d(SOLVER_GRID), Format.SSS)
+    SpDMV(A_bf, Tuning.AGGRESSIVE, values="bfloat16")
+    t_bf = A_bf.tuned
+    t_plan = time.perf_counter() - t0
+    iters = SOLVES["S1 cg float32"][0]
+    for w in wrappers.values():
+        w.launches = 0
+    replays0 = solvers._iterate.replays
+    out_bf = solvers.cg(t_bf, b32_, iters=iters)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+    replays = solvers._iterate.replays - replays0
+    wall_bf = _loop_ms(solvers)
+    for k, c in counts.items():
+        launches[k] += c
+    out_32 = solvers.cg(t32_, b32_, iters=iters)
+    wall_32 = _loop_ms(solvers)
+    h_bf, h_32 = out_bf[-1], out_32[-1]
+    identical = all(torch.equal(a, b) for a, b in zip(out_bf, out_32))
+    differ = torch.nonzero(h_bf != h_32).reshape(-1)
+    first = (f"first difference at history entry {int(differ[0])}: bf16 "
+             f"{float(h_bf[differ[0]])!r}, float32 {float(h_32[differ[0]])!r}"
+             if len(differ) else "no history entry differs")
+    dev_h = _rel_agree(h_32, h_bf)
+    print(f"solver S1 cg float32 with bfloat16 values: {iters} iterations, "
+          f"{replays} graph replays, planned and uploaded in {t_plan:.2f} s "
+          f"(stream_bytes {t_bf.stream_bytes()} against "
+          f"{t32_.stream_bytes()}); wall per iteration graphed {wall_bf:.4f} "
+          f"ms against float32 values {wall_32:.4f} ms; bit-identical to the "
+          f"float32 solve (x and history): {identical}; {first}; max "
+          f"relative history difference {dev_h:.3g}; residual "
+          f"{float(h_bf[0]):.4g} -> {float(h_bf[-1]):.4g}; launched "
+          f"{counts} ({card})", flush=True)
+    if set(counts) != {"sdia_sym_bf16"} or replays != iters:
+        raise AssertionError("S1 bf16: launched other kernels than B1's "
+                             "bf16 instance, or replayed its graph other "
+                             "than once an iteration")
+    if dev_h > SOLVE_TOL["float32"] or not torch.isfinite(out_bf[0]).all():
+        raise AssertionError("S1 bf16: disagrees with the float32 solve")
     example = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "examples", "cg_poisson_torch.py")
     res = subprocess.run([sys.executable, example], capture_output=True,

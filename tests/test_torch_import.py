@@ -3,10 +3,12 @@ package surface is the reference's.
 
 The card's machine has no JAX, so importing ``cfs_spmv_tpu_torch`` or any
 of its submodules must never pull in ``jax`` (nor ``triton``, which the
-port does not use). Checked in a fresh interpreter, since this test
-process has JAX loaded through the reference's tests. The tolerance of a
-2-byte type is read there too: numpy knows ``bfloat16`` by name only after
-``ml_dtypes`` is imported, which JAX does and the port does not.
+port does not use, nor ``ml_dtypes``). Checked in a fresh interpreter,
+since this test process has JAX loaded through the reference's tests. The
+tolerance of a 2-byte type is read there too: numpy knows ``bfloat16`` by
+name only after ``ml_dtypes`` is imported, which JAX does and the port
+does not; and a bfloat16 plan is tuned, saved to a plan cache and loaded
+back there without it.
 
 The port's top-level names are the reference's; the reference's modules
 that the port does not have yet are listed in ``ABSENT_MODULES``, which
@@ -26,12 +28,13 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "triton", "cfs_spmv_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "triton", "cfs_spmv_tpu",
+                                    "ml_dtypes"))
 print(len(names), bad)
 assert len(names) >= 28, names
 for new in ("ops.sdia_df", "ops.bell2_df", "ops.xla_ref", "models.solvers",
             "utils.timing", "utils.roofline", "utils.trace",
-            "cli.bench_spmv_mmf"):
+            "cli.bench_spmv_mmf", "io.plancache"):
     assert "cfs_spmv_tpu_torch." + new in names, new
 assert not bad, bad
 """
@@ -73,12 +76,42 @@ def test_two_byte_tolerance_without_ml_dtypes():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+_PLANCACHE_PROBE = """
+import os, sys, tempfile
+import numpy as np
+import torch
+from cfs_spmv_tpu_torch import COO, CSR, Format
+from cfs_spmv_tpu_torch.tuning.tune import tune
+csr = CSR.from_coo(COO.random(600, 600, 4.0, symmetric=True, bandwidth=30,
+                              seed=3, dtype=np.float64))
+d = tempfile.mkdtemp()
+x = torch.ones(600)
+t1 = tune(csr, fmt=Format.SSS, values="bfloat16", cache_dir=d, device="cpu")
+t2 = tune(csr, fmt=Format.SSS, values="bfloat16", cache_dir=d, device="cpu")
+assert len(os.listdir(d)) == 1
+assert t2.plan.far.vals.dtype == np.uint16
+assert torch.equal(t1.matvec(x), t2.matvec(x))
+assert "ml_dtypes" not in sys.modules and "jax" not in sys.modules
+print("ok")
+"""
+
+
+def test_bf16_plan_cache_without_ml_dtypes():
+    """A bfloat16 plan goes through the plan cache (saved, then loaded)
+    in a process that never imports ``ml_dtypes``."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", _PLANCACHE_PROBE], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 #: modules of the reference (paths under its package) with no counterpart
-#: in the port yet: the plan cache, the distributed layer and its
-#: partitioners, and its command-line tool
+#: in the port yet: the distributed layer and its partitioners, and its
+#: command-line tool
 ABSENT_MODULES = {
     "cli/bench_dist.py",
-    "io/plancache.py",
     "parallel/__init__.py",
     "parallel/dist.py",
     "parallel/mesh.py",

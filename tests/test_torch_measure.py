@@ -94,6 +94,25 @@ def test_time_matvec_cpu_spdmv(dtype):
     assert 0 < t_mm < 10
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float64, torch.float32])
+def test_time_matvec_moves_a_tensor_to_the_operator(x_dtype):
+    """A tensor x of another type than the operator's is cast to it, as
+    ``SpDMV.__call__`` and the solvers cast it: a float64 tensor for a
+    float32 ``cant_proxy()``-class operator times, and the apply it times
+    is the one ``SpDMV`` makes of the same x."""
+    from cfs_spmv_tpu_torch.utils.proxies import cant_proxy
+
+    A = SparseMatrix.create(cant_proxy(n=600), Format.SSS)
+    op = SpDMV(A, device="cpu")
+    x = torch.ones(A.ncols, dtype=x_dtype)
+    t = timing.time_matvec(op, x, iters=2, repeats=2)
+    assert isinstance(t, float) and 0 < t < 10
+    t_mm = timing.time_matvec(op, torch.ones((A.ncols, 2), dtype=x_dtype),
+                              iters=2, repeats=2)
+    assert 0 < t_mm < 10
+    assert op(x).dtype == torch.float32
+
+
 def test_as_pure_unwraps_every_form():
     A = SparseMatrix.create(_small(), Format.SSS)
     op = SpDMV(A, device="cpu")

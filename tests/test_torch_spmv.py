@@ -10,8 +10,8 @@ stream under ``CFS_PAIRED=force``; mirrored diagonals past
 X``) runs against the reference's SpMM and the oracle column by column
 on the same paths, B = 1 as a 2-D X included. The differential CLI runs
 on a written ``.mtx`` (in float32 and, with ``--dp``, in float64), and
-what is still off the slice (bfloat16 values) raises
-``NotImplementedError``. The float64 route has its own file,
+bfloat16 values run where they once raised (``tests/test_torch_bf16.py``
+holds them against the reference). The float64 route has its own file,
 ``tests/test_torch_fp64.py``; here the tests that once held its refusal
 run it against the oracle.
 
@@ -510,10 +510,20 @@ def _assert_close_f64(y, csr, x, nnz_full):
                          scale=csr.spmv_host(x, absolute=True))
 
 
+def _assert_close_bf16(y, csr, x, nnz_full):
+    """The 2-byte gate (5e-2) against the float64 oracle, with the scale."""
+    xd = x.astype(np.float64)
+    assert allclose_spmv(y, csr.spmv_host(xd), np.float16,
+                         nnz_per_row=nnz_full / csr.nrows,
+                         scale=csr.spmv_host(xd, absolute=True))
+
+
 def test_float64_and_bf16_raise():
     """float64 runs (the symmetric route with its halved main diagonal)
-    and agrees with the oracle at the float64 gate; bfloat16 values still
-    raise, in float64 too."""
+    and agrees with the oracle at the float64 gate. bfloat16 values, which
+    once raised, run: in float32 a float32 result within a 2-byte type's
+    gate; in float64 they are ignored, as the reference's float64 route
+    ignores them. Another ``values`` raises."""
     A = _small_sym()
     x = random_x(A.ncols, np.float64)
     y = ct.SpDMV(A, dtype=np.float64, device="cpu")(x)
@@ -521,18 +531,24 @@ def test_float64_and_bf16_raise():
     assert isinstance(A.tuned.operands, ops.Fp64Device)
     assert 0 in A.tuned.plan.dia.offsets
     _assert_close_f64(y.numpy(), A.csr, x, A.tuned.nnz_full)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ct.SpDMV(_small_sym(), values="bfloat16", device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ct.SpDMV(_small_sym(), dtype=np.float64, values="bfloat16",
-                 device="cpu")
+    Abf = _small_sym()
+    ybf = ct.SpDMV(Abf, values="bfloat16", device="cpu")(x)
+    assert ybf.dtype == torch.float32 == Abf.tuned.dtype
+    _assert_close_bf16(ybf.numpy(), Abf.csr, x.astype(np.float32),
+                       Abf.tuned.nnz_full)
+    y64 = ct.SpDMV(_small_sym(), dtype=np.float64, values="bfloat16",
+                   device="cpu")(x)
+    assert torch.equal(y64, y)
+    with pytest.raises(ValueError, match="values"):
+        ct.SpDMV(_small_sym(), values="float16", device="cpu")
 
 
 def test_spmm_raises():
     """SpMM runs on the tuned symmetric path through ``SpDMM`` and
     ``SpDMV`` with a 2-D X, in float32 and in float64, and agrees with
-    the oracle; what it still refuses: bfloat16 values (A5), a 2-D X to
-    the 1-D applier, a 1-D x to ``SpDMM``, and B = 0."""
+    the oracle, with bfloat16 values too (which it once refused); what it
+    refuses: a 2-D X to the 1-D applier, a 1-D x to ``SpDMM``, and B =
+    0."""
     A = _small_sym()
     X = random_X(A.ncols, 2)
     Y = ct.SpDMM(A, device="cpu")(X)
@@ -548,8 +564,12 @@ def test_spmm_raises():
                           A64.tuned.nnz_full)
     with pytest.raises(ValueError, match="B = 0"):
         ct.SpDMM(A64, dtype=np.float64, device="cpu")(X64[:, :0])
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ct.SpDMM(_small_sym(), values="bfloat16", device="cpu")
+    Abf = _small_sym()
+    Ybf = ct.SpDMM(Abf, values="bfloat16", device="cpu")(X)
+    assert Ybf.dtype == torch.float32 and Ybf.shape == Y.shape
+    for b in range(X.shape[1]):
+        _assert_close_bf16(Ybf[:, b].numpy(), Abf.csr, X[:, b],
+                           Abf.tuned.nnz_full)
     with pytest.raises(ValueError, match="sbell_apply_mm"):
         ops.sbell_apply(A.tuned.operands, torch.from_numpy(X))
     with pytest.raises(ValueError, match="X must be"):

@@ -3,8 +3,8 @@
 Host copy of ``cfs_spmv_tpu/utils/config.py`` for the PyTorch port. Only
 the knobs that mean something on the port's path remain; env vars keep
 the ``CFS_`` prefix. The planner's own knobs (``CFS_PAIRED``,
-``CFS_SDIA_SYM_ROWS_MAX``, ``CFS_NATIVE``) are read where they are used,
-exactly as in the reference.
+``CFS_SDIA_SYM_ROWS_MAX``, ``CFS_NATIVE``, ``CFS_DIST_SDIA_ROWS_MAX``) are
+read where they are used, exactly as in the reference.
 """
 
 from __future__ import annotations
@@ -56,6 +56,11 @@ class Config:
     )
 
     # --- runtime ---
+    #: number of devices to use (0 = all); env CFS_NUM_DEVICES mirrors the
+    #: reference's CFS_NUM_THREADS (src/runtime.cpp:10-21)
+    num_devices: int = dataclasses.field(
+        default_factory=lambda: env_int("CFS_NUM_DEVICES", 0)
+    )
     #: verbose [INFO] logging (runtime flag replacing compile-time
     #: _LOG_INFO, ref configure.ac:64-67)
     log_info: bool = dataclasses.field(

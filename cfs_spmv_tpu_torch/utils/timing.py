@@ -72,7 +72,8 @@ def operator_space(matvec, like=None) -> tuple[torch.dtype, torch.device]:
     return torch.float32, as_device("cuda")
 
 
-def time_matvec(matvec, x, iters: int = 500, repeats: int = 5) -> float:
+def time_matvec(matvec, x, iters: int = 500, repeats: int = 5, *,
+                graph: bool = True) -> float:
     """Seconds per apply of ``matvec`` to ``x`` (the median of
     ``repeats`` runs of ``iters`` applies).
 
@@ -82,6 +83,12 @@ def time_matvec(matvec, x, iters: int = 500, repeats: int = 5) -> float:
     and each run is one replay between two CUDA events. A capture that
     fails raises with its reason; there is no eager fallback. On the CPU,
     an eager loop timed with ``time.perf_counter``.
+
+    ``graph=False`` times the applies eagerly on the card too: each run is
+    ``iters`` calls between two CUDA events on the current device, every
+    card synchronized before the end event is read. That is the timer of
+    an operator one graph cannot hold (a mesh over several cards,
+    ``cli/bench_dist.py``); it includes the host's launch overhead.
     """
     fn, ops, encode, _ = as_pure(matvec, x)
     # a tensor of another type or device than the operator's moves too,
@@ -90,6 +97,8 @@ def time_matvec(matvec, x, iters: int = 500, repeats: int = 5) -> float:
     x = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
                         dtype=dtype, device=device)
     x = encode(x).contiguous()  # once, outside the timed loop
+    if x.device.type == "cuda" and not graph:
+        return _eager_cuda_s(lambda: fn(ops, x), iters, repeats)
     if x.device.type != "cuda":
         fn(ops, x)  # warm-up
         runs = []
@@ -99,15 +108,40 @@ def time_matvec(matvec, x, iters: int = 500, repeats: int = 5) -> float:
                 fn(ops, x)
             runs.append((time.perf_counter() - t0) / iters)
         return float(np.median(runs))
-    graph = capture(lambda: fn(ops, x), iters)
-    graph.replay()  # warm: the first replay uploads the graph
+    replay = capture(lambda: fn(ops, x), iters).replay
+    replay()  # warm: the first replay uploads the graph
     torch.cuda.synchronize()
     runs = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        graph.replay()
+        replay()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / 1e3 / iters)
+    return float(np.median(runs))
+
+
+def _sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _eager_cuda_s(body, iters, repeats) -> float:
+    """Median seconds per call of ``body`` over ``repeats`` runs of
+    ``iters`` eager calls between CUDA events, every card synchronized
+    before each run's end event is read."""
+    body()  # warm-up: builds the kernels
+    _sync_all()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            body()
+        _sync_all()
         end.record()
         end.synchronize()
         runs.append(start.elapsed_time(end) / 1e3 / iters)

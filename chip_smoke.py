@@ -192,14 +192,30 @@ Phases (each prints its wall time):
    both idle shares. Then S1 with bfloat16 values, graphed, beside the
    float32 S1 (bit for bit expected: the Laplacian's values are exact in
    bf16; the first difference is printed), and
-   ``examples/cg_poisson_torch.py`` at its default (g = 256) must pass.
+   ``examples/cg_poisson_torch.py`` at its default (g = 256) must pass;
+8. the distributed layer (``parallel/dist.DistSpDMV``) on P shards of card
+   0 (``make_mesh(P, device="cuda:0")``, every exchange a view), the
+   cases of ``DIST_CASES``: ``cant_proxy()`` at P = 1, 2 and 4 (auto:
+   gather at P = 1, halo past it) and at P = 4 with
+   ``CFS_DIST_SDIA_ROWS_MAX`` below its shard (mirrored diagonals);
+   ``audikw_proxy()`` at P = 4 with auto (halo), gather and ring;
+   ``general_asym()`` at P = 4; ``stencil27()`` at P = 4 with ring; and
+   ``near_band_paired()`` at P = 4 with ``CFS_PAIRED=force`` (the default
+   gate pairs no shard of the others); SpMM(8) on five of them. Each
+   apply launches exactly what its shards' device structs predict
+   (``predict_dist``: an empty ring stream launches nothing; an SpMM
+   apply no SpMV kernel), agrees with the float64 oracle, with its plain
+   twins' path and with the single-device apply of the same matrix, and
+   prints its comm, halo rows, graphed, eager and device time beside the
+   single-device apply's; then S1 ``cg`` (100 iterations) graphed over
+   the 4-shard ``cant_proxy()`` operator against its eager run.
 
 It needs one card and imports nothing of JAX. Any failure raises, and the
 exit code is then nonzero; without CUDA it exits 1 at once. The last two
 lines of standard output are one JSON object per line: the kernels (their
-``launches`` summed over the main paths of phase 3 and the graphed solves
-of phase 7; the bf16 instances as ``<name>_bf16``), then ``{"ok": true,
-"device": {...}}``.
+``launches`` summed over the main paths of phase 3, the graphed solves of
+phase 7 and the distributed applies and solve of phase 8; the bf16
+instances as ``<name>_bf16``), then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2011,6 +2027,214 @@ def solver_phase(torch, card, wrappers, launches, lap, gasym, cant):
     if abs(lam / top - 1) > SOLVE_TOL["float32"]:
         raise AssertionError("S6: power iteration and Lanczos disagree")
     return said
+
+
+#: phase 8's cases (``parallel/dist.DistSpDMV`` on ``make_mesh(P,
+#: device="cuda:0")``): name -> (matrix, P, DistSpDMV keywords,
+#: environment, the phase 3 run of the same matrix, SpMM(8) too)
+DIST_CASES = {
+    "D1 cant_proxy P=1": ("cant", 1, {}, {}, "cant_proxy", False),
+    "D1 cant_proxy P=2": ("cant", 2, {}, {}, "cant_proxy", False),
+    "D1 cant_proxy P=4": ("cant", 4, {}, {}, "cant_proxy", True),
+    # shards past the diagonal gate: mirrored planes (B6, B12)
+    "D1 cant_proxy P=4 mirrored": (
+        "cant", 4, {}, {"CFS_DIST_SDIA_ROWS_MAX": "8192"}, "cant_proxy",
+        True),
+    # auto resolves to halo: audikw_proxy()'s blocks lie within 300 block
+    # rows of the diagonal, a window of 1,024 rows
+    "D2 audikw_proxy P=4": ("audikw", 4, {}, {}, "audikw_proxy", True),
+    "D2 audikw_proxy P=4 gather": ("audikw", 4, dict(comm="gather"), {},
+                                   "audikw_proxy", False),
+    "D2 audikw_proxy P=4 ring": ("audikw", 4, dict(comm="ring"), {},
+                                 "audikw_proxy", True),
+    "D3 general_asym P=4": ("gasym", 4, {}, {}, "general_asym", False),
+    "D4 stencil27 P=4 ring": ("st27", 4, dict(comm="ring"), {},
+                              "stencil27", False),
+    # the default gate pairs no shard of D1-D4: the paired stream (B5,
+    # B10) runs where pairing is forced, as phase 3's run of the matrix
+    "D5 near_band_paired P=4 paired": (
+        "nbp", 4, {}, {"CFS_PAIRED": "force"}, "near_band_paired", True),
+}
+#: graphed cg iterations over the 4-shard operator of D1's matrix
+DIST_CG_ITERS = 100
+
+
+def predict_dist(dsp, planes=0) -> dict:
+    """{kernel: launches} an apply of the distributed operator ``dsp``
+    makes, read off its shards' device structs (the branches of
+    ``parallel/dist.DistSpDMV._shard_apply`` and, for the near part,
+    ``ops/spmv.sbell_apply``); ``planes`` = B > 0 for the SpMM apply,
+    whose stream kernels launch once per group of 8 planes."""
+    from cfs_spmv_tpu_torch.ops import _cuda
+
+    mm = planes > 0
+    each = -(-planes // _cuda.RHS_GROUP) if mm else 1
+    out = {}
+
+    def add(name):
+        name = MM_OF[name] if mm else name
+        out[name] = out.get(name, 0) + each
+
+    for sh in dsp.shards:
+        near = sh.near
+        if near is not None:
+            if near.has_paired:
+                add("sbell_spmv")
+            if near.far is not None and near.far.entries.count:
+                add("bell2_spmv_accum")
+            if near.dia_vals is not None:
+                add("sdia_gen" if near.dia_mirrored else "sdia_sym")
+        if sh.far is not None and sh.far.has_work:
+            add("bell2_spmv")
+        for st in sh.ring or ():
+            if st.has_work and st.entries.count:
+                add("bell2_spmv_accum")
+    return out
+
+
+@contextlib.contextmanager
+def _env(values):
+    """The environment variables ``values`` set, restored afterwards."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_phase(torch, card, counted, oracle_ok, mats, runs, wrappers,
+               launches):
+    """Phase 8: ``DistSpDMV`` on P shards of card 0 (``DIST_CASES``), each
+    apply (SpMV, and SpMM(8) where the case says) counted against its
+    shards' prediction and held to the float64 oracle, to its plain
+    twins' path and (P = 1) to the single-device apply; its graphed and
+    device time per apply beside the single-device apply's; then S1 cg
+    graphed over D1's 4-shard operator against its eager run."""
+    from cfs_spmv_tpu_torch.models import solvers
+    from cfs_spmv_tpu_torch.parallel.dist import DistSpDMV
+    from cfs_spmv_tpu_torch.parallel.mesh import make_mesh
+    from cfs_spmv_tpu_torch.utils.timing import time_matvec
+
+    dev = torch.device("cuda", 0)
+    ops4 = None
+    for name, (mat, P, kw, env, run, with_mm) in DIST_CASES.items():
+        csr = mats[mat]
+        A1, x = runs[run]
+        t0 = time.perf_counter()
+        with _env(env):
+            dsp = DistSpDMV(csr, make_mesh(P, device="cuda:0"), **kw)
+        t_plan = time.perf_counter() - t0
+        xt = torch.as_tensor(x, device=dev)
+        want = predict_dist(dsp)
+        y, counts = counted(lambda: dsp(xt))
+        got = {k: c for k, c in counts.items() if c}
+        ok, err, scaled = oracle_ok(y.cpu().numpy(), csr,
+                                    x.astype(np.float64), dsp.nnz_full,
+                                    np.float32)
+        fn, shards = dsp.pure_apply()
+        y_plain = fn(shards, xt, plain=True)
+        scale = torch.as_tensor(csr.spmv_host(x.astype(np.float64),
+                                              absolute=True))
+        npr = dsp.nnz_full / csr.nrows
+        err_plain = _agree(y, y_plain, scale, npr, f"{name} against twins")
+        y1 = A1.tuned.matvec(xt)
+        err_one = _agree(y, y1, scale, npr, f"{name} against one device")
+        t_g = time_matvec(dsp, xt, iters=GRAPH_ITERS) * 1e3
+        # the timer of a mesh over several cards, here on one
+        t_e = time_matvec(dsp, xt, iters=TIMED_CALLS, graph=False) * 1e3
+        d_ms, by_name = _device_ms(torch, lambda: dsp(xt))
+        t1_g = time_matvec(A1.tuned, xt, iters=GRAPH_ITERS) * 1e3
+        d1_ms, _ = _device_ms(torch, lambda: A1.tuned.matvec(xt))
+        print(
+            f"dist {name}: n={csr.nrows} nnz_full={dsp.nnz_full} comm="
+            f"{dsp.comm} halo_rows={dsp.halo_rows} shard_rows="
+            f"{dsp.shard_rows} BT={dsp.BT} K={dsp.K} real={dsp.real} "
+            f"dia={len(getattr(dsp, 'dia_offsets', ()))} "
+            f"mirror={getattr(dsp, 'dia_mirror', False)} far_fraction="
+            f"{dsp.far_fraction:.4f}; planned and uploaded in {t_plan:.2f} "
+            f"s; predicted {want} launched {got}; max_abs_err={err} "
+            f"max_scaled_err={scaled} oracle_ok={ok}; against the twins' "
+            f"path {err_plain}, against the single-device apply {err_one}; "
+            f"per apply graphed {t_g:.4f} ms, eager {t_e:.4f} ms, device "
+            f"{_ms(d_ms)} ms ({_fmt_device(d_ms, by_name)}); single device "
+            f"graphed {t1_g:.4f} ms, device {_ms(d1_ms)} ms ({card})",
+            flush=True)
+        if got != want:
+            raise AssertionError(f"{name}: launched {got}, its shards "
+                                 f"predict {want}")
+        if not ok:
+            raise AssertionError(f"{name}: disagrees with the oracle")
+        if with_mm:
+            X = np.random.default_rng(2).uniform(
+                1.0, 2.0, (csr.ncols, RHS)).astype(np.float32)
+            Xt = torch.as_tensor(X, device=dev)
+            want_mm = predict_dist(dsp, RHS)
+            Y, counts = counted(lambda: dsp(Xt))
+            got_mm = {k: c for k, c in counts.items() if c}
+            worst = 0.0
+            for b in range(RHS):
+                ok_b, _, s_b = oracle_ok(
+                    Y[:, b].cpu().numpy(), csr, X[:, b].astype(np.float64),
+                    dsp.nnz_full, np.float32)
+                if not ok_b:
+                    raise AssertionError(f"{name} SpMM: column {b} "
+                                         "disagrees with the oracle")
+                worst = max(worst, s_b)
+            t_mm = time_matvec(dsp, Xt, iters=GRAPH_ITERS // 4) * 1e3
+            dmm, by_mm = _device_ms(torch, lambda: dsp(Xt))
+            t1_mm = time_matvec(A1.tuned, Xt, iters=GRAPH_ITERS // 4) * 1e3
+            d1_mm, _ = _device_ms(torch, lambda: A1.tuned.matmat(Xt))
+            print(
+                f"dist {name} SpMM({RHS}): predicted {want_mm} launched "
+                f"{got_mm}; max_scaled_err={worst}; per apply graphed "
+                f"{t_mm:.4f} ms, device {_ms(dmm)} ms "
+                f"({_fmt_device(dmm, by_mm)}); single device graphed "
+                f"{t1_mm:.4f} ms, device {_ms(d1_mm)} ms ({card})",
+                flush=True)
+            if got_mm != want_mm or set(got_mm) & set(MM_OF):
+                raise AssertionError(f"{name} SpMM: launched {got_mm}, its "
+                                     f"shards predict {want_mm}")
+        if name == "D1 cant_proxy P=4":
+            ops4 = dsp
+    # S1 cg over the 4-shard operator, graphed against its eager run
+    b = ops4(torch.as_tensor(np.random.default_rng(0).standard_normal(
+        ops4.nrows).astype(np.float32), device=dev))
+    want = set(predict_dist(ops4))  # launched while capturing, not replays
+    for w in wrappers.values():
+        w.launches = 0
+    replays0 = solvers._iterate.replays
+    out_g = solvers.cg(ops4, b, iters=DIST_CG_ITERS)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+    for k, c in counts.items():
+        launches[k] += c
+    replays = solvers._iterate.replays - replays0
+    wall_g = _loop_ms(solvers)
+    out_e = solvers.cg(ops4, b, iters=DIST_CG_ITERS, _mode="eager")
+    wall_e = _loop_ms(solvers)
+    h_g, h_e = out_g[2], out_e[2]
+    identical = all(torch.equal(p, q) for p, q in zip(out_g, out_e))
+    dev_e = _rel_agree(h_g, h_e)
+    fall = float(h_g[-1] / h_g[0])
+    print(f"dist S1 cg float32 over D1's 4-shard operator: {DIST_CG_ITERS} "
+          f"iterations, {replays} graph replays; wall per iteration graphed "
+          f"{wall_g:.4f} ms, eager {wall_e:.4f} ms; graphed bit-identical to "
+          f"eager: {identical}; max relative history difference {dev_e:.3g} "
+          f"(tolerance {SOLVE_TOL['float32']}); residual {float(h_g[0]):.4g} "
+          f"-> {float(h_g[-1]):.4g}; launched {counts} ({card})", flush=True)
+    if replays != DIST_CG_ITERS or set(counts) != want:
+        raise AssertionError(f"dist S1: {replays} replays for "
+                             f"{DIST_CG_ITERS} iterations, launched "
+                             f"{sorted(counts)}, expected {sorted(want)}")
+    if (dev_e > SOLVE_TOL["float32"] or not fall < 1
+            or not all(bool(torch.isfinite(t).all()) for t in out_g)):
+        raise AssertionError("dist S1: the graphed solve disagrees with its "
+                             "eager run, or its residual did not fall")
 
 
 def main() -> int:
@@ -4944,6 +5168,12 @@ def main() -> int:
     if res.returncode != 0:
         raise AssertionError(f"the CG example failed: {res.stderr[-2000:]}")
     phase_done("7 solvers")
+
+    # -- 8. the distributed layer on P shards of card 0 ------------------
+    dist_phase(torch, card, counted, oracle_ok,
+               dict(cant=cant, audikw=audikw, gasym=gasym, st27=st27,
+                    nbp=nbp), runs, wrappers, launches)
+    phase_done("8 distributed")
     print(f"total wall time {time.perf_counter() - t_start:.2f} s",
           flush=True)
 

@@ -266,3 +266,75 @@ def test_fp64_plans_match_reference(name):
         main = ref_csr.data[ref_csr.indptr[1:] - 1]  # last of each row
         assert np.array_equal(plan.dia.vals[:, j].reshape(-1)[:n],
                               0.5 * main)
+
+
+def _communities():
+    """Tiles in two interleaved communities (tile t in community t % 2),
+    as ``tests/test_dist.py``'s cluster test builds them."""
+    Tt, n = 16, 16 * 128
+    rng = np.random.default_rng(30)
+    rows, cols = [], []
+    for t in range(Tt):
+        comm_tiles = np.arange(t % 2, Tt, 2)
+        rows.append(t * 128 + rng.integers(0, 128, 600))
+        ct = comm_tiles[rng.integers(0, len(comm_tiles), 600)]
+        cols.append(ct * 128 + rng.integers(0, 128, 600))
+    r = np.concatenate(rows + [np.arange(n)])
+    c = np.concatenate(cols + [np.arange(n)])
+    keep = r >= c
+    return RefCSR.from_coo(RefCOO(n, n, r[keep], c[keep], rng.uniform(
+        0.5, 1.5, keep.sum()), symmetric=True).canonicalize())
+
+
+PARTITIONED = {
+    "communities": _communities,
+    "cant": lambda: ref_proxies.cant_proxy(n=4096),
+    "audikw": lambda: ref_proxies.audikw_proxy(nb=1000),
+    "general_ragged": lambda: RefCSR.from_coo(RefCOO.random(
+        3000, 3000, 6.0, bandwidth=900, seed=4, dtype=np.float32)),
+}
+
+
+@pytest.mark.parametrize("ndev", [2, 4, 8])
+@pytest.mark.parametrize("name", sorted(PARTITIONED))
+def test_partition_and_cluster_copies_match_reference(name, ndev):
+    """The host copies ``tuning/partition.py`` and ``tuning/cluster.py``
+    give the reference's tile histograms, bounds, imbalance, quotient
+    graph, cluster order, cut and cluster assignment (permutation and
+    permuted matrix)."""
+    from cfs_spmv_tpu.tuning import cluster as ref_cluster
+    from cfs_spmv_tpu.tuning import partition as ref_partition
+    from cfs_spmv_tpu_torch.tuning import cluster, partition
+
+    ref_csr = PARTITIONED[name]()
+    csr = port_csr(ref_csr)
+    T = -(-csr.nrows // 128)
+    hist = partition.tile_nnz_histogram(csr.indptr, T)
+    same = lambda a, b: (a.dtype == b.dtype  # noqa: E731
+                         and a.tobytes() == b.tobytes())
+    assert same(hist, ref_partition.tile_nnz_histogram(ref_csr.indptr, T))
+    for fn in ("partition_tiles_by_nnz",):
+        assert same(getattr(partition, fn)(hist, ndev),
+                    getattr(ref_partition, fn)(hist, ndev))
+    assert same(partition.partition_tiles_by_count(T, ndev),
+                ref_partition.partition_tiles_by_count(T, ndev))
+    assert (partition.estimate_imbalance(hist[: ndev + 1])
+            == ref_partition.estimate_imbalance(hist[: ndev + 1]))
+    for a, b in zip(cluster.tile_quotient_graph(csr),
+                    ref_cluster.tile_quotient_graph(ref_csr)):
+        assert same(a, b)
+    order = cluster.cluster_tile_order(csr, ndev)
+    assert same(order, ref_cluster.cluster_tile_order(ref_csr, ndev))
+    bounds = partition.partition_tiles_by_nnz(hist, ndev)
+    tile_of = np.empty(T, np.int64)
+    tile_of[order] = np.arange(T)
+    assert (cluster.cut_weight(csr, bounds, tile_of)
+            == ref_cluster.cut_weight(ref_csr, bounds, tile_of))
+    got = cluster.choose_cluster_assignment(csr, ndev)
+    want = ref_cluster.choose_cluster_assignment(ref_csr, ndev)
+    assert (got is None) == (want is None)
+    if got is not None:
+        assert same(got[0], want[0])
+        assert_same_plan(got[1], want[1], "permuted")
+    if name == "communities" and ndev == 2:
+        assert got is not None  # the case the clustering exists for

@@ -34,7 +34,9 @@ print(len(names), bad)
 assert len(names) >= 28, names
 for new in ("ops.sdia_df", "ops.bell2_df", "ops.xla_ref", "models.solvers",
             "utils.timing", "utils.roofline", "utils.trace",
-            "cli.bench_spmv_mmf", "io.plancache"):
+            "cli.bench_spmv_mmf", "io.plancache", "parallel.dist",
+            "parallel.mesh", "parallel.scaling", "tuning.partition",
+            "tuning.cluster", "cli.bench_dist"):
     assert "cfs_spmv_tpu_torch." + new in names, new
 assert not bad, bad
 """
@@ -108,17 +110,9 @@ def test_bf16_plan_cache_without_ml_dtypes():
 
 
 #: modules of the reference (paths under its package) with no counterpart
-#: in the port yet: the distributed layer and its partitioners, and its
-#: command-line tool
+#: in the port yet: the multi-process bootstrap of the distributed layer
 ABSENT_MODULES = {
-    "cli/bench_dist.py",
-    "parallel/__init__.py",
-    "parallel/dist.py",
-    "parallel/mesh.py",
     "parallel/multihost.py",
-    "parallel/scaling.py",
-    "tuning/cluster.py",
-    "tuning/partition.py",
 }
 
 

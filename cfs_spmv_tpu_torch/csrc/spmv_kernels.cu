@@ -35,9 +35,11 @@
 // the smallest instance of 1, 2, 4 or 8 that holds it (planes >= nr are
 // skipped). The SpMV entry points are the nr = 1 case.
 //
-// Sum type and value type. sdia_sym, bell2_spmv and bell2_entries are also
-// templates on the type T of x, y and the sums: float, or double for the
-// float64 route. All five stream kernels are templates on the storage type
+// Sum type and value type. The five stream kernels are also templates on
+// the type T of x, y and the sums: float, or double for the float64 route
+// (sdia_sym, bell2_spmv, bell2_entries) and for the float64 distributed
+// operator (sdia_gen, sbell_spmv: its mirrored diagonals and paired shards,
+// parallel/dist.py). All five stream kernels are templates on the storage type
 // V of the stream's values as well, V = T by default: with T = float, V may
 // be __nv_bfloat16 (``values="bfloat16"``, the reference's
 // tuning/tune.py:_cast_values), which halves the value bytes. A value is
@@ -52,7 +54,10 @@
 // (sdia_df.py, bell2_df.py) carry every value, x and sum as an fp32 (hi, lo)
 // pair with error-free transforms; what they compute is y = A x in double,
 // and the double instances here compute that with fp64 FMA and
-// atomicAdd(double*).
+// atomicAdd(double*). The reference's distributed operator runs its fp32
+// Pallas kernels on float64 arrays (interpreted on the CPU); the double
+// instances of sdia_gen and sbell_spmv compute that in native IEEE double,
+// not as double-float pairs.
 
 #include <cstdint>
 #include <type_traits>
@@ -104,6 +109,19 @@ __device__ __forceinline__ void load_group(const float* p, float (&v)[kRhs]) {
       v[4 * k] = a.x, v[4 * k + 1] = a.y, v[4 * k + 2] = a.z;
       v[4 * k + 3] = a.w;
     }
+  }
+}
+
+// The same for doubles: 16-byte loads (double2), one to four of them;
+// sm_90 has no 32-byte vector load.
+template <int kRhs>
+__device__ __forceinline__ void load_group(const double* p,
+                                           double (&v)[kRhs]) {
+  static_assert(kRhs == 2 || kRhs == 4 || kRhs == 8, "a group of planes");
+#pragma unroll
+  for (int k = 0; k < kRhs / 2; ++k) {
+    const double2 a = reinterpret_cast<const double2*>(p)[k];
+    v[2 * k] = a.x, v[2 * k + 1] = a.y;
   }
 }
 
@@ -272,6 +290,9 @@ __global__ void sdia_sym_kernel(const V* __restrict__ vals,
 //   (sdia_kernel.gen_slices): 2 where two threads a row still fit the
 //   card's thread slots at once (the narrow plans), else 1
 //   (general_asym()). A CTA is kGenThreads threads, 256 / kSlices rows.
+// The double instance (T = double, the float64 distributed operator's
+// mirrored diagonals) reads an interleaved X of doubles in 16-byte loads
+// (two per 4 planes), otherwise the same.
 // The one-plane, one-slice instance is B6's code as it was. At 8 planes on
 // general_asym() the kernel takes 0.0204 ms storing and 0.0272 adding
 // (bounds 0.0141 and 0.0190); on mirrored cant_proxy() 2 slices take
@@ -282,36 +303,37 @@ __global__ void sdia_sym_kernel(const V* __restrict__ vals,
 // ---------------------------------------------------------------------------
 constexpr int kGenThreads = 256;
 
-template <int kRhs, int kSlices, bool kStore, typename V = float>
+template <int kRhs, int kSlices, bool kStore, typename T = float,
+          typename V = T>
 __global__ void sdia_gen_kernel(const V* __restrict__ vals,
                                 const int* __restrict__ offsets, int D,
                                 int64_t nv_rows, int64_t n_rows,
-                                const float* __restrict__ x, int64_t x_len,
-                                float* __restrict__ y, int64_t ys, int nr) {
+                                const T* __restrict__ x, int64_t x_len,
+                                T* __restrict__ y, int64_t ys, int nr) {
   constexpr int kRows = kGenThreads / kSlices;
   // the slices' sums of a CTA's rows (kSlices > 1)
-  __shared__ float sums[kSlices > 1 ? kSlices : 1][kSlices > 1 ? kRhs : 1]
-                       [kSlices > 1 ? kRows : 1];
+  __shared__ T sums[kSlices > 1 ? kSlices : 1][kSlices > 1 ? kRhs : 1]
+                   [kSlices > 1 ? kRows : 1];
   const int r = threadIdx.x % kRows, s = threadIdx.x / kRows;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kRows + r;
   if (kSlices == 1 && g >= n_rows) return;
   const V* vg = vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
-  float acc[kRhs];
+  T acc[kRhs];
 #pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+  for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
   if (g < nv_rows && g < n_rows) {
     for (int j = s; j < D; j += kSlices) {
       const int64_t src = g - static_cast<int64_t>(offsets[j]);
       if (src >= 0 && src < x_len) {
-        const float v = widen(vg[static_cast<int64_t>(j) * kBlockRows]);
+        const T v = widen(vg[static_cast<int64_t>(j) * kBlockRows]);
         if constexpr (kRhs == 1) {
-          acc[0] = fmaf(v, x[src], acc[0]);
+          acc[0] = mul_add(v, x[src], acc[0]);
         } else {
-          float xv[kRhs];
+          T xv[kRhs];
           load_group<kRhs>(x + src * kRhs, xv);
 #pragma unroll
           for (int b = 0; b < kRhs; ++b)
-            if (live<kRhs>(b, nr)) acc[b] = fmaf(v, xv[b], acc[b]);
+            if (live<kRhs>(b, nr)) acc[b] = mul_add(v, xv[b], acc[b]);
         }
       }
     }
@@ -333,7 +355,7 @@ __global__ void sdia_gen_kernel(const V* __restrict__ vals,
       const int b = i / kRows, k = i % kRows;
       const int64_t row = static_cast<int64_t>(blockIdx.x) * kRows + k;
       if (!live<kRhs>(b, nr) || row >= n_rows) continue;
-      float sum = sums[0][b][k];
+      T sum = sums[0][b][k];
 #pragma unroll
       for (int t = 1; t < kSlices; ++t) sum += sums[t][b][k];
       if constexpr (kStore)
@@ -636,6 +658,13 @@ bell2_entries_kernel(const int* __restrict__ rows,
 // - The row sums are flushed the same way on a change of row tile, so a
 //   walk may start and end between any two chunks.
 //
+// The double instance (T = double, the float64 distributed operator's
+// paired shards) stages doubles: at TW = 4 and 8 planes its arrays would
+// take 84 KB of shared memory, past the 48 KB a CTA takes statically, so
+// its launcher serves groups of at most 4 planes (an SpMM of 8 reads the
+// stream twice), and at 4 planes it keeps the transpose sums in registers
+// (32 KB of shared memory for the staged tiles).
+//
 // The TPU zeroes each block at its first grid step and relies on steps
 // running in order; here the whole output is zeroed first in a launch of
 // its own (cudaMemset2DAsync over the group's planes: a paired plan
@@ -646,21 +675,20 @@ bell2_entries_kernel(const int* __restrict__ rows,
 constexpr int kMaxWalk = 4;
 
 // One atomicAdd per live plane whose sum is not 0.
-template <int kRhs>
-__device__ __forceinline__ void flush_sums(float* y, int64_t ys, int64_t at,
-                                           const float (&s)[kRhs], int nr) {
+template <int kRhs, typename T>
+__device__ __forceinline__ void flush_sums(T* y, int64_t ys, int64_t at,
+                                           const T (&s)[kRhs], int nr) {
 #pragma unroll
   for (int b = 0; b < kRhs; ++b)
-    if (live<kRhs>(b, nr) && s[b] != 0.0f) atomicAdd(y + b * ys + at, s[b]);
+    if (live<kRhs>(b, nr) && s[b] != T(0)) atomicAdd(y + b * ys + at, s[b]);
 }
 
 // The sums s of a window slot whose target was tile wt leave the slot:
 // they join the running row sums when wt is the row's tile, else go to y.
-template <int kRhs>
-__device__ __forceinline__ void hand_over(float* y, int64_t ys, int lane,
-                                          int wt, int64_t row,
-                                          const float (&s)[kRhs],
-                                          float (&acc)[kRhs], int nr) {
+template <int kRhs, typename T>
+__device__ __forceinline__ void hand_over(T* y, int64_t ys, int lane, int wt,
+                                          int64_t row, const T (&s)[kRhs],
+                                          T (&acc)[kRhs], int nr) {
   if (wt == row) {
 #pragma unroll
     for (int b = 0; b < kRhs; ++b) acc[b] += s[b];
@@ -669,39 +697,44 @@ __device__ __forceinline__ void hand_over(float* y, int64_t ys, int lane,
   }
 }
 
-template <int TW, int kRhs, typename V = float>
+template <int TW, int kRhs, typename T = float, typename V = T>
 __global__ void __launch_bounds__(kLanes)
 sbell_spmv_kernel(const V* __restrict__ vals,
                   const int* __restrict__ packed,
                   const int* __restrict__ meta,
                   const int* __restrict__ step_block, int64_t C, int K,
-                  int BT, int cpc, const float* __restrict__ x, int64_t xs,
-                  float* __restrict__ y, int64_t ys, int nr) {
-  constexpr bool kRegSums = kRhs <= 2;
+                  int BT, int cpc, const T* __restrict__ x, int64_t xs,
+                  T* __restrict__ y, int64_t ys, int nr) {
+  // the double instance at 4 planes keeps its transpose sums in registers
+  // too: its staged tiles take 32 KB, and the sums would take 16 KB more
+  constexpr bool kRegSums = kRhs <= 2 || (sizeof(T) == 8 && kRhs <= 4);
+  // at most 48 KB of static shared memory: a double instance serves up to
+  // 4 planes (kMaxRhsPaired)
+  static_assert(sizeof(T) == 4 || kRhs <= 4, "too many planes in double");
   __shared__ int r2s[kSublanes][kLanes];
-  __shared__ float vs[kSublanes][kLanes];
-  __shared__ float xo[kRhs][kLanes];      // the chunk's own x tile
-  __shared__ float xw[kRhs][TW][kLanes];  // its window tiles
+  __shared__ T vs[kSublanes][kLanes];
+  __shared__ T xo[kRhs][kLanes];      // the chunk's own x tile
+  __shared__ T xw[kRhs][TW][kLanes];  // its window tiles
   // transpose sums per window slot, where registers do not hold them
-  __shared__ float tsm[kRegSums ? 1 : kRhs][kRegSums ? 1 : TW][kLanes];
+  __shared__ T tsm[kRegSums ? 1 : kRhs][kRegSums ? 1 : TW][kLanes];
   const int lane = threadIdx.x;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * cpc;
   const int64_t c1 = c0 + cpc < C ? c0 + cpc : C;
   int64_t row = -1;  // y tile of the running row-side sums
-  float acc[kRhs];
+  T acc[kRhs];
   int wt[TW];  // y tile of each window slot's running transpose sums
-  float ts[kRegSums ? TW : 1][kRhs];
+  T ts[kRegSums ? TW : 1][kRhs];
 #pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+  for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
 #pragma unroll
   for (int t = 0; t < TW; ++t) {
     wt[t] = -1;
 #pragma unroll
     for (int b = 0; b < kRhs; ++b) {
       if constexpr (kRegSums)
-        ts[t][b] = 0.0f;
+        ts[t][b] = T(0);
       else
-        tsm[b][t][lane] = 0.0f;
+        tsm[b][t][lane] = T(0);
     }
   }
   for (int64_t c = c0; c < c1; ++c) {
@@ -712,7 +745,7 @@ sbell_spmv_kernel(const V* __restrict__ vals,
     const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
     const int64_t slot0 = c * kSublanes * kLanes + lane;
     int pk[kSublanes];
-    float v[kSublanes];
+    T v[kSublanes];
 #pragma unroll
     for (int i = 0; i < kSublanes; ++i) {
       pk[i] = packed[slot0 + i * kLanes];
@@ -723,7 +756,7 @@ sbell_spmv_kernel(const V* __restrict__ vals,
 #pragma unroll
     for (int b = 0; b < kRhs; ++b)
       if (live<kRhs>(b, nr)) {
-        const float* xb = x + b * xs + lane;
+        const T* xb = x + b * xs + lane;
         xo[b][lane] = xb[tgt * kLanes];
 #pragma unroll
         for (int t = 0; t < TW; ++t)
@@ -733,15 +766,15 @@ sbell_spmv_kernel(const V* __restrict__ vals,
 #pragma unroll
     for (int t = 0; t < TW; ++t)
       if (w[t] != wt[t]) {
-        float s[kRhs];
+        T s[kRhs];
 #pragma unroll
         for (int b = 0; b < kRhs; ++b) {
           if constexpr (kRegSums) {
             s[b] = ts[t][b];
-            ts[t][b] = 0.0f;
+            ts[t][b] = T(0);
           } else {
             s[b] = tsm[b][t][lane];
-            tsm[b][t][lane] = 0.0f;
+            tsm[b][t][lane] = T(0);
           }
         }
         hand_over<kRhs>(y, ys, lane, wt[t], row, s, acc, nr);
@@ -751,7 +784,7 @@ sbell_spmv_kernel(const V* __restrict__ vals,
       if (row >= 0) flush_sums<kRhs>(y, ys, row * kLanes + lane, acc, nr);
       row = tgt;
 #pragma unroll
-      for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
+      for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
     }
 #pragma unroll
     for (int i = 0; i < kSublanes; ++i) {
@@ -760,16 +793,16 @@ sbell_spmv_kernel(const V* __restrict__ vals,
       if (r2 < TW) {
 #pragma unroll
         for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr)) acc[b] = fmaf(v[i], xw[b][r2][q], acc[b]);
+          if (live<kRhs>(b, nr)) acc[b] = mul_add(v[i], xw[b][r2][q], acc[b]);
       }
       const int t2 = (pk[i] >> 7) & 7;
       if (t2 < TW) {
         const int src = (pk[i] >> 10) & 0x7F;
-        const float tv = vs[i][src];
+        const T tv = vs[i][src];
 #pragma unroll
         for (int b = 0; b < kRhs; ++b)
           if (live<kRhs>(b, nr)) {
-            const float p = tv * xo[b][src];
+            const T p = tv * xo[b][src];
             if constexpr (kRegSums) {
 #pragma unroll
               for (int t = 0; t < TW; ++t)
@@ -784,7 +817,7 @@ sbell_spmv_kernel(const V* __restrict__ vals,
   }
 #pragma unroll
   for (int t = 0; t < TW; ++t) {
-    float s[kRhs];
+    T s[kRhs];
 #pragma unroll
     for (int b = 0; b < kRhs; ++b) {
       if constexpr (kRegSums)
@@ -868,18 +901,20 @@ inline unsigned int blocks_for(int64_t n, int threads) {
 
 // Calls f(std::integral_constant<int, R>{}) for the smallest R of 1, 2, 4
 // and 8 that holds nr planes; false (nothing launched) when nr is outside
-// 1 .. kMaxRhs.
-template <class F>
+// 1 .. kMax (kMaxRhs, or 4 for a kernel whose widest instance is 4).
+template <int kMax = kMaxRhs, class F>
 bool with_rhs(int nr, F&& f) {
-  if (nr < 1 || nr > kMaxRhs) return false;
-  if (nr == 1)
+  static_assert(kMax == 4 || kMax == 8, "the widest instance");
+  if (nr < 1 || nr > kMax) return false;
+  if (nr == 1) {
     f(std::integral_constant<int, 1>{});
-  else if (nr == 2)
+  } else if (nr == 2) {
     f(std::integral_constant<int, 2>{});
-  else if (nr <= 4)
+  } else if (nr <= 4) {
     f(std::integral_constant<int, 4>{});
-  else
+  } else if constexpr (kMax == 8) {
     f(std::integral_constant<int, 8>{});
+  }
   return true;
 }
 
@@ -908,22 +943,22 @@ int launch_sdia_sym(const V* vals, const int* offsets, int D,
 }
 
 // The arguments of sdia_gen_kernel past its template ones.
-template <typename V>
+template <typename T, typename V>
 struct GenArgs {
   const V* vals;
   const int* offsets;
   int D;
   int64_t nv_rows, n_rows;
-  const float* x;
+  const T* x;
   int64_t x_len;
-  float* y;
+  T* y;
   int64_t ys;
   int nr;
 };
 
-template <int R, int kSlices, bool kStore, typename V>
-void launch_sdia_gen(const GenArgs<V>& a, cudaStream_t stream) {
-  sdia_gen_kernel<R, kSlices, kStore, V>
+template <int R, int kSlices, bool kStore, typename T, typename V>
+void launch_sdia_gen(const GenArgs<T, V>& a, cudaStream_t stream) {
+  sdia_gen_kernel<R, kSlices, kStore, T, V>
       <<<blocks_for(a.n_rows, kGenThreads / kSlices), kGenThreads, 0,
          stream>>>(a.vals, a.offsets, a.D, a.nv_rows, a.n_rows, a.x, a.x_len,
                    a.y, a.ys, a.nr);
@@ -933,17 +968,17 @@ void launch_sdia_gen(const GenArgs<V>& a, cudaStream_t stream) {
 // the y_len rows of each plane (0 past nv_rows) instead of adding into the
 // rows below nv_rows. x: the plane (nr = 1) or the group's interleaved (x_len,
 // R) block, R the instance's width (xs is not read).
-template <typename V>
+template <typename T, typename V>
 int run_sdia_gen(const V* vals, const int* offsets, int D, int64_t nv_rows,
                  int64_t y_len, int64_t x_len, int slices, int store,
-                 const float* x, float* y, int64_t ys, int nr,
-                 cudaStream_t stream) {
+                 const T* x, T* y, int64_t ys, int nr, cudaStream_t stream) {
   if (slices != 1 && slices != 2) return invalid();
   const int64_t n_rows = store || y_len < nv_rows ? y_len : nv_rows;
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
     if (n_rows <= 0 || (D <= 0 && !store)) return;
-    const GenArgs<V> a{vals, offsets, D, nv_rows, n_rows, x, x_len, y, ys, nr};
+    const GenArgs<T, V> a{vals, offsets, D, nv_rows, n_rows, x, x_len, y, ys,
+                          nr};
     if (store)
       slices == 1 ? launch_sdia_gen<R, 1, true>(a, stream)
                   : launch_sdia_gen<R, 2, true>(a, stream);
@@ -1024,44 +1059,50 @@ int launch_bell2_entries(const int* rows, const int* cols, const V* vals,
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
-// Chunks a CTA of sbell_spmv_kernel<TW, R, V> walks on a stream of C
+// Chunks a CTA of sbell_spmv_kernel<TW, R, T, V> walks on a stream of C
 // chunks.
-template <int TW, int R, typename V = float>
+template <int TW, int R, typename T = float, typename V = T>
 int chunks_per_cta(int64_t C) {
-  return walk_for(sbell_spmv_kernel<TW, R, V>, C, kMaxWalk);
+  return walk_for(sbell_spmv_kernel<TW, R, T, V>, C, kMaxWalk);
 }
 
-template <int TW, int R, typename V>
+template <int TW, int R, typename T, typename V>
 void launch_sbell(const V* vals, const int* packed, const int* meta,
-                  const int* step_block, int64_t C, int K, int BT,
-                  const float* x, int64_t xs, float* y, int64_t ys, int nr,
-                  cudaStream_t stream) {
-  const int cpc = chunks_per_cta<TW, R, V>(C);
-  sbell_spmv_kernel<TW, R, V><<<blocks_for(C, cpc), kLanes, 0, stream>>>(
+                  const int* step_block, int64_t C, int K, int BT, const T* x,
+                  int64_t xs, T* y, int64_t ys, int nr, cudaStream_t stream) {
+  const int cpc = chunks_per_cta<TW, R, T, V>(C);
+  sbell_spmv_kernel<TW, R, T, V><<<blocks_for(C, cpc), kLanes, 0, stream>>>(
       vals, packed, meta, step_block, C, K, BT, cpc, x, xs, y, ys, nr);
 }
 
+// The widest instance of the paired kernel in each sum type: its staged x
+// tiles and transpose sums of 8 double planes would need 84 KB of shared
+// memory, past the 48 KB a CTA takes statically, so the double launcher
+// serves groups of at most 4 planes (_cuda.PAIRED_F64_GROUP).
+template <typename T>
+constexpr int kMaxRhsPaired = sizeof(T) == 4 ? kMaxRhs : 4;
+
 // tiles: the rows of 128 of each output plane, all zeroed first.
-template <typename V>
+template <typename T, typename V>
 int run_sbell(const V* vals, const int* packed, const int* meta,
               const int* step_block, int64_t C, int K, int BT, int TW,
-              int64_t tiles, const float* x, int64_t xs, float* y,
-              int64_t ys, int nr, cudaStream_t stream) {
+              int64_t tiles, const T* x, int64_t xs, T* y, int64_t ys, int nr,
+              cudaStream_t stream) {
   if (TW != 2 && TW != 4) return invalid();
   cudaError_t zeroed = cudaSuccess;
-  const bool ok = with_rhs(nr, [&](auto r) {
+  const bool ok = with_rhs<kMaxRhsPaired<T>>(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
     if (C <= 0) return;
-    const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(float);
-    zeroed = cudaMemset2DAsync(y, nr == 1 ? width : ys * sizeof(float), 0,
-                               width, nr, stream);
+    const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(T);
+    zeroed = cudaMemset2DAsync(y, nr == 1 ? width : ys * sizeof(T), 0, width,
+                               nr, stream);
     if (zeroed != cudaSuccess) return;
     if (TW == 2)
-      launch_sbell<2, R>(vals, packed, meta, step_block, C, K, BT, x, xs, y,
-                         ys, nr, stream);
+      launch_sbell<2, R, T>(vals, packed, meta, step_block, C, K, BT, x, xs,
+                            y, ys, nr, stream);
     else
-      launch_sbell<4, R>(vals, packed, meta, step_block, C, K, BT, x, xs, y,
-                         ys, nr, stream);
+      launch_sbell<4, R, T>(vals, packed, meta, step_block, C, K, BT, x, xs,
+                            y, ys, nr, stream);
   });
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
@@ -1099,12 +1140,21 @@ int cfs_sdia_sym_bf16(const __nv_bfloat16* vals, const int* offsets, int D,
                                 stage_x, x, xs, y, ys, nr, stream);
 }
 
-// The signed diagonal kernel (run_sdia_gen above) over float or bf16
-// values; xs is not read.
+// The signed diagonal kernel (run_sdia_gen above) over float, double or
+// bf16 values; xs is not read. In double, x is the plane or the group's
+// interleaved block of doubles (read in 16-byte loads).
 int cfs_sdia_gen(const float* vals, const int* offsets, int D, int64_t nv_rows,
                  int64_t y_len, int64_t x_len, int slices, int store,
                  const float* x, int64_t xs, float* y, int64_t ys, int nr,
                  cudaStream_t stream) {
+  return run_sdia_gen(vals, offsets, D, nv_rows, y_len, x_len, slices, store,
+                      x, y, ys, nr, stream);
+}
+
+int cfs_sdia_gen_f64(const double* vals, const int* offsets, int D,
+                     int64_t nv_rows, int64_t y_len, int64_t x_len,
+                     int slices, int store, const double* x, int64_t xs,
+                     double* y, int64_t ys, int nr, cudaStream_t stream) {
   return run_sdia_gen(vals, offsets, D, nv_rows, y_len, x_len, slices, store,
                       x, y, ys, nr, stream);
 }
@@ -1117,11 +1167,21 @@ int cfs_sdia_gen_bf16(const __nv_bfloat16* vals, const int* offsets, int D,
                       x, y, ys, nr, stream);
 }
 
-// The paired stream (run_sbell above) over float or bf16 values.
+// The paired stream (run_sbell above) over float, double or bf16 values;
+// the double one takes groups of at most 4 planes.
 int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT, int TW,
                    int64_t tiles, const float* x, int64_t xs, float* y,
                    int64_t ys, int nr, cudaStream_t stream) {
+  return run_sbell(vals, packed, meta, step_block, C, K, BT, TW, tiles, x, xs,
+                   y, ys, nr, stream);
+}
+
+int cfs_sbell_spmv_f64(const double* vals, const int* packed,
+                       const int* meta, const int* step_block, int64_t C,
+                       int K, int BT, int TW, int64_t tiles, const double* x,
+                       int64_t xs, double* y, int64_t ys, int nr,
+                       cudaStream_t stream) {
   return run_sbell(vals, packed, meta, step_block, C, K, BT, TW, tiles, x, xs,
                    y, ys, nr, stream);
 }
@@ -1135,12 +1195,22 @@ int cfs_sbell_spmv_bf16(const __nv_bfloat16* vals, const int* packed,
                    y, ys, nr, stream);
 }
 
-int cfs_sbell_chunks_per_cta(int64_t C, int TW, int nr) {
+// The walk of the float (double = 0) or double (double = 1) paired
+// kernel on C chunks for a group of nr planes; 0 for no instance.
+int cfs_sbell_chunks_per_cta(int64_t C, int TW, int nr, int dbl) {
   int cpc = 0;
-  with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    cpc = TW == 2 ? chunks_per_cta<2, R>(C) : chunks_per_cta<4, R>(C);
-  });
+  if (dbl) {
+    with_rhs<kMaxRhsPaired<double>>(nr, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      cpc = TW == 2 ? chunks_per_cta<2, R, double>(C)
+                    : chunks_per_cta<4, R, double>(C);
+    });
+  } else {
+    with_rhs(nr, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      cpc = TW == 2 ? chunks_per_cta<2, R>(C) : chunks_per_cta<4, R>(C);
+    });
+  }
   return cpc;
 }
 

@@ -23,7 +23,8 @@ import threading
 import torch
 
 __all__ = ["lib", "check", "check_dtype", "check_values", "check_planes",
-           "launch_groups", "count", "entry", "NVCC_FLAGS", "RHS_GROUP"]
+           "launch_groups", "count", "entry", "xy_dtype", "NVCC_FLAGS",
+           "RHS_GROUP", "PAIRED_F64_GROUP"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "spmv_kernels.cu")
@@ -91,7 +92,8 @@ def _bind(path: str) -> ctypes.CDLL:
         fn.argtypes = [p, p, i32, i64, i64, i64, i32, i32, *planes]
     for fn in _forms(cdll, "sbell_spmv"):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i32, i64, *planes]
-    cdll.cfs_sbell_chunks_per_cta.argtypes = [i64, i32, i32]
+    # (C, TW, nr, double)
+    cdll.cfs_sbell_chunks_per_cta.argtypes = [i64, i32, i32, i32]
     # ... the i64 before the planes: the tile count of the planes to zero
     # whole (0: the visited blocks only); the float and bf16 ones read a
     # group of planes interleaved (``bell2_kernel.interleave_x``)
@@ -111,14 +113,14 @@ def _bind(path: str) -> ctypes.CDLL:
     return cdll
 
 
-#: the value types of each stream entry point: float32 for every one, the
-#: bf16 values of ``values="bfloat16"`` for every one, and float64 for the
-#: kernels of the float64 route
+#: the value types of each stream entry point: float32 and the bf16 values
+#: of ``values="bfloat16"`` for every one, and float64 for every one too:
+#: the kernels of the float64 route and of the float64 ``DistSpDMV``
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float64: "_f64"}
 _FORMS = {
     "sdia_sym": (torch.float32, torch.bfloat16, torch.float64),
-    "sdia_gen": (torch.float32, torch.bfloat16),
-    "sbell_spmv": (torch.float32, torch.bfloat16),
+    "sdia_gen": (torch.float32, torch.bfloat16, torch.float64),
+    "sbell_spmv": (torch.float32, torch.bfloat16, torch.float64),
     "bell2_spmv": (torch.float32, torch.bfloat16, torch.float64),
     "bell2_entries": (torch.float32, torch.bfloat16, torch.float64),
 }
@@ -140,8 +142,7 @@ def lib() -> ctypes.CDLL:
 def entry(name: str, dtype: torch.dtype):
     """The C entry point ``name`` for a stream of ``dtype`` values:
     ``cfs_<name>`` for float32, ``cfs_<name>_bf16`` for bfloat16 (x and y
-    float32), ``cfs_<name>_f64`` for float64 (only the kernels of the
-    float64 route have one: sdia_sym, bell2_spmv and bell2_entries)."""
+    float32), ``cfs_<name>_f64`` for float64 (x and y float64)."""
     if dtype not in _FORMS[name]:
         raise TypeError(f"no {name} kernel takes {dtype} values")
     return getattr(lib(), f"cfs_{name}{_SUFFIX[dtype]}")
@@ -157,6 +158,17 @@ def check(err: int, name: str) -> None:
 #: right-hand sides one launch of a stream kernel serves (its widest
 #: instance): an SpMM wrapper reads its stream once per group of this many
 RHS_GROUP = 8
+#: ... except the double instance of the paired kernel, whose staged x
+#: tiles and transpose sums of 8 planes would pass the 48 KB of shared
+#: memory a CTA takes statically (``kMaxRhsPaired`` in the source)
+PAIRED_F64_GROUP = 4
+
+
+def xy_dtype(vals) -> torch.dtype:
+    """The type of x, y and the sums of a stream whose values are
+    ``vals``: float64 for float64 values, else float32 (float32 values, or
+    the bfloat16 values of ``values="bfloat16"``)."""
+    return torch.float64 if vals.dtype == torch.float64 else torch.float32
 
 
 def check_dtype(t, name, dtype) -> None:
@@ -178,12 +190,19 @@ def check_values(vals, name, dtype) -> None:
                         "values are x's type, or bfloat16 when x is float32")
 
 
-def count(wrapper, vals_dtype, n: int) -> None:
+def count(wrapper, vals_dtype, n: int, *, f64_apart: bool = False) -> None:
     """Add ``n`` kernel launches to ``wrapper``'s count for its values'
-    type: ``launches`` (float32 or float64 values) or ``launches_bf16``
-    (bfloat16 values, the instances of ``values="bfloat16"``)."""
+    type: ``launches_bf16`` for bfloat16 values (the instances of
+    ``values="bfloat16"``), ``launches_f64`` for float64 values where the
+    caller passes ``f64_apart`` (the signed diagonal and paired wrappers,
+    which take float32 values as well, and whose double instances the
+    float64 ``DistSpDMV`` runs), else ``launches`` (the float64-only
+    wrappers of ``sdia_df`` and ``bell2_df`` count their double launches
+    there)."""
     if vals_dtype == torch.bfloat16:
         wrapper.launches_bf16 += n
+    elif vals_dtype == torch.float64 and f64_apart:
+        wrapper.launches_f64 += n
     else:
         wrapper.launches += n
 
@@ -209,9 +228,9 @@ def check_planes(t, name, device, dtype, B=None, rows=None) -> int:
     return t.shape[0]
 
 
-def launch_groups(name, x3d, y3d, launch) -> int:
+def launch_groups(name, x3d, y3d, launch, group=RHS_GROUP) -> int:
     """Call ``launch(x_ptr, xs, y_ptr, ys, nr, stream)`` for each group of
-    at most RHS_GROUP planes of the plane stacks ``x3d`` and ``y3d``
+    at most ``group`` planes of the plane stacks ``x3d`` and ``y3d``
     (strides in elements), on the current stream of ``y3d``'s device, and
     raise on a refused launch; returns the number of launches. For the
     group whose first plane is ``b0``, x_ptr points at plane ``b0``, or at
@@ -221,8 +240,8 @@ def launch_groups(name, x3d, y3d, launch) -> int:
     xb, yb = xs * x3d.element_size(), ys * y3d.element_size()
     with torch.cuda.device(y3d.device):
         stream = torch.cuda.current_stream(y3d.device).cuda_stream
-        for b0 in range(0, B, RHS_GROUP):
+        for b0 in range(0, B, group):
             check(launch(x3d.data_ptr() + b0 * xb, xs,
                          y3d.data_ptr() + b0 * yb, ys,
-                         min(RHS_GROUP, B - b0), stream), name)
-    return -(-B // RHS_GROUP)
+                         min(group, B - b0), stream), name)
+    return -(-B // group)

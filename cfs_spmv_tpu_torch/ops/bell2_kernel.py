@@ -42,7 +42,10 @@ Every stream wrapper also takes bfloat16 values (``values="bfloat16"``)
 beside float32 x and y: its kernel's bf16 instance widens each value as it
 loads it and sums in float32, the twins compute on ``vals.float()``, and
 a launch counts on the wrapper's ``launches_bf16`` instead of its
-``launches``.
+``launches``. The paired wrappers (B5, B10) also take float64 values with
+float64 x and y (the float64 ``DistSpDMV``'s paired shards): their
+kernel's double instance, in groups of at most ``_cuda.PAIRED_F64_GROUP``
+planes, counted in ``launches_f64``.
 
 The TPU-only stream forms (``nib_split``, ``meta_word``, the segmented
 word path) are not ported: the CUDA kernel reads the plan's int16
@@ -646,12 +649,13 @@ def sbell_spmv_tiles(vals, packed, meta, step_block, x2d, *,
                      transpose_windows, out=None):
     """y tiles (T, 128) = (L + Lᵀ) x from the paired strict-lower stream.
 
-    ``vals``: (C*8, 128) float32 or bfloat16; ``packed``: (C*8, 128)
-    int32 words
+    ``vals``: (C*8, 128) float32 or bfloat16, or float64; ``packed``:
+    (C*8, 128) int32 words
     ``q | r2 << 7 | src << 10`` (r2 = 7: no transpose entry at that
     slot); ``meta``: (C, 10) int32 whose windows ``meta[c, 2:2+TW]`` are
     tiles of the chunk's own output block; ``step_block``: (C/K,) int32;
-    ``x2d``: (x_rows, 128) float32; ``transpose_windows`` (TW) is 2 or 4.
+    ``x2d``: (x_rows, 128) float32 (float64 for float64 values), and the
+    output of x's type; ``transpose_windows`` (TW) is 2 or 4.
     The output is a (ceil(T/BT)*BT, 128) buffer (``out``, or
     ``torch.empty``) that is zeroed whole, then accumulated: a paired
     plan visits every block (``sym_to_device`` checks it). Returns its
@@ -662,9 +666,11 @@ def sbell_spmv_tiles(vals, packed, meta, step_block, x2d, *,
     """
     K, BT, TW = chunks_per_step, tiles_per_block, transpose_windows
     dev = _device_of(vals, packed, meta, step_block, x2d)
-    _check_sbell(vals, packed, meta, step_block, K, TW)
-    _check_x2d(x2d)
-    out = _out_buffer(out, (_tiles_padded(num_row_tiles, BT), LANES), dev)
+    dtype = _cuda.xy_dtype(vals)
+    _check_sbell(vals, packed, meta, step_block, K, TW, dtype)
+    _check_x2d(x2d, dtype)
+    out = _out_buffer(out, (_tiles_padded(num_row_tiles, BT), LANES), dev,
+                      dtype)
     if dev.type == "cpu":
         return sbell_spmv_tiles_plain(
             vals, packed, meta, step_block, x2d,
@@ -673,12 +679,13 @@ def sbell_spmv_tiles(vals, packed, meta, step_block, x2d, *,
         )
     _cuda.count(sbell_spmv_tiles, vals.dtype, _launch_sbell(
         vals, packed, meta, step_block, x2d[None], out[None], K, BT, TW,
-        "sbell_spmv_tiles"))
+        "sbell_spmv_tiles"), f64_apart=True)
     return out[:num_row_tiles]
 
 
-def _check_sbell(vals, packed, meta, step_block, K, TW):
-    _check_stream(vals, packed, meta, step_block, K, torch.int32)
+def _check_sbell(vals, packed, meta, step_block, K, TW,
+                 dtype=torch.float32):
+    _check_stream(vals, packed, meta, step_block, K, torch.int32, dtype)
     if TW not in (2, 4):
         raise ValueError(f"transpose_windows must be 2 or 4, got {TW}")
 
@@ -686,14 +693,17 @@ def _check_sbell(vals, packed, meta, step_block, K, TW):
 def _launch_sbell(vals, packed, meta, step_block, x3d, y3d, K, BT, TW, name):
     """Launch the paired-stream kernel over plane stacks, each group after
     a zero pass over the whole of its planes of ``y3d``; returns the
-    number of launches (one per group of planes)."""
+    number of launches (one per group of planes: up to
+    ``_cuda.RHS_GROUP``, or ``_cuda.PAIRED_F64_GROUP`` in double)."""
     fn = _cuda.entry("sbell_spmv", vals.dtype)
+    group = (_cuda.PAIRED_F64_GROUP if vals.dtype == torch.float64
+             else _cuda.RHS_GROUP)
     return _cuda.launch_groups(
         name, x3d, y3d, lambda *planes: fn(
             vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
             step_block.data_ptr(), meta.shape[0], K, BT, TW, y3d.shape[1],
             *planes,
-        ))
+        ), group)
 
 
 def group_widths(B: int) -> list[int]:
@@ -792,17 +802,18 @@ def bell2_spmm_tiles(vals, packed, meta, step_block, x3d, *,
                        tiles_per_block, contig, out, covers, planes)
 
 
-def check_interleaved(x_il, dev, planes, padded=True):
-    """An interleaved X of ``planes`` float32 planes on ``dev``, aligned
-    for the kernels' vector loads; returns ``planes``. ``padded``: its rows
-    are whole tiles of 128 (B7 reads without bounds checks; B12 takes any
-    length and reads zero past it)."""
+def check_interleaved(x_il, dev, planes, padded=True, dtype=torch.float32):
+    """An interleaved X of ``planes`` planes of ``dtype`` (float32; B12's
+    double instance reads float64) on ``dev``, aligned for the kernels'
+    vector loads; returns ``planes``. ``padded``: its rows are whole tiles
+    of 128 (B7 reads without bounds checks; B12 takes any length and reads
+    zero past it)."""
     W = sum(group_widths(planes)) if planes >= 1 else 0
     if (W == 0 or x_il.ndim != 2 or x_il.shape[0] != W
             or (padded and x_il.shape[1] % LANES)):
         raise ValueError(f"an interleaved X of {planes} planes must be "
                          f"({W}, x_rows * 128), got {tuple(x_il.shape)}")
-    _cuda.check_dtype(x_il, "x3d", torch.float32)
+    _cuda.check_dtype(x_il, "x3d", dtype)
     if x_il.device != dev or not x_il.is_contiguous():
         raise ValueError(f"an interleaved X must be contiguous on {dev}")
     if x_il.data_ptr() % 32:
@@ -899,18 +910,20 @@ def sbell_spmm_tiles(vals, packed, meta, step_block, x3d, *,
                      num_row_tiles, chunks_per_step, tiles_per_block,
                      transpose_windows, out=None):
     """Y tiles (B, T, 128) = (L + Lᵀ) X from the paired strict-lower
-    stream, for B right-hand sides: ``x3d`` (B, x_rows, 128) float32
-    planes, each contiguous; the output a contiguous (B,
-    ceil(T/BT)*BT, 128) buffer, zeroed whole in every plane, then
-    accumulated. Other operands as :func:`sbell_spmv_tiles`;
-    launches as :func:`bell2_spmm_tiles`.
+    stream, for B right-hand sides: ``x3d`` (B, x_rows, 128) planes of x's
+    type (float32; float64 for float64 values), each contiguous; the
+    output a contiguous (B, ceil(T/BT)*BT, 128) buffer, zeroed whole in
+    every plane, then accumulated. Other operands as
+    :func:`sbell_spmv_tiles`; launches as :func:`bell2_spmm_tiles`, in
+    groups of at most ``_cuda.PAIRED_F64_GROUP`` planes in double.
     """
     K, BT, TW = chunks_per_step, tiles_per_block, transpose_windows
     dev = _device_of(vals, packed, meta, step_block)
-    _check_sbell(vals, packed, meta, step_block, K, TW)
-    B = _cuda.check_planes(x3d, "x3d", dev, torch.float32)
+    dtype = _cuda.xy_dtype(vals)
+    _check_sbell(vals, packed, meta, step_block, K, TW, dtype)
+    B = _cuda.check_planes(x3d, "x3d", dev, dtype)
     out = _out_buffer(out, (B, _tiles_padded(num_row_tiles, BT), LANES),
-                      dev)
+                      dev, dtype)
     if dev.type == "cpu":
         return sbell_spmm_tiles_plain(
             vals, packed, meta, step_block, x3d,
@@ -919,16 +932,18 @@ def sbell_spmm_tiles(vals, packed, meta, step_block, x3d, *,
         )
     _cuda.count(sbell_spmm_tiles, vals.dtype, _launch_sbell(
         vals, packed, meta, step_block, x3d, out, K, BT, TW,
-        "sbell_spmm_tiles"))
+        "sbell_spmm_tiles"), f64_apart=True)
     return out[:, :num_row_tiles]
 
 
 #: launches of the CUDA kernels through these wrappers (never the twins);
 #: an SpMM stream wrapper counts one per group of planes; a stream wrapper
-#: counts the launches of its bf16 instances apart, in ``launches_bf16``
+#: counts the launches of its bf16 instances apart, in ``launches_bf16``,
+#: and the paired ones those of their double instance in ``launches_f64``
 unperm_gather_tiles.launches = 0
 unperm_gather_tiles_mm.launches = 0
 for _w in (bell2_spmv_tiles, bell2_spmv_tiles_accum, sbell_spmv_tiles,
            bell2_spmm_tiles, bell2_spmm_tiles_accum, sbell_spmm_tiles):
     _w.launches = _w.launches_bf16 = 0
+sbell_spmv_tiles.launches_f64 = sbell_spmm_tiles.launches_f64 = 0
 del _w

@@ -17,7 +17,9 @@ Ports of ``cfs_spmv_tpu/ops/sdia_kernel.py``:
 The float64 forms of B1 and B11 (``sdia_sym_tiles_df``, B13, and
 ``sdia_sym_tiles_df_mm``, B14) live in ``ops/sdia_df.py``; they share the
 checks, the launcher and the twins of this module, which work in the
-stream's type.
+stream's type. B6 and B12 take float64 values with float64 x and y
+themselves (the float64 ``DistSpDMV``'s mirrored diagonals): their
+kernel's double instance, counted in ``launches_f64``.
 
 Diagonals dense enough to store contiguously need no index data at all:
 per stored nonzero the stream moves 4 bytes (8 in float64, 2 for the
@@ -259,10 +261,11 @@ def sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store=False):
 def sdia_gen_tiles(vals, x2d, y_tiles, offsets, store=False):
     """``y_tiles += A_dia x`` for the signed-offset dense-diagonal stream.
 
-    ``vals``: (R, D, 8, 128) float32 or bfloat16; ``x2d``: (x_rows, 128)
-    float32, or x itself as an (m,) vector, read as zero outside it (``d > 0``
-    reads behind, ``d < 0`` ahead);
-    ``y_tiles``: (T, 128) float32, accumulated in place and returned;
+    ``vals``: (R, D, 8, 128) float32 or bfloat16, or float64; ``x2d``:
+    (x_rows, 128), or x itself as an (m,) vector, read as zero outside it
+    (``d > 0`` reads behind, ``d < 0`` ahead), float32 (float64 for
+    float64 values); ``y_tiles``: (T, 128) of x's type, accumulated in
+    place and returned;
     ``offsets``: (D,) int32 signed offsets (``d == 0`` allowed), on the
     same device. Contributions to rows at or past T*128 are dropped, and
     rows past R*1024 keep their value, as in the reference. ``store``
@@ -272,12 +275,12 @@ def sdia_gen_tiles(vals, x2d, y_tiles, offsets, store=False):
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     (building it on first use) or raises.
     """
-    _check(vals, x2d, y_tiles, offsets, flat_x=True)
+    _check(vals, x2d, y_tiles, offsets, _cuda.xy_dtype(vals), flat_x=True)
     if vals.device.type == "cpu":
         return sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store)
     _cuda.count(sdia_gen_tiles, vals.dtype, _launch_gen(
         vals, x2d.reshape(1, -1), y_tiles[None], offsets, "sdia_gen_tiles",
-        store))
+        store), f64_apart=True)
     return y_tiles
 
 
@@ -318,12 +321,12 @@ def _launch_gen(vals, x_il, y3d, offsets, name, store=False, slices=None):
 
 def gen_x(x, x_rows):
     """The X :func:`sdia_gen_tiles_mm` reads (with ``planes`` = B) for
-    the (m, B) float32 X of an SpMM apply: X itself, as a (B, m) view, where
-    it is an interleaved X of one group already (B of 1, 2, 4 or 8,
-    contiguous, 32-byte aligned), read in place with x_len = m; else
+    the (m, B) float32 or float64 X of an SpMM apply: X itself, as a (B, m)
+    view, where it is an interleaved X of one group already (B of 1, 2, 4
+    or 8, contiguous, 32-byte aligned), read in place with x_len = m; else
     ``bell2_kernel.interleave_x``'s copy, x_rows * 128 rows long."""
     m, B = x.shape
-    if (B in (1, 2, 4, 8) and x.dtype == torch.float32
+    if (B in (1, 2, 4, 8) and x.dtype in (torch.float32, torch.float64)
             and x.is_contiguous() and x.data_ptr() % 32 == 0):
         return x.view(B, m)
     return bk.interleave_x(x, x_rows)
@@ -344,21 +347,24 @@ def sdia_gen_tiles_mm_plain(vals, x3d, y_tiles, offsets, *, planes=None,
 def sdia_gen_tiles_mm(vals, x3d, y_tiles, offsets, *, planes=None,
                       store=False):
     """``Y_tiles += A_dia X`` for B right-hand sides: ``x3d`` (B, x_rows,
-    128) float32 planes, each contiguous (any plane stride), which the
-    wrapper interleaves for the kernel (one copy); or, given ``planes`` =
-    B, X already interleaved: :func:`bell2_kernel.interleave_x`'s copy, or
-    :func:`gen_x`'s view of an (m, B) X read in place (any row count; x is
-    zero past it). ``y_tiles`` (B, T, 128), planes each contiguous, is
-    accumulated in place (written, with ``store``) and returned. Otherwise
-    as :func:`sdia_gen_tiles`, plane by plane. A CUDA tensor launches
-    once per group of up to ``_cuda.RHS_GROUP`` planes; a CPU tensor takes
-    the plain twin."""
-    _check_vals(vals, offsets, torch.float32)
+    128) planes of x's type (float32; float64 for float64 values), each
+    contiguous (any plane stride), which the wrapper interleaves for the
+    kernel (one copy); or, given ``planes`` = B, X already interleaved:
+    :func:`bell2_kernel.interleave_x`'s copy, or :func:`gen_x`'s view of
+    an (m, B) X read in place (any row count; x is zero past it).
+    ``y_tiles`` (B, T, 128), planes each contiguous, is accumulated in
+    place (written, with ``store``) and returned. Otherwise as
+    :func:`sdia_gen_tiles`, plane by plane. A CUDA tensor launches once
+    per group of up to ``_cuda.RHS_GROUP`` planes; a CPU tensor takes the
+    plain twin."""
+    dtype = _cuda.xy_dtype(vals)
+    _check_vals(vals, offsets, dtype)
     if planes is None:
-        B = _cuda.check_planes(x3d, "x3d", vals.device, torch.float32)
+        B = _cuda.check_planes(x3d, "x3d", vals.device, dtype)
     else:
-        B = bk.check_interleaved(x3d, vals.device, planes, padded=False)
-    _cuda.check_planes(y_tiles, "y_tiles", vals.device, torch.float32, B=B)
+        B = bk.check_interleaved(x3d, vals.device, planes, padded=False,
+                                 dtype=dtype)
+    _cuda.check_planes(y_tiles, "y_tiles", vals.device, dtype, B=B)
     if vals.device.type == "cpu":
         return sdia_gen_tiles_mm_plain(vals, x3d, y_tiles, offsets,
                                        planes=planes, store=store)
@@ -366,13 +372,16 @@ def sdia_gen_tiles_mm(vals, x3d, y_tiles, offsets, *, planes=None,
         x3d = (x3d[0].reshape(1, -1) if B == 1 else
                bk.interleave_x(x3d.reshape(B, -1).T, x3d.shape[1]))
     _cuda.count(sdia_gen_tiles_mm, vals.dtype, _launch_gen(
-        vals, x3d, y_tiles, offsets, "sdia_gen_tiles_mm", store))
+        vals, x3d, y_tiles, offsets, "sdia_gen_tiles_mm", store),
+        f64_apart=True)
     return y_tiles
 
 
 #: launches of the CUDA kernels through these wrappers (never the twins):
 #: ``launches`` of the float32 instances, ``launches_bf16`` of the bf16 ones
+#: and, for the signed diagonal kernel, ``launches_f64`` of the double ones
 for _w in (sdia_sym_tiles, sdia_gen_tiles, sdia_sym_tiles_mm,
            sdia_gen_tiles_mm):
     _w.launches = _w.launches_bf16 = 0
+sdia_gen_tiles.launches_f64 = sdia_gen_tiles_mm.launches_f64 = 0
 del _w

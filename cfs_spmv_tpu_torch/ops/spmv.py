@@ -11,7 +11,14 @@ rows, 128) planes. The float64 route (``Fp64Device``, ``fp64_apply``,
 ``fp64_apply_mm``) composes the one-sided stream (or, for a peel residual
 or sparse stream, its entry list) and the symmetric diagonal stream in
 IEEE double, as the appliers inside the reference's
-``tuning/tune._tune_fp64_df`` do with double-float pairs. The device
+``tuning/tune._tune_fp64_df`` do with double-float pairs. The float32
+appliers also take float64 structs with a float64 x (the float64
+``DistSpDMV``'s shards, as the reference runs its distributed program on
+float64 arrays): the one-sided stream, its entries and the symmetric
+diagonals then run their double wrappers (``bell2_df``, ``sdia_df``), and
+the paired stream and the signed diagonals the double instances of their
+own wrappers. Only a degree-grouped stream has no float64 form there (the
+unpermute, B3/B9, is float only; no shard plan is grouped). The device
 structs are plain dataclasses of tensors on one explicit device.
 
 bfloat16 values (``values="bfloat16"``): numpy has no bfloat16 type
@@ -524,11 +531,23 @@ _STREAMS = {
 }
 
 
-def _kernels(plain: bool) -> dict:
-    """The stream functions: the CUDA kernel wrappers, or (``plain``)
-    their plain PyTorch twins on whatever device the tensors live on —
-    the baseline the kernels are timed and checked against."""
-    return {k: fns[plain] for k, fns in _STREAMS.items()}
+#: the roles whose float64 form is a wrapper of its own (``bell2_df``,
+#: ``sdia_df``): what the float32 appliers run on float64 operands
+_F64_ROLES = {"bell2": "bell2_df", "bell2_mm": "bell2_df_mm",
+              "bell2_acc": "bell2_acc_df", "bell2_acc_mm": "bell2_acc_df_mm",
+              "sdia_sym": "sdia_df", "sdia_sym_mm": "sdia_df_mm"}
+
+
+def _kernels(plain: bool, dtype=torch.float32) -> dict:
+    """The stream functions for x of ``dtype``: the CUDA kernel wrappers,
+    or (``plain``) their plain PyTorch twins on whatever device the
+    tensors live on — the baseline the kernels are timed and checked
+    against. For float64, the roles of ``_F64_ROLES`` take their double
+    wrappers."""
+    roles = {k: fns[plain] for k, fns in _STREAMS.items()}
+    if dtype == torch.float64:
+        roles.update({k: roles[v] for k, v in _F64_ROLES.items()})
+    return roles
 
 
 def _check_vector(x, mm: str):
@@ -562,7 +581,7 @@ def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     its plain twin.
     """
     _check_vector(x, "bell2_apply_mm")
-    f = _kernels(plain)
+    f = _kernels(plain, x.dtype)
     # the stream reads x padded to its tiles; the diagonals alone read x
     x2d = pad_x(x, dev.x_rows) if dev.has_work else x.contiguous()
     NT = dev.num_row_tiles
@@ -597,12 +616,14 @@ def bell2_apply_mm(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     reads that copy where there is one, else X in place where it can
     (``sdia_kernel.gen_x``); only the sparse residual's entries read X as
     padded planes (``pad_x_mm``). Returns (nrows, B), a transposed view
-    of the output planes."""
+    of the output planes. In float64 the full stream's double kernel reads
+    padded planes instead (``bell2_df.bell2_spmm_tiles_df``)."""
     B = _check_matrix(x)
-    f = _kernels(plain)
+    f64 = x.dtype == torch.float64
+    f = _kernels(plain, x.dtype)
     NT = dev.num_row_tiles
     full = dev.has_work and not (dev.sparse_stream and not dev.grouped)
-    x_il = bk.interleave_x(x, dev.x_rows) if full else None
+    x_il = bk.interleave_x(x, dev.x_rows) if full and not f64 else None
     store = not dev.has_work and dev.dia_vals is not None
     if store:
         tiles = x.new_empty((B, NT, LANES))
@@ -611,6 +632,10 @@ def bell2_apply_mm(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     elif not full:
         tiles = f["bell2_acc_mm"](dev.entries, pad_x_mm(x, dev.x_rows),
                                   x.new_zeros((B, NT, LANES)))
+    elif f64:
+        tiles = f["bell2_mm"](dev.vals, dev.packed, dev.meta, dev.step_block,
+                              pad_x_mm(x, dev.x_rows), covers=dev.covers,
+                              **dev.stream_kw())
     else:
         tiles = f["bell2_mm"](dev.vals, dev.packed, dev.meta, dev.step_block,
                               x_il, planes=B, covers=dev.covers,
@@ -640,7 +665,7 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     ``plain=True`` runs every stream through its plain twin.
     """
     _check_vector(x, "sbell_apply_mm")
-    f = _kernels(plain)
+    f = _kernels(plain, x.dtype)
     x2d = pad_x(x, dev.x_rows)
     NT = dev.num_row_tiles
     tiles = None
@@ -688,7 +713,7 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     residual and ``sdia_sym_tiles_mm``. Returns (nrows, B), a transposed
     view (or, with a paired stream, a fresh sum)."""
     B = _check_matrix(x)
-    f = _kernels(plain)
+    f = _kernels(plain, x.dtype)
     fd = dev.far
     grouped = fd is not None and fd.grouped
     sym_dia = dev.dia_vals is not None and not dev.dia_mirrored

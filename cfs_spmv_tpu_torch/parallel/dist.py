@@ -33,16 +33,36 @@ Per shard, as the reference's ``shard_fn``:
 
 ``matmat`` and a 2-D X run the same branches through the multi-RHS
 kernels. Each exchange is one small method (``_gather_x``, ``_halo_x``,
-``_ring_x``): an explicit ``tensor.to(device)`` across devices, a view
-where the mesh is one device (several shards on one card, the
-counterpart of the reference's virtual devices). On a mesh of one card an
+``_ring_x``), in one of three forms by the mesh (``parallel/mesh.py``):
+
+- one process, one device (several shards on one card, the counterpart
+  of the reference's virtual devices): views of one scatter buffer;
+- one process, several devices: explicit ``tensor.to(device)`` copies;
+- one process a shard (a process-group mesh, ``parallel/multihost.py``):
+  every rank makes the same host decisions and plans (the reference's
+  "identical plan on every host") and uploads only its own shard
+  (``shards[d]`` is None for the others). Every rank is given the global
+  x, so its x exchanges are the one-device views on its own device, and
+  the one collective is y's: an all-gather of every shard's real rows, so
+  every rank returns the whole y, as the single-process operator does.
+  (Exchanging x segments by collectives would only move rows every rank
+  already holds; an x that is not global on every rank is not ported.)
+
+On a mesh of one card (and on a process-group mesh of one card a rank) an
 apply allocates nothing whose shape depends on x and never waits for the
 card, so ``utils/timing.time_matvec`` and the solvers capture it in a
-CUDA graph.
+CUDA graph, the all-gather included.
 
-Only float32 is ported: the paired-stream kernel (B5/B10) and the signed
-diagonal kernel (B6/B12) have no double instance, so a float64
-``DistSpDMV`` raises ``NotImplementedError``.
+float64 (``dtype=np.float64``, as the reference's; its tests run it with
+x64 on): the plans are built in float64, uploaded as they are, and
+applied through the float32 appliers of ``ops/spmv.py``, which take
+float64 operands: the paired stream (B5/B10) and the mirrored diagonals
+(B6/B12) run the double instances of their kernels, the union diagonals
+the double symmetric kernel (B13/B14), the far grids the double grid
+kernel (B15/B16), and the paired residual and every ring stream its
+double entry kernel. No shard plan is degree-grouped (every one is built
+with ``allow_relax=False``, which never tries the grouping), so the
+unpermute (B3/B9), whose wrappers take float32 only, is never reached.
 """
 
 from __future__ import annotations
@@ -52,6 +72,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import native as _native
 from ..formats.bell2 import (
@@ -149,11 +170,12 @@ class DistSpDMV:
 
     Construction = preprocessing (partition + per-shard planning + upload
     to each shard's device), call = y = A @ x with the global x and the
-    global y on the mesh's first device, as the reference's functor
-    (``sparse_kernel.hpp:17-27``). ``dtype`` is the ``torch.dtype`` of x
-    and y, and ``device`` the device they live on, as a ``TunedMatrix``
-    has them, so ``utils/timing`` and the solvers take a ``DistSpDMV``
-    as they take a tuned matrix.
+    global y on the mesh's first device (on a process-group mesh: on every
+    rank, on its own device), as the reference's functor
+    (``sparse_kernel.hpp:17-27``). ``dtype`` (float32 or float64) is the
+    ``torch.dtype`` of x and y, and ``device`` the device they live on, as
+    a ``TunedMatrix`` has them, so ``utils/timing`` and the solvers take a
+    ``DistSpDMV`` as they take a tuned matrix.
     """
 
     def __init__(self, A, mesh, *, dtype=np.float32, dia_min_count=None,
@@ -180,13 +202,9 @@ class DistSpDMV:
                 "DistSpDMV requires a square matrix (row-partitioned x); "
                 f"got {csr.nrows}x{csr.ncols}"
             )
-        if np.dtype(dtype) != np.float32:
-            raise NotImplementedError(
-                f"DistSpDMV runs float32 only, got {np.dtype(dtype)}: the "
-                "paired-stream kernel (sbell_spmv_kernel, B5/B10) and the "
-                "signed diagonal kernel (sdia_gen_kernel, B6/B12) have no "
-                "double instance"
-            )
+        if np.dtype(dtype) not in (np.float32, np.float64):
+            raise TypeError(
+                f"DistSpDMV runs float32 or float64, got {np.dtype(dtype)}")
         #: halo strategy for the far stream, as the reference's:
         #: "halo" (the 2*H boundary rows of the neighbours), "gather"
         #: (the whole x), "ring" (ndev segment rotations, each consumed by
@@ -199,9 +217,13 @@ class DistSpDMV:
         self.nrows = csr.nrows
         self.ncols = csr.ncols
         self.symmetric = csr.symmetric
-        self._np_dtype = np.dtype(np.float32)
-        self.dtype = torch.float32
+        self._np_dtype = np.dtype(dtype)
+        self.dtype = (torch.float64 if self._np_dtype == np.float64
+                      else torch.float32)
         self.device = mesh.row_devices[0]
+        #: this process's shard on a process-group mesh (y is all-gathered);
+        #: None where one process drives every shard
+        self.rank = mesh.rank if mesh.group is not None else None
 
         #: locality-aware assignment (METIS analog, tuning/cluster.py):
         #: greedy tile clustering permutes rows so that the contiguous
@@ -768,10 +790,15 @@ class DistSpDMV:
     def _place(self):
         """Upload each shard's plans to its device, at the shard's own
         size; the accumulating streams (the paired residual, every ring
-        stream) as their entry lists."""
+        stream) as their entry lists. On a process-group mesh only this
+        rank's shard; the others' entries stay None."""
         offsets = getattr(self, "dia_offsets", ())
         self.shards = []
-        for dev, plan in zip(self.mesh.row_devices, self.plans):
+        for d, (dev, plan) in enumerate(zip(self.mesh.row_devices,
+                                            self.plans)):
+            if self.rank is not None and d != self.rank:
+                self.shards.append(None)
+                continue
             near = None
             if plan.paired is not None:
                 near = dataclasses.replace(
@@ -798,26 +825,35 @@ class DistSpDMV:
                 for p in (self.perm, self._iperm))
         S = self.shard_rows
         self._dst = None
-        if self.mesh.single_device and any(
+        if self._views and any(
                 nr and r0 != d * S for d, (r0, nr) in enumerate(self.real)):
-            # the scatter's target of each x row, where the segments do
-            # not lie back to back (an uneven partition; never halo's)
+            # the position of each x (and y) row in the segments laid back
+            # to back, where they do not lie so (an uneven partition; never
+            # halo's): the scatter's target, and on a process-group mesh
+            # the gathered rows of y
             self._dst = torch.cat([
                 torch.arange(nr) + d * S
                 for d, (_, nr) in enumerate(self.real)
             ]).to(self.device)
 
+    @property
+    def _views(self) -> bool:
+        """The exchanges are views of one scatter buffer: every shard on
+        one device, or a process-group mesh, where every rank holds the
+        global x on its own device."""
+        return self.mesh.single_device or self.rank is not None
+
     # --- the exchanges: each returns what shard d's stream reads, on its
-    # device; an explicit copy across devices, a view on a one-device
-    # mesh --------------------------------------------------------------
+    # device; an explicit copy across devices, a view of one buffer where
+    # every shard this process applies is on one device ------------------
     def _scatter(self, x):
         """The shards' x segments, each zero past the shard's rows (as
-        the reference's ``run`` builds them): on a one-device mesh one
-        buffer ``[H zeros | segment 0 | ... | segment P-1 | H zeros]``
+        the reference's ``run`` builds them): on one device one buffer
+        ``[H zeros | segment 0 | ... | segment P-1 | H zeros]``
         (H = ``halo_rows``), else a list of (S, ...) tensors, one on each
         shard's device."""
         S, H, P = self.shard_rows, self.halo_rows, self.ndev
-        if self.mesh.single_device:
+        if self._views:
             buf = x.new_zeros((2 * H + P * S,) + tuple(x.shape[1:]))
             if self._dst is None:  # the segments lie back to back
                 buf[H:H + self.nrows] = x
@@ -864,10 +900,23 @@ class DistSpDMV:
         seg = self._segment(segs, (d + k) % self.ndev)
         return seg.to(self.mesh.row_devices[d])
 
+    def _all_gather(self, y):
+        """The real rows of every rank's (S, ...) ``y``, in row order: one
+        all-gather over the process group."""
+        out = y.new_empty((self.ndev * y.shape[0],) + tuple(y.shape[1:]))
+        # torch 2.11 has only all_gather_into_tensor, which later versions
+        # deprecate for all_gather_single
+        gather = getattr(dist, "all_gather_single",
+                         dist.all_gather_into_tensor)
+        gather(out, y.contiguous(), group=self.mesh.group)
+        if self._dst is None:
+            return out[:self.nrows]
+        return torch.index_select(out, 0, self._dst)
+
     # ------------------------------------------------------------------
     def _shard_apply(self, sh, d, x, segs, plain):
         """Shard d's y (S,) from the global x and the segments."""
-        f = spmv_ops._kernels(plain)
+        f = spmv_ops._kernels(plain, self.dtype)
         x_loc = self._segment(segs, d)
         y = (None if sh.near is None
              else spmv_ops.sbell_apply(sh.near, x_loc, plain=plain))
@@ -891,7 +940,7 @@ class DistSpDMV:
 
     def _shard_apply_mm(self, sh, d, x, segs, plain):
         """Shard d's Y (S, B), as :meth:`_shard_apply` over B columns."""
-        f = spmv_ops._kernels(plain)
+        f = spmv_ops._kernels(plain, self.dtype)
         x_loc = self._segment(segs, d)
         B = x.shape[1]
         y = (None if sh.near is None
@@ -915,9 +964,14 @@ class DistSpDMV:
     def _run(self, shards, x, plain=False):
         """The global y (n, ...) on the mesh's first device from the
         global (internal-space) x there: scatter, every shard's apply,
-        and each shard's rows of y written in order."""
+        and each shard's rows of y written in order (on a process-group
+        mesh: this rank's shard, then an all-gather of every shard's
+        rows)."""
         segs = self._scatter(x)
         apply = self._shard_apply if x.ndim == 1 else self._shard_apply_mm
+        if self.rank is not None:
+            return self._all_gather(
+                apply(shards[self.rank], self.rank, x, segs, plain))
         return torch.cat([
             apply(sh, d, x, segs, plain)[:nr].to(self.device)
             for d, (sh, (_, nr)) in enumerate(zip(shards, self.real))

@@ -133,7 +133,15 @@ Phases (each prints its wall time):
    against its twin (which computes on the values widened to float32) on
    the bf16 runs' plan arrays and on the replans over 8-tile blocks with
    absent rows cast to bf16, at B = 11 and 8 over planes, into
-   NaN-poisoned or strided outputs as above;
+   NaN-poisoned or strided outputs as above; then the double instances of
+   the paired and signed diagonal kernels (``<name>_f64``, the float64
+   ``DistSpDMV``'s) on shard 1 of phase 8's float64 D5 (paired) and D1
+   (mirrored) operators, each against its float64 twin: B5 into
+   NaN-poisoned tiles and a zero x into NaN-poisoned strided planes, B10 at
+   B = 2, 4, 8 and 11 (groups of at most 4 planes), B6 adding and storing,
+   B12 at B = 1, 2, 4, 8, 11 from X in place and copied, adding and
+   storing; their library calls (the float64 sparse CSR product of the
+   same stream, ``paired_csr`` and ``dia_csr``) held to the twin first;
 5. times per call (CUDA events around 20 back-to-back calls, median of
    5) of each kernel and twin (multi-RHS ones at B = 8), and of the
    kernel path and the plain path of every run, SpMV and SpMM(8) (the
@@ -201,21 +209,35 @@ Phases (each prints its wall time):
    ``audikw_proxy()`` at P = 4 with auto (halo), gather and ring;
    ``general_asym()`` at P = 4; ``stencil27()`` at P = 4 with ring; and
    ``near_band_paired()`` at P = 4 with ``CFS_PAIRED=force`` (the default
-   gate pairs no shard of the others); SpMM(8) on five of them. Each
+   gate pairs no shard of the others); in float64 (``dtype=np.float64``)
+   ``cant_proxy()`` at P = 4, plain and mirrored, ``near_band_paired()``
+   forced and ``general_asym()``, at P = 4; SpMM(8) on nine of them. Each
    apply launches exactly what its shards' device structs predict
    (``predict_dist``: an empty ring stream launches nothing; an SpMM
    apply no SpMV kernel), agrees with the float64 oracle, with its plain
-   twins' path and with the single-device apply of the same matrix, and
-   prints its comm, halo rows, graphed, eager and device time beside the
-   single-device apply's; then S1 ``cg`` (100 iterations) graphed over
-   the 4-shard ``cant_proxy()`` operator against its eager run.
+   twins' path and with the single-device apply of the same matrix and
+   type (at the type's gate), and prints its comm, halo rows, graphed,
+   eager and device time beside the single-device apply's; then S1 ``cg``
+   (100 iterations) graphed over the 4-shard ``cant_proxy()`` operator
+   against its eager run;
+9. one NCCL rank (``NCCL_CASES``), in a child process (``chip_smoke.py
+   --nccl-rank``; the card's machine has one card, and NCCL takes one rank
+   a card): ``parallel/multihost.initialize`` over ``tcp://localhost``,
+   ``DistSpDMV`` over the process-group mesh of ``make_mesh()`` (x read
+   through the one-device views, y all-gathered) in float32 and float64,
+   SpMV and SpMM(8), launches against the prediction, held to the
+   single-process operator on card 0 and to the oracle, timed graphed
+   (the all-gather captured in the CUDA graph) and by device time beside
+   it.
 
 It needs one card and imports nothing of JAX. Any failure raises, and the
 exit code is then nonzero; without CUDA it exits 1 at once. The last two
 lines of standard output are one JSON object per line: the kernels (their
 ``launches`` summed over the main paths of phase 3, the graphed solves of
-phase 7 and the distributed applies and solve of phase 8; the bf16
-instances as ``<name>_bf16``), then ``{"ok": true, "device": {...}}``.
+phase 7, the distributed applies and solve of phase 8 and phase 9's
+rank; the bf16 instances as ``<name>_bf16``, the double instances of the
+paired and signed diagonal kernels as ``<name>_f64``), then ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -289,6 +311,17 @@ BF16_RUNS = {
     "flagship_csr_bf16": ("flagship_csr", "auto"),
     "near_band_paired_bf16": ("near_band_paired", "auto"),
 }
+#: the kernels whose wrappers also take float64 values with float64 x and
+#: y (the float64 DistSpDMV's paired shards and mirrored diagonals, phase
+#: 8): each counts its double instance apart (``launches_f64``), which the
+#: ``kernels`` line lists as ``<name>_f64``
+F64_KERNELS = ("sbell_spmv", "sbell_spmm", "sdia_gen", "sdia_gen_mm")
+#: the kernel a float64 distributed apply runs in place of each float32
+#: one (``ops/spmv._F64_ROLES``; the paired and signed diagonal wrappers
+#: run their double instances)
+F64_OF = {"sdia_sym": "sdia_sym_df", "bell2_spmv": "bell2_spmv_df",
+          "bell2_spmv_accum": "bell2_spmv_accum_df",
+          "sbell_spmv": "sbell_spmv_f64", "sdia_gen": "sdia_gen_f64"}
 #: the multi-RHS form of each kernel: an SpMM apply runs the same
 #: branches as the SpMV apply of its plan, through these
 MM_OF = {
@@ -305,6 +338,8 @@ MM_OF = {
         ("sdia_sym", "sdia_sym_mm"), ("bell2_spmv", "bell2_spmm"),
         ("bell2_spmv_accum", "bell2_spmm_accum"),
         ("sbell_spmv", "sbell_spmm"), ("sdia_gen", "sdia_gen_mm"))},
+    "sbell_spmv_f64": "sbell_spmm_f64",
+    "sdia_gen_f64": "sdia_gen_mm_f64",
 }
 #: kernels each main-path run's SpMM(8) apply launches (no SpMV kernel)
 EXPECTED_MM = {run: {MM_OF[k] for k in ks} for run, ks in EXPECTED.items()}
@@ -331,24 +366,25 @@ REPLACES = {
     "bell2_spmm_accum_df": "cfs_spmv_tpu/ops/bell2_df.py:322",
 }
 REPLACES.update({f"{k}_bf16": REPLACES[k] for k in BF16_KERNELS})
+REPLACES.update({f"{k}_f64": REPLACES[k] for k in F64_KERNELS})
 
 
-class _Bf16Count:
-    """The count of a wrapper's bf16 instances (its ``launches_bf16``),
-    read and set as ``launches``, as the phases read and zero every
-    wrapper's count."""
+class _Count:
+    """The count of one instance type of a wrapper (its ``launches_bf16``
+    or ``launches_f64``), read and set as ``launches``, as the phases read
+    and zero every wrapper's count."""
 
-    def __init__(self, wrapper):
-        self.wrapper = wrapper
-        self.__name__ = f"{wrapper.__name__} (bf16)"
+    def __init__(self, wrapper, tag):
+        self.wrapper, self.attr = wrapper, f"launches_{tag}"
+        self.__name__ = f"{wrapper.__name__} ({tag})"
 
     @property
     def launches(self):
-        return self.wrapper.launches_bf16
+        return getattr(self.wrapper, self.attr)
 
     @launches.setter
     def launches(self, n):
-        self.wrapper.launches_bf16 = n
+        setattr(self.wrapper, self.attr, n)
 #: the card's peaks for the bounds (NVIDIA H100 SXM data sheet): device
 #: memory bytes per second, and multiply-adds counted as two operations
 #: per second outside the tensor cores
@@ -1691,6 +1727,54 @@ def stream_csr(torch, d):
     return coo.to_sparse_csr()
 
 
+def paired_csr(torch, dp):
+    """The paired stream of ``dp`` (an ``SBellDevice``) as a
+    ``torch.sparse_csr_tensor`` of shape (padded tiles * 128, x rows *
+    128), for the library yardstick: each stored strict-lower value at
+    (r, c), decoded from its row side as the plain twin decodes it, and
+    its mirror at (c, r), so its product with the flat padded x is what
+    ``sbell_spmv`` computes into its tiles. Built once, outside any
+    timing."""
+    C = dp.meta.shape[0]
+    K, BT, TW = dp.chunks_per_step, dp.tiles_per_block, dp.transpose_windows
+    pk = dp.packed.reshape(C, 8, 128).long()
+    q = pk & 0x7F
+    r2 = torch.gather((pk >> 7) & 7, 2, q)
+    meta = dp.meta.long()
+    cidx = torch.arange(C, device=meta.device)[:, None, None]
+    win = meta[:, 2:2 + TW].reshape(-1)[cidx * TW + r2.clamp(max=TW - 1)]
+    tgt = dp.step_block.long().repeat_interleave(K) * BT + meta[:, 0]
+    lane = torch.arange(128, device=meta.device)
+    rows = (tgt[:, None, None] * 128 + lane).expand(C, 8, 128)
+    cols = win * 128 + q
+    vals = dp.vals.reshape(C, 8, 128)
+    live = (vals != 0) & (r2 < TW)
+    r, c, v = rows[live], cols[live], vals[live]
+    TP = -(-dp.num_row_tiles // BT) * BT
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([r, c]), torch.cat([c, r])]),
+        torch.cat([v, v]), (TP * 128, dp.x_rows * 128)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def dia_csr(torch, vals, offsets, nrows, ncols):
+    """The signed diagonals ``vals`` (R, D, 8, 128) at ``offsets`` as a
+    ``torch.sparse_csr_tensor`` of shape (nrows, ncols), for the library
+    yardstick: row g holds diagonal j's value at column g - offsets[j]
+    where that column lies in x, which is what ``sdia_gen`` adds into its
+    rows. Built once, outside any timing."""
+    D = vals.shape[1]
+    N = min(vals.shape[0] * 1024, nrows)
+    vd = vals.permute(1, 0, 2, 3).reshape(D, -1)[:, :N]
+    rows = torch.arange(N, device=vals.device).expand(D, N)
+    cols = rows - offsets.long()[:, None]
+    live = (vd != 0) & (cols >= 0) & (cols < ncols)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows[live], cols[live]]), vd[live],
+        (nrows, ncols)).coalesce()
+    return coo.to_sparse_csr()
+
+
 def grid_on(torch, plan, device):
     """The chunk grid of a host ``Bell2Plan`` on ``device``, with the
     geometry fields :func:`stream_csr` and the chunk-grid twins read (an
@@ -2031,7 +2115,8 @@ def solver_phase(torch, card, wrappers, launches, lap, gasym, cant):
 
 #: phase 8's cases (``parallel/dist.DistSpDMV`` on ``make_mesh(P,
 #: device="cuda:0")``): name -> (matrix, P, DistSpDMV keywords,
-#: environment, the phase 3 run of the same matrix, SpMM(8) too)
+#: environment, the single-device run of the same matrix and type (phase
+#: 3's, or built in phase 8), SpMM(8) too)
 DIST_CASES = {
     "D1 cant_proxy P=1": ("cant", 1, {}, {}, "cant_proxy", False),
     "D1 cant_proxy P=2": ("cant", 2, {}, {}, "cant_proxy", False),
@@ -2054,6 +2139,21 @@ DIST_CASES = {
     # B10) runs where pairing is forced, as phase 3's run of the matrix
     "D5 near_band_paired P=4 paired": (
         "nbp", 4, {}, {"CFS_PAIRED": "force"}, "near_band_paired", True),
+    # float64 (``dtype=np.float64``): the union diagonals in double
+    # (B13/B14) and the far grids (B15/B16); mirrored: the signed
+    # diagonals' double instance (B6/B12); forced pairing: the paired
+    # stream's (B5/B10), its residual as double entries; general_asym: the
+    # far grids alone
+    "D1 cant_proxy P=4 float64": (
+        "cant", 4, dict(dtype=np.float64), {}, "cant_proxy_f64", True),
+    "D1 cant_proxy P=4 mirrored float64": (
+        "cant", 4, dict(dtype=np.float64),
+        {"CFS_DIST_SDIA_ROWS_MAX": "8192"}, "cant_proxy_f64", True),
+    "D5 near_band_paired P=4 paired float64": (
+        "nbp", 4, dict(dtype=np.float64), {"CFS_PAIRED": "force"},
+        "near_band_paired_f64", True),
+    "D3 general_asym P=4 float64": (
+        "gasym", 4, dict(dtype=np.float64), {}, "general_asym_f64", True),
 }
 #: graphed cg iterations over the 4-shard operator of D1's matrix
 DIST_CG_ITERS = 100
@@ -2063,19 +2163,28 @@ def predict_dist(dsp, planes=0) -> dict:
     """{kernel: launches} an apply of the distributed operator ``dsp``
     makes, read off its shards' device structs (the branches of
     ``parallel/dist.DistSpDMV._shard_apply`` and, for the near part,
-    ``ops/spmv.sbell_apply``); ``planes`` = B > 0 for the SpMM apply,
-    whose stream kernels launch once per group of 8 planes."""
+    ``ops/spmv.sbell_apply``; a float64 operator runs ``F64_OF``'s
+    kernels); ``planes`` = B > 0 for the SpMM apply, whose stream kernels
+    launch once per group of 8 planes (4 for the double paired kernel). A
+    process-group operator launches its own shard's only."""
+    import torch
+
     from cfs_spmv_tpu_torch.ops import _cuda
 
     mm = planes > 0
-    each = -(-planes // _cuda.RHS_GROUP) if mm else 1
+    f64 = dsp.dtype == torch.float64
     out = {}
 
     def add(name):
+        name = F64_OF[name] if f64 else name
+        group = (_cuda.PAIRED_F64_GROUP if name == "sbell_spmv_f64"
+                 else _cuda.RHS_GROUP)
         name = MM_OF[name] if mm else name
-        out[name] = out.get(name, 0) + each
+        out[name] = out.get(name, 0) + (-(-planes // group) if mm else 1)
 
     for sh in dsp.shards:
+        if sh is None:
+            continue
         near = sh.near
         if near is not None:
             if near.has_paired:
@@ -2107,14 +2216,134 @@ def _env(values):
                 os.environ[k] = v
 
 
+#: phase 9's cases: one NCCL rank (the card's machine has one card, and
+#: NCCL takes one rank a card) applies ``DistSpDMV`` over the process-group
+#: mesh of ``make_mesh()`` after ``multihost.initialize``, beside the
+#: single-process operator on card 0: name -> (matrix, keywords)
+NCCL_CASES = {
+    "cant_proxy float32": ("cant", {}),
+    "cant_proxy float64": ("cant", dict(dtype=np.float64)),
+    "cant_proxy float32 ring": ("cant", dict(comm="ring")),
+    "general_asym float64": ("gasym", dict(dtype=np.float64)),
+}
+#: seconds phase 9's rank may take
+NCCL_TIMEOUT = 600
+
+
+def nccl_rank(out_path) -> int:
+    """Phase 9's rank (``chip_smoke.py --nccl-rank <out>``): joins a NCCL
+    process group of one rank (``multihost.initialize`` with an explicit
+    ``tcp://localhost`` address), applies each ``NCCL_CASES`` operator
+    over ``make_mesh()`` (launches counted against ``predict_dist``) and
+    the single-process operator on card 0 to one x and to X of ``RHS``
+    columns, holds the two to each other (``_agree``) and the SpMV to the
+    float64 oracle at the type's gate, times both graphed
+    (``time_matvec``: the all-gather captured in the graph) and by
+    device time, prints a line each, and writes its launch counts to
+    ``out_path``."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from cfs_spmv_tpu_torch.parallel import multihost
+    from cfs_spmv_tpu_torch.parallel.dist import DistSpDMV
+    from cfs_spmv_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from cfs_spmv_tpu_torch.utils.platform import allclose_spmv
+    from cfs_spmv_tpu_torch.utils.proxies import cant_proxy, general_asym
+    from cfs_spmv_tpu_torch.utils.timing import time_matvec
+
+    card = _card()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(init_method=f"tcp://localhost:{port}", rank=0,
+                         world_size=1)
+    mesh = make_mesh()
+    dev = mesh.devices[0]
+    print(f"nccl rank: backend {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}, mesh {mesh.shape} on {dev}, rank "
+          f"{mesh.rank}", flush=True)
+    if mesh.group is None or mesh.single_device or \
+            dist.get_backend() != "nccl":
+        raise AssertionError("make_mesh() after initialize() is not a NCCL "
+                             "process-group mesh")
+    wrappers = _wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    mats = {"cant": cant_proxy(), "gasym": general_asym()}
+    for name, (mat, kw) in NCCL_CASES.items():
+        csr = mats[mat]
+        dt = np.dtype(kw.get("dtype", np.float32))
+        grp = DistSpDMV(csr, mesh, **kw)
+        one = DistSpDMV(csr, Mesh((dev,)), **kw)
+        rng = np.random.default_rng(1)
+        x = rng.uniform(1.0, 2.0, csr.ncols).astype(dt)
+        X = rng.uniform(1.0, 2.0, (csr.ncols, RHS)).astype(dt)
+        for what, arg, B in (("SpMV", x, 0), (f"SpMM({RHS})", X, RHS)):
+            at = torch.as_tensor(arg, device=dev)
+            for w in wrappers.values():
+                w.launches = 0
+            y = grp(at)
+            torch.cuda.synchronize()
+            counts = {k: w.launches for k, w in wrappers.items()
+                      if w.launches}
+            for k, c in counts.items():
+                launches[k] += c
+            want = predict_dist(grp, B)
+            y1 = one(at)
+            xd = arg.astype(np.float64)
+            scale = (np.stack([csr.spmv_host(xd[:, b], absolute=True)
+                               for b in range(B)], 1) if B
+                     else csr.spmv_host(xd, absolute=True))
+            npr = grp.nnz_full / csr.nrows
+            err = _agree(y, y1, torch.as_tensor(scale), npr,
+                         f"nccl {name} {what}")
+            ok = B or allclose_spmv(y.cpu().numpy(), csr.spmv_host(xd), dt,
+                                    nnz_per_row=npr, scale=scale)
+            iters = GRAPH_ITERS // 4 if B else GRAPH_ITERS
+            t_g = time_matvec(grp, at, iters=iters) * 1e3
+            t_1 = time_matvec(one, at, iters=iters) * 1e3
+            d_g, by = _device_ms(torch, lambda: grp(at))
+            d_1, _ = _device_ms(torch, lambda: one(at))
+            print(f"nccl {name} {what}: comm {grp.comm}, shard rows "
+                  f"{grp.shard_rows}; predicted {want} launched {counts}; "
+                  f"against the single-process operator max_abs_err {err}, "
+                  f"bit-identical {bool(torch.equal(y, y1))}"
+                  + ("" if B else f"; oracle_ok {ok}")
+                  + f"; per apply graphed {t_g:.4f} ms (single process "
+                  f"{t_1:.4f}), device {_ms(d_g)} ms "
+                  f"({_fmt_device(d_g, by)}; single process {_ms(d_1)}) "
+                  f"({card})", flush=True)
+            if counts != want or not ok:
+                raise AssertionError(f"nccl {name} {what}: launched "
+                                     f"{counts}, predicted {want}, oracle "
+                                     f"{ok}")
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump({"launches": launches}, f)
+    return 0
+
+
+def _single_run(csr, dtype):
+    """(SparseMatrix tuned on the card in ``dtype``, x) of a single-device
+    run phase 3 does not make, as phase 3 makes them."""
+    from cfs_spmv_tpu_torch import Format, SparseMatrix, SpDMV, Tuning
+
+    A = SparseMatrix.create(csr, Format.SSS if csr.symmetric else Format.CSR)
+    SpDMV(A, Tuning.AGGRESSIVE, dtype=dtype)
+    x = np.random.default_rng(1).uniform(1.0, 2.0, csr.ncols).astype(dtype)
+    return A, x
+
+
 def dist_phase(torch, card, counted, oracle_ok, mats, runs, wrappers,
-               launches):
+               launches, prebuilt):
     """Phase 8: ``DistSpDMV`` on P shards of card 0 (``DIST_CASES``), each
     apply (SpMV, and SpMM(8) where the case says) counted against its
-    shards' prediction and held to the float64 oracle, to its plain
-    twins' path and (P = 1) to the single-device apply; its graphed and
-    device time per apply beside the single-device apply's; then S1 cg
-    graphed over D1's 4-shard operator against its eager run."""
+    shards' prediction and held to the float64 oracle at its type's gate,
+    to its plain twins' path and to the single-device apply of its type;
+    its graphed and device time per apply beside the single-device
+    apply's; then S1 cg graphed over D1's 4-shard operator against its
+    eager run. ``prebuilt``: operators phase 4 built, by case."""
     from cfs_spmv_tpu_torch.models import solvers
     from cfs_spmv_tpu_torch.parallel.dist import DistSpDMV
     from cfs_spmv_tpu_torch.parallel.mesh import make_mesh
@@ -2124,18 +2353,23 @@ def dist_phase(torch, card, counted, oracle_ok, mats, runs, wrappers,
     ops4 = None
     for name, (mat, P, kw, env, run, with_mm) in DIST_CASES.items():
         csr = mats[mat]
+        dt = np.dtype(kw.get("dtype", np.float32))
+        if run not in runs:
+            runs[run] = _single_run(csr, dt)
         A1, x = runs[run]
         t0 = time.perf_counter()
-        with _env(env):
-            dsp = DistSpDMV(csr, make_mesh(P, device="cuda:0"), **kw)
+        if name in prebuilt:
+            dsp = prebuilt[name]
+        else:
+            with _env(env):
+                dsp = DistSpDMV(csr, make_mesh(P, device="cuda:0"), **kw)
         t_plan = time.perf_counter() - t0
         xt = torch.as_tensor(x, device=dev)
         want = predict_dist(dsp)
         y, counts = counted(lambda: dsp(xt))
         got = {k: c for k, c in counts.items() if c}
         ok, err, scaled = oracle_ok(y.cpu().numpy(), csr,
-                                    x.astype(np.float64), dsp.nnz_full,
-                                    np.float32)
+                                    x.astype(np.float64), dsp.nnz_full, dt)
         fn, shards = dsp.pure_apply()
         y_plain = fn(shards, xt, plain=True)
         scale = torch.as_tensor(csr.spmv_host(x.astype(np.float64),
@@ -2151,13 +2385,15 @@ def dist_phase(torch, card, counted, oracle_ok, mats, runs, wrappers,
         t1_g = time_matvec(A1.tuned, xt, iters=GRAPH_ITERS) * 1e3
         d1_ms, _ = _device_ms(torch, lambda: A1.tuned.matvec(xt))
         print(
-            f"dist {name}: n={csr.nrows} nnz_full={dsp.nnz_full} comm="
-            f"{dsp.comm} halo_rows={dsp.halo_rows} shard_rows="
+            f"dist {name}: {dt.name} n={csr.nrows} nnz_full={dsp.nnz_full} "
+            f"comm={dsp.comm} halo_rows={dsp.halo_rows} shard_rows="
             f"{dsp.shard_rows} BT={dsp.BT} K={dsp.K} real={dsp.real} "
             f"dia={len(getattr(dsp, 'dia_offsets', ()))} "
             f"mirror={getattr(dsp, 'dia_mirror', False)} far_fraction="
-            f"{dsp.far_fraction:.4f}; planned and uploaded in {t_plan:.2f} "
-            f"s; predicted {want} launched {got}; max_abs_err={err} "
+            f"{dsp.far_fraction:.4f}; "
+            + ("planned and uploaded in phase 4" if name in prebuilt else
+               f"planned and uploaded in {t_plan:.2f} s")
+            + f"; predicted {want} launched {got}; max_abs_err={err} "
             f"max_scaled_err={scaled} oracle_ok={ok}; against the twins' "
             f"path {err_plain}, against the single-device apply {err_one}; "
             f"per apply graphed {t_g:.4f} ms, eager {t_e:.4f} ms, device "
@@ -2171,7 +2407,7 @@ def dist_phase(torch, card, counted, oracle_ok, mats, runs, wrappers,
             raise AssertionError(f"{name}: disagrees with the oracle")
         if with_mm:
             X = np.random.default_rng(2).uniform(
-                1.0, 2.0, (csr.ncols, RHS)).astype(np.float32)
+                1.0, 2.0, (csr.ncols, RHS)).astype(dt)
             Xt = torch.as_tensor(X, device=dev)
             want_mm = predict_dist(dsp, RHS)
             Y, counts = counted(lambda: dsp(Xt))
@@ -2180,7 +2416,7 @@ def dist_phase(torch, card, counted, oracle_ok, mats, runs, wrappers,
             for b in range(RHS):
                 ok_b, _, s_b = oracle_ok(
                     Y[:, b].cpu().numpy(), csr, X[:, b].astype(np.float64),
-                    dsp.nnz_full, np.float32)
+                    dsp.nnz_full, dt)
                 if not ok_b:
                     raise AssertionError(f"{name} SpMM: column {b} "
                                          "disagrees with the oracle")
@@ -2237,6 +2473,41 @@ def dist_phase(torch, card, counted, oracle_ok, mats, runs, wrappers,
                              "eager run, or its residual did not fall")
 
 
+def _wrappers() -> dict:
+    """{kernel: its wrapper's count}: every wrapper of the port, and the
+    bf16 and float64 instances counted apart."""
+    from cfs_spmv_tpu_torch.ops import bell2_df as bdf
+    from cfs_spmv_tpu_torch.ops import bell2_kernel as bk
+    from cfs_spmv_tpu_torch.ops import sdia_df as sdf
+    from cfs_spmv_tpu_torch.ops import sdia_kernel as sk
+
+    wrappers = {
+        "sdia_sym": sk.sdia_sym_tiles,
+        "bell2_spmv": bk.bell2_spmv_tiles,
+        "bell2_spmv_accum": bk.bell2_spmv_tiles_accum,
+        "unperm_gather": bk.unperm_gather_tiles,
+        "sbell_spmv": bk.sbell_spmv_tiles,
+        "sdia_gen": sk.sdia_gen_tiles,
+        "sdia_sym_mm": sk.sdia_sym_tiles_mm,
+        "bell2_spmm": bk.bell2_spmm_tiles,
+        "bell2_spmm_accum": bk.bell2_spmm_tiles_accum,
+        "unperm_gather_mm": bk.unperm_gather_tiles_mm,
+        "sbell_spmm": bk.sbell_spmm_tiles,
+        "sdia_gen_mm": sk.sdia_gen_tiles_mm,
+        "sdia_sym_df": sdf.sdia_sym_tiles_df,
+        "sdia_sym_df_mm": sdf.sdia_sym_tiles_df_mm,
+        "bell2_spmv_df": bdf.bell2_spmv_tiles_df,
+        "bell2_spmm_df": bdf.bell2_spmm_tiles_df,
+        "bell2_spmv_accum_df": bdf.bell2_spmv_tiles_accum_df,
+        "bell2_spmm_accum_df": bdf.bell2_spmm_tiles_accum_df,
+    }
+    wrappers.update({f"{k}_bf16": _Count(wrappers[k], "bf16")
+                     for k in BF16_KERNELS})
+    wrappers.update({f"{k}_f64": _Count(wrappers[k], "f64")
+                     for k in F64_KERNELS})
+    return wrappers
+
+
 def main() -> int:
     import torch
 
@@ -2272,28 +2543,7 @@ def main() -> int:
         stencil27,
     )
 
-    wrappers = {
-        "sdia_sym": sk.sdia_sym_tiles,
-        "bell2_spmv": bk.bell2_spmv_tiles,
-        "bell2_spmv_accum": bk.bell2_spmv_tiles_accum,
-        "unperm_gather": bk.unperm_gather_tiles,
-        "sbell_spmv": bk.sbell_spmv_tiles,
-        "sdia_gen": sk.sdia_gen_tiles,
-        "sdia_sym_mm": sk.sdia_sym_tiles_mm,
-        "bell2_spmm": bk.bell2_spmm_tiles,
-        "bell2_spmm_accum": bk.bell2_spmm_tiles_accum,
-        "unperm_gather_mm": bk.unperm_gather_tiles_mm,
-        "sbell_spmm": bk.sbell_spmm_tiles,
-        "sdia_gen_mm": sk.sdia_gen_tiles_mm,
-        "sdia_sym_df": sdf.sdia_sym_tiles_df,
-        "sdia_sym_df_mm": sdf.sdia_sym_tiles_df_mm,
-        "bell2_spmv_df": bdf.bell2_spmv_tiles_df,
-        "bell2_spmm_df": bdf.bell2_spmm_tiles_df,
-        "bell2_spmv_accum_df": bdf.bell2_spmv_tiles_accum_df,
-        "bell2_spmm_accum_df": bdf.bell2_spmm_tiles_accum_df,
-    }
-    wrappers.update({f"{k}_bf16": _Bf16Count(wrappers[k])
-                     for k in BF16_KERNELS})
+    wrappers = _wrappers()
     t_start = time.perf_counter()
     phase_t = [time.perf_counter()]
 
@@ -2606,7 +2856,9 @@ def main() -> int:
                 f"{sorted(EXPECTED_MM[name])}")
         bruns[name] = (A, x, A32)
     print(f"launch counts of the main paths: {launches}", flush=True)
-    if not all(launches.values()):
+    # the double instances of the paired and signed diagonal kernels run on
+    # the float64 distributed paths of phase 8, checked after it
+    if not all(c for k, c in launches.items() if not k.endswith("_f64")):
         raise AssertionError("a kernel of the paths was never launched")
     # the plain ELL+COO float64 path, asked for by name: no kernel moves
     old_path, config.fp64_path = config.fp64_path, "xla"
@@ -3317,16 +3569,18 @@ def main() -> int:
         """Chunks a CTA walks on ``dp``'s stream for a group of
         ``planes_`` planes, as the launcher chooses it."""
         return _cuda.lib().cfs_sbell_chunks_per_cta(
-            dp.meta.shape[0], dp.transpose_windows, planes_)
+            dp.meta.shape[0], dp.transpose_windows, planes_,
+            int(dp.vals.dtype == torch.float64))
 
     def paired_zero_check(dp, on):
         """The whole of every output plane is zeroed, and nothing past it
         is written: a zero x into NaN-poisoned planes at a plane stride
         past the plane, for one group of planes and for two."""
         TP, _ = paired_geometry(dp)
+        dt = _cuda.xy_dtype(dp.vals)
         for B in (1, 11):
-            x3 = torch.zeros((B, dp.x_rows, 128), device=dev)
-            wide = poisoned((B, TP + 3, 128))
+            x3 = torch.zeros((B, dp.x_rows, 128), device=dev, dtype=dt)
+            wide = poisoned((B, TP + 3, 128), dt)
             bk._launch_sbell(*paired_stream(dp), x3, wide[:, :TP],
                              dp.chunks_per_step, dp.tiles_per_block,
                              dp.transpose_windows, "sbell zero check")
@@ -4688,11 +4942,188 @@ def main() -> int:
                                         store=True),
         plain=lambda: sk.sdia_gen_tiles_mm_plain(vals, xg8, Y8, offs,
                                                  planes=RHS, store=True))
+    # the double instances of the paired and signed diagonal kernels (B5/B10
+    # and B6/B12 in float64), which the float64 DistSpDMV runs (phase 8),
+    # on the plans phase 8 applies: shard 1 of D5's float64 operator
+    # (near_band_paired() under CFS_PAIRED=force, P = 4) and of D1's
+    # mirrored float64 operator (cant_proxy(), CFS_DIST_SDIA_ROWS_MAX=8192,
+    # P = 4), each against its float64 twin (``F64_TWIN_TOL``): B5 into
+    # NaN-poisoned tiles, and a zero x at B = 1 and 11 into NaN-poisoned
+    # strided planes; B10 at B = 2, 4, 11 and 8 (one to three groups of at
+    # most 4 planes) into NaN-poisoned planes; B6 adding onto a nonzero y,
+    # and storing from x itself into NaN-poisoned tiles whose rows past
+    # the value blocks must read +0; B12 at B = 1, 2, 4, 8, 11 from X in
+    # place and copied, adding and storing into strided planes. The
+    # library call is the float64 sparse CSR product of the same stream
+    # (``paired_csr``, ``dia_csr``), first held to the twin.
+    def double_instances():
+        """The comparisons above; returns the float64 operators (their own
+        scope: the kernel rows' closures of this phase read main's
+        names when phase 5 calls them)."""
+        from cfs_spmv_tpu_torch.parallel.dist import DistSpDMV
+        from cfs_spmv_tpu_torch.parallel.mesh import make_mesh
+
+        f64 = torch.float64
+        t0 = time.perf_counter()
+        dist64 = {}  # the float64 operators, applied again in phase 8
+        for case, csr in (("D5 near_band_paired P=4 paired float64", nbp),
+                          ("D1 cant_proxy P=4 mirrored float64", cant)):
+            _, P, kw, env, _, _ = DIST_CASES[case]
+            with _env(env):
+                dist64[case] = DistSpDMV(csr, make_mesh(P, device="cuda:0"),
+                                         **kw)
+        print(f"the float64 operators of D5 (paired) and D1 (mirrored) "
+              f"planned and uploaded in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        dp64 = dist64["D5 near_band_paired P=4 paired float64"].shards[1].near
+        if not (dp64.has_paired and dp64.vals.dtype == f64):
+            raise AssertionError("D5's float64 shard 1 has no float64 paired "
+                                 "stream")
+        on_p = (f"D5 float64 shard 1 TW={dp64.transpose_windows}, "
+                f"{dp64.meta.shape[0]} chunks")
+        TP64, kw_p64 = paired_geometry(dp64)
+        x64 = torch.rand(dp64.nrows, generator=g, dtype=f64).to(dev)
+        pargs64 = (*paired_stream(dp64), ops.pad_x(x64, dp64.x_rows))
+        yk = bk.sbell_spmv_tiles(*pargs64, out=poisoned((TP64, 128), f64),
+                                 **kw_p64)
+        yp = bk.sbell_spmv_tiles_plain(*pargs64, **kw_p64)
+        ys = bk.sbell_spmv_tiles_plain(dp64.vals.abs(), *pargs64[1:4],
+                                       pargs64[4].abs(), **kw_p64)
+        npr_p = 2 * nnz_of(dp64.vals) / dp64.nrows
+        e5 = _agree(yk, yp, ys, npr_p, f"sbell_spmv f64 on {on_p}")
+        paired_zero_check(dp64, on_p)
+        S_p64 = paired_csr(torch, dp64)
+        xf64 = pargs64[4].reshape(-1)
+        e_lib = _agree((S_p64 @ xf64)[:yp.numel()], yp.reshape(-1),
+                       ys.reshape(-1), npr_p, f"paired_csr on {on_p}")
+        print(f"kernel sbell_spmv f64 on {on_p}: {walk(dp64, 1)} chunks a CTA "
+              f"for one plane and {walk(dp64, _cuda.PAIRED_F64_GROUP)} for "
+              f"{_cuda.PAIRED_F64_GROUP}, max_abs_err vs twin {e5}; zero x "
+              f"into NaN-poisoned strided planes (B = 1, 11): every covered "
+              f"tile zeroed, nothing past a plane written; the library call's "
+              f"stream (paired_csr) against the twin {e_lib}", flush=True)
+        kern["sbell_spmv_f64"] = dict(
+            err=e5, on=on_p, bytes=_nbytes(*pargs64) + _nbytes(yp),
+            flops=4 * nnz_of(dp64.vals), library=lambda: S_p64 @ xf64,
+            fn=lambda: bk.sbell_spmv_tiles(*pargs64, **kw_p64),
+            plain=lambda: bk.sbell_spmv_tiles_plain(*pargs64, **kw_p64))
+
+        def make_sbell64_mm(B):
+            sa = (*paired_stream(dp64),
+                  planes(B, dp64.x_rows, extra=2, dtype=f64))
+            Xf = sa[4].reshape(B, -1).T.contiguous()
+            return (lambda: bk.sbell_spmm_tiles(
+                        *sa, out=poisoned((B, TP64, 128), f64), **kw_p64),
+                    lambda: bk.sbell_spmm_tiles(*sa, **kw_p64),
+                    lambda: bk.sbell_spmm_tiles_plain(*sa, **kw_p64),
+                    lambda: bk.sbell_spmm_tiles_plain(
+                        dp64.vals.abs(), *sa[1:4], sa[4].abs(), **kw_p64),
+                    _nbytes(*sa) + 8 * B * TP64 * 128,
+                    lambda: S_p64 @ Xf)
+
+        mm_pair("sbell_spmm_f64", make_sbell64_mm, npr_p, on_p,
+                Bs=(2, 4, 11, RHS), flops=RHS * 4 * nnz_of(dp64.vals))
+
+        dm64 = dist64["D1 cant_proxy P=4 mirrored float64"].shards[1].near
+        if not (dm64.dia_mirrored and dm64.dia_vals.dtype == f64):
+            raise AssertionError("D1's mirrored float64 shard 1 has no "
+                                 "float64 mirrored diagonals")
+        vals, offs = dm64.dia_vals, dm64.dia_offsets
+        T, m = dm64.num_row_tiles, dm64.nrows
+        nv, D = vals.shape[0] * 1024, vals.shape[1]
+        on_m = f"D1 mirrored float64 shard 1 ({D} diagonals)"
+        av = vals.abs()
+        x = torch.rand(m, generator=g, dtype=f64).to(dev)
+        x2d = ops.pad_x(x, dm64.x_rows)
+        y0 = torch.rand((T, 128), generator=g, dtype=f64).to(dev)
+        e_add = _agree(sk.sdia_gen_tiles(vals, x2d, y0.clone(), offs),
+                       sk.sdia_gen_tiles_plain(vals, x2d, y0.clone(), offs),
+                       sk.sdia_gen_tiles_plain(av, x2d.abs(), y0.abs(), offs),
+                       D, f"sdia_gen f64 add on {on_m}")
+        zk = sk.sdia_gen_tiles(vals, x, poisoned((T, 128), f64), offs,
+                               store=True)
+        torch.cuda.synchronize()
+        plus_zero_tail(zk[None], nv, f"sdia_gen f64 store on {on_m}")
+        e_st = _agree(zk, sk.sdia_gen_tiles_plain(vals, x, y0.clone(), offs,
+                                                  store=True),
+                      sk.sdia_gen_tiles_plain(av, x.abs(), y0.clone(), offs,
+                                              store=True),
+                      D, f"sdia_gen f64 store on {on_m}")
+        worst_mm, said = 0.0, []
+        for B in (1, 2, 4, 8, 11):
+            X = torch.rand((m, B), generator=g, dtype=f64).to(dev)
+            x3 = ops.pad_x_mm(X, dm64.x_rows)
+            y3 = planes(B, T, extra=3, dtype=f64)
+            yp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs)
+            ys = sk.sdia_gen_tiles_mm_plain(av, x3.abs(), y3.abs(), offs)
+            zp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs,
+                                            store=True)
+            zs = sk.sdia_gen_tiles_mm_plain(av, x3.abs(), y3.abs(), offs,
+                                            store=True)
+            forms = {"copied": bk.interleave_x(X, dm64.x_rows)}
+            xg = sk.gen_x(X, dm64.x_rows)
+            if xg.data_ptr() == X.data_ptr():
+                forms["in place"] = xg
+            elif B in (1, 2, 4, 8):
+                raise AssertionError(f"sdia_gen_mm f64 on {on_m}: a "
+                                     f"contiguous aligned X of B={B} was "
+                                     "copied")
+            worst = 0.0
+            for xn, xil in forms.items():
+                what = f"sdia_gen_mm f64 B={B} X {xn} on {on_m}"
+                add = strided(y3, lambda y: sk.sdia_gen_tiles_mm(
+                    vals, xil, y, offs, planes=B))
+                st = strided(poisoned((B, T, 128), f64), lambda y: (
+                    sk.sdia_gen_tiles_mm(vals, xil, y, offs, planes=B,
+                                         store=True)))
+                plus_zero_tail(st, nv, what)
+                worst = max(worst, _agree(add, yp, ys, D, f"{what} add"),
+                            _agree(st, zp, zs, D, f"{what} store"))
+            said.append(f"B={B} ({', '.join(forms)}) {worst}")
+            worst_mm = max(worst_mm, worst)
+        S_m64 = dia_csr(torch, vals, offs, T * 128, dm64.x_rows * 128)
+        xf = x2d.reshape(-1)
+        e_lib = _agree((S_m64 @ xf).reshape(T, 128),
+                       sk.sdia_gen_tiles_plain(vals, x2d, torch.zeros_like(y0),
+                                               offs),
+                       sk.sdia_gen_tiles_plain(av, x2d.abs(),
+                                               torch.zeros_like(y0), offs),
+                       D, f"dia_csr on {on_m}")
+        print(f"kernels sdia_gen / sdia_gen_mm f64 on {on_m}: {nv} value "
+              f"rows, {T * 128} y rows, "
+              f"{sk.gen_slices(min(T * 128, nv), D, sk._thread_slots(dev))} "
+              f"slices a row adding; max_abs_err vs twin: B6 add {e_add}, "
+              f"store from x {e_st}; B12 adding and storing, by X: "
+              + "; ".join(said) + f"; the library call's stream (dia_csr) "
+              f"against the twin {e_lib}", flush=True)
+        X8 = torch.rand((m, RHS), generator=g, dtype=f64).to(dev)
+        Y8 = torch.rand((RHS, T, 128), generator=g, dtype=f64).to(dev)
+        xg8 = sk.gen_x(X8, dm64.x_rows)
+        X8f = ops.pad_x_mm(X8, dm64.x_rows).reshape(RHS, -1).T.contiguous()
+        kern["sdia_gen_f64"] = dict(
+            err=max(e_add, e_st), on=f"{on_m} (add)", flops=2 * nnz_of(vals),
+            bytes=_nbytes(vals, x2d) + 2 * _nbytes(y0),
+            library=lambda: S_m64 @ xf,
+            fn=lambda: sk.sdia_gen_tiles(vals, x2d, y0.clone(), offs),
+            plain=lambda: sk.sdia_gen_tiles_plain(vals, x2d, y0.clone(), offs))
+        kern["sdia_gen_mm_f64"] = dict(
+            err=worst_mm, on=f"{on_m} (add, X in place), B={RHS}",
+            flops=RHS * 2 * nnz_of(vals),
+            bytes=_nbytes(vals, X8) + 2 * _nbytes(Y8),
+            library=lambda: S_m64 @ X8f,
+            fn=lambda: sk.sdia_gen_tiles_mm(vals, xg8, Y8.clone(), offs,
+                                            planes=RHS),
+            plain=lambda: sk.sdia_gen_tiles_mm_plain(
+                vals, xg8, Y8.clone(), offs, planes=RHS))
+        return dist64
+
+    dist64 = double_instances()
     phase_done("4 kernels against twins")
 
     # -- 5. times: kernels, then the kernel path against the plain path --
     def time_kernel(name, k):
-        f64 = "_df" in name  # the four float64 kernels
+        # the float64 kernels and the double instances
+        f64 = "_df" in name or "_f64" in name
         k["ms"] = _median_ms(torch, k["fn"])
         k["plain_ms"] = _median_ms(torch, k["plain"])
         k["library_ms"] = _median_ms(torch, k["library"])
@@ -4733,7 +5164,9 @@ def main() -> int:
             (dense, "bell2_spmm_df", "bell2_spmv_df", "bell2_spmv_kernel"),
             (kern, "bell2_spmm_accum_df", "bell2_spmv_accum_df",
              "bell2_entries_kernel"),
-            (kern, "sdia_sym_df_mm", "sdia_sym_df", "sdia_sym_kernel")):
+            (kern, "sdia_sym_df_mm", "sdia_sym_df", "sdia_sym_kernel"),
+            (kern, "sbell_spmm_f64", "sbell_spmv_f64", "sbell_spmv_kernel"),
+            (kern, "sdia_gen_mm_f64", "sdia_gen_f64", "sdia_gen_kernel")):
         t_mm = ks[mm]["device"].get(kernel)
         t_mv = ks[mv]["device"].get(kernel)
         print(f"MM({RHS}) vs {RHS}x SpMV device time, {kernel} on "
@@ -5172,8 +5605,29 @@ def main() -> int:
     # -- 8. the distributed layer on P shards of card 0 ------------------
     dist_phase(torch, card, counted, oracle_ok,
                dict(cant=cant, audikw=audikw, gasym=gasym, st27=st27,
-                    nbp=nbp), runs, wrappers, launches)
+                    nbp=nbp), runs, wrappers, launches, dist64)
     phase_done("8 distributed")
+
+    # -- 9. one NCCL rank over a process-group mesh ---------------------
+    out = os.path.join(_smoke_dir(), "nccl_rank.json")
+    if os.path.exists(out):
+        os.remove(out)
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--nccl-rank", out],
+        capture_output=True, text=True, timeout=NCCL_TIMEOUT)
+    for line in res.stdout.splitlines():
+        print(line, flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"the NCCL rank failed (exit {res.returncode})"
+                             f":\n{res.stderr[-4000:]}")
+    with open(out) as f:
+        for k, c in json.load(f)["launches"].items():
+            launches[k] += c
+    phase_done("9 one NCCL rank")
+    print(f"launch counts of every main path: {launches}", flush=True)
+    idle = sorted(k for k, c in launches.items() if not c)
+    if idle:
+        raise AssertionError(f"kernels launched on no main path: {idle}")
     print(f"total wall time {time.perf_counter() - t_start:.2f} s",
           flush=True)
 
@@ -5210,6 +5664,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--nccl-rank"]:
+            sys.exit(nccl_rank(sys.argv[2]))
         sys.exit(main())
     finally:
         for started in _STARTED:

@@ -498,12 +498,6 @@ def test_validation():
         DistSpDMV(rect, mesh)
 
 
-def test_float64_is_not_ported():
-    csr = port_csr(_random(300, 3.0, 5))
-    with pytest.raises(NotImplementedError, match="sbell_spmv_kernel"):
-        DistSpDMV(csr, make_mesh(2, device="cpu"), dtype=np.float64)
-
-
 def test_mesh_defaults_to_the_card(monkeypatch):
     """``make_mesh`` and ``get_devices`` default to the node's cards and
     raise where CUDA is absent; an indexed device or the CPU holds

@@ -10,9 +10,9 @@ name only after ``ml_dtypes`` is imported, which JAX does and the port
 does not; and a bfloat16 plan is tuned, saved to a plan cache and loaded
 back there without it.
 
-The port's top-level names are the reference's; the reference's modules
-that the port does not have yet are listed in ``ABSENT_MODULES``, which
-must shrink as they are ported.
+The port's top-level names are the reference's, and it has a counterpart
+of every module of the reference (``ABSENT_MODULES``, the modules still to
+port, is empty).
 """
 
 import os
@@ -35,8 +35,8 @@ assert len(names) >= 28, names
 for new in ("ops.sdia_df", "ops.bell2_df", "ops.xla_ref", "models.solvers",
             "utils.timing", "utils.roofline", "utils.trace",
             "cli.bench_spmv_mmf", "io.plancache", "parallel.dist",
-            "parallel.mesh", "parallel.scaling", "tuning.partition",
-            "tuning.cluster", "cli.bench_dist"):
+            "parallel.mesh", "parallel.scaling", "parallel.multihost",
+            "tuning.partition", "tuning.cluster", "cli.bench_dist"):
     assert "cfs_spmv_tpu_torch." + new in names, new
 assert not bad, bad
 """
@@ -110,10 +110,8 @@ def test_bf16_plan_cache_without_ml_dtypes():
 
 
 #: modules of the reference (paths under its package) with no counterpart
-#: in the port yet: the multi-process bootstrap of the distributed layer
-ABSENT_MODULES = {
-    "parallel/multihost.py",
-}
+#: in the port yet: none
+ABSENT_MODULES: set[str] = set()
 
 
 def _modules(package):

@@ -384,47 +384,70 @@ __global__ void sdia_gen_kernel(const V* __restrict__ vals,
 // meta[c, 2 + (r2 & 7)] for listed windows. The 8 sublanes sum into row
 // meta[c, 0] of block step_block[c / K].
 //
-// One CTA of 128 threads (one per lane) walks kWalk consecutive chunks, a
-// template argument: the TPU walks a K-chunk grid step in order on one
-// core, but a K = 128 step count (63 steps for the audikw proxy) would
-// leave most of the 132 SMs idle, so each step is split across K / kWalk
-// CTAs. The float SpMV instance walks kChunksPerCta, the float multi-RHS
-// ones kInterleavedWalk (of walks 1, 2, 4 and 8 the fastest over
-// audikw_proxy() and cant_proxy() NONE together at 8 planes, PERF.md §6);
-// the double ones
-// kDoubleWalk, one chunk a CTA: a walk of 8 left 3.9 CTAs an SM on the
-// 4,096 chunks of general_asym() in float64, and one chunk a CTA beat walks
-// of 2, 4, 8 and the fewest that keep every CTA resident at once (walk_for
-// below) on that stream and on audikw_proxy()'s 8,192 chunks, at 1 and 8
-// planes (PERF.md §6). A walk given at run time made the float
-// instance 7% slower on audikw_proxy(), hence the template argument. The
-// chunk's r2 fields go through
-// shared memory (a lane needs lane q's field). Over planes the double
-// instances read x as kRhs gathers from the planes, each of which may cost
-// a 32-byte sector for 8 bytes. The float multi-RHS instances (kInterleaved)
-// read an interleaved X instead, which holds an element's kRhs planes side
-// by side (8, 16 or 32 bytes, one sector), in one 8- or 16-byte load or
-// two: x then points at the group's (x_rows * 128, kRhs) block. At 8 planes
-// on audikw_proxy() that took 0.0369 ms against 0.0646 for the gathers from
-// the planes, and staging the chunk's window rows of x in shared memory
-// 0.0812 (NVIDIA H100 80GB HBM3, 700 W, PERF.md §6). One plane is a plain
-// plane and takes the SpMV instance. Each thread keeps one
-// register sum per plane while the target row stays the same and flushes
-// them with one atomicAdd each when the row changes and at the walk's end,
-// so a walk may start and end between any two chunks: blocks of different
-// CTAs (and different grid steps) can target one row. Chunks are
-// tile-sorted, so flushes are rare. K-padding chunks carry zero values and
-// forward-filled meta, so they add exactly 0. Over planes the value, its
-// packed word and its x row are decoded once and feed kRhs gathers, one
-// from each plane's x tile, so a group reads the slot stream (6 bytes a
-// slot in float, 10 in double) once.
+// B2, one plane in float32 or bf16, runs bell2_walks_kernel (below). What
+// bounds it on this card is its bytes: 6 a slot in float32 (a 4-byte value
+// and a 2-byte packed word), 4 in bf16, each read once, plus x and y. What
+// held it back was the bytes in flight: it was bell2_spmv_kernel walking 8
+// chunks a CTA, C / 8 CTAs of 4 warps whatever C was (128 CTAs for the
+// 1,024 chunks of a general_asym() shard at P = 4, under one an SM), each
+// chunk a chain of loads the next waited behind. The walk groups keep that
+// chain and fill the card: a group of 128 threads walks the fewest chunks
+// that keep every group resident at once, so the shard's chunks run as
+// 1,024 walks of one chunk in a single wave. Short walks would leave a
+// row's sums to meet in y from many CTAs, in any order; the 8 walk groups
+// of a CTA add up their walks' first and last rows in walk order first,
+// so y repeats bit for bit wherever the walk of 8 did. Staging the stream
+// in shared memory by cp.async (a ring of 2-4 chunk buffers a group, the
+// next chunk in flight while one sums) measured slower on every stream
+// timed but the bf16 replan with absent rows, and stays in chip_smoke.py
+// as a form of comparison. Device ms of the kernel, the walk of 8 before
+// against the walk groups, in one run (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md §6): a general_asym() shard's 1,024 chunks 0.0146-0.0148 against
+// 0.0038-0.0039 (bound 0.0022), cant_proxy() NONE 0.0159-0.0207 against
+// 0.0093-0.0094 (0.0084), audikw_proxy() 0.0223-0.0224 against
+// 0.0209-0.0218 (0.0151), the same in bf16 0.0150-0.0155 against
+// 0.0129-0.0139 (0.0102).
+//
+// The other instances (B7, B15, B16) run bell2_spmv_kernel: one CTA of
+// 128 threads (one per lane) walks kWalk consecutive chunks, a template
+// argument: the TPU walks a K-chunk grid step in order on one core, but a
+// K = 128 step count (63 steps for the audikw proxy) would leave most of
+// the 132 SMs idle, so each step is split across K / kWalk CTAs. The float
+// multi-RHS ones walk kInterleavedWalk (of walks 1, 2, 4 and 8 the fastest
+// over audikw_proxy() and cant_proxy() NONE together at 8 planes, PERF.md
+// §6); the double ones kDoubleWalk, one chunk a CTA: a walk of 8 left 3.9
+// CTAs an SM on the 4,096 chunks of general_asym() in float64, and one
+// chunk a CTA beat walks of 2, 4, 8 and the fewest that keep every CTA
+// resident at once (walk_for below) on that stream and on
+// audikw_proxy()'s 8,192 chunks, at 1 and 8 planes (PERF.md §6). The
+// chunk's r2 fields go through shared memory (a lane needs lane q's
+// field). Over planes the double instances read x as kRhs gathers from the
+// planes, each of which may cost a 32-byte sector for 8 bytes. The float
+// multi-RHS instances (kInterleaved) read an interleaved X instead, which
+// holds an element's kRhs planes side by side (8, 16 or 32 bytes, one
+// sector), in one 8- or 16-byte load or two: x then points at the group's
+// (x_rows * 128, kRhs) block. At 8 planes on audikw_proxy() that took
+// 0.0369 ms against 0.0646 for the gathers from the planes, and staging
+// the chunk's window rows of x in shared memory 0.0812 (NVIDIA H100 80GB
+// HBM3, 700 W, PERF.md §6). One plane is a plain plane and takes the SpMV
+// instance.
+//
+// bell2_spmv_kernel keeps one register sum per plane while the target row
+// stays the same and flushes them with one atomicAdd each when the row
+// changes and at the walk's end, so a walk may start and end between any
+// two chunks: blocks of different CTAs (and different grid steps) can
+// target one row. Chunks are tile-sorted, so flushes are rare. K-padding
+// chunks carry zero values and forward-filled meta, so they add exactly 0.
+// Over planes the value, its packed word and its x row are decoded once
+// and feed kRhs gathers, one from each plane's x tile, so a group reads
+// the slot stream (6 bytes a slot in float, 10 in double) once.
 //
 // The zero pass runs first, in a launch of its own: the zero kernel below
 // (one CTA per visited block), or, for a stream that visits every block of
 // its output (the upload's ``covers``), cudaMemset2DAsync over the group's
 // whole planes.
 // ---------------------------------------------------------------------------
-constexpr int kChunksPerCta = 8;
+constexpr int kWalkGroups = 8;
 constexpr int kInterleavedWalk = 2;
 constexpr int kDoubleWalk = 1;
 
@@ -533,6 +556,110 @@ bell2_spmv_kernel(const V* __restrict__ vals,
     }
   }
   if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
+}
+
+// Group g's barrier: its 128 threads only.
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(kLanes) : "memory");
+}
+
+// B2, one plane with float or bf16 values (V). A CTA of kGroups groups of
+// 128 threads (one a lane); group g of CTA b walks the cpc consecutive
+// chunks from w * cpc, w = b * kGroups + g, as bell2_spmv_kernel walks at
+// one plane: each chunk's 8 packed words loaded, their r2 fields into the
+// group's shared memory, the group's own barrier (bar.sync g + 1, so the
+// groups run apart), the value loads and x gathers into a register sum of
+// the chunk's own, then a second barrier; the chunk's sum joins the
+// running row sum. cpc is the fewest chunks that keep every group resident
+// at once (group_walk), so one wave covers the stream whatever its length.
+//
+// Flushes. A row whose chunks all lie in one walk is flushed by one
+// atomicAdd when the target row changes. A walk's first and last rows may
+// go on in the walks beside it: their sums are kept, and once every group
+// is done the CTA adds them up in walk order, one atomicAdd per row and
+// CTA. Sums that are exactly 0 are never added (K-padding chunks, whose
+// values are 0, sum to +0). So a row whose nonzero chunks span at most
+// kGroups * cpc + 1 chunks takes at most two adds, and y has the same bits
+// in every run (0 + a + b = 0 + b + a), which a graphed solve needs to
+// equal its eager run: 9 chunks or more at kWalkGroups, as the walk of 8
+// chunks a CTA before it gave. Only a row spread over three CTAs sums in
+// the order they finish.
+template <bool kContig, typename V, int kGroups>
+__global__ void __launch_bounds__(kLanes * kGroups, 1)
+bell2_walks_kernel(const V* __restrict__ vals,
+                   const int16_t* __restrict__ packed,
+                   const int* __restrict__ meta,
+                   const int* __restrict__ step_block, int64_t C, int K,
+                   int BT, int cpc, const float* __restrict__ x,
+                   float* __restrict__ y) {
+  __shared__ int r2s[kGroups][kSublanes][kLanes];
+  __shared__ int ends[kGroups][2];
+  __shared__ float sums[kGroups][2][kLanes];
+  const int g = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int64_t c0 = (static_cast<int64_t>(blockIdx.x) * kGroups + g) * cpc;
+  const int n = c0 >= C ? 0 : static_cast<int>(C - c0 < cpc ? C - c0 : cpc);
+  int head = -1, row = -1;
+  float head_sum = 0.0f, acc = 0.0f;
+  for (int j = 0; j < n; ++j) {
+    const int64_t c = c0 + j;
+    const int* m = meta + c * kMetaW;
+    const int tgt = step_block[c / K] * BT + m[0];
+    const int64_t slot0 = c * kSublanes * kLanes + lane;
+    int pk[kSublanes];
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      pk[i] = packed[slot0 + i * kLanes];
+      r2s[g][i][lane] = (pk[i] >> 7) & 0x1F;
+    }
+    group_sync(g);
+    float own = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      const int q = pk[i] & 0x7F;
+      const int r2 = r2s[g][i][q];
+      const int xrow = kContig ? m[2] + r2 : m[2 + (r2 & 7)];
+      own = fmaf(widen(vals[slot0 + i * kLanes]),
+                 x[static_cast<int64_t>(xrow) * kLanes + q], own);
+    }
+    group_sync(g);
+    if (tgt != row) {
+      if (row < 0)
+        head = tgt;
+      else if (row == head)
+        head_sum = acc;
+      else if (acc != 0.0f)
+        atomicAdd(y + static_cast<int64_t>(row) * kLanes + lane, acc);
+      row = tgt;
+      acc = 0.0f;
+    }
+    acc += own;
+  }
+  const bool one_row = row == head;
+  if (lane == 0) {
+    ends[g][0] = head;
+    ends[g][1] = one_row ? -1 : row;
+  }
+  sums[g][0][lane] = one_row ? acc : head_sum;
+  sums[g][1][lane] = one_row ? 0.0f : acc;
+  __syncthreads();
+  if (g == 0) {
+    int cur = -1;
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 2 * kGroups; ++k) {
+      const int r = ends[k / 2][k % 2];
+      if (r < 0) continue;
+      if (r != cur) {
+        if (cur >= 0 && s != 0.0f)
+          atomicAdd(y + static_cast<int64_t>(cur) * kLanes + lane, s);
+        cur = r;
+        s = 0.0f;
+      }
+      s += sums[k / 2][k % 2][lane];
+    }
+    if (cur >= 0 && s != 0.0f)
+      atomicAdd(y + static_cast<int64_t>(cur) * kLanes + lane, s);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -989,59 +1116,114 @@ int run_sdia_gen(const V* vals, const int* offsets, int D, int64_t nv_rows,
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
-// Chunks a CTA of 128 threads of ``kernel`` walks on a stream of C chunks:
-// the fewest that make every CTA resident at once (one wave, no tail), and
-// at most max_walk, past which a longer walk only lengthens each CTA's
-// chain of dependent loads.
+// Chunks a walk of ``kernel`` takes on a stream of C chunks, for CTAs of
+// ``groups`` walks of 128 threads: the fewest that make every walk resident
+// at once (one wave, no tail), and at most max_walk, past which a longer
+// walk only lengthens its chain of dependent loads.
 template <class Kernel>
-int walk_for(Kernel kernel, int64_t C, int max_walk) {
+int walk_for(Kernel kernel, int64_t C, int max_walk, int groups = 1) {
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kLanes, 0);
-  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kLanes * groups, 0);
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm * groups;
   if (resident <= 0 || C > resident * max_walk) return max_walk;
   return C <= resident ? 1 : static_cast<int>((C + resident - 1) / resident);
 }
 
-// kWalk: chunks a CTA of the one-plane instance, kWalkMm of the
-// multi-plane ones; kInterleaved: a group of R > 1 planes is an
-// interleaved block of R planes an element (one plane is a plane). tiles:
-// the rows of 128 of each output plane to zero with cudaMemset2DAsync (a
-// stream that visits every block); 0 runs the zero kernel, which leaves
-// unvisited blocks as they are.
-template <typename T, int kWalk, int kWalkMm, bool kInterleaved,
-          typename V = T>
+// The zero pass before the grid kernels. tiles: the rows of 128 of each
+// output plane to zero with cudaMemset2DAsync (a stream that visits every
+// block); 0 runs the zero kernel, which leaves unvisited blocks as they
+// are.
+template <typename T>
+cudaError_t zero_pass(const int* step_block, int64_t C, int K, int BT,
+                      int64_t tiles, T* y, int64_t ys, int nr,
+                      cudaStream_t stream) {
+  if (tiles > 0) {
+    const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(T);
+    return cudaMemset2DAsync(y, nr == 1 ? width : ys * sizeof(T), 0, width,
+                             nr, stream);
+  }
+  bell2_zero_blocks_kernel<T>
+      <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
+          step_block, BT, y, ys);
+  return cudaSuccess;
+}
+
+// Chunks a walk of bell2_walks_kernel takes on C chunks: as many as keep
+// every walk resident, with no cap.
+template <int kGroups, typename V>
+int group_walk(int64_t C, int contig) {
+  constexpr int kUncapped = 1 << 30;
+  return contig ? walk_for(bell2_walks_kernel<true, V, kGroups>, C, kUncapped,
+                           kGroups)
+                : walk_for(bell2_walks_kernel<false, V, kGroups>, C,
+                           kUncapped, kGroups);
+}
+
+template <int kGroups, typename V>
+void launch_walks(const V* vals, const int16_t* packed, const int* meta,
+                  const int* step_block, int64_t C, int K, int BT, int contig,
+                  int cpc, const float* x, float* y, cudaStream_t stream) {
+  const unsigned int grid = blocks_for(blocks_for(C, cpc), kGroups);
+  if (contig)
+    bell2_walks_kernel<true, V, kGroups>
+        <<<grid, kLanes * kGroups, 0, stream>>>(vals, packed, meta,
+                                                step_block, C, K, BT, cpc, x,
+                                                y);
+  else
+    bell2_walks_kernel<false, V, kGroups>
+        <<<grid, kLanes * kGroups, 0, stream>>>(vals, packed, meta,
+                                                step_block, C, K, BT, cpc, x,
+                                                y);
+}
+
+// One plane in float: bell2_walks_kernel (kWalkGroups walks a CTA).
+// Otherwise bell2_spmv_kernel walking kWalk chunks a CTA over a group of R
+// planes; kInterleaved: R > 1 planes are an interleaved block of R planes
+// an element.
+template <int R, typename T, int kWalk, bool kInterleaved, typename V>
+void launch_grid(const V* vals, const int16_t* packed, const int* meta,
+                 const int* step_block, int64_t C, int K, int BT, int contig,
+                 const T* x, int64_t xs, T* y, int64_t ys, int nr,
+                 cudaStream_t stream) {
+  if constexpr (R == 1 && std::is_same_v<T, float>) {
+    launch_walks<kWalkGroups>(vals, packed, meta, step_block, C, K, BT,
+                              contig, group_walk<kWalkGroups, V>(C, contig),
+                              x, y, stream);
+  } else {
+    constexpr bool X = R > 1 && kInterleaved;
+    const unsigned int grid = blocks_for(C, kWalk);
+    if (contig)
+      bell2_spmv_kernel<true, R, T, kWalk, X, V>
+          <<<grid, kLanes, 0, stream>>>(vals, packed, meta, step_block, C, K,
+                                        BT, x, xs, y, ys, nr);
+    else
+      bell2_spmv_kernel<false, R, T, kWalk, X, V>
+          <<<grid, kLanes, 0, stream>>>(vals, packed, meta, step_block, C, K,
+                                        BT, x, xs, y, ys, nr);
+  }
+}
+
+// The zero pass (tiles: as zero_pass), then launch_grid.
+template <typename T, int kWalk, bool kInterleaved, typename V = T>
 int launch_bell2_spmv(const V* vals, const int16_t* packed, const int* meta,
                       const int* step_block, int64_t C, int K, int BT,
                       int contig, int64_t tiles, const T* x, int64_t xs,
                       T* y, int64_t ys, int nr, cudaStream_t stream) {
   if (tiles < 0) return invalid();
-  cudaError_t zeroed = cudaSuccess;
+  cudaError_t err = cudaSuccess;
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
-    constexpr int W = R == 1 ? kWalk : kWalkMm;
-    constexpr bool X = R > 1 && kInterleaved;
     if (C <= 0) return;
-    if (tiles > 0) {
-      const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(T);
-      zeroed = cudaMemset2DAsync(y, nr == 1 ? width : ys * sizeof(T), 0,
-                                 width, nr, stream);
-      if (zeroed != cudaSuccess) return;
-    } else {
-      bell2_zero_blocks_kernel<T>
-          <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
-              step_block, BT, y, ys);
-    }
-    const unsigned int grid = blocks_for(C, W);
-    if (contig)
-      bell2_spmv_kernel<true, R, T, W, X, V><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
-    else
-      bell2_spmv_kernel<false, R, T, W, X, V><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
+    err = zero_pass<T>(step_block, C, K, BT, tiles, y, ys, nr, stream);
+    if (err != cudaSuccess) return;
+    launch_grid<R, T, kWalk, kInterleaved>(vals, packed, meta, step_block, C,
+                                           K, BT, contig, x, xs, y, ys, nr,
+                                           stream);
   });
-  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
@@ -1216,8 +1398,8 @@ int cfs_sbell_chunks_per_cta(int64_t C, int TW, int nr, int dbl) {
 
 // tiles > 0 (the rows of 128 of each output plane): the stream visits
 // every block, and the whole planes are zeroed by cudaMemset2DAsync; 0:
-// the zero kernel, visited blocks only. The float stream walks
-// kChunksPerCta chunks a CTA for one plane and kInterleavedWalk for more,
+// the zero kernel, visited blocks only. The float stream takes the walk
+// groups for one plane and walks kInterleavedWalk chunks a CTA for more,
 // and x is the plane (nr = 1) or the group's interleaved (x_rows * 128, R)
 // block, R the instance's width: 2 for nr = 2, 4 for 3-4, 8 for 5-8 (xs is
 // not read). The double one walks kDoubleWalk; x: planes at plane stride
@@ -1226,7 +1408,7 @@ int cfs_bell2_spmv(const float* vals, const int16_t* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT,
                    int contig, int64_t tiles, const float* x, int64_t xs,
                    float* y, int64_t ys, int nr, cudaStream_t stream) {
-  return launch_bell2_spmv<float, kChunksPerCta, kInterleavedWalk, true>(
+  return launch_bell2_spmv<float, kInterleavedWalk, true>(
       vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y, ys,
       nr, stream);
 }
@@ -1236,7 +1418,7 @@ int cfs_bell2_spmv_f64(const double* vals, const int16_t* packed,
                        int K, int BT, int contig, int64_t tiles,
                        const double* x, int64_t xs, double* y, int64_t ys,
                        int nr, cudaStream_t stream) {
-  return launch_bell2_spmv<double, kDoubleWalk, kDoubleWalk, false>(
+  return launch_bell2_spmv<double, kDoubleWalk, false>(
       vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y, ys,
       nr, stream);
 }
@@ -1246,7 +1428,7 @@ int cfs_bell2_spmv_bf16(const __nv_bfloat16* vals, const int16_t* packed,
                         int K, int BT, int contig, int64_t tiles,
                         const float* x, int64_t xs, float* y, int64_t ys,
                         int nr, cudaStream_t stream) {
-  return launch_bell2_spmv<float, kChunksPerCta, kInterleavedWalk, true>(
+  return launch_bell2_spmv<float, kInterleavedWalk, true>(
       vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y, ys,
       nr, stream);
 }

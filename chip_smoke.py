@@ -112,7 +112,19 @@ Phases (each prints its wall time):
    ``bell2_spmm`` at B = 8 and 11, timed at B = 8 on
    ``audikw_proxy()`` and ``cant_proxy()`` NONE, there also the planes
    form against the interleaved X at B = 1, 2 and 4, and ``bell2_spmv``'s
-   two zero passes in turns; the symmetric diagonal kernel as it stood before
+   two zero passes in turns; the one-sided float SpMV kernel (B2) as it
+   stood before its redesign (a walk of 8 chunks a CTA), the occupancy
+   rule's walk alone, the ring kernel (the stream staged by cp.async) with
+   2, 3 and 4 buffers a group and with one group a CTA, 4 walk groups a
+   CTA, and what ships (8 walk groups a CTA) over its rule's walk and at
+   one chunk a walk (``GRID_FORMS_SRC``), in float32 and bf16, on
+   ``audikw_proxy()``'s far stream, ``cant_proxy()`` NONE, shard 1 of
+   D3's far grids (``general_asym()`` over 4 shards, the operator phase 8
+   applies) and the float replan with absent rows, each with the chunks a
+   walk it takes, into NaN-poisoned tiles after either zero pass, and
+   whether what ships repeats bit for bit, then in device time in turns
+   beside what ships, its bound and the library call; the symmetric
+   diagonal kernel as it stood before
    its redesign and each step of the redesign (``SDIA_SYM_ALT_SRC``, built
    for this comparison only) on ``cant_proxy()`` and ``stencil27()`` in
    float32 and float64 at B = 1 and 11 onto strided planes against the
@@ -845,13 +857,16 @@ extern "C" int cfs_sbell_alt(const float* vals, const int* packed,
 #: ``cfs_bell2_f64_walk`` gives the walk of the occupancy rule the paired
 #: kernel uses (the fewest chunks that keep every CTA resident, at most 8).
 #: ``cfs_bell2_f32_form`` does the same for the float multi-plane
-#: instances (B7; one plane takes the SpMV instance, a walk of 8 as it
-#: ships), reading x as ``xform`` says: 0 gathers from the planes (before
+#: instances (B7; one plane takes the SpMV instance, the walk groups),
+#: reading x as ``xform`` says: 0 gathers from the planes (before
 #: their redesign, at a walk of 8 after the zero kernel), 1 stages each
 #: chunk's 8 window rows of x in shared memory for every plane first, 2
 #: reads an interleaved X as it ships (an element's planes of a group side
 #: by side at the group's width, 8 of them in one 32-byte sector; x is the
-#: group's block, ``bell2_kernel.interleave_x``).
+#: group's block, ``bell2_kernel.interleave_x``). ``cfs_bell2_b2_form``
+#: launches B2's forms after the zero pass ``tiles`` names, among them the
+#: ring kernel, which lives here only, and ``cfs_bell2_b2_walk`` gives the
+#: chunks a walk each form takes (see the comment above them).
 GRID_FORMS_SRC = r"""
 #include "{src}"
 extern "C" int cfs_bell2_f64_form(const double* vals, const int16_t* packed,
@@ -863,7 +878,7 @@ extern "C" int cfs_bell2_f64_form(const double* vals, const int16_t* packed,
   switch (cpc) {
 #define FORM(W)                                                              \
   case W:                                                                    \
-    return launch_bell2_spmv<double, W, W, false>(                           \
+    return launch_bell2_spmv<double, W, false>(                              \
         vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y,   \
         ys, nr, stream);
     FORM(1) FORM(2) FORM(4) FORM(8)
@@ -987,7 +1002,7 @@ extern "C" int cfs_bell2_f32_form(const float* vals, const int16_t* packed,
   switch (cpc * 4 + xform) {
 #define FORM(W, X)                                                           \
   case W * 4 + X:                                                            \
-    return launch_bell2_spmv<float, kChunksPerCta, W, X == 2>(               \
+    return launch_bell2_spmv<float, W, X == 2>(                              \
         vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y,   \
         ys, nr, stream);
 #define STAGED(W)                                                            \
@@ -1002,6 +1017,359 @@ extern "C" int cfs_bell2_f32_form(const float* vals, const int16_t* packed,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+namespace {
+// Asynchronous copies into shared memory (sm_80 and later): 16 bytes
+// through L2 only, or 4 bytes; a thread's copies complete in the groups it
+// commits, oldest first.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned int s =
+      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned int s =
+      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most kPending of the thread's groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// B2's ring form (one plane; V = float or __nv_bfloat16): a CTA of
+// kGroups groups of 128 threads (one a lane); group g of CTA b walks the
+// cpc consecutive chunks from (b * kGroups + g) * cpc through a ring of
+// kStages chunk buffers of its own in shared memory, synchronised by a
+// barrier of its own (bar.sync g + 1), so the groups run apart. Each buffer
+// holds a chunk's packed words (2 KB), values (4 KB in float, 2 KB in
+// bf16) and meta row with its step's block, filled by cp.async: 16 bytes a
+// thread for the words and values, 4 for the meta row, which is not
+// 16-byte aligned. Chunk j + kStages - 1 is fetched while chunk j is
+// summed, so the stream's next chunks are in flight during this chunk's x
+// gathers; one barrier a chunk both publishes chunk j's buffer and frees
+// chunk j - 1's for the next fetch. The sums are bell2_spmv_kernel's at
+// one plane: a chunk's 8 products in a register of their own, joined to
+// the running row sum; the flushes are bell2_walks_kernel's (each walk's
+// first and last rows added up by the CTA in walk order).
+constexpr int kRingGroups = 8;
+
+// Byte offsets of a group's ring in the kernel's dynamic shared memory.
+template <int kStages, typename V, int kGroups>
+struct RingLayout {
+  static constexpr int kWords = kSublanes * kLanes * 2;  // packed, int16
+  static constexpr int kVals =
+      kSublanes * kLanes * static_cast<int>(sizeof(V));
+  static constexpr int kMeta = kWords + kVals;  // meta row, then its block
+  static constexpr int kStage = kMeta + 16 * ((4 * (kMetaW + 1) + 15) / 16);
+  static constexpr int kGroup = kStages * kStage;
+  static constexpr int kBytes = kGroups * kGroup;
+};
+
+template <bool kContig, int kStages, typename V, int kGroups = kRingGroups>
+__global__ void __launch_bounds__(kLanes * kGroups)
+bell2_ring_kernel(const V* __restrict__ vals,
+                  const int16_t* __restrict__ packed,
+                  const int* __restrict__ meta,
+                  const int* __restrict__ step_block, int64_t C, int K,
+                  int BT, int cpc, const float* __restrict__ x,
+                  float* __restrict__ y) {
+  static_assert(kStages >= 2, "a ring of two buffers or more");
+  using L = RingLayout<kStages, V, kGroups>;
+  constexpr int kSlots = kSublanes * kLanes;
+  constexpr int kValCopies = L::kVals / (16 * kLanes);  // a thread's
+  constexpr int kBlock = kMetaW;  // where a buffer's meta row keeps its block
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  unsigned char* const ring = smem + g * L::kGroup;
+  const int64_t c0 = (static_cast<int64_t>(blockIdx.x) * kGroups + g) * cpc;
+  const int n = c0 >= C ? 0 : static_cast<int>(C - c0 < cpc ? C - c0 : cpc);
+  // this thread's pieces of chunk c0, and the chunk's meta row
+  const unsigned char* wg =
+      reinterpret_cast<const unsigned char*>(packed + c0 * kSlots) + lane * 16;
+  const unsigned char* vg =
+      reinterpret_cast<const unsigned char*>(vals + c0 * kSlots) + lane * 16;
+  const int* mg = lane < kMetaW ? meta + c0 * kMetaW + lane : nullptr;
+  // chunk c0 + j into buffer j % kStages; one group a call, empty past n
+  auto fetch = [&](int j) {
+    if (j < n) {
+      unsigned char* b = ring + (j % kStages) * L::kStage;
+      cp_async16(b + lane * 16, wg + static_cast<int64_t>(j) * 2 * kSlots);
+#pragma unroll
+      for (int k = 0; k < kValCopies; ++k)
+        cp_async16(b + L::kWords + (k * kLanes + lane) * 16,
+                   vg + static_cast<int64_t>(j) * L::kVals + k * kLanes * 16);
+      int* m = reinterpret_cast<int*>(b + L::kMeta);
+      if (lane < kMetaW)
+        cp_async4(m + lane, mg + static_cast<int64_t>(j) * kMetaW);
+      else if (lane == kBlock)
+        cp_async4(m + kBlock, step_block + (c0 + j) / K);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) fetch(j);
+  int head = -1, row = -1;  // y tile rows: the walk's first; the running one
+  float head_sum = 0.0f, acc = 0.0f;
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of chunk j
+    group_sync(g);  // the group's; and chunk j - 1's buffer is free
+    fetch(j + kStages - 1);
+    const unsigned char* b = ring + (j % kStages) * L::kStage;
+    const int16_t* pk = reinterpret_cast<const int16_t*>(b);
+    const V* v = reinterpret_cast<const V*>(b + L::kWords);
+    const int* m = reinterpret_cast<const int*>(b + L::kMeta);
+    const int tgt = m[kBlock] * BT + m[0];
+    float own = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      const int q = pk[i * kLanes + lane] & 0x7F;
+      const int r2 = (pk[i * kLanes + q] >> 7) & 0x1F;
+      const int xrow = kContig ? m[2] + r2 : m[2 + (r2 & 7)];
+      own = fmaf(widen(v[i * kLanes + lane]),
+                 x[static_cast<int64_t>(xrow) * kLanes + q], own);
+    }
+    if (tgt != row) {
+      if (row < 0)
+        head = tgt;
+      else if (row == head)
+        head_sum = acc;  // kept for the CTA's adds
+      else if (acc != 0.0f)  // all its chunks are here
+        atomicAdd(y + static_cast<int64_t>(row) * kLanes + lane, acc);
+      row = tgt;
+      acc = 0.0f;
+    }
+    acc += own;
+  }
+  // the walk's first and last rows (-1: none; a walk of one row has no
+  // last, an empty one neither) and their sums, over the group's ring
+  cp_async_wait<0>();
+  group_sync(g);  // the group has read its last buffer
+  const bool one_row = row == head;
+  int* ends = reinterpret_cast<int*>(ring);
+  float* sums = reinterpret_cast<float*>(ring + 16);
+  if (lane == 0) {
+    ends[0] = head;
+    ends[1] = one_row ? -1 : row;
+  }
+  sums[lane] = one_row ? acc : head_sum;
+  sums[kLanes + lane] = one_row ? 0.0f : acc;
+  __syncthreads();
+  if (g == 0) {  // runs of equal rows in walk order, one add each
+    int cur = -1;
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 2 * kGroups; ++k) {
+      const unsigned char* e = smem + (k / 2) * L::kGroup;
+      const int r = reinterpret_cast<const int*>(e)[k % 2];
+      if (r < 0) continue;
+      if (r != cur) {
+        if (cur >= 0 && s != 0.0f)
+          atomicAdd(y + static_cast<int64_t>(cur) * kLanes + lane, s);
+        cur = r;
+        s = 0.0f;
+      }
+      s += reinterpret_cast<const float*>(e + 16)[(k % 2) * kLanes + lane];
+    }
+    if (cur >= 0 && s != 0.0f)
+      atomicAdd(y + static_cast<int64_t>(cur) * kLanes + lane, s);
+  }
+}
+
+// The ring kernel's walks are run-time: as many chunks a group as make
+// every group resident at once, so one wave covers the stream whatever its
+// length. Its shared memory (kRingGroups rings) passes the 48 KB a CTA takes
+// without asking: the limit is raised once a device, at the first launch.
+constexpr int kMaxDevices = 64;
+
+// Chunks a group of the ring kernel walks on C chunks (0 where the
+// kernel cannot be made to launch).
+template <bool kContig, int kStages, typename V, int kGroups>
+int ring_walk(int64_t C) {
+  auto kernel = bell2_ring_kernel<kContig, kStages, V, kGroups>;
+  constexpr int kBytes = RingLayout<kStages, V, kGroups>::kBytes;
+  static bool raised[kMaxDevices] = {};
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  if (device < 0 || device >= kMaxDevices) return 0;
+  if (!raised[device]) {
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kBytes) != cudaSuccess)
+      return 0;
+    raised[device] = true;
+  }
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kLanes * kGroups, kBytes);
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm * kGroups;
+  if (resident <= 0) return 0;
+  return C <= resident ? 1 : static_cast<int>((C + resident - 1) / resident);
+}
+
+// Chunks a group of the ring kernel with kStages buffers walks on C chunks.
+template <int kStages, typename V, int kGroups = kRingGroups>
+int ring_walk(int64_t C, int contig) {
+  return contig ? ring_walk<true, kStages, V, kGroups>(C)
+                : ring_walk<false, kStages, V, kGroups>(C);
+}
+
+// cpc: chunks a group (ring_walk; 0 when it could not tell, refused)
+template <int kStages, int kGroups = kRingGroups, typename V>
+cudaError_t launch_ring(const V* vals, const int16_t* packed, const int* meta,
+                        const int* step_block, int64_t C, int K, int BT,
+                        int contig, int cpc, const float* x, float* y,
+                        cudaStream_t stream) {
+  if (cpc <= 0) return cudaErrorInvalidConfiguration;
+  constexpr int kBytes = RingLayout<kStages, V, kGroups>::kBytes;
+  const unsigned int grid = blocks_for(blocks_for(C, cpc), kGroups);
+  if (contig)
+    bell2_ring_kernel<true, kStages, V, kGroups>
+        <<<grid, kLanes * kGroups, kBytes, stream>>>(
+            vals, packed, meta, step_block, C, K, BT, cpc, x, y);
+  else
+    bell2_ring_kernel<false, kStages, V, kGroups>
+        <<<grid, kLanes * kGroups, kBytes, stream>>>(
+            vals, packed, meta, step_block, C, K, BT, cpc, x, y);
+  return cudaSuccess;
+}
+
+// cp.async copies 16-byte pieces: the values and packed words of a
+// one-plane float stream start on a 16-byte boundary (every chunk then
+// does: 4 KB, 2 KB).
+inline bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
+          15) == 0;
+}
+
+
+// B2's forms (one plane, float or bf16 values): 0 bell2_spmv_kernel
+// walking 8 chunks a CTA (before the redesign); 1 the same walking the
+// fewest of 1, 2, 4 and 8 chunks that keep every CTA resident (walk_for);
+// 2, 3, 4 the ring kernel with 2, 3, 4 buffers a group, 8 groups a CTA,
+// over its own occupancy rule's walk; 5 the ring of 2 with one group a CTA
+// (a row's sums then meet in y from every walk that holds them, in any
+// order); 6 bell2_walks_kernel, 8 groups a CTA (what ships); 7 the same
+// with 4 groups a CTA. cpc > 0 gives the walk instead (1, 2, 4 or 8 for
+// forms 0 and 1).
+template <typename V>
+int b2_walk(int64_t C, int contig, int form) {
+  switch (form) {
+    case 0:
+      return 8;
+    case 1: {
+      const int w =
+          contig ? walk_for(bell2_spmv_kernel<true, 1, float, 1, false, V>,
+                            C, 8)
+                 : walk_for(bell2_spmv_kernel<false, 1, float, 1, false, V>,
+                            C, 8);
+      return w <= 1 ? 1 : w <= 2 ? 2 : w <= 4 ? 4 : 8;
+    }
+    case 2:
+      return ring_walk<2, V>(C, contig);
+    case 3:
+      return ring_walk<3, V>(C, contig);
+    case 4:
+      return ring_walk<4, V>(C, contig);
+    case 5:
+      return ring_walk<2, V, 1>(C, contig);
+    case 6:
+      return group_walk<8, V>(C, contig);
+    case 7:
+      return group_walk<4, V>(C, contig);
+  }
+  return 0;
+}
+
+template <int W, typename V>
+void launch_walk(const V* vals, const int16_t* packed, const int* meta,
+                 const int* step_block, int64_t C, int K, int BT, int contig,
+                 const float* x, float* y, cudaStream_t stream) {
+  const unsigned int grid = blocks_for(C, W);
+  if (contig)
+    bell2_spmv_kernel<true, 1, float, W, false, V>
+        <<<grid, kLanes, 0, stream>>>(vals, packed, meta, step_block, C, K,
+                                      BT, x, 0, y, 0, 1);
+  else
+    bell2_spmv_kernel<false, 1, float, W, false, V>
+        <<<grid, kLanes, 0, stream>>>(vals, packed, meta, step_block, C, K,
+                                      BT, x, 0, y, 0, 1);
+}
+
+template <typename V>
+int b2_form(const V* vals, const int16_t* packed, const int* meta,
+            const int* step_block, int64_t C, int K, int BT, int contig,
+            int form, int cpc, int64_t tiles, const float* x, float* y,
+            cudaStream_t stream) {
+  const int w = cpc > 0 ? cpc : b2_walk<V>(C, contig, form);
+  const bool ring = form >= 2 && form <= 5;
+  if (C <= 0 || w <= 0 || tiles < 0 || (ring && !aligned16(vals, packed)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t z =
+      zero_pass<float>(step_block, C, K, BT, tiles, y, 0, 1, stream);
+  if (z != cudaSuccess) return static_cast<int>(z);
+  cudaError_t err = cudaSuccess;
+  if (form <= 1) {
+    switch (w) {
+#define WALK(W)                                                              \
+  case W:                                                                    \
+    launch_walk<W>(vals, packed, meta, step_block, C, K, BT, contig, x, y,   \
+                   stream);                                                  \
+    break;
+      WALK(1) WALK(2) WALK(4) WALK(8)
+#undef WALK
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (form == 2) {
+    err = launch_ring<2>(vals, packed, meta, step_block, C, K, BT, contig, w,
+                         x, y, stream);
+  } else if (form == 3) {
+    err = launch_ring<3>(vals, packed, meta, step_block, C, K, BT, contig, w,
+                         x, y, stream);
+  } else if (form == 4) {
+    err = launch_ring<4>(vals, packed, meta, step_block, C, K, BT, contig, w,
+                         x, y, stream);
+  } else if (form == 5) {
+    err = launch_ring<2, 1>(vals, packed, meta, step_block, C, K, BT, contig,
+                            w, x, y, stream);
+  } else if (form == 6) {
+    launch_walks<8>(vals, packed, meta, step_block, C, K, BT, contig, w, x, y,
+                    stream);
+  } else {
+    launch_walks<4>(vals, packed, meta, step_block, C, K, BT, contig, w, x, y,
+                    stream);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+}  // namespace
+
+extern "C" int cfs_bell2_b2_form(const void* vals, int bf16,
+                                 const int16_t* packed, const int* meta,
+                                 const int* step_block, int64_t C, int K,
+                                 int BT, int contig, int form, int cpc,
+                                 int64_t tiles, const float* x, float* y,
+                                 cudaStream_t stream) {
+  if (form < 0 || form > 7) return static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? b2_form(static_cast<const __nv_bfloat16*>(vals), packed,
+                        meta, step_block, C, K, BT, contig, form, cpc, tiles,
+                        x, y, stream)
+              : b2_form(static_cast<const float*>(vals), packed, meta,
+                        step_block, C, K, BT, contig, form, cpc, tiles, x, y,
+                        stream);
+}
+extern "C" int cfs_bell2_b2_walk(int64_t C, int contig, int bf16, int form) {
+  return bf16 ? b2_walk<__nv_bfloat16>(C, contig, form)
+              : b2_walk<float>(C, contig, form);
 }
 """
 
@@ -4510,7 +4878,7 @@ def main() -> int:
         # narrower groups: the planes form at walks 1 and 2 against the
         # interleaved X at the group's own width (2 or 4 planes an element,
         # a walk of 2, as it ships); one plane is its own interleaved X and
-        # takes the SpMV instance either way
+        # takes the SpMV instance (the walk groups) either way
         said = []
         for B in (1, 2, 4):
             xb = planes(B, ds.x_rows)
@@ -4520,9 +4888,11 @@ def main() -> int:
                                                          (2, 2)):
                 _, by = _device_ms(torch, lambda: run_grid_form32(
                     ds, xb_il if xform == 2 else xb, yb, cpc, xform, 0))
-                said.append(f"B={B} walk {cpc} "
-                            f"{'SpMV instance' if B == 1 else XFORMS[xform]}"
-                            f" {_ms(by.get('bell2_spmv_kernel'))}")
+                said.append(
+                    f"B={B} " + ("the SpMV instance " if B == 1 else
+                                 f"walk {cpc} {XFORMS[xform]} ")
+                    + _ms(by.get("bell2_spmv_kernel",
+                                 by.get("bell2_walks_kernel"))))
         print(f"bell2_spmm forms on {on} at B = 1, 2 and 4, device ms "
               f"(kernel, after the zero kernel): " + "; ".join(said)
               + f" ({card})", flush=True)
@@ -4533,9 +4903,158 @@ def main() -> int:
             zero = by.get("Memset", by.get("bell2_zero_blocks_kernel"))
             said.append(f"{'cudaMemset2DAsync' if covers else 'zero kernel'}"
                         f" {_ms(zero)} + kernel "
-                        f"{_ms(by.get('bell2_spmv_kernel'))}")
+                        f"{_ms(by.get('bell2_walks_kernel'))}")
         print(f"bell2_spmv (B2) zero passes on {on} in turns, device ms: "
               + "; ".join(said) + f" ({card})", flush=True)
+    # B2's redesign through its launcher's own arguments (GRID_FORMS_SRC,
+    # cfs_bell2_b2_form): the form before (bell2_spmv_kernel, a walk of 8),
+    # the occupancy rule's walk alone (the fewest of 1, 2, 4, 8 chunks that
+    # keep every CTA resident), the ring kernel (the stream staged by
+    # cp.async) with 2, 3 and 4 buffers a group, 8 groups a CTA, and with 2
+    # buffers and one group a CTA, the walk groups with 4 groups a CTA, and
+    # what ships (8 walk groups a CTA) over its rule's walk and at one chunk
+    # a walk; in float32 and bf16 (the values cast on the card), on
+    # audikw_proxy's far stream, cant_proxy NONE, shard 1 of D3's far grids
+    # (general_asym() over 4 shards; phase 8 applies this operator) and the
+    # float replan with absent rows. Each form, and the wrapper as it
+    # ships, into NaN-poisoned tiles a few rows past the output after either
+    # zero pass: nothing written past the tiles, unvisited blocks keep their
+    # NaN, a covering stream's tiles come out finite whole, and the visited
+    # rows agree with the twin; whether what ships gives the same bits in 4
+    # calls. Then each in device time in turns, two rounds, beside what
+    # ships, with the bound and the library call (the float32 CSR product
+    # of the same stream, bf16 values rounded); and one SpMV kernel row
+    # each for cant_proxy NONE and the shard, in both types, timed in phase
+    # 5
+    from cfs_spmv_tpu_torch.parallel.dist import DistSpDMV
+    from cfs_spmv_tpu_torch.parallel.mesh import make_mesh
+
+    b2_form = grid_lib.cfs_bell2_b2_form
+    b2_form.argtypes = [p_, i32_, p_, p_, p_, i64_, i32_, i32_, i32_, i32_,
+                        i32_, i64_, p_, p_, p_]
+    b2_form.restype = i32_
+    b2_walk = grid_lib.cfs_bell2_b2_walk
+    b2_walk.argtypes, b2_walk.restype = [i64_, i32_, i32_, i32_], i32_
+    B2_FORMS = ((0, 0, "walk 8 (before)"), (1, 0, "occupancy walk"),
+                (2, 0, "ring 2"), (3, 0, "ring 3"), (4, 0, "ring 4"),
+                (5, 0, "ring 2, 1 group a CTA"), (7, 0, "4 walk groups"),
+                (6, 0, "8 walk groups"), (6, 1, "8 walk groups at walk 1"))
+    t0 = time.perf_counter()
+    d3_op = DistSpDMV(gasym, make_mesh(4, device="cuda:0"))
+    d3_far = d3_op.shards[1].far
+    print(f"the float32 operator of D3 (general_asym, P = 4) planned and "
+          f"uploaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    b2_streams = {
+        "audikw_proxy": fd, "cant_proxy NONE": d_none,
+        "D3 general_asym P=4 shard 1": d3_far,
+        "general_asym(g=50) with absent rows, 8-tile blocks": holes_f}
+
+    def run_b2_form(sa, ds, y, form_, cpc, tiles):
+        vals = sa[0]
+        err_ = b2_form(vals.data_ptr(), int(vals.dtype == torch.bfloat16),
+                       ds.packed.data_ptr(), ds.meta.data_ptr(),
+                       ds.step_block.data_ptr(), ds.meta.shape[0],
+                       ds.chunks_per_step, ds.tiles_per_block,
+                       int(ds.contig), form_, cpc, tiles, sa[4].data_ptr(),
+                       y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _cuda.check(err_, "bell2_b2_form")
+        return y
+
+    def b2_row(sa, ds, on):
+        """The kernel row of B2 (float32 or bf16 values ``sa[0]``) on a
+        stream: checked against its twin on the visited rows."""
+        kw_s = dict(ds.stream_kw(), covers=ds.covers)
+        vrows, _ = visited_rows(ds)
+        S_s = stream_csr(torch, dataclasses.replace(ds, vals=sa[0].float()))
+        yp = bk.bell2_spmv_tiles_plain(*sa, **kw_s)
+        ys = bk.bell2_spmv_tiles_plain(sa[0].abs(), *sa[1:4], sa[4].abs(),
+                                       **kw_s)
+        nnz_s = nnz_of(sa[0])
+        err = _agree(bk.bell2_spmv_tiles(*sa, **kw_s)[vrows], yp[vrows],
+                     ys[vrows], nnz_s / ds.nrows, f"bell2_spmv on {on}")
+        return dict(err=err, on=on, bytes=_nbytes(*sa) + _nbytes(yp),
+                    flops=2 * nnz_s, library=csr_mv(S_s, sa[4]),
+                    fn=lambda: bk.bell2_spmv_tiles(*sa, **kw_s),
+                    plain=lambda: bk.bell2_spmv_tiles_plain(*sa, **kw_s))
+
+    for on, ds in b2_streams.items():
+        vrows, rest = visited_rows(ds)
+        TPs = rest.shape[0]
+        C = ds.meta.shape[0]
+        kw_s = dict(ds.stream_kw(), covers=ds.covers)
+        x2 = planes(1, ds.x_rows)[0]
+        for vt in (torch.float32, torch.bfloat16):
+            sa = (ds.vals.to(vt), ds.packed, ds.meta, ds.step_block, x2)
+            bf = int(vt == torch.bfloat16)
+            tname = "bf16" if bf else "float32"
+            yp = bk.bell2_spmv_tiles_plain(*sa, **kw_s)
+            ysc = bk.bell2_spmv_tiles_plain(sa[0].abs(), *sa[1:4], x2.abs(),
+                                            **kw_s)
+            npr = nnz_of(sa[0]) / ds.nrows
+            worst = 0.0
+            for form_, cpc, fname in (*B2_FORMS, (None, 0, "ships")):
+                for tiles in ((0, TPs) if ds.covers else (0,)):
+                    wide = poisoned((TPs + 3, 128))
+                    if form_ is None:
+                        bk.bell2_spmv_tiles(*sa, out=wide[:TPs],
+                                            **dict(kw_s, covers=bool(tiles)))
+                    else:
+                        run_b2_form(sa, ds, wide[:TPs], form_, cpc, tiles)
+                    torch.cuda.synchronize()
+                    what = (f"bell2_spmv {tname} form {fname} zero="
+                            f"{'memset' if tiles else 'kernel'} on {on}")
+                    if not torch.isnan(wide[TPs:]).all():
+                        raise AssertionError(f"{what}: wrote past the tiles")
+                    if not torch.isnan(wide[:TPs][rest]).all():
+                        raise AssertionError(f"{what}: an unvisited block "
+                                             "was written")
+                    if tiles and not torch.isfinite(wide[:TPs]).all():
+                        raise AssertionError(f"{what}: tiles not zeroed "
+                                             "whole")
+                    worst = max(worst, _agree(wide[vrows], yp[vrows],
+                                              ysc[vrows], npr, what))
+            reps = [bk.bell2_spmv_tiles(*sa, **kw_s).clone()
+                    for _ in range(4)]
+            same = all(torch.equal(reps[0], r) for r in reps[1:])
+            lib_b = csr_mv(stream_csr(torch, dataclasses.replace(
+                ds, vals=sa[0].float())), x2)
+            bound, by_ = _bound(_nbytes(*sa) + _nbytes(yp),
+                                2 * nnz_of(sa[0]), "float32")
+            walks = ", ".join(f"{fname} {b2_walk(C, int(ds.contig), bf, f)}"
+                              for f, cpc, fname in B2_FORMS if not cpc)
+            zeros = "either zero pass" if ds.covers else "the zero kernel"
+            print(f"bell2_spmv (B2) {tname} forms on {on} ({C} chunks, "
+                  f"contig={ds.contig}, covers={ds.covers}): every form and "
+                  f"the wrapper after {zeros} "
+                  f"into NaN-poisoned tiles, max_abs_err vs twin {worst}; "
+                  f"chunks a walk: {walks}, 8 walk groups at walk 1 1; what "
+                  f"ships "
+                  f"gives the same bits in 4 calls: {same} ({card})",
+                  flush=True)
+            y1 = torch.empty((TPs, 128), device=dev)
+            tl = TPs if ds.covers else 0
+            for rnd in range(2):
+                said = []
+                for form_, cpc, fname in B2_FORMS:
+                    _, by = _device_ms(torch, lambda: run_b2_form(
+                        sa, ds, y1, form_, cpc, tl))
+                    said.append(f"{fname} " + _ms(by.get(
+                        "bell2_walks_kernel", by.get("bell2_ring_kernel", by.get(
+                            "bell2_spmv_kernel")))))
+                _, by = _device_ms(torch, lambda: bk.bell2_spmv_tiles(
+                    *sa, out=y1, **kw_s))
+                zero = by.get("Memset", by.get("bell2_zero_blocks_kernel"))
+                said.append(f"ships {_ms(by.get('bell2_walks_kernel'))} + "
+                            f"zero {_ms(zero)}")
+                lib_t, _ = _device_ms(torch, lib_b)
+                said.append(f"library (CSR product) {_ms(lib_t)}")
+                print(f"bell2_spmv (B2) {tname} forms on {on} round {rnd}, "
+                      f"device ms (kernel): " + "; ".join(said)
+                      + f"; bound {bound:.4f} by {by_} ({card})",
+                      flush=True)
+            if on in ("cant_proxy NONE", "D3 general_asym P=4 shard 1"):
+                key = "bell2_spmv_bf16" if bf else "bell2_spmv"
+                extra[f"{key} on {on}"] = b2_row(sa, ds, on)
     # -- 4b. the bf16 instances against their twins, on the bf16 runs' plan
     # arrays and on replans over 8-tile blocks with absent rows, at B = 11
     # and 8 over planes, into NaN-poisoned outputs where a kernel writes
@@ -5168,7 +5687,9 @@ def main() -> int:
             (kern, "sbell_spmm_f64", "sbell_spmv_f64", "sbell_spmv_kernel"),
             (kern, "sdia_gen_mm_f64", "sdia_gen_f64", "sdia_gen_kernel")):
         t_mm = ks[mm]["device"].get(kernel)
-        t_mv = ks[mv]["device"].get(kernel)
+        # the float SpMV instance of the grid kernel is the ring kernel
+        t_mv = ks[mv]["device"].get(
+            "bell2_walks_kernel" if mv == "bell2_spmv" else kernel)
         print(f"MM({RHS}) vs {RHS}x SpMV device time, {kernel} on "
               f"{ks[mv]['on']}: MM({RHS}) {_ms(t_mm)} ms, SpMV {_ms(t_mv)} "
               f"ms, ratio MM / ({RHS} SpMV) "
@@ -5397,9 +5918,9 @@ def main() -> int:
                                     ops.pad_x(xe, d.x_rows))]
         _, by = _device_ms(
             torch, lambda: bk.bell2_spmv_tiles(*copy, **d.stream_kw()))
-        reads.append(_ms(by.get("bell2_spmv_kernel")))
+        reads.append(_ms(by.get("bell2_walks_kernel")))
         held.append(copy)  # the next copies land elsewhere
-    print(f"placement cant_proxy_none: bell2_spmv_kernel device ms on six "
+    print(f"placement cant_proxy_none: bell2_walks_kernel device ms on six "
           f"copies of one stream: {', '.join(reads)} ({card})", flush=True)
     del held, copy
     # the library call for each whole matrix: one sparse CSR product
@@ -5605,7 +6126,8 @@ def main() -> int:
     # -- 8. the distributed layer on P shards of card 0 ------------------
     dist_phase(torch, card, counted, oracle_ok,
                dict(cant=cant, audikw=audikw, gasym=gasym, st27=st27,
-                    nbp=nbp), runs, wrappers, launches, dist64)
+                    nbp=nbp), runs, wrappers, launches,
+               {**dist64, "D3 general_asym P=4": d3_op})
     phase_done("8 distributed")
 
     # -- 9. one NCCL rank over a process-group mesh ---------------------

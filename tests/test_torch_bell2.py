@@ -41,6 +41,11 @@ reference's gather followed by those ops bit for bit (``torch.equal``),
 on the audikw far stream and a degree-grouped plan over 8-tile blocks with
 an absent row range, SpMV and at B = 1, 3, 8, X at strides of its own.
 
+The walks of the CUDA kernels are modelled in numpy against the twins in
+float64: B5's (1-4 chunks a CTA, window sums handed over) and B2's (any
+chunks a walk, 8 walks a CTA whose first and last rows the CTA adds up in
+order, float32 and bf16 values).
+
 Tolerances: ``allclose_spmv`` at float32 with the backward-error scale
 (|vals| |x| through the float64 twin) for B2/B4/B5, whose summation order
 differs; B3 is a pure gather and must match exactly.
@@ -1020,6 +1025,179 @@ def test_sbell_walk_model_matches_twin(name, cpc, monkeypatch):
     _, _, adds1 = _sbell_walk(plan, x2d, 1)
     assert adds1 <= (1 + tw) * C
     assert adds <= adds1 and (cpc == 1 or adds < adds1)
+
+
+# -- the one-sided kernel's walks (B2 on the card), modelled on the CPU -----
+#
+# The CUDA kernel runs CTAs of 8 walk groups of 128 threads; group g of CTA
+# b walks the chunks [w * cpc, min((w + 1) * cpc, C)), w = 8 b + g, where
+# cpc is the fewest chunks a walk that keep every group resident at once
+# (the launcher's occupancy rule, with no cap), so any cpc >= 1 can occur,
+# and a walk may start and end inside a row's run of chunks; the last
+# CTA's last walks may be empty. A walk sums each chunk into a register of
+# its own and joins it to one running row sum; a row that begins and ends
+# inside the walk is flushed on the change of row, and the walk's first
+# and last rows are kept for the CTA, which adds them up in walk order, one
+# add per row and CTA. No sum that is exactly 0 is added. The model below
+# is that in numpy, walk by walk and CTA by CTA, in float64: every chunk
+# must lie in exactly one walk, the sums must give the twin's result, and
+# a row must take no more adds than there are CTAs holding a nonzero chunk
+# of it, so at most two where its nonzero chunks span 8 * cpc + 1 chunks
+# or fewer (then its bits do not depend on the order the CTAs finish).
+
+B2_GROUPS = 8
+
+
+def _bell2_walks(arrays, x2d, cpc):
+    """(y tiles, times each chunk was summed, adds into y per (tile,
+    lane), walks that start inside a row's run of chunks, CTAs holding a
+    nonzero chunk per tile) of the kernel's walks over ``arrays`` = (vals,
+    packed, meta, step_block, K, BT, contig, TP)."""
+    vals, packed, meta, sb, K, BT, contig, TP = arrays
+    C = meta.shape[0]
+    pk_all = packed.reshape(C, 8, 128).astype(np.int64)
+    v_all = vals.reshape(C, 8, 128)
+    tgt_all = sb.astype(np.int64)[np.arange(C) // K] * BT + meta[:, 0]
+    live = np.abs(v_all).reshape(C, -1).sum(axis=1) > 0
+    y = np.zeros((TP, 128))
+    seen = np.zeros(C, np.int64)
+    adds = np.zeros((TP, 128), np.int64)
+    holders = np.zeros(TP, np.int64)
+    mid = 0
+    zeros = np.zeros(128)
+
+    def add(row, s):
+        nz = s != 0
+        y[row, nz] += s[nz]
+        adds[row] += nz
+
+    walks = -(-C // cpc)
+    walks = -(-walks // B2_GROUPS) * B2_GROUPS
+    ends = []  # per walk: its first and last rows (-1: none) and sums
+    for w in range(walks):
+        c0 = w * cpc
+        mid += 0 < c0 < C and tgt_all[c0] == tgt_all[c0 - 1]
+        head = row = -1
+        head_sum = acc = zeros
+        for c in range(c0, min(c0 + cpc, C)):
+            seen[c] += 1
+            pk = pk_all[c]
+            q = pk & 0x7F
+            r2 = (np.take_along_axis(pk, q, axis=1) >> 7) & 0x1F
+            xrow = meta[c, 2] + r2 if contig else meta[c, 2 + (r2 & 7)]
+            own = (v_all[c] * x2d[xrow, q]).sum(axis=0)
+            if tgt_all[c] != row:
+                if row < 0:
+                    head = int(tgt_all[c])
+                elif row == head:
+                    head_sum = acc
+                else:
+                    add(row, acc)
+                row, acc = int(tgt_all[c]), zeros
+            acc = acc + own
+        one = row == head
+        ends += [(head, acc if one else head_sum),
+                 (-1 if one else row, zeros if one else acc)]
+    for k0 in range(0, 2 * walks, 2 * B2_GROUPS):  # one CTA
+        seq = [e for e in ends[k0:k0 + 2 * B2_GROUPS] if e[0] >= 0]
+        for k, (r, _) in enumerate(seq):
+            if k and seq[k - 1][0] == r:
+                continue  # an earlier entry's run adds it
+            s = zeros
+            for r_, s_ in seq[k:]:
+                if r_ != r:
+                    break
+                s = s + s_
+            add(r, s)
+        first = min(C, k0 // 2 * cpc)
+        rows = tgt_all[first:min(C, first + B2_GROUPS * cpc)]
+        holders[np.unique(rows[live[first:first + len(rows)]])] += 1
+    return y, seen, adds, mid, holders
+
+
+#: name -> (plan factory, contiguous windows, visited output blocks at
+#: least, some blocks unvisited, all-zero chunks: K-padding)
+B2_WALKS = {
+    "contig8": (_band(300), True, 1, False, True),
+    "listed": (_listed, False, 1, False, False),
+    "grouped": (_audikw_far, True, 1, False, True),
+    "deep16_holes_bt8": (_band_with_holes, True, 2, True, True),
+}
+_B2_PLANS = {}
+
+
+def _b2_plan(name):
+    if name not in _B2_PLANS:
+        _B2_PLANS[name] = B2_WALKS[name][0]()
+    return _B2_PLANS[name]
+
+
+@pytest.mark.parametrize("values", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cpc", [1, 2, 5, 7])
+@pytest.mark.parametrize("name", sorted(B2_WALKS))
+def test_bell2_walk_model_matches_twin(name, cpc, values):
+    """The kernel's walks, 8 a CTA, modelled in numpy, against the twin in
+    float64 (same products, another order: 1e-12 of |A| |x|), with float32
+    and with bf16 values (widened exactly), on contiguous and listed
+    windows, a degree-grouped stream and an 8-tile-block replan with an
+    absent row range (unvisited blocks, which the walks never add into);
+    three of the plans have K-padding chunks (all zero, forward-filled
+    meta), which add exactly 0."""
+    make, contig, blocks, holes, padded = B2_WALKS[name]
+    plan = _b2_plan(name)
+    ops.to_device(plan, "cpu")  # the upload's index checks pass
+    assert (plan.windows_contig or plan.window_depth > 8) == contig
+    K, BT = plan.chunks_per_step, plan.tiles_per_block
+    meta = np.asarray(plan.meta).astype(np.int64)
+    C = meta.shape[0]
+    sb = np.asarray(plan.step_block)
+    assert len(np.unique(sb)) >= blocks
+    TP = -(-plan.num_row_tiles // BT) * BT
+    vt = torch.from_numpy(np.asarray(plan.vals, np.float32))
+    if values == "bfloat16":
+        vt = vt.to(torch.bfloat16)
+    v64 = vt.double().numpy()
+    empty = np.abs(v64).reshape(C, -1).sum(axis=1) == 0
+    assert empty.any() == padded
+    x = np.random.default_rng(6).uniform(10.01, 20.42, plan.ncols)
+    x2d = np.zeros((plan.x_rows, 128))
+    x2d.reshape(-1)[: plan.ncols] = x
+    arrays = (v64, np.asarray(plan.packed), meta, sb, K, BT, contig, TP)
+    kw = dict(num_row_tiles=plan.num_row_tiles, chunks_per_step=K,
+              tiles_per_block=BT, contig=contig)
+    args = (torch.from_numpy(np.asarray(plan.packed)),
+            torch.from_numpy(np.asarray(plan.meta)),
+            torch.from_numpy(sb))
+    x2d_t = torch.from_numpy(x2d)
+    want = bk.bell2_spmv_tiles_plain(
+        vt, *args, x2d_t, out=torch.full((TP, 128), float("nan"),
+                                         dtype=torch.float64), **kw).numpy()
+    scale = bk.bell2_spmv_tiles_plain(vt.abs(), *args, x2d_t.abs(),
+                                      **kw).numpy()
+    in_blocks = (np.unique(sb)[:, None] * BT + np.arange(BT)).ravel()
+    visited = in_blocks[in_blocks < plan.num_row_tiles]
+    unvisited = np.setdiff1d(np.arange(TP), in_blocks)
+    assert (len(unvisited) > 0) == holes
+    assert np.isnan(want[unvisited[unvisited < plan.num_row_tiles]]).all()
+    # the span of each row's nonzero chunks, first to last
+    nz = np.abs(v64).reshape(C, -1).sum(axis=1) > 0
+    tgt = sb.astype(np.int64)[np.arange(C) // K] * BT + meta[:, 0]
+    first, last = np.full(TP, C), np.full(TP, -1)
+    np.minimum.at(first, tgt[nz], np.nonzero(nz)[0])
+    np.maximum.at(last, tgt[nz], np.nonzero(nz)[0])
+    short = last - first < B2_GROUPS * cpc + 1  # spans 8 cpc + 1 or fewer
+    y, seen, adds, mid, holders = _bell2_walks(arrays, x2d, cpc)
+    assert np.array_equal(seen, np.ones(C, np.int64))
+    err = np.abs(y[visited] - want[visited])
+    assert (err <= 1e-12 * np.maximum(scale[visited], 1e-300)).all()
+    assert not y[unvisited].any() and not adds[unvisited].any()
+    assert (adds <= holders[:, None]).all()  # padding adds nothing
+    assert (adds[short] <= 2).all()
+    if cpc > 1:
+        assert mid > 0  # walks that start inside a row's chunks
+    # CTAs of longer walks have fewer edges: no more adds than CTAs of one
+    # chunk a walk make
+    assert adds.sum() <= _bell2_walks(arrays, x2d, 1)[2].sum()
 
 
 # -- the fused unpermute forms of the symmetric applier (B3/B9) -------------

@@ -292,7 +292,9 @@ __global__ void sdia_sym_kernel(const V* __restrict__ vals,
 //   (general_asym()). A CTA is kGenThreads threads, 256 / kSlices rows.
 // The double instance (T = double, the float64 distributed operator's
 // mirrored diagonals) reads an interleaved X of doubles in 16-byte loads
-// (two per 4 planes), otherwise the same.
+// (two per 4 planes), otherwise the same; where the plan's offsets span
+// little, sdia_gen_staged_kernel below runs in its place, and this one is
+// its form of comparison in chip_smoke.py.
 // The one-plane, one-slice instance is B6's code as it was. At 8 planes on
 // general_asym() the kernel takes 0.0204 ms storing and 0.0272 adding
 // (bounds 0.0141 and 0.0190); on mirrored cant_proxy() 2 slices take
@@ -356,6 +358,119 @@ __global__ void sdia_gen_kernel(const V* __restrict__ vals,
       const int64_t row = static_cast<int64_t>(blockIdx.x) * kRows + k;
       if (!live<kRhs>(b, nr) || row >= n_rows) continue;
       T sum = sums[0][b][k];
+#pragma unroll
+      for (int t = 1; t < kSlices; ++t) sum += sums[t][b][k];
+      if constexpr (kStore)
+        y[b * ys + row] = sum;
+      else
+        y[b * ys + row] += sum;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// sdia_gen_staged — the double instance of sdia_gen_tiles_mm (B12 f64) and
+// sdia_gen_tiles (B6 f64) on a plan whose signed offsets span at most
+// kGenSpan: the float64 DistSpDMV's mirrored diagonals of a banded shard
+// (cant's +-1..32).
+//
+// What bounds it on this card. The values are read once, coalesced: on D1's
+// mirrored shard 1 (16,384 rows, 64 diagonals) 8.4 MB, which stays in the
+// L2. sdia_gen_kernel reads each diagonal's x of 8 interleaved double planes
+// as four 16-byte loads a row, lanes 64 bytes apart: each load of a warp
+// spans 16 L1 lines, so x costs four times the L1 wavefronts its 2 KB need,
+// eight times the bytes of the values.
+//
+// What the design does about it. A CTA of kGenThreads threads takes
+// kGenThreads / kSlices rows and first stages its window of X in shared
+// memory, once: the rows [r0 - hi, r0 + rows - lo) of each plane (hi, lo
+// the largest and smallest offset), zero outside x, copied from the
+// interleaved X (or the plane) in coalesced 16-byte loads and laid out
+// plane by plane, so that a warp's reads of a diagonal's x are 8 bytes a
+// lane on consecutive addresses, no bank conflict. Then every diagonal
+// reads x there and its value once from global memory, and the slices' sums
+// meet as in sdia_gen_kernel: no atomics, y the same bit for bit from run
+// to run. The upload decides once a plan whether it stages
+// (sdia_kernel.gen_window: span = hi - lo <= kGenSpan); other plans, and
+// every float and bf16 plan, run sdia_gen_kernel. Device ms on D1's shard
+// 1, storing (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): at 8 planes
+// 0.0049-0.0051 at 4 slices (sdia_kernel.stage_slices), where
+// sdia_gen_kernel took 0.0104-0.0115 at 2 slices; at one plane
+// 0.0028-0.0030 against 0.0049-0.0055. 1, 2 and 8 slices staged ran
+// slower than 4; at the same slices the staged sums equal sdia_gen_kernel's
+// bit for bit.
+// ---------------------------------------------------------------------------
+constexpr int kGenSpan = 128;
+
+template <int kRhs, int kSlices, bool kStore>
+__global__ void __launch_bounds__(kGenThreads)
+sdia_gen_staged_kernel(const double* __restrict__ vals,
+                       const int* __restrict__ offsets, int D,
+                       int64_t nv_rows, int64_t n_rows,
+                       const double* __restrict__ x, int64_t x_len, int hi,
+                       int span, double* __restrict__ y, int64_t ys, int nr) {
+  constexpr int kRows = kGenThreads / kSlices;
+  constexpr int kWin = kRows + kGenSpan;
+  constexpr int kPairs = kRhs > 1 ? kRhs / 2 : 1;  // 16-byte loads a row
+  // x[r0 - hi + k] of plane b at xsh[b][k]
+  __shared__ __align__(16) double xsh[kRhs][kWin];
+  __shared__ double sums[kSlices > 1 ? kSlices : 1][kSlices > 1 ? kRhs : 1]
+                        [kSlices > 1 ? kRows : 1];
+  const int r = threadIdx.x % kRows, s = threadIdx.x / kRows;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRows;
+  const int64_t base = r0 - hi;
+  const int width = kRows + span;
+  for (int i = threadIdx.x; i < width * kPairs; i += kGenThreads) {
+    const int k = i / kPairs, p = i % kPairs;
+    const int64_t src = base + k;
+    const bool in = src >= 0 && src < x_len;
+    if constexpr (kRhs == 1) {
+      xsh[0][k] = in ? x[src] : 0.0;
+    } else {
+      const double2 v = in ? reinterpret_cast<const double2*>(
+                                 x + src * kRhs)[p]
+                           : make_double2(0.0, 0.0);
+      xsh[2 * p][k] = v.x;
+      xsh[2 * p + 1][k] = v.y;
+    }
+  }
+  __syncthreads();
+  const int64_t g = r0 + r;
+  double acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0;
+  if (g < nv_rows && g < n_rows) {
+    const double* vg =
+        vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
+    const int k0 = r + hi;  // x[g - d] sits at xsh[.][k0 - d]
+#pragma unroll 4
+    for (int j = s; j < D; j += kSlices) {
+      const int k = k0 - offsets[j];
+      const double v = vg[static_cast<int64_t>(j) * kBlockRows];
+#pragma unroll
+      for (int b = 0; b < kRhs; ++b)
+        if (live<kRhs>(b, nr)) acc[b] = fma(v, xsh[b][k], acc[b]);
+    }
+  }
+  if constexpr (kSlices == 1) {
+    if (g >= n_rows) return;
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b)
+      if (live<kRhs>(b, nr)) {
+        if constexpr (kStore)
+          y[b * ys + g] = acc[b];
+        else
+          y[b * ys + g] += acc[b];
+      }
+  } else {
+#pragma unroll
+    for (int b = 0; b < kRhs; ++b) sums[s][b][r] = acc[b];
+    __syncthreads();
+    for (int i = threadIdx.x; i < kRhs * kRows; i += kGenThreads) {
+      const int b = i / kRows, k = i % kRows;
+      const int64_t row = r0 + k;
+      if (!live<kRhs>(b, nr) || row >= n_rows) continue;
+      double sum = sums[0][b][k];
 #pragma unroll
       for (int t = 1; t < kSlices; ++t) sum += sums[t][b][k];
       if constexpr (kStore)
@@ -786,11 +901,9 @@ bell2_entries_kernel(const int* __restrict__ rows,
 //   walk may start and end between any two chunks.
 //
 // The double instance (T = double, the float64 distributed operator's
-// paired shards) stages doubles: at TW = 4 and 8 planes its arrays would
-// take 84 KB of shared memory, past the 48 KB a CTA takes statically, so
-// its launcher serves groups of at most 4 planes (an SpMM of 8 reads the
-// stream twice), and at 4 planes it keeps the transpose sums in registers
-// (32 KB of shared memory for the staged tiles).
+// paired shards) runs this kernel at one plane (B5 f64). Over planes it
+// runs sbell_planes_kernel below (B10 f64), one launch and one zero pass a
+// group of up to 8 planes.
 //
 // The TPU zeroes each block at its first grid step and relies on steps
 // running in order; here the whole output is zeroed first in a launch of
@@ -832,11 +945,12 @@ sbell_spmv_kernel(const V* __restrict__ vals,
                   const int* __restrict__ step_block, int64_t C, int K,
                   int BT, int cpc, const T* __restrict__ x, int64_t xs,
                   T* __restrict__ y, int64_t ys, int nr) {
-  // the double instance at 4 planes keeps its transpose sums in registers
+  // a double instance at 4 planes keeps its transpose sums in registers
   // too: its staged tiles take 32 KB, and the sums would take 16 KB more
   constexpr bool kRegSums = kRhs <= 2 || (sizeof(T) == 8 && kRhs <= 4);
   // at most 48 KB of static shared memory: a double instance serves up to
-  // 4 planes (kMaxRhsPaired)
+  // 4 planes (the port launches it at one; the 2- and 4-plane ones are the
+  // form before sbell_planes_kernel, which chip_smoke.py times beside it)
   static_assert(sizeof(T) == 4 || kRhs <= 4, "too many planes in double");
   __shared__ int r2s[kSublanes][kLanes];
   __shared__ T vs[kSublanes][kLanes];
@@ -958,7 +1072,284 @@ sbell_spmv_kernel(const V* __restrict__ vals,
 }
 
 // ---------------------------------------------------------------------------
-// unperm_gather — replaces cfs_spmv_tpu/ops/bell2_kernel.py:
+// sbell_planes — the double instance of sbell_spmm_tiles (B10 f64, the
+// float64 DistSpDMV's paired shards over planes): sbell_spmv_kernel's walk,
+// staging and hand-overs over a group of up to 8 double planes.
+//
+// What bounds it on this card. A paired shard's stream fits the L2 (D5's
+// shard 1: 1,024 chunks, 12 KB each); at 8 double planes each chunk also
+// needs (TW + 1) x tiles of 8 KB, and each slot two gathers of 64 bytes
+// from shared memory. The form before this one (sbell_spmv_kernel over
+// double) took at most 4 planes a launch, its static shared memory capped
+// at 48 KB, so a group of 8 was two launches and two zero passes that read
+// the stream twice, and it restaged every x tile at every chunk.
+//
+// What the design does about it.
+// - One launch and one zero pass a group of up to 8 planes: the chunk's
+//   words, values and x tiles live in dynamic shared memory
+//   (PlanesLayout::kBytes: 36 KB at TW = 2 and 8 planes; 84 KB at TW = 4,
+//   whose transpose sums go there too), raised past 48 KB by
+//   cudaFuncSetAttribute before each launch. A refused attribute or launch
+//   is returned, and the wrapper raises.
+// - x tiles staged on a change only: a chunk restages its own tile when its
+//   row tile is not the previous chunk's of the walk, and window slot t's
+//   tiles when the slot's tile changes, which is when the row sums and the
+//   slot's transpose sums are handed over (on a paired shard a window
+//   moves on by a tile at almost every chunk, so this saves little there).
+// - x tiles read as 16-byte pairs of planes (PlanesTiles, kPairs): a
+//   slot's gather of 8 planes is 4 loads, not 8, in a swizzle that keeps
+//   8 lanes reading one pair in 8 places of a row of banks.
+// - The walk is the fewest chunks a CTA that keep every CTA resident at
+//   once, the occupancy counted with the dynamic shared memory
+//   (walk_for), at most kMaxWalk.
+// Sums and hand-overs are sbell_spmv_kernel's, plane by plane.
+//
+// Device ms on D5's shard 1 at 8 planes (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md §6): 0.0124-0.0128 and one zero pass of 0.0011-0.0012, where
+// the form before took 0.0185-0.0188 in two launches and two zero passes
+// of 0.0021-0.0022 together. That is about three times its bound: a chunk is
+// a chain (meta, then its x tiles, a barrier, the gathers and sums, a
+// barrier), and 127 registers a thread leave 4 CTAs an SM, too few to hide
+// it; the x tiles change at almost every chunk (a window moves on by a
+// tile), so keeping them saves little. Measured beside it and slower, as
+// forms of comparison (chip_smoke.py's F64_FORMS_SRC): kPairs = false, x
+// read plane by plane; kGroups = 2, two groups of 128 threads sharing a
+// chunk's planes (79 registers, but each group repeats the chunk's chain);
+// kKeep = false, every tile restaged at every chunk; walks of 1, 3, 4, 8.
+// ---------------------------------------------------------------------------
+template <int TW, int kRhs, int kGroups>
+struct PlanesLayout {
+  static constexpr int kPlanes = kRhs / kGroups;  // planes a thread serves
+  static_assert(kPlanes * kGroups == kRhs, "planes split evenly");
+  // transpose sums per window slot in registers where they fit
+  static constexpr bool kRegSums = TW * kPlanes <= 16;
+  // doubles: the chunk's values, its own x tile and its window tiles of
+  // every plane, the transpose sums where registers do not hold them; then
+  // the chunk's packed words
+  static constexpr int kDoubles =
+      (kSublanes + kRhs + kRhs * TW + (kRegSums ? 0 : kRhs * TW)) * kLanes;
+  static constexpr size_t kBytes =
+      kDoubles * sizeof(double) + kSublanes * kLanes * sizeof(int);
+};
+
+// The kP planes from b0 of a group of nr: one atomicAdd per live plane
+// whose sum is not 0.
+template <int kP>
+__device__ __forceinline__ void flush_planes(double* y, int64_t ys,
+                                             int64_t at, int b0,
+                                             const double (&s)[kP], int nr) {
+#pragma unroll
+  for (int p = 0; p < kP; ++p)
+    if (b0 + p < nr && s[p] != 0.0) atomicAdd(y + (b0 + p) * ys + at, s[p]);
+}
+
+// The staged x tiles of a chunk: tile 0 its own, tile 1 + t window slot
+// t's, each kRhs planes of 128 lanes. Plane by plane (kPairs false), or
+// (kPairs) as the 16-byte pairs of planes (2p, 2p + 1) of a lane side by
+// side, pair p of lane l in place p ^ swz(l), so that 8 lanes reading one
+// pair fall in 8 distinct places of a 128-byte row of banks.
+template <int kRhs, bool kPairs>
+struct PlanesTiles {
+  static constexpr int kP2 = kRhs / 2;  // pairs of planes
+  static_assert(!kPairs || (kRhs >= 2 && kRhs % 2 == 0), "pairs of planes");
+  __device__ static __forceinline__ int swz(int l) {
+    return kP2 > 1 ? (l / (8 / kP2)) & (kP2 - 1) : 0;
+  }
+  // plane b of lane l, in doubles from the tile's start
+  __device__ static __forceinline__ int at(int l, int b) {
+    if constexpr (kPairs)
+      return 2 * (l * kP2 + ((b >> 1) ^ swz(l))) + (b & 1);
+    else
+      return b * kLanes + l;
+  }
+  // planes (2p, 2p + 1) of lane l of the tile at ``tile``
+  __device__ static __forceinline__ double2 pair(const double* tile, int l,
+                                                 int p) {
+    return reinterpret_cast<const double2*>(tile)[l * kP2 + (p ^ swz(l))];
+  }
+};
+
+// kPairs = true (what ships) reads x tiles as pairs of planes; kKeep =
+// false (restaging every tile at every chunk), kPairs = false and kGroups
+// = 2 are forms of comparison.
+template <int TW, int kRhs, int kGroups, bool kKeep = true,
+          bool kPairs = false>
+__global__ void __launch_bounds__(kLanes * kGroups)
+sbell_planes_kernel(const double* __restrict__ vals,
+                    const int* __restrict__ packed,
+                    const int* __restrict__ meta,
+                    const int* __restrict__ step_block, int64_t C, int K,
+                    int BT, int cpc, const double* __restrict__ x,
+                    int64_t xs, double* __restrict__ y, int64_t ys, int nr) {
+  using L = PlanesLayout<TW, kRhs, kGroups>;
+  using X = PlanesTiles<kRhs, kPairs>;
+  constexpr int kP = L::kPlanes;
+  constexpr int kTile = kRhs * kLanes;  // doubles a staged tile
+  static_assert(!kPairs || kGroups == 1, "pairs of planes: one group");
+  extern __shared__ __align__(16) unsigned char planes_smem[];
+  double* vs = reinterpret_cast<double*>(planes_smem);  // [8][128]
+  double* xt = vs + kSublanes * kLanes;  // [1 + TW] tiles
+  double* tsm = xt + (1 + TW) * kTile;   // [kRhs][TW][128], !kRegSums
+  int* pks = reinterpret_cast<int*>(vs + L::kDoubles);  // [8][128]
+  const int lane = threadIdx.x % kLanes, grp = threadIdx.x / kLanes;
+  const int b0 = grp * kP;  // the first of this thread's planes
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * cpc;
+  const int64_t c1 = c0 + cpc < C ? c0 + cpc : C;
+  int64_t row = -1;  // y tile of the running row sums (and of tile 0)
+  double acc[kP];
+  int wt[TW];  // y tile of each window slot's sums (and of its tile)
+  double ts[L::kRegSums ? TW : 1][kP];
+  // x tile ``tile`` of every live plane into staged tile u (planes split
+  // over the groups; 0 for planes past nr)
+  auto stage = [&](int u, int64_t tile) {
+    double* d = xt + u * kTile;
+    const double* src = x + tile * kLanes + lane;
+    if constexpr (kPairs) {
+#pragma unroll
+      for (int p = 0; p < X::kP2; ++p)
+        reinterpret_cast<double2*>(d)[lane * X::kP2 + (p ^ X::swz(lane))] =
+            make_double2(2 * p < nr ? src[2 * p * xs] : 0.0,
+                         2 * p + 1 < nr ? src[(2 * p + 1) * xs] : 0.0);
+    } else {
+      for (int b = grp; b < kRhs && b < nr; b += kGroups)
+        d[X::at(lane, b)] = src[b * xs];
+    }
+  };
+#pragma unroll
+  for (int p = 0; p < kP; ++p) acc[p] = 0.0;
+#pragma unroll
+  for (int t = 0; t < TW; ++t) {
+    wt[t] = -1;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      if constexpr (L::kRegSums)
+        ts[t][p] = 0.0;
+      else
+        tsm[((b0 + p) * TW + t) * kLanes + lane] = 0.0;
+    }
+  }
+  for (int64_t c = c0; c < c1; ++c) {
+    const int* m = meta + c * kMetaW;
+    int w[TW];
+#pragma unroll
+    for (int t = 0; t < TW; ++t) w[t] = m[2 + t];
+    const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
+    const int64_t slot0 = c * kSublanes * kLanes + lane;
+    for (int i = grp; i < kSublanes; i += kGroups) {
+      pks[i * kLanes + lane] = packed[slot0 + i * kLanes];
+      vs[i * kLanes + lane] = vals[slot0 + i * kLanes];
+    }
+    if (!kKeep || tgt != row) stage(0, tgt);
+#pragma unroll
+    for (int t = 0; t < TW; ++t)
+      if (!kKeep || w[t] != wt[t]) stage(1 + t, w[t]);
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < TW; ++t)
+      if (w[t] != wt[t]) {
+        double s[kP];
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          if constexpr (L::kRegSums) {
+            s[p] = ts[t][p];
+            ts[t][p] = 0.0;
+          } else {
+            double* at = tsm + ((b0 + p) * TW + t) * kLanes + lane;
+            s[p] = *at;
+            *at = 0.0;
+          }
+        }
+        if (wt[t] == row) {
+#pragma unroll
+          for (int p = 0; p < kP; ++p) acc[p] += s[p];
+        } else if (wt[t] >= 0) {
+          flush_planes<kP>(y, ys, static_cast<int64_t>(wt[t]) * kLanes + lane,
+                           b0, s, nr);
+        }
+        wt[t] = w[t];
+      }
+    if (tgt != row) {
+      if (row >= 0) flush_planes<kP>(y, ys, row * kLanes + lane, b0, acc, nr);
+      row = tgt;
+#pragma unroll
+      for (int p = 0; p < kP; ++p) acc[p] = 0.0;
+    }
+#pragma unroll
+    for (int i = 0; i < kSublanes; ++i) {
+      const int pk = pks[i * kLanes + lane];
+      const double v = vs[i * kLanes + lane];
+      const int q = pk & 0x7F;
+      const int r2 = (pks[i * kLanes + q] >> 7) & 7;
+      if (r2 < TW) {
+        const double* tile = xt + (1 + r2) * kTile;
+        if constexpr (kPairs) {
+#pragma unroll
+          for (int p = 0; p < X::kP2; ++p) {
+            const double2 xv = X::pair(tile, q, p);
+            acc[2 * p] = fma(v, xv.x, acc[2 * p]);
+            acc[2 * p + 1] = fma(v, xv.y, acc[2 * p + 1]);
+          }
+        } else {
+#pragma unroll
+          for (int p = 0; p < kP; ++p)
+            if (b0 + p < nr)
+              acc[p] = fma(v, tile[X::at(q, b0 + p)], acc[p]);
+        }
+      }
+      const int t2 = (pk >> 7) & 7;
+      if (t2 < TW) {
+        const int src = (pk >> 10) & 0x7F;
+        const double tv = vs[i * kLanes + src];
+        double prod[kP];
+        if constexpr (kPairs) {
+#pragma unroll
+          for (int p = 0; p < X::kP2; ++p) {
+            const double2 xv = X::pair(xt, src, p);
+            prod[2 * p] = tv * xv.x;
+            prod[2 * p + 1] = tv * xv.y;
+          }
+        } else {
+#pragma unroll
+          for (int p = 0; p < kP; ++p)
+            prod[p] = b0 + p < nr ? tv * xt[X::at(src, b0 + p)] : 0.0;
+        }
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          if constexpr (L::kRegSums) {
+#pragma unroll
+            for (int t = 0; t < TW; ++t)
+              if (t2 == t) ts[t][p] += prod[p];
+          } else {
+            tsm[((b0 + p) * TW + t2) * kLanes + lane] += prod[p];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next chunk overwrites the staged words
+  }
+#pragma unroll
+  for (int t = 0; t < TW; ++t) {
+    double s[kP];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      if constexpr (L::kRegSums)
+        s[p] = ts[t][p];
+      else
+        s[p] = tsm[((b0 + p) * TW + t) * kLanes + lane];
+    }
+    if (wt[t] == row) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) acc[p] += s[p];
+    } else if (wt[t] >= 0) {
+      flush_planes<kP>(y, ys, static_cast<int64_t>(wt[t]) * kLanes + lane,
+                       b0, s, nr);
+    }
+  }
+  if (row >= 0) flush_planes<kP>(y, ys, row * kLanes + lane, b0, acc, nr);
+}
+
+// ---------------------------------------------------------------------------
+// unperm_gather —replaces cfs_spmv_tpu/ops/bell2_kernel.py:
 // unperm_gather_tiles (B3) and, over planes, unperm_gather_tiles_mm (B9).
 //
 // Original-order y from a degree-grouped stream's compact tiles: output row
@@ -1091,21 +1482,62 @@ void launch_sdia_gen(const GenArgs<T, V>& a, cudaStream_t stream) {
                    a.y, a.ys, a.nr);
 }
 
-// slices: 1 or 2 threads a row (sdia_kernel.gen_slices); store: write
-// the y_len rows of each plane (0 past nv_rows) instead of adding into the
-// rows below nv_rows. x: the plane (nr = 1) or the group's interleaved (x_len,
-// R) block, R the instance's width (xs is not read).
+template <int R, int kSlices, bool kStore>
+void launch_sdia_staged(const GenArgs<double, double>& a, int hi, int span,
+                        cudaStream_t stream) {
+  sdia_gen_staged_kernel<R, kSlices, kStore>
+      <<<blocks_for(a.n_rows, kGenThreads / kSlices), kGenThreads, 0,
+         stream>>>(a.vals, a.offsets, a.D, a.nv_rows, a.n_rows, a.x, a.x_len,
+                   hi, span, a.y, a.ys, a.nr);
+}
+
+// sdia_gen_staged_kernel at 1, 2, 4 or 8 slices; false for another count.
+template <int R, bool kStore>
+bool launch_staged_slices(const GenArgs<double, double>& a, int slices,
+                          int hi, int span, cudaStream_t stream) {
+  switch (slices) {
+    case 1: launch_sdia_staged<R, 1, kStore>(a, hi, span, stream); break;
+    case 2: launch_sdia_staged<R, 2, kStore>(a, hi, span, stream); break;
+    case 4: launch_sdia_staged<R, 4, kStore>(a, hi, span, stream); break;
+    case 8: launch_sdia_staged<R, 8, kStore>(a, hi, span, stream); break;
+    default: return false;
+  }
+  return true;
+}
+
+// slices: threads a row, 1 or 2 (sdia_kernel.gen_slices), or, staged, 1,
+// 2, 4 or 8 (sdia_kernel.stage_slices); store: write the y_len rows of
+// each plane (0 past nv_rows) instead of adding into the rows below
+// nv_rows. x: the plane (nr = 1) or the group's interleaved (x_len, R)
+// block, R the instance's width (xs is not read). span >= 0 (double only,
+// at most kGenSpan): stage x over the offsets' window, hi the largest
+// offset and span the largest less the smallest (sdia_kernel.gen_window).
 template <typename T, typename V>
 int run_sdia_gen(const V* vals, const int* offsets, int D, int64_t nv_rows,
-                 int64_t y_len, int64_t x_len, int slices, int store,
-                 const T* x, T* y, int64_t ys, int nr, cudaStream_t stream) {
-  if (slices != 1 && slices != 2) return invalid();
+                 int64_t y_len, int64_t x_len, int slices, int store, int hi,
+                 int span, const T* x, T* y, int64_t ys, int nr,
+                 cudaStream_t stream) {
+  constexpr bool kDouble = std::is_same_v<T, double>;
+  const bool staged = span >= 0;
+  if (staged ? !kDouble || span > kGenSpan
+             : slices != 1 && slices != 2)
+    return invalid();
   const int64_t n_rows = store || y_len < nv_rows ? y_len : nv_rows;
+  bool fit = true;
   const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
     if (n_rows <= 0 || (D <= 0 && !store)) return;
     const GenArgs<T, V> a{vals, offsets, D, nv_rows, n_rows, x, x_len, y, ys,
                           nr};
+    if constexpr (kDouble) {
+      if (staged) {
+        fit = store ? launch_staged_slices<R, true>(a, slices, hi, span,
+                                                    stream)
+                    : launch_staged_slices<R, false>(a, slices, hi, span,
+                                                     stream);
+        return;
+      }
+    }
     if (store)
       slices == 1 ? launch_sdia_gen<R, 1, true>(a, stream)
                   : launch_sdia_gen<R, 2, true>(a, stream);
@@ -1113,20 +1545,22 @@ int run_sdia_gen(const V* vals, const int* offsets, int D, int64_t nv_rows,
       slices == 1 ? launch_sdia_gen<R, 1, false>(a, stream)
                   : launch_sdia_gen<R, 2, false>(a, stream);
   });
-  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+  return ok && fit ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
 // Chunks a walk of ``kernel`` takes on a stream of C chunks, for CTAs of
 // ``groups`` walks of 128 threads: the fewest that make every walk resident
 // at once (one wave, no tail), and at most max_walk, past which a longer
-// walk only lengthens its chain of dependent loads.
+// walk only lengthens its chain of dependent loads. ``threads`` (default
+// 128 a walk) and ``smem`` (dynamic shared memory) of one CTA.
 template <class Kernel>
-int walk_for(Kernel kernel, int64_t C, int max_walk, int groups = 1) {
+int walk_for(Kernel kernel, int64_t C, int max_walk, int groups = 1,
+             int threads = 0, size_t smem = 0) {
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                kLanes * groups, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, threads > 0 ? threads : kLanes * groups, smem);
   const int64_t resident = static_cast<int64_t>(sms) * per_sm * groups;
   if (resident <= 0 || C > resident * max_walk) return max_walk;
   return C <= resident ? 1 : static_cast<int>((C + resident - 1) / resident);
@@ -1257,37 +1691,90 @@ void launch_sbell(const V* vals, const int* packed, const int* meta,
       vals, packed, meta, step_block, C, K, BT, cpc, x, xs, y, ys, nr);
 }
 
-// The widest instance of the paired kernel in each sum type: its staged x
-// tiles and transpose sums of 8 double planes would need 84 KB of shared
-// memory, past the 48 KB a CTA takes statically, so the double launcher
-// serves groups of at most 4 planes (_cuda.PAIRED_F64_GROUP).
-template <typename T>
-constexpr int kMaxRhsPaired = sizeof(T) == 4 ? kMaxRhs : 4;
+// The form of sbell_planes_kernel that ships: one group of 128 threads a
+// CTA (two, sharing the planes, measured slower), x read as pairs of planes
+// (plane by plane measured slower; chip_smoke.py's F64_FORMS_SRC).
+constexpr int kPlanesGroups = 1;
+constexpr bool kPlanesPairs = true;
 
-// tiles: the rows of 128 of each output plane, all zeroed first.
+// Raises the dynamic shared memory sbell_planes_kernel<TW, R, G, kKeep>
+// may take to what it takes (past the 48 KB a CTA has by default).
+template <int TW, int R, int G, bool kKeep = true, bool kPairs = false>
+cudaError_t planes_attr() {
+  return cudaFuncSetAttribute(
+      sbell_planes_kernel<TW, R, G, kKeep, kPairs>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(PlanesLayout<TW, R, G>::kBytes));
+}
+
+// Chunks a CTA of sbell_planes_kernel<TW, R, G, kKeep> walks on C chunks
+// (after planes_attr).
+template <int TW, int R, int G, bool kKeep = true, bool kPairs = false>
+int planes_walk(int64_t C) {
+  return walk_for(sbell_planes_kernel<TW, R, G, kKeep, kPairs>, C, kMaxWalk, 1,
+                  kLanes * G, PlanesLayout<TW, R, G>::kBytes);
+}
+
+// sbell_planes_kernel over a group of nr <= R planes, walking cpc chunks
+// a CTA (0: planes_walk); returns a refused attribute or launch.
+template <int TW, int R, int G, bool kKeep = true, bool kPairs = false>
+cudaError_t launch_sbell_planes(const double* vals, const int* packed,
+                                const int* meta, const int* step_block,
+                                int64_t C, int K, int BT, int cpc,
+                                const double* x, int64_t xs, double* y,
+                                int64_t ys, int nr, cudaStream_t stream) {
+  const cudaError_t err = planes_attr<TW, R, G, kKeep, kPairs>();
+  if (err != cudaSuccess) return err;
+  if (cpc < 1) cpc = planes_walk<TW, R, G, kKeep, kPairs>(C);
+  sbell_planes_kernel<TW, R, G, kKeep, kPairs>
+      <<<blocks_for(C, cpc), kLanes * G, PlanesLayout<TW, R, G>::kBytes,
+         stream>>>(vals, packed, meta, step_block, C, K, BT, cpc, x, xs, y,
+                   ys, nr);
+  return cudaGetLastError();
+}
+
+// tiles: the rows of 128 of each output plane, all zeroed first. One plane
+// runs sbell_spmv_kernel; more than one in double sbell_planes_kernel.
 template <typename T, typename V>
 int run_sbell(const V* vals, const int* packed, const int* meta,
               const int* step_block, int64_t C, int K, int BT, int TW,
               int64_t tiles, const T* x, int64_t xs, T* y, int64_t ys, int nr,
               cudaStream_t stream) {
   if (TW != 2 && TW != 4) return invalid();
-  cudaError_t zeroed = cudaSuccess;
-  const bool ok = with_rhs<kMaxRhsPaired<T>>(nr, [&](auto r) {
+  cudaError_t err = cudaSuccess;
+  const bool ok = with_rhs(nr, [&](auto r) {
     constexpr int R = decltype(r)::value;
     if (C <= 0) return;
     const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(T);
-    zeroed = cudaMemset2DAsync(y, nr == 1 ? width : ys * sizeof(T), 0, width,
-                               nr, stream);
-    if (zeroed != cudaSuccess) return;
-    if (TW == 2)
+    err = cudaMemset2DAsync(y, nr == 1 ? width : ys * sizeof(T), 0, width,
+                            nr, stream);
+    if (err != cudaSuccess) return;
+    if constexpr (std::is_same_v<T, double> && R > 1) {
+      err = TW == 2
+                ? launch_sbell_planes<2, R, kPlanesGroups, true, kPlanesPairs>(
+                      vals, packed, meta, step_block, C, K, BT, 0, x, xs, y,
+                      ys, nr, stream)
+                : launch_sbell_planes<4, R, kPlanesGroups, true, kPlanesPairs>(
+                      vals, packed, meta, step_block, C, K, BT, 0, x, xs, y,
+                      ys, nr, stream);
+    } else if (TW == 2) {
       launch_sbell<2, R, T>(vals, packed, meta, step_block, C, K, BT, x, xs,
                             y, ys, nr, stream);
-    else
+    } else {
       launch_sbell<4, R, T>(vals, packed, meta, step_block, C, K, BT, x, xs,
                             y, ys, nr, stream);
+    }
   });
-  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+}
+
+// Shared memory a CTA of ``kernel`` takes: its static arrays and ``dyn``.
+template <class Kernel>
+int smem_of(Kernel kernel, size_t dyn = 0) {
+  cudaFuncAttributes fa{};
+  if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) return -1;
+  return static_cast<int>(fa.sharedSizeBytes + dyn);
 }
 
 }  // namespace
@@ -1324,33 +1811,55 @@ int cfs_sdia_sym_bf16(const __nv_bfloat16* vals, const int* offsets, int D,
 
 // The signed diagonal kernel (run_sdia_gen above) over float, double or
 // bf16 values; xs is not read. In double, x is the plane or the group's
-// interleaved block of doubles (read in 16-byte loads).
+// interleaved block of doubles (read in 16-byte loads), and span >= 0
+// stages it (hi, span: run_sdia_gen); float and bf16 take span = -1.
 int cfs_sdia_gen(const float* vals, const int* offsets, int D, int64_t nv_rows,
-                 int64_t y_len, int64_t x_len, int slices, int store,
-                 const float* x, int64_t xs, float* y, int64_t ys, int nr,
-                 cudaStream_t stream) {
+                 int64_t y_len, int64_t x_len, int slices, int store, int hi,
+                 int span, const float* x, int64_t xs, float* y, int64_t ys,
+                 int nr, cudaStream_t stream) {
   return run_sdia_gen(vals, offsets, D, nv_rows, y_len, x_len, slices, store,
-                      x, y, ys, nr, stream);
+                      hi, span, x, y, ys, nr, stream);
 }
 
 int cfs_sdia_gen_f64(const double* vals, const int* offsets, int D,
                      int64_t nv_rows, int64_t y_len, int64_t x_len,
-                     int slices, int store, const double* x, int64_t xs,
-                     double* y, int64_t ys, int nr, cudaStream_t stream) {
+                     int slices, int store, int hi, int span,
+                     const double* x, int64_t xs, double* y, int64_t ys,
+                     int nr, cudaStream_t stream) {
   return run_sdia_gen(vals, offsets, D, nv_rows, y_len, x_len, slices, store,
-                      x, y, ys, nr, stream);
+                      hi, span, x, y, ys, nr, stream);
 }
 
 int cfs_sdia_gen_bf16(const __nv_bfloat16* vals, const int* offsets, int D,
                       int64_t nv_rows, int64_t y_len, int64_t x_len,
-                      int slices, int store, const float* x, int64_t xs,
-                      float* y, int64_t ys, int nr, cudaStream_t stream) {
+                      int slices, int store, int hi, int span,
+                      const float* x, int64_t xs, float* y, int64_t ys,
+                      int nr, cudaStream_t stream) {
   return run_sdia_gen(vals, offsets, D, nv_rows, y_len, x_len, slices, store,
-                      x, y, ys, nr, stream);
+                      hi, span, x, y, ys, nr, stream);
 }
 
-// The paired stream (run_sbell above) over float, double or bf16 values;
-// the double one takes groups of at most 4 planes.
+// Shared memory a CTA of the double signed diagonal kernel takes for a
+// group of nr planes at ``slices``, staged (1) or not (0); -1 for no
+// instance.
+int cfs_sdia_gen_smem_f64(int nr, int slices, int staged) {
+  int bytes = -1;
+  with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (staged) {
+      if (slices == 1) bytes = smem_of(sdia_gen_staged_kernel<R, 1, false>);
+      if (slices == 2) bytes = smem_of(sdia_gen_staged_kernel<R, 2, false>);
+      if (slices == 4) bytes = smem_of(sdia_gen_staged_kernel<R, 4, false>);
+      if (slices == 8) bytes = smem_of(sdia_gen_staged_kernel<R, 8, false>);
+    } else {
+      if (slices == 1) bytes = smem_of(sdia_gen_kernel<R, 1, false, double>);
+      if (slices == 2) bytes = smem_of(sdia_gen_kernel<R, 2, false, double>);
+    }
+  });
+  return bytes;
+}
+
+// The paired stream (run_sbell above) over float, double or bf16 values.
 int cfs_sbell_spmv(const float* vals, const int* packed, const int* meta,
                    const int* step_block, int64_t C, int K, int BT, int TW,
                    int64_t tiles, const float* x, int64_t xs, float* y,
@@ -1381,19 +1890,49 @@ int cfs_sbell_spmv_bf16(const __nv_bfloat16* vals, const int* packed,
 // kernel on C chunks for a group of nr planes; 0 for no instance.
 int cfs_sbell_chunks_per_cta(int64_t C, int TW, int nr, int dbl) {
   int cpc = 0;
-  if (dbl) {
-    with_rhs<kMaxRhsPaired<double>>(nr, [&](auto r) {
-      constexpr int R = decltype(r)::value;
-      cpc = TW == 2 ? chunks_per_cta<2, R, double>(C)
-                    : chunks_per_cta<4, R, double>(C);
-    });
-  } else {
-    with_rhs(nr, [&](auto r) {
-      constexpr int R = decltype(r)::value;
+  with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (!dbl) {
       cpc = TW == 2 ? chunks_per_cta<2, R>(C) : chunks_per_cta<4, R>(C);
-    });
-  }
+    } else if constexpr (R == 1) {
+      cpc = TW == 2 ? chunks_per_cta<2, 1, double>(C)
+                    : chunks_per_cta<4, 1, double>(C);
+    } else if (TW == 2) {
+      if (planes_attr<2, R, kPlanesGroups, true, kPlanesPairs>() ==
+          cudaSuccess)
+        cpc = planes_walk<2, R, kPlanesGroups, true, kPlanesPairs>(C);
+    } else if (planes_attr<4, R, kPlanesGroups, true, kPlanesPairs>() ==
+               cudaSuccess) {
+      cpc = planes_walk<4, R, kPlanesGroups, true, kPlanesPairs>(C);
+    }
+  });
   return cpc;
+}
+
+// Shared memory a CTA of the float (double = 0) or double (double = 1)
+// paired kernel takes for a group of nr planes, dynamic included; -1 for
+// no instance.
+int cfs_sbell_smem(int TW, int nr, int dbl) {
+  int bytes = -1;
+  with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (!dbl) {
+      bytes = TW == 2 ? smem_of(sbell_spmv_kernel<2, R>)
+                      : smem_of(sbell_spmv_kernel<4, R>);
+    } else if constexpr (R == 1) {
+      bytes = TW == 2 ? smem_of(sbell_spmv_kernel<2, 1, double>)
+                      : smem_of(sbell_spmv_kernel<4, 1, double>);
+    } else if (TW == 2) {
+      bytes = smem_of(
+          sbell_planes_kernel<2, R, kPlanesGroups, true, kPlanesPairs>,
+          PlanesLayout<2, R, kPlanesGroups>::kBytes);
+    } else {
+      bytes = smem_of(
+          sbell_planes_kernel<4, R, kPlanesGroups, true, kPlanesPairs>,
+          PlanesLayout<4, R, kPlanesGroups>::kBytes);
+    }
+  });
+  return bytes;
 }
 
 // tiles > 0 (the rows of 128 of each output plane): the stream visits

@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["lib", "check", "check_dtype", "check_values", "check_planes",
            "launch_groups", "count", "entry", "xy_dtype", "NVCC_FLAGS",
-           "RHS_GROUP", "PAIRED_F64_GROUP"]
+           "RHS_GROUP"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "spmv_kernels.cu")
@@ -87,9 +87,13 @@ def _bind(path: str) -> ctypes.CDLL:
     # (sdia_sym: the i32 before the planes stages x over planes)
     for fn in _forms(cdll, "sdia_sym"):
         fn.argtypes = [p, p, i32, i64, i64, i64, i32, *planes]
-    # sdia_gen: (..., nv_rows, y_len, x_len, slices, store, planes)
+    # sdia_gen: (..., nv_rows, y_len, x_len, slices, store, hi, span,
+    # planes); hi and span stage x in double (span -1: not staged)
     for fn in _forms(cdll, "sdia_gen"):
-        fn.argtypes = [p, p, i32, i64, i64, i64, i32, i32, *planes]
+        fn.argtypes = [p, p, i32, i64, i64, i64, i32, i32, i32, i32, *planes]
+    # (nr, slices, staged) and (TW, nr, double): a CTA's shared memory
+    cdll.cfs_sdia_gen_smem_f64.argtypes = [i32, i32, i32]
+    cdll.cfs_sbell_smem.argtypes = [i32, i32, i32]
     for fn in _forms(cdll, "sbell_spmv"):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i32, i64, *planes]
     # (C, TW, nr, double)
@@ -106,7 +110,8 @@ def _bind(path: str) -> ctypes.CDLL:
     cdll.cfs_unperm_gather.argtypes = [p, p, i32, p, i64, p, i64, i64, i64,
                                        p, p, i64, i64, i64, i32, i32, p]
     for fn in (*(f for name in _FORMS for f in _forms(cdll, name)),
-               cdll.cfs_sbell_chunks_per_cta, cdll.cfs_unperm_gather):
+               cdll.cfs_sbell_chunks_per_cta, cdll.cfs_unperm_gather,
+               cdll.cfs_sdia_gen_smem_f64, cdll.cfs_sbell_smem):
         fn.restype = i32
     cdll.cfs_cuda_error_string.argtypes = [i32]
     cdll.cfs_cuda_error_string.restype = ctypes.c_char_p
@@ -156,12 +161,10 @@ def check(err: int, name: str) -> None:
 
 
 #: right-hand sides one launch of a stream kernel serves (its widest
-#: instance): an SpMM wrapper reads its stream once per group of this many
+#: instance): an SpMM wrapper reads its stream once per group of this many,
+#: in every value type (the double paired kernel over planes,
+#: ``sbell_planes_kernel``, holds 8 planes in dynamic shared memory)
 RHS_GROUP = 8
-#: ... except the double instance of the paired kernel, whose staged x
-#: tiles and transpose sums of 8 planes would pass the 48 KB of shared
-#: memory a CTA takes statically (``kMaxRhsPaired`` in the source)
-PAIRED_F64_GROUP = 4
 
 
 def xy_dtype(vals) -> torch.dtype:

@@ -43,9 +43,10 @@ beside float32 x and y: its kernel's bf16 instance widens each value as it
 loads it and sums in float32, the twins compute on ``vals.float()``, and
 a launch counts on the wrapper's ``launches_bf16`` instead of its
 ``launches``. The paired wrappers (B5, B10) also take float64 values with
-float64 x and y (the float64 ``DistSpDMV``'s paired shards): their
-kernel's double instance, in groups of at most ``_cuda.PAIRED_F64_GROUP``
-planes, counted in ``launches_f64``.
+float64 x and y (the float64 ``DistSpDMV``'s paired shards), counted in
+``launches_f64``: B5 runs the double instance of the paired kernel, and
+B10 its double form over planes (``sbell_planes_kernel``), one launch and
+one zero pass a group of up to ``_cuda.RHS_GROUP`` planes, as in float.
 
 The TPU-only stream forms (``nib_split``, ``meta_word``, the segmented
 word path) are not ported: the CUDA kernel reads the plan's int16
@@ -693,17 +694,16 @@ def _check_sbell(vals, packed, meta, step_block, K, TW,
 def _launch_sbell(vals, packed, meta, step_block, x3d, y3d, K, BT, TW, name):
     """Launch the paired-stream kernel over plane stacks, each group after
     a zero pass over the whole of its planes of ``y3d``; returns the
-    number of launches (one per group of planes: up to
-    ``_cuda.RHS_GROUP``, or ``_cuda.PAIRED_F64_GROUP`` in double)."""
+    number of launches (one per group of up to ``_cuda.RHS_GROUP``
+    planes). A refused launch, or a refused shared-memory size of the
+    double kernel over planes, raises."""
     fn = _cuda.entry("sbell_spmv", vals.dtype)
-    group = (_cuda.PAIRED_F64_GROUP if vals.dtype == torch.float64
-             else _cuda.RHS_GROUP)
     return _cuda.launch_groups(
         name, x3d, y3d, lambda *planes: fn(
             vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
             step_block.data_ptr(), meta.shape[0], K, BT, TW, y3d.shape[1],
             *planes,
-        ), group)
+        ))
 
 
 def group_widths(B: int) -> list[int]:
@@ -915,7 +915,7 @@ def sbell_spmm_tiles(vals, packed, meta, step_block, x3d, *,
     output a contiguous (B, ceil(T/BT)*BT, 128) buffer, zeroed whole in
     every plane, then accumulated. Other operands as
     :func:`sbell_spmv_tiles`; launches as :func:`bell2_spmm_tiles`, in
-    groups of at most ``_cuda.PAIRED_F64_GROUP`` planes in double.
+    groups of up to ``_cuda.RHS_GROUP`` planes in every value type.
     """
     K, BT, TW = chunks_per_step, tiles_per_block, transpose_windows
     dev = _device_of(vals, packed, meta, step_block)

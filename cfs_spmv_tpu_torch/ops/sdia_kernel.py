@@ -19,7 +19,10 @@ The float64 forms of B1 and B11 (``sdia_sym_tiles_df``, B13, and
 checks, the launcher and the twins of this module, which work in the
 stream's type. B6 and B12 take float64 values with float64 x and y
 themselves (the float64 ``DistSpDMV``'s mirrored diagonals): their
-kernel's double instance, counted in ``launches_f64``.
+kernel's double instance, counted in ``launches_f64``; given the plan's
+``window`` (:func:`gen_window`, decided at upload: offsets that span
+little, as a banded shard's mirrored ones do) it first stages each CTA's
+window of X in shared memory and reads every diagonal's x there.
 
 Diagonals dense enough to store contiguously need no index data at all:
 per stored nonzero the stream moves 4 bytes (8 in float64, 2 for the
@@ -63,6 +66,9 @@ __all__ = [
     "BLOCK_ROWS",
     "SDIA_HALO",
     "stages_x",
+    "GEN_SPAN",
+    "gen_window",
+    "stage_slices",
 ]
 
 #: threads one NVIDIA H100 SXM keeps resident (132 SMs x 2048): the
@@ -81,6 +87,38 @@ def stages_x(offsets) -> bool:
     at upload."""
     offs = [int(d) for d in offsets]
     return bool(offs) and 2 * sum(d <= SDIA_HALO for d in offs) >= len(offs)
+
+
+#: ``kGenSpan`` of ``csrc/spmv_kernels.cu``: the widest spread of signed
+#: offsets whose x window the double signed diagonal kernel stages
+GEN_SPAN = 128
+
+
+def gen_window(offsets):
+    """``(hi, span)`` of signed ``offsets`` whose x window the double
+    signed diagonal kernel stages: the largest offset and the largest less
+    the smallest, where that span is at most :data:`GEN_SPAN` (a banded
+    shard's mirrored diagonals: cant's +-1..32 span 64); else None
+    (``general_asym()``'s +-6,400). A CTA of rows [r0, r0 + n) then reads
+    x rows [r0 - hi, r0 + n + span - hi). Decided once a plan, at
+    upload."""
+    offs = [int(d) for d in offsets]
+    if not offs or max(offs) - min(offs) > GEN_SPAN:
+        return None
+    return max(offs), max(offs) - min(offs)
+
+
+def stage_slices(rows: int, D: int, slots: int = H100_THREAD_SLOTS) -> int:
+    """Threads a row of the staged double signed diagonal kernel (each
+    takes every ``slices``-th diagonal): 4 or 2 where that many a row fit
+    the card's ``slots`` at once and leave each thread 4 diagonals or
+    more, else 1. On D1's mirrored shard (16,384 rows, 64 diagonals) 4
+    slices ran faster than 1, 2 and 8 (PERF.md §6); the launcher also
+    takes 8, which ``chip_smoke.py`` times beside them."""
+    for s in (4, 2):
+        if rows * s <= slots and D >= 4 * s:
+            return s
+    return 1
 
 
 def _blocks_per_step(R: int, D: int, itemsize: int = 4) -> int:
@@ -233,12 +271,13 @@ def sdia_sym_tiles_mm(vals, x3d, y_tiles, offsets, stage_x=False):
     return y_tiles
 
 
-def sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store=False):
+def sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store=False,
+                         window=None):
     """Plain PyTorch twin of :func:`sdia_gen_tiles`: ``y_tiles += A_dia
     x`` by one flat shifted slice per diagonal, accumulated in place (with
     ``store``, into zeroed tiles); returns ``y_tiles``. Runs on any device;
     ``x2d`` is read flat (any shape), ``offsets`` is a tensor or a sequence
-    of ints."""
+    of ints; ``window`` changes nothing here."""
     offs = offsets.tolist() if torch.is_tensor(offsets) else list(offsets)
     vals = vals.to(y_tiles.dtype)
     R, D = vals.shape[0], vals.shape[1]
@@ -258,7 +297,7 @@ def sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store=False):
     return y_tiles
 
 
-def sdia_gen_tiles(vals, x2d, y_tiles, offsets, store=False):
+def sdia_gen_tiles(vals, x2d, y_tiles, offsets, store=False, window=None):
     """``y_tiles += A_dia x`` for the signed-offset dense-diagonal stream.
 
     ``vals``: (R, D, 8, 128) float32 or bfloat16, or float64; ``x2d``:
@@ -270,7 +309,9 @@ def sdia_gen_tiles(vals, x2d, y_tiles, offsets, store=False):
     same device. Contributions to rows at or past T*128 are dropped, and
     rows past R*1024 keep their value, as in the reference. ``store``
     (for an applier that would pass zeroed tiles): ``y_tiles`` is written,
-    not read, and its rows past R*1024 come out exact 0.
+    not read, and its rows past R*1024 come out exact 0. ``window`` (the
+    plan's :func:`gen_window`) stages x in the double kernel; float32 and
+    bfloat16 values ignore it.
 
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     (building it on first use) or raises.
@@ -280,7 +321,7 @@ def sdia_gen_tiles(vals, x2d, y_tiles, offsets, store=False):
         return sdia_gen_tiles_plain(vals, x2d, y_tiles, offsets, store)
     _cuda.count(sdia_gen_tiles, vals.dtype, _launch_gen(
         vals, x2d.reshape(1, -1), y_tiles[None], offsets, "sdia_gen_tiles",
-        store), f64_apart=True)
+        store, window=window), f64_apart=True)
     return y_tiles
 
 
@@ -300,22 +341,28 @@ def _thread_slots(device) -> int:
         p, "max_threads_per_multi_processor", 2048)
 
 
-def _launch_gen(vals, x_il, y3d, offsets, name, store=False, slices=None):
+def _launch_gen(vals, x_il, y3d, offsets, name, store=False, slices=None,
+                window=None):
     """Launch the signed diagonal kernel over the planes ``y3d``, once a
     group of planes; returns the launches. ``x_il`` is an interleaved X
     (``bell2_kernel.interleave_x``: a plane, or a group's planes side by
     side, group after group), each plane read as zero past its
-    ``x_il.shape[1]`` elements; ``slices`` (default :func:`gen_slices` of the rows
-    and D on this device) as the launcher takes it."""
+    ``x_il.shape[1]`` elements; ``window`` (:func:`gen_window`, read for
+    float64 values only) stages x; ``slices`` (default :func:`gen_slices`,
+    staged :func:`stage_slices`, of the rows and D on this device) as the
+    launcher takes it."""
     nv_rows, y_len = vals.shape[0] * BLOCK_ROWS, y3d[0].numel()
+    hi, span = (window if window is not None
+                and vals.dtype == torch.float64 else (0, -1))
     if slices is None:
         rows = y_len if store else min(y_len, nv_rows)
-        slices = gen_slices(rows, vals.shape[1], _thread_slots(vals.device))
+        rule = stage_slices if span >= 0 else gen_slices
+        slices = rule(rows, vals.shape[1], _thread_slots(vals.device))
     fn = _cuda.entry("sdia_gen", vals.dtype)
     return _cuda.launch_groups(
         name, x_il, y3d, lambda *planes: fn(
             vals.data_ptr(), offsets.data_ptr(), vals.shape[1], nv_rows,
-            y_len, x_il.shape[1], slices, int(store), *planes,
+            y_len, x_il.shape[1], slices, int(store), hi, span, *planes,
         ))
 
 
@@ -333,10 +380,11 @@ def gen_x(x, x_rows):
 
 
 def sdia_gen_tiles_mm_plain(vals, x3d, y_tiles, offsets, *, planes=None,
-                            store=False):
+                            store=False, window=None):
     """Plain PyTorch twin of :func:`sdia_gen_tiles_mm`: B6's twin once
     per plane (of the interleaved X's planes, given ``planes``),
-    accumulated in place; returns ``y_tiles``."""
+    accumulated in place; returns ``y_tiles``. ``window`` changes nothing
+    here."""
     if planes is not None:
         x3d = bk.flat_planes(x3d, planes)
     for b in range(x3d.shape[0]):
@@ -345,7 +393,7 @@ def sdia_gen_tiles_mm_plain(vals, x3d, y_tiles, offsets, *, planes=None,
 
 
 def sdia_gen_tiles_mm(vals, x3d, y_tiles, offsets, *, planes=None,
-                      store=False):
+                      store=False, window=None):
     """``Y_tiles += A_dia X`` for B right-hand sides: ``x3d`` (B, x_rows,
     128) planes of x's type (float32; float64 for float64 values), each
     contiguous (any plane stride), which the wrapper interleaves for the
@@ -354,9 +402,9 @@ def sdia_gen_tiles_mm(vals, x3d, y_tiles, offsets, *, planes=None,
     an (m, B) X read in place (any row count; x is zero past it).
     ``y_tiles`` (B, T, 128), planes each contiguous, is accumulated in
     place (written, with ``store``) and returned. Otherwise as
-    :func:`sdia_gen_tiles`, plane by plane. A CUDA tensor launches once
-    per group of up to ``_cuda.RHS_GROUP`` planes; a CPU tensor takes the
-    plain twin."""
+    :func:`sdia_gen_tiles`, plane by plane (``window`` too). A CUDA tensor
+    launches once per group of up to ``_cuda.RHS_GROUP`` planes; a CPU
+    tensor takes the plain twin."""
     dtype = _cuda.xy_dtype(vals)
     _check_vals(vals, offsets, dtype)
     if planes is None:
@@ -372,8 +420,8 @@ def sdia_gen_tiles_mm(vals, x3d, y_tiles, offsets, *, planes=None,
         x3d = (x3d[0].reshape(1, -1) if B == 1 else
                bk.interleave_x(x3d.reshape(B, -1).T, x3d.shape[1]))
     _cuda.count(sdia_gen_tiles_mm, vals.dtype, _launch_gen(
-        vals, x3d, y_tiles, offsets, "sdia_gen_tiles_mm", store),
-        f64_apart=True)
+        vals, x3d, y_tiles, offsets, "sdia_gen_tiles_mm", store,
+        window=window), f64_apart=True)
     return y_tiles
 
 

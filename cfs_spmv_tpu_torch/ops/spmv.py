@@ -159,6 +159,10 @@ class SBellDevice:
     #: over planes the symmetric diagonal kernel stages x near each CTA's
     #: rows (``sdia_kernel.stages_x`` of the offsets)
     dia_stage_x: bool = False
+    #: mirrored offsets that span little: (hi, span), the x window the
+    #: double signed diagonal kernel stages (``sdia_kernel.gen_window``);
+    #: float32 and bf16 values run as they are
+    dia_window: tuple[int, int] | None = None
 
     @property
     def has_paired(self) -> bool:
@@ -404,6 +408,8 @@ def sym_to_device(plan, device) -> SBellDevice:
         transpose_windows=plan.transpose_windows,
         dia_mirrored=any(d < 0 for d in offsets),
         dia_stage_x=sk.stages_x(offsets),
+        dia_window=(sk.gen_window(offsets) if any(d < 0 for d in offsets)
+                    else None),
         **paired,
         **_dia_fields(plan.dia, device),
     )
@@ -691,9 +697,11 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
         if fd is not None:
             # sparse far residual accumulates straight into the tiles
             tiles = f["bell2_acc"](fd.entries, x2d, tiles)
-    if dev.dia_vals is not None:
-        sdia = f["sdia_gen"] if dev.dia_mirrored else f["sdia_sym"]
-        tiles = sdia(dev.dia_vals, x2d, tiles[:NT], dev.dia_offsets)
+    if dev.dia_vals is not None and dev.dia_mirrored:
+        tiles = f["sdia_gen"](dev.dia_vals, x2d, tiles[:NT], dev.dia_offsets,
+                              window=dev.dia_window)
+    elif dev.dia_vals is not None:
+        tiles = f["sdia_sym"](dev.dia_vals, x2d, tiles[:NT], dev.dia_offsets)
     y = tiles.reshape(-1)[: dev.nrows]
     return y + dev.diag * x if dev.has_paired else y
 
@@ -744,7 +752,8 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     if dev.dia_vals is not None and dev.dia_mirrored:
         xg = x_il if x_il is not None else sk.gen_x(x, dev.x_rows)
         tiles = f["sdia_gen_mm"](dev.dia_vals, xg, tiles[:, :NT],
-                                 dev.dia_offsets, planes=B)
+                                 dev.dia_offsets, planes=B,
+                                 window=dev.dia_window)
     elif dev.dia_vals is not None:
         tiles = f["sdia_sym_mm"](dev.dia_vals, x3d, tiles[:, :NT],
                                  dev.dia_offsets, stage_x=dev.dia_stage_x)

@@ -91,7 +91,7 @@ from ..formats.sdia import (
     SDIA_MIN_COUNT,
 )
 from ..ops import spmv as spmv_ops
-from ..ops.sdia_kernel import _blocks_per_step, stages_x
+from ..ops.sdia_kernel import _blocks_per_step, gen_window, stages_x
 from ..tuning.partition import (
     estimate_imbalance,
     partition_tiles_by_nnz,
@@ -813,6 +813,8 @@ class DistSpDMV:
                                                  device=dev),
                         dia_mirrored=self.dia_mirror,
                         dia_stage_x=stages_x(offsets),
+                        dia_window=(gen_window(offsets) if self.dia_mirror
+                                    else None),
                     )
             far = None if plan.far is None else spmv_ops.to_device(
                 plan.far, dev)

@@ -10,7 +10,7 @@ Phases (each prints its wall time):
 1. card name and power limit (``nvidia-smi``), PyTorch and CUDA versions;
 2. build the CUDA kernels from ``cfs_spmv_tpu_torch/csrc/spmv_kernels.cu``,
    and beside that build (one ``nvcc`` per source, all started together)
-   ptxas' report and the five comparison sources of phase 4;
+   ptxas' report and the six comparison sources of phase 4;
 2b. ptxas' report (``nvcc -Xptxas -v``) of registers and spills for every
    kernel instance; any spill fails the run;
 3. the main paths, once each, through the user entry points —
@@ -148,12 +148,23 @@ Phases (each prints its wall time):
    NaN-poisoned or strided outputs as above; then the double instances of
    the paired and signed diagonal kernels (``<name>_f64``, the float64
    ``DistSpDMV``'s) on shard 1 of phase 8's float64 D5 (paired) and D1
-   (mirrored) operators, each against its float64 twin: B5 into
-   NaN-poisoned tiles and a zero x into NaN-poisoned strided planes, B10 at
-   B = 2, 4, 8 and 11 (groups of at most 4 planes), B6 adding and storing,
-   B12 at B = 1, 2, 4, 8, 11 from X in place and copied, adding and
-   storing; their library calls (the float64 sparse CSR product of the
-   same stream, ``paired_csr`` and ``dia_csr``) held to the twin first;
+   (mirrored) operators and on replans of both matrices without rows
+   20,000-29,999 (the paired one over 8-tile blocks), each against its
+   float64 twin: B5 into NaN-poisoned tiles; B10 as it ships (one launch
+   and one zero pass a group of up to 8 planes, checked in device
+   launches at B = 8) and its other forms (``F64_FORMS_SRC``: as PR 13
+   shipped it, in groups of 4 planes; x read plane by plane, with one and
+   with two thread groups a CTA; restaging every chunk) at B = 1, 2, 4, 8
+   and 11 into NaN-poisoned strided planes and a zero x into NaN-poisoned
+   strided planes, with each form's walk and shared memory a CTA; B6 adding and
+   storing; B12 as it ships (x staged in shared memory over the plan's
+   window), staged at 1, 2, 4 and 8 slices and as PR 13 shipped it (1 and
+   2 slices, bit for bit the staged form at the same slices) at B = 1, 2,
+   4, 8, 11 from X in place and copied, adding and storing, and a zero X
+   storing +0, with the shared memory a CTA; then every form's device time
+   at B = 8 (B6 at 1) in turns over two rounds beside its bound, the twin
+   and the library call (the float64 sparse CSR product of the same
+   stream, ``paired_csr`` and ``dia_csr``, held to the twin first);
 5. times per call (CUDA events around 20 back-to-back calls, median of
    5) of each kernel and twin (multi-RHS ones at B = 8), and of the
    kernel path and the plain path of every run, SpMV and SpMM(8) (the
@@ -1818,6 +1829,155 @@ GEN_FORMS = {-1: "before (planes, 1 slice, add)", 0: "4 slices add",
              3: "paired loads 1 slice store", 4: "paired loads 2 slices add",
              5: "paired loads 2 slices store"}
 
+#: the forms of the double paired kernel over planes (B10 f64), for the
+#: comparison in phase 4 only: the port's kernel source included whole
+#: (``{src}``) and one entry point, ``cfs_sbell_f64_form``, which zeroes
+#: the group's planes (``cudaMemset2DAsync``) and launches ``form`` over
+#: them, walking ``cpc`` chunks a CTA (0: the launcher's occupancy rule).
+#: Form 0 is B10 f64 as PR 13 shipped it: ``sbell_spmv_kernel`` over
+#: double, groups of at most 4 planes (static shared memory), every x
+#: tile restaged at every chunk. Forms 1-4 are ``sbell_planes_kernel``
+#: (groups of up to 8 planes, dynamic shared memory): 1 what ships (one
+#: group of 128 threads a CTA, x tiles kept while their tile stays and
+#: read as 16-byte pairs of planes, ``PlanesTiles``), 2 the same reading
+#: x plane by plane, 3 that with two groups sharing the planes, 4 what
+#: ships but restaging every tile at every chunk.
+#: ``cfs_sbell_f64_form_info`` gives a form's walk (``what`` 0) or shared
+#: memory a CTA (``what`` 1).
+F64_FORMS_SRC = r"""
+#include "{src}"
+namespace {
+template <int TW, int G, bool kKeep, bool kPairs = false>
+int planes_form(const double* vals, const int* packed, const int* meta,
+                const int* sb, int64_t C, int K, int BT, int cpc,
+                const double* x, int64_t xs, double* y, int64_t ys, int nr,
+                cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if constexpr (R >= G && (!kPairs || R >= 2))
+      err = launch_sbell_planes<TW, R, G, kKeep, kPairs>(
+          vals, packed, meta, sb, C, K, BT, cpc, x, xs, y, ys, nr, stream);
+    else
+      err = cudaErrorInvalidValue;
+  });
+  return ok ? static_cast<int>(err) : invalid();
+}
+
+template <int TW, int G, bool kKeep, bool kPairs = false>
+int planes_info(int64_t C, int nr, int what) {
+  int out = -1;
+  with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if constexpr (R >= G && (!kPairs || R >= 2)) {
+      if (planes_attr<TW, R, G, kKeep, kPairs>() != cudaSuccess) return;
+      out = what == 0
+                ? planes_walk<TW, R, G, kKeep, kPairs>(C)
+                : smem_of(sbell_planes_kernel<TW, R, G, kKeep, kPairs>,
+                          PlanesLayout<TW, R, G>::kBytes);
+    }
+  });
+  return out;
+}
+
+template <int TW>
+int pr13_form(const double* vals, const int* packed, const int* meta,
+              const int* sb, int64_t C, int K, int BT, const double* x,
+              int64_t xs, double* y, int64_t ys, int nr,
+              cudaStream_t stream) {
+  return with_rhs<4>(nr, [&](auto r) {
+           constexpr int R = decltype(r)::value;
+           launch_sbell<TW, R, double>(vals, packed, meta, sb, C, K, BT, x,
+                                       xs, y, ys, nr, stream);
+         })
+             ? static_cast<int>(cudaGetLastError())
+             : invalid();
+}
+
+template <int TW>
+int pr13_info(int64_t C, int nr, int what) {
+  int out = -1;
+  with_rhs<4>(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    out = what == 0 ? chunks_per_cta<TW, R, double>(C)
+                    : smem_of(sbell_spmv_kernel<TW, R, double>);
+  });
+  return out;
+}
+
+template <int TW>
+int form_tw(int form, int cpc, const double* vals, const int* packed,
+            const int* meta, const int* sb, int64_t C, int K, int BT,
+            const double* x, int64_t xs, double* y, int64_t ys, int nr,
+            cudaStream_t stream) {
+  switch (form) {
+    case 0:
+      return pr13_form<TW>(vals, packed, meta, sb, C, K, BT, x, xs, y, ys,
+                           nr, stream);
+    case 1:
+      return planes_form<TW, 1, true, true>(vals, packed, meta, sb, C, K, BT,
+                                            cpc, x, xs, y, ys, nr, stream);
+    case 2:
+      return planes_form<TW, 1, true>(vals, packed, meta, sb, C, K, BT, cpc,
+                                      x, xs, y, ys, nr, stream);
+    case 3:
+      return planes_form<TW, 2, true>(vals, packed, meta, sb, C, K, BT, cpc,
+                                      x, xs, y, ys, nr, stream);
+    case 4:
+      return planes_form<TW, 1, false, true>(vals, packed, meta, sb, C, K,
+                                             BT, cpc, x, xs, y, ys, nr,
+                                             stream);
+    default:
+      return invalid();
+  }
+}
+
+template <int TW>
+int info_tw(int form, int64_t C, int nr, int what) {
+  switch (form) {
+    case 0: return pr13_info<TW>(C, nr, what);
+    case 1: return planes_info<TW, 1, true, true>(C, nr, what);
+    case 2: return planes_info<TW, 1, true>(C, nr, what);
+    case 3: return planes_info<TW, 2, true>(C, nr, what);
+    case 4: return planes_info<TW, 1, false, true>(C, nr, what);
+    default: return -1;
+  }
+}
+}  // namespace
+
+extern "C" int cfs_sbell_f64_form(int form, int cpc, const double* vals,
+                                  const int* packed, const int* meta,
+                                  const int* sb, int64_t C, int K, int BT,
+                                  int TW, int64_t tiles, const double* x,
+                                  int64_t xs, double* y, int64_t ys, int nr,
+                                  cudaStream_t stream) {
+  if ((TW != 2 && TW != 4) || nr < 1 || nr > (form == 0 ? 4 : 8))
+    return invalid();
+  const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(double);
+  const cudaError_t err = cudaMemset2DAsync(
+      y, nr == 1 ? width : ys * sizeof(double), 0, width, nr, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return TW == 2 ? form_tw<2>(form, cpc, vals, packed, meta, sb, C, K, BT, x,
+                              xs, y, ys, nr, stream)
+                 : form_tw<4>(form, cpc, vals, packed, meta, sb, C, K, BT, x,
+                              xs, y, ys, nr, stream);
+}
+
+extern "C" int cfs_sbell_f64_form_info(int form, int64_t C, int TW, int nr,
+                                       int what) {
+  return TW == 2 ? info_tw<2>(form, C, nr, what)
+                 : info_tw<4>(form, C, nr, what);
+}
+"""
+#: what each form of ``F64_FORMS_SRC`` is, and the most and the fewest
+#: planes a group of it takes
+F64_FORMS = {0: ("PR 13: sbell_spmv_kernel<TW, R, double>, 4-plane groups",
+                 4, 1),
+             1: ("ships: sbell_planes_kernel, pairs of planes", 8, 2),
+             2: ("plane by plane", 8, 1),
+             3: ("plane by plane, 2 thread groups a CTA", 8, 2),
+             4: ("pairs of planes, restaging every chunk", 8, 2)}
+
 
 def flagship(n=1024, deg=8, dtype=np.float32, seed=0):
     """Banded symmetric matrix dense enough that tuning engages the SDIA
@@ -2533,8 +2693,9 @@ def predict_dist(dsp, planes=0) -> dict:
     ``parallel/dist.DistSpDMV._shard_apply`` and, for the near part,
     ``ops/spmv.sbell_apply``; a float64 operator runs ``F64_OF``'s
     kernels); ``planes`` = B > 0 for the SpMM apply, whose stream kernels
-    launch once per group of 8 planes (4 for the double paired kernel). A
-    process-group operator launches its own shard's only."""
+    launch once per group of 8 planes (the double paired kernel too,
+    since it holds 8 planes in dynamic shared memory). A process-group
+    operator launches its own shard's only."""
     import torch
 
     from cfs_spmv_tpu_torch.ops import _cuda
@@ -2545,10 +2706,9 @@ def predict_dist(dsp, planes=0) -> dict:
 
     def add(name):
         name = F64_OF[name] if f64 else name
-        group = (_cuda.PAIRED_F64_GROUP if name == "sbell_spmv_f64"
-                 else _cuda.RHS_GROUP)
         name = MM_OF[name] if mm else name
-        out[name] = out.get(name, 0) + (-(-planes // group) if mm else 1)
+        out[name] = out.get(name, 0) + (-(-planes // _cuda.RHS_GROUP)
+                                        if mm else 1)
 
     for sh in dsp.shards:
         if sh is None:
@@ -2943,6 +3103,8 @@ def main() -> int:
             "sdia_alt": alt_start("sdia_alt", SDIA_SYM_ALT_SRC.replace(
                 "{src}", _cuda._SRC)),
             "gen_alt": alt_start("gen_alt", SDIA_GEN_ALT_SRC.replace(
+                "{src}", _cuda._SRC)),
+            "f64_forms": alt_start("f64_forms", F64_FORMS_SRC.replace(
                 "{src}", _cuda._SRC))}
     _cuda.lib()
     phase_done("2 kernel build/load")
@@ -5466,15 +5628,27 @@ def main() -> int:
     # on the plans phase 8 applies: shard 1 of D5's float64 operator
     # (near_band_paired() under CFS_PAIRED=force, P = 4) and of D1's
     # mirrored float64 operator (cant_proxy(), CFS_DIST_SDIA_ROWS_MAX=8192,
-    # P = 4), each against its float64 twin (``F64_TWIN_TOL``): B5 into
-    # NaN-poisoned tiles, and a zero x at B = 1 and 11 into NaN-poisoned
-    # strided planes; B10 at B = 2, 4, 11 and 8 (one to three groups of at
-    # most 4 planes) into NaN-poisoned planes; B6 adding onto a nonzero y,
-    # and storing from x itself into NaN-poisoned tiles whose rows past
-    # the value blocks must read +0; B12 at B = 1, 2, 4, 8, 11 from X in
-    # place and copied, adding and storing into strided planes. The
-    # library call is the float64 sparse CSR product of the same stream
-    # (``paired_csr``, ``dia_csr``), first held to the twin.
+    # P = 4), and on replans of both matrices without rows and columns
+    # 20,000-29,999 (``holed``): the paired one over 8-tile output blocks,
+    # the mirrored one as D1's operator's shard 1, which holds the absent
+    # range. Each against its float64 twin (``F64_TWIN_TOL``): B5 into
+    # NaN-poisoned tiles; B10 as it ships (``sbell_planes_kernel``, one
+    # launch and one zero pass a group of up to 8 planes) and its other
+    # forms (``F64_FORMS_SRC``: PR 13's; x read plane by plane, with one
+    # and with two thread groups a CTA; restaging every chunk) at B = 1, 2,
+    # 4, 8, 11 into NaN-poisoned strided planes, and a zero x (every
+    # covered tile +0, nothing past a plane written);
+    # B6 adding onto a nonzero y and storing from x itself into NaN-poisoned
+    # tiles whose rows past the value blocks must read +0; B12 as it ships
+    # (x staged over the plan's window, ``sdia_gen_staged_kernel``), staged
+    # at 1, 2, 4 and 8 slices, and as PR 13 shipped it
+    # (``sdia_gen_kernel``, 1 and 2 slices; the staged form at the same
+    # slices must equal it bit for bit) at B = 1, 2, 4, 8, 11 from X in
+    # place and copied, adding and storing into strided planes, and a zero
+    # X storing +0. Then each form's device time, in turns over two rounds,
+    # beside its bound, its twin and its library call (the float64 sparse
+    # CSR product of the same stream, ``paired_csr`` and ``dia_csr``, held
+    # to the twin first). The kernel rows are the shipped forms'.
     def double_instances():
         """The comparisons above; returns the float64 operators (their own
         scope: the kernel rows' closures of this phase read main's
@@ -5485,21 +5659,45 @@ def main() -> int:
         f64 = torch.float64
         t0 = time.perf_counter()
         dist64 = {}  # the float64 operators, applied again in phase 8
+
+        def holed(csr):
+            coo = csr.to_coo()
+            keep = (((coo.row < 20_000) | (coo.row >= 30_000))
+                    & ((coo.col < 20_000) | (coo.col >= 30_000)))
+            return CSR.from_coo(COO(coo.nrows, coo.ncols, coo.row[keep],
+                                    coo.col[keep], coo.val[keep],
+                                    symmetric=coo.symmetric))
+
         for case, csr in (("D5 near_band_paired P=4 paired float64", nbp),
                           ("D1 cant_proxy P=4 mirrored float64", cant)):
             _, P, kw, env, _, _ = DIST_CASES[case]
             with _env(env):
                 dist64[case] = DistSpDMV(csr, make_mesh(P, device="cuda:0"),
                                          **kw)
-        print(f"the float64 operators of D5 (paired) and D1 (mirrored) "
-              f"planned and uploaded in {time.perf_counter() - t0:.2f} s",
-              flush=True)
         dp64 = dist64["D5 near_band_paired P=4 paired float64"].shards[1].near
         if not (dp64.has_paired and dp64.vals.dtype == f64):
             raise AssertionError("D5's float64 shard 1 has no float64 paired "
                                  "stream")
+        with _env({"CFS_PAIRED": "force"}):
+            dh64 = ops.sym_to_device(build_sbell_plan(
+                holed(nbp), dtype=np.float64, tiles_per_block=8,
+                transpose_windows=dp64.transpose_windows, dia=False), dev)
+        _, P, kw, env, _, _ = DIST_CASES["D1 cant_proxy P=4 mirrored float64"]
+        with _env(env):
+            dmh64 = DistSpDMV(holed(cant), make_mesh(P, device="cuda:0"),
+                              **kw).shards[1].near
+        if not (dh64.has_paired and dh64.vals.dtype == f64
+                and len(torch.unique(dh64.step_block)) > 1):
+            raise AssertionError("the paired replan has no float64 stream "
+                                 "over several blocks")
+        print(f"the float64 operators of D5 (paired) and D1 (mirrored) and "
+              f"the replans with absent rows planned and uploaded in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
         on_p = (f"D5 float64 shard 1 TW={dp64.transpose_windows}, "
                 f"{dp64.meta.shape[0]} chunks")
+        on_ph = (f"near_band_paired without rows 20,000-29,999 float64 "
+                 f"TW={dh64.transpose_windows} BT=8, {dh64.meta.shape[0]} "
+                 f"chunks in {len(torch.unique(dh64.step_block))} blocks")
         TP64, kw_p64 = paired_geometry(dp64)
         x64 = torch.rand(dp64.nrows, generator=g, dtype=f64).to(dev)
         pargs64 = (*paired_stream(dp64), ops.pad_x(x64, dp64.x_rows))
@@ -5510,130 +5708,335 @@ def main() -> int:
                                        pargs64[4].abs(), **kw_p64)
         npr_p = 2 * nnz_of(dp64.vals) / dp64.nrows
         e5 = _agree(yk, yp, ys, npr_p, f"sbell_spmv f64 on {on_p}")
-        paired_zero_check(dp64, on_p)
         S_p64 = paired_csr(torch, dp64)
         xf64 = pargs64[4].reshape(-1)
         e_lib = _agree((S_p64 @ xf64)[:yp.numel()], yp.reshape(-1),
                        ys.reshape(-1), npr_p, f"paired_csr on {on_p}")
-        print(f"kernel sbell_spmv f64 on {on_p}: {walk(dp64, 1)} chunks a CTA "
-              f"for one plane and {walk(dp64, _cuda.PAIRED_F64_GROUP)} for "
-              f"{_cuda.PAIRED_F64_GROUP}, max_abs_err vs twin {e5}; zero x "
-              f"into NaN-poisoned strided planes (B = 1, 11): every covered "
-              f"tile zeroed, nothing past a plane written; the library call's "
-              f"stream (paired_csr) against the twin {e_lib}", flush=True)
         kern["sbell_spmv_f64"] = dict(
             err=e5, on=on_p, bytes=_nbytes(*pargs64) + _nbytes(yp),
             flops=4 * nnz_of(dp64.vals), library=lambda: S_p64 @ xf64,
             fn=lambda: bk.sbell_spmv_tiles(*pargs64, **kw_p64),
             plain=lambda: bk.sbell_spmv_tiles_plain(*pargs64, **kw_p64))
 
-        def make_sbell64_mm(B):
-            sa = (*paired_stream(dp64),
-                  planes(B, dp64.x_rows, extra=2, dtype=f64))
+        # B10 f64: what ships and the forms of F64_FORMS_SRC
+        f64_form, said = alt_bind(
+            "f64_forms", side.pop("f64_forms"), "cfs_sbell_f64_form",
+            [i32_, i32_, p_, p_, p_, p_, i64_, i32_, i32_, i32_, i64_,
+             p_, i64_, p_, i64_, i32_, p_])
+        print(f"ptxas, the double paired kernel's forms: "
+              f"{_regs_line(ptxas_report(said))}", flush=True)
+        if any(v[1] for v in ptxas_report(said).values()):
+            raise AssertionError("ptxas reports spills in F64_FORMS_SRC")
+        form_info = ctypes.CDLL(os.path.join(
+            _smoke_dir(), "f64_forms.so")).cfs_sbell_f64_form_info
+        form_info.argtypes = [i32_, i64_, i32_, i32_, i32_]
+        form_info.restype = i32_
+
+        def run_f64_form(dp, x3, y3, form, cpc=0):
+            TP, _ = paired_geometry(dp)
+            _cuda.launch_groups(
+                "sbell_f64_form", x3, y3, lambda *pl: f64_form(
+                    form, cpc, *(t.data_ptr() for t in paired_stream(dp)),
+                    dp.meta.shape[0], dp.chunks_per_step,
+                    dp.tiles_per_block, dp.transpose_windows, TP, *pl),
+                F64_FORMS[form][1])
+            return y3
+
+        def ships_f64(dp, x3, y3):
+            bk._launch_sbell(*paired_stream(dp), x3, y3, dp.chunks_per_step,
+                             dp.tiles_per_block, dp.transpose_windows,
+                             "sbell_spmm_tiles f64")
+            return y3
+
+        for dp, on in ((dh64, on_ph), (dp64, on_p)):
+            TP, kw_q = paired_geometry(dp)
+            C, TW = dp.meta.shape[0], dp.transpose_windows
+            worst = dict.fromkeys(("ships", *F64_FORMS), 0.0)
+            for B in (1, 2, 4, 8, 11):
+                x3 = planes(B, dp.x_rows, extra=2, dtype=f64)
+                yp = bk.sbell_spmm_tiles_plain(*paired_stream(dp), x3, **kw_q)
+                ys = bk.sbell_spmm_tiles_plain(
+                    dp.vals.abs(), *paired_stream(dp)[1:], x3.abs(), **kw_q)
+                for form in worst:
+                    if form != "ships" and B < F64_FORMS[form][2]:
+                        continue
+                    wide = poisoned((B, TP + 3, 128), f64)
+                    if form == "ships":
+                        ships_f64(dp, x3, wide[:, :TP])
+                    else:
+                        run_f64_form(dp, x3, wide[:, :TP], form)
+                    torch.cuda.synchronize()
+                    what = f"sbell f64 form {form} B={B} on {on}"
+                    if not torch.isnan(wide[:, TP:]).all():
+                        raise AssertionError(f"{what}: wrote past a plane")
+                    worst[form] = max(worst[form], _agree(
+                        wide[:, :dp.num_row_tiles], yp, ys, npr_p, what))
+            paired_zero_check(dp, on)
+            x8 = planes(RHS, dp.x_rows, dtype=f64)
+            y8 = torch.empty((RHS, TP, 128), device=dev, dtype=f64)
+            n8 = _device_launches(torch, lambda: bk.sbell_spmm_tiles(
+                *paired_stream(dp), x8, out=y8, **kw_q))
+            if n8 != "2":
+                raise AssertionError(f"sbell_spmm_tiles f64 B={RHS} on {on}: "
+                                     f"{n8} device launches, not a kernel "
+                                     "and a zero pass")
+            info = "; ".join(
+                f"form {f} ({F64_FORMS[f][0]}): B=8 walk "
+                f"{form_info(f, C, TW, min(RHS, F64_FORMS[f][1]), 0)}, "
+                f"{form_info(f, C, TW, min(RHS, F64_FORMS[f][1]), 1)} B "
+                f"shared a CTA" for f in F64_FORMS)
+            pk = dp.packed.reshape(C, 8, 128).long()
+            r2f = torch.gather((pk >> 7) & 7, 2, pk & 0x7F)
+            rv, tv = r2f < TW, ((pk >> 7) & 7) < TW
+
+            def busy(v):  # sublanes of a chunk where a warp has an entry
+                return float(v.reshape(C, 8, 4, 32).any(-1).sum(1)
+                             .double().mean())
+
+            fill = (f"{float(rv.double().mean()):.3f} of the slots with a "
+                    f"row entry, {float(tv.double().mean()):.3f} with a "
+                    f"transpose entry; a warp has row entries in "
+                    f"{busy(rv):.2f} of a chunk's 8 sublanes, transpose "
+                    f"entries in {busy(tv):.2f}")
+            print(f"kernel sbell_spmm f64 on {on} ({fill}): max_abs_err vs "
+                  f"twin at B "
+                  f"= 1, 2, 4, 8, 11 into NaN-poisoned strided planes, by "
+                  f"form: {worst}; zero x (B = 1, 11): every covered tile "
+                  f"zeroed, nothing past a plane written; ships: walk "
+                  f"{walk(dp, 1)} at B=1 and {walk(dp, RHS)} at B={RHS}, "
+                  f"{_cuda.lib().cfs_sbell_smem(TW, 1, 1)} and "
+                  f"{_cuda.lib().cfs_sbell_smem(TW, RHS, 1)} B of shared "
+                  f"memory a CTA, {n8} device launches at B={RHS}; {info}",
+                  flush=True)
+
+        def make_sbell64_mm(B, dp=dp64):
+            TP, kw_q = paired_geometry(dp)
+            sa = (*paired_stream(dp),
+                  planes(B, dp.x_rows, extra=2, dtype=f64))
+            S = S_p64 if dp is dp64 else paired_csr(torch, dp)
             Xf = sa[4].reshape(B, -1).T.contiguous()
             return (lambda: bk.sbell_spmm_tiles(
-                        *sa, out=poisoned((B, TP64, 128), f64), **kw_p64),
-                    lambda: bk.sbell_spmm_tiles(*sa, **kw_p64),
-                    lambda: bk.sbell_spmm_tiles_plain(*sa, **kw_p64),
+                        *sa, out=poisoned((B, TP, 128), f64), **kw_q),
+                    lambda: bk.sbell_spmm_tiles(*sa, **kw_q),
+                    lambda: bk.sbell_spmm_tiles_plain(*sa, **kw_q),
                     lambda: bk.sbell_spmm_tiles_plain(
-                        dp64.vals.abs(), *sa[1:4], sa[4].abs(), **kw_p64),
-                    _nbytes(*sa) + 8 * B * TP64 * 128,
-                    lambda: S_p64 @ Xf)
+                        dp.vals.abs(), *sa[1:4], sa[4].abs(), **kw_q),
+                    _nbytes(*sa) + 8 * B * TP * 128,
+                    lambda: S @ Xf)
 
+        mm_pair("sbell_spmm_f64", lambda B: make_sbell64_mm(B, dh64), npr_p,
+                on_ph, Bs=(1, 11, RHS))
         mm_pair("sbell_spmm_f64", make_sbell64_mm, npr_p, on_p,
-                Bs=(2, 4, 11, RHS), flops=RHS * 4 * nnz_of(dp64.vals))
+                Bs=(1, 2, 4, 11, RHS), flops=RHS * 4 * nnz_of(dp64.vals))
+        print(f"kernel sbell_spmv f64 on {on_p}: max_abs_err vs twin {e5}; "
+              f"the library call's stream (paired_csr) against the twin "
+              f"{e_lib}", flush=True)
 
+        # B10 f64 in device time, in turns over two rounds, at B = 8
+        x8 = planes(RHS, dp64.x_rows, dtype=f64)
+        y8 = torch.empty((RHS, TP64, 128), device=dev, dtype=f64)
+        X8f = x8.reshape(RHS, -1).T.contiguous()
+        b10 = kern["sbell_spmm_f64"]
+        b10_bound, _ = _bound(b10["bytes"], b10["flops"], "float64")
+        lib_dev, _ = _device_ms(torch, lambda: S_p64 @ X8f)
+        plain_ms = _median_ms(torch, lambda: bk.sbell_spmm_tiles_plain(
+            *paired_stream(dp64), x8, **kw_p64), calls=3, repeats=3)
+        for rnd in range(2):
+            said = []
+            for form, cpc in ((0, 0), ("ships", 0), (2, 0), (3, 0), (4, 0),
+                              (1, 1), (1, 2), (1, 3), (1, 4), (1, 8)):
+                if form == "ships":
+                    fn = lambda: bk.sbell_spmm_tiles(  # noqa: E731
+                        *paired_stream(dp64), x8, out=y8, **kw_p64)
+                else:
+                    fn = (lambda f=form, c=cpc: run_f64_form(  # noqa: E731
+                        dp64, x8, y8, f, c))
+                busy, by = _device_ms(torch, fn)
+                said.append(
+                    f"{'ships' if form == 'ships' else f'form {form}'}"
+                    f"{f' cpc={cpc}' if cpc else ''} {_ms(busy)} (kernels "
+                    f"{_ms(sum(v for k, v in by.items() if 'kernel' in k))})")
+            print(f"sbell_spmm f64 forms on {on_p} B={RHS} round {rnd}, "
+                  f"device ms (kernels + zero passes): " + "; ".join(said)
+                  + f"; bound {b10_bound:.4f}, library (paired_csr @ X) "
+                  f"device {_ms(lib_dev)}, twin {plain_ms:.4f} ms by events "
+                  f"({card})", flush=True)
+
+        # B6 and B12 f64 on the mirrored shard and its replan
+        def gen_check(dm, on):
+            vals, offs = dm.dia_vals, dm.dia_offsets
+
+            def gen_form(x_il, y, form, slices, store=False):
+                """PR 13's form ("pr13", sdia_gen_kernel), the staged one
+                ("staged") at ``slices``, or what ships ("ships", 0: the
+                wrapper's rule) over the planes y; returns y."""
+                sk._launch_gen(vals, x_il, y, offs, f"sdia_gen f64 {form}",
+                               store=store, slices=slices or None,
+                               window=None if form == "pr13" else win)
+                return y
+
+            T, m = dm.num_row_tiles, dm.nrows
+            nv, D = vals.shape[0] * 1024, vals.shape[1]
+            win = dm.dia_window
+            if not (dm.dia_mirrored and vals.dtype == f64 and win):
+                raise AssertionError(f"{on}: no float64 mirrored diagonals "
+                                     "whose x window is staged")
+            av = vals.abs()
+            x = torch.rand(m, generator=g, dtype=f64).to(dev)
+            x2d = ops.pad_x(x, dm.x_rows)
+            y0 = torch.rand((T, 128), generator=g, dtype=f64).to(dev)
+            e_add = _agree(
+                sk.sdia_gen_tiles(vals, x2d, y0.clone(), offs, window=win),
+                sk.sdia_gen_tiles_plain(vals, x2d, y0.clone(), offs),
+                sk.sdia_gen_tiles_plain(av, x2d.abs(), y0.abs(), offs),
+                D, f"sdia_gen f64 add on {on}")
+            zk = sk.sdia_gen_tiles(vals, x, poisoned((T, 128), f64), offs,
+                                   store=True, window=win)
+            torch.cuda.synchronize()
+            plus_zero_tail(zk[None], nv, f"sdia_gen f64 store on {on}")
+            e_st = _agree(zk, sk.sdia_gen_tiles_plain(
+                vals, x, y0.clone(), offs, store=True),
+                sk.sdia_gen_tiles_plain(av, x.abs(), y0.clone(), offs,
+                                        store=True),
+                D, f"sdia_gen f64 store on {on}")
+            worst_mm, said = 0.0, []
+            for B in (1, 2, 4, 8, 11):
+                X = torch.rand((m, B), generator=g, dtype=f64).to(dev)
+                x3 = ops.pad_x_mm(X, dm.x_rows)
+                y3 = planes(B, T, extra=3, dtype=f64)
+                yp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs)
+                ys = sk.sdia_gen_tiles_mm_plain(av, x3.abs(), y3.abs(), offs)
+                zp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs,
+                                                store=True)
+                zs = sk.sdia_gen_tiles_mm_plain(av, x3.abs(), y3.abs(), offs,
+                                                store=True)
+                forms = {"copied": bk.interleave_x(X, dm.x_rows)}
+                xg = sk.gen_x(X, dm.x_rows)
+                if xg.data_ptr() == X.data_ptr():
+                    forms["in place"] = xg
+                elif B in (1, 2, 4, 8):
+                    raise AssertionError(f"sdia_gen_mm f64 on {on}: a "
+                                         f"contiguous aligned X of B={B} was "
+                                         "copied")
+                worst = 0.0
+                for xn, xil in forms.items():
+                    what = f"sdia_gen_mm f64 B={B} X {xn} on {on}"
+                    add = strided(y3, lambda y: sk.sdia_gen_tiles_mm(
+                        vals, xil, y, offs, planes=B, window=win))
+                    st = strided(poisoned((B, T, 128), f64), lambda y: (
+                        sk.sdia_gen_tiles_mm(vals, xil, y, offs, planes=B,
+                                             store=True, window=win)))
+                    plus_zero_tail(st, nv, what)
+                    worst = max(worst, _agree(add, yp, ys, D, f"{what} add"),
+                                _agree(st, zp, zs, D, f"{what} store"))
+                # the other forms: PR 13's at 1 and 2 slices, staged at 1,
+                # 2, 4, 8; staged and PR 13's alike bit for bit at 1 and 2
+                xil = forms["copied"]
+                by_form = {}
+                for key in (("pr13", 1), ("pr13", 2), ("staged", 1),
+                            ("staged", 2), ("staged", 4), ("staged", 8)):
+                    got = strided(y3, lambda y: gen_form(xil, y, *key))
+                    by_form[key] = got
+                    worst = max(worst, _agree(got, yp, ys, D,
+                                              f"sdia_gen_mm f64 {key} B={B} "
+                                              f"on {on}"))
+                for s_ in (1, 2):
+                    if not torch.equal(by_form["staged", s_],
+                                       by_form["pr13", s_]):
+                        raise AssertionError(
+                            f"sdia_gen_mm f64 B={B} on {on}: staged at "
+                            f"{s_} slices is not PR 13's form bit for bit")
+                z3 = strided(poisoned((B, T, 128), f64), lambda y: (
+                    sk.sdia_gen_tiles_mm(vals, torch.zeros_like(xil), y,
+                                         offs, planes=B, store=True,
+                                         window=win)))
+                if z3.ne(0).any() or torch.signbit(z3).any():
+                    raise AssertionError(f"sdia_gen_mm f64 B={B} on {on}: a "
+                                         "zero X did not store +0")
+                said.append(f"B={B} ({', '.join(forms)}) {worst}")
+                worst_mm = max(worst_mm, worst)
+            ships = sk.stage_slices(min(T * 128, nv), D,
+                                    sk._thread_slots(dev))
+            print(f"kernels sdia_gen / sdia_gen_mm f64 on {on}: {nv} value "
+                  f"rows, {T * 128} y rows, window hi {win[0]} span "
+                  f"{win[1]}; ships staged at {ships} slices a row, shared "
+                  f"memory a CTA at B=1 and {RHS} by "
+                  f"slices 1/2/4/8: " + ", ".join(
+                      f"{_cuda.lib().cfs_sdia_gen_smem_f64(1, s_, 1)}/"
+                      f"{_cuda.lib().cfs_sdia_gen_smem_f64(RHS, s_, 1)}"
+                      for s_ in (1, 2, 4, 8))
+                  + f" B (PR 13's at 2 slices "
+                  f"{_cuda.lib().cfs_sdia_gen_smem_f64(RHS, 2, 0)} B); "
+                  f"max_abs_err vs twin: B6 add {e_add}, store from x {e_st}; "
+                  f"B12 adding and storing, every form, by X: "
+                  + "; ".join(said) + "; staged at 1 and 2 slices bit for "
+                  "bit PR 13's; a zero X stores +0", flush=True)
+            return x2d, y0, max(e_add, e_st), worst_mm, gen_form
+
+        gen_check(dmh64, "the mirrored cant_proxy without rows 20,000-29,999, "
+                  "float64 shard 1")
         dm64 = dist64["D1 cant_proxy P=4 mirrored float64"].shards[1].near
-        if not (dm64.dia_mirrored and dm64.dia_vals.dtype == f64):
-            raise AssertionError("D1's mirrored float64 shard 1 has no "
-                                 "float64 mirrored diagonals")
-        vals, offs = dm64.dia_vals, dm64.dia_offsets
+        vals, offs, win = dm64.dia_vals, dm64.dia_offsets, dm64.dia_window
         T, m = dm64.num_row_tiles, dm64.nrows
-        nv, D = vals.shape[0] * 1024, vals.shape[1]
+        D = vals.shape[1]
         on_m = f"D1 mirrored float64 shard 1 ({D} diagonals)"
-        av = vals.abs()
-        x = torch.rand(m, generator=g, dtype=f64).to(dev)
-        x2d = ops.pad_x(x, dm64.x_rows)
-        y0 = torch.rand((T, 128), generator=g, dtype=f64).to(dev)
-        e_add = _agree(sk.sdia_gen_tiles(vals, x2d, y0.clone(), offs),
-                       sk.sdia_gen_tiles_plain(vals, x2d, y0.clone(), offs),
-                       sk.sdia_gen_tiles_plain(av, x2d.abs(), y0.abs(), offs),
-                       D, f"sdia_gen f64 add on {on_m}")
-        zk = sk.sdia_gen_tiles(vals, x, poisoned((T, 128), f64), offs,
-                               store=True)
-        torch.cuda.synchronize()
-        plus_zero_tail(zk[None], nv, f"sdia_gen f64 store on {on_m}")
-        e_st = _agree(zk, sk.sdia_gen_tiles_plain(vals, x, y0.clone(), offs,
-                                                  store=True),
-                      sk.sdia_gen_tiles_plain(av, x.abs(), y0.clone(), offs,
-                                              store=True),
-                      D, f"sdia_gen f64 store on {on_m}")
-        worst_mm, said = 0.0, []
-        for B in (1, 2, 4, 8, 11):
-            X = torch.rand((m, B), generator=g, dtype=f64).to(dev)
-            x3 = ops.pad_x_mm(X, dm64.x_rows)
-            y3 = planes(B, T, extra=3, dtype=f64)
-            yp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs)
-            ys = sk.sdia_gen_tiles_mm_plain(av, x3.abs(), y3.abs(), offs)
-            zp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs,
-                                            store=True)
-            zs = sk.sdia_gen_tiles_mm_plain(av, x3.abs(), y3.abs(), offs,
-                                            store=True)
-            forms = {"copied": bk.interleave_x(X, dm64.x_rows)}
-            xg = sk.gen_x(X, dm64.x_rows)
-            if xg.data_ptr() == X.data_ptr():
-                forms["in place"] = xg
-            elif B in (1, 2, 4, 8):
-                raise AssertionError(f"sdia_gen_mm f64 on {on_m}: a "
-                                     f"contiguous aligned X of B={B} was "
-                                     "copied")
-            worst = 0.0
-            for xn, xil in forms.items():
-                what = f"sdia_gen_mm f64 B={B} X {xn} on {on_m}"
-                add = strided(y3, lambda y: sk.sdia_gen_tiles_mm(
-                    vals, xil, y, offs, planes=B))
-                st = strided(poisoned((B, T, 128), f64), lambda y: (
-                    sk.sdia_gen_tiles_mm(vals, xil, y, offs, planes=B,
-                                         store=True)))
-                plus_zero_tail(st, nv, what)
-                worst = max(worst, _agree(add, yp, ys, D, f"{what} add"),
-                            _agree(st, zp, zs, D, f"{what} store"))
-            said.append(f"B={B} ({', '.join(forms)}) {worst}")
-            worst_mm = max(worst_mm, worst)
+        x2d, y0, e6, e12, gen_form = gen_check(dm64, on_m)
         S_m64 = dia_csr(torch, vals, offs, T * 128, dm64.x_rows * 128)
         xf = x2d.reshape(-1)
+        av = vals.abs()
         e_lib = _agree((S_m64 @ xf).reshape(T, 128),
                        sk.sdia_gen_tiles_plain(vals, x2d, torch.zeros_like(y0),
                                                offs),
                        sk.sdia_gen_tiles_plain(av, x2d.abs(),
                                                torch.zeros_like(y0), offs),
                        D, f"dia_csr on {on_m}")
-        print(f"kernels sdia_gen / sdia_gen_mm f64 on {on_m}: {nv} value "
-              f"rows, {T * 128} y rows, "
-              f"{sk.gen_slices(min(T * 128, nv), D, sk._thread_slots(dev))} "
-              f"slices a row adding; max_abs_err vs twin: B6 add {e_add}, "
-              f"store from x {e_st}; B12 adding and storing, by X: "
-              + "; ".join(said) + f"; the library call's stream (dia_csr) "
-              f"against the twin {e_lib}", flush=True)
+        print(f"the library call's stream (dia_csr) on {on_m} against the "
+              f"twin {e_lib}", flush=True)
         X8 = torch.rand((m, RHS), generator=g, dtype=f64).to(dev)
         Y8 = torch.rand((RHS, T, 128), generator=g, dtype=f64).to(dev)
         xg8 = sk.gen_x(X8, dm64.x_rows)
         X8f = ops.pad_x_mm(X8, dm64.x_rows).reshape(RHS, -1).T.contiguous()
         kern["sdia_gen_f64"] = dict(
-            err=max(e_add, e_st), on=f"{on_m} (add)", flops=2 * nnz_of(vals),
+            err=e6, on=f"{on_m} (add)", flops=2 * nnz_of(vals),
             bytes=_nbytes(vals, x2d) + 2 * _nbytes(y0),
             library=lambda: S_m64 @ xf,
-            fn=lambda: sk.sdia_gen_tiles(vals, x2d, y0.clone(), offs),
+            fn=lambda: sk.sdia_gen_tiles(vals, x2d, y0.clone(), offs,
+                                         window=win),
             plain=lambda: sk.sdia_gen_tiles_plain(vals, x2d, y0.clone(), offs))
         kern["sdia_gen_mm_f64"] = dict(
-            err=worst_mm, on=f"{on_m} (add, X in place), B={RHS}",
+            err=e12, on=f"{on_m} (add, X in place), B={RHS}",
             flops=RHS * 2 * nnz_of(vals),
             bytes=_nbytes(vals, X8) + 2 * _nbytes(Y8),
             library=lambda: S_m64 @ X8f,
             fn=lambda: sk.sdia_gen_tiles_mm(vals, xg8, Y8.clone(), offs,
-                                            planes=RHS),
+                                            planes=RHS, window=win),
             plain=lambda: sk.sdia_gen_tiles_mm_plain(
                 vals, xg8, Y8.clone(), offs, planes=RHS))
+
+        # B6 and B12 f64 in device time, in turns over two rounds: the
+        # kernel alone (y written in place, the store form), PR 13's forms
+        # and the staged ones by slices, and what ships through its wrapper
+        for B, xin, lib_call in ((1, x2d.reshape(1, -1), lambda: S_m64 @ xf),
+                                 (RHS, xg8, lambda: S_m64 @ X8f)):
+            yy = torch.empty((B, T, 128), device=dev, dtype=f64)
+            k = kern["sdia_gen_f64" if B == 1 else "sdia_gen_mm_f64"]
+            bound, _ = _bound(k["bytes"], k["flops"], "float64")
+            lib_dev, _ = _device_ms(torch, lib_call)
+            plain_ms = _median_ms(torch, k["plain"], calls=3, repeats=3)
+            for rnd in range(2):
+                said = []
+                for key in (("pr13", 1), ("pr13", 2), ("staged", 1),
+                            ("staged", 2), ("staged", 4), ("staged", 8),
+                            ("ships", 0)):
+                    busy, _ = _device_ms(torch, lambda kk=key: gen_form(
+                        xin, yy, *kk, store=True))
+                    said.append(f"{key[0]}{f' {key[1]}' if key[1] else ''} "
+                                f"{_ms(busy)}")
+                print(f"sdia_gen f64 forms on {on_m} B={B} (store) round "
+                      f"{rnd}, device ms: " + "; ".join(said)
+                      + f"; bound {bound:.4f}, library (dia_csr) device "
+                      f"{_ms(lib_dev)}, twin {plain_ms:.4f} ms by events "
+                      f"({card})", flush=True)
         return dist64
 
     dist64 = double_instances()
@@ -5684,12 +6087,15 @@ def main() -> int:
             (kern, "bell2_spmm_accum_df", "bell2_spmv_accum_df",
              "bell2_entries_kernel"),
             (kern, "sdia_sym_df_mm", "sdia_sym_df", "sdia_sym_kernel"),
-            (kern, "sbell_spmm_f64", "sbell_spmv_f64", "sbell_spmv_kernel"),
-            (kern, "sdia_gen_mm_f64", "sdia_gen_f64", "sdia_gen_kernel")):
+            (kern, "sbell_spmm_f64", "sbell_spmv_f64", "sbell_planes_kernel"),
+            (kern, "sdia_gen_mm_f64", "sdia_gen_f64",
+             "sdia_gen_staged_kernel")):
         t_mm = ks[mm]["device"].get(kernel)
-        # the float SpMV instance of the grid kernel is the ring kernel
+        # the float SpMV instance of the grid kernel is the walk groups'
+        # kernel, the double paired one sbell_spmv_kernel
         t_mv = ks[mv]["device"].get(
-            "bell2_walks_kernel" if mv == "bell2_spmv" else kernel)
+            {"bell2_spmv": "bell2_walks_kernel",
+             "sbell_spmv_f64": "sbell_spmv_kernel"}.get(mv, kernel))
         print(f"MM({RHS}) vs {RHS}x SpMV device time, {kernel} on "
               f"{ks[mv]['on']}: MM({RHS}) {_ms(t_mm)} ms, SpMV {_ms(t_mv)} "
               f"ms, ratio MM / ({RHS} SpMV) "

@@ -46,11 +46,11 @@ are OR-combined; a position may carry both roles simultaneously).
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 
 from .. import native as _native
+from ..utils import trace
 from ..utils.logging import info
 from .csr import CSR
 
@@ -395,17 +395,16 @@ def _sort_entries(row, col):
     # (tile*S + seg)*128 + q == tile*(S*128) + col; build the key with
     # in-place ops — two fewer 8B/entry temporaries (page faults of
     # fresh allocations dominate)
-    t0 = time.perf_counter()
-    S128 = ((int(col.max()) >> 7) + 1) * 128
-    key = row.astype(np.int64, copy=True)
-    key >>= 7
-    key *= S128
-    key += col
-    order = np.argsort(key, kind="stable")
-    del key  # 8B/entry, dead — keep peak RSS under the host's cliff
-    rs = np.asarray(row, np.int32)[order]
-    cs = np.asarray(col, np.int32)[order]
-    info("bell2: entry sort n=%d %.1fs", len(row), time.perf_counter() - t0)
+    with trace.span("cfs.plan.sort", log=True, n=len(row)):
+        S128 = ((int(col.max()) >> 7) + 1) * 128
+        key = row.astype(np.int64, copy=True)
+        key >>= 7
+        key *= S128
+        key += col
+        order = np.argsort(key, kind="stable")
+        del key  # 8B/entry, dead — keep peak RSS under the host's cliff
+        rs = np.asarray(row, np.int32)[order]
+        cs = np.asarray(col, np.int32)[order]
     return order, rs >> 7, rs & 127, cs >> 7, cs & 127
 
 
@@ -444,30 +443,44 @@ def _pack_slots_entries(ts, lrs, sgs, qs, T, *, ensure_tiles=True,
     reduced chunks, so no plan could reach it (the
     native ``pack_slots`` keeps its ``group`` ABI parameter frozen
     at 1)."""
-    t0 = time.perf_counter()
-    packed = None
-    if contig and rot == 1:
-        # anchor-sweep packing: per-tile minimum-unassigned-seg
-        # anchors + maximal per-lane prefixes — optimal for the per-lane
-        # capacity relaxation. Wins when the window range binds (tile seg
-        # span > depth: the first-fit ring's staggered anchors strand
-        # capacity); loses a little when windows are slack (its denser chunks
-        # take more gather-lane conflicts). Small streams pack BOTH and
-        # keep the smaller plan; big streams pick by the entry-weighted
-        # span predictor to keep full-scale preproc single-pass.
-        want_sweep = want_ff = True
-        if len(ts) > _SWEEP_DUAL_MAX:
-            spans = _entry_weighted_span_frac(ts, sgs, T, max_windows)
-            want_sweep = spans > 0.3
-            want_ff = not want_sweep
-        pk_sw = None
-        if want_sweep:
-            pk_sw = _native.pack_slots_sweep(ts, lrs, sgs, qs, max_windows)
-            if pk_sw is None:
-                pk_sw = _native.pack_slots_sweep_py(
-                    ts, lrs, sgs, qs, max_windows
+    with trace.span("cfs.plan.pack", log=True, n=len(ts), mw=max_windows,
+                    rot=rot) as sp:
+        packed = None
+        if contig and rot == 1:
+            # anchor-sweep packing: per-tile minimum-unassigned-seg
+            # anchors + maximal per-lane prefixes — optimal for the
+            # per-lane capacity relaxation. Wins when the window range
+            # binds (tile seg span > depth: the first-fit ring's staggered
+            # anchors strand capacity); loses a little when windows are
+            # slack (its denser chunks take more gather-lane conflicts).
+            # Small streams pack BOTH and keep the smaller plan; big
+            # streams pick by the entry-weighted span predictor to keep
+            # full-scale preproc single-pass.
+            want_sweep = want_ff = True
+            if len(ts) > _SWEEP_DUAL_MAX:
+                spans = _entry_weighted_span_frac(ts, sgs, T, max_windows)
+                want_sweep = spans > 0.3
+                want_ff = not want_sweep
+            pk_sw = None
+            if want_sweep:
+                pk_sw = _native.pack_slots_sweep(ts, lrs, sgs, qs, max_windows)
+                if pk_sw is None:
+                    pk_sw = _native.pack_slots_sweep_py(
+                        ts, lrs, sgs, qs, max_windows
+                    )
+            if want_ff:
+                packed = _native.pack_slots(
+                    ts, lrs, sgs, qs, max_windows, contig=contig, rot=rot
                 )
-        if want_ff:
+                if packed is None:
+                    packed = _native.pack_slots_py(
+                        ts, lrs, sgs, qs, max_windows, contig=contig, rot=rot,
+                    )
+            if pk_sw is not None and (
+                packed is None or len(pk_sw[4]) < len(packed[4])
+            ):
+                packed = pk_sw
+        else:
             packed = _native.pack_slots(
                 ts, lrs, sgs, qs, max_windows, contig=contig, rot=rot
             )
@@ -475,24 +488,8 @@ def _pack_slots_entries(ts, lrs, sgs, qs, T, *, ensure_tiles=True,
                 packed = _native.pack_slots_py(
                     ts, lrs, sgs, qs, max_windows, contig=contig, rot=rot,
                 )
-        if pk_sw is not None and (
-            packed is None or len(pk_sw[4]) < len(packed[4])
-        ):
-            packed = pk_sw
-    else:
-        packed = _native.pack_slots(
-            ts, lrs, sgs, qs, max_windows, contig=contig, rot=rot
-        )
-        if packed is None:
-            packed = _native.pack_slots_py(
-                ts, lrs, sgs, qs, max_windows, contig=contig, rot=rot,
-            )
-    e_chunk, e_sub, e_r2, e_rc, chunk_tiles, windows, nwin = packed
-    info(
-        "bell2: pack n=%d -> %d chunks (mw=%d rot=%d) %.1fs",
-        len(ts), len(chunk_tiles), max_windows, rot,
-        time.perf_counter() - t0,
-    )
+        e_chunk, e_sub, e_r2, e_rc, chunk_tiles, windows, nwin = packed
+        sp.set(chunks=len(chunk_tiles))
     # cover empty tiles (same contract as pack_chunks)
     present = np.zeros(T, bool)
     if len(chunk_tiles):
@@ -996,356 +993,353 @@ def build_bell2_from_arrays(
             n, m, T, x_rows, dtype, K, BT, cover=cover_all_tiles
         )
 
-    t0 = time.perf_counter()
-    # int32 entry streams halve the planner's live set; the slot
-    # packer's sorted context is int32 regardless of input dtype, so
-    # coordinates beyond int32 are rejected rather than silently
-    # wrapped (n*m/128 must also fit the int64 sort key)
-    if max(n, m) >= (1 << 31):
-        raise ValueError(
-            f"matrix {n}x{m} exceeds the planner's int32 coordinate "
-            "range"
-        )
-    row = np.asarray(row)
-    col = np.asarray(col)
-    idt = (
-        np.int32
-        if row.dtype == np.int32 and col.dtype == np.int32
-        else np.int64
-    )
-    row = np.ascontiguousarray(row, idt)
-    col = np.ascontiguousarray(col, idt)
-    val = np.asarray(val)
-
-    tile = row >> 7
-    seg = col >> 7
-    # lane/q are derived on demand: the slot path takes them from the
-    # packer's sorted context, the unit path from plan_units
-
-    # cheap scatter predictor: few entries per (tile, segment) means
-    # unit-based subrows would sit mostly empty — go straight to the
-    # conflict-aware slot packer and skip two full sort pipelines
-    slot_ok = _native.available() or nnz <= 2_000_000 or force_slot
-    if force_slot:
-        # straight to the conflict-aware slot packer — skip the
-        # predictor entirely (its distinct-count is costly on big
-        # streams)
-        avg_per_ts = 0.0
-    else:
-        key_space = T * (x_rows + 1)
-        kdt = (
+    with trace.span("cfs.plan.predict", log=True, nnz=nnz):
+        # int32 entry streams halve the planner's live set; the slot
+        # packer's sorted context is int32 regardless of input dtype, so
+        # coordinates beyond int32 are rejected rather than silently
+        # wrapped (n*m/128 must also fit the int64 sort key)
+        if max(n, m) >= (1 << 31):
+            raise ValueError(
+                f"matrix {n}x{m} exceeds the planner's int32 coordinate "
+                "range"
+            )
+        row = np.asarray(row)
+        col = np.asarray(col)
+        idt = (
             np.int32
-            if tile.dtype == np.int32 and key_space < (1 << 31)
+            if row.dtype == np.int32 and col.dtype == np.int32
             else np.int64
         )
-        ts_key = tile.astype(kdt, copy=True)
-        ts_key *= kdt(x_rows + 1)
-        ts_key += seg.astype(kdt, copy=False)
-        if key_space <= max(4 * nnz, 1 << 26):
-            # distinct-count via boolean scatter: two O(nnz) passes
-            # instead of a full sort (np.unique) — the predictor was
-            # costing more than the decision it informs on big matrices
-            present = np.zeros(key_space, bool)
-            present[ts_key] = True
-            n_ts = int(np.count_nonzero(present))
+        row = np.ascontiguousarray(row, idt)
+        col = np.ascontiguousarray(col, idt)
+        val = np.asarray(val)
+
+        tile = row >> 7
+        seg = col >> 7
+        # lane/q are derived on demand: the slot path takes them from the
+        # packer's sorted context, the unit path from plan_units
+
+        # cheap scatter predictor: few entries per (tile, segment) means
+        # unit-based subrows would sit mostly empty — go straight to the
+        # conflict-aware slot packer and skip two full sort pipelines
+        slot_ok = _native.available() or nnz <= 2_000_000 or force_slot
+        if force_slot:
+            # straight to the conflict-aware slot packer — skip the
+            # predictor entirely (its distinct-count is costly on big
+            # streams)
+            avg_per_ts = 0.0
         else:
-            n_ts = len(np.unique(ts_key))
-        del ts_key
-        avg_per_ts = nnz / max(n_ts, 1)
-    if slot_ok and avg_per_ts >= 24:
-        # dense tile-segments still slot-pack better when the entries
-        # sit on SPARSE exact diagonals (block structure at random
-        # offsets — the audikw shape): sample the diagonal density
-        # instead of paying the full unit pipeline and its retry
-        samp = slice(None)
-        if nnz > 2_000_000:
-            samp = np.random.default_rng(0).integers(0, nnz, 1_000_000)
-        dk = (
-            tile[samp] * np.int64(1 << 33)
-            + (row[samp] - col[samp]) + np.int64(1 << 32)
-        )
-        _, dc = np.unique(dk, return_counts=True)
-        scale = nnz / max(
-            len(dk) if isinstance(samp, np.ndarray) else nnz, 1
-        )
-        # a diagonal is certified dense only with >= 4 sampled hits:
-        # once scale alone exceeds the threshold (nnz >= 48M at the 1M
-        # sample), a SINGLE hit — which every tiny block diagonal gets
-        # — would certify it, flipping huge scattered matrices onto the
-        # unit pipeline (a large preprocessing cost at audikw_1 scale)
-        diag_frac = float(
-            dc[(dc >= 4) & (dc * scale >= diag_threshold)].sum()
-            / max(len(dk), 1)
-        )
-        if diag_frac < 0.5:
-            avg_per_ts = 0.0  # force the slot packer
-    # full 8 windows: caps of 4/6 saved loads but cost 14% more
-    # chunks at scale (fill dominates); keep the knob, default 8
-    slot_windows = SUBLANES
-    packed_alt = None
-    contig = False
-    depth, rot = SUBLANES, 1
-    t_pred = time.perf_counter()
-    row_perm = None
-    unperm = None
-    pack_ctx = None
-    if slot_ok and avg_per_ts < 24:
-        grp = None
-        tbl = _lane_count_table(row, T)
-        if allow_relax:
-            strict_floor = max(_lane_floor_chunks(tbl), 1)
-            size_floor = max(_tile_size_floor(tbl), 1)
-            if strict_floor > 1.15 * size_floor:
-                grp = _try_degree_grouping(
-                    row, col, n, K, BT, allow_runs=allow_runs,
-                    max_windows=slot_windows, strict_floor=strict_floor,
-                )
-        if grp is not None and grp["cost"] < strict_floor * _CYC_CONTIG:
-            # the grouped pack beats anything the in-order layout could
-            # reach (its lane floor at the cheapest datapath) — adopt
-            # without paying a second packing pass
-            packed_alt = grp["pk"]
-            contig, run_pick = grp["contig"], grp["run_pick"]
-            depth, rot = grp["depth"], grp["rot"]
-            pack_ctx = grp["ctx"]
-        else:
-            packed_alt, contig, run_pick, depth, rot, pack_ctx = (
-                _choose_slot_packing(
-                    row, col, T, K,
-                    ensure_tiles=cover_all_tiles,
-                    allow_runs=allow_runs, max_windows=slot_windows,
-                    allow_relax=allow_relax, tbl=tbl,
-                )
+            key_space = T * (x_rows + 1)
+            kdt = (
+                np.int32
+                if tile.dtype == np.int32 and key_space < (1 << 31)
+                else np.int64
             )
-            # 1.1: prefer the grouped layout on near-ties — on the TPU
-            # reference irregular in-order streams ran above the modeled
-            # per-chunk cost, so fewer chunks win ties
-            if grp is not None and grp["cost"] < 1.1 * len(
-                packed_alt[4]
-            ) * _cyc_per_chunk(depth, rot):
+            ts_key = tile.astype(kdt, copy=True)
+            ts_key *= kdt(x_rows + 1)
+            ts_key += seg.astype(kdt, copy=False)
+            if key_space <= max(4 * nnz, 1 << 26):
+                # distinct-count via boolean scatter: two O(nnz) passes
+                # instead of a full sort (np.unique) — the predictor was
+                # costing more than the decision it informs on big matrices
+                present = np.zeros(key_space, bool)
+                present[ts_key] = True
+                n_ts = int(np.count_nonzero(present))
+            else:
+                n_ts = len(np.unique(ts_key))
+            del ts_key
+            avg_per_ts = nnz / max(n_ts, 1)
+        if slot_ok and avg_per_ts >= 24:
+            # dense tile-segments still slot-pack better when the entries
+            # sit on SPARSE exact diagonals (block structure at random
+            # offsets — the audikw shape): sample the diagonal density
+            # instead of paying the full unit pipeline and its retry
+            samp = slice(None)
+            if nnz > 2_000_000:
+                samp = np.random.default_rng(0).integers(0, nnz, 1_000_000)
+            dk = (
+                tile[samp] * np.int64(1 << 33)
+                + (row[samp] - col[samp]) + np.int64(1 << 32)
+            )
+            _, dc = np.unique(dk, return_counts=True)
+            scale = nnz / max(
+                len(dk) if isinstance(samp, np.ndarray) else nnz, 1
+            )
+            # a diagonal is certified dense only with >= 4 sampled hits:
+            # once scale alone exceeds the threshold (nnz >= 48M at the 1M
+            # sample), a SINGLE hit — which every tiny block diagonal gets
+            # — would certify it, flipping huge scattered matrices onto the
+            # unit pipeline (a large preprocessing cost at audikw_1 scale)
+            diag_frac = float(
+                dc[(dc >= 4) & (dc * scale >= diag_threshold)].sum()
+                / max(len(dk), 1)
+            )
+            if diag_frac < 0.5:
+                avg_per_ts = 0.0  # force the slot packer
+        # full 8 windows: caps of 4/6 saved loads but cost 14% more
+        # chunks at scale (fill dominates); keep the knob, default 8
+        slot_windows = SUBLANES
+        packed_alt = None
+        contig = False
+        depth, rot = SUBLANES, 1
+    with trace.span("cfs.plan.layout", log=True):
+        row_perm = None
+        unperm = None
+        pack_ctx = None
+        if slot_ok and avg_per_ts < 24:
+            grp = None
+            tbl = _lane_count_table(row, T)
+            if allow_relax:
+                strict_floor = max(_lane_floor_chunks(tbl), 1)
+                size_floor = max(_tile_size_floor(tbl), 1)
+                if strict_floor > 1.15 * size_floor:
+                    grp = _try_degree_grouping(
+                        row, col, n, K, BT, allow_runs=allow_runs,
+                        max_windows=slot_windows, strict_floor=strict_floor,
+                    )
+            if grp is not None and grp["cost"] < strict_floor * _CYC_CONTIG:
+                # the grouped pack beats anything the in-order layout could
+                # reach (its lane floor at the cheapest datapath) — adopt
+                # without paying a second packing pass
                 packed_alt = grp["pk"]
                 contig, run_pick = grp["contig"], grp["run_pick"]
                 depth, rot = grp["depth"], grp["rot"]
                 pack_ctx = grp["ctx"]
             else:
-                grp = None
-        if grp is not None:
-            T, row_perm, unperm = grp["T"], grp["perm"], grp["unperm"]
-            # global compaction packs a dense tile prefix; radius mode
-            # keeps a sparse grid (skipped blocks read 0 via sentinel)
-            cover_all_tiles = grp["radius"] is None
-            info(
-                "bell2: degree-grouped rows (radius=%s) -> %d tiles, "
-                "%d chunks", grp["radius"], T, len(packed_alt[4]),
-            )
-    run_len = 1
-    wmax = SUBLANES
-    e_rc = None
-    run_remap = None  # run padding's chunk remap, composed at assembly
-    if packed_alt is not None:
-        info(
-            "bell2: slot packing (%.1f nnz per tile-seg, contig=%s, "
-            "depth=%d, rot=%d)",
-            avg_per_ts, contig, depth, rot,
-        )
-        e_chunk, e_sub, e_r2, e_rc, chunk_tiles, windows, nwin = packed_alt
-        if allow_runs:
-            wmax = slot_windows  # static; pinned to 8 for SPMD plans
-        if run_pick > 1:
-            # runs batch same-tile chunks: one flush per run
-            run_len = run_pick
-            (run_remap, chunk_tiles, windows, nwin) = _pad_tile_runs(
-                chunk_tiles, windows, nwin, run_len
-            )
-    else:
-        unit_key, tile, lane, q, seg = plan_units(
-            row, col, nnz, diag_threshold
-        )
-        e_chunk, e_sub, e_r2, chunk_tiles, windows, nwin = pack_chunks(
-            unit_key, tile, seg, T, ensure_tiles=cover_all_tiles
-        )
-        pad0 = len(chunk_tiles) * SUBLANES * LANES / max(nnz, 1)
-        if pad0 > 1.7 and slot_ok:
-            # mispredicted: retry with the slot packer (and the
-            # degree-grouped layout) and keep the cheapest plan
-            tbl_r = _lane_count_table(row, T)
-            alt, contig_a, run_pick, depth_a, rot_a, ctx_a = (
-                _choose_slot_packing(
-                    row, col, T, K, ensure_tiles=cover_all_tiles,
-                    allow_runs=allow_runs, max_windows=slot_windows,
-                    allow_relax=allow_relax, tbl=tbl_r,
-                )
-            )
-            cand = None
-            if alt is not None and len(alt[4]) < len(chunk_tiles):
-                cand = (alt, contig_a, run_pick, depth_a, rot_a, None,
-                        ctx_a)
-            if allow_relax:
-                grp = _try_degree_grouping(
-                    row, col, n, K, BT, allow_runs=allow_runs,
-                    max_windows=slot_windows,
-                    strict_floor=max(_lane_floor_chunks(tbl_r), 1),
-                )
-                if (
-                    grp is not None
-                    and len(grp["pk"][4]) < len(chunk_tiles)
-                    and (
-                        cand is None
-                        # 1.1: same grouped near-tie preference as the
-                        # main branch (see above)
-                        or grp["cost"] < 1.1 * len(cand[0][4])
-                        * _cyc_per_chunk(cand[3], cand[4])
+                packed_alt, contig, run_pick, depth, rot, pack_ctx = (
+                    _choose_slot_packing(
+                        row, col, T, K,
+                        ensure_tiles=cover_all_tiles,
+                        allow_runs=allow_runs, max_windows=slot_windows,
+                        allow_relax=allow_relax, tbl=tbl,
                     )
-                ):
-                    cand = (
-                        grp["pk"], grp["contig"], grp["run_pick"],
-                        grp["depth"], grp["rot"], grp, grp["ctx"],
-                    )
-            if cand is not None:
-                (alt, contig_a, run_pick, depth_a, rot_a, grp_pick,
-                 pack_ctx) = cand
+                )
+                # 1.1: prefer the grouped layout on near-ties — on the TPU
+                # reference irregular in-order streams ran above the modeled
+                # per-chunk cost, so fewer chunks win ties
+                if grp is not None and grp["cost"] < 1.1 * len(
+                    packed_alt[4]
+                ) * _cyc_per_chunk(depth, rot):
+                    packed_alt = grp["pk"]
+                    contig, run_pick = grp["contig"], grp["run_pick"]
+                    depth, rot = grp["depth"], grp["rot"]
+                    pack_ctx = grp["ctx"]
+                else:
+                    grp = None
+            if grp is not None:
+                T, row_perm, unperm = grp["T"], grp["perm"], grp["unperm"]
+                # global compaction packs a dense tile prefix; radius mode
+                # keeps a sparse grid (skipped blocks read 0 via sentinel)
+                cover_all_tiles = grp["radius"] is None
                 info(
-                    "bell2: slot packing %d -> %d chunks (contig=%s, "
-                    "depth=%d, rot=%d, grouped=%s)",
-                    len(chunk_tiles), len(alt[4]), contig_a, depth_a,
-                    rot_a, grp_pick is not None,
+                    "bell2: degree-grouped rows (radius=%s) -> %d tiles, "
+                    "%d chunks", grp["radius"], T, len(packed_alt[4]),
                 )
-                (e_chunk, e_sub, e_r2, e_rc, chunk_tiles, windows,
-                 nwin) = alt
-                contig = contig_a
-                depth, rot = depth_a, rot_a
-                if grp_pick is not None:
-                    T = grp_pick["T"]
-                    row_perm = grp_pick["perm"]
-                    unperm = grp_pick["unperm"]
-                    cover_all_tiles = grp_pick["radius"] is None
-                if allow_runs:
-                    wmax = slot_windows
-                if run_pick > 1:
-                    run_len = run_pick
-                    (run_remap, chunk_tiles, windows,
-                     nwin) = _pad_tile_runs(
-                        chunk_tiles, windows, nwin, run_len
-                    )
-            else:
-                depth, rot = SUBLANES, 1
-
-    t_pack = time.perf_counter()
-    if not contig:
-        depth, rot = SUBLANES, 1
-    else:
-        # the contig kernel loads x rows [w0, w0+depth); enlarge the
-        # gather space to >= depth rows and clamp w0 so the slab stays
-        # in bounds (r2 shifts up by the same amount — still < depth
-        # since the top real segment is x_rows-1)
-        x_rows = max(x_rows, depth)
-        w0 = windows[:, 0].astype(np.int64)
-        delta = np.maximum(0, w0 - (x_rows - depth))
-        if delta.any():
-            # e_chunk is in pre-run-padding space; pull the per-chunk
-            # delta back through the (small) run remap
-            dvec = delta if run_remap is None else delta[run_remap]
-            e_r2 = e_r2 + dvec.astype(e_r2.dtype)[e_chunk]
-            base = (w0 - delta).astype(np.int32)
-            windows = base[:, None] + np.arange(
-                SUBLANES, dtype=np.int32
-            )[None, :]
-            nwin = np.minimum(
-                nwin.astype(np.int64) + delta, SUBLANES
-            ).astype(np.int32)
-
-    if pack_ctx is not None:
-        # slot-packed plans live in the packer's sorted entry domain:
-        # bring lane/q/val there with ONE value gather instead of four
-        # random scatter-backs per packing candidate (same slots are
-        # written either way — the plan arrays are bit-identical)
-        order_p, lane, q = pack_ctx
-        val = np.asarray(val)[order_p]
-        if val2 is not None:
-            val2 = np.asarray(val2)[order_p]
-        del row, col, tile, seg, pack_ctx, order_p  # dead entry streams
-
-    remap, C, blk_full = group_pad(
-        chunk_tiles, K, BT, min_one_step=cover_all_tiles
-    )
-    meta = np.zeros((C, META_W), np.int32)
-    meta[remap, 0] = (chunk_tiles % BT).astype(np.int32)
-    meta[remap, 1] = nwin
-    meta[remap, 2:] = windows
-    # forward-fill K-padding chunks' meta from the last REAL chunk of
-    # the same block: the lazy-store kernels overwrite row ``sub`` with
-    # a register accumulator that resets on sub change, so a padding
-    # chunk pointing at sub 0 would wipe that row — pointing at the
-    # block's last real sub makes it a harmless re-store of the same
-    # value (its slots are all zero). Blocks without a real chunk keep
-    # zeros (only all-empty streams, which never run the lazy path).
-    written = np.zeros(C, bool)
-    written[remap] = True
-    if C and not written.all():
-        src = np.maximum.accumulate(np.where(written, np.arange(C), -1))
-        fill = ~written & (src >= 0) & (blk_full == blk_full[src])
-        meta[fill] = meta[src[fill]]
-    step_block = blk_full[::K].copy()
-
-    vals_arr = np.zeros((C, SUBLANES, LANES), dtype)
-    # one-sided streams need only q (7 bits) + r2 (<= 5 bits) + rc
-    # (<= 2 bits): int16 halves the index traffic (the paired symmetric
-    # layout needs 18 bits and stays int32). All scatters hit unique
-    # slots (each entry owns its placed lane; gather lanes carry one
-    # window index per subrow). The native assembler does the whole
-    # job in one entry pass; the NumPy scatters below are its
-    # bit-identical fallback.
-    packed = np.zeros((C, SUBLANES, LANES), np.int16)
-    cr = remap.astype(np.int32)
-    if run_remap is not None:
-        cr = cr[run_remap]  # compose: pre-pad chunk -> final chunk
-    ec = cr[e_chunk]
-    val_c = np.ascontiguousarray(np.asarray(val, dtype))
-    if not _native.assemble_plan(
-        ec, e_sub, e_r2, e_rc if e_rc is not None else e_r2,
-        lane, q, val_c, rot, vals_arr, packed,
-    ):
-        # with lane rotation the entry occupies its PLACED lane (its
-        # coset lane chosen by the packer); rc rides bits 12-13 of the
-        # packed field so the kernel can mask per rotation group
-        lane_p = (
-            lane if rot == 1 else (lane + (LANES // rot) * e_rc) & 127
-        )
-        vals_arr[ec, e_sub, lane_p] = val_c
-        if rot == 1:
-            packed[ec, e_sub, lane_p] = np.asarray(q, np.int16)
+        run_len = 1
+        wmax = SUBLANES
+        e_rc = None
+        run_remap = None  # run padding's chunk remap, composed at assembly
+        if packed_alt is not None:
+            info(
+                "bell2: slot packing (%.1f nnz per tile-seg, contig=%s, "
+                "depth=%d, rot=%d)",
+                avg_per_ts, contig, depth, rot,
+            )
+            e_chunk, e_sub, e_r2, e_rc, chunk_tiles, windows, nwin = packed_alt
+            if allow_runs:
+                wmax = slot_windows  # static; pinned to 8 for SPMD plans
+            if run_pick > 1:
+                # runs batch same-tile chunks: one flush per run
+                run_len = run_pick
+                (run_remap, chunk_tiles, windows, nwin) = _pad_tile_runs(
+                    chunk_tiles, windows, nwin, run_len
+                )
         else:
-            packed[ec, e_sub, lane_p] = (q | (e_rc << 12)).astype(np.int16)
-        packed[ec, e_sub, q] |= (e_r2 << 7).astype(np.int16)
-    vals2_arr = None
-    if val2 is not None:
-        # second value plane (df lo halves): same slot layout, one
-        # scatter (rot is always 1 — rotation was pruned)
-        vals2_arr = np.zeros((C, SUBLANES, LANES), np.float32)
-        vals2_arr[ec, e_sub, lane] = np.ascontiguousarray(
-            np.asarray(val2, np.float32)
-        )
+            unit_key, tile, lane, q, seg = plan_units(
+                row, col, nnz, diag_threshold
+            )
+            e_chunk, e_sub, e_r2, chunk_tiles, windows, nwin = pack_chunks(
+                unit_key, tile, seg, T, ensure_tiles=cover_all_tiles
+            )
+            pad0 = len(chunk_tiles) * SUBLANES * LANES / max(nnz, 1)
+            if pad0 > 1.7 and slot_ok:
+                # mispredicted: retry with the slot packer (and the
+                # degree-grouped layout) and keep the cheapest plan
+                tbl_r = _lane_count_table(row, T)
+                alt, contig_a, run_pick, depth_a, rot_a, ctx_a = (
+                    _choose_slot_packing(
+                        row, col, T, K, ensure_tiles=cover_all_tiles,
+                        allow_runs=allow_runs, max_windows=slot_windows,
+                        allow_relax=allow_relax, tbl=tbl_r,
+                    )
+                )
+                cand = None
+                if alt is not None and len(alt[4]) < len(chunk_tiles):
+                    cand = (alt, contig_a, run_pick, depth_a, rot_a, None,
+                            ctx_a)
+                if allow_relax:
+                    grp = _try_degree_grouping(
+                        row, col, n, K, BT, allow_runs=allow_runs,
+                        max_windows=slot_windows,
+                        strict_floor=max(_lane_floor_chunks(tbl_r), 1),
+                    )
+                    if (
+                        grp is not None
+                        and len(grp["pk"][4]) < len(chunk_tiles)
+                        and (
+                            cand is None
+                            # 1.1: same grouped near-tie preference as the
+                            # main branch (see above)
+                            or grp["cost"] < 1.1 * len(cand[0][4])
+                            * _cyc_per_chunk(cand[3], cand[4])
+                        )
+                    ):
+                        cand = (
+                            grp["pk"], grp["contig"], grp["run_pick"],
+                            grp["depth"], grp["rot"], grp, grp["ctx"],
+                        )
+                if cand is not None:
+                    (alt, contig_a, run_pick, depth_a, rot_a, grp_pick,
+                     pack_ctx) = cand
+                    info(
+                        "bell2: slot packing %d -> %d chunks (contig=%s, "
+                        "depth=%d, rot=%d, grouped=%s)",
+                        len(chunk_tiles), len(alt[4]), contig_a, depth_a,
+                        rot_a, grp_pick is not None,
+                    )
+                    (e_chunk, e_sub, e_r2, e_rc, chunk_tiles, windows,
+                     nwin) = alt
+                    contig = contig_a
+                    depth, rot = depth_a, rot_a
+                    if grp_pick is not None:
+                        T = grp_pick["T"]
+                        row_perm = grp_pick["perm"]
+                        unperm = grp_pick["unperm"]
+                        cover_all_tiles = grp_pick["radius"] is None
+                    if allow_runs:
+                        wmax = slot_windows
+                    if run_pick > 1:
+                        run_len = run_pick
+                        (run_remap, chunk_tiles, windows,
+                         nwin) = _pad_tile_runs(
+                            chunk_tiles, windows, nwin, run_len
+                        )
+                else:
+                    depth, rot = SUBLANES, 1
 
-    plan = Bell2Plan(
-        n, m, nnz,
-        vals_arr.reshape(C * SUBLANES, LANES),
-        packed.reshape(C * SUBLANES, LANES),
-        meta, step_block,
-        T, x_rows, K, BT, run_len, wmax, contig,
-        window_depth=depth, lane_rot=rot,
-        sparse_stream=not cover_all_tiles,
-        row_perm=row_perm,
-        unperm_pk=None if unperm is None else unperm[0],
-        unperm_slabs=None if unperm is None else unperm[1],
-        vals2=None if vals2_arr is None
-        else vals2_arr.reshape(C * SUBLANES, LANES),
-    )
-    t_asm = time.perf_counter()
+    with trace.span("cfs.plan.assemble", log=True):
+        if not contig:
+            depth, rot = SUBLANES, 1
+        else:
+            # the contig kernel loads x rows [w0, w0+depth); enlarge the
+            # gather space to >= depth rows and clamp w0 so the slab stays
+            # in bounds (r2 shifts up by the same amount — still < depth
+            # since the top real segment is x_rows-1)
+            x_rows = max(x_rows, depth)
+            w0 = windows[:, 0].astype(np.int64)
+            delta = np.maximum(0, w0 - (x_rows - depth))
+            if delta.any():
+                # e_chunk is in pre-run-padding space; pull the per-chunk
+                # delta back through the (small) run remap
+                dvec = delta if run_remap is None else delta[run_remap]
+                e_r2 = e_r2 + dvec.astype(e_r2.dtype)[e_chunk]
+                base = (w0 - delta).astype(np.int32)
+                windows = base[:, None] + np.arange(
+                    SUBLANES, dtype=np.int32
+                )[None, :]
+                nwin = np.minimum(
+                    nwin.astype(np.int64) + delta, SUBLANES
+                ).astype(np.int32)
+
+        if pack_ctx is not None:
+            # slot-packed plans live in the packer's sorted entry domain:
+            # bring lane/q/val there with ONE value gather instead of four
+            # random scatter-backs per packing candidate (same slots are
+            # written either way — the plan arrays are bit-identical)
+            order_p, lane, q = pack_ctx
+            val = np.asarray(val)[order_p]
+            if val2 is not None:
+                val2 = np.asarray(val2)[order_p]
+            del row, col, tile, seg, pack_ctx, order_p  # dead entry streams
+
+        remap, C, blk_full = group_pad(
+            chunk_tiles, K, BT, min_one_step=cover_all_tiles
+        )
+        meta = np.zeros((C, META_W), np.int32)
+        meta[remap, 0] = (chunk_tiles % BT).astype(np.int32)
+        meta[remap, 1] = nwin
+        meta[remap, 2:] = windows
+        # forward-fill K-padding chunks' meta from the last REAL chunk of
+        # the same block: the lazy-store kernels overwrite row ``sub`` with
+        # a register accumulator that resets on sub change, so a padding
+        # chunk pointing at sub 0 would wipe that row — pointing at the
+        # block's last real sub makes it a harmless re-store of the same
+        # value (its slots are all zero). Blocks without a real chunk keep
+        # zeros (only all-empty streams, which never run the lazy path).
+        written = np.zeros(C, bool)
+        written[remap] = True
+        if C and not written.all():
+            src = np.maximum.accumulate(np.where(written, np.arange(C), -1))
+            fill = ~written & (src >= 0) & (blk_full == blk_full[src])
+            meta[fill] = meta[src[fill]]
+        step_block = blk_full[::K].copy()
+
+        vals_arr = np.zeros((C, SUBLANES, LANES), dtype)
+        # one-sided streams need only q (7 bits) + r2 (<= 5 bits) + rc
+        # (<= 2 bits): int16 halves the index traffic (the paired symmetric
+        # layout needs 18 bits and stays int32). All scatters hit unique
+        # slots (each entry owns its placed lane; gather lanes carry one
+        # window index per subrow). The native assembler does the whole
+        # job in one entry pass; the NumPy scatters below are its
+        # bit-identical fallback.
+        packed = np.zeros((C, SUBLANES, LANES), np.int16)
+        cr = remap.astype(np.int32)
+        if run_remap is not None:
+            cr = cr[run_remap]  # compose: pre-pad chunk -> final chunk
+        ec = cr[e_chunk]
+        val_c = np.ascontiguousarray(np.asarray(val, dtype))
+        if not _native.assemble_plan(
+            ec, e_sub, e_r2, e_rc if e_rc is not None else e_r2,
+            lane, q, val_c, rot, vals_arr, packed,
+        ):
+            # with lane rotation the entry occupies its PLACED lane (its
+            # coset lane chosen by the packer); rc rides bits 12-13 of the
+            # packed field so the kernel can mask per rotation group
+            lane_p = (
+                lane if rot == 1 else (lane + (LANES // rot) * e_rc) & 127
+            )
+            vals_arr[ec, e_sub, lane_p] = val_c
+            if rot == 1:
+                packed[ec, e_sub, lane_p] = np.asarray(q, np.int16)
+            else:
+                packed[ec, e_sub, lane_p] = (q | (e_rc << 12)).astype(np.int16)
+            packed[ec, e_sub, q] |= (e_r2 << 7).astype(np.int16)
+        vals2_arr = None
+        if val2 is not None:
+            # second value plane (df lo halves): same slot layout, one
+            # scatter (rot is always 1 — rotation was pruned)
+            vals2_arr = np.zeros((C, SUBLANES, LANES), np.float32)
+            vals2_arr[ec, e_sub, lane] = np.ascontiguousarray(
+                np.asarray(val2, np.float32)
+            )
+
+        plan = Bell2Plan(
+            n, m, nnz,
+            vals_arr.reshape(C * SUBLANES, LANES),
+            packed.reshape(C * SUBLANES, LANES),
+            meta, step_block,
+            T, x_rows, K, BT, run_len, wmax, contig,
+            window_depth=depth, lane_rot=rot,
+            sparse_stream=not cover_all_tiles,
+            row_perm=row_perm,
+            unperm_pk=None if unperm is None else unperm[0],
+            unperm_slabs=None if unperm is None else unperm[1],
+            vals2=None if vals2_arr is None
+            else vals2_arr.reshape(C * SUBLANES, LANES),
+        )
     info(
-        "bell2: %dx%d nnz=%d chunks=%d pad=%.2fx "
-        "(predict %.1fs, pack %.1fs, assemble %.1fs)",
+        "bell2: %dx%d nnz=%d chunks=%d pad=%.2fx",
         n, m, nnz, C, plan.padding_ratio,
-        t_pred - t0, t_pack - t_pred, t_asm - t_pack,
     )
     return plan
 

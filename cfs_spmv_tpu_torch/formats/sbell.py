@@ -41,11 +41,11 @@ Packed int32 bit layout per (subrow i, lane j):
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 
 from .. import native as _native
+from ..utils import trace
 from ..utils.logging import info
 from .bell2 import (
     LANES,
@@ -254,165 +254,157 @@ def build_sbell_plan(
     T = max(1, -(-n // LANES))
     x_rows = T
 
-    t0 = time.perf_counter()
-    from .sdia import SDIA_SYM_ROWS_MAX
+    with trace.span("cfs.plan.split", log=True, nnz=csr.nnz):
+        from .sdia import SDIA_SYM_ROWS_MAX
 
-    # past the reference kernel's whole-y ceiling, mirror the
-    # diagonals and run the blocked-y one-sided kernel (at 2x diagonal
-    # value traffic)
-    mirror = n > SDIA_SYM_ROWS_MAX if dia_mirror is None else dia_mirror
-    counts = _native.sym_off_counts(csr.indptr, csr.indices, n)
-    if counts is not None:
-        # native fast path: TWO CSR passes do the whole diagonal split
-        # + dense-diagonal selection + SDIA fill + residual emission
-        # (the NumPy formulation below costs ~18 full passes)
-        cnt_by_off, ndiag_struct = counts
-        data_c = np.ascontiguousarray(np.asarray(csr.data, dtype))
-        offsets = None
-        if dia and csr.nnz:
-            uniq = np.flatnonzero(cnt_by_off)
-            offsets = select_offsets(
-                uniq, cnt_by_off[uniq], n, fill=dia_fill,
-                min_count=dia_min_count, max_d=SDIA_MAX_D,
-                mirror=mirror, signed=False,
-            )
-        dmap = np.full(n, -1, np.int32)
-        dia_plan = None
-        if offsets is not None:
-            vals_sh, D, D0, all_offsets = sdia_shell(
-                n, offsets, mirror, dtype
-            )
-            dmap[offsets] = np.arange(len(offsets), dtype=np.int32)
-            nnz_dia = int(cnt_by_off[offsets].sum())
-        else:
-            vals_sh = np.zeros(1, dtype)
-            D = D0 = nnz_dia = 0
-        n_res = csr.nnz - ndiag_struct - nnz_dia
-        diag = np.zeros(n, dtype)
-        rrow = np.empty(max(n_res, 1), np.int32)
-        rcol = np.empty(max(n_res, 1), np.int32)
-        rval = np.empty(max(n_res, 1), dtype)
-        nres = _native.sym_split_fill(
-            csr.indptr, csr.indices, data_c, n, D, D0, dmap,
-            mirror and offsets is not None, vals_sh, diag,
-            rrow, rcol, rval,
-        )
-        assert nres == n_res, (nres, n_res)
-        row, col, val = rrow[:n_res], rcol[:n_res], rval[:n_res]
-        del data_c, dmap
-        if offsets is not None:
-            dia_plan = SDiaPlan(
-                n, all_offsets, vals_sh, nnz_dia * (2 if mirror else 1)
-            )
-            info(
-                "sdia: %d diagonals%s, nnz=%d (%.1f%% of stored), "
-                "pad=%.2fx",
-                D, " (mirrored)" if mirror else "", dia_plan.nnz,
-                100 * nnz_dia / max(csr.nnz, 1), dia_plan.padding_ratio,
-            )
-        nnz_full = 2 * (csr.nnz - ndiag_struct) + int(
-            np.count_nonzero(diag)
-        )
-    else:
-        # NumPy fallback (no toolchain, or strict-upper entries found —
-        # the latter fails the assert below as before)
-        row_all = np.repeat(
-            np.arange(n, dtype=np.int32), np.diff(csr.indptr)
-        )
-        col_all = np.asarray(csr.indices, np.int32)
-        data = np.asarray(csr.data)
-        on = row_all == col_all
-        diag = np.zeros(n, dtype=data.dtype)
-        diag[row_all[on]] = data[on]
-        if on.any():
-            keep = ~on
-            row, col, val = row_all[keep], col_all[keep], data[keep]
-            del keep
-        else:
-            row, col, val = row_all, col_all, data.copy()
-        del row_all, col_all, on
-        assert not np.any(row < col), "SSS storage must be lower-triangle"
-        nnz_full = 2 * len(row) + int(np.count_nonzero(diag))
-
-        dia_plan = None
-        if dia and len(row):
-            dia_plan, resid = extract_sdia(
-                row, col, val, n, dtype=dtype, fill=dia_fill,
-                min_count=dia_min_count, mirror=mirror,
-            )
-            if dia_plan is not None:
-                row, col, val = row[resid], col[resid], val[resid]
-
-    t_dia = time.perf_counter()
-    # pairable: same output block AND dense-enough exact diagonal.
-    # Per-offset counts bound (and for the post-SDIA residual, equal —
-    # SDIA absorbs whole diagonals) the per-(tile, off) counts, so the
-    # keyed unique runs only over surviving candidates. The candidate
-    # mask itself is one native pass; tile/seg/off materialize only for
-    # the (small) surviving streams.
-    if counts is not None:
-        cnt_off = cnt_by_off  # exact per-offset counts from pass A
-    else:
-        cnt_off = np.bincount(row - col, minlength=n + 1)
-    off_ok = cnt_off >= pair_threshold
-    nat = (
-        _native.pair_mark(row, col, n, BT * LANES, off_ok, pair_threshold)
-        if len(row)
-        else None
-    )
-    if nat is not None:
-        pairable, n_pair = nat
-    else:
-        # NumPy fallback: candidate mask, then per-(tile, off) counts
-        # via a keyed unique over the candidates
-        pairable = np.zeros(len(row), bool)
-        n_pair = 0
-        if len(row):
-            NB = BT * LANES
-            cand = (row // NB == col // NB) & off_ok[
-                (row - col).astype(np.int64)
-            ]
-            ni = np.flatnonzero(cand)
-            if len(ni):
-                rown, coln = row[ni], col[ni]
-                offn = rown - coln
-                dk = (
-                    (rown >> 7).astype(np.int64) * (int(offn.max()) + 1)
-                    + offn
+        # past the reference kernel's whole-y ceiling, mirror the
+        # diagonals and run the blocked-y one-sided kernel (at 2x diagonal
+        # value traffic)
+        mirror = n > SDIA_SYM_ROWS_MAX if dia_mirror is None else dia_mirror
+        counts = _native.sym_off_counts(csr.indptr, csr.indices, n)
+        if counts is not None:
+            # native fast path: TWO CSR passes do the whole diagonal split
+            # + dense-diagonal selection + SDIA fill + residual emission
+            # (the NumPy formulation below costs ~18 full passes)
+            cnt_by_off, ndiag_struct = counts
+            data_c = np.ascontiguousarray(np.asarray(csr.data, dtype))
+            offsets = None
+            if dia and csr.nnz:
+                uniq = np.flatnonzero(cnt_by_off)
+                offsets = select_offsets(
+                    uniq, cnt_by_off[uniq], n, fill=dia_fill,
+                    min_count=dia_min_count, max_d=SDIA_MAX_D,
+                    mirror=mirror, signed=False,
                 )
-                _, dinv, dcnt = np.unique(
-                    dk, return_inverse=True, return_counts=True
+            dmap = np.full(n, -1, np.int32)
+            dia_plan = None
+            if offsets is not None:
+                vals_sh, D, D0, all_offsets = sdia_shell(
+                    n, offsets, mirror, dtype
                 )
-                pairable[ni] = dcnt[dinv] >= pair_threshold
-                n_pair = int(pairable.sum())
-            del cand, ni
-    info(
-        "sbell: pair %d/%d %.1fs", n_pair, len(row),
-        time.perf_counter() - t_dia,
-    )
-    if 0 < n_pair < PAIR_MIN_FRACTION * len(row):
-        pairable[:] = False  # not worth a kernel launch
-        n_pair = 0
+                dmap[offsets] = np.arange(len(offsets), dtype=np.int32)
+                nnz_dia = int(cnt_by_off[offsets].sum())
+            else:
+                vals_sh = np.zeros(1, dtype)
+                D = D0 = nnz_dia = 0
+            n_res = csr.nnz - ndiag_struct - nnz_dia
+            diag = np.zeros(n, dtype)
+            rrow = np.empty(max(n_res, 1), np.int32)
+            rcol = np.empty(max(n_res, 1), np.int32)
+            rval = np.empty(max(n_res, 1), dtype)
+            nres = _native.sym_split_fill(
+                csr.indptr, csr.indices, data_c, n, D, D0, dmap,
+                mirror and offsets is not None, vals_sh, diag,
+                rrow, rcol, rval,
+            )
+            assert nres == n_res, (nres, n_res)
+            row, col, val = rrow[:n_res], rcol[:n_res], rval[:n_res]
+            del data_c, dmap
+            if offsets is not None:
+                dia_plan = SDiaPlan(
+                    n, all_offsets, vals_sh, nnz_dia * (2 if mirror else 1)
+                )
+                info(
+                    "sdia: %d diagonals%s, nnz=%d (%.1f%% of stored), "
+                    "pad=%.2fx",
+                    D, " (mirrored)" if mirror else "", dia_plan.nnz,
+                    100 * nnz_dia / max(csr.nnz, 1), dia_plan.padding_ratio,
+                )
+            nnz_full = 2 * (csr.nnz - ndiag_struct) + int(
+                np.count_nonzero(diag)
+            )
+        else:
+            # NumPy fallback (no toolchain, or strict-upper entries found —
+            # the latter fails the assert below as before)
+            row_all = np.repeat(
+                np.arange(n, dtype=np.int32), np.diff(csr.indptr)
+            )
+            col_all = np.asarray(csr.indices, np.int32)
+            data = np.asarray(csr.data)
+            on = row_all == col_all
+            diag = np.zeros(n, dtype=data.dtype)
+            diag[row_all[on]] = data[on]
+            if on.any():
+                keep = ~on
+                row, col, val = row_all[keep], col_all[keep], data[keep]
+                del keep
+            else:
+                row, col, val = row_all, col_all, data.copy()
+            del row_all, col_all, on
+            assert not np.any(row < col), "SSS storage must be lower-triangle"
+            nnz_full = 2 * len(row) + int(np.count_nonzero(diag))
 
-    far_plan = None
-    if n_pair:
-        fr0, fc0, fv0 = row[~pairable], col[~pairable], val[~pairable]
-        # slice the (small) paired stream now so the full-stream copies
-        # can be dropped before the far build — peak RSS during that
-        # build is the whole plan's memory ceiling
-        row, col, val = row[pairable], col[pairable], val[pairable]
-    else:
-        # scattered fast path: no boolean-gather copies of the full
-        # entry stream when everything is far (the audikw shape)
-        fr0, fc0, fv0 = row, col, val
-        row, col, val = row[:0], col[:0], val[:0]
-    tile, seg, off = row >> 7, col >> 7, row - col
-    del pairable, cnt_off, off_ok
-    t_pair = time.perf_counter()
-    info(
-        "sbell: split+dia %.1fs pair %.1fs",
-        t_dia - t0, t_pair - t_dia,
-    )
+            dia_plan = None
+            if dia and len(row):
+                dia_plan, resid = extract_sdia(
+                    row, col, val, n, dtype=dtype, fill=dia_fill,
+                    min_count=dia_min_count, mirror=mirror,
+                )
+                if dia_plan is not None:
+                    row, col, val = row[resid], col[resid], val[resid]
+
+    with trace.span("cfs.plan.pair", log=True) as sp:
+        # pairable: same output block AND dense-enough exact diagonal.
+        # Per-offset counts bound (and for the post-SDIA residual, equal —
+        # SDIA absorbs whole diagonals) the per-(tile, off) counts, so the
+        # keyed unique runs only over surviving candidates. The candidate
+        # mask itself is one native pass; tile/seg/off materialize only for
+        # the (small) surviving streams.
+        if counts is not None:
+            cnt_off = cnt_by_off  # exact per-offset counts from pass A
+        else:
+            cnt_off = np.bincount(row - col, minlength=n + 1)
+        off_ok = cnt_off >= pair_threshold
+        nat = (
+            _native.pair_mark(row, col, n, BT * LANES, off_ok, pair_threshold)
+            if len(row)
+            else None
+        )
+        if nat is not None:
+            pairable, n_pair = nat
+        else:
+            # NumPy fallback: candidate mask, then per-(tile, off) counts
+            # via a keyed unique over the candidates
+            pairable = np.zeros(len(row), bool)
+            n_pair = 0
+            if len(row):
+                NB = BT * LANES
+                cand = (row // NB == col // NB) & off_ok[
+                    (row - col).astype(np.int64)
+                ]
+                ni = np.flatnonzero(cand)
+                if len(ni):
+                    rown, coln = row[ni], col[ni]
+                    offn = rown - coln
+                    dk = (
+                        (rown >> 7).astype(np.int64) * (int(offn.max()) + 1)
+                        + offn
+                    )
+                    _, dinv, dcnt = np.unique(
+                        dk, return_inverse=True, return_counts=True
+                    )
+                    pairable[ni] = dcnt[dinv] >= pair_threshold
+                    n_pair = int(pairable.sum())
+                del cand, ni
+        sp.set(paired=n_pair, of=len(row))
+        if 0 < n_pair < PAIR_MIN_FRACTION * len(row):
+            pairable[:] = False  # not worth a kernel launch
+            n_pair = 0
+
+        far_plan = None
+        if n_pair:
+            fr0, fc0, fv0 = row[~pairable], col[~pairable], val[~pairable]
+            # slice the (small) paired stream now so the full-stream copies
+            # can be dropped before the far build — peak RSS during that
+            # build is the whole plan's memory ceiling
+            row, col, val = row[pairable], col[pairable], val[pairable]
+        else:
+            # scattered fast path: no boolean-gather copies of the full
+            # entry stream when everything is far (the audikw shape)
+            fr0, fc0, fv0 = row, col, val
+            row, col, val = row[:0], col[:0], val[:0]
+        tile, seg, off = row >> 7, col >> 7, row - col
+        del pairable, cnt_off, off_ok
 
     # ---- pack the paired stream FIRST, then gate on its real cost ----
     # A paired chunk costs about twice a one-sided one (_CYC_PAIRED vs

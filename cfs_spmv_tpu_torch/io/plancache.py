@@ -29,6 +29,7 @@ import numpy as np
 from ..formats.bell2 import Bell2Plan
 from ..formats.sbell import SBellPlan
 from ..formats.sdia import SDiaPlan
+from ..utils import trace
 from ..utils.logging import info
 
 __all__ = ["save_plan", "load_plan", "cache_key", "cached_build",
@@ -140,21 +141,30 @@ def cache_key(csr, dtype, **params) -> str:
 def cached_build(build_fn, csr, dtype, cache_dir, **params):
     """Build via ``build_fn()`` with content-addressed .npz caching.
 
-    ``cache_dir`` empty/None disables caching entirely."""
+    ``cache_dir`` empty/None disables caching entirely. The steps are the
+    spans ``cfs.tune.key``, ``cfs.tune.plan_load`` (a hit: the counter
+    ``plancache.hits``), ``cfs.tune.plan_build`` and
+    ``cfs.tune.plan_save`` (a miss: ``plancache.misses``)."""
     if not cache_dir:
-        return build_fn()
+        with trace.span("cfs.tune.plan_build"):
+            return build_fn()
     os.makedirs(cache_dir, exist_ok=True)
-    path = os.path.join(
-        cache_dir, f"plan-{cache_key(csr, dtype, **params)}.npz"
-    )
+    with trace.span("cfs.tune.key"):
+        key = cache_key(csr, dtype, **params)
+    path = os.path.join(cache_dir, f"plan-{key}.npz")
     if os.path.exists(path):
         try:
-            plan = load_plan(path)
+            with trace.span("cfs.tune.plan_load"):
+                plan = load_plan(path)
+            trace.count("plancache.hits")
             info("plancache: hit %s", path)
             return plan
         except (ValueError, KeyError, OSError) as e:
             info("plancache: discarding %s (%s)", path, e)
-    plan = build_fn()
-    save_plan(path, plan)
+    trace.count("plancache.misses")
+    with trace.span("cfs.tune.plan_build"):
+        plan = build_fn()
+    with trace.span("cfs.tune.plan_save"):
+        save_plan(path, plan)
     info("plancache: saved %s", path)
     return plan

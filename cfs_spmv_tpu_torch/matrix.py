@@ -19,6 +19,7 @@ from .formats.coo import COO
 from .formats.csr import CSR
 from .io.mmf import read_mmf
 from .tuning.tune import TunedMatrix, tune
+from .utils import trace
 from .utils.platform import Format, Kernel, Tuning
 
 __all__ = ["SparseMatrix"]
@@ -174,11 +175,11 @@ class SparseMatrix:
                 device, f64 = "cuda", np.asarray(x).dtype == np.float64
             self.tune(tuning=Tuning.NONE, device=device,
                       dtype=np.float64 if f64 else np.float32)
-        x = torch.as_tensor(x, dtype=self._tuned.dtype,
-                            device=self._tuned.device)
-        if x.ndim != 1:
-            return self._tuned.matmat(x)
-        return self._tuned.matvec(x)
+        tuned = self._tuned
+        with trace.span("cfs.apply", dtype=tuned.dtype) as s:
+            x = torch.as_tensor(x, dtype=tuned.dtype, device=tuned.device)
+            s.set(rhs=1 if x.ndim == 1 else x.shape[1])
+            return tuned.apply(x)
 
     __matmul__ = dense_vector_multiply
 

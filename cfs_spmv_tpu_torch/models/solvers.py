@@ -42,10 +42,13 @@ estimates, not their vectors.
 from __future__ import annotations
 
 import contextlib
+import functools
+import inspect
 from typing import Callable
 
 import torch
 
+from ..utils import trace
 from ..utils.timing import as_pure, capture, operator_space
 
 __all__ = ["cg", "power_iteration", "bicgstab", "gmres", "jacobi", "chebyshev", "lanczos"]
@@ -98,6 +101,45 @@ def _sync_forbidden():
         torch.cuda.set_sync_debug_mode(before)
 
 
+def _allocs() -> tuple[int, int]:
+    """The caching allocator's device allocations and frees so far, over
+    every card (0, 0 before CUDA is initialised)."""
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return 0, 0
+    stats = [torch.cuda.memory_stats(i)
+             for i in range(torch.cuda.device_count())]
+    return (sum(m.get("num_device_alloc", 0) for m in stats),
+            sum(m.get("num_device_free", 0) for m in stats))
+
+
+def _solver(fn):
+    """``fn`` as the root span ``cfs.solve`` (attributes ``solver`` and
+    ``iters``, a GMRES's restart cycles), whose steps are its children:
+    ``cfs.solve.setup``, ``.warmup``, ``.capture``, ``.restore``,
+    ``.replay`` and ``.finish``. While recording, the card's allocations
+    and frees across the solve add to the counters
+    ``cuda.device_allocs`` and ``cuda.device_frees``."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def solve(*args, **kwargs):
+        if not trace.is_recording():
+            return fn(*args, **kwargs)
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        arg = bound.arguments
+        allocs, frees = _allocs()
+        with trace.span("cfs.solve", solver=fn.__name__,
+                        iters=arg.get("iters", arg.get("outer"))):
+            out = fn(*args, **kwargs)
+        allocs_end, frees_end = _allocs()
+        trace.count("cuda.device_allocs", allocs_end - allocs)
+        trace.count("cuda.device_frees", frees_end - frees)
+        return out
+
+    return solve
+
+
 def _iterate(op: _Operator, body: Callable, state: list, iters: int) -> None:
     """Run ``body(k)`` ``iters`` times, ``k`` a (1,) int64 device tensor
     holding the iteration's index (for the histories), advanced after
@@ -105,10 +147,12 @@ def _iterate(op: _Operator, body: Callable, state: list, iters: int) -> None:
 
     Graphed: one call is captured after a warm-up call (which builds the
     kernels, and whose effect on ``state`` is undone), then replayed
-    ``iters`` times under the sync debug mode. Adds the replays to
-    ``_iterate.replays``; ``_iterate.loop`` holds the CUDA events around
-    the last loop on the card and its iteration count."""
-    k = torch.zeros(1, dtype=torch.int64, device=op.device)
+    ``iters`` times under the sync debug mode; the replays add to the
+    counter ``solve.replays``. ``_iterate.loop`` holds the CUDA events
+    around the last loop on the card and its iteration count."""
+    with trace.span("cfs.solve.setup", step="iterate"):
+        k = torch.zeros(1, dtype=torch.int64, device=op.device)
+        saved = [t.clone() for t in state] if op.graphed else None
 
     def step():
         body(k)
@@ -116,27 +160,26 @@ def _iterate(op: _Operator, body: Callable, state: list, iters: int) -> None:
 
     run, guard = step, contextlib.nullcontext()
     if op.graphed:
-        saved = [t.clone() for t in state]
-        graph = capture(step)
-        for t, s in zip(state, saved):
-            t.copy_(s)
-        k.zero_()
+        graph = capture(step, prefix="cfs.solve")
+        with trace.span("cfs.solve.restore"):
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            k.zero_()
         run, guard = graph.replay, _sync_forbidden()
-        _iterate.replays += iters
-    events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
-              if op.device.type == "cuda" else None)
-    with guard:
-        if events:
-            events[0].record()
-        for _ in range(iters):
-            run()
-        if events:
-            events[1].record()
-            _iterate.loop = (*events, iters)
+        trace.count("solve.replays", iters)
+    with trace.span("cfs.solve.replay", graphed=op.graphed):
+        events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  if op.device.type == "cuda" else None)
+        with guard:
+            if events:
+                events[0].record()
+            for _ in range(iters):
+                run()
+            if events:
+                events[1].record()
+                _iterate.loop = (*events, iters)
 
 
-#: graph replays of every graphed solve so far (never eager iterations)
-_iterate.replays = 0
 #: (start event, end event, iterations) of the last loop on the card
 _iterate.loop = None
 
@@ -147,6 +190,7 @@ def _guard(v: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     return torch.where(v.abs() > eps, v, eps)
 
 
+@_solver
 def cg(
     matvec: Callable,
     b,
@@ -165,16 +209,17 @@ def cg(
     when given, the iteration solves M^{-1}A x = M^{-1}b with M = diag(A).
     Returns (x, final residual norm, residual norm history).
     """
-    op = _Operator(matvec, _mode, b)
-    b = op.vec(b)
-    x = torch.zeros_like(b) if x0 is None else op.vec(x0).clone()
-    minv = 1.0 / op.vec(diag_precond) if diag_precond is not None else None
-    r = b - op.apply(x)
-    z = r * minv if minv is not None else r
-    p = z.clone()
-    rs = torch.dot(r, z)
-    eps = op.scalar(1e-30)
-    hist = b.new_empty(iters)
+    with trace.span("cfs.solve.setup"):
+        op = _Operator(matvec, _mode, b)
+        b = op.vec(b)
+        x = torch.zeros_like(b) if x0 is None else op.vec(x0).clone()
+        minv = 1.0 / op.vec(diag_precond) if diag_precond is not None else None
+        r = b - op.apply(x)
+        z = r * minv if minv is not None else r
+        p = z.clone()
+        rs = torch.dot(r, z)
+        eps = op.scalar(1e-30)
+        hist = b.new_empty(iters)
 
     def body(k):
         Ap = op.apply(p)
@@ -190,16 +235,19 @@ def cg(
         hist.index_copy_(0, k, torch.dot(r, r).reshape(1))
 
     _iterate(op, body, [x, r, p, rs], iters)
-    return op.decode(x), torch.linalg.vector_norm(r), hist.sqrt()
+    with trace.span("cfs.solve.finish"):
+        return op.decode(x), torch.linalg.vector_norm(r), hist.sqrt()
 
 
+@_solver
 def power_iteration(matvec: Callable, n: int, *, iters: int = 100,
                     seed: int = 0, _mode: str = "graph"):
     """Dominant eigenvalue via power iteration (spectral-norm model).
     Returns (the last iterate, the last norm estimate)."""
-    op = _Operator(matvec, _mode)
-    v = op.start(n, seed)
-    nrms = v.new_empty(iters)
+    with trace.span("cfs.solve.setup"):
+        op = _Operator(matvec, _mode)
+        v = op.start(n, seed)
+        nrms = v.new_empty(iters)
 
     def body(k):
         w = op.apply(v)
@@ -208,9 +256,11 @@ def power_iteration(matvec: Callable, n: int, *, iters: int = 100,
         nrms.index_copy_(0, k, nrm.reshape(1))
 
     _iterate(op, body, [v], iters)
-    return op.decode(v), nrms[-1]
+    with trace.span("cfs.solve.finish"):
+        return op.decode(v), nrms[-1]
 
 
+@_solver
 def bicgstab(
     matvec: Callable,
     b,
@@ -226,15 +276,16 @@ def bicgstab(
     with ``torch.where`` (no data-dependent branches). Returns (x, final
     residual norm, residual norm history).
     """
-    op = _Operator(matvec, _mode, b)
-    b = op.vec(b)
-    x = torch.zeros_like(b) if x0 is None else op.vec(x0).clone()
-    eps = op.scalar(1e-30)
-    r = b - op.apply(x)
-    rhat = r.clone()
-    rho = torch.dot(rhat, r)
-    p = r.clone()
-    hist = b.new_empty(iters)
+    with trace.span("cfs.solve.setup"):
+        op = _Operator(matvec, _mode, b)
+        b = op.vec(b)
+        x = torch.zeros_like(b) if x0 is None else op.vec(x0).clone()
+        eps = op.scalar(1e-30)
+        r = b - op.apply(x)
+        rhat = r.clone()
+        rho = torch.dot(rhat, r)
+        p = r.clone()
+        hist = b.new_empty(iters)
 
     def body(k):
         v = op.apply(p)
@@ -252,9 +303,11 @@ def bicgstab(
         hist.index_copy_(0, k, torch.dot(r, r).sqrt().reshape(1))
 
     _iterate(op, body, [x, r, p, rho], iters)
-    return op.decode(x), torch.dot(r, r).sqrt(), hist
+    with trace.span("cfs.solve.finish"):
+        return op.decode(x), torch.dot(r, r).sqrt(), hist
 
 
+@_solver
 def jacobi(
     matvec: Callable,
     diag,
@@ -269,11 +322,12 @@ def jacobi(
     ``diag`` is the matrix diagonal in USER ordering (encoded inside).
     Returns (x, residual norm history).
     """
-    op = _Operator(matvec, _mode, b)
-    b = op.vec(b)
-    dinv = omega / op.vec(diag)
-    x = torch.zeros_like(b)
-    hist = b.new_empty(iters)
+    with trace.span("cfs.solve.setup"):
+        op = _Operator(matvec, _mode, b)
+        b = op.vec(b)
+        dinv = omega / op.vec(diag)
+        x = torch.zeros_like(b)
+        hist = b.new_empty(iters)
 
     def body(k):
         r = b - op.apply(x)
@@ -281,9 +335,11 @@ def jacobi(
         hist.index_copy_(0, k, torch.linalg.vector_norm(r).reshape(1))
 
     _iterate(op, body, [x], iters)
-    return op.decode(x), hist
+    with trace.span("cfs.solve.finish"):
+        return op.decode(x), hist
 
 
+@_solver
 def chebyshev(
     matvec: Callable,
     b,
@@ -297,16 +353,17 @@ def chebyshev(
     inner-product-free (no collectives beyond the SpMV), which makes it
     the preferred distributed smoother. Returns (x, residual norm
     history)."""
-    op = _Operator(matvec, _mode, b)
-    b = op.vec(b)
-    theta = (lam_max + lam_min) / 2.0
-    delta = (lam_max - lam_min) / 2.0
-    sigma = theta / delta
-    x = torch.zeros_like(b)
-    r = b.clone()
-    d = r / theta
-    rho = op.scalar(1.0 / sigma)
-    hist = b.new_empty(iters)
+    with trace.span("cfs.solve.setup"):
+        op = _Operator(matvec, _mode, b)
+        b = op.vec(b)
+        theta = (lam_max + lam_min) / 2.0
+        delta = (lam_max - lam_min) / 2.0
+        sigma = theta / delta
+        x = torch.zeros_like(b)
+        r = b.clone()
+        d = r / theta
+        rho = op.scalar(1.0 / sigma)
+        hist = b.new_empty(iters)
 
     def body(k):
         x.add_(d)
@@ -317,9 +374,11 @@ def chebyshev(
         hist.index_copy_(0, k, torch.linalg.vector_norm(r).reshape(1))
 
     _iterate(op, body, [x, r, d, rho], iters)
-    return op.decode(x), hist
+    with trace.span("cfs.solve.finish"):
+        return op.decode(x), hist
 
 
+@_solver
 def lanczos(
     matvec: Callable,
     n: int,
@@ -334,13 +393,14 @@ def lanczos(
     Returns (alphas, betas) of the tridiagonal T_k; eigvals(T_k)
     approximate the operator's extremal spectrum.
     """
-    op = _Operator(matvec, _mode)
-    v = op.start(n, seed)
-    v_prev = torch.zeros_like(v)
-    beta = op.scalar(0.0)
-    tiny = op.scalar(1e-30)
-    alphas = v.new_empty(iters)
-    betas = v.new_empty(iters)
+    with trace.span("cfs.solve.setup"):
+        op = _Operator(matvec, _mode)
+        v = op.start(n, seed)
+        v_prev = torch.zeros_like(v)
+        beta = op.scalar(0.0)
+        tiny = op.scalar(1e-30)
+        alphas = v.new_empty(iters)
+        betas = v.new_empty(iters)
 
     def body(k):
         w = op.apply(v) - beta * v_prev
@@ -354,7 +414,8 @@ def lanczos(
         betas.index_copy_(0, k, beta_new.reshape(1))
 
     _iterate(op, body, [v, v_prev, beta], iters)
-    return alphas, betas
+    with trace.span("cfs.solve.finish"):
+        return alphas, betas
 
 
 def _hessenberg_lstsq(H: torch.Tensor, beta: torch.Tensor,
@@ -387,6 +448,7 @@ def _hessenberg_lstsq(H: torch.Tensor, beta: torch.Tensor,
     return y
 
 
+@_solver
 def gmres(
     matvec: Callable,
     b,
@@ -405,15 +467,16 @@ def gmres(
     rotations, :func:`_hessenberg_lstsq`). One restart cycle is the unit
     replayed. Returns (x, final residual norm, per-restart residuals).
     """
-    op = _Operator(matvec, _mode, b)
-    b = op.vec(b)
-    x = torch.zeros_like(b) if x0 is None else op.vec(x0).clone()
-    m = restart
-    n = b.shape[0]
-    eps = op.scalar(1e-30)
-    V = b.new_zeros((m + 1, n))
-    H = b.new_zeros((m + 1, m))
-    betas = b.new_empty(outer)
+    with trace.span("cfs.solve.setup"):
+        op = _Operator(matvec, _mode, b)
+        b = op.vec(b)
+        x = torch.zeros_like(b) if x0 is None else op.vec(x0).clone()
+        m = restart
+        n = b.shape[0]
+        eps = op.scalar(1e-30)
+        V = b.new_zeros((m + 1, n))
+        H = b.new_zeros((m + 1, m))
+        betas = b.new_empty(outer)
 
     def cycle(k):
         r = b - op.apply(x)
@@ -440,5 +503,6 @@ def gmres(
         betas.index_copy_(0, k, beta.reshape(1))
 
     _iterate(op, cycle, [x], outer)
-    r = b - op.apply(x)
-    return op.decode(x), torch.linalg.vector_norm(r), betas
+    with trace.span("cfs.solve.finish"):
+        r = b - op.apply(x)
+        return op.decode(x), torch.linalg.vector_norm(r), betas

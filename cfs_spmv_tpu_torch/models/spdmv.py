@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..matrix import SparseMatrix, tune_signature
+from ..utils import trace
 from ..utils.platform import Kernel, Tuning
 
 __all__ = ["SpDMV", "SpDMM"]
@@ -56,15 +57,15 @@ class SpDMV:
         """Dimension-checked apply (ref ``sparse_kernel.tpp:20-27``).
         ``x`` (a tensor or array) is moved to the matrix's device in the
         type the matrix was tuned for (float32 or float64)."""
-        x = torch.as_tensor(x, dtype=self.A.tuned.dtype,
-                            device=self.A.tuned.device)
-        if x.shape[0] != self.A.ncols:
-            raise ValueError(
-                f"x has {x.shape[0]} rows, matrix has {self.A.ncols} cols"
-            )
-        if x.ndim != 1:
-            return self.A.tuned.matmat(x)
-        return self.A.tuned.matvec(x)
+        tuned = self.A.tuned
+        with trace.span("cfs.apply", dtype=tuned.dtype) as s:
+            x = torch.as_tensor(x, dtype=tuned.dtype, device=tuned.device)
+            if x.shape[0] != self.A.ncols:
+                raise ValueError(
+                    f"x has {x.shape[0]} rows, matrix has {self.A.ncols} cols"
+                )
+            s.set(rhs=1 if x.ndim == 1 else x.shape[1])
+            return tuned.apply(x)
 
 
 class SpDMM(SpDMV):
@@ -73,10 +74,12 @@ class SpDMM(SpDMV):
     kernel = Kernel.SpDMM
 
     def __call__(self, x):
-        x = torch.as_tensor(x, dtype=self.A.tuned.dtype,
-                            device=self.A.tuned.device)
-        if x.ndim != 2 or x.shape[0] != self.A.ncols:
-            raise ValueError(
-                f"X must be ({self.A.ncols}, B), got {tuple(x.shape)}"
-            )
-        return self.A.tuned.matmat(x)
+        tuned = self.A.tuned
+        with trace.span("cfs.apply", dtype=tuned.dtype) as s:
+            x = torch.as_tensor(x, dtype=tuned.dtype, device=tuned.device)
+            if x.ndim != 2 or x.shape[0] != self.A.ncols:
+                raise ValueError(
+                    f"X must be ({self.A.ncols}, B), got {tuple(x.shape)}"
+                )
+            s.set(rhs=x.shape[1])
+            return tuned.apply(x)

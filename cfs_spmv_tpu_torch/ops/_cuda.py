@@ -22,6 +22,8 @@ import threading
 
 import torch
 
+from ..utils import trace
+
 __all__ = ["lib", "check", "check_dtype", "check_values", "check_planes",
            "launch_groups", "count", "entry", "xy_dtype", "NVCC_FLAGS",
            "RHS_GROUP"]
@@ -66,7 +68,9 @@ def _build() -> str:
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    trace.count("kernels.builds")
+    with trace.span("cfs.kernels.build", log=True):
+        res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
             f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
@@ -140,7 +144,9 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _bind(_build())
+            path = _build()
+            with trace.span("cfs.kernels.load"):
+                _lib = _bind(path)
         return _lib
 
 
@@ -238,13 +244,20 @@ def launch_groups(name, x3d, y3d, launch, group=RHS_GROUP) -> int:
     raise on a refused launch; returns the number of launches. For the
     group whose first plane is ``b0``, x_ptr points at plane ``b0``, or at
     row ``b0`` of an interleaved X (``bell2_kernel.interleave_x``), where
-    the group's block starts."""
+    the group's block starts. Each call is the span ``cfs.launch``: give
+    ``launch`` as the entry point with its leading arguments bound
+    (``functools.partial``), so that the span holds the native call
+    alone."""
     B, xs, ys = y3d.shape[0], x3d.stride(0), y3d.stride(0)
     xb, yb = xs * x3d.element_size(), ys * y3d.element_size()
+    x0, y0 = x3d.data_ptr(), y3d.data_ptr()
+    fn = getattr(launch, "func", launch)
     with torch.cuda.device(y3d.device):
         stream = torch.cuda.current_stream(y3d.device).cuda_stream
         for b0 in range(0, B, group):
-            check(launch(x3d.data_ptr() + b0 * xb, xs,
-                         y3d.data_ptr() + b0 * yb, ys,
-                         min(group, B - b0), stream), name)
+            planes = (x0 + b0 * xb, xs, y0 + b0 * yb, ys,
+                      min(group, B - b0), stream)
+            with trace.span("cfs.launch", entry=fn.__name__):
+                err = launch(*planes)
+            check(err, name)
     return -(-B // group)

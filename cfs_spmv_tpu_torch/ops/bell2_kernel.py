@@ -56,10 +56,12 @@ word path) are not ported: the CUDA kernel reads the plan's int16
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _cuda
 
 SUBLANES = 8
@@ -284,12 +286,9 @@ def _launch_bell2(vals, packed, meta, step_block, x3d, y3d, K, BT, contig,
     ``covers`` every block (0: the zero kernel, visited blocks)."""
     fn = _cuda.entry("bell2_spmv", vals.dtype)
     tiles = y3d.shape[1] if covers else 0
-    return _cuda.launch_groups(
-        name, x3d, y3d, lambda *planes: fn(
-            vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
-            step_block.data_ptr(), meta.shape[0], K, BT, int(contig),
-            tiles, *planes,
-        ))
+    return _cuda.launch_groups(name, x3d, y3d, functools.partial(
+        fn, vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
+        step_block.data_ptr(), meta.shape[0], K, BT, int(contig), tiles))
 
 
 def bell2_spmv_tiles(vals, packed, meta, step_block, x2d, *,
@@ -358,11 +357,9 @@ def _launch_entries(entries, x3d, y3d, name):
     """Launch the entry kernel in the type of ``entries.vals`` over plane
     stacks; returns the number of launches (one per group of planes)."""
     fn = _cuda.entry("bell2_entries", entries.vals.dtype)
-    return _cuda.launch_groups(
-        name, x3d, y3d, lambda *planes: fn(
-            entries.rows.data_ptr(), entries.cols.data_ptr(),
-            entries.vals.data_ptr(), entries.count, *planes,
-        ))
+    return _cuda.launch_groups(name, x3d, y3d, functools.partial(
+        fn, entries.rows.data_ptr(), entries.cols.data_ptr(),
+        entries.vals.data_ptr(), entries.count))
 
 
 def bell2_spmv_tiles_accum(entries, x2d, y_tiles):
@@ -556,15 +553,16 @@ def _launch_unperm(pk2d, rows, g3d, seed, into3d, tiles, name):
     else:
         out, mode = torch.empty((B, *pk2d.shape), dtype=torch.float32,
                                 device=g3d.device), 0
+    fn = _cuda.lib().cfs_unperm_gather
     with torch.cuda.device(out.device):
-        err = _cuda.lib().cfs_unperm_gather(
-            pk2d.data_ptr(), rows.data_ptr(), rows.shape[1],
-            g3d.data_ptr(), g3d.stride(0), out.data_ptr(), out.stride(0),
-            n_gather, out[0].numel(),
-            None if diag is None else diag.data_ptr(),
-            None if x is None else x.data_ptr(), x_row, x_col, n_seed, mode,
-            B, torch.cuda.current_stream(out.device).cuda_stream,
-        )
+        args = (pk2d.data_ptr(), rows.data_ptr(), rows.shape[1],
+                g3d.data_ptr(), g3d.stride(0), out.data_ptr(), out.stride(0),
+                n_gather, out[0].numel(),
+                None if diag is None else diag.data_ptr(),
+                None if x is None else x.data_ptr(), x_row, x_col, n_seed,
+                mode, B, torch.cuda.current_stream(out.device).cuda_stream)
+        with trace.span("cfs.launch", entry=fn.__name__):
+            err = fn(*args)
     _cuda.check(err, name)
     return out
 
@@ -698,12 +696,9 @@ def _launch_sbell(vals, packed, meta, step_block, x3d, y3d, K, BT, TW, name):
     planes). A refused launch, or a refused shared-memory size of the
     double kernel over planes, raises."""
     fn = _cuda.entry("sbell_spmv", vals.dtype)
-    return _cuda.launch_groups(
-        name, x3d, y3d, lambda *planes: fn(
-            vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
-            step_block.data_ptr(), meta.shape[0], K, BT, TW, y3d.shape[1],
-            *planes,
-        ))
+    return _cuda.launch_groups(name, x3d, y3d, functools.partial(
+        fn, vals.data_ptr(), packed.data_ptr(), meta.data_ptr(),
+        step_block.data_ptr(), meta.shape[0], K, BT, TW, y3d.shape[1]))
 
 
 def group_widths(B: int) -> list[int]:
@@ -727,12 +722,13 @@ def interleave_x(x, x_rows):
     plane. One zeroed buffer and one copy a group."""
     m, B = x.shape
     n = x_rows * LANES
-    out = x.new_zeros((sum(group_widths(B)), n))
-    flat = out.view(-1)
-    for g, w in enumerate(group_widths(B)):
-        b0 = g * _cuda.RHS_GROUP
-        nr = min(_cuda.RHS_GROUP, B - b0)
-        flat[b0 * n:(b0 + w) * n].view(n, w)[:m, :nr] = x[:, b0:b0 + nr]
+    with trace.span("cfs.stage", op="interleave_x") as s:
+        out = s.wrote(x.new_zeros((sum(group_widths(B)), n)))
+        flat = out.view(-1)
+        for g, w in enumerate(group_widths(B)):
+            b0 = g * _cuda.RHS_GROUP
+            nr = min(_cuda.RHS_GROUP, B - b0)
+            flat[b0 * n:(b0 + w) * n].view(n, w)[:m, :nr] = x[:, b0:b0 + nr]
     return out
 
 

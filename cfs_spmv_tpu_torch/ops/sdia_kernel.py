@@ -43,6 +43,8 @@ in another order, whatever ``stage_x`` says.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _cuda
@@ -236,12 +238,10 @@ def sdia_sym_tiles(vals, x2d, y_tiles, offsets):
 
 def _launch_sym(vals, x3d, y3d, offsets, name, stage_x=False):
     fn = _cuda.entry("sdia_sym", vals.dtype)
-    return _cuda.launch_groups(
-        name, x3d, y3d, lambda *planes: fn(
-            vals.data_ptr(), offsets.data_ptr(), vals.shape[1],
-            vals.shape[0] * BLOCK_ROWS, x3d[0].numel(), y3d[0].numel(),
-            int(stage_x), *planes,
-        ))
+    return _cuda.launch_groups(name, x3d, y3d, functools.partial(
+        fn, vals.data_ptr(), offsets.data_ptr(), vals.shape[1],
+        vals.shape[0] * BLOCK_ROWS, x3d[0].numel(), y3d[0].numel(),
+        int(stage_x)))
 
 
 def sdia_sym_tiles_mm_plain(vals, x3d, y_tiles, offsets, stage_x=False):
@@ -359,11 +359,9 @@ def _launch_gen(vals, x_il, y3d, offsets, name, store=False, slices=None,
         rule = stage_slices if span >= 0 else gen_slices
         slices = rule(rows, vals.shape[1], _thread_slots(vals.device))
     fn = _cuda.entry("sdia_gen", vals.dtype)
-    return _cuda.launch_groups(
-        name, x_il, y3d, lambda *planes: fn(
-            vals.data_ptr(), offsets.data_ptr(), vals.shape[1], nv_rows,
-            y_len, x_il.shape[1], slices, int(store), hi, span, *planes,
-        ))
+    return _cuda.launch_groups(name, x_il, y3d, functools.partial(
+        fn, vals.data_ptr(), offsets.data_ptr(), vals.shape[1], nv_rows,
+        y_len, x_il.shape[1], slices, int(store), hi, span))
 
 
 def gen_x(x, x_rows):

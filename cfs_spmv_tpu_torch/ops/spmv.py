@@ -40,6 +40,7 @@ import torch
 
 from ..formats.bell2 import LANES, SUBLANES
 from ..io.plancache import BF16_BITS
+from ..utils import trace
 from . import bell2_df as bdf
 from . import bell2_kernel as bk
 from . import sdia_df as sdf
@@ -480,18 +481,53 @@ def fp64_to_device(plan, device) -> Fp64Device:
 def pad_x(x: torch.Tensor, x_rows: int) -> torch.Tensor:
     """(m,) → (x_rows, 128) zero-padded segment-sliceable layout."""
     m = x.shape[0]
-    return torch.nn.functional.pad(x, (0, x_rows * LANES - m)).reshape(
-        x_rows, LANES
-    )
+    with trace.span("cfs.stage", op="pad_x") as s:
+        return s.wrote(torch.nn.functional.pad(
+            x, (0, x_rows * LANES - m)).reshape(x_rows, LANES))
 
 
 def pad_x_mm(x: torch.Tensor, x_rows: int) -> torch.Tensor:
     """(m, B) → contiguous (B, x_rows, 128) zero-padded planes: one
     padded copy of Xᵀ (``pad`` would keep Xᵀ's transposed strides)."""
     m, B = x.shape
-    x3d = x.new_zeros((B, x_rows, LANES))
-    x3d.view(B, -1)[:, :m] = x.T
+    with trace.span("cfs.stage", op="pad_x_mm") as s:
+        x3d = s.wrote(x.new_zeros((B, x_rows, LANES)))
+        x3d.view(B, -1)[:, :m] = x.T
     return x3d
+
+
+def _zeros(like: torch.Tensor, shape) -> torch.Tensor:
+    """Zero tiles of ``like``'s type and device: the start of an
+    accumulating stream's output."""
+    with trace.span("cfs.stage", op="zeros") as s:
+        return s.wrote(like.new_zeros(shape))
+
+
+def _gather_rows(tiles: torch.Tensor, row_perm: torch.Tensor,
+                 B: int | None = None) -> torch.Tensor:
+    """A degree-grouped stream's output rows in their order: each (B
+    planes of) ``tiles`` flattened, a zero appended, gathered by
+    ``row_perm`` (its last slot names the zero)."""
+    with trace.span("cfs.stage", op="gather_rows") as s:
+        if B is None:
+            flat = s.wrote(torch.cat([tiles.reshape(-1), tiles.new_zeros(1)]))
+            return s.wrote(torch.index_select(flat, 0, row_perm))
+        flat = s.wrote(torch.cat([tiles.reshape(B, -1),
+                                  tiles.new_zeros((B, 1))], dim=1))
+        return s.wrote(torch.index_select(flat, 1, row_perm))
+
+
+def _diag_term(diag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """D x (a 2-D X: D applied to each column)."""
+    with trace.span("cfs.stage", op="diag") as s:
+        return s.wrote(diag * x if x.ndim == 1 else diag[:, None] * x)
+
+
+def _plus_diag(y: torch.Tensor, diag: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """y + D x."""
+    with trace.span("cfs.stage", op="plus_diag") as s:
+        return s.wrote(y + (diag * x if x.ndim == 1 else diag[:, None] * x))
 
 
 def _unperm_tiles(dev: Bell2Device, g_tiles, unperm=bk.unperm_gather_tiles,
@@ -589,16 +625,20 @@ def bell2_apply(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     _check_vector(x, "bell2_apply_mm")
     f = _kernels(plain, x.dtype)
     # the stream reads x padded to its tiles; the diagonals alone read x
-    x2d = pad_x(x, dev.x_rows) if dev.has_work else x.contiguous()
+    if dev.has_work:
+        x2d = pad_x(x, dev.x_rows)
+    else:
+        with trace.span("cfs.stage", op="contiguous") as s:
+            x2d = s.wrote(x.contiguous())
     NT = dev.num_row_tiles
     store = not dev.has_work and dev.dia_vals is not None
     if store:
         tiles = x.new_empty((NT, LANES))
     elif not dev.has_work:
-        tiles = x.new_zeros((NT, LANES))
+        tiles = _zeros(x, (NT, LANES))
     elif dev.sparse_stream and not dev.grouped:
         # post-peel residual: only rows with entries are touched
-        tiles = f["bell2_acc"](dev.entries, x2d, x2d.new_zeros((NT, LANES)))
+        tiles = f["bell2_acc"](dev.entries, x2d, _zeros(x2d, (NT, LANES)))
     else:
         tiles = f["bell2"](dev.vals, dev.packed, dev.meta, dev.step_block,
                            x2d, covers=dev.covers, **dev.stream_kw())
@@ -634,10 +674,10 @@ def bell2_apply_mm(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     if store:
         tiles = x.new_empty((B, NT, LANES))
     elif not dev.has_work:
-        tiles = x.new_zeros((B, NT, LANES))
+        tiles = _zeros(x, (B, NT, LANES))
     elif not full:
         tiles = f["bell2_acc_mm"](dev.entries, pad_x_mm(x, dev.x_rows),
-                                  x.new_zeros((B, NT, LANES)))
+                                  _zeros(x, (B, NT, LANES)))
     elif f64:
         tiles = f["bell2_mm"](dev.vals, dev.packed, dev.meta, dev.step_block,
                               pad_x_mm(x, dev.x_rows), covers=dev.covers,
@@ -693,7 +733,7 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
         tiles = _unperm_tiles(fd, ftiles, f["unperm"], **fused)
     else:
         if tiles is None:  # seed the accumulating streams with D x
-            tiles = pad_x(dev.diag * x, NT)
+            tiles = pad_x(_diag_term(dev.diag, x), NT)
         if fd is not None:
             # sparse far residual accumulates straight into the tiles
             tiles = f["bell2_acc"](fd.entries, x2d, tiles)
@@ -703,7 +743,7 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     elif dev.dia_vals is not None:
         tiles = f["sdia_sym"](dev.dia_vals, x2d, tiles[:NT], dev.dia_offsets)
     y = tiles.reshape(-1)[: dev.nrows]
-    return y + dev.diag * x if dev.has_paired else y
+    return _plus_diag(y, dev.diag, x) if dev.has_paired else y
 
 
 def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
@@ -746,7 +786,7 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
         tiles = _unperm_tiles_mm(fd, ftiles, f["unperm_mm"], **fused)
     else:
         if tiles is None:
-            tiles = pad_x_mm(dev.diag[:, None] * x, NT)
+            tiles = pad_x_mm(_diag_term(dev.diag, x), NT)
         if fd is not None:
             tiles = f["bell2_acc_mm"](fd.entries, x3d, tiles)
     if dev.dia_vals is not None and dev.dia_mirrored:
@@ -758,7 +798,7 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
         tiles = f["sdia_sym_mm"](dev.dia_vals, x3d, tiles[:, :NT],
                                  dev.dia_offsets, stage_x=dev.dia_stage_x)
     Y = tiles.reshape(B, -1)[:, : dev.nrows].T
-    return Y + dev.diag[:, None] * x if dev.has_paired else Y
+    return _plus_diag(Y, dev.diag, x) if dev.has_paired else Y
 
 
 def _check_fp64(x):
@@ -785,15 +825,14 @@ def fp64_apply(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
     TD = -(-dev.nrows // LANES)  # tiles of the result
     x2d = pad_x(x, max(dev.x_rows, TD))
     if dev.entries is not None:
-        tiles = f["bell2_acc_df"](dev.entries, x2d, x2d.new_zeros((TD, LANES)))
+        tiles = f["bell2_acc_df"](dev.entries, x2d, _zeros(x2d, (TD, LANES)))
     elif dev.has_work:
         tiles = f["bell2_df"](dev.vals, dev.packed, dev.meta, dev.step_block,
                               x2d, covers=dev.covers, **dev.stream_kw())
         if dev.grouped:
-            flat = torch.cat([tiles.reshape(-1), tiles.new_zeros(1)])
-            tiles = torch.index_select(flat, 0, dev.row_perm).view(TD, LANES)
+            tiles = _gather_rows(tiles, dev.row_perm).view(TD, LANES)
     else:
-        tiles = x2d.new_zeros((TD, LANES))
+        tiles = _zeros(x2d, (TD, LANES))
     if dev.dia_vals is not None:
         tiles = f["sdia_df"](dev.dia_vals, x2d, tiles[:TD], dev.dia_offsets)
     return tiles.reshape(-1)[: dev.nrows]
@@ -812,18 +851,15 @@ def fp64_apply_mm(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
     x3d = pad_x_mm(x, max(dev.x_rows, TD))
     if dev.entries is not None:
         tiles = f["bell2_acc_df_mm"](dev.entries, x3d,
-                                     x3d.new_zeros((B, TD, LANES)))
+                                     _zeros(x3d, (B, TD, LANES)))
     elif dev.has_work:
         tiles = f["bell2_df_mm"](dev.vals, dev.packed, dev.meta,
                                  dev.step_block, x3d, covers=dev.covers,
                                  **dev.stream_kw())
         if dev.grouped:
-            flat = torch.cat([tiles.reshape(B, -1), tiles.new_zeros((B, 1))],
-                             dim=1)
-            tiles = torch.index_select(flat, 1, dev.row_perm).view(
-                B, TD, LANES)
+            tiles = _gather_rows(tiles, dev.row_perm, B).view(B, TD, LANES)
     else:
-        tiles = x3d.new_zeros((B, TD, LANES))
+        tiles = _zeros(x3d, (B, TD, LANES))
     if dev.dia_vals is not None:
         tiles = f["sdia_df_mm"](dev.dia_vals, x3d, tiles[:, :TD],
                                 dev.dia_offsets, stage_x=dev.dia_stage_x)

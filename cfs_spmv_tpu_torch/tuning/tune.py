@@ -36,7 +36,6 @@ has a key of its own.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable
 
 import numpy as np
@@ -46,6 +45,7 @@ from ..formats.csr import CSR
 from ..formats.sbell import build_sbell_plan
 from ..io.plancache import cached_build
 from ..ops import spmv as spmv_ops
+from ..utils import trace
 from ..utils.config import config
 from ..utils.logging import info, warn
 from ..utils.platform import Format, Kernel, Tuning
@@ -86,10 +86,19 @@ class TunedMatrix:
     dtype: torch.dtype = torch.float32
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return self._apply_mv(self.operands, x)
+        with trace.span("cfs.apply", rhs=1, dtype=self.dtype):
+            return self._apply_mv(self.operands, x)
 
     def matmat(self, x: torch.Tensor) -> torch.Tensor:
-        return self._apply_mm(self.operands, x)
+        with trace.span("cfs.apply", rhs=x.shape[-1], dtype=self.dtype):
+            return self._apply_mm(self.operands, x)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """``matvec`` for a 1-D x, else ``matmat``, inside the caller's
+        ``cfs.apply`` span (the entry points that convert x first)."""
+        if x.ndim != 1:
+            return self._apply_mm(self.operands, x)
+        return self._apply_mv(self.operands, x)
 
     def pure_apply(self):
         """(fn, operands) with fn a plain function of its arguments. When
@@ -169,100 +178,107 @@ def tune(
     the one built.
     """
     del kernel
-    device = spmv_ops.as_device(device)
-    if cache_dir is None:
-        cache_dir = config.plan_cache_dir
-    if fmt == Format.NONE:
-        fmt = (
-            Format.SSS
-            if (csr.symmetric and tuning == Tuning.AGGRESSIVE)
-            else Format.CSR
-        )
-    bsr = None
-    if fmt == Format.BSR:
-        # BSR is a host-format contract (block detection + 1/b² index
-        # storage, formats/bsr.py); the tuned execution path is shared
-        from ..formats.bsr import BSR, detect_block_size
-
-        bsr = BSR.from_csr(csr, detect_block_size(csr))
-        fmt = Format.SSS if csr.symmetric else Format.CSR
-    if fmt in (Format.SSS, Format.HYB) and not csr.symmetric:
-        raise ValueError(f"format {fmt} requires a symmetric matrix")
-    if values not in ("same", "bfloat16"):
-        raise ValueError(f"values must be 'same' or 'bfloat16', got {values}")
-    if np.dtype(dtype) == np.float64:
-        if config.fp64_path not in ("df", "xla"):
-            raise ValueError(
-                f"CFS_FP64 must be 'df' or 'xla', got {config.fp64_path!r}"
+    with trace.span("cfs.tune", dtype=np.dtype(dtype).name,
+                    nrows=csr.nrows, nnz=csr.nnz):
+        device = spmv_ops.as_device(device)
+        if cache_dir is None:
+            cache_dir = config.plan_cache_dir
+        if fmt == Format.NONE:
+            fmt = (
+                Format.SSS
+                if (csr.symmetric and tuning == Tuning.AGGRESSIVE)
+                else Format.CSR
             )
-        if config.fp64_path == "xla":
-            return _tune_fp64_xla(csr, fmt, device)
-        return _tune_fp64(csr, fmt, device, cache_dir)
-    if np.dtype(dtype) != np.float32:
-        raise ValueError(
-            f"dtype must be float32 or float64, got {np.dtype(dtype)}"
-        )
-    perm = None
-    if (reorder and tuning == Tuning.AGGRESSIVE and csr.nrows == csr.ncols
-            and csr.nnz):
-        from .reorder import choose_reorder
+        bsr = None
+        if fmt == Format.BSR:
+            # BSR is a host-format contract (block detection + 1/b² index
+            # storage, formats/bsr.py); the tuned execution path is shared
+            from ..formats.bsr import BSR, detect_block_size
 
-        t0 = time.perf_counter()
-        res, _, _ = choose_reorder(
-            csr, min_gain=2.0 if reorder == "auto" else 1.0
-        )
-        info("tune: reorder decision %.1fs", time.perf_counter() - t0)
-        if res is not None:
-            perm, csr = res
+            bsr = BSR.from_csr(csr, detect_block_size(csr))
+            fmt = Format.SSS if csr.symmetric else Format.CSR
+        if fmt in (Format.SSS, Format.HYB) and not csr.symmetric:
+            raise ValueError(f"format {fmt} requires a symmetric matrix")
+        if values not in ("same", "bfloat16"):
+            raise ValueError(
+                f"values must be 'same' or 'bfloat16', got {values}")
+        if np.dtype(dtype) == np.float64:
+            if config.fp64_path not in ("df", "xla"):
+                raise ValueError(
+                    f"CFS_FP64 must be 'df' or 'xla', got {config.fp64_path!r}"
+                )
+            if config.fp64_path == "xla":
+                return _tune_fp64_xla(csr, fmt, device)
+            return _tune_fp64(csr, fmt, device, cache_dir)
+        if np.dtype(dtype) != np.float32:
+            raise ValueError(
+                f"dtype must be float32 or float64, got {np.dtype(dtype)}"
+            )
+        perm = None
+        if (reorder and tuning == Tuning.AGGRESSIVE and csr.nrows == csr.ncols
+                and csr.nnz):
+            from .reorder import choose_reorder
 
-    if fmt in (Format.SSS, Format.HYB) and tuning == Tuning.AGGRESSIVE:
-        plan = cached_build(
-            lambda: _cast_values(build_sbell_plan(csr, dtype=dtype), values),
-            csr, dtype, cache_dir, fmt="sbell", values=values,
-        )
-        dev = spmv_ops.sym_to_device(plan, device)
-        tuned = TunedMatrix(
-            fmt, csr.nrows, csr.ncols, plan.nnz_full, True, plan,
-            dev, spmv_ops.sbell_apply, spmv_ops.sbell_apply_mm,
-            plan.far_fraction, plan.padding_ratio, device,
-        )
-    else:
-        from ..formats.bell2 import build_general_plan
+            with trace.span("cfs.plan.reorder", log=True):
+                res, _, _ = choose_reorder(
+                    csr, min_gain=2.0 if reorder == "auto" else 1.0
+                )
+            if res is not None:
+                perm, csr = res
 
-        gen_csr = (CSR.from_coo(csr.to_coo().expand_symmetric())
-                   if csr.symmetric else csr)
-        # aggressive tuning peels dense signed-offset diagonals into the
-        # index-free SDIA stream; Tuning.NONE stays the plain one-sided
-        # oracle path
-        peel = tuning == Tuning.AGGRESSIVE
-        plan = cached_build(
-            lambda: _cast_values(
-                build_general_plan(gen_csr, dtype=dtype, dia=peel), values),
-            gen_csr, dtype, cache_dir, fmt="bell2", values=values, dia=peel,
+        if fmt in (Format.SSS, Format.HYB) and tuning == Tuning.AGGRESSIVE:
+            plan = cached_build(
+                lambda: _cast_values(build_sbell_plan(csr, dtype=dtype),
+                                     values),
+                csr, dtype, cache_dir, fmt="sbell", values=values,
+            )
+            dev = _upload(spmv_ops.sym_to_device, plan, device)
+            tuned = TunedMatrix(
+                fmt, csr.nrows, csr.ncols, plan.nnz_full, True, plan,
+                dev, spmv_ops.sbell_apply, spmv_ops.sbell_apply_mm,
+                plan.far_fraction, plan.padding_ratio, device,
+            )
+        else:
+            from ..formats.bell2 import build_general_plan
+
+            with trace.span("cfs.tune.expand"):
+                gen_csr = (CSR.from_coo(csr.to_coo().expand_symmetric())
+                           if csr.symmetric else csr)
+            # aggressive tuning peels dense signed-offset diagonals into the
+            # index-free SDIA stream; Tuning.NONE stays the plain one-sided
+            # oracle path
+            peel = tuning == Tuning.AGGRESSIVE
+            plan = cached_build(
+                lambda: _cast_values(
+                    build_general_plan(gen_csr, dtype=dtype, dia=peel),
+                    values),
+                gen_csr, dtype, cache_dir, fmt="bell2", values=values,
+                dia=peel,
+            )
+            dev = _upload(spmv_ops.to_device, plan, device)
+            tuned = TunedMatrix(
+                Format.CSR, gen_csr.nrows, gen_csr.ncols, gen_csr.nnz,
+                csr.symmetric, plan, dev, spmv_ops.bell2_apply,
+                spmv_ops.bell2_apply_mm, 0.0,
+                plan.padding_ratio, device,
+            )
+        if perm is not None:
+            with trace.span("cfs.tune.upload", what="permutation"):
+                tuned = _permuted(tuned, perm)
+        if bsr is not None:
+            tuned = dataclasses.replace(tuned, format=Format.BSR, bsr=bsr)
+        if tuned.spill_fraction > config.spill_warn_fraction:
+            warn(
+                "tune: %.0f%% of nonzeros fell to the one-sided far stream "
+                "(scattered structure; consider reorder=True)",
+                100 * tuned.spill_fraction,
+            )
+        info(
+            "tune: fmt=%s nnz=%d pad=%.2fx far=%.4f reorder=%s values=%s "
+            "device=%s", tuned.format, tuned.nnz_full, tuned.padding_ratio,
+            tuned.spill_fraction, perm is not None, values, device,
         )
-        dev = spmv_ops.to_device(plan, device)
-        tuned = TunedMatrix(
-            Format.CSR, gen_csr.nrows, gen_csr.ncols, gen_csr.nnz,
-            csr.symmetric, plan, dev, spmv_ops.bell2_apply,
-            spmv_ops.bell2_apply_mm, 0.0,
-            plan.padding_ratio, device,
-        )
-    if perm is not None:
-        tuned = _permuted(tuned, perm)
-    if bsr is not None:
-        tuned = dataclasses.replace(tuned, format=Format.BSR, bsr=bsr)
-    if tuned.spill_fraction > config.spill_warn_fraction:
-        warn(
-            "tune: %.0f%% of nonzeros fell to the one-sided far stream "
-            "(scattered structure; consider reorder=True)",
-            100 * tuned.spill_fraction,
-        )
-    info(
-        "tune: fmt=%s nnz=%d pad=%.2fx far=%.4f reorder=%s values=%s "
-        "device=%s", tuned.format, tuned.nnz_full, tuned.padding_ratio,
-        tuned.spill_fraction, perm is not None, values, device,
-    )
-    return tuned
+        return tuned
 
 
 def _cast_values(plan, values: str):
@@ -296,17 +312,56 @@ def _permuted(tuned: TunedMatrix, perm: np.ndarray) -> TunedMatrix:
     inner_mv, inner_mm = tuned._apply_mv, tuned._apply_mm
 
     def apply_mv(ops, x):
-        y = inner_mv(ops["dev"], torch.index_select(x, 0, ops["p"]))
-        return torch.index_select(y, 0, ops["ip"])
+        y = inner_mv(ops["dev"], _rows(x, ops["p"]))
+        return _rows(y, ops["ip"])
 
     def apply_mm(ops, x):
-        y = inner_mm(ops["dev"], torch.index_select(x, 0, ops["p"]))
-        return torch.index_select(y, 0, ops["ip"])
+        y = inner_mm(ops["dev"], _rows(x, ops["p"]))
+        return _rows(y, ops["ip"])
 
     return dataclasses.replace(
         tuned, operands=operands, _apply_mv=apply_mv, _apply_mm=apply_mm,
         perm=perm, _inner=(inner_mv, inner_mm, tuned.operands),
     )
+
+
+def _rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """The rows of x (or X) in the order ``perm``."""
+    with trace.span("cfs.stage", op="permute") as s:
+        return s.wrote(torch.index_select(x, 0, perm))
+
+
+def _device_bytes(obj, seen=None) -> int:
+    """Bytes of the tensors reachable from an uploaded plan (a tensor, a
+    dict, a dataclass), each storage once."""
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        st = obj.untyped_storage()
+        if st.data_ptr() in seen:
+            return 0
+        seen.add(st.data_ptr())
+        return st.nbytes()
+    if isinstance(obj, dict):
+        return sum(_device_bytes(v, seen) for v in obj.values())
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return sum(_device_bytes(getattr(obj, f.name), seen)
+                   for f in dataclasses.fields(obj))
+    return 0
+
+
+def _upload(to_device, plan, device):
+    """``to_device(plan, device)`` as the span ``cfs.tune.upload``. While
+    recording, the span ends once the copies have finished, and their
+    bytes count as ``upload.bytes``."""
+    with trace.span("cfs.tune.upload") as s:
+        dev = to_device(plan, device)
+        if trace.is_recording():
+            nbytes = _device_bytes(dev)
+            s.set(bytes=nbytes)
+            trace.count("upload.bytes", nbytes)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    return dev
 
 
 def build_fp64_plan(csr: CSR):
@@ -369,13 +424,14 @@ def _tune_fp64(csr: CSR, fmt: Format, device,
     the two must never share a key."""
     plan = cached_build(lambda: build_fp64_plan(csr), csr, np.float64,
                         cache_dir, fmt="bell2_f64")
-    dev = spmv_ops.fp64_to_device(plan, device)
+    dev = _upload(spmv_ops.fp64_to_device, plan, device)
     nnz_full = plan.nnz
     if csr.symmetric and plan.dia is not None:
-        ndiag = int(np.count_nonzero(
-            np.asarray(csr.indices)
-            == np.repeat(np.arange(csr.nrows), np.diff(csr.indptr))
-        ))
+        with trace.span("cfs.tune.diag_count"):
+            ndiag = int(np.count_nonzero(
+                np.asarray(csr.indices)
+                == np.repeat(np.arange(csr.nrows), np.diff(csr.indptr))
+            ))
         nnz_full = 2 * csr.nnz - ndiag
     info(
         "tune: fp64 -> native fp64 kernels, nnz=%d chunks=%d pad=%.2fx "
@@ -414,23 +470,28 @@ def _tune_fp64_xla(csr: CSR, fmt: Format, device) -> TunedMatrix:
     selected only by ``CFS_FP64=xla``."""
     from ..ops import xla_ref
 
-    coo = csr.to_coo().expand_symmetric() if csr.symmetric else csr.to_coo()
+    with trace.span("cfs.tune.plan_build"):
+        coo = (csr.to_coo().expand_symmetric() if csr.symmetric
+               else csr.to_coo())
+        ecol, evals, rrow, rcol, rval = xla_ref.build_ell_hyb(
+            coo.row, coo.col, coo.val.astype(np.float64), csr.nrows
+        )
     nrows = csr.nrows
-    ecol, evals, rrow, rcol, rval = xla_ref.build_ell_hyb(
-        coo.row, coo.col, coo.val.astype(np.float64), nrows
-    )
     has_rem = len(rrow) > 0
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device)
 
-    ops = {
-        "ecol": t(ecol),
-        "evals": t(evals),
-        "row": t(rrow.astype(np.int32)) if has_rem else None,
-        "col": t(rcol.astype(np.int32)) if has_rem else None,
-        "val": t(rval) if has_rem else None,
-    }
+    def upload(plan, device):
+        return {
+            "ecol": t(ecol),
+            "evals": t(evals),
+            "row": t(rrow.astype(np.int32)) if has_rem else None,
+            "col": t(rcol.astype(np.int32)) if has_rem else None,
+            "val": t(rval) if has_rem else None,
+        }
+
+    ops = _upload(upload, None, device)
 
     def apply_mv(ops, x):
         y = xla_ref.ell_spmv(ops["ecol"], ops["evals"], x)

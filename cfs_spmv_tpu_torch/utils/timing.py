@@ -22,6 +22,8 @@ import time
 import numpy as np
 import torch
 
+from . import trace
+
 __all__ = ["time_matvec", "as_pure"]
 
 
@@ -148,25 +150,31 @@ def _eager_cuda_s(body, iters, repeats) -> float:
     return float(np.median(runs))
 
 
-def capture(body, times: int = 1) -> torch.cuda.CUDAGraph:
+def capture(body, times: int = 1, *,
+            prefix: str = "cfs.graph") -> torch.cuda.CUDAGraph:
     """A CUDA graph of ``times`` calls of ``body()``, captured after one
     eager call on a side stream (as PyTorch's capture rules ask: lazy
     initialisation, kernel builds and the allocator's first blocks happen
     outside the capture). ``body`` must read and write only
     tensors that outlive the graph, since a replay reuses the captured
     addresses. A refused capture raises ``RuntimeError`` naming the
-    cause."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        body()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            for _ in range(times):
-                body()
-    except RuntimeError as err:
-        raise RuntimeError(f"CUDA graph capture failed: {err}") from err
+    cause. The two steps are the spans ``<prefix>.warmup`` (the eager
+    call) and ``<prefix>.capture`` (the synchronisation, and the
+    ``torch.cuda.graph`` block with its own synchronisation and
+    ``empty_cache``)."""
+    with trace.span(prefix + ".warmup"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+    with trace.span(prefix + ".capture"):
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(times):
+                    body()
+        except RuntimeError as err:
+            raise RuntimeError(f"CUDA graph capture failed: {err}") from err
     return graph

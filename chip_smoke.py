@@ -2564,11 +2564,11 @@ def solver_phase(torch, card, wrappers, launches, lap, gasym, cant):
         iters, fall = SOLVES[name]
         for w in wrappers.values():
             w.launches = 0
-        replays0 = solvers._iterate.replays
-        out_g = run("graph", iters)
+        with trace.recording():
+            out_g = run("graph", iters)
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items() if w.launches}
-        replays = solvers._iterate.replays - replays0
+        replays = trace.collect().counters.get("solve.replays", 0)
         wall_g = _loop_ms(solvers)
         for k, c in counts.items():
             launches[k] += c
@@ -2875,6 +2875,7 @@ def dist_phase(torch, card, counted, oracle_ok, mats, runs, wrappers,
     from cfs_spmv_tpu_torch.models import solvers
     from cfs_spmv_tpu_torch.parallel.dist import DistSpDMV
     from cfs_spmv_tpu_torch.parallel.mesh import make_mesh
+    from cfs_spmv_tpu_torch.utils import trace
     from cfs_spmv_tpu_torch.utils.timing import time_matvec
 
     dev = torch.device("cuda", 0)
@@ -2971,13 +2972,13 @@ def dist_phase(torch, card, counted, oracle_ok, mats, runs, wrappers,
     want = set(predict_dist(ops4))  # launched while capturing, not replays
     for w in wrappers.values():
         w.launches = 0
-    replays0 = solvers._iterate.replays
-    out_g = solvers.cg(ops4, b, iters=DIST_CG_ITERS)
+    with trace.recording():
+        out_g = solvers.cg(ops4, b, iters=DIST_CG_ITERS)
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in wrappers.items() if w.launches}
     for k, c in counts.items():
         launches[k] += c
-    replays = solvers._iterate.replays - replays0
+    replays = trace.collect().counters.get("solve.replays", 0)
     wall_g = _loop_ms(solvers)
     out_e = solvers.cg(ops4, b, iters=DIST_CG_ITERS, _mode="eager")
     wall_e = _loop_ms(solvers)
@@ -6477,6 +6478,7 @@ def main() -> int:
     # which stays float32, and -1) are exact in bf16, so the graphed solve
     # should equal the float32 one bit for bit, iteration for iteration
     from cfs_spmv_tpu_torch.models import solvers
+    from cfs_spmv_tpu_torch.utils import trace
 
     t32_, _, b32_ = lap["float32"]
     t0 = time.perf_counter()
@@ -6487,11 +6489,11 @@ def main() -> int:
     iters = SOLVES["S1 cg float32"][0]
     for w in wrappers.values():
         w.launches = 0
-    replays0 = solvers._iterate.replays
-    out_bf = solvers.cg(t_bf, b32_, iters=iters)
+    with trace.recording():
+        out_bf = solvers.cg(t_bf, b32_, iters=iters)
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in wrappers.items() if w.launches}
-    replays = solvers._iterate.replays - replays0
+    replays = trace.collect().counters.get("solve.replays", 0)
     wall_bf = _loop_ms(solvers)
     for k, c in counts.items():
         launches[k] += c

@@ -37,7 +37,9 @@ SDIA_MAX_D = 192
 #: above this row count the reference's symmetric kernel no longer
 #: holds x and y whole in its fast memory; diagonals are then stored
 #: MIRRORED (2x values) and run on the blocked-y one-sided kernel
-#: instead (env CFS_SDIA_SYM_ROWS_MAX)
+#: instead (env CFS_SDIA_SYM_ROWS_MAX). In the port only the float32 and
+#: bfloat16 symmetric planner (``sbell.build_sbell_plan``) reads it; the
+#: float64 planner (``tuning/tune.build_fp64_plan``) has no row ceiling
 import os as _os
 
 SDIA_SYM_ROWS_MAX = int(

@@ -179,7 +179,7 @@ def tune(
     """
     del kernel
     with trace.span("cfs.tune", dtype=np.dtype(dtype).name,
-                    nrows=csr.nrows, nnz=csr.nnz):
+                    nrows=csr.nrows, nnz=csr.nnz) as span:
         device = spmv_ops.as_device(device)
         if cache_dir is None:
             cache_dir = config.plan_cache_dir
@@ -209,7 +209,12 @@ def tune(
                 )
             if config.fp64_path == "xla":
                 return _tune_fp64_xla(csr, fmt, device)
-            return _tune_fp64(csr, fmt, device, cache_dir)
+            tuned = _tune_fp64(csr, fmt, device, cache_dir)
+            dia = tuned.plan.dia
+            span.set(fp64_plan="expanded" if dia is None else "sdia",
+                     sdia_diagonals=0 if dia is None else len(dia.offsets))
+            trace.count("tune.fp64_peeled", int(dia is not None))
+            return tuned
         if np.dtype(dtype) != np.float32:
             raise ValueError(
                 f"dtype must be float32 or float64, got {np.dtype(dtype)}"
@@ -369,19 +374,23 @@ def build_fp64_plan(csr: CSR):
     ``_tune_fp64_df._build``, with float64 values in place of its fp32
     (hi, lo) pairs (a rejoined pair keeps about 48 bits of the 53).
 
-    A symmetric square matrix under half the ``SDIA_SYM_ROWS_MAX`` ceiling
-    peels its dense lower diagonals, the main one included, into an SDIA
-    plan (``plan.dia``) whose main diagonal is halved (exact: a factor
-    of 0.5 changes the exponent only), so that the symmetric kernel's row
-    side and transpose side each add half of it; what the peel leaves is
-    expanded to both triangles. Everything else is expanded whole. The
-    entries go into one slot-packed one-sided stream."""
+    A symmetric square matrix peels its dense lower diagonals, the main
+    one included, into an SDIA plan (``plan.dia``) whose main diagonal is
+    halved (exact: a factor of 0.5 changes the exponent only), so that
+    the symmetric kernel's row side and transpose side each add half of
+    it; what the peel leaves is expanded to both triangles. Everything
+    else is expanded whole. The entries go into one slot-packed one-sided
+    stream.
+
+    The peel has no row ceiling, where the reference's stops at half its
+    ``SDIA_SYM_ROWS_MAX`` (the TPU kernel holds x and y whole in its fast
+    memory): the CUDA kernel reads both from global memory at any height.
+    Under that ceiling the two planners decide alike."""
     from ..formats import sdia
     from ..formats.bell2 import build_bell2_from_arrays
 
     nrows = csr.nrows
-    if (csr.symmetric and nrows == csr.ncols
-            and nrows <= sdia.SDIA_SYM_ROWS_MAX // 2):
+    if csr.symmetric and nrows == csr.ncols:
         lcoo = csr.to_coo()  # lower triangle incl. diagonal
         row_l = np.asarray(lcoo.row)
         col_l = np.asarray(lcoo.col)
@@ -412,6 +421,21 @@ def build_fp64_plan(csr: CSR):
     )
 
 
+def _diagonal_entries(csr: CSR, rows_per_pass: int = 1 << 16) -> int:
+    """The stored entries of the square ``csr`` on its main diagonal, in
+    any column order, duplicates each counted. A pass takes
+    ``rows_per_pass`` rows, so that the row index of each entry exists
+    for those rows only, in the type of the column indices."""
+    indptr, indices = np.asarray(csr.indptr), np.asarray(csr.indices)
+    ndiag = 0
+    for r0 in range(0, csr.nrows, rows_per_pass):
+        r1 = min(r0 + rows_per_pass, csr.nrows)
+        rows = np.repeat(np.arange(r0, r1, dtype=indices.dtype),
+                         np.diff(indptr[r0:r1 + 1]))
+        ndiag += int(np.count_nonzero(indices[indptr[r0]:indptr[r1]] == rows))
+    return ndiag
+
+
 def _tune_fp64(csr: CSR, fmt: Format, device,
                cache_dir: str | None = None) -> TunedMatrix:
     """float64 through the native fp64 kernels (the port of the
@@ -421,17 +445,16 @@ def _tune_fp64(csr: CSR, fmt: Format, device,
     An empty matrix gets an applier of zeros. The plan is cached as
     ``fmt="bell2_f64"``: it holds float64 values, where the reference's
     ``"bell2_df"`` plan of the same matrix holds fp32 (hi, lo) pairs, so
-    the two must never share a key."""
+    the two must never share a key. ``sdia_rows="any"`` keys the planner
+    without a row ceiling apart from the plans of one that expanded every
+    matrix past 5M rows."""
     plan = cached_build(lambda: build_fp64_plan(csr), csr, np.float64,
-                        cache_dir, fmt="bell2_f64")
+                        cache_dir, fmt="bell2_f64", sdia_rows="any")
     dev = _upload(spmv_ops.fp64_to_device, plan, device)
     nnz_full = plan.nnz
     if csr.symmetric and plan.dia is not None:
         with trace.span("cfs.tune.diag_count"):
-            ndiag = int(np.count_nonzero(
-                np.asarray(csr.indices)
-                == np.repeat(np.arange(csr.nrows), np.diff(csr.indptr))
-            ))
+            ndiag = _diagonal_entries(csr)
         nnz_full = 2 * csr.nnz - ndiag
     info(
         "tune: fp64 -> native fp64 kernels, nnz=%d chunks=%d pad=%.2fx "

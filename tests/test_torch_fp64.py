@@ -215,6 +215,97 @@ def test_fp64_spmm_matches_oracle_and_reference(name, B):
         assert _rel_err(Y[:, b], yb, scale) < NATIVE_RTOL
 
 
+def _scattered_symmetric():
+    """A symmetric matrix with no dense diagonal but its main one, which
+    holds under a quarter of the stored entries: the peel is rejected."""
+    rng = np.random.default_rng(21)
+    n = 4096
+    row = np.repeat(np.arange(1, n, dtype=np.int64), 6)
+    col = (rng.random(len(row)) * row).astype(np.int64)
+    row = np.concatenate([row, np.arange(n)])
+    col = np.concatenate([col, np.arange(n)])
+    val = rng.uniform(-1, 1, len(row))
+    return RefCSR.from_coo(
+        RefCOO(n, n, row, col, val, symmetric=True).canonicalize())
+
+
+#: name -> (matrix, peeled): symmetric matrices past a row ceiling of 100
+PAST_CEILING = {
+    "stencil27": (lambda: ref_proxies.stencil27(g=12, dtype=np.float64),
+                  True),
+    "scattered_symmetric": (_scattered_symmetric, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAST_CEILING))
+def test_fp64_peels_past_the_old_ceiling(name, monkeypatch):
+    """The float64 planner has no row ceiling: with the port's
+    ``SDIA_SYM_ROWS_MAX`` at 100 (the reference's at its default), the
+    1,728-row stencil still peels its 14 lower diagonals, with nothing
+    left over, into planes byte-identical to the reference's plan of the
+    same matrix, and ``SpDMV`` answers at B = 1 and B = 8; a matrix whose
+    diagonals are too sparse still gets the expanded stream."""
+    from cfs_spmv_tpu_torch.formats import sdia as port_sdia
+
+    monkeypatch.setattr(port_sdia, "SDIA_SYM_ROWS_MAX", 100)
+    make, peeled = PAST_CEILING[name]
+    ref_csr = make()
+    assert ref_csr.nrows > port_sdia.SDIA_SYM_ROWS_MAX
+    plan = port_tune.build_fp64_plan(port_csr(ref_csr))
+    if not peeled:
+        assert plan.dia is None
+        assert plan.nnz == 2 * ref_csr.nnz - ref_csr.nrows  # full diagonal
+        return
+    assert plan.dia is not None and plan.nnz == 0
+    rows = np.repeat(np.arange(ref_csr.nrows), np.diff(ref_csr.indptr))
+    lower = set(np.unique(rows - ref_csr.indices).tolist())
+    assert set(plan.dia.offsets) == lower and 0 in lower
+    assert len(lower) == 14
+    ref_dia = ref_tune._tune_fp64_df(ref_csr, RefFormat.SSS).plan.dia
+    assert plan.dia.offsets == ref_dia.offsets
+    assert plan.dia.nnz == ref_dia.nnz
+    assert plan.dia.vals.dtype == ref_dia.vals.dtype == np.float64
+    assert plan.dia.vals.tobytes() == ref_dia.vals.tobytes()
+
+    A = ct.SparseMatrix.create(port_csr(ref_csr), ct.Format.SSS)
+    op = ct.SpDMV(A, dtype=np.float64, device="cpu")
+    assert A.tuned.plan.dia is not None  # the plan the apply runs
+    X = np.random.default_rng(22).uniform(-1.0, 1.0, (ref_csr.ncols, 8))
+    y = op(torch.from_numpy(X[:, 0].copy())).numpy()
+    scale = ref_csr.spmv_host(X[:, 0], absolute=True)
+    assert _rel_err(y, ref_csr.spmv_host(X[:, 0]), scale) < NATIVE_RTOL
+    Y = op(torch.from_numpy(X)).numpy()
+    for b in range(8):
+        scale = ref_csr.spmv_host(X[:, b], absolute=True)
+        assert _rel_err(Y[:, b], ref_csr.spmv_host(X[:, b]),
+                        scale) < NATIVE_RTOL
+
+
+@pytest.mark.parametrize("rows_per_pass", [7, 1 << 16])
+def test_diagonal_count_in_any_column_order(rows_per_pass):
+    """``nnz_full`` of a peeled plan counts the stored diagonal entries
+    pass by pass: the same count as one row index per entry, with the
+    columns of each row shuffled, a diagonal entry stored twice and rows
+    without one."""
+    ref = _random(500, 500, 6.0, symmetric=True, bandwidth=30, seed=23)
+    rng = np.random.default_rng(24)
+    indices = ref.indices.copy()
+    for r in range(ref.nrows):
+        seg = indices[ref.indptr[r]:ref.indptr[r + 1]]
+        seg[:] = seg[rng.permutation(len(seg))]
+    indptr = ref.indptr.copy()
+    rows = np.repeat(np.arange(ref.nrows), np.diff(indptr))
+    assert np.count_nonzero(indices == rows) == ref.nrows  # a full diagonal
+    on = np.flatnonzero(indices == rows)
+    indices[on[10]] = 0  # row 10 loses its diagonal entry
+    # row 40 stores (40, 40) twice
+    indices[on[40] + 1 if rows[on[40] + 1] == 40 else on[40] - 1] = 40
+    expect = int(np.count_nonzero(indices == rows))
+    assert expect == ref.nrows and np.any(np.diff(indices) < 0)
+    csr = CSR(ref.nrows, ref.ncols, indptr, indices, ref.data.copy(), True)
+    assert port_tune._diagonal_entries(csr, rows_per_pass) == expect
+
+
 def test_fp64_beats_fp32_precision():
     """The point of the route: the same matrix through float32 storage has
     a backward error near 1e-8..1e-7 (scaled); float64 must be at least

@@ -6,7 +6,8 @@ two packages in both directions: a plan the reference saved loads in the
 port and gives the port's own result; a plan the port saved loads in the
 reference as the reference's own build (arrays, dtype tags, scalars).
 The float64 plans of the two (native double here, fp32 pairs there)
-never share a key.
+never share a key, and the port's float64 key names its planner, which
+has no row ceiling.
 """
 
 import dataclasses
@@ -29,7 +30,7 @@ from cfs_spmv_tpu_torch.formats.coo import COO
 from cfs_spmv_tpu_torch.formats.csr import CSR
 from cfs_spmv_tpu_torch.formats.sbell import build_sbell_plan
 from cfs_spmv_tpu_torch.io import plancache
-from cfs_spmv_tpu_torch.tuning.tune import tune
+from cfs_spmv_tpu_torch.tuning.tune import build_fp64_plan, tune
 from cfs_spmv_tpu_torch.utils.config import config
 from cfs_spmv_tpu_torch.utils.platform import Format, allclose_spmv
 
@@ -276,3 +277,26 @@ def test_float64_plans_never_share_a_key(tmp_path):
     assert allclose_spmv(y.numpy(), csr.spmv_host(x), np.float64,
                          nnz_per_row=t2.nnz_full / csr.nrows,
                          scale=csr.spmv_host(x, absolute=True))
+
+
+def test_float64_key_is_not_the_ceiling_planner_s(tmp_path):
+    """The float64 planner without a row ceiling keys its plans apart from
+    the one before it (``fmt="bell2_f64"`` alone), which expanded every
+    matrix past 5M rows: a plan saved under the old key is not loaded."""
+    csr = port_csr(ref_proxies.stencil27(g=12, dtype=np.float64))
+    old_key = plancache.cache_key(csr, np.float64, fmt="bell2_f64")
+    d = str(tmp_path)
+    old_path = os.path.join(d, f"plan-{old_key}.npz")
+    # the old planner's plan past its ceiling: both triangles, no peel
+    expanded = build_fp64_plan(CSR.from_coo(csr.to_coo().expand_symmetric()))
+    assert expanded.dia is None
+    plancache.save_plan(old_path, expanded)
+    tuned = tune(csr, fmt=Format.SSS, dtype=np.float64, cache_dir=d,
+                 device="cpu")
+    assert tuned.plan.dia is not None and tuned.plan.nnz == 0
+    files = sorted(os.listdir(d))
+    assert len(files) == 2 and os.path.basename(old_path) in files
+    again = tune(csr, fmt=Format.SSS, dtype=np.float64, cache_dir=d,
+                 device="cpu")
+    assert sorted(os.listdir(d)) == files  # its own key: a hit
+    _plans_equal(again.plan, tuned.plan, dtypes=True)

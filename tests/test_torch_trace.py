@@ -1,7 +1,8 @@
 """The port's recorder (``utils/trace``): spans and counters are off by
 default and then record nothing; on, a solve, an apply and a ``tune`` each
 give one root span whose steps are its children; the plan cache counts its
-hits and misses; ``log=True`` spans keep the planners' INFO lines; and a
+hits and misses; a float64 ``tune`` counts whether its plan peeled
+diagonals; ``log=True`` spans keep the planners' INFO lines; and a
 ``profile()`` trace carries the spans as annotations on the device's
 clock, to which :func:`idle_by_span` puts idle time down. CPU only."""
 
@@ -15,7 +16,7 @@ import torch
 from cfs_spmv_tpu_torch import COO, Format, SparseMatrix, SpDMV
 from cfs_spmv_tpu_torch.models import solvers
 from cfs_spmv_tpu_torch.tuning.tune import tune
-from cfs_spmv_tpu_torch.utils import trace
+from cfs_spmv_tpu_torch.utils import proxies, trace
 from cfs_spmv_tpu_torch.utils.config import config
 
 
@@ -251,3 +252,35 @@ def test_idle_under_chosen_spans_at_any_depth():
     ]
     idle = trace.idle_by_span(events, names={"cfs.solve.setup"})
     assert idle == {"cfs.solve.setup": 20, None: 20}
+
+
+def _scattered_symmetric(n=2048, seed=7):
+    """Six scattered strict-lower entries a row and the main diagonal: no
+    diagonal dense enough to peel."""
+    rng = np.random.default_rng(seed)
+    row = np.repeat(np.arange(1, n, dtype=np.int64), 6)
+    col = (rng.random(len(row)) * row).astype(np.int64)
+    row = np.concatenate([row, np.arange(n)])
+    col = np.concatenate([col, np.arange(n)])
+    coo = COO(n, n, row, col, rng.uniform(-1, 1, len(row)), symmetric=True)
+    return SparseMatrix.create(coo.canonicalize(), Format.SSS)
+
+
+@pytest.mark.parametrize("name, peeled, plan, diagonals", [
+    ("stencil27", 1, "sdia", 14),
+    ("scattered_symmetric", 0, "expanded", 0),
+])
+def test_tune_counts_the_fp64_peel(name, peeled, plan, diagonals):
+    A = (SparseMatrix.create(proxies.stencil27(g=12, dtype=np.float64),
+                             Format.SSS)
+         if name == "stencil27" else _scattered_symmetric())
+    with trace.recording():
+        tune(A.csr, fmt=Format.SSS, dtype=np.float64, device="cpu",
+             cache_dir="")
+    rec = trace.collect()
+    assert rec.counters["tune.fp64_peeled"] == peeled
+    (root,) = rec.named("cfs.tune")
+    assert root.attrs["fp64_plan"] == plan
+    assert root.attrs["sdia_diagonals"] == diagonals
+    # the diagonal count runs for a peeled plan only
+    assert len(rec.named("cfs.tune.diag_count")) == peeled

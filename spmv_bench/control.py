@@ -29,7 +29,7 @@ def readings(bench, name, seeds, seconds, *, control=False, device="cuda",
              cache=None, cfg=None, mix=None) -> dict:
     """{seed: the compared number} of ``name``'s traffic through the
     program (``control``: through the configuration's control path)."""
-    from spmv_bench import harness, matrices, reference, spec
+    from spmv_bench import harness, matrices, spec
 
     cell = spec.cell(bench, name)
     cfg = cfg or spec.config(bench, cell["config"])
@@ -37,14 +37,15 @@ def readings(bench, name, seeds, seconds, *, control=False, device="cuda",
     kind, iters = mix["kind"], mix.get("iters", 0)
     mat = matrices.make(cfg)
     prog = harness.Program(mat, cfg, device, cache or "",
-                           variant=cfg["control"] if control else None)
-    ref = reference.Reference(mat, device)
+                           variant=cfg["control"] if control else None,
+                           chips=cell["chips"])
+    ref = harness.reference_for(cfg)(mat, device)
     out = {}
     for seed in seeds:
         traffic = harness.Traffic(mix, mat, cfg, seed, device, ref=ref)
         window = harness.window_for(kind, prog.op,
                                     traffic.for_program(prog.dtype),
-                                    iters, device)
+                                    iters, prog.cards)
         harness.warm_up(kind, window, len(traffic.inputs))
         sample = harness.Sample(mix["sample"], traffic.rng)
         window(seconds=seconds, sample=sample)
@@ -79,7 +80,8 @@ def main(argv=None) -> int:
     cseeds = [int(s) for s in args.control_seeds.split(",") if s]
     prog = readings(bench, args.workload, seeds, args.seconds,
                     cache=harness.CACHE)
-    harness.free_cached("cuda")
+    harness.free_cached(harness.cards(
+        "cuda", spec.cell(bench, args.workload)["chips"]))
     ctrl = readings(bench, args.workload, cseeds, args.seconds,
                     control=True, cache=harness.CACHE) if cseeds else {}
     print(json.dumps({

@@ -1,9 +1,12 @@
 """One run of one cell: set-up, the measured window, the traced window, the
 comparison with the plain reference, and the result line.
 
-The program is the port's user-facing operator, ``SpDMV`` of the
-configuration's matrix, tuned with the plan cache; the window drives it as
-the cell's traffic mix says (``mixes/<name>.json``):
+The program is the port's user-facing operator of the configuration's
+matrix: ``SpDMV``, tuned with the plan cache, on one card; or, where the
+configuration names ``"operator": "DistSpDMV"``, the rows sharded over the
+cell's ``chips`` cards (``parallel/dist.DistSpDMV`` on
+``parallel/mesh.make_mesh``). The window drives it as the cell's traffic
+mix says (``mixes/<name>.json``):
 
 - ``"kind": "apply"``: back-to-back eager ``op(x)`` (``SpDMV.__call__``)
   over a pool of device-resident x (``rhs`` columns each), with no host
@@ -12,7 +15,9 @@ the cell's traffic mix says (``mixes/<name>.json``):
   solves over a pool of right-hand sides, each solve waited for.
 
 Every input comes from ``--seed``; the matrix is a fixed function of its
-configuration.
+configuration. With ``--trace 1`` the port's recorder
+(``cfs_spmv_tpu_torch.utils.trace``) is on through set-up and through the
+traced window, and off through the measured one.
 """
 
 from __future__ import annotations
@@ -67,6 +72,13 @@ class Run:
     trace: tracing.Trace | None = None
     #: applies or solves in the traced window
     traced: int = 0
+    #: the cards the run used (1 on the CPU)
+    chips: int = 1
+    #: the port's recorded spans and counters (``utils/trace.Record``) of
+    #: set-up, from the operator's construction to the end of warm-up,
+    #: and of the traced window; None where the recorder was off
+    setup_record: object = None
+    window_record: object = None
 
 
 def operand_bytes(obj, seen=None) -> int:
@@ -91,34 +103,78 @@ def operand_bytes(obj, seen=None) -> int:
     return 0
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+def cards(device, chips: int) -> list:
+    """The CUDA cards a run of a cell of ``chips`` cards uses: on
+    ``"cuda"`` the first ``chips``, on one named card (``"cuda:0"``) that
+    card, on the CPU none."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return []
+    if dev.index is None:
+        return [torch.device("cuda", i) for i in range(chips)]
+    return [dev]
+
+
+def _sync(cards) -> None:
+    for card in cards:
+        torch.cuda.synchronize(card)
 
 
 class Program:
-    """The system under test: the port's ``SpDMV`` of ``mat``, tuned as the
-    configuration's ``tune`` says, with ``variant`` laid over it (the
-    control's lower precision)."""
+    """The system under test: the port's operator of ``mat`` in a cell of
+    ``chips`` cards (``spec.operator``), with ``variant`` laid over its
+    keywords (the control's lower precision). ``SpDMV`` is tuned as the
+    configuration's ``tune`` says; ``DistSpDMV`` takes the configuration's
+    ``dist`` keywords (``comm``, ``assign``, ``dia_min_count``) and one row
+    shard a card of the cell on ``"cuda"``, or ``chips`` shards on one
+    named device (``"cpu"``, ``"cuda:0"``)."""
 
     def __init__(self, mat, cfg: dict, device, plan_cache: str,
-                 variant: dict | None = None):
+                 variant: dict | None = None, chips: int = 1):
         import cfs_spmv_tpu_torch as ct
 
+        self.cards = cards(device, chips)
+        csr = ct.CSR(mat.n, mat.n, mat.indptr, mat.indices, mat.data,
+                     symmetric=True)
+        if spec.operator(cfg, chips) == "DistSpDMV":
+            self._dist(csr, cfg, device, chips, variant)
+            return
         opts = {**cfg["tune"], **(variant or {})}
         fmt = ct.Format[opts.pop("format")]
         tuning = ct.Tuning[opts.pop("tuning")]
         dtype = np.dtype(opts.pop("dtype", cfg["precision"]))
-        csr = ct.CSR(mat.n, mat.n, mat.indptr, mat.indices, mat.data,
-                     symmetric=True)
         a = ct.SparseMatrix.create(csr, fmt)
         t = time.perf_counter()
         self.op = ct.SpDMV(a, tuning, dtype=dtype, device=device,
                            cache_dir=plan_cache, **opts)
-        _sync(device)
+        _sync(self.cards)
         self.tune_upload_s = time.perf_counter() - t
         self.dtype = a.tuned.dtype
         self.plan_bytes = operand_bytes(a.tuned.operands)
+
+    def _dist(self, csr, cfg, device, chips, variant) -> None:
+        from cfs_spmv_tpu_torch.parallel.dist import DistSpDMV
+        from cfs_spmv_tpu_torch.parallel.mesh import make_mesh
+
+        opts = {**cfg.get("dist", {}), **(variant or {})}
+        dtype = np.dtype(opts.pop("dtype", cfg["precision"]))
+        t = time.perf_counter()
+        self.op = DistSpDMV(csr, make_mesh(chips, device=device),
+                            dtype=dtype, **opts)
+        _sync(self.cards)
+        self.tune_upload_s = time.perf_counter() - t
+        self.dtype = self.op.dtype
+        # every shard's operands, each storage once a device
+        self.plan_bytes = operand_bytes(self.op.shards)
+
+
+def reference_for(cfg: dict):
+    """The plain reference's class of ``cfg``: ``references/<name>.py``
+    where the configuration names one (``"reference"``), else
+    ``reference.Reference``."""
+    if "reference" in cfg:
+        return spec.reference(cfg["reference"])
+    return reference.Reference
 
 
 class Traffic:
@@ -136,7 +192,7 @@ class Traffic:
         xs = [torch.rand(shape, generator=g, dtype=dtype, device=device)
               .mul_(2).sub_(1) for _ in range(mix["pool"])]
         if mix["kind"] == "cg":
-            ref = ref or reference.Reference(mat, device)
+            ref = ref or reference_for(cfg)(mat, device)
             xs = [ref.matvec(x).to(dtype) for x in xs]
         self.inputs = xs
         self.rng = np.random.default_rng(seed % 2**63)
@@ -164,11 +220,11 @@ class Sample:
             self.kept[j] = (i, answer)
 
 
-def apply_window(op, xs, device, *, seconds=math.inf, count=None,
+def apply_window(op, xs, cards, *, seconds=math.inf, count=None,
                  sample=None):
     """Back-to-back ``op(x)`` over the pool ``xs`` for ``seconds`` (or
-    ``count`` calls), then one synchronisation: (window seconds, calls,
-    host seconds inside the calls)."""
+    ``count`` calls), then one synchronisation of each of ``cards``:
+    (window seconds, calls, host seconds inside the calls)."""
     host, i, pool = 0.0, 0, len(xs)
     t0 = time.perf_counter()
     stop = t0 + seconds
@@ -182,28 +238,28 @@ def apply_window(op, xs, device, *, seconds=math.inf, count=None,
         i += 1
         if t >= stop:
             break
-    _sync(device)
+    _sync(cards)
     return time.perf_counter() - t0, i, host
 
 
-def cg_window(op, bs, iters, device, *, seconds=math.inf, count=None,
+def cg_window(op, bs, iters, cards, *, seconds=math.inf, count=None,
               sample=None):
     """Back-to-back ``cg(op, b, iters=iters)`` over the pool ``bs``, each
-    solve's x synchronised before the next call: (window seconds, solves,
-    each solve's host wall, each solve's replay-loop events)."""
+    solve's x synchronised on each of ``cards`` before the next call:
+    (window seconds, solves, each solve's host wall, each solve's
+    replay-loop events)."""
     from cfs_spmv_tpu_torch.models import solvers
 
     walls, loops, i, pool = [], [], 0, len(bs)
-    cuda = torch.device(device).type == "cuda"
     t0 = time.perf_counter()
     stop = t0 + seconds
     while count is None or i < count:
         th = time.perf_counter()
         x = solvers.cg(op, bs[i % pool], iters=iters)[0]
-        _sync(device)
+        _sync(cards)
         t = time.perf_counter()
         walls.append(t - th)
-        if cuda:
+        if cards:
             loops.append(solvers._iterate.loop)
         if sample is not None:
             sample.offer(i, x)
@@ -213,12 +269,13 @@ def cg_window(op, bs, iters, device, *, seconds=math.inf, count=None,
     return time.perf_counter() - t0, i, walls, loops
 
 
-def window_for(kind: str, op, xs, iters: int, device):
+def window_for(kind: str, op, xs, iters: int, cards):
     """The window function of a mix's kind over the program inputs
-    ``xs``: called with ``seconds=`` or ``count=`` (and ``sample=``)."""
+    ``xs`` on ``cards``: called with ``seconds=`` or ``count=`` (and
+    ``sample=``)."""
     if kind == "apply":
-        return lambda **kw: apply_window(op, xs, device, **kw)
-    return lambda **kw: cg_window(op, xs, iters, device, **kw)
+        return lambda **kw: apply_window(op, xs, cards, **kw)
+    return lambda **kw: cg_window(op, xs, iters, cards, **kw)
 
 
 def warm_up(kind: str, window, pool: int) -> None:
@@ -227,11 +284,13 @@ def warm_up(kind: str, window, pool: int) -> None:
     window(count=2 * pool if kind == "apply" else 2)
 
 
-def free_cached(device) -> None:
-    """Collect garbage and return the allocator's unused blocks to the card."""
+def free_cached(cards) -> None:
+    """Collect garbage and return the allocator's unused blocks to each of
+    ``cards``."""
     gc.collect()
-    if torch.device(device).type == "cuda":
-        torch.cuda.empty_cache()
+    for card in cards:
+        with torch.cuda.device(card):
+            torch.cuda.empty_cache()
 
 
 def check(kind: str, ref, traffic: Traffic, kept, iters: int,
@@ -240,8 +299,8 @@ def check(kind: str, ref, traffic: Traffic, kept, iters: int,
     "limit"}}, answers over their limit). ``apply``: the largest entry of
     |y - A x| / (|A| |x|) over the sample (``apply_err``); ``cg``: the
     largest ||x - x_ref|| / ||x_ref|| (``cg_x_err``), x_ref from the
-    reference's own CG on the same b; ``ref`` is the
-    ``reference.Reference`` of the cell's matrix."""
+    reference's own CG on the same b; ``ref`` is the plain reference of
+    the cell's matrix (``reference_for``)."""
     done, errs = {}, []
     for i, answer in kept:
         p = i % len(traffic.inputs)
@@ -259,13 +318,16 @@ def check(kind: str, ref, traffic: Traffic, kept, iters: int,
     return {name: {"value": value, "limit": limit}}, failed
 
 
-def device_info(device, chips: int) -> dict:
-    if torch.device(device).type != "cuda":
+def device_info(cards) -> dict:
+    """The result's ``device``: the cards used, and the peak of the
+    fullest."""
+    if not cards:
         return {"platform": "cpu", "kind": "cpu", "count": 0,
                 "memory_peak_bytes": 0}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": chips,
-            "memory_peak_bytes": torch.cuda.max_memory_allocated()}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(cards[0]),
+            "count": len(cards),
+            "memory_peak_bytes": max(torch.cuda.max_memory_allocated(card)
+                                     for card in cards)}
 
 
 def run_cell(bench: dict, name: str, seed: int, seconds: float,
@@ -274,33 +336,41 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
              mix: dict | None = None, root: str = spec.ROOT) -> dict:
     """One run of the cell ``name``: returns the result line's object.
     ``t0`` is the process's start by ``time.perf_counter``; ``cache`` the
-    folder of the port's plan cache (None: none); ``cfg`` and ``mix`` stand in for the
-    cell's files where given (the tests' small sizes)."""
+    folder of the port's plan cache (None: none); ``cfg`` and ``mix`` stand
+    in for the cell's files where given (the tests' small sizes);
+    ``device`` is ``"cuda"`` (the cell's cards), one named device, or
+    ``"cpu"``."""
     t0 = time.perf_counter() if t0 is None else t0
     cell = spec.cell(bench, name)
     cfg = cfg or spec.config(bench, cell["config"], root)
     mix = mix or spec.mix(cell["traffic"])
+    chips = cell["chips"]
+    spec.operator(cfg, chips)
     wanted = spec.metrics_for(bench, name, trace)
     readers = {m["name"]: spec.reader(m["name"]) for m in wanted}
     kind, rhs, iters = mix["kind"], mix.get("rhs", 1), mix.get("iters", 0)
     if kind not in ("apply", "cg"):
         raise spec.SpecError(f"traffic mix {cell['traffic']!r}: unknown "
                              f"kind {kind!r}")
-    peak = (counts.peak_for(torch.cuda.get_device_name(0))
-            if torch.device(device).type == "cuda" else None)
+    used = cards(device, chips)
+    n_cards = max(1, len(used))
+    peak = counts.peak_for(torch.cuda.get_device_name(used[0])) \
+        if used else None
 
     mat = matrices.make(cfg)
     traffic = Traffic(mix, mat, cfg, seed, device)
     # the peak is the program's: CG's right-hand sides come from the
     # reference, whose state is freed first
-    free_cached(device)
-    if torch.device(device).type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    prog = Program(mat, cfg, device, cache or "")
+    free_cached(used)
+    for card in used:
+        torch.cuda.reset_peak_memory_stats(card)
+    recorder = _recorder() if trace else None
+    prog = Program(mat, cfg, device, cache or "", chips=chips)
     xs = traffic.for_program(prog.dtype)
-    window = window_for(kind, prog.op, xs, iters, device)
+    window = window_for(kind, prog.op, xs, iters, used)
     warm_up(kind, window, len(xs))
     setup_s = time.perf_counter() - t0
+    setup_rec = _collect(recorder)
 
     sample = Sample(mix["sample"], traffic.rng)
     out = window(seconds=seconds, sample=sample)
@@ -310,17 +380,24 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
     loops = [s.elapsed_time(e) / 1e3 for s, e, _ in out[3]] \
         if kind == "cg" else []
 
-    tr, traced = None, 0
+    tr, traced, window_rec = None, 0, None
     if trace:
         traced = max(2, min(2000, round(TRACED_S * done / window_s)))
-        tr = tracing.record(lambda: window(count=traced))
-    dev = device_info(device, cell["chips"])
+
+        def work():  # the recorder holds the last profiled window alone
+            recorder.collect()
+            window(count=traced)
+
+        with recorder.recording():
+            tr = tracing.record(work, cards=n_cards)
+        window_rec = recorder.collect()
+    dev = device_info(used)
     plan_bytes, tune_upload_s = prog.plan_bytes, prog.tune_upload_s
     # the reference runs once the program's state is freed
     del prog, window, xs
-    free_cached(device)
+    free_cached(used)
 
-    checks, failed = check(kind, reference.Reference(mat, device), traffic,
+    checks, failed = check(kind, reference_for(cfg)(mat, device), traffic,
                            sample.kept, iters, cfg["limits"])
     run = Run(
         kind=kind, rhs=rhs, iters=iters, setup_s=setup_s,
@@ -331,8 +408,27 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
                                        cfg["precision"]),
         value_bytes=counts.value_bytes(mat.stored_nnz, cfg["precision"]),
         plan_bytes=plan_bytes, peak=peak, trace=tr, traced=traced,
+        chips=n_cards, setup_record=setup_rec,
+        window_record=window_rec,
     )
     return _result(run, wanted, readers, checks, failed, dev, trace)
+
+
+def _recorder():
+    """The port's recorder, emptied and turned on."""
+    from cfs_spmv_tpu_torch.utils import trace as recorder
+
+    recorder.collect()
+    recorder.enable()
+    return recorder
+
+
+def _collect(recorder):
+    """What ``recorder`` holds (None: no recorder), turned off."""
+    if recorder is None:
+        return None
+    recorder.disable()
+    return recorder.collect()
 
 
 def _result(run, wanted, readers, checks, failed, dev, trace) -> dict:

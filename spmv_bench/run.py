@@ -54,7 +54,9 @@ def main(argv=None) -> int:
         return 3
     try:
         bench = spec.load_benchmark()
-        chips = spec.cell(bench, args.workload)["chips"]
+        cell = spec.cell(bench, args.workload)
+        chips = cell["chips"]
+        spec.operator(spec.config(bench, cell["config"]), chips)
     except spec.SpecError as err:
         print(err, file=sys.stderr)
         return 2

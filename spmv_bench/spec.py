@@ -1,9 +1,10 @@
 """Finds everything a run needs by name: the cell and the metrics in
 ``BENCHMARK.json``, the configuration's file, the traffic mix
-(``mixes/<name>.json``), the matrix generator (``generators/<name>.py``)
-and each metric's reader (``metrics/<name>.py``). A later cell, mix,
-generator or metric is a file of its own and an entry; nothing here
-changes for it."""
+(``mixes/<name>.json``), the matrix generator (``generators/<name>.py``),
+a configuration's own plain reference (``references/<name>.py``), each
+metric's reader (``metrics/<name>.py``), and the port's operator that a
+configuration runs. A later cell, mix, generator, reference or metric is
+a file of its own and an entry; nothing here changes for it."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import importlib.util
 import json
 import os
 import re
+
+from . import guard
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -85,6 +88,44 @@ def _module(kind: str, folder: str, name: str):
 def generator(name: str):
     """The matrix generator ``generators/<name>.py``."""
     return _module("generator", "generators", name)
+
+
+def reference(name: str):
+    """The class ``Reference`` of ``references/<name>.py``: a
+    configuration's own plain reference, with the constructor
+    ``Reference(mat, device)`` and the methods ``matvec(x)``,
+    ``matvec(x, absolute=True)`` and ``cg(b, iters)`` of
+    ``spmv_bench/reference.py``. A file that imports the port, JAX or the
+    JAX package is refused before it runs."""
+    path = _file("reference", "references", name, ".py")
+    found = guard.imported(path) & (guard.FORBIDDEN | {guard.PORT})
+    if found:
+        raise SpecError(f"reference {name!r} imports "
+                        f"{', '.join(sorted(found))}: a reference takes "
+                        "nothing of the program")
+    return _module("reference", "references", name).Reference
+
+
+#: the port's operators a configuration may name (``"operator"``)
+OPERATORS = ("SpDMV", "DistSpDMV")
+
+
+def operator(cfg: dict, chips: int) -> str:
+    """The port's operator that ``cfg`` runs (``"operator"``; default
+    ``SpDMV``) in a cell of ``chips`` cards. ``SpDMV`` runs on one card,
+    ``DistSpDMV`` shards the rows over the cell's cards: a cell of several
+    cards on ``SpDMV`` would measure one card's work, and ``DistSpDMV`` in
+    a cell of one card no exchange, so both are refused."""
+    op = cfg.get("operator", "SpDMV")
+    if op not in OPERATORS:
+        raise SpecError(f"configuration {cfg.get('name')!r}: unknown "
+                        f"operator {op!r}; the harness runs "
+                        f"{', '.join(OPERATORS)}")
+    if (op == "DistSpDMV") != (chips > 1):
+        raise SpecError(f"configuration {cfg.get('name')!r} runs {op} in a "
+                        f"cell of {chips} card(s): SpDMV takes one card, "
+                        "DistSpDMV more than one")
+    return op
 
 
 def reader(name: str):

@@ -50,3 +50,47 @@ def test_no_result_without_the_program(tmp_path):
     res = _run(str(tmp_path), "--trace", "1")
     assert res.returncode != 0
     assert res.stdout.strip() == ""
+
+
+def test_imports_are_read_by_top_level_name(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import numpy as np, os.path\n"
+                   "from torch.nn import functional\n"
+                   "from . import sibling\n"
+                   "def f():\n"
+                   "    import cfs_spmv_tpu_torch.ops\n")
+    assert guard.imported(str(src)) == {"numpy", "os", "torch",
+                                        "cfs_spmv_tpu_torch"}
+
+
+def test_no_reference_imports_the_program_or_jax():
+    here = os.path.join(ROOT, "spmv_bench")
+    folder = os.path.join(here, "references")
+    files = [os.path.join(here, "reference.py")] + sorted(
+        os.path.join(folder, f) for f in
+        (os.listdir(folder) if os.path.isdir(folder) else [])
+        if f.endswith(".py"))
+    for path in files:
+        assert not guard.imported(path) & (guard.FORBIDDEN | {guard.PORT}), \
+            path
+
+
+@pytest.mark.parametrize("line, refused", [
+    ("import torch", False),
+    ("from cfs_spmv_tpu_torch.formats import csr", True),
+    ("import jax.numpy as jnp", True),
+    ("from cfs_spmv_tpu import ops", True),
+])
+def test_a_reference_that_imports_the_program_is_refused(
+        tmp_path, monkeypatch, line, refused):
+    from spmv_bench import spec
+
+    (tmp_path / "references").mkdir()
+    (tmp_path / "references" / "r.py").write_text(
+        f"{line}\n\n\nclass Reference:\n    pass\n")
+    monkeypatch.setattr(spec, "HERE", str(tmp_path))
+    if refused:
+        with pytest.raises(spec.SpecError, match="takes nothing"):
+            spec.reference("r")
+    else:
+        assert spec.reference("r").__name__ == "Reference"

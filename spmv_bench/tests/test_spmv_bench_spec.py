@@ -72,6 +72,7 @@ def test_the_benchmark_file_keeps_the_contract():
     (lambda b: spec.mix("no-such-mix"), "unknown traffic mix"),
     (lambda b: spec.reader("no_such_metric"), "unknown metric"),
     (lambda b: spec.generator("no_such_generator"), "unknown generator"),
+    (lambda b: spec.reference("no_such_reference"), "unknown reference"),
     (lambda b: spec.mix("../configs/hpcg-256"), "bad traffic mix name"),
 ])
 def test_unknown_names_fail_with_a_message(bench, call, message):

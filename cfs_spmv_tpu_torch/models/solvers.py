@@ -14,7 +14,15 @@ iteration (:func:`_iterate`):
   device-side iteration counter that the body advances;
 - the replays run under ``torch.cuda.set_sync_debug_mode("error")``, so a
   host sync inside the loop raises; a capture the card refuses raises
-  too: there is no eager fallback.
+  too: there is no eager fallback on a failure.
+
+An operator that says one graph cannot hold its apply (``capturable``
+False: a ``parallel/dist.DistSpDMV`` whose shards lie on several cards
+of this process, whose copies between cards a capture refuses) is not
+captured: its loop runs the same body eagerly on the card, still under
+the sync debug mode, with the same spans and the same ``_iterate.loop``
+events. The operator decides this before the loop, never a caught
+failure.
 
 One iteration is captured (for ``gmres``, one restart cycle, its Arnoldi
 steps unrolled), not the whole solve: the capture costs one iteration's
@@ -49,7 +57,7 @@ from typing import Callable
 import torch
 
 from ..utils import trace
-from ..utils.timing import as_pure, capture, operator_space
+from ..utils.timing import _tuned, as_pure, capture, operator_space
 
 __all__ = ["cg", "power_iteration", "bicgstab", "gmres", "jacobi", "chebyshev", "lanczos"]
 
@@ -58,8 +66,12 @@ _MODES = ("graph", "eager", "plain")
 
 class _Operator:
     """The operator a solver applies, in its internal space: the pure
-    applier (or, ``plain``, its twins), encode/decode, and the type and
-    device of its vectors (a bare callable's are ``like``'s)."""
+    applier (or, ``plain``, its twins), encode/decode, the type and
+    device of its vectors (a bare callable's are ``like``'s), and how its
+    loop runs on the card: ``graphed`` (captured and replayed) unless the
+    operator's ``capturable`` is False (a ``DistSpDMV`` across several
+    cards), where it runs eagerly; ``sync_free`` either way (a host sync
+    in the loop raises)."""
 
     def __init__(self, matvec: Callable, mode: str, like=None):
         if mode not in _MODES:
@@ -70,7 +82,9 @@ class _Operator:
             self.apply = lambda v: fn(ops, v, plain=True)
         else:
             self.apply = lambda v: fn(ops, v)
-        self.graphed = mode == "graph" and self.device.type == "cuda"
+        self.sync_free = mode == "graph" and self.device.type == "cuda"
+        self.graphed = self.sync_free and getattr(_tuned(matvec),
+                                                  "capturable", True)
 
     def vec(self, v) -> torch.Tensor:
         """``v`` (a tensor or array) as a vector of the operator's type on
@@ -148,8 +162,10 @@ def _iterate(op: _Operator, body: Callable, state: list, iters: int) -> None:
     Graphed: one call is captured after a warm-up call (which builds the
     kernels, and whose effect on ``state`` is undone), then replayed
     ``iters`` times under the sync debug mode; the replays add to the
-    counter ``solve.replays``. ``_iterate.loop`` holds the CUDA events
-    around the last loop on the card and its iteration count."""
+    counter ``solve.replays``. Eager on the card (``op.sync_free`` but not
+    ``op.graphed``): ``iters`` calls under the sync debug mode.
+    ``_iterate.loop`` holds the CUDA events around the last loop on the
+    card (on the current stream) and its iteration count."""
     with trace.span("cfs.solve.setup", step="iterate"):
         k = torch.zeros(1, dtype=torch.int64, device=op.device)
         saved = [t.clone() for t in state] if op.graphed else None
@@ -158,15 +174,16 @@ def _iterate(op: _Operator, body: Callable, state: list, iters: int) -> None:
         body(k)
         k.add_(1)
 
-    run, guard = step, contextlib.nullcontext()
+    run = step
     if op.graphed:
         graph = capture(step, prefix="cfs.solve")
         with trace.span("cfs.solve.restore"):
             for t, s in zip(state, saved):
                 t.copy_(s)
             k.zero_()
-        run, guard = graph.replay, _sync_forbidden()
+        run = graph.replay
         trace.count("solve.replays", iters)
+    guard = _sync_forbidden() if op.sync_free else contextlib.nullcontext()
     with trace.span("cfs.solve.replay", graphed=op.graphed):
         events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
                   if op.device.type == "cuda" else None)

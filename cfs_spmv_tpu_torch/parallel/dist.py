@@ -51,7 +51,21 @@ kernels. Each exchange is one small method (``_gather_x``, ``_halo_x``,
 On a mesh of one card (and on a process-group mesh of one card a rank) an
 apply allocates nothing whose shape depends on x and never waits for the
 card, so ``utils/timing.time_matvec`` and the solvers capture it in a
-CUDA graph, the all-gather included.
+CUDA graph, the all-gather included. Across several cards of one process
+the copies between them cannot be captured (a cross-card copy makes each
+card's stream wait for the other's by events, outside the capture):
+:attr:`DistSpDMV.capturable` is False there, and the solvers run their
+loop eagerly, with no host sync in it (``models/solvers._Operator``).
+
+The steps are the port's spans (``utils/trace``): an apply is
+``cfs.dist.apply`` (``rhs``, ``comm``, ``cards``) over
+``cfs.dist.scatter``, one ``cfs.dist.shard`` a shard (``shard``,
+``device``) with its ``cfs.dist.exchange`` (``comm``) inside, and
+``cfs.dist.gather``; the construction is ``cfs.dist.build`` over
+``cfs.dist.plan`` (the partition, the split and every shard's plans) and
+``cfs.dist.upload`` (while recording, it ends once each card's copies
+have). The counter ``dist.copy_bytes`` adds the bytes each copy between
+two of the mesh's cards moves (scatter, exchanges, gather).
 
 float64 (``dtype=np.float64``, as the reference's; its tests run it with
 x64 on): the plans are built in float64, uploaded as they are, and
@@ -97,6 +111,7 @@ from ..tuning.partition import (
     partition_tiles_by_nnz,
     tile_nnz_histogram,
 )
+from ..utils import trace
 from ..utils.logging import info, warn
 from .mesh import ROWS_AXIS
 
@@ -224,7 +239,19 @@ class DistSpDMV:
         #: this process's shard on a process-group mesh (y is all-gathered);
         #: None where one process drives every shard
         self.rank = mesh.rank if mesh.group is not None else None
+        with trace.span("cfs.dist.build", nrows=csr.nrows, shards=self.ndev):
+            with trace.span("cfs.dist.plan"):
+                self._plan(csr, assign)
+            with trace.span("cfs.dist.upload"):
+                self._place()
+                if trace.is_recording():
+                    for dev in set(self.mesh.row_devices):
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
 
+    def _plan(self, csr: CSR, assign: str) -> None:
+        """The host half: the assignment, the geometry, the partition and
+        every shard's plans."""
         #: locality-aware assignment (METIS analog, tuning/cluster.py):
         #: greedy tile clustering permutes rows so that the contiguous
         #: equal-nnz shards cut fewer edges — shrinking the far stream,
@@ -252,7 +279,6 @@ class DistSpDMV:
             self._init_symmetric(csr)
         else:
             self._init_general(csr)
-        self._place()
 
     # ------------------------------------------------------------------
     def _build_ring_far(self, entries):
@@ -845,9 +871,27 @@ class DistSpDMV:
         global x on its own device."""
         return self.mesh.single_device or self.rank is not None
 
+    @property
+    def capturable(self) -> bool:
+        """Whether one CUDA graph can hold an apply: where the exchanges
+        are views (:attr:`_views`). Across several cards of one process
+        the copies between them make each card's stream wait for the
+        other's, which a capture refuses, so a solver over this operator
+        runs its loop eagerly (``models/solvers._Operator``)."""
+        return self._views
+
+    def _move(self, t, src, dst):
+        """``t``, which lies on the mesh's device ``src``, on its device
+        ``dst``: a copy between two different cards adds its bytes to the
+        counter ``dist.copy_bytes``."""
+        if src != dst:
+            trace.count("dist.copy_bytes", t.nbytes)
+        return t.to(dst)
+
     # --- the exchanges: each returns what shard d's stream reads, on its
     # device; an explicit copy across devices, a view of one buffer where
-    # every shard this process applies is on one device ------------------
+    # every shard this process applies is on one device; each is the span
+    # cfs.dist.exchange ----------------------------------------------------
     def _scatter(self, x):
         """The shards' x segments, each zero past the shard's rows (as
         the reference's ``run`` builds them): on one device one buffer
@@ -866,7 +910,7 @@ class DistSpDMV:
         for dev, (r0, nr) in zip(self.mesh.row_devices, self.real):
             seg = torch.zeros((S,) + tuple(x.shape[1:]), dtype=x.dtype,
                               device=dev)
-            seg[:nr] = x[r0:r0 + nr].to(dev)
+            seg[:nr] = self._move(x[r0:r0 + nr], self.device, dev)
             segs.append(seg)
         return segs
 
@@ -880,7 +924,8 @@ class DistSpDMV:
     def _gather_x(self, x, d):
         """comm="gather": the whole x on shard d's device (the
         all-gather of the segments' real rows is x itself)."""
-        return x.to(self.mesh.row_devices[d])
+        with trace.span("cfs.dist.exchange", comm=self.comm):
+            return self._move(x, self.device, self.mesh.row_devices[d])
 
     def _halo_x(self, segs, d):
         """comm="halo": shard d's window ``[r0 - H, r0 + S + H)`` of x —
@@ -888,19 +933,24 @@ class DistSpDMV:
         of shard d+1 (zeros past the mesh's ends, where the reference's
         ring permute wraps around: only zero slots read them)."""
         S, H = self.shard_rows, self.halo_rows
-        if not isinstance(segs, list):
-            return segs[d * S:d * S + S + 2 * H]
-        dev, seg = self.mesh.row_devices[d], segs[d]
-        edge = seg.new_zeros((H,) + tuple(seg.shape[1:]))
-        left = segs[d - 1][S - H:].to(dev) if d else edge
-        right = segs[d + 1][:H].to(dev) if d + 1 < self.ndev else edge
-        return torch.cat([left, seg, right])
+        with trace.span("cfs.dist.exchange", comm=self.comm):
+            if not isinstance(segs, list):
+                return segs[d * S:d * S + S + 2 * H]
+            devs, seg = self.mesh.row_devices, segs[d]
+            edge = seg.new_zeros((H,) + tuple(seg.shape[1:]))
+            left = (self._move(segs[d - 1][S - H:], devs[d - 1], devs[d])
+                    if d else edge)
+            right = (self._move(segs[d + 1][:H], devs[d + 1], devs[d])
+                     if d + 1 < self.ndev else edge)
+            return torch.cat([left, seg, right])
 
     def _ring_x(self, segs, d, k):
         """comm="ring": step k's x, the segment of shard (d + k) % P, on
         shard d's device."""
-        seg = self._segment(segs, (d + k) % self.ndev)
-        return seg.to(self.mesh.row_devices[d])
+        e = (d + k) % self.ndev
+        devs = self.mesh.row_devices
+        with trace.span("cfs.dist.exchange", comm=self.comm):
+            return self._move(self._segment(segs, e), devs[e], devs[d])
 
     def _all_gather(self, y):
         """The real rows of every rank's (S, ...) ``y``, in row order: one
@@ -966,18 +1016,31 @@ class DistSpDMV:
     def _run(self, shards, x, plain=False):
         """The global y (n, ...) on the mesh's first device from the
         global (internal-space) x there: scatter, every shard's apply,
-        and each shard's rows of y written in order (on a process-group
+        then each shard's rows of y gathered in order (on a process-group
         mesh: this rank's shard, then an all-gather of every shard's
         rows)."""
-        segs = self._scatter(x)
-        apply = self._shard_apply if x.ndim == 1 else self._shard_apply_mm
-        if self.rank is not None:
-            return self._all_gather(
-                apply(shards[self.rank], self.rank, x, segs, plain))
-        return torch.cat([
-            apply(sh, d, x, segs, plain)[:nr].to(self.device)
-            for d, (sh, (_, nr)) in enumerate(zip(shards, self.real))
-        ])
+        devs = self.mesh.row_devices
+        rhs = x.shape[1] if x.ndim == 2 else 1
+        with trace.span("cfs.dist.apply", rhs=rhs, comm=self.comm,
+                        cards=len(set(devs))):
+            with trace.span("cfs.dist.scatter"):
+                segs = self._scatter(x)
+            apply = (self._shard_apply if x.ndim == 1
+                     else self._shard_apply_mm)
+            mine = (range(self.ndev) if self.rank is None
+                    else (self.rank,))
+            ys = []
+            for d in mine:
+                with trace.span("cfs.dist.shard", shard=d,
+                                device=str(devs[d])):
+                    ys.append(apply(shards[d], d, x, segs, plain))
+            with trace.span("cfs.dist.gather"):
+                if self.rank is not None:
+                    return self._all_gather(ys[0])
+                return torch.cat([
+                    self._move(y[:nr], devs[d], self.device)
+                    for d, (y, (_, nr)) in enumerate(zip(ys, self.real))
+                ])
 
     # ------------------------------------------------------------------
     def _as_x(self, x):

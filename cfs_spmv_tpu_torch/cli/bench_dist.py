@@ -16,9 +16,10 @@ defaults to all of them), ``cuda:0`` puts all of a sweep's shards on card
 0 (``--devices 4`` sweeps 1, 2 and 4 shards there, every exchange a view
 of one buffer), and ``cpu`` runs the kernels' plain twins. A mesh on one
 card is timed as ``utils/timing.time_matvec`` times it, one CUDA graph of
-the applies; a mesh over several cards cannot be one graph, so it is
-timed by the eager CUDA-event loop (``time_matvec(graph=False)``) and its
-line says ``timer: eager``.
+the applies; over several cards the operator replays its own graph of an
+apply (``DistSpDMV.capturable`` is False), which a graph of the applies
+cannot nest, so it is timed by the eager CUDA-event loop
+(``time_matvec(graph=False)``) and its line says ``timer: eager``.
 
 ``--weak`` replicates the matrix block-diagonally per shard (weak
 scaling: constant work per shard) instead of splitting it (strong).

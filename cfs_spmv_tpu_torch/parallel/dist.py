@@ -32,12 +32,20 @@ Per shard, as the reference's ``shard_fn``:
   upload, and an empty one launches nothing.
 
 ``matmat`` and a 2-D X run the same branches through the multi-RHS
-kernels. Each exchange is one small method (``_gather_x``, ``_halo_x``,
-``_ring_x``), in one of three forms by the mesh (``parallel/mesh.py``):
+kernels. The exchanges take one of three forms by the mesh
+(``parallel/mesh.py``):
 
 - one process, one device (several shards on one card, the counterpart
-  of the reference's virtual devices): views of one scatter buffer;
-- one process, several devices: explicit ``tensor.to(device)`` copies;
+  of the reference's virtual devices): views of one scatter buffer
+  (``_gather_x``, ``_halo_x``, ``_ring_x``);
+- one process, several devices: copies from the global x on the mesh's
+  first device into buffers that the operator owns on each shard's
+  device (``_Buffers``, allocated once for a key of x's trailing shape
+  and type): each shard's segment or halo window (``[H | segment | H]``,
+  filled straight from x, so no halo waits for a neighbour's kernels),
+  the whole x (``"gather"``) or the other shards' segments (``"ring"``),
+  and each shard's y; every fill is issued before any shard's kernels,
+  and each shard's rows of y are copied back into one output;
 - one process a shard (a process-group mesh, ``parallel/multihost.py``):
   every rank makes the same host decisions and plans (the reference's
   "identical plan on every host") and uploads only its own shard
@@ -52,20 +60,36 @@ On a mesh of one card (and on a process-group mesh of one card a rank) an
 apply allocates nothing whose shape depends on x and never waits for the
 card, so ``utils/timing.time_matvec`` and the solvers capture it in a
 CUDA graph, the all-gather included. Across several cards of one process
-the copies between them cannot be captured (a cross-card copy makes each
-card's stream wait for the other's by events, outside the capture):
+the operator captures its own apply at B = 1, once, at the end of the
+construction (``_capture``): one CUDA graph over every card, the copies
+and each shard's kernels on a stream of their card, over the buffers of
+that key and an input x and gathered y on the first card; the shard
+appliers' temporaries live in the graph's pool on the first card and in a
+pool of the operator's on every other card (``torch.cuda.MemPool``), so a
+replay touches no memory that other code may have taken since. Every
+B = 1 apply there copies x into the graph's input, replays, and returns a
+copy of its y. The multi-RHS apply, the plain twins (``plain=True``) and
+a mesh of CPU devices run the same schedule eagerly over the same
+buffers. A solver cannot nest that graph in its own:
 :attr:`DistSpDMV.capturable` is False there, and the solvers run their
-loop eagerly, with no host sync in it (``models/solvers._Operator``).
+loop eagerly, one replay an apply, with no host sync in it
+(``models/solvers._Operator``).
 
 The steps are the port's spans (``utils/trace``): an apply is
 ``cfs.dist.apply`` (``rhs``, ``comm``, ``cards``) over
 ``cfs.dist.scatter``, one ``cfs.dist.shard`` a shard (``shard``,
-``device``) with its ``cfs.dist.exchange`` (``comm``) inside, and
-``cfs.dist.gather``; the construction is ``cfs.dist.build`` over
-``cfs.dist.plan`` (the partition, the split and every shard's plans) and
+``device``) and ``cfs.dist.gather``, with one ``cfs.dist.exchange``
+(``comm``) a shard inside the scatter across several cards and inside its
+shard on views; a replayed apply is ``cfs.dist.apply`` over one
+``cfs.dist.replay``. The construction is ``cfs.dist.build`` over
+``cfs.dist.plan`` (the partition, the split and every shard's plans),
 ``cfs.dist.upload`` (while recording, it ends once each card's copies
-have). The counter ``dist.copy_bytes`` adds the bytes each copy between
-two of the mesh's cards moves (scatter, exchanges, gather).
+have) and, across several cards, ``cfs.dist.capture`` (the warm-up apply
+and the capture). The counter ``dist.copy_bytes`` adds the bytes each
+copy between two of the mesh's cards moves (scatter, exchanges, gather),
+a replay those of its schedule, reckoned at the capture;
+``dist.graph_captures`` and ``dist.graph_replays`` count the captures and
+the replayed applies.
 
 float64 (``dtype=np.float64``, as the reference's; its tests run it with
 x64 on): the plans are built in float64, uploaded as they are, and
@@ -81,7 +105,9 @@ unpermute (B3/B9), whose wrappers take float32 only, is never reached.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -180,6 +206,44 @@ class ShardDevice:
     ring: list[spmv_ops.Bell2Device] | None
 
 
+@dataclasses.dataclass
+class _Buffers:
+    """What an apply across several cards of one process writes, on each
+    shard's device, allocated once for a key of x's trailing shape and
+    type; every row that no fill writes stays zero."""
+
+    #: shard d's x: its halo window ``[H | segment | H]`` (comm "halo"),
+    #: else its segment (S rows)
+    xs: list
+    #: comm "gather": the whole x on shard d's device (None where x itself
+    #: is read: on the first device, or where the far stream is empty)
+    full: list
+    #: comm "ring": step k's segment, of shard (d + k) % P, on shard d's
+    #: device (k = 0: ``xs[d]``; None where the step's stream is empty)
+    ring: list
+    #: shard d's y, where its parts are summed or zeroed
+    ys: list
+    #: shard d's fills: (destination, a, b), x's rows [a, b) into the
+    #: destination (a view of one of the buffers above)
+    fills: list
+    #: the bytes an apply copies between two different cards
+    moved: int
+    #: the captured key's input x and gathered y, on the first device
+    x: torch.Tensor | None = None
+    y: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class _Graph:
+    """The captured B = 1 apply: the graph, its buffers, and the memory
+    pools of the cards other than the first (the graph's own pool holds
+    the first card's temporaries)."""
+
+    graph: torch.cuda.CUDAGraph
+    bufs: _Buffers
+    pools: list
+
+
 class DistSpDMV:
     """Mesh-parallel SpDMV functor (the multi-device ``SpDMV`` analog).
 
@@ -239,6 +303,10 @@ class DistSpDMV:
         #: this process's shard on a process-group mesh (y is all-gathered);
         #: None where one process drives every shard
         self.rank = mesh.rank if mesh.group is not None else None
+        #: the buffers of an apply across several cards, by key
+        self._bufs: dict = {}
+        #: the captured B = 1 apply (``_Graph``), across several cards
+        self._graph = None
         with trace.span("cfs.dist.build", nrows=csr.nrows, shards=self.ndev):
             with trace.span("cfs.dist.plan"):
                 self._plan(csr, assign)
@@ -248,6 +316,10 @@ class DistSpDMV:
                     for dev in set(self.mesh.row_devices):
                         if dev.type == "cuda":
                             torch.cuda.synchronize(dev)
+            if not self._views and all(dev.type == "cuda"
+                                       for dev in self.mesh.row_devices):
+                with trace.span("cfs.dist.capture"):
+                    self._capture()
 
     def _plan(self, csr: CSR, assign: str) -> None:
         """The host half: the assignment, the geometry, the partition and
@@ -873,59 +945,39 @@ class DistSpDMV:
 
     @property
     def capturable(self) -> bool:
-        """Whether one CUDA graph can hold an apply: where the exchanges
-        are views (:attr:`_views`). Across several cards of one process
-        the copies between them make each card's stream wait for the
-        other's, which a capture refuses, so a solver over this operator
-        runs its loop eagerly (``models/solvers._Operator``)."""
+        """Whether a caller's CUDA graph can hold an apply: where the
+        exchanges are views (:attr:`_views`). Across several cards of one
+        process every B = 1 apply replays the operator's own graph
+        (``_capture``), which a caller's graph cannot nest, so a solver
+        over this operator runs its loop eagerly, one replay an apply
+        (``models/solvers._Operator``)."""
         return self._views
 
-    def _move(self, t, src, dst):
-        """``t``, which lies on the mesh's device ``src``, on its device
-        ``dst``: a copy between two different cards adds its bytes to the
-        counter ``dist.copy_bytes``."""
-        if src != dst:
-            trace.count("dist.copy_bytes", t.nbytes)
-        return t.to(dst)
-
-    # --- the exchanges: each returns what shard d's stream reads, on its
-    # device; an explicit copy across devices, a view of one buffer where
-    # every shard this process applies is on one device; each is the span
-    # cfs.dist.exchange ----------------------------------------------------
+    # --- the exchanges on views: each returns what shard d's stream reads,
+    # a view of one buffer, and is the span cfs.dist.exchange -------------
     def _scatter(self, x):
         """The shards' x segments, each zero past the shard's rows (as
-        the reference's ``run`` builds them): on one device one buffer
+        the reference's ``run`` builds them), in one buffer
         ``[H zeros | segment 0 | ... | segment P-1 | H zeros]``
-        (H = ``halo_rows``), else a list of (S, ...) tensors, one on each
-        shard's device."""
+        (H = ``halo_rows``)."""
         S, H, P = self.shard_rows, self.halo_rows, self.ndev
-        if self._views:
-            buf = x.new_zeros((2 * H + P * S,) + tuple(x.shape[1:]))
-            if self._dst is None:  # the segments lie back to back
-                buf[H:H + self.nrows] = x
-            else:
-                buf.index_copy_(0, self._dst, x)
-            return buf
-        segs = []
-        for dev, (r0, nr) in zip(self.mesh.row_devices, self.real):
-            seg = torch.zeros((S,) + tuple(x.shape[1:]), dtype=x.dtype,
-                              device=dev)
-            seg[:nr] = self._move(x[r0:r0 + nr], self.device, dev)
-            segs.append(seg)
-        return segs
+        buf = x.new_zeros((2 * H + P * S,) + tuple(x.shape[1:]))
+        if self._dst is None:  # the segments lie back to back
+            buf[H:H + self.nrows] = x
+        else:
+            buf.index_copy_(0, self._dst, x)
+        return buf
 
     def _segment(self, segs, d):
         """Shard d's own x segment (S, ...)."""
-        if isinstance(segs, list):
-            return segs[d]
         S, H = self.shard_rows, self.halo_rows
         return segs[H + d * S:H + (d + 1) * S]
 
     def _gather_x(self, x, d):
-        """comm="gather": the whole x on shard d's device (the
-        all-gather of the segments' real rows is x itself)."""
+        """comm="gather": the whole x (the all-gather of the segments'
+        real rows is x itself)."""
         with trace.span("cfs.dist.exchange", comm=self.comm):
-            return self._move(x, self.device, self.mesh.row_devices[d])
+            return x
 
     def _halo_x(self, segs, d):
         """comm="halo": shard d's window ``[r0 - H, r0 + S + H)`` of x —
@@ -934,23 +986,12 @@ class DistSpDMV:
         ring permute wraps around: only zero slots read them)."""
         S, H = self.shard_rows, self.halo_rows
         with trace.span("cfs.dist.exchange", comm=self.comm):
-            if not isinstance(segs, list):
-                return segs[d * S:d * S + S + 2 * H]
-            devs, seg = self.mesh.row_devices, segs[d]
-            edge = seg.new_zeros((H,) + tuple(seg.shape[1:]))
-            left = (self._move(segs[d - 1][S - H:], devs[d - 1], devs[d])
-                    if d else edge)
-            right = (self._move(segs[d + 1][:H], devs[d + 1], devs[d])
-                     if d + 1 < self.ndev else edge)
-            return torch.cat([left, seg, right])
+            return segs[d * S:d * S + S + 2 * H]
 
     def _ring_x(self, segs, d, k):
-        """comm="ring": step k's x, the segment of shard (d + k) % P, on
-        shard d's device."""
-        e = (d + k) % self.ndev
-        devs = self.mesh.row_devices
+        """comm="ring": step k's x, the segment of shard (d + k) % P."""
         with trace.span("cfs.dist.exchange", comm=self.comm):
-            return self._move(self._segment(segs, e), devs[e], devs[d])
+            return self._segment(segs, (d + k) % self.ndev)
 
     def _all_gather(self, y):
         """The real rows of every rank's (S, ...) ``y``, in row order: one
@@ -965,82 +1006,277 @@ class DistSpDMV:
             return out[:self.nrows]
         return torch.index_select(out, 0, self._dst)
 
+    # --- across several cards of one process: buffers the operator owns --
+    def _window(self, d):
+        """Shard d's x as one copy (offset, a, b), x's rows [a, b) into its
+        buffer's rows from ``offset`` (empty where b <= a): comm "halo",
+        its window ``[H | segment | H]``, x's rows ``[d S - H, d S + S +
+        H)`` within x (the halo partition is uniform, so the segments lie
+        back to back, as in :meth:`_halo_x`'s buffer); else its own
+        rows."""
+        r0, nr = self.real[d]
+        if self.comm != "halo":
+            return 0, r0, r0 + nr
+        S, H = self.shard_rows, self.halo_rows
+        a = max(d * S - H, 0)
+        return a - (d * S - H), a, min(d * S + S + H, self.nrows)
+
+    def _buffers(self, x) -> _Buffers:
+        """The buffers of an apply across several cards for x's trailing
+        shape and type, made (zeros) at the first such x."""
+        tail = tuple(x.shape[1:])
+        key = (tail, x.dtype)
+        if key in self._bufs:
+            return self._bufs[key]
+        S, H, P = self.shard_rows, self.halo_rows, self.ndev
+        devs = self.mesh.row_devices
+
+        def zeros(rows, dev):
+            return torch.zeros((rows,) + tail, dtype=x.dtype, device=dev)
+
+        xs, full, ring, fills = [], [], [], []
+        for d, (dev, sh) in enumerate(zip(devs, self.shards)):
+            xd = zeros(S + 2 * H if self.comm == "halo" else S, dev)
+            o, a, b = self._window(d)
+            fd = [(xd[o:o + b - a], a, b)] if b > a else []
+            fu = rd = None
+            if (self.comm == "gather" and sh.far.has_work
+                    and dev != self.device):
+                fu = zeros(self.nrows, dev)
+                fd.append((fu, 0, self.nrows))
+            if self.comm == "ring":
+                rd = [xd] + [None] * (P - 1)
+                for k in range(1, P):
+                    if sh.ring[k].has_work:
+                        e0, ne = self.real[(d + k) % P]
+                        rd[k] = zeros(S, dev)
+                        fd.append((rd[k][:ne], e0, e0 + ne))
+            xs.append(xd)
+            full.append(fu)
+            ring.append(rd)
+            fills.append(fd)
+        row = x.element_size() * math.prod(tail)
+        moved = row * sum(
+            sum(b - a for _, a, b in fd) + nr
+            for dev, fd, (_, nr) in zip(devs, fills, self.real)
+            if dev != self.device)
+        self._bufs[key] = _Buffers(xs, full, ring,
+                                   [zeros(S, dev) for dev in devs], fills,
+                                   moved)
+        return self._bufs[key]
+
+    def _operands(self, x, segs, d):
+        """Shard d's own x segment, ``far(k)``, the x its far stream
+        (ring: step k's) reads, and the tensor its y is written into
+        where y is a sum or zero (None: a new one). On views, ``segs`` is
+        the scatter buffer and each far x an exchange; across several
+        cards, the buffers (``_Buffers``) that the scatter filled."""
+        if not isinstance(segs, _Buffers):
+            x_loc = self._segment(segs, d)
+            if self.comm == "ring":
+                return x_loc, lambda k: self._ring_x(segs, d, k), None
+            if self.comm == "halo":
+                return x_loc, lambda k: self._halo_x(segs, d), None
+            return x_loc, lambda k: self._gather_x(x, d), None
+        xd, out = segs.xs[d], segs.ys[d]
+        if self.comm == "ring":
+            return xd, segs.ring[d].__getitem__, out
+        if self.comm == "halo":
+            S, H = self.shard_rows, self.halo_rows
+            return xd[H:H + S], lambda k: xd, out
+        far = x if segs.full[d] is None else segs.full[d]
+        return xd, lambda k: far, out
+
+    def _across(self, shards, x, bufs, y, plain=False, streams=None):
+        """An apply across several cards over ``bufs``: the scatter (every
+        shard's fills from x, on the first device), every shard's
+        streams, then each shard's rows of y copied into ``y`` there.
+
+        ``streams`` (the capture): each card's stream, and for each other
+        card a stream of the first card that holds the copies to and from
+        it (a copy between two cards runs on its source card's current
+        stream and orders both cards' current streams around itself), so
+        that no copy waits for another card's kernels; None: the current
+        streams."""
+        devs = self.mesh.row_devices
+        apply = self._shard_apply if x.ndim == 1 else self._shard_apply_mm
+
+        def beside(dev):
+            if streams is None or dev == self.device:
+                return contextlib.nullcontext()
+            return torch.cuda.stream(streams[1][dev])
+
+        with contextlib.ExitStack() as current:
+            for s in streams[0].values() if streams else ():
+                current.enter_context(torch.cuda.stream(s))
+            with trace.span("cfs.dist.scatter"):
+                for dev, fills in zip(devs, bufs.fills):
+                    with trace.span("cfs.dist.exchange", comm=self.comm), \
+                            beside(dev):
+                        for dst, a, b in fills:
+                            dst.copy_(x[a:b])
+            ys = []
+            for d, sh in enumerate(shards):
+                with trace.span("cfs.dist.shard", shard=d,
+                                device=str(devs[d])):
+                    ys.append(apply(sh, d, x, bufs, plain))
+            with trace.span("cfs.dist.gather"):
+                for dev, yd, (r0, nr) in zip(devs, ys, self.real):
+                    if nr:
+                        with beside(dev):
+                            y[r0:r0 + nr].copy_(yd[:nr])
+
+    def _capture(self):
+        """The B = 1 apply across the mesh's cards as one CUDA graph
+        (``_Graph``), captured after one eager apply over the same
+        buffers (which builds and loads every kernel): each card's stream
+        and each other card's stream of the first card (``_across``) are
+        forked from the capturing stream and joined to it at the end. The
+        temporaries of the shards on the first card go to the graph's
+        pool, those on another card to a pool of the operator's there
+        (``torch.cuda.MemPool``), held as long as the graph. A capture
+        that the cards refuse raises."""
+        first = self.device
+        cards = list(dict.fromkeys(self.mesh.row_devices))
+        x = torch.zeros(self.nrows, dtype=self.dtype, device=first)
+        bufs = self._buffers(x)
+        bufs.x, bufs.y = x, torch.empty_like(x)
+        self._across(self.shards, bufs.x, bufs, bufs.y)
+        for card in cards:
+            torch.cuda.synchronize(card)
+        streams = ({c: torch.cuda.Stream(c) for c in cards},
+                   {c: torch.cuda.Stream(first) for c in cards if c != first})
+        forked = [*streams[0].values(), *streams[1].values()]
+        pools = {}
+        for c in cards[1:]:
+            with torch.cuda.device(c):
+                pools[c] = torch.cuda.MemPool()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with contextlib.ExitStack() as stack:
+                for c, pool in pools.items():
+                    stack.enter_context(torch.cuda.use_mem_pool(pool, c))
+                stack.enter_context(torch.cuda.device(first))
+                stack.enter_context(torch.cuda.graph(
+                    graph, stream=torch.cuda.Stream(first)))
+                capturing = torch.cuda.current_stream()
+                for s in forked:
+                    s.wait_stream(capturing)
+                self._across(self.shards, bufs.x, bufs, bufs.y,
+                             streams=streams)
+                for s in forked:
+                    capturing.wait_stream(s)
+        except RuntimeError as err:
+            raise RuntimeError(
+                f"CUDA graph capture across cards failed: {err}") from err
+        self._graph = _Graph(graph, bufs, list(pools.values()))
+        trace.count("dist.graph_captures", 1)
+
+    def _replay(self, x):
+        """x into the graph's input, one replay, and a copy of its y."""
+        g = self._graph
+        g.bufs.x.copy_(x)
+        g.graph.replay()
+        trace.count("dist.copy_bytes", g.bufs.moved)
+        trace.count("dist.graph_replays", 1)
+        return g.bufs.y.clone()
+
     # ------------------------------------------------------------------
+    @staticmethod
+    def _sum(y, yf, out):
+        """y + yf, into ``out`` where given."""
+        return y + yf if out is None else torch.add(y, yf, out=out)
+
+    def _zero(self, like, out):
+        """A shard's zero y (S, ...): ``out`` zeroed where given."""
+        if out is not None:
+            return out.zero_()
+        return like.new_zeros((self.shard_rows,) + tuple(like.shape[1:]))
+
     def _shard_apply(self, sh, d, x, segs, plain):
-        """Shard d's y (S,) from the global x and the segments."""
+        """Shard d's y (S,) from the global x and the segments: its near
+        streams over its own segment, its far stream over the x that
+        ``_operands`` names."""
         f = spmv_ops._kernels(plain, self.dtype)
-        x_loc = self._segment(segs, d)
+        x_loc, far, out = self._operands(x, segs, d)
         y = (None if sh.near is None
              else spmv_ops.sbell_apply(sh.near, x_loc, plain=plain))
         if self.comm == "ring":
-            tiles = (y.view(-1, LANES) if y is not None else
-                     x_loc.new_zeros((self.shard_rows // LANES, LANES)))
+            tiles = (y if y is not None else self._zero(x_loc, out))
+            tiles = tiles.view(-1, LANES)
             for k, st in enumerate(sh.ring):
                 if st.has_work:
                     # the segment is whole tiles of 128: the entries read
                     # it in place
-                    f["bell2_acc"](st.entries,
-                                   self._ring_x(segs, d, k).view(-1, LANES),
-                                   tiles)
+                    f["bell2_acc"](st.entries, far(k).view(-1, LANES), tiles)
             return tiles.view(-1)
         if sh.far.has_work:
-            xo = (self._halo_x(segs, d) if self.comm == "halo"
-                  else self._gather_x(x, d))
-            yf = spmv_ops.bell2_apply(sh.far, xo, plain=plain)
-            y = yf if y is None else y + yf
-        return y if y is not None else x_loc.new_zeros(self.shard_rows)
+            yf = spmv_ops.bell2_apply(sh.far, far(None), plain=plain)
+            y = yf if y is None else self._sum(y, yf, out)
+        return y if y is not None else self._zero(x_loc, out)
 
     def _shard_apply_mm(self, sh, d, x, segs, plain):
         """Shard d's Y (S, B), as :meth:`_shard_apply` over B columns."""
         f = spmv_ops._kernels(plain, self.dtype)
-        x_loc = self._segment(segs, d)
-        B = x.shape[1]
+        x_loc, far, out = self._operands(x, segs, d)
+        B = x_loc.shape[1]
         y = (None if sh.near is None
              else spmv_ops.sbell_apply_mm(sh.near, x_loc, plain=plain))
+        yf = None
         if self.comm == "ring":
             T = self.shard_rows // LANES
             tiles = x_loc.new_zeros((B, T, LANES))
             for k, st in enumerate(sh.ring):
                 if st.has_work:
-                    x3d = spmv_ops.pad_x_mm(self._ring_x(segs, d, k), T)
+                    x3d = spmv_ops.pad_x_mm(far(k), T)
                     f["bell2_acc_mm"](st.entries, x3d, tiles)
-            yr = tiles.view(B, -1).T
-            return yr if y is None else y + yr
-        if sh.far.has_work:
-            xo = (self._halo_x(segs, d) if self.comm == "halo"
-                  else self._gather_x(x, d))
-            yf = spmv_ops.bell2_apply_mm(sh.far, xo, plain=plain)
-            y = yf if y is None else y + yf
-        return y if y is not None else x_loc.new_zeros((self.shard_rows, B))
+            yf = tiles.view(B, -1).T
+        elif sh.far.has_work:
+            yf = spmv_ops.bell2_apply_mm(sh.far, far(None), plain=plain)
+        if yf is None:
+            return y if y is not None else self._zero(x_loc, out)
+        return yf if y is None else self._sum(y, yf, out)
 
     def _run(self, shards, x, plain=False):
         """The global y (n, ...) on the mesh's first device from the
-        global (internal-space) x there: scatter, every shard's apply,
-        then each shard's rows of y gathered in order (on a process-group
-        mesh: this rank's shard, then an all-gather of every shard's
-        rows)."""
+        global (internal-space) x there: on views, the scatter, every
+        shard's apply, then each shard's rows of y gathered in order (on a
+        process-group mesh: this rank's shard, then an all-gather of every
+        shard's rows); across several cards, a replay of the captured
+        apply where x is its key, else the same steps over the buffers
+        (``_across``)."""
         devs = self.mesh.row_devices
         rhs = x.shape[1] if x.ndim == 2 else 1
         with trace.span("cfs.dist.apply", rhs=rhs, comm=self.comm,
                         cards=len(set(devs))):
-            with trace.span("cfs.dist.scatter"):
-                segs = self._scatter(x)
-            apply = (self._shard_apply if x.ndim == 1
-                     else self._shard_apply_mm)
-            mine = (range(self.ndev) if self.rank is None
-                    else (self.rank,))
-            ys = []
-            for d in mine:
-                with trace.span("cfs.dist.shard", shard=d,
-                                device=str(devs[d])):
-                    ys.append(apply(shards[d], d, x, segs, plain))
-            with trace.span("cfs.dist.gather"):
-                if self.rank is not None:
-                    return self._all_gather(ys[0])
-                return torch.cat([
-                    self._move(y[:nr], devs[d], self.device)
-                    for d, (y, (_, nr)) in enumerate(zip(ys, self.real))
-                ])
+            if self._views:
+                return self._run_views(shards, x, plain)
+            g = self._graph
+            if (g is not None and not plain and x.shape == g.bufs.x.shape
+                    and x.dtype == g.bufs.x.dtype):
+                with trace.span("cfs.dist.replay"):
+                    return self._replay(x)
+            bufs = self._buffers(x)
+            y = x.new_empty(x.shape)
+            self._across(shards, x, bufs, y, plain)
+            trace.count("dist.copy_bytes", bufs.moved)
+            return y
+
+    def _run_views(self, shards, x, plain):
+        """:meth:`_run` on views."""
+        with trace.span("cfs.dist.scatter"):
+            segs = self._scatter(x)
+        apply = self._shard_apply if x.ndim == 1 else self._shard_apply_mm
+        mine = range(self.ndev) if self.rank is None else (self.rank,)
+        ys = []
+        for d in mine:
+            with trace.span("cfs.dist.shard", shard=d,
+                            device=str(self.mesh.row_devices[d])):
+                ys.append(apply(shards[d], d, x, segs, plain))
+        with trace.span("cfs.dist.gather"):
+            if self.rank is not None:
+                return self._all_gather(ys[0])
+            return torch.cat([y[:nr] for y, (_, nr) in zip(ys, self.real)])
 
     # ------------------------------------------------------------------
     def _as_x(self, x):

@@ -586,18 +586,19 @@ def test_cli_bench_dist(extra, capsys, tmp_path):
                                   "ring_dia_p8", "spmm_ring_p8",
                                   "uneven_p8"])
 def test_exchanges_across_devices(case, monkeypatch):
-    """The exchanges of a mesh over distinct devices (per-shard segments,
-    the halo window concatenated from the neighbours' rows, ``.to``
-    copies), run on the CPU by declaring its mesh multi-device: the same
-    y bit for bit as the one-device views."""
+    """The exchanges of a mesh over distinct devices (each shard's
+    segment or halo window, its far x and its y in buffers on its device,
+    filled by copies from x), run on the CPU by declaring its mesh
+    multi-device: the same y bit for bit as the one-device views."""
     from cfs_spmv_tpu_torch.parallel.mesh import Mesh
 
     _, port, csr = build(case, monkeypatch)
     x = inputs(csr, CASES[case][4])
     y_views = port(x)
     monkeypatch.setattr(Mesh, "single_device", property(lambda self: False))
-    assert isinstance(port._scatter(torch.from_numpy(x)), list)
+    assert not port._views
     assert torch.equal(port(x), y_views)
+    assert port._bufs
 
 
 def test_cli_bench_dist_eager_timer(capsys, monkeypatch):

@@ -98,8 +98,9 @@ def test_solvers_across_cards_are_bit_identical_to_the_views(
     run = getattr(solvers, solver)
     views = run(op, b, **kw)
     _across_cards(monkeypatch)
-    assert isinstance(op._scatter(b), list)
+    assert not op._views
     cards = run(op, b, **kw)
+    assert op._bufs
     for a, c in zip(views, cards):
         assert torch.equal(a, c)
 
@@ -129,10 +130,12 @@ def test_an_apply_is_one_root_over_its_steps(mat, rhs):
     assert [(s.attrs["shard"], s.attrs["device"]) for s in shards] == [
         (d, f"cpu:{d}") for d in range(4)]
     exchanges = [s for s in under if s.name == "cfs.dist.exchange"]
-    assert len(exchanges) == 4  # every shard's far stream reads the halo
+    assert len(exchanges) == 4  # every shard's halo window is filled
     assert {s.attrs["comm"] for s in exchanges} == {"halo"}
     by_id = {s.id: s for s in rec.spans}
-    assert {by_id[s.parent].name for s in exchanges} == {"cfs.dist.shard"}
+    # across cards every window is filled by the scatter, before any
+    # shard's kernels
+    assert {by_id[s.parent].name for s in exchanges} == {"cfs.dist.scatter"}
     assert torch.equal(y, _dist(mat)(x))  # the steps change no answer
 
 
@@ -148,9 +151,10 @@ def test_the_construction_is_one_root_over_plan_and_upload(mat):
 @pytest.mark.parametrize("rhs", [1, 2])
 def test_copy_bytes_are_the_hand_count(mat, rhs):
     """Across four cards with the halo exchange, an apply copies shards
-    1-3's x segments out (1,024 rows each), each shard's neighbours'
-    256-row halos in (6 of them: one z-plane each) and shards 1-3's y
-    rows back, in float64 x ``rhs``."""
+    1-3's x segments out (1,024 rows each), their neighbours' 256-row
+    halos with them (5 of them: one z-plane each; shard 0's right halo
+    is filled on card 0, from x) and shards 1-3's y rows back, in float64
+    x ``rhs``."""
     op = _dist(mat, CARDS)
     assert op.shard_rows == 1024 and op.halo_rows == 256
     assert op.real == [(0, 1024), (1024, 1024), (2048, 1024), (3072, 1024)]
@@ -158,11 +162,11 @@ def test_copy_bytes_are_the_hand_count(mat, rhs):
                    dtype=torch.float64)
     _, rec = _recorded(lambda: op(x))
     assert rec.counters["dist.copy_bytes"] == (
-        (3 * 1024 + 6 * 256 + 3 * 1024) * 8 * rhs)
+        (3 * 1024 + 5 * 256 + 3 * 1024) * 8 * rhs)
     # a CG solve applies the operator once a iteration and once for its
     # first residual
     _, rec = _recorded(lambda: solvers.cg(op, _b(mat), iters=4))
-    assert rec.counters["dist.copy_bytes"] == 5 * (3 * 1024 + 6 * 256
+    assert rec.counters["dist.copy_bytes"] == 5 * (3 * 1024 + 5 * 256
                                                    + 3 * 1024) * 8
 
 

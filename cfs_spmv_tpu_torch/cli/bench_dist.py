@@ -13,8 +13,8 @@ Usage: python -m cfs_spmv_tpu_torch.cli.bench_dist <file.mtx | --gen NAME>
 ``--device`` (default ``cuda``) names where the shards live:
 ``cuda`` puts one shard on each of the node's cards (``--devices``
 defaults to all of them), ``cuda:0`` puts all of a sweep's shards on card
-0 (``--devices 4`` sweeps 1, 2 and 4 shards there, every exchange a view
-of one buffer), and ``cpu`` runs the kernels' plain twins. A mesh on one
+0 (``--devices 4`` sweeps 1, 2 and 4 shards there, every exchange a copy
+within the card), and ``cpu`` runs the kernels' plain twins. A mesh on one
 card is timed as ``utils/timing.time_matvec`` times it, one CUDA graph of
 the applies; over several cards the operator replays its own graph of an
 apply (``DistSpDMV.capturable`` is False), which a graph of the applies
@@ -121,12 +121,12 @@ def main(argv: list[str] | None = None) -> int:
     while ndev <= ndev_max:
         csr = _block_diag_replicate(A.csr, ndev) if weak else A.csr
         mesh = make_mesh(ndev, device=device)
-        graphed = mesh.single_device
         t0 = time.perf_counter()
         dsp = DistSpDMV(csr, mesh)
         if dsp.device.type == "cuda":
             torch.cuda.synchronize()
         preproc = time.perf_counter() - t0
+        graphed = dsp.capturable
         x = np.random.default_rng(0).uniform(
             0.01, 0.42, csr.ncols
         ).astype(np.float32)

@@ -32,55 +32,56 @@ Per shard, as the reference's ``shard_fn``:
   upload, and an empty one launches nothing.
 
 ``matmat`` and a 2-D X run the same branches through the multi-RHS
-kernels. The exchanges take one of three forms by the mesh
-(``parallel/mesh.py``):
+kernels. Every mesh (``parallel/mesh.py``) exchanges x in one form:
+buffers that the operator owns on each shard's device (``_Buffers``),
+made at the first apply of a key of x's trailing shape and type and
+filled by copies from the global x on the mesh's first device: each
+shard's segment or halo window (``[H | segment | H]``, filled straight
+from x, so no halo waits for a neighbour's kernels), the whole x
+(``"gather"``, on a device other than x's) or the other shards' segments
+(``"ring"``), and each shard's y. Every fill is issued before any shard's
+kernels (``_across``). The meshes differ in where the buffers lie and
+where y goes:
 
 - one process, one device (several shards on one card, the counterpart
-  of the reference's virtual devices): views of one scatter buffer
-  (``_gather_x``, ``_halo_x``, ``_ring_x``);
-- one process, several devices: copies from the global x on the mesh's
-  first device into buffers that the operator owns on each shard's
-  device (``_Buffers``, allocated once for a key of x's trailing shape
-  and type): each shard's segment or halo window (``[H | segment | H]``,
-  filled straight from x, so no halo waits for a neighbour's kernels),
-  the whole x (``"gather"``) or the other shards' segments (``"ring"``),
-  and each shard's y; every fill is issued before any shard's kernels,
-  and each shard's rows of y are copied back into one output;
+  of the reference's virtual devices): every shard's buffers on that
+  device; each shard's rows of y are copied into one output;
+- one process, several devices: each shard's buffers on its device, and
+  its rows of y copied back into one output on the first;
 - one process a shard (a process-group mesh, ``parallel/multihost.py``):
   every rank makes the same host decisions and plans (the reference's
-  "identical plan on every host") and uploads only its own shard
-  (``shards[d]`` is None for the others). Every rank is given the global
-  x, so its x exchanges are the one-device views on its own device, and
-  the one collective is y's: an all-gather of every shard's real rows, so
+  "identical plan on every host"), uploads only its own shard
+  (``shards[d]`` is None for the others) and holds buffers for it alone,
+  filled from the global x that every rank is given on its own device.
+  The one collective is y's: an all-gather of every shard's real rows, so
   every rank returns the whole y, as the single-process operator does.
   (Exchanging x segments by collectives would only move rows every rank
   already holds; an x that is not global on every rank is not ported.)
 
 On a mesh of one card (and on a process-group mesh of one card a rank) an
-apply allocates nothing whose shape depends on x and never waits for the
-card, so ``utils/timing.time_matvec`` and the solvers capture it in a
-CUDA graph, the all-gather included. Across several cards of one process
-the operator captures its own apply at B = 1, once, at the end of the
-construction (``_capture``): one CUDA graph over every card, the copies
-and each shard's kernels on a stream of their card, over the buffers of
-that key and an input x and gathered y on the first card; the shard
-appliers' temporaries live in the graph's pool on the first card and in a
-pool of the operator's on every other card (``torch.cuda.MemPool``), so a
-replay touches no memory that other code may have taken since. Every
-B = 1 apply there copies x into the graph's input, replays, and returns a
-copy of its y. The multi-RHS apply, the plain twins (``plain=True``) and
-a mesh of CPU devices run the same schedule eagerly over the same
-buffers. A solver cannot nest that graph in its own:
-:attr:`DistSpDMV.capturable` is False there, and the solvers run their
-loop eagerly, one replay an apply, with no host sync in it
+apply never waits for the card, so ``utils/timing.time_matvec`` and the
+solvers capture it in a CUDA graph, the all-gather included; their eager
+warm-up makes the buffers before the capture. Across several cards of one
+process the operator captures its own apply at B = 1, once, at the end of
+the construction (``_capture``): one CUDA graph over every card, the
+copies and each shard's kernels on a stream of their card, over the
+buffers of that key and an input x and gathered y on the first card; the
+shard appliers' temporaries live in the graph's pool on the first card
+and in a pool of the operator's on every other card
+(``torch.cuda.MemPool``), so a replay touches no memory that other code
+may have taken since. Every B = 1 apply there copies x into the graph's
+input, replays, and returns a copy of its y. The multi-RHS apply, the
+plain twins (``plain=True``) and a mesh of CPU devices run the same
+schedule eagerly over the same buffers. A solver cannot nest that graph
+in its own: :attr:`DistSpDMV.capturable` is False there, and the solvers
+run their loop eagerly, one replay an apply, with no host sync in it
 (``models/solvers._Operator``).
 
 The steps are the port's spans (``utils/trace``): an apply is
 ``cfs.dist.apply`` (``rhs``, ``comm``, ``cards``) over
-``cfs.dist.scatter``, one ``cfs.dist.shard`` a shard (``shard``,
-``device``) and ``cfs.dist.gather``, with one ``cfs.dist.exchange``
-(``comm``) a shard inside the scatter across several cards and inside its
-shard on views; a replayed apply is ``cfs.dist.apply`` over one
+``cfs.dist.scatter`` (one ``cfs.dist.exchange``, ``comm``, a shard), one
+``cfs.dist.shard`` a shard (``shard``, ``device``) and
+``cfs.dist.gather``; a replayed apply is ``cfs.dist.apply`` over one
 ``cfs.dist.replay``. The construction is ``cfs.dist.build`` over
 ``cfs.dist.plan`` (the partition, the split and every shard's plans),
 ``cfs.dist.upload`` (while recording, it ends once each card's copies
@@ -208,9 +209,10 @@ class ShardDevice:
 
 @dataclasses.dataclass
 class _Buffers:
-    """What an apply across several cards of one process writes, on each
-    shard's device, allocated once for a key of x's trailing shape and
-    type; every row that no fill writes stays zero."""
+    """What an apply writes, on each shard's device, allocated once for a
+    key of x's trailing shape and type; every row that no fill writes
+    stays zero. On a process-group mesh only this rank's shard has them
+    (None, and no fills, for the others)."""
 
     #: shard d's x: its halo window ``[H | segment | H]`` (comm "halo"),
     #: else its segment (S rows)
@@ -303,7 +305,7 @@ class DistSpDMV:
         #: this process's shard on a process-group mesh (y is all-gathered);
         #: None where one process drives every shard
         self.rank = mesh.rank if mesh.group is not None else None
-        #: the buffers of an apply across several cards, by key
+        #: the buffers of an apply (``_Buffers``), by key
         self._bufs: dict = {}
         #: the captured B = 1 apply (``_Graph``), across several cards
         self._graph = None
@@ -316,8 +318,8 @@ class DistSpDMV:
                     for dev in set(self.mesh.row_devices):
                         if dev.type == "cuda":
                             torch.cuda.synchronize(dev)
-            if not self._views and all(dev.type == "cuda"
-                                       for dev in self.mesh.row_devices):
+            if not self.capturable and all(
+                    dev.type == "cuda" for dev in self.mesh.row_devices):
                 with trace.span("cfs.dist.capture"):
                     self._capture()
 
@@ -925,73 +927,30 @@ class DistSpDMV:
                 for p in (self.perm, self._iperm))
         S = self.shard_rows
         self._dst = None
-        if self._views and any(
+        if self.rank is not None and any(
                 nr and r0 != d * S for d, (r0, nr) in enumerate(self.real)):
-            # the position of each x (and y) row in the segments laid back
-            # to back, where they do not lie so (an uneven partition; never
-            # halo's): the scatter's target, and on a process-group mesh
-            # the gathered rows of y
+            # on a process-group mesh, the position of each row of y in the
+            # all-gathered shards, where they do not lie back to back (an
+            # uneven partition; never halo's)
             self._dst = torch.cat([
                 torch.arange(nr) + d * S
                 for d, (_, nr) in enumerate(self.real)
             ]).to(self.device)
 
     @property
-    def _views(self) -> bool:
-        """The exchanges are views of one scatter buffer: every shard on
-        one device, or a process-group mesh, where every rank holds the
-        global x on its own device."""
-        return self.mesh.single_device or self.rank is not None
+    def _mine(self):
+        """The shards this process applies: every one, or on a
+        process-group mesh its rank's."""
+        return range(self.ndev) if self.rank is None else (self.rank,)
 
     @property
     def capturable(self) -> bool:
-        """Whether a caller's CUDA graph can hold an apply: where the
-        exchanges are views (:attr:`_views`). Across several cards of one
-        process every B = 1 apply replays the operator's own graph
-        (``_capture``), which a caller's graph cannot nest, so a solver
-        over this operator runs its loop eagerly, one replay an apply
-        (``models/solvers._Operator``)."""
-        return self._views
-
-    # --- the exchanges on views: each returns what shard d's stream reads,
-    # a view of one buffer, and is the span cfs.dist.exchange -------------
-    def _scatter(self, x):
-        """The shards' x segments, each zero past the shard's rows (as
-        the reference's ``run`` builds them), in one buffer
-        ``[H zeros | segment 0 | ... | segment P-1 | H zeros]``
-        (H = ``halo_rows``)."""
-        S, H, P = self.shard_rows, self.halo_rows, self.ndev
-        buf = x.new_zeros((2 * H + P * S,) + tuple(x.shape[1:]))
-        if self._dst is None:  # the segments lie back to back
-            buf[H:H + self.nrows] = x
-        else:
-            buf.index_copy_(0, self._dst, x)
-        return buf
-
-    def _segment(self, segs, d):
-        """Shard d's own x segment (S, ...)."""
-        S, H = self.shard_rows, self.halo_rows
-        return segs[H + d * S:H + (d + 1) * S]
-
-    def _gather_x(self, x, d):
-        """comm="gather": the whole x (the all-gather of the segments'
-        real rows is x itself)."""
-        with trace.span("cfs.dist.exchange", comm=self.comm):
-            return x
-
-    def _halo_x(self, segs, d):
-        """comm="halo": shard d's window ``[r0 - H, r0 + S + H)`` of x —
-        its segment between the last H rows of shard d-1 and the first H
-        of shard d+1 (zeros past the mesh's ends, where the reference's
-        ring permute wraps around: only zero slots read them)."""
-        S, H = self.shard_rows, self.halo_rows
-        with trace.span("cfs.dist.exchange", comm=self.comm):
-            return segs[d * S:d * S + S + 2 * H]
-
-    def _ring_x(self, segs, d, k):
-        """comm="ring": step k's x, the segment of shard (d + k) % P."""
-        with trace.span("cfs.dist.exchange", comm=self.comm):
-            return self._segment(segs, (d + k) % self.ndev)
+        """Whether a caller's CUDA graph can hold an apply: everywhere but
+        across several cards of one process, where every B = 1 apply
+        replays the operator's own graph (``_capture``), which a caller's
+        graph cannot nest, so a solver over this operator runs its loop
+        eagerly, one replay an apply (``models/solvers._Operator``)."""
+        return self.rank is not None or self.mesh.single_device
 
     def _all_gather(self, y):
         """The real rows of every rank's (S, ...) ``y``, in row order: one
@@ -1006,14 +965,13 @@ class DistSpDMV:
             return out[:self.nrows]
         return torch.index_select(out, 0, self._dst)
 
-    # --- across several cards of one process: buffers the operator owns --
+    # --- the buffers the operator owns ----------------------------------
     def _window(self, d):
         """Shard d's x as one copy (offset, a, b), x's rows [a, b) into its
         buffer's rows from ``offset`` (empty where b <= a): comm "halo",
         its window ``[H | segment | H]``, x's rows ``[d S - H, d S + S +
         H)`` within x (the halo partition is uniform, so the segments lie
-        back to back, as in :meth:`_halo_x`'s buffer); else its own
-        rows."""
+        back to back); else its own rows."""
         r0, nr = self.real[d]
         if self.comm != "halo":
             return 0, r0, r0 + nr
@@ -1022,8 +980,8 @@ class DistSpDMV:
         return a - (d * S - H), a, min(d * S + S + H, self.nrows)
 
     def _buffers(self, x) -> _Buffers:
-        """The buffers of an apply across several cards for x's trailing
-        shape and type, made (zeros) at the first such x."""
+        """The buffers of an apply for x's trailing shape and type, made
+        (zeros) at the first such x."""
         tail = tuple(x.shape[1:])
         key = (tail, x.dtype)
         if key in self._bufs:
@@ -1034,63 +992,50 @@ class DistSpDMV:
         def zeros(rows, dev):
             return torch.zeros((rows,) + tail, dtype=x.dtype, device=dev)
 
-        xs, full, ring, fills = [], [], [], []
-        for d, (dev, sh) in enumerate(zip(devs, self.shards)):
+        xs, full, ring, ys, fills = ([None] * P for _ in range(5))
+        for d in self._mine:
+            dev, sh = devs[d], self.shards[d]
             xd = zeros(S + 2 * H if self.comm == "halo" else S, dev)
             o, a, b = self._window(d)
             fd = [(xd[o:o + b - a], a, b)] if b > a else []
-            fu = rd = None
             if (self.comm == "gather" and sh.far.has_work
                     and dev != self.device):
-                fu = zeros(self.nrows, dev)
-                fd.append((fu, 0, self.nrows))
+                full[d] = zeros(self.nrows, dev)
+                fd.append((full[d], 0, self.nrows))
             if self.comm == "ring":
-                rd = [xd] + [None] * (P - 1)
+                ring[d] = [xd] + [None] * (P - 1)
                 for k in range(1, P):
                     if sh.ring[k].has_work:
                         e0, ne = self.real[(d + k) % P]
-                        rd[k] = zeros(S, dev)
-                        fd.append((rd[k][:ne], e0, e0 + ne))
-            xs.append(xd)
-            full.append(fu)
-            ring.append(rd)
-            fills.append(fd)
+                        ring[d][k] = zeros(S, dev)
+                        fd.append((ring[d][k][:ne], e0, e0 + ne))
+            xs[d], ys[d], fills[d] = xd, zeros(S, dev), fd
         row = x.element_size() * math.prod(tail)
         moved = row * sum(
-            sum(b - a for _, a, b in fd) + nr
-            for dev, fd, (_, nr) in zip(devs, fills, self.real)
-            if dev != self.device)
-        self._bufs[key] = _Buffers(xs, full, ring,
-                                   [zeros(S, dev) for dev in devs], fills,
-                                   moved)
+            sum(b - a for _, a, b in fills[d]) + self.real[d][1]
+            for d in self._mine if devs[d] != self.device)
+        self._bufs[key] = _Buffers(xs, full, ring, ys, fills, moved)
         return self._bufs[key]
 
-    def _operands(self, x, segs, d):
+    def _operands(self, x, bufs, d):
         """Shard d's own x segment, ``far(k)``, the x its far stream
         (ring: step k's) reads, and the tensor its y is written into
-        where y is a sum or zero (None: a new one). On views, ``segs`` is
-        the scatter buffer and each far x an exchange; across several
-        cards, the buffers (``_Buffers``) that the scatter filled."""
-        if not isinstance(segs, _Buffers):
-            x_loc = self._segment(segs, d)
-            if self.comm == "ring":
-                return x_loc, lambda k: self._ring_x(segs, d, k), None
-            if self.comm == "halo":
-                return x_loc, lambda k: self._halo_x(segs, d), None
-            return x_loc, lambda k: self._gather_x(x, d), None
-        xd, out = segs.xs[d], segs.ys[d]
+        where y is a sum or zero, from the buffers (``_Buffers``) that the
+        scatter filled."""
+        xd, out = bufs.xs[d], bufs.ys[d]
         if self.comm == "ring":
-            return xd, segs.ring[d].__getitem__, out
+            return xd, bufs.ring[d].__getitem__, out
         if self.comm == "halo":
             S, H = self.shard_rows, self.halo_rows
             return xd[H:H + S], lambda k: xd, out
-        far = x if segs.full[d] is None else segs.full[d]
+        far = x if bufs.full[d] is None else bufs.full[d]
         return xd, lambda k: far, out
 
-    def _across(self, shards, x, bufs, y, plain=False, streams=None):
-        """An apply across several cards over ``bufs``: the scatter (every
-        shard's fills from x, on the first device), every shard's
-        streams, then each shard's rows of y copied into ``y`` there.
+    def _across(self, shards, x, bufs, y=None, plain=False, streams=None):
+        """An apply over ``bufs``: the scatter (each shard's fills from x,
+        on the first device), each shard's streams, then each shard's rows
+        of y copied into ``y`` there (None: a new one), or on a
+        process-group mesh the all-gather of every rank's rows. Returns y.
 
         ``streams`` (the capture): each card's stream, and for each other
         card a stream of the first card that holds the copies to and from
@@ -1110,21 +1055,26 @@ class DistSpDMV:
             for s in streams[0].values() if streams else ():
                 current.enter_context(torch.cuda.stream(s))
             with trace.span("cfs.dist.scatter"):
-                for dev, fills in zip(devs, bufs.fills):
+                for d in self._mine:
                     with trace.span("cfs.dist.exchange", comm=self.comm), \
-                            beside(dev):
-                        for dst, a, b in fills:
+                            beside(devs[d]):
+                        for dst, a, b in bufs.fills[d]:
                             dst.copy_(x[a:b])
-            ys = []
-            for d, sh in enumerate(shards):
+            ys = {}
+            for d in self._mine:
                 with trace.span("cfs.dist.shard", shard=d,
                                 device=str(devs[d])):
-                    ys.append(apply(sh, d, x, bufs, plain))
+                    ys[d] = apply(shards[d], d, x, bufs, plain)
             with trace.span("cfs.dist.gather"):
-                for dev, yd, (r0, nr) in zip(devs, ys, self.real):
+                if self.rank is not None:
+                    return self._all_gather(ys[self.rank])
+                y = x.new_empty(x.shape) if y is None else y
+                for d, yd in ys.items():
+                    r0, nr = self.real[d]
                     if nr:
-                        with beside(dev):
+                        with beside(devs[d]):
                             y[r0:r0 + nr].copy_(yd[:nr])
+                return y
 
     def _capture(self):
         """The B = 1 apply across the mesh's cards as one CUDA graph
@@ -1182,28 +1132,16 @@ class DistSpDMV:
         return g.bufs.y.clone()
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _sum(y, yf, out):
-        """y + yf, into ``out`` where given."""
-        return y + yf if out is None else torch.add(y, yf, out=out)
-
-    def _zero(self, like, out):
-        """A shard's zero y (S, ...): ``out`` zeroed where given."""
-        if out is not None:
-            return out.zero_()
-        return like.new_zeros((self.shard_rows,) + tuple(like.shape[1:]))
-
-    def _shard_apply(self, sh, d, x, segs, plain):
-        """Shard d's y (S,) from the global x and the segments: its near
+    def _shard_apply(self, sh, d, x, bufs, plain):
+        """Shard d's y (S,) from the global x and the buffers: its near
         streams over its own segment, its far stream over the x that
         ``_operands`` names."""
         f = spmv_ops._kernels(plain, self.dtype)
-        x_loc, far, out = self._operands(x, segs, d)
+        x_loc, far, out = self._operands(x, bufs, d)
         y = (None if sh.near is None
              else spmv_ops.sbell_apply(sh.near, x_loc, plain=plain))
         if self.comm == "ring":
-            tiles = (y if y is not None else self._zero(x_loc, out))
-            tiles = tiles.view(-1, LANES)
+            tiles = (y if y is not None else out.zero_()).view(-1, LANES)
             for k, st in enumerate(sh.ring):
                 if st.has_work:
                     # the segment is whole tiles of 128: the entries read
@@ -1212,13 +1150,13 @@ class DistSpDMV:
             return tiles.view(-1)
         if sh.far.has_work:
             yf = spmv_ops.bell2_apply(sh.far, far(None), plain=plain)
-            y = yf if y is None else self._sum(y, yf, out)
-        return y if y is not None else self._zero(x_loc, out)
+            y = yf if y is None else torch.add(y, yf, out=out)
+        return y if y is not None else out.zero_()
 
-    def _shard_apply_mm(self, sh, d, x, segs, plain):
+    def _shard_apply_mm(self, sh, d, x, bufs, plain):
         """Shard d's Y (S, B), as :meth:`_shard_apply` over B columns."""
         f = spmv_ops._kernels(plain, self.dtype)
-        x_loc, far, out = self._operands(x, segs, d)
+        x_loc, far, out = self._operands(x, bufs, d)
         B = x_loc.shape[1]
         y = (None if sh.near is None
              else spmv_ops.sbell_apply_mm(sh.near, x_loc, plain=plain))
@@ -1234,49 +1172,29 @@ class DistSpDMV:
         elif sh.far.has_work:
             yf = spmv_ops.bell2_apply_mm(sh.far, far(None), plain=plain)
         if yf is None:
-            return y if y is not None else self._zero(x_loc, out)
-        return yf if y is None else self._sum(y, yf, out)
+            return y if y is not None else out.zero_()
+        return yf if y is None else torch.add(y, yf, out=out)
 
     def _run(self, shards, x, plain=False):
         """The global y (n, ...) on the mesh's first device from the
-        global (internal-space) x there: on views, the scatter, every
-        shard's apply, then each shard's rows of y gathered in order (on a
-        process-group mesh: this rank's shard, then an all-gather of every
-        shard's rows); across several cards, a replay of the captured
-        apply where x is its key, else the same steps over the buffers
+        global (internal-space) x there: a replay of the captured apply
+        where the operator holds one and x is its key, else the scatter,
+        every shard's apply and the gather over the buffers of x's key
         (``_across``)."""
         devs = self.mesh.row_devices
         rhs = x.shape[1] if x.ndim == 2 else 1
         with trace.span("cfs.dist.apply", rhs=rhs, comm=self.comm,
                         cards=len(set(devs))):
-            if self._views:
-                return self._run_views(shards, x, plain)
             g = self._graph
             if (g is not None and not plain and x.shape == g.bufs.x.shape
                     and x.dtype == g.bufs.x.dtype):
                 with trace.span("cfs.dist.replay"):
                     return self._replay(x)
             bufs = self._buffers(x)
-            y = x.new_empty(x.shape)
-            self._across(shards, x, bufs, y, plain)
-            trace.count("dist.copy_bytes", bufs.moved)
+            y = self._across(shards, x, bufs, plain=plain)
+            if bufs.moved:
+                trace.count("dist.copy_bytes", bufs.moved)
             return y
-
-    def _run_views(self, shards, x, plain):
-        """:meth:`_run` on views."""
-        with trace.span("cfs.dist.scatter"):
-            segs = self._scatter(x)
-        apply = self._shard_apply if x.ndim == 1 else self._shard_apply_mm
-        mine = range(self.ndev) if self.rank is None else (self.rank,)
-        ys = []
-        for d in mine:
-            with trace.span("cfs.dist.shard", shard=d,
-                            device=str(self.mesh.row_devices[d])):
-                ys.append(apply(shards[d], d, x, segs, plain))
-        with trace.span("cfs.dist.gather"):
-            if self.rank is not None:
-                return self._all_gather(ys[0])
-            return torch.cat([y[:nr] for y, (_, nr) in zip(ys, self.real)])
 
     # ------------------------------------------------------------------
     def _as_x(self, x):

@@ -70,8 +70,8 @@ class Mesh:
 
     @property
     def single_device(self) -> bool:
-        """Every shard on one device of this process: the exchanges are
-        views (never on a process-group mesh)."""
+        """Every shard on one device of this process (never on a
+        process-group mesh)."""
         return self.group is None and len(set(self.devices)) == 1
 
 

@@ -26,8 +26,7 @@ shared object that does nothing, and a count returns at once. Inside an
 active ``torch.profiler`` window a recorded span also enters
 ``torch.profiler.record_function`` under its name, so its interval lands
 in the trace as a ``user_annotation`` on the device events' own clock
-(:func:`profile` records for its block; :func:`idle_by_span` puts the
-card's idle time of such a trace down to the spans). With
+(:func:`profile` records for its block). With
 ``config.log_info`` (``CFS_LOG``), a span marked ``log=True`` writes one
 INFO line with its seconds when it ends, recording or not. One thread
 records at a time: the open spans are one stack.
@@ -35,7 +34,6 @@ records at a time: the open spans are one stack.
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 import dataclasses
 import itertools
@@ -48,7 +46,7 @@ from .logging import info
 
 __all__ = ["profile", "device_busy_s", "RooflineReport", "report_spmv",
            "span", "count", "recording", "enable", "disable", "collect",
-           "is_recording", "Span", "Record", "self_ns", "idle_by_span"]
+           "is_recording", "Span", "Record"]
 
 #: whether spans and counters record (:func:`enable`, :func:`recording`)
 _on = False
@@ -105,20 +103,6 @@ class Record:
                 under.add(s.id)
                 out.append(s)
         return out
-
-
-def self_ns(outer: Span, inner) -> int:
-    """Nanoseconds of ``outer`` that none of the spans ``inner`` covers:
-    its duration less the union of their intervals clipped to it (an
-    overlap counts once)."""
-    covered, end = 0, outer.t0
-    for a, b in sorted((max(s.t0, outer.t0), min(s.t1, outer.t1))
-                       for s in inner):
-        if b <= end:
-            continue
-        covered += b - max(a, end)
-        end = b
-    return outer.t1 - outer.t0 - covered
 
 
 class _Null:
@@ -256,63 +240,6 @@ def collect() -> Record:
     rec = Record(_spans, _counters)
     _spans, _counters = [], {}
     return rec
-
-
-_DEVICE = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def idle_by_span(events: list, t0: float | None = None,
-                 t1: float | None = None, prefix: str = "cfs.",
-                 names=None) -> dict:
-    """The card's idle microseconds in a Chrome trace (``traceEvents`` of
-    a ``torch.profiler`` export) by the innermost span annotation named
-    ``prefix...`` (or, given ``names``, named one of them) open on the
-    host meanwhile: {name: us}, with the idle time under no such span as
-    ``None``. Between ``t0`` and ``t1`` (the trace's clock, us; default:
-    the first and last device event). Each stretch of idle time is split
-    exactly where annotations begin and end: one clock, no alignment."""
-    busy = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
-                  if e.get("cat") in _DEVICE and e.get("ph") == "X")
-    if t0 is None:
-        t0 = busy[0][0] if busy else 0.0
-    if t1 is None:
-        t1 = max((b for _, b in busy), default=t0)
-    merged = []
-    for a, b in busy:
-        a, b = max(a, t0), min(b, t1)
-        if b <= a:
-            continue
-        if merged and a <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], b)
-        else:
-            merged.append([a, b])
-    edges = [t0] + [x for a, b in merged for x in (a, b)] + [t1]
-    gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2)
-            if edges[i + 1] > edges[i]]
-    # by start, the outer of two that start together first
-    spans = sorted(((e["ts"], e["ts"] + e.get("dur", 0), e["name"])
-                    for e in events
-                    if e.get("cat") == "user_annotation"
-                    and e.get("ph") == "X"
-                    and (str(e.get("name", "")).startswith(prefix)
-                         if names is None else e.get("name") in names)),
-                   key=lambda s: (s[0], -s[1]))
-    starts = [s[0] for s in spans]
-    cuts = sorted({x for a, b, _ in spans for x in (a, b)})
-    out: dict = {}
-    for g0, g1 in gaps:
-        lo = bisect.bisect_right(cuts, g0)
-        hi = bisect.bisect_left(cuts, g1)
-        points = [g0, *cuts[lo:hi], g1]
-        for a, b in zip(points, points[1:]):
-            mid = (a + b) / 2
-            key = None  # the latest-begun span open at mid: the innermost
-            for s in reversed(spans[:bisect.bisect_right(starts, mid)]):
-                if s[1] > mid:
-                    key = s[2]
-                    break
-            out[key] = out.get(key, 0.0) + (b - a)
-    return out
 
 
 def _activities():

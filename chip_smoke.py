@@ -9,8 +9,7 @@ Phases (each prints its wall time):
 
 1. card name and power limit (``nvidia-smi``), PyTorch and CUDA versions;
 2. build the CUDA kernels from ``cfs_spmv_tpu_torch/csrc/spmv_kernels.cu``,
-   and beside that build (one ``nvcc`` per source, all started together)
-   ptxas' report and the six comparison sources of phase 4;
+   and beside that build ptxas' report;
 2b. ptxas' report (``nvcc -Xptxas -v``) of registers and spills for every
    kernel instance; any spill fails the run;
 3. the main paths, once each, through the user entry points —
@@ -87,84 +86,43 @@ Phases (each prints its wall time):
    and into forms, SpMV and at B = 1, 2, 4, 8, 11, on ``audikw_proxy()``'s
    far stream and on a degree-grouped replan over 8-tile blocks with an
    absent row range, out of NaN-poisoned allocations, bit-identical to the
-   composed twins, then the seed form against the parent's composition in
-   device time and launches; the signed diagonal kernel as it stood before
-   its redesign and its other forms (``SDIA_GEN_ALT_SRC``, built for this
-   comparison only) against the twin and in device time beside what ships;
-   the float64 kernels at B = 1, 8 and 11 (scaled error against the
-   float64 twin below ``F64_TWIN_TOL``), the diagonal ones on
+   composed twins; the float64 kernels at B = 1, 8 and 11 (scaled error
+   against the float64 twin below ``F64_TWIN_TOL``), the diagonal ones on
    ``stencil27()`` and ``cant_proxy()`` onto strided Y planes, the grid
-   ones on ``general_asym()`` and ``audikw_proxy()`` in
-   float64 and on an 8-tile-block replan with an absent row range into
-   NaN-poisoned outputs; the double entry kernel
-   (``bell2_spmv_accum_df``, ``bell2_spmm_accum_df``) on the float64
-   flagship's peel residual and on that replan's entry list (the upload
-   takes it as entries), onto strided NaN-poisoned planes seeded finite
-   on the named rows, against the chunk-grid twin; the double grid
-   kernel's walk (1, 2, 4, 8 chunks a CTA) and zero pass (the zero kernel
-   against ``cudaMemset2DAsync``) through its launcher's own arguments
-   (``GRID_FORMS_SRC``, built for this comparison only) on
-   ``general_asym()`` and ``audikw_proxy()`` in float64 at B = 1 and 8,
-   each against the twin and in device time; the float grid kernel's
-   multi-plane forms the same way (walks of 8, 1, 2 and 4, x gathered
-   from the planes, each chunk's x windows staged in shared memory, or x
-   read interleaved, ``GRID_FORMS_SRC``) on the three plans of
-   ``bell2_spmm`` at B = 8 and 11, timed at B = 8 on
-   ``audikw_proxy()`` and ``cant_proxy()`` NONE, there also the planes
-   form against the interleaved X at B = 1, 2 and 4, and ``bell2_spmv``'s
-   two zero passes in turns; the one-sided float SpMV kernel (B2) as it
-   stood before its redesign (a walk of 8 chunks a CTA), the occupancy
-   rule's walk alone, the ring kernel (the stream staged by cp.async) with
-   2, 3 and 4 buffers a group and with one group a CTA, 4 walk groups a
-   CTA, and what ships (8 walk groups a CTA) over its rule's walk and at
-   one chunk a walk (``GRID_FORMS_SRC``), in float32 and bf16, on
-   ``audikw_proxy()``'s far stream, ``cant_proxy()`` NONE, shard 1 of
-   D3's far grids (``general_asym()`` over 4 shards, the operator phase 8
-   applies) and the float replan with absent rows, each with the chunks a
-   walk it takes, into NaN-poisoned tiles after either zero pass, and
-   whether what ships repeats bit for bit, then in device time in turns
-   beside what ships, its bound and the library call; the symmetric
-   diagonal kernel as it stood before
-   its redesign and each step of the redesign (``SDIA_SYM_ALT_SRC``, built
-   for this comparison only) on ``cant_proxy()`` and ``stencil27()`` in
-   float32 and float64 at B = 1 and 11 onto strided planes against the
-   twin, then in device time at B = 1 and 8; the accumulating kernels
-   (``bell2_spmv_accum``, ``bell2_spmm_accum``) on the flagship's entry
-   list and on a hand-built one with an absent row range and rows of 70
-   and 200 entries, at B = 1, 8 and 11 onto Y planes at a plane stride
-   past the plane whose rows no entry names hold NaN and must keep it bit
-   for bit, and against the chunk-grid twin on the same plan's padded
-   arrays; and the warp-segmented form that ships beside a per-entry
-   atomics form of the same kernel (``ENTRIES_ALT_SRC``, built for this
-   comparison only), both against the twin and in device time; the
-   paired kernel that ships beside the form before its redesign and the
-   redesign's steps (``SBELL_ALT_SRC``, built for this comparison only),
-   each against the twin, then in device time over walks of 1 to 8
-   chunks a CTA on the main plan and on the 400,000-row plan at B = 1
-   and 8, and the three zero passes alone; then each bf16 instance
-   against its twin (which computes on the values widened to float32) on
-   the bf16 runs' plan arrays and on the replans over 8-tile blocks with
-   absent rows cast to bf16, at B = 11 and 8 over planes, into
-   NaN-poisoned or strided outputs as above; then the double instances of
-   the paired and signed diagonal kernels (``<name>_f64``, the float64
-   ``DistSpDMV``'s) on shard 1 of phase 8's float64 D5 (paired) and D1
-   (mirrored) operators and on replans of both matrices without rows
-   20,000-29,999 (the paired one over 8-tile blocks), each against its
-   float64 twin: B5 into NaN-poisoned tiles; B10 as it ships (one launch
-   and one zero pass a group of up to 8 planes, checked in device
-   launches at B = 8) and its other forms (``F64_FORMS_SRC``: as PR 13
-   shipped it, in groups of 4 planes; x read plane by plane, with one and
-   with two thread groups a CTA; restaging every chunk) at B = 1, 2, 4, 8
-   and 11 into NaN-poisoned strided planes and a zero x into NaN-poisoned
-   strided planes, with each form's walk and shared memory a CTA; B6 adding and
-   storing; B12 as it ships (x staged in shared memory over the plan's
-   window), staged at 1, 2, 4 and 8 slices and as PR 13 shipped it (1 and
-   2 slices, bit for bit the staged form at the same slices) at B = 1, 2,
-   4, 8, 11 from X in place and copied, adding and storing, and a zero X
-   storing +0, with the shared memory a CTA; then every form's device time
-   at B = 8 (B6 at 1) in turns over two rounds beside its bound, the twin
-   and the library call (the float64 sparse CSR product of the same
-   stream, ``paired_csr`` and ``dia_csr``, held to the twin first);
+   ones on ``general_asym()`` and ``audikw_proxy()`` in float64 and on an
+   8-tile-block replan with an absent row range into NaN-poisoned
+   outputs; the double entry kernel (``bell2_spmv_accum_df``,
+   ``bell2_spmm_accum_df``) on the float64 flagship's peel residual and on
+   that replan's entry list (the upload takes it as entries), onto strided
+   NaN-poisoned planes seeded finite on the named rows, against the
+   chunk-grid twin; the one-sided float SpMV kernel (B2) in float32 and
+   bf16 on ``audikw_proxy()``'s far stream, ``cant_proxy()`` NONE, shard 1
+   of D3's far grids (``general_asym()`` over 4 shards, the operator phase
+   8 applies) and the float replan with absent rows, into NaN-poisoned
+   tiles after either zero pass, and whether it repeats bit for bit; the
+   accumulating kernels (``bell2_spmv_accum``, ``bell2_spmm_accum``) on
+   the flagship's entry list and on a hand-built one with an absent row
+   range and rows of 70 and 200 entries, at B = 1, 8 and 11 onto Y planes
+   at a plane stride past the plane whose rows no entry names hold NaN and
+   must keep it bit for bit, and against the chunk-grid twin on the same
+   plan's padded arrays; then each bf16 instance against its twin (which
+   computes on the values widened to float32) on the bf16 runs' plan
+   arrays and on the replans over 8-tile blocks with absent rows cast to
+   bf16, at B = 11 and 8 over planes, into NaN-poisoned or strided outputs
+   as above; then the double instances of the paired and signed diagonal
+   kernels (``<name>_f64``, the float64 ``DistSpDMV``'s) on shard 1 of
+   phase 8's float64 D5 (paired) and D1 (mirrored) operators and on
+   replans of both matrices without rows 20,000-29,999 (the paired one
+   over 8-tile blocks), each against its float64 twin: B5 into
+   NaN-poisoned tiles; B10 (one launch and one zero pass a group of up to
+   8 planes, checked in device launches at B = 8) at B = 1, 2, 4, 8 and
+   11 into NaN-poisoned strided planes and a zero x into NaN-poisoned
+   strided planes, with its walk and shared memory a CTA; B6 adding and
+   storing; B12 (x staged in shared memory over the plan's window) at
+   B = 1, 2, 4, 8, 11 from X in place and copied, adding and storing, and
+   a zero X storing +0, with the shared memory a CTA; and the library
+   calls of the double instances (the float64 sparse CSR product of the
+   same stream, ``paired_csr`` and ``dia_csr``) held to the twin;
 5. times per call (CUDA events around 20 back-to-back calls, median of
    5) of each kernel and twin (multi-RHS ones at B = 8), and of the
    kernel path and the plain path of every run, SpMV and SpMM(8) (the
@@ -184,10 +142,8 @@ Phases (each prints its wall time):
    and for every matrix ``torch.sparse_csr_tensor(A) @ x`` and ``@ X`` in
    float32 and float64, and the rows PERF.md §6 holds for other plans
    (``stencil27()``'s diagonal kernels, B7 on ``cant_proxy()`` NONE, B6
-   and B12 on the flagship as CSR and mirrored cant); for every float32 run
-   the device launches of each apply beside the parent tree's composition
-   of its applier (held to the same result), with both device times; and
-   for every run the SpMV apply as ``utils/timing.time_matvec`` times it
+   and B12 on the flagship as CSR and mirrored cant); for every run the
+   device launches of each apply; and for every run the SpMV apply as ``utils/timing.time_matvec`` times it
    (``GRAPH_ITERS`` applies captured into one CUDA graph, replayed
    between CUDA events) beside the eager apply's wall and device time,
    with both idle shares; each bf16 run's SpMV apply (eager, graphed and
@@ -225,7 +181,8 @@ Phases (each prints its wall time):
    bf16; the first difference is printed), and
    ``examples/cg_poisson_torch.py`` at its default (g = 256) must pass;
 8. the distributed layer (``parallel/dist.DistSpDMV``) on P shards of card
-   0 (``make_mesh(P, device="cuda:0")``, every exchange a view), the
+   0 (``make_mesh(P, device="cuda:0")``, every exchange a copy within the
+   card), the
    cases of ``DIST_CASES``: ``cant_proxy()`` at P = 1, 2 and 4 (auto:
    gather at P = 1, halo past it) and at P = 4 with
    ``CFS_DIST_SDIA_ROWS_MAX`` below its shard (mirrored diagonals);
@@ -246,8 +203,8 @@ Phases (each prints its wall time):
 9. one NCCL rank (``NCCL_CASES``), in a child process (``chip_smoke.py
    --nccl-rank``; the card's machine has one card, and NCCL takes one rank
    a card): ``parallel/multihost.initialize`` over ``tcp://localhost``,
-   ``DistSpDMV`` over the process-group mesh of ``make_mesh()`` (x read
-   through the one-device views, y all-gathered) in float32 and float64,
+   ``DistSpDMV`` over the process-group mesh of ``make_mesh()`` (its
+   shard's buffers filled from the global x on its card, y all-gathered) in float32 and float64,
    SpMV and SpMM(8), launches against the prediction, held to the
    single-process operator on card 0 and to the oracle, timed graphed
    (the all-gather captured in the CUDA graph) and by device time beside
@@ -422,1561 +379,6 @@ TIMED_CALLS = 20
 GRAPH_ITERS = 200
 #: right-hand sides of the SpMM runs (the reference bench's SpMM(8))
 RHS = 8
-#: the other form of ``bell2_entries_kernel``, for the comparison in phase
-#: 4 only (the port builds and launches the warp-segmented form in
-#: ``csrc/spmv_kernels.cu``): one ``atomicAdd`` per entry and plane, no
-#: shuffles. Same arguments as ``cfs_bell2_entries``, for 1 to 8 planes.
-ENTRIES_ALT_SRC = r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-template <int kRhs>
-__global__ void __launch_bounds__(256)
-entries_atomic_kernel(const int* __restrict__ rows,
-                      const int* __restrict__ cols,
-                      const float* __restrict__ vals, int64_t E,
-                      const float* __restrict__ x, int64_t xs,
-                      float* __restrict__ y, int64_t ys, int nr) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
-  if (e >= E) return;
-  const float v = vals[e];
-  const float* xc = x + cols[e];
-  float* yr = y + rows[e];
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b)
-    if (kRhs == 1 || b < nr) atomicAdd(yr + b * ys, v * xc[b * xs]);
-}
-extern "C" int cfs_entries_atomic(const int* rows, const int* cols,
-                                  const float* vals, int64_t E,
-                                  const float* x, int64_t xs, float* y,
-                                  int64_t ys, int nr, cudaStream_t stream) {
-  if (nr < 1 || nr > 8) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned int grid = static_cast<unsigned int>((E + 255) / 256);
-  if (E <= 0) return 0;
-  if (nr == 1)
-    entries_atomic_kernel<1><<<grid, 256, 0, stream>>>(rows, cols, vals, E, x,
-                                                       xs, y, ys, nr);
-  else
-    entries_atomic_kernel<8><<<grid, 256, 0, stream>>>(rows, cols, vals, E, x,
-                                                       xs, y, ys, nr);
-  return static_cast<int>(cudaGetLastError());
-}
-"""
-#: the other forms of the paired-stream kernel, for the comparison in phase
-#: 4 only (the port builds and launches ``sbell_spmv_kernel`` of
-#: ``csrc/spmv_kernels.cu``), for plans with 4 transpose windows and for 1
-#: plane or up to 8 (the kRhs = 8 instance). ``form`` -1 is the kernel as
-#: it stood before its redesign: 8 chunks a CTA whatever the stream's size,
-#: the window tile read from ``meta`` in global memory at every slot, one
-#: ``atomicAdd`` per valid transpose slot and plane. Forms 0-7 and 10 are
-#: the steps of the redesign, each on its own bit, on a walk of ``cpc``
-#: chunks a CTA with the chunk's windows in registers: 1 = transpose sums
-#: in registers per window slot, handed over on a change of the slot's
-#: target (the chunk's own tile joins the row sum); 2 = the chunk's own x
-#: tile and its window tiles staged in shared memory before the barrier, so
-#: that every gather reads shared memory; 4 = the next chunk's words and
-#: values loaded into a second set of registers before this chunk's
-#: gathers; 8 = the transpose sums in a shared tile of which a thread
-#: touches its own lane only (10 = 8 + 2). What ships is form 3 for one or
-#: two planes and form 10 for four or eight. Form -2 runs the zero pass
-#: alone. ``zero``: 0 no zero pass, 1 one CTA per output block (as before
-#: the redesign), 2 a grid-stride kernel over the whole planes, 3
-#: ``cudaMemset2DAsync`` (what ships).
-SBELL_ALT_SRC = r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-namespace {
-constexpr int kLanes = 128;
-constexpr int kSublanes = 8;
-constexpr int kMetaW = 10;
-constexpr int kNoStream = -2;  // form: the zero pass alone
-
-template <int kRhs>
-__device__ __forceinline__ bool live(int b, int nr) {
-  return kRhs == 1 || b < nr;
-}
-
-__global__ void zero_blocks_kernel(const int* __restrict__ step_block, int BT,
-                                   float* __restrict__ y, int64_t ys) {
-  const int g = blockIdx.x;
-  if (g > 0 && step_block[g] == step_block[g - 1]) return;
-  uint4* base = reinterpret_cast<uint4*>(
-      y + blockIdx.y * ys + static_cast<int64_t>(step_block[g]) * BT * kLanes);
-  const int n16 = BT * kLanes * 4 / 16;
-  for (int i = threadIdx.x; i < n16; i += blockDim.x)
-    base[i] = make_uint4(0u, 0u, 0u, 0u);
-}
-
-__global__ void zero_planes_kernel(float* __restrict__ y, int64_t ys,
-                                   int64_t n16) {
-  uint4* base = reinterpret_cast<uint4*>(y + blockIdx.y * ys);
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n16; i += step)
-    base[i] = make_uint4(0u, 0u, 0u, 0u);
-}
-
-template <int kRhs>
-__device__ __forceinline__ void flush_all(float* y, int64_t ys, int64_t at,
-                                          const float (&acc)[kRhs], int nr) {
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b)
-    if (live<kRhs>(b, nr)) atomicAdd(y + b * ys + at, acc[b]);
-}
-
-// form -1: the kernel before its redesign
-template <int TW, int kRhs>
-__global__ void __launch_bounds__(kLanes)
-sbell_before_kernel(const float* __restrict__ vals,
-                    const int* __restrict__ packed,
-                    const int* __restrict__ meta,
-                    const int* __restrict__ step_block, int64_t C, int K,
-                    int BT, const float* __restrict__ x, int64_t xs,
-                    float* __restrict__ y, int64_t ys, int nr) {
-  constexpr int kChunksPerCta = 8;
-  __shared__ int r2s[kSublanes][kLanes];
-  __shared__ float vs[kSublanes][kLanes];
-  const int lane = threadIdx.x;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kChunksPerCta;
-  const int64_t c1 = c0 + kChunksPerCta < C ? c0 + kChunksPerCta : C;
-  int64_t row = -1;
-  float acc[kRhs];
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
-  for (int64_t c = c0; c < c1; ++c) {
-    const int* m = meta + c * kMetaW;
-    const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
-    const int64_t slot0 = c * kSublanes * kLanes + lane;
-    int pk[kSublanes];
-    float v[kSublanes];
-#pragma unroll
-    for (int i = 0; i < kSublanes; ++i) {
-      pk[i] = packed[slot0 + i * kLanes];
-      v[i] = vals[slot0 + i * kLanes];
-      r2s[i][lane] = (pk[i] >> 7) & 7;
-      vs[i][lane] = v[i];
-    }
-    __syncthreads();
-    const float* xt = x + tgt * kLanes;
-    float part[kRhs];
-#pragma unroll
-    for (int b = 0; b < kRhs; ++b) part[b] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kSublanes; ++i) {
-      const int q = pk[i] & 0x7F;
-      const int r2 = r2s[i][q];
-      if (r2 < TW) {
-        const float* xq = x + static_cast<int64_t>(m[2 + r2]) * kLanes + q;
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr)) part[b] = fmaf(v[i], xq[b * xs], part[b]);
-      }
-      const int t2 = (pk[i] >> 7) & 7;
-      if (t2 < TW) {
-        const int src = (pk[i] >> 10) & 0x7F;
-        const float tv = vs[i][src];
-        float* yt = y + static_cast<int64_t>(m[2 + t2]) * kLanes + lane;
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr))
-            atomicAdd(yt + b * ys, tv * xt[b * xs + src]);
-      }
-    }
-    __syncthreads();
-    if (tgt != row) {
-      if (row >= 0) flush_all<kRhs>(y, ys, row * kLanes + lane, acc, nr);
-      row = tgt;
-#pragma unroll
-      for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
-    }
-#pragma unroll
-    for (int b = 0; b < kRhs; ++b) acc[b] += part[b];
-  }
-  if (row >= 0) flush_all<kRhs>(y, ys, row * kLanes + lane, acc, nr);
-}
-
-template <int TW>
-__device__ __forceinline__ int pick(const int (&w)[TW], int r) {
-  int o = w[0];
-#pragma unroll
-  for (int t = 1; t < TW; ++t) o = r == t ? w[t] : o;
-  return o;
-}
-
-// one atomicAdd per live plane whose sum is not zero
-template <int kRhs>
-__device__ __forceinline__ void flush_sums(float* y, int64_t ys, int64_t at,
-                                           const float (&s)[kRhs], int nr) {
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b)
-    if (live<kRhs>(b, nr) && s[b] != 0.0f) atomicAdd(y + b * ys + at, s[b]);
-}
-
-__device__ __forceinline__ void load_chunk(const float* __restrict__ vals,
-                                           const int* __restrict__ packed,
-                                           int64_t c, int lane,
-                                           int (&pk)[kSublanes],
-                                           float (&v)[kSublanes]) {
-  const int64_t slot0 = c * kSublanes * kLanes + lane;
-#pragma unroll
-  for (int i = 0; i < kSublanes; ++i) {
-    pk[i] = packed[slot0 + i * kLanes];
-    v[i] = vals[slot0 + i * kLanes];
-  }
-}
-
-// forms 0-7 and 10: the steps of the redesign, one bit each
-template <int TW, int kRhs, bool kRegT, bool kStage, bool kPrefetch,
-          bool kShT>
-__global__ void __launch_bounds__(kLanes)
-sbell_forms_kernel(const float* __restrict__ vals,
-                   const int* __restrict__ packed,
-                   const int* __restrict__ meta,
-                   const int* __restrict__ step_block, int64_t C, int K,
-                   int BT, int cpc, const float* __restrict__ x, int64_t xs,
-                   float* __restrict__ y, int64_t ys, int nr) {
-  __shared__ int r2s[kSublanes][kLanes];
-  __shared__ float vs[kSublanes][kLanes];
-  __shared__ float xo[kStage ? kRhs : 1][kLanes];
-  __shared__ float xw[kStage ? kRhs : 1][TW][kLanes];
-  // the transpose sums of bit 8: a thread reads and writes its own lane
-  __shared__ float tsm[kShT ? kRhs : 1][kShT ? TW : 1][kLanes];
-  const int lane = threadIdx.x;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * cpc;
-  const int64_t c1 = c0 + cpc < C ? c0 + cpc : C;
-  int64_t row = -1;  // y tile of the running row-side sums
-  float acc[kRhs];
-  int wt[TW];  // y tile of each window slot's running transpose sums
-  float ts[TW][kRhs];
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
-#pragma unroll
-  for (int t = 0; t < TW; ++t) {
-    wt[t] = -1;
-#pragma unroll
-    for (int b = 0; b < kRhs; ++b) {
-      ts[t][b] = 0.0f;
-      if (kShT) tsm[b][t][lane] = 0.0f;
-    }
-  }
-  int pk[kSublanes], npk[kSublanes];
-  float v[kSublanes], nv[kSublanes];
-  if (kPrefetch) load_chunk(vals, packed, c0, lane, npk, nv);
-  for (int64_t c = c0; c < c1; ++c) {
-    const int* m = meta + c * kMetaW;
-    int w[TW];
-#pragma unroll
-    for (int t = 0; t < TW; ++t) w[t] = m[2 + t];
-    const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
-    if (kPrefetch) {
-#pragma unroll
-      for (int i = 0; i < kSublanes; ++i) {
-        pk[i] = npk[i];
-        v[i] = nv[i];
-      }
-    } else {
-      load_chunk(vals, packed, c, lane, pk, v);
-    }
-#pragma unroll
-    for (int i = 0; i < kSublanes; ++i) {
-      r2s[i][lane] = (pk[i] >> 7) & 7;
-      vs[i][lane] = v[i];
-    }
-    if (kStage) {
-#pragma unroll
-      for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) {
-          const float* xb = x + b * xs + lane;
-          xo[b][lane] = xb[tgt * kLanes];
-#pragma unroll
-          for (int t = 0; t < TW; ++t)
-            xw[b][t][lane] = xb[static_cast<int64_t>(w[t]) * kLanes];
-        }
-    }
-    if (kPrefetch && c + 1 < c1)
-      load_chunk(vals, packed, c + 1, lane, npk, nv);
-    __syncthreads();
-    if (kRegT || kShT) {
-      // a slot whose target changed hands its sums over: to the row sums
-      // when the old target is their tile, else to y
-#pragma unroll
-      for (int t = 0; t < TW; ++t)
-        if (w[t] != wt[t]) {
-          if (kShT) {
-#pragma unroll
-            for (int b = 0; b < kRhs; ++b) {
-              ts[t][b] = tsm[b][t][lane];
-              tsm[b][t][lane] = 0.0f;
-            }
-          }
-          if (wt[t] == row) {
-#pragma unroll
-            for (int b = 0; b < kRhs; ++b) acc[b] += ts[t][b];
-          } else if (wt[t] >= 0) {
-            flush_sums<kRhs>(y, ys, static_cast<int64_t>(wt[t]) * kLanes + lane,
-                             ts[t], nr);
-          }
-          wt[t] = w[t];
-#pragma unroll
-          for (int b = 0; b < kRhs; ++b) ts[t][b] = 0.0f;
-        }
-    }
-    if (tgt != row) {
-      if (row >= 0) flush_sums<kRhs>(y, ys, row * kLanes + lane, acc, nr);
-      row = tgt;
-#pragma unroll
-      for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < kSublanes; ++i) {
-      const int q = pk[i] & 0x7F;
-      const int r2 = r2s[i][q];
-      if (r2 < TW) {
-        if (kStage) {
-#pragma unroll
-          for (int b = 0; b < kRhs; ++b)
-            if (live<kRhs>(b, nr)) acc[b] = fmaf(v[i], xw[b][r2][q], acc[b]);
-        } else {
-          const float* xq =
-              x + static_cast<int64_t>(pick<TW>(w, r2)) * kLanes + q;
-#pragma unroll
-          for (int b = 0; b < kRhs; ++b)
-            if (live<kRhs>(b, nr)) acc[b] = fmaf(v[i], xq[b * xs], acc[b]);
-        }
-      }
-      const int t2 = (pk[i] >> 7) & 7;
-      if (t2 < TW) {
-        const int src = (pk[i] >> 10) & 0x7F;
-        const float tv = vs[i][src];
-        const int64_t yt =
-            static_cast<int64_t>(pick<TW>(w, t2)) * kLanes + lane;
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr)) {
-            const float p =
-                tv * (kStage ? xo[b][src] : x[b * xs + tgt * kLanes + src]);
-            if (kShT) {
-              tsm[b][t2][lane] += p;
-            } else if (kRegT) {
-#pragma unroll
-              for (int t = 0; t < TW; ++t)
-                if (t2 == t) ts[t][b] += p;
-            } else {
-              atomicAdd(y + b * ys + yt, p);
-            }
-          }
-      }
-    }
-    __syncthreads();
-  }
-  if (kRegT || kShT) {
-#pragma unroll
-    for (int t = 0; t < TW; ++t) {
-      if (kShT) {
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b) ts[t][b] = tsm[b][t][lane];
-      }
-      if (wt[t] == row) {
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b) acc[b] += ts[t][b];
-      } else if (wt[t] >= 0) {
-        flush_sums<kRhs>(y, ys, static_cast<int64_t>(wt[t]) * kLanes + lane,
-                         ts[t], nr);
-      }
-    }
-  }
-  if (row >= 0) flush_sums<kRhs>(y, ys, row * kLanes + lane, acc, nr);
-}
-
-template <int R, int F = 0>
-void launch_form(int form, unsigned int grid, cudaStream_t stream,
-                 const float* vals, const int* packed, const int* meta,
-                 const int* step_block, int64_t C, int K, int BT, int cpc,
-                 const float* x, int64_t xs, float* y, int64_t ys, int nr) {
-  if constexpr (F <= 10) {
-    if constexpr (F < 8 || F == 10) {
-      if (form == F) {
-        sbell_forms_kernel<4, R, (F & 1) != 0, (F & 2) != 0, (F & 4) != 0,
-                           (F & 8) != 0>
-            <<<grid, kLanes, 0, stream>>>(vals, packed, meta, step_block, C,
-                                          K, BT, cpc, x, xs, y, ys, nr);
-        return;
-      }
-    }
-    launch_form<R, F + 1>(form, grid, stream, vals, packed, meta, step_block,
-                          C, K, BT, cpc, x, xs, y, ys, nr);
-  }
-}
-
-template <int R>
-void launch_alt(int form, cudaStream_t stream, const float* vals,
-                const int* packed, const int* meta, const int* step_block,
-                int64_t C, int K, int BT, int cpc, const float* x, int64_t xs,
-                float* y, int64_t ys, int nr) {
-  if (form < 0)
-    sbell_before_kernel<4, R>
-        <<<static_cast<unsigned int>((C + 7) / 8), kLanes, 0, stream>>>(
-            vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
-  else
-    launch_form<R>(form, static_cast<unsigned int>((C + cpc - 1) / cpc),
-                   stream, vals, packed, meta, step_block, C, K, BT, cpc, x,
-                   xs, y, ys, nr);
-}
-}  // namespace
-
-extern "C" int cfs_sbell_alt(const float* vals, const int* packed,
-                             const int* meta, const int* step_block, int64_t C,
-                             int K, int BT, int tiles, int form, int cpc,
-                             int zero, const float* x, int64_t xs, float* y,
-                             int64_t ys, int nr, cudaStream_t stream) {
-  if (nr < 1 || nr > 8 || form < kNoStream || form > 10 || form == 8 ||
-      form == 9 || cpc < 1 || C <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t plane = static_cast<int64_t>(tiles) * kLanes;  // floats
-  if (zero == 1) {
-    zero_blocks_kernel<<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0,
-                         stream>>>(step_block, BT, y, ys);
-  } else if (zero == 2) {
-    const int64_t n16 = plane / 4;
-    const int64_t want = (n16 + 255) / 256;
-    zero_planes_kernel<<<dim3(static_cast<unsigned int>(want < 1056 ? want
-                                                                    : 1056),
-                              nr), 256, 0, stream>>>(y, ys, n16);
-  } else if (zero == 3) {
-    cudaMemset2DAsync(y, (nr == 1 ? plane : ys) * 4, 0, plane * 4, nr,
-                      stream);
-  }
-  if (form == kNoStream) return static_cast<int>(cudaGetLastError());
-  if (nr == 1)
-    launch_alt<1>(form, stream, vals, packed, meta, step_block, C, K, BT, cpc,
-                  x, xs, y, ys, nr);
-  else
-    launch_alt<8>(form, stream, vals, packed, meta, step_block, C, K, BT, cpc,
-                  x, xs, y, ys, nr);
-  return static_cast<int>(cudaGetLastError());
-}
-"""
-
-
-#: the grid kernel under its launcher's own arguments, for the comparisons
-#: in phase 4 only: the port's kernel source included whole (``{src}``),
-#: and three entry points more. ``cfs_bell2_f64_form`` launches
-#: ``bell2_spmv_kernel<contig, R, double, cpc>`` (a walk of ``cpc`` = 1, 2,
-#: 4 or 8 chunks a CTA) after the zero pass ``tiles`` names (> 0:
-#: ``cudaMemset2DAsync`` over whole planes of that many rows of 128; 0: the
-#: zero kernel over the visited blocks). What ships is a walk of 1 after
-#: the memset; before, it was a walk of 8 after the zero kernel.
-#: ``cfs_bell2_f64_walk`` gives the walk of the occupancy rule the paired
-#: kernel uses (the fewest chunks that keep every CTA resident, at most 8).
-#: ``cfs_bell2_f32_form`` does the same for the float multi-plane
-#: instances (B7; one plane takes the SpMV instance, the walk groups),
-#: reading x as ``xform`` says: 0 gathers from the planes (before
-#: their redesign, at a walk of 8 after the zero kernel), 1 stages each
-#: chunk's 8 window rows of x in shared memory for every plane first, 2
-#: reads an interleaved X as it ships (an element's planes of a group side
-#: by side at the group's width, 8 of them in one 32-byte sector; x is the
-#: group's block, ``bell2_kernel.interleave_x``). ``cfs_bell2_b2_form``
-#: launches B2's forms after the zero pass ``tiles`` names, among them the
-#: ring kernel, which lives here only, and ``cfs_bell2_b2_walk`` gives the
-#: chunks a walk each form takes (see the comment above them).
-GRID_FORMS_SRC = r"""
-#include "{src}"
-extern "C" int cfs_bell2_f64_form(const double* vals, const int16_t* packed,
-                                  const int* meta, const int* step_block,
-                                  int64_t C, int K, int BT, int contig,
-                                  int cpc, int64_t tiles, const double* x,
-                                  int64_t xs, double* y, int64_t ys, int nr,
-                                  cudaStream_t stream) {
-  switch (cpc) {
-#define FORM(W)                                                              \
-  case W:                                                                    \
-    return launch_bell2_spmv<double, W, false>(                              \
-        vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y,   \
-        ys, nr, stream);
-    FORM(1) FORM(2) FORM(4) FORM(8)
-#undef FORM
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-extern "C" int cfs_bell2_f64_walk(int64_t C, int contig, int nr) {
-  int walk = 0;
-  with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    walk = contig
-               ? walk_for(bell2_spmv_kernel<true, R, double, 1, false>, C, 8)
-               : walk_for(bell2_spmv_kernel<false, R, double, 1, false>, C, 8);
-  });
-  return walk;
-}
-namespace {
-// xform 1: the chunk's 8 window rows of x staged in shared memory for
-// every live plane before the chunk's barrier (a deep window's rows past
-// the 8th still gathered); otherwise the multi-plane body of
-// bell2_spmv_kernel
-template <bool kContig, int kRhs, int kWalk>
-__global__ void __launch_bounds__(kLanes)
-bell2_staged_kernel(const float* __restrict__ vals,
-                    const int16_t* __restrict__ packed,
-                    const int* __restrict__ meta,
-                    const int* __restrict__ step_block, int64_t C, int K,
-                    int BT, const float* __restrict__ x, int64_t xs,
-                    float* __restrict__ y, int64_t ys, int nr) {
-  __shared__ int r2s[kSublanes][kLanes];
-  __shared__ float xw[kRhs][kSublanes][kLanes];
-  const int lane = threadIdx.x;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kWalk;
-  const int64_t c1 = c0 + kWalk < C ? c0 + kWalk : C;
-  int64_t row = -1;
-  float acc[kRhs];
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
-  for (int64_t c = c0; c < c1; ++c) {
-    const int* m = meta + c * kMetaW;
-    const int64_t tgt = static_cast<int64_t>(step_block[c / K]) * BT + m[0];
-    const int64_t slot0 = c * kSublanes * kLanes + lane;
-    int pk[kSublanes];
-#pragma unroll
-    for (int i = 0; i < kSublanes; ++i) {
-      pk[i] = packed[slot0 + i * kLanes];
-      r2s[i][lane] = (pk[i] >> 7) & 0x1F;
-    }
-#pragma unroll
-    for (int k = 0; k < kSublanes; ++k) {
-      const int64_t xr = (kContig ? m[2] + k : m[2 + k]) * int64_t{kLanes};
-#pragma unroll
-      for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) xw[b][k][lane] = x[b * xs + xr + lane];
-    }
-    __syncthreads();
-    if (tgt != row) {
-      if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
-      row = tgt;
-#pragma unroll
-      for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < kSublanes; ++i) {
-      const int q = pk[i] & 0x7F;
-      const int r2 = r2s[i][q];
-      const float v = vals[slot0 + i * kLanes];
-      if (!kContig || r2 < kSublanes) {
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr))
-            acc[b] = fmaf(v, xw[b][r2 & (kSublanes - 1)][q], acc[b]);
-      } else {
-        const float* xq = x + static_cast<int64_t>(m[2] + r2) * kLanes + q;
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr)) acc[b] = fmaf(v, xq[b * xs], acc[b]);
-      }
-    }
-    __syncthreads();
-  }
-  if (row >= 0) flush_rows<kRhs>(y, ys, row * kLanes + lane, acc, nr);
-}
-
-template <int W>
-int launch_staged(const float* vals, const int16_t* packed, const int* meta,
-                  const int* step_block, int64_t C, int K, int BT,
-                  int contig, int64_t tiles, const float* x, int64_t xs,
-                  float* y, int64_t ys, int nr, cudaStream_t stream) {
-  with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    if (tiles > 0) {
-      const size_t width = static_cast<size_t>(tiles) * kLanes * 4;
-      cudaMemset2DAsync(y, nr == 1 ? width : ys * 4, 0, width, nr, stream);
-    } else {
-      bell2_zero_blocks_kernel<float>
-          <<<dim3(static_cast<unsigned int>(C / K), nr), 256, 0, stream>>>(
-              step_block, BT, y, ys);
-    }
-    const unsigned int grid = blocks_for(C, W);
-    if (contig)
-      bell2_staged_kernel<true, R, W><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
-    else
-      bell2_staged_kernel<false, R, W><<<grid, kLanes, 0, stream>>>(
-          vals, packed, meta, step_block, C, K, BT, x, xs, y, ys, nr);
-  });
-  return static_cast<int>(cudaGetLastError());
-}
-}  // namespace
-
-extern "C" int cfs_bell2_f32_form(const float* vals, const int16_t* packed,
-                                  const int* meta, const int* step_block,
-                                  int64_t C, int K, int BT, int contig,
-                                  int cpc, int xform, int64_t tiles,
-                                  const float* x, int64_t xs, float* y,
-                                  int64_t ys, int nr, cudaStream_t stream) {
-  if (nr < 1 || nr > 8 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (cpc * 4 + xform) {
-#define FORM(W, X)                                                           \
-  case W * 4 + X:                                                            \
-    return launch_bell2_spmv<float, W, X == 2>(                              \
-        vals, packed, meta, step_block, C, K, BT, contig, tiles, x, xs, y,   \
-        ys, nr, stream);
-#define STAGED(W)                                                            \
-  case W * 4 + 1:                                                            \
-    return launch_staged<W>(vals, packed, meta, step_block, C, K, BT,        \
-                            contig, tiles, x, xs, y, ys, nr, stream);
-    FORM(1, 0) FORM(2, 0) FORM(4, 0) FORM(8, 0)
-    STAGED(1) STAGED(2) STAGED(4) STAGED(8)
-    FORM(1, 2) FORM(2, 2) FORM(4, 2) FORM(8, 2)
-#undef STAGED
-#undef FORM
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-namespace {
-// Asynchronous copies into shared memory (sm_80 and later): 16 bytes
-// through L2 only, or 4 bytes; a thread's copies complete in the groups it
-// commits, oldest first.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned int s =
-      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned int s =
-      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most kPending of the thread's groups are in flight
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// B2's ring form (one plane; V = float or __nv_bfloat16): a CTA of
-// kGroups groups of 128 threads (one a lane); group g of CTA b walks the
-// cpc consecutive chunks from (b * kGroups + g) * cpc through a ring of
-// kStages chunk buffers of its own in shared memory, synchronised by a
-// barrier of its own (bar.sync g + 1), so the groups run apart. Each buffer
-// holds a chunk's packed words (2 KB), values (4 KB in float, 2 KB in
-// bf16) and meta row with its step's block, filled by cp.async: 16 bytes a
-// thread for the words and values, 4 for the meta row, which is not
-// 16-byte aligned. Chunk j + kStages - 1 is fetched while chunk j is
-// summed, so the stream's next chunks are in flight during this chunk's x
-// gathers; one barrier a chunk both publishes chunk j's buffer and frees
-// chunk j - 1's for the next fetch. The sums are bell2_spmv_kernel's at
-// one plane: a chunk's 8 products in a register of their own, joined to
-// the running row sum; the flushes are bell2_walks_kernel's (each walk's
-// first and last rows added up by the CTA in walk order).
-constexpr int kRingGroups = 8;
-
-// Byte offsets of a group's ring in the kernel's dynamic shared memory.
-template <int kStages, typename V, int kGroups>
-struct RingLayout {
-  static constexpr int kWords = kSublanes * kLanes * 2;  // packed, int16
-  static constexpr int kVals =
-      kSublanes * kLanes * static_cast<int>(sizeof(V));
-  static constexpr int kMeta = kWords + kVals;  // meta row, then its block
-  static constexpr int kStage = kMeta + 16 * ((4 * (kMetaW + 1) + 15) / 16);
-  static constexpr int kGroup = kStages * kStage;
-  static constexpr int kBytes = kGroups * kGroup;
-};
-
-template <bool kContig, int kStages, typename V, int kGroups = kRingGroups>
-__global__ void __launch_bounds__(kLanes * kGroups)
-bell2_ring_kernel(const V* __restrict__ vals,
-                  const int16_t* __restrict__ packed,
-                  const int* __restrict__ meta,
-                  const int* __restrict__ step_block, int64_t C, int K,
-                  int BT, int cpc, const float* __restrict__ x,
-                  float* __restrict__ y) {
-  static_assert(kStages >= 2, "a ring of two buffers or more");
-  using L = RingLayout<kStages, V, kGroups>;
-  constexpr int kSlots = kSublanes * kLanes;
-  constexpr int kValCopies = L::kVals / (16 * kLanes);  // a thread's
-  constexpr int kBlock = kMetaW;  // where a buffer's meta row keeps its block
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int g = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
-  unsigned char* const ring = smem + g * L::kGroup;
-  const int64_t c0 = (static_cast<int64_t>(blockIdx.x) * kGroups + g) * cpc;
-  const int n = c0 >= C ? 0 : static_cast<int>(C - c0 < cpc ? C - c0 : cpc);
-  // this thread's pieces of chunk c0, and the chunk's meta row
-  const unsigned char* wg =
-      reinterpret_cast<const unsigned char*>(packed + c0 * kSlots) + lane * 16;
-  const unsigned char* vg =
-      reinterpret_cast<const unsigned char*>(vals + c0 * kSlots) + lane * 16;
-  const int* mg = lane < kMetaW ? meta + c0 * kMetaW + lane : nullptr;
-  // chunk c0 + j into buffer j % kStages; one group a call, empty past n
-  auto fetch = [&](int j) {
-    if (j < n) {
-      unsigned char* b = ring + (j % kStages) * L::kStage;
-      cp_async16(b + lane * 16, wg + static_cast<int64_t>(j) * 2 * kSlots);
-#pragma unroll
-      for (int k = 0; k < kValCopies; ++k)
-        cp_async16(b + L::kWords + (k * kLanes + lane) * 16,
-                   vg + static_cast<int64_t>(j) * L::kVals + k * kLanes * 16);
-      int* m = reinterpret_cast<int*>(b + L::kMeta);
-      if (lane < kMetaW)
-        cp_async4(m + lane, mg + static_cast<int64_t>(j) * kMetaW);
-      else if (lane == kBlock)
-        cp_async4(m + kBlock, step_block + (c0 + j) / K);
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int j = 0; j < kStages - 1; ++j) fetch(j);
-  int head = -1, row = -1;  // y tile rows: the walk's first; the running one
-  float head_sum = 0.0f, acc = 0.0f;
-  for (int j = 0; j < n; ++j) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of chunk j
-    group_sync(g);  // the group's; and chunk j - 1's buffer is free
-    fetch(j + kStages - 1);
-    const unsigned char* b = ring + (j % kStages) * L::kStage;
-    const int16_t* pk = reinterpret_cast<const int16_t*>(b);
-    const V* v = reinterpret_cast<const V*>(b + L::kWords);
-    const int* m = reinterpret_cast<const int*>(b + L::kMeta);
-    const int tgt = m[kBlock] * BT + m[0];
-    float own = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kSublanes; ++i) {
-      const int q = pk[i * kLanes + lane] & 0x7F;
-      const int r2 = (pk[i * kLanes + q] >> 7) & 0x1F;
-      const int xrow = kContig ? m[2] + r2 : m[2 + (r2 & 7)];
-      own = fmaf(widen(v[i * kLanes + lane]),
-                 x[static_cast<int64_t>(xrow) * kLanes + q], own);
-    }
-    if (tgt != row) {
-      if (row < 0)
-        head = tgt;
-      else if (row == head)
-        head_sum = acc;  // kept for the CTA's adds
-      else if (acc != 0.0f)  // all its chunks are here
-        atomicAdd(y + static_cast<int64_t>(row) * kLanes + lane, acc);
-      row = tgt;
-      acc = 0.0f;
-    }
-    acc += own;
-  }
-  // the walk's first and last rows (-1: none; a walk of one row has no
-  // last, an empty one neither) and their sums, over the group's ring
-  cp_async_wait<0>();
-  group_sync(g);  // the group has read its last buffer
-  const bool one_row = row == head;
-  int* ends = reinterpret_cast<int*>(ring);
-  float* sums = reinterpret_cast<float*>(ring + 16);
-  if (lane == 0) {
-    ends[0] = head;
-    ends[1] = one_row ? -1 : row;
-  }
-  sums[lane] = one_row ? acc : head_sum;
-  sums[kLanes + lane] = one_row ? 0.0f : acc;
-  __syncthreads();
-  if (g == 0) {  // runs of equal rows in walk order, one add each
-    int cur = -1;
-    float s = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 2 * kGroups; ++k) {
-      const unsigned char* e = smem + (k / 2) * L::kGroup;
-      const int r = reinterpret_cast<const int*>(e)[k % 2];
-      if (r < 0) continue;
-      if (r != cur) {
-        if (cur >= 0 && s != 0.0f)
-          atomicAdd(y + static_cast<int64_t>(cur) * kLanes + lane, s);
-        cur = r;
-        s = 0.0f;
-      }
-      s += reinterpret_cast<const float*>(e + 16)[(k % 2) * kLanes + lane];
-    }
-    if (cur >= 0 && s != 0.0f)
-      atomicAdd(y + static_cast<int64_t>(cur) * kLanes + lane, s);
-  }
-}
-
-// The ring kernel's walks are run-time: as many chunks a group as make
-// every group resident at once, so one wave covers the stream whatever its
-// length. Its shared memory (kRingGroups rings) passes the 48 KB a CTA takes
-// without asking: the limit is raised once a device, at the first launch.
-constexpr int kMaxDevices = 64;
-
-// Chunks a group of the ring kernel walks on C chunks (0 where the
-// kernel cannot be made to launch).
-template <bool kContig, int kStages, typename V, int kGroups>
-int ring_walk(int64_t C) {
-  auto kernel = bell2_ring_kernel<kContig, kStages, V, kGroups>;
-  constexpr int kBytes = RingLayout<kStages, V, kGroups>::kBytes;
-  static bool raised[kMaxDevices] = {};
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  if (device < 0 || device >= kMaxDevices) return 0;
-  if (!raised[device]) {
-    if (cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kBytes) != cudaSuccess)
-      return 0;
-    raised[device] = true;
-  }
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                kLanes * kGroups, kBytes);
-  const int64_t resident = static_cast<int64_t>(sms) * per_sm * kGroups;
-  if (resident <= 0) return 0;
-  return C <= resident ? 1 : static_cast<int>((C + resident - 1) / resident);
-}
-
-// Chunks a group of the ring kernel with kStages buffers walks on C chunks.
-template <int kStages, typename V, int kGroups = kRingGroups>
-int ring_walk(int64_t C, int contig) {
-  return contig ? ring_walk<true, kStages, V, kGroups>(C)
-                : ring_walk<false, kStages, V, kGroups>(C);
-}
-
-// cpc: chunks a group (ring_walk; 0 when it could not tell, refused)
-template <int kStages, int kGroups = kRingGroups, typename V>
-cudaError_t launch_ring(const V* vals, const int16_t* packed, const int* meta,
-                        const int* step_block, int64_t C, int K, int BT,
-                        int contig, int cpc, const float* x, float* y,
-                        cudaStream_t stream) {
-  if (cpc <= 0) return cudaErrorInvalidConfiguration;
-  constexpr int kBytes = RingLayout<kStages, V, kGroups>::kBytes;
-  const unsigned int grid = blocks_for(blocks_for(C, cpc), kGroups);
-  if (contig)
-    bell2_ring_kernel<true, kStages, V, kGroups>
-        <<<grid, kLanes * kGroups, kBytes, stream>>>(
-            vals, packed, meta, step_block, C, K, BT, cpc, x, y);
-  else
-    bell2_ring_kernel<false, kStages, V, kGroups>
-        <<<grid, kLanes * kGroups, kBytes, stream>>>(
-            vals, packed, meta, step_block, C, K, BT, cpc, x, y);
-  return cudaSuccess;
-}
-
-// cp.async copies 16-byte pieces: the values and packed words of a
-// one-plane float stream start on a 16-byte boundary (every chunk then
-// does: 4 KB, 2 KB).
-inline bool aligned16(const void* a, const void* b) {
-  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
-          15) == 0;
-}
-
-
-// B2's forms (one plane, float or bf16 values): 0 bell2_spmv_kernel
-// walking 8 chunks a CTA (before the redesign); 1 the same walking the
-// fewest of 1, 2, 4 and 8 chunks that keep every CTA resident (walk_for);
-// 2, 3, 4 the ring kernel with 2, 3, 4 buffers a group, 8 groups a CTA,
-// over its own occupancy rule's walk; 5 the ring of 2 with one group a CTA
-// (a row's sums then meet in y from every walk that holds them, in any
-// order); 6 bell2_walks_kernel, 8 groups a CTA (what ships); 7 the same
-// with 4 groups a CTA. cpc > 0 gives the walk instead (1, 2, 4 or 8 for
-// forms 0 and 1).
-template <typename V>
-int b2_walk(int64_t C, int contig, int form) {
-  switch (form) {
-    case 0:
-      return 8;
-    case 1: {
-      const int w =
-          contig ? walk_for(bell2_spmv_kernel<true, 1, float, 1, false, V>,
-                            C, 8)
-                 : walk_for(bell2_spmv_kernel<false, 1, float, 1, false, V>,
-                            C, 8);
-      return w <= 1 ? 1 : w <= 2 ? 2 : w <= 4 ? 4 : 8;
-    }
-    case 2:
-      return ring_walk<2, V>(C, contig);
-    case 3:
-      return ring_walk<3, V>(C, contig);
-    case 4:
-      return ring_walk<4, V>(C, contig);
-    case 5:
-      return ring_walk<2, V, 1>(C, contig);
-    case 6:
-      return group_walk<8, V>(C, contig);
-    case 7:
-      return group_walk<4, V>(C, contig);
-  }
-  return 0;
-}
-
-template <int W, typename V>
-void launch_walk(const V* vals, const int16_t* packed, const int* meta,
-                 const int* step_block, int64_t C, int K, int BT, int contig,
-                 const float* x, float* y, cudaStream_t stream) {
-  const unsigned int grid = blocks_for(C, W);
-  if (contig)
-    bell2_spmv_kernel<true, 1, float, W, false, V>
-        <<<grid, kLanes, 0, stream>>>(vals, packed, meta, step_block, C, K,
-                                      BT, x, 0, y, 0, 1);
-  else
-    bell2_spmv_kernel<false, 1, float, W, false, V>
-        <<<grid, kLanes, 0, stream>>>(vals, packed, meta, step_block, C, K,
-                                      BT, x, 0, y, 0, 1);
-}
-
-template <typename V>
-int b2_form(const V* vals, const int16_t* packed, const int* meta,
-            const int* step_block, int64_t C, int K, int BT, int contig,
-            int form, int cpc, int64_t tiles, const float* x, float* y,
-            cudaStream_t stream) {
-  const int w = cpc > 0 ? cpc : b2_walk<V>(C, contig, form);
-  const bool ring = form >= 2 && form <= 5;
-  if (C <= 0 || w <= 0 || tiles < 0 || (ring && !aligned16(vals, packed)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t z =
-      zero_pass<float>(step_block, C, K, BT, tiles, y, 0, 1, stream);
-  if (z != cudaSuccess) return static_cast<int>(z);
-  cudaError_t err = cudaSuccess;
-  if (form <= 1) {
-    switch (w) {
-#define WALK(W)                                                              \
-  case W:                                                                    \
-    launch_walk<W>(vals, packed, meta, step_block, C, K, BT, contig, x, y,   \
-                   stream);                                                  \
-    break;
-      WALK(1) WALK(2) WALK(4) WALK(8)
-#undef WALK
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else if (form == 2) {
-    err = launch_ring<2>(vals, packed, meta, step_block, C, K, BT, contig, w,
-                         x, y, stream);
-  } else if (form == 3) {
-    err = launch_ring<3>(vals, packed, meta, step_block, C, K, BT, contig, w,
-                         x, y, stream);
-  } else if (form == 4) {
-    err = launch_ring<4>(vals, packed, meta, step_block, C, K, BT, contig, w,
-                         x, y, stream);
-  } else if (form == 5) {
-    err = launch_ring<2, 1>(vals, packed, meta, step_block, C, K, BT, contig,
-                            w, x, y, stream);
-  } else if (form == 6) {
-    launch_walks<8>(vals, packed, meta, step_block, C, K, BT, contig, w, x, y,
-                    stream);
-  } else {
-    launch_walks<4>(vals, packed, meta, step_block, C, K, BT, contig, w, x, y,
-                    stream);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-}  // namespace
-
-extern "C" int cfs_bell2_b2_form(const void* vals, int bf16,
-                                 const int16_t* packed, const int* meta,
-                                 const int* step_block, int64_t C, int K,
-                                 int BT, int contig, int form, int cpc,
-                                 int64_t tiles, const float* x, float* y,
-                                 cudaStream_t stream) {
-  if (form < 0 || form > 7) return static_cast<int>(cudaErrorInvalidValue);
-  return bf16 ? b2_form(static_cast<const __nv_bfloat16*>(vals), packed,
-                        meta, step_block, C, K, BT, contig, form, cpc, tiles,
-                        x, y, stream)
-              : b2_form(static_cast<const float*>(vals), packed, meta,
-                        step_block, C, K, BT, contig, form, cpc, tiles, x, y,
-                        stream);
-}
-extern "C" int cfs_bell2_b2_walk(int64_t C, int contig, int bf16, int form) {
-  return bf16 ? b2_walk<__nv_bfloat16>(C, contig, form)
-              : b2_walk<float>(C, contig, form);
-}
-"""
-
-
-#: the forms of the symmetric diagonal kernel, for the comparison in phase
-#: 4 only: the port's kernel source included whole (``{src}``), the kernel
-#: as it stood before its redesign, and one entry point a value type,
-#: ``cfs_sdia_sym_form(_f64)``, which launches ``form`` over a group of 1
-#: (the kRhs = 1 instance) or up to 8 planes (kRhs = 8). Form -1 is the
-#: kernel before: one thread per output row in CTAs of 256, every diagonal
-#: in turn, the transpose side gathered (each value read twice). Forms 0-3
-#: are step 1 of the redesign (``SDIA_FORMS``: rows a CTA x slices of a
-#: row's diagonals, the loads of several diagonals issued together, the
-#: transpose side gathered); forms 4-8 add step 2, the transpose products
-#: of offsets up to 64 scattered into a shared y tile with its halo, each
-#: such value read once; forms 9-12 add step 3: the CTA's x rows within 64
-#: of its own staged in shared memory for every plane, where offsets up to
-#: 64 read them. The forms' kernel is a copy of the family the redesign was
-#: measured in; the port's ``sdia_sym_kernel`` is form 1 (128 rows x 2
-#: slices, gather), which over planes stages x as form 11 does where the
-#: upload's ``dia_stage_x`` says so (``ships`` in the timings).
-SDIA_FORMS = ((256, 1, False, False), (128, 2, False, False),
-              (64, 4, False, False), (32, 8, False, False),
-              (256, 1, True, False), (128, 2, True, False),
-              (64, 4, True, False), (128, 4, True, False),
-              (256, 2, True, False), (64, 4, False, True),
-              (32, 8, False, True), (128, 2, False, True),
-              (128, 4, True, True))
-SDIA_SYM_ALT_SRC = r"""
-#include "{src}"
-namespace {
-template <typename T, int kRhs>
-__global__ void sdia_sym_before_kernel(const T* __restrict__ vals,
-                                       const int* __restrict__ offsets, int D,
-                                       int64_t n_vals_rows,
-                                       const T* __restrict__ x, int64_t x_len,
-                                       int64_t xs, T* __restrict__ y,
-                                       int64_t y_len, int64_t ys, int nr) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= y_len) return;
-  const bool own = g < n_vals_rows;
-  T acc[kRhs];
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
-  for (int j = 0; j < D; ++j) {
-    const int64_t d = offsets[j];
-    const int64_t s = g - d;
-    if (own && s >= 0 && s < x_len) {
-      const T v =
-          vals[((g >> 10) * D + j) * kBlockRows + (g & (kBlockRows - 1))];
-#pragma unroll
-      for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) acc[b] = mul_add(v, x[b * xs + s], acc[b]);
-    }
-    const int64_t h = g + d;
-    if (h < n_vals_rows && h < x_len) {
-      const T v =
-          vals[((h >> 10) * D + j) * kBlockRows + (h & (kBlockRows - 1))];
-#pragma unroll
-      for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) acc[b] = mul_add(v, x[b * xs + h], acc[b]);
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b)
-    if (live<kRhs>(b, nr)) y[b * ys + g] += acc[b];
-}
-
-// steps 1-3: rows a CTA x slices; the transpose side of offsets up to
-// kSdiaHalo scattered into a shared y tile with its halo (kScatter); x
-// rows within kSdiaHalo staged in shared memory (kStageX)
-template <typename T, int kRhs, int kRows, int kSlices, bool kScatter,
-          bool kStageX>
-__global__ void sdia_forms_kernel(const T* __restrict__ vals, const int* __restrict__ offsets,
-                int D, int64_t n_vals_rows, const T* __restrict__ x,
-                int64_t x_len, int64_t xs, T* __restrict__ y, int64_t y_len,
-                int64_t ys, int nr) {
-  static_assert(kBlockRows % kRows == 0 && (!kScatter || kSdiaHalo <= kRows),
-                "a CTA in one value block, its halo in the previous CTA");
-  constexpr int kThreads = kRows * kSlices;
-  constexpr int kUnroll = kRhs == 1 ? 4 : 2;  // 4 spilled at kRhs = 2
-  constexpr int kHalo = kScatter ? kSdiaHalo : 0;
-  constexpr int kSpan = kHalo + kRows;  // rows of the shared y tile
-  // x[r0 - kSdiaHalo, r0 + kRows + kSdiaHalo) of each plane (kStageX)
-  constexpr int kXSpan = kStageX ? kRows + 2 * kSdiaHalo : 1;
-  // scatter: the y tile; gather: each slice's row sums
-  __shared__ T sh[kScatter ? 1 : kSlices][kRhs][kSpan];
-  __shared__ T xsh[kStageX ? kRhs : 1][kXSpan];
-  __shared__ int hmax;  // the largest scattered offset
-  const int tid = threadIdx.x;
-  const int r = tid % kRows, s = tid / kRows;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int64_t h = r0 + r;
-  const bool hv = h < n_vals_rows;
-  const T* vh = vals + (h >> 10) * D * kBlockRows + (h & (kBlockRows - 1));
-  if constexpr (kScatter) {
-    if (tid == 0) hmax = 0;
-    for (int i = tid; i < kRhs * kSpan; i += kThreads)
-      sh[0][i / kSpan][i % kSpan] = T(0);
-  }
-  if constexpr (kStageX) {
-    for (int i = tid; i < kRhs * kXSpan; i += kThreads) {
-      const int b = i / kXSpan, k = i % kXSpan;
-      const int64_t gx = r0 - kSdiaHalo + k;
-      xsh[b][k] = live<kRhs>(b, nr) && gx >= 0 && gx < x_len
-                      ? x[b * xs + gx] : T(0);
-    }
-  }
-  if constexpr (kScatter || kStageX) __syncthreads();
-  // x at row h + e of plane b, |e| <= kSdiaHalo for a staged read; zero
-  // outside [0, x_len)
-  auto x_at = [&](int b, int64_t e) -> T {
-    if constexpr (kStageX) return xsh[b][kSdiaHalo + r + e];
-    const int64_t i = h + e;
-    return i >= 0 && i < x_len ? x[b * xs + i] : T(0);
-  };
-  T xh[kScatter ? kRhs : 1];  // x[h] of each plane, for the scatter
-  if constexpr (kScatter) {
-    for (int j = tid; j < D; j += kThreads) {
-      const int d = offsets[j];
-      if (d <= kHalo) atomicMax(&hmax, d);
-    }
-#pragma unroll
-    for (int b = 0; b < kRhs; ++b)
-      xh[b] = live<kRhs>(b, nr) ? x_at(b, 0) : T(0);
-  }
-  T acc[kRhs];
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = T(0);
-  for (int j0 = s; j0 < D; j0 += kSlices * kUnroll) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u * kSlices;
-      if (j >= D) break;
-      const int64_t d = offsets[j];
-      const bool near = d <= kSdiaHalo;  // x staged, or scattered
-      const T v = hv ? vh[static_cast<int64_t>(j) * kBlockRows] : T(0);
-      if (kStageX && near) {
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr)) acc[b] = mul_add(v, x_at(b, -d), acc[b]);
-      } else if (hv && h - d >= 0 && h - d < x_len) {
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr))
-            acc[b] = mul_add(v, x[b * xs + h - d], acc[b]);
-      }
-      if (kScatter && near) {
-        if (hv && h < x_len) {
-#pragma unroll
-          for (int b = 0; b < kRhs; ++b)
-            if (live<kRhs>(b, nr)) atomicAdd(&sh[0][b][kHalo + r - d], v * xh[b]);
-        }
-      } else {
-        const int64_t t = h + d;
-        if (t < n_vals_rows && t < x_len) {
-          const T w =
-              vals[((t >> 10) * D + j) * kBlockRows + (t & (kBlockRows - 1))];
-#pragma unroll
-          for (int b = 0; b < kRhs; ++b)
-            if (live<kRhs>(b, nr))
-              acc[b] = mul_add(w, kStageX && near ? x_at(b, d) : x[b * xs + t],
-                               acc[b]);
-        }
-      }
-    }
-  }
-  if constexpr (kScatter) {
-#pragma unroll
-    for (int b = 0; b < kRhs; ++b)
-      if (live<kRhs>(b, nr)) atomicAdd(&sh[0][b][kHalo + r], acc[b]);
-  } else {
-#pragma unroll
-    for (int b = 0; b < kRhs; ++b) sh[s][b][r] = acc[b];
-  }
-  __syncthreads();
-  for (int i = tid; i < kRhs * kSpan; i += kThreads) {
-    const int b = i / kSpan, k = i % kSpan;
-    const int64_t g = r0 - kHalo + k;
-    if (!live<kRhs>(b, nr) || g < 0 || g >= y_len) continue;
-    T sum = sh[0][b][k];
-    if constexpr (!kScatter) {
-#pragma unroll
-      for (int t = 1; t < kSlices; ++t) sum += sh[t][b][k];
-      y[b * ys + g] += sum;
-    } else if (g < r0 || g >= r0 + kRows - hmax) {
-      if (sum != T(0)) atomicAdd(y + b * ys + g, sum);
-    } else {
-      y[b * ys + g] += sum;
-    }
-  }
-}
-
-template <typename T, int R, int kRows, int kSlices, bool kScatter,
-          bool kStageX>
-void launch_sdia_form(const T* vals, const int* offsets, int D,
-                      int64_t n_vals_rows, int64_t x_len, int64_t y_len,
-                      const T* x, int64_t xs, T* y, int64_t ys, int nr,
-                      cudaStream_t stream) {
-  const int64_t reach = y_len + (kScatter ? kSdiaHalo : 0);
-  const int64_t rows = reach < n_vals_rows ? reach : n_vals_rows;
-  if (rows > 0 && y_len > 0 && D > 0)
-    sdia_forms_kernel<T, R, kRows, kSlices, kScatter, kStageX>
-        <<<blocks_for(rows, kRows), kRows * kSlices, 0, stream>>>(
-            vals, offsets, D, n_vals_rows, x, x_len, xs, y, y_len, ys, nr);
-}
-
-template <typename T, int R>
-int sdia_form(int form, const T* vals, const int* offsets, int D,
-              int64_t n_vals_rows, int64_t x_len, int64_t y_len, const T* x,
-              int64_t xs, T* y, int64_t ys, int nr, cudaStream_t stream) {
-  switch (form) {
-    case -1:
-      if (y_len > 0 && D > 0)
-        sdia_sym_before_kernel<T, R><<<blocks_for(y_len, 256), 256, 0,
-                                       stream>>>(vals, offsets, D, n_vals_rows,
-                                                 x, x_len, xs, y, y_len, ys,
-                                                 nr);
-      break;
-#define FORM(F, ROWS, SLICES, SCATTER, STAGE)                                \
-  case F:                                                                    \
-    launch_sdia_form<T, R, ROWS, SLICES, SCATTER, STAGE>(                    \
-        vals, offsets, D, n_vals_rows, x_len, y_len, x, xs, y, ys, nr,       \
-        stream);                                                             \
-    break;
-    FORM(0, 256, 1, false, false) FORM(1, 128, 2, false, false)
-    FORM(2, 64, 4, false, false) FORM(3, 32, 8, false, false)
-    FORM(4, 256, 1, true, false) FORM(5, 128, 2, true, false)
-    FORM(6, 64, 4, true, false) FORM(7, 128, 4, true, false)
-    FORM(8, 256, 2, true, false) FORM(9, 64, 4, false, true)
-    FORM(10, 32, 8, false, true) FORM(11, 128, 2, false, true)
-    FORM(12, 128, 4, true, true)
-#undef FORM
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-}  // namespace
-#define ENTRY(NAME, T)                                                       \
-  extern "C" int NAME(int form, const T* vals, const int* offsets, int D,    \
-                      int64_t n_vals_rows, int64_t x_len, int64_t y_len,     \
-                      const T* x, int64_t xs, T* y, int64_t ys, int nr,      \
-                      cudaStream_t stream) {                                 \
-    if (nr < 1 || nr > 8) return static_cast<int>(cudaErrorInvalidValue);    \
-    return nr == 1 ? sdia_form<T, 1>(form, vals, offsets, D, n_vals_rows,    \
-                                     x_len, y_len, x, xs, y, ys, nr, stream) \
-                   : sdia_form<T, 8>(form, vals, offsets, D, n_vals_rows,    \
-                                     x_len, y_len, x, xs, y, ys, nr, stream);\
-  }
-ENTRY(cfs_sdia_sym_form, float)
-ENTRY(cfs_sdia_sym_form_f64, double)
-"""
-
-
-#: the forms of the signed diagonal kernel, for the comparison in phase 4
-#: only: the port's kernel source included whole (``{src}``) and one entry
-#: point, ``cfs_sdia_gen_form``, which launches ``form`` over a group of 1
-#: to 8 planes. Form -1 is B12 as it stood before its redesign: one
-#: thread per row in CTAs of 256, every diagonal in turn, x gathered from
-#: each of the group's planes (at plane stride xs), added into y. Forms 0
-#: and 1 are the shipped kernel (``sdia_gen_kernel``, x interleaved: one
-#: plane, or a group's planes side by side) at 4 slices a row, adding and
-#: storing. Forms 2-5 are a variant whose threads issue the loads of two
-#: diagonals together (1 and 2 slices, adding and storing). What ships,
-#: 1 or 2 slices by ``sdia_kernel.gen_slices``, is timed through its
-#: wrapper's launcher beside them.
-SDIA_GEN_ALT_SRC = r"""
-#include "{src}"
-namespace {
-template <int kRhs>
-__global__ void sdia_gen_before_kernel(const float* __restrict__ vals,
-                                       const int* __restrict__ offsets, int D,
-                                       int64_t n_rows,
-                                       const float* __restrict__ x,
-                                       int64_t x_len, int64_t xs,
-                                       float* __restrict__ y, int64_t ys,
-                                       int nr) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= n_rows) return;
-  const float* vg = vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
-  float acc[kRhs];
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
-  for (int j = 0; j < D; ++j) {
-    const int64_t s = g - static_cast<int64_t>(offsets[j]);
-    if (s >= 0 && s < x_len) {
-      const float v = vg[static_cast<int64_t>(j) * kBlockRows];
-#pragma unroll
-      for (int b = 0; b < kRhs; ++b)
-        if (live<kRhs>(b, nr)) acc[b] = fmaf(v, x[b * xs + s], acc[b]);
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b)
-    if (live<kRhs>(b, nr)) y[b * ys + g] += acc[b];
-}
-
-// the shipped kernel's loop with the loads of two diagonals issued
-// together (zero where x is out of range)
-template <int kRhs, int kSlices, bool kStore>
-__global__ void sdia_gen_pair_kernel(const float* __restrict__ vals,
-                                     const int* __restrict__ offsets, int D,
-                                     int64_t nv_rows, int64_t n_rows,
-                                     const float* __restrict__ x,
-                                     int64_t x_len, float* __restrict__ y,
-                                     int64_t ys, int nr) {
-  constexpr int kRows = kGenThreads / kSlices;
-  __shared__ float sums[kSlices][kRhs][kRows];
-  const int r = threadIdx.x % kRows, s = threadIdx.x / kRows;
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * kRows + r;
-  if (kSlices == 1 && g >= n_rows) return;
-  const float* vg = vals + (g >> 10) * D * kBlockRows + (g & (kBlockRows - 1));
-  float acc[kRhs];
-#pragma unroll
-  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0f;
-  if (g < nv_rows && g < n_rows) {
-    for (int j0 = s; j0 < D; j0 += 2 * kSlices) {
-      float v[2], xv[2][kRhs];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int j = j0 + u * kSlices;
-        const int64_t src = j < D ? g - static_cast<int64_t>(offsets[j]) : -1;
-        const bool ok = src >= 0 && src < x_len;
-        v[u] = ok ? vg[static_cast<int64_t>(j) * kBlockRows] : 0.0f;
-        if constexpr (kRhs == 1) {
-          xv[u][0] = ok ? x[src] : 0.0f;
-        } else if (ok) {
-          load_group<kRhs>(x + src * kRhs, xv[u]);
-        } else {
-#pragma unroll
-          for (int b = 0; b < kRhs; ++b) xv[u][b] = 0.0f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int b = 0; b < kRhs; ++b)
-          if (live<kRhs>(b, nr)) acc[b] = fmaf(v[u], xv[u][b], acc[b]);
-    }
-  }
-  if constexpr (kSlices == 1) {
-#pragma unroll
-    for (int b = 0; b < kRhs; ++b)
-      if (live<kRhs>(b, nr)) {
-        if constexpr (kStore)
-          y[b * ys + g] = acc[b];
-        else
-          y[b * ys + g] += acc[b];
-      }
-  } else {
-#pragma unroll
-    for (int b = 0; b < kRhs; ++b) sums[s][b][r] = acc[b];
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRhs * kRows; i += kGenThreads) {
-      const int b = i / kRows, k = i % kRows;
-      const int64_t row = static_cast<int64_t>(blockIdx.x) * kRows + k;
-      if (!live<kRhs>(b, nr) || row >= n_rows) continue;
-      float sum = sums[0][b][k];
-#pragma unroll
-      for (int t = 1; t < kSlices; ++t) sum += sums[t][b][k];
-      if constexpr (kStore)
-        y[b * ys + row] = sum;
-      else
-        y[b * ys + row] += sum;
-    }
-  }
-}
-
-template <int R>
-int gen_form(int form, const float* vals, const int* offsets, int D,
-             int64_t nv_rows, int64_t y_len, int64_t x_len, const float* x,
-             int64_t xs, float* y, int64_t ys, int nr, cudaStream_t stream) {
-  const bool store = form == 1 || form == 3 || form == 5;
-  const int64_t n_rows = store || y_len < nv_rows ? y_len : nv_rows;
-  if (n_rows <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
-  const unsigned int g1 = blocks_for(n_rows, kGenThreads);
-#define ARGS vals, offsets, D, nv_rows, n_rows, x, x_len, y, ys, nr
-  switch (form) {
-    case -1:
-      sdia_gen_before_kernel<R><<<g1, kGenThreads, 0, stream>>>(
-          vals, offsets, D, n_rows, x, x_len, xs, y, ys, nr);
-      break;
-    case 0:
-      sdia_gen_kernel<R, 4, false><<<blocks_for(n_rows, kGenThreads / 4),
-                                     kGenThreads, 0, stream>>>(ARGS);
-      break;
-    case 1:
-      sdia_gen_kernel<R, 4, true><<<blocks_for(n_rows, kGenThreads / 4),
-                                    kGenThreads, 0, stream>>>(ARGS);
-      break;
-    case 2:
-      sdia_gen_pair_kernel<R, 1, false><<<g1, kGenThreads, 0, stream>>>(ARGS);
-      break;
-    case 3:
-      sdia_gen_pair_kernel<R, 1, true><<<g1, kGenThreads, 0, stream>>>(ARGS);
-      break;
-    case 4:
-      sdia_gen_pair_kernel<R, 2, false><<<blocks_for(n_rows, kGenThreads / 2),
-                                          kGenThreads, 0, stream>>>(ARGS);
-      break;
-    case 5:
-      sdia_gen_pair_kernel<R, 2, true><<<blocks_for(n_rows, kGenThreads / 2),
-                                         kGenThreads, 0, stream>>>(ARGS);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef ARGS
-  return static_cast<int>(cudaGetLastError());
-}
-}  // namespace
-// x: for form -1 the group's planes at plane stride xs, else an
-// interleaved X of x_len elements (the plane for one plane)
-extern "C" int cfs_sdia_gen_form(int form, const float* vals,
-                                 const int* offsets, int D, int64_t nv_rows,
-                                 int64_t y_len, int64_t x_len, const float* x,
-                                 int64_t xs, float* y, int64_t ys, int nr,
-                                 cudaStream_t stream) {
-  switch (nr) {
-    case 1:
-      return gen_form<1>(form, vals, offsets, D, nv_rows, y_len, x_len, x, xs,
-                         y, ys, nr, stream);
-    case 2:
-      return gen_form<2>(form, vals, offsets, D, nv_rows, y_len, x_len, x, xs,
-                         y, ys, nr, stream);
-    case 3:
-    case 4:
-      return gen_form<4>(form, vals, offsets, D, nv_rows, y_len, x_len, x, xs,
-                         y, ys, nr, stream);
-    case 5:
-    case 6:
-    case 7:
-    case 8:
-      return gen_form<8>(form, vals, offsets, D, nv_rows, y_len, x_len, x, xs,
-                         y, ys, nr, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-"""
-
-#: what each form of ``SDIA_GEN_ALT_SRC`` is
-GEN_FORMS = {-1: "before (planes, 1 slice, add)", 0: "4 slices add",
-             1: "4 slices store", 2: "paired loads 1 slice add",
-             3: "paired loads 1 slice store", 4: "paired loads 2 slices add",
-             5: "paired loads 2 slices store"}
-
-#: the forms of the double paired kernel over planes (B10 f64), for the
-#: comparison in phase 4 only: the port's kernel source included whole
-#: (``{src}``) and one entry point, ``cfs_sbell_f64_form``, which zeroes
-#: the group's planes (``cudaMemset2DAsync``) and launches ``form`` over
-#: them, walking ``cpc`` chunks a CTA (0: the launcher's occupancy rule).
-#: Form 0 is B10 f64 as PR 13 shipped it: ``sbell_spmv_kernel`` over
-#: double, groups of at most 4 planes (static shared memory), every x
-#: tile restaged at every chunk. Forms 1-4 are ``sbell_planes_kernel``
-#: (groups of up to 8 planes, dynamic shared memory): 1 what ships (one
-#: group of 128 threads a CTA, x tiles kept while their tile stays and
-#: read as 16-byte pairs of planes, ``PlanesTiles``), 2 the same reading
-#: x plane by plane, 3 that with two groups sharing the planes, 4 what
-#: ships but restaging every tile at every chunk.
-#: ``cfs_sbell_f64_form_info`` gives a form's walk (``what`` 0) or shared
-#: memory a CTA (``what`` 1).
-F64_FORMS_SRC = r"""
-#include "{src}"
-namespace {
-template <int TW, int G, bool kKeep, bool kPairs = false>
-int planes_form(const double* vals, const int* packed, const int* meta,
-                const int* sb, int64_t C, int K, int BT, int cpc,
-                const double* x, int64_t xs, double* y, int64_t ys, int nr,
-                cudaStream_t stream) {
-  cudaError_t err = cudaSuccess;
-  const bool ok = with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    if constexpr (R >= G && (!kPairs || R >= 2))
-      err = launch_sbell_planes<TW, R, G, kKeep, kPairs>(
-          vals, packed, meta, sb, C, K, BT, cpc, x, xs, y, ys, nr, stream);
-    else
-      err = cudaErrorInvalidValue;
-  });
-  return ok ? static_cast<int>(err) : invalid();
-}
-
-template <int TW, int G, bool kKeep, bool kPairs = false>
-int planes_info(int64_t C, int nr, int what) {
-  int out = -1;
-  with_rhs(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    if constexpr (R >= G && (!kPairs || R >= 2)) {
-      if (planes_attr<TW, R, G, kKeep, kPairs>() != cudaSuccess) return;
-      out = what == 0
-                ? planes_walk<TW, R, G, kKeep, kPairs>(C)
-                : smem_of(sbell_planes_kernel<TW, R, G, kKeep, kPairs>,
-                          PlanesLayout<TW, R, G>::kBytes);
-    }
-  });
-  return out;
-}
-
-template <int TW>
-int pr13_form(const double* vals, const int* packed, const int* meta,
-              const int* sb, int64_t C, int K, int BT, const double* x,
-              int64_t xs, double* y, int64_t ys, int nr,
-              cudaStream_t stream) {
-  return with_rhs<4>(nr, [&](auto r) {
-           constexpr int R = decltype(r)::value;
-           launch_sbell<TW, R, double>(vals, packed, meta, sb, C, K, BT, x,
-                                       xs, y, ys, nr, stream);
-         })
-             ? static_cast<int>(cudaGetLastError())
-             : invalid();
-}
-
-template <int TW>
-int pr13_info(int64_t C, int nr, int what) {
-  int out = -1;
-  with_rhs<4>(nr, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    out = what == 0 ? chunks_per_cta<TW, R, double>(C)
-                    : smem_of(sbell_spmv_kernel<TW, R, double>);
-  });
-  return out;
-}
-
-template <int TW>
-int form_tw(int form, int cpc, const double* vals, const int* packed,
-            const int* meta, const int* sb, int64_t C, int K, int BT,
-            const double* x, int64_t xs, double* y, int64_t ys, int nr,
-            cudaStream_t stream) {
-  switch (form) {
-    case 0:
-      return pr13_form<TW>(vals, packed, meta, sb, C, K, BT, x, xs, y, ys,
-                           nr, stream);
-    case 1:
-      return planes_form<TW, 1, true, true>(vals, packed, meta, sb, C, K, BT,
-                                            cpc, x, xs, y, ys, nr, stream);
-    case 2:
-      return planes_form<TW, 1, true>(vals, packed, meta, sb, C, K, BT, cpc,
-                                      x, xs, y, ys, nr, stream);
-    case 3:
-      return planes_form<TW, 2, true>(vals, packed, meta, sb, C, K, BT, cpc,
-                                      x, xs, y, ys, nr, stream);
-    case 4:
-      return planes_form<TW, 1, false, true>(vals, packed, meta, sb, C, K,
-                                             BT, cpc, x, xs, y, ys, nr,
-                                             stream);
-    default:
-      return invalid();
-  }
-}
-
-template <int TW>
-int info_tw(int form, int64_t C, int nr, int what) {
-  switch (form) {
-    case 0: return pr13_info<TW>(C, nr, what);
-    case 1: return planes_info<TW, 1, true, true>(C, nr, what);
-    case 2: return planes_info<TW, 1, true>(C, nr, what);
-    case 3: return planes_info<TW, 2, true>(C, nr, what);
-    case 4: return planes_info<TW, 1, false, true>(C, nr, what);
-    default: return -1;
-  }
-}
-}  // namespace
-
-extern "C" int cfs_sbell_f64_form(int form, int cpc, const double* vals,
-                                  const int* packed, const int* meta,
-                                  const int* sb, int64_t C, int K, int BT,
-                                  int TW, int64_t tiles, const double* x,
-                                  int64_t xs, double* y, int64_t ys, int nr,
-                                  cudaStream_t stream) {
-  if ((TW != 2 && TW != 4) || nr < 1 || nr > (form == 0 ? 4 : 8))
-    return invalid();
-  const size_t width = static_cast<size_t>(tiles) * kLanes * sizeof(double);
-  const cudaError_t err = cudaMemset2DAsync(
-      y, nr == 1 ? width : ys * sizeof(double), 0, width, nr, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return TW == 2 ? form_tw<2>(form, cpc, vals, packed, meta, sb, C, K, BT, x,
-                              xs, y, ys, nr, stream)
-                 : form_tw<4>(form, cpc, vals, packed, meta, sb, C, K, BT, x,
-                              xs, y, ys, nr, stream);
-}
-
-extern "C" int cfs_sbell_f64_form_info(int form, int64_t C, int TW, int nr,
-                                       int what) {
-  return TW == 2 ? info_tw<2>(form, C, nr, what)
-                 : info_tw<4>(form, C, nr, what);
-}
-"""
-#: what each form of ``F64_FORMS_SRC`` is, and the most and the fewest
-#: planes a group of it takes
-F64_FORMS = {0: ("PR 13: sbell_spmv_kernel<TW, R, double>, 4-plane groups",
-                 4, 1),
-             1: ("ships: sbell_planes_kernel, pairs of planes", 8, 2),
-             2: ("plane by plane", 8, 1),
-             3: ("plane by plane, 2 thread groups a CTA", 8, 2),
-             4: ("pairs of planes, restaging every chunk", 8, 2)}
 
 
 def flagship(n=1024, deg=8, dtype=np.float32, seed=0):
@@ -2132,8 +534,8 @@ def _smoke_dir():
 
 
 def _nvcc_start(out, src, *more):
-    """Start nvcc with the port's flags on ``src`` (the side builds run
-    beside the port's own build and the planning of phase 3)."""
+    """Start nvcc with the port's flags on ``src`` (ptxas' report builds
+    beside the port's own build)."""
     from cfs_spmv_tpu_torch.ops import _cuda
 
     with open(out + ".log", "w") as log:  # ptxas' report outgrows a pipe
@@ -2200,29 +602,6 @@ def _regs_line(regs):
     return "; ".join(
         f"{k} {v[0]}" + (f" (+{v[1]} B spilled)" if v[1] else "")
         for k, v in sorted(regs.items()))
-
-
-def alt_start(stem, source):
-    """Write ``source`` into ``build/smoke`` and start its build (with
-    ptxas' report, for the forms' register counts)."""
-    src = os.path.join(_smoke_dir(), f"{stem}.cu")
-    with open(src, "w") as f:
-        f.write(source)
-    return _nvcc_start(os.path.join(_smoke_dir(), f"{stem}.so"), src,
-                       "-Xptxas", "-v")
-
-
-def alt_bind(stem, proc, symbol, argtypes):
-    """(entry point ``symbol`` of the finished build bound with
-    ``argtypes``, ptxas' text)."""
-    import ctypes
-
-    text = _nvcc_wait(proc, f"{stem}.cu")
-    fn = getattr(ctypes.CDLL(os.path.join(_smoke_dir(), f"{stem}.so")),
-                 symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn, text
 
 
 def stream_csr(torch, d):
@@ -3091,25 +1470,11 @@ def main() -> int:
     phase_done("1 card")
 
     # -- 2. build -------------------------------------------------------
-    # one nvcc per source, all started together: ptxas' report and the two
-    # comparison forms build beside the port's own library
-    import ctypes
-
-    p_, i32_, i64_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    side = {"ptxas": ptxas_start(),
-            "entries_alt": alt_start("entries_alt", ENTRIES_ALT_SRC),
-            "sbell_alt": alt_start("sbell_alt", SBELL_ALT_SRC),
-            "grid": alt_start("grid", GRID_FORMS_SRC.replace(
-                "{src}", _cuda._SRC)),
-            "sdia_alt": alt_start("sdia_alt", SDIA_SYM_ALT_SRC.replace(
-                "{src}", _cuda._SRC)),
-            "gen_alt": alt_start("gen_alt", SDIA_GEN_ALT_SRC.replace(
-                "{src}", _cuda._SRC)),
-            "f64_forms": alt_start("f64_forms", F64_FORMS_SRC.replace(
-                "{src}", _cuda._SRC))}
+    # ptxas' report builds beside the port's own library
+    ptxas = ptxas_start()
     _cuda.lib()
     phase_done("2 kernel build/load")
-    regs = ptxas_report(_nvcc_wait(side.pop("ptxas"),
+    regs = ptxas_report(_nvcc_wait(ptxas,
                                    "the kernel source with -Xptxas -v"))
     print(f"ptxas: {len(regs)} entry functions; registers per thread "
           f"(+ spill bytes): {_regs_line(regs)}", flush=True)
@@ -3758,37 +2123,6 @@ def main() -> int:
     mm_pair("unperm_gather_mm", make_unperm_mm, 0, "audikw_proxy (seed form)",
             exact=True)
 
-    # the forms of the unpermute in turns, device ms and device launches
-    # per call: the seed form that ships against the parent's composition
-    # (the gather, then the seed's product and pad, the gather's pad and
-    # the add), at one plane and at 8
-    for B in (1, RHS):
-        ua = uargs if B == 1 else (*uargs[:2], planes(B, fd.num_row_tiles))
-        Xs = xe if B == 1 else torch.rand((d.nrows, B), generator=g).to(dev)
-        fused = ((lambda: bk.unperm_gather_tiles(*ua, seed=(d.diag, Xs),
-                                                 tiles=NT_a)) if B == 1 else
-                 (lambda: bk.unperm_gather_tiles_mm(*ua, seed=(d.diag, Xs),
-                                                    tiles=NT_a)))
-
-        def composed(ua=ua, Xs=Xs, B=B):
-            if B == 1:
-                ot = bk.unperm_gather_tiles(*ua)[None]
-                return bk._composed(ot, (d.diag, Xs[:, None]), None, NT_a)
-            ot = bk.unperm_gather_tiles_mm(*ua)
-            return bk._composed(ot, (d.diag, Xs), None, NT_a)
-
-        if not torch.equal(fused().reshape(B, -1), composed().reshape(B, -1)):
-            raise AssertionError("unperm_gather: the fused seed form differs "
-                                 "from the composed one")
-        said = []
-        for what, fn in (("fused", fused), ("composed", composed),
-                         ("composed", composed), ("fused", fused)):
-            busy, _ = _device_ms(torch, fn)
-            said.append(f"{what} {_ms(busy)} ms in "
-                        f"{_device_launches(torch, fn)} launches")
-        print(f"unperm forms on audikw_proxy B={B} in turns, device: "
-              + "; ".join(said) + f" ({card})", flush=True)
-
     # B7 on an 8-tile-block replan of general_asym(g=50) whose rows
     # 20,000-59,999 are absent and get no covering chunks (so whole output
     # blocks are never visited, and they must keep their NaN), on
@@ -3829,14 +2163,12 @@ def main() -> int:
         rest[rows_] = False
         return rows_[rows_ < ds.num_row_tiles], rest
 
-    f32_grids = {}  # name -> (device struct, visited rows, unvisited mask)
     for ds, on in ((holes_f, "general_asym(g=50) with absent rows, 8-tile "
                     "blocks"),
                    (d_none, "cant_proxy NONE"), (fd, "audikw_proxy")):
         vrows, rest = visited_rows(ds)
         if ds is holes_f and not rest.any():
             raise AssertionError("the float replan has no unvisited block")
-        f32_grids[on] = (ds, vrows, rest)
         TPs = rest.shape[0]
         kw_s = dict(ds.stream_kw(), covers=ds.covers)
         S_s = S_far if ds is fd else stream_csr(torch, ds)
@@ -3974,11 +2306,9 @@ def main() -> int:
     # B4 and B8 on both entry lists at B = 1, 8 and 11, onto Y planes at a
     # plane stride past the plane; every row no entry names holds NaN and
     # must come back NaN bit for bit
-    def poisoned_entries_check(es, x_rows, on, nnz_per_row, launch=None):
+    def poisoned_entries_check(es, x_rows, on, nnz_per_row):
         """Max abs error against the twin over B4 (B = 1) and B8 (B = 1,
-        8, 11), or their float64 forms for a float64 entry list;
-        ``launch(es, x3, y3)`` stands in for the wrappers when the other
-        form of the kernel is checked."""
+        8, 11), or their float64 forms for a float64 entry list."""
         T = es.min_tiles
         dt = es.vals.dtype
         df = "_df" if dt == torch.float64 else ""
@@ -3997,9 +2327,7 @@ def main() -> int:
             wide = poisoned((B, T + 3, 128), dt)
             wide[:, :T] = y0.view(B, T, 128)
             y3 = wide[:, :T]
-            if launch is not None:
-                launch(es, x3, y3)
-            elif mv:
+            if mv:
                 mv_fn(es, x3[0], y3[0])
             else:
                 mm_fn(es, x3, y3)
@@ -4032,42 +2360,6 @@ def main() -> int:
               f"{int(torch.bincount(es_c.rows.long()).max())}, B = 1, {RHS}, "
               f"11 onto strided NaN-poisoned planes: unnamed rows kept bit "
               f"for bit, max_abs_err vs twin {worst}", flush=True)
-
-    # the two forms of the entry kernel: the warp-segmented sum that ships
-    # and one atomicAdd per entry, each against the twin, then in device
-    # time in turns (ships, other, other, ships)
-    entries_alt, _ = alt_bind(
-        "entries_alt", side.pop("entries_alt"), "cfs_entries_atomic",
-        [p_, p_, p_, i64_, p_, i64_, p_, i64_, i32_, p_])
-
-    def launch_alt(es, x3, y3):
-        _cuda.launch_groups(
-            "entries_atomic", x3, y3, lambda *pl: entries_alt(
-                es.rows.data_ptr(), es.cols.data_ptr(), es.vals.data_ptr(),
-                es.count, *pl))
-        return y3
-
-    for es_c, xr, on, npr in (
-            (es, d.x_rows, "the flagship", far_nnz_row),
-            (es_h, d_h.x_rows, "the hand-built stream", hp_acc.nnz / n_h)):
-        worst = poisoned_entries_check(es_c, xr, on, npr, launch=launch_alt)
-        said = [f"per-entry atomics max_abs_err vs twin {worst}"]
-        for B in (1, RHS):
-            x3 = planes(B, xr)
-            y3 = planes(B, es_c.min_tiles)
-            forms = {
-                "bell2_entries_kernel":
-                    lambda: bk.bell2_spmm_tiles_accum(es_c, x3, y3),
-                "entries_atomic_kernel": lambda: launch_alt(es_c, x3, y3),
-            }
-            t = [_device_ms(torch, forms[k])[1].get(k) for k in (
-                "bell2_entries_kernel", "entries_atomic_kernel",
-                "entries_atomic_kernel", "bell2_entries_kernel")]
-            said.append(f"B={B}: warp segmented sum {_ms(t[0])} and "
-                        f"{_ms(t[3])} ms, per-entry atomics {_ms(t[1])} and "
-                        f"{_ms(t[2])} ms")
-        print(f"entry kernel forms on {on} ({es_c.count} entries), device "
-              f"ms: " + "; ".join(said) + f" ({card})", flush=True)
 
     # B5 on near_band_paired: the paired stream of the main path, the
     # same matrix planned with the other transpose-window count and with
@@ -4221,92 +2513,6 @@ def main() -> int:
         if dp is d4:
             big["sbell_spmm"] = dict(kern["sbell_spmm"])
 
-    # the forms of the paired kernel: the one before the redesign and the
-    # redesign's steps (``SBELL_ALT_SRC``), each against the twin, then in
-    # device time beside what ships
-    if d.transpose_windows != 4 or d4.transpose_windows != 4:
-        raise AssertionError("the forms are built for 4 transpose windows")
-    sbell_alt, said = alt_bind(
-        "sbell_alt", side.pop("sbell_alt"), "cfs_sbell_alt",
-        [p_, p_, p_, p_, i64_, i32_, i32_, i32_, i32_, i32_, i32_,
-         p_, i64_, p_, i64_, i32_, p_])
-    print(f"ptxas, the paired kernel's forms (template arguments: windows, "
-          f"planes, then the bits 1, 2, 4, 8 of the form): "
-          f"{_regs_line(ptxas_report(said))}", flush=True)
-
-    def run_form(dp, x3, y3, form, cpc, zero):
-        TP, _ = paired_geometry(dp)
-        _cuda.launch_groups(
-            "sbell_alt", x3, y3, lambda *pl: sbell_alt(
-                *(t.data_ptr() for t in paired_stream(dp)), dp.meta.shape[0],
-                dp.chunks_per_step, dp.tiles_per_block, TP, form, cpc, zero,
-                *pl))
-        return y3
-
-    FORMS = (-1, 0, 1, 2, 3, 4, 5, 6, 7, 10)
-    for dp, Ap, on, Bs, cpcs in (
-            (d_bt8, A, "near_band_paired BT=8", (1, 11), (1, 3)),
-            (d, A, "near_band_paired", (1, 11), (1, 3)),
-            (d4, A4, "near_band_paired_400k", (1, RHS), (3,))):
-        TP, kw_p = paired_geometry(dp)
-        worst = dict.fromkeys(FORMS, 0.0)
-        for B in Bs:
-            x3 = planes(B, dp.x_rows, extra=2)
-            yp = bk.sbell_spmm_tiles_plain(*paired_stream(dp), x3, **kw_p)
-            ys = bk.sbell_spmm_tiles_plain(
-                dp.vals.abs(), *paired_stream(dp)[1:], x3.abs(), **kw_p)
-            for form in FORMS:
-                for cpc in ((8,) if form < 0 else cpcs):
-                    wide = poisoned((B, TP + 3, 128))
-                    run_form(dp, x3, wide[:, :TP], form, cpc, 3)
-                    torch.cuda.synchronize()
-                    what = f"sbell form {form} cpc={cpc} B={B} on {on}"
-                    if not torch.isnan(wide[:, TP:]).all():
-                        raise AssertionError(f"{what}: wrote past a plane")
-                    worst[form] = max(worst[form], _agree(
-                        wide[:, :dp.num_row_tiles], yp, ys,
-                        2 * Ap.tuned.nnz_full / Ap.nrows, what))
-        print(f"sbell forms on {on}, B = {Bs}, chunks a CTA {cpcs} (form -1: "
-              f"8): max_abs_err vs twin by form {worst}", flush=True)
-
-    # in turns, two rounds: the form before (its walk of 8), the forms that
-    # ship (3 and 10) and the walk alone (0) over five walks, what ships
-    # through its wrapper; in the first round also each other step over
-    # two walks. Then the zero passes alone
-    for dp, on in ((d, "near_band_paired"), (d4, "near_band_paired_400k")):
-        TP, kw_p = paired_geometry(dp)
-        for B in (1, RHS):
-            x3 = planes(B, dp.x_rows)
-            y3 = torch.empty((B, TP, 128), device=dev)
-
-            def t_form(form, cpc, zero=0, key=None):
-                busy, by = _device_ms(
-                    torch, lambda: run_form(dp, x3, y3, form, cpc, zero))
-                return _ms(busy if key is None else by.get(key))
-
-            head = (f"sbell forms on {on} ({dp.meta.shape[0]} chunks) "
-                    f"B={B}")
-            for rnd in range(2):
-                said = [f"before (form -1, 8 chunks a CTA) {t_form(-1, 8)}"]
-                for form in (0, 3, 10) + ((1, 2, 4, 5, 6, 7) if rnd == 0
-                                          else ()):
-                    cpcs = (1, 2, 3, 4, 8) if form in (0, 3, 10) else (1, 4)
-                    said.append(f"form {form}: " + ", ".join(
-                        f"cpc={c} {t_form(form, c)}" for c in cpcs))
-                busy, by = _device_ms(
-                    torch, lambda: bk.sbell_spmm_tiles(
-                        *paired_stream(dp), x3, out=y3, **kw_p))
-                said.append(
-                    f"ships (cpc={walk(dp, B)}) kernel "
-                    f"{_ms(by.get('sbell_spmv_kernel'))} + zero pass "
-                    f"{_ms(by.get('Memset'))}")
-                print(f"{head} round {rnd}, device ms: " + "; ".join(said)
-                      + f" ({card})", flush=True)
-            print(f"{head} zero pass alone, device ms: one CTA per output "
-                  f"block (before) {t_form(-2, 1, 1)}, grid-stride kernel "
-                  f"{t_form(-2, 1, 2)}, cudaMemset2DAsync (ships) "
-                  f"{t_form(-2, 1, 3)} ({card})", flush=True)
-
     # B6 + B12 on a ragged general_asym(g=50) plan (125,000 rows: fewer x
     # and y rows than its padded value blocks hold), on the flagship as a
     # general matrix (33 diagonals), on cant_proxy() mirrored (64) and on
@@ -4450,74 +2656,6 @@ def main() -> int:
             extra[f"sdia_gen on {on}"] = row
             extra[f"sdia_gen_mm on {on}"] = row_mm
 
-    # the forms of the signed diagonal kernel (SDIA_GEN_ALT_SRC): the kernel
-    # before its redesign (x gathered from the planes) and the shipped
-    # kernel's other forms, against the twin at B = 1 and 11 onto strided
-    # planes, then in device time in turns beside what ships (1 and 2
-    # slices, adding and storing, through its wrapper's launcher) at B = 1
-    # and 8 (general_asym: two rounds)
-    gen_alt, said = alt_bind(
-        "gen_alt", side.pop("gen_alt"), "cfs_sdia_gen_form",
-        [i32_, p_, p_, i32_, i64_, i64_, i64_, p_, i64_, p_, i64_, i32_, p_])
-    print(f"ptxas, the signed diagonal kernel's forms: "
-          f"{_regs_line(ptxas_report(said))}", flush=True)
-
-    def run_gen_form(form, dg, x, y):
-        """Form ``form`` over the planes ``y``; x: planes for form -1, else
-        an interleaved X."""
-        _cuda.launch_groups("sdia_gen_form", x, y, lambda *pl: gen_alt(
-            form, dg.dia_vals.data_ptr(), dg.dia_offsets.data_ptr(),
-            dg.dia_vals.shape[1], dg.dia_vals.shape[0] * 1024, y[0].numel(),
-            x[0].numel() if form < 0 else x.shape[1], *pl))
-        return y
-
-    for on in ("flagship_csr", "cant_proxy_mirrored", "general_asym"):
-        dg, _, _, _, vals, offs, T, m = gen_ops[on]
-        worst = dict.fromkeys(GEN_FORMS, 0.0)
-        for B in (1, 11):
-            X = torch.rand((m, B), generator=g).to(dev)
-            x3 = ops.pad_x_mm(X, dg.x_rows)
-            xil = bk.interleave_x(X, dg.x_rows)
-            y3 = planes(B, T, extra=3)
-            yp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs)
-            zp = sk.sdia_gen_tiles_mm_plain(vals, x3, y3.clone(), offs,
-                                            store=True)
-            ys = sk.sdia_gen_tiles_mm_plain(
-                vals.abs().double(), x3.abs().double(), y3.abs().double(),
-                offs)
-            for form in GEN_FORMS:
-                got = strided(y3, lambda y: run_gen_form(
-                    form, dg, x3 if form < 0 else xil, y))
-                worst[form] = max(worst[form], _agree(
-                    got, zp if form in (1, 3, 5) else yp, ys,
-                    vals.shape[1], f"sdia_gen form {form} B={B} on {on}"))
-        print(f"sdia_gen forms on {on}, B = 1 and 11 onto strided planes: "
-              f"max_abs_err vs twin by form {worst}", flush=True)
-        for B in (1, RHS):
-            X = torch.rand((m, B), generator=g).to(dev)
-            x3 = ops.pad_x_mm(X, dg.x_rows)
-            xil = sk.gen_x(X, dg.x_rows)
-            y3 = planes(B, T)
-            for rnd in range(2 if on == "general_asym" else 1):
-                said = []
-                for form, what in GEN_FORMS.items():
-                    busy, _ = _device_ms(torch, lambda: run_gen_form(
-                        form, dg, x3 if form < 0 else xil, y3))
-                    said.append(f"{what} {_ms(busy)}")
-                for slices in (1, 2):
-                    for store in (False, True):
-                        _, by = _device_ms(torch, lambda: sk._launch_gen(
-                            vals, xil, y3, offs, "sdia_gen_tiles_mm", store,
-                            slices))
-                        said.append(f"{slices} slice{'s' * (slices > 1)} "
-                                    f"{'store' if store else 'add'} "
-                                    f"{_ms(by.get('sdia_gen_kernel'))}")
-                print(f"sdia_gen forms on {on} B={B} round {rnd}, device ms "
-                      f"(the shipped kernel takes "
-                      f"{sk.gen_slices(T * 128, vals.shape[1], sk._thread_slots(dev))}"
-                      f" slices here): " + "; ".join(said) + f" ({card})",
-                      flush=True)
-
     # B13 + B14 on stencil27's and cant_proxy's float64 plans (the kernel
     # row's): the diagonal stream with the halved main diagonal (offset
     # 0), onto nonzero y; B14 at B = 1, 11 and 8 onto Y planes at a plane
@@ -4586,91 +2724,6 @@ def main() -> int:
             *a, y.clone(), o),
         library=lambda: M_cant64 @ xl_cant64,
     )
-
-    # the forms of the symmetric diagonal kernel (SDIA_SYM_ALT_SRC): the
-    # kernel before its redesign and each step, against the twin on
-    # cant_proxy and stencil27 in float and in double at B = 1 and 11 onto
-    # nonzero Y planes at a plane stride past the plane; then in device
-    # time in turns beside what ships, at B = 1 and 8 (cant_proxy: two
-    # rounds, stencil27: one)
-    sdia_argtypes = [i32_, p_, p_, i32_, i64_, i64_, i64_, p_, i64_, p_,
-                     i64_, i32_, p_]
-    sdia_forms = {}
-    sdia_forms[torch.float32], said = alt_bind(
-        "sdia_alt", side.pop("sdia_alt"), "cfs_sdia_sym_form", sdia_argtypes)
-    print(f"ptxas, the symmetric diagonal kernel's forms (template "
-          f"arguments: type, planes, rows a CTA, slices, scatter, x "
-          f"staged): "
-          f"{_regs_line(ptxas_report(said))}", flush=True)
-    sdia_forms[f64] = ctypes.CDLL(os.path.join(
-        _smoke_dir(), "sdia_alt.so")).cfs_sdia_sym_form_f64
-    sdia_forms[f64].argtypes, sdia_forms[f64].restype = sdia_argtypes, i32_
-    FORMS_SDIA = (-1,) + tuple(range(len(SDIA_FORMS)))
-
-    def sdia_form_name(form):
-        if form < 0:
-            return "before"
-        rows_, slices, scatter, stage = SDIA_FORMS[form]
-        return (f"{form} ({rows_}x{slices} "
-                f"{'scatter' if scatter else 'gather'}"
-                f"{' x staged' if stage else ''})")
-
-    def run_sdia_form(form, d, x3, y3):
-        fn = sdia_forms[d.dia_vals.dtype]
-        _cuda.launch_groups("sdia_form", x3, y3, lambda *pl: fn(
-            form, d.dia_vals.data_ptr(), d.dia_offsets.data_ptr(),
-            d.dia_vals.shape[1], d.dia_vals.shape[0] * 1024, x3[0].numel(),
-            y3[0].numel(), *pl))
-        return y3
-
-    def sdia_shape(d):
-        """(x rows, y tiles) of a symmetric diagonal plan's operands."""
-        if d.dia_vals.dtype == f64:
-            TD = -(-d.nrows // 128)
-            return max(d.x_rows, TD), TD
-        return d.x_rows, d.num_row_tiles
-
-    sdia_runs = ("cant_proxy", "stencil27", "cant_proxy_f64", "stencil27_f64")
-    for run_name in sdia_runs:
-        _, d, _ = operands(run_name)
-        xr, T = sdia_shape(d)
-        dt, o = d.dia_vals.dtype, d.dia_offsets
-        worst = dict.fromkeys(FORMS_SDIA, 0.0)
-        for B in (1, 11):
-            x3 = planes(B, xr, extra=2, dtype=dt)
-            y0 = planes(B, T, extra=3, dtype=dt)
-            yp = sk.sdia_sym_tiles_mm_plain(d.dia_vals, x3, y0.clone(), o)
-            ys = sk.sdia_sym_tiles_mm_plain(d.dia_vals.abs().double(),
-                                            x3.abs().double(),
-                                            y0.abs().double(), o)
-            for form in FORMS_SDIA:
-                got = strided(y0, lambda y: run_sdia_form(form, d, x3, y))
-                worst[form] = max(worst[form], _agree(
-                    got, yp, ys, 2 * d.dia_vals.shape[1],
-                    f"sdia_sym form {form} B={B} on {run_name}"))
-        print(f"sdia_sym forms on {run_name} ({d.dia_vals.shape[1]} "
-              f"diagonals, {dt}), B = 1 and 11 onto strided planes: "
-              f"max_abs_err vs twin by form {worst}", flush=True)
-    for run_name in sdia_runs:
-        _, d, _ = operands(run_name)
-        xr, T = sdia_shape(d)
-        dt, o = d.dia_vals.dtype, d.dia_offsets
-        ships = sdf.sdia_sym_tiles_df_mm if dt == f64 else sk.sdia_sym_tiles_mm
-        for B in (1, RHS):
-            x3 = planes(B, xr, dtype=dt)
-            y3 = planes(B, T, dtype=dt)
-            for rnd in range(1 if run_name.startswith("stencil27") else 2):
-                said = []
-                for form in FORMS_SDIA:
-                    busy, _ = _device_ms(
-                        torch, lambda: run_sdia_form(form, d, x3, y3))
-                    said.append(f"{sdia_form_name(form)} {_ms(busy)}")
-                _, by = _device_ms(torch, lambda: ships(
-                    d.dia_vals, x3, y3, o, stage_x=d.dia_stage_x))
-                said.append(f"ships {_ms(by.get('sdia_sym_kernel'))}")
-                print(f"sdia_sym forms on {run_name} B={B} round {rnd}, "
-                      f"device ms: " + "; ".join(said) + f" ({card})",
-                      flush=True)
 
     # B15 + B16 on the chunk grid: first on an 8-tile-block replan of
     # general_asym(g=50) whose rows 20,000-59,999 are absent and get no
@@ -4867,241 +2920,18 @@ def main() -> int:
               f"{RHS}, 11 onto strided NaN-poisoned planes: unnamed rows "
               f"kept bit for bit, max_abs_err vs twin {worst}", flush=True)
 
-    # the double grid kernel's walk and zero pass through its launcher's
-    # own arguments (GRID_FORMS_SRC): each form against the twin, then in
-    # device time in turns, two rounds, beside what ships
-    grid_form, said = alt_bind(
-        "grid", side.pop("grid"), "cfs_bell2_f64_form",
-        [p_, p_, p_, p_, i64_, i32_, i32_, i32_, i32_, i64_, p_, i64_, p_,
-         i64_, i32_, p_])
-    print(f"ptxas, the grid kernel's forms (template arguments: contiguous, "
-          f"planes, type, walk, staged): {_regs_line(ptxas_report(said))}",
-          flush=True)
-    grid_lib = ctypes.CDLL(os.path.join(_smoke_dir(), "grid.so"))
-    walk_of = grid_lib.cfs_bell2_f64_walk
-    walk_of.argtypes, walk_of.restype = [i64_, i32_, i32_], i32_
-
-    def run_grid_form(ds, x3, y3, cpc, tiles):
-        _cuda.launch_groups(
-            "bell2_f64_form", x3, y3, lambda *pl: grid_form(
-                ds.vals.data_ptr(), ds.packed.data_ptr(), ds.meta.data_ptr(),
-                ds.step_block.data_ptr(), ds.meta.shape[0],
-                ds.chunks_per_step, ds.tiles_per_block, int(ds.contig), cpc,
-                tiles, *pl))
-        return y3
-
-    def stream_of(ds):
-        return (ds.vals, ds.packed, ds.meta, ds.step_block)
-
-    WALKS = (8, 1, 2, 4)  # 8 before this form of the launcher, 1 ships
-    for ds, on in ((d_ga, "general_asym float64"),
-                   (d, "audikw_proxy float64")):
-        BTs = ds.tiles_per_block
-        TPs = -(-ds.num_row_tiles // BTs) * BTs
-        C = ds.meta.shape[0]
-        npr = nnz_of(ds.vals) / ds.nrows
-        for B in (1, RHS):
-            x3 = planes(B, ds.x_rows, dtype=f64)
-            kw_s = dict(ds.stream_kw(), covers=ds.covers)
-            yp = bk.bell2_spmm_tiles_plain(*stream_of(ds), x3, **kw_s)
-            ysc = bk.bell2_spmm_tiles_plain(ds.vals.abs(),
-                                            *stream_of(ds)[1:],
-                                            x3.abs(), **kw_s)
-            worst = 0.0
-            for cpc in WALKS:
-                for tiles in (0, TPs):
-                    wide = poisoned((B, TPs + 3, 128), f64)
-                    run_grid_form(ds, x3, wide[:, :TPs], cpc, tiles)
-                    torch.cuda.synchronize()
-                    what = (f"bell2_spmv_df form walk={cpc} zero="
-                            f"{'memset' if tiles else 'kernel'} B={B} on {on}")
-                    if not torch.isnan(wide[:, TPs:]).all():
-                        raise AssertionError(f"{what}: wrote past a plane")
-                    worst = max(worst, _agree(
-                        wide[:, :ds.num_row_tiles], yp, ysc, npr, what))
-            y3 = torch.empty((B, TPs, 128), dtype=f64, device=dev)
-            head = (f"bell2_spmv_df forms on {on} ({C} chunks) B={B}: "
-                    f"max_abs_err vs twin {worst} over walks {WALKS} (the "
-                    f"occupancy rule's: {walk_of(C, int(ds.contig), B)}), "
-                    f"each after either zero pass; device ms")
-            for rnd in range(2):
-                said = []
-                for cpc in WALKS:
-                    _, by = _device_ms(
-                        torch, lambda: run_grid_form(ds, x3, y3, cpc, 0))
-                    said.append(
-                        f"walk {cpc} {_ms(by.get('bell2_spmv_kernel'))} "
-                        f"(zero kernel "
-                        f"{_ms(by.get('bell2_zero_blocks_kernel'))})")
-                _, by = _device_ms(
-                    torch, lambda: run_grid_form(ds, x3, y3, 8, TPs))
-                said.append(f"walk 8 after cudaMemset2DAsync: kernel "
-                            f"{_ms(by.get('bell2_spmv_kernel'))} + memset "
-                            f"{_ms(by.get('Memset'))}")
-                _, by = _device_ms(torch, lambda: bdf.bell2_spmm_tiles_df(
-                    *stream_of(ds), x3, out=y3, **kw_s))
-                zero = by.get("Memset", by.get("bell2_zero_blocks_kernel"))
-                said.append(f"ships (walk 1, covers={ds.covers}): kernel "
-                            f"{_ms(by.get('bell2_spmv_kernel'))} + zero "
-                            f"{_ms(zero)}")
-                print(f"{head} round {rnd}: " + "; ".join(said) + f" ({card})",
-                      flush=True)
-    # the float grid kernel's multi-plane forms (B7) through its launcher's
-    # own arguments (GRID_FORMS_SRC): walks of 8 (before), 1, 2 and 4
-    # chunks a CTA, x gathered from the planes, staged in shared memory or
-    # read interleaved, after either zero pass; each against the twin at B
-    # = 11 and 8 into NaN-poisoned planes on the three plans of B7 above,
-    # then in device time in turns, two rounds, on audikw_proxy and
-    # cant_proxy NONE at B = 8 beside what ships; and B2's zero pass, the
-    # zero kernel against cudaMemset2DAsync, through its wrapper in turns
-    grid_form32 = grid_lib.cfs_bell2_f32_form
-    grid_form32.argtypes = [p_, p_, p_, p_, i64_, i32_, i32_, i32_, i32_,
-                            i32_, i64_, p_, i64_, p_, i64_, i32_, p_]
-    grid_form32.restype = i32_
-    XFORMS = ("planes", "staged", "interleaved")
-
-    def run_grid_form32(ds, x3, y3, cpc, xform, tiles):
-        """``x3``: planes, or for ``xform`` 2 an interleaved X."""
-        _cuda.launch_groups(
-            "bell2_f32_form", x3, y3, lambda *pl: grid_form32(
-                ds.vals.data_ptr(), ds.packed.data_ptr(), ds.meta.data_ptr(),
-                ds.step_block.data_ptr(), ds.meta.shape[0],
-                ds.chunks_per_step, ds.tiles_per_block, int(ds.contig), cpc,
-                xform, tiles, *pl))
-        return y3
-
-    F32_FORMS = tuple((w, xf) for xf in range(3) for w in (8, 1, 2, 4))
-    for on, (ds, vrows, rest) in f32_grids.items():
-        TPs = rest.shape[0]
-        npr = nnz_of(ds.vals) / ds.nrows
-        kw_s = dict(ds.stream_kw(), covers=ds.covers)
-        worst = 0.0
-        for B in (11, RHS):
-            x3 = planes(B, ds.x_rows, extra=2)
-            x_il = bk.interleave_x(x3.reshape(B, -1).T, ds.x_rows)
-            yp = bk.bell2_spmm_tiles_plain(*stream_of(ds), x3, **kw_s)
-            ysc = bk.bell2_spmm_tiles_plain(ds.vals.abs(), *stream_of(ds)[1:],
-                                            x3.abs(), **kw_s)
-            for cpc, xform in F32_FORMS:
-                for tiles in ((0, TPs) if ds.covers else (0,)):
-                    wide = poisoned((B, TPs + 3, 128))
-                    run_grid_form32(ds, x_il if xform == 2 else x3,
-                                    wide[:, :TPs], cpc, xform, tiles)
-                    torch.cuda.synchronize()
-                    what = (f"bell2_spmm form walk={cpc} x {XFORMS[xform]} "
-                            f"zero={'memset' if tiles else 'kernel'} B={B} "
-                            f"on {on}")
-                    if not torch.isnan(wide[:, TPs:]).all():
-                        raise AssertionError(f"{what}: wrote past a plane")
-                    if not torch.isnan(wide[:, :TPs][:, rest]).all():
-                        raise AssertionError(f"{what}: an unvisited block "
-                                             "was written")
-                    if tiles and not torch.isfinite(wide[:, :TPs]).all():
-                        raise AssertionError(f"{what}: planes not zeroed "
-                                             "whole")
-                    worst = max(worst, _agree(
-                        wide[:, vrows], yp[:, vrows], ysc[:, vrows], npr,
-                        what))
-        print(f"bell2_spmm forms on {on} ({ds.meta.shape[0]} chunks, "
-              f"covers={ds.covers}): walks 8, 1, 2, 4, x from the planes, "
-              f"staged or interleaved, after "
-              f"{'either zero pass' if ds.covers else 'the zero kernel'}, "
-              f"B = 11 and {RHS} into NaN-poisoned planes: max_abs_err vs "
-              f"twin {worst}", flush=True)
-    for on in ("audikw_proxy", "cant_proxy NONE"):
-        ds, vrows, rest = f32_grids[on]
-        TPs = rest.shape[0]
-        kw_s = dict(ds.stream_kw(), covers=ds.covers)
-        x3 = planes(RHS, ds.x_rows)
-        x_il = bk.interleave_x(x3.reshape(RHS, -1).T, ds.x_rows)
-        y3 = torch.empty((RHS, TPs, 128), device=dev)
-        x1 = planes(1, ds.x_rows)[0]
-        y1 = torch.empty((TPs, 128), device=dev)
-        head = f"bell2_spmm forms on {on} ({ds.meta.shape[0]} chunks) B={RHS}"
-        for rnd in range(2):
-            said = []
-            for cpc, xform in F32_FORMS:
-                _, by = _device_ms(torch, lambda: run_grid_form32(
-                    ds, x_il if xform == 2 else x3, y3, cpc, xform, 0))
-                kernel = by.get("bell2_spmv_kernel",
-                                by.get("bell2_staged_kernel"))
-                said.append(f"walk {cpc} {XFORMS[xform]} {_ms(kernel)}")
-            said.append(f"zero kernel "
-                        f"{_ms(by.get('bell2_zero_blocks_kernel'))}")
-            _, by = _device_ms(torch, lambda: run_grid_form32(
-                ds, x3, y3, 8, 0, TPs))
-            said.append(f"cudaMemset2DAsync {_ms(by.get('Memset'))}")
-            _, by = _device_ms(torch, lambda: bk.bell2_spmm_tiles(
-                *stream_of(ds), x_il, out=y3, planes=RHS, **kw_s))
-            zero = by.get("Memset", by.get("bell2_zero_blocks_kernel"))
-            said.append(f"ships: kernel {_ms(by.get('bell2_spmv_kernel'))} "
-                        f"+ zero {_ms(zero)}")
-            print(f"{head} round {rnd}, device ms: " + "; ".join(said)
-                  + f" ({card})", flush=True)
-        # narrower groups: the planes form at walks 1 and 2 against the
-        # interleaved X at the group's own width (2 or 4 planes an element,
-        # a walk of 2, as it ships); one plane is its own interleaved X and
-        # takes the SpMV instance (the walk groups) either way
-        said = []
-        for B in (1, 2, 4):
-            xb = planes(B, ds.x_rows)
-            xb_il = bk.interleave_x(xb.reshape(B, -1).T, ds.x_rows)
-            yb = torch.empty((B, TPs, 128), device=dev)
-            for cpc, xform in ((2, 2),) if B == 1 else ((1, 0), (2, 0),
-                                                         (2, 2)):
-                _, by = _device_ms(torch, lambda: run_grid_form32(
-                    ds, xb_il if xform == 2 else xb, yb, cpc, xform, 0))
-                said.append(
-                    f"B={B} " + ("the SpMV instance " if B == 1 else
-                                 f"walk {cpc} {XFORMS[xform]} ")
-                    + _ms(by.get("bell2_spmv_kernel",
-                                 by.get("bell2_walks_kernel"))))
-        print(f"bell2_spmm forms on {on} at B = 1, 2 and 4, device ms "
-              f"(kernel, after the zero kernel): " + "; ".join(said)
-              + f" ({card})", flush=True)
-        said = []
-        for covers in (False, True, True, False):
-            _, by = _device_ms(torch, lambda: bk.bell2_spmv_tiles(
-                *stream_of(ds), x1, out=y1, covers=covers, **ds.stream_kw()))
-            zero = by.get("Memset", by.get("bell2_zero_blocks_kernel"))
-            said.append(f"{'cudaMemset2DAsync' if covers else 'zero kernel'}"
-                        f" {_ms(zero)} + kernel "
-                        f"{_ms(by.get('bell2_walks_kernel'))}")
-        print(f"bell2_spmv (B2) zero passes on {on} in turns, device ms: "
-              + "; ".join(said) + f" ({card})", flush=True)
-    # B2's redesign through its launcher's own arguments (GRID_FORMS_SRC,
-    # cfs_bell2_b2_form): the form before (bell2_spmv_kernel, a walk of 8),
-    # the occupancy rule's walk alone (the fewest of 1, 2, 4, 8 chunks that
-    # keep every CTA resident), the ring kernel (the stream staged by
-    # cp.async) with 2, 3 and 4 buffers a group, 8 groups a CTA, and with 2
-    # buffers and one group a CTA, the walk groups with 4 groups a CTA, and
-    # what ships (8 walk groups a CTA) over its rule's walk and at one chunk
-    # a walk; in float32 and bf16 (the values cast on the card), on
+    # B2 as it ships, in float32 and bf16 (the values cast on the card), on
     # audikw_proxy's far stream, cant_proxy NONE, shard 1 of D3's far grids
     # (general_asym() over 4 shards; phase 8 applies this operator) and the
-    # float replan with absent rows. Each form, and the wrapper as it
-    # ships, into NaN-poisoned tiles a few rows past the output after either
-    # zero pass: nothing written past the tiles, unvisited blocks keep their
-    # NaN, a covering stream's tiles come out finite whole, and the visited
-    # rows agree with the twin; whether what ships gives the same bits in 4
-    # calls. Then each in device time in turns, two rounds, beside what
-    # ships, with the bound and the library call (the float32 CSR product
-    # of the same stream, bf16 values rounded); and one SpMV kernel row
-    # each for cant_proxy NONE and the shard, in both types, timed in phase
-    # 5
+    # float replan with absent rows: into NaN-poisoned tiles a few rows past
+    # the output after either zero pass, nothing written past the tiles,
+    # unvisited blocks keep their NaN, a covering stream's tiles come out
+    # finite whole, and the visited rows agree with the twin; whether it
+    # gives the same bits in 4 calls; and one SpMV kernel row each for
+    # cant_proxy NONE and the shard, in both types, timed in phase 5
     from cfs_spmv_tpu_torch.parallel.dist import DistSpDMV
     from cfs_spmv_tpu_torch.parallel.mesh import make_mesh
 
-    b2_form = grid_lib.cfs_bell2_b2_form
-    b2_form.argtypes = [p_, i32_, p_, p_, p_, i64_, i32_, i32_, i32_, i32_,
-                        i32_, i64_, p_, p_, p_]
-    b2_form.restype = i32_
-    b2_walk = grid_lib.cfs_bell2_b2_walk
-    b2_walk.argtypes, b2_walk.restype = [i64_, i32_, i32_, i32_], i32_
-    B2_FORMS = ((0, 0, "walk 8 (before)"), (1, 0, "occupancy walk"),
-                (2, 0, "ring 2"), (3, 0, "ring 3"), (4, 0, "ring 4"),
-                (5, 0, "ring 2, 1 group a CTA"), (7, 0, "4 walk groups"),
-                (6, 0, "8 walk groups"), (6, 1, "8 walk groups at walk 1"))
     t0 = time.perf_counter()
     d3_op = DistSpDMV(gasym, make_mesh(4, device="cuda:0"))
     d3_far = d3_op.shards[1].far
@@ -5111,17 +2941,6 @@ def main() -> int:
         "audikw_proxy": fd, "cant_proxy NONE": d_none,
         "D3 general_asym P=4 shard 1": d3_far,
         "general_asym(g=50) with absent rows, 8-tile blocks": holes_f}
-
-    def run_b2_form(sa, ds, y, form_, cpc, tiles):
-        vals = sa[0]
-        err_ = b2_form(vals.data_ptr(), int(vals.dtype == torch.bfloat16),
-                       ds.packed.data_ptr(), ds.meta.data_ptr(),
-                       ds.step_block.data_ptr(), ds.meta.shape[0],
-                       ds.chunks_per_step, ds.tiles_per_block,
-                       int(ds.contig), form_, cpc, tiles, sa[4].data_ptr(),
-                       y.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        _cuda.check(err_, "bell2_b2_form")
-        return y
 
     def b2_row(sa, ds, on):
         """The kernel row of B2 (float32 or bf16 values ``sa[0]``) on a
@@ -5143,80 +2962,44 @@ def main() -> int:
     for on, ds in b2_streams.items():
         vrows, rest = visited_rows(ds)
         TPs = rest.shape[0]
-        C = ds.meta.shape[0]
         kw_s = dict(ds.stream_kw(), covers=ds.covers)
         x2 = planes(1, ds.x_rows)[0]
         for vt in (torch.float32, torch.bfloat16):
             sa = (ds.vals.to(vt), ds.packed, ds.meta, ds.step_block, x2)
-            bf = int(vt == torch.bfloat16)
-            tname = "bf16" if bf else "float32"
+            tname = "bf16" if vt == torch.bfloat16 else "float32"
             yp = bk.bell2_spmv_tiles_plain(*sa, **kw_s)
             ysc = bk.bell2_spmv_tiles_plain(sa[0].abs(), *sa[1:4], x2.abs(),
                                             **kw_s)
             npr = nnz_of(sa[0]) / ds.nrows
             worst = 0.0
-            for form_, cpc, fname in (*B2_FORMS, (None, 0, "ships")):
-                for tiles in ((0, TPs) if ds.covers else (0,)):
-                    wide = poisoned((TPs + 3, 128))
-                    if form_ is None:
-                        bk.bell2_spmv_tiles(*sa, out=wide[:TPs],
-                                            **dict(kw_s, covers=bool(tiles)))
-                    else:
-                        run_b2_form(sa, ds, wide[:TPs], form_, cpc, tiles)
-                    torch.cuda.synchronize()
-                    what = (f"bell2_spmv {tname} form {fname} zero="
-                            f"{'memset' if tiles else 'kernel'} on {on}")
-                    if not torch.isnan(wide[TPs:]).all():
-                        raise AssertionError(f"{what}: wrote past the tiles")
-                    if not torch.isnan(wide[:TPs][rest]).all():
-                        raise AssertionError(f"{what}: an unvisited block "
-                                             "was written")
-                    if tiles and not torch.isfinite(wide[:TPs]).all():
-                        raise AssertionError(f"{what}: tiles not zeroed "
-                                             "whole")
-                    worst = max(worst, _agree(wide[vrows], yp[vrows],
-                                              ysc[vrows], npr, what))
+            for tiles in ((0, TPs) if ds.covers else (0,)):
+                wide = poisoned((TPs + 3, 128))
+                bk.bell2_spmv_tiles(*sa, out=wide[:TPs],
+                                    **dict(kw_s, covers=bool(tiles)))
+                torch.cuda.synchronize()
+                what = (f"bell2_spmv {tname} zero="
+                        f"{'memset' if tiles else 'kernel'} on {on}")
+                if not torch.isnan(wide[TPs:]).all():
+                    raise AssertionError(f"{what}: wrote past the tiles")
+                if not torch.isnan(wide[:TPs][rest]).all():
+                    raise AssertionError(f"{what}: an unvisited block "
+                                         "was written")
+                if tiles and not torch.isfinite(wide[:TPs]).all():
+                    raise AssertionError(f"{what}: tiles not zeroed whole")
+                worst = max(worst, _agree(wide[vrows], yp[vrows],
+                                          ysc[vrows], npr, what))
             reps = [bk.bell2_spmv_tiles(*sa, **kw_s).clone()
                     for _ in range(4)]
             same = all(torch.equal(reps[0], r) for r in reps[1:])
-            lib_b = csr_mv(stream_csr(torch, dataclasses.replace(
-                ds, vals=sa[0].float())), x2)
-            bound, by_ = _bound(_nbytes(*sa) + _nbytes(yp),
-                                2 * nnz_of(sa[0]), "float32")
-            walks = ", ".join(f"{fname} {b2_walk(C, int(ds.contig), bf, f)}"
-                              for f, cpc, fname in B2_FORMS if not cpc)
             zeros = "either zero pass" if ds.covers else "the zero kernel"
-            print(f"bell2_spmv (B2) {tname} forms on {on} ({C} chunks, "
-                  f"contig={ds.contig}, covers={ds.covers}): every form and "
-                  f"the wrapper after {zeros} "
-                  f"into NaN-poisoned tiles, max_abs_err vs twin {worst}; "
-                  f"chunks a walk: {walks}, 8 walk groups at walk 1 1; what "
-                  f"ships "
-                  f"gives the same bits in 4 calls: {same} ({card})",
-                  flush=True)
-            y1 = torch.empty((TPs, 128), device=dev)
-            tl = TPs if ds.covers else 0
-            for rnd in range(2):
-                said = []
-                for form_, cpc, fname in B2_FORMS:
-                    _, by = _device_ms(torch, lambda: run_b2_form(
-                        sa, ds, y1, form_, cpc, tl))
-                    said.append(f"{fname} " + _ms(by.get(
-                        "bell2_walks_kernel", by.get("bell2_ring_kernel", by.get(
-                            "bell2_spmv_kernel")))))
-                _, by = _device_ms(torch, lambda: bk.bell2_spmv_tiles(
-                    *sa, out=y1, **kw_s))
-                zero = by.get("Memset", by.get("bell2_zero_blocks_kernel"))
-                said.append(f"ships {_ms(by.get('bell2_walks_kernel'))} + "
-                            f"zero {_ms(zero)}")
-                lib_t, _ = _device_ms(torch, lib_b)
-                said.append(f"library (CSR product) {_ms(lib_t)}")
-                print(f"bell2_spmv (B2) {tname} forms on {on} round {rnd}, "
-                      f"device ms (kernel): " + "; ".join(said)
-                      + f"; bound {bound:.4f} by {by_} ({card})",
-                      flush=True)
+            print(f"kernel bell2_spmv (B2) {tname} on {on} "
+                  f"({ds.meta.shape[0]} chunks, contig={ds.contig}, "
+                  f"covers={ds.covers}): after {zeros} into NaN-poisoned "
+                  f"tiles, max_abs_err vs twin {worst}; the same bits in 4 "
+                  f"calls: {same} ({card})", flush=True)
             if on in ("cant_proxy NONE", "D3 general_asym P=4 shard 1"):
-                key = "bell2_spmv_bf16" if bf else "bell2_spmv"
+                key = "bell2_spmv_bf16" if vt == torch.bfloat16 else \
+                    "bell2_spmv"
                 extra[f"{key} on {on}"] = b2_row(sa, ds, on)
     # -- 4b. the bf16 instances against their twins, on the bf16 runs' plan
     # arrays and on replans over 8-tile blocks with absent rows, at B = 11
@@ -5633,23 +3416,18 @@ def main() -> int:
     # 20,000-29,999 (``holed``): the paired one over 8-tile output blocks,
     # the mirrored one as D1's operator's shard 1, which holds the absent
     # range. Each against its float64 twin (``F64_TWIN_TOL``): B5 into
-    # NaN-poisoned tiles; B10 as it ships (``sbell_planes_kernel``, one
-    # launch and one zero pass a group of up to 8 planes) and its other
-    # forms (``F64_FORMS_SRC``: PR 13's; x read plane by plane, with one
-    # and with two thread groups a CTA; restaging every chunk) at B = 1, 2,
-    # 4, 8, 11 into NaN-poisoned strided planes, and a zero x (every
-    # covered tile +0, nothing past a plane written);
-    # B6 adding onto a nonzero y and storing from x itself into NaN-poisoned
-    # tiles whose rows past the value blocks must read +0; B12 as it ships
-    # (x staged over the plan's window, ``sdia_gen_staged_kernel``), staged
-    # at 1, 2, 4 and 8 slices, and as PR 13 shipped it
-    # (``sdia_gen_kernel``, 1 and 2 slices; the staged form at the same
-    # slices must equal it bit for bit) at B = 1, 2, 4, 8, 11 from X in
-    # place and copied, adding and storing into strided planes, and a zero
-    # X storing +0. Then each form's device time, in turns over two rounds,
-    # beside its bound, its twin and its library call (the float64 sparse
-    # CSR product of the same stream, ``paired_csr`` and ``dia_csr``, held
-    # to the twin first). The kernel rows are the shipped forms'.
+    # NaN-poisoned tiles; B10 (``sbell_planes_kernel``, one launch and one
+    # zero pass a group of up to 8 planes, checked in device launches at
+    # B = 8) at B = 1, 2, 4, 8, 11 into NaN-poisoned strided planes, and a
+    # zero x (every covered tile +0, nothing past a plane written); B6
+    # adding onto a nonzero y and storing from x itself into NaN-poisoned
+    # tiles whose rows past the value blocks must read +0; B12 (x staged
+    # over the plan's window, ``sdia_gen_staged_kernel``) at B = 1, 2, 4,
+    # 8, 11 from X in place and copied, adding and storing into strided
+    # planes, and a zero X storing +0. The kernel rows (timed in phase 5
+    # beside their bound, twin and library call: the float64 sparse CSR
+    # product of the same stream, ``paired_csr`` and ``dia_csr``, held to
+    # the twin first) are these kernels'.
     def double_instances():
         """The comparisons above; returns the float64 operators (their own
         scope: the kernel rows' closures of this phase read main's
@@ -5719,30 +3497,8 @@ def main() -> int:
             fn=lambda: bk.sbell_spmv_tiles(*pargs64, **kw_p64),
             plain=lambda: bk.sbell_spmv_tiles_plain(*pargs64, **kw_p64))
 
-        # B10 f64: what ships and the forms of F64_FORMS_SRC
-        f64_form, said = alt_bind(
-            "f64_forms", side.pop("f64_forms"), "cfs_sbell_f64_form",
-            [i32_, i32_, p_, p_, p_, p_, i64_, i32_, i32_, i32_, i64_,
-             p_, i64_, p_, i64_, i32_, p_])
-        print(f"ptxas, the double paired kernel's forms: "
-              f"{_regs_line(ptxas_report(said))}", flush=True)
-        if any(v[1] for v in ptxas_report(said).values()):
-            raise AssertionError("ptxas reports spills in F64_FORMS_SRC")
-        form_info = ctypes.CDLL(os.path.join(
-            _smoke_dir(), "f64_forms.so")).cfs_sbell_f64_form_info
-        form_info.argtypes = [i32_, i64_, i32_, i32_, i32_]
-        form_info.restype = i32_
-
-        def run_f64_form(dp, x3, y3, form, cpc=0):
-            TP, _ = paired_geometry(dp)
-            _cuda.launch_groups(
-                "sbell_f64_form", x3, y3, lambda *pl: f64_form(
-                    form, cpc, *(t.data_ptr() for t in paired_stream(dp)),
-                    dp.meta.shape[0], dp.chunks_per_step,
-                    dp.tiles_per_block, dp.transpose_windows, TP, *pl),
-                F64_FORMS[form][1])
-            return y3
-
+        # B10 f64 as it ships: one launch and one zero pass a group of up
+        # to 8 planes
         def ships_f64(dp, x3, y3):
             bk._launch_sbell(*paired_stream(dp), x3, y3, dp.chunks_per_step,
                              dp.tiles_per_block, dp.transpose_windows,
@@ -5752,26 +3508,20 @@ def main() -> int:
         for dp, on in ((dh64, on_ph), (dp64, on_p)):
             TP, kw_q = paired_geometry(dp)
             C, TW = dp.meta.shape[0], dp.transpose_windows
-            worst = dict.fromkeys(("ships", *F64_FORMS), 0.0)
+            worst = 0.0
             for B in (1, 2, 4, 8, 11):
                 x3 = planes(B, dp.x_rows, extra=2, dtype=f64)
                 yp = bk.sbell_spmm_tiles_plain(*paired_stream(dp), x3, **kw_q)
                 ys = bk.sbell_spmm_tiles_plain(
                     dp.vals.abs(), *paired_stream(dp)[1:], x3.abs(), **kw_q)
-                for form in worst:
-                    if form != "ships" and B < F64_FORMS[form][2]:
-                        continue
-                    wide = poisoned((B, TP + 3, 128), f64)
-                    if form == "ships":
-                        ships_f64(dp, x3, wide[:, :TP])
-                    else:
-                        run_f64_form(dp, x3, wide[:, :TP], form)
-                    torch.cuda.synchronize()
-                    what = f"sbell f64 form {form} B={B} on {on}"
-                    if not torch.isnan(wide[:, TP:]).all():
-                        raise AssertionError(f"{what}: wrote past a plane")
-                    worst[form] = max(worst[form], _agree(
-                        wide[:, :dp.num_row_tiles], yp, ys, npr_p, what))
+                wide = poisoned((B, TP + 3, 128), f64)
+                ships_f64(dp, x3, wide[:, :TP])
+                torch.cuda.synchronize()
+                what = f"sbell_spmm f64 B={B} on {on}"
+                if not torch.isnan(wide[:, TP:]).all():
+                    raise AssertionError(f"{what}: wrote past a plane")
+                worst = max(worst, _agree(
+                    wide[:, :dp.num_row_tiles], yp, ys, npr_p, what))
             paired_zero_check(dp, on)
             x8 = planes(RHS, dp.x_rows, dtype=f64)
             y8 = torch.empty((RHS, TP, 128), device=dev, dtype=f64)
@@ -5781,11 +3531,6 @@ def main() -> int:
                 raise AssertionError(f"sbell_spmm_tiles f64 B={RHS} on {on}: "
                                      f"{n8} device launches, not a kernel "
                                      "and a zero pass")
-            info = "; ".join(
-                f"form {f} ({F64_FORMS[f][0]}): B=8 walk "
-                f"{form_info(f, C, TW, min(RHS, F64_FORMS[f][1]), 0)}, "
-                f"{form_info(f, C, TW, min(RHS, F64_FORMS[f][1]), 1)} B "
-                f"shared a CTA" for f in F64_FORMS)
             pk = dp.packed.reshape(C, 8, 128).long()
             r2f = torch.gather((pk >> 7) & 7, 2, pk & 0x7F)
             rv, tv = r2f < TW, ((pk >> 7) & 7) < TW
@@ -5800,14 +3545,13 @@ def main() -> int:
                     f"{busy(rv):.2f} of a chunk's 8 sublanes, transpose "
                     f"entries in {busy(tv):.2f}")
             print(f"kernel sbell_spmm f64 on {on} ({fill}): max_abs_err vs "
-                  f"twin at B "
-                  f"= 1, 2, 4, 8, 11 into NaN-poisoned strided planes, by "
-                  f"form: {worst}; zero x (B = 1, 11): every covered tile "
-                  f"zeroed, nothing past a plane written; ships: walk "
+                  f"twin at B = 1, 2, 4, 8, 11 into NaN-poisoned strided "
+                  f"planes {worst}; zero x (B = 1, 11): every covered tile "
+                  f"zeroed, nothing past a plane written; walk "
                   f"{walk(dp, 1)} at B=1 and {walk(dp, RHS)} at B={RHS}, "
                   f"{_cuda.lib().cfs_sbell_smem(TW, 1, 1)} and "
                   f"{_cuda.lib().cfs_sbell_smem(TW, RHS, 1)} B of shared "
-                  f"memory a CTA, {n8} device launches at B={RHS}; {info}",
+                  f"memory a CTA, {n8} device launches at B={RHS}",
                   flush=True)
 
         def make_sbell64_mm(B, dp=dp64):
@@ -5833,49 +3577,9 @@ def main() -> int:
               f"the library call's stream (paired_csr) against the twin "
               f"{e_lib}", flush=True)
 
-        # B10 f64 in device time, in turns over two rounds, at B = 8
-        x8 = planes(RHS, dp64.x_rows, dtype=f64)
-        y8 = torch.empty((RHS, TP64, 128), device=dev, dtype=f64)
-        X8f = x8.reshape(RHS, -1).T.contiguous()
-        b10 = kern["sbell_spmm_f64"]
-        b10_bound, _ = _bound(b10["bytes"], b10["flops"], "float64")
-        lib_dev, _ = _device_ms(torch, lambda: S_p64 @ X8f)
-        plain_ms = _median_ms(torch, lambda: bk.sbell_spmm_tiles_plain(
-            *paired_stream(dp64), x8, **kw_p64), calls=3, repeats=3)
-        for rnd in range(2):
-            said = []
-            for form, cpc in ((0, 0), ("ships", 0), (2, 0), (3, 0), (4, 0),
-                              (1, 1), (1, 2), (1, 3), (1, 4), (1, 8)):
-                if form == "ships":
-                    fn = lambda: bk.sbell_spmm_tiles(  # noqa: E731
-                        *paired_stream(dp64), x8, out=y8, **kw_p64)
-                else:
-                    fn = (lambda f=form, c=cpc: run_f64_form(  # noqa: E731
-                        dp64, x8, y8, f, c))
-                busy, by = _device_ms(torch, fn)
-                said.append(
-                    f"{'ships' if form == 'ships' else f'form {form}'}"
-                    f"{f' cpc={cpc}' if cpc else ''} {_ms(busy)} (kernels "
-                    f"{_ms(sum(v for k, v in by.items() if 'kernel' in k))})")
-            print(f"sbell_spmm f64 forms on {on_p} B={RHS} round {rnd}, "
-                  f"device ms (kernels + zero passes): " + "; ".join(said)
-                  + f"; bound {b10_bound:.4f}, library (paired_csr @ X) "
-                  f"device {_ms(lib_dev)}, twin {plain_ms:.4f} ms by events "
-                  f"({card})", flush=True)
-
         # B6 and B12 f64 on the mirrored shard and its replan
         def gen_check(dm, on):
             vals, offs = dm.dia_vals, dm.dia_offsets
-
-            def gen_form(x_il, y, form, slices, store=False):
-                """PR 13's form ("pr13", sdia_gen_kernel), the staged one
-                ("staged") at ``slices``, or what ships ("ships", 0: the
-                wrapper's rule) over the planes y; returns y."""
-                sk._launch_gen(vals, x_il, y, offs, f"sdia_gen f64 {form}",
-                               store=store, slices=slices or None,
-                               window=None if form == "pr13" else win)
-                return y
-
             T, m = dm.num_row_tiles, dm.nrows
             nv, D = vals.shape[0] * 1024, vals.shape[1]
             win = dm.dia_window
@@ -5930,23 +3634,7 @@ def main() -> int:
                     plus_zero_tail(st, nv, what)
                     worst = max(worst, _agree(add, yp, ys, D, f"{what} add"),
                                 _agree(st, zp, zs, D, f"{what} store"))
-                # the other forms: PR 13's at 1 and 2 slices, staged at 1,
-                # 2, 4, 8; staged and PR 13's alike bit for bit at 1 and 2
                 xil = forms["copied"]
-                by_form = {}
-                for key in (("pr13", 1), ("pr13", 2), ("staged", 1),
-                            ("staged", 2), ("staged", 4), ("staged", 8)):
-                    got = strided(y3, lambda y: gen_form(xil, y, *key))
-                    by_form[key] = got
-                    worst = max(worst, _agree(got, yp, ys, D,
-                                              f"sdia_gen_mm f64 {key} B={B} "
-                                              f"on {on}"))
-                for s_ in (1, 2):
-                    if not torch.equal(by_form["staged", s_],
-                                       by_form["pr13", s_]):
-                        raise AssertionError(
-                            f"sdia_gen_mm f64 B={B} on {on}: staged at "
-                            f"{s_} slices is not PR 13's form bit for bit")
                 z3 = strided(poisoned((B, T, 128), f64), lambda y: (
                     sk.sdia_gen_tiles_mm(vals, torch.zeros_like(xil), y,
                                          offs, planes=B, store=True,
@@ -5966,13 +3654,10 @@ def main() -> int:
                       f"{_cuda.lib().cfs_sdia_gen_smem_f64(1, s_, 1)}/"
                       f"{_cuda.lib().cfs_sdia_gen_smem_f64(RHS, s_, 1)}"
                       for s_ in (1, 2, 4, 8))
-                  + f" B (PR 13's at 2 slices "
-                  f"{_cuda.lib().cfs_sdia_gen_smem_f64(RHS, 2, 0)} B); "
-                  f"max_abs_err vs twin: B6 add {e_add}, store from x {e_st}; "
-                  f"B12 adding and storing, every form, by X: "
-                  + "; ".join(said) + "; staged at 1 and 2 slices bit for "
-                  "bit PR 13's; a zero X stores +0", flush=True)
-            return x2d, y0, max(e_add, e_st), worst_mm, gen_form
+                  + f" B; max_abs_err vs twin: B6 add {e_add}, store from x "
+                  f"{e_st}; B12 adding and storing, by X: " + "; ".join(said)
+                  + "; a zero X stores +0", flush=True)
+            return x2d, y0, max(e_add, e_st), worst_mm
 
         gen_check(dmh64, "the mirrored cant_proxy without rows 20,000-29,999, "
                   "float64 shard 1")
@@ -5981,7 +3666,7 @@ def main() -> int:
         T, m = dm64.num_row_tiles, dm64.nrows
         D = vals.shape[1]
         on_m = f"D1 mirrored float64 shard 1 ({D} diagonals)"
-        x2d, y0, e6, e12, gen_form = gen_check(dm64, on_m)
+        x2d, y0, e6, e12 = gen_check(dm64, on_m)
         S_m64 = dia_csr(torch, vals, offs, T * 128, dm64.x_rows * 128)
         xf = x2d.reshape(-1)
         av = vals.abs()
@@ -6013,31 +3698,6 @@ def main() -> int:
                                             planes=RHS, window=win),
             plain=lambda: sk.sdia_gen_tiles_mm_plain(
                 vals, xg8, Y8.clone(), offs, planes=RHS))
-
-        # B6 and B12 f64 in device time, in turns over two rounds: the
-        # kernel alone (y written in place, the store form), PR 13's forms
-        # and the staged ones by slices, and what ships through its wrapper
-        for B, xin, lib_call in ((1, x2d.reshape(1, -1), lambda: S_m64 @ xf),
-                                 (RHS, xg8, lambda: S_m64 @ X8f)):
-            yy = torch.empty((B, T, 128), device=dev, dtype=f64)
-            k = kern["sdia_gen_f64" if B == 1 else "sdia_gen_mm_f64"]
-            bound, _ = _bound(k["bytes"], k["flops"], "float64")
-            lib_dev, _ = _device_ms(torch, lib_call)
-            plain_ms = _median_ms(torch, k["plain"], calls=3, repeats=3)
-            for rnd in range(2):
-                said = []
-                for key in (("pr13", 1), ("pr13", 2), ("staged", 1),
-                            ("staged", 2), ("staged", 4), ("staged", 8),
-                            ("ships", 0)):
-                    busy, _ = _device_ms(torch, lambda kk=key: gen_form(
-                        xin, yy, *kk, store=True))
-                    said.append(f"{key[0]}{f' {key[1]}' if key[1] else ''} "
-                                f"{_ms(busy)}")
-                print(f"sdia_gen f64 forms on {on_m} B={B} (store) round "
-                      f"{rnd}, device ms: " + "; ".join(said)
-                      + f"; bound {bound:.4f}, library (dia_csr) device "
-                      f"{_ms(lib_dev)}, twin {plain_ms:.4f} ms by events "
-                      f"({card})", flush=True)
         return dist64
 
     dist64 = double_instances()
@@ -6101,134 +3761,6 @@ def main() -> int:
               f"{ks[mv]['on']}: MM({RHS}) {_ms(t_mm)} ms, SpMV {_ms(t_mv)} "
               f"ms, ratio MM / ({RHS} SpMV) "
               f"{_ratio(t_mm, t_mv and RHS * t_mv)} ({card})", flush=True)
-    # the float32 appliers as the parent tree composed them, for the
-    # device launches and times beside this tree's: the general path from
-    # zero tiles, B6 adding from padded x and B12 over padded planes (its
-    # kernel before the redesign, SDIA_GEN_ALT_SRC form -1); the symmetric
-    # path with the seed D x as a padded copy and the grouped far stream's
-    # gather padded and added to it (or to the paired stream's tiles)
-    F = torch.nn.functional
-
-    def parent_gen(dv, x2d, tiles):
-        sk._launch_gen(dv.dia_vals, x2d.reshape(1, -1), tiles[None],
-                       dv.dia_offsets, "sdia_gen_tiles", slices=1)
-        return tiles
-
-    def parent_bell2_apply(dv, x):
-        x2d = ops.pad_x(x, dv.x_rows)
-        NT = dv.num_row_tiles
-        if not dv.has_work:
-            tiles = x2d.new_zeros((NT, 128))
-        elif dv.sparse_stream and not dv.grouped:
-            tiles = bk.bell2_spmv_tiles_accum(dv.entries, x2d,
-                                              x2d.new_zeros((NT, 128)))
-        else:
-            tiles = bk.bell2_spmv_tiles(dv.vals, dv.packed, dv.meta,
-                                        dv.step_block, x2d, covers=dv.covers,
-                                        **dv.stream_kw())
-        if dv.grouped:
-            ot = bk.unperm_gather_tiles(dv.unperm_pk, dv.unperm_slabs,
-                                        tiles[:dv.num_row_tiles])
-            if dv.dia_vals is None:
-                return ot.reshape(-1)[:dv.nrows]
-            tiles = ot[:-(-dv.nrows // 128)]
-        if dv.dia_vals is not None:
-            tiles = parent_gen(dv, x2d, tiles)
-        return tiles.reshape(-1)[:dv.nrows]
-
-    def parent_bell2_apply_mm(dv, x):
-        B, NT = x.shape[1], dv.num_row_tiles
-        full = dv.has_work and not (dv.sparse_stream and not dv.grouped)
-        if (dv.has_work and not full) or dv.dia_vals is not None:
-            x3d = ops.pad_x_mm(x, dv.x_rows)
-        if not dv.has_work:
-            tiles = x.new_zeros((B, NT, 128))
-        elif not full:
-            tiles = bk.bell2_spmm_tiles_accum(dv.entries, x3d,
-                                              x.new_zeros((B, NT, 128)))
-        else:
-            tiles = bk.bell2_spmm_tiles(
-                dv.vals, dv.packed, dv.meta, dv.step_block,
-                bk.interleave_x(x, dv.x_rows), planes=B, covers=dv.covers,
-                **dv.stream_kw())
-        if dv.grouped:
-            ot = bk.unperm_gather_tiles_mm(dv.unperm_pk, dv.unperm_slabs,
-                                           tiles[:, :dv.num_row_tiles])
-            if dv.dia_vals is None:
-                return ot.reshape(B, -1)[:, :dv.nrows].T
-            tiles = ot[:, :-(-dv.nrows // 128)]
-        if dv.dia_vals is not None:
-            tiles = run_gen_form(-1, dv, x3d, tiles)
-        return tiles.reshape(B, -1)[:, :dv.nrows].T
-
-    def parent_sbell_apply(dv, x):
-        x2d = ops.pad_x(x, dv.x_rows)
-        NT, fd_ = dv.num_row_tiles, dv.far
-        if dv.has_paired:
-            tiles = bk.sbell_spmv_tiles(
-                dv.vals, dv.packed, dv.meta, dv.step_block, x2d,
-                num_row_tiles=NT, chunks_per_step=dv.chunks_per_step,
-                tiles_per_block=dv.tiles_per_block,
-                transpose_windows=dv.transpose_windows)
-        else:
-            tiles = ops.pad_x(dv.diag * x, NT)
-        if fd_ is not None and fd_.grouped:
-            ftiles = bk.bell2_spmv_tiles(fd_.vals, fd_.packed, fd_.meta,
-                                         fd_.step_block, x2d,
-                                         covers=fd_.covers, **fd_.stream_kw())
-            ot = bk.unperm_gather_tiles(fd_.unperm_pk, fd_.unperm_slabs,
-                                        ftiles[:fd_.num_row_tiles])
-            if ot.shape[0] < NT:
-                ot = F.pad(ot, (0, 0, 0, NT - ot.shape[0]))
-            tiles = tiles[:NT] + ot[:NT]
-        elif fd_ is not None:
-            tiles = bk.bell2_spmv_tiles_accum(fd_.entries, x2d, tiles)
-        if dv.dia_vals is not None and dv.dia_mirrored:
-            tiles = parent_gen(dv, x2d, tiles[:NT])
-        elif dv.dia_vals is not None:
-            tiles = sk.sdia_sym_tiles(dv.dia_vals, x2d, tiles[:NT],
-                                      dv.dia_offsets)
-        y = tiles.reshape(-1)[:dv.nrows]
-        return y + dv.diag * x if dv.has_paired else y
-
-    def parent_sbell_apply_mm(dv, x):
-        B, NT, fd_ = x.shape[1], dv.num_row_tiles, dv.far
-        if (dv.has_paired or dv.dia_vals is not None
-                or (fd_ is not None and not fd_.grouped)):
-            x3d = ops.pad_x_mm(x, dv.x_rows)
-        if dv.has_paired:
-            tiles = bk.sbell_spmm_tiles(
-                dv.vals, dv.packed, dv.meta, dv.step_block, x3d,
-                num_row_tiles=NT, chunks_per_step=dv.chunks_per_step,
-                tiles_per_block=dv.tiles_per_block,
-                transpose_windows=dv.transpose_windows)
-        else:
-            tiles = ops.pad_x_mm(dv.diag[:, None] * x, NT)
-        if fd_ is not None and fd_.grouped:
-            ftiles = bk.bell2_spmm_tiles(
-                fd_.vals, fd_.packed, fd_.meta, fd_.step_block,
-                bk.interleave_x(x, dv.x_rows), planes=B, covers=fd_.covers,
-                **fd_.stream_kw())
-            ot = bk.unperm_gather_tiles_mm(fd_.unperm_pk, fd_.unperm_slabs,
-                                           ftiles[:, :fd_.num_row_tiles])
-            if ot.shape[1] < NT:
-                ot = F.pad(ot, (0, 0, 0, NT - ot.shape[1]))
-            tiles = tiles[:, :NT] + ot[:, :NT]
-        elif fd_ is not None:
-            tiles = bk.bell2_spmm_tiles_accum(fd_.entries, x3d, tiles)
-        if dv.dia_vals is not None and dv.dia_mirrored:
-            tiles = run_gen_form(-1, dv, x3d, tiles[:, :NT])
-        elif dv.dia_vals is not None:
-            tiles = sk.sdia_sym_tiles_mm(dv.dia_vals, x3d, tiles[:, :NT],
-                                         dv.dia_offsets,
-                                         stage_x=dv.dia_stage_x)
-        Y = tiles.reshape(B, -1)[:, :dv.nrows].T
-        return Y + dv.diag[:, None] * x if dv.has_paired else Y
-
-    parent_forms = {
-        ops.Bell2Device: (parent_bell2_apply, parent_bell2_apply_mm),
-        ops.SBellDevice: (parent_sbell_apply, parent_sbell_apply_mm),
-    }
     graphed = {}  # run -> (eager ms, graphed ms, device ms) per apply
     for name in RUNS:
         A, d, xe = operands(name)
@@ -6287,30 +3819,11 @@ def main() -> int:
             f"{_ms(busy_8)} ms, ratio {_ratio(busy_mm, busy_8)} ({card})",
             flush=True,
         )
-        # device launches per apply, beside the parent's composition (the
-        # float64 appliers did not change); the parent's form is held to
-        # this tree's result first
-        said = []
-        for what, fn, x_ in (("SpMV", apply, xe), (f"SpMM({RHS})", apply_mm,
-                                                    Xe)):
-            line = (f"{what} {_device_launches(torch, lambda: fn(d, x_))} "
-                    f"launches")
-            if type(d) in parent_forms:
-                pfn = parent_forms[type(d)][what != "SpMV"]
-                # the same function, summed in another order: within
-                # 1e-4 of the result's largest entry (float32 rounding
-                # over at most 64 terms a row is under 1e-5 of it)
-                y_n, y_p = fn(d, x_), pfn(d, x_)
-                if not (y_n - y_p).abs().max() <= 1e-4 * y_n.abs().max():
-                    raise AssertionError(f"the parent's {what} composition "
-                                         f"on {name} disagrees")
-                busy_p, _ = _device_ms(torch, lambda: pfn(d, x_))
-                busy_n, _ = _device_ms(torch, lambda: fn(d, x_))
-                line += (f" (the parent's composition "
-                         f"{_device_launches(torch, lambda: pfn(d, x_))}); "
-                         f"device {_ms(busy_n)} ms, parent's "
-                         f"{_ms(busy_p)} ms")
-            said.append(line)
+        # device launches per apply
+        said = [f"{what} {_device_launches(torch, lambda: fn(d, x_))} "
+                f"launches"
+                for what, fn, x_ in (("SpMV", apply, xe),
+                                     (f"SpMM({RHS})", apply_mm, Xe))]
         print(f"launches {name} per apply (profiler): " + "; ".join(said)
               + f" ({card})", flush=True)
     # one kernel, one stream, other addresses: cant_proxy() NONE's stream

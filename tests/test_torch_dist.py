@@ -586,19 +586,21 @@ def test_cli_bench_dist(extra, capsys, tmp_path):
                                   "ring_dia_p8", "spmm_ring_p8",
                                   "uneven_p8"])
 def test_exchanges_across_devices(case, monkeypatch):
-    """The exchanges of a mesh over distinct devices (each shard's
-    segment or halo window, its far x and its y in buffers on its device,
-    filled by copies from x), run on the CPU by declaring its mesh
-    multi-device: the same y bit for bit as the one-device views."""
+    """The exchanges of a mesh over distinct devices (``cpu:0`` ...
+    ``cpu:P-1``, every tensor on the CPU: each shard's segment or halo
+    window, its far x and its y in buffers on its device, filled by copies
+    from x): the same y bit for bit as the one-device mesh's."""
     from cfs_spmv_tpu_torch.parallel.mesh import Mesh
 
+    mname, P, kw = CASES[case][:3]
     _, port, csr = build(case, monkeypatch)
+    cards = DistSpDMV(port_csr(matrix(mname)),
+                      Mesh(tuple(torch.device("cpu", d) for d in range(P))),
+                      **kw)
+    assert not cards.capturable and cards.real == port.real
     x = inputs(csr, CASES[case][4])
-    y_views = port(x)
-    monkeypatch.setattr(Mesh, "single_device", property(lambda self: False))
-    assert not port._views
-    assert torch.equal(port(x), y_views)
-    assert port._bufs
+    assert torch.equal(cards(x), port(x))
+    assert cards._bufs
 
 
 def test_cli_bench_dist_eager_timer(capsys, monkeypatch):

@@ -3,8 +3,8 @@ buffers the operator owns (``_Buffers``), and, on a node of two or more
 cards, its captured form replayed.
 
 On the CPU a mesh of distinct devices (``cpu:0`` ... ``cpu:P-1``, whose
-tensors all live on the CPU) runs the buffer path eagerly: its y is held
-bit for bit to the one-device views of the same plans, and its counter
+tensors all live on the CPU) runs the apply eagerly: its y is held bit
+for bit to the one-device mesh's over the same plans, and its counter
 ``dist.copy_bytes`` to the rows the schedule copies. The tests marked
 ``card`` skip without two CUDA cards; on the card's machine run them
 without ``tests/conftest.py``, which sets up the JAX reference:
@@ -96,19 +96,20 @@ LAYOUTS = [(2, "even"), (3, "uneven"), (4, "even"), (4, "uneven")]
 @pytest.mark.parametrize("comm", ["halo", "gather", "ring"])
 @pytest.mark.parametrize("rhs", [1, 8])
 @pytest.mark.parametrize("shards, grid", LAYOUTS)
-def test_the_buffers_give_the_views_y_bit_for_bit(comm, rhs, shards, grid):
+def test_distinct_devices_give_the_one_device_y_bit_for_bit(comm, rhs, shards,
+                                                            grid):
     mat = _mat(grid)
-    views = DistSpDMV(_csr(mat), make_mesh(shards, device="cpu"),
-                      dtype=np.float64, comm=comm)
+    one = DistSpDMV(_csr(mat), make_mesh(shards, device="cpu"),
+                    dtype=np.float64, comm=comm)
     op = DistSpDMV(_csr(mat), _cards(shards), dtype=np.float64, comm=comm)
-    assert op.comm == views.comm == comm and op.real == views.real
-    assert not op._views and op._graph is None and not op.capturable
+    assert op.comm == one.comm == comm and op.real == one.real
+    assert op._graph is None and not op.capturable and one.capturable
     x = _x(mat.n, rhs)
     trace.collect()
     with trace.recording():
         y = op(x)
     rec = trace.collect()
-    assert torch.equal(y, views(x))
+    assert torch.equal(y, one(x))
     assert rec.counters["dist.copy_bytes"] == _schedule_bytes(op, rhs)
     assert "dist.graph_replays" not in rec.counters
     # a second apply reuses the buffers and returns a tensor of its own
@@ -122,15 +123,15 @@ def test_the_buffers_give_the_views_y_bit_for_bit(comm, rhs, shards, grid):
 @pytest.mark.parametrize("rhs", [1, 8])
 def test_a_general_matrix_across_cards(comm, rhs):
     mat = _mat("uneven")
-    views = DistSpDMV(_csr(mat, False), make_mesh(4, device="cpu"),
-                      dtype=np.float64, comm=comm)
+    one = DistSpDMV(_csr(mat, False), make_mesh(4, device="cpu"),
+                    dtype=np.float64, comm=comm)
     op = DistSpDMV(_csr(mat, False), _cards(4), dtype=np.float64, comm=comm)
     assert op.comm == comm and not op.symmetric
     x = _x(mat.n, rhs, seed=13)
     trace.collect()
     with trace.recording():
         y = op(x)
-    assert torch.equal(y, views(x))
+    assert torch.equal(y, one(x))
     assert trace.collect().counters["dist.copy_bytes"] == _schedule_bytes(
         op, rhs)
 
@@ -163,6 +164,63 @@ def test_the_multi_rhs_key_has_buffers_of_its_own():
     assert sorted(op._bufs) == [((), torch.float64), ((3,), torch.float64)]
     assert op._bufs[((3,), torch.float64)].xs[1].shape == (
         op.shard_rows + 2 * op.halo_rows, 3)
+
+
+@pytest.mark.parametrize("comm", ["halo", "gather", "ring"])
+def test_a_one_device_mesh_reuses_its_buffers(comm):
+    """Every shard's buffers on the one device, made at the first apply;
+    a second apply fills the same ones and returns a tensor of its own,
+    and no copy is counted between cards."""
+    op = DistSpDMV(_csr(_mat("uneven")), make_mesh(4, device="cpu"),
+                   dtype=np.float64, comm=comm)
+    assert op.capturable and op._graph is None and not op._bufs
+    x = _x(op.nrows, 1)
+    trace.collect()
+    with trace.recording():
+        y = op(x)
+    assert "dist.copy_bytes" not in trace.collect().counters
+    (bufs,) = op._bufs.values()
+    assert bufs.moved == 0 and all(b is not None for b in bufs.xs)
+    y2 = op(x)
+    assert list(op._bufs.values()) == [bufs]
+    assert y2.data_ptr() != y.data_ptr() and torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("comm", ["halo", "gather", "ring"])
+def test_a_process_group_mesh_holds_buffers_for_its_own_shard(comm):
+    """Rank 1 of four uploads, fills and applies shard 1 alone, from the
+    global x on its own device; its all-gather (here its own rows) is the
+    one-device mesh's rows of that shard."""
+    mat = _mat("even")
+    op = DistSpDMV(_csr(mat), Mesh((torch.device("cpu"),) * 4,
+                                   group=object(), rank=1),
+                   dtype=np.float64, comm=comm)
+    op._all_gather = lambda y: y
+    x = _x(mat.n, 1)
+    y = op(x)
+    (bufs,) = op._bufs.values()
+    assert [b is not None for b in bufs.xs] == [False, True, False, False]
+    assert [b is not None for b in bufs.ys] == [False, True, False, False]
+    assert [bool(f) for f in bufs.fills] == [False, True, False, False]
+    assert bufs.moved == 0
+    one = DistSpDMV(_csr(mat), make_mesh(4, device="cpu"), dtype=np.float64,
+                    comm=comm)
+    r0, nr = op.real[1]
+    assert torch.equal(y[:nr], one(x)[r0:r0 + nr])
+
+
+def test_on_one_device_the_exchanges_sit_under_the_scatter():
+    op = DistSpDMV(_csr(_mat("even")), make_mesh(4, device="cpu"),
+                   dtype=np.float64, comm="halo")
+    trace.collect()
+    with trace.recording():
+        op(_x(op.nrows, 1))
+    rec = trace.collect()
+    (scatter,) = rec.named("cfs.dist.scatter")
+    exchanges = rec.named("cfs.dist.exchange")
+    assert len(exchanges) == 4
+    assert all(s.parent == scatter.id for s in exchanges)
+    assert rec.children(scatter) == exchanges
 
 
 # --- on the card ----------------------------------------------------------

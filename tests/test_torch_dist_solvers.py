@@ -1,11 +1,9 @@
 """The solvers over a ``DistSpDMV`` across several cards, and the
 operator's spans and counter, on the CPU.
 
-A mesh over several cards is stood in for as ``test_exchanges_across_
-devices`` does (``Mesh.single_device`` declared False: per-shard segments
-and ``.to`` copies, every tensor on the CPU), or, where the cards have to
-differ for the counter, by a mesh of four distinct CPU devices
-(``cpu:0`` ... ``cpu:3``, whose tensors all live on the CPU). The matrix
+A mesh over several cards is stood in for by a mesh of four distinct CPU
+devices (``cpu:0`` ... ``cpu:3``, whose tensors all live on the CPU),
+which runs the apply across cards eagerly. The matrix
 is HPCG's 27-point stencil (``spmv_bench/generators/hpcg27.py``) at 16^3
 in float64, in four shards with the halo exchange; the plain float64 CG
 it is held to is the benchmark's reference (``spmv_bench/reference.py``).
@@ -41,10 +39,6 @@ def _dist(mat, mesh=None, **kw):
                      dtype=np.float64, comm="halo", **kw)
 
 
-def _across_cards(monkeypatch):
-    monkeypatch.setattr(Mesh, "single_device", property(lambda self: False))
-
-
 def _b(mat, seed=3):
     g = torch.Generator().manual_seed(seed)
     x = torch.rand(mat.n, generator=g, dtype=torch.float64) * 2 - 1
@@ -61,11 +55,10 @@ def test_the_operator_says_whether_a_graph_holds_it(mat, monkeypatch, mesh,
     """``capturable`` is False only across several cards of one process;
     ``_Operator`` on the card graphs exactly where it is True, and keeps
     the loop free of host syncs either way."""
-    if mesh == "several cards":
-        _across_cards(monkeypatch)
-    group = object() if mesh == "process group" else None
-    op = _dist(mat, Mesh((torch.device("cpu"),) * 4, group=group, rank=1)
-               if group else None)
+    meshes = {"one device": None, "several cards": CARDS,
+              "process group": Mesh((torch.device("cpu"),) * 4,
+                                    group=object(), rank=1)}
+    op = _dist(mat, meshes[mesh])
     assert op.capturable is capturable
     monkeypatch.setattr(solvers, "operator_space",
                         lambda m, like=None: (torch.float64,
@@ -77,9 +70,8 @@ def test_the_operator_says_whether_a_graph_holds_it(mat, monkeypatch, mesh,
     assert solvers._Operator(lambda v: v, "graph").graphed is True
 
 
-def test_cg_across_cards_matches_a_plain_cg(mat, monkeypatch):
-    _across_cards(monkeypatch)
-    op = _dist(mat)
+def test_cg_across_cards_matches_a_plain_cg(mat):
+    op = _dist(mat, CARDS)
     assert not op.capturable and op.comm == "halo"
     b = _b(mat)
     x = solvers.cg(op, b, iters=50)[0]
@@ -90,18 +82,15 @@ def test_cg_across_cards_matches_a_plain_cg(mat, monkeypatch):
 
 
 @pytest.mark.parametrize("solver", ["cg", "gmres"])
-def test_solvers_across_cards_are_bit_identical_to_the_views(
-        mat, monkeypatch, solver):
-    op = _dist(mat)
+def test_solvers_across_cards_are_bit_identical_to_one_device(mat, solver):
     b = _b(mat, seed=5)
     kw = {"iters": 20} if solver == "cg" else {"restart": 8, "outer": 3}
     run = getattr(solvers, solver)
-    views = run(op, b, **kw)
-    _across_cards(monkeypatch)
-    assert not op._views
+    one = run(_dist(mat), b, **kw)
+    op = _dist(mat, CARDS)
     cards = run(op, b, **kw)
     assert op._bufs
-    for a, c in zip(views, cards):
+    for a, c in zip(one, cards):
         assert torch.equal(a, c)
 
 

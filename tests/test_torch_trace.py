@@ -4,7 +4,7 @@ give one root span whose steps are its children; the plan cache counts its
 hits and misses; a float64 ``tune`` counts whether its plan peeled
 diagonals; ``log=True`` spans keep the planners' INFO lines; and a
 ``profile()`` trace carries the spans as annotations on the device's
-clock, to which :func:`idle_by_span` puts idle time down. CPU only."""
+clock. CPU only."""
 
 import json
 import logging
@@ -158,18 +158,6 @@ def test_tune_counts_misses_then_hits(tmp_path):
     assert not rec.named("cfs.plan.layout")
 
 
-def test_self_time_merges_overlapping_children():
-    def sp(t0, t1, i=0):
-        return trace.Span("s", {}, i, None, i, t0, t1)
-
-    outer = sp(0, 100)
-    # [10, 30) and [20, 40) overlap: 30 ns; [35, 50) adds 10; [90, 120)
-    # is clipped to 10; [95, 99) lies inside it
-    inner = [sp(20, 40), sp(10, 30), sp(35, 50), sp(90, 120), sp(95, 99)]
-    assert trace.self_ns(outer, inner) == 100 - 40 - 10
-    assert trace.self_ns(outer, []) == 100
-
-
 def test_a_log_span_writes_one_info_line(monkeypatch, caplog):
     monkeypatch.setattr(config, "log_info", True)
     caplog.set_level(logging.INFO, logger="cfs_spmv_tpu_torch")
@@ -216,42 +204,6 @@ def test_profile_trace_holds_the_spans(tmp_path):
     names = {e["name"] for e in events
              if e.get("cat") == "user_annotation"}
     assert {"cfs.apply", "cfs.stage"} <= names
-
-
-def _ev(cat, name, ts, dur):
-    return {"cat": cat, "name": name, "ph": "X", "ts": ts, "dur": dur}
-
-
-def test_idle_goes_to_the_innermost_span():
-    events = [
-        _ev("kernel", "k1", 0, 10),
-        _ev("kernel", "k2", 50, 10),
-        _ev("gpu_memset", "m", 100, 20),
-        _ev("user_annotation", "cfs.solve", 5, 110),
-        _ev("user_annotation", "cfs.solve.capture", 20, 20),
-        _ev("user_annotation", "cfs.solve.restore", 40, 5),
-        _ev("user_annotation", "other", 60, 40),  # not the port's
-        _ev("cpu_op", "aten::fill_", 60, 40),
-    ]
-    idle = trace.idle_by_span(events)
-    # idle: [10, 50) and [60, 100); capture [20, 40), restore [40, 45)
-    assert idle == {"cfs.solve": 10 + 5 + 40, "cfs.solve.capture": 20,
-                    "cfs.solve.restore": 5}
-    idle = trace.idle_by_span(events, 0, 130)
-    assert idle[None] == 10  # [120, 130): after the solve
-    assert sum(idle.values()) == 40 + 40 + 10
-
-
-def test_idle_under_chosen_spans_at_any_depth():
-    events = [
-        _ev("kernel", "k1", 0, 10),
-        _ev("kernel", "k2", 50, 10),
-        _ev("user_annotation", "cfs.solve", 0, 60),
-        _ev("user_annotation", "cfs.solve.setup", 5, 25),
-        _ev("user_annotation", "cfs.stage", 12, 4),  # inside the setup
-    ]
-    idle = trace.idle_by_span(events, names={"cfs.solve.setup"})
-    assert idle == {"cfs.solve.setup": 20, None: 20}
 
 
 def _scattered_symmetric(n=2048, seed=7):

@@ -28,7 +28,8 @@
 // once and applies them to up to kRhs planes, holding one sum per plane in
 // registers. X is a stack of (x_rows, 128) planes (for the float
 // multi-RHS bell2_spmv and sdia_gen an interleaved X) and Y of (T, 128)
-// planes, each plane contiguous, at plane strides xs and ys (elements).
+// planes, each plane contiguous, at plane strides xs and ys (elements);
+// sdia_sym_rows reads X and writes Y as the caller's row-major (n, B).
 // The Python wrapper launches once per group of at most kMaxRhs planes,
 // so the stream (values and index words) is read once per group, not once
 // per right-hand side; nr is the group's plane count, and the launch takes
@@ -248,6 +249,118 @@ __global__ void sdia_sym_kernel(const V* __restrict__ vals,
 #pragma unroll
     for (int t = 1; t < kSdiaSlices; ++t) sum += sums[t][b][k];
     y[b * ys + g] += sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// sdia_sym_rows — B14 (cfs_spmv_tpu/ops/sdia_df.py:222 sdia_sym_tiles_df_mm)
+// over X and Y in the caller's row-major (n, B) layout, for a float64 plan
+// that is diagonals only (HPCG's 27-point stencil: 14 lower diagonals). A
+// launch serves a group of kRhs = 2, 4 or 8 columns, read at row stride ld,
+// and stores (does not add) those columns of Y's rows at the same stride:
+// no planes, no zero pass, no read of Y.
+//
+// y[g] = sum_j v_j[g] x[g - d_j] + v_j[g + d_j] x[g + d_j] over the stored
+// lower diagonals in order, the offset-0 plane holding the halved main
+// diagonal, in float64 with fma; x outside [0, n) is not read (it adds 0).
+//
+// What bounds it on this card. The stream is 4.01 GB an apply at B = 8 on
+// HPCG at 256^3 (1.88 GB of values, X and Y 1.07 GB each: 1.198 ms at
+// 3.35 TB/s), 37x the L2; the transpose side reads each value a second
+// time, up to 65,793 rows after its row side, and x rows up to 65,793 rows
+// either side. B14 over planes took 3.91 ms, and its applier 3.8 ms more
+// to copy X into padded planes and zero the output (PERF.md §5).
+//
+// What the design does about it. One thread a row, CTAs of kRowsCta
+// rows; each thread walks every diagonal of its row, two at a time with
+// their loads issued together, and reads x's rows where they lie: 16 bytes
+// a load, a row's chunks from the lane's rotation on (chunk_rot), so that
+// the 8 lanes of a quarter warp on 8 consecutive rows of 64 bytes hit 8
+// distinct bank groups of L1, which serves the re-reads of neighbouring
+// offsets (1 apart in a cluster). No shared memory, so nothing caps the
+// CTAs an SM holds but registers. Each thread stores its row's columns.
+// Device ms of one launch at hpcg-256's shape, B = 8, event-timed in one
+// run (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): 2.39-2.42. Measured
+// beside it and slower: x staged in shared memory first, once a CTA, one
+// window per cluster of offsets and side (9 windows of 130 rows on HPCG,
+// 75 KB at 8 columns), by cp.async.bulk on an mbarrier 3.64-3.66 (3.93 at
+// 64 rows a CTA, 5.39 at 256), by the threads' 16-byte loads row by row
+// 4.71-4.72, plane by plane as sdia_gen_staged_kernel does 5.13-5.15; a
+// thread a 16-byte chunk, four a row, each warp load contiguous 2.92-3.66;
+// two threads a row whose sums meet in shared memory 2.44-2.59 (64 rows),
+// 2.51-2.76 (128 rows). The staged windows hold about nine times a CTA's
+// own rows of x, which leaves 3 CTAs an SM at 128 rows, each idle until
+// its windows have landed (a reading of the numbers, not a measurement).
+// ---------------------------------------------------------------------------
+constexpr int kRowsCta = 128;
+
+// The 16-byte chunk a lane reads first of a row of kChunks: lanes on 8
+// consecutive rows of one quarter warp start at distinct bank groups where
+// a row spans less than the 128 bytes of a bank row.
+template <int kChunks>
+__device__ __forceinline__ int chunk_rot(int lane) {
+  return kChunks == 1 ? 0 : (lane / (8 / kChunks)) % kChunks;
+}
+
+// acc += v * row over a row of X's kRhs columns (16-byte aligned), its
+// chunks read from the lane's rotation on: acc slot 2k + i holds column
+// 2c + i of chunk c = (k + rot) % kChunks; chunks past nr columns are not
+// read (they may lie past X).
+template <int kRhs>
+__device__ __forceinline__ void add_row(double (&acc)[kRhs], double v,
+                                        const double* row, int rot, int nr) {
+  constexpr int kChunks = kRhs / 2;
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = (k + rot) & (kChunks - 1);
+    if (2 * c >= nr) continue;
+    const double2 xv = reinterpret_cast<const double2*>(row)[c];
+    acc[2 * k] = fma(v, xv.x, acc[2 * k]);
+    acc[2 * k + 1] = fma(v, xv.y, acc[2 * k + 1]);
+  }
+}
+
+// x: the group's first column of X, y of Y, rows at stride ld (elements),
+// 16-byte aligned; nr of the kRhs columns live.
+template <int kRhs>
+__global__ void __launch_bounds__(kRowsCta)
+sdia_sym_rows_kernel(const double* __restrict__ vals,
+                     const int* __restrict__ offsets, int D,
+                     int64_t n_vals_rows, int64_t n, int64_t ld,
+                     const double* __restrict__ x, double* __restrict__ y,
+                     int nr) {
+  static_assert(kRhs == 2 || kRhs == 4 || kRhs == 8, "a group of columns");
+  constexpr int kChunks = kRhs / 2;
+  constexpr int kUnroll = 2;
+  const int64_t h = static_cast<int64_t>(blockIdx.x) * kRowsCta + threadIdx.x;
+  if (h >= n) return;
+  const int rot = chunk_rot<kChunks>(threadIdx.x & 31);
+  const bool hv = h < n_vals_rows;
+  const double* vh = vals + (h >> 10) * D * kBlockRows + (h & (kBlockRows - 1));
+  double acc[kRhs];
+#pragma unroll
+  for (int b = 0; b < kRhs; ++b) acc[b] = 0.0;
+  for (int j0 = 0; j0 < D; j0 += kUnroll) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u;
+      if (j >= D) break;
+      const int64_t d = __ldg(offsets + j);
+      const int64_t t = h + d;
+      const double v = hv ? vh[static_cast<int64_t>(j) * kBlockRows] : 0.0;
+      const double w =
+          t < n_vals_rows
+              ? vals[((t >> 10) * D + j) * kBlockRows + (t & (kBlockRows - 1))]
+              : 0.0;
+      if (h - d >= 0) add_row(acc, v, x + (h - d) * ld, rot, nr);  // row
+      if (t < n) add_row(acc, w, x + t * ld, rot, nr);  // transpose side
+    }
+  }
+  double2* yr = reinterpret_cast<double2*>(y + h * ld);
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = (k + rot) & (kChunks - 1);
+    if (2 * c < nr) yr[c] = make_double2(acc[2 * k], acc[2 * k + 1]);
   }
 }
 
@@ -1837,6 +1950,26 @@ int cfs_sdia_gen_bf16(const __nv_bfloat16* vals, const int* offsets, int D,
                       int nr, cudaStream_t stream) {
   return run_sdia_gen(vals, offsets, D, nv_rows, y_len, x_len, slices, store,
                       hi, span, x, y, ys, nr, stream);
+}
+
+// The row-major diagonal kernel (sdia_sym_rows_kernel) over a group of an
+// even nr <= 8 columns: X's and Y's rows at stride ld, x and y at the
+// group's first column (xs and ys are not read).
+int cfs_sdia_sym_rows_f64(const double* vals, const int* offsets, int D,
+                          int64_t n_vals_rows, int64_t n, int64_t ld,
+                          const double* x, int64_t xs, double* y, int64_t ys,
+                          int nr, cudaStream_t stream) {
+  if (nr < 2 || nr % 2) return invalid();
+  const bool ok = with_rhs(nr, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if constexpr (R > 1) {
+      if (n > 0)
+        sdia_sym_rows_kernel<R><<<blocks_for(n, kRowsCta), kRowsCta, 0,
+                                  stream>>>(vals, offsets, D, n_vals_rows, n,
+                                            ld, x, y, nr);
+    }
+  });
+  return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
 // Shared memory a CTA of the double signed diagonal kernel takes for a

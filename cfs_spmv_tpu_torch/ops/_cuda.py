@@ -95,6 +95,10 @@ def _bind(path: str) -> ctypes.CDLL:
     # planes); hi and span stage x in double (span -1: not staged)
     for fn in _forms(cdll, "sdia_gen"):
         fn.argtypes = [p, p, i32, i64, i64, i64, i32, i32, i32, i32, *planes]
+    # sdia_sym_rows: (vals, offsets, D, n_vals_rows, n, ld, planes): X and Y
+    # row-major at row stride ld, the planes' pointers at a group's first
+    # column
+    cdll.cfs_sdia_sym_rows_f64.argtypes = [p, p, i32, i64, i64, i64, *planes]
     # (nr, slices, staged) and (TW, nr, double): a CTA's shared memory
     cdll.cfs_sdia_gen_smem_f64.argtypes = [i32, i32, i32]
     cdll.cfs_sbell_smem.argtypes = [i32, i32, i32]
@@ -115,7 +119,8 @@ def _bind(path: str) -> ctypes.CDLL:
                                        p, p, i64, i64, i64, i32, i32, p]
     for fn in (*(f for name in _FORMS for f in _forms(cdll, name)),
                cdll.cfs_sbell_chunks_per_cta, cdll.cfs_unperm_gather,
-               cdll.cfs_sdia_gen_smem_f64, cdll.cfs_sbell_smem):
+               cdll.cfs_sdia_gen_smem_f64, cdll.cfs_sbell_smem,
+               cdll.cfs_sdia_sym_rows_f64):
         fn.restype = i32
     cdll.cfs_cuda_error_string.argtypes = [i32]
     cdll.cfs_cuda_error_string.restype = ctypes.c_char_p

@@ -11,7 +11,9 @@ rows, 128) planes. The float64 route (``Fp64Device``, ``fp64_apply``,
 ``fp64_apply_mm``) composes the one-sided stream (or, for a peel residual
 or sparse stream, its entry list) and the symmetric diagonal stream in
 IEEE double, as the appliers inside the reference's
-``tuning/tune._tune_fp64_df`` do with double-float pairs. The float32
+``tuning/tune._tune_fp64_df`` do with double-float pairs; a plan that is
+diagonals only multiplies an (n, B) X where it lies, into a fresh (n, B)
+Y, with no planes (``sdia_df.sdia_sym_rows_df_mm``). The float32
 appliers also take float64 structs with a float64 x (the float64
 ``DistSpDMV``'s shards, as the reference runs its distributed program on
 float64 arrays): the one-sided stream, its entries and the symmetric
@@ -570,6 +572,7 @@ _STREAMS = {
                         bk.bell2_spmm_tiles_accum_plain),
     "sdia_df": (sdf.sdia_sym_tiles_df, sk.sdia_sym_tiles_plain),
     "sdia_df_mm": (sdf.sdia_sym_tiles_df_mm, sk.sdia_sym_tiles_mm_plain),
+    "sdia_rows_df_mm": (sdf.sdia_sym_rows_df_mm, sdf.sdia_sym_rows_plain),
 }
 
 
@@ -838,15 +841,32 @@ def fp64_apply(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
     return tiles.reshape(-1)[: dev.nrows]
 
 
+def _rows_path(dev: Fp64Device, x: torch.Tensor) -> bool:
+    """Whether :func:`fp64_apply_mm` runs the row-major diagonal kernel:
+    a plan of diagonals only (no stream, no entries) and X as that kernel
+    reads it in place (``sdia_df.rows_x``)."""
+    return (dev.entries is None and not dev.has_work
+            and dev.dia_vals is not None and dev.nrows == x.shape[0]
+            and sdf.rows_x(x))
+
+
 def fp64_apply_mm(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
-    """Y = A X in float64 for X (ncols, B): :func:`fp64_apply` branch for
-    branch over (B, rows, 128) planes (``bell2_spmm_tiles_accum_df``,
-    ``bell2_spmm_tiles_df``, ``sdia_sym_tiles_df_mm``); any B runs in
-    groups of up to ``_cuda.RHS_GROUP`` planes inside the wrappers.
-    Returns (nrows, B), a transposed view of the output planes."""
+    """Y = A X in float64 for X (ncols, B). A plan of diagonals only, with
+    X a contiguous (n, B) of even B whose rows are 16-byte aligned, runs
+    ``sdia_sym_rows_df_mm`` on X as it lies and returns its fresh,
+    contiguous (nrows, B) Y (counter ``fp64_mm.rows``). Otherwise
+    (``fp64_mm.planes``) :func:`fp64_apply` branch for branch over (B,
+    rows, 128) planes (``bell2_spmm_tiles_accum_df``,
+    ``bell2_spmm_tiles_df``, ``sdia_sym_tiles_df_mm``) and a transposed
+    view of the output planes; any B runs in groups of up to
+    ``_cuda.RHS_GROUP`` columns or planes inside the wrappers."""
     B = _check_matrix(x)
     _check_fp64(x)
     f = _kernels(plain)
+    if _rows_path(dev, x):
+        trace.count("fp64_mm.rows", 1)
+        return f["sdia_rows_df_mm"](dev.dia_vals, x, dev.dia_offsets)
+    trace.count("fp64_mm.planes", 1)
     TD = -(-dev.nrows // LANES)
     x3d = pad_x_mm(x, max(dev.x_rows, TD))
     if dev.entries is not None:

@@ -154,6 +154,12 @@ Phases (each prints its wall time):
    tuned in bf16 twice into one directory, the second a load whose apply
    is bit-identical to the first's.
    These library calls are timed here and used nowhere in the port;
+5b. the float64 SpMM of a diagonal-only plan at the benchmark's hpcg-256
+   shape (16,777,216 rows, HPCG's 14 lower diagonals, random planes, a
+   random row-major X of 8 columns): ``sdia_sym_rows_df_mm`` against its
+   twin and against B14 over planes, then its device ms beside the planes
+   composition it replaced (``pad_x_mm``, the zeroed output, B14), in
+   turns;
 6. the differential CLI (``cfs_spmv_tpu_torch.cli.test_spmv_mmf``) on a
    written ``.mtx`` on its default device; it must print ``PASSED!``;
    and an untuned ``A @ x`` with a numpy x, ``A.tune()`` and ``tune(csr)``
@@ -323,6 +329,10 @@ MM_OF = {
 }
 #: kernels each main-path run's SpMM(8) apply launches (no SpMV kernel)
 EXPECTED_MM = {run: {MM_OF[k] for k in ks} for run, ks in EXPECTED.items()}
+# a float64 plan of diagonals only multiplies a row-major X where it lies
+# (``ops/spmv._rows_path``): the row-major kernel, no planes
+EXPECTED_MM.update({run: {"sdia_sym_rows_df_mm"}
+                    for run in ("cant_proxy_f64", "stencil27_f64")})
 #: the Pallas kernel each CUDA kernel replaces
 REPLACES = {
     "sdia_sym": "cfs_spmv_tpu/ops/sdia_kernel.py:157",
@@ -339,6 +349,8 @@ REPLACES = {
     "sdia_gen_mm": "cfs_spmv_tpu/ops/sdia_kernel.py:326",
     "sdia_sym_df": "cfs_spmv_tpu/ops/sdia_df.py:167",
     "sdia_sym_df_mm": "cfs_spmv_tpu/ops/sdia_df.py:222",
+    # the same TPU kernel over a row-major X and Y (a diagonal-only plan)
+    "sdia_sym_rows_df_mm": "cfs_spmv_tpu/ops/sdia_df.py:222",
     "bell2_spmv_df": "cfs_spmv_tpu/ops/bell2_df.py:181",
     "bell2_spmm_df": "cfs_spmv_tpu/ops/bell2_df.py:322",
     # the same two TPU kernels on a float64 peel residual, as entries
@@ -793,6 +805,20 @@ def predict(tuned) -> set:
     if dev.dia_vals is not None:
         out.add("sdia_gen" if dev.dia_mirrored else "sdia_sym")
     return out
+
+
+def predict_mm(tuned) -> set:
+    """The kernels an SpMM apply of ``tuned`` over a contiguous (n, 8) X
+    launches: the multi-RHS forms of :func:`predict`'s, or for a float64
+    plan of diagonals only the row-major kernel (``ops/spmv._rows_path``)."""
+    from cfs_spmv_tpu_torch.ops.spmv import Fp64Device
+
+    dev = tuned.operands
+    dev = dev["dev"] if isinstance(dev, dict) else dev
+    if (isinstance(dev, Fp64Device) and dev.entries is None
+            and not dev.has_work and dev.dia_vals is not None):
+        return {"sdia_sym_rows_df_mm"}
+    return {MM_OF[k] for k in predict(tuned)}
 
 
 #: iterations a solve of the solver phase runs (``gmres``: restarts)
@@ -1381,6 +1407,75 @@ def dist_phase(torch, card, counted, oracle_ok, mats, runs, wrappers,
                              "eager run, or its residual did not fall")
 
 
+#: HPCG's 27-point stencil on a 256^3 grid (the benchmark's hpcg-256):
+#: rows, and its 14 lower diagonals' offsets, the main one first
+HPCG_ROWS = 256 ** 3
+HPCG_OFFSETS = tuple(sorted({dz * 65536 + dy * 256 + dx
+                             for dz in (0, 1) for dy in (-1, 0, 1)
+                             for dx in (-1, 0, 1)
+                             if dz * 65536 + dy * 256 + dx >= 0}))
+
+
+def hpcg_rows_phase(torch) -> dict:
+    """The float64 SpMM of a diagonal-only plan at hpcg-256's shape
+    (16,777,216 rows, 14 lower diagonals, random planes and a random
+    row-major X of 8 columns): ``sdia_sym_rows_df_mm`` against its twin
+    and against B14 over planes, then in turns (row-major, planes,
+    planes, row-major) the device ms of one launch of it and of the
+    planes composition it replaced (``pad_x_mm``'s zeroed planes and
+    transposing copy, the zeroed output, B14), by kernel, and their
+    event ms. Returns the times."""
+    from cfs_spmv_tpu_torch.ops import sdia_df as sdf
+    from cfs_spmv_tpu_torch.ops import spmv as ops
+
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    n, TD = HPCG_ROWS, HPCG_ROWS // 128
+    g = torch.Generator(device=dev).manual_seed(24)
+    vals = torch.rand((n // 1024, len(HPCG_OFFSETS), 8, 128), generator=g,
+                      dtype=f64, device=dev).sub_(0.5)
+    offs = torch.tensor(HPCG_OFFSETS, dtype=torch.int32, device=dev)
+    X = torch.rand((n, RHS), generator=g, dtype=f64, device=dev).sub_(0.5)
+    t = torch.full((n * RHS,), float("nan"), dtype=f64, device=dev)
+    del t  # the wrapper's Y takes this block: an unwritten row stays NaN
+    Y = sdf.sdia_sym_rows_df_mm(vals, X, offs)
+    scale = sdf.sdia_sym_rows_plain(vals.abs(), X.abs(), offs)
+    err = _agree(Y, sdf.sdia_sym_rows_plain(vals, X, offs), scale,
+                 2 * len(HPCG_OFFSETS), "sdia_sym_rows_df_mm at hpcg-256")
+
+    def planes():
+        return sdf.sdia_sym_tiles_df_mm(
+            vals, ops.pad_x_mm(X, TD), ops._zeros(X, (RHS, TD, 128)), offs)
+
+    Yp = planes().reshape(RHS, -1)[:, :n].T
+    err_p = _agree(Y, Yp, scale, 2 * len(HPCG_OFFSETS),
+                   "sdia_sym_rows_df_mm against B14 over planes")
+    del Y, Yp, scale
+    torch.cuda.empty_cache()
+    forms = {"rows": lambda: sdf.sdia_sym_rows_df_mm(vals, X, offs),
+             "planes": planes}
+    times = {k: {"device_ms": [], "event_ms": [], "by_kernel": {}}
+             for k in forms}
+    for k in ("rows", "planes", "planes", "rows"):
+        busy, by = _device_ms(torch, forms[k], calls=5)
+        times[k]["device_ms"].append(busy)
+        times[k]["by_kernel"] = by
+        times[k]["event_ms"].append(_median_ms(torch, forms[k], calls=5,
+                                               repeats=3))
+    bound = _bound(_nbytes(vals, X) + _nbytes(X),
+                   RHS * 4 * int(torch.count_nonzero(vals)), "float64")[0]
+    said = "; ".join(
+        f"{k}: device ms in turns {v['device_ms']}, last "
+        f"{_fmt_device(v['device_ms'][-1], v['by_kernel'])}, event ms "
+        f"{v['event_ms']}" for k, v in times.items())
+    print(f"hpcg-256 SpMM({RHS}) over a row-major X: {n} rows, offsets "
+          f"{list(HPCG_OFFSETS)}; max_abs_err vs twin {err}, vs B14 over "
+          f"planes {err_p}; {said}; bound {bound:.4f} ms", flush=True)
+    del vals, X, forms
+    torch.cuda.empty_cache()
+    return dict(times, bound_ms=bound, err=err, err_planes=err_p)
+
+
 def _wrappers() -> dict:
     """{kernel: its wrapper's count}: every wrapper of the port, and the
     bf16 and float64 instances counted apart."""
@@ -1404,6 +1499,7 @@ def _wrappers() -> dict:
         "sdia_gen_mm": sk.sdia_gen_tiles_mm,
         "sdia_sym_df": sdf.sdia_sym_tiles_df,
         "sdia_sym_df_mm": sdf.sdia_sym_tiles_df_mm,
+        "sdia_sym_rows_df_mm": sdf.sdia_sym_rows_df_mm,
         "bell2_spmv_df": bdf.bell2_spmv_tiles_df,
         "bell2_spmm_df": bdf.bell2_spmm_tiles_df,
         "bell2_spmv_accum_df": bdf.bell2_spmv_tiles_accum_df,
@@ -1639,7 +1735,7 @@ def main() -> int:
         # SpMM(8) through SpDMM on the same tuned matrix
         X = np.random.default_rng(2).uniform(
             1.0, 2.0, (csr.ncols, RHS)).astype(dtype)
-        predicted_mm = {MM_OF[k] for k in predicted}
+        predicted_mm = predict_mm(A.tuned)
         Y, counts = counted(lambda: op_mm(X))
         moved = {k for k, c in counts.items() if c}
         Y_np = Y.cpu().numpy()
@@ -2724,6 +2820,31 @@ def main() -> int:
             *a, y.clone(), o),
         library=lambda: M_cant64 @ xl_cant64,
     )
+
+    # B14 over a row-major X and Y (a diagonal-only float64 plan's SpMM)
+    # on the same two plans: B of 2 to 16 (groups of 8 + 2 and 8 + 8, a
+    # group of 6 in the instance of 8), each Y allocated where a NaN block
+    # was freed, so a row left unwritten shows
+    for run_name in ("stencil27_f64", "cant_proxy_f64"):
+        A, d, _ = operands(run_name)
+        M_r, _, _ = lib_operands(run_name[:-4], f64)
+
+        def make_rows(B, d=d, M=M_r):
+            X = torch.rand((d.nrows, B), generator=g, dtype=f64).to(dev)
+            a = (d.dia_vals, X, d.dia_offsets)
+            return (lambda: poisoned_pool(
+                        lambda: sdf.sdia_sym_rows_df_mm(*a), X.numel() * 8),
+                    lambda: sdf.sdia_sym_rows_df_mm(*a),
+                    lambda: sdf.sdia_sym_rows_plain(*a),
+                    lambda: sdf.sdia_sym_rows_plain(
+                        d.dia_vals.abs(), X.abs(), d.dia_offsets),
+                    _nbytes(d.dia_vals, X) + _nbytes(X),
+                    lambda: M @ X)
+
+        mm_pair("sdia_sym_rows_df_mm", make_rows, 2 * d.dia_vals.shape[1],
+                run_name.replace("_f64", " float64, X and Y (n, B)"),
+                Bs=(2, 4, 6, 10, 16, RHS),
+                flops=RHS * 4 * nnz_of(d.dia_vals))
 
     # B15 + B16 on the chunk grid: first on an 8-tile-block replan of
     # general_asym(g=50) whose rows 20,000-59,999 are absent and get no
@@ -3927,6 +4048,10 @@ def main() -> int:
                              "another result")
     shutil.rmtree(cache_dir)
     phase_done("5 times")
+
+    # -- 5b. the row-major float64 SpMM at hpcg-256's shape --------------
+    hpcg_rows_phase(torch)
+    phase_done("5b hpcg-256 row-major SpMM")
 
     # -- 6. the differential CLI on a written .mtx ----------------------
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),

@@ -219,9 +219,11 @@ class EntryStream:
 
 def compact_stream(vals, packed, meta, step_block, *, chunks_per_step,
                    tiles_per_block, contig, num_row_tiles,
-                   x_rows) -> EntryStream:
+                   x_rows, device="cpu") -> EntryStream:
     """The nonzero slots of a one-sided chunk stream (host numpy arrays,
-    as a ``Bell2Plan`` holds them) as an :class:`EntryStream` on the CPU.
+    as a ``Bell2Plan`` holds them) as an :class:`EntryStream` on
+    ``device``, decoded there: at upload the grid goes to the card and
+    only its entries stay, so the host never walks the grid's padding.
 
     Decodes as :func:`_row_sums_plain` does: slot (i, l) of chunk c holds
     the gather lane ``q = pk & 0x7F``; its window index r2 is bits 7-11
@@ -230,39 +232,47 @@ def compact_stream(vals, packed, meta, step_block, *, chunks_per_step,
     the slot adds into row ``(step_block[c // K] * BT + meta[c, 0]) * 128
     + l``. Slots whose value is 0 (padding, and stored explicit zeros)
     drop out. The entries are sorted by row, stably, so within a row they
-    keep the stream's order. Raises ``ValueError`` when a row lies past
-    ``num_row_tiles`` tiles, a column past ``x_rows`` rows of x, or
-    either does not fit int32.
+    keep the stream's order (the same entries, in the same order, on any
+    device). Raises ``ValueError`` when a row lies past ``num_row_tiles``
+    tiles, a column past ``x_rows`` rows of x, or either does not fit
+    int32.
     """
     K, BT = chunks_per_step, tiles_per_block
-    meta = np.asarray(meta).astype(np.int64)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+    meta = t(meta).long()
     C = meta.shape[0]
-    vals = np.asarray(vals).reshape(C, SUBLANES, LANES)
-    pk = np.asarray(packed).reshape(C, SUBLANES, LANES)
-    c, i, lane = np.nonzero(vals)  # only live slots are decoded
-    q = pk[c, i, lane].astype(np.int64) & 0x7F
-    r2 = (pk[c, i, q].astype(np.int64) >> 7) & 0x1F
+    vals = t(vals).reshape(C, SUBLANES, LANES)
+    pk = t(packed).reshape(C, SUBLANES, LANES)
+    c, i, lane = torch.nonzero(vals, as_tuple=True)  # live slots only
+    q = pk[c, i, lane].long() & 0x7F
+    r2 = (pk[c, i, q].long() >> 7) & 0x1F
+    del pk
     xrow = meta[c, 2] + r2 if contig else meta[c, 2 + (r2 & 7)]
-    tile = np.asarray(step_block).astype(np.int64)[c // K] * BT + meta[c, 0]
+    tile = t(step_block).long()[c // K] * BT + meta[c, 0]
     rows, cols = tile * LANES + lane, xrow * LANES + q
-    if rows.size:
+    del q, r2, xrow, tile
+    if rows.numel():
         limit = np.iinfo(np.int32).max
-        if rows.min() < 0 or rows.max() >= min(num_row_tiles * LANES, limit):
+        if (rows.min().item() < 0
+                or rows.max().item() >= min(num_row_tiles * LANES, limit)):
             raise ValueError(
                 f"an entry's row lies outside the {num_row_tiles} output "
                 "tiles (or past int32)")
-        if cols.min() < 0 or cols.max() >= min(x_rows * LANES, limit):
+        if (cols.min().item() < 0
+                or cols.max().item() >= min(x_rows * LANES, limit)):
             raise ValueError(
                 f"an entry's column lies outside the {x_rows} rows of x "
                 "(or past int32)")
-    order = np.argsort(rows, kind="stable")
-    rows, cols = rows[order], cols[order]
+    rows, order = torch.sort(rows, stable=True)
     return EntryStream(
-        rows=torch.from_numpy(rows.astype(np.int32)),
-        cols=torch.from_numpy(cols.astype(np.int32)),
-        vals=torch.from_numpy(np.ascontiguousarray(vals[c, i, lane][order])),
-        min_tiles=int(rows[-1]) // LANES + 1 if rows.size else 0,
-        min_x_rows=int(cols.max()) // LANES + 1 if rows.size else 0,
+        rows=rows.int(),
+        cols=cols[order].int(),
+        vals=vals[c, i, lane][order],
+        min_tiles=int(rows[-1]) // LANES + 1 if rows.numel() else 0,
+        min_x_rows=int(cols.max()) // LANES + 1 if rows.numel() else 0,
     )
 
 

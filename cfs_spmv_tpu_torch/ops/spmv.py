@@ -357,6 +357,7 @@ def to_device(plan, device) -> Bell2Device:
             plan.step_block, chunks_per_step=plan.chunks_per_step,
             tiles_per_block=plan.tiles_per_block, contig=contig,
             num_row_tiles=plan.num_row_tiles, x_rows=plan.x_rows,
+            device=device,
         ).to(device, torch.bfloat16 if bf16 else None)
         grid = dict.fromkeys(grid)
     elif plan.nnz > 0:
@@ -450,8 +451,8 @@ def fp64_to_device(plan, device) -> Fp64Device:
         stream["entries"] = bk.compact_stream(
             **grid, chunks_per_step=plan.chunks_per_step,
             tiles_per_block=plan.tiles_per_block, contig=contig,
-            num_row_tiles=T, x_rows=plan.x_rows,
-        ).to(device)
+            num_row_tiles=T, x_rows=plan.x_rows, device=device,
+        )
     elif has_work:
         stream = {k: _tensor(a, device) for k, a in grid.items()}
         stream["covers"] = _visits_every_block(
@@ -701,6 +702,15 @@ def bell2_apply_mm(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
     return tiles.reshape(B, -1)[:, : dev.nrows].T
 
 
+def _count_far(fd: Bell2Device | None) -> None:
+    """Count the far stream's form an apply runs: ``sbell.far_grouped``
+    (the grouped stream and its unpermute) or ``sbell.far_entries`` (the
+    sparse residual's entries)."""
+    if fd is not None:
+        trace.count("sbell.far_grouped" if fd.grouped
+                    else "sbell.far_entries")
+
+
 def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     """Symmetric y = (D + L + Lᵀ) x, composed as the reference's
     ``sbell_apply``: the paired stream's tiles, or (without one) the
@@ -726,6 +736,7 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
             transpose_windows=dev.transpose_windows,
         )
     fd = dev.far
+    _count_far(fd)
     if fd is not None and fd.grouped:
         # degree-grouped far stream: dense over its compact tiles, then
         # unpermuted onto the seed or into the paired stream's tiles
@@ -766,6 +777,7 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     B = _check_matrix(x)
     f = _kernels(plain, x.dtype)
     fd = dev.far
+    _count_far(fd)
     grouped = fd is not None and fd.grouped
     sym_dia = dev.dia_vals is not None and not dev.dia_mirrored
     if dev.has_paired or sym_dia or (fd is not None and not grouped):

@@ -52,6 +52,16 @@ from ..utils.platform import Format, Kernel, Tuning
 
 __all__ = ["TunedMatrix", "tune"]
 
+#: stored entries (the lower triangle's) past which a float32 symmetric
+#: plan is built without the planner's relaxed slot search
+#: (``build_sbell_plan(allow_relax=False)``: no degree grouping, no deep
+#: windows). That search packs the far stream up to eight times over: its
+#: layout took 66 s of a 143-s cold set-up at 16.75M stored entries on the
+#: card's host, 24 s without it (PERF.md, §6); and the far stream of a
+#: plan it does not group reaches the card as its live entries, whatever
+#: the chunk layout it chose
+RELAX_MAX_NNZ = 1 << 23
+
 
 @dataclasses.dataclass
 class TunedMatrix:
@@ -224,19 +234,29 @@ def tune(
                 and csr.nnz):
             from .reorder import choose_reorder
 
-            with trace.span("cfs.plan.reorder", log=True):
-                res, _, _ = choose_reorder(
+            with trace.span("cfs.plan.reorder", log=True) as rs:
+                res, bw0, bw1 = choose_reorder(
                     csr, min_gain=2.0 if reorder == "auto" else 1.0
                 )
+                rs.set(rcm=res is not None, bw_before=bw0, bw_after=bw1,
+                       bw_gain=bw0 / bw1 if bw1 else 1.0)
             if res is not None:
                 perm, csr = res
 
         if fmt in (Format.SSS, Format.HYB) and tuning == Tuning.AGGRESSIVE:
+            # past RELAX_MAX_NNZ the plan's key says so: the default key
+            # stays the reference's
+            relax = {} if csr.nnz <= RELAX_MAX_NNZ else {"allow_relax": False}
             plan = cached_build(
-                lambda: _cast_values(build_sbell_plan(csr, dtype=dtype),
-                                     values),
-                csr, dtype, cache_dir, fmt="sbell", values=values,
+                lambda: _cast_values(
+                    build_sbell_plan(csr, dtype=dtype, **relax), values),
+                csr, dtype, cache_dir, fmt="sbell", values=values, **relax,
             )
+            span.set(fp32_plan=_sbell_streams(plan),
+                     allow_relax=not relax)
+            trace.count("tune.fp32_nnz", plan.nnz_full)
+            trace.count("tune.fp32_far_nnz",
+                        0 if plan.far is None else plan.far.nnz)
             dev = _upload(spmv_ops.sym_to_device, plan, device)
             tuned = TunedMatrix(
                 fmt, csr.nrows, csr.ncols, plan.nnz_full, True, plan,
@@ -284,6 +304,23 @@ def tune(
             tuned.spill_fraction, perm is not None, values, device,
         )
         return tuned
+
+
+def _sbell_streams(plan) -> dict:
+    """The streams a symmetric float32 plan holds, each with its stored
+    entries (``sdia``, ``paired``, and the far stream as ``far_grouped``,
+    degree-grouped and unpermuted, or ``far_entries``, the sparse
+    residual), and the plan's ``padding_ratio``."""
+    streams = {}
+    if plan.dia is not None:
+        streams["sdia"] = plan.dia.nnz
+    if plan.nnz_paired:
+        streams["paired"] = plan.nnz_paired
+    if plan.far is not None:
+        grouped = plan.far.row_perm is not None
+        streams["far_grouped" if grouped else "far_entries"] = plan.far.nnz
+    streams["padding_ratio"] = plan.padding_ratio
+    return streams
 
 
 def _cast_values(plan, values: str):

@@ -60,6 +60,7 @@
 // instances of sdia_gen and sbell_spmv compute that in native IEEE double,
 // not as double-float pairs.
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_bf16.h>
@@ -965,6 +966,203 @@ bell2_entries_kernel(const int* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
+// bell2_entries_kernel_rows — replaces cfs_spmv_tpu/ops/bell2_kernel.py:
+// bell2_spmv_tiles_accum (B4) together with the seed D x that the
+// reference's sbell_apply adds it into, for a symmetric float32 plan whose
+// whole off-diagonal part is the far stream's entries (no paired stream, no
+// diagonal stream): y = D x + R x, each row of y written once, x and y flat
+// (n,), no padded copy of x, no seed, no zero pass.
+//
+// What bounds it on this card. At a Graph500 graph's size (31.4M entries
+// over 1M rows at SCALE 20) two things: the entries' bytes from DRAM, 4 of
+// cols and 4 of vals an entry read once (251 MB), the row pointers (4 B a
+// row) and d, x, y (12 B a row); and the x gathers. x, d and the pointers
+// fit the 50 MB L2, but a gather x[col] that misses the L1 moves a whole
+// 32-byte L2 sector for 4 bytes: about 1 GB of L2 traffic an apply on
+// that graph, which is what the time follows (every slice size measured
+// within 3% once the shared memory was cut, and a third less shared memory
+// a CTA, so more L1, took a fifth off the time; PERF.md §6).
+// bell2_entries_kernel (one thread an entry) reads 12 B an entry, rows
+// included, and keeps one dependent chain (col, x[col], the atomic) a
+// thread in flight. The rows are skewed (hubs hundreds of times the mean
+// degree, a third of the rows empty), so a split by rows would leave a hub
+// row to one thread and an empty stretch to another.
+//
+// What the design does about it.
+// - Row pointers (ptr, n + 1) in place of the row of every entry: 8 B an
+//   entry. The entries keep their row-sorted order (EntryStream).
+// - Merge-path split. The path walks rows and entries together (n + E
+//   items: a row's entries, then its end); CTA b takes items [b P, (b + 1)
+//   P), P = kRowsThreads * kIpt, and starts at the (row, entry) coordinate
+//   tiles[b], which the upload computes once by a binary search of
+//   ptr[i] + i (ops/bell2_kernel.entry_rows). A hub row spreads over many
+//   CTAs and threads, a stretch of empty rows too; every CTA does the same
+//   work.
+// - Gathers in flight. A thread loads its kIpt entries' cols and vals
+//   (coalesced, streamed past the L2: __ldcs), then issues their kIpt x
+//   gathers together, and stores the products in shared memory.
+// - Rows in shared memory. The CTA's row ends are staged; each thread finds
+//   its kIpt-item stretch of the path by a binary search of them and walks
+//   it, summing products and closing rows. Odd kIpt keeps the threads'
+//   strided reads of shared memory free of bank conflicts. A closed row's
+//   sum takes its end's slot, so the CTA holds two arrays of kRowsItems words
+//   and the L1 keeps the rest of the SM's 256 KB for the gathers. A row
+//   open across threads is joined by a segmented scan over the threads'
+//   sums (warp shuffles, then the warps' totals), in a fixed order.
+// - y written once, in the epilogue: y[r] = d[r] x[r] + sum for every row
+//   the CTA closes, coalesced; a row with no entry reads d[r] x[r] exactly.
+//   A row open at the CTA's end leaves its partial sum in the CTA's carry
+//   (carry_row[b], carry_val[b]); bell2_entries_kernel_rows_carry adds a
+//   row's carries, in CTA order, after the CTA that closed it has stored
+//   it. No atomics: the result repeats bit for bit.
+// ---------------------------------------------------------------------------
+constexpr int kRowsThreads = 256;
+constexpr int kRowsIpt = 5;  // path items a thread (odd: no bank conflicts)
+constexpr int kRowsItems = kRowsThreads * kRowsIpt;
+// The shared memory an SM sets aside (percent of its most), the rest its
+// L1: 25 leaves 64 KB, six CTAs of 10 KB resident, and 192 KB of L1 for
+// the gathers, where the default (eight CTAs) left about 156 KB and one
+// more shared array 124 KB (PERF.md §6).
+constexpr int kRowsCarveout = 25;
+constexpr int kCarryThreads = 256;
+
+// Inclusive segmented sum over the CTA's threads in thread order: the sum
+// of v over the threads since the last one whose flag is set (that one
+// included); the flags of the CTA's warps go through shared memory.
+__device__ __forceinline__ float cta_segmented_sum(bool f, float v,
+                                                   float* warp_v,
+                                                   int* warp_f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float pv = __shfl_up_sync(0xffffffffu, v, d);
+    const int pf = __shfl_up_sync(0xffffffffu, static_cast<int>(f), d);
+    if (lane >= d) {
+      if (!f) v = pv + v;
+      f = f || pf;
+    }
+  }
+  if (lane == 31) warp_v[warp] = v, warp_f[warp] = f;
+  __syncthreads();
+  if (!f) {  // open since an earlier warp: add the warps before, latest first
+    float before = 0.0f;
+    for (int w = warp - 1; w >= 0; --w) {
+      before = warp_v[w] + before;
+      if (warp_f[w]) break;
+    }
+    v = before + v;
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kRowsThreads)
+bell2_entries_kernel_rows(const int* __restrict__ ptr,
+                          const int* __restrict__ cols,
+                          const float* __restrict__ vals,
+                          const int* __restrict__ tiles,
+                          const float* __restrict__ diag,
+                          const float* __restrict__ x, float* __restrict__ y,
+                          int* __restrict__ carry_row,
+                          float* __restrict__ carry_val) {
+  constexpr int kThreads = kRowsThreads, kIpt = kRowsIpt;
+  __shared__ float prod[kRowsItems];  // the CTA's entries' products
+  // where each closed row ends (CTA entry), then, once read, its sum
+  __shared__ union { int end; float sum; } rows[kRowsItems];
+  __shared__ float warp_v[kThreads / 32];
+  __shared__ int warp_f[kThreads / 32];
+  const int t = threadIdx.x, b = blockIdx.x;
+  const int i0 = tiles[2 * b], j0 = tiles[2 * b + 1];
+  const int nrows = tiles[2 * b + 2] - i0, nent = tiles[2 * b + 3] - j0;
+
+  int c[kIpt];
+  float v[kIpt];
+#pragma unroll
+  for (int k = 0; k < kIpt; ++k) {
+    const int e = t + k * kThreads;
+    const bool in = e < nent;
+    c[k] = in ? __ldcs(cols + j0 + e) : 0;
+    v[k] = in ? __ldcs(vals + j0 + e) : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kIpt; ++k) {
+    const int e = t + k * kThreads;
+    if (e < nent) prod[e] = v[k] * x[c[k]];
+  }
+#pragma unroll
+  for (int k = 0; k < kIpt; ++k) {
+    const int r = t + k * kThreads;
+    if (r < nrows) rows[r].end = ptr[i0 + r + 1] - j0;
+  }
+  __syncthreads();
+
+  // this thread's stretch of the path: items [k0, k1) of the CTA's, from
+  // the coordinate (a, e) with a + e = k0, a the largest a with
+  // end[a - 1] + a <= k0 (the rows before a close at or before it)
+  const int k0 = t * kIpt, k1 = min(k0 + kIpt, nrows + nent);
+  int lo = max(0, k0 - nent), hi = min(nrows, k0);
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (rows[mid - 1].end + mid <= k0)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  // every search has read what it reads: a row's end becomes its sum once
+  // the thread that opened the row closes it (no other thread reads it
+  // then); a thread's first row, which an earlier thread opened, after the
+  // segmented sum's barrier
+  __syncthreads();
+  int a = lo, e = k0 - lo, first = -1;
+  float run = 0.0f, head = 0.0f;
+  for (int k = k0; k < k1; ++k) {
+    if (a < nrows && e >= rows[a].end) {  // row a closes here
+      if (first < 0)
+        first = a, head = run;
+      else
+        rows[a].sum = run;
+      run = 0.0f;
+      ++a;
+    } else {
+      run += prod[e++];
+    }
+  }
+  // the sum of the row open at this thread's end, over the threads since
+  // the last that closed a row; the one before this thread's is what this
+  // thread's first row had before it
+  const float open = cta_segmented_sum(first >= 0, run, warp_v, warp_f);
+  const float before = __shfl_up_sync(0xffffffffu, open, 1);
+  const int lane = t & 31, warp = t >> 5;
+  float carried = lane ? before : 0.0f;
+  if (lane == 0 && warp > 0) {  // the last thread of the warp before
+    carried = 0.0f;
+    for (int w = warp - 1; w >= 0; --w) {
+      carried = warp_v[w] + carried;
+      if (warp_f[w]) break;
+    }
+  }
+  if (first >= 0) rows[first].sum = carried + head;
+  if (t == kThreads - 1) carry_row[b] = i0 + nrows, carry_val[b] = open;
+  __syncthreads();
+  for (int r = t; r < nrows; r += kThreads)
+    y[i0 + r] = fmaf(diag[i0 + r], x[i0 + r], rows[r].sum);
+}
+
+// A row's carries, in CTA order, into the y the CTA that closed it stored:
+// one thread a run of equal carry rows (rows past n: the last CTA's end).
+__global__ void __launch_bounds__(kCarryThreads)
+bell2_entries_kernel_rows_carry(const int* __restrict__ carry_row,
+                                const float* __restrict__ carry_val, int nb,
+                                int n, float* __restrict__ y) {
+  const int b = blockIdx.x * kCarryThreads + threadIdx.x;
+  if (b >= nb) return;
+  const int row = carry_row[b];
+  if (row >= n || (b > 0 && carry_row[b - 1] == row)) return;
+  float s = carry_val[b];
+  for (int k = b + 1; k < nb && carry_row[k] == row; ++k) s += carry_val[k];
+  if (s != 0.0f) y[row] += s;
+}
+
+// ---------------------------------------------------------------------------
 // sbell_spmv — replaces cfs_spmv_tpu/ops/bell2_kernel.py:sbell_spmv_tiles
 // (B5) and, over planes, sbell_spmm_tiles (B10).
 //
@@ -1788,6 +1986,38 @@ int launch_bell2_entries(const int* rows, const int* cols, const V* vals,
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
 }
 
+// bell2_entries_kernel_rows over nb CTAs (tiles: nb + 1 coordinates), then,
+// where there is more than one CTA, its carries.
+int launch_entries_rows(const int* ptr, const int* cols, const float* vals,
+                        const int* tiles, int64_t nb, const float* diag,
+                        const float* x, float* y, int* carry_row,
+                        float* carry_val, int64_t n, cudaStream_t stream) {
+  if (nb < 1 || nb > INT32_MAX || n < 0 || n > INT32_MAX) return invalid();
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  // the carveout, once a device (a function's attribute is the current
+  // device's), before any capture: the first apply on a device is eager
+  static std::atomic<uint64_t> carved{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = uint64_t{1} << (dev & 63);
+  if (!(carved.load() & bit)) {
+    err = cudaFuncSetAttribute(bell2_entries_kernel_rows,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               kRowsCarveout);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    carved.fetch_or(bit);
+  }
+  bell2_entries_kernel_rows<<<static_cast<unsigned int>(nb), kRowsThreads, 0,
+                              stream>>>(
+      ptr, cols, vals, tiles, diag, x, y, carry_row, carry_val);
+  if (nb > 1)
+    bell2_entries_kernel_rows_carry<<<blocks_for(nb, kCarryThreads),
+                                      kCarryThreads, 0, stream>>>(
+        carry_row, carry_val, static_cast<int>(nb), static_cast<int>(n), y);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Chunks a CTA of sbell_spmv_kernel<TW, R, T, V> walks on a stream of C
 // chunks.
 template <int TW, int R, typename T = float, typename V = T>
@@ -2126,6 +2356,21 @@ int cfs_bell2_entries_bf16(const int* rows, const int* cols,
                            int nr, cudaStream_t stream) {
   return launch_bell2_entries<float>(rows, cols, vals, E, x, xs, y, ys, nr,
                                      stream);
+}
+
+// y (n,) = D x + R x, R the row-sorted entries (cols, vals) under the row
+// pointers ptr (n + 1), over nb CTAs of kRowsItems path items starting at
+// tiles (nb + 1, 2: row, entry), cut for items a CTA (which must be
+// kRowsItems); carry_row and carry_val hold nb each. Launches 1 kernel, 2
+// where nb > 1.
+int cfs_bell2_entries_rows(const int* ptr, const int* cols, const float* vals,
+                           const int* tiles, int64_t nb, const float* diag,
+                           const float* x, float* y, int* carry_row,
+                           float* carry_val, int64_t n, int items,
+                           cudaStream_t stream) {
+  if (items != kRowsItems) return invalid();
+  return launch_entries_rows(ptr, cols, vals, tiles, nb, diag, x, y, carry_row,
+                             carry_val, n, stream);
 }
 
 // mode 0: out = P g over n_gather rows; 1: out = diag x + P g over n_out

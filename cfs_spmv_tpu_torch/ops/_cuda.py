@@ -113,6 +113,10 @@ def _bind(path: str) -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, i64, i32, i32, i32, i64, *planes]
     for fn in _forms(cdll, "bell2_entries"):
         fn.argtypes = [p, p, p, i64, *planes]
+    # bell2_entries_rows: (ptr, cols, vals, tiles, nb, diag, x, y,
+    # carry_row, carry_val, n, items, stream)
+    cdll.cfs_bell2_entries_rows.argtypes = [p, p, p, p, i64, p, p, p, p, p,
+                                            i64, i32, p]
     # unperm_gather: (pk, rows, W, g, gs, out, os, n_gather, n_out, diag, x,
     # x_row, x_col, n_seed, mode, B, stream)
     cdll.cfs_unperm_gather.argtypes = [p, p, i32, p, i64, p, i64, i64, i64,
@@ -120,7 +124,7 @@ def _bind(path: str) -> ctypes.CDLL:
     for fn in (*(f for name in _FORMS for f in _forms(cdll, name)),
                cdll.cfs_sbell_chunks_per_cta, cdll.cfs_unperm_gather,
                cdll.cfs_sdia_gen_smem_f64, cdll.cfs_sbell_smem,
-               cdll.cfs_sdia_sym_rows_f64):
+               cdll.cfs_sdia_sym_rows_f64, cdll.cfs_bell2_entries_rows):
         fn.restype = i32
     cdll.cfs_cuda_error_string.argtypes = [i32]
     cdll.cfs_cuda_error_string.restype = ctypes.c_char_p

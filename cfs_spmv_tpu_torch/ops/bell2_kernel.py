@@ -10,6 +10,12 @@ the fp32 SpMV and SpMM paths reach:
   all padding; here :func:`compact_stream` turns that grid, once per
   upload, into a row-sorted list of its live entries (``EntryStream``),
   and the kernel runs one thread per entry;
+- ``bell2_entries_rows`` (B4 rows): B4 and the seed ``D x`` in one
+  pass, ``y = D x + R x`` over flat x and y, where a symmetric float32
+  plan's whole off-diagonal part is that entry list: row pointers
+  (:func:`entry_rows`, once per upload) in place of each entry's row, the
+  work split by path items (rows and entries) so that hub rows spread,
+  every row of y written once;
 - ``unperm_gather_tiles`` (B3): original-order rows from a
   degree-grouped stream's compact output tiles, in the symmetric applier
   fused with the seed ``D x`` or added into the paired stream's tiles;
@@ -70,7 +76,11 @@ META_W = 2 + SUBLANES
 
 __all__ = [
     "EntryStream",
+    "EntryRows",
     "compact_stream",
+    "entry_rows",
+    "bell2_entries_rows",
+    "bell2_entries_rows_plain",
     "bell2_spmv_tiles",
     "bell2_spmv_tiles_accum",
     "bell2_spmv_tiles_plain",
@@ -414,6 +424,105 @@ def _spmv_accum(wrapper, dtype, entries, x2d, y_tiles):
         _cuda.count(wrapper, entries.vals.dtype, _launch_entries(
             entries, x2d[None], y_tiles[None], wrapper.__name__))
     return y_tiles
+
+
+#: path items (rows and entries) a CTA of ``bell2_entries_kernel_rows``
+#: takes: its ``kRowsItems``, 256 threads of 5
+ROWS_ITEMS = 256 * 5
+
+
+@dataclasses.dataclass
+class EntryRows:
+    """Row pointers over an :class:`EntryStream` of ``nrows`` rows and the
+    stream's merge-path split (``bell2_entries_rows``): the walk over rows
+    and entries together, ``nrows + count`` items (a row's entries, then
+    its end), cut every ``ROWS_ITEMS`` items."""
+
+    ptr: torch.Tensor  # (nrows + 1,) int32: row r's entries ptr[r]:ptr[r+1]
+    #: (slices + 1, 2) int32: the (row, entry) where each slice starts, the
+    #: largest row i with ptr[i] + i <= its first item; the last is
+    #: (nrows, count)
+    tiles: torch.Tensor
+    nrows: int
+
+    @property
+    def slices(self) -> int:
+        return self.tiles.shape[0] - 1
+
+
+def entry_rows(entries: EntryStream, nrows: int) -> EntryRows:
+    """The :class:`EntryRows` of ``entries`` (rows sorted, as
+    :func:`compact_stream` gives them) over ``nrows`` rows and columns, on
+    the entries' device. Raises ``ValueError`` where an entry's row or
+    column is not below ``nrows``, or the path's items do not fit int32."""
+    rows, dev = entries.rows.long(), entries.rows.device
+    E = entries.count
+    if nrows + E >= 2**31:
+        raise ValueError("the entries' path passes int32")
+    if E and (int(rows[0]) < 0 or int(rows[-1]) >= nrows
+              or int(entries.cols.min()) < 0
+              or int(entries.cols.max()) >= nrows):
+        raise ValueError(f"an entry lies outside the {nrows} rows and "
+                         "columns")
+    ptr = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(rows, minlength=nrows), 0, out=ptr[1:])
+    L = nrows + E
+    k = torch.clamp(torch.arange(max(1, -(-L // ROWS_ITEMS)) + 1,
+                                 device=dev) * ROWS_ITEMS, max=L)
+    path = ptr + torch.arange(nrows + 1, device=dev)
+    i = torch.searchsorted(path, k, right=True) - 1
+    return EntryRows(ptr=ptr.int(),
+                     tiles=torch.stack([i, k - i], 1).int().contiguous(),
+                     nrows=nrows)
+
+
+def bell2_entries_rows_plain(entries, er, diag, x):
+    """Plain PyTorch twin of :func:`bell2_entries_rows` (any device): D x,
+    then one gather, one product and one ``index_add_`` over the entries,
+    their rows read off the row pointers."""
+    rows = torch.repeat_interleave(
+        torch.arange(er.nrows, device=x.device), er.ptr.diff().long())
+    y = diag * x
+    y.index_add_(0, rows, entries.vals * x.index_select(0, entries.cols))
+    return y
+
+
+def bell2_entries_rows(entries, er, diag, x, out=None):
+    """``y = D x + R x`` for R the entries of an :class:`EntryStream` under
+    their :class:`EntryRows` ``er``, D the ``diag`` (n,), x (n,), all
+    float32, n = ``er.nrows``: a (n,) y, every row written once (a row no
+    entry names reads ``diag[r] * x[r]``), the same bits on every call.
+    ``out``: the kernel's buffer, (n + 2 * er.slices,) float32, y first
+    and then the slices' carries (default: a fresh one); y is its first n.
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
+    (and, over more than one slice, its carry pass) or raises.
+    """
+    dev = _device_of(er.ptr, er.tiles, entries.cols, entries.vals, diag, x)
+    n = er.nrows
+    if x.shape != (n,) or diag.shape != (n,):
+        raise ValueError(f"x and diag must be ({n},), got {tuple(x.shape)} "
+                         f"and {tuple(diag.shape)}")
+    for t, name in ((entries.vals, "entries.vals"), (diag, "diag"),
+                    (x, "x")):
+        _cuda.check_dtype(t, name, torch.float32)
+    if dev.type == "cpu":
+        return bell2_entries_rows_plain(entries, er, diag, x)
+    nb = er.slices
+    # y, then the slices' carries: nb rows (int32 bits) and nb sums
+    buf = _out_buffer(out, (n + 2 * nb,), dev)
+    fn = _cuda.lib().cfs_bell2_entries_rows
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with trace.span("cfs.launch", entry=fn.__name__):
+            err = fn(er.ptr.data_ptr(), entries.cols.data_ptr(),
+                     entries.vals.data_ptr(), er.tiles.data_ptr(), nb,
+                     diag.data_ptr(), x.data_ptr(), buf.data_ptr(),
+                     buf.data_ptr() + 4 * n, buf.data_ptr() + 4 * (n + nb),
+                     n, ROWS_ITEMS, stream)
+    _cuda.check(err, "bell2_entries_rows")
+    bell2_entries_rows.launches += int(n > 0)
+    return buf[:n]
 
 
 def _gathered(pk2d, rows, g_tiles):
@@ -945,8 +1054,11 @@ def sbell_spmm_tiles(vals, packed, meta, step_block, x3d, *,
 #: launches of the CUDA kernels through these wrappers (never the twins);
 #: an SpMM stream wrapper counts one per group of planes; a stream wrapper
 #: counts the launches of its bf16 instances apart, in ``launches_bf16``,
-#: and the paired ones those of their double instance in ``launches_f64``
+#: and the paired ones those of their double instance in ``launches_f64``;
+#: ``bell2_entries_rows`` counts its kernel, not its carry pass (as the
+#: stream wrappers count no zero pass)
 unperm_gather_tiles.launches = 0
+bell2_entries_rows.launches = 0
 unperm_gather_tiles_mm.launches = 0
 for _w in (bell2_spmv_tiles, bell2_spmv_tiles_accum, sbell_spmv_tiles,
            bell2_spmm_tiles, bell2_spmm_tiles_accum, sbell_spmm_tiles):

@@ -166,6 +166,11 @@ class SBellDevice:
     #: double signed diagonal kernel stages (``sdia_kernel.gen_window``);
     #: float32 and bf16 values run as they are
     dia_window: tuple[int, int] | None = None
+    #: row pointers over the far stream's entries and their slices, where
+    #: those float32 entries are the plan's whole off-diagonal part (no
+    #: paired stream, no diagonal stream): ``sbell_apply`` then writes y
+    #: = D x + R x in one pass (``bell2_kernel.bell2_entries_rows``)
+    far_rows: bk.EntryRows | None = None
 
     @property
     def has_paired(self) -> bool:
@@ -400,6 +405,10 @@ def sym_to_device(plan, device) -> SBellDevice:
         _check_paired_plan(plan)
         paired = {k: _tensor(getattr(plan, k), device)
                   for k in ("vals", "packed", "meta", "step_block")}
+    far_rows = None
+    if (far is not None and far.entries is not None and not paired
+            and plan.dia is None and far.entries.vals.dtype == torch.float32):
+        far_rows = bk.entry_rows(far.entries, plan.nrows)
     offsets = () if plan.dia is None else tuple(plan.dia.offsets)
     return SBellDevice(
         diag=_tensor(plan.diag, device),
@@ -414,6 +423,7 @@ def sym_to_device(plan, device) -> SBellDevice:
         dia_stage_x=sk.stages_x(offsets),
         dia_window=(sk.gen_window(offsets) if any(d < 0 for d in offsets)
                     else None),
+        far_rows=far_rows,
         **paired,
         **_dia_fields(plan.dia, device),
     )
@@ -553,6 +563,7 @@ def _unperm_tiles_mm(dev: Bell2Device, g_tiles,
 _STREAMS = {
     "bell2": (bk.bell2_spmv_tiles, bk.bell2_spmv_tiles_plain),
     "bell2_acc": (bk.bell2_spmv_tiles_accum, bk.bell2_spmv_tiles_accum_plain),
+    "bell2_rows": (bk.bell2_entries_rows, bk.bell2_entries_rows_plain),
     "unperm": (bk.unperm_gather_tiles, bk.unperm_gather_tiles_plain),
     "sbell": (bk.sbell_spmv_tiles, bk.sbell_spmv_tiles_plain),
     "sdia_sym": (sk.sdia_sym_tiles, sk.sdia_sym_tiles_plain),
@@ -705,10 +716,20 @@ def bell2_apply_mm(dev: Bell2Device, x: torch.Tensor, *, plain: bool = False):
 def _count_far(fd: Bell2Device | None) -> None:
     """Count the far stream's form an apply runs: ``sbell.far_grouped``
     (the grouped stream and its unpermute) or ``sbell.far_entries`` (the
-    sparse residual's entries)."""
+    sparse residual's entries added into tiles); ``sbell_apply``'s one
+    pass over the entries' rows counts ``sbell.far_rows`` instead."""
     if fd is not None:
         trace.count("sbell.far_grouped" if fd.grouped
                     else "sbell.far_entries")
+
+
+def _rows_pass(dev: SBellDevice, x: torch.Tensor) -> bool:
+    """Whether :func:`sbell_apply` runs ``bell2_entries_rows``: the far
+    stream's row pointers were built, and the plan still has neither a
+    paired nor a diagonal stream (``DistSpDMV`` lays its diagonals over an
+    uploaded plan), for a float32 x."""
+    return (dev.far_rows is not None and not dev.has_paired
+            and dev.dia_vals is None and x.dtype == torch.float32)
 
 
 def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
@@ -720,10 +741,18 @@ def sbell_apply(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     paired stream's tiles (``into``) — or the sparse far stream's entries
     accumulated straight into the tiles; the SDIA stream added in place
     (``sdia_gen_tiles`` when its offsets are mirrored, else
-    ``sdia_sym_tiles``); then D x when the paired stream ran.
-    ``plain=True`` runs every stream through its plain twin.
+    ``sdia_sym_tiles``); then D x when the paired stream ran. Where the
+    far stream's float32 entries are the whole off-diagonal part
+    (``dev.far_rows``) and x is float32, one pass writes y = D x + R x
+    from x as it lies (``bell2_entries_rows``; counter
+    ``sbell.far_rows``). ``plain=True`` runs every stream through its
+    plain twin.
     """
     _check_vector(x, "sbell_apply_mm")
+    if _rows_pass(dev, x):
+        trace.count("sbell.far_rows")
+        return _STREAMS["bell2_rows"][plain](dev.far.entries, dev.far_rows,
+                                             dev.diag, x.contiguous())
     f = _kernels(plain, x.dtype)
     x2d = pad_x(x, dev.x_rows)
     NT = dev.num_row_tiles

@@ -259,7 +259,8 @@ EXPECTED = {
     # the paired stream past the L2 (400,000 rows, several output blocks),
     # and the default gate's choice there: one accumulating entry list
     "near_band_paired_400k": {"sbell_spmv", "bell2_spmv_accum"},
-    "near_band_paired_400k_auto": {"bell2_spmv_accum"},
+    # (the entry list alone: its rows and D x in one pass)
+    "near_band_paired_400k_auto": {"bell2_entries_rows"},
     # the float64 route
     "cant_proxy_f64": {"sdia_sym_df"},  # diagonals incl. the halved main
     "audikw_proxy_f64": {"bell2_spmv_df"},  # peel rejected: all one-sided
@@ -314,6 +315,8 @@ MM_OF = {
     "sdia_sym": "sdia_sym_mm",
     "bell2_spmv": "bell2_spmm",
     "bell2_spmv_accum": "bell2_spmm_accum",
+    # the SpMM apply of an entry list alone keeps B8
+    "bell2_entries_rows": "bell2_spmm_accum",
     "unperm_gather": "unperm_gather_mm",
     "sbell_spmv": "sbell_spmm",
     "sdia_gen": "sdia_gen_mm",
@@ -338,6 +341,7 @@ REPLACES = {
     "sdia_sym": "cfs_spmv_tpu/ops/sdia_kernel.py:157",
     "bell2_spmv": "cfs_spmv_tpu/ops/bell2_kernel.py:812",
     "bell2_spmv_accum": "cfs_spmv_tpu/ops/bell2_kernel.py:939",
+    "bell2_entries_rows": "cfs_spmv_tpu/ops/bell2_kernel.py:939",
     "unperm_gather": "cfs_spmv_tpu/ops/bell2_kernel.py:1216",
     "sbell_spmv": "cfs_spmv_tpu/ops/bell2_kernel.py:1385",
     "sdia_gen": "cfs_spmv_tpu/ops/sdia_kernel.py:251",
@@ -801,6 +805,8 @@ def predict(tuned) -> set:
         out.add("sbell_spmv")
     if dev.far is not None:
         out |= ({"bell2_spmv", "unperm_gather"} if dev.far.grouped
+                else {"bell2_entries_rows"} if dev.far_rows is not None
+                and not dev.has_paired and dev.dia_vals is None
                 else {"bell2_spmv_accum"})
     if dev.dia_vals is not None:
         out.add("sdia_gen" if dev.dia_mirrored else "sdia_sym")
@@ -1123,7 +1129,10 @@ def predict_dist(dsp, planes=0) -> dict:
             if near.has_paired:
                 add("sbell_spmv")
             if near.far is not None and near.far.entries.count:
-                add("bell2_spmv_accum")
+                # a float32 shard of entries alone: one pass with D x
+                rows = (not mm and not f64 and near.far_rows is not None
+                        and not near.has_paired and near.dia_vals is None)
+                add("bell2_entries_rows" if rows else "bell2_spmv_accum")
             if near.dia_vals is not None:
                 add("sdia_gen" if near.dia_mirrored else "sdia_sym")
         if sh.far is not None and sh.far.has_work:
@@ -1488,6 +1497,7 @@ def _wrappers() -> dict:
         "sdia_sym": sk.sdia_sym_tiles,
         "bell2_spmv": bk.bell2_spmv_tiles,
         "bell2_spmv_accum": bk.bell2_spmv_tiles_accum,
+        "bell2_entries_rows": bk.bell2_entries_rows,
         "unperm_gather": bk.unperm_gather_tiles,
         "sbell_spmv": bk.sbell_spmv_tiles,
         "sdia_gen": sk.sdia_gen_tiles,
@@ -2362,6 +2372,32 @@ def main() -> int:
         fn=lambda: bk.bell2_spmv_tiles_accum(es, x2d_f, y0_f.clone()),
         plain=lambda: bk.bell2_spmv_tiles_accum_plain(
             es, x2d_f, y0_f.clone()),
+    )
+
+    # B4 rows on the same entries: y = D x + R x from x as it lies, its
+    # rows off the pointers, every row written once (a NaN-poisoned buffer)
+    rw_er = bk.entry_rows(es, d.nrows)
+    rw_x, rw_d = xe.contiguous(), d.diag
+    rw_buf = torch.full((d.nrows + 2 * rw_er.slices,), float("nan"),
+                        device=dev)
+    rw_y = bk.bell2_entries_rows(es, rw_er, rw_d, rw_x, out=rw_buf)
+    rw_err = _agree(
+        rw_y, bk.bell2_entries_rows_plain(es, rw_er, rw_d, rw_x),
+        bk.bell2_entries_rows_plain(es_abs, rw_er, rw_d.abs().double(),
+                                    rw_x.abs().double()),
+        far_nnz_row + 1, "bell2_entries_rows")
+    if not torch.equal(rw_y, bk.bell2_entries_rows(es, rw_er, rw_d, rw_x)):
+        raise AssertionError("bell2_entries_rows does not repeat bit for bit")
+    kern["bell2_entries_rows"] = dict(
+        err=rw_err, on="flagship",
+        bytes=_nbytes(rw_er.ptr, es.cols, es.vals, rw_d, rw_x)
+        + 4 * d.nrows,
+        flops=2 * (es.count + d.nrows),
+        library=csr_mv(S_res, x2d_f),
+        fn=lambda es=es, er=rw_er, dg=rw_d, x=rw_x: bk.bell2_entries_rows(
+            es, er, dg, x),
+        plain=lambda es=es, er=rw_er, dg=rw_d, x=rw_x:
+            bk.bell2_entries_rows_plain(es, er, dg, x),
     )
 
     def make_bell2_acc_mm(B, es=es, es_abs=es_abs):

@@ -29,6 +29,7 @@ import numpy as np
 from ..formats.bell2 import Bell2Plan
 from ..formats.sbell import SBellPlan
 from ..formats.sdia import SDiaPlan
+from ..ops.fp64_entries import Fp64EntriesPlan
 from ..utils import trace
 from ..utils.logging import info
 
@@ -43,6 +44,8 @@ _PLAN_TYPES = {
     "Bell2Plan": Bell2Plan,
     "SBellPlan": SBellPlan,
     "SDiaPlan": SDiaPlan,
+    # the port's own (``ops/fp64_entries``), under a key of its own
+    "Fp64EntriesPlan": Fp64EntriesPlan,
 }
 
 #: the numpy type in which a host plan holds bfloat16 values: their bits
@@ -63,7 +66,7 @@ def _flatten(plan, prefix, arrays, manifest):
                 fields[f.name] = {"kind": "array", "dtype": "bfloat16"}
             else:
                 fields[f.name] = {"kind": "array"}
-        elif isinstance(v, (Bell2Plan, SBellPlan, SDiaPlan)):
+        elif isinstance(v, tuple(_PLAN_TYPES.values())):
             fields[f.name] = {"kind": "plan"}
             _flatten(v, key + ".", arrays, manifest)
         elif v is None:
@@ -76,7 +79,8 @@ def _flatten(plan, prefix, arrays, manifest):
 
 
 def save_plan(path, plan) -> None:
-    """Serialize a plan (Bell2Plan / SBellPlan / SDiaPlan) to .npz."""
+    """Serialize a plan (Bell2Plan / SBellPlan / SDiaPlan /
+    Fp64EntriesPlan) to .npz."""
     arrays: dict = {}
     manifest: dict = {}
     _flatten(plan, "root.", arrays, manifest)

@@ -286,6 +286,32 @@ def compact_stream(vals, packed, meta, step_block, *, chunks_per_step,
     )
 
 
+def lower_entries(row, col, val, n: int, device) -> EntryStream:
+    """The entries of the symmetric matrix of ``n`` rows whose lower
+    triangle, or what a peel left of it, is (``row``, ``col``, ``val``)
+    in CSR order (host arrays): both triangles, made on ``device`` and
+    sorted by row, stably, so that each row's columns ascend. Entries
+    whose value is 0 drop out, as in :func:`compact_stream`. Raises
+    ``ValueError`` where an index does not fit int32."""
+    if n > np.iinfo(np.int32).max:
+        raise ValueError(f"{n} rows do not fit the entries' int32 indices")
+    r, c, v = (torch.as_tensor(np.ascontiguousarray(a)).to(device)
+               for a in (row, col, val))
+    live = v != 0
+    r, c, v = r[live], c[live], v[live]
+    del live
+    strict = r != c
+    rows, order = torch.sort(torch.cat([r, c[strict]]).int(), stable=True)
+    cols = torch.cat([c, r[strict]]).int()[order]
+    vals = torch.cat([v, v[strict]])[order]
+    del r, c, v, strict, order
+    return EntryStream(
+        rows=rows, cols=cols, vals=vals,
+        min_tiles=int(rows[-1]) // LANES + 1 if rows.numel() else 0,
+        min_x_rows=int(cols.max()) // LANES + 1 if rows.numel() else 0,
+    )
+
+
 def bell2_spmv_tiles_accum_plain(entries, x2d, y_tiles):
     """Plain PyTorch twin of :func:`bell2_spmv_tiles_accum` (any device):
     one gather, one product and one ``index_add_`` over the entries, in

@@ -45,6 +45,7 @@ from ..io.plancache import BF16_BITS
 from ..utils import trace
 from . import bell2_df as bdf
 from . import bell2_kernel as bk
+from .fp64_entries import Fp64EntriesPlan
 from . import sdia_df as sdf
 from . import sdia_kernel as sk
 
@@ -442,8 +443,12 @@ def fp64_to_device(plan, device) -> Fp64Device:
     (``bell2_kernel.compact_stream`` of the unchanged plan): the appliers
     add them into zero tiles. Grouped streams and a whole-matrix stream
     keep the chunk grid; a grouped one may be sparse, its rows are
-    gathered. ``covers`` records whether the grid visits every block."""
+    gathered. ``covers`` records whether the grid visits every block.
+    An ``Fp64EntriesPlan`` has no grid: its lower-triangle arrays become
+    the entries on ``device`` (``bell2_kernel.lower_entries``)."""
     device = as_device(device)
+    if isinstance(plan, Fp64EntriesPlan):
+        return _fp64_entries_to_device(plan, device)
     contig = plan.windows_contig or plan.window_depth > SUBLANES
     _check_stream_plan(plan, contig)
     has_work = plan.nnz > 0
@@ -475,19 +480,42 @@ def fp64_to_device(plan, device) -> Fp64Device:
             stream["row_perm"] = _tensor(
                 np.concatenate([perm, np.full(pad, T * LANES, np.int64)]),
                 device)
-    dia = {}
-    if plan.dia is not None:
-        if min(plan.dia.offsets) < 0:
-            raise ValueError("the float64 diagonal stream takes lower "
-                             "diagonals (offsets >= 0) only")
-        dia = _dia_fields(plan.dia, device)
-        dia["dia_vals"] = dia["dia_vals"].to(torch.float64)
-        dia["dia_stage_x"] = sk.stages_x(plan.dia.offsets)
     return Fp64Device(
         nrows=plan.nrows, ncols=plan.ncols, num_row_tiles=T,
         x_rows=plan.x_rows, chunks_per_step=plan.chunks_per_step,
         tiles_per_block=plan.tiles_per_block, contig=contig,
-        has_work=has_work, **stream, **dia,
+        has_work=has_work, **stream, **_fp64_dia(plan.dia, device),
+    )
+
+
+def _fp64_dia(dia, device) -> dict:
+    """The ``Fp64Device`` fields of a float64 plan's lower diagonals (none
+    for None)."""
+    if dia is None:
+        return {}
+    if min(dia.offsets) < 0:
+        raise ValueError("the float64 diagonal stream takes lower "
+                         "diagonals (offsets >= 0) only")
+    fields = _dia_fields(dia, device)
+    fields["dia_vals"] = fields["dia_vals"].to(torch.float64)
+    fields["dia_stage_x"] = sk.stages_x(dia.offsets)
+    return fields
+
+
+def _fp64_entries_to_device(plan: Fp64EntriesPlan, device) -> Fp64Device:
+    """Upload an entry-list plan: its entries (none where the peel took
+    everything) and its diagonals, on result tiles of the matrix's
+    height."""
+    stream = {}
+    if plan.nnz:
+        stream["entries"] = bk.lower_entries(plan.row, plan.col, plan.val,
+                                             plan.nrows, device)
+    return Fp64Device(
+        nrows=plan.nrows, ncols=plan.ncols,
+        num_row_tiles=-(-plan.nrows // LANES),
+        x_rows=-(-plan.ncols // LANES), chunks_per_step=1,
+        tiles_per_block=1, contig=False, has_work=plan.nnz > 0,
+        **stream, **_fp64_dia(plan.dia, device),
     )
 
 
@@ -845,6 +873,18 @@ def sbell_apply_mm(dev: SBellDevice, x: torch.Tensor, *, plain: bool = False):
     return _plus_diag(Y, dev.diag, x) if dev.has_paired else Y
 
 
+def _count_fp64_stream(dev: Fp64Device) -> None:
+    """Count the one-sided stream's form an apply runs:
+    ``fp64.stream_entries`` (the entries added into zero tiles),
+    ``fp64.stream_grid`` (the chunk grid) or ``fp64.stream_grouped`` (the
+    grid and its rows' gather); a plan of diagonals only counts none."""
+    if dev.entries is not None:
+        trace.count("fp64.stream_entries")
+    elif dev.has_work:
+        trace.count("fp64.stream_grouped" if dev.grouped
+                    else "fp64.stream_grid")
+
+
 def _check_fp64(x):
     if x.dtype != torch.float64:
         raise TypeError(f"x is {x.dtype} but the plan was tuned for "
@@ -862,9 +902,11 @@ def fp64_apply(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
     symmetric diagonal stream adds in place (``sdia_sym_tiles_df``), as
     ``sbell_apply`` seeds its accumulating streams. x is padded once, to
     the taller of the two streams' x operands. An empty matrix gives
-    zeros. ``plain=True`` runs every stream through its twin."""
+    zeros. ``plain=True`` runs every stream through its twin. One counter
+    an apply names the stream's form (:func:`_count_fp64_stream`)."""
     _check_vector(x, "fp64_apply_mm")
     _check_fp64(x)
+    _count_fp64_stream(dev)
     f = _kernels(plain)
     TD = -(-dev.nrows // LANES)  # tiles of the result
     x2d = pad_x(x, max(dev.x_rows, TD))
@@ -908,6 +950,7 @@ def fp64_apply_mm(dev: Fp64Device, x: torch.Tensor, *, plain: bool = False):
         trace.count("fp64_mm.rows", 1)
         return f["sdia_rows_df_mm"](dev.dia_vals, x, dev.dia_offsets)
     trace.count("fp64_mm.planes", 1)
+    _count_fp64_stream(dev)
     TD = -(-dev.nrows // LANES)
     x3d = pad_x_mm(x, max(dev.x_rows, TD))
     if dev.entries is not None:

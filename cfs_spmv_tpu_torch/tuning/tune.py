@@ -16,8 +16,12 @@ every format and tuning level, with no reordering: ``_tune_fp64`` peels
 the dense lower diagonals of a symmetric matrix (the main one included,
 stored halved) into the symmetric diagonal stream and packs everything
 else, expanded, into one one-sided stream, both in IEEE double
-(``ops/spmv.fp64_apply``). ``CFS_FP64=xla`` selects the plain ELL+COO
-path instead (``_tune_fp64_xla``, ``ops/xla_ref.py``).
+(``ops/spmv.fp64_apply``). Past ``FP64_ENTRIES_MIN_NNZ`` stored entries
+the residual of a symmetric matrix whose peel takes diagonals is an entry
+list built from the lower triangle, with no slot search
+(``ops/fp64_entries.Fp64EntriesPlan``).
+``CFS_FP64=xla`` selects the plain ELL+COO path instead
+(``_tune_fp64_xla``, ``ops/xla_ref.py``).
 
 ``values="bfloat16"`` stores the float32 plans' stream values in
 bfloat16 (``_cast_values``, as the reference's): the paired or one-sided
@@ -41,10 +45,12 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..formats.bell2 import LANES, SUBLANES, Bell2Plan
 from ..formats.csr import CSR
 from ..formats.sbell import build_sbell_plan
 from ..io.plancache import cached_build
 from ..ops import spmv as spmv_ops
+from ..ops.fp64_entries import Fp64EntriesPlan
 from ..utils import trace
 from ..utils.config import config
 from ..utils.logging import info, warn
@@ -61,6 +67,18 @@ __all__ = ["TunedMatrix", "tune"]
 #: plan it does not group reaches the card as its live entries, whatever
 #: the chunk layout it chose
 RELAX_MAX_NNZ = 1 << 23
+
+#: stored entries past which a symmetric matrix whose peel takes diagonals
+#: builds its float64 residual as an entry list
+#: (``build_fp64_plan(entries=True)``): no slot search and no chunk grid,
+#: which the upload compacts to the same entries there. On an H100 and its
+#: 8-core host (PERF.md, §6): at 29.9M stored entries of a 3-D elasticity
+#: matrix both forms applied in 0.36 ms and the grid took 41 s to build,
+#: the entry list 1.6 s (at 248M: 330 s and 52 GB against 14.5 s); at
+#: 3.5M the grid applied in 0.10 ms, the entry list 0.15. Past the gate an
+#: unpeeled matrix keeps the grid: grouped, it applied 20% faster (0.20
+#: against 0.25 ms at 18.9M stored)
+FP64_ENTRIES_MIN_NNZ = 1 << 23
 
 
 @dataclasses.dataclass
@@ -221,9 +239,13 @@ def tune(
                 return _tune_fp64_xla(csr, fmt, device)
             tuned = _tune_fp64(csr, fmt, device, cache_dir)
             dia = tuned.plan.dia
+            form, nnz, slots = _fp64_stream(tuned)
             span.set(fp64_plan="expanded" if dia is None else "sdia",
-                     sdia_diagonals=0 if dia is None else len(dia.offsets))
+                     sdia_diagonals=0 if dia is None else len(dia.offsets),
+                     fp64_stream=form, fp64_stream_slots=slots)
             trace.count("tune.fp64_peeled", int(dia is not None))
+            trace.count("tune.fp64_nnz", tuned.nnz_full)
+            trace.count("tune.fp64_stream_nnz", nnz)
             return tuned
         if np.dtype(dtype) != np.float32:
             raise ValueError(
@@ -406,10 +428,15 @@ def _upload(to_device, plan, device):
     return dev
 
 
-def build_fp64_plan(csr: CSR):
+def build_fp64_plan(csr: CSR, entries: bool = False):
     """The float64 plan of ``csr``: the decisions of the reference's
     ``_tune_fp64_df._build``, with float64 values in place of its fp32
     (hi, lo) pairs (a rejoined pair keeps about 48 bits of the 53).
+    With ``entries``, a symmetric square matrix peels alike and, where the
+    peel took diagonals, keeps what is left of its lower triangle as it
+    is, for the upload to expand (``ops/fp64_entries.Fp64EntriesPlan``):
+    no slot-packed stream. A matrix the peel takes nothing of keeps the
+    grid, whose degree-grouped one-sided stream writes each row once.
 
     A symmetric square matrix peels its dense lower diagonals, the main
     one included, into an SDIA plan (``plan.dia``) whose main diagonal is
@@ -436,9 +463,12 @@ def build_fp64_plan(csr: CSR):
             row_l, col_l, val_l, nrows, dtype=np.float64,
             include_zero=True, min_frac=0.25,
         )
+        if dia is not None and 0 in dia.offsets:
+            dia.vals[:, dia.offsets.index(0)] *= 0.5
+        if entries and dia is not None:
+            return Fp64EntriesPlan.from_lower(
+                nrows, row_l[resid], col_l[resid], val_l[resid], dia)
         if dia is not None:
-            if 0 in dia.offsets:
-                dia.vals[:, dia.offsets.index(0)] *= 0.5
             rr, cc, vv = row_l[resid], col_l[resid], val_l[resid]
             strict = rr != cc
             plan = build_bell2_from_arrays(
@@ -484,27 +514,52 @@ def _tune_fp64(csr: CSR, fmt: Format, device,
     ``"bell2_df"`` plan of the same matrix holds fp32 (hi, lo) pairs, so
     the two must never share a key. ``sdia_rows="any"`` keys the planner
     without a row ceiling apart from the plans of one that expanded every
-    matrix past 5M rows."""
-    plan = cached_build(lambda: build_fp64_plan(csr), csr, np.float64,
-                        cache_dir, fmt="bell2_f64", sdia_rows="any")
+    matrix past 5M rows; ``fp64_stream="entries"`` keys the plan of a
+    symmetric matrix past ``FP64_ENTRIES_MIN_NNZ`` stored entries (an
+    entry list where the peel takes diagonals) apart from the grid's."""
+    entries = (csr.symmetric and csr.nrows == csr.ncols
+               and csr.nnz > FP64_ENTRIES_MIN_NNZ)
+    key = {"fp64_stream": "entries"} if entries else {}
+    plan = cached_build(lambda: build_fp64_plan(csr, entries=entries), csr,
+                        np.float64, cache_dir, fmt="bell2_f64",
+                        sdia_rows="any", **key)
     dev = _upload(spmv_ops.fp64_to_device, plan, device)
     nnz_full = plan.nnz
-    if csr.symmetric and plan.dia is not None:
+    if isinstance(plan, Fp64EntriesPlan) or (csr.symmetric
+                                             and plan.dia is not None):
         with trace.span("cfs.tune.diag_count"):
             ndiag = _diagonal_entries(csr)
         nnz_full = 2 * csr.nnz - ndiag
-    info(
-        "tune: fp64 -> native fp64 kernels, nnz=%d chunks=%d pad=%.2fx "
-        "depth=%d grouped=%s sdia=%s device=%s",
-        nnz_full, plan.num_chunks, plan.padding_ratio, plan.window_depth,
-        plan.row_perm is not None,
-        0 if plan.dia is None else len(plan.dia.offsets), device,
-    )
-    return TunedMatrix(
+    tuned = TunedMatrix(
         fmt, csr.nrows, csr.ncols, nnz_full, csr.symmetric, plan, dev,
         spmv_ops.fp64_apply, spmv_ops.fp64_apply_mm, 0.0,
         plan.padding_ratio, device, dtype=torch.float64,
     )
+    info(
+        "tune: fp64 -> native fp64 kernels, nnz=%d stream=%s "
+        "(%d entries, %d slots) pad=%.2fx sdia=%s device=%s",
+        nnz_full, *_fp64_stream(tuned), plan.padding_ratio,
+        0 if plan.dia is None else len(plan.dia.offsets), device,
+    )
+    return tuned
+
+
+def _fp64_stream(tuned: TunedMatrix) -> tuple[str, int, int]:
+    """The one-sided stream of a float64 plan as uploaded: its form
+    (``"entries"``, ``"grouped"``, ``"grid"`` or ``"none"``), its stored
+    entries (both triangles, stored zeros included, as the plan holds
+    them: the same count in either plan form of one matrix) and the slots
+    of the chunk grid the host plan holds (0 for an entry-list plan)."""
+    plan, dev = tuned.plan, tuned.operands
+    slots = (plan.num_chunks * SUBLANES * LANES
+             if isinstance(plan, Bell2Plan) else 0)
+    if dev.entries is not None:
+        form = "entries"
+    elif not dev.has_work:
+        return "none", 0, slots
+    else:
+        form = "grouped" if dev.grouped else "grid"
+    return form, plan.nnz, slots
 
 
 @dataclasses.dataclass

@@ -34,12 +34,15 @@ Phases (each prints its wall time):
    exactly the kernels its plan predicts (and ``EXPECTED`` lists), each
    SpMM apply exactly their multi-RHS forms (``EXPECTED_MM``) and no
    SpMV kernel. Then the float64 route (ROADMAP A8) the same way, with
-   ``dtype=np.float64``, on five full-size runs (``cant_proxy()`` and
+   ``dtype=np.float64``, on six full-size runs (``cant_proxy()`` and
    ``stencil27()``: the symmetric diagonal stream with the halved main
    diagonal only;
    ``audikw_proxy()``: the expanded one-sided stream; the flagship:
    both, the peel residual as a double entry list; ``general_asym()``:
-   one-sided), each checked against the float64
+   one-sided; a 3,000,000-row flagship with 64 scattered draws a row,
+   141M stored entries, past ``tune.FP64_ENTRIES_MIN_NNZ``: the
+   entry-list plan, whose residual of about 180M entries is made and
+   sorted on the card, and its planes), each checked against the float64
    oracle at the float64 gate (1e-8) with its scaled error printed beside
    the float32 run's, and an fp64 apply may move no fp32 kernel's count;
    and one apply of the plain ELL+COO path (``CFS_FP64=xla``) on the
@@ -95,7 +98,8 @@ Phases (each prints its wall time):
    ``bell2_spmm_accum_df``) on the float64 flagship's peel residual and on
    that replan's entry list (the upload takes it as entries), onto strided
    NaN-poisoned planes seeded finite on the named rows, against the
-   chunk-grid twin; the one-sided float SpMV kernel (B2) in float32 and
+   chunk-grid twin, and ``bell2_spmv_accum_df`` on the 3,000,000-row
+   flagship's entry list against its twin, with its device time; the one-sided float SpMV kernel (B2) in float32 and
    bf16 on ``audikw_proxy()``'s far stream, ``cant_proxy()`` NONE, shard 1
    of D3's far grids (``general_asym()`` over 4 shards, the operator phase
    8 applies) and the float replan with absent rows, into NaN-poisoned
@@ -269,6 +273,10 @@ EXPECTED = {
     "general_asym_f64": {"bell2_spmv_df"},  # asymmetric: all one-sided
     # 14 diagonals incl. the halved main one, nothing left for the stream
     "stencil27_f64": {"sdia_sym_df"},
+    # past tune.FP64_ENTRIES_MIN_NNZ: the entry-list plan (no chunk grid),
+    # 17 planes and a residual of about 180M entries over 3M rows,
+    # expanded and sorted on the card
+    "flagship_3m_f64": {"sdia_sym_df", "bell2_spmv_accum_df"},
     # bfloat16 values (``values="bfloat16"``): the bf16 instances of the
     # same plans' kernels; the unpermute reads no values and runs as it is
     "cant_proxy_bf16": {"sdia_sym_bf16"},
@@ -279,6 +287,9 @@ EXPECTED = {
     "flagship_csr_bf16": {"sdia_gen_bf16", "bell2_spmv_accum_bf16"},
     "near_band_paired_bf16": {"sbell_spmv_bf16", "bell2_spmv_accum_bf16"},
 }
+#: the runs whose float64 plan is the entry list (``ops/fp64_entries``):
+#: past ``tune.FP64_ENTRIES_MIN_NNZ`` stored entries
+ENTRY_LIST_RUNS = {"flagship_3m_f64"}
 #: the kernels that read the stream's values: each has a bf16 instance,
 #: whose launches its wrapper counts apart (``launches_bf16``) and which
 #: the ``kernels`` line lists as ``<name>_bf16``
@@ -397,10 +408,13 @@ GRAPH_ITERS = 200
 RHS = 8
 
 
-def flagship(n=1024, deg=8, dtype=np.float32, seed=0):
+def flagship(n=1024, deg=8, dtype=np.float32, seed=0, scatter=1.0,
+             bandwidth=None):
     """Banded symmetric matrix dense enough that tuning engages the SDIA
     stream, plus a scattered residual for the far path (the repository's
-    flagship, ``__graft_entry__._flagship``, on the port's COO/CSR)."""
+    flagship, ``__graft_entry__._flagship``, on the port's COO/CSR):
+    ``scatter`` random entries a row before the symmetric cut, within
+    ``bandwidth`` of the diagonal where given (``COO.random``)."""
     from cfs_spmv_tpu_torch import COO, CSR
 
     rng = np.random.default_rng(seed)
@@ -409,8 +423,8 @@ def flagship(n=1024, deg=8, dtype=np.float32, seed=0):
     offs = np.tile(np.arange(1, half_bw + 1, dtype=np.int64), n)
     cols = rows - offs
     keep = cols >= 0
-    scat = COO.random(n, n, 1.0, symmetric=True, seed=seed + 1,
-                      dtype=dtype)
+    scat = COO.random(n, n, scatter, symmetric=True, seed=seed + 1,
+                      dtype=dtype, bandwidth=bandwidth)
     r = np.concatenate([rows[keep], scat.row, np.arange(n)])
     c = np.concatenate([cols[keep], scat.col, np.arange(n)])
     v = np.concatenate([
@@ -1544,6 +1558,7 @@ def main() -> int:
     from cfs_spmv_tpu_torch.ops import sdia_df as sdf
     from cfs_spmv_tpu_torch.ops import sdia_kernel as sk
     from cfs_spmv_tpu_torch.ops import spmv as ops
+    from cfs_spmv_tpu_torch.ops.fp64_entries import Fp64EntriesPlan
     from cfs_spmv_tpu_torch.tuning.tune import tune
     from cfs_spmv_tpu_torch.utils.config import config
     from cfs_spmv_tpu_torch.utils.platform import allclose_spmv
@@ -1596,6 +1611,10 @@ def main() -> int:
     audikw = audikw_proxy()
     gasym = general_asym()
     st27 = stencil27()
+    # past tune.FP64_ENTRIES_MIN_NNZ (141M stored): 16 band diagonals and
+    # the main one, and 64 draws a row within 32,768 of the diagonal
+    flag3m = flagship(n=3_000_000, deg=32, scatter=64, bandwidth=1 << 15,
+                      seed=3)
     #: name -> (CSR, format, tuning, CFS_PAIRED, SDIA_SYM_ROWS_MAX); the
     #: float64 runs (the names ending in _f64) follow their float32 runs
     RUNS = {
@@ -1623,6 +1642,8 @@ def main() -> int:
         "general_asym_f64": (gasym, Format.CSR, Tuning.AGGRESSIVE, None,
                              None),
         "stencil27_f64": (st27, Format.SSS, Tuning.AGGRESSIVE, None, None),
+        "flagship_3m_f64": (flag3m, Format.SSS, Tuning.AGGRESSIVE, None,
+                            None),
     }
     print(f"matrices generated in {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -1716,8 +1737,19 @@ def main() -> int:
                 f"main path {name}: float64 operands on the card: stream "
                 f"{stream}, diagonal planes {mb_d:.2f} MB; "
                 f"max scaled error float64 {scaled[name]} against float32 "
-                f"{scaled[name[:-4]]} on the same matrix", flush=True)
-        if predicted & {"bell2_spmv_accum", "bell2_spmv_accum_df"}:
+                f"{scaled.get(name[:-4])} on the same matrix", flush=True)
+            if (name in ENTRY_LIST_RUNS) != isinstance(plan, Fp64EntriesPlan):
+                raise AssertionError(
+                    f"{name}: plan {type(plan).__name__}; the entry-list "
+                    f"plan is for {sorted(ENTRY_LIST_RUNS)}")
+        if isinstance(plan, Fp64EntriesPlan):
+            es = A.tuned.operands.entries
+            print(
+                f"main path {name}: entry-list plan, {plan.nnz} stored "
+                f"stream entries (both triangles), {es.count} live on the "
+                f"card, {_nbytes(es.rows, es.cols, es.vals) / 1e6:.1f} MB; "
+                "no chunk grid", flush=True)
+        elif predicted & {"bell2_spmv_accum", "bell2_spmv_accum_df"}:
             acc = far if far is not None else plan  # the host chunk grid
             dacc = A.tuned.operands
             dacc = dacc["dev"] if isinstance(dacc, dict) else dacc
@@ -3050,6 +3082,33 @@ def main() -> int:
         plain=lambda: bk.bell2_spmv_tiles_accum_plain(es_r, x2d_r,
                                                       y0_r.clone()),
     )
+    # the same kernel at the order of a full-size FEM residual: the entries
+    # that the entry-list plan of flagship_3m_f64 uploads (about 180M over
+    # 3M rows, made and sorted on the card), onto a nonzero y against the
+    # twin, and its device time
+    A_3, d_3, xe_3 = operands("flagship_3m_f64")
+    es_3 = d_3.entries
+    T3 = -(-A_3.nrows // 128)
+    x2d_3 = ops.pad_x(xe_3, max(d_3.x_rows, T3))
+    y0_3 = torch.rand((T3, 128), generator=g, dtype=f64).to(dev)
+    err_3 = _agree(
+        bdf.bell2_spmv_tiles_accum_df(es_3, x2d_3, y0_3.clone()),
+        bk.bell2_spmv_tiles_accum_plain(es_3, x2d_3, y0_3.clone()),
+        bk.bell2_spmv_tiles_accum_plain(
+            dataclasses.replace(es_3, vals=es_3.vals.abs()), x2d_3.abs(),
+            y0_3.abs()),
+        es_3.count / A_3.nrows,
+        "bell2_spmv_accum_df on flagship_3m_f64's entry list")
+    _, by_3 = _device_ms(torch, lambda: bdf.bell2_spmv_tiles_accum_df(
+        es_3, x2d_3, y0_3.clone()))
+    t_3 = by_3.get("bell2_entries_kernel")
+    gb_3 = _nbytes(es_3.rows, es_3.cols, es_3.vals) / 1e9
+    print(f"kernel bell2_spmv_accum_df on flagship_3m_f64's entry list: "
+          f"{es_3.count} entries ({gb_3:.3f} GB) over {A_3.nrows} rows, "
+          f"max_abs_err vs twin {err_3}; device {_ms(t_3)} ms"
+          + (f", {gb_3 / t_3:.1f} TB/s of entries" if t_3 else "")
+          + f" ({card})", flush=True)
+    del A_3, d_3, xe_3, es_3, x2d_3, y0_3
 
     def make_acc_df_mm(B):
         x3 = planes(B, x2d_r.shape[0], dtype=f64)
